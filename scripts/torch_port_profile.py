@@ -1,0 +1,74 @@
+"""Where the time goes in the port's far_mnist far_rip predict, on one GPU.
+
+    python3 scripts/torch_port_profile.py [--kernels cuda|plain] [--top 15]
+
+Builds far_mnist at full width from a seed (as chip_smoke.py does), warms
+the predict call up, then traces one call with torch.profiler and prints:
+the wall time of the traced call, the summed device time of its kernels,
+the device idle share (1 - device time / wall time; one stream, so kernels
+do not overlap), and the top kernels by device time with their launch
+counts. Needs a GPU; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--kernels", default="cuda", choices=("cuda", "plain"))
+    parser.add_argument("--top", type=int, default=15)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_port_profile: no GPU", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+
+    cfg = get_preset("far_mnist")
+    dev = torch.device("cuda")
+    enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
+                                 torch.Generator().manual_seed(0))
+    tr = build_transformer(cfg.transformer, torch.bfloat16, dev,
+                           torch.Generator().manual_seed(1),
+                           kernels=args.kernels)
+    past = torch.rand(10, 10, 64, 64, 1,
+                      generator=torch.Generator().manual_seed(2))
+    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
+    for _ in range(2):
+        predict(past)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predict(past)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []   # device-side events only (kernels, memcpy/memset)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            rows.append((e.self_device_time_total / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    print(f"kernels={args.kernels} far_rip predict (batch 10, 10 frames, "
+          f"traced): wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms, idle "
+          f"share {1 - dev_ms / wall_ms:.3f}")
+    for ms, count, key in rows[:args.top]:
+        print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} {key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,88 @@
+"""The port's package boundary on the CPU.
+
+(f) every preset of the port's config equals the JAX package's, field for
+    field (the port keeps its own copy of ``vptr_tpu/config.py``).
+(g) importing ``vptr_tpu_torch`` (every module) pulls in neither ``jax``
+    nor ``vptr_tpu``; entry points asked for the card raise when there is
+    none instead of running on the CPU; unported routes raise.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import vptr_tpu.config as jcfg
+import vptr_tpu_torch.config as tcfg
+from vptr_tpu_torch.eval.harness import make_predict_fn
+from vptr_tpu_torch.models.autoencoder import build_autoencoder
+from vptr_tpu_torch.models.transformer import build_transformer
+from vptr_tpu_torch.ops import attention_core as tac
+
+from _torch_port_util import small_cfgs
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_preset_names_match():
+    assert tcfg.list_presets() == jcfg.list_presets()
+
+
+@pytest.mark.parametrize("name", jcfg.list_presets())
+def test_preset_matches_jax(name):
+    assert (dataclasses.asdict(tcfg.get_preset(name))
+            == dataclasses.asdict(jcfg.get_preset(name)))
+    over = {"transformer": {"d_model": 48}, "data": {"batch_size": 3}}
+    assert (dataclasses.asdict(tcfg.get_preset(name).override(over))
+            == dataclasses.asdict(jcfg.get_preset(name).override(over)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vptr_tpu_torch\n"
+        "for m in pkgutil.walk_packages(vptr_tpu_torch.__path__, 'vptr_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'vptr_tpu', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cuda_entry_points_raise_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = small_cfgs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_autoencoder(cfg.ae)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_transformer(cfg.transformer)
+    enc, dec = build_autoencoder(cfg.ae, device="cpu")
+    tr = build_transformer(cfg.transformer, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_predict_fn(cfg, enc, dec, tr, "far_rip", 2)
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    q = torch.zeros(1, 1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tac.attention_core(q, q, q)
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"variant": "nar"}, "NAR slice"),
+    ({"rpe": True}, "NAR slice"),
+    ({"fused_full_temporal": True}, "NAR slice"),
+    ({"fused_ffn": True}, "default-off kernels"),
+    ({"scan_layers": True}, "trainer slice"),
+])
+def test_unported_routes_raise(override, match):
+    _, cfg = small_cfgs()
+    with pytest.raises(NotImplementedError, match=match):
+        build_transformer(cfg.transformer.__class__(
+            **{**dataclasses.asdict(cfg.transformer), **override}), device="cpu")

@@ -1,0 +1,134 @@
+"""The port's ops against the JAX package's, on the CPU.
+
+(a) ``attention_core`` (its plain version: the wrapper takes it for CPU
+    tensors) vs ``vptr_tpu.ops.attention_core.attention_core`` in Pallas
+    interpret mode: square causal, per-head bias, rectangular.
+(b) ``fused_attention_ln`` / ``_res`` vs the JAX functions (interpret mode),
+    with and without the position table.
+(c) window ops and position tables, exactly.
+
+Tolerances: f32 everywhere; 1e-5 absolute covers summation-order
+differences between XLA's and torch's f32 dot products at these widths
+(values O(1), sums of <= 48 products). The CUDA kernels are held against
+the same plain versions on the card by ``tests/test_torch_port_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vptr_tpu.models import position as jpos
+from vptr_tpu.ops import attention_core as jac
+from vptr_tpu.ops import fused_window_attention as jfw
+from vptr_tpu.ops import window as jwin
+from vptr_tpu_torch.models import position as tpos
+from vptr_tpu_torch.ops import attention_core as tac
+from vptr_tpu_torch.ops import fused_window_attention as tfw
+from vptr_tpu_torch.ops import window as twin
+
+from _torch_port_util import t
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
+
+ATOL = 1e-5
+
+
+def _causal(n):
+    return np.triu(np.full((n, n), -1e30, np.float32), k=1)[None]
+
+
+@pytest.mark.parametrize("case", ["square_causal", "per_head_bias",
+                                  "rectangular", "no_bias"])
+def test_attention_core_matches_jax(case):
+    rng = np.random.default_rng(1)
+    b, h, tq, tk, d = 6, 4, 7, 7, 12
+    bias = None
+    if case == "square_causal":
+        bias = _causal(tq)
+    elif case == "per_head_bias":
+        bias = rng.standard_normal((h, tq, tk)).astype(np.float32)
+    elif case == "rectangular":
+        tk = 5
+        bias = rng.standard_normal((1, tq, tk)).astype(np.float32)
+    q = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, tk, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, tk, d)).astype(np.float32)
+    want = jac.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              None if bias is None else jnp.asarray(bias),
+                              0, 0.0, 128, True)
+    got = tac.attention_core(t(q), t(k), t(v),
+                             None if bias is None else t(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _ln_inputs(rng, bw=5, l=16, c=48):
+    f = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)
+    ws = [f(c, c, scale=c ** -0.5) for _ in range(4)]
+    bs = [f(c, scale=0.1) for _ in range(4)]
+    return dict(x=f(bw, l, c), w=ws, b=bs, ls=1.0 + f(c, scale=0.1),
+                lb=f(c, scale=0.1), pos=f(l, c))
+
+
+@pytest.mark.parametrize("with_pos", [True, False])
+@pytest.mark.parametrize("res", [False, True])
+def test_fused_attention_ln_matches_jax(with_pos, res):
+    rng = np.random.default_rng(2)
+    a = _ln_inputs(rng)
+    heads = 4
+    bias = _causal(16)            # exercise the bias operand too
+    scale = np.array([1.0, 0.0, 2.0, 1.0, 0.5], np.float32)
+    pos = a["pos"] if with_pos else None
+    (wq, wk, wv, wo), (bq, bk, bv, bo) = a["w"], a["b"]
+    jargs = [jnp.asarray(z) for z in (a["x"], wq, bq, wk, bk, wv, bv, wo, bo,
+                                      a["ls"], a["lb"])]
+    targs = [t(z) for z in (a["x"], wq, bq, wk, bk, wv, bv, wo, bo,
+                            a["ls"], a["lb"])]
+    jp = None if pos is None else jnp.asarray(pos)
+    tp = None if pos is None else t(pos)
+    if res:
+        want = jfw.fused_attention_ln_res(*jargs, jp, jnp.asarray(bias),
+                                          jnp.asarray(scale), 0, heads, 0.0,
+                                          64, True)
+        got = tfw.fused_attention_ln_res(*targs, tp, t(bias), t(scale),
+                                         num_heads=heads)
+    else:
+        want = jfw.fused_attention_ln(*jargs, jp, jnp.asarray(bias), 0, heads,
+                                      0.0, 64, True)
+        got = tfw.fused_attention_ln(*targs, tp, t(bias), num_heads=heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_dropout_raises_until_training_slice():
+    q = torch.zeros(1, 1, 4, 8)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tac.attention_core(q, q, q, dropout_rate=0.1)
+    x, w, c = torch.zeros(1, 4, 8), torch.zeros(8, 8), torch.zeros(8)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfw.fused_attention_ln(x, w, c, w, c, w, c, w, c, c, c, num_heads=2,
+                               dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (6, 10)])
+def test_window_ops_match_jax(hw):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2,) + hw + (5,)).astype(np.float32)
+    jx, offs = jwin.pad_to_window(jnp.asarray(x), 4)
+    tx, toffs = twin.pad_to_window(t(x), 4)
+    assert toffs == offs
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    jw = jwin.window_partition(jx, 4)
+    tw = twin.window_partition(tx, 4)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    back = twin.window_reverse(tw, 4, tuple(tx.shape[1:3]))
+    np.testing.assert_array_equal(
+        twin.unpad_from_window(back, hw, toffs).numpy(), x)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_position_tables_match_jax(normalize):
+    np.testing.assert_array_equal(
+        tpos.position_embedding_1d(20, 48, normalize=normalize).numpy(),
+        np.asarray(jpos.position_embedding_1d(20, 48, normalize=normalize)))
+    np.testing.assert_array_equal(
+        tpos.position_embedding_2d(4, 4, 528, normalize=normalize).numpy(),
+        np.asarray(jpos.position_embedding_2d(4, 4, 528, normalize=normalize)))

@@ -1,0 +1,269 @@
+"""Transformer layers of the FAR serving path, in PyTorch (eval mode).
+
+Counterpart of the FAR-eval subset of ``vptr_tpu/models/layers.py``:
+
+* :class:`MultiHeadAttention` with the two routes this path uses:
+  the LayerNorm-folded whole-sublayer kernel (``fused_attention_ln``,
+  ``layers.py:236-265``) and torch projections feeding the attention-core
+  kernel (``layers.py:309-326``); ``fused=False`` runs the same arithmetic
+  in plain PyTorch.
+* :class:`WindowAttention` (absolute 2D sine position on q/k; RPE is NAR's),
+  :class:`TemporalAttention` (causal mask as a -1e30 (1, T, T) bias),
+  :class:`LayerNorm`, :class:`LayerNormHWC`, :class:`MlpDWBN` in its
+  LayerNormHWC flavour, :class:`Mlp` and :class:`DropPath` (identity at
+  eval).
+
+Each attention module's ``kernels`` attribute is ``"cuda"`` (the wrappers:
+the kernel on a CUDA tensor, the plain version on a CPU tensor) or
+``"plain"`` (the plain version everywhere); :func:`use_kernels` sets it on a
+whole model, for the on-card comparison of the two. Parameters are f32,
+``dtype`` is the compute dtype; names mirror the JAX parameter tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vptr_tpu_torch.ops.attention_core import attention_core, attention_core_plain
+from vptr_tpu_torch.ops.fused_window_attention import (
+    fused_attention_ln,
+    fused_attention_ln_plain,
+    fused_attention_ln_res,
+)
+from vptr_tpu_torch.ops.window import (
+    pad_to_window,
+    unpad_from_window,
+    window_partition,
+    window_reverse,
+)
+
+KERNEL_MODES = ("cuda", "plain")
+
+
+def use_kernels(model: nn.Module, kernels: str) -> nn.Module:
+    """Route every attention module of ``model`` through the kernels
+    (``"cuda"``) or their plain versions (``"plain"``)."""
+    if kernels not in KERNEL_MODES:
+        raise ValueError(f"kernels must be one of {KERNEL_MODES}, got {kernels!r}")
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.kernels = kernels
+    return model
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """nn.Dense in ``dtype``: input, kernel and bias cast to it."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with f32 statistics whose result is cast to ``dtype``."""
+
+    def __init__(self, shape, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(shape, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
+class LayerNormHWC(LayerNorm):
+    """LayerNorm over a whole (C, H, W) NCHW sample with per-element affine
+    (``layers.py:522-543``; the JAX module stores its affine (H, W, C))."""
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with separate q/k/v/out projections over (..., L, C)."""
+
+    def __init__(self, dim: int, num_heads: int, fused: bool = False,
+                 fused_full: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not divisible by {num_heads} heads")
+        self.dim, self.num_heads = dim, num_heads
+        self.fused, self.fused_full = fused, fused_full
+        self.dtype = dtype
+        self.kernels = "cuda"            # see use_kernels
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def _dense_params(self):
+        """(W (in, out) in dtype, b f32) for q, k, v, out — the fused
+        kernel's operand layout (the JAX Dense kernel layout)."""
+        return [(lin.weight.t().to(self.dtype).contiguous(), lin.bias.float())
+                for lin in (self.q_proj, self.k_proj, self.v_proj,
+                            self.out_proj)]
+
+    def forward(self, q_in, k_in, v_in, *, bias=None,
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                qk_pos=None, residual: bool = False):
+        """``ln``: (scale, bias) of the sublayer's leading LayerNorm; callers
+        then pass the raw x as q_in = k_in = v_in and q/k = LN(x) + qk_pos,
+        v = LN(x). ``residual`` (fused LN route only) returns x + attn(...).
+        ``bias``: None or (1 | H, Lq, Lk) additive logits."""
+        plain = self.kernels == "plain"
+        if ln is not None:
+            if not (q_in is k_in and k_in is v_in):
+                raise ValueError("ln folding expects q_in = k_in = v_in = x")
+            if self.fused and self.fused_full:
+                (wq, bq), (wk, bk), (wv, bv), (wo, bo) = self._dense_params()
+                lead, l = q_in.shape[:-2], q_in.shape[-2]
+                xf = q_in.reshape(-1, l, self.dim).to(self.dtype).contiguous()
+                args = (xf, wq, bq, wk, bk, wv, bv, wo, bo, ln[0].float(),
+                        ln[1].float(),
+                        None if qk_pos is None else qk_pos.float().contiguous(),
+                        bias)
+                if plain:
+                    out = fused_attention_ln_plain(
+                        *args, num_heads=self.num_heads, res=residual)
+                elif residual:
+                    out = fused_attention_ln_res(*args, num_heads=self.num_heads)
+                else:
+                    out = fused_attention_ln(*args, num_heads=self.num_heads)
+                return out.reshape(lead + (l, self.dim))
+            xn = F.layer_norm(q_in.float(), (self.dim,), ln[0], ln[1],
+                              1e-5).to(self.dtype)
+            q_in = k_in = xn + qk_pos.to(self.dtype) if qk_pos is not None else xn
+            v_in = xn
+            if residual:
+                raise NotImplementedError(
+                    "the residual-folded sublayer runs on the fused route only")
+
+        hd = self.dim // self.num_heads
+        q = _linear(self.q_proj, q_in, self.dtype)
+        k = _linear(self.k_proj, k_in, self.dtype)
+        v = _linear(self.v_proj, v_in, self.dtype)
+
+        def heads(z):  # (..., L, C) -> (B, H, L, hd), contiguous
+            z = z.reshape(z.shape[:-1] + (self.num_heads, hd))
+            return z.movedim(-2, -3).reshape(
+                (-1, self.num_heads, z.shape[-3], hd)).contiguous()
+
+        core = attention_core if self.fused and not plain else attention_core_plain
+        out = core(heads(q), heads(k), heads(v), bias)
+        out = out.transpose(1, 2).reshape(q.shape)
+        return _linear(self.out_proj, out, self.dtype)
+
+
+class WindowAttention(nn.Module):
+    """Local spatial window self-attention over (N, T, H, W, C); the 2D sine
+    position goes on q/k only."""
+
+    def __init__(self, dim: int, num_heads: int, window: int = 4,
+                 fused: bool = False, fused_full: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.window = window
+        self.attn = MultiHeadAttention(dim, num_heads, fused, fused_full,
+                                       dtype)
+
+    def forward(self, x, pos2d, *, ln=None, residual: bool = False):
+        """``pos2d``: (window*window, C). ``ln``: pass the raw pre-norm x
+        and the norm folds into the fused kernel; ``residual`` then returns
+        the whole sublayer x + attn(LN(x))."""
+        n, t, h, w, c = x.shape
+        tokens = self.window * self.window
+        y, offs = pad_to_window(x.reshape(n * t, h, w, c), self.window)
+        padded_hw = y.shape[1:3]
+        xw = window_partition(y, self.window)
+        if ln is not None:
+            out = self.attn(xw, xw, xw, ln=ln, qk_pos=pos2d.reshape(tokens, c),
+                            residual=residual)
+        else:
+            qk = xw + pos2d.reshape(1, tokens, c).to(xw.dtype)
+            out = self.attn(qk, qk, xw)
+        out = window_reverse(out, self.window, padded_hw)
+        return unpad_from_window(out, (h, w), offs).reshape(n, t, h, w, c)
+
+
+class TemporalAttention(nn.Module):
+    """Attention over the time axis at every (n, h, w) position; ``causal``
+    adds the static mask as a -1e30 (1, T, T) bias."""
+
+    def __init__(self, dim: int, num_heads: int, causal: bool = False,
+                 fused: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.causal = causal
+        self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype)
+
+    def forward(self, x, pos_q):
+        """x: (N, T, H, W, C), ``pos_q``: (T, C)."""
+        n, t, h, w, c = x.shape
+        cols = x.permute(0, 2, 3, 1, 4).reshape(n, h * w, t, c)
+        bias = None
+        if self.causal:   # -1e30 above the diagonal, 0 on and below it
+            bias = torch.full((t, t), -1e30, device=x.device).triu(1)[None]
+        qk = cols + pos_q[None, None].to(x.dtype)
+        out = self.attn(qk, qk, cols, bias=bias)
+        return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
+
+
+class MlpDWBN(nn.Module):
+    """HRFormer conv feed-forward, LayerNormHWC flavour: 1x1 -> LN -> GELU
+    -> depthwise 3x3 -> LN -> GELU -> 1x1 -> LN -> GELU (exact erf GELU;
+    ``layers.py:686-696``). The LayerNormHWC affine binds to (h, w)."""
+
+    def __init__(self, dim: int, hidden_dim: int, h: int, w: int,
+                 norm: str = "layer", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if norm != "layer":
+            raise NotImplementedError(
+                f"MlpDWBN norm={norm!r} (the NAR encoder's BatchNorm conv "
+                "FFN) comes with the NAR slice")
+        self.dtype = dtype
+        self.fc1 = nn.Conv2d(dim, hidden_dim, 1)
+        self.norm1 = LayerNormHWC((hidden_dim, h, w), dtype=dtype)
+        self.dw3x3 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1,
+                               groups=hidden_dim)
+        self.norm2 = LayerNormHWC((hidden_dim, h, w), dtype=dtype)
+        self.fc2 = nn.Conv2d(hidden_dim, dim, 1)
+        self.norm3 = LayerNormHWC((dim, h, w), dtype=dtype)
+
+    def _conv(self, conv: nn.Conv2d, y):
+        return F.conv2d(y, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                        conv.stride, conv.padding, groups=conv.groups)
+
+    def forward(self, x):
+        n, t, h, w, c = x.shape
+        y = x.reshape(n * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
+        y = F.gelu(self.norm1(self._conv(self.fc1, y)))
+        y = F.gelu(self.norm2(self._conv(self.dw3x3, y)))
+        y = F.gelu(self.norm3(self._conv(self.fc2, y)))
+        return y.permute(0, 2, 3, 1).reshape(n, t, h, w, -1)
+
+
+class Mlp(nn.Module):
+    """Linear feed-forward: linear2(gelu(linear1(x))) (``layers.py:716-765``)."""
+
+    def __init__(self, dim: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.linear1 = nn.Linear(dim, hidden_dim)
+        self.linear2 = nn.Linear(hidden_dim, dim)
+
+    def forward(self, x):
+        y = F.gelu(_linear(self.linear1, x, self.dtype))
+        return _linear(self.linear2, y, self.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth; the identity in eval mode (training: later slice)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("DropPath in training mode comes with "
+                                      "the FAR training slice")
+        return x
