@@ -7,18 +7,30 @@ Phases (any failure exits non-zero, without the final result line):
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and print the build time and ptxas's register / spill report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the far_mnist far_rip path gives it, in bf16 and f32, plus a
-   rectangular attention core and the residual/scale window variant;
+   shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
+   far_rip shapes, a rectangular attention core and the residual/scale
+   window variant; the forwards with dropout 0.1 at the training shapes;
+   both backward kernels at the training shapes (window 760 x 16 x 528,
+   core 640 x 8 x 19 x 66), dropout 0 and 0.1, with a per-head bias for
+   the bias gradients;
 4. build far_mnist at full width from a seed (AE ngf 64 / feat 528 / 9 res
    blocks, FAR 12 layers / d 528 / 8 heads), run the far_rip predict entry
    point for 10 frames from 10 past frames at batch 10 with every launch
-   counter set to 0 just before and read just after (each kernel must run
-   12 layers x 10 steps = 120 times), check the frames, and compare the
-   teacher-forced "far" mode with kernels against kernels="plain";
-5. time the far_rip predict call and each kernel beside its plain version,
-   a PyTorch library yardstick and its bound (bytes or operations over the
-   card's published peak);
-6. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   counter set to 0 just before and read just after (each forward kernel
+   must run 12 layers x 10 steps = 120 times), check the frames, and
+   compare the teacher-forced "far" mode with kernels against
+   kernels="plain";
+5. train far_mnist at full width (the step make_far_train_step builds:
+   batch 10, T = 19 teacher-forced, dropout / DropPath 0.1, clip -> AdamW
+   with the preset's bf16 first moment): one step with every counter at 0
+   just before and read just after (each of the four kernels must run 12
+   times); one step with the kernels and one with kernels="plain" from one
+   cloned state; 10 steps on one fixed batch, losses finite and falling;
+6. time the far_rip predict call, the train step (median of 8 after 2
+   warm-ups, and with kernels="plain") and each kernel beside its plain
+   version, a PyTorch library yardstick and its bound (bytes or
+   operations over the card's published peak);
+7. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -41,6 +53,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 BATCH, PAST, FUTURE = 10, 10, 10
 LAYERS = 12
+TRAIN_STEPS = 10              # the loss-falling run
+TIMED_STEPS, WARMUP_STEPS = 8, 2
 
 failures = []
 
@@ -82,6 +96,17 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| over the larger of 1 and max |b|."""
+    return max_err(a, b) / max(1.0, b.float().abs().max().item())
+
+
+def zero_counters(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+        w.bwd_launches = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -96,16 +121,23 @@ def main() -> int:
     from vptr_tpu_torch.models.position import position_embedding_2d
     from vptr_tpu_torch.models.transformer import build_transformer
     from vptr_tpu_torch.ops import _build
+    from vptr_tpu_torch.ops import attention_core as tac
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
     from vptr_tpu_torch.ops.attention_core import (
         attention_core,
+        attention_core_backward_plain,
         attention_core_plain,
     )
     from vptr_tpu_torch.ops.fused_window_attention import (
         fused_attention_ln,
+        fused_attention_ln_backward_plain,
         fused_attention_ln_plain,
         fused_attention_ln_res,
         kernel_route,
     )
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 = full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -166,6 +198,21 @@ def main() -> int:
     # the output by less than that
     tol = {torch.float32: 1e-3, torch.bfloat16: 6.25e-2}
 
+    # the training path: T = 19 teacher-forced frames, dropout 0.1
+    tt = ctx - 1
+    twindows = windows // ctx * tt
+    rate = tc.dropout
+    kseed = torch.tensor([SEED + 12345], dtype=torch.int32, device=dev)
+    # backward tolerances, relative to the larger of 1 and the largest
+    # magnitude of each gradient: f32 1e-4 — summation order (the weight
+    # gradients sum 12,160 rows); bf16 2^-5 — every gradient is rounded to
+    # bf16 (2^-8), and an intermediate rounding (xn, q/k/v, the dropped
+    # weights) that falls the other way moves the terms it feeds by one
+    # bf16 ulp; the weight gradients are cast to bf16 at the end
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+    grad_names = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+                  "dbo", "dls", "dlb", "dbias")
+
     phase("3. kernels against their plain versions (card)")
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -203,6 +250,62 @@ def main() -> int:
         check(e <= tol[dtype], f"attention_core {name} rectangular "
               f"{tuple(q.shape)}x{tuple(k.shape)} per-head bias "
               f"max|err| {e:.3e} <= {tol[dtype]}")
+
+        # dropout forwards at the training shapes (hash masks are exact)
+        tops = window_operands(dtype, bw=twindows)
+        e = max_err(fused_attention_ln(*tops, None, kseed, heads, rate),
+                    fused_attention_ln_plain(*tops, None, kseed, heads, rate))
+        check(e <= tol[dtype], f"fused_attention_ln {name} dropout {rate} "
+              f"{tuple(tops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
+        tq_, tk_, tv_ = core_operands(dtype, tq=tt, tk=tt)
+        tcausal = causal[:, :tt, :tt]
+        e = max_err(attention_core(tq_, tk_, tv_, tcausal, kseed, rate),
+                    attention_core_plain(tq_, tk_, tv_, tcausal, kseed, rate))
+        check(e <= tol[dtype], f"attention_core {name} dropout {rate} "
+              f"{tuple(tq_.shape)} causal max|err| {e:.3e} <= {tol[dtype]}")
+
+        # backward kernels at the training shapes
+        for r in (0.0, rate):
+            gout = randn(twindows, tokens, c).to(dev, dtype)
+            wbias = torch.randn(heads, tokens, tokens, generator=g).to(dev)
+            for bias, sc, res in ((None, None, False),
+                                  (wbias, (torch.rand(twindows, generator=g)
+                                           * 2).to(dev), True)):
+                got = tfw.fused_attention_ln_backward(
+                    *tops, bias, kseed, gout, heads, r, sc, res)
+                want = fused_attention_ln_backward_plain(
+                    *tops, bias, kseed, gout, heads, r, sc, res)
+                worst = {n: rel_err(a, b) for n, a, b in
+                         zip(grad_names, got, want) if b is not None}
+                n_worst = max(worst, key=worst.get)
+                what = "res, scale, per-head bias" if res else "no bias"
+                check(worst[n_worst] <= bwd_tol[dtype],
+                      f"fused_attention_ln backward {name} dropout {r} ({what})"
+                      f" worst {n_worst} rel err {worst[n_worst]:.2e} <= "
+                      f"{bwd_tol[dtype]:.2e}")
+                if dtype == torch.bfloat16 and r > 0 and not res:
+                    errs[("window_bwd", dtype)] = max(
+                        max_err(a, b) for a, b in zip(got, want) if b is not None)
+            gcore = core_operands(dtype, tq=tt, tk=tt)[0]
+            hbias = torch.randn(heads, tt, tt, generator=g).to(dev)
+            for bias in (tcausal, hbias):
+                got = tac.attention_core_backward(
+                    tq_, tk_, tv_, bias, kseed, gcore, r,
+                    need_dbias=bias is hbias)
+                want = attention_core_backward_plain(
+                    tq_, tk_, tv_, bias, kseed, gcore, r, bias is hbias)
+                worst = {n: rel_err(a, b) for n, a, b in
+                         zip(("dq", "dk", "dv", "dbias"), got, want)
+                         if b is not None}
+                n_worst = max(worst, key=worst.get)
+                what = "per-head bias, dbias" if bias is hbias else "causal"
+                check(worst[n_worst] <= bwd_tol[dtype],
+                      f"attention_core backward {name} dropout {r} ({what}) "
+                      f"worst {n_worst} rel err {worst[n_worst]:.2e} <= "
+                      f"{bwd_tol[dtype]:.2e}")
+                if dtype == torch.bfloat16 and r > 0 and bias is tcausal:
+                    errs[("core_bwd", dtype)] = max(
+                        max_err(a, b) for a, b in zip(got, want) if b is not None)
     torch.cuda.synchronize()
 
     phase("4. far_mnist full width, far_rip predict")
@@ -216,8 +319,7 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(SEED + 2))
     past, future = frames[:, :PAST], frames[:, PAST:]
     predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
-    attention_core.launches = 0
-    fused_attention_ln.launches = 0
+    zero_counters(attention_core, fused_attention_ln)
     pred = predict(past)
     torch.cuda.synchronize()
     launches = {"fused_attention_ln": fused_attention_ln.launches,
@@ -241,8 +343,61 @@ def main() -> int:
     check(e_far <= 5e-2, f"far mode kernels vs kernels='plain' max|err| "
           f"{e_far:.3e} <= 5e-2 (bf16 sigmoid frames after 12 layers)")
 
-    phase("5. timing")
+    phase("5. far_mnist full width, train step")
+    opt = build_optimizer(cfg.optim, tc.d_model)
+    print(f"  optimizer {cfg.optim.optimizer} lr {cfg.optim.lr} clip "
+          f"{cfg.optim.max_grad_norm} mu_dtype {cfg.optim.mu_dtype}; dropout "
+          f"{tc.dropout} attention dropout {tc.attention_dropout} drop_path "
+          f"{tc.drop_path}")
+    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    train_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+    tpast, tfuture = past.to(dev), future.to(dev)
+    zero_counters(attention_core, fused_attention_ln)
+    state, m0 = train_step(state, tpast, tfuture)
+    torch.cuda.synchronize()
+    train_launches = {
+        "fused_attention_ln": fused_attention_ln.launches,
+        "attention_core": attention_core.launches,
+        "fused_attention_ln_bwd": fused_attention_ln.bwd_launches,
+        "attention_core_bwd": attention_core.bwd_launches}
+    for name, n in train_launches.items():
+        check(n == LAYERS, f"{name} launches in one train step: {n} == {LAYERS}")
+    check(all(bool(torch.isfinite(v)) for v in m0.values()),
+          f"first step metrics finite: "
+          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
+
+    a, b = state.clone(), state.clone()
+    use_kernels(b.transformer, "plain")
+    a, ma = train_step(a, tpast, tfuture)
+    b, mb = train_step(b, tpast, tfuture)
+    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
+    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
+    # bf16 through 12 layers and the decoder: the step's loss agrees to
+    # about 1e-3 of its value; the gradient norm to a few percent
+    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
+          f"train step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
+          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
+    check(d_norm <= 0.05, f"train step kernels vs kernels='plain' grad norm "
+          f"rel diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
+          f"{float(mb['grad_norm']):.6e})")
+    del a, b
+
+    fixed = state.clone()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        fixed, m = train_step(fixed, tpast, tfuture)
+        losses.append(float(m["T_total"]))
+    print(f"  T_total over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "train losses finite")
+    check(losses[-1] < losses[0], f"T_total falls over {TRAIN_STEPS} steps: "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    del fixed
+
+    phase("6. timing")
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30   # weights + train state
     times = []
     for i in range(6):
         torch.cuda.synchronize()
@@ -256,7 +411,8 @@ def main() -> int:
     print(f"  far_rip predict (batch {BATCH}, {FUTURE} frames): median "
           f"{pred_ms:.3f} ms of {len(times)} ({[round(t, 3) for t in times]}),"
           f" {BATCH * FUTURE / pred_ms * 1e3:.1f} frames/s, peak "
-          f"{peak_gib:.3f} GiB")
+          f"{peak_gib:.3f} GiB ({held:.3f} GiB of it held before the call: "
+          f"the modules and the train state)")
 
     use_kernels(tr, "plain")
     plain_pred_ms = statistics.median(
@@ -264,21 +420,52 @@ def main() -> int:
     use_kernels(tr, "cuda")
     print(f"  far_rip predict with kernels='plain': {plain_pred_ms:.3f} ms")
 
+    def timed_step(st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = train_step(st, tpast, tfuture)
+        torch.cuda.synchronize()
+        return st, (time.perf_counter() - t0) * 1e3
+
+    # the kernels' state and the plain one take steps in turns (kernels,
+    # plain, plain, kernels, ...), so host noise falls on both alike
+    frames_per_step = BATCH * tt
+    kstate, pstate = state.clone(), state.clone()
+    use_kernels(pstate.transformer, "plain")
+    del state
+    torch.cuda.reset_peak_memory_stats()
+    step_times, plain_times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        order = ((kstate, step_times), (pstate, plain_times))
+        for which, out in (order if i % 2 == 0 else order[::-1]):
+            st, ms = timed_step(which)
+            if i >= WARMUP_STEPS:
+                out.append(ms)
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(step_times)
+    plain_step_ms = statistics.median(plain_times)
+    del kstate, pstate
+    print(f"  train step (batch {BATCH}, T {tt}): median {step_ms:.3f} ms of "
+          f"{len(step_times)} ({[round(t, 3) for t in step_times]}), "
+          f"{frames_per_step / step_ms * 1e3:.1f} frames/s; kernels='plain' "
+          f"median {plain_step_ms:.3f} ms ({[round(t, 3) for t in plain_times]});"
+          f" peak {step_peak:.3f} GiB with both states held")
+
     bf = torch.bfloat16
     wops = window_operands(bf)
     x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos = wops
     s = 2   # bytes per bf16 element
 
-    def window_library():
+    def window_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
         xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
         xqk = xn + pos.to(bf)
-        split = lambda z: z.view(windows, tokens, heads, hd).transpose(1, 2)
+        split = lambda z: z.view(x.shape[0], tokens, heads, hd).transpose(1, 2)
         o = F.scaled_dot_product_attention(
             split(F.linear(xqk, wq.t(), bq.to(bf))),
             split(F.linear(xqk, wk.t(), bk.to(bf))),
             split(F.linear(xn, wv.t(), bv.to(bf))))
-        return F.linear(o.transpose(1, 2).reshape(windows, tokens, c), wo.t(),
-                        bo.to(bf))
+        return F.linear(o.transpose(1, 2).reshape(x.shape[0], tokens, c),
+                        wo.t(), bo.to(bf))
 
     w_bytes = 2 * windows * tokens * c * s + 4 * c * c * s + (6 * c + tokens * c) * 4
     w_flops = 8 * windows * tokens * c * c + 4 * windows * heads * tokens * tokens * hd
@@ -286,47 +473,98 @@ def main() -> int:
     c_bytes = 4 * cols * heads * ctx * hd * s + ctx * ctx * 4
     c_flops = 4 * cols * heads * ctx * ctx * hd
 
+    # the backward kernels at the training shapes (bf16, dropout 0.1, the
+    # path's operands: no window bias, the causal temporal mask)
+    rows = twindows * tokens
+    tops = window_operands(bf, bw=twindows)
+    gwin = randn(twindows, tokens, c).to(dev, bf)
+    # x, g read; dx written; four weights read, four dW written; vectors
+    wb_bytes = 3 * rows * c * s + 8 * c * c * s + (14 * c + tokens * c) * 4
+    # eleven R x C x C products (q, k, v recomputed, d(attn), four dW, three
+    # for d(xn)) plus the per-head attention backward
+    wb_flops = 22 * rows * c * c + 12 * twindows * tokens * tokens * c
+    tq_, tk_, tv_ = core_operands(bf, tq=tt, tk=tt)
+    gcore = core_operands(bf, tq=tt, tk=tt)[0]
+    tcausal = causal[:, :tt, :tt]
+    cb_bytes = 7 * cols * heads * tt * hd * s + tt * tt * 4
+    cb_flops = 10 * cols * heads * tt * tt * hd
+
+    # the library yardstick's backward: dx and the four weight gradients
+    lib_in = [z.clone().requires_grad_() for z in (tops[0], wq, wk, wv, wo)]
+    lib_out = window_library(*lib_in)
+    lib_g = torch.randn(lib_out.shape, generator=g).to(dev, bf)
+    lq, lk, lv = (z.clone().requires_grad_() for z in (tq_, tk_, tv_))
+    core_lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                  attn_mask=tcausal.to(bf))
+
     def bound(nbytes, flops):
         tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[bf] * 1e3
         return (tf, "operations") if tf >= tb else (tb, "bytes")
 
-    rows = []
-    for name, src, replaces, fn, plain, lib, nbytes, flops, err in (
+    rows_out = []
+    for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
         ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",
          "vptr_tpu/ops/fused_window_attention.py:586",
          lambda: fused_attention_ln(*wops, None, num_heads=heads),
          lambda: fused_attention_ln_plain(*wops, None, num_heads=heads),
-         window_library, w_bytes, w_flops, errs[("window", bf)]),
+         window_library, w_bytes, w_flops, errs[("window", bf)],
+         launches["fused_attention_ln"]),
         ("attention_core", "vptr_tpu_torch/csrc/attention_core.cu",
          "vptr_tpu/ops/attention_core.py:188",
          lambda: attention_core(q, k, v, causal),
          lambda: attention_core_plain(q, k, v, causal),
          lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=causal.to(bf)),
-         c_bytes, c_flops, errs[("core", bf)]),
+         c_bytes, c_flops, errs[("core", bf)], launches["attention_core"]),
+        ("fused_attention_ln_bwd",
+         "vptr_tpu_torch/csrc/fused_window_attention_ln_bwd.cu",
+         "vptr_tpu/ops/fused_window_attention.py:769",
+         lambda: tfw.fused_attention_ln_backward(*tops, None, kseed, gwin, heads,
+                                                 rate),
+         lambda: fused_attention_ln_backward_plain(*tops, None, kseed, gwin,
+                                                   heads, rate),
+         lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True),
+         wb_bytes, wb_flops, errs[("window_bwd", bf)],
+         train_launches["fused_attention_ln_bwd"]),
+        ("attention_core_bwd", "vptr_tpu_torch/csrc/attention_core.cu",
+         "vptr_tpu/ops/attention_core.py:317",
+         lambda: tac.attention_core_backward(tq_, tk_, tv_, tcausal, kseed,
+                                             gcore, rate, need_dbias=False),
+         lambda: attention_core_backward_plain(tq_, tk_, tv_, tcausal, kseed,
+                                               gcore, rate, False),
+         lambda: torch.autograd.grad(core_lib_out, (lq, lk, lv), gcore,
+                                     retain_graph=True),
+         cb_bytes, cb_flops, errs[("core_bwd", bf)],
+         train_launches["attention_core_bwd"]),
     ):
-        before = (attention_core.launches, fused_attention_ln.launches)
+        before = (attention_core.launches, fused_attention_ln.launches,
+                  attention_core.bwd_launches, fused_attention_ln.bwd_launches)
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fn), cuda_ms(fn), cuda_ms(plain))
-        attention_core.launches, fused_attention_ln.launches = before
+        (attention_core.launches, fused_attention_ln.launches,
+         attention_core.bwd_launches, fused_attention_ln.bwd_launches) = before
         lib_ms = cuda_ms(lib)
         b_ms, b_by = bound(nbytes, flops)
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": n_launch,
                "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        rows.append(row)
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "train_step_launches": train_launches[name]}
+        rows_out.append(row)
         print(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f}"
               f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
 
-    phase("6. result")
-    print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f}")
+    phase("7. result")
+    print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
+          f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
+          f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
+          f"train_peak_gib {step_peak:.3f}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

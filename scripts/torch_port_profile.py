@@ -1,13 +1,15 @@
-"""Where the time goes in the port's far_mnist far_rip predict, on one GPU.
+"""Where the time goes in the port's far_mnist far_rip predict or train
+step, on one GPU.
 
-    python3 scripts/torch_port_profile.py [--kernels cuda|plain] [--top 15]
+    python3 scripts/torch_port_profile.py [--train] [--kernels cuda|plain] [--top 15]
 
 Builds far_mnist at full width from a seed (as chip_smoke.py does), warms
-the predict call up, then traces one call with torch.profiler and prints:
-the wall time of the traced call, the summed device time of its kernels,
-the device idle share (1 - device time / wall time; one stream, so kernels
-do not overlap), and the top kernels by device time with their launch
-counts. Needs a GPU; exits non-zero without one.
+the predict call (or, with --train, the train step: batch 10, T = 19,
+dropout 0.1, clip -> AdamW) up, then traces one call with torch.profiler
+and prints: the wall time of the traced call, the summed device time of
+its kernels, the device idle share (1 - device time / wall time; one
+stream, so kernels do not overlap), and the top kernels by device time
+with their launch counts. Needs a GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels", default="cuda", choices=("cuda", "plain"))
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--train", action="store_true",
+                        help="trace one train step instead of a predict call")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
@@ -37,6 +41,9 @@ def main() -> int:
     from vptr_tpu_torch.eval.harness import make_predict_fn
     from vptr_tpu_torch.models.autoencoder import build_autoencoder
     from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step
 
     cfg = get_preset("far_mnist")
     dev = torch.device("cuda")
@@ -45,15 +52,25 @@ def main() -> int:
     tr = build_transformer(cfg.transformer, torch.bfloat16, dev,
                            torch.Generator().manual_seed(1),
                            kernels=args.kernels)
-    past = torch.rand(10, 10, 64, 64, 1,
-                      generator=torch.Generator().manual_seed(2))
-    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
+    frames = torch.rand(10, 20, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    past, future = frames[:, :10], frames[:, 10:]
+    if args.train:
+        opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
+        state = create_far_train_state(enc, dec, tr, opt, seed=3)
+        step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+        run = lambda: step(state, past, future)
+        what = "train step (batch 10, T 19)"
+    else:
+        predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
+        run = lambda: predict(past)
+        what = "far_rip predict (batch 10, 10 frames)"
     for _ in range(2):
-        predict(past)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict(past)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []   # device-side events only (kernels, memcpy/memset)
@@ -62,9 +79,8 @@ def main() -> int:
             rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
-    print(f"kernels={args.kernels} far_rip predict (batch 10, 10 frames, "
-          f"traced): wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms, idle "
-          f"share {1 - dev_ms / wall_ms:.3f}")
+    print(f"kernels={args.kernels} {what}, traced: wall {wall_ms:.3f} ms, "
+          f"device {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
     for ms, count, key in rows[:args.top]:
         print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} {key[:90]}")
     return 0

@@ -88,3 +88,129 @@ def test_kernels_refuse_unsupported_shapes(cuda):
         tac.attention_core(q[..., :4, :].transpose(2, 3),
                            q[..., :4, :].transpose(2, 3),
                            q[..., :4, :].transpose(2, 3))
+
+
+# ---- dropout and the backward kernels (training slice)
+#
+# Backward tolerances, relative to the larger of 1 and the largest
+# magnitude of each gradient: f32 1e-4 (summation order; the weight
+# gradients sum 12,160 rows at the training shapes); bf16 2^-5 (the
+# outputs are rounded to bf16, 2^-8, and a rounding of an intermediate --
+# xn, q/k/v, the dropped weights -- that falls the other way moves the
+# terms it feeds by one bf16 ulp; the weight gradients are cast to bf16 at
+# the end).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / max(1.0, want.abs().max().item())).item()
+
+
+def _seed(cuda):
+    return torch.tensor([12345], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tq,tk,bias_heads", [(19, 19, 1), (10, 20, 8), (19, 19, 0)])
+def test_attention_core_backward_kernel_matches_plain(cuda, dtype, rate, tq, tk,
+                                                      bias_heads):
+    g = torch.Generator().manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda, dtype)
+    q, k, v, dout = r(640, 8, tq, 66), r(640, 8, tk, 66), r(640, 8, tk, 66), r(640, 8, tq, 66)
+    bias = None
+    if bias_heads == 1:
+        bias = _causal(tq, cuda)
+    elif bias_heads:
+        bias = torch.randn(bias_heads, tq, tk, generator=g).to(cuda)
+    seed = _seed(cuda)
+    fwd = tac.attention_core(q, k, v, bias, seed, rate)
+    fwd_plain = tac.attention_core_plain(q, k, v, bias, seed, rate)
+    assert (fwd.float() - fwd_plain.float()).abs().max().item() <= TOL[dtype]
+    before = tac.attention_core.bwd_launches
+    got = tac.attention_core_backward(q, k, v, bias, seed, dout, rate)
+    want = tac.attention_core_backward_plain(q, k, v, bias, seed, dout, rate)
+    torch.cuda.synchronize()
+    assert tac.attention_core.bwd_launches == before + 1
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tokens,res,bias_heads", [(16, False, 0), (16, True, 8),
+                                                   (19, False, 1)])
+def test_fused_attention_ln_backward_kernel_matches_plain(cuda, dtype, rate, tokens,
+                                                          res, bias_heads):
+    g = torch.Generator().manual_seed(7)
+    c, bw = 528, 96
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    bias = None
+    if bias_heads == 1:
+        bias = _causal(tokens, cuda)
+    elif bias_heads:
+        bias = r(bias_heads, tokens, tokens)
+    scale = (torch.rand(bw, generator=g) * 2).to(cuda) if res else None
+    args = (r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3],
+            b[3], 1 + r(c, std=0.1), r(c, std=0.1), r(tokens, c), bias)
+    seed = _seed(cuda)
+    fwd = (tfw.fused_attention_ln_res(*args, scale, seed, 8, rate) if res else
+           tfw.fused_attention_ln(*args, seed, 8, rate))
+    fwd_plain = tfw.fused_attention_ln_plain(*args, seed, 8, rate, scale, res)
+    assert (fwd.float() - fwd_plain.float()).abs().max().item() <= TOL[dtype]
+    dout = r(bw, tokens, c).to(dtype)
+    before = tfw.fused_attention_ln.bwd_launches
+    got = tfw.fused_attention_ln_backward(*args, seed, dout, 8, rate, scale, res)
+    want = tfw.fused_attention_ln_backward_plain(*args, seed, dout, 8, rate, scale,
+                                                 res)
+    torch.cuda.synchronize()
+    assert tfw.fused_attention_ln.bwd_launches == before + 1
+    names = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
+             "dlb", "dbias")
+    for name, a, bb in zip(names, got, want):
+        if bb is None:
+            assert a is None
+            continue
+        assert a.dtype == bb.dtype and a.shape == bb.shape, name
+        assert _rel_err(a, bb) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+def test_autograd_runs_the_backward_kernels(cuda):
+    """Gradients through the wrappers on CUDA tensors launch the backward
+    kernels once per call."""
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(64, 8, 19, 66, generator=g).to(cuda).requires_grad_()
+    before = tac.attention_core.bwd_launches
+    tac.attention_core(q, q.detach(), q.detach(), _causal(19, cuda)).sum().backward()
+    assert tac.attention_core.bwd_launches == before + 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_ln_backward_generic_route(cuda, dtype):
+    """A width that is not a multiple of 8 (C = 100, 4 heads of 25) takes
+    the backward's generic product route in bf16 too."""
+    g = torch.Generator().manual_seed(9)
+    c, bw, tokens = 100, 40, 16
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    args = (r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3],
+            b[3], 1 + r(c, std=0.1), r(c, std=0.1), r(tokens, c), _causal(tokens, cuda))
+    seed, dout = _seed(cuda), r(bw, tokens, c).to(dtype)
+    got = tfw.fused_attention_ln_backward(*args, seed, dout, 4, 0.1)
+    want = tfw.fused_attention_ln_backward_plain(*args, seed, dout, 4, 0.1)
+    torch.cuda.synchronize()
+    for a, bb in zip(got, want):
+        if bb is not None:
+            assert _rel_err(a, bb) <= BWD_TOL[dtype]

@@ -6,6 +6,8 @@
 (b) ``fused_attention_ln`` / ``_res`` vs the JAX functions (interpret mode),
     with and without the position table.
 (c) window ops and position tables, exactly.
+Dropout and the backwards: ``test_torch_port_dropout.py``,
+``test_torch_port_backward.py``.
 
 Tolerances: f32 everywhere; 1e-5 absolute covers summation-order
 differences between XLA's and torch's f32 dot products at these widths
@@ -16,7 +18,6 @@ the same plain versions on the card by ``tests/test_torch_port_gpu.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from vptr_tpu.models import position as jpos
 from vptr_tpu.ops import attention_core as jac
@@ -98,16 +99,6 @@ def test_fused_attention_ln_matches_jax(with_pos, res):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-def test_dropout_raises_until_training_slice():
-    q = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tac.attention_core(q, q, q, dropout_rate=0.1)
-    x, w, c = torch.zeros(1, 4, 8), torch.zeros(8, 8), torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfw.fused_attention_ln(x, w, c, w, c, w, c, w, c, c, c, num_heads=2,
-                               dropout_rate=0.1)
-
-
 @pytest.mark.parametrize("hw", [(8, 8), (6, 10)])
 def test_window_ops_match_jax(hw):
     rng = np.random.default_rng(3)
@@ -132,3 +123,20 @@ def test_position_tables_match_jax(normalize):
     np.testing.assert_array_equal(
         tpos.position_embedding_2d(4, 4, 528, normalize=normalize).numpy(),
         np.asarray(jpos.position_embedding_2d(4, 4, 528, normalize=normalize)))
+
+
+def test_library_name_covers_headers(tmp_path, monkeypatch):
+    """An edit of a shared csrc/*.cuh header renames (so rebuilds) every
+    library, as an edit of the source does."""
+    from vptr_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
+    assert _build.library_path("k") != first

@@ -1,15 +1,18 @@
 // LayerNorm-folded window self-attention sublayer on Hopper (sm_90a):
 //     xn  = LN(x) * ls + lb                 (f32 statistics, rounded to T)
 //     q,k = (xn + pos) Wq|Wk + bq|bk,  v = xn Wv + bv     (f32 sums, to T)
-//     a_h = softmax(q_h k_h^T * hd^-1/2 + bias_h) v_h     (per head)
+//     a_h = dropout(softmax(q_h k_h^T * hd^-1/2 + bias_h)) v_h  (per head)
 //     out = [a_1 .. a_H] Wo + bo,  then * scale[window], + x when res
 // x/out: (B, L, C) with L <= 32 tokens per window; W*: (C, C) stored
 // (in, out) like the JAX Dense kernels; biases, ls, lb, pos (L, C), bias
 // (1|H, L, L) and scale (B,) are f32; T = float or bf16.
 //
 // Replaces the TPU kernel vptr_tpu/ops/fused_window_attention.py::
-// _fused_ln_forward (_kernel_ln at :479, pl.pallas_call at :586), forward
-// only, without dropout; res/scale are the epilogue of _ln_res.
+// _fused_ln_forward (_kernel_ln at :479, pl.pallas_call at :586), with its
+// attention-weight dropout (the counter hash of hash_dropout.cuh, indexed
+// by the padded token count mask_tokens as the TPU kernel pads L); res and
+// scale are the epilogue of _ln_res. The backward is
+// fused_window_attention_ln_bwd.cu.
 //
 // What bounds it on an H100: operations. The four C x C projections are
 // 8 L C^2 flops per window (28.5 GFLOP for 800 windows of 16 x 528),
@@ -47,6 +50,8 @@
 #include <math.h>
 #include <cuda_pipeline.h>
 #include <mma.h>
+
+#include "hash_dropout.cuh"
 
 namespace {
 
@@ -114,7 +119,8 @@ fused_window_attention_ln_kernel(
     const float* __restrict__ ls, const float* __restrict__ lb,
     const float* __restrict__ pos, const float* __restrict__ bias,
     const float* __restrict__ scale, T* __restrict__ out, int L, int C, int heads,
-    int bias_heads, int res, float qscale, float eps) {
+    int bias_heads, int res, float qscale, float eps, vptr_dropout::Params drop,
+    int mask_tokens) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lda = (C + 3) & ~3;
@@ -129,6 +135,7 @@ fused_window_attention_ln_kernel(
 
   const long win = blockIdx.x;
   const T* xw = x + win * L * C;
+  const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -192,7 +199,13 @@ fused_window_attention_ln_kernel(
       }
       const float mx = warp_max(logit);
       const float e = lane < L ? expf(logit - mx) : 0.f;
-      const float w = round_t<T>(e / warp_sum(e));
+      float w = e / warp_sum(e);
+      if (drop.active() && lane < L)
+        w = drop.apply(w, drop.keep(vptr_dropout::element_index(
+                                        static_cast<uint32_t>(win), heads, h, mask_tokens,
+                                        r, mask_tokens, lane),
+                                    seed));
+      w = round_t<T>(w);
       for (int d0 = 0; d0 < hd; d0 += 32) {
         const int d = d0 + lane;
         float acc = 0.f;
@@ -229,7 +242,8 @@ int launch(const void* x, const void* wq, const void* bq, const void* wk, const 
            const void* wv, const void* bv, const void* wo, const void* bo, const void* ls,
            const void* lb, const void* pos, const void* bias, const void* scale, void* out,
            int windows, int L, int C, int heads, int bias_heads, int res, float qscale,
-           float eps, size_t smem, cudaStream_t stream) {
+           float eps, vptr_dropout::Params drop, int mask_tokens, size_t smem,
+           cudaStream_t stream) {
   auto kernel = fused_window_attention_ln_kernel<T, MAXL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -241,7 +255,7 @@ int launch(const void* x, const void* wq, const void* bq, const void* wk, const 
       static_cast<const float*>(ls), static_cast<const float*>(lb),
       static_cast<const float*>(pos), static_cast<const float*>(bias),
       static_cast<const float*>(scale), static_cast<T*>(out), L, C, heads, bias_heads, res,
-      qscale, eps);
+      qscale, eps, drop, mask_tokens);
   return cudaGetLastError();
 }
 
@@ -250,13 +264,15 @@ int launch_rows(const void* x, const void* wq, const void* bq, const void* wk,
                 const void* bk, const void* wv, const void* bv, const void* wo,
                 const void* bo, const void* ls, const void* lb, const void* pos,
                 const void* bias, const void* scale, void* out, int windows, int L, int C,
-                int heads, int bias_heads, int res, float qscale, float eps, size_t smem,
-                cudaStream_t s) {
+                int heads, int bias_heads, int res, float qscale, float eps,
+                vptr_dropout::Params drop, int mask_tokens, size_t smem, cudaStream_t s) {
   if (L <= 16)
     return launch<T, 16>(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, out,
-                         windows, L, C, heads, bias_heads, res, qscale, eps, smem, s);
+                         windows, L, C, heads, bias_heads, res, qscale, eps, drop,
+                         mask_tokens, smem, s);
   return launch<T, 32>(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, out,
-                       windows, L, C, heads, bias_heads, res, qscale, eps, smem, s);
+                       windows, L, C, heads, bias_heads, res, qscale, eps, drop,
+                       mask_tokens, smem, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -363,7 +379,10 @@ __device__ __forceinline__ void store_projection(float* stage, const Acc& c0, co
 template <int P, int MAXC>
 __device__ __forceinline__ void head_attention(const bf16* qb, const bf16* kb, const bf16* vb,
                                                bf16* ob, int ld, int L, int hd, int c0l,
-                                               int wrow0, const float* bias_h, int lane) {
+                                               int wrow0, const float* bias_h, int lane,
+                                               const vptr_dropout::Params& drop,
+                                               uint32_t seed, uint32_t win, int heads,
+                                               int h, int lp) {
   const int i = lane / P;              // query row
   const int part = lane % P;
   const int cpl = (L + P - 1) / P;     // key columns per lane
@@ -403,7 +422,12 @@ __device__ __forceinline__ void head_attention(const bf16* qb, const bf16* kb, c
   float wp[MAXC];                      // the other lane's weights (P == 2)
 #pragma unroll
   for (int jj = 0; jj < MAXC; ++jj) {
-    lg[jj] = active ? round_t<bf16>(lg[jj] / s) : 0.f;
+    float w = lg[jj] / s;
+    const int j = part * cpl + jj;
+    if (drop.active() && active && jj < cpl && j < L)
+      w = drop.apply(w, drop.keep(vptr_dropout::element_index(win, heads, h, lp, i, lp, j),
+                                  seed));
+    lg[jj] = active ? round_t<bf16>(w) : 0.f;
     wp[jj] = P == 2 ? __shfl_xor_sync(0xffffffffu, lg[jj], 1) : 0.f;
   }
   if (!active) return;
@@ -434,7 +458,8 @@ fused_window_attention_ln_tc_kernel(
     const float* __restrict__ ls, const float* __restrict__ lb,
     const float* __restrict__ pos, const float* __restrict__ bias,
     const float* __restrict__ scale, bf16* __restrict__ out, int windows, int L, int C,
-    int heads, int bias_heads, int res, float qscale, float eps) {
+    int heads, int bias_heads, int res, float qscale, float eps, vptr_dropout::Params drop,
+    int mask_tokens) {
   // wmma needs 256-bit aligned tiles: every buffer below is a multiple of
   // 512 bytes long and every tile offset a multiple of 32 bytes
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -507,15 +532,19 @@ fused_window_attention_ln_tc_kernel(
   // 3) attention: one warp per (window, head); merged heads go to xn (its
   //    padding rows stay zero)
   const int hd = C / heads;
+  const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
   for (int task = warp; task < nwin * heads; task += kTcWarps) {
     const int h = task % heads;
     const int w = task / heads;
     const float* bias_h =
         bias ? bias + static_cast<long>(bias_heads == 1 ? 0 : h) * L * L : nullptr;
+    const uint32_t wg = static_cast<uint32_t>(win0 + w);
     if (L <= 16)
-      head_attention<2, 8>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane);
+      head_attention<2, 8>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane, drop,
+                           seed, wg, heads, h, mask_tokens);
     else
-      head_attention<1, 32>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane);
+      head_attention<1, 32>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane, drop,
+                            seed, wg, heads, h, mask_tokens);
   }
   __syncthreads();
 
@@ -546,7 +575,7 @@ int launch_tc(const void* x, const void* wq, const void* bq, const void* wk, con
               const void* wv, const void* bv, const void* wo, const void* bo, const void* ls,
               const void* lb, const void* pos, const void* bias, const void* scale, void* out,
               int windows, int L, int C, int heads, int bias_heads, int res, float qscale,
-              float eps, cudaStream_t stream) {
+              float eps, vptr_dropout::Params drop, int mask_tokens, cudaStream_t stream) {
   const long smem = tc_smem(C);
   cudaError_t err = cudaFuncSetAttribute(fused_window_attention_ln_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,7 +590,7 @@ int launch_tc(const void* x, const void* wq, const void* bq, const void* wk, con
       static_cast<const float*>(ls), static_cast<const float*>(lb),
       static_cast<const float*>(pos), static_cast<const float*>(bias),
       static_cast<const float*>(scale), static_cast<bf16*>(out), windows, L, C, heads,
-      bias_heads, res, qscale, eps);
+      bias_heads, res, qscale, eps, drop, mask_tokens);
   return cudaGetLastError();
 }
 
@@ -584,32 +613,37 @@ int vptr_fused_window_attention_ln_route(int L, int C, int dtype) {
   return use_tc(L, C, dtype) ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. pos, bias and scale may be null.
-// Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. pos, bias and scale may be null; seed
+// (device int32) may be null when rate == 0, keep_div = (float)(1 - rate),
+// mask_tokens = the padded token count of the dropout index. Returns a
+// cudaError_t (0 = launched).
 int vptr_fused_window_attention_ln(const void* x, const void* wq, const void* bq,
                                    const void* wk, const void* bk, const void* wv,
                                    const void* bv, const void* wo, const void* bo,
                                    const void* ls, const void* lb, const void* pos,
                                    const void* bias, const void* scale, void* out,
                                    int windows, int L, int C, int heads, int bias_heads,
-                                   int res, float qscale, float eps, int dtype,
+                                   int res, float qscale, float eps, const void* seed,
+                                   float rate, float keep_div, int mask_tokens, int dtype,
                                    void* stream) {
   if (windows < 1 || L < 1 || L > kMaxTokens || heads < 1 || C % heads != 0 ||
       C / heads > kMaxHeadDim || (bias && bias_heads != 1 && bias_heads != heads) ||
-      dtype < 0 || dtype > 1 || vptr_fused_window_attention_ln_smem(L, C, heads, dtype) > kSmemLimit)
+      dtype < 0 || dtype > 1 || vptr_fused_window_attention_ln_smem(L, C, heads, dtype) > kSmemLimit ||
+      (rate > 0.f && !seed) || rate >= 1.f || mask_tokens < L)
     return cudaErrorInvalidValue;
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_tc(L, C, dtype))
     return launch_tc(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, out, windows,
-                     L, C, heads, bias_heads, res, qscale, eps, s);
+                     L, C, heads, bias_heads, res, qscale, eps, drop, mask_tokens, s);
   const size_t smem = fma_smem(L, C, heads);
   if (dtype == 0)
     return launch_rows<float>(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
-                              out, windows, L, C, heads, bias_heads, res, qscale, eps,
-                              smem, s);
+                              out, windows, L, C, heads, bias_heads, res, qscale, eps, drop,
+                              mask_tokens, smem, s);
   return launch_rows<__nv_bfloat16>(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
                                     scale, out, windows, L, C, heads, bias_heads, res,
-                                    qscale, eps, smem, s);
+                                    qscale, eps, drop, mask_tokens, smem, s);
 }
 
 }  // extern "C"

@@ -1,0 +1,58 @@
+// Counter-hash dropout shared by the attention kernels (device functions).
+//
+// The TPU kernels draw their attention-weight dropout from a counter hash
+// (vptr_tpu/ops/attention_core.py::_hash_uniform, :65-116): a weight's keep
+// decision is a pure function of (seed, element index), so a backward
+// kernel regenerates its forward's mask from the seed with no saved state.
+// This is the same arithmetic in uint32 (which wraps like jnp.uint32); its
+// torch twin is vptr_tpu_torch/ops/dropout.py. The element index is
+//     ((b * H + h) * Tq + r) * Tk + c
+// with b the global batch or window index (the window kernels index their
+// tokens by the padded count, see dropout.py::padded_tokens).
+#pragma once
+
+#include <stdint.h>
+
+namespace vptr_dropout {
+
+// uniform [0, 1) from the element index and the seed: the murmur3-style
+// finalizer, then the top 24 bits as the mantissa (exact in float).
+__device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
+  uint32_t x = idx + seed * 0x9E3779B9u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ uint32_t element_index(uint32_t b, uint32_t heads, uint32_t h,
+                                                  uint32_t tq, uint32_t r, uint32_t tk,
+                                                  uint32_t c) {
+  return ((b * heads + h) * tq + r) * tk + c;
+}
+
+// Dropout parameters a kernel receives: the seed lives in device memory
+// (an int32 the caller drew on the card, so drawing it needs no host
+// synchronisation); rate and the divisor (float)(1 - rate) come from the
+// host. active is false at rate 0, and then no weight is touched.
+struct Params {
+  const int* seed;
+  float rate;
+  float keep_div;
+  __device__ __forceinline__ bool active() const { return rate > 0.f; }
+  __device__ __forceinline__ uint32_t seed_u32() const {
+    return static_cast<uint32_t>(*seed);
+  }
+  __device__ __forceinline__ bool keep(uint32_t idx, uint32_t s) const {
+    return hash_uniform(idx, s) >= rate;
+  }
+  // w / (1 - rate) where kept, else 0: a division, as the TPU kernels do
+  // (a multiply by the reciprocal is not bit-equal)
+  __device__ __forceinline__ float apply(float w, bool kept) const {
+    return kept ? w / keep_div : 0.f;
+  }
+};
+
+}  // namespace vptr_dropout

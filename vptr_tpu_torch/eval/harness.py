@@ -37,13 +37,15 @@ def make_predict_fn(cfg, enc, dec, transformer, mode: str, num_pred: int,
         p = next(m.parameters())
         if p.device != device:
             raise ValueError(f"{name} is on {p.device}, predict runs on {device}")
-        m.eval()
 
     def as_input(frames):
         return torch.as_tensor(frames).to(device=device, dtype=enc.dtype)
 
     @torch.inference_mode()
     def predict(past, future=None):
+        for m in (enc, dec, transformer):   # a train step may run in between
+            if m.training:
+                m.eval()
         past = as_input(past)
         if mode == "far":
             if future is None:

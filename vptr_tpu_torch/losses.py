@@ -1,0 +1,86 @@
+"""Training criterion of the FAR step: MSE / L1 / GDL, the temporal weight
+and the Noam schedule, in PyTorch.
+
+Counterpart of ``vptr_tpu/losses.py:17-85,132-142`` (itself the reference's
+``model/criterion.py``). Frames are (N, T, H, W, C) like the JAX package's;
+every loss is computed in f32 and returns a 0-d f32 tensor. The GAN and
+BiPatchNCE terms come with the slices that train with them (stage-1 AE and
+NAR); ``build_optimizer`` lives in ``vptr_tpu_torch.train.optim``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def temporal_weight(t: int, device=None) -> torch.Tensor:
+    """Exp-increasing per-timestep weight exp(log(T)/(T-1) * t), (T,) f32;
+    w[0] = 1, w[-1] = T (computed in f64 and rounded once, as the JAX
+    package does)."""
+    if t == 1:
+        return torch.ones(1, dtype=torch.float32, device=device)
+    w = np.exp(np.log(t) / (t - 1) * np.arange(t, dtype=np.float64))
+    return torch.tensor(w, dtype=torch.float32, device=device)
+
+
+def _l2_normalize(x: torch.Tensor, dim, eps: float = 1e-12) -> torch.Tensor:
+    """torch F.normalize(p=2) semantics: x / max(||x||, eps)."""
+    norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def _weighted_mean(err: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of ``err`` (B, T, ...) with optional per-timestep weights."""
+    if weights is not None:
+        shape = (1, -1) + (1,) * (err.ndim - 2)
+        err = err * weights.reshape(shape).to(err.dtype)
+    return err.mean()
+
+
+def _pair(gt, pred, norm_axis):
+    gt, pred = gt.float(), pred.float()
+    if norm_axis is not None:
+        gt, pred = _l2_normalize(gt, norm_axis), _l2_normalize(pred, norm_axis)
+    return gt, pred
+
+
+def mse_loss(gt, pred, weights=None, norm_axis=None) -> torch.Tensor:
+    """Mean squared error (criterion.py:105-132)."""
+    gt, pred = _pair(gt, pred, norm_axis)
+    return _weighted_mean(torch.square(pred - gt), weights)
+
+
+def l1_loss(gt, pred, weights=None, norm_axis=None) -> torch.Tensor:
+    """Mean absolute error (criterion.py:76-103)."""
+    gt, pred = _pair(gt, pred, norm_axis)
+    return _weighted_mean(torch.abs(pred - gt), weights)
+
+
+def gdl_loss(gt, pred, alpha: float = 1.0, weights=None) -> torch.Tensor:
+    """Gradient-difference loss on (N, T, H, W, C) frames
+    (criterion.py:134-204): |d_H gt - d_H pred|^alpha averaged, plus the
+    same for d_W."""
+    gt, pred = gt.float(), pred.float()
+    gt_dh = torch.abs(gt[..., 1:, :, :] - gt[..., :-1, :, :])
+    pr_dh = torch.abs(pred[..., 1:, :, :] - pred[..., :-1, :, :])
+    gt_dw = torch.abs(gt[..., :, 1:, :] - gt[..., :, :-1, :])
+    pr_dw = torch.abs(pred[..., :, 1:, :] - pred[..., :, :-1, :])
+    g1 = torch.abs(gt_dh - pr_dh)
+    g2 = torch.abs(gt_dw - pr_dw)
+    if alpha != 1.0:
+        g1, g2 = torch.pow(g1, alpha), torch.pow(g2, alpha)
+    return _weighted_mean(g1, weights) + _weighted_mean(g2, weights)
+
+
+def noam_schedule(d_model: int, factor: float = 2.0, warmup_steps: int = 4000):
+    """Noam warmup: factor * d^-0.5 * min(step^-0.5, step * warmup^-1.5)
+    (criterion.py:262-296), as a function of the optimizer's step count
+    returning an f32 0-d tensor."""
+    def schedule(count: int) -> torch.Tensor:
+        step = torch.tensor(float(max(int(count), 1)), dtype=torch.float32)
+        return (factor * d_model ** -0.5
+                * torch.minimum(step ** -0.5, step * warmup_steps ** -1.5))
+    return schedule

@@ -1,6 +1,6 @@
-"""Transformer layers of the FAR serving path, in PyTorch (eval mode).
+"""Transformer layers of the FAR path, in PyTorch (eval and train mode).
 
-Counterpart of the FAR-eval subset of ``vptr_tpu/models/layers.py``:
+Counterpart of the FAR subset of ``vptr_tpu/models/layers.py``:
 
 * :class:`MultiHeadAttention` with the two routes this path uses:
   the LayerNorm-folded whole-sublayer kernel (``fused_attention_ln``,
@@ -10,8 +10,17 @@ Counterpart of the FAR-eval subset of ``vptr_tpu/models/layers.py``:
 * :class:`WindowAttention` (absolute 2D sine position on q/k; RPE is NAR's),
   :class:`TemporalAttention` (causal mask as a -1e30 (1, T, T) bias),
   :class:`LayerNorm`, :class:`LayerNormHWC`, :class:`MlpDWBN` in its
-  LayerNormHWC flavour, :class:`Mlp` and :class:`DropPath` (identity at
-  eval).
+  LayerNormHWC flavour, :class:`Mlp`, :class:`DropPath` and
+  :class:`Dropout` (both the identity in eval mode).
+
+Train mode (``module.train()``): attention-weight dropout runs inside the
+kernels from an int32 seed per call; DropPath and Dropout draw their masks
+with ``torch.rand``. Every draw comes from the ``generator`` the caller
+passes down through ``forward`` (a torch.Generator on the activations'
+device); there is no global RNG, and a training forward with a dropout rate
+above 0 and no generator raises. The masks differ from ``jax.random``'s
+(another generator); the kernels' hash masks are bit-equal to the JAX
+package's for the same seed.
 
 Each attention module's ``kernels`` attribute is ``"cuda"`` (the wrappers:
 the kernel on a CUDA tensor, the plain version on a CPU tensor) or
@@ -55,6 +64,32 @@ def use_kernels(model: nn.Module, kernels: str) -> nn.Module:
     return model
 
 
+def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """One int32 kernel seed in [0, 2^31 - 1), drawn on ``device`` (no host
+    synchronisation), as the JAX package's ``dropout_seed`` draws from
+    ``make_rng("dropout")`` (``layers.py:223-228``)."""
+    if generator is None:
+        raise ValueError("a training forward with dropout needs a generator")
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device, dtype=torch.int32)
+
+
+def bernoulli_keep(shape, keep: float, generator: Optional[torch.Generator],
+                   device) -> torch.Tensor:
+    """Boolean mask of ``shape`` (an int or a tuple), True with probability
+    ``keep``."""
+    if generator is None:
+        raise ValueError("a training forward with dropout needs a generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def _keep_scaled(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """where(keep, x / (1 - rate), 0) with the divisor in x's dtype, as a
+    JAX Python-float divisor is (a weak type)."""
+    div = torch.tensor(1.0 - rate, dtype=x.dtype)
+    return torch.where(keep, x / div, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """nn.Dense in ``dtype``: input, kernel and bias cast to it."""
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
@@ -82,11 +117,13 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with separate q/k/v/out projections over (..., L, C)."""
 
     def __init__(self, dim: int, num_heads: int, fused: bool = False,
-                 fused_full: bool = False, dtype: torch.dtype = torch.float32):
+                 fused_full: bool = False, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not divisible by {num_heads} heads")
         self.dim, self.num_heads = dim, num_heads
+        self.dropout = dropout           # attention-weight dropout (train)
         self.fused, self.fused_full = fused, fused_full
         self.dtype = dtype
         self.kernels = "cuda"            # see use_kernels
@@ -104,12 +141,16 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, *, bias=None,
                 ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                qk_pos=None, residual: bool = False):
+                qk_pos=None, residual: bool = False, branch_scale=None,
+                generator: Optional[torch.Generator] = None):
         """``ln``: (scale, bias) of the sublayer's leading LayerNorm; callers
         then pass the raw x as q_in = k_in = v_in and q/k = LN(x) + qk_pos,
-        v = LN(x). ``residual`` (fused LN route only) returns x + attn(...).
-        ``bias``: None or (1 | H, Lq, Lk) additive logits."""
+        v = LN(x). ``residual`` (fused LN route only) returns x +
+        branch_scale * attn(...), ``branch_scale`` (leading batch,) f32 or
+        None. ``bias``: None or (1 | H, Lq, Lk) additive logits."""
         plain = self.kernels == "plain"
+        rate = self.dropout if self.training else 0.0
+        seed = draw_seed(generator, q_in.device) if rate > 0.0 else 0
         if ln is not None:
             if not (q_in is k_in and k_in is v_in):
                 raise ValueError("ln folding expects q_in = k_in = v_in = x")
@@ -121,13 +162,15 @@ class MultiHeadAttention(nn.Module):
                         ln[1].float(),
                         None if qk_pos is None else qk_pos.float().contiguous(),
                         bias)
+                scale = branch_scale if residual else None
                 if plain:
                     out = fused_attention_ln_plain(
-                        *args, num_heads=self.num_heads, res=residual)
+                        *args, seed, self.num_heads, rate, scale, residual)
                 elif residual:
-                    out = fused_attention_ln_res(*args, num_heads=self.num_heads)
+                    out = fused_attention_ln_res(*args, scale, seed,
+                                                 self.num_heads, rate)
                 else:
-                    out = fused_attention_ln(*args, num_heads=self.num_heads)
+                    out = fused_attention_ln(*args, seed, self.num_heads, rate)
                 return out.reshape(lead + (l, self.dim))
             xn = F.layer_norm(q_in.float(), (self.dim,), ln[0], ln[1],
                               1e-5).to(self.dtype)
@@ -148,7 +191,7 @@ class MultiHeadAttention(nn.Module):
                 (-1, self.num_heads, z.shape[-3], hd)).contiguous()
 
         core = attention_core if self.fused and not plain else attention_core_plain
-        out = core(heads(q), heads(k), heads(v), bias)
+        out = core(heads(q), heads(k), heads(v), bias, seed, rate)
         out = out.transpose(1, 2).reshape(q.shape)
         return _linear(self.out_proj, out, self.dtype)
 
@@ -159,27 +202,36 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window: int = 4,
                  fused: bool = False, fused_full: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.window = window
         self.attn = MultiHeadAttention(dim, num_heads, fused, fused_full,
-                                       dtype)
+                                       dtype, dropout)
 
-    def forward(self, x, pos2d, *, ln=None, residual: bool = False):
+    def forward(self, x, pos2d, *, ln=None, residual: bool = False,
+                branch_scale=None, generator=None):
         """``pos2d``: (window*window, C). ``ln``: pass the raw pre-norm x
         and the norm folds into the fused kernel; ``residual`` then returns
-        the whole sublayer x + attn(LN(x))."""
+        the whole sublayer x + branch_scale * attn(LN(x)), with
+        ``branch_scale`` a per-frame (N*T,) f32 factor (the DropPath mask)
+        or None."""
         n, t, h, w, c = x.shape
         tokens = self.window * self.window
         y, offs = pad_to_window(x.reshape(n * t, h, w, c), self.window)
         padded_hw = y.shape[1:3]
         xw = window_partition(y, self.window)
         if ln is not None:
+            win_scale = None
+            if residual and branch_scale is not None:
+                # per frame -> per window (frame-major partition order)
+                win_scale = branch_scale.float().repeat_interleave(
+                    xw.shape[0] // (n * t))
             out = self.attn(xw, xw, xw, ln=ln, qk_pos=pos2d.reshape(tokens, c),
-                            residual=residual)
+                            residual=residual, branch_scale=win_scale,
+                            generator=generator)
         else:
             qk = xw + pos2d.reshape(1, tokens, c).to(xw.dtype)
-            out = self.attn(qk, qk, xw)
+            out = self.attn(qk, qk, xw, generator=generator)
         out = window_reverse(out, self.window, padded_hw)
         return unpad_from_window(out, (h, w), offs).reshape(n, t, h, w, c)
 
@@ -189,12 +241,14 @@ class TemporalAttention(nn.Module):
     adds the static mask as a -1e30 (1, T, T) bias."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
-                 fused: bool = False, dtype: torch.dtype = torch.float32):
+                 fused: bool = False, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.causal = causal
-        self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype,
+                                       dropout)
 
-    def forward(self, x, pos_q):
+    def forward(self, x, pos_q, generator=None):
         """x: (N, T, H, W, C), ``pos_q``: (T, C)."""
         n, t, h, w, c = x.shape
         cols = x.permute(0, 2, 3, 1, 4).reshape(n, h * w, t, c)
@@ -202,17 +256,19 @@ class TemporalAttention(nn.Module):
         if self.causal:   # -1e30 above the diagonal, 0 on and below it
             bias = torch.full((t, t), -1e30, device=x.device).triu(1)[None]
         qk = cols + pos_q[None, None].to(x.dtype)
-        out = self.attn(qk, qk, cols, bias=bias)
+        out = self.attn(qk, qk, cols, bias=bias, generator=generator)
         return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
 class MlpDWBN(nn.Module):
     """HRFormer conv feed-forward, LayerNormHWC flavour: 1x1 -> LN -> GELU
-    -> depthwise 3x3 -> LN -> GELU -> 1x1 -> LN -> GELU (exact erf GELU;
-    ``layers.py:686-696``). The LayerNormHWC affine binds to (h, w)."""
+    -> depthwise 3x3 -> LN -> GELU -> drop -> 1x1 -> LN -> GELU -> drop
+    (exact erf GELU; ``layers.py:686-696``). The LayerNormHWC affine binds
+    to (h, w)."""
 
     def __init__(self, dim: int, hidden_dim: int, h: int, w: int,
-                 norm: str = "layer", dtype: torch.dtype = torch.float32):
+                 norm: str = "layer", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         if norm != "layer":
             raise NotImplementedError(
@@ -226,44 +282,64 @@ class MlpDWBN(nn.Module):
         self.norm2 = LayerNormHWC((hidden_dim, h, w), dtype=dtype)
         self.fc2 = nn.Conv2d(hidden_dim, dim, 1)
         self.norm3 = LayerNormHWC((dim, h, w), dtype=dtype)
+        self.drop = Dropout(dropout)
 
     def _conv(self, conv: nn.Conv2d, y):
         return F.conv2d(y, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                         conv.stride, conv.padding, groups=conv.groups)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         n, t, h, w, c = x.shape
         y = x.reshape(n * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
         y = F.gelu(self.norm1(self._conv(self.fc1, y)))
-        y = F.gelu(self.norm2(self._conv(self.dw3x3, y)))
-        y = F.gelu(self.norm3(self._conv(self.fc2, y)))
+        y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator)
+        y = self.drop(F.gelu(self.norm3(self._conv(self.fc2, y))), generator)
         return y.permute(0, 2, 3, 1).reshape(n, t, h, w, -1)
 
 
 class Mlp(nn.Module):
-    """Linear feed-forward: linear2(gelu(linear1(x))) (``layers.py:716-765``)."""
+    """Linear feed-forward: linear2(drop(gelu(linear1(x))))
+    (``layers.py:716-765``)."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.linear1 = nn.Linear(dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, dim)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        y = F.gelu(_linear(self.linear1, x, self.dtype))
+    def forward(self, x, generator=None):
+        y = self.drop(F.gelu(_linear(self.linear1, x, self.dtype)), generator)
         return _linear(self.linear2, y, self.dtype)
 
 
 class DropPath(nn.Module):
-    """Stochastic depth; the identity in eval mode (training: later slice)."""
+    """Stochastic depth: drop the whole residual branch per sample (leading
+    axis) with probability ``rate``, else scale it by 1 / (1 - rate)
+    (``layers.py:699-713``); the identity in eval mode."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath in training mode comes with "
-                                      "the FAR training slice")
-        return x
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = bernoulli_keep(x.shape[0], 1.0 - self.rate, generator, x.device)
+        return _keep_scaled(x, keep.view((-1,) + (1,) * (x.ndim - 1)), self.rate)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``): keep with probability
+    1 - rate and scale by 1 / (1 - rate); the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = bernoulli_keep(x.shape, 1.0 - self.rate, generator, x.device)
+        return _keep_scaled(x, keep, self.rate)

@@ -1,4 +1,4 @@
-"""VidHRFormer FAR latent transformer (eval mode) in PyTorch.
+"""VidHRFormer FAR latent transformer (eval and train mode) in PyTorch.
 
 Counterpart of ``vptr_tpu/models/transformer.py``: :class:`EncoderBlock`
 with the FAR sublayer order (``:47-156``) and :class:`VPTRFormerFAR`
@@ -6,8 +6,11 @@ with the FAR sublayer order (``:47-156``) and :class:`VPTRFormerFAR`
 causal temporal attention -> linear FFN, each pre-norm with a residual.
 With ``fused_attention`` and ``fused_full`` (the preset defaults) the window
 sublayer's LayerNorm folds into the ``fused_attention_ln`` kernel and the
-temporal attention runs on the ``attention_core`` kernel. The NAR variant
-and the default-off kernel routes come with later slices and raise here.
+temporal attention runs on the ``attention_core`` kernel. In train mode
+the attention dropout runs inside both kernels, DropPath acts on the window
+and conv-FFN branches and Dropout on the temporal and linear-FFN branches,
+all drawn from the ``generator`` passed to ``forward``. The NAR variant and
+the default-off kernel routes come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ from torch import nn
 
 from vptr_tpu_torch.models.layers import (
     DropPath,
+    Dropout,
     LayerNorm,
     Mlp,
     MlpDWBN,
     TemporalAttention,
     WindowAttention,
+    bernoulli_keep,
     use_kernels,
 )
 from vptr_tpu_torch.models.position import (
@@ -41,6 +46,7 @@ _LATER = {
     "fused_conv_ffn": "the conv_ln_gelu kernel (default-off kernels slice)",
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
     "scan_layers": "the stacked (scanned) parameter tree (trainer slice)",
+    "remat": "activation checkpointing of the blocks (trainer slice)",
 }
 
 
@@ -65,6 +71,7 @@ class EncoderBlock(nn.Module):
                  fused_dw: bool = False, fused_conv_ffn: bool = False,
                  sequence_parallel: bool = False,
                  conv_ffn_norm: Optional[str] = None,
+                 dropout: float = 0.0, attn_dropout: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if not far:
@@ -76,31 +83,47 @@ class EncoderBlock(nn.Module):
                       sequence_parallel=sequence_parallel)
         self.fold = fused_attention and fused_full
         self.fused_residual = fused_residual
+        attn_drop = dropout if attn_dropout is None else attn_dropout
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.slmhsa = WindowAttention(dim, num_heads, window, fused_attention,
-                                      fused_full, dtype)
+                                      fused_full, dtype, attn_drop)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.spatial_ffn = MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
-                                   conv_ffn_norm or "layer", dtype)
+                                   conv_ffn_norm or "layer", dtype, dropout)
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.temporal = TemporalAttention(dim, num_heads, causal=True,
-                                          fused=fused_attention, dtype=dtype)
+                                          fused=fused_attention, dtype=dtype,
+                                          dropout=attn_drop)
         self.norm4 = LayerNorm(dim, dtype=dtype)
-        self.ffn = Mlp(dim, dim_feedforward, dtype)
+        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout)
         self.drop_path = DropPath(drop_path)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x, pos2d, pos_t):
-        dp = self.drop_path
+    def forward(self, x, pos2d, pos_t, generator=None):
+        """``generator``: where the training draws come from (unused in
+        eval mode)."""
+        dp = lambda y: self.drop_path(y, generator)
+        drop = lambda y: self.drop(y, generator)
         ln1 = (self.norm1.weight, self.norm1.bias)
         if self.fold and self.fused_residual:
-            x = self.slmhsa(x, pos2d, ln=ln1, residual=True)
+            # residual + DropPath fold into the kernel: a per-clip draw
+            # repeated over the frames (transformer.py:99-112)
+            scale = None
+            rate = self.drop_path.rate
+            if self.training and rate > 0.0:
+                keep = bernoulli_keep(x.shape[0], 1.0 - rate, generator,
+                                      x.device)
+                scale = (keep.float() / torch.tensor(1.0 - rate)).repeat_interleave(
+                    x.shape[1])
+            x = self.slmhsa(x, pos2d, ln=ln1, residual=True, branch_scale=scale,
+                            generator=generator)
         elif self.fold:
-            x = x + dp(self.slmhsa(x, pos2d, ln=ln1))
+            x = x + dp(self.slmhsa(x, pos2d, ln=ln1, generator=generator))
         else:
-            x = x + dp(self.slmhsa(self.norm1(x), pos2d))
-        x = x + dp(self.spatial_ffn(self.norm2(x)))
-        x = x + self.temporal(self.norm3(x), pos_t)
-        return x + self.ffn(self.norm4(x))
+            x = x + dp(self.slmhsa(self.norm1(x), pos2d, generator=generator))
+        x = x + dp(self.spatial_ffn(self.norm2(x), generator))
+        x = x + drop(self.temporal(self.norm3(x), pos_t, generator))
+        return x + drop(self.ffn(self.norm4(x), generator))
 
 
 class VPTRFormerFAR(nn.Module):
@@ -110,7 +133,8 @@ class VPTRFormerFAR(nn.Module):
     def __init__(self, num_past_frames: int = 10, num_future_frames: int = 10,
                  enc_h: int = 8, enc_w: int = 8, d_model: int = 528,
                  num_heads: int = 8, num_encoder_layers: int = 12,
-                 window: int = 4, drop_path: float = 0.1,
+                 window: int = 4, dropout: float = 0.1,
+                 drop_path: float = 0.1, attn_dropout: Optional[float] = None,
                  ffn_hidden_ratio: int = 4, rpe: bool = False,
                  fused_attention: bool = False, fused_full: bool = False,
                  fused_full_temporal: bool = False,
@@ -129,7 +153,8 @@ class VPTRFormerFAR(nn.Module):
                 fused_full=fused_full, fused_full_temporal=fused_full_temporal,
                 fused_residual=fused_residual, fused_ffn=fused_ffn,
                 fused_dw=fused_dw, fused_conv_ffn=fused_conv_ffn,
-                sequence_parallel=sequence_parallel, dtype=dtype))
+                sequence_parallel=sequence_parallel, dropout=dropout,
+                attn_dropout=attn_dropout, dtype=dtype))
         self.num_encoder_layers = num_encoder_layers
         self.final_norm = LayerNorm(d_model, dtype=dtype)
         self.register_buffer(
@@ -138,14 +163,17 @@ class VPTRFormerFAR(nn.Module):
         self.register_buffer("pos_t", position_embedding_1d(self.t_max, d_model),
                              persistent=False)
 
-    def forward(self, feats):
+    def forward(self, feats, generator: Optional[torch.Generator] = None):
+        """``generator``: the source of every training draw (attention
+        dropout seeds, DropPath and Dropout masks); needed in train mode
+        with a dropout rate above 0."""
         t = feats.shape[1]
         if t > self.t_max:
             raise ValueError(f"sequence length {t} exceeds {self.t_max}")
         x = feats.to(self.dtype)
         pos_t = self.pos_t[:t]
         for i in range(self.num_encoder_layers):
-            x = getattr(self, f"block{i}")(x, self.pos2d, pos_t)
+            x = getattr(self, f"block{i}")(x, self.pos2d, pos_t, generator)
         return torch.relu(self.final_norm(x))
 
 
@@ -172,7 +200,7 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
     if cfg.variant != "far":
         raise NotImplementedError(f"transformer variant {cfg.variant!r} comes "
                                   "with the NAR slice; this slice is FAR")
-    _refuse_later(scan_layers=cfg.scan_layers)
+    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat)
     if cfg.d_model % cfg.n_heads:
         raise ValueError(f"d_model {cfg.d_model} is not divisible by "
                          f"{cfg.n_heads} heads")
@@ -181,7 +209,9 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
         num_future_frames=cfg.num_future_frames, enc_h=cfg.enc_h,
         enc_w=cfg.enc_w, d_model=cfg.d_model, num_heads=cfg.n_heads,
         num_encoder_layers=cfg.num_encoder_layers, window=cfg.window_size,
-        drop_path=cfg.drop_path, ffn_hidden_ratio=cfg.spatial_ffn_hidden_ratio,
+        dropout=cfg.dropout, drop_path=cfg.drop_path,
+        attn_dropout=cfg.attention_dropout,
+        ffn_hidden_ratio=cfg.spatial_ffn_hidden_ratio,
         rpe=cfg.rpe, fused_attention=cfg.fused_attention,
         fused_full=cfg.fused_full, fused_full_temporal=cfg.fused_full_temporal,
         fused_residual=cfg.fused_residual, fused_ffn=cfg.fused_ffn,

@@ -1,67 +1,180 @@
-"""Attention core for short sequences: softmax(q k^T * D^-1/2 + bias) v.
+"""Attention core for short sequences: dropout(softmax(q k^T * D^-1/2 + bias)) v.
 
-Counterpart of ``vptr_tpu/ops/attention_core.py::attention_core`` (the TPU
-kernel ``_core_forward``/``_kernel``, ``pl.pallas_call`` at :188). The
-kernel is ``csrc/attention_core.cu`` (CUDA C++ for sm_90a); its source note
-says what bounds it on the card and what its design does about that.
+Counterpart of ``vptr_tpu/ops/attention_core.py::attention_core``: the TPU
+kernels ``_core_forward`` (``pl.pallas_call`` at :188) and ``_core_backward``
+(:317), joined by ``jax.custom_vjp``. Both kernels are in
+``csrc/attention_core.cu`` (CUDA C++ for sm_90a); its source note says what
+bounds each on the card and what its design does about that.
 
-* :func:`attention_core` is the wrapper. A CUDA tensor launches the kernel
-  (or raises); a CPU tensor takes :func:`attention_core_plain`, the same
-  function in plain PyTorch with the same rounding points.
-* ``attention_core.launches`` counts kernel launches, and nothing else.
-* Attention-weight dropout (the counter-hash mask of the TPU kernel) comes
-  with the training slice; ``seed`` and ``dropout_rate`` stay in the
-  signature so that slice adds it without changing the API.
+* :func:`attention_core` is the wrapper, a ``torch.autograd.Function``. A
+  CUDA tensor launches the kernels (or raises); a CPU tensor takes
+  :func:`attention_core_plain` forward and
+  :func:`attention_core_backward_plain` backward, the same functions in
+  plain PyTorch with the same rounding points.
+* ``attention_core.launches`` counts forward kernel launches and
+  ``attention_core.bwd_launches`` backward kernel launches, nothing else.
+* Attention-weight dropout is the counter hash of ``ops/dropout.py``: the
+  backward regenerates the forward's mask from the seed. ``seed`` is an
+  int32, as a Python int or a one-element int32 tensor on the operands'
+  device (drawn there, it costs no host synchronisation).
+* As in the JAX package, ``q * D^-1/2`` multiplies by the scale in q's dtype
+  (a Python float times a bf16 array is a bf16 product in JAX), while the
+  backward's ``dq * D^-1/2`` is an f32 product.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from vptr_tpu_torch.ops import _build
+from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dropout_keep_mask
 
 MAX_TOKENS = 32
 MAX_DEPTH = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-weight dropout arrives with the FAR training slice; "
-            "the serving path runs with dropout_rate=0")
+@functools.lru_cache(maxsize=None)
+def q_scale(depth: int, dtype: torch.dtype) -> float:
+    """``depth ** -0.5`` as the JAX kernels multiply q by it: rounded to the
+    compute dtype first."""
+    return torch.tensor(depth ** -0.5, dtype=dtype).item()
 
 
-def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bias: Optional[torch.Tensor] = None, seed: int = 0,
-                         dropout_rate: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch version (mirrors ``_reference_core``): q * scale is
-    rounded to q's dtype, logits and softmax are f32, the weights are
-    rounded to q's dtype before the f32-accumulated value product."""
-    _no_dropout(dropout_rate)
-    dt = q.dtype
-    qs = q * (q.shape[-1] ** -0.5)
+def _logits_and_weights(q, k, bias, seed, dropout_rate):
+    """(q * scale rounded, f32 softmax weights, keep mask or None)."""
+    b, h, tq, d = q.shape
+    qs = q * torch.tensor(q_scale(d, q.dtype), dtype=q.dtype)
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     if bias is not None:
         logits = logits + bias.float()
-    weights = torch.softmax(logits, dim=-1).to(dt)
-    return torch.matmul(weights.float(), v.float()).to(dt)
+    w = torch.softmax(logits, dim=-1)
+    keep = None
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(seed, b, h, tq, dropout_rate, k.shape[2],
+                                 device=q.device)
+    return qs, w, keep
+
+
+def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, seed: Seed = 0,
+                         dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version (mirrors ``_kernel``): q * scale is rounded to
+    q's dtype, logits and softmax are f32, dropout divides the kept f32
+    weights by (1 - rate), the weights are rounded to q's dtype before the
+    f32-accumulated value product."""
+    _, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate)
+    weights = apply_dropout(w, keep, dropout_rate).to(q.dtype)
+    return torch.matmul(weights.float(), v.float()).to(q.dtype)
+
+
+def attention_core_backward_plain(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
+                                  need_dbias: bool = True):
+    """Plain backward (mirrors ``_bwd_kernel``): recompute the softmax and
+    the mask, run the softmax backward on the pre-dropout f32 weights.
+    Returns (dq, dk, dv) in q's dtype and dbias (f32, the bias's shape:
+    summed over the batch, and over heads for a (1, Tq, Tk) bias) or None."""
+    qs, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate)
+    gf, vf = g.float(), v.float()
+    w_drop = apply_dropout(w, keep, dropout_rate)
+    dv = torch.matmul(w_drop.transpose(-1, -2), gf)
+    dw = apply_dropout(torch.matmul(gf, vf.transpose(-1, -2)), keep, dropout_rate)
+    dl = w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+    dq = torch.matmul(dl, k.float()) * (q.shape[-1] ** -0.5)
+    dk = torch.matmul(dl.transpose(-1, -2), qs.float())
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = dl.sum(0)
+        if bias.shape[0] == 1:
+            dbias = dbias.sum(0, keepdim=True)
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt), dbias
+
+
+def seed_tensor(seed: Seed, device) -> torch.Tensor:
+    """The seed as a one-element int32 tensor on ``device`` (the kernels
+    read it from device memory; a Python int costs a host-to-device copy,
+    so callers on the card pass a tensor drawn there)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int32).reshape(1)
+    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will want a backward of an op on ``tensors`` (else
+    the wrappers skip the autograd.Function and its per-call cost)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _forward(q, k, v, bias, seed, rate):
+    """The forward for either device; ``seed`` a tensor or None (rate 0)."""
+    if q.device.type == "cpu":
+        return attention_core_plain(q, k, v, bias, seed, rate)
+    return _forward_kernel(q, k, v, bias, seed, rate)
+
+
+class _AttentionCore(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        ctx.save_for_backward(q, k, v, bias, seed)
+        ctx.rate = rate
+        return _forward(q, k, v, bias, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, seed = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = attention_core_backward(
+            q, k, v, bias, seed, g.contiguous(), ctx.rate, need_dbias)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None, None
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None, seed: int = 0,
+                   bias: Optional[torch.Tensor] = None, seed: Seed = 0,
                    dropout_rate: float = 0.0) -> torch.Tensor:
     """q: (B, H, Tq, D), k/v: (B, H, Tk, D), Tq/Tk <= 32, D <= 128;
     ``bias``: None or (1 | H, Tq, Tk) additive logits (a causal mask as
-    -1e30). Returns (B, H, Tq, D) in q's dtype."""
-    _no_dropout(dropout_rate)
-    if q.device.type == "cpu":
-        return attention_core_plain(q, k, v, bias)
-    if not q.is_cuda:
+    -1e30). Returns (B, H, Tq, D) in q's dtype; differentiable in q, k, v
+    and bias."""
+    if q.device.type != "cpu" and not q.is_cuda:
         raise ValueError(f"attention_core: unsupported device {q.device}")
+    rate = float(dropout_rate)
+    seed = seed_tensor(seed, q.device) if rate > 0.0 else None
+    if needs_grad(q, k, v, bias):
+        return _AttentionCore.apply(q, k, v, bias, seed, rate)
+    return _forward(q, k, v, bias, seed, rate)
+
+
+attention_core.launches = 0
+attention_core.bwd_launches = 0
+
+
+def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
+                            need_dbias: bool = True):
+    """The backward on its own (what the autograd Function calls): the
+    kernel for CUDA tensors (counted in ``attention_core.bwd_launches``),
+    :func:`attention_core_backward_plain` for CPU tensors. Returns (dq, dk,
+    dv, dbias or None)."""
+    if q.device.type == "cpu":
+        return attention_core_backward_plain(q, k, v, bias, seed, g,
+                                             dropout_rate, need_dbias)
+    if dropout_rate > 0.0:
+        seed = seed_tensor(seed, q.device)
+    return _backward_kernel(q, k, v, bias, seed, g, dropout_rate,
+                            need_dbias and bias is not None)
+
+
+def _check(q, k, v, bias):
+    """Shape, dtype and layout checks; returns (bias f32 contiguous or
+    None, bias_heads)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
@@ -77,32 +190,69 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"attention_core: {name} must be contiguous on "
                              f"{q.device} (16-byte aligned)")
-    bias_heads = 0
-    if bias is not None:
-        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-        if bias.shape not in ((1, tq, tk), (h, tq, tk)):
-            raise ValueError(f"attention_core: bias {tuple(bias.shape)} is "
-                             f"not (1|{h}, {tq}, {tk})")
-        bias_heads = bias.shape[0]
+    if bias is None:
+        return None, 0
+    bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    if bias.shape not in ((1, tq, tk), (h, tq, tk)):
+        raise ValueError(f"attention_core: bias {tuple(bias.shape)} is "
+                         f"not (1|{h}, {tq}, {tk})")
+    return bias, bias.shape[0]
+
+
+def _dropout_args(seed, rate):
+    """(seed pointer or None, rate, 1 - rate) as the kernels take them."""
+    if rate <= 0.0:
+        return None, 0.0, 1.0
+    return seed.data_ptr(), rate, 1.0 - rate
+
+
+def _forward_kernel(q, k, v, bias, seed, rate):
+    bias, bias_heads = _check(q, k, v, bias)
+    b, h, tq, d = q.shape
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.vptr_attention_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(bias),
-        out.data_ptr(), b, h, tq, tk, d, bias_heads, d ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), b, h, tq, k.shape[2], d, bias_heads,
+        q_scale(d, q.dtype), *_dropout_args(seed, rate), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "attention_core")
     attention_core.launches += 1
     return out
 
 
-attention_core.launches = 0
+def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
+    bias, bias_heads = _check(q, k, v, bias)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
+        raise ValueError(f"attention_core backward: g {tuple(g.shape)} "
+                         f"{g.dtype} does not match q {tuple(q.shape)} {q.dtype}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dl = dbias = None
+    if need_dbias:
+        dl = torch.empty(b, h, tq, tk, dtype=torch.float32, device=q.device)
+        dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.vptr_attention_core_bwd(
+        p(q), p(k), p(v), p(bias), p(g), p(dq), p(dk), p(dv), p(dl), p(dbias),
+        b, h, tq, tk, d, bias_heads, q_scale(d, q.dtype), d ** -0.5,
+        *_dropout_args(seed, rate), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "attention_core backward")
+    attention_core.bwd_launches += 1
+    return dq, dk, dv, dbias
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention_core")
     fn = lib.vptr_attention_core
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f, i, p]
         fn.restype = ctypes.c_int
+        bwd = lib.vptr_attention_core_bwd
+        bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f, i, p]
+        bwd.restype = ctypes.c_int
     return lib

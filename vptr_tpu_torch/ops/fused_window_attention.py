@@ -1,24 +1,32 @@
 """LayerNorm-folded fused attention sublayer over short token sequences.
 
 Counterpart of ``vptr_tpu/ops/fused_window_attention.py::fused_attention_ln``
-and ``fused_attention_ln_res`` (one TPU kernel, ``_fused_ln_forward`` /
-``_kernel_ln``, ``pl.pallas_call`` at :586):
+and ``fused_attention_ln_res``: the TPU kernels ``_fused_ln_forward`` /
+``_kernel_ln`` (``pl.pallas_call`` at :586) and ``_fused_ln_backward`` /
+``_bwd_kernel_ln`` (:769), joined by ``jax.custom_vjp``:
 
     out = out_proj(attn(q/k = LN(x) + pos, v = LN(x)))       # _ln
     out = x + scale * out_proj(attn(...))                    # _ln_res
 
-The kernel is ``csrc/fused_window_attention_ln.cu`` (CUDA C++ for sm_90a):
-LayerNorm, the q/k/v projections, per-head softmax attention and the output
-projection all run inside it. Its source note says what bounds it on the
-card and what its design does about that.
+The forward kernel is ``csrc/fused_window_attention_ln.cu``, the backward
+``csrc/fused_window_attention_ln_bwd.cu`` (CUDA C++ for sm_90a). Their
+source notes say what bounds each on the card and what the design does
+about that.
 
-* The wrappers launch the kernel for CUDA tensors (or raise) and take
-  :func:`fused_attention_ln_plain` for CPU tensors.
-* ``fused_attention_ln.launches`` counts launches of the kernel, by either
-  wrapper, and nothing else.
+* The wrappers are ``torch.autograd.Function``s: for CUDA tensors they
+  launch the kernels (or raise), for CPU tensors they take
+  :func:`fused_attention_ln_plain` forward and
+  :func:`fused_attention_ln_backward_plain` backward.
+* ``fused_attention_ln.launches`` counts launches of the forward kernel and
+  ``fused_attention_ln.bwd_launches`` of the backward, by either wrapper,
+  and nothing else.
 * Weights are (C_in, C_out) like the JAX Dense kernels, in the compute
-  dtype; biases, the LN affine, ``pos`` and ``scale`` are f32.
-* Dropout arrives with the training slice (``seed``/``dropout_rate`` kept).
+  dtype; biases, the LN affine, ``pos`` and ``scale`` are f32. Gradients
+  come back in each operand's dtype; ``pos`` (a sine table) and ``scale``
+  (a DropPath mask) get zero gradients, as in the JAX package.
+* Attention-weight dropout is the counter hash of ``ops/dropout.py``; its
+  element index runs over the padded token count (:func:`padded_tokens`),
+  as the TPU kernel pads the token axis before building its mask.
 """
 
 from __future__ import annotations
@@ -29,7 +37,18 @@ import torch
 import torch.nn.functional as F
 
 from vptr_tpu_torch.ops import _build
-from vptr_tpu_torch.ops.attention_core import _no_dropout, attention_core_plain
+from vptr_tpu_torch.ops.attention_core import (
+    _dropout_args,
+    needs_grad,
+    q_scale,
+    seed_tensor,
+)
+from vptr_tpu_torch.ops.dropout import (
+    Seed,
+    apply_dropout,
+    padded_tokens,
+    window_keep_mask,
+)
 
 MAX_TOKENS = 32
 MAX_HEAD_DIM = 128
@@ -37,18 +56,42 @@ LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate):
+    """Per-head attention of the window kernels in plain PyTorch: q, k, v
+    (B, L, C) projections in the compute dtype. Returns (qs, w, keep,
+    w_drop rounded, split) with qs = q_h * scale rounded, w the f32
+    pre-dropout weights, all (B, H, L, ...)."""
+    b, l, c = q.shape
+    hd = c // num_heads
+    dt = q.dtype
+
+    def split(z):  # (B, L, C) -> (B, H, L, hd)
+        return z.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    qs = split(q) * torch.tensor(q_scale(hd, dt), dtype=dt)
+    logits = torch.matmul(qs.float(), split(k).float().transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias.float()
+    w = torch.softmax(logits, dim=-1)
+    keep = None
+    if dropout_rate > 0.0:
+        keep = window_keep_mask(seed, b, num_heads, l, dropout_rate, dt,
+                                device=q.device)
+    w_drop = apply_dropout(w, keep, dropout_rate).to(dt)
+    return qs, w, keep, w_drop, split
+
+
 def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                             pos=None, bias=None, seed=0, num_heads: int = 8,
-                             dropout_rate: float = 0.0, scale=None,
-                             res: bool = False) -> torch.Tensor:
+                             pos=None, bias=None, seed: Seed = 0,
+                             num_heads: int = 8, dropout_rate: float = 0.0,
+                             scale=None, res: bool = False) -> torch.Tensor:
     """Plain PyTorch version with the kernel's rounding points: xn rounded
-    to x's dtype, q/k/v rounded after their f32 bias add, the attention as
-    :func:`attention_core_plain`, the output projection in f32 plus bo
-    (then ``* scale`` per window and ``+ x`` when ``res``), rounded once."""
-    _no_dropout(dropout_rate)
+    to x's dtype, q/k/v rounded after their f32 bias add, q * scale rounded,
+    f32 softmax, dropout, weights rounded before the value product, the
+    merged heads rounded, the output projection in f32 plus bo (then
+    ``* scale`` per window and ``+ x`` when ``res``), rounded once."""
     dt = x.dtype
     b, l, c = x.shape
-    hd = c // num_heads
     x32 = x.float()
     xn = F.layer_norm(x32, (c,), ls.float(), lb.float(), LN_EPS).to(dt)
     xqk = xn + pos.to(dt) if pos is not None else xn
@@ -56,11 +99,11 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     def proj(a, w, bb):
         return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
 
-    def split(z):  # (B, L, C) -> (B, H, L, hd)
-        return z.reshape(b, l, num_heads, hd).transpose(1, 2)
-
-    o = attention_core_plain(split(proj(xqk, wq, bq)), split(proj(xqk, wk, bk)),
-                             split(proj(xn, wv, bv)), bias)
+    v = proj(xn, wv, bv)
+    _, _, _, w_drop, split = _heads_attention(
+        proj(xqk, wq, bq), proj(xqk, wk, bk), v, bias, seed, num_heads,
+        dropout_rate)
+    o = torch.matmul(w_drop.float(), split(v).float()).to(dt)
     out = torch.matmul(o.transpose(1, 2).reshape(b, l, c).float(), wo.float())
     out = out + bo.float()
     if scale is not None:
@@ -70,45 +113,198 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     return out.to(dt)
 
 
+def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
+                                      lb, pos, bias, seed, g,
+                                      num_heads: int = 8,
+                                      dropout_rate: float = 0.0, scale=None,
+                                      res: bool = False,
+                                      need_dbias: bool = True):
+    """Plain backward (mirrors ``_bwd_kernel_ln``): recompute LN, +pos,
+    q/k/v, the per-head softmax and mask; then the attention backward per
+    head and the weight, LN-affine and bias gradients summed over all
+    windows. Rounding points: w_drop rounded to the compute dtype before
+    the dv product, the merged heads rounded before dWo; dq/dk/dv stay f32
+    into the dW products and into d(xn). Returns (dx, dwq, dbq, dwk, dbk,
+    dwv, dbv, dwo, dbo, dls, dlb, dbias): dx in x's dtype, each dW in its
+    weight's dtype, the vectors f32, dbias f32 in the bias's shape (or
+    None)."""
+    dt = x.dtype
+    bw, l, c = x.shape
+    hd = c // num_heads
+    x2 = x.float().reshape(-1, c)
+    g2_raw = g.float().reshape(-1, c)
+    g2 = g2_raw
+    if scale is not None:
+        g2 = (g.float() * scale.float()[:, None, None]).reshape(-1, c)
+    mean = x2.mean(1, keepdim=True)
+    xc = x2 - mean
+    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    lsf, lbf = ls.float(), lb.float()
+    xn = (xhat * lsf + lbf).to(dt)
+    xqk = xn
+    if pos is not None:
+        xqk = (xn.reshape(bw, l, c) + pos.to(dt)).reshape(-1, c)
+
+    def proj(a, w, bb):
+        return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
+
+    q3, k3, v3 = (proj(xqk, wq, bq), proj(xqk, wk, bk), proj(xn, wv, bv))
+    qs, w, keep, w_drop, split = _heads_attention(
+        q3.reshape(bw, l, c), k3.reshape(bw, l, c), v3.reshape(bw, l, c),
+        bias, seed, num_heads, dropout_rate)
+    vh = split(v3.reshape(bw, l, c)).float()
+    attn = torch.matmul(w_drop.float(), vh).to(dt)
+    dao = split(torch.matmul(g2, wo.float().t()).reshape(bw, l, c))
+    dv = torch.matmul(w_drop.float().transpose(-1, -2), dao)
+    dw = apply_dropout(torch.matmul(dao, vh.transpose(-1, -2)), keep,
+                       dropout_rate)
+    dl = w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+    dq = torch.matmul(dl, split(k3.reshape(bw, l, c)).float()) * (hd ** -0.5)
+    dk = torch.matmul(dl.transpose(-1, -2), qs.float())
+
+    def merge(z):  # (B, H, L, hd) -> (B*L, C)
+        return z.transpose(1, 2).reshape(-1, c)
+
+    attn2, dq2, dk2, dv2 = merge(attn).float(), merge(dq), merge(dk), merge(dv)
+    dwq = torch.matmul(xqk.float().t(), dq2)
+    dwk = torch.matmul(xqk.float().t(), dk2)
+    dwv = torch.matmul(xn.float().t(), dv2)
+    dwo = torch.matmul(attn2.t(), g2)
+    dxn = (torch.matmul(dq2, wq.float().t()) + torch.matmul(dk2, wk.float().t())
+           + torch.matmul(dv2, wv.float().t()))
+    dls = (dxn * xhat).sum(0)
+    dlb = dxn.sum(0)
+    dxhat = dxn * lsf
+    m1 = dxhat.mean(1, keepdim=True)
+    m2 = (dxhat * xhat).mean(1, keepdim=True)
+    dx = (dxhat - m1 - xhat * m2) * rstd
+    if res:
+        dx = dx + g2_raw
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = dl.sum(0)
+        if bias.shape[0] == 1:
+            dbias = dbias.sum(0, keepdim=True)
+    return (dx.to(dt).reshape(bw, l, c), dwq.to(wq.dtype), dq2.sum(0),
+            dwk.to(wk.dtype), dk2.sum(0), dwv.to(wv.dtype), dv2.sum(0),
+            dwo.to(wo.dtype), g2.sum(0), dls, dlb, dbias)
+
+
+class _FusedAttentionLN(torch.autograd.Function):
+    """Both wrappers; ``res`` selects the ``_ln_res`` epilogue."""
+
+    @staticmethod
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                scale, seed, num_heads, rate, res):
+        ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
+                              bias, scale, seed)
+        ctx.num_heads, ctx.rate, ctx.res = num_heads, rate, res
+        return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                        scale, seed, num_heads, rate, res)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+         seed) = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[12]
+        (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dls, dlb,
+         dbias) = fused_attention_ln_backward(
+            x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
+            g.contiguous(), ctx.num_heads, ctx.rate, scale, ctx.res, need_dbias)
+        cast = lambda d, ref: None if d is None else d.to(ref.dtype)
+        dpos = torch.zeros_like(pos) if ctx.needs_input_grad[11] else None
+        dscale = torch.zeros_like(scale) if ctx.needs_input_grad[13] else None
+        return (dx, dwq, cast(dbq, bq), dwk, cast(dbk, bk), dwv, cast(dbv, bv),
+                dwo, cast(dbo, bo), cast(dls, ls), cast(dlb, lb), dpos,
+                cast(dbias, bias), dscale, None, None, None, None)
+
+
 def fused_attention_ln(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos=None,
-                       bias=None, seed=0, num_heads: int = 8,
+                       bias=None, seed: Seed = 0, num_heads: int = 8,
                        dropout_rate: float = 0.0) -> torch.Tensor:
     """LN-folded attention sublayer over x (B, L, C), L <= 32. ``pos``:
     optional (L, C) table added to q/k only; ``bias``: optional
-    (1 | heads, L, L) additive logits."""
-    return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
-                    num_heads, dropout_rate, None, False)
+    (1 | heads, L, L) additive logits; ``seed``/``dropout_rate``: the
+    attention-weight dropout."""
+    return _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, None,
+                  seed, num_heads, dropout_rate, False)
 
 
 def fused_attention_ln_res(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                           pos=None, bias=None, scale=None, seed=0,
+                           pos=None, bias=None, scale=None, seed: Seed = 0,
                            num_heads: int = 8,
                            dropout_rate: float = 0.0) -> torch.Tensor:
     """``x + scale * fused_attention_ln(x, ...)`` in one kernel; ``scale``:
     optional (B,) f32 per-window branch factor (the DropPath mask)."""
-    return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
-                    num_heads, dropout_rate, scale, True)
+    return _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+                  seed, num_heads, dropout_rate, True)
+
+
+def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+             seed, num_heads, rate, res):
+    """The forward for either device; ``seed`` a tensor or None (rate 0)."""
+    if x.device.type == "cpu":
+        return fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
+                                        lb, pos, bias, seed, num_heads, rate,
+                                        scale, res)
+    return _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
+                           bias, scale, seed, num_heads, rate, res)
+
+
+def _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
+           num_heads, rate, res):
+    if x.device.type != "cpu" and not x.is_cuda:
+        raise ValueError(f"fused_attention_ln: unsupported device {x.device}")
+    rate = float(rate)
+    seed = seed_tensor(seed, x.device) if rate > 0.0 else None
+    args = (x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
+            num_heads, rate, res)
+    if needs_grad(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale):
+        return _FusedAttentionLN.apply(*args)
+    return _forward(*args)
+
+
+fused_attention_ln.launches = 0
+fused_attention_ln.bwd_launches = 0
+
+
+def fused_attention_ln_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
+                                bias, seed, g, num_heads: int = 8,
+                                dropout_rate: float = 0.0, scale=None,
+                                res: bool = False, need_dbias: bool = True):
+    """The backward of both wrappers on its own (what the autograd Function
+    calls): the kernel for CUDA tensors (counted in
+    ``fused_attention_ln.bwd_launches``),
+    :func:`fused_attention_ln_backward_plain` for CPU tensors. Returns the
+    tuple that function documents."""
+    if x.device.type == "cpu":
+        return fused_attention_ln_backward_plain(
+            x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed, g,
+            num_heads, dropout_rate, scale, res, need_dbias)
+    if dropout_rate > 0.0:
+        seed = seed_tensor(seed, x.device)
+    return _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
+                            bias, seed, g, num_heads, dropout_rate, scale, res,
+                            need_dbias and bias is not None)
 
 
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 
 
 def kernel_route(tokens: int, channels: int, dtype: torch.dtype) -> str:
-    """Which of the kernel's two routes a shape takes: ``"tensor cores"``
-    (bf16 WMMA projections) or ``"fma"`` (f32 FMAs on the CUDA cores)."""
+    """Which of the forward kernel's two routes a shape takes: ``"tensor
+    cores"`` (bf16 WMMA projections) or ``"fma"`` (f32 FMAs on the CUDA
+    cores). The backward's products take the tensor cores for bf16 widths
+    that are multiples of 8 and FMAs otherwise."""
     return ("tensor cores" if _lib().vptr_fused_window_attention_ln_route(
         tokens, channels, _DTYPES[dtype]) else "fma")
 
 
-def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
-             num_heads, dropout_rate, scale, res):
-    _no_dropout(dropout_rate)
-    if x.device.type == "cpu":
-        return fused_attention_ln_plain(
-            x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-            num_heads=num_heads, scale=scale, res=res)
-    if not x.is_cuda:
-        raise ValueError(f"fused_attention_ln: unsupported device {x.device}")
+def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+              num_heads):
+    """Check every operand against what the kernels take; returns (bias
+    f32 contiguous or None, bias_heads)."""
     bw, l, c = x.shape
     if c % num_heads or c // num_heads > MAX_HEAD_DIM or l > MAX_TOKENS:
         raise ValueError(f"fused_attention_ln kernel takes L <= {MAX_TOKENS} "
@@ -117,17 +313,10 @@ def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_attention_ln kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    lib = _lib()
-    smem = lib.vptr_fused_window_attention_ln_smem(l, c, num_heads,
-                                                   _DTYPES[x.dtype])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_attention_ln kernel: L={l}, C={c}, "
-                         f"{x.dtype} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
 
     def operand(t, shape, dtype, name, align=1):
         if t is None:
-            return None
+            return
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"fused_attention_ln: {name} is "
                              f"{tuple(t.shape)} {t.dtype}, wants {shape} {dtype}")
@@ -135,7 +324,6 @@ def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
                 or t.data_ptr() % align):
             raise ValueError(f"fused_attention_ln: {name} must be contiguous "
                              f"on {x.device} ({align}-byte aligned)")
-        return t
 
     f32 = torch.float32
     operand(x, (bw, l, c), x.dtype, "x")
@@ -146,27 +334,107 @@ def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
         operand(v, (c,), f32, name)
     operand(pos, (l, c), f32, "pos")
     operand(scale, (bw,), f32, "scale")
-    bias_heads = 0
-    if bias is not None:
-        bias = bias.to(device=x.device, dtype=f32).contiguous()
-        if tuple(bias.shape) not in ((1, l, l), (num_heads, l, l)):
-            raise ValueError(f"fused_attention_ln: bias {tuple(bias.shape)} "
-                             f"is not (1|{num_heads}, {l}, {l})")
-        bias_heads = bias.shape[0]
+    if bias is None:
+        return None, 0
+    bias = bias.to(device=x.device, dtype=f32).contiguous()
+    if tuple(bias.shape) not in ((1, l, l), (num_heads, l, l)):
+        raise ValueError(f"fused_attention_ln: bias {tuple(bias.shape)} "
+                         f"is not (1|{num_heads}, {l}, {l})")
+    return bias, bias.shape[0]
 
+
+def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                    scale, seed, num_heads, rate, res):
+    bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
+                                 pos, bias, scale, num_heads)
+    bw, l, c = x.shape
+    lib = _lib()
+    smem = lib.vptr_fused_window_attention_ln_smem(l, c, num_heads,
+                                                   _DTYPES[x.dtype])
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_attention_ln kernel: L={l}, C={c}, "
+                         f"{x.dtype} needs {smem} B of shared memory "
+                         f"(> {SMEM_LIMIT})")
     out = torch.empty_like(x)
     p = _build.ptr
     err = lib.vptr_fused_window_attention_ln(
         p(x), p(wq), p(bq), p(wk), p(bk), p(wv), p(bv), p(wo), p(bo), p(ls),
         p(lb), p(pos), p(bias), p(scale), p(out), bw, l, c, num_heads,
-        bias_heads, int(res), (c // num_heads) ** -0.5, LN_EPS,
+        bias_heads, int(res), q_scale(c // num_heads, x.dtype), LN_EPS,
+        *_dropout_args(seed, rate), padded_tokens(l, x.dtype),
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "fused_attention_ln")
     fused_attention_ln.launches += 1
     return out
 
 
-fused_attention_ln.launches = 0
+class _BwdArgs(ctypes.Structure):
+    """Mirror of ``BwdArgs`` in ``csrc/fused_window_attention_ln_bwd.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ls", "lb",
+        "pos", "bias", "scale", "seed", "g",
+        "dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
+        "dlb", "dbias",
+        "mean", "rstd", "xn", "xqk", "q", "k", "v", "attn", "dao", "dq",
+        "dk", "dv", "dl", "partial", "wpart", "hilo")]
+        + [(n, ctypes.c_int) for n in (
+            "windows", "tokens", "channels", "heads", "bias_heads", "res",
+            "mask_tokens", "dtype", "ksplit")]
+        + [(n, ctypes.c_float) for n in ("qscale", "dscale", "eps", "rate",
+                                         "keep_div")])
+
+
+def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                     seed, g, num_heads, rate, scale, res, need_dbias):
+    bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
+                                 pos, bias, scale, num_heads)
+    bw, l, c = x.shape
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"fused_attention_ln backward: g {tuple(g.shape)} "
+                         f"{g.dtype} does not match x {tuple(x.shape)} {x.dtype}")
+    rows, dt, dev = bw * l, x.dtype, x.device
+    f32 = torch.float32
+    lib = _lib_bwd()
+    nparts = lib.vptr_fused_window_attention_ln_bwd_partials(rows)
+    ksplit = lib.vptr_fused_window_attention_ln_bwd_ksplit(rows)
+
+    def buf(*shape, dtype=f32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    grads = dict(dx=torch.empty_like(x), dwq=torch.empty_like(wq),
+                 dwk=torch.empty_like(wk), dwv=torch.empty_like(wv),
+                 dwo=torch.empty_like(wo), dbq=buf(c), dbk=buf(c), dbv=buf(c),
+                 dbo=buf(c), dls=buf(c), dlb=buf(c),
+                 dbias=buf(*bias.shape) if need_dbias else None)
+    scratch = dict(mean=buf(rows), rstd=buf(rows), xn=buf(rows, c, dtype=dt),
+                   xqk=buf(rows, c, dtype=dt), q=buf(rows, c, dtype=dt),
+                   k=buf(rows, c, dtype=dt), v=buf(rows, c, dtype=dt),
+                   attn=buf(rows, c, dtype=dt), dao=buf(rows, c),
+                   dq=buf(rows, c), dk=buf(rows, c), dv=buf(rows, c),
+                   dl=buf(bw, num_heads, l, l) if need_dbias else None,
+                   partial=buf(6, nparts, c), wpart=buf(4, ksplit, c, c),
+                   # bf16 hi/lo halves of the f32 operands of the tensor-core
+                   # products (dq, dk, dv, g * scale)
+                   hilo=buf(8, rows, c, dtype=dt) if dt == torch.bfloat16 else None)
+    p = _build.ptr
+    a = _BwdArgs(
+        x=p(x), wq=p(wq), bq=p(bq), wk=p(wk), bk=p(bk), wv=p(wv), bv=p(bv),
+        wo=p(wo), bo=p(bo), ls=p(ls), lb=p(lb), pos=p(pos), bias=p(bias),
+        scale=p(scale), seed=p(seed) if rate > 0.0 else None, g=p(g),
+        **{k: p(v) for k, v in grads.items()},
+        **{k: p(v) for k, v in scratch.items()},
+        windows=bw, tokens=l, channels=c, heads=num_heads,
+        bias_heads=bias_heads, res=int(res),
+        mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt], ksplit=ksplit,
+        qscale=q_scale(c // num_heads, dt), dscale=(c // num_heads) ** -0.5,
+        eps=LN_EPS, rate=rate, keep_div=1.0 - rate)
+    err = lib.vptr_fused_window_attention_ln_bwd(
+        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "fused_attention_ln backward")
+    fused_attention_ln.bwd_launches += 1
+    return tuple(grads[k] for k in ("dx", "dwq", "dbq", "dwk", "dbk", "dwv",
+                                    "dbv", "dwo", "dbo", "dls", "dlb",
+                                    "dbias"))
 
 
 def _lib() -> ctypes.CDLL:
@@ -174,10 +442,23 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_fused_window_attention_ln
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 15 + [i] * 6 + [f, f, i, p]
+        fn.argtypes = [p] * 15 + [i] * 6 + [f, f, p, f, f, i, i, p]
         fn.restype = ctypes.c_int
         for name, n in (("smem", 4), ("route", 3)):
             g = getattr(lib, f"vptr_fused_window_attention_ln_{name}")
             g.argtypes = [i] * n
             g.restype = ctypes.c_long
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("fused_window_attention_ln_bwd")
+    fn = lib.vptr_fused_window_attention_ln_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name in ("partials", "ksplit"):
+            f = getattr(lib, f"vptr_fused_window_attention_ln_bwd_{name}")
+            f.argtypes = [ctypes.c_int]
+            f.restype = ctypes.c_int
     return lib

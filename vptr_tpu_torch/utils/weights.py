@@ -1,4 +1,9 @@
-"""Load the JAX package's variables into the port's modules.
+"""Move variables between the JAX package's trees and the port's modules.
+
+:func:`load_jax_variables` loads JAX variables into a module;
+:func:`export_jax_variables` is the reverse direction (a module's
+parameters, or tensors in their place such as their ``.grad``, as the JAX
+tree), so gradients and updated parameters compare leaf for leaf.
 
 ``variables`` is what ``jax.tree.map(np.asarray, variables)`` gives for a
 flax module: ``{"params": {...}, "batch_stats": {...}}`` as nested dicts of
@@ -19,13 +24,14 @@ names. Layout conversions:
 * ``LayerNormHWC`` (H, W, C) affine    -> (C, H, W)
 
 Every parameter and persistent buffer of the module must be covered, and
-every leaf must land somewhere; anything else raises.
+every leaf must land somewhere; anything else raises. Each conversion is a
+transpose, so it maps gradients as it maps weights.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Mapping as MappingT, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,3 +91,62 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     if missing:
         raise KeyError(f"no JAX leaf for {missing}")
     return module
+
+
+_INV_LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean",
+             "running_var": "var"}
+
+
+def _export(owner: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(JAX leaf name, array in the JAX layout) of one torch leaf."""
+    if leaf == "weight":
+        if isinstance(owner, nn.Linear):
+            return "kernel", arr.T
+        if isinstance(owner, nn.ConvTranspose2d):
+            return "kernel", arr.transpose(2, 3, 0, 1)
+        if isinstance(owner, nn.Conv2d):
+            return "kernel", arr.transpose(2, 3, 1, 0)
+        if isinstance(owner, LayerNormHWC):
+            return "scale", arr.transpose(1, 2, 0)
+        return "scale", arr                 # LayerNorm / BatchNorm
+    if leaf == "bias" and isinstance(owner, LayerNormHWC):
+        return "bias", arr.transpose(1, 2, 0)
+    return _INV_LEAF[leaf], arr
+
+
+def export_jax_variables(module: nn.Module,
+                         tensors: Optional[MappingT[str, torch.Tensor]] = None
+                         ) -> Dict[str, dict]:
+    """The module's variables as the JAX tree: ``{"params": ...,
+    "batch_stats": ...}`` of nested dicts of f32 numpy arrays (the inverse
+    of :func:`load_jax_variables`). With ``tensors`` (name -> tensor for
+    every parameter, e.g. ``{n: p.grad}``) those take the parameters'
+    places and only ``"params"`` is returned."""
+    out: Dict[str, dict] = {"params": {}}
+    if tensors is None:
+        out["batch_stats"] = {}
+        items = [(n, t) for n, t in module.state_dict(keep_vars=True).items()
+                 if not n.endswith("num_batches_tracked")]
+    else:
+        items = list(tensors.items())
+        missing = sorted(set(dict(module.named_parameters())) - set(tensors))
+        if missing:
+            raise KeyError(f"no tensor for parameters {missing}")
+    for name, t in items:
+        path = name.split(".")
+        owner = module.get_submodule(".".join(path[:-1]))
+        leaf, arr = _export(owner, path[-1],
+                            t.detach().float().cpu().numpy())
+        collection = ("batch_stats" if path[-1].startswith("running_")
+                      else "params")
+        if collection not in out:
+            continue
+        keys = path[:-1] + (["BatchNorm_0"] if isinstance(owner, nn.BatchNorm2d)
+                            else [])
+        node = out[collection]
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    if tensors is None and not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
