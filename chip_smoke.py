@@ -30,7 +30,26 @@ Phases (any failure exits non-zero, without the final result line):
    warm-ups, and with kernels="plain") and each kernel beside its plain
    version, a PyTorch library yardstick and its bound (bytes or
    operations over the card's published peak);
-7. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+7. the NAR slice's kernels against their plain versions at the nar_mnist
+   shapes (640 windows x 16 x 528), bf16 and f32, dropout 0 and 0.1:
+   the two-stream kernels #5/#6 with an 8-head and a 1-head relative-
+   position bias (forward, dx_qk, dx_v, every dW and db, dbias), and #1/#3
+   with the 8-head bias, no position table and the bias gradient;
+8. build nar_mnist at full width from a seed (AE as far_mnist, NAR 4 + 8
+   layers / d 528 / 8 heads, RPE) and run the "nar" predict entry point
+   for 10 frames from 10 past frames at batch 16, every counter at 0 just
+   before and read just after (#1 4, #5 8, #2 20 launches), check the
+   frames and compare with kernels="plain";
+9. train nar_mnist at full width (make_nar_train_step: batch 16, Tp = Tf
+   = 10, dropout / DropPath 0.1, MSE + GDL + 0.1 BiPatchNCE, clip ->
+   AdamW): one step with every counter at 0 (#1/#3 4, #5/#6 8, #2/#4 20
+   launches); one step with the kernels and one with kernels="plain" from
+   one cloned state; 10 steps on one batch, losses finite and falling;
+10. time the nar predict call and the NAR train step (in turns with
+   kernels="plain"), kernels #5/#6 beside their plain versions, library
+   yardsticks and bounds, and #1/#3 at the NAR shape with the RPE bias;
+11. print {"kernels": [...]} (all six kernels) and, last,
+   {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -105,6 +124,360 @@ def zero_counters(*wrappers):
     for w in wrappers:
         w.launches = 0
         w.bwd_launches = 0
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms for the work on the card, "bytes" or "operations"): the
+    larger of bytes over the memory rate and bf16 flops over the peak."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (tf, "operations") if tf >= tb else (tb, "bytes")
+
+
+def timed_turns(fn, plain):
+    """plain, kernel, kernel, plain (CUDA-event ms each): two versions
+    compared within one call, in turns; returns (kernel ms, plain ms),
+    the better reading of each."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(fn), cuda_ms(fn), cuda_ms(plain)
+    return min(k1, k2), min(p1, p2)
+
+
+def nar_phases(dev):
+    """Phases 7-10: the nar_mnist NAR path. Returns (kernel rows of #5 and
+    #6, a text line per extra reading, the summary numbers)."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.layers import relative_position_index, use_kernels
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+    from vptr_tpu_torch.ops.attention_core import attention_core
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_nar_train_state
+    from vptr_tpu_torch.train.steps import make_nar_train_step
+
+    cfg = get_preset("nar_mnist")
+    tc = cfg.transformer
+    c, heads = tc.d_model, tc.n_heads
+    hd = c // heads
+    batch, n_past, n_fut = cfg.data.batch_size, tc.num_past_frames, tc.num_future_frames
+    tokens = tc.window_size ** 2
+    per_frame = (tc.enc_h // tc.window_size) * (tc.enc_w // tc.window_size)
+    windows = batch * n_fut * per_frame       # 640: the decoder's (and encoder's)
+    rows = windows * tokens
+    rate = tc.dropout
+    g = torch.Generator().manual_seed(SEED + 20)
+    kseed = torch.tensor([SEED + 54321], dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
+    bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
+    idx = torch.from_numpy(relative_position_index(tc.window_size).reshape(-1))
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g) * std
+
+    def rpe_bias(nb):
+        table = randn((2 * tc.window_size - 1) ** 2, nb, std=0.5)
+        return table[idx].reshape(tokens, tokens, nb).permute(2, 0, 1).contiguous().to(dev)
+
+    def weights(dtype):
+        w = [randn(c, c, std=c ** -0.5).to(dev, dtype) for _ in range(4)]
+        b = [randn(c, std=0.02).to(dev) for _ in range(4)]
+        return (w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3])
+
+    def two_stream(dtype):
+        x_v = randn(windows, tokens, c)
+        x_qk = x_v + randn(windows, tokens, c, std=0.5)
+        return (x_qk.to(dev, dtype), x_v.to(dev, dtype)) + weights(dtype)
+
+    def ln_operands(dtype):
+        return ((randn(windows, tokens, c).to(dev, dtype),) + weights(dtype)
+                + ((1 + randn(c, std=0.1)).to(dev), randn(c, std=0.1).to(dev), None))
+
+    def worst_rel(got, want, names):
+        worst = {n: rel_err(a, b) for n, a, b in zip(names, got, want)
+                 if b is not None}
+        name = max(worst, key=worst.get)
+        return name, worst[name]
+
+    two_names = ("dx_qk", "dx_v", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv",
+                 "dwo", "dbo", "dbias")
+    ln_names = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo",
+                "dls", "dlb", "dbias")
+    rpe8, rpe1 = rpe_bias(heads), rpe_bias(1)
+    errs = {}
+
+    phase("7. NAR kernels against their plain versions (card)")
+    for dtype in (bf, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        ops = two_stream(dtype)
+        gout = randn(windows, tokens, c).to(dev, dtype)
+        for bias, what in ((rpe8, "8-head RPE bias"), (rpe1, "1-head bias")):
+            for r in (0.0, rate):
+                e = max_err(tfw.fused_attention(*ops, bias, kseed, heads, r),
+                            tfw.fused_attention_plain(*ops, bias, kseed, heads, r))
+                check(e <= tol[dtype], f"fused_attention {name} {what} dropout {r} "
+                      f"{tuple(ops[0].shape)} ({tfw.kernel_route(tokens, c, dtype)})"
+                      f" max|err| {e:.3e} <= {tol[dtype]}")
+                got = tfw.fused_attention_backward(*ops, bias, kseed, gout, heads, r)
+                want = tfw.fused_attention_backward_plain(*ops, bias, kseed, gout,
+                                                          heads, r)
+                n_worst, worst = worst_rel(got, want, two_names)
+                check(worst <= bwd_tol[dtype], f"fused_attention backward {name} "
+                      f"{what} dropout {r} worst {n_worst} rel err {worst:.2e} <= "
+                      f"{bwd_tol[dtype]:.2e}")
+                if dtype == bf and r > 0 and bias is rpe8:
+                    errs["two"] = e
+                    errs["two_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+        lops = ln_operands(dtype)
+        for r in (0.0, rate):
+            e = max_err(tfw.fused_attention_ln(*lops, rpe8, kseed, heads, r),
+                        tfw.fused_attention_ln_plain(*lops, rpe8, kseed, heads, r))
+            check(e <= tol[dtype], f"fused_attention_ln {name} 8-head RPE bias, no "
+                  f"pos, dropout {r} max|err| {e:.3e} <= {tol[dtype]}")
+            got = tfw.fused_attention_ln_backward(*lops, rpe8, kseed, gout, heads, r)
+            want = tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gout,
+                                                         heads, r)
+            check(got[-1] is not None and tuple(got[-1].shape) == (heads, tokens, tokens),
+                  f"fused_attention_ln backward {name} returns the 8-head dbias")
+            n_worst, worst = worst_rel(got, want, ln_names)
+            check(worst <= bwd_tol[dtype], f"fused_attention_ln backward {name} "
+                  f"8-head RPE bias dropout {r} worst {n_worst} rel err "
+                  f"{worst:.2e} <= {bwd_tol[dtype]:.2e}")
+    torch.cuda.synchronize()
+
+    phase("8. nar_mnist full width, nar predict")
+    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
+    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    n_params = sum(p.numel() for m in (enc, dec, tr) for p in m.parameters())
+    print(f"  params {n_params} (enc+dec+NAR {tc.num_encoder_layers}+"
+          f"{tc.num_decoder_layers} layers, rpe {tc.rpe}), dtype {dtype}")
+    frames = torch.rand(batch, n_past + n_fut, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    past, future = frames[:, :n_past].to(dev), frames[:, n_past:].to(dev)
+    predict = make_predict_fn(cfg, enc, dec, tr, "nar", n_fut, dev)
+    counters = (attention_core, tfw.fused_attention_ln, tfw.fused_attention)
+    zero_counters(*counters)
+    pred = predict(past)
+    torch.cuda.synchronize()
+    pred_launches = {"fused_attention_ln": tfw.fused_attention_ln.launches,
+                     "fused_attention": tfw.fused_attention.launches,
+                     "attention_core": attention_core.launches}
+    enc_l, dec_l = tc.num_encoder_layers, tc.num_decoder_layers
+    want = {"fused_attention_ln": enc_l, "fused_attention": dec_l,
+            "attention_core": enc_l + 2 * dec_l}
+    for name, n in pred_launches.items():
+        check(n == want[name], f"{name} launches in the nar predict: {n} == {want[name]}")
+    check(tuple(pred.shape) == (batch, n_fut, 64, 64, 1),
+          f"nar output shape {tuple(pred.shape)}")
+    check(bool(torch.isfinite(pred.float()).all()), "nar output finite")
+    lo, hi = pred.float().min().item(), pred.float().max().item()
+    check(0.0 <= lo and hi <= 1.0, f"nar output in [0, 1] ({lo:.4f}, {hi:.4f})")
+    use_kernels(tr, "plain")
+    ref = predict(past)
+    use_kernels(tr, "cuda")
+    e_nar = max_err(pred, ref)
+    check(e_nar <= 5e-2, f"nar predict kernels vs kernels='plain' max|err| "
+          f"{e_nar:.3e} <= 5e-2 (bf16 sigmoid frames after 12 layers)")
+
+    phase("9. nar_mnist full width, train step")
+    opt = build_optimizer(cfg.optim, c)
+    print(f"  optimizer {cfg.optim.optimizer} lr {cfg.optim.lr} clip "
+          f"{cfg.optim.max_grad_norm}; dropout {tc.dropout} drop_path "
+          f"{tc.drop_path}; lam_nce {cfg.loss.lam_nce} at temperature "
+          f"{cfg.loss.nce_temperature}")
+    state = create_nar_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    train_step = make_nar_train_step(enc, dec, tr, opt, cfg.loss)
+    zero_counters(*counters)
+    state, m0 = train_step(state, past, future)
+    torch.cuda.synchronize()
+    step_launches = {
+        "fused_attention_ln": tfw.fused_attention_ln.launches,
+        "fused_attention_ln_bwd": tfw.fused_attention_ln.bwd_launches,
+        "fused_attention": tfw.fused_attention.launches,
+        "fused_attention_bwd": tfw.fused_attention.bwd_launches,
+        "attention_core": attention_core.launches,
+        "attention_core_bwd": attention_core.bwd_launches}
+    want = {"fused_attention_ln": enc_l, "fused_attention_ln_bwd": enc_l,
+            "fused_attention": dec_l, "fused_attention_bwd": dec_l,
+            "attention_core": enc_l + 2 * dec_l,
+            "attention_core_bwd": enc_l + 2 * dec_l}
+    for name, n in step_launches.items():
+        check(n == want[name], f"{name} launches in one NAR train step: {n} == "
+              f"{want[name]}")
+    check(all(bool(torch.isfinite(v)) for v in m0.values()),
+          f"first NAR step metrics finite: "
+          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
+    a, b = state.clone(), state.clone()
+    use_kernels(b.transformer, "plain")
+    a, ma = train_step(a, past, future)
+    b, mb = train_step(b, past, future)
+    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
+    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
+    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
+          f"NAR step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
+          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
+    check(d_norm <= 0.05, f"NAR step kernels vs kernels='plain' grad norm rel "
+          f"diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
+          f"{float(mb['grad_norm']):.6e})")
+    del a, b
+    fixed = state.clone()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        fixed, m = train_step(fixed, past, future)
+        losses.append(float(m["T_total"]))
+    print(f"  NAR T_total over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "NAR train losses finite")
+    check(losses[-1] < losses[0], f"NAR T_total falls over {TRAIN_STEPS} steps: "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    del fixed
+
+    phase("10. NAR timing")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(past)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    pred_ms = statistics.median(times)
+    pred_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    use_kernels(tr, "plain")
+    plain_pred_ms = statistics.median(
+        [cuda_ms(lambda: predict(past), iters=1, warmup=0) for _ in range(3)])
+    use_kernels(tr, "cuda")
+    print(f"  nar predict (batch {batch}, {n_past} -> {n_fut} frames): median "
+          f"{pred_ms:.3f} ms of {len(times)} ({[round(t, 3) for t in times]}), "
+          f"{batch * n_fut / pred_ms * 1e3:.1f} frames/s, peak {pred_peak:.3f} "
+          f"GiB (with the train state held); kernels='plain' {plain_pred_ms:.3f} ms")
+
+    def timed_step(st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = train_step(st, past, future)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    kstate, pstate = state.clone(), state.clone()
+    use_kernels(pstate.transformer, "plain")
+    del state
+    step_times, plain_times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        order = ((kstate, step_times), (pstate, plain_times))
+        for which, out in (order if i % 2 == 0 else order[::-1]):
+            ms = timed_step(which)
+            if i >= WARMUP_STEPS:
+                out.append(ms)
+    del pstate
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed_step(kstate)
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del kstate
+    step_ms, plain_step_ms = statistics.median(step_times), statistics.median(plain_times)
+    train_fps = batch * n_fut / step_ms * 1e3
+    print(f"  NAR train step (batch {batch}, {n_past} -> {n_fut}): median "
+          f"{step_ms:.3f} ms of {len(step_times)} ({[round(t, 3) for t in step_times]}),"
+          f" {train_fps:.1f} training frames/s; kernels='plain' median "
+          f"{plain_step_ms:.3f} ms ({[round(t, 3) for t in plain_times]}); peak "
+          f"{step_peak:.3f} GiB with one state")
+
+    # kernels at the NAR shapes, bf16, the training dropout, the RPE bias
+    ops = two_stream(bf)
+    x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo = ops
+    gwin = randn(windows, tokens, c).to(dev, bf)
+    mask = rpe8.to(bf)[None]
+
+    def split(z):
+        return z.view(windows, tokens, heads, hd).transpose(1, 2)
+
+    def two_library(x_qk=x_qk, x_v=x_v, wq=wq, wk=wk, wv=wv, wo=wo):
+        o = F.scaled_dot_product_attention(
+            split(F.linear(x_qk, wq.t(), bq.to(bf))),
+            split(F.linear(x_qk, wk.t(), bk.to(bf))),
+            split(F.linear(x_v, wv.t(), bv.to(bf))), attn_mask=mask)
+        return F.linear(o.transpose(1, 2).reshape(windows, tokens, c), wo.t(),
+                        bo.to(bf))
+
+    lib_in = [z.clone().requires_grad_() for z in (x_qk, x_v, wq, wk, wv, wo)]
+    lib_out = two_library(*lib_in)
+    lops = ln_operands(bf)
+    x, ls, lb = lops[0], lops[9], lops[10]
+
+    def ln_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
+        xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
+        return two_library(xn, xn, wq, wk, wv, wo)
+
+    ln_in = [z.clone().requires_grad_() for z in (x, wq, wk, wv, wo)]
+    ln_out = ln_library(*ln_in)
+    s = 2   # bytes per bf16 element
+    vec = 4 * c * 4 + heads * tokens * tokens * 4
+    fwd_flops = 8 * rows * c * c + 4 * rows * tokens * c
+    bwd_flops = 22 * rows * c * c + 12 * rows * tokens * c
+    cases = (
+        # name, fn, plain, library, bytes, flops
+        ("fused_attention",
+         lambda: tfw.fused_attention(*ops, rpe8, kseed, heads, rate),
+         lambda: tfw.fused_attention_plain(*ops, rpe8, kseed, heads, rate),
+         two_library, 3 * rows * c * s + 4 * c * c * s + vec, fwd_flops),
+        ("fused_attention_bwd",
+         lambda: tfw.fused_attention_backward(*ops, rpe8, kseed, gwin, heads, rate),
+         lambda: tfw.fused_attention_backward_plain(*ops, rpe8, kseed, gwin, heads,
+                                                    rate),
+         lambda: torch.autograd.grad(lib_out, lib_in, gwin, retain_graph=True),
+         5 * rows * c * s + 8 * c * c * s + 2 * vec, bwd_flops),
+        ("fused_attention_ln (NAR shape, RPE bias)",
+         lambda: tfw.fused_attention_ln(*lops, rpe8, kseed, heads, rate),
+         lambda: tfw.fused_attention_ln_plain(*lops, rpe8, kseed, heads, rate),
+         ln_library, 2 * rows * c * s + 4 * c * c * s + vec + 2 * c * 4,
+         fwd_flops),
+        ("fused_attention_ln_bwd (NAR shape, RPE bias)",
+         lambda: tfw.fused_attention_ln_backward(*lops, rpe8, kseed, gwin, heads,
+                                                 rate),
+         lambda: tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gwin,
+                                                       heads, rate),
+         lambda: torch.autograd.grad(ln_out, ln_in, gwin, retain_graph=True),
+         3 * rows * c * s + 8 * c * c * s + 2 * vec + 4 * c * 4, bwd_flops),
+    )
+    readings = {}
+    for name, fn, plain, lib, nbytes, flops in cases:
+        k_ms, p_ms = timed_turns(fn, plain)
+        lib_ms = cuda_ms(lib)
+        b_ms, b_by = bound(nbytes, flops)
+        readings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
+              f"MB, {flops / 1e9:.2f} GFLOP)")
+    rows_out = []
+    for name, src, replaces, err, launches in (
+            ("fused_attention", "vptr_tpu_torch/csrc/fused_window_attention.cu",
+             "vptr_tpu/ops/fused_window_attention.py:239", errs["two"],
+             pred_launches["fused_attention"]),
+            ("fused_attention_bwd",
+             "vptr_tpu_torch/csrc/fused_window_attention_bwd.cu",
+             "vptr_tpu/ops/fused_window_attention.py:386", errs["two_bwd"],
+             step_launches["fused_attention_bwd"])):
+        rows_out.append({"name": name, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": launches,
+                         "max_abs_err": err, **readings[name],
+                         "train_step_launches": step_launches[name]})
+    summary = (f"nar_predict_ms {pred_ms:.3f} nar_plain_predict_ms "
+               f"{plain_pred_ms:.3f} nar_train_step_ms {step_ms:.3f} "
+               f"nar_plain_train_step_ms {plain_step_ms:.3f} "
+               f"nar_train_frames_per_s {train_fps:.1f} nar_train_peak_gib "
+               f"{step_peak:.3f}")
+    extra = {"nar_predict_launches": pred_launches,
+             "nar_step_launches": step_launches,
+             "nar_shape_ln_kernels": {k: v for k, v in readings.items()
+                                      if k.startswith("fused_attention_ln")}}
+    return rows_out, extra, summary
 
 
 def main() -> int:
@@ -497,10 +870,6 @@ def main() -> int:
     core_lib_out = F.scaled_dot_product_attention(lq, lk, lv,
                                                   attn_mask=tcausal.to(bf))
 
-    def bound(nbytes, flops):
-        tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[bf] * 1e3
-        return (tf, "operations") if tf >= tb else (tb, "bytes")
-
     rows_out = []
     for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
         ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",
@@ -554,11 +923,20 @@ def main() -> int:
               f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
 
-    phase("7. result")
+    # the FAR path's modules and operands go before the NAR phases
+    del enc, dec, tr, predict, far, wops, tops, q, k, v, lib_in, lib_out
+    del lq, lk, lv, core_lib_out, gwin, gcore, tq_, tk_, tv_
+    torch.cuda.empty_cache()
+    nar_rows, nar_extra, nar_summary = nar_phases(dev)
+    rows_out += nar_rows
+
+    phase("11. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
           f"train_peak_gib {step_peak:.3f}")
+    print(f"  {nar_summary}")
+    print(f"  {json.dumps(nar_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

@@ -1,20 +1,25 @@
-"""Forward-kernel and far_rip predict times of one checkout of the port, for
-comparing two checkouts on one GPU.
+"""Kernel, far_rip predict and FAR train step times of one checkout of the
+port, for comparing two checkouts on one GPU.
 
     python3 scripts/torch_port_kernel_times.py [--root DIR] [--repeats 5]
 
 Imports ``vptr_tpu_torch`` from ``--root`` (default: the checkout holding
-this script), builds its kernels there, and times at dropout 0 and the
-far_rip shapes (bf16):
-* ``fused_attention_ln``: 800 windows x 16 tokens x 528 channels, 8 heads,
-  the position table, no bias;
-* ``attention_core``: 640 x 8 heads x 20 x 66, causal;
+this script), builds its kernels there, and times in bf16, at the far_mnist
+shapes:
+* ``fused_attention_ln`` (#1): 800 windows x 16 tokens x 528 channels, 8
+  heads, the position table, no bias, dropout 0 (the far_rip shape);
+* ``attention_core`` (#2): 640 x 8 heads x 20 x 66, causal, dropout 0;
+* ``fused_attention_ln_backward`` (#3): 760 windows, dropout 0.1 (the
+  train step's shape);
+* ``attention_core_backward`` (#4): 640 x 8 x 19 x 66, causal, dropout 0.1;
 each as the mean CUDA-event time of 50 back-to-back calls after 5 warm-ups,
-``--repeats`` times; and the full-width far_mnist far_rip predict (batch 10,
+``--repeats`` times; the full-width far_mnist far_rip predict (batch 10,
 10 past -> 10 predicted frames, random weights from a seed), host clock
-around a synchronised call, ``--repeats`` calls after one warm-up. Prints
-one JSON line with every reading and their medians. To compare two trees,
-run it on each in turns (A B B A) within one machine. Needs a GPU; exits
+around a synchronised call, ``--repeats`` calls after one warm-up; and the
+far_mnist train step (batch 10, T = 19, dropout 0.1), host clock around a
+synchronised step, ``2 * --repeats`` steps after two warm-ups. Prints one
+JSON line with every reading and their medians. To compare two trees, run
+it on each in turns (A B B A) within one machine. Needs a GPU; exits
 non-zero without one.
 """
 
@@ -61,8 +66,17 @@ def main() -> int:
     from vptr_tpu_torch.eval.harness import make_predict_fn
     from vptr_tpu_torch.models.autoencoder import build_autoencoder
     from vptr_tpu_torch.models.transformer import build_transformer
-    from vptr_tpu_torch.ops.attention_core import attention_core
-    from vptr_tpu_torch.ops.fused_window_attention import fused_attention_ln
+    from vptr_tpu_torch.ops.attention_core import (
+        attention_core,
+        attention_core_backward,
+    )
+    from vptr_tpu_torch.ops.fused_window_attention import (
+        fused_attention_ln,
+        fused_attention_ln_backward,
+    )
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator().manual_seed(0)
@@ -77,6 +91,11 @@ def main() -> int:
            1 + r(c, std=0.1), r(c, std=0.1), r(16, c))
     q, k, v = (r(640, heads, ctx, c // heads).to(bf) for _ in range(3))
     causal = torch.full((ctx, ctx), -1e30, device=dev).triu(1)[None]
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    twin = (r(760, 16, c).to(bf),) + win[1:]
+    gwin = r(760, 16, c).to(bf)
+    tq, tk, tv, gcore = (r(640, heads, ctx - 1, c // heads).to(bf) for _ in range(4))
+    tcausal = causal[:, :ctx - 1, :ctx - 1]
 
     cfg = get_preset("far_mnist")
     enc, dec = build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(0))
@@ -84,19 +103,40 @@ def main() -> int:
     past = torch.rand(10, 10, 64, 64, 1, generator=torch.Generator().manual_seed(2))
     predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
 
-    readings = {"fused_attention_ln_ms": [], "attention_core_ms": [],
-                "predict_ms": []}
-    predict(past)
-    for _ in range(args.repeats):
-        readings["fused_attention_ln_ms"].append(
-            cuda_ms(lambda: fused_attention_ln(*win, None, num_heads=heads)))
-        readings["attention_core_ms"].append(
-            cuda_ms(lambda: attention_core(q, k, v, causal)))
+    def host_ms(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        predict(past)
+        fn()
         torch.cuda.synchronize()
-        readings["predict_ms"].append((time.perf_counter() - t0) * 1e3)
+        return (time.perf_counter() - t0) * 1e3
+
+    kernels = {
+        "fused_attention_ln_ms": lambda: fused_attention_ln(*win, None,
+                                                            num_heads=heads),
+        "attention_core_ms": lambda: attention_core(q, k, v, causal),
+        "fused_attention_ln_bwd_ms": lambda: fused_attention_ln_backward(
+            *twin, None, seed, gwin, heads, 0.1),
+        "attention_core_bwd_ms": lambda: attention_core_backward(
+            tq, tk, tv, tcausal, seed, gcore, 0.1, need_dbias=False),
+    }
+    readings = {name: [] for name in kernels}
+    readings.update(predict_ms=[], train_step_ms=[])
+    predict(past)
+    for _ in range(args.repeats):
+        for name, fn in kernels.items():
+            readings[name].append(cuda_ms(fn))
+        readings["predict_ms"].append(host_ms(lambda: predict(past)))
+
+    opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
+    state = create_far_train_state(enc, dec, tr, opt, seed=3)
+    step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+    future = torch.rand(10, 10, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    past = past.to(dev)
+    for i in range(2 + 2 * args.repeats):
+        ms = host_ms(lambda: step(state, past, future))
+        if i >= 2:
+            readings["train_step_ms"].append(ms)
     out = {"root": str(root)}
     for name, xs in readings.items():
         out[name] = statistics.median(xs)

@@ -1,11 +1,13 @@
-"""Where the time goes in the port's far_mnist far_rip predict or train
-step, on one GPU.
+"""Where the time goes in the port's predict call or train step, on one
+GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR).
 
-    python3 scripts/torch_port_profile.py [--train] [--kernels cuda|plain] [--top 15]
+    python3 scripts/torch_port_profile.py [--nar] [--train] [--kernels cuda|plain] [--top 15]
 
-Builds far_mnist at full width from a seed (as chip_smoke.py does), warms
-the predict call (or, with --train, the train step: batch 10, T = 19,
-dropout 0.1, clip -> AdamW) up, then traces one call with torch.profiler
+Builds the preset at full width from a seed (as chip_smoke.py does), warms
+the predict call (far_rip, batch 10, 10 frames; --nar: nar, batch 16,
+10 -> 10) or, with --train, the train step (FAR: batch 10, T = 19; NAR:
+batch 16, Tp = Tf = 10; dropout 0.1, clip -> AdamW) up, then traces one
+call with torch.profiler
 and prints: the wall time of the traced call, the summed device time of
 its kernels, the device idle share (1 - device time / wall time; one
 stream, so kernels do not overlap), and the top kernels by device time
@@ -30,6 +32,8 @@ def main() -> int:
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--train", action="store_true",
                         help="trace one train step instead of a predict call")
+    parser.add_argument("--nar", action="store_true",
+                        help="nar_mnist (NAR) instead of far_mnist (FAR)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
@@ -43,28 +47,32 @@ def main() -> int:
     from vptr_tpu_torch.models.transformer import build_transformer
     from vptr_tpu_torch.train.optim import build_optimizer
     from vptr_tpu_torch.train.state import create_far_train_state
-    from vptr_tpu_torch.train.steps import make_far_train_step
+    from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
 
-    cfg = get_preset("far_mnist")
+    cfg = get_preset("nar_mnist" if args.nar else "far_mnist")
+    batch = cfg.data.batch_size if args.nar else 10
     dev = torch.device("cuda")
     enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
                                  torch.Generator().manual_seed(0))
     tr = build_transformer(cfg.transformer, torch.bfloat16, dev,
                            torch.Generator().manual_seed(1),
                            kernels=args.kernels)
-    frames = torch.rand(10, 20, 64, 64, 1,
+    frames = torch.rand(batch, 20, 64, 64, 1,
                         generator=torch.Generator().manual_seed(2)).to(dev)
     past, future = frames[:, :10], frames[:, 10:]
     if args.train:
         opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
         state = create_far_train_state(enc, dec, tr, opt, seed=3)
-        step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+        make_step = make_nar_train_step if args.nar else make_far_train_step
+        step = make_step(enc, dec, tr, opt, cfg.loss)
         run = lambda: step(state, past, future)
-        what = "train step (batch 10, T 19)"
+        what = (f"NAR train step (batch {batch}, 10 -> 10)" if args.nar
+                else "train step (batch 10, T 19)")
     else:
-        predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
+        mode = "nar" if args.nar else "far_rip"
+        predict = make_predict_fn(cfg, enc, dec, tr, mode, 10, dev)
         run = lambda: predict(past)
-        what = "far_rip predict (batch 10, 10 frames)"
+        what = f"{mode} predict (batch {batch}, 10 frames)"
     for _ in range(2):
         run()
     torch.cuda.synchronize()

@@ -1,6 +1,6 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX
-package: one small FAR configuration, seeded numpy inputs and weights that
-go to both packages, and the JAX variables as nested numpy dicts."""
+package: small FAR and NAR configurations, seeded numpy inputs and weights
+that go to both packages, and the JAX variables as nested numpy dicts."""
 
 from __future__ import annotations
 
@@ -41,6 +41,20 @@ def small_cfgs():
             tcfg.get_preset("far_mnist").override(SMALL))
 
 
+def small_nar_cfgs(past: int = 3, future: int = 3, **transformer):
+    """(JAX config, port config) of nar_mnist cut to SMALL with 2 + 2
+    layers (RPE on, as the preset) and Tp = ``past``, Tf = ``future``;
+    ``transformer`` overrides more fields."""
+    over = {**SMALL,
+            "transformer": {**SMALL["transformer"], "num_decoder_layers": 2,
+                            "num_past_frames": past,
+                            "num_future_frames": future, **transformer},
+            "data": {**SMALL["data"], "num_past_frames": past,
+                     "num_future_frames": future}}
+    return (jcfg.get_preset("nar_mnist").override(over),
+            tcfg.get_preset("nar_mnist").override(over))
+
+
 def to_numpy(tree):
     """JAX variables -> nested dicts of numpy arrays."""
     return jax.tree.map(np.asarray, tree)
@@ -64,6 +78,16 @@ def randomize(tree, rng: np.random.Generator):
             out = 0.1 * noise
         return out.astype(np.float32)
     return jax.tree_util.tree_map_with_path(leaf, to_numpy(tree))
+
+
+def random_variables(init, rng: np.random.Generator, *args):
+    """Seeded random variables (:func:`randomize`) of the tree that
+    ``init(key, *args)`` makes, from its shapes alone: a JAX init would run
+    (or compile) the interpret-mode kernels only for its values to be
+    replaced. The draws equal ``randomize(init(key, *args), rng)``'s."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)
+    return randomize(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes),
+                     rng)
 
 
 def t(x) -> torch.Tensor:

@@ -68,6 +68,20 @@ def test_cuda_entry_points_raise_without_gpu(monkeypatch):
         make_predict_fn(cfg, enc, dec, tr, "far_rip", 2)
 
 
+def test_nar_entry_points_raise_without_gpu(monkeypatch):
+    """The NAR builders and the nar predict mode, as the FAR ones above."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = small_cfgs()
+    cfg = cfg.override({"transformer": {"variant": "nar", "rpe": True,
+                                        "num_decoder_layers": 1}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_transformer(cfg.transformer)
+    enc, dec = build_autoencoder(cfg.ae, device="cpu")
+    tr = build_transformer(cfg.transformer, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_predict_fn(cfg, enc, dec, tr, "nar", 3)
+
+
 def test_kernel_wrapper_refuses_other_devices():
     q = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -75,9 +89,9 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"variant": "nar"}, "NAR slice"),
-    ({"rpe": True}, "NAR slice"),
-    ({"fused_full_temporal": True}, "NAR slice"),
+    ({"variant": "nar", "tslma": True}, "TSLMA slice"),
+    ({"remat": True}, "trainer slice"),
+    ({"fused_full_temporal": True}, "LN-folded kernels #1/#3"),
     ({"fused_ffn": True}, "default-off kernels"),
     ({"scan_layers": True}, "trainer slice"),
 ])

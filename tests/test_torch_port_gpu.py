@@ -214,3 +214,99 @@ def test_fused_attention_ln_backward_generic_route(cuda, dtype):
     for a, bb in zip(got, want):
         if bb is not None:
             assert _rel_err(a, bb) <= BWD_TOL[dtype]
+
+
+# ---- the NAR slice: kernels #5 / #6 (two input streams, no LN) and #1 / #3
+# with the 8-head relative-position bias and its gradient
+
+def _rpe_bias(g, heads, tokens, cuda):
+    """An (H, L, L) bias gathered from a (7 x 7, H) table, like the RPE."""
+    table = torch.randn(49, heads, generator=g) * 0.5
+    idx = torch.randint(0, 49, (tokens * tokens,), generator=g)
+    return table[idx].reshape(tokens, tokens, heads).permute(2, 0, 1).contiguous().to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_heads", [0, 1, 8])
+def test_fused_attention_kernels_match_plain(cuda, dtype, rate, bias_heads):
+    g = torch.Generator().manual_seed(10)
+    c, bw, tokens = 528, 97, 16          # a ragged last block of windows
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    bias = (None if bias_heads == 0 else _rpe_bias(g, 8, tokens, cuda)
+            if bias_heads == 8 else r(1, tokens, tokens))
+    x_v = r(bw, tokens, c).to(dtype)
+    x_qk = (x_v.float() + r(bw, tokens, c, std=0.5)).to(dtype)
+    args = (x_qk, x_v, w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3], bias)
+    seed = _seed(cuda)
+    before = (tfw.fused_attention.launches, tfw.fused_attention.bwd_launches)
+    fwd = tfw.fused_attention(*args, seed, 8, rate)
+    want = tfw.fused_attention_plain(*args, seed, 8, rate)
+    assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = r(bw, tokens, c).to(dtype)
+    got = tfw.fused_attention_backward(*args, seed, dout, 8, rate)
+    want = tfw.fused_attention_backward_plain(*args, seed, dout, 8, rate)
+    torch.cuda.synchronize()
+    assert (tfw.fused_attention.launches, tfw.fused_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    names = ("dx_qk", "dx_v", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+             "dbo", "dbias")
+    for name, a, bb in zip(names, got, want):
+        if bb is None:
+            assert a is None
+            continue
+        assert a.dtype == bb.dtype and a.shape == bb.shape, name
+        assert _rel_err(a, bb) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_backward_generic_route(cuda, dtype):
+    """C = 100 (4 heads of 25): the FMA forward and the generic product
+    route of the backward, in bf16 too."""
+    g = torch.Generator().manual_seed(11)
+    c, bw, tokens = 100, 40, 16
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    args = (r(bw, tokens, c).to(dtype), r(bw, tokens, c).to(dtype), w[0], b[0],
+            w[1], b[1], w[2], b[2], w[3], b[3], r(4, tokens, tokens))
+    seed, dout = _seed(cuda), r(bw, tokens, c).to(dtype)
+    fwd = tfw.fused_attention(*args, seed, 4, 0.1)
+    assert (fwd.float() - tfw.fused_attention_plain(*args, seed, 4, 0.1).float()
+            ).abs().max().item() <= TOL[dtype]
+    got = tfw.fused_attention_backward(*args, seed, dout, 4, 0.1)
+    want = tfw.fused_attention_backward_plain(*args, seed, dout, 4, 0.1)
+    torch.cuda.synchronize()
+    for a, bb in zip(got, want):
+        assert _rel_err(a, bb) <= BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_attention_ln_with_rpe_bias(cuda, dtype, rate):
+    """Kernels #1 / #3 as the NAR encoder runs them: the 8-head RPE bias,
+    no position table, the bias gradient."""
+    g = torch.Generator().manual_seed(12)
+    c, bw, tokens = 528, 96, 16
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    args = (r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3],
+            b[3], 1 + r(c, std=0.1), r(c, std=0.1), None,
+            _rpe_bias(g, 8, tokens, cuda))
+    seed = _seed(cuda)
+    fwd = tfw.fused_attention_ln(*args, seed, 8, rate)
+    want = tfw.fused_attention_ln_plain(*args, seed, 8, rate)
+    assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = r(bw, tokens, c).to(dtype)
+    got = tfw.fused_attention_ln_backward(*args, seed, dout, 8, rate)
+    want = tfw.fused_attention_ln_backward_plain(*args, seed, dout, 8, rate)
+    torch.cuda.synchronize()
+    assert got[-1] is not None and got[-1].shape == (8, tokens, tokens)
+    for a, bb in zip(got, want):
+        assert _rel_err(a, bb) <= BWD_TOL[dtype]

@@ -1,11 +1,12 @@
 """Prediction entry point: (past, future) -> predicted future frames.
 
 Counterpart of ``vptr_tpu/eval/harness.py:35-70`` (``make_predict_fn``, the
-function ``python -m vptr_tpu.cli predict`` calls), for the FAR modes:
+function ``python -m vptr_tpu.cli predict`` calls):
 
 * ``far``     — teacher-forced one shot over past + future[:-1];
 * ``far_rip`` — autoregressive, pixel-space recurrence (canonical);
-* ``far_ril`` — autoregressive, latent recurrence.
+* ``far_ril`` — autoregressive, latent recurrence;
+* ``nar``     — NAR blocks of Tf frames chained to ``num_pred``.
 
 The modules are passed in (built by ``build_autoencoder`` /
 ``build_transformer``, or loaded with ``vptr_tpu_torch.utils.weights``).
@@ -16,10 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from vptr_tpu_torch.eval.rollout import far_rollout_latent, far_rollout_pixel
+from vptr_tpu_torch.eval.rollout import (
+    far_rollout_latent,
+    far_rollout_pixel,
+    nar_rollout,
+)
 from vptr_tpu_torch.utils.device import resolve_device
 
-ROLLOUT_MODES = ("far", "far_rip", "far_ril")
+ROLLOUT_MODES = ("far", "far_rip", "far_ril", "nar")
 
 
 def make_predict_fn(cfg, enc, dec, transformer, mode: str, num_pred: int,
@@ -30,7 +35,7 @@ def make_predict_fn(cfg, enc, dec, transformer, mode: str, num_pred: int,
     device = resolve_device(device)
     if mode not in ROLLOUT_MODES:
         raise ValueError(f"unknown rollout mode {mode!r}; choose from "
-                         f"{ROLLOUT_MODES} (nar comes with the NAR slice)")
+                         f"{ROLLOUT_MODES}")
     tcfg = cfg.transformer
     context = tcfg.num_past_frames + tcfg.num_future_frames
     for name, m in (("enc", enc), ("dec", dec), ("transformer", transformer)):
@@ -53,6 +58,9 @@ def make_predict_fn(cfg, enc, dec, transformer, mode: str, num_pred: int,
             future = as_input(future)
             x = torch.cat([past, future[:, :-1]], dim=1)
             return dec(transformer(enc(x)))[:, -future.shape[1]:]
+        if mode == "nar":
+            return nar_rollout(enc, dec, transformer, past, num_pred,
+                               tcfg.num_future_frames)
         rollout = far_rollout_pixel if mode == "far_rip" else far_rollout_latent
         return rollout(enc, dec, transformer, past, num_pred, context)
 

@@ -1,8 +1,9 @@
-"""FAR inference rollouts on a fixed ring buffer of Tp + Tf latent slots.
+"""Inference rollouts: FAR on a fixed ring buffer of Tp + Tf latent slots,
+and NAR block chaining.
 
-Counterpart of ``vptr_tpu/eval/rollout.py:37-87``. The context is a fixed
-buffer of ``context`` frames, so every transformer call (and so every kernel
-launch) sees the same shapes:
+Counterpart of ``vptr_tpu/eval/rollout.py:37-116``. The FAR context is a
+fixed buffer of ``context`` frames, so every transformer call (and so every
+kernel launch) sees the same shapes:
 
 * while the buffer is not full, each new latent is written at the next free
   slot (the growing-context phase);
@@ -11,6 +12,7 @@ launch) sees the same shapes:
 
 FAR causality makes this exact: outputs at valid positions never read the
 unused tail slots. A Python loop takes the place of ``lax.scan``.
+:func:`nar_rollout` chains NAR blocks of Tf predicted latents.
 """
 
 from __future__ import annotations
@@ -65,3 +67,20 @@ def far_rollout_latent(enc_fn: Callable, dec_fn: Callable, tr_fn: Callable,
     """FAR-RIL: feed the predicted latents straight back."""
     return _far_rollout(enc_fn, dec_fn, tr_fn, past_frames, num_pred,
                         context, reencode=False)
+
+
+def nar_rollout(enc_fn: Callable, dec_fn: Callable, tr_fn: Callable,
+                past_frames: torch.Tensor, num_pred: int,
+                num_future: int) -> torch.Tensor:
+    """Chain NAR blocks (``rollout.py:90-116``): each call predicts
+    ``num_future`` latents from a context of the last Tp latents of (past +
+    predictions); the first ``num_pred`` predicted latents are decoded in
+    one call. Returns (N, num_pred, H, W, C)."""
+    context = enc_fn(past_frames)
+    tp = context.shape[1]
+    preds = []
+    for _ in range(-(-num_pred // num_future)):
+        pred = tr_fn(context)                    # (N, Tf, h, w, c)
+        preds.append(pred)
+        context = torch.cat([context, pred], dim=1)[:, -tp:]
+    return dec_fn(torch.cat(preds, dim=1)[:, :num_pred])

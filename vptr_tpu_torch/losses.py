@@ -1,11 +1,11 @@
-"""Training criterion of the FAR step: MSE / L1 / GDL, the temporal weight
-and the Noam schedule, in PyTorch.
+"""Training criterion of the FAR and NAR steps: MSE / L1 / GDL, the
+temporal weight, BiPatchNCE and the Noam schedule, in PyTorch.
 
-Counterpart of ``vptr_tpu/losses.py:17-85,132-142`` (itself the reference's
+Counterpart of ``vptr_tpu/losses.py:17-85,107-142`` (itself the reference's
 ``model/criterion.py``). Frames are (N, T, H, W, C) like the JAX package's;
-every loss is computed in f32 and returns a 0-d f32 tensor. The GAN and
-BiPatchNCE terms come with the slices that train with them (stage-1 AE and
-NAR); ``build_optimizer`` lives in ``vptr_tpu_torch.train.optim``.
+every loss is computed in f32 and returns a 0-d f32 tensor. The GAN term
+comes with the stage-1 AE slice; ``build_optimizer`` lives in
+``vptr_tpu_torch.train.optim``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,34 @@ def _l2_normalize(x: torch.Tensor, dim, eps: float = 1e-12) -> torch.Tensor:
     """torch F.normalize(p=2) semantics: x / max(||x||, eps)."""
     norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
     return x / torch.clamp(norm, min=eps)
+
+
+def l2_normalize_channels(x: torch.Tensor) -> torch.Tensor:
+    """L2-normalise (..., C) features over the channels in f32, the NAR NCE
+    pre-processing (reference train_NAR.py:36)."""
+    return _l2_normalize(x.float(), -1)
+
+
+def bi_patch_nce(gt_f: torch.Tensor, pred_f: torch.Tensor,
+                 temperature: float = 0.07) -> torch.Tensor:
+    """Bidirectional patchwise InfoNCE over the spatial latent patches
+    (criterion.py:206-259): gt_f, pred_f (N, T, h, w, C) projected
+    features; positives are same-position patches, and the gradient is
+    stopped through the negatives (the reference's ``.detach()`` on the
+    off-diagonal product)."""
+    n, t, h, w, c = gt_f.shape
+    gt = gt_f.reshape(n * t, h * w, c).float()
+    pr = pred_f.reshape(n * t, h * w, c).float()
+    eye = torch.eye(h * w, dtype=torch.float32, device=gt.device)
+
+    def direction(a, b):
+        diag = torch.einsum("bpc,bpc->bp", a, b)
+        full = torch.einsum("bpc,bqc->bpq", a, b.detach())
+        logits = (full * (1.0 - eye) + diag[..., None] * eye) / temperature
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.mean(torch.einsum("bpq,pq->bp", logp, eye))
+
+    return 0.5 * (direction(gt, pr) + direction(pr, gt))
 
 
 def _weighted_mean(err: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:

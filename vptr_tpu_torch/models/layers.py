@@ -1,20 +1,29 @@
-"""Transformer layers of the FAR path, in PyTorch (eval and train mode).
+"""Transformer layers of the FAR and NAR paths, in PyTorch (eval and train
+mode).
 
-Counterpart of the FAR subset of ``vptr_tpu/models/layers.py``:
+Counterpart of ``vptr_tpu/models/layers.py``:
 
-* :class:`MultiHeadAttention` with the two routes this path uses:
-  the LayerNorm-folded whole-sublayer kernel (``fused_attention_ln``,
-  ``layers.py:236-265``) and torch projections feeding the attention-core
-  kernel (``layers.py:309-326``); ``fused=False`` runs the same arithmetic
-  in plain PyTorch.
-* :class:`WindowAttention` (absolute 2D sine position on q/k; RPE is NAR's),
-  :class:`TemporalAttention` (causal mask as a -1e30 (1, T, T) bias),
-  :class:`LayerNorm`, :class:`LayerNormHWC`, :class:`MlpDWBN` in its
-  LayerNormHWC flavour, :class:`Mlp`, :class:`DropPath` and
-  :class:`Dropout` (both the identity in eval mode).
+* :class:`MultiHeadAttention` with three routes: the LayerNorm-folded
+  whole-sublayer kernel (``fused_attention_ln``, ``layers.py:236-265``),
+  the two-stream whole-sublayer kernel for q_in = k_in with a separate
+  value (``fused_attention``, ``layers.py:277-293``, the NAR decoder's
+  window self-attention) and torch projections feeding the attention-core
+  kernel (``layers.py:309-326``; Lq may differ from Lk); ``fused=False``
+  runs the same arithmetic in plain PyTorch. The JAX package sends
+  rectangular (Lq != Lk) cross-attention to XLA by a TPU measurement
+  (``FUSED_RECT_DISABLE``); the port runs it on the attention-core kernel,
+  whose forward is the same function.
+* :class:`WindowAttention` (absolute 2D sine position on q/k, or the
+  learned relative-position bias with :func:`relative_position_index`),
+  :class:`TemporalAttention` (causal mask as a -1e30 (1, T, T) bias;
+  cross-attention over ``kv``), :class:`LayerNorm`, :class:`LayerNormHWC`,
+  :class:`BatchNorm` (flax semantics), :class:`MlpDWBN` in both norm
+  flavours, :class:`Mlp`, :class:`DropPath` and :class:`Dropout` (both the
+  identity in eval mode).
 
 Train mode (``module.train()``): attention-weight dropout runs inside the
-kernels from an int32 seed per call; DropPath and Dropout draw their masks
+kernels from an int32 seed per call; BatchNorm normalises with the batch
+statistics and updates its running ones; DropPath and Dropout draw their masks
 with ``torch.rand``. Every draw comes from the ``generator`` the caller
 passes down through ``forward`` (a torch.Generator on the activations'
 device); there is no global RNG, and a training forward with a dropout rate
@@ -33,15 +42,18 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vptr_tpu_torch.ops.attention_core import attention_core, attention_core_plain
 from vptr_tpu_torch.ops.fused_window_attention import (
+    fused_attention,
     fused_attention_ln,
     fused_attention_ln_plain,
     fused_attention_ln_res,
+    fused_attention_plain,
 )
 from vptr_tpu_torch.ops.window import (
     pad_to_window,
@@ -62,6 +74,16 @@ def use_kernels(model: nn.Module, kernels: str) -> nn.Module:
         if isinstance(m, MultiHeadAttention):
             m.kernels = kernels
     return model
+
+
+def relative_position_index(window: int) -> np.ndarray:
+    """(w^2, w^2) index into the (2w-1)^2-row relative-position table, the
+    Swin construction (``layers.py:94-108``)."""
+    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window),
+                                  indexing="ij")).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0)
+    rel = rel + (window - 1)
+    return rel[..., 0] * (2 * window - 1) + rel[..., 1]
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -147,7 +169,9 @@ class MultiHeadAttention(nn.Module):
         then pass the raw x as q_in = k_in = v_in and q/k = LN(x) + qk_pos,
         v = LN(x). ``residual`` (fused LN route only) returns x +
         branch_scale * attn(...), ``branch_scale`` (leading batch,) f32 or
-        None. ``bias``: None or (1 | H, Lq, Lk) additive logits."""
+        None. ``bias``: None or (1 | H, Lq, Lk) additive logits. Without
+        ``ln``, q_in = k_in of v_in's shape takes the two-stream kernel on
+        the fused_full route."""
         plain = self.kernels == "plain"
         rate = self.dropout if self.training else 0.0
         seed = draw_seed(generator, q_in.device) if rate > 0.0 else 0
@@ -180,6 +204,17 @@ class MultiHeadAttention(nn.Module):
                 raise NotImplementedError(
                     "the residual-folded sublayer runs on the fused route only")
 
+        if (self.fused and self.fused_full and q_in is k_in
+                and v_in.shape == q_in.shape and q_in.shape[-1] == self.dim):
+            # the whole sublayer with v from its own input (kernel #5)
+            (wq, bq), (wk, bk), (wv, bv), (wo, bo) = self._dense_params()
+            lead, l = q_in.shape[:-2], q_in.shape[-2]
+            flat = lambda z: z.reshape(-1, l, self.dim).to(self.dtype).contiguous()
+            fn = fused_attention_plain if plain else fused_attention
+            out = fn(flat(q_in), flat(v_in), wq, bq, wk, bk, wv, bv, wo, bo,
+                     bias, seed, self.num_heads, rate)
+            return out.reshape(lead + (l, self.dim))
+
         hd = self.dim // self.num_heads
         q = _linear(self.q_proj, q_in, self.dtype)
         k = _linear(self.k_proj, k_in, self.dtype)
@@ -197,48 +232,75 @@ class MultiHeadAttention(nn.Module):
 
 
 class WindowAttention(nn.Module):
-    """Local spatial window self-attention over (N, T, H, W, C); the 2D sine
-    position goes on q/k only."""
+    """Local spatial window self-attention over (N, T, H, W, C): the 2D sine
+    position goes on q/k only, or with ``rpe`` a learned relative-position
+    bias (``rpe_table``, ((2w-1)^2, heads)) goes on the logits instead."""
 
     def __init__(self, dim: int, num_heads: int, window: int = 4,
                  fused: bool = False, fused_full: bool = False,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 rpe: bool = False):
         super().__init__()
-        self.window = window
+        self.window, self.rpe = window, rpe
         self.attn = MultiHeadAttention(dim, num_heads, fused, fused_full,
                                        dtype, dropout)
+        if rpe:
+            self.rpe_table = nn.Parameter(
+                torch.zeros((2 * window - 1) ** 2, num_heads))
+            onehot = np.eye((2 * window - 1) ** 2, dtype=np.float32)[
+                relative_position_index(window).reshape(-1)]
+            self.register_buffer("rpe_onehot", torch.from_numpy(onehot),
+                                 persistent=False)
 
-    def forward(self, x, pos2d, *, ln=None, residual: bool = False,
+    def rpe_bias(self) -> torch.Tensor:
+        """(heads, L, L) f32 bias gathered from ``rpe_table``. The gather is
+        a one-hot product summed in a fixed order: exact forward, and a
+        table gradient that is the same on every run (an index gather's
+        backward would scatter-add with atomics on the card)."""
+        l = self.window * self.window
+        bias = (self.rpe_onehot[:, :, None] * self.rpe_table[None]).sum(1)
+        return bias.reshape(l, l, -1).permute(2, 0, 1).contiguous()
+
+    def forward(self, x, pos2d, *, value=None, ln=None, residual: bool = False,
                 branch_scale=None, generator=None):
-        """``pos2d``: (window*window, C). ``ln``: pass the raw pre-norm x
-        and the norm folds into the fused kernel; ``residual`` then returns
-        the whole sublayer x + branch_scale * attn(LN(x)), with
+        """``pos2d``: (window*window, C). ``value``: (N, T, H, W, C), the v
+        input when it differs from x (the NAR decoder). ``ln``: pass the
+        raw pre-norm x and the norm folds into the fused kernel; ``residual``
+        then returns the whole sublayer x + branch_scale * attn(LN(x)), with
         ``branch_scale`` a per-frame (N*T,) f32 factor (the DropPath mask)
         or None."""
         n, t, h, w, c = x.shape
         tokens = self.window * self.window
-        y, offs = pad_to_window(x.reshape(n * t, h, w, c), self.window)
-        padded_hw = y.shape[1:3]
-        xw = window_partition(y, self.window)
+        bias = self.rpe_bias() if self.rpe else None
+
+        def to_windows(z):
+            z, offs = pad_to_window(z.reshape(n * t, h, w, c), self.window)
+            return window_partition(z, self.window), offs, z.shape[1:3]
+
+        xw, offs, padded_hw = to_windows(x)
         if ln is not None:
+            if value is not None:
+                raise ValueError("ln folding needs value=None")
             win_scale = None
             if residual and branch_scale is not None:
                 # per frame -> per window (frame-major partition order)
                 win_scale = branch_scale.float().repeat_interleave(
                     xw.shape[0] // (n * t))
-            out = self.attn(xw, xw, xw, ln=ln, qk_pos=pos2d.reshape(tokens, c),
+            out = self.attn(xw, xw, xw, bias=bias, ln=ln,
+                            qk_pos=None if self.rpe else pos2d.reshape(tokens, c),
                             residual=residual, branch_scale=win_scale,
                             generator=generator)
         else:
-            qk = xw + pos2d.reshape(1, tokens, c).to(xw.dtype)
-            out = self.attn(qk, qk, xw, generator=generator)
+            qk = xw if self.rpe else xw + pos2d.reshape(1, tokens, c).to(xw.dtype)
+            vw = xw if value is None else to_windows(value)[0]
+            out = self.attn(qk, qk, vw, bias=bias, generator=generator)
         out = window_reverse(out, self.window, padded_hw)
         return unpad_from_window(out, (h, w), offs).reshape(n, t, h, w, c)
 
 
 class TemporalAttention(nn.Module):
     """Attention over the time axis at every (n, h, w) position; ``causal``
-    adds the static mask as a -1e30 (1, T, T) bias."""
+    adds the static mask as a -1e30 (1, T, T) bias (self-attention only)."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  fused: bool = False, dtype: torch.dtype = torch.float32,
@@ -248,40 +310,89 @@ class TemporalAttention(nn.Module):
         self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype,
                                        dropout)
 
-    def forward(self, x, pos_q, generator=None):
-        """x: (N, T, H, W, C), ``pos_q``: (T, C)."""
+    def forward(self, x, pos_q, generator=None, *, kv=None, pos_k=None):
+        """x: (N, T, H, W, C), ``pos_q``: (T, C). Cross-attention
+        (``layers.py:510-518``): keys and values from ``kv`` (N, Tk, H, W,
+        C), ``pos_k`` (Tk, C) on the keys."""
         n, t, h, w, c = x.shape
-        cols = x.permute(0, 2, 3, 1, 4).reshape(n, h * w, t, c)
+
+        def cols(y):   # (N, T, H, W, C) -> (N, H*W, T, C)
+            return y.permute(0, 2, 3, 1, 4).reshape(n, h * w, y.shape[1], c)
+
         bias = None
-        if self.causal:   # -1e30 above the diagonal, 0 on and below it
+        if self.causal and kv is None:   # -1e30 above the diagonal
             bias = torch.full((t, t), -1e30, device=x.device).triu(1)[None]
-        qk = cols + pos_q[None, None].to(x.dtype)
-        out = self.attn(qk, qk, cols, bias=bias, generator=generator)
+        xc = cols(x)
+        q = xc + pos_q[None, None].to(x.dtype)
+        if kv is None:
+            k, v = q, xc
+        else:
+            v = cols(kv)
+            k = v + pos_k[None, None].to(x.dtype)
+        out = self.attn(q, k, v, bias=bias, generator=generator)
         return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
+    an NCHW tensor (``layers.py:625-627``), with flax's arithmetic: f32
+    statistics, the variance as E[x^2] - E[x]^2 clamped at 0 (biased), y =
+    (x - mean) * (rsqrt(var + eps) * scale) + bias cast to ``dtype``. In
+    train mode it normalises with the batch statistics (gradients flow
+    through them) and sets running = 0.9 running + 0.1 batch, the variance
+    biased too (torch's ``BatchNorm2d`` keeps the unbiased one); in eval
+    mode it uses the running statistics."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        view = lambda v: v[:, None, None]
+        if self.training:
+            x32 = x.float()
+            mean = x32.mean((0, 2, 3))
+            var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - view(mean)) * view(mul) + view(self.bias)
+        return y.to(self.dtype)
+
+
 class MlpDWBN(nn.Module):
-    """HRFormer conv feed-forward, LayerNormHWC flavour: 1x1 -> LN -> GELU
-    -> depthwise 3x3 -> LN -> GELU -> drop -> 1x1 -> LN -> GELU -> drop
-    (exact erf GELU; ``layers.py:686-696``). The LayerNormHWC affine binds
-    to (h, w)."""
+    """HRFormer conv feed-forward: 1x1 -> norm -> GELU -> depthwise 3x3 ->
+    norm -> GELU -> drop -> 1x1 -> norm -> GELU -> drop (exact erf GELU;
+    ``layers.py:686-696``). ``norm="layer"``: LayerNormHWC, whose affine
+    binds to (h, w) (FAR blocks, the NAR decoder); ``norm="batch"``:
+    :class:`BatchNorm` (the NAR encoder)."""
 
     def __init__(self, dim: int, hidden_dim: int, h: int, w: int,
                  norm: str = "layer", dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0):
         super().__init__()
-        if norm != "layer":
-            raise NotImplementedError(
-                f"MlpDWBN norm={norm!r} (the NAR encoder's BatchNorm conv "
-                "FFN) comes with the NAR slice")
+        if norm not in ("layer", "batch"):
+            raise ValueError(f"MlpDWBN norm must be 'layer' or 'batch', got {norm!r}")
+        make_norm = ((lambda ch: LayerNormHWC((ch, h, w), dtype=dtype))
+                     if norm == "layer" else
+                     (lambda ch: BatchNorm(ch, dtype=dtype)))
         self.dtype = dtype
         self.fc1 = nn.Conv2d(dim, hidden_dim, 1)
-        self.norm1 = LayerNormHWC((hidden_dim, h, w), dtype=dtype)
+        self.norm1 = make_norm(hidden_dim)
         self.dw3x3 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1,
                                groups=hidden_dim)
-        self.norm2 = LayerNormHWC((hidden_dim, h, w), dtype=dtype)
+        self.norm2 = make_norm(hidden_dim)
         self.fc2 = nn.Conv2d(hidden_dim, dim, 1)
-        self.norm3 = LayerNormHWC((dim, h, w), dtype=dtype)
+        self.norm3 = make_norm(dim)
         self.drop = Dropout(dropout)
 
     def _conv(self, conv: nn.Conv2d, y):

@@ -1,16 +1,31 @@
-"""VidHRFormer FAR latent transformer (eval and train mode) in PyTorch.
+"""VidHRFormer latent transformers, FAR and NAR (eval and train mode), in
+PyTorch.
 
-Counterpart of ``vptr_tpu/models/transformer.py``: :class:`EncoderBlock`
-with the FAR sublayer order (``:47-156``) and :class:`VPTRFormerFAR`
-(``:407-488``). One block = window attention -> LayerNormHWC conv FFN ->
-causal temporal attention -> linear FFN, each pre-norm with a residual.
-With ``fused_attention`` and ``fused_full`` (the preset defaults) the window
-sublayer's LayerNorm folds into the ``fused_attention_ln`` kernel and the
-temporal attention runs on the ``attention_core`` kernel. In train mode
-the attention dropout runs inside both kernels, DropPath acts on the window
-and conv-FFN branches and Dropout on the temporal and linear-FFN branches,
-all drawn from the ``generator`` passed to ``forward``. The NAR variant and
-the default-off kernel routes come with later slices and raise here.
+Counterpart of ``vptr_tpu/models/transformer.py``:
+
+* :class:`EncoderBlock` (``:47-156``): window attention -> conv FFN ->
+  temporal attention -> linear FFN, each pre-norm with a residual. FAR:
+  causal temporal attention, LayerNormHWC conv FFN; NAR encoder
+  (``far=False``): non-causal, BatchNorm conv FFN.
+* :class:`VPTRFormerFAR` (``:407-488``).
+* :class:`DecoderBlockNAR` (``:159-277``): window self-attention of the
+  queries (q/k carry ``query_pos``, v does not), conv FFN, temporal
+  self-attention over the Tf query frames, linear FFN, encoder-decoder
+  attention over time, second conv FFN.
+* :class:`VPTRFormerNAR` (``:491-649``): encoder over the past latents,
+  decoder over learned ``frame_queries``, and the NCE projector.
+
+With ``fused_attention`` and ``fused_full`` (the preset defaults) the
+encoder's window sublayer folds its LayerNorm into the
+``fused_attention_ln`` kernel, the decoder's window self-attention runs on
+the two-stream ``fused_attention`` kernel, and every temporal and
+encoder-decoder attention on the ``attention_core`` kernel; ``rpe`` puts
+the relative-position bias into the window kernels. In train mode the
+attention dropout runs inside the kernels, DropPath acts on the window,
+conv-FFN (and enc-dec) branches and Dropout on the temporal and
+linear-FFN branches, all drawn from the ``generator`` passed to
+``forward``. The default-off kernel routes and TSLMA come with later
+slices and raise here.
 """
 
 from __future__ import annotations
@@ -20,7 +35,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+import numpy as np
+
 from vptr_tpu_torch.models.layers import (
+    BatchNorm,
     DropPath,
     Dropout,
     LayerNorm,
@@ -28,6 +46,7 @@ from vptr_tpu_torch.models.layers import (
     MlpDWBN,
     TemporalAttention,
     WindowAttention,
+    _linear,
     bernoulli_keep,
     use_kernels,
 )
@@ -38,9 +57,11 @@ from vptr_tpu_torch.models.position import (
 
 # config routes that need kernels or modules of a later slice
 _LATER = {
-    "rpe": "relative position bias (NAR slice)",
-    "fused_full_temporal": "the fused sublayer kernel without LN "
-                           "(fused_attention, NAR slice)",
+    "tslma": "TSLMA enc-dec attention with the 3D position table "
+             "(TSLMA slice)",
+    "fused_full_temporal": "the LN-folded kernels #1/#3 on the temporal "
+                           "sublayer at padded token counts "
+                           "(default-off kernels slice)",
     "fused_ffn": "the fused_ffn kernel (default-off kernels slice)",
     "fused_dw": "the fused_dw_chain kernel (default-off kernels slice)",
     "fused_conv_ffn": "the conv_ln_gelu kernel (default-off kernels slice)",
@@ -58,8 +79,9 @@ def _refuse_later(**flags) -> None:
 
 
 class EncoderBlock(nn.Module):
-    """VidHRFormerBlockEnc in its FAR form (causal temporal attention,
-    LayerNormHWC conv FFN)."""
+    """VidHRFormerBlockEnc: FAR (``far``: causal temporal attention,
+    LayerNormHWC conv FFN) or the NAR encoder's (non-causal, BatchNorm conv
+    FFN); ``conv_ffn_norm`` overrides the conv-FFN norm."""
 
     def __init__(self, dim: int, num_heads: int, enc_h: int, enc_w: int,
                  window: int = 4, drop_path: float = 0.0,
@@ -74,10 +96,7 @@ class EncoderBlock(nn.Module):
                  dropout: float = 0.0, attn_dropout: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if not far:
-            raise NotImplementedError("the non-causal encoder block (NAR "
-                                      "encoder) comes with the NAR slice")
-        _refuse_later(rpe=rpe, fused_full_temporal=fused_full_temporal,
+        _refuse_later(fused_full_temporal=fused_full_temporal,
                       fused_ffn=fused_ffn, fused_dw=fused_dw,
                       fused_conv_ffn=fused_conv_ffn,
                       sequence_parallel=sequence_parallel)
@@ -86,12 +105,13 @@ class EncoderBlock(nn.Module):
         attn_drop = dropout if attn_dropout is None else attn_dropout
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.slmhsa = WindowAttention(dim, num_heads, window, fused_attention,
-                                      fused_full, dtype, attn_drop)
+                                      fused_full, dtype, attn_drop, rpe)
         self.norm2 = LayerNorm(dim, dtype=dtype)
-        self.spatial_ffn = MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
-                                   conv_ffn_norm or "layer", dtype, dropout)
+        self.spatial_ffn = MlpDWBN(
+            dim, ffn_hidden_ratio * dim, enc_h, enc_w,
+            conv_ffn_norm or ("layer" if far else "batch"), dtype, dropout)
         self.norm3 = LayerNorm(dim, dtype=dtype)
-        self.temporal = TemporalAttention(dim, num_heads, causal=True,
+        self.temporal = TemporalAttention(dim, num_heads, causal=far,
                                           fused=fused_attention, dtype=dtype,
                                           dropout=attn_drop)
         self.norm4 = LayerNorm(dim, dtype=dtype)
@@ -177,34 +197,201 @@ class VPTRFormerFAR(nn.Module):
         return torch.relu(self.final_norm(x))
 
 
+class DecoderBlockNAR(nn.Module):
+    """VidHRFormerBlockDecNAR with full temporal enc-dec attention
+    (``transformer.py:159-277``; reference VidHRFormer_modules.py:125-211).
+    ``fused_residual`` is accepted and unused, as in the JAX package: the
+    window self-attention's value differs from its q/k input."""
+
+    def __init__(self, dim: int, num_heads: int, enc_h: int, enc_w: int,
+                 window: int = 4, drop_path: float = 0.0,
+                 ffn_hidden_ratio: int = 4, dim_feedforward: int = 2112,
+                 tslma: bool = False, rpe: bool = False,
+                 fused_attention: bool = False, fused_full: bool = False,
+                 fused_full_temporal: bool = False,
+                 fused_residual: bool = False, fused_ffn: bool = False,
+                 fused_dw: bool = False, fused_conv_ffn: bool = False,
+                 sequence_parallel: bool = False,
+                 dropout: float = 0.0, attn_dropout: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        del fused_residual
+        _refuse_later(tslma=tslma, fused_full_temporal=fused_full_temporal,
+                      fused_ffn=fused_ffn, fused_dw=fused_dw,
+                      fused_conv_ffn=fused_conv_ffn,
+                      sequence_parallel=sequence_parallel)
+        attn_drop = dropout if attn_dropout is None else attn_dropout
+        conv_ffn = lambda: MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
+                                   "layer", dtype, dropout)
+        temporal = lambda: TemporalAttention(dim, num_heads, False,
+                                             fused_attention, dtype, attn_drop)
+        self.norm1 = LayerNorm(dim, dtype=dtype)
+        self.slmhsa = WindowAttention(dim, num_heads, window, fused_attention,
+                                      fused_full, dtype, attn_drop, rpe)
+        self.norm2 = LayerNorm(dim, dtype=dtype)
+        self.spatial_ffn = conv_ffn()
+        self.norm3 = LayerNorm(dim, dtype=dtype)
+        self.temporal = temporal()
+        self.norm4 = LayerNorm(dim, dtype=dtype)
+        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout)
+        self.norm5 = LayerNorm(dim, dtype=dtype)
+        self.enc_dec = temporal()
+        self.norm6 = LayerNorm(dim, dtype=dtype)
+        self.spatial_ffn2 = conv_ffn()
+        self.drop_path = DropPath(drop_path)
+        self.drop = Dropout(dropout)
+
+    def forward(self, tgt, query_pos, memory, pos2d, pos_t_future, pos_t_past,
+                generator=None):
+        """tgt, query_pos: (N, Tf, h, w, C); memory: (N, Tp, h, w, C);
+        pos_t_future (Tf, C) and pos_t_past (Tp, C) go on the enc-dec
+        queries and keys."""
+        dp = lambda y: self.drop_path(y, generator)
+        drop = lambda y: self.drop(y, generator)
+        # 1) window self-attention: q/k carry query_pos, the value does not
+        t2 = self.norm1(tgt)
+        tgt = tgt + dp(self.slmhsa(t2 + query_pos, pos2d, value=t2,
+                                   generator=generator))
+        tgt = tgt + dp(self.spatial_ffn(self.norm2(tgt), generator))
+        tgt = tgt + drop(self.temporal(self.norm3(tgt), pos_t_future, generator))
+        tgt = tgt + drop(self.ffn(self.norm4(tgt), generator))
+        # 5) encoder-decoder attention over time at each location
+        y = self.enc_dec(self.norm5(tgt) + query_pos, pos_t_future, generator,
+                         kv=memory, pos_k=pos_t_past)
+        tgt = tgt + dp(y)
+        return tgt + dp(self.spatial_ffn2(self.norm6(tgt), generator))
+
+
+class VPTRFormerNAR(nn.Module):
+    """Non-autoregressive latent transformer (``transformer.py:491-649``):
+    (N, Tp, h, w, d_model) past latents -> (N, Tf, h, w, d_model) future
+    latents in one call. Parameter names mirror the JAX tree (``enc_block{i}``,
+    ``dec_block{i}``, ``enc_norm``, ``dec_norm``, ``frame_queries``,
+    ``nce_fc1``, ``nce_fc2``)."""
+
+    def __init__(self, num_past_frames: int = 10, num_future_frames: int = 10,
+                 enc_h: int = 8, enc_w: int = 8, d_model: int = 528,
+                 num_heads: int = 8, num_encoder_layers: int = 6,
+                 num_decoder_layers: int = 6, window: int = 4,
+                 dropout: float = 0.1, drop_path: float = 0.1,
+                 attn_dropout: Optional[float] = None,
+                 ffn_hidden_ratio: int = 4, tslma: bool = False,
+                 rpe: bool = True, conv_ffn_norm_enc: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32, **routes):
+        """``routes``: the kernel-route flags of :class:`EncoderBlock`
+        (``fused_attention``, ``fused_full``, ...)."""
+        super().__init__()
+        _refuse_later(tslma=tslma)
+        self.enc_h, self.enc_w, self.dtype = enc_h, enc_w, dtype
+        self.num_future_frames = num_future_frames
+        self.t_max = num_past_frames + num_future_frames
+        common = dict(dim=d_model, num_heads=num_heads, enc_h=enc_h,
+                      enc_w=enc_w, window=window, drop_path=drop_path,
+                      ffn_hidden_ratio=ffn_hidden_ratio,
+                      dim_feedforward=ffn_hidden_ratio * d_model, rpe=rpe,
+                      dropout=dropout, attn_dropout=attn_dropout, dtype=dtype,
+                      **routes)
+        self.num_encoder_layers = num_encoder_layers
+        self.num_decoder_layers = num_decoder_layers
+        for i in range(num_encoder_layers):
+            self.add_module(f"enc_block{i}", EncoderBlock(
+                far=False, conv_ffn_norm=conv_ffn_norm_enc, **common))
+        for i in range(num_decoder_layers):
+            self.add_module(f"dec_block{i}", DecoderBlockNAR(tslma=tslma, **common))
+        self.enc_norm = LayerNorm(d_model, dtype=dtype)
+        self.dec_norm = LayerNorm(d_model, dtype=dtype)
+        # learned frame queries (reference: VPTR_modules.py:132)
+        self.frame_queries = nn.Parameter(
+            torch.zeros(num_future_frames, enc_h, enc_w, d_model))
+        # NCE projector (reference: VPTR_modules.py:135-137)
+        self.nce_fc1 = nn.Linear(d_model, d_model)
+        self.nce_fc2 = nn.Linear(d_model, d_model)
+        self.register_buffer(
+            "pos2d", position_embedding_2d(window, window, d_model).reshape(
+                window * window, d_model), persistent=False)
+        self.register_buffer("pos_t", position_embedding_1d(self.t_max, d_model),
+                             persistent=False)
+
+    def forward(self, past_feats, generator: Optional[torch.Generator] = None):
+        """``generator``: the source of every training draw; needed in train
+        mode with a dropout rate above 0."""
+        n, tp, h, w = past_feats.shape[:4]
+        if (h, w) != (self.enc_h, self.enc_w):
+            raise ValueError(f"latent spatial {(h, w)} != configured (enc_h, "
+                             f"enc_w) = {(self.enc_h, self.enc_w)}: the frame "
+                             "queries are bound to the latent geometry")
+        tf = self.num_future_frames
+        if tp + tf > self.t_max:
+            raise ValueError(f"{tp} past frames exceed the {self.t_max - tf} "
+                             "the position table covers")
+        x = past_feats.to(self.dtype)
+        pos_past, pos_future = self.pos_t[:tp], self.pos_t[tp:tp + tf]
+        for i in range(self.num_encoder_layers):
+            x = getattr(self, f"enc_block{i}")(x, self.pos2d, pos_past, generator)
+        memory = self.enc_norm(x)
+        # queries broadcast over the batch; the target starts at zero
+        query_pos = self.frame_queries.to(self.dtype)[None].expand(
+            (n,) + self.frame_queries.shape)
+        tgt = torch.zeros(query_pos.shape, dtype=self.dtype, device=x.device)
+        for i in range(self.num_decoder_layers):
+            tgt = getattr(self, f"dec_block{i}")(
+                tgt, query_pos, memory, self.pos2d, pos_future, pos_past,
+                generator)
+        return torch.relu(self.dec_norm(tgt))
+
+    def nce_project(self, feats):
+        """The BiPatchNCE projector on (..., d_model) features:
+        nce_fc2(relu(nce_fc1(feats))) in the compute dtype."""
+        return _linear(self.nce_fc2,
+                       torch.relu(_linear(self.nce_fc1, feats, self.dtype)),
+                       self.dtype)
+
+
+def _xavier_uniform_flax_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``xavier_uniform`` on an (..., in, out) parameter: fan-in and
+    fan-out are the last two axes times the product of the others."""
+    receptive = int(np.prod(p.shape[:-2]))
+    bound = (6.0 / ((p.shape[-2] + p.shape[-1]) * receptive)) ** 0.5
+    with torch.no_grad():
+        p.uniform_(-bound, bound, generator=generator)
+
+
 def init_transformer_(module: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's init: xavier-uniform Dense and conv weights, zero
-    biases, LayerNorm scale 1 / shift 0."""
+    """The JAX package's init: xavier-uniform Dense and conv weights and
+    frame queries, zero biases, LayerNorm / BatchNorm scale 1 / shift 0,
+    the RPE tables truncated-normal with std 0.02."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.LayerNorm):
-            m.reset_parameters()
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, WindowAttention) and m.rpe:
+            nn.init.trunc_normal_(m.rpe_table, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+        elif isinstance(m, VPTRFormerNAR):
+            _xavier_uniform_flax_(m.frame_queries, generator)
 
 
 def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
                       generator: Optional[torch.Generator] = None,
-                      kernels: str = "cuda") -> VPTRFormerFAR:
-    """The FAR transformer of a TransformerConfig, initialised on the CPU
-    from ``generator`` (default seed 0), moved to ``device``, in eval mode.
-    ``kernels="plain"`` routes it through the kernels' plain versions."""
+                      kernels: str = "cuda") -> nn.Module:
+    """The FAR or NAR transformer of a TransformerConfig (``cfg.variant``),
+    initialised on the CPU from ``generator`` (default seed 0), moved to
+    ``device``, in eval mode. ``kernels="plain"`` routes it through the
+    kernels' plain versions."""
     from vptr_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    if cfg.variant != "far":
-        raise NotImplementedError(f"transformer variant {cfg.variant!r} comes "
-                                  "with the NAR slice; this slice is FAR")
-    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat)
+    if cfg.variant not in ("far", "nar"):
+        raise ValueError(f"unknown variant {cfg.variant!r}")
+    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat,
+                  tslma=cfg.variant == "nar" and cfg.tslma)
     if cfg.d_model % cfg.n_heads:
         raise ValueError(f"d_model {cfg.d_model} is not divisible by "
                          f"{cfg.n_heads} heads")
-    model = VPTRFormerFAR(
+    common = dict(
         num_past_frames=cfg.num_past_frames,
         num_future_frames=cfg.num_future_frames, enc_h=cfg.enc_h,
         enc_w=cfg.enc_w, d_model=cfg.d_model, num_heads=cfg.n_heads,
@@ -217,6 +404,13 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
         fused_residual=cfg.fused_residual, fused_ffn=cfg.fused_ffn,
         fused_dw=cfg.fused_dw, fused_conv_ffn=cfg.fused_conv_ffn,
         sequence_parallel=cfg.sequence_parallel, dtype=dtype)
+    if cfg.variant == "far":
+        model = VPTRFormerFAR(**common)
+    else:
+        model = VPTRFormerNAR(
+            num_decoder_layers=cfg.num_decoder_layers, tslma=cfg.tslma,
+            conv_ffn_norm_enc=(None if cfg.conv_ffn_norm == "auto"
+                               else cfg.conv_ffn_norm), **common)
     init_transformer_(model, generator if generator is not None
                       else torch.Generator().manual_seed(0))
     return use_kernels(model.to(device).eval(), kernels)

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention_core", "fused_window_attention_ln",
-           "fused_window_attention_ln_bwd")
+           "fused_window_attention_ln_bwd", "fused_window_attention",
+           "fused_window_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

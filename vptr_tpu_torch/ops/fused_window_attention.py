@@ -1,32 +1,40 @@
-"""LayerNorm-folded fused attention sublayer over short token sequences.
+"""Fused attention sublayers over short token sequences (window attention).
 
-Counterpart of ``vptr_tpu/ops/fused_window_attention.py::fused_attention_ln``
-and ``fused_attention_ln_res``: the TPU kernels ``_fused_ln_forward`` /
-``_kernel_ln`` (``pl.pallas_call`` at :586) and ``_fused_ln_backward`` /
-``_bwd_kernel_ln`` (:769), joined by ``jax.custom_vjp``:
+Counterpart of ``vptr_tpu/ops/fused_window_attention.py``, whose four TPU
+kernels are joined in pairs by ``jax.custom_vjp``:
 
-    out = out_proj(attn(q/k = LN(x) + pos, v = LN(x)))       # _ln
-    out = x + scale * out_proj(attn(...))                    # _ln_res
+    out = out_proj(attn(q/k = LN(x) + pos, v = LN(x)))       # fused_attention_ln
+    out = x + scale * out_proj(attn(...))                    # fused_attention_ln_res
+    out = out_proj(attn(q/k = x_qk, v = x_v))                # fused_attention
 
-The forward kernel is ``csrc/fused_window_attention_ln.cu``, the backward
-``csrc/fused_window_attention_ln_bwd.cu`` (CUDA C++ for sm_90a). Their
-source notes say what bounds each on the card and what the design does
+* ``fused_attention_ln`` / ``_res``: ``_fused_ln_forward`` (``_kernel_ln``,
+  ``pl.pallas_call`` at :586) -> ``csrc/fused_window_attention_ln.cu``
+  (kernel #1); ``_fused_ln_backward`` (:769) ->
+  ``csrc/fused_window_attention_ln_bwd.cu`` (#3).
+* ``fused_attention``: ``_fused_forward`` (``_kernel``, :239) ->
+  ``csrc/fused_window_attention.cu`` (#5); ``_fused_backward`` (:386) ->
+  ``csrc/fused_window_attention_bwd.cu`` (#6). The NAR decoder's window
+  self-attention: q/k from LN(tgt) + query_pos, v from LN(tgt).
+
+The kernels are CUDA C++ for sm_90a; #1/#5 share
+``csrc/fused_window_attention.cuh`` and #3/#6
+``csrc/fused_window_attention_bwd.cuh`` (a template flag folds the LN in),
+whose notes say what bounds each on the card and what the design does
 about that.
 
 * The wrappers are ``torch.autograd.Function``s: for CUDA tensors they
-  launch the kernels (or raise), for CPU tensors they take
-  :func:`fused_attention_ln_plain` forward and
-  :func:`fused_attention_ln_backward_plain` backward.
-* ``fused_attention_ln.launches`` counts launches of the forward kernel and
-  ``fused_attention_ln.bwd_launches`` of the backward, by either wrapper,
-  and nothing else.
+  launch the kernels (or raise), for CPU tensors they take the plain
+  versions (``*_plain`` forward, ``*_backward_plain`` backward).
+* ``fused_attention_ln.launches`` / ``.bwd_launches`` count launches of #1
+  and #3 by either LN wrapper, ``fused_attention.launches`` /
+  ``.bwd_launches`` of #5 and #6, and nothing else.
 * Weights are (C_in, C_out) like the JAX Dense kernels, in the compute
   dtype; biases, the LN affine, ``pos`` and ``scale`` are f32. Gradients
   come back in each operand's dtype; ``pos`` (a sine table) and ``scale``
   (a DropPath mask) get zero gradients, as in the JAX package.
 * Attention-weight dropout is the counter hash of ``ops/dropout.py``; its
   element index runs over the padded token count (:func:`padded_tokens`),
-  as the TPU kernel pads the token axis before building its mask.
+  as the TPU kernels pad the token axis before building their masks.
 """
 
 from __future__ import annotations
@@ -81,6 +89,39 @@ def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate):
     return qs, w, keep, w_drop, split
 
 
+def _sublayer_plain(xqk, xv, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+                    num_heads, dropout_rate):
+    """The attention sublayer after its inputs, with the kernels' rounding
+    points: q/k from ``xqk`` and v from ``xv`` (B, L, C, compute dtype),
+    each rounded after its f32 bias add; per-head attention; the merged
+    heads rounded; returns the output projection + bo in f32 (unrounded)."""
+    dt = xqk.dtype
+    b, l, c = xqk.shape
+
+    def proj(a, w, bb):
+        return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
+
+    v = proj(xv, wv, bv)
+    _, _, _, w_drop, split = _heads_attention(
+        proj(xqk, wq, bq), proj(xqk, wk, bk), v, bias, seed, num_heads,
+        dropout_rate)
+    o = torch.matmul(w_drop.float(), split(v).float()).to(dt)
+    out = torch.matmul(o.transpose(1, 2).reshape(b, l, c).float(), wo.float())
+    return out + bo.float()
+
+
+def fused_attention_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
+                          bias=None, seed: Seed = 0, num_heads: int = 8,
+                          dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of kernel #5 (``_reference_attention`` with
+    the Pallas kernel's rounding points): q/k from ``x_qk``, v from
+    ``x_v``, each rounded after its f32 bias add, q * scale rounded, f32
+    softmax, dropout, weights rounded before the value product, the merged
+    heads rounded, the output projection in f32 plus bo, rounded once."""
+    return _sublayer_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                           seed, num_heads, dropout_rate).to(x_qk.dtype)
+
+
 def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
                              pos=None, bias=None, seed: Seed = 0,
                              num_heads: int = 8, dropout_rate: float = 0.0,
@@ -91,21 +132,12 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     merged heads rounded, the output projection in f32 plus bo (then
     ``* scale`` per window and ``+ x`` when ``res``), rounded once."""
     dt = x.dtype
-    b, l, c = x.shape
+    c = x.shape[-1]
     x32 = x.float()
     xn = F.layer_norm(x32, (c,), ls.float(), lb.float(), LN_EPS).to(dt)
     xqk = xn + pos.to(dt) if pos is not None else xn
-
-    def proj(a, w, bb):
-        return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
-
-    v = proj(xn, wv, bv)
-    _, _, _, w_drop, split = _heads_attention(
-        proj(xqk, wq, bq), proj(xqk, wk, bk), v, bias, seed, num_heads,
-        dropout_rate)
-    o = torch.matmul(w_drop.float(), split(v).float()).to(dt)
-    out = torch.matmul(o.transpose(1, 2).reshape(b, l, c).float(), wo.float())
-    out = out + bo.float()
+    out = _sublayer_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+                          num_heads, dropout_rate)
     if scale is not None:
         out = out * scale.float()[:, None, None]
     if res:
@@ -113,38 +145,22 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     return out.to(dt)
 
 
-def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
-                                      lb, pos, bias, seed, g,
-                                      num_heads: int = 8,
-                                      dropout_rate: float = 0.0, scale=None,
-                                      res: bool = False,
-                                      need_dbias: bool = True):
-    """Plain backward (mirrors ``_bwd_kernel_ln``): recompute LN, +pos,
+def _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias, seed,
+                             g2, bw, l, num_heads, dropout_rate, need_dbias):
+    """The backward after the sublayer's inputs (mirrors ``_bwd_kernel``):
+    ``xqk`` / ``xn`` (R, C) the q/k and v inputs in the compute dtype, ``g2``
+    (R, C) f32 the output cotangent (times the branch scale). Recomputes
     q/k/v, the per-head softmax and mask; then the attention backward per
-    head and the weight, LN-affine and bias gradients summed over all
-    windows. Rounding points: w_drop rounded to the compute dtype before
-    the dv product, the merged heads rounded before dWo; dq/dk/dv stay f32
-    into the dW products and into d(xn). Returns (dx, dwq, dbq, dwk, dbk,
-    dwv, dbv, dwo, dbo, dls, dlb, dbias): dx in x's dtype, each dW in its
-    weight's dtype, the vectors f32, dbias f32 in the bias's shape (or
-    None)."""
-    dt = x.dtype
-    bw, l, c = x.shape
+    head and the weight and bias gradients summed over all windows.
+    Rounding points: w_drop rounded to the compute dtype before the dv
+    product, the merged heads rounded before dWo; dq/dk/dv stay f32 into
+    the dW products and into d(xqk) = dq Wq^T + dk Wk^T and d(xn) =
+    dv Wv^T (both f32). Returns (dxqk, dxn, dwq, dbq, dwk, dbk, dwv, dbv,
+    dwo, dbo, dbias): each dW in its weight's dtype, the vectors f32,
+    dbias f32 in the bias's shape (or None)."""
+    dt = xqk.dtype
+    c = xqk.shape[-1]
     hd = c // num_heads
-    x2 = x.float().reshape(-1, c)
-    g2_raw = g.float().reshape(-1, c)
-    g2 = g2_raw
-    if scale is not None:
-        g2 = (g.float() * scale.float()[:, None, None]).reshape(-1, c)
-    mean = x2.mean(1, keepdim=True)
-    xc = x2 - mean
-    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + LN_EPS)
-    xhat = xc * rstd
-    lsf, lbf = ls.float(), lb.float()
-    xn = (xhat * lsf + lbf).to(dt)
-    xqk = xn
-    if pos is not None:
-        xqk = (xn.reshape(bw, l, c) + pos.to(dt)).reshape(-1, c)
 
     def proj(a, w, bb):
         return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
@@ -171,8 +187,74 @@ def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
     dwk = torch.matmul(xqk.float().t(), dk2)
     dwv = torch.matmul(xn.float().t(), dv2)
     dwo = torch.matmul(attn2.t(), g2)
-    dxn = (torch.matmul(dq2, wq.float().t()) + torch.matmul(dk2, wk.float().t())
-           + torch.matmul(dv2, wv.float().t()))
+    dxqk = torch.matmul(dq2, wq.float().t()) + torch.matmul(dk2, wk.float().t())
+    dxn = torch.matmul(dv2, wv.float().t())
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = dl.sum(0)
+        if bias.shape[0] == 1:
+            dbias = dbias.sum(0, keepdim=True)
+    return (dxqk, dxn, dwq.to(wq.dtype), dq2.sum(0), dwk.to(wk.dtype),
+            dk2.sum(0), dwv.to(wv.dtype), dv2.sum(0), dwo.to(wo.dtype),
+            g2.sum(0), dbias)
+
+
+def fused_attention_backward_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
+                                   bias, seed, g, num_heads: int = 8,
+                                   dropout_rate: float = 0.0,
+                                   need_dbias: bool = True):
+    """Plain backward of kernel #5 (mirrors ``_bwd_kernel``). Returns
+    (dx_qk, dx_v, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias): dx_qk =
+    dq Wq^T + dk Wk^T and dx_v = dv Wv^T summed in f32 and rounded to the
+    inputs' dtype once, each dW in its weight's dtype, the vectors f32,
+    dbias f32 in the bias's shape (or None)."""
+    del bo
+    bw, l, c = x_qk.shape
+    dxqk, dxv, *rest = _sublayer_backward_plain(
+        x_qk.reshape(-1, c), x_v.reshape(-1, c), wq, bq, wk, bk, wv, bv, wo,
+        bias, seed, g.float().reshape(-1, c), bw, l, num_heads, dropout_rate,
+        need_dbias)
+    dt = x_qk.dtype
+    return (dxqk.to(dt).reshape(bw, l, c), dxv.to(dt).reshape(bw, l, c),
+            *rest)
+
+
+def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
+                                      lb, pos, bias, seed, g,
+                                      num_heads: int = 8,
+                                      dropout_rate: float = 0.0, scale=None,
+                                      res: bool = False,
+                                      need_dbias: bool = True):
+    """Plain backward (mirrors ``_bwd_kernel_ln``): recompute LN, +pos,
+    q/k/v, the per-head softmax and mask; then the attention backward per
+    head and the weight, LN-affine and bias gradients summed over all
+    windows. Rounding points: w_drop rounded to the compute dtype before
+    the dv product, the merged heads rounded before dWo; dq/dk/dv stay f32
+    into the dW products and into d(xn). Returns (dx, dwq, dbq, dwk, dbk,
+    dwv, dbv, dwo, dbo, dls, dlb, dbias): dx in x's dtype, each dW in its
+    weight's dtype, the vectors f32, dbias f32 in the bias's shape (or
+    None)."""
+    dt = x.dtype
+    bw, l, c = x.shape
+    x2 = x.float().reshape(-1, c)
+    g2_raw = g.float().reshape(-1, c)
+    g2 = g2_raw
+    if scale is not None:
+        g2 = (g.float() * scale.float()[:, None, None]).reshape(-1, c)
+    mean = x2.mean(1, keepdim=True)
+    xc = x2 - mean
+    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    lsf, lbf = ls.float(), lb.float()
+    xn = (xhat * lsf + lbf).to(dt)
+    xqk = xn
+    if pos is not None:
+        xqk = (xn.reshape(bw, l, c) + pos.to(dt)).reshape(-1, c)
+    dxqk, dxv, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias = \
+        _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias,
+                                 seed, g2, bw, l, num_heads, dropout_rate,
+                                 need_dbias)
+    dxn = dxqk + dxv
     dls = (dxn * xhat).sum(0)
     dlb = dxn.sum(0)
     dxhat = dxn * lsf
@@ -181,14 +263,8 @@ def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
     dx = (dxhat - m1 - xhat * m2) * rstd
     if res:
         dx = dx + g2_raw
-    dbias = None
-    if bias is not None and need_dbias:
-        dbias = dl.sum(0)
-        if bias.shape[0] == 1:
-            dbias = dbias.sum(0, keepdim=True)
-    return (dx.to(dt).reshape(bw, l, c), dwq.to(wq.dtype), dq2.sum(0),
-            dwk.to(wk.dtype), dk2.sum(0), dwv.to(wv.dtype), dv2.sum(0),
-            dwo.to(wo.dtype), g2.sum(0), dls, dlb, dbias)
+    return (dx.to(dt).reshape(bw, l, c), dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+            dbo, dls, dlb, dbias)
 
 
 class _FusedAttentionLN(torch.autograd.Function):
@@ -289,6 +365,84 @@ def fused_attention_ln_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
                             need_dbias and bias is not None)
 
 
+class _FusedAttention(torch.autograd.Function):
+    """The two-stream wrapper (kernels #5 / #6)."""
+
+    @staticmethod
+    def forward(ctx, x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+                num_heads, rate):
+        ctx.save_for_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                              seed)
+        ctx.num_heads, ctx.rate = num_heads, rate
+        return _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                            seed, num_heads, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[10]
+        (dxqk, dxv, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
+         dbias) = fused_attention_backward(
+            x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+            g.contiguous(), ctx.num_heads, ctx.rate, need_dbias)
+        cast = lambda d, ref: None if d is None else d.to(ref.dtype)
+        return (dxqk, dxv, dwq, cast(dbq, bq), dwk, cast(dbk, bk), dwv,
+                cast(dbv, bv), dwo, cast(dbo, bo), cast(dbias, bias), None,
+                None, None)
+
+
+def fused_attention(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias=None,
+                    seed: Seed = 0, num_heads: int = 8,
+                    dropout_rate: float = 0.0) -> torch.Tensor:
+    """Attention sublayer over (B, L, C), L <= 32, with q/k from ``x_qk``
+    and v from ``x_v`` (same shape and dtype). ``bias``: optional
+    (1 | heads, L, L) additive logits (the relative-position bias);
+    ``seed``/``dropout_rate``: the attention-weight dropout. Differentiable
+    in every tensor but the seed."""
+    if x_qk.device.type != "cpu" and not x_qk.is_cuda:
+        raise ValueError(f"fused_attention: unsupported device {x_qk.device}")
+    rate = float(dropout_rate)
+    seed = seed_tensor(seed, x_qk.device) if rate > 0.0 else None
+    args = (x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed, num_heads,
+            rate)
+    if needs_grad(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias):
+        return _FusedAttention.apply(*args)
+    return _forward_two(*args)
+
+
+fused_attention.launches = 0
+fused_attention.bwd_launches = 0
+
+
+def _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+                 num_heads, rate):
+    """Kernel #5's forward for either device; ``seed`` a tensor or None."""
+    if x_qk.device.type == "cpu":
+        return fused_attention_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
+                                     bias, seed, num_heads, rate)
+    return _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                               seed, num_heads, rate)
+
+
+def fused_attention_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                             seed, g, num_heads: int = 8,
+                             dropout_rate: float = 0.0,
+                             need_dbias: bool = True):
+    """Kernel #5's backward on its own (what the autograd Function calls):
+    kernel #6 for CUDA tensors (counted in ``fused_attention.bwd_launches``),
+    :func:`fused_attention_backward_plain` for CPU tensors. Returns the
+    tuple that function documents."""
+    if x_qk.device.type == "cpu":
+        return fused_attention_backward_plain(
+            x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed, g,
+            num_heads, dropout_rate, need_dbias)
+    if dropout_rate > 0.0:
+        seed = seed_tensor(seed, x_qk.device)
+    return _backward_kernel(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None,
+                            None, bias, seed, g, num_heads, dropout_rate, None,
+                            False, need_dbias and bias is not None, x_v=x_v)
+
+
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 
 
@@ -302,9 +456,10 @@ def kernel_route(tokens: int, channels: int, dtype: torch.dtype) -> str:
 
 
 def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
-              num_heads):
-    """Check every operand against what the kernels take; returns (bias
-    f32 contiguous or None, bias_heads)."""
+              num_heads, x_v=None):
+    """Check every operand against what the kernels take (``x_v`` given:
+    the two-stream kernels, which read x and x_v in 16-byte pieces);
+    returns (bias f32 contiguous or None, bias_heads)."""
     bw, l, c = x.shape
     if c % num_heads or c // num_heads > MAX_HEAD_DIM or l > MAX_TOKENS:
         raise ValueError(f"fused_attention_ln kernel takes L <= {MAX_TOKENS} "
@@ -326,7 +481,8 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
                              f"on {x.device} ({align}-byte aligned)")
 
     f32 = torch.float32
-    operand(x, (bw, l, c), x.dtype, "x")
+    operand(x, (bw, l, c), x.dtype, "x", align=1 if x_v is None else 16)
+    operand(x_v, (bw, l, c), x.dtype, "x_v", align=16)
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         operand(w, (c, c), x.dtype, name, align=32)   # whole wmma tiles
     for name, v in (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo),
@@ -368,12 +524,37 @@ def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
     return out
 
 
+def _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
+                        num_heads, rate):
+    bias, bias_heads = _operands(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None,
+                                 None, None, bias, None, num_heads, x_v)
+    bw, l, c = x_qk.shape
+    lib = _lib_two()
+    smem = lib.vptr_fused_window_attention_smem(l, c, num_heads,
+                                                _DTYPES[x_qk.dtype])
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_attention kernel: L={l}, C={c}, "
+                         f"{x_qk.dtype} needs {smem} B of shared memory "
+                         f"(> {SMEM_LIMIT})")
+    out = torch.empty_like(x_qk)
+    p = _build.ptr
+    err = lib.vptr_fused_window_attention(
+        p(x_qk), p(x_v), p(wq), p(bq), p(wk), p(bk), p(wv), p(bv), p(wo), p(bo),
+        p(bias), p(out), bw, l, c, num_heads, bias_heads,
+        q_scale(c // num_heads, x_qk.dtype), *_dropout_args(seed, rate),
+        padded_tokens(l, x_qk.dtype), _DTYPES[x_qk.dtype],
+        torch.cuda.current_stream(x_qk.device).cuda_stream)
+    _build.check(lib, err, "fused_attention")
+    fused_attention.launches += 1
+    return out
+
+
 class _BwdArgs(ctypes.Structure):
-    """Mirror of ``BwdArgs`` in ``csrc/fused_window_attention_ln_bwd.cu``."""
+    """Mirror of ``BwdArgs`` in ``csrc/fused_window_attention_bwd.cuh``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ls", "lb",
+        "x", "xv", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ls", "lb",
         "pos", "bias", "scale", "seed", "g",
-        "dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
+        "dx", "dxv", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
         "dlb", "dbias",
         "mean", "rstd", "xn", "xqk", "q", "k", "v", "attn", "dao", "dq",
         "dk", "dv", "dl", "partial", "wpart", "hilo")]
@@ -385,29 +566,37 @@ class _BwdArgs(ctypes.Structure):
 
 
 def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                     seed, g, num_heads, rate, scale, res, need_dbias):
+                     seed, g, num_heads, rate, scale, res, need_dbias,
+                     x_v=None):
+    """Kernel #3 (LayerNorm folded in) or, with ``x_v``, kernel #6 (x is
+    then x_qk); returns the gradients in the order of the matching plain
+    backward."""
+    ln = x_v is None
+    name = "fused_attention_ln" if ln else "fused_attention"
     bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                                 pos, bias, scale, num_heads)
+                                 pos, bias, scale, num_heads, x_v)
     bw, l, c = x.shape
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
-        raise ValueError(f"fused_attention_ln backward: g {tuple(g.shape)} "
+        raise ValueError(f"{name} backward: g {tuple(g.shape)} "
                          f"{g.dtype} does not match x {tuple(x.shape)} {x.dtype}")
     rows, dt, dev = bw * l, x.dtype, x.device
     f32 = torch.float32
-    lib = _lib_bwd()
-    nparts = lib.vptr_fused_window_attention_ln_bwd_partials(rows)
-    ksplit = lib.vptr_fused_window_attention_ln_bwd_ksplit(rows)
+    lib, entry = _lib_bwd(ln)
+    nparts = getattr(lib, f"{entry}_partials")(rows)
+    ksplit = getattr(lib, f"{entry}_ksplit")(rows)
 
     def buf(*shape, dtype=f32):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
-    grads = dict(dx=torch.empty_like(x), dwq=torch.empty_like(wq),
+    grads = dict(dx=torch.empty_like(x),
+                 dxv=None if ln else torch.empty_like(x_v),
+                 dwq=torch.empty_like(wq),
                  dwk=torch.empty_like(wk), dwv=torch.empty_like(wv),
                  dwo=torch.empty_like(wo), dbq=buf(c), dbk=buf(c), dbv=buf(c),
-                 dbo=buf(c), dls=buf(c), dlb=buf(c),
+                 dbo=buf(c), dls=buf(c) if ln else None,
+                 dlb=buf(c) if ln else None,
                  dbias=buf(*bias.shape) if need_dbias else None)
-    scratch = dict(mean=buf(rows), rstd=buf(rows), xn=buf(rows, c, dtype=dt),
-                   xqk=buf(rows, c, dtype=dt), q=buf(rows, c, dtype=dt),
+    scratch = dict(q=buf(rows, c, dtype=dt),
                    k=buf(rows, c, dtype=dt), v=buf(rows, c, dtype=dt),
                    attn=buf(rows, c, dtype=dt), dao=buf(rows, c),
                    dq=buf(rows, c), dk=buf(rows, c), dv=buf(rows, c),
@@ -416,9 +605,12 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
                    # bf16 hi/lo halves of the f32 operands of the tensor-core
                    # products (dq, dk, dv, g * scale)
                    hilo=buf(8, rows, c, dtype=dt) if dt == torch.bfloat16 else None)
+    if ln:   # the LayerNorm pass's statistics and outputs
+        scratch.update(mean=buf(rows), rstd=buf(rows), xn=buf(rows, c, dtype=dt),
+                       xqk=buf(rows, c, dtype=dt))
     p = _build.ptr
     a = _BwdArgs(
-        x=p(x), wq=p(wq), bq=p(bq), wk=p(wk), bk=p(bk), wv=p(wv), bv=p(bv),
+        x=p(x), xv=p(x_v), wq=p(wq), bq=p(bq), wk=p(wk), bk=p(bk), wv=p(wv), bv=p(bv),
         wo=p(wo), bo=p(bo), ls=p(ls), lb=p(lb), pos=p(pos), bias=p(bias),
         scale=p(scale), seed=p(seed) if rate > 0.0 else None, g=p(g),
         **{k: p(v) for k, v in grads.items()},
@@ -428,13 +620,18 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
         mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt], ksplit=ksplit,
         qscale=q_scale(c // num_heads, dt), dscale=(c // num_heads) ** -0.5,
         eps=LN_EPS, rate=rate, keep_div=1.0 - rate)
-    err = lib.vptr_fused_window_attention_ln_bwd(
-        ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "fused_attention_ln backward")
-    fused_attention_ln.bwd_launches += 1
-    return tuple(grads[k] for k in ("dx", "dwq", "dbq", "dwk", "dbk", "dwv",
-                                    "dbv", "dwo", "dbo", "dls", "dlb",
-                                    "dbias"))
+    err = getattr(lib, entry)(ctypes.byref(a),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"{name} backward")
+    if ln:
+        fused_attention_ln.bwd_launches += 1
+        order = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo",
+                 "dls", "dlb", "dbias")
+    else:
+        fused_attention.bwd_launches += 1
+        order = ("dx", "dxv", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+                 "dbo", "dbias")
+    return tuple(grads[k] for k in order)
 
 
 def _lib() -> ctypes.CDLL:
@@ -451,14 +648,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lib_bwd() -> ctypes.CDLL:
-    lib = _build.load("fused_window_attention_ln_bwd")
-    fn = lib.vptr_fused_window_attention_ln_bwd
+def _lib_two() -> ctypes.CDLL:
+    lib = _build.load("fused_window_attention")
+    fn = lib.vptr_fused_window_attention
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 12 + [i] * 5 + [f, p, f, f, i, i, p]
+        fn.restype = ctypes.c_int
+        for name, n in (("smem", 4), ("route", 3)):
+            g = getattr(lib, f"vptr_fused_window_attention_{name}")
+            g.argtypes = [i] * n
+            g.restype = ctypes.c_long
+    return lib
+
+
+def _lib_bwd(ln: bool):
+    """(library, entry point name) of kernel #3 (``ln``) or #6."""
+    name = "fused_window_attention_ln_bwd" if ln else "fused_window_attention_bwd"
+    lib, entry = _build.load(name), f"vptr_{name}"
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for name in ("partials", "ksplit"):
-            f = getattr(lib, f"vptr_fused_window_attention_ln_bwd_{name}")
+        for part in ("partials", "ksplit"):
+            f = getattr(lib, f"{entry}_{part}")
             f.argtypes = [ctypes.c_int]
             f.restype = ctypes.c_int
-    return lib
+    return lib, entry

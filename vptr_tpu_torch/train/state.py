@@ -7,7 +7,9 @@ and holds parameter trees; here the modules hold the parameters and the
 step updates them in place. :meth:`Stage2TrainState.clone` gives an
 independent copy (transformer, optimizer state and generator; the frozen
 encoder and decoder are shared), so two steps can start from one state.
-The discriminator of the GAN variant comes with the stage-1 slice.
+A NAR transformer's BatchNorm running statistics are buffers of the
+module, so they are part of the state and ``clone`` copies them. The
+discriminator of the GAN variant comes with the stage-1 slice.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def create_far_train_state(enc: nn.Module, dec: nn.Module,
                            seed: int = 0) -> Stage2TrainState:
     """A fresh state: step 0, a generator seeded with ``seed`` on the
     transformer's device, the optimizer's initial state; the encoder and
-    decoder are frozen (no gradients, eval mode)."""
+    decoder are frozen (no gradients, eval mode). The NAR state is the same
+    (:func:`create_nar_train_state`)."""
     device = next(transformer.parameters()).device
     for m in (enc, dec):
         m.eval().requires_grad_(False)
@@ -54,3 +57,6 @@ def create_far_train_state(enc: nn.Module, dec: nn.Module,
     return Stage2TrainState(0, gen, transformer,
                             optimizer.init(dict(transformer.named_parameters())),
                             enc, dec)
+
+
+create_nar_train_state = create_far_train_state

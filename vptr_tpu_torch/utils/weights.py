@@ -22,6 +22,8 @@ names. Layout conversions:
 * LayerNorm / BatchNorm ``scale``      -> ``weight``; BatchNorm ``mean`` /
   ``var`` -> ``running_mean`` / ``running_var``
 * ``LayerNormHWC`` (H, W, C) affine    -> (C, H, W)
+* bare parameters (``rpe_table`` of a window attention, the NAR
+  ``frame_queries``) keep their names and layouts
 
 Every parameter and persistent buffer of the module must be covered, and
 every leaf must land somewhere; anything else raises. Each conversion is a
@@ -40,7 +42,8 @@ from torch import nn
 from vptr_tpu_torch.models.layers import LayerNormHWC
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "rpe_table": "rpe_table", "frame_queries": "frame_queries"}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -94,7 +97,8 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 
 
 _INV_LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean",
-             "running_var": "var"}
+             "running_var": "var", "rpe_table": "rpe_table",
+             "frame_queries": "frame_queries"}
 
 
 def _export(owner: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
