@@ -48,7 +48,21 @@ Phases (any failure exits non-zero, without the final result line):
 10. time the nar predict call and the NAR train step (in turns with
    kernels="plain"), kernels #5/#6 beside their plain versions, library
    yardsticks and bounds, and #1/#3 at the NAR shape with the RPE bias;
-11. print {"kernels": [...]} (all six kernels) and, last,
+11. the fused-FFN route's kernels (#7/#8 fused_ffn, #9/#10 fused_dw_chain)
+   against their plain versions at the far_mnist shapes (FFN rows 12,800
+   for the forward, 12,160 for the backward, C 528, hidden 2112; dw chain
+   200 and 190 samples of 8 x 8 x 2112), bf16 and f32, dropout 0 and 0.1;
+12. far_mnist with transformer.fused_ffn and fused_dw: the far_rip predict
+   with every counter at 0 just before and read just after (#7, #9, #1
+   and #2 120 launches each), the frames checked and compared with
+   kernels="plain" and with the default route (same weights);
+13. its train step: one step with every counter at 0 (#1-#4 and #7-#10 12
+   launches each), kernels vs kernels="plain" from one cloned state, 10
+   steps on one batch with a falling loss;
+14. times: #7-#10 beside their plain versions, a library yardstick and the
+   bound; the far_rip predict and the train step on the fused route and the
+   default route in turns, and each step's memory peak above what is held;
+15. print {"kernels": [...]} (all ten kernels) and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -126,10 +140,11 @@ def zero_counters(*wrappers):
         w.bwd_launches = 0
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16):
     """(least ms for the work on the card, "bytes" or "operations"): the
-    larger of bytes over the memory rate and bf16 flops over the peak."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    larger of bytes over the memory rate and flops over the peak of their
+    type (bf16 tensor-core products, or f32 arithmetic on the CUDA cores)."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
 
 
@@ -477,6 +492,335 @@ def nar_phases(dev):
              "nar_step_launches": step_launches,
              "nar_shape_ln_kernels": {k: v for k, v in readings.items()
                                       if k.startswith("fused_attention_ln")}}
+    return rows_out, extra, summary
+
+
+def ffn_phases(dev):
+    """Phases 11-14: the far_mnist fused-FFN route (transformer.fused_ffn
+    and fused_dw). Returns (kernel rows of #7-#10, extra readings, the
+    summary line)."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.layers import use_kernels
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+    from vptr_tpu_torch.ops import fused_ffn as tff
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+    from vptr_tpu_torch.ops.attention_core import attention_core
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step
+
+    base = get_preset("far_mnist")
+    cfg = base.override({"transformer": {"fused_ffn": True, "fused_dw": True}})
+    tc = cfg.transformer
+    c, hid, hw, w = tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model, \
+        tc.enc_h * tc.enc_w, tc.enc_w
+    ctx = tc.num_past_frames + tc.num_future_frames
+    s_pred, s_step = BATCH * ctx * hw, BATCH * (ctx - 1) * hw     # FFN rows
+    n_pred, n_step = BATCH * ctx, BATCH * (ctx - 1)               # dw samples
+    rate = tc.dropout
+    bf = torch.bfloat16
+    kseed = torch.tensor([SEED + 777], dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(SEED + 30)
+    tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
+    bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
+    counters = (attention_core, tfw.fused_attention_ln, tff.fused_ffn,
+                tdw.fused_dw_chain)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g) * std
+
+    def ffn_ops(rows, dtype):
+        return (randn(rows, c).to(dev, dtype), randn(c, hid, std=c ** -0.5).to(dev, dtype),
+                randn(hid, std=0.1).to(dev), randn(hid, c, std=hid ** -0.5).to(dev, dtype),
+                randn(c, std=0.1).to(dev), (1 + randn(c, std=0.1)).to(dev),
+                randn(c, std=0.1).to(dev))
+
+    def dw_ops(n, dtype):
+        return (randn(n, hw, hid).to(dev, dtype), randn(9, hid, std=0.3).to(dev),
+                randn(hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev))
+
+    def worst_rel(got, want, names):
+        worst = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        name = max(worst, key=worst.get)
+        return name, worst[name]
+
+    ffn_names = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
+    dw_names = ("dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2")
+    errs = {}
+
+    phase("11. fused-FFN route kernels (#7-#10) against their plain versions (card)")
+    for dtype in (bf, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        fops, fops_t = ffn_ops(s_pred, dtype), ffn_ops(s_step, dtype)
+        dops, dops_t = dw_ops(n_pred, dtype), dw_ops(n_step, dtype)
+        gffn = randn(s_step, c).to(dev, dtype)
+        gdw = randn(n_step, hw, hid).to(dev, dtype)
+        for r in (0.0, rate):
+            e = max_err(tff.fused_ffn(*fops, kseed, r), tff.fused_ffn_plain(*fops, kseed, r))
+            check(e <= tol[dtype], f"fused_ffn {name} dropout {r} {tuple(fops[0].shape)} "
+                  f"({tff.kernel_route(c, hid, dtype)}) max|err| {e:.3e} <= {tol[dtype]}")
+            got = tff.fused_ffn_backward(*fops_t, kseed, gffn, r)
+            want = tff.fused_ffn_backward_plain(*fops_t, kseed, gffn, r)
+            n_worst, worst = worst_rel(got, want, ffn_names)
+            check(worst <= bwd_tol[dtype], f"fused_ffn backward {name} dropout {r} "
+                  f"{tuple(fops_t[0].shape)} worst {n_worst} rel err {worst:.2e} <= "
+                  f"{bwd_tol[dtype]:.2e}")
+            if dtype == bf and r > 0:
+                errs["ffn"] = e
+                errs["ffn_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+            e = max_err(tdw.fused_dw_chain(*dops, kseed, w, r),
+                        tdw.fused_dw_chain_plain(*dops, kseed, w, r))
+            check(e <= tol[dtype], f"fused_dw_chain {name} dropout {r} "
+                  f"{tuple(dops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
+            got = tdw.fused_dw_chain_backward(*dops_t, kseed, gdw, w, r)
+            want = tdw.fused_dw_chain_backward_plain(*dops_t, kseed, gdw, w, r)
+            n_worst, worst = worst_rel(got, want, dw_names)
+            check(worst <= bwd_tol[dtype], f"fused_dw_chain backward {name} dropout {r} "
+                  f"{tuple(dops_t[0].shape)} worst {n_worst} rel err {worst:.2e} <= "
+                  f"{bwd_tol[dtype]:.2e}")
+            if dtype == bf and r > 0:
+                errs["dw"] = e
+                errs["dw_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+        del fops, fops_t, dops, dops_t, gffn, gdw, got, want
+    torch.cuda.synchronize()
+
+    phase("12. far_mnist fused-FFN route (fused_ffn + fused_dw), far_rip predict")
+    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
+    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    # the default route with the same weights (the parameter trees agree)
+    tr_default = build_transformer(base.transformer, dtype, dev,
+                                   torch.Generator().manual_seed(SEED + 1))
+    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    past, future = frames[:, :PAST].to(dev), frames[:, PAST:].to(dev)
+    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
+    predict_default = make_predict_fn(base, enc, dec, tr_default, "far_rip", FUTURE, dev)
+    zero_counters(*counters)
+    pred = predict(past)
+    torch.cuda.synchronize()
+    pred_launches = {"fused_ffn": tff.fused_ffn.launches,
+                     "fused_dw_chain": tdw.fused_dw_chain.launches,
+                     "fused_attention_ln": tfw.fused_attention_ln.launches,
+                     "attention_core": attention_core.launches}
+    for name, n in pred_launches.items():
+        check(n == LAYERS * FUTURE, f"{name} launches in the fused-route far_rip "
+              f"run: {n} == {LAYERS * FUTURE}")
+    check(tuple(pred.shape) == (BATCH, FUTURE, 64, 64, 1),
+          f"fused-route far_rip output shape {tuple(pred.shape)}")
+    check(bool(torch.isfinite(pred.float()).all()), "fused-route far_rip output finite")
+    lo, hi = pred.float().min().item(), pred.float().max().item()
+    check(0.0 <= lo and hi <= 1.0, f"fused-route far_rip output in [0, 1] ({lo:.4f}, "
+          f"{hi:.4f})")
+    use_kernels(tr, "plain")
+    e_plain = max_err(pred, predict(past))
+    use_kernels(tr, "cuda")
+    check(e_plain <= 5e-2, f"fused-route far_rip kernels vs kernels='plain' max|err| "
+          f"{e_plain:.3e} <= 5e-2")
+    e_default = max_err(pred, predict_default(past))
+    check(e_default <= 5e-2, f"fused-route far_rip vs the default route max|err| "
+          f"{e_default:.3e} <= 5e-2 (the GELU's form and the rounding points differ)")
+
+    phase("13. far_mnist fused-FFN route, train step")
+    opt = build_optimizer(cfg.optim, c)
+    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    train_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+    zero_counters(*counters)
+    state, m0 = train_step(state, past, future)
+    torch.cuda.synchronize()
+    step_launches = {"fused_ffn": tff.fused_ffn.launches,
+                     "fused_ffn_bwd": tff.fused_ffn.bwd_launches,
+                     "fused_dw_chain": tdw.fused_dw_chain.launches,
+                     "fused_dw_chain_bwd": tdw.fused_dw_chain.bwd_launches,
+                     "fused_attention_ln": tfw.fused_attention_ln.launches,
+                     "fused_attention_ln_bwd": tfw.fused_attention_ln.bwd_launches,
+                     "attention_core": attention_core.launches,
+                     "attention_core_bwd": attention_core.bwd_launches}
+    for name, n in step_launches.items():
+        check(n == LAYERS, f"{name} launches in one fused-route train step: {n} == "
+              f"{LAYERS}")
+    check(all(bool(torch.isfinite(v)) for v in m0.values()),
+          f"first fused-route step metrics finite: "
+          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
+    a, b = state.clone(), state.clone()
+    use_kernels(b.transformer, "plain")
+    a, ma = train_step(a, past, future)
+    b, mb = train_step(b, past, future)
+    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
+    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
+    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
+          f"fused-route step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
+          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
+    check(d_norm <= 0.05, f"fused-route step kernels vs kernels='plain' grad norm rel "
+          f"diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
+          f"{float(mb['grad_norm']):.6e})")
+    del a, b
+    fixed = state.clone()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        fixed, m = train_step(fixed, past, future)
+        losses.append(float(m["T_total"]))
+    print(f"  fused-route T_total over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "fused-route train losses finite")
+    check(losses[-1] < losses[0], f"fused-route T_total falls over {TRAIN_STEPS} "
+          f"steps: {losses[0]:.6f} -> {losses[-1]:.6f}")
+    del fixed
+
+    phase("14. fused-FFN route timing (against the default route, in turns)")
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    predict(past)
+    predict_default(past)
+    pred_times = {"fused": [], "default": []}
+    for i in range(6):                 # default, fused, fused, default, ...
+        order = ("default", "fused") if i % 2 == 0 else ("fused", "default")
+        for route in order:
+            fn = predict if route == "fused" else predict_default
+            pred_times[route].append(host_ms(lambda: fn(past)))
+    pred_ms = {k: statistics.median(v) for k, v in pred_times.items()}
+    print(f"  far_rip predict (batch {BATCH}, {FUTURE} frames): fused route median "
+          f"{pred_ms['fused']:.3f} ms ({[round(t, 3) for t in pred_times['fused']]}), "
+          f"default route {pred_ms['default']:.3f} ms "
+          f"({[round(t, 3) for t in pred_times['default']]})")
+
+    dstate = create_far_train_state(enc, dec, tr_default, opt, seed=SEED + 3)
+    default_step = make_far_train_step(enc, dec, tr_default, opt, base.loss)
+    steps = {"fused": (train_step, state), "default": (default_step, dstate)}
+    del state, dstate
+    step_times = {"fused": [], "default": []}
+    act_peak = {}
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        order = ("default", "fused") if i % 2 == 0 else ("fused", "default")
+        for route in order:
+            fn, st = steps[route]
+            if i == WARMUP_STEPS - 1:   # the activation peak above what is held
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: fn(st, past, future))
+            if i == WARMUP_STEPS - 1:
+                act_peak[route] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+            if i >= WARMUP_STEPS:
+                step_times[route].append(ms)
+    step_ms = {k: statistics.median(v) for k, v in step_times.items()}
+    print(f"  FAR train step (batch {BATCH}, T {ctx - 1}): fused route median "
+          f"{step_ms['fused']:.3f} ms ({[round(t, 3) for t in step_times['fused']]}), "
+          f"default route {step_ms['default']:.3f} ms "
+          f"({[round(t, 3) for t in step_times['default']]}); peak above the held "
+          f"memory: fused {act_peak['fused']:.3f} GiB, default "
+          f"{act_peak['default']:.3f} GiB")
+    del steps, train_step, default_step, enc, dec, tr, tr_default, predict, predict_default
+    torch.cuda.empty_cache()
+
+    # the kernels beside their plain versions, a library yardstick and the
+    # bound: #7/#9 at the far_rip shapes (dropout 0), #8/#10 at the step's
+    # (dropout 0.1), bf16
+    fops, fops_t, gffn = ffn_ops(s_pred, bf), ffn_ops(s_step, bf), randn(s_step, c).to(dev, bf)
+    dops, dops_t = dw_ops(n_pred, bf), dw_ops(n_step, bf)
+    gdw = randn(n_step, hw, hid).to(dev, bf)
+
+    def ffn_library(x, w1, b1, w2, b2, ls, lb):
+        xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
+        return F.linear(F.gelu(F.linear(xn, w1.t(), b1.to(bf))), w2.t(), b2.to(bf))
+
+    def dw_library(x, taps, dwb, s1, b1, s2, b2):
+        n = x.shape[0]
+        img = x.view(n, tc.enc_h, w, hid).permute(0, 3, 1, 2)
+        aff = lambda p: p.t().reshape(hid, tc.enc_h, w).to(bf)
+        z = F.gelu(F.layer_norm(img, img.shape[1:], aff(s1), aff(b1)))
+        z = F.conv2d(z, taps.t().reshape(hid, 1, 3, 3).to(bf), dwb.to(bf), padding=1,
+                     groups=hid)
+        return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
+
+    def grads_of(lib, ops, gout):
+        ins = [t.clone().requires_grad_() for t in ops]
+        out = lib(*ins)
+        if out.dim() == 4:                 # the conv yardstick's NCHW output
+            gout = gout.view(out.shape[0], tc.enc_h, w, hid).permute(0, 3, 1, 2)
+        return lambda: torch.autograd.grad(out, ins, gout, retain_graph=True)
+
+    e_pred, e_step = s_pred * c, s_step * c
+    d_pred, d_step = n_pred * hw * hid, n_step * hw * hid
+    s2b = 2   # bytes per bf16 element
+    # f32 arithmetic per element of the dw chain on the CUDA cores (two
+    # LayerNorms, two A&S GELUs, the nine-tap conv, the dropout: ~80; the
+    # backward recomputes them and adds two GELU derivatives, two LayerNorm
+    # backwards, the transposed conv, the tap and affine sums: ~210)
+    cases = (
+        # name, fn, plain, library, bytes, flops, flop dtype
+        ("fused_ffn", lambda: tff.fused_ffn(*fops, kseed, 0.0),
+         lambda: tff.fused_ffn_plain(*fops, kseed, 0.0),
+         lambda: ffn_library(*fops),
+         2 * e_pred * s2b + 2 * c * hid * s2b + (hid + 3 * c) * 4,
+         4 * s_pred * c * hid, bf),
+        ("fused_ffn_bwd", lambda: tff.fused_ffn_backward(*fops_t, kseed, gffn, rate),
+         lambda: tff.fused_ffn_backward_plain(*fops_t, kseed, gffn, rate),
+         grads_of(ffn_library, fops_t, gffn),
+         3 * e_step * s2b + 4 * c * hid * s2b + 2 * hid * 4 + 6 * c * 4,
+         10 * s_step * c * hid, bf),
+        ("fused_dw_chain", lambda: tdw.fused_dw_chain(*dops, kseed, w, 0.0),
+         lambda: tdw.fused_dw_chain_plain(*dops, kseed, w, 0.0),
+         lambda: dw_library(*dops),
+         2 * d_pred * s2b + (10 * hid + 4 * hw * hid) * 4, 80 * d_pred, torch.float32),
+        ("fused_dw_chain_bwd",
+         lambda: tdw.fused_dw_chain_backward(*dops_t, kseed, gdw, w, rate),
+         lambda: tdw.fused_dw_chain_backward_plain(*dops_t, kseed, gdw, w, rate),
+         grads_of(dw_library, dops_t, gdw),
+         3 * d_step * s2b + (20 * hid + 8 * hw * hid) * 4, 210 * d_step, torch.float32),
+    )
+    clusters = tdw.resident_clusters(hw, hid)
+    print(f"  fused_dw_chain clusters of 8 blocks resident at once: forward "
+          f"{clusters[0]}, backward {clusters[1]}")
+    readings = {}
+    for name, fn, plain, lib, nbytes, flops, fdt in cases:
+        k_ms, p_ms = timed_turns(fn, plain)
+        lib_ms = cuda_ms(lib)
+        b_ms, b_by = bound(nbytes, flops, fdt)
+        readings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP {str(fdt).replace('torch.', '')})")
+    rows_out = []
+    for name, src, replaces, err, launches, step_n in (
+            ("fused_ffn", "vptr_tpu_torch/csrc/fused_ffn.cu",
+             "vptr_tpu/ops/fused_ffn.py:188", errs["ffn"], pred_launches["fused_ffn"],
+             step_launches["fused_ffn"]),
+            ("fused_ffn_bwd", "vptr_tpu_torch/csrc/fused_ffn_bwd.cu",
+             "vptr_tpu/ops/fused_ffn.py:214", errs["ffn_bwd"],
+             step_launches["fused_ffn_bwd"], step_launches["fused_ffn_bwd"]),
+            ("fused_dw_chain", "vptr_tpu_torch/csrc/fused_dw_chain.cu",
+             "vptr_tpu/ops/fused_dw_chain.py:294", errs["dw"],
+             pred_launches["fused_dw_chain"], step_launches["fused_dw_chain"]),
+            ("fused_dw_chain_bwd", "vptr_tpu_torch/csrc/fused_dw_chain_bwd.cu",
+             "vptr_tpu/ops/fused_dw_chain.py:318", errs["dw_bwd"],
+             step_launches["fused_dw_chain_bwd"], step_launches["fused_dw_chain_bwd"])):
+        rows_out.append({"name": name, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": launches,
+                         "max_abs_err": err, **readings[name],
+                         "train_step_launches": step_n})
+    summary = (f"ffn_route_predict_ms {pred_ms['fused']:.3f} default_predict_ms "
+               f"{pred_ms['default']:.3f} ffn_route_train_step_ms {step_ms['fused']:.3f} "
+               f"default_train_step_ms {step_ms['default']:.3f} ffn_route_step_peak_gib "
+               f"{act_peak['fused']:.3f} default_step_peak_gib {act_peak['default']:.3f}")
+    extra = {"ffn_route_predict_launches": pred_launches,
+             "ffn_route_step_launches": step_launches,
+             "dw_chain_resident_clusters": clusters}
     return rows_out, extra, summary
 
 
@@ -929,14 +1273,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     nar_rows, nar_extra, nar_summary = nar_phases(dev)
     rows_out += nar_rows
+    torch.cuda.empty_cache()
+    ffn_rows, ffn_extra, ffn_summary = ffn_phases(dev)
+    rows_out += ffn_rows
 
-    phase("11. result")
+    phase("15. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
           f"train_peak_gib {step_peak:.3f}")
     print(f"  {nar_summary}")
     print(f"  {json.dumps(nar_extra)}")
+    print(f"  {ffn_summary}")
+    print(f"  {json.dumps(ffn_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

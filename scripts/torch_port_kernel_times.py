@@ -12,15 +12,20 @@ shapes:
 * ``fused_attention_ln_backward`` (#3): 760 windows, dropout 0.1 (the
   train step's shape);
 * ``attention_core_backward`` (#4): 640 x 8 x 19 x 66, causal, dropout 0.1;
+* where the tree has the fused feed-forward route: ``fused_ffn`` (#7)
+  12,800 x 528 rows, hidden 2112, dropout 0; its backward (#8) 12,160 rows,
+  dropout 0.1; ``fused_dw_chain`` (#9) 200 x 64 x 2112, dropout 0; its
+  backward (#10) 190 samples, dropout 0.1;
 each as the mean CUDA-event time of 50 back-to-back calls after 5 warm-ups,
 ``--repeats`` times; the full-width far_mnist far_rip predict (batch 10,
 10 past -> 10 predicted frames, random weights from a seed), host clock
 around a synchronised call, ``--repeats`` calls after one warm-up; and the
 far_mnist train step (batch 10, T = 19, dropout 0.1), host clock around a
-synchronised step, ``2 * --repeats`` steps after two warm-ups. Prints one
-JSON line with every reading and their medians. To compare two trees, run
-it on each in turns (A B B A) within one machine. Needs a GPU; exits
-non-zero without one.
+synchronised step, ``2 * --repeats`` steps after two warm-ups; both again
+on the fused feed-forward route (``ffn_route_*``; null for a tree without
+it). Prints one JSON line with every reading and their medians. To compare
+two trees, run it on each in turns (A B B A) within one machine. Needs a
+GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -75,6 +80,11 @@ def main() -> int:
         fused_attention_ln_backward,
     )
     from vptr_tpu_torch.train.optim import build_optimizer
+    try:
+        from vptr_tpu_torch.ops import fused_dw_chain as tdw
+        from vptr_tpu_torch.ops import fused_ffn as tff
+    except ImportError:         # a tree from before the fused-FFN route
+        tdw = tff = None
     from vptr_tpu_torch.train.state import create_far_train_state
     from vptr_tpu_torch.train.steps import make_far_train_step
 
@@ -98,10 +108,17 @@ def main() -> int:
     tcausal = causal[:, :ctx - 1, :ctx - 1]
 
     cfg = get_preset("far_mnist")
+    routes = {"": cfg}
+    if tff is not None:
+        routes["ffn_route_"] = cfg.override(
+            {"transformer": {"fused_ffn": True, "fused_dw": True}})
     enc, dec = build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(0))
-    tr = build_transformer(cfg.transformer, bf, dev, torch.Generator().manual_seed(1))
+    trs = {route: build_transformer(rc.transformer, bf, dev,
+                                    torch.Generator().manual_seed(1))
+           for route, rc in routes.items()}
     past = torch.rand(10, 10, 64, 64, 1, generator=torch.Generator().manual_seed(2))
-    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", 10, dev)
+    predicts = {route: make_predict_fn(routes[route], enc, dec, tr, "far_rip", 10, dev)
+                for route, tr in trs.items()}
 
     def host_ms(fn):
         torch.cuda.synchronize()
@@ -119,28 +136,55 @@ def main() -> int:
         "attention_core_bwd_ms": lambda: attention_core_backward(
             tq, tk, tv, tcausal, seed, gcore, 0.1, need_dbias=False),
     }
+    if tff is not None:
+        hid = 4 * c
+        fops = (r(12800, c).to(bf), r(c, hid, std=c ** -0.5).to(bf), r(hid, std=0.1),
+                r(hid, c, std=hid ** -0.5).to(bf), r(c, std=0.1), 1 + r(c, std=0.1),
+                r(c, std=0.1))
+        fops_t, gffn = (r(12160, c).to(bf),) + fops[1:], r(12160, c).to(bf)
+        dops = (r(200, 64, hid).to(bf), r(9, hid, std=0.3), r(hid, std=0.1),
+                1 + r(64, hid, std=0.1), r(64, hid, std=0.1), 1 + r(64, hid, std=0.1),
+                r(64, hid, std=0.1))
+        dops_t, gdw = (r(190, 64, hid).to(bf),) + dops[1:], r(190, 64, hid).to(bf)
+        kernels.update({
+            "fused_ffn_ms": lambda: tff.fused_ffn(*fops, seed, 0.0),
+            "fused_ffn_bwd_ms": lambda: tff.fused_ffn_backward(*fops_t, seed, gffn, 0.1),
+            "fused_dw_chain_ms": lambda: tdw.fused_dw_chain(*dops, seed, 8, 0.0),
+            "fused_dw_chain_bwd_ms": lambda: tdw.fused_dw_chain_backward(
+                *dops_t, seed, gdw, 8, 0.1),
+        })
     readings = {name: [] for name in kernels}
-    readings.update(predict_ms=[], train_step_ms=[])
-    predict(past)
+    for route in routes:
+        readings.update({f"{route}predict_ms": [], f"{route}train_step_ms": []})
+    for predict in predicts.values():
+        predict(past)
     for _ in range(args.repeats):
         for name, fn in kernels.items():
             readings[name].append(cuda_ms(fn))
-        readings["predict_ms"].append(host_ms(lambda: predict(past)))
+        for route, predict in predicts.items():
+            readings[f"{route}predict_ms"].append(host_ms(lambda: predict(past)))
 
     opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
-    state = create_far_train_state(enc, dec, tr, opt, seed=3)
-    step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
     future = torch.rand(10, 10, 64, 64, 1,
                         generator=torch.Generator().manual_seed(3)).to(dev)
     past = past.to(dev)
-    for i in range(2 + 2 * args.repeats):
-        ms = host_ms(lambda: step(state, past, future))
-        if i >= 2:
-            readings["train_step_ms"].append(ms)
+    for route, tr in trs.items():
+        state = create_far_train_state(enc, dec, tr, opt, seed=3)
+        step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+        for i in range(2 + 2 * args.repeats):
+            ms = host_ms(lambda: step(state, past, future))
+            if i >= 2:
+                readings[f"{route}train_step_ms"].append(ms)
+        del state, step
     out = {"root": str(root)}
     for name, xs in readings.items():
         out[name] = statistics.median(xs)
         out[name.replace("_ms", "_all")] = xs
+    if tff is None:
+        for name in ("fused_ffn_ms", "fused_ffn_bwd_ms", "fused_dw_chain_ms",
+                     "fused_dw_chain_bwd_ms", "ffn_route_predict_ms",
+                     "ffn_route_train_step_ms"):
+            out[name] = None
     print(json.dumps(out))
     return 0
 

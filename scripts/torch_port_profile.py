@@ -1,7 +1,10 @@
 """Where the time goes in the port's predict call or train step, on one
-GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR).
+GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR); --ffn-route turns on
+the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
+#7-#10).
 
-    python3 scripts/torch_port_profile.py [--nar] [--train] [--kernels cuda|plain] [--top 15]
+    python3 scripts/torch_port_profile.py [--nar] [--train] [--ffn-route]
+        [--kernels cuda|plain] [--top 15]
 
 Builds the preset at full width from a seed (as chip_smoke.py does), warms
 the predict call (far_rip, batch 10, 10 frames; --nar: nar, batch 16,
@@ -34,6 +37,8 @@ def main() -> int:
                         help="trace one train step instead of a predict call")
     parser.add_argument("--nar", action="store_true",
                         help="nar_mnist (NAR) instead of far_mnist (FAR)")
+    parser.add_argument("--ffn-route", action="store_true",
+                        help="transformer.fused_ffn and fused_dw on")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
@@ -50,6 +55,8 @@ def main() -> int:
     from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
 
     cfg = get_preset("nar_mnist" if args.nar else "far_mnist")
+    if args.ffn_route:
+        cfg = cfg.override({"transformer": {"fused_ffn": True, "fused_dw": True}})
     batch = cfg.data.batch_size if args.nar else 10
     dev = torch.device("cuda")
     enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
@@ -87,7 +94,8 @@ def main() -> int:
             rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
-    print(f"kernels={args.kernels} {what}, traced: wall {wall_ms:.3f} ms, "
+    route = "fused-FFN route" if args.ffn_route else "default route"
+    print(f"kernels={args.kernels} {route} {what}, traced: wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
     for ms, count, key in rows[:args.top]:
         print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} {key[:90]}")

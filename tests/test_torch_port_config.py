@@ -92,7 +92,7 @@ def test_kernel_wrapper_refuses_other_devices():
     ({"variant": "nar", "tslma": True}, "TSLMA slice"),
     ({"remat": True}, "trainer slice"),
     ({"fused_full_temporal": True}, "LN-folded kernels #1/#3"),
-    ({"fused_ffn": True}, "default-off kernels"),
+    ({"fused_conv_ffn": True}, "default-off kernels"),
     ({"scan_layers": True}, "trainer slice"),
 ])
 def test_unported_routes_raise(override, match):

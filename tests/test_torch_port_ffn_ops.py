@@ -1,0 +1,174 @@
+"""The fused feed-forward kernels' plain versions against the JAX package's
+TPU kernels (Pallas interpret mode), on the CPU.
+
+(m) the A&S GELU and its gradient (``ops/gelu.py``) equal to
+    ``fused_conv_ln._gelu`` / ``_gelu_grad``; the hidden-dropout masks
+    ``ffn_keep_mask`` / ``dw_keep_mask`` bit-equal to JAX's;
+(n) kernel #7/#8's plain versions (``fused_ffn_plain``, and the wrapper
+    ``fused_ffn`` on CPU tensors with ``fused_ffn_backward_plain`` as its
+    backward) against ``vptr_tpu.ops.fused_ffn.fused_ffn(...,
+    interpret=True)``: the forward and all seven gradients, dropout 0 and
+    0.3, rows ragged against the JAX row tile;
+(o) kernel #9/#10's (``fused_dw_chain_plain``, the wrapper) against
+    ``fused_dw_chain(..., interpret=True)``, the same way.
+
+Inputs are seeded numpy in f32. Tolerance 1e-5 (absolute, plus 1e-5
+relative to the largest value of each output or gradient): the same f32
+arithmetic in another summation order (C- and H-long dot products, the
+whole-sample means over HW C, the gradients summed over all rows or
+samples).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vptr_tpu.ops import fused_conv_ln as jconv
+from vptr_tpu.ops import fused_dw_chain as jdw
+from vptr_tpu.ops import fused_ffn as jffn
+from vptr_tpu_torch.ops import dropout as tdrop
+from vptr_tpu_torch.ops import gelu as tgelu
+from vptr_tpu_torch.ops.fused_dw_chain import (
+    fused_dw_chain,
+    fused_dw_chain_backward_plain,
+    fused_dw_chain_plain,
+)
+from vptr_tpu_torch.ops.fused_ffn import (
+    fused_ffn,
+    fused_ffn_backward_plain,
+    fused_ffn_plain,
+)
+
+from _torch_port_util import t
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
+
+TOL = 1e-5
+FFN_NAMES = ("x", "w1", "b1", "w2", "b2", "ls", "lb")
+DW_NAMES = ("x", "taps", "dwb", "s1", "b1", "s2", "b2")
+
+
+def _close(got, want, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    tol = TOL + TOL * np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+# ------------------------------------------------------------- (m) helpers
+
+def test_gelu_matches_jax():
+    a = np.concatenate([np.linspace(-8, 8, 4001), [0.0, -0.0, 1e-20, -1e-20]])
+    a = a.astype(np.float32)
+    np.testing.assert_allclose(tgelu.gelu_as(t(a)).numpy(),
+                               np.asarray(jconv._gelu(jnp.asarray(a))),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tgelu.gelu_as_grad(t(a)).numpy(),
+                               np.asarray(jconv._gelu_grad(jnp.asarray(a))),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 321, -5, 2 ** 31 - 2])
+def test_ffn_and_dw_masks_bit_equal(seed):
+    got = tdrop.ffn_keep_mask(seed, 37, 96, 0.3)
+    want = np.asarray(jffn.ffn_keep_mask(seed, 37, 96, 0.3))
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tdrop.dw_keep_mask(seed, 5, 64, 40, 0.1)
+    want = np.asarray(jdw.dw_keep_mask(seed, 5, 64, 40, 0.1))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ----------------------------------------------------------------- (n) FFN
+
+def _ffn_args(rng, s, c, h):
+    return (rng.standard_normal((s, c)),
+            rng.standard_normal((c, h)) * c ** -0.5,
+            rng.standard_normal(h) * 0.1,
+            rng.standard_normal((h, c)) * h ** -0.5,
+            rng.standard_normal(c) * 0.1,
+            1 + 0.1 * rng.standard_normal(c),
+            0.1 * rng.standard_normal(c))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("route", ["wrapper", "plain"])
+def test_fused_ffn_matches_jax(rate, route):
+    rng = np.random.default_rng(80)
+    s, c, h, seed = 200, 48, 192, 1234
+    args = [a.astype(np.float32) for a in _ffn_args(rng, s, c, h)]
+    g = rng.standard_normal((s, c)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in args]
+    want, vjp = jax.vjp(
+        lambda *a: jffn.fused_ffn(*a, seed, rate, 64, True, 32), *jargs)
+    want_grads = vjp(jnp.asarray(g))
+
+    targs = [t(a).requires_grad_() for a in args]
+    fn = fused_ffn if route == "wrapper" else fused_ffn_plain
+    got = fn(*targs, seed, rate)
+    _close(got.detach().numpy(), want, "y")
+    grads = torch.autograd.grad(got, targs, t(g))
+    for name, a, b in zip(FFN_NAMES, grads, want_grads):
+        _close(a.numpy(), b, name)
+
+
+def test_fused_ffn_backward_plain_matches_jax_bwd_kernel():
+    """The plain backward on its own (what chip_smoke holds kernel #8
+    against) equals the JAX backward kernel's outputs."""
+    rng = np.random.default_rng(81)
+    s, c, h, seed, rate = 136, 32, 128, 77, 0.3
+    args = [a.astype(np.float32) for a in _ffn_args(rng, s, c, h)]
+    g = rng.standard_normal((s, c)).astype(np.float32)
+    want = jffn._backward(*map(jnp.asarray, args), seed, jnp.asarray(g), rate,
+                          32, True)
+    got = fused_ffn_backward_plain(*map(t, args), seed, t(g), rate)
+    for name, a, b in zip(FFN_NAMES, got, want):
+        _close(a.numpy(), b, name)
+
+
+# -------------------------------------------------------------- (o) dw chain
+
+def _dw_args(rng, n, hw, c):
+    return (rng.standard_normal((n, hw, c)),
+            rng.standard_normal((9, c)) * 0.2,
+            rng.standard_normal(c) * 0.05,
+            1 + 0.1 * rng.standard_normal((hw, c)),
+            0.1 * rng.standard_normal((hw, c)),
+            1 + 0.1 * rng.standard_normal((hw, c)),
+            0.1 * rng.standard_normal((hw, c)))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("route", ["wrapper", "plain"])
+def test_fused_dw_chain_matches_jax(rate, route):
+    rng = np.random.default_rng(82)
+    n, w, c, seed = 6, 8, 32, 99
+    args = [a.astype(np.float32) for a in _dw_args(rng, n, w * w, c)]
+    g = rng.standard_normal((n, w * w, c)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in args]
+    want, vjp = jax.vjp(
+        lambda *a: jdw.fused_dw_chain(*a, seed, w, rate, 4, True), *jargs)
+    want_grads = vjp(jnp.asarray(g))
+
+    targs = [t(a).requires_grad_() for a in args]
+    fn = fused_dw_chain if route == "wrapper" else fused_dw_chain_plain
+    got = fn(*targs, seed, w, rate)
+    _close(got.detach().numpy(), want, "z3")
+    grads = torch.autograd.grad(got, targs, t(g))
+    for name, a, b in zip(DW_NAMES, grads, want_grads):
+        _close(a.numpy(), b, name)
+
+
+def test_fused_dw_chain_backward_plain_on_a_wide_grid():
+    """A 4 x 16 grid (w != h) against the JAX backward kernel: the row
+    masks and the transposed conv at the grid's edges."""
+    rng = np.random.default_rng(83)
+    n, w, hw, c, seed, rate = 3, 16, 64, 24, 5, 0.1
+    args = [a.astype(np.float32) for a in _dw_args(rng, n, hw, c)]
+    g = rng.standard_normal((n, hw, c)).astype(np.float32)
+    want = jdw._backward(*map(jnp.asarray, args), seed, jnp.asarray(g), w,
+                         rate, 2, True)
+    got = fused_dw_chain_backward_plain(*map(t, args), seed, t(g), w, rate)
+    for name, a, b in zip(DW_NAMES, got, want):
+        _close(a.numpy(), b, name)

@@ -310,3 +310,81 @@ def test_fused_attention_ln_with_rpe_bias(cuda, dtype, rate):
     assert got[-1] is not None and got[-1].shape == (8, tokens, tokens)
     for a, bb in zip(got, want):
         assert _rel_err(a, bb) <= BWD_TOL[dtype]
+
+
+# ---- the fused feed-forward route: kernels #7 / #8 (fused_ffn) and #9 / #10
+# (fused_dw_chain) at the far_mnist widths (C 528, hidden 2112, 8 x 8
+# latents), dropout 0 and 0.1, with the tolerances above
+
+def _ffn_operands(g, rows, dtype, cuda, c=528, h=2112):
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    return (r(rows, c).to(dtype), r(c, h, std=c ** -0.5).to(dtype), r(h, std=0.1),
+            r(h, c, std=h ** -0.5).to(dtype), r(c, std=0.1), 1 + r(c, std=0.1),
+            r(c, std=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", [12160, 1236])
+def test_fused_ffn_kernels_match_plain(cuda, dtype, rate, rows):
+    """12,160 rows: the training step's (the bf16 tensor-core routes); 1,236:
+    a ragged last row tile, and the backward's generic product route."""
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    g = torch.Generator().manual_seed(13)
+    args = _ffn_operands(g, rows, dtype, cuda)
+    seed = _seed(cuda)
+    before = (tff.fused_ffn.launches, tff.fused_ffn.bwd_launches)
+    fwd = tff.fused_ffn(*args, seed, rate)
+    want = tff.fused_ffn_plain(*args, seed, rate)
+    assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = torch.randn(rows, 528, generator=g).to(cuda, dtype)
+    got = tff.fused_ffn_backward(*args, seed, dout, rate)
+    want = tff.fused_ffn_backward_plain(*args, seed, dout, rate)
+    again = tff.fused_ffn_backward(*args, seed, dout, rate)
+    torch.cuda.synchronize()
+    assert (tff.fused_ffn.launches, tff.fused_ffn.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    for name, a, b, a2 in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
+                              got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+        assert torch.equal(a, a2), name          # no atomics: the same bits
+
+
+def _dw_operands(g, n, dtype, cuda, hw=64, c=2112):
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    return (r(n, hw, c).to(dtype), r(9, c, std=0.3), r(c, std=0.1),
+            1 + r(hw, c, std=0.1), r(hw, c, std=0.1), 1 + r(hw, c, std=0.1),
+            r(hw, c, std=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n", [190, 13])
+def test_fused_dw_chain_kernels_match_plain(cuda, dtype, rate, n):
+    """190 samples: the training step's (16 sample groups of up to 12);
+    13: one sample a group."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    g = torch.Generator().manual_seed(14)
+    args = _dw_operands(g, n, dtype, cuda)
+    seed = _seed(cuda)
+    before = (tdw.fused_dw_chain.launches, tdw.fused_dw_chain.bwd_launches)
+    fwd = tdw.fused_dw_chain(*args, seed, 8, rate)
+    want = tdw.fused_dw_chain_plain(*args, seed, 8, rate)
+    assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = torch.randn(n, 64, 2112, generator=g).to(cuda, dtype)
+    got = tdw.fused_dw_chain_backward(*args, seed, dout, 8, rate)
+    want = tdw.fused_dw_chain_backward_plain(*args, seed, dout, 8, rate)
+    again = tdw.fused_dw_chain_backward(*args, seed, dout, 8, rate)
+    torch.cuda.synchronize()
+    assert (tdw.fused_dw_chain.launches, tdw.fused_dw_chain.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    for name, a, b, a2 in zip(("dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2"),
+                              got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+        assert torch.equal(a, a2), name

@@ -189,8 +189,15 @@ def _leaf_errors(got, want):
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_far_train_step_matches_jax(route):
-    over = {"transformer": dict(dropout=0.0, drop_path=0.0, **ROUTES[route]),
-            "loss": {"temporal_weight": route == "fused"}}
+    check_far_train_step(ROUTES[route], weighted=route == "fused")
+
+
+def check_far_train_step(flags, weighted):
+    """One FAR step of both packages on the transformer route ``flags``
+    (``temporal_weight`` on when ``weighted``): losses, every gradient
+    leaf, the parameters after clip -> AdamW for both moment dtypes."""
+    over = {"transformer": dict(dropout=0.0, drop_path=0.0, **flags),
+            "loss": {"temporal_weight": weighted}}
     jc, tc = small_cfgs()
     jc, tc = jc.override(over), tc.override(over)
     rng = np.random.default_rng(22)

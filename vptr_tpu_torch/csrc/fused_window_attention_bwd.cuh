@@ -40,6 +40,9 @@
 //   8. colsum: db* (and dls, dlb for LN) as per-chunk partial sums, then a
 //      fixed-order sum of the chunks; dbias sums the logit gradients over
 //      windows.
+// The LayerNorm passes (1, 7), the products, the split-K sums and the
+// column sums are tile_ops.cuh's building blocks, which the FFN backward
+// (fused_ffn_bwd.cu) shares.
 // Rounding points follow the plain versions
 // (fused_window_attention.py::fused_attention_ln_backward_plain and
 // fused_attention_backward_plain): dq, dk, dv and g * scale stay f32 into
@@ -61,17 +64,8 @@
 //   tiles staged element by element, f32 products on the CUDA cores.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <initializer_list>
-#include <type_traits>
-
 #include "hash_dropout.cuh"
+#include "tile_ops.cuh"
 
 // Everything the backward needs; mirrored by _BwdArgs in
 // vptr_tpu_torch/ops/fused_window_attention.py. Inputs, outputs, then the
@@ -93,350 +87,8 @@ struct BwdArgs {
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kMaxTokens = 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kChunk = 64;            // rows per partial sum of the column sums
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// 1. LayerNorm rows: one warp per row, f32 statistics (as the forward)
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ ls,
-               const float* __restrict__ lb, const float* __restrict__ pos,
-               float* __restrict__ mean_out, float* __restrict__ rstd_out,
-               T* __restrict__ xn, T* __restrict__ xqk, int rows, int L, int C, float eps) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* xr = x + static_cast<long>(row) * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
-  const float mean = warp_sum(s) / C;
-  float ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = to_f32(xr[c]) - mean;
-    ss = fmaf(d, d, ss);
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / C + eps);
-  const float* pr = pos ? pos + static_cast<long>(row % L) * C : nullptr;
-  for (int c = lane; c < C; c += 32) {
-    const float n = round_t<T>((to_f32(xr[c]) - mean) * rstd * ls[c] + lb[c]);
-    const float nq = pr ? round_t<T>(n + round_t<T>(pr[c])) : n;
-    xn[static_cast<long>(row) * C + c] = from_f32<T>(n);
-    xqk[static_cast<long>(row) * C + c] = from_f32<T>(nq);
-  }
-  if (lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2/3/5/6. Tiled products out[M x N] = A[M x K] B[K x N] with an epilogue.
-// A[m][k] is a[m * lda + k], or a[k * lda + m] when AT (transposed); B[k][n]
-// is b[k * ldb + n], or b[n * ldb + k] when BT. Up to three products of one
-// shape run in one launch (blockIdx.z picks the job).
-
-constexpr int BM = 64, BN = 64, BK = 32, kGemmThreads = 256;
-enum Epilogue { kProj = 0, kF32 = 1, kPartial = 2 };
-
-struct GemmJob {
-  const void* a;
-  const void* b;
-  void* out;
-  const float* bias;    // kProj: + bias[n], rounded to T, then * mul, rounded
-  float mul;
-  const float* kscale;  // B[k][n] * kscale[k / group] (g * scale for dWo)
-  const float* mscale;  // kF32: out[m][n] * mscale[m / group] (d(attn))
-  int accumulate;       // kF32: out += result
-};
-
-// K may be split in ksplit chunks of kchunk (a multiple of BK): blockIdx.z
-// = job * ksplit + chunk, and a kPartial epilogue writes chunk c's f32 sums
-// to out + c * M * ldo, for a fixed-order sum over the chunks afterwards.
-struct GemmBatch {
-  GemmJob job[3];
-  int M, N, K, lda, ldb, ldo, group, ksplit, kchunk;
-};
-
-template <typename TO, int EPI, typename Job, typename Batch>
-__device__ __forceinline__ void epilogue(const Job& jb, const Batch& gb, int chunk, int m,
-                                         int n, float acc) {
-  if (m >= gb.M || n >= gb.N) return;
-  TO* out = static_cast<TO*>(jb.out);
-  const long o = (static_cast<long>(chunk) * gb.M + m) * gb.ldo + n;
-  if constexpr (EPI == kProj) {
-    float y = round_t<TO>(acc + jb.bias[n]);
-    if (jb.mul != 1.f) y *= jb.mul;
-    out[o] = from_f32<TO>(y);
-  } else if constexpr (EPI == kF32) {
-    float y = acc;
-    if (jb.mscale) y *= jb.mscale[m / gb.group];
-    if (jb.accumulate) y += to_f32(out[o]);
-    out[o] = from_f32<TO>(y);
-  } else {
-    out[o] = acc;
-  }
-}
-
-template <typename TA, bool AT, typename TB, bool BT, typename TO, int EPI>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmBatch gb) {
-  __shared__ float af[BM * (BK + 1)];     // A tile, [BM][BK + 1]
-  __shared__ float bf[BK * (BN + 1)];     // B tile, [BK][BN + 1]
-  const int chunk = blockIdx.z % gb.ksplit;
-  const GemmJob& jb = gb.job[blockIdx.z / gb.ksplit];
-  const TA* A = static_cast<const TA*>(jb.a);
-  const TB* B = static_cast<const TB*>(jb.b);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int M = gb.M, N = gb.N, K = gb.K;
-  const int kbeg = chunk * gb.kchunk;
-  const int kend = min(K, kbeg + gb.kchunk);
-
-  auto a_at = [&](int m, int k) -> float {
-    if (m >= M || k >= kend) return 0.f;
-    return to_f32(AT ? A[static_cast<long>(k) * gb.lda + m] : A[static_cast<long>(m) * gb.lda + k]);
-  };
-  auto b_at = [&](int k, int n) -> float {
-    if (k >= kend || n >= N) return 0.f;
-    float v = to_f32(BT ? B[static_cast<long>(n) * gb.ldb + k] : B[static_cast<long>(k) * gb.ldb + n]);
-    if (jb.kscale) v *= jb.kscale[k / gb.group];
-    return v;
-  };
-  const int ty = tid >> 4, tx = tid & 15;         // rows ty + 16 i, cols tx + 16 j
-  float acc[4][4] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();
-    // element orders with consecutive threads on consecutive addresses
-    for (int i = tid; i < BM * BK; i += kGemmThreads) {
-      const int mm = AT ? i % BM : i / BK, kk = AT ? i / BM : i % BK;
-      af[mm * (BK + 1) + kk] = a_at(m0 + mm, k0 + kk);
-    }
-    for (int i = tid; i < BK * BN; i += kGemmThreads) {
-      const int kk = BT ? i % BK : i / BN, nn = BT ? i / BK : i % BN;
-      bf[kk * (BN + 1) + nn] = b_at(k0 + kk, n0 + nn);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = af[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bf[kk * (BN + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      epilogue<TO, EPI>(jb, gb, chunk, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
-}
-
-template <typename TA, bool AT, typename TB, bool BT, typename TO, int EPI>
-cudaError_t gemm(const GemmBatch& gb, int jobs, cudaStream_t s) {
-  const dim3 grid((gb.N + BN - 1) / BN, (gb.M + BM - 1) / BM, jobs * gb.ksplit);
-  gemm_kernel<TA, AT, TB, BT, TO, EPI><<<grid, kGemmThreads, 0, s>>>(gb);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core route's products (bf16, every dimension a multiple of 8):
-// every operand is a bf16 matrix in device memory, an f32 operand having
-// been split into hi and lo matrices (split_kernel), so a product is a sum
-// of up to six terms A_t B_t over one K range. 128 x 64 output tiles, eight
-// warps of 32 x 32 (2 x 2 WMMA tiles), K steps of 32 staged through a
-// three-slot cp.async ring (16-byte copies, zero-filled past an edge) that
-// runs over the terms and K steps as one sequence. A transposed operand is
-// staged as it lies in memory and read with a column-major fragment.
-
-constexpr int TBM = 128, TBN = 64, TBK = 32, kTcStages = 3, kMaxTerms = 6;
-
-struct TcJob {
-  const bf16* a[kMaxTerms];
-  const bf16* b[kMaxTerms];
-  int nterms;
-  void* out;
-  const float* bias;
-  float mul;
-  const float* mscale;
-  int accumulate;
-};
-
-struct TcBatch {
-  TcJob job[4];
-  int M, N, K, lda, ldb, ldo, group, ksplit, kchunk;
-};
-
-template <bool AT, bool BT> struct TcTiles {
-  static constexpr int LA = AT ? TBM + 8 : TBK + 8;     // row strides (x 8)
-  static constexpr int LB = BT ? TBK + 8 : TBN + 8;
-  static constexpr int A_ELEMS = AT ? TBK * LA : TBM * LA;
-  static constexpr int B_ELEMS = BT ? TBN * LB : TBK * LB;
-  static constexpr int STAGE = (A_ELEMS + B_ELEMS + 63) / 64 * 64;   // 128-byte slots
-  static constexpr int SMEM = kTcStages * STAGE * 2 + 8 * 256 * 4;
-};
-
-template <bool AT, bool BT, typename TO, int EPI>
-__global__ void __launch_bounds__(256) tc_gemm_kernel(TcBatch gb) {
-  using namespace nvcuda;
-  using Tiles = TcTiles<AT, BT>;
-  using LayA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using LayB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  extern __shared__ __align__(128) unsigned char tsmem[];
-  const int chunk = blockIdx.z % gb.ksplit;
-  const TcJob& jb = gb.job[blockIdx.z / gb.ksplit];
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kbeg = chunk * gb.kchunk;
-  const int kend = min(gb.K, kbeg + gb.kchunk);
-  const int ksteps = kend > kbeg ? (kend - kbeg + TBK - 1) / TBK : 0;
-  const int steps = jb.nterms * ksteps;
-  bf16* ring = reinterpret_cast<bf16*>(tsmem);
-  float* stage = reinterpret_cast<float*>(ring + kTcStages * Tiles::STAGE) + warp * 256;
-
-  auto load_stage = [&](int step) {
-    if (step < steps) {
-      const int term = step / ksteps;
-      const int k0 = kbeg + (step - term * ksteps) * TBK;
-      const bf16* A = jb.a[term];
-      const bf16* B = jb.b[term];
-      bf16* sa = ring + (step % kTcStages) * Tiles::STAGE;
-      bf16* sb = sa + Tiles::A_ELEMS;
-      for (int c = tid; c < TBM * TBK / 8; c += 256) {
-        int r, col;
-        long off;
-        bool ok;
-        if (AT) {          // rows of K, 8 m per copy
-          r = c / (TBM / 8), col = (c % (TBM / 8)) * 8;
-          ok = k0 + r < kend && m0 + col < gb.M;
-          off = static_cast<long>(k0 + r) * gb.lda + m0 + col;
-        } else {           // rows of M, 8 k per copy
-          r = c / (TBK / 8), col = (c % (TBK / 8)) * 8;
-          ok = m0 + r < gb.M && k0 + col < kend;
-          off = static_cast<long>(m0 + r) * gb.lda + k0 + col;
-        }
-        __pipeline_memcpy_async(sa + r * Tiles::LA + col, A + (ok ? off : 0), 16, ok ? 0 : 16);
-      }
-      for (int c = tid; c < TBK * TBN / 8; c += 256) {
-        int r, col;
-        long off;
-        bool ok;
-        if (BT) {          // rows of N, 8 k per copy
-          r = c / (TBK / 8), col = (c % (TBK / 8)) * 8;
-          ok = n0 + r < gb.N && k0 + col < kend;
-          off = static_cast<long>(n0 + r) * gb.ldb + k0 + col;
-        } else {           // rows of K, 8 n per copy
-          r = c / (TBN / 8), col = (c % (TBN / 8)) * 8;
-          ok = k0 + r < kend && n0 + col < gb.N;
-          off = static_cast<long>(k0 + r) * gb.ldb + n0 + col;
-        }
-        __pipeline_memcpy_async(sb + r * Tiles::LB + col, B + (ok ? off : 0), 16, ok ? 0 : 16);
-      }
-    }
-    __pipeline_commit();
-  };
-
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int st = 0; st < kTcStages - 1; ++st) load_stage(st);
-  for (int step = 0; step < steps; ++step) {
-    load_stage(step + kTcStages - 1);  // into the slot read at step - 1
-    __pipeline_wait_prior(kTcStages - 1);
-    __syncthreads();
-    const bf16* sa = ring + (step % kTcStages) * Tiles::STAGE;
-    const bf16* sb = sa + Tiles::A_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], AT ? sa + ks * Tiles::LA + wm + 16 * i
-                                         : sa + (wm + 16 * i) * Tiles::LA + ks, Tiles::LA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], BT ? sb + (wn + 16 * j) * Tiles::LB + ks
-                                          : sb + ks * Tiles::LB + wn + 16 * j, Tiles::LB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  __pipeline_wait_prior(0);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        epilogue<TO, EPI>(jb, gb, chunk, m0 + wm + 16 * i + (e >> 4),
-                          n0 + wn + 16 * j + (e & 15), stage[e]);
-      __syncwarp();
-    }
-}
-
-template <bool AT, bool BT, typename TO, int EPI>
-cudaError_t tc_gemm(const TcBatch& gb, int jobs, cudaStream_t s) {
-  constexpr int smem = TcTiles<AT, BT>::SMEM;
-  auto kernel = tc_gemm_kernel<AT, BT, TO, EPI>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((gb.N + TBN - 1) / TBN, (gb.M + TBM - 1) / TBM, jobs * gb.ksplit);
-  kernel<<<grid, 256, smem, s>>>(gb);
-  return cudaGetLastError();
-}
-
-TcJob tc_job(std::initializer_list<const void*> a, std::initializer_list<const void*> b,
-             void* out, const void* bias = nullptr, float mul = 1.f,
-             const float* mscale = nullptr) {
-  TcJob j{};
-  int t = 0;
-  for (const void* p : a) j.a[t++] = static_cast<const bf16*>(p);
-  t = 0;
-  for (const void* p : b) j.b[t++] = static_cast<const bf16*>(p);
-  j.nterms = t;
-  j.out = out, j.bias = static_cast<const float*>(bias), j.mul = mul, j.mscale = mscale;
-  return j;
-}
 
 // hi = bf16(v), lo = bf16(v - hi) of the f32 operands of the tensor-core
 // products: dq, dk, dv and g * scale[window] (blockIdx.y picks which), into
@@ -458,32 +110,6 @@ __global__ void split_kernel(const float* __restrict__ dq, const float* __restri
   const bf16 hi = __float2bfloat16_rn(v);
   hilo[2 * j * n + i] = hi;
   hilo[(2 * j + 1) * n + i] = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
-
-// out_j[i] = sum over the chunks c of part_j[c][i], in chunk order (the
-// split-K weight gradients), cast to T.
-struct SplitSum {
-  const float* part[4];
-  void* out[4];
-  int ksplit;
-  long n;
-};
-
-template <typename T>
-__global__ void split_sum_kernel(SplitSum ss) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= ss.n) return;
-  const float* p = ss.part[blockIdx.y] + i;
-  float acc = 0.f;
-  for (int c = 0; c < ss.ksplit; ++c) acc += p[c * ss.n];
-  static_cast<T*>(ss.out[blockIdx.y])[i] = from_f32<T>(acc);
-}
-
-// K chunks of the weight-gradient products for R rows: enough blocks to
-// fill the card (the products have only (C / 64)^2 output tiles each).
-int weight_splits(int rows) {
-  const int s = (rows + 1023) / 1024;
-  return s < 1 ? 1 : (s > 16 ? 16 : s);
 }
 
 // ---------------------------------------------------------------------------
@@ -594,86 +220,6 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-// ---------------------------------------------------------------------------
-// 7. LayerNorm backward, one warp per row:
-//    dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd  (+ g for res)
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-ln_bwd_kernel(const float* __restrict__ dxn, const T* __restrict__ x,
-              const float* __restrict__ mean, const float* __restrict__ rstd,
-              const float* __restrict__ ls, const T* __restrict__ g, T* __restrict__ dx,
-              int rows, int C, int res) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const long o = static_cast<long>(row) * C;
-  const float mu = mean[row], rs = rstd[row];
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float dxh = dxn[o + c] * ls[c];
-    s1 += dxh;
-    s2 = fmaf(dxh, (to_f32(x[o + c]) - mu) * rs, s2);
-  }
-  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-  for (int c = lane; c < C; c += 32) {
-    const float xhat = (to_f32(x[o + c]) - mu) * rs;
-    float d = (dxn[o + c] * ls[c] - m1 - xhat * m2) * rs;
-    if (res) d += to_f32(g[o + c]);
-    dx[o + c] = from_f32<T>(d);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 8. Column sums over the R rows in two fixed-order passes: chunk partials
-//    (one thread per column, kChunk rows each), then the sum of the chunks.
-
-struct ColJob {
-  const void* src;       // R x C, f32 or T
-  int src_is_t;
-  const float* rowscale; // src * rowscale[row / group]
-  int times_xhat;        // src * (x - mean) * rstd (the dls sum)
-  float* out;            // C
-};
-
-struct ColBatch {
-  ColJob job[6];
-  const void* x;
-  const float* mean;
-  const float* rstd;
-  float* partial;        // [6][parts][C]
-  int rows, C, group, parts;
-};
-
-template <typename T>
-__global__ void colsum_partial_kernel(ColBatch cb) {
-  const ColJob& jb = cb.job[blockIdx.z];
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int part = blockIdx.y;
-  if (c >= cb.C) return;
-  const int r1 = min(cb.rows, (part + 1) * kChunk);
-  const T* xt = static_cast<const T*>(cb.x);
-  float acc = 0.f;
-  for (int r = part * kChunk; r < r1; ++r) {
-    const long o = static_cast<long>(r) * cb.C + c;
-    float v = jb.src_is_t ? to_f32(static_cast<const T*>(jb.src)[o])
-                          : static_cast<const float*>(jb.src)[o];
-    if (jb.rowscale) v *= jb.rowscale[r / cb.group];
-    if (jb.times_xhat) v *= (to_f32(xt[o]) - cb.mean[r]) * cb.rstd[r];
-    acc += v;
-  }
-  cb.partial[(static_cast<long>(blockIdx.z) * cb.parts + part) * cb.C + c] = acc;
-}
-
-__global__ void colsum_final_kernel(ColBatch cb) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cb.C) return;
-  const float* p = cb.partial + static_cast<long>(blockIdx.y) * cb.parts * cb.C + c;
-  float acc = 0.f;
-  for (int i = 0; i < cb.parts; ++i) acc += p[static_cast<long>(i) * cb.C];
-  cb.job[blockIdx.y].out[c] = acc;
-}
-
 // dbias[hb][r][c] = sum over windows (and over heads for a one-head bias)
 // of dl[w][h][r][c], in a fixed order.
 __global__ void bias_grad_kernel(const float* __restrict__ dl, float* __restrict__ dbias,
@@ -688,14 +234,6 @@ __global__ void bias_grad_kernel(const float* __restrict__ dl, float* __restrict
       acc += dl[(static_cast<long>(w) * heads + h) * L * L + rc];
   dbias[i] = acc;
 }
-
-int partials(int rows) { return (rows + kChunk - 1) / kChunk; }
-
-#define VPTR_TRY(expr)                      \
-  do {                                      \
-    const cudaError_t err_ = (expr);        \
-    if (err_ != cudaSuccess) return err_;   \
-  } while (0)
 
 // The products of the tensor-core route (steps 2, 3, 5, 6; see tc_gemm);
 // a.xqk and a.xn are the projections' inputs.

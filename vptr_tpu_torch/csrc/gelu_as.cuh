@@ -1,0 +1,34 @@
+// The GELU of the fused feed-forward kernels (device functions): exact-erf
+// GELU with the Abramowitz-Stegun 7.1.26 rational erf (|error| <= 1.5e-7),
+// as the TPU kernels compute it (vptr_tpu/ops/fused_conv_ln.py:42-60,
+// _erf / _gelu / _gelu_grad: Mosaic has no erf). Its torch twin is
+// vptr_tpu_torch/ops/gelu.py. All arithmetic is f32.
+#pragma once
+
+#include <math.h>
+
+namespace vptr_gelu {
+
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);   // jnp.sign
+  return s * (1.0f - poly * expf(-ax * ax));
+}
+
+// 0.5 a (1 + erf(a / sqrt 2))
+__device__ __forceinline__ float gelu(float a) {
+  return 0.5f * a * (1.0f + erf_as(a / 1.41421356237309515f));
+}
+
+// the A&S cdf plus a times the exact normal pdf
+__device__ __forceinline__ float gelu_grad(float a) {
+  const float cdf = 0.5f * (1.0f + erf_as(a / 1.41421356237309515f));
+  const float pdf = expf(-0.5f * a * a) * 0.398942280401432678f;
+  return cdf + a * pdf;
+}
+
+}  // namespace vptr_gelu

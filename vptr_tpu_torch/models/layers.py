@@ -20,6 +20,10 @@ Counterpart of ``vptr_tpu/models/layers.py``:
   :class:`BatchNorm` (flax semantics), :class:`MlpDWBN` in both norm
   flavours, :class:`Mlp`, :class:`DropPath` and :class:`Dropout` (both the
   identity in eval mode).
+* The feed-forward kernel routes: :class:`Mlp` with ``fused`` takes its
+  leading LayerNorm's affine and the raw x into ``fused_ffn``
+  (``layers.py:736-757``); the LayerNorm :class:`MlpDWBN` with ``fused_dw``
+  runs its middle chain in ``fused_dw_chain`` (``layers.py:632-658``).
 
 Train mode (``module.train()``): attention-weight dropout runs inside the
 kernels from an int32 seed per call; BatchNorm normalises with the batch
@@ -31,10 +35,11 @@ above 0 and no generator raises. The masks differ from ``jax.random``'s
 (another generator); the kernels' hash masks are bit-equal to the JAX
 package's for the same seed.
 
-Each attention module's ``kernels`` attribute is ``"cuda"`` (the wrappers:
-the kernel on a CUDA tensor, the plain version on a CPU tensor) or
-``"plain"`` (the plain version everywhere); :func:`use_kernels` sets it on a
-whole model, for the on-card comparison of the two. Parameters are f32,
+Each kernel-backed module's (attention, :class:`Mlp`, :class:`MlpDWBN`)
+``kernels`` attribute is ``"cuda"`` (the wrappers: the kernel on a CUDA
+tensor, the plain version on a CPU tensor) or ``"plain"`` (the plain
+version everywhere); :func:`use_kernels` sets it on a whole model, for the
+on-card comparison of the two. Parameters are f32,
 ``dtype`` is the compute dtype; names mirror the JAX parameter tree.
 """
 
@@ -48,6 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vptr_tpu_torch.ops.attention_core import attention_core, attention_core_plain
+from vptr_tpu_torch.ops.fused_dw_chain import fused_dw_chain, fused_dw_chain_plain
+from vptr_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_plain
 from vptr_tpu_torch.ops.fused_window_attention import (
     fused_attention,
     fused_attention_ln,
@@ -66,12 +73,13 @@ KERNEL_MODES = ("cuda", "plain")
 
 
 def use_kernels(model: nn.Module, kernels: str) -> nn.Module:
-    """Route every attention module of ``model`` through the kernels
-    (``"cuda"``) or their plain versions (``"plain"``)."""
+    """Route every kernel-backed module of ``model`` (attention and both
+    feed-forwards) through the kernels (``"cuda"``) or their plain versions
+    (``"plain"``)."""
     if kernels not in KERNEL_MODES:
         raise ValueError(f"kernels must be one of {KERNEL_MODES}, got {kernels!r}")
     for m in model.modules():
-        if isinstance(m, MultiHeadAttention):
+        if isinstance(m, (MultiHeadAttention, Mlp, MlpDWBN)):
             m.kernels = kernels
     return model
 
@@ -374,11 +382,17 @@ class MlpDWBN(nn.Module):
     norm -> GELU -> drop -> 1x1 -> norm -> GELU -> drop (exact erf GELU;
     ``layers.py:686-696``). ``norm="layer"``: LayerNormHWC, whose affine
     binds to (h, w) (FAR blocks, the NAR decoder); ``norm="batch"``:
-    :class:`BatchNorm` (the NAR encoder)."""
+    :class:`BatchNorm` (the NAR encoder).
+
+    ``fused_dw`` (LayerNorm flavour only; ignored for BatchNorm, as
+    ``layers.py:632``): the chain between the two 1x1 products runs in the
+    ``fused_dw_chain`` kernel (A&S GELU, dropout in-kernel from a drawn
+    seed); fc1 and fc2 stay channels-last products outside it, then norm3
+    -> GELU -> drop (``layers.py:632-658``). Same parameters either way."""
 
     def __init__(self, dim: int, hidden_dim: int, h: int, w: int,
                  norm: str = "layer", dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, fused_dw: bool = False):
         super().__init__()
         if norm not in ("layer", "batch"):
             raise ValueError(f"MlpDWBN norm must be 'layer' or 'batch', got {norm!r}")
@@ -386,6 +400,8 @@ class MlpDWBN(nn.Module):
                      if norm == "layer" else
                      (lambda ch: BatchNorm(ch, dtype=dtype)))
         self.dtype = dtype
+        self.fused_dw = fused_dw and norm == "layer"
+        self.kernels = "cuda"            # see use_kernels
         self.fc1 = nn.Conv2d(dim, hidden_dim, 1)
         self.norm1 = make_norm(hidden_dim)
         self.dw3x3 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1,
@@ -399,7 +415,32 @@ class MlpDWBN(nn.Module):
         return F.conv2d(y, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                         conv.stride, conv.padding, groups=conv.groups)
 
+    def _pointwise(self, conv: nn.Conv2d, y):
+        """A 1x1 conv on channels-last y (..., C_in) in the compute dtype."""
+        return F.linear(y, conv.weight[:, :, 0, 0].to(self.dtype),
+                        conv.bias.to(self.dtype))
+
+    def _fused_forward(self, x, generator):
+        n, t, h, w, c = x.shape
+        hd = self.fc1.out_channels
+        y = self._pointwise(self.fc1, x.reshape(n * t, h * w, c).to(self.dtype))
+        rate = self.drop.rate if self.training else 0.0
+        seed = draw_seed(generator, x.device) if rate > 0.0 else 0
+
+        def hwc(p):   # a LayerNormHWC affine (hd, h, w) -> (h w, hd)
+            return p.permute(1, 2, 0).reshape(h * w, hd).contiguous()
+
+        chain = fused_dw_chain_plain if self.kernels == "plain" else fused_dw_chain
+        y = chain(y.contiguous(), self.dw3x3.weight.reshape(hd, 9).t().contiguous(),
+                  self.dw3x3.bias, hwc(self.norm1.weight), hwc(self.norm1.bias),
+                  hwc(self.norm2.weight), hwc(self.norm2.bias), seed, w, rate)
+        y = self._pointwise(self.fc2, y).reshape(n * t, h, w, c).permute(0, 3, 1, 2)
+        y = self.drop(F.gelu(self.norm3(y)), generator)
+        return y.permute(0, 2, 3, 1).reshape(n, t, h, w, c)
+
     def forward(self, x, generator=None):
+        if self.fused_dw:
+            return self._fused_forward(x, generator)
         n, t, h, w, c = x.shape
         y = x.reshape(n * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
         y = F.gelu(self.norm1(self._conv(self.fc1, y)))
@@ -410,17 +451,40 @@ class MlpDWBN(nn.Module):
 
 class Mlp(nn.Module):
     """Linear feed-forward: linear2(drop(gelu(linear1(x))))
-    (``layers.py:716-765``)."""
+    (``layers.py:716-765``).
+
+    ``fused`` with ``ln`` = (scale, bias) of the sublayer's leading
+    LayerNorm and the raw x: LN + fc1 + GELU + dropout + fc2 run in the
+    ``fused_ffn`` kernel (A&S GELU, hidden dropout in-kernel from a drawn
+    seed; ``layers.py:736-757``). Same parameters either way."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 fused: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused = fused
+        self.kernels = "cuda"            # see use_kernels
         self.linear1 = nn.Linear(dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, dim)
         self.drop = Dropout(dropout)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, *,
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """``ln``: the fused route's (scale, bias) of the leading LayerNorm,
+        with x the raw pre-norm input; the unfused route takes the normed x."""
+        if self.fused:
+            rate = self.drop.rate if self.training else 0.0
+            seed = draw_seed(generator, x.device) if rate > 0.0 else 0
+            dim = x.shape[-1]
+            fn = fused_ffn_plain if self.kernels == "plain" else fused_ffn
+            out = fn(x.reshape(-1, dim).to(self.dtype).contiguous(),
+                     self.linear1.weight.t().to(self.dtype).contiguous(),
+                     self.linear1.bias.float(),
+                     self.linear2.weight.t().to(self.dtype).contiguous(),
+                     self.linear2.bias.float(), ln[0].float(), ln[1].float(),
+                     seed, rate)
+            return out.reshape(x.shape)
         y = self.drop(F.gelu(_linear(self.linear1, x, self.dtype)), generator)
         return _linear(self.linear2, y, self.dtype)
 

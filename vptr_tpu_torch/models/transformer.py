@@ -20,12 +20,16 @@ encoder's window sublayer folds its LayerNorm into the
 ``fused_attention_ln`` kernel, the decoder's window self-attention runs on
 the two-stream ``fused_attention`` kernel, and every temporal and
 encoder-decoder attention on the ``attention_core`` kernel; ``rpe`` puts
-the relative-position bias into the window kernels. In train mode the
+the relative-position bias into the window kernels. ``fused_ffn`` sends
+every linear FFN sublayer (with its leading norm4) to the ``fused_ffn``
+kernel and ``fused_dw`` every LayerNorm conv FFN's middle chain to
+``fused_dw_chain`` (the NAR encoder's BatchNorm conv FFN ignores it, as in
+the JAX package). In train mode the
 attention dropout runs inside the kernels, DropPath acts on the window,
 conv-FFN (and enc-dec) branches and Dropout on the temporal and
 linear-FFN branches, all drawn from the ``generator`` passed to
-``forward``. The default-off kernel routes and TSLMA come with later
-slices and raise here.
+``forward``. ``fused_conv_ffn``, ``fused_full_temporal`` and TSLMA come
+with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -62,9 +66,8 @@ _LATER = {
     "fused_full_temporal": "the LN-folded kernels #1/#3 on the temporal "
                            "sublayer at padded token counts "
                            "(default-off kernels slice)",
-    "fused_ffn": "the fused_ffn kernel (default-off kernels slice)",
-    "fused_dw": "the fused_dw_chain kernel (default-off kernels slice)",
-    "fused_conv_ffn": "the conv_ln_gelu kernel (default-off kernels slice)",
+    "fused_conv_ffn": "the conv_ln_gelu kernels #11/#12 (default-off kernels "
+                      "slice)",
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
     "scan_layers": "the stacked (scanned) parameter tree (trainer slice)",
     "remat": "activation checkpointing of the blocks (trainer slice)",
@@ -76,6 +79,15 @@ def _refuse_later(**flags) -> None:
         if on:
             raise NotImplementedError(
                 f"transformer.{name}=True needs {_LATER[name]}; not ported yet")
+
+
+def _ffn(ffn: Mlp, norm: LayerNorm, x, generator):
+    """The linear feed-forward sublayer before its residual: on the fused
+    route the norm's affine goes into the kernel with the raw x
+    (``transformer.py:151-155``), else the norm runs first."""
+    if ffn.fused:
+        return ffn(x, generator, ln=(norm.weight, norm.bias))
+    return ffn(norm(x), generator)
 
 
 class EncoderBlock(nn.Module):
@@ -97,7 +109,6 @@ class EncoderBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         _refuse_later(fused_full_temporal=fused_full_temporal,
-                      fused_ffn=fused_ffn, fused_dw=fused_dw,
                       fused_conv_ffn=fused_conv_ffn,
                       sequence_parallel=sequence_parallel)
         self.fold = fused_attention and fused_full
@@ -109,13 +120,14 @@ class EncoderBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.spatial_ffn = MlpDWBN(
             dim, ffn_hidden_ratio * dim, enc_h, enc_w,
-            conv_ffn_norm or ("layer" if far else "batch"), dtype, dropout)
+            conv_ffn_norm or ("layer" if far else "batch"), dtype, dropout,
+            fused_dw)
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.temporal = TemporalAttention(dim, num_heads, causal=far,
                                           fused=fused_attention, dtype=dtype,
                                           dropout=attn_drop)
         self.norm4 = LayerNorm(dim, dtype=dtype)
-        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout)
+        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.drop_path = DropPath(drop_path)
         self.drop = Dropout(dropout)
 
@@ -143,7 +155,7 @@ class EncoderBlock(nn.Module):
             x = x + dp(self.slmhsa(self.norm1(x), pos2d, generator=generator))
         x = x + dp(self.spatial_ffn(self.norm2(x), generator))
         x = x + drop(self.temporal(self.norm3(x), pos_t, generator))
-        return x + drop(self.ffn(self.norm4(x), generator))
+        return x + drop(_ffn(self.ffn, self.norm4, x, generator))
 
 
 class VPTRFormerFAR(nn.Module):
@@ -217,12 +229,11 @@ class DecoderBlockNAR(nn.Module):
         super().__init__()
         del fused_residual
         _refuse_later(tslma=tslma, fused_full_temporal=fused_full_temporal,
-                      fused_ffn=fused_ffn, fused_dw=fused_dw,
                       fused_conv_ffn=fused_conv_ffn,
                       sequence_parallel=sequence_parallel)
         attn_drop = dropout if attn_dropout is None else attn_dropout
         conv_ffn = lambda: MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
-                                   "layer", dtype, dropout)
+                                   "layer", dtype, dropout, fused_dw)
         temporal = lambda: TemporalAttention(dim, num_heads, False,
                                              fused_attention, dtype, attn_drop)
         self.norm1 = LayerNorm(dim, dtype=dtype)
@@ -233,7 +244,7 @@ class DecoderBlockNAR(nn.Module):
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.temporal = temporal()
         self.norm4 = LayerNorm(dim, dtype=dtype)
-        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout)
+        self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.norm5 = LayerNorm(dim, dtype=dtype)
         self.enc_dec = temporal()
         self.norm6 = LayerNorm(dim, dtype=dtype)
@@ -254,7 +265,7 @@ class DecoderBlockNAR(nn.Module):
                                    generator=generator))
         tgt = tgt + dp(self.spatial_ffn(self.norm2(tgt), generator))
         tgt = tgt + drop(self.temporal(self.norm3(tgt), pos_t_future, generator))
-        tgt = tgt + drop(self.ffn(self.norm4(tgt), generator))
+        tgt = tgt + drop(_ffn(self.ffn, self.norm4, tgt, generator))
         # 5) encoder-decoder attention over time at each location
         y = self.enc_dec(self.norm5(tgt) + query_pos, pos_t_future, generator,
                          kv=memory, pos_k=pos_t_past)

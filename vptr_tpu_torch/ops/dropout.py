@@ -1,16 +1,20 @@
-"""Counter-hash PRNG of the attention kernels' in-kernel dropout.
+"""Counter-hash PRNG of the kernels' in-kernel dropout.
 
 Counterpart of ``vptr_tpu/ops/attention_core.py:65-116`` (``_hash_uniform``,
-``_keep_mask``, ``dropout_keep_mask``) and ``fused_window_attention.py:55-67``
-(``_keep_mask_head``). A weight's keep decision is a pure function of
-(seed, element index), so a kernel's backward regenerates its forward mask
-from the seed alone. The element index is
+``_keep_mask``, ``dropout_keep_mask``), ``fused_window_attention.py:55-67``
+(``_keep_mask_head``), ``fused_ffn.py:47-57`` and ``fused_dw_chain.py:44-60``.
+A weight's keep decision is a pure function of (seed, element index), so a
+kernel's backward regenerates its forward mask from the seed alone. The
+attention kernels' element index is
 
     idx = ((b * H + h) * Tq + r) * Tk + c          (uint32, wrapping)
 
-with ``b`` the global batch (or window) index. The device function with the
-same arithmetic is ``csrc/hash_dropout.cuh``; this module is its torch twin,
-bit-equal to the JAX functions, used by the plain versions and the tests.
+with ``b`` the global batch (or window) index; the feed-forward kernels
+index their hidden by row * H + col (:func:`ffn_keep_mask`) and the
+dw chain by (sample * HW + r) * C + col (:func:`dw_keep_mask`). The device
+function with the same arithmetic is ``csrc/hash_dropout.cuh``; this module
+is its torch twin, bit-equal to the JAX functions, used by the plain
+versions and the tests.
 
 torch has no general uint32 arithmetic, so the twin computes in int64 and
 masks to 32 bits after every multiply and add.
@@ -102,6 +106,24 @@ def window_keep_mask(seed: Seed, windows: int, heads: int, tokens: int,
     lp = padded_tokens(tokens, dtype)
     idx = element_index(windows, heads, tokens, tokens, tq_index=lp,
                         tk_index=lp, device=device)
+    return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
+
+
+def ffn_keep_mask(seed: Seed, rows: int, cols: int, rate: float,
+                  device=None) -> torch.Tensor:
+    """(rows, cols) hidden-dropout keep mask of the fused FFN kernel: the
+    element index is row * cols + col (``fused_ffn.py:47-57``)."""
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    idx = (_mul32(ar(rows)[:, None], cols) + ar(cols)[None, :]) & _U32
+    return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
+
+
+def dw_keep_mask(seed: Seed, n: int, hw: int, c: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """(N, HW, C) keep mask of the fused dw-chain kernel: the element index
+    is (sample * HW + r) * C + col with r over the (h, w) positions in
+    row-major order (``fused_dw_chain.py:44-60``)."""
+    idx = element_index(n, hw, 1, c, device=device)[:, :, 0]
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 

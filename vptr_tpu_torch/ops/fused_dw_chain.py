@@ -1,0 +1,297 @@
+"""The conv feed-forward's middle chain between its two 1x1 products:
+norm1 -> GELU -> depthwise 3x3 -> norm2 -> GELU -> dropout, per sample.
+
+Counterpart of ``vptr_tpu/ops/fused_dw_chain.py``, whose two TPU kernels are
+joined by ``jax.custom_vjp``. Over x (N, HW, C), channels last, row r the
+position (r // w, r % w) of an (HW / w, w) grid:
+
+    z1 = gelu(LN(x) * s1 + b1)         whole-sample LayerNorm over (HW, C)
+    z2 = dw3x3(z1) + dwb               per channel, zero padding
+    z3 = dropout(gelu(LN(z2) * s2 + b2))
+
+with f32 arithmetic, the A&S GELU (``ops/gelu.py``), taps (9, C) row-major
+in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
+
+* ``_forward`` (``pl.pallas_call`` at :294) -> ``csrc/fused_dw_chain.cu``
+  (kernel #9); ``_backward`` (:318) -> ``csrc/fused_dw_chain_bwd.cu`` (#10);
+  both share ``csrc/dw_chain.cuh``, whose note says what bounds them and
+  what the design does about that.
+* :func:`fused_dw_chain` is a ``torch.autograd.Function``: a CUDA tensor
+  launches the kernels (or raises), a CPU tensor takes
+  :func:`fused_dw_chain_plain` forward and
+  :func:`fused_dw_chain_backward_plain` backward. Only the inputs are saved
+  for the backward, as in the JAX ``custom_vjp``.
+* ``fused_dw_chain.launches`` / ``.bwd_launches`` count launches of #9 /
+  #10 and nothing else.
+* The dropout is the counter hash of ``ops/dropout.py`` with element index
+  (sample * HW + r) * C + col.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vptr_tpu_torch.ops import _build
+from vptr_tpu_torch.ops.attention_core import _dropout_args, needs_grad, seed_tensor
+from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dw_keep_mask
+from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
+
+LN_EPS = 1e-5
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _sample_ln(z):
+    """(xhat, rstd) of a whole-sample LayerNorm over (HW, C), two-pass
+    variance (``_sample_forward``)."""
+    mean = z.mean((1, 2), keepdim=True)
+    zc = z - mean
+    rstd = torch.rsqrt((zc * zc).mean((1, 2), keepdim=True) + LN_EPS)
+    return zc * rstd, rstd
+
+
+def _dw3x3(z, taps, dwb, w: int):
+    """Depthwise 3x3 with zero padding over z (N, HW, C) f32 on the
+    (HW / w, w) grid: dwb, then the taps in row-major (dy, dx) order."""
+    n, hw, c = z.shape
+    zp = torch.nn.functional.pad(z.reshape(n, hw // w, w, c), (0, 0, 1, 1, 1, 1))
+    acc = dwb.float().expand(n, hw // w, w, c)
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        acc = acc + zp[:, dy:dy + hw // w, dx:dx + w] * taps[t].float()
+    return acc.reshape(n, hw, c)
+
+
+def _dw3x3_t(dz, taps, w: int):
+    """Transpose of :func:`_dw3x3` in z (its gradient w.r.t. the input)."""
+    n, hw, c = dz.shape
+    h = hw // w
+    dp = torch.nn.functional.pad(dz.reshape(n, h, w, c), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(n, h, w, c, dtype=torch.float32, device=dz.device)
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        acc = acc + dp[:, 2 - dy:2 - dy + h, 2 - dx:2 - dx + w] * taps[t].float()
+    return acc.reshape(n, hw, c)
+
+
+def _keep(seed, x, rate):
+    n, hw, c = x.shape
+    return dw_keep_mask(seed, n, hw, c, rate, x.device) if rate > 0.0 else None
+
+
+def _chain(x, taps, dwb, s1, b1, s2, b2, w):
+    """The forward in f32 before the dropout; returns (z3, xhat1, rstd1,
+    a1, z1, xhat2, rstd2, a2)."""
+    xhat1, rstd1 = _sample_ln(x.float())
+    a1 = xhat1 * s1.float() + b1.float()
+    z1 = gelu_as(a1)
+    z2 = _dw3x3(z1, taps, dwb, w)
+    xhat2, rstd2 = _sample_ln(z2)
+    a2 = xhat2 * s2.float() + b2.float()
+    return gelu_as(a2), xhat1, rstd1, a1, z1, xhat2, rstd2, a2
+
+
+def fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 8,
+                         rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of kernel #9 (``_reference_dw_chain``): all f32,
+    rounded to x's dtype once."""
+    z3 = _chain(x, taps, dwb, s1, b1, s2, b2, w)[0]
+    return apply_dropout(z3, _keep(seed, x, rate), rate).to(x.dtype)
+
+
+def fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
+                                  rate: float = 0.0):
+    """Plain backward of kernel #9 (mirrors ``_bwd_kernel``). Returns (dx,
+    dtaps, ddwb, ds1, db1, ds2, db2): dx in x's dtype, the rest f32 summed
+    over the samples."""
+    _, xhat1, rstd1, a1, z1, xhat2, rstd2, a2 = _chain(x, taps, dwb, s1, b1,
+                                                       s2, b2, w)
+    gs = apply_dropout(g.float(), _keep(seed, x, rate), rate)
+    da2 = gs * gelu_as_grad(a2)
+    dxh2 = da2 * s2.float()
+
+    def ln_back(dxh, xhat, rstd):
+        return (dxh - dxh.mean((1, 2), keepdim=True)
+                - xhat * (dxh * xhat).mean((1, 2), keepdim=True)) * rstd
+
+    dz2 = ln_back(dxh2, xhat2, rstd2)
+    n, hw, c = x.shape
+    zp = torch.nn.functional.pad(z1.reshape(n, hw // w, w, c), (0, 0, 1, 1, 1, 1))
+    d4 = dz2.reshape(n, hw // w, w, c)
+    dtaps = torch.stack([(zp[:, dy:dy + hw // w, dx:dx + w] * d4).sum((0, 1, 2))
+                         for dy, dx in (divmod(t, 3) for t in range(9))])
+    da1 = _dw3x3_t(dz2, taps, w) * gelu_as_grad(a1)
+    dx = ln_back(da1 * s1.float(), xhat1, rstd1)
+    return (dx.to(x.dtype), dtaps, dz2.sum((0, 1)), (da1 * xhat1).sum(0),
+            da1.sum(0), (da2 * xhat2).sum(0), da2.sum(0))
+
+
+def _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+    """The forward for either device; ``seed`` a tensor or None (rate 0)."""
+    if x.device.type == "cpu":
+        return fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+    return _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+
+
+class _FusedDwChain(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+        ctx.save_for_backward(x, taps, dwb, s1, b1, s2, b2, seed)
+        ctx.w, ctx.rate = w, rate
+        return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, taps, dwb, s1, b1, s2, b2, seed = ctx.saved_tensors
+        grads = fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed,
+                                        g.contiguous(), ctx.w, ctx.rate)
+        refs = (x, taps, dwb, s1, b1, s2, b2)
+        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None,) * 3
+
+
+def fused_dw_chain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 8,
+                   rate: float = 0.0) -> torch.Tensor:
+    """norm1 -> GELU -> dw3x3 -> norm2 -> GELU -> dropout over x (N, HW, C)
+    on the (HW / w, w) grid; see the module docstring. The caller runs fc1
+    before and fc2 (+ norm3, GELU, dropout) after. Differentiable in every
+    tensor but the seed."""
+    if x.device.type != "cpu" and not x.is_cuda:
+        raise ValueError(f"fused_dw_chain: unsupported device {x.device}")
+    rate = float(rate)
+    seed = seed_tensor(seed, x.device) if rate > 0.0 else None
+    if needs_grad(x, taps, dwb, s1, b1, s2, b2):
+        return _FusedDwChain.apply(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+    return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+
+
+fused_dw_chain.launches = 0
+fused_dw_chain.bwd_launches = 0
+
+
+def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
+                            rate: float = 0.0):
+    """The backward on its own (what the autograd Function calls): kernel
+    #10 for CUDA tensors (counted in ``fused_dw_chain.bwd_launches``),
+    :func:`fused_dw_chain_backward_plain` for CPU tensors. Returns the tuple
+    that function documents."""
+    if x.device.type == "cpu":
+        return fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed,
+                                             g, w, rate)
+    if rate > 0.0:
+        seed = seed_tensor(seed, x.device)
+    return _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate)
+
+
+SMEM_LIMIT = 231000   # bytes of dynamic shared memory a block may take here
+
+
+def resident_clusters(hw: int, c: int) -> tuple:
+    """(forward, backward): how many clusters (a sample each; a group of
+    samples in the backward) of the bf16 kernels the card holds at once for
+    samples of (HW, C)."""
+    return (_lib().vptr_fused_dw_chain_clusters(hw, c),
+            _lib_bwd().vptr_fused_dw_chain_bwd_clusters(hw, c))
+
+
+def _operands(x, taps, dwb, s1, b1, s2, b2, w):
+    """Check every operand against what the kernels take; returns (N, HW,
+    C)."""
+    if x.dim() != 3 or x.dtype not in _DTYPES:
+        raise ValueError(f"fused_dw_chain kernel takes x (N, HW, C) in float32 "
+                         f"or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    n, hw, c = x.shape
+    if w < 1 or hw % w:
+        raise ValueError(f"fused_dw_chain: HW={hw} is not a multiple of w={w}")
+    if c % 32:
+        raise ValueError(f"fused_dw_chain kernel takes C a multiple of 32 (eight "
+                         f"blocks of whole channel quads), got C={c}")
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ("x", x, (n, hw, c), x.dtype), ("taps", taps, (9, c), f32),
+            ("dwb", dwb, (c,), f32), ("s1", s1, (hw, c), f32), ("b1", b1, (hw, c), f32),
+            ("s2", s2, (hw, c), f32), ("b2", b2, (hw, c), f32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"fused_dw_chain: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}, wants {shape} {dtype}")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"fused_dw_chain: {name} must be contiguous on {x.device}")
+    return n, hw, c
+
+
+def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    lib = _lib()
+    smem = lib.vptr_fused_dw_chain_smem(hw, c)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_dw_chain kernel: HW={hw}, C={c} needs {smem} B "
+                         f"of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty_like(x)
+    p = _build.ptr
+    err = lib.vptr_fused_dw_chain(
+        p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), n, hw, w, c,
+        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "fused_dw_chain")
+    fused_dw_chain.launches += 1
+    return out
+
+
+def _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate):
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"fused_dw_chain backward: g {tuple(g.shape)} {g.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    lib = _lib_bwd()
+    smem = lib.vptr_fused_dw_chain_bwd_smem(hw, c)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_dw_chain backward kernel: HW={hw}, C={c} needs "
+                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+    dev, f32 = x.device, torch.float32
+    groups = lib.vptr_fused_dw_chain_bwd_groups(n)
+    dx = torch.empty_like(x)
+    dtaps, ddwb = torch.empty(9, c, dtype=f32, device=dev), torch.empty(c, dtype=f32, device=dev)
+    ds1, db1, ds2, db2 = (torch.empty(hw, c, dtype=f32, device=dev) for _ in range(4))
+    # the sample groups' partial sums, added in group order by the second pass
+    part = torch.empty(groups, 4, hw, c, dtype=f32, device=dev)
+    tpart = torch.empty(groups, 10, c, dtype=f32, device=dev)
+    p = _build.ptr
+    err = lib.vptr_fused_dw_chain_bwd(
+        p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
+        p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(part), p(tpart), n, hw, w, c,
+        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "fused_dw_chain backward")
+    fused_dw_chain.bwd_launches += 1
+    return dx, dtaps, ddwb, ds1, db1, ds2, db2
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_dw_chain")
+    fn = lib.vptr_fused_dw_chain
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 8 + [i] * 4 + [f, p, f, f, i, p]
+        fn.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_smem.argtypes = [i, i]
+        lib.vptr_fused_dw_chain_smem.restype = ctypes.c_long
+        lib.vptr_fused_dw_chain_clusters.argtypes = [i, i]
+        lib.vptr_fused_dw_chain_clusters.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("fused_dw_chain_bwd")
+    fn = lib.vptr_fused_dw_chain_bwd
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 17 + [i] * 4 + [f, p, f, f, i, p]
+        fn.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_bwd_groups.argtypes = [i]
+        lib.vptr_fused_dw_chain_bwd_groups.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_bwd_smem.argtypes = [i, i]
+        lib.vptr_fused_dw_chain_bwd_smem.restype = ctypes.c_long
+        lib.vptr_fused_dw_chain_bwd_clusters.argtypes = [i, i]
+        lib.vptr_fused_dw_chain_bwd_clusters.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,279 @@
+"""Fused LayerNorm + linear feed-forward sublayer (norm4 + Mlp) over rows.
+
+Counterpart of ``vptr_tpu/ops/fused_ffn.py``, whose two TPU kernels are
+joined by ``jax.custom_vjp``:
+
+    xn = LN(x) * ls + lb                     (f32 statistics, rounded to T)
+    h  = gelu(xn @ w1 + b1)                  (f32; A&S erf, ops/gelu.py)
+    hd = dropout(h)                          (counter hash, ops/dropout.py)
+    y  = bf16(hd) @ w2 + b2                  (f32 sums, rounded to T once)
+
+* ``_forward`` (``pl.pallas_call`` at :188) -> ``csrc/fused_ffn.cu``
+  (kernel #7); ``_backward`` (:214) -> ``csrc/fused_ffn_bwd.cu`` (#8). The
+  sources' notes say what bounds each on the card and what the design does
+  about that.
+* :func:`fused_ffn` is a ``torch.autograd.Function``: a CUDA tensor
+  launches the kernels (or raises), a CPU tensor takes
+  :func:`fused_ffn_plain` forward and :func:`fused_ffn_backward_plain`
+  backward. It saves only its inputs for the backward, as the JAX
+  ``custom_vjp`` does (the backward recomputes the hidden).
+* ``fused_ffn.launches`` / ``.bwd_launches`` count launches of #7 / #8 and
+  nothing else.
+* x (S, C) and the weights (w1 (C, H), w2 (H, C), the JAX Dense layout)
+  are in the compute dtype T; b1, b2, ls, lb are f32. The gradients come
+  back in each operand's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vptr_tpu_torch.ops import _build
+from vptr_tpu_torch.ops.attention_core import _dropout_args, needs_grad, seed_tensor
+from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, ffn_keep_mask
+from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
+
+LN_EPS = 1e-5
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _ln_rows(x2, ls, lb):
+    """Per-row LayerNorm in f32 (two-pass variance, as ``_ln_rows``):
+    returns (xn f32, xhat, rstd)."""
+    mean = x2.mean(1, keepdim=True)
+    xc = x2 - mean
+    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    return xhat * ls.float() + lb.float(), xhat, rstd
+
+
+def _keep(seed, rows, hidden, rate, device):
+    return ffn_keep_mask(seed, rows, hidden, rate, device) if rate > 0.0 else None
+
+
+def fused_ffn_plain(x, w1, b1, w2, b2, ls, lb, seed: Seed = 0,
+                    rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of kernel #7 (``_reference_ffn``): xn rounded
+    to x's dtype, fc1 in f32 + b1, the A&S GELU, the hash dropout, the
+    hidden rounded to x's dtype, fc2 in f32 + b2, rounded once."""
+    dt = x.dtype
+    xn = _ln_rows(x.float(), ls, lb)[0].to(dt)
+    a = torch.matmul(xn.float(), w1.float()) + b1.float()
+    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device)
+    hd = apply_dropout(gelu_as(a), keep, rate).to(dt)
+    return (torch.matmul(hd.float(), w2.float()) + b2.float()).to(dt)
+
+
+def fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
+                             rate: float = 0.0):
+    """Plain backward of kernel #7 (mirrors ``_bwd_kernel``): recompute
+    xn (rounded) and the f32 hidden; every product on f32 operands, dW2
+    from the unrounded dropped hidden (the forward's fc2 took it rounded).
+    Returns (dx, dw1, db1, dw2, db2, dls, dlb): dx in x's dtype, the
+    weight gradients in the weights' dtype, the vectors f32."""
+    dt = x.dtype
+    g2 = g.float()
+    xn32, xhat, rstd = _ln_rows(x.float(), ls, lb)
+    xn = xn32.to(dt).float()
+    a = torch.matmul(xn, w1.float()) + b1.float()
+    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device)
+    hd = apply_dropout(gelu_as(a), keep, rate)
+    dw2 = torch.matmul(hd.t(), g2)
+    dh = apply_dropout(torch.matmul(g2, w2.float().t()), keep, rate)
+    da = dh * gelu_as_grad(a)
+    dw1 = torch.matmul(xn.t(), da)
+    dxn = torch.matmul(da, w1.float().t())
+    dxhat = dxn * ls.float()
+    m1 = dxhat.mean(1, keepdim=True)
+    m2 = (dxhat * xhat).mean(1, keepdim=True)
+    dx = (dxhat - m1 - xhat * m2) * rstd
+    return (dx.to(dt), dw1.to(w1.dtype), da.sum(0), dw2.to(w2.dtype),
+            g2.sum(0), (dxn * xhat).sum(0), dxn.sum(0))
+
+
+def _forward(x, w1, b1, w2, b2, ls, lb, seed, rate):
+    """The forward for either device; ``seed`` a tensor or None (rate 0)."""
+    if x.device.type == "cpu":
+        return fused_ffn_plain(x, w1, b1, w2, b2, ls, lb, seed, rate)
+    return _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate)
+
+
+class _FusedFFN(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ls, lb, seed, rate):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ls, lb, seed)
+        ctx.rate = rate
+        return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, ls, lb, seed = ctx.saved_tensors
+        grads = fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed,
+                                   g.contiguous(), ctx.rate)
+        refs = (x, w1, b1, w2, b2, ls, lb)
+        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None, None)
+
+
+def fused_ffn(x, w1, b1, w2, b2, ls, lb, seed: Seed = 0,
+              rate: float = 0.0) -> torch.Tensor:
+    """norm4 + Mlp over x (S, C): ``ls``/``lb`` the LayerNorm affine (C,),
+    ``seed``/``rate`` the in-kernel hidden dropout. The caller adds the
+    residual and the block's outer dropout. Differentiable in every tensor
+    but the seed."""
+    if x.device.type != "cpu" and not x.is_cuda:
+        raise ValueError(f"fused_ffn: unsupported device {x.device}")
+    rate = float(rate)
+    seed = seed_tensor(seed, x.device) if rate > 0.0 else None
+    if needs_grad(x, w1, b1, w2, b2, ls, lb):
+        return _FusedFFN.apply(x, w1, b1, w2, b2, ls, lb, seed, rate)
+    return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate)
+
+
+fused_ffn.launches = 0
+fused_ffn.bwd_launches = 0
+
+
+def fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed, g, rate: float = 0.0):
+    """The backward on its own (what the autograd Function calls): kernel
+    #8 for CUDA tensors (counted in ``fused_ffn.bwd_launches``),
+    :func:`fused_ffn_backward_plain` for CPU tensors. Returns the tuple
+    that function documents."""
+    if x.device.type == "cpu":
+        return fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
+                                        rate)
+    if rate > 0.0:
+        seed = seed_tensor(seed, x.device)
+    return _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate)
+
+
+def kernel_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
+    """Which route kernel #7 takes: ``"tensor cores"`` (bf16 WMMA) or
+    ``"fma"`` (f32 FMAs on the CUDA cores)."""
+    return ("tensor cores" if _lib().vptr_fused_ffn_route(
+        channels, hidden, _DTYPES[dtype]) else "fma")
+
+
+def _operands(x, w1, b1, w2, b2, ls, lb):
+    """Check every operand against what the kernels take; returns (S, C,
+    H). Rows and weights are read in 16-byte pieces."""
+    if x.dim() != 2 or x.dtype not in _DTYPES:
+        raise ValueError(f"fused_ffn kernel takes x (S, C) in float32 or "
+                         f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    s, c = x.shape
+    h = w1.shape[-1]
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ("x", x, (s, c), x.dtype), ("w1", w1, (c, h), x.dtype),
+            ("b1", b1, (h,), f32), ("w2", w2, (h, c), x.dtype),
+            ("b2", b2, (c,), f32), ("ls", ls, (c,), f32), ("lb", lb, (c,), f32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"fused_ffn: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"wants {shape} {dtype}")
+        if not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
+            raise ValueError(f"fused_ffn: {name} must be contiguous on "
+                             f"{x.device} (16-byte aligned)")
+    return s, c, h
+
+
+SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
+
+
+def _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate):
+    s, c, h = _operands(x, w1, b1, w2, b2, ls, lb)
+    lib = _lib()
+    smem = lib.vptr_fused_ffn_smem(c, h, _DTYPES[x.dtype])
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_ffn kernel: C={c}, {x.dtype} needs {smem} B "
+                         f"of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty_like(x)
+    p = _build.ptr
+    err = lib.vptr_fused_ffn(
+        p(x), p(w1), p(b1), p(w2), p(b2), p(ls), p(lb), p(out), s, c, h,
+        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "fused_ffn")
+    fused_ffn.launches += 1
+    return out
+
+
+class _BwdArgs(ctypes.Structure):
+    """Mirror of ``FfnBwdArgs`` in ``csrc/fused_ffn_bwd.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "w1", "b1", "w2", "b2", "ls", "lb", "seed", "g",
+        "dx", "dw1", "db1", "dw2", "db2", "dls", "dlb",
+        "mean", "rstd", "xn", "act", "dact", "hilo", "dxn", "wpart1",
+        "wpart2", "partial")]
+        + [(n, ctypes.c_int) for n in ("rows", "channels", "hidden", "dtype",
+                                       "ksplit", "parts")]
+        + [(n, ctypes.c_float) for n in ("eps", "rate", "keep_div")])
+
+
+def _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate):
+    s, c, h = _operands(x, w1, b1, w2, b2, ls, lb)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() \
+            or g.data_ptr() % 16:
+        raise ValueError(f"fused_ffn backward: g {tuple(g.shape)} {g.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    lib = _lib_bwd()
+    parts = lib.vptr_fused_ffn_bwd_partials(s)
+    ksplit = lib.vptr_fused_ffn_bwd_ksplit(s)
+
+    def buf(*shape, dtype=f32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    grads = dict(dx=torch.empty_like(x), dw1=torch.empty_like(w1), db1=buf(h),
+                 dw2=torch.empty_like(w2), db2=buf(c), dls=buf(c), dlb=buf(c))
+    # scratch: the LayerNorm pass, the hidden (f32) and its gradient, the
+    # bf16 hi/lo halves of both for the tensor-core products, d(xn), the
+    # split-K weight-gradient partials and the column-sum partials
+    scratch = dict(mean=buf(s), rstd=buf(s), xn=buf(s, c, dtype=dt),
+                   act=buf(s, h), dact=buf(s, h),
+                   hilo=buf(4, s, h, dtype=dt) if dt == torch.bfloat16 else None,
+                   dxn=buf(s, c), wpart1=buf(ksplit, c, h), wpart2=buf(ksplit, h, c),
+                   partial=buf(parts, h + 3 * c))
+    p = _build.ptr
+    seed_p, rate, keep_div = _dropout_args(seed, rate)
+    a = _BwdArgs(x=p(x), w1=p(w1), b1=p(b1), w2=p(w2), b2=p(b2), ls=p(ls),
+                 lb=p(lb), seed=seed_p, g=p(g),
+                 **{k: p(v) for k, v in grads.items()},
+                 **{k: p(v) for k, v in scratch.items()},
+                 rows=s, channels=c, hidden=h, dtype=_DTYPES[dt],
+                 ksplit=ksplit, parts=parts, eps=LN_EPS, rate=rate,
+                 keep_div=keep_div)
+    err = lib.vptr_fused_ffn_bwd(ctypes.byref(a),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "fused_ffn backward")
+    fused_ffn.bwd_launches += 1
+    return tuple(grads[k] for k in ("dx", "dw1", "db1", "dw2", "db2", "dls",
+                                    "dlb"))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_ffn")
+    fn = lib.vptr_fused_ffn
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 8 + [i] * 3 + [f, p, f, f, i, p]
+        fn.restype = ctypes.c_int
+        lib.vptr_fused_ffn_smem.argtypes = [i] * 3
+        lib.vptr_fused_ffn_smem.restype = ctypes.c_long
+        lib.vptr_fused_ffn_route.argtypes = [i] * 3
+        lib.vptr_fused_ffn_route.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("fused_ffn_bwd")
+    fn = lib.vptr_fused_ffn_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for part in ("partials", "ksplit"):
+            f = getattr(lib, f"vptr_fused_ffn_bwd_{part}")
+            f.argtypes = [ctypes.c_int]
+            f.restype = ctypes.c_int
+    return lib
