@@ -62,8 +62,31 @@ Phases (any failure exits non-zero, without the final result line):
 14. times: #7-#10 beside their plain versions, a library yardstick and the
    bound; the far_rip predict and the train step on the fused route and the
    default route in turns, and each step's memory peak above what is held;
-15. print {"kernels": [...]} (all ten kernels) and, last,
-   {"ok": true, "device": {...}}.
+15. the conv-FFN route's kernels (#11/#12 conv_ln_gelu) against their
+   plain versions at both stages of the far_mnist conv FFN (fc1 528 ->
+   2112, fc2 2112 -> 528 over 8 x 8 latents; 200 samples forward, 190
+   backward), and #1/#3 as the folded temporal sublayer calls them (the
+   position table on q/k: 640 columns x 20 tokens causal, forward; 640 x
+   19 causal and 1024 x 10, forward and backward, dropout 0 and 0.1), bf16
+   and f32;
+16. far_mnist with transformer.fused_conv_ffn and fused_full_temporal: the
+   far_rip predict with every counter at 0 just before and read just after
+   (#11 240 launches, #1 240: window and temporal, #2 0), the frames
+   checked and compared with kernels="plain" and with the default route
+   (same weights);
+17. its train step (#11/#12 and #1/#3 24 launches each, #2/#4 0), kernels
+   vs kernels="plain" from one cloned state, 10 steps on one batch with a
+   falling loss;
+18. times: the route's far_rip predict and FAR step against the default
+   route in turns; the folded temporal sublayer (#1) against the default
+   route's (LayerNorm, projections, #2); #11/#12 at both stages and #1/#3
+   at the temporal shapes beside their plain versions, a library yardstick
+   and the bound;
+19. nar_mnist with the same two flags: the nar predict (#11 32, #1 16, #5 8,
+   #2 8 launches) and the train step (those and the backwards #12 32, #3
+   16, #6 8, #4 8), each against kernels="plain";
+20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
+   temporal shapes) and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -134,10 +157,148 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / max(1.0, b.float().abs().max().item())
 
 
-def zero_counters(*wrappers):
-    for w in wrappers:
+def normals(g):
+    """randn(*shape, std=1.0): host normals drawn from generator g."""
+    return lambda *shape, std=1.0: torch.randn(*shape, generator=g) * std
+
+
+def host_ms(fn) -> float:
+    """Host-clock ms of one synchronised call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def worst_rel(got, want, names):
+    """(name, error) of the gradient with the largest rel_err; gradients the
+    plain version does not return (None) are skipped."""
+    worst = {n: rel_err(a, b) for n, a, b in zip(names, got, want) if b is not None}
+    name = max(worst, key=worst.get)
+    return name, worst[name]
+
+
+def _wrappers():
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+    from vptr_tpu_torch.ops import fused_ffn as tff
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+    from vptr_tpu_torch.ops.attention_core import attention_core
+
+    return {"fused_attention_ln": tfw.fused_attention_ln,
+            "fused_attention": tfw.fused_attention,
+            "attention_core": attention_core, "fused_ffn": tff.fused_ffn,
+            "fused_dw_chain": tdw.fused_dw_chain, "conv_ln_gelu": tcl.conv_ln_gelu}
+
+
+def zero_counters():
+    """Every kernel wrapper's launch counts to 0."""
+    for w in _wrappers().values():
         w.launches = 0
         w.bwd_launches = 0
+
+
+def launch_counts(*names):
+    """{name: count}: "<wrapper>" reads its forward launches,
+    "<wrapper>_bwd" its backward launches."""
+    w = _wrappers()
+    return {n: w[n[:-4]].bwd_launches if n.endswith("_bwd") else w[n].launches
+            for n in names}
+
+
+def check_counts(got, want, what):
+    for name, n in got.items():
+        check(n == want[name], f"{name} launches in {what}: {n} == {want[name]}")
+
+
+def check_frames(pred, shape, what):
+    check(tuple(pred.shape) == shape, f"{what} output shape {tuple(pred.shape)}")
+    check(bool(torch.isfinite(pred.float()).all()), f"{what} output finite")
+    lo, hi = pred.float().min().item(), pred.float().max().item()
+    check(0.0 <= lo and hi <= 1.0, f"{what} output in [0, 1] ({lo:.4f}, {hi:.4f})")
+
+
+def counted_predict(predict, args, want, shape, what):
+    """One predict call with every counter at 0 just before and read just
+    after: the launches of the `want` kernels and the frames checked.
+    Returns (the frames, the launch counts)."""
+    zero_counters()
+    pred = predict(*args)
+    torch.cuda.synchronize()
+    got = launch_counts(*want)
+    check_counts(got, want, f"the {what} run")
+    check_frames(pred, shape, what)
+    return pred, got
+
+
+def predict_vs_plain(predict, args, tr, pred, what):
+    """The frames `pred` against the same call with kernels="plain"."""
+    from vptr_tpu_torch.models.layers import use_kernels
+
+    use_kernels(tr, "plain")
+    e = max_err(pred, predict(*args))
+    use_kernels(tr, "cuda")
+    check(e <= 5e-2, f"{what} kernels vs kernels='plain' max|err| {e:.3e} <= 5e-2 "
+          f"(bf16 sigmoid frames after 12 layers)")
+
+
+def counted_step(train_step, state, past, future, want, what):
+    """One train step with every counter at 0 just before and read just
+    after: the launches of the `want` kernels checked, the metrics finite.
+    Returns (the new state, the launch counts)."""
+    zero_counters()
+    state, m = train_step(state, past, future)
+    torch.cuda.synchronize()
+    got = launch_counts(*want)
+    check_counts(got, want, f"one {what}")
+    check(all(bool(torch.isfinite(v)) for v in m.values()),
+          f"first {what} metrics finite: { {k: round(float(v), 6) for k, v in m.items()} }")
+    return state, got
+
+
+def step_vs_plain(train_step, state, past, future, what):
+    """One step with the kernels and one with kernels="plain" from one
+    cloned state. bf16 through the layers and the decoder: the step's loss
+    agrees to about 1e-3 of its value, the gradient norm to a few percent."""
+    from vptr_tpu_torch.models.layers import use_kernels
+
+    a, b = state.clone(), state.clone()
+    use_kernels(b.transformer, "plain")
+    a, ma = train_step(a, past, future)
+    b, mb = train_step(b, past, future)
+    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
+    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
+    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
+          f"{what} kernels vs kernels='plain' |dT_total| {d_total:.3e} "
+          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
+    check(d_norm <= 0.05, f"{what} kernels vs kernels='plain' grad norm rel diff "
+          f"{d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
+          f"{float(mb['grad_norm']):.6e})")
+
+
+def loss_falls(train_step, state, past, future, what):
+    """TRAIN_STEPS steps on one batch from a clone of state: the losses
+    finite and the last below the first."""
+    fixed = state.clone()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        fixed, m = train_step(fixed, past, future)
+        losses.append(float(m["T_total"]))
+    print(f"  {what} T_total over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{what} train losses finite")
+    check(losses[-1] < losses[0], f"{what} T_total falls over {TRAIN_STEPS} steps: "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+
+
+def grads_of(lib, ops, gout):
+    """A call of the library yardstick's backward: the gradients of
+    lib(*ops) (ops cloned, the graph kept) for the output gradient gout."""
+    ins = [t.clone().requires_grad_() for t in ops]
+    out = lib(*ins)
+    return lambda: torch.autograd.grad(out, ins, gout, retain_graph=True)
 
 
 def bound(nbytes: float, flops: float, dtype=torch.bfloat16):
@@ -167,7 +328,6 @@ def nar_phases(dev):
     from vptr_tpu_torch.models.layers import relative_position_index, use_kernels
     from vptr_tpu_torch.models.transformer import build_transformer
     from vptr_tpu_torch.ops import fused_window_attention as tfw
-    from vptr_tpu_torch.ops.attention_core import attention_core
     from vptr_tpu_torch.train.optim import build_optimizer
     from vptr_tpu_torch.train.state import create_nar_train_state
     from vptr_tpu_torch.train.steps import make_nar_train_step
@@ -182,15 +342,12 @@ def nar_phases(dev):
     windows = batch * n_fut * per_frame       # 640: the decoder's (and encoder's)
     rows = windows * tokens
     rate = tc.dropout
-    g = torch.Generator().manual_seed(SEED + 20)
+    randn = normals(torch.Generator().manual_seed(SEED + 20))
     kseed = torch.tensor([SEED + 54321], dtype=torch.int32, device=dev)
     bf = torch.bfloat16
     tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
     bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
     idx = torch.from_numpy(relative_position_index(tc.window_size).reshape(-1))
-
-    def randn(*shape, std=1.0):
-        return torch.randn(*shape, generator=g) * std
 
     def rpe_bias(nb):
         table = randn((2 * tc.window_size - 1) ** 2, nb, std=0.5)
@@ -209,12 +366,6 @@ def nar_phases(dev):
     def ln_operands(dtype):
         return ((randn(windows, tokens, c).to(dev, dtype),) + weights(dtype)
                 + ((1 + randn(c, std=0.1)).to(dev), randn(c, std=0.1).to(dev), None))
-
-    def worst_rel(got, want, names):
-        worst = {n: rel_err(a, b) for n, a, b in zip(names, got, want)
-                 if b is not None}
-        name = max(worst, key=worst.get)
-        return name, worst[name]
 
     two_names = ("dx_qk", "dx_v", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv",
                  "dwo", "dbo", "dbias")
@@ -273,29 +424,12 @@ def nar_phases(dev):
                         generator=torch.Generator().manual_seed(SEED + 2))
     past, future = frames[:, :n_past].to(dev), frames[:, n_past:].to(dev)
     predict = make_predict_fn(cfg, enc, dec, tr, "nar", n_fut, dev)
-    counters = (attention_core, tfw.fused_attention_ln, tfw.fused_attention)
-    zero_counters(*counters)
-    pred = predict(past)
-    torch.cuda.synchronize()
-    pred_launches = {"fused_attention_ln": tfw.fused_attention_ln.launches,
-                     "fused_attention": tfw.fused_attention.launches,
-                     "attention_core": attention_core.launches}
     enc_l, dec_l = tc.num_encoder_layers, tc.num_decoder_layers
     want = {"fused_attention_ln": enc_l, "fused_attention": dec_l,
             "attention_core": enc_l + 2 * dec_l}
-    for name, n in pred_launches.items():
-        check(n == want[name], f"{name} launches in the nar predict: {n} == {want[name]}")
-    check(tuple(pred.shape) == (batch, n_fut, 64, 64, 1),
-          f"nar output shape {tuple(pred.shape)}")
-    check(bool(torch.isfinite(pred.float()).all()), "nar output finite")
-    lo, hi = pred.float().min().item(), pred.float().max().item()
-    check(0.0 <= lo and hi <= 1.0, f"nar output in [0, 1] ({lo:.4f}, {hi:.4f})")
-    use_kernels(tr, "plain")
-    ref = predict(past)
-    use_kernels(tr, "cuda")
-    e_nar = max_err(pred, ref)
-    check(e_nar <= 5e-2, f"nar predict kernels vs kernels='plain' max|err| "
-          f"{e_nar:.3e} <= 5e-2 (bf16 sigmoid frames after 12 layers)")
+    pred, pred_launches = counted_predict(predict, (past,), want,
+                                          (batch, n_fut, 64, 64, 1), "nar predict")
+    predict_vs_plain(predict, (past,), tr, pred, "nar predict")
 
     phase("9. nar_mnist full width, train step")
     opt = build_optimizer(cfg.optim, c)
@@ -305,62 +439,18 @@ def nar_phases(dev):
           f"{cfg.loss.nce_temperature}")
     state = create_nar_train_state(enc, dec, tr, opt, seed=SEED + 3)
     train_step = make_nar_train_step(enc, dec, tr, opt, cfg.loss)
-    zero_counters(*counters)
-    state, m0 = train_step(state, past, future)
-    torch.cuda.synchronize()
-    step_launches = {
-        "fused_attention_ln": tfw.fused_attention_ln.launches,
-        "fused_attention_ln_bwd": tfw.fused_attention_ln.bwd_launches,
-        "fused_attention": tfw.fused_attention.launches,
-        "fused_attention_bwd": tfw.fused_attention.bwd_launches,
-        "attention_core": attention_core.launches,
-        "attention_core_bwd": attention_core.bwd_launches}
     want = {"fused_attention_ln": enc_l, "fused_attention_ln_bwd": enc_l,
             "fused_attention": dec_l, "fused_attention_bwd": dec_l,
             "attention_core": enc_l + 2 * dec_l,
             "attention_core_bwd": enc_l + 2 * dec_l}
-    for name, n in step_launches.items():
-        check(n == want[name], f"{name} launches in one NAR train step: {n} == "
-              f"{want[name]}")
-    check(all(bool(torch.isfinite(v)) for v in m0.values()),
-          f"first NAR step metrics finite: "
-          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
-    a, b = state.clone(), state.clone()
-    use_kernels(b.transformer, "plain")
-    a, ma = train_step(a, past, future)
-    b, mb = train_step(b, past, future)
-    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
-    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
-    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
-          f"NAR step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
-          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
-    check(d_norm <= 0.05, f"NAR step kernels vs kernels='plain' grad norm rel "
-          f"diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
-          f"{float(mb['grad_norm']):.6e})")
-    del a, b
-    fixed = state.clone()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        fixed, m = train_step(fixed, past, future)
-        losses.append(float(m["T_total"]))
-    print(f"  NAR T_total over {TRAIN_STEPS} steps on one batch: "
-          f"{[round(x, 6) for x in losses]}")
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          "NAR train losses finite")
-    check(losses[-1] < losses[0], f"NAR T_total falls over {TRAIN_STEPS} steps: "
-          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
-    del fixed
+    state, step_launches = counted_step(train_step, state, past, future, want,
+                                        "NAR train step")
+    step_vs_plain(train_step, state, past, future, "NAR step")
+    loss_falls(train_step, state, past, future, "NAR")
 
     phase("10. NAR timing")
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predict(past)
-        torch.cuda.synchronize()
-        if i:
-            times.append((time.perf_counter() - t0) * 1e3)
+    times = [host_ms(lambda: predict(past)) for _ in range(6)][1:]  # the first warms up
     pred_ms = statistics.median(times)
     pred_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     use_kernels(tr, "plain")
@@ -372,13 +462,6 @@ def nar_phases(dev):
           f"{batch * n_fut / pred_ms * 1e3:.1f} frames/s, peak {pred_peak:.3f} "
           f"GiB (with the train state held); kernels='plain' {plain_pred_ms:.3f} ms")
 
-    def timed_step(st):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, _ = train_step(st, past, future)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     kstate, pstate = state.clone(), state.clone()
     use_kernels(pstate.transformer, "plain")
     del state
@@ -386,13 +469,13 @@ def nar_phases(dev):
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         order = ((kstate, step_times), (pstate, plain_times))
         for which, out in (order if i % 2 == 0 else order[::-1]):
-            ms = timed_step(which)
+            ms = host_ms(lambda: train_step(which, past, future))
             if i >= WARMUP_STEPS:
                 out.append(ms)
     del pstate
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    timed_step(kstate)
+    host_ms(lambda: train_step(kstate, past, future))
     step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del kstate
     step_ms, plain_step_ms = statistics.median(step_times), statistics.median(plain_times)
@@ -420,8 +503,6 @@ def nar_phases(dev):
         return F.linear(o.transpose(1, 2).reshape(windows, tokens, c), wo.t(),
                         bo.to(bf))
 
-    lib_in = [z.clone().requires_grad_() for z in (x_qk, x_v, wq, wk, wv, wo)]
-    lib_out = two_library(*lib_in)
     lops = ln_operands(bf)
     x, ls, lb = lops[0], lops[9], lops[10]
 
@@ -429,8 +510,6 @@ def nar_phases(dev):
         xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
         return two_library(xn, xn, wq, wk, wv, wo)
 
-    ln_in = [z.clone().requires_grad_() for z in (x, wq, wk, wv, wo)]
-    ln_out = ln_library(*ln_in)
     s = 2   # bytes per bf16 element
     vec = 4 * c * 4 + heads * tokens * tokens * 4
     fwd_flops = 8 * rows * c * c + 4 * rows * tokens * c
@@ -445,7 +524,7 @@ def nar_phases(dev):
          lambda: tfw.fused_attention_backward(*ops, rpe8, kseed, gwin, heads, rate),
          lambda: tfw.fused_attention_backward_plain(*ops, rpe8, kseed, gwin, heads,
                                                     rate),
-         lambda: torch.autograd.grad(lib_out, lib_in, gwin, retain_graph=True),
+         grads_of(two_library, (x_qk, x_v, wq, wk, wv, wo), gwin),
          5 * rows * c * s + 8 * c * c * s + 2 * vec, bwd_flops),
         ("fused_attention_ln (NAR shape, RPE bias)",
          lambda: tfw.fused_attention_ln(*lops, rpe8, kseed, heads, rate),
@@ -457,7 +536,7 @@ def nar_phases(dev):
                                                  rate),
          lambda: tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gwin,
                                                        heads, rate),
-         lambda: torch.autograd.grad(ln_out, ln_in, gwin, retain_graph=True),
+         grads_of(ln_library, (x, wq, wk, wv, wo), gwin),
          3 * rows * c * s + 8 * c * c * s + 2 * vec + 4 * c * 4, bwd_flops),
     )
     readings = {}
@@ -495,6 +574,104 @@ def nar_phases(dev):
     return rows_out, extra, summary
 
 
+def route_phases(dev, flags, label, first, want_pred, want_step):
+    """Phases first .. first + 2: far_mnist at full width on a kernel route
+    (the transformer `flags`) beside the default route with the same
+    weights. The far_rip predict with every counter at 0 just before and
+    read just after (`want_pred` launches), its frames checked and compared
+    with kernels="plain" and with the default route; one train step's
+    launches (`want_step`), kernels vs kernels="plain" from one cloned
+    state, 10 steps on one batch with a falling loss; the predict and the
+    step timed against the default route in turns, with each step's memory
+    peak above what is held. Returns (the predict's launches, the step's
+    launches, {"predict_ms" | "step_ms" | "step_peak_gib": {route: value}})."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step
+
+    base = get_preset("far_mnist")
+    cfg = base.override({"transformer": flags})
+    tc = cfg.transformer
+    ctx = tc.num_past_frames + tc.num_future_frames
+
+    phase(f"{first}. far_mnist {label} ({' + '.join(flags)}), far_rip predict")
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    # the default route with the same weights (the parameter trees agree)
+    tr_default = build_transformer(base.transformer, dtype, dev,
+                                   torch.Generator().manual_seed(SEED + 1))
+    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    past, future = frames[:, :PAST].to(dev), frames[:, PAST:].to(dev)
+    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
+    predict_default = make_predict_fn(base, enc, dec, tr_default, "far_rip", FUTURE, dev)
+    pred, pred_launches = counted_predict(predict, (past,), want_pred,
+                                          (BATCH, FUTURE, 64, 64, 1), f"{label} far_rip")
+    predict_vs_plain(predict, (past,), tr, pred, f"{label} far_rip")
+    e_default = max_err(pred, predict_default(past))
+    check(e_default <= 5e-2, f"{label} far_rip vs the default route max|err| "
+          f"{e_default:.3e} <= 5e-2 (the GELU's form and the rounding points differ)")
+
+    phase(f"{first + 1}. far_mnist {label}, train step")
+    opt = build_optimizer(cfg.optim, tc.d_model)
+    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    train_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+    state, step_launches = counted_step(train_step, state, past, future, want_step,
+                                        f"{label} FAR train step")
+    step_vs_plain(train_step, state, past, future, f"{label} FAR step")
+    loss_falls(train_step, state, past, future, label)
+
+    phase(f"{first + 2}. {label} timing (against the default route, in turns)")
+    predict(past)
+    predict_default(past)
+    predicts = {"route": predict, "default": predict_default}
+    pred_times = {"route": [], "default": []}
+    for i in range(6):                 # default, route, route, default, ...
+        for name in (("default", "route") if i % 2 == 0 else ("route", "default")):
+            pred_times[name].append(host_ms(lambda: predicts[name](past)))
+    pred_ms = {k: statistics.median(v) for k, v in pred_times.items()}
+    print(f"  far_rip predict (batch {BATCH}, {FUTURE} frames): {label} median "
+          f"{pred_ms['route']:.3f} ms ({[round(t, 3) for t in pred_times['route']]}), "
+          f"default route {pred_ms['default']:.3f} ms "
+          f"({[round(t, 3) for t in pred_times['default']]})")
+
+    dstate = create_far_train_state(enc, dec, tr_default, opt, seed=SEED + 3)
+    default_step = make_far_train_step(enc, dec, tr_default, opt, base.loss)
+    steps = {"route": (train_step, state), "default": (default_step, dstate)}
+    del state, dstate
+    step_times = {"route": [], "default": []}
+    act_peak = {}
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        for name in (("default", "route") if i % 2 == 0 else ("route", "default")):
+            fn, st = steps[name]
+            if i == WARMUP_STEPS - 1:   # the activation peak above what is held
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: fn(st, past, future))
+            if i == WARMUP_STEPS - 1:
+                act_peak[name] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+            if i >= WARMUP_STEPS:
+                step_times[name].append(ms)
+    step_ms = {k: statistics.median(v) for k, v in step_times.items()}
+    print(f"  FAR train step (batch {BATCH}, T {ctx - 1}): {label} median "
+          f"{step_ms['route']:.3f} ms ({[round(t, 3) for t in step_times['route']]}), "
+          f"default route {step_ms['default']:.3f} ms "
+          f"({[round(t, 3) for t in step_times['default']]}); peak above the held "
+          f"memory: {label} {act_peak['route']:.3f} GiB, default "
+          f"{act_peak['default']:.3f} GiB")
+    del steps, train_step, default_step, enc, dec, tr, tr_default, predict, predict_default
+    del predicts
+    torch.cuda.empty_cache()
+    return pred_launches, step_launches, {"predict_ms": pred_ms, "step_ms": step_ms,
+                                          "step_peak_gib": act_peak}
+
+
 def ffn_phases(dev):
     """Phases 11-14: the far_mnist fused-FFN route (transformer.fused_ffn
     and fused_dw). Returns (kernel rows of #7-#10, extra readings, the
@@ -502,21 +679,10 @@ def ffn_phases(dev):
     import torch.nn.functional as F
 
     from vptr_tpu_torch.config import get_preset
-    from vptr_tpu_torch.eval.harness import make_predict_fn
-    from vptr_tpu_torch.models.autoencoder import build_autoencoder
-    from vptr_tpu_torch.models.layers import use_kernels
-    from vptr_tpu_torch.models.transformer import build_transformer
     from vptr_tpu_torch.ops import fused_dw_chain as tdw
     from vptr_tpu_torch.ops import fused_ffn as tff
-    from vptr_tpu_torch.ops import fused_window_attention as tfw
-    from vptr_tpu_torch.ops.attention_core import attention_core
-    from vptr_tpu_torch.train.optim import build_optimizer
-    from vptr_tpu_torch.train.state import create_far_train_state
-    from vptr_tpu_torch.train.steps import make_far_train_step
 
-    base = get_preset("far_mnist")
-    cfg = base.override({"transformer": {"fused_ffn": True, "fused_dw": True}})
-    tc = cfg.transformer
+    tc = get_preset("far_mnist").transformer
     c, hid, hw, w = tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model, \
         tc.enc_h * tc.enc_w, tc.enc_w
     ctx = tc.num_past_frames + tc.num_future_frames
@@ -525,14 +691,9 @@ def ffn_phases(dev):
     rate = tc.dropout
     bf = torch.bfloat16
     kseed = torch.tensor([SEED + 777], dtype=torch.int32, device=dev)
-    g = torch.Generator().manual_seed(SEED + 30)
+    randn = normals(torch.Generator().manual_seed(SEED + 30))
     tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
     bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
-    counters = (attention_core, tfw.fused_attention_ln, tff.fused_ffn,
-                tdw.fused_dw_chain)
-
-    def randn(*shape, std=1.0):
-        return torch.randn(*shape, generator=g) * std
 
     def ffn_ops(rows, dtype):
         return (randn(rows, c).to(dev, dtype), randn(c, hid, std=c ** -0.5).to(dev, dtype),
@@ -545,11 +706,6 @@ def ffn_phases(dev):
                 randn(hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
                 randn(hw, hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
                 randn(hw, hid, std=0.1).to(dev))
-
-    def worst_rel(got, want, names):
-        worst = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
-        name = max(worst, key=worst.get)
-        return name, worst[name]
 
     ffn_names = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
     dw_names = ("dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2")
@@ -591,141 +747,14 @@ def ffn_phases(dev):
         del fops, fops_t, dops, dops_t, gffn, gdw, got, want
     torch.cuda.synchronize()
 
-    phase("12. far_mnist fused-FFN route (fused_ffn + fused_dw), far_rip predict")
-    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
-    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
-    tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
-    # the default route with the same weights (the parameter trees agree)
-    tr_default = build_transformer(base.transformer, dtype, dev,
-                                   torch.Generator().manual_seed(SEED + 1))
-    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
-                        generator=torch.Generator().manual_seed(SEED + 2))
-    past, future = frames[:, :PAST].to(dev), frames[:, PAST:].to(dev)
-    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
-    predict_default = make_predict_fn(base, enc, dec, tr_default, "far_rip", FUTURE, dev)
-    zero_counters(*counters)
-    pred = predict(past)
-    torch.cuda.synchronize()
-    pred_launches = {"fused_ffn": tff.fused_ffn.launches,
-                     "fused_dw_chain": tdw.fused_dw_chain.launches,
-                     "fused_attention_ln": tfw.fused_attention_ln.launches,
-                     "attention_core": attention_core.launches}
-    for name, n in pred_launches.items():
-        check(n == LAYERS * FUTURE, f"{name} launches in the fused-route far_rip "
-              f"run: {n} == {LAYERS * FUTURE}")
-    check(tuple(pred.shape) == (BATCH, FUTURE, 64, 64, 1),
-          f"fused-route far_rip output shape {tuple(pred.shape)}")
-    check(bool(torch.isfinite(pred.float()).all()), "fused-route far_rip output finite")
-    lo, hi = pred.float().min().item(), pred.float().max().item()
-    check(0.0 <= lo and hi <= 1.0, f"fused-route far_rip output in [0, 1] ({lo:.4f}, "
-          f"{hi:.4f})")
-    use_kernels(tr, "plain")
-    e_plain = max_err(pred, predict(past))
-    use_kernels(tr, "cuda")
-    check(e_plain <= 5e-2, f"fused-route far_rip kernels vs kernels='plain' max|err| "
-          f"{e_plain:.3e} <= 5e-2")
-    e_default = max_err(pred, predict_default(past))
-    check(e_default <= 5e-2, f"fused-route far_rip vs the default route max|err| "
-          f"{e_default:.3e} <= 5e-2 (the GELU's form and the rounding points differ)")
-
-    phase("13. far_mnist fused-FFN route, train step")
-    opt = build_optimizer(cfg.optim, c)
-    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
-    train_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
-    zero_counters(*counters)
-    state, m0 = train_step(state, past, future)
-    torch.cuda.synchronize()
-    step_launches = {"fused_ffn": tff.fused_ffn.launches,
-                     "fused_ffn_bwd": tff.fused_ffn.bwd_launches,
-                     "fused_dw_chain": tdw.fused_dw_chain.launches,
-                     "fused_dw_chain_bwd": tdw.fused_dw_chain.bwd_launches,
-                     "fused_attention_ln": tfw.fused_attention_ln.launches,
-                     "fused_attention_ln_bwd": tfw.fused_attention_ln.bwd_launches,
-                     "attention_core": attention_core.launches,
-                     "attention_core_bwd": attention_core.bwd_launches}
-    for name, n in step_launches.items():
-        check(n == LAYERS, f"{name} launches in one fused-route train step: {n} == "
-              f"{LAYERS}")
-    check(all(bool(torch.isfinite(v)) for v in m0.values()),
-          f"first fused-route step metrics finite: "
-          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
-    a, b = state.clone(), state.clone()
-    use_kernels(b.transformer, "plain")
-    a, ma = train_step(a, past, future)
-    b, mb = train_step(b, past, future)
-    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
-    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
-    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
-          f"fused-route step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
-          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
-    check(d_norm <= 0.05, f"fused-route step kernels vs kernels='plain' grad norm rel "
-          f"diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
-          f"{float(mb['grad_norm']):.6e})")
-    del a, b
-    fixed = state.clone()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        fixed, m = train_step(fixed, past, future)
-        losses.append(float(m["T_total"]))
-    print(f"  fused-route T_total over {TRAIN_STEPS} steps on one batch: "
-          f"{[round(x, 6) for x in losses]}")
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          "fused-route train losses finite")
-    check(losses[-1] < losses[0], f"fused-route T_total falls over {TRAIN_STEPS} "
-          f"steps: {losses[0]:.6f} -> {losses[-1]:.6f}")
-    del fixed
-
-    phase("14. fused-FFN route timing (against the default route, in turns)")
-
-    def host_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    predict(past)
-    predict_default(past)
-    pred_times = {"fused": [], "default": []}
-    for i in range(6):                 # default, fused, fused, default, ...
-        order = ("default", "fused") if i % 2 == 0 else ("fused", "default")
-        for route in order:
-            fn = predict if route == "fused" else predict_default
-            pred_times[route].append(host_ms(lambda: fn(past)))
-    pred_ms = {k: statistics.median(v) for k, v in pred_times.items()}
-    print(f"  far_rip predict (batch {BATCH}, {FUTURE} frames): fused route median "
-          f"{pred_ms['fused']:.3f} ms ({[round(t, 3) for t in pred_times['fused']]}), "
-          f"default route {pred_ms['default']:.3f} ms "
-          f"({[round(t, 3) for t in pred_times['default']]})")
-
-    dstate = create_far_train_state(enc, dec, tr_default, opt, seed=SEED + 3)
-    default_step = make_far_train_step(enc, dec, tr_default, opt, base.loss)
-    steps = {"fused": (train_step, state), "default": (default_step, dstate)}
-    del state, dstate
-    step_times = {"fused": [], "default": []}
-    act_peak = {}
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        order = ("default", "fused") if i % 2 == 0 else ("fused", "default")
-        for route in order:
-            fn, st = steps[route]
-            if i == WARMUP_STEPS - 1:   # the activation peak above what is held
-                torch.cuda.synchronize()
-                held = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-            ms = host_ms(lambda: fn(st, past, future))
-            if i == WARMUP_STEPS - 1:
-                act_peak[route] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-            if i >= WARMUP_STEPS:
-                step_times[route].append(ms)
-    step_ms = {k: statistics.median(v) for k, v in step_times.items()}
-    print(f"  FAR train step (batch {BATCH}, T {ctx - 1}): fused route median "
-          f"{step_ms['fused']:.3f} ms ({[round(t, 3) for t in step_times['fused']]}), "
-          f"default route {step_ms['default']:.3f} ms "
-          f"({[round(t, 3) for t in step_times['default']]}); peak above the held "
-          f"memory: fused {act_peak['fused']:.3f} GiB, default "
-          f"{act_peak['default']:.3f} GiB")
-    del steps, train_step, default_step, enc, dec, tr, tr_default, predict, predict_default
-    torch.cuda.empty_cache()
+    n = LAYERS * FUTURE
+    pred_launches, step_launches, times = route_phases(
+        dev, {"fused_ffn": True, "fused_dw": True}, "fused-FFN route", 12,
+        {"fused_ffn": n, "fused_dw_chain": n, "fused_attention_ln": n, "attention_core": n},
+        {k: LAYERS for k in ("fused_ffn", "fused_ffn_bwd", "fused_dw_chain",
+                             "fused_dw_chain_bwd", "fused_attention_ln",
+                             "fused_attention_ln_bwd", "attention_core",
+                             "attention_core_bwd")})
 
     # the kernels beside their plain versions, a library yardstick and the
     # bound: #7/#9 at the far_rip shapes (dropout 0), #8/#10 at the step's
@@ -746,13 +775,6 @@ def ffn_phases(dev):
         z = F.conv2d(z, taps.t().reshape(hid, 1, 3, 3).to(bf), dwb.to(bf), padding=1,
                      groups=hid)
         return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
-
-    def grads_of(lib, ops, gout):
-        ins = [t.clone().requires_grad_() for t in ops]
-        out = lib(*ins)
-        if out.dim() == 4:                 # the conv yardstick's NCHW output
-            gout = gout.view(out.shape[0], tc.enc_h, w, hid).permute(0, 3, 1, 2)
-        return lambda: torch.autograd.grad(out, ins, gout, retain_graph=True)
 
     e_pred, e_step = s_pred * c, s_step * c
     d_pred, d_step = n_pred * hw * hid, n_step * hw * hid
@@ -780,7 +802,8 @@ def ffn_phases(dev):
         ("fused_dw_chain_bwd",
          lambda: tdw.fused_dw_chain_backward(*dops_t, kseed, gdw, w, rate),
          lambda: tdw.fused_dw_chain_backward_plain(*dops_t, kseed, gdw, w, rate),
-         grads_of(dw_library, dops_t, gdw),
+         # the conv yardstick's output is NCHW
+         grads_of(dw_library, dops_t, gdw.view(n_step, tc.enc_h, w, hid).permute(0, 3, 1, 2)),
          3 * d_step * s2b + (20 * hid + 8 * hw * hid) * 4, 210 * d_step, torch.float32),
     )
     clusters = tdw.resident_clusters(hw, hid)
@@ -797,31 +820,310 @@ def ffn_phases(dev):
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.2f} GFLOP {str(fdt).replace('torch.', '')})")
     rows_out = []
-    for name, src, replaces, err, launches, step_n in (
+    for name, src, replaces, err, launches in (
             ("fused_ffn", "vptr_tpu_torch/csrc/fused_ffn.cu",
-             "vptr_tpu/ops/fused_ffn.py:188", errs["ffn"], pred_launches["fused_ffn"],
-             step_launches["fused_ffn"]),
+             "vptr_tpu/ops/fused_ffn.py:188", errs["ffn"], pred_launches["fused_ffn"]),
             ("fused_ffn_bwd", "vptr_tpu_torch/csrc/fused_ffn_bwd.cu",
              "vptr_tpu/ops/fused_ffn.py:214", errs["ffn_bwd"],
-             step_launches["fused_ffn_bwd"], step_launches["fused_ffn_bwd"]),
+             step_launches["fused_ffn_bwd"]),
             ("fused_dw_chain", "vptr_tpu_torch/csrc/fused_dw_chain.cu",
              "vptr_tpu/ops/fused_dw_chain.py:294", errs["dw"],
-             pred_launches["fused_dw_chain"], step_launches["fused_dw_chain"]),
+             pred_launches["fused_dw_chain"]),
             ("fused_dw_chain_bwd", "vptr_tpu_torch/csrc/fused_dw_chain_bwd.cu",
              "vptr_tpu/ops/fused_dw_chain.py:318", errs["dw_bwd"],
-             step_launches["fused_dw_chain_bwd"], step_launches["fused_dw_chain_bwd"])):
+             step_launches["fused_dw_chain_bwd"])):
         rows_out.append({"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": launches,
                          "max_abs_err": err, **readings[name],
-                         "train_step_launches": step_n})
-    summary = (f"ffn_route_predict_ms {pred_ms['fused']:.3f} default_predict_ms "
-               f"{pred_ms['default']:.3f} ffn_route_train_step_ms {step_ms['fused']:.3f} "
-               f"default_train_step_ms {step_ms['default']:.3f} ffn_route_step_peak_gib "
-               f"{act_peak['fused']:.3f} default_step_peak_gib {act_peak['default']:.3f}")
+                         "train_step_launches": step_launches[name]})
+    pm, sm, pk = times["predict_ms"], times["step_ms"], times["step_peak_gib"]
+    summary = (f"ffn_route_predict_ms {pm['route']:.3f} default_predict_ms "
+               f"{pm['default']:.3f} ffn_route_train_step_ms {sm['route']:.3f} "
+               f"default_train_step_ms {sm['default']:.3f} ffn_route_step_peak_gib "
+               f"{pk['route']:.3f} default_step_peak_gib {pk['default']:.3f}")
     extra = {"ffn_route_predict_launches": pred_launches,
              "ffn_route_step_launches": step_launches,
              "dw_chain_resident_clusters": clusters}
     return rows_out, extra, summary
+
+
+def conv_phases(dev):
+    """Phases 15-19: the conv-FFN kernel route with the folded temporal
+    sublayer (transformer.fused_conv_ffn and fused_full_temporal) on
+    far_mnist and nar_mnist. Returns (kernel rows of #11 and #12, the #1/#3
+    readings at the temporal shapes by kernel name, extra readings, the
+    summary line)."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.layers import LayerNorm, TemporalAttention
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_nar_train_state
+    from vptr_tpu_torch.train.steps import make_nar_train_step
+
+    flags = {"fused_conv_ffn": True, "fused_full_temporal": True}
+    tc = get_preset("far_mnist").transformer
+    ncfg = get_preset("nar_mnist").override({"transformer": flags})
+    ntc = ncfg.transformer
+    c, hid, hw = tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model, tc.enc_h * tc.enc_w
+    heads, hd = tc.n_heads, tc.d_model // tc.n_heads
+    ctx = tc.num_past_frames + tc.num_future_frames
+    n_pred, n_step = BATCH * ctx, BATCH * (ctx - 1)               # conv-FFN samples
+    stages = {"fc1": (c, hid), "fc2": (hid, c)}
+    nb = ncfg.data.batch_size
+    # the folded temporal sublayer's #1/#3 calls: (columns, T, causal, dropout
+    # rates) -- far_rip predict, the FAR step, the NAR encoder and decoder
+    attn_rate = lambda t: t.dropout if t.attention_dropout is None else t.attention_dropout
+    temporal = {"far_rip": (BATCH * hw, ctx, True, (0.0,)),
+                "far_step": (BATCH * hw, ctx - 1, True, (0.0, attn_rate(tc))),
+                "nar": (nb * hw, ntc.num_past_frames, False, (0.0, attn_rate(ntc)))}
+    bf = torch.bfloat16
+    randn = normals(torch.Generator().manual_seed(SEED + 40))
+    kseed = torch.tensor([SEED + 4321], dtype=torch.int32, device=dev)
+    tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
+    bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
+    names = ("dx", "dw", "db", "dscale", "dbias2")
+    ln_names = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
+                "dlb", "dbias")
+
+    def conv_ops(n, cin, cout, dtype):
+        return (randn(n, hw, cin).to(dev, dtype), randn(cin, cout, std=cin ** -0.5).to(dev, dtype),
+                randn(cout, std=0.1).to(dev), (1 + randn(hw, cout, std=0.1)).to(dev),
+                randn(hw, cout, std=0.1).to(dev))
+
+    def temporal_ops(cols, t, causal, dtype):
+        """#1/#3's operands as the folded temporal sublayer passes them: the
+        raw columns, (C, C) weights, the LayerNorm affine, the (T, C)
+        position table on q/k and the -1e30 causal (1, T, T) bias (FAR)."""
+        w = [randn(c, c, std=c ** -0.5).to(dev, dtype) for _ in range(4)]
+        b = [randn(c, std=0.02).to(dev) for _ in range(4)]
+        bias = torch.full((t, t), -1e30).triu(1)[None].to(dev) if causal else None
+        return (randn(cols, t, c).to(dev, dtype), w[0], b[0], w[1], b[1], w[2], b[2],
+                w[3], b[3], (1 + randn(c, std=0.1)).to(dev), randn(c, std=0.1).to(dev),
+                randn(t, c, std=0.5).to(dev), bias)
+
+    errs = {}
+    phase("15. conv-FFN route kernels (#11/#12, and #1/#3 at the temporal shapes) "
+          "against their plain versions (card)")
+    print(f"  clusters: fc1 {tcl.cluster_split(hid)} blocks a sample, fc2 "
+          f"{tcl.cluster_split(c)}")
+    for dtype in (bf, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for stage, (cin, cout) in stages.items():
+            ops, ops_t = conv_ops(n_pred, cin, cout, dtype), conv_ops(n_step, cin, cout, dtype)
+            e = max_err(tcl.conv_ln_gelu(*ops), tcl.conv_ln_gelu_plain(*ops))
+            check(e <= tol[dtype], f"conv_ln_gelu {name} {stage} {tuple(ops[0].shape)} -> "
+                  f"{cout} max|err| {e:.3e} <= {tol[dtype]}")
+            gout = randn(n_step, hw, cout).to(dev, dtype)
+            got = tcl.conv_ln_gelu_backward(*ops_t, gout)
+            want = tcl.conv_ln_gelu_backward_plain(*ops_t, gout)
+            n_worst, worst = worst_rel(got, want, names)
+            check(worst <= bwd_tol[dtype], f"conv_ln_gelu backward {name} {stage} "
+                  f"{tuple(ops_t[0].shape)} worst {n_worst} rel err {worst:.2e} <= "
+                  f"{bwd_tol[dtype]:.2e}")
+            if dtype == bf and stage == "fc1":
+                errs["fwd"] = e
+                errs["bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+            del ops, ops_t, gout, got, want
+        for where, (cols, t, causal, rates) in temporal.items():
+            ops = temporal_ops(cols, t, causal, dtype)
+            what = (f"{name} {where} {tuple(ops[0].shape)}"
+                    f"{' causal' if causal else ''} + positions "
+                    f"({tfw.kernel_route(t, c, dtype)})")
+            gout = randn(cols, t, c).to(dev, dtype)
+            for r in rates:
+                e = max_err(tfw.fused_attention_ln(*ops, kseed, heads, r),
+                            tfw.fused_attention_ln_plain(*ops, kseed, heads, r))
+                check(e <= tol[dtype], f"fused_attention_ln {what} dropout {r} "
+                      f"max|err| {e:.3e} <= {tol[dtype]}")
+                if dtype == bf and r == 0:
+                    errs[("ln", where)] = e
+                if where == "far_rip":        # the predict runs no backward
+                    continue
+                # the path's call: no gradient for the constant causal bias
+                got = tfw.fused_attention_ln_backward(*ops, kseed, gout, heads, r,
+                                                      need_dbias=False)
+                want = tfw.fused_attention_ln_backward_plain(*ops, kseed, gout, heads, r,
+                                                             need_dbias=False)
+                n_worst, worst = worst_rel(got, want, ln_names)
+                check(worst <= bwd_tol[dtype], f"fused_attention_ln backward {what} "
+                      f"dropout {r} worst {n_worst} rel err {worst:.2e} <= "
+                      f"{bwd_tol[dtype]:.2e}")
+                if dtype == bf and r > 0:
+                    errs[("ln_bwd", where)] = max(max_err(a, b) for a, b in zip(got, want)
+                                                  if b is not None)
+            del ops, gout
+    torch.cuda.synchronize()
+
+    n = LAYERS * FUTURE
+    pred_launches, step_launches, times = route_phases(
+        dev, flags, "conv-FFN route", 16,
+        {"conv_ln_gelu": 2 * n, "fused_attention_ln": 2 * n, "attention_core": 0},
+        {"conv_ln_gelu": 2 * LAYERS, "conv_ln_gelu_bwd": 2 * LAYERS,
+         "fused_attention_ln": 2 * LAYERS, "fused_attention_ln_bwd": 2 * LAYERS,
+         "attention_core": 0, "attention_core_bwd": 0})
+
+    # #1 at the temporal shape (640 columns x 20 tokens, causal, the position
+    # table) inside the module, against the default route's temporal
+    # sublayer: f32 LayerNorm, q/k/v projections, #2, the output projection;
+    # the same weights
+    xt = randn(BATCH, ctx, tc.enc_h, tc.enc_w, c).to(dev, bf)
+    pos_t = (0.5 * randn(ctx, c)).to(dev)
+    folded = TemporalAttention(c, heads, True, True, bf, fused_full=True).to(dev).eval()
+    unfolded = TemporalAttention(c, heads, True, True, bf).to(dev).eval()
+    unfolded.load_state_dict(folded.state_dict())
+    norm = LayerNorm(c, dtype=bf).to(dev)
+    ln = (norm.weight, norm.bias)
+    with torch.no_grad():
+        e_t = max_err(folded(xt, pos_t, ln=ln), unfolded(norm(xt), pos_t))
+        t_fold, t_unfold = timed_turns(lambda: folded(xt, pos_t, ln=ln),
+                                       lambda: unfolded(norm(xt), pos_t))
+    check(e_t <= tol[bf], f"temporal sublayer folded (#1) vs LayerNorm + projections + "
+          f"#2 max|err| {e_t:.3e} <= {tol[bf]}")
+    print(f"  temporal sublayer (640 x 20 x 528, causal): folded #1 {t_fold:.4f} ms, "
+          f"LayerNorm + projections + #2 {t_unfold:.4f} ms (module calls, CUDA events)")
+    del xt, folded, unfolded, norm
+
+    def library(x, w, b, scale, bias2):
+        u = F.linear(x, w.t(), b.to(bf))
+        return F.gelu(F.layer_norm(u, u.shape[1:], scale.to(bf), bias2.to(bf)))
+
+    s2b = 2   # bytes per bf16 element
+    readings = {}
+
+    def timed(key, fn, plain, lib, nbytes, flops):
+        k_ms, p_ms = timed_turns(fn, plain)
+        lib_ms = cuda_ms(lib)
+        b_ms, b_by = bound(nbytes, flops)
+        readings[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+        print(f"  {' '.join(key)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
+
+    for stage, (cin, cout) in stages.items():
+        ops, ops_t = conv_ops(n_pred, cin, cout, bf), conv_ops(n_step, cin, cout, bf)
+        gout = randn(n_step, hw, cout).to(dev, bf)
+        s_pred, s_step = n_pred * hw, n_step * hw
+        vecs = cout * 4 + 2 * hw * cout * 4
+        timed(("conv_ln_gelu", stage), lambda: tcl.conv_ln_gelu(*ops),
+              lambda: tcl.conv_ln_gelu_plain(*ops), lambda: library(*ops),
+              s_pred * (cin + cout) * s2b + cin * cout * s2b + vecs,
+              2 * s_pred * cin * cout)
+        timed(("conv_ln_gelu_bwd", stage), lambda: tcl.conv_ln_gelu_backward(*ops_t, gout),
+              lambda: tcl.conv_ln_gelu_backward_plain(*ops_t, gout),
+              grads_of(library, ops_t, gout),
+              s_step * (2 * cin + cout) * s2b + 2 * cin * cout * s2b + 2 * vecs + cout * 4,
+              6 * s_step * cin * cout)
+        del ops, ops_t, gout
+
+    # #1 / #3 at the temporal shapes (bf16): #1 as far_rip and the NAR
+    # predict call it (dropout 0), #3 as the FAR and NAR steps do (dropout
+    # 0.1); the yardstick is LayerNorm, F.linear x4 and SDPA with the mask
+    for where, key_f, key_b in (("far_rip", "far_rip 640x20", None),
+                                ("far_step", None, "far_step 640x19"),
+                                ("nar", "nar 1024x10", "nar 1024x10")):
+        cols, t, causal, rates = temporal[where]
+        ops = temporal_ops(cols, t, causal, bf)
+        x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias = ops
+        gout = randn(cols, t, c).to(dev, bf)
+        mask = None if bias is None else bias.to(bf)
+
+        def t_library(x, wq, wk, wv, wo, t=t, cols=cols, ls=ls, lb=lb, pos=pos, mask=mask,
+                      bq=bq, bk=bk, bv=bv, bo=bo):
+            xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
+            xqk = xn + pos.to(bf)
+            split = lambda z: z.view(cols, t, heads, hd).transpose(1, 2)
+            o = F.scaled_dot_product_attention(
+                split(F.linear(xqk, wq.t(), bq.to(bf))),
+                split(F.linear(xqk, wk.t(), bk.to(bf))),
+                split(F.linear(xn, wv.t(), bv.to(bf))), attn_mask=mask)
+            return F.linear(o.transpose(1, 2).reshape(cols, t, c), wo.t(), bo.to(bf))
+
+        rows = cols * t
+        vec = (6 * c + t * c) * 4 + (t * t * 4 if causal else 0)
+        if key_f:
+            timed(("fused_attention_ln", key_f),
+                  lambda: tfw.fused_attention_ln(*ops, kseed, heads, 0.0),
+                  lambda: tfw.fused_attention_ln_plain(*ops, kseed, heads, 0.0),
+                  lambda: t_library(x, wq, wk, wv, wo),
+                  2 * rows * c * s2b + 4 * c * c * s2b + vec,
+                  8 * rows * c * c + 4 * rows * t * c)
+        if key_b:
+            r = rates[-1]
+            timed(("fused_attention_ln_bwd", key_b),
+                  lambda: tfw.fused_attention_ln_backward(*ops, kseed, gout, heads, r,
+                                                          need_dbias=False),
+                  lambda: tfw.fused_attention_ln_backward_plain(*ops, kseed, gout, heads, r,
+                                                                need_dbias=False),
+                  grads_of(t_library, (x, wq, wk, wv, wo), gout),
+                  3 * rows * c * s2b + 8 * c * c * s2b + vec + 8 * c * 4,
+                  22 * rows * c * c + 12 * rows * t * c)
+        del ops, gout
+
+    rows_out = []
+    for name, src, replaces, err, n_launch in (
+            ("conv_ln_gelu", "vptr_tpu_torch/csrc/conv_ln_gelu.cu",
+             "vptr_tpu/ops/fused_conv_ln.py:174", errs["fwd"], pred_launches["conv_ln_gelu"]),
+            ("conv_ln_gelu_bwd", "vptr_tpu_torch/csrc/conv_ln_gelu_bwd.cu",
+             "vptr_tpu/ops/fused_conv_ln.py:196", errs["bwd"],
+             step_launches["conv_ln_gelu_bwd"])):
+        rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": n_launch, "max_abs_err": err,
+                         **readings[(name, "fc1")], "fc2_stage": readings[(name, "fc2")],
+                         "train_step_launches": step_launches[name]})
+    # the #1 / #3 rows' readings at the temporal shapes, by kernel name
+    temporal_rows = {"fused_attention_ln": {}, "fused_attention_ln_bwd": {}}
+    for (name, shape), reading in readings.items():
+        if name in temporal_rows:
+            where = shape.split()[0]
+            err = errs[("ln" if name == "fused_attention_ln" else "ln_bwd", where)]
+            temporal_rows[name][shape] = {"max_abs_err": err, **reading}
+
+    phase("19. nar_mnist conv-FFN route (fused_conv_ffn + fused_full_temporal)")
+    dtype = bf if ncfg.dtype == "bfloat16" else torch.float32
+    n_past, n_fut = ntc.num_past_frames, ntc.num_future_frames
+    enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
+    nenc, ndec = build_autoencoder(ncfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    ntr = build_transformer(ntc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    nframes = torch.rand(nb, n_past + n_fut, 64, 64, 1,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    npast, nfuture = nframes[:, :n_past].to(dev), nframes[:, n_past:].to(dev)
+    npredict = make_predict_fn(ncfg, nenc, ndec, ntr, "nar", n_fut, dev)
+    want_nar = {"conv_ln_gelu": 4 * dec_l, "fused_attention_ln": 2 * enc_l + dec_l,
+                "fused_attention": dec_l, "attention_core": dec_l}
+    npred, nar_pred_launches = counted_predict(npredict, (npast,), want_nar,
+                                               (nb, n_fut, 64, 64, 1), "conv-route nar")
+    predict_vs_plain(npredict, (npast,), ntr, npred, "conv-route nar predict")
+    nopt = build_optimizer(ncfg.optim, c)
+    nstate = create_nar_train_state(nenc, ndec, ntr, nopt, seed=SEED + 3)
+    nar_step = make_nar_train_step(nenc, ndec, ntr, nopt, ncfg.loss)
+    nstate, _ = nar_step(nstate, npast, nfuture)    # the first step's norm is ~1e10
+    want_nar_step = {**want_nar, "conv_ln_gelu_bwd": 4 * dec_l,
+                     "fused_attention_ln_bwd": 2 * enc_l + dec_l,
+                     "fused_attention_bwd": dec_l, "attention_core_bwd": dec_l}
+    nstate, nar_step_launches = counted_step(nar_step, nstate, npast, nfuture,
+                                             want_nar_step, "conv-route NAR train step")
+    step_vs_plain(nar_step, nstate, npast, nfuture, "conv-route NAR step")
+    del nenc, ndec, ntr, nstate, nar_step, npredict
+    torch.cuda.empty_cache()
+
+    pm, sm = times["predict_ms"], times["step_ms"]
+    summary = (f"conv_route_predict_ms {pm['route']:.3f} default_predict_ms "
+               f"{pm['default']:.3f} conv_route_train_step_ms {sm['route']:.3f} "
+               f"default_train_step_ms {sm['default']:.3f} conv_route_step_peak_gib "
+               f"{times['step_peak_gib']['route']:.3f} temporal_folded_ms {t_fold:.4f} "
+               f"temporal_unfolded_ms {t_unfold:.4f}")
+    extra = {"conv_route_predict_launches": pred_launches,
+             "conv_route_step_launches": step_launches,
+             "conv_route_nar_predict_launches": nar_pred_launches,
+             "conv_route_nar_step_launches": nar_step_launches}
+    return rows_out, temporal_rows, extra, summary
 
 
 def main() -> int:
@@ -888,9 +1190,7 @@ def main() -> int:
     tokens = tc.window_size ** 2
     cols = BATCH * tc.enc_h * tc.enc_w
     g = torch.Generator().manual_seed(SEED)
-
-    def randn(*shape, std=1.0):
-        return torch.randn(*shape, generator=g) * std
+    randn = normals(g)
 
     def window_operands(dtype, bw=windows, l=tokens):
         w = [randn(c, c, std=(1.0 / c) ** 0.5).to(dev, dtype) for _ in range(4)]
@@ -1036,29 +1336,12 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(SEED + 2))
     past, future = frames[:, :PAST], frames[:, PAST:]
     predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
-    zero_counters(attention_core, fused_attention_ln)
-    pred = predict(past)
-    torch.cuda.synchronize()
-    launches = {"fused_attention_ln": fused_attention_ln.launches,
-                "attention_core": attention_core.launches}
     want = LAYERS * FUTURE
-    for name, n in launches.items():
-        check(n == want, f"{name} launches in the far_rip run: {n} == {want}")
-    check(tuple(pred.shape) == (BATCH, FUTURE, 64, 64, 1),
-          f"far_rip output shape {tuple(pred.shape)}")
-    check(bool(torch.isfinite(pred.float()).all()), "far_rip output finite")
-    lo, hi = pred.float().min().item(), pred.float().max().item()
-    check(0.0 <= lo and hi <= 1.0, f"far_rip output in [0, 1] ({lo:.4f}, "
-          f"{hi:.4f})")
-
+    _, launches = counted_predict(
+        predict, (past,), {"fused_attention_ln": want, "attention_core": want},
+        (BATCH, FUTURE, 64, 64, 1), "far_rip")
     far = make_predict_fn(cfg, enc, dec, tr, "far", FUTURE, dev)
-    got = far(past, future)
-    use_kernels(tr, "plain")
-    ref = far(past, future)
-    use_kernels(tr, "cuda")
-    e_far = max_err(got, ref)
-    check(e_far <= 5e-2, f"far mode kernels vs kernels='plain' max|err| "
-          f"{e_far:.3e} <= 5e-2 (bf16 sigmoid frames after 12 layers)")
+    predict_vs_plain(far, (past, future), tr, far(past, future), "far mode")
 
     phase("5. far_mnist full width, train step")
     opt = build_optimizer(cfg.optim, tc.d_model)
@@ -1069,60 +1352,18 @@ def main() -> int:
     state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
     train_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
     tpast, tfuture = past.to(dev), future.to(dev)
-    zero_counters(attention_core, fused_attention_ln)
-    state, m0 = train_step(state, tpast, tfuture)
-    torch.cuda.synchronize()
-    train_launches = {
-        "fused_attention_ln": fused_attention_ln.launches,
-        "attention_core": attention_core.launches,
-        "fused_attention_ln_bwd": fused_attention_ln.bwd_launches,
-        "attention_core_bwd": attention_core.bwd_launches}
-    for name, n in train_launches.items():
-        check(n == LAYERS, f"{name} launches in one train step: {n} == {LAYERS}")
-    check(all(bool(torch.isfinite(v)) for v in m0.values()),
-          f"first step metrics finite: "
-          f"{ {k: round(float(v), 6) for k, v in m0.items()} }")
-
-    a, b = state.clone(), state.clone()
-    use_kernels(b.transformer, "plain")
-    a, ma = train_step(a, tpast, tfuture)
-    b, mb = train_step(b, tpast, tfuture)
-    d_total = abs(float(ma["T_total"]) - float(mb["T_total"]))
-    d_norm = abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1)
-    # bf16 through 12 layers and the decoder: the step's loss agrees to
-    # about 1e-3 of its value; the gradient norm to a few percent
-    check(d_total <= 2e-3 * max(1.0, float(mb["T_total"])),
-          f"train step kernels vs kernels='plain' |dT_total| {d_total:.3e} "
-          f"(T_total {float(ma['T_total']):.6f} vs {float(mb['T_total']):.6f})")
-    check(d_norm <= 0.05, f"train step kernels vs kernels='plain' grad norm "
-          f"rel diff {d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
-          f"{float(mb['grad_norm']):.6e})")
-    del a, b
-
-    fixed = state.clone()
-    losses = []
-    for i in range(TRAIN_STEPS):
-        fixed, m = train_step(fixed, tpast, tfuture)
-        losses.append(float(m["T_total"]))
-    print(f"  T_total over {TRAIN_STEPS} steps on one batch: "
-          f"{[round(x, 6) for x in losses]}")
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          "train losses finite")
-    check(losses[-1] < losses[0], f"T_total falls over {TRAIN_STEPS} steps: "
-          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
-    del fixed
+    state, train_launches = counted_step(
+        train_step, state, tpast, tfuture,
+        {k: LAYERS for k in ("fused_attention_ln", "attention_core",
+                             "fused_attention_ln_bwd", "attention_core_bwd")},
+        "FAR train step")
+    step_vs_plain(train_step, state, tpast, tfuture, "FAR step")
+    loss_falls(train_step, state, tpast, tfuture, "FAR")
 
     phase("6. timing")
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30   # weights + train state
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predict(past)
-        torch.cuda.synchronize()
-        if i:                       # the first call warms up
-            times.append((time.perf_counter() - t0) * 1e3)
+    times = [host_ms(lambda: predict(past)) for _ in range(6)][1:]  # the first warms up
     pred_ms = statistics.median(times)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  far_rip predict (batch {BATCH}, {FUTURE} frames): median "
@@ -1137,13 +1378,6 @@ def main() -> int:
     use_kernels(tr, "cuda")
     print(f"  far_rip predict with kernels='plain': {plain_pred_ms:.3f} ms")
 
-    def timed_step(st):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, _ = train_step(st, tpast, tfuture)
-        torch.cuda.synchronize()
-        return st, (time.perf_counter() - t0) * 1e3
-
     # the kernels' state and the plain one take steps in turns (kernels,
     # plain, plain, kernels, ...), so host noise falls on both alike
     frames_per_step = BATCH * tt
@@ -1155,7 +1389,7 @@ def main() -> int:
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         order = ((kstate, step_times), (pstate, plain_times))
         for which, out in (order if i % 2 == 0 else order[::-1]):
-            st, ms = timed_step(which)
+            ms = host_ms(lambda: train_step(which, tpast, tfuture))
             if i >= WARMUP_STEPS:
                 out.append(ms)
     step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1206,13 +1440,13 @@ def main() -> int:
     cb_bytes = 7 * cols * heads * tt * hd * s + tt * tt * 4
     cb_flops = 10 * cols * heads * tt * tt * hd
 
-    # the library yardstick's backward: dx and the four weight gradients
-    lib_in = [z.clone().requires_grad_() for z in (tops[0], wq, wk, wv, wo)]
-    lib_out = window_library(*lib_in)
-    lib_g = torch.randn(lib_out.shape, generator=g).to(dev, bf)
-    lq, lk, lv = (z.clone().requires_grad_() for z in (tq_, tk_, tv_))
-    core_lib_out = F.scaled_dot_product_attention(lq, lk, lv,
-                                                  attn_mask=tcausal.to(bf))
+    # the library yardsticks' backwards: dx and the four weight gradients;
+    # dq, dk, dv
+    lib_g = torch.randn(twindows, tokens, c, generator=g).to(dev, bf)
+    window_lib_bwd = grads_of(window_library, (tops[0], wq, wk, wv, wo), lib_g)
+    core_lib_bwd = grads_of(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf)),
+        (tq_, tk_, tv_), gcore)
 
     rows_out = []
     for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
@@ -1235,7 +1469,7 @@ def main() -> int:
                                                  rate),
          lambda: fused_attention_ln_backward_plain(*tops, None, kseed, gwin,
                                                    heads, rate),
-         lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True),
+         window_lib_bwd,
          wb_bytes, wb_flops, errs[("window_bwd", bf)],
          train_launches["fused_attention_ln_bwd"]),
         ("attention_core_bwd", "vptr_tpu_torch/csrc/attention_core.cu",
@@ -1244,8 +1478,7 @@ def main() -> int:
                                              gcore, rate, need_dbias=False),
          lambda: attention_core_backward_plain(tq_, tk_, tv_, tcausal, kseed,
                                                gcore, rate, False),
-         lambda: torch.autograd.grad(core_lib_out, (lq, lk, lv), gcore,
-                                     retain_graph=True),
+         core_lib_bwd,
          cb_bytes, cb_flops, errs[("core_bwd", bf)],
          train_launches["attention_core_bwd"]),
     ):
@@ -1268,16 +1501,22 @@ def main() -> int:
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
 
     # the FAR path's modules and operands go before the NAR phases
-    del enc, dec, tr, predict, far, wops, tops, q, k, v, lib_in, lib_out
-    del lq, lk, lv, core_lib_out, gwin, gcore, tq_, tk_, tv_
+    del enc, dec, tr, predict, far, wops, tops, q, k, v, window_lib_bwd, core_lib_bwd
+    del gwin, gcore, tq_, tk_, tv_
     torch.cuda.empty_cache()
     nar_rows, nar_extra, nar_summary = nar_phases(dev)
     rows_out += nar_rows
     torch.cuda.empty_cache()
     ffn_rows, ffn_extra, ffn_summary = ffn_phases(dev)
     rows_out += ffn_rows
+    torch.cuda.empty_cache()
+    conv_rows, temporal_rows, conv_extra, conv_summary = conv_phases(dev)
+    rows_out += conv_rows
+    for row in rows_out:          # #1 / #3 at the folded temporal sublayer's shapes
+        if row["name"] in temporal_rows:
+            row["temporal_shapes"] = temporal_rows[row["name"]]
 
-    phase("15. result")
+    phase("20. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -1286,6 +1525,8 @@ def main() -> int:
     print(f"  {json.dumps(nar_extra)}")
     print(f"  {ffn_summary}")
     print(f"  {json.dumps(ffn_extra)}")
+    print(f"  {conv_summary}")
+    print(f"  {json.dumps(conv_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

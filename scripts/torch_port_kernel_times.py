@@ -2,6 +2,7 @@
 port, for comparing two checkouts on one GPU.
 
     python3 scripts/torch_port_kernel_times.py [--root DIR] [--repeats 5]
+        [--conv-route]
 
 Imports ``vptr_tpu_torch`` from ``--root`` (default: the checkout holding
 this script), builds its kernels there, and times in bf16, at the far_mnist
@@ -16,6 +17,9 @@ shapes:
   12,800 x 528 rows, hidden 2112, dropout 0; its backward (#8) 12,160 rows,
   dropout 0.1; ``fused_dw_chain`` (#9) 200 x 64 x 2112, dropout 0; its
   backward (#10) 190 samples, dropout 0.1;
+* with ``--conv-route``, where the tree has it: ``conv_ln_gelu`` (#11) over
+  200 samples of 64 positions at both conv-FFN stages (fc1 528 -> 2112,
+  fc2 2112 -> 528), its backward (#12) over 190;
 each as the mean CUDA-event time of 50 back-to-back calls after 5 warm-ups,
 ``--repeats`` times; the full-width far_mnist far_rip predict (batch 10,
 10 past -> 10 predicted frames, random weights from a seed), host clock
@@ -23,7 +27,9 @@ around a synchronised call, ``--repeats`` calls after one warm-up; and the
 far_mnist train step (batch 10, T = 19, dropout 0.1), host clock around a
 synchronised step, ``2 * --repeats`` steps after two warm-ups; both again
 on the fused feed-forward route (``ffn_route_*``; null for a tree without
-it). Prints one JSON line with every reading and their medians. To compare
+it) and, with ``--conv-route``, on the conv-FFN route with the folded
+temporal sublayer (``conv_route_*``; null for a tree without it). Prints
+one JSON line with every reading and their medians. To compare
 two trees, run it on each in turns (A B B A) within one machine. Needs a
 GPU; exits non-zero without one.
 """
@@ -57,6 +63,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--conv-route", action="store_true",
+                        help="also time #11/#12 and the conv-FFN route")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_kernel_times: no GPU", file=sys.stderr)
@@ -85,6 +93,12 @@ def main() -> int:
         from vptr_tpu_torch.ops import fused_ffn as tff
     except ImportError:         # a tree from before the fused-FFN route
         tdw = tff = None
+    tcl = None
+    if args.conv_route:
+        try:
+            from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+        except ImportError:     # a tree from before the conv-FFN route
+            pass
     from vptr_tpu_torch.train.state import create_far_train_state
     from vptr_tpu_torch.train.steps import make_far_train_step
 
@@ -112,6 +126,9 @@ def main() -> int:
     if tff is not None:
         routes["ffn_route_"] = cfg.override(
             {"transformer": {"fused_ffn": True, "fused_dw": True}})
+    if tcl is not None:
+        routes["conv_route_"] = cfg.override(
+            {"transformer": {"fused_conv_ffn": True, "fused_full_temporal": True}})
     enc, dec = build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(0))
     trs = {route: build_transformer(rc.transformer, bf, dev,
                                     torch.Generator().manual_seed(1))
@@ -153,6 +170,23 @@ def main() -> int:
             "fused_dw_chain_bwd_ms": lambda: tdw.fused_dw_chain_backward(
                 *dops_t, seed, gdw, 8, 0.1),
         })
+    if tcl is not None:
+        hid = 4 * c
+
+        def conv_ops(n, cin, cout):
+            return (r(n, 64, cin).to(bf), r(cin, cout, std=cin ** -0.5).to(bf),
+                    r(cout, std=0.1), 1 + r(64, cout, std=0.1), r(64, cout, std=0.1))
+
+        for stage, (cin, cout) in (("fc1", (c, hid)), ("fc2", (hid, c))):
+            cops, cops_t = conv_ops(200, cin, cout), conv_ops(190, cin, cout)
+            gconv = r(190, 64, cout).to(bf)
+            kernels.update({
+                f"conv_ln_gelu_{stage}_ms":
+                    lambda cops=cops: tcl.conv_ln_gelu(*cops),
+                f"conv_ln_gelu_bwd_{stage}_ms":
+                    lambda cops_t=cops_t, gconv=gconv: tcl.conv_ln_gelu_backward(
+                        *cops_t, gconv),
+            })
     readings = {name: [] for name in kernels}
     for route in routes:
         readings.update({f"{route}predict_ms": [], f"{route}train_step_ms": []})
@@ -184,6 +218,11 @@ def main() -> int:
         for name in ("fused_ffn_ms", "fused_ffn_bwd_ms", "fused_dw_chain_ms",
                      "fused_dw_chain_bwd_ms", "ffn_route_predict_ms",
                      "ffn_route_train_step_ms"):
+            out[name] = None
+    if args.conv_route and tcl is None:
+        for name in ("conv_ln_gelu_fc1_ms", "conv_ln_gelu_bwd_fc1_ms",
+                     "conv_ln_gelu_fc2_ms", "conv_ln_gelu_bwd_fc2_ms",
+                     "conv_route_predict_ms", "conv_route_train_step_ms"):
             out[name] = None
     print(json.dumps(out))
     return 0

@@ -1,10 +1,12 @@
 """Where the time goes in the port's predict call or train step, on one
 GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR); --ffn-route turns on
 the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
-#7-#10).
+#7-#10), --conv-route the conv-FFN route with the folded temporal sublayer
+(transformer.fused_conv_ffn and fused_full_temporal: kernels #11/#12, and
+#1/#3 on the temporal sublayer).
 
-    python3 scripts/torch_port_profile.py [--nar] [--train] [--ffn-route]
-        [--kernels cuda|plain] [--top 15]
+    python3 scripts/torch_port_profile.py [--nar] [--train]
+        [--ffn-route | --conv-route] [--kernels cuda|plain] [--top 15]
 
 Builds the preset at full width from a seed (as chip_smoke.py does), warms
 the predict call (far_rip, batch 10, 10 frames; --nar: nar, batch 16,
@@ -39,6 +41,8 @@ def main() -> int:
                         help="nar_mnist (NAR) instead of far_mnist (FAR)")
     parser.add_argument("--ffn-route", action="store_true",
                         help="transformer.fused_ffn and fused_dw on")
+    parser.add_argument("--conv-route", action="store_true",
+                        help="transformer.fused_conv_ffn and fused_full_temporal on")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
@@ -57,6 +61,9 @@ def main() -> int:
     cfg = get_preset("nar_mnist" if args.nar else "far_mnist")
     if args.ffn_route:
         cfg = cfg.override({"transformer": {"fused_ffn": True, "fused_dw": True}})
+    if args.conv_route:
+        cfg = cfg.override({"transformer": {"fused_conv_ffn": True,
+                                            "fused_full_temporal": True}})
     batch = cfg.data.batch_size if args.nar else 10
     dev = torch.device("cuda")
     enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
@@ -94,7 +101,9 @@ def main() -> int:
             rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
-    route = "fused-FFN route" if args.ffn_route else "default route"
+    route = " + ".join(name for name, on in (("fused-FFN route", args.ffn_route),
+                                             ("conv-FFN route", args.conv_route))
+                       if on) or "default route"
     print(f"kernels={args.kernels} {route} {what}, traced: wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
     for ms, count, key in rows[:args.top]:

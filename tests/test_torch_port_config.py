@@ -91,8 +91,8 @@ def test_kernel_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("override,match", [
     ({"variant": "nar", "tslma": True}, "TSLMA slice"),
     ({"remat": True}, "trainer slice"),
-    ({"fused_full_temporal": True}, "LN-folded kernels #1/#3"),
-    ({"fused_conv_ffn": True}, "default-off kernels"),
+    ({"sequence_parallel": True}, "multi-GPU slice"),
+    ({"variant": "nar", "sequence_parallel": True}, "multi-GPU slice"),
     ({"scan_layers": True}, "trainer slice"),
 ])
 def test_unported_routes_raise(override, match):

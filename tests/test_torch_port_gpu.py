@@ -388,3 +388,94 @@ def test_fused_dw_chain_kernels_match_plain(cuda, dtype, rate, n):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel_err(a, b) <= BWD_TOL[dtype], name
         assert torch.equal(a, a2), name
+
+
+# ---- the conv-FFN route: kernels #11 / #12 (conv_ln_gelu) at both stages of
+# the far_mnist conv FFN (fc1 528 -> 2112, fc2 2112 -> 528, 8 x 8 latents),
+# and #1 / #3 at the folded temporal sublayer's shape (T = 20 predict, 19
+# step, the causal bias and the position table)
+
+def _conv_operands(g, n, cin, cout, dtype, cuda, hw=64):
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    return (r(n, hw, cin).to(dtype), r(cin, cout, std=cin ** -0.5).to(dtype),
+            r(cout, std=0.1), 1 + r(hw, cout, std=0.1), r(hw, cout, std=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(528, 2112), (2112, 528)])
+@pytest.mark.parametrize("n", [190, 13])
+def test_conv_ln_gelu_kernels_match_plain(cuda, dtype, cin, cout, n):
+    """190 samples: the training step's; 13: fewer sample groups than the
+    backward's clusters hold."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(15)
+    args = _conv_operands(g, n, cin, cout, dtype, cuda)
+    before = (tcl.conv_ln_gelu.launches, tcl.conv_ln_gelu.bwd_launches)
+    fwd = tcl.conv_ln_gelu(*args)
+    want = tcl.conv_ln_gelu_plain(*args)
+    assert fwd.dtype == dtype and fwd.shape == want.shape
+    assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = torch.randn(n, 64, cout, generator=g).to(cuda, dtype)
+    got = tcl.conv_ln_gelu_backward(*args, dout)
+    want = tcl.conv_ln_gelu_backward_plain(*args, dout)
+    again = tcl.conv_ln_gelu_backward(*args, dout)
+    torch.cuda.synchronize()
+    assert (tcl.conv_ln_gelu.launches, tcl.conv_ln_gelu.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    for name, a, b, a2 in zip(("dx", "dw", "db", "dscale", "dbias2"), got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+        assert torch.equal(a, a2), name          # no atomics: the same bits
+
+
+@pytest.mark.gpu
+def test_conv_ln_gelu_autograd_and_refusals(cuda):
+    """The autograd Function launches #11 forward and #12 backward; shapes
+    the kernels do not take raise instead of falling back."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(16)
+    args = [a.requires_grad_() for a in _conv_operands(g, 6, 48, 96, torch.float32, cuda)]
+    before = (tcl.conv_ln_gelu.launches, tcl.conv_ln_gelu.bwd_launches)
+    tcl.conv_ln_gelu(*args).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tcl.conv_ln_gelu.launches, tcl.conv_ln_gelu.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
+    bad = _conv_operands(g, 2, 24, 48, torch.float32, cuda)   # Cin not 16k
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tcl.conv_ln_gelu(*bad)
+    bad = _conv_operands(g, 2, 48, 48, torch.float32, cuda, hw=36)
+    with pytest.raises(ValueError, match="HW a multiple of 16"):
+        tcl.conv_ln_gelu(*bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tokens", [20, 19, 10])
+def test_fused_attention_ln_temporal_shape(cuda, dtype, rate, tokens):
+    """#1 and #3 as the folded temporal sublayer calls them: columns of T
+    tokens (20: far_rip predict, 19: the FAR step, 10: NAR), the causal
+    bias (FAR) or none (NAR), the temporal position table on q/k."""
+    g = torch.Generator().manual_seed(17)
+    c, cols = 528, 160
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    bias = None if tokens == 10 else _causal(tokens, cuda)
+    args = (r(cols, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2],
+            w[3], b[3], 1 + r(c, std=0.1), r(c, std=0.1), r(tokens, c, std=0.5), bias)
+    seed = _seed(cuda)
+    got = tfw.fused_attention_ln(*args, seed, 8, rate)
+    want = tfw.fused_attention_ln_plain(*args, seed, 8, rate)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    dout = torch.randn(cols, tokens, c, generator=g).to(cuda, dtype)
+    got = tfw.fused_attention_ln_backward(*args, seed, dout, 8, rate)
+    want = tfw.fused_attention_ln_backward_plain(*args, seed, dout, 8, rate)
+    torch.cuda.synchronize()
+    for name, a, bb in zip(("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+                            "dbo", "dls", "dlb"), got, want):
+        assert _rel_err(a, bb) <= BWD_TOL[dtype], name

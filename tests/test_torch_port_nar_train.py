@@ -77,7 +77,9 @@ def _leaf_errors(got, want):
 
 
 def _setup(route, past, seed=80, weighted=False):
-    over = dict(dropout=0.0, drop_path=0.0, **ROUTES[route])
+    """``route``: a name of ROUTES or a dict of transformer flags."""
+    flags = ROUTES[route] if isinstance(route, str) else route
+    over = dict(dropout=0.0, drop_path=0.0, **flags)
     jc, tc = small_nar_cfgs(past, 3, **over)
     jc = jc.override({"loss": {"temporal_weight": weighted}})
     tc = tc.override({"loss": {"temporal_weight": weighted}})

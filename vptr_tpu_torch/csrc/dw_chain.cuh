@@ -13,25 +13,20 @@
 // sequence. The depthwise conv never mixes channels, so a thread-block
 // cluster of kCluster blocks on neighbouring SMs takes one sample, each
 // block a slice of C / kCluster channels at every position, held in shared
-// memory in f32. The only cross-block work is the statistics: each
-// block's partial sum goes to its shared memory, the cluster synchronises,
-// and every block adds the kCluster partial sums through distributed shared
-// memory in rank order, so all blocks hold the same value and the result
-// is the same on every run.
+// memory in f32. The only cross-block work is the statistics, summed over
+// the cluster through distributed shared memory in rank order
+// (cluster.cuh), so the result is the same on every run.
 #pragma once
 
-#include <cooperative_groups.h>
-
+#include "cluster.cuh"
 #include "gelu_as.cuh"
 #include "hash_dropout.cuh"
 #include "tile_ops.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kCluster = 8;           // blocks per sample (the portable maximum)
-constexpr int kMaxDwWarps = 32;       // a block's threads: up to 1024
+constexpr int kDwWarps = 32;          // a block's warps (1024 threads)
 constexpr int kSlots = 6;             // cluster reductions per sample
 
 // The block's channel slice of one sample: C / kCluster channels (C a
@@ -83,41 +78,8 @@ __device__ __forceinline__ void st4(bf16* p, const F4& f) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// Reduction scratch in static shared memory: per-warp sums, then each
-// slot's block sum, read by the cluster's other blocks.
-struct Red {
-  float warp[kMaxDwWarps][2];
-  float slot[kSlots][2];
-};
-
-// v[i] <- the sum of v[i] over every thread of the cluster (NV <= 2), in a
-// fixed order: lanes by shuffle, warps in order, blocks in rank order.
-template <int NV>
-__device__ __forceinline__ void cluster_sum(float (&v)[NV], Red& red, int slot,
-                                            cg::cluster_group& cluster) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
-  if (lane == 0)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) red.warp[warp][i] = v[i];
-  __syncthreads();
-  if (threadIdx.x == 0)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float s = 0.f;
-      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += red.warp[w][i];
-      red.slot[slot][i] = s;
-    }
-  cluster.sync();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = 0.f;
-  for (int r = 0; r < kCluster; ++r) {
-    const Red* other = cluster.map_shared_rank(&red, r);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) v[i] += other->slot[slot][i];
-  }
-}
+// Reduction scratch of the cluster sums (cluster.cuh).
+using Red = ClusterRed<kDwWarps, kSlots>;
 
 // z2 at the quad (p, cl) of the slice: dwb + the nine taps (row-major
 // (dy, dx), cross-correlation, zero padding) over z1 in shared memory.

@@ -20,7 +20,7 @@
 
 namespace {
 
-constexpr int kFwdThreads = 1024;     // 32 warps: loads in flight hide L2 latency
+constexpr int kFwdThreads = 32 * kDwWarps;   // loads in flight hide L2 latency
 
 template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kFwdThreads, 1)

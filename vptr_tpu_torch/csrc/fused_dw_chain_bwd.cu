@@ -33,7 +33,7 @@
 namespace {
 
 constexpr int kGroups = 16;           // clusters (sample groups) at most
-constexpr int kBwdThreads = 1024;     // 32 warps: loads in flight hide L2 latency
+constexpr int kBwdThreads = 32 * kDwWarps;   // loads in flight hide L2 latency
 
 __host__ __device__ int group_size(int N) { return (N + kGroups - 1) / kGroups; }
 __host__ __device__ int groups(int N) {

@@ -23,7 +23,13 @@ Counterpart of ``vptr_tpu/models/layers.py``:
 * The feed-forward kernel routes: :class:`Mlp` with ``fused`` takes its
   leading LayerNorm's affine and the raw x into ``fused_ffn``
   (``layers.py:736-757``); the LayerNorm :class:`MlpDWBN` with ``fused_dw``
-  runs its middle chain in ``fused_dw_chain`` (``layers.py:632-658``).
+  runs its middle chain in ``fused_dw_chain`` (``layers.py:632-658``), and
+  with ``fused_ln`` its fc1 and fc2 stages (1x1 conv, whole-sample norm,
+  GELU) in ``conv_ln_gelu`` (``layers.py:660-684``).
+* The temporal kernel route: :class:`TemporalAttention` with ``fused_full``
+  takes its sublayer's LayerNorm affine and the raw x into
+  ``fused_attention_ln`` (``layers.py:503-508``), as the window sublayer
+  does.
 
 Train mode (``module.train()``): attention-weight dropout runs inside the
 kernels from an int32 seed per call; BatchNorm normalises with the batch
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vptr_tpu_torch.ops.attention_core import attention_core, attention_core_plain
+from vptr_tpu_torch.ops.conv_ln_gelu import conv_ln_gelu, conv_ln_gelu_plain
 from vptr_tpu_torch.ops.fused_dw_chain import fused_dw_chain, fused_dw_chain_plain
 from vptr_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_plain
 from vptr_tpu_torch.ops.fused_window_attention import (
@@ -308,20 +315,25 @@ class WindowAttention(nn.Module):
 
 class TemporalAttention(nn.Module):
     """Attention over the time axis at every (n, h, w) position; ``causal``
-    adds the static mask as a -1e30 (1, T, T) bias (self-attention only)."""
+    adds the static mask as a -1e30 (1, T, T) bias (self-attention only).
+    ``fused_full`` (with ``fused``): a self-attention call with ``ln`` runs
+    the whole sublayer, its LayerNorm folded in, in ``fused_attention_ln``
+    (``layers.py:503-508``)."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  fused: bool = False, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, fused_full: bool = False):
         super().__init__()
         self.causal = causal
-        self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype,
+        self.attn = MultiHeadAttention(dim, num_heads, fused, fused_full, dtype,
                                        dropout)
 
-    def forward(self, x, pos_q, generator=None, *, kv=None, pos_k=None):
+    def forward(self, x, pos_q, generator=None, *, kv=None, pos_k=None, ln=None):
         """x: (N, T, H, W, C), ``pos_q``: (T, C). Cross-attention
         (``layers.py:510-518``): keys and values from ``kv`` (N, Tk, H, W,
-        C), ``pos_k`` (Tk, C) on the keys."""
+        C), ``pos_k`` (Tk, C) on the keys. ``ln``: the sublayer's LayerNorm
+        (scale, bias) with x the raw pre-norm input (self-attention only):
+        q/k = LN(x) + pos_q, v = LN(x)."""
         n, t, h, w, c = x.shape
 
         def cols(y):   # (N, T, H, W, C) -> (N, H*W, T, C)
@@ -331,6 +343,12 @@ class TemporalAttention(nn.Module):
         if self.causal and kv is None:   # -1e30 above the diagonal
             bias = torch.full((t, t), -1e30, device=x.device).triu(1)[None]
         xc = cols(x)
+        if ln is not None:
+            if kv is not None:
+                raise ValueError("ln folding needs self-attention (kv=None)")
+            out = self.attn(xc, xc, xc, bias=bias, ln=ln, qk_pos=pos_q,
+                            generator=generator)
+            return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
         q = xc + pos_q[None, None].to(x.dtype)
         if kv is None:
             k, v = q, xc
@@ -388,11 +406,17 @@ class MlpDWBN(nn.Module):
     ``layers.py:632``): the chain between the two 1x1 products runs in the
     ``fused_dw_chain`` kernel (A&S GELU, dropout in-kernel from a drawn
     seed); fc1 and fc2 stay channels-last products outside it, then norm3
-    -> GELU -> drop (``layers.py:632-658``). Same parameters either way."""
+    -> GELU -> drop (``layers.py:632-658``). ``fused_ln`` (LayerNorm flavour
+    only, after ``fused_dw`` in precedence, as ``layers.py:660``): fc1 ->
+    norm1 -> GELU and fc2 -> norm3 -> GELU each run in the ``conv_ln_gelu``
+    kernel (A&S GELU); the depthwise conv, norm2, the exact GELU and both
+    dropouts stay outside it (``layers.py:660-684``). Same parameters on
+    every route."""
 
     def __init__(self, dim: int, hidden_dim: int, h: int, w: int,
                  norm: str = "layer", dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, fused_dw: bool = False):
+                 dropout: float = 0.0, fused_dw: bool = False,
+                 fused_ln: bool = False):
         super().__init__()
         if norm not in ("layer", "batch"):
             raise ValueError(f"MlpDWBN norm must be 'layer' or 'batch', got {norm!r}")
@@ -401,6 +425,7 @@ class MlpDWBN(nn.Module):
                      (lambda ch: BatchNorm(ch, dtype=dtype)))
         self.dtype = dtype
         self.fused_dw = fused_dw and norm == "layer"
+        self.fused_ln = fused_ln and norm == "layer" and not self.fused_dw
         self.kernels = "cuda"            # see use_kernels
         self.fc1 = nn.Conv2d(dim, hidden_dim, 1)
         self.norm1 = make_norm(hidden_dim)
@@ -438,9 +463,30 @@ class MlpDWBN(nn.Module):
         y = self.drop(F.gelu(self.norm3(y)), generator)
         return y.permute(0, 2, 3, 1).reshape(n, t, h, w, c)
 
+    def _conv_ln_forward(self, x, generator):
+        n, t, h, w, c = x.shape
+        fn = conv_ln_gelu_plain if self.kernels == "plain" else conv_ln_gelu
+
+        def stage(conv: nn.Conv2d, norm: LayerNormHWC, z):
+            # z (n t, h w, C_in) -> gelu(norm(conv(z))) (n t, h w, C_out); the
+            # LayerNormHWC affine (C_out, h, w) goes in as (h w, C_out)
+            cout = conv.out_channels
+            hwc = lambda p: p.permute(1, 2, 0).reshape(h * w, cout).contiguous()
+            return fn(z.contiguous(), conv.weight[:, :, 0, 0].t().to(self.dtype).contiguous(),
+                      conv.bias.float(), hwc(norm.weight), hwc(norm.bias))
+
+        y = stage(self.fc1, self.norm1, x.reshape(n * t, h * w, c).to(self.dtype))
+        hd = y.shape[-1]
+        y = y.reshape(n * t, h, w, hd).permute(0, 3, 1, 2)
+        y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator)
+        y = stage(self.fc2, self.norm3, y.permute(0, 2, 3, 1).reshape(n * t, h * w, hd))
+        return self.drop(y, generator).reshape(n, t, h, w, c)
+
     def forward(self, x, generator=None):
         if self.fused_dw:
             return self._fused_forward(x, generator)
+        if self.fused_ln:
+            return self._conv_ln_forward(x, generator)
         n, t, h, w, c = x.shape
         y = x.reshape(n * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
         y = F.gelu(self.norm1(self._conv(self.fc1, y)))

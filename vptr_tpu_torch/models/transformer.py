@@ -23,13 +23,17 @@ encoder-decoder attention on the ``attention_core`` kernel; ``rpe`` puts
 the relative-position bias into the window kernels. ``fused_ffn`` sends
 every linear FFN sublayer (with its leading norm4) to the ``fused_ffn``
 kernel and ``fused_dw`` every LayerNorm conv FFN's middle chain to
-``fused_dw_chain`` (the NAR encoder's BatchNorm conv FFN ignores it, as in
-the JAX package). In train mode the
+``fused_dw_chain``; ``fused_conv_ffn`` sends each LayerNorm conv FFN's fc1
+and fc2 stages to ``conv_ln_gelu`` (``fused_dw`` takes precedence, as in
+the JAX package; the NAR encoder's BatchNorm conv FFN ignores both).
+``fused_full_temporal`` (with ``fused_attention`` and ``fused_full``)
+folds the temporal self-attention sublayer's LayerNorm into
+``fused_attention_ln`` at T tokens (``transformer.py:134-145, 224-238``);
+the enc-dec attention stays on ``attention_core``. In train mode the
 attention dropout runs inside the kernels, DropPath acts on the window,
 conv-FFN (and enc-dec) branches and Dropout on the temporal and
 linear-FFN branches, all drawn from the ``generator`` passed to
-``forward``. ``fused_conv_ffn``, ``fused_full_temporal`` and TSLMA come
-with later slices and raise here.
+``forward``. TSLMA comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -63,11 +67,6 @@ from vptr_tpu_torch.models.position import (
 _LATER = {
     "tslma": "TSLMA enc-dec attention with the 3D position table "
              "(TSLMA slice)",
-    "fused_full_temporal": "the LN-folded kernels #1/#3 on the temporal "
-                           "sublayer at padded token counts "
-                           "(default-off kernels slice)",
-    "fused_conv_ffn": "the conv_ln_gelu kernels #11/#12 (default-off kernels "
-                      "slice)",
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
     "scan_layers": "the stacked (scanned) parameter tree (trainer slice)",
     "remat": "activation checkpointing of the blocks (trainer slice)",
@@ -90,6 +89,15 @@ def _ffn(ffn: Mlp, norm: LayerNorm, x, generator):
     return ffn(norm(x), generator)
 
 
+def _temporal(ta: TemporalAttention, norm: LayerNorm, x, pos_t, generator):
+    """The temporal self-attention sublayer before its residual: on the
+    folded route the norm's affine goes into the kernel with the raw x
+    (``transformer.py:141-145``), else the norm runs first."""
+    if ta.attn.fused_full:
+        return ta(x, pos_t, generator, ln=(norm.weight, norm.bias))
+    return ta(norm(x), pos_t, generator)
+
+
 class EncoderBlock(nn.Module):
     """VidHRFormerBlockEnc: FAR (``far``: causal temporal attention,
     LayerNormHWC conv FFN) or the NAR encoder's (non-causal, BatchNorm conv
@@ -108,9 +116,7 @@ class EncoderBlock(nn.Module):
                  dropout: float = 0.0, attn_dropout: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _refuse_later(fused_full_temporal=fused_full_temporal,
-                      fused_conv_ffn=fused_conv_ffn,
-                      sequence_parallel=sequence_parallel)
+        _refuse_later(sequence_parallel=sequence_parallel)
         self.fold = fused_attention and fused_full
         self.fused_residual = fused_residual
         attn_drop = dropout if attn_dropout is None else attn_dropout
@@ -121,11 +127,13 @@ class EncoderBlock(nn.Module):
         self.spatial_ffn = MlpDWBN(
             dim, ffn_hidden_ratio * dim, enc_h, enc_w,
             conv_ffn_norm or ("layer" if far else "batch"), dtype, dropout,
-            fused_dw)
+            fused_dw, fused_conv_ffn)
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.temporal = TemporalAttention(dim, num_heads, causal=far,
                                           fused=fused_attention, dtype=dtype,
-                                          dropout=attn_drop)
+                                          dropout=attn_drop,
+                                          fused_full=self.fold
+                                          and fused_full_temporal)
         self.norm4 = LayerNorm(dim, dtype=dtype)
         self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.drop_path = DropPath(drop_path)
@@ -154,7 +162,7 @@ class EncoderBlock(nn.Module):
         else:
             x = x + dp(self.slmhsa(self.norm1(x), pos2d, generator=generator))
         x = x + dp(self.spatial_ffn(self.norm2(x), generator))
-        x = x + drop(self.temporal(self.norm3(x), pos_t, generator))
+        x = x + drop(_temporal(self.temporal, self.norm3, x, pos_t, generator))
         return x + drop(_ffn(self.ffn, self.norm4, x, generator))
 
 
@@ -228,25 +236,25 @@ class DecoderBlockNAR(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         del fused_residual
-        _refuse_later(tslma=tslma, fused_full_temporal=fused_full_temporal,
-                      fused_conv_ffn=fused_conv_ffn,
-                      sequence_parallel=sequence_parallel)
+        _refuse_later(tslma=tslma, sequence_parallel=sequence_parallel)
         attn_drop = dropout if attn_dropout is None else attn_dropout
         conv_ffn = lambda: MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
-                                   "layer", dtype, dropout, fused_dw)
-        temporal = lambda: TemporalAttention(dim, num_heads, False,
-                                             fused_attention, dtype, attn_drop)
+                                   "layer", dtype, dropout, fused_dw,
+                                   fused_conv_ffn)
+        temporal = lambda fused_full: TemporalAttention(
+            dim, num_heads, False, fused_attention, dtype, attn_drop, fused_full)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.slmhsa = WindowAttention(dim, num_heads, window, fused_attention,
                                       fused_full, dtype, attn_drop, rpe)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.spatial_ffn = conv_ffn()
         self.norm3 = LayerNorm(dim, dtype=dtype)
-        self.temporal = temporal()
+        self.temporal = temporal(fused_attention and fused_full
+                                 and fused_full_temporal)
         self.norm4 = LayerNorm(dim, dtype=dtype)
         self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.norm5 = LayerNorm(dim, dtype=dtype)
-        self.enc_dec = temporal()
+        self.enc_dec = temporal(False)
         self.norm6 = LayerNorm(dim, dtype=dtype)
         self.spatial_ffn2 = conv_ffn()
         self.drop_path = DropPath(drop_path)
@@ -264,7 +272,8 @@ class DecoderBlockNAR(nn.Module):
         tgt = tgt + dp(self.slmhsa(t2 + query_pos, pos2d, value=t2,
                                    generator=generator))
         tgt = tgt + dp(self.spatial_ffn(self.norm2(tgt), generator))
-        tgt = tgt + drop(self.temporal(self.norm3(tgt), pos_t_future, generator))
+        tgt = tgt + drop(_temporal(self.temporal, self.norm3, tgt, pos_t_future,
+                                   generator))
         tgt = tgt + drop(_ffn(self.ffn, self.norm4, tgt, generator))
         # 5) encoder-decoder attention over time at each location
         y = self.enc_dec(self.norm5(tgt) + query_pos, pos_t_future, generator,

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention_core", "fused_window_attention_ln",
            "fused_window_attention_ln_bwd", "fused_window_attention",
            "fused_window_attention_bwd", "fused_ffn", "fused_ffn_bwd",
-           "fused_dw_chain", "fused_dw_chain_bwd")
+           "fused_dw_chain", "fused_dw_chain_bwd", "conv_ln_gelu",
+           "conv_ln_gelu_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
