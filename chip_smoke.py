@@ -5,7 +5,10 @@
 Phases (any failure exits non-zero, without the final result line):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-   and print the build time and ptxas's register / spill report;
+   and print the build time and ptxas's register / spill report and any
+   warning that it serialised wgmma products (C7520);
+   count the HGMMA (wgmma) instructions in the conv_ln_gelu library's SASS
+   (cuobjdump) and fail if there are none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
@@ -62,7 +65,9 @@ Phases (any failure exits non-zero, without the final result line):
 14. times: #7-#10 beside their plain versions, a library yardstick and the
    bound; the far_rip predict and the train step on the fused route and the
    default route in turns, and each step's memory peak above what is held;
-15. the conv-FFN route's kernels (#11/#12 conv_ln_gelu) against their
+15. #11's bf16 product alone (the wgmma ring, 64 rows by 176, 352 and 528
+   columns, K 528 and 2112) against an f32 matmul of the same operands;
+   the conv-FFN route's kernels (#11/#12 conv_ln_gelu) against their
    plain versions at both stages of the far_mnist conv FFN (fc1 528 ->
    2112, fc2 2112 -> 528 over 8 x 8 latents; 200 samples forward, 190
    backward), and #1/#3 as the folded temporal sublayer calls them (the
@@ -81,7 +86,8 @@ Phases (any failure exits non-zero, without the final result line):
    route in turns; the folded temporal sublayer (#1) against the default
    route's (LayerNorm, projections, #2); #11/#12 at both stages and #1/#3
    at the temporal shapes beside their plain versions, a library yardstick
-   and the bound;
+   and the bound; #11's and #12's yardsticks also replayed from CUDA graphs
+   (the backward's as forward + backward less forward);
 19. nar_mnist with the same two flags: the nar predict (#11 32, #1 16, #5 8,
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
@@ -146,6 +152,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn) -> float:
+    """Mean device time of one replay of fn captured in a CUDA graph (three
+    warm-up calls on a side stream first), from CUDA events as cuda_ms:
+    the launches replayed without the host between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
+
+
+def hgmma_count(library) -> int:
+    """HGMMA (wgmma) instructions in the SASS of a built kernel library
+    (cuobjdump beside nvcc)."""
+    from pathlib import Path
+
+    from vptr_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        print(f"  cuobjdump failed: {out.stderr.strip()[:500]}")
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
 
 
 def max_err(a, b) -> float:
@@ -912,6 +949,15 @@ def conv_phases(dev):
           "against their plain versions (card)")
     print(f"  clusters: fc1 {tcl.cluster_split(hid)} blocks a sample, fc2 "
           f"{tcl.cluster_split(c)}")
+    # #11's bf16 product alone (csrc/wgmma.cuh): 64 rows by 176 columns (one
+    # warpgroup), 352 (two: fc1's slab) and 528 (three), K of both stages;
+    # against an f32 matmul of the same bf16 operands (summation order only)
+    prand = normals(torch.Generator().manual_seed(SEED + 41))
+    for cols, k in ((176, c), (176, hid), (352, c), (528, hid)):
+        a, bt = prand(64, k).to(dev, bf), prand(cols, k).to(dev, bf)
+        e = rel_err(tcl.wgmma_product(a, bt), torch.matmul(a.float(), bt.float().t()))
+        check(e <= 1e-5, f"wgmma product 64 x {cols} x {k} vs f32 matmul rel err "
+              f"{e:.2e} <= 1e-5")
     for dtype in (bf, torch.float32):
         name = str(dtype).replace("torch.", "")
         for stage, (cin, cout) in stages.items():
@@ -1020,7 +1066,25 @@ def conv_phases(dev):
               grads_of(library, ops_t, gout),
               s_step * (2 * cin + cout) * s2b + 2 * cin * cout * s2b + 2 * vecs + cout * 4,
               6 * s_step * cin * cout)
-        del ops, ops_t, gout
+        # the yardsticks again, replayed from CUDA graphs (no host between
+        # launches); the backward's as the graph of forward + backward less
+        # the graph of the forward on the same 190 samples
+        ins = [t.clone().requires_grad_() for t in ops_t]
+        fwd = graph_ms(lambda: library(*ops))
+        readings[("conv_ln_gelu", stage)]["library_graph_ms"] = fwd
+        print(f"  library yardstick replayed from a CUDA graph, {stage}: forward {fwd:.4f} "
+              f"ms (200 samples)")
+        try:
+            both = graph_ms(lambda: torch.autograd.grad(library(*ins), ins, gout))
+            fwd_t = graph_ms(lambda: library(*ops_t))
+        except RuntimeError as e:     # autograd's backward not capturable here
+            readings[("conv_ln_gelu_bwd", stage)]["library_graph_ms"] = None
+            print(f"  the backward yardstick could not be captured: {e}")
+        else:
+            readings[("conv_ln_gelu_bwd", stage)]["library_graph_ms"] = both - fwd_t
+            print(f"  forward + backward {both:.4f} ms, forward {fwd_t:.4f} ms (190 "
+                  f"samples): backward {both - fwd_t:.4f} ms")
+        del ops, ops_t, gout, ins
 
     # #1 / #3 at the temporal shapes (bf16): #1 as far_rip and the NAR
     # predict call it (dropout 0), #3 as the FAR and NAR steps do (dropout
@@ -1176,8 +1240,11 @@ def main() -> int:
     for name, path in paths.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.is_file() else []):
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
+    n_hgmma = hgmma_count(paths["conv_ln_gelu"])
+    check(n_hgmma > 0, f"conv_ln_gelu library SASS holds {n_hgmma} HGMMA (wgmma) "
+          f"instructions > 0")
 
     # ---- shapes of the far_rip path: N=10, context 20, 8x8 latent, C=528
     cfg = get_preset("far_mnist")

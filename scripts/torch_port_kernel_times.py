@@ -2,7 +2,7 @@
 port, for comparing two checkouts on one GPU.
 
     python3 scripts/torch_port_kernel_times.py [--root DIR] [--repeats 5]
-        [--conv-route]
+        [--conv-route] [--kernels-only]
 
 Imports ``vptr_tpu_torch`` from ``--root`` (default: the checkout holding
 this script), builds its kernels there, and times in bf16, at the far_mnist
@@ -28,7 +28,8 @@ far_mnist train step (batch 10, T = 19, dropout 0.1), host clock around a
 synchronised step, ``2 * --repeats`` steps after two warm-ups; both again
 on the fused feed-forward route (``ffn_route_*``; null for a tree without
 it) and, with ``--conv-route``, on the conv-FFN route with the folded
-temporal sublayer (``conv_route_*``; null for a tree without it). Prints
+temporal sublayer (``conv_route_*``; null for a tree without it);
+``--kernels-only`` times the kernels alone (no model, predict or step). Prints
 one JSON line with every reading and their medians. To compare
 two trees, run it on each in turns (A B B A) within one machine. Needs a
 GPU; exits non-zero without one.
@@ -65,6 +66,8 @@ def main() -> int:
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--conv-route", action="store_true",
                         help="also time #11/#12 and the conv-FFN route")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="time the kernels alone, no predict or train step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_kernel_times: no GPU", file=sys.stderr)
@@ -122,14 +125,15 @@ def main() -> int:
     tcausal = causal[:, :ctx - 1, :ctx - 1]
 
     cfg = get_preset("far_mnist")
-    routes = {"": cfg}
-    if tff is not None:
+    routes = {} if args.kernels_only else {"": cfg}
+    if tff is not None and routes:
         routes["ffn_route_"] = cfg.override(
             {"transformer": {"fused_ffn": True, "fused_dw": True}})
-    if tcl is not None:
+    if tcl is not None and routes:
         routes["conv_route_"] = cfg.override(
             {"transformer": {"fused_conv_ffn": True, "fused_full_temporal": True}})
-    enc, dec = build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(0))
+    enc, dec = (build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(0))
+                if routes else (None, None))
     trs = {route: build_transformer(rc.transformer, bf, dev,
                                     torch.Generator().manual_seed(1))
            for route, rc in routes.items()}

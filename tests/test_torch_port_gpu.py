@@ -431,6 +431,61 @@ def test_conv_ln_gelu_kernels_match_plain(cuda, dtype, cin, cout, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cols,k", [(176, 528), (176, 2112), (352, 528), (528, 80),
+                                    (96, 2112)])
+def test_wgmma_product_matches_matmul(cuda, cols, k):
+    """#11's bf16 product on its own: the wgmma ring (TMA boxes, swizzled
+    descriptors, a partial last K step where K is not a multiple of 64, one
+    to three warpgroups, columns past `cols` left out) against an f32
+    matmul of the same bf16 operands. The two differ in summation order
+    only."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(18)
+    a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
+    bt = torch.randn(cols, k, generator=g).to(cuda, torch.bfloat16)
+    got = tcl.wgmma_product(a, bt)
+    want = torch.matmul(a.float(), bt.float().t())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,cin,cout", [(16, 528, 2112), (32, 2112, 528), (48, 528, 2112),
+                                         (64, 80, 96), (48, 80, 96), (64, 96, 368)])
+def test_conv_ln_gelu_bf16_edge_shapes(cuda, hw, cin, cout):
+    """#11 in bf16 where its tiles are partly empty: HW below wgmma's 64 rows
+    (the rows past HW read zero and are left out of the statistics and the
+    store), Cin = 80 (a partial last K step), Cout = 368 (one slab of 23
+    column tiles: three warpgroups, the last partly past Cout)."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(19)
+    args = _conv_operands(g, 21, cin, cout, torch.bfloat16, cuda, hw=hw)
+    got = tcl.conv_ln_gelu(*args)
+    want = tcl.conv_ln_gelu_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(528, 2112), (2112, 528)])
+def test_conv_ln_gelu_forward_is_deterministic(cuda, cin, cout):
+    """Two forward calls on the same inputs give the same bits: the
+    statistics are summed in a fixed order, no atomics."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(20)
+    args = _conv_operands(g, 190, cin, cout, torch.bfloat16, cuda)
+    first = tcl.conv_ln_gelu(*args)
+    second = tcl.conv_ln_gelu(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
 def test_conv_ln_gelu_autograd_and_refusals(cuda):
     """The autograd Function launches #11 forward and #12 backward; shapes
     the kernels do not take raise instead of falling back."""

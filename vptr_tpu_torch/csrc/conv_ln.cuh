@@ -15,8 +15,9 @@
 // statistics, summed over the cluster through distributed shared memory in
 // rank order (cluster.cuh), so the result is the same on every run.
 //
-// The slab GEMM: bf16 runs on the tensor cores (WMMA 16x16x16, f32
-// accumulators): K steps of 32 of the sample's x tile and the slab's W
+// The slab GEMM (the backward's recomputed u, and the f32 forward; the bf16
+// forward keeps u in registers on wgmma, conv_ln_gelu.cu): bf16 runs on
+// the tensor cores (WMMA 16x16x16, f32 accumulators): K steps of 32 of the sample's x tile and the slab's W
 // columns stream through a three-stage cp.async ring that shares its shared
 // memory with the slab (the slab is written once the ring is drained); each
 // of the 11 warps owns the column tiles warp + 11 j (at most kClnMaxCt) for

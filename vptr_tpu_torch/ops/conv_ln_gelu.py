@@ -13,8 +13,12 @@ norm3 -> GELU stages with ``transformer.fused_conv_ffn`` (``layers.py:660-684``)
 
 * ``_forward`` (``pl.pallas_call`` at :174) -> ``csrc/conv_ln_gelu.cu``
   (kernel #11); ``_backward`` (:196) -> ``csrc/conv_ln_gelu_bwd.cu`` (#12);
-  both share ``csrc/conv_ln.cuh``, whose note says what bounds them and what
-  the design does about that.
+  both share ``csrc/conv_ln.cuh``. The forward's bf16 product is Hopper's
+  warpgroup MMA fed by TMA (``csrc/wgmma.cuh``) and takes W transposed,
+  (Cout, Cin), which the wrapper makes; each source's note says what bounds
+  it and what the design does about that.
+* :func:`wgmma_product` runs that product alone (64 rows), for checking the
+  building blocks on the card.
 * :func:`conv_ln_gelu` is a ``torch.autograd.Function``: a CUDA tensor
   launches the kernels (or raises), a CPU tensor takes
   :func:`conv_ln_gelu_plain` forward and :func:`conv_ln_gelu_backward_plain`
@@ -172,12 +176,34 @@ def _forward_kernel(x, w, b, scale, bias2):
         raise ValueError(f"conv_ln_gelu kernel: HW={hw}, Cout={cout} needs {smem} B "
                          f"of shared memory (> {SMEM_LIMIT})")
     out = torch.empty(n, hw, cout, dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        w = w.t().contiguous()          # K-major, (Cout, Cin), for the wgmma product
     p = _build.ptr
     err = lib.vptr_conv_ln_gelu(p(x), p(w), p(b), p(scale), p(bias2), p(out), n, hw,
                                 cin, cout, LN_EPS, _DTYPES[x.dtype],
                                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "conv_ln_gelu")
     conv_ln_gelu.launches += 1
+    return out
+
+
+def wgmma_product(a, bt) -> torch.Tensor:
+    """a (64, K) @ bt.T in f32 on the forward's wgmma ring product, with a
+    and bt (cols, K) bf16 on the card, K a multiple of 16 and cols a
+    multiple of 16 up to 528: the building blocks of ``csrc/wgmma.cuh`` on
+    their own. Not counted in ``conv_ln_gelu.launches``."""
+    k = a.shape[-1]
+    if (a.dtype != torch.bfloat16 or bt.dtype != torch.bfloat16 or not a.is_cuda
+            or bt.device != a.device or a.shape != (64, k) or bt.dim() != 2
+            or bt.shape[1] != k
+            or not (a.is_contiguous() and bt.is_contiguous())):
+        raise ValueError(f"wgmma_product takes a (64, K) and bt (cols, K) bf16 on the "
+                         f"card, got {tuple(a.shape)} {a.dtype}, {tuple(bt.shape)} {bt.dtype}")
+    out = torch.empty(64, bt.shape[0], dtype=torch.float32, device=a.device)
+    lib = _lib()
+    err = lib.vptr_wgmma_product(_build.ptr(a), _build.ptr(bt), _build.ptr(out), k,
+                                 bt.shape[0], torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "wgmma_product")
     return out
 
 
@@ -240,6 +266,8 @@ def _lib() -> ctypes.CDLL:
         lib.vptr_conv_ln_gelu_split.restype = ctypes.c_int
         lib.vptr_conv_ln_gelu_smem.argtypes = [i, i, i]
         lib.vptr_conv_ln_gelu_smem.restype = ctypes.c_long
+        lib.vptr_wgmma_product.argtypes = [p] * 3 + [i] * 2 + [p]
+        lib.vptr_wgmma_product.restype = ctypes.c_int
     return lib
 
 
