@@ -7,8 +7,8 @@ Phases (any failure exits non-zero, without the final result line):
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520);
-   count the HGMMA (wgmma) instructions in the conv_ln_gelu library's SASS
-   (cuobjdump) and fail if there are none;
+   count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu
+   forward and backward libraries (cuobjdump) and fail if either has none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
@@ -66,7 +66,9 @@ Phases (any failure exits non-zero, without the final result line):
    bound; the far_rip predict and the train step on the fused route and the
    default route in turns, and each step's memory peak above what is held;
 15. #11's bf16 product alone (the wgmma ring, 64 rows by 176, 352 and 528
-   columns, K 528 and 2112) against an f32 matmul of the same operands;
+   columns, K 528 and 2112) and #12's weight-gradient product alone (both
+   operands MN-major, 1024 rows, both stages' Cin x Cout) against f32
+   matmuls of the same operands;
    the conv-FFN route's kernels (#11/#12 conv_ln_gelu) against their
    plain versions at both stages of the far_mnist conv FFN (fc1 528 ->
    2112, fc2 2112 -> 528 over 8 x 8 latents; 200 samples forward, 190
@@ -958,6 +960,14 @@ def conv_phases(dev):
         e = rel_err(tcl.wgmma_product(a, bt), torch.matmul(a.float(), bt.float().t()))
         check(e <= 1e-5, f"wgmma product 64 x {cols} x {k} vs f32 matmul rel err "
               f"{e:.2e} <= 1e-5")
+    # #12's weight-gradient product alone (both operands MN-major, as x and
+    # du lie in memory: the transpose flags), at one K chunk of the step's
+    # split (1024 rows) and both stages' (Cin, Cout)
+    for m, n in ((c, hid), (hid, c)):
+        a, b = prand(1024, m).to(dev, bf), prand(1024, n).to(dev, bf)
+        e = rel_err(tcl.wgmma_product_mn(a, b), torch.matmul(a.float().t(), b.float()))
+        check(e <= 1e-5, f"wgmma MN-major product 1024 x {m} x {n} vs f32 matmul rel err "
+              f"{e:.2e} <= 1e-5")
     for dtype in (bf, torch.float32):
         name = str(dtype).replace("torch.", "")
         for stage, (cin, cout) in stages.items():
@@ -1242,9 +1252,10 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
-    n_hgmma = hgmma_count(paths["conv_ln_gelu"])
-    check(n_hgmma > 0, f"conv_ln_gelu library SASS holds {n_hgmma} HGMMA (wgmma) "
-          f"instructions > 0")
+    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd"):
+        n_hgmma = hgmma_count(paths[lib])
+        check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
+              f"instructions > 0")
 
     # ---- shapes of the far_rip path: N=10, context 20, 8x8 latent, C=528
     cfg = get_preset("far_mnist")

@@ -452,6 +452,28 @@ def test_wgmma_product_matches_matmul(cuda, cols, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,m,n", [(64, 64, 176), (1024, 528, 2112), (896, 2112, 528),
+                                   (80, 80, 368), (16, 192, 96), (200, 40, 24)])
+def test_wgmma_product_mn_matches_matmul(cuda, k, m, n):
+    """#12's weight-gradient product on its own: wgmma with both operands
+    MN-major (the transpose flags, MN-major descriptors over TMA boxes of 64
+    M or N values by 64 rows), a partial last K step where K is not a
+    multiple of 64, M past one block's 192 rows and N past one 176-column
+    group, their edges left out; against an f32 matmul of the same bf16
+    operands. The two differ in summation order only."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(22)
+    a = torch.randn(k, m, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
+    got = tcl.wgmma_product_mn(a, b)
+    want = torch.matmul(a.float().t(), b.float())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hw,cin,cout", [(16, 528, 2112), (32, 2112, 528), (48, 528, 2112),
                                          (64, 80, 96), (48, 80, 96), (64, 96, 368)])
 def test_conv_ln_gelu_bf16_edge_shapes(cuda, hw, cin, cout):
@@ -483,6 +505,32 @@ def test_conv_ln_gelu_forward_is_deterministic(cuda, cin, cout):
     second = tcl.conv_ln_gelu(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [16, 32, 48, 64])
+@pytest.mark.parametrize("n", [1, 37])
+def test_conv_ln_gelu_backward_edge_shapes(cuda, dtype, hw, n):
+    """#12 where its tiles are partly empty: HW below wgmma's 64 rows, Cin =
+    80 (a partial K step of the dx product and a partial 176-column group),
+    Cout = 368 (one slab of three column groups, the last partly past Cout);
+    one sample, and 37 (prime: not a multiple of the clusters the card
+    holds, so the persistent clusters' last round is partly empty). The
+    same bits on a second call."""
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+
+    g = torch.Generator().manual_seed(21)
+    args = _conv_operands(g, n, 80, 368, dtype, cuda, hw=hw)
+    dout = torch.randn(n, hw, 368, generator=g).to(cuda, dtype)
+    got = tcl.conv_ln_gelu_backward(*args, dout)
+    want = tcl.conv_ln_gelu_backward_plain(*args, dout)
+    again = tcl.conv_ln_gelu_backward(*args, dout)
+    torch.cuda.synchronize()
+    for name, a, b, a2 in zip(("dx", "dw", "db", "dscale", "dbias2"), got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], name
+        assert torch.equal(a, a2), name
 
 
 @pytest.mark.gpu

@@ -10,19 +10,14 @@
 // A sample's u (64 x 2112 f32 at far_mnist's fc1: 540 KB) does not fit one
 // SM. A thread-block cluster of G blocks on neighbouring SMs takes a sample,
 // each block a slab of SW = Cout / G columns (a whole number of 16-column
-// tiles: 6 x 352 at fc1, 3 x 176 at fc2), computed by the block's own GEMM
-// into shared memory in f32 and kept there. The only cross-block work is the
+// tiles: 6 x 352 at fc1, 3 x 176 at fc2). The only cross-block work is the
 // statistics, summed over the cluster through distributed shared memory in
 // rank order (cluster.cuh), so the result is the same on every run.
 //
-// The slab GEMM (the backward's recomputed u, and the f32 forward; the bf16
-// forward keeps u in registers on wgmma, conv_ln_gelu.cu): bf16 runs on
-// the tensor cores (WMMA 16x16x16, f32 accumulators): K steps of 32 of the sample's x tile and the slab's W
-// columns stream through a three-stage cp.async ring that shares its shared
-// memory with the slab (the slab is written once the ring is drained); each
-// of the 11 warps owns the column tiles warp + 11 j (at most kClnMaxCt) for
-// every 16-row tile. f32 runs on the CUDA cores: a thread owns one slab
-// column for all HW rows, the x tile staged in shared memory.
+// This header holds the shapes and the f32 route: the slab of u computed on
+// the CUDA cores into shared memory (a thread owns one slab column for all
+// HW rows, the x tile staged in shared memory) and its statistics. The bf16
+// route keeps u in registers on wgmma (conv_ln_wg.cuh).
 #pragma once
 
 #include <type_traits>
@@ -37,9 +32,8 @@ namespace {
 constexpr int kClnMaxRows = 64;       // HW <= 64: four 16-row tiles
 constexpr int kClnWarps = 11;         // 22 (fc1) and 11 (fc2) slab tiles at far_mnist
 constexpr int kClnThreads = kClnWarps * 32;
-constexpr int kClnMaxCt = 3;          // column tiles a warp holds: slabs <= 33 tiles
-constexpr int kClnKStep = 32;         // K of a ring stage (two 16-deep MMAs)
-constexpr int kClnStages = 3;
+constexpr int kClnMaxCt = 3;          // slabs of at most 33 column tiles
+constexpr int kClnKStep = 32;         // K of a staged x tile
 constexpr int kClnMaxCluster = 8;     // the portable cluster size
 constexpr int kClnSlots = 3;          // cluster reductions per sample
 constexpr long kClnSmemLimit = 232448 - 1024;   // less the static reduction scratch
@@ -58,27 +52,10 @@ int cln_split(int Cout) {
   return 0;
 }
 
-// Column tiles a warp holds for slabs of SW columns.
-int cln_ct(int SW) { return (SW / 16 + kClnWarps - 1) / kClnWarps; }
-
-struct ClnRing {
-  static constexpr int LA = kClnKStep + 8;              // A row stride (x 8)
-  static constexpr int A_ELEMS = kClnMaxRows * LA;
-  __host__ __device__ static int lb(int SW) { return SW + 8; }
-  __host__ __device__ static int stage(int SW) {         // 128-byte slots
-    return (A_ELEMS + kClnKStep * lb(SW) + 63) / 64 * 64;
-  }
-};
-
-// Dynamic shared memory of a block: the f32 slab (row stride SW + 4) and,
-// for bf16, the ring in the same memory; for f32, the staged x tile after it.
-long cln_smem(int HW, int SW, int dtype) {
-  const long slab = static_cast<long>(sizeof(float)) * HW * (SW + 4);
-  if (dtype == 1) {
-    const long ring = static_cast<long>(sizeof(bf16)) * kClnStages * ClnRing::stage(SW);
-    return slab > ring ? slab : ring;
-  }
-  return slab + static_cast<long>(sizeof(float)) * kClnMaxRows * kClnKStep;
+// Dynamic shared memory of an f32 block: the slab (row stride SW + 4) and
+// the staged x tile after it.
+long cln_smem(int HW, int SW) {
+  return static_cast<long>(sizeof(float)) * (HW * (SW + 4) + kClnMaxRows * kClnKStep);
 }
 
 // The shapes the kernels take.
@@ -87,93 +64,11 @@ bool cln_shape_ok(int N, int HW, int Cin, int Cout) {
          Cin % 16 == 0 && Cout >= 16 && Cout % 16 == 0 && cln_split(Cout) > 0;
 }
 
-// slab[r][c] = sum_k x[r][k] W[k][c0 + c] for r < HW, c < SW, on the tensor
-// cores (see the note at the top). Ends with a __syncthreads.
-template <int CT>
-__device__ __forceinline__ void slab_gemm_tc(const bf16* __restrict__ xs,
-                                             const bf16* __restrict__ W, int HW, int Cin,
-                                             int Cout, int c0, int SW, unsigned char* smem,
-                                             float* slab, int lds) {
-  using namespace nvcuda;
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int LB = ClnRing::lb(SW), STAGE = ClnRing::stage(SW);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int nts = SW / 16, rt = HW / 16;
-  const int steps = (Cin + kClnKStep - 1) / kClnKStep;
-  const int bvec = SW / 8;                         // 16-byte pieces of a W row
-  auto load = [&](int step) {
-    if (step < steps) {
-      const int k0 = step * kClnKStep;
-      bf16* sa = ring + (step % kClnStages) * STAGE;
-      bf16* sb = sa + ClnRing::A_ELEMS;
-      for (int i = tid; i < HW * (kClnKStep / 8); i += kClnThreads) {
-        const int r = i / (kClnKStep / 8), col = (i % (kClnKStep / 8)) * 8;
-        const bool ok = k0 + col < Cin;
-        __pipeline_memcpy_async(sa + r * ClnRing::LA + col,
-                                xs + (ok ? static_cast<long>(r) * Cin + k0 + col : 0), 16,
-                                ok ? 0 : 16);
-      }
-      for (int i = tid; i < kClnKStep * bvec; i += kClnThreads) {
-        const int kk = i / bvec, col = (i - kk * bvec) * 8;
-        const bool ok = k0 + kk < Cin;
-        __pipeline_memcpy_async(sb + kk * LB + col,
-                                W + (ok ? static_cast<long>(k0 + kk) * Cout + c0 + col : 0),
-                                16, ok ? 0 : 16);
-      }
-    }
-    __pipeline_commit();
-  };
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CT][4];
-#pragma unroll
-  for (int j = 0; j < CT; ++j)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[j][t], 0.f);
-  for (int s = 0; s < kClnStages - 1; ++s) load(s);
-  for (int step = 0; step < steps; ++step) {
-    load(step + kClnStages - 1);       // into the slot read at step - 1
-    __pipeline_wait_prior(kClnStages - 1);
-    __syncthreads();
-    const bf16* sa = ring + (step % kClnStages) * STAGE;
-    const bf16* sb = sa + ClnRing::A_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < kClnKStep; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (t < rt) wmma::load_matrix_sync(a[t], sa + t * 16 * ClnRing::LA + ks, ClnRing::LA);
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int ct = warp + j * kClnWarps;
-        if (ct >= nts) continue;
-        wmma::load_matrix_sync(b, sb + ks * LB + ct * 16, LB);
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          if (t < rt) wmma::mma_sync(acc[j][t], a[t], b, acc[j][t]);
-      }
-    }
-    __syncthreads();
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();                     // the ring is drained: the slab may overwrite it
-#pragma unroll
-  for (int j = 0; j < CT; ++j) {
-    const int ct = warp + j * kClnWarps;
-    if (ct >= nts) continue;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (t < rt)
-        wmma::store_matrix_sync(slab + t * 16 * lds + ct * 16, acc[j][t], lds,
-                                wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// The same slab on the CUDA cores (f32): thread c of a pass owns slab
-// column c for all HW rows; the x tile of each K step is staged in xs_buf.
-// Ends with a __syncthreads.
-template <typename T>
-__device__ __forceinline__ void slab_gemm_fma(const T* __restrict__ xs, const T* __restrict__ W,
+// slab[r][c] = sum_k x[r][k] W[k][c0 + c] for r < HW, c < SW on the CUDA
+// cores: thread c of a pass owns slab column c for all HW rows; the x tile
+// of each K step is staged in xs_buf. Ends with a __syncthreads.
+__device__ __forceinline__ void slab_gemm_fma(const float* __restrict__ xs,
+                                              const float* __restrict__ W,
                                               int HW, int Cin, int Cout, int c0, int SW,
                                               float* xs_buf, float* slab, int lds) {
   for (int cb = 0; cb < SW; cb += kClnThreads) {
@@ -186,13 +81,13 @@ __device__ __forceinline__ void slab_gemm_fma(const T* __restrict__ xs, const T*
       __syncthreads();
       for (int i = threadIdx.x; i < HW * kClnKStep; i += kClnThreads) {
         const int r = i / kClnKStep, kk = i - r * kClnKStep;
-        xs_buf[i] = k0 + kk < Cin ? to_f32(xs[static_cast<long>(r) * Cin + k0 + kk]) : 0.f;
+        xs_buf[i] = k0 + kk < Cin ? xs[static_cast<long>(r) * Cin + k0 + kk] : 0.f;
       }
       __syncthreads();
       if (active) {
         const int kn = Cin - k0 < kClnKStep ? Cin - k0 : kClnKStep;
         for (int kk = 0; kk < kn; ++kk) {
-          const float w = to_f32(W[static_cast<long>(k0 + kk) * Cout + c0 + c]);
+          const float w = W[static_cast<long>(k0 + kk) * Cout + c0 + c];
 #pragma unroll
           for (int r = 0; r < kClnMaxRows; ++r)
             if (r < HW) acc[r] = fmaf(xs_buf[r * kClnKStep + kk], w, acc[r]);
@@ -209,18 +104,14 @@ __device__ __forceinline__ void slab_gemm_fma(const T* __restrict__ xs, const T*
 
 // The sample's u = x W + b into the block's slab, then its statistics over
 // the cluster (slots 0 and 1): mean and rstd.
-template <typename T, int CT>
-__device__ __forceinline__ void sample_u(const T* __restrict__ xs, const T* __restrict__ W,
+__device__ __forceinline__ void sample_u(const float* __restrict__ xs, const float* __restrict__ W,
                                          const float* __restrict__ b, int HW, int Cin, int Cout,
                                          int c0, int SW, float eps, unsigned char* smem,
                                          ClnRed& red, cg::cluster_group& cluster, float& mean,
                                          float& rstd) {
   float* slab = reinterpret_cast<float*>(smem);
   const int lds = SW + 4;
-  if constexpr (std::is_same<T, bf16>::value)
-    slab_gemm_tc<CT>(xs, W, HW, Cin, Cout, c0, SW, smem, slab, lds);
-  else
-    slab_gemm_fma<T>(xs, W, HW, Cin, Cout, c0, SW, slab + HW * lds, slab, lds);
+  slab_gemm_fma(xs, W, HW, Cin, Cout, c0, SW, slab + HW * lds, slab, lds);
   const float inv_n = 1.f / (static_cast<float>(HW) * Cout);
   float v[1] = {0.f};
   for (int e = threadIdx.x; e < HW * SW; e += kClnThreads) {

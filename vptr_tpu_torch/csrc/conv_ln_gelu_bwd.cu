@@ -14,34 +14,64 @@
 // What bounds it on an H100: operations. Three S x Cin x Cout products (the
 // recomputed u, dW, dx) are 6 S Cin Cout flops: 81.2 GFLOP at S = 12,160,
 // 528 -> 2112 (0.082 ms at 989 TFLOP/s), against ~84 MB the result needs.
+// du reaches the tensor cores as bf16 hi + lo halves (16 mantissa bits, as
+// JAX computes both products in f32), so dx and dW take twice their flops.
 //
 // The TPU kernel walked its sample grid in order and summed dW, db, ds, dt
 // in place across grid steps. Blocks on the card run in parallel, so the
 // work is three passes (no float atomics: every sum over samples is a K
 // loop or a fixed-order second pass, so the gradients are the same on every
 // run):
-//   1. per group of samples, one cluster of G blocks (conv_ln.cuh) walks the
-//      group's samples in order: the slab of u recomputed in shared memory,
-//      mean and rstd, da and the two sums of the LayerNorm backward through
-//      the cluster, then du to device memory (f32, or for bf16 its hi and
-//      lo halves for the tensor cores) and da zhat, da, du added into the
-//      group's (HW, Cout) partials, each element by the one thread that owns
-//      it;
+//   1. the sample pass: du to device memory (f32, or for bf16 its hi and lo
+//      halves) and da zhat, da, du into (HW, Cout) partials of sample
+//      groups (f32: a group's samples added in place, each element by the
+//      one thread that owns it, the first sample writing without reading;
+//      bf16: a group a sample, stored);
 //   2. dx = du W^T and dW = x^T du with K = S split in chunks of about 1024
-//      rows, summed in chunk order and cast to T (tile_ops.cuh; bf16 on the
-//      tensor cores with du as hi + lo, relative error below 2^-16);
+//      rows, summed in chunk order and cast to T;
 //   3. ds, dt and the per-position db summed over the groups in order, then
 //      db over the HW positions.
+//
+// bf16, the design. Pass 1 is the forward's wgmma sample kernel
+// (conv_ln_wg.cuh): persistent clusters of G blocks (6 x 352 columns at
+// fc1, 3 x 176 at fc2), the recomputed u = x W + b of a sample by a column
+// group in a warpgroup's registers (m64n176k16, both operands K-major: the
+// wrapper passes W^T too), fed by a TMA ring that runs ahead into the next
+// sample; then, on the 88 accumulators a thread: the bias, mean and rstd
+// (two cluster sums); a sweep that turns u into zhat in place, stores the
+// sample's da and sums dz and dz zhat (the third cluster sum); a sweep that
+// reads da back (from L2), forms du and stores du's hi and lo halves and
+// the sample's da zhat and du (f32): stores with no loads behind them (a
+// group's partial sums, read and written back at every sample, keep the
+// sweep waiting on L2), streaming where nothing reads them soon, so that W
+// stays in L2; the sweeps' loads go kEpiJ column octets at a time. The
+// sums go through distributed shared memory on mbarriers, in rank order,
+// with no cluster barrier. dx = du W^T is the shared product kernel with
+// du's hi and lo halves as two terms of the same accumulators: both
+// operands K-major as stored (du rows are Cout-contiguous, W (Cin, Cout)
+// too), tiles of a sample's 64 rows by up to two 176-column groups of Cin,
+// persistent walkers. dW = x^T du has K = S, and both operands lie
+// MN-major in memory (x rows are Cin-contiguous, du rows Cout-contiguous):
+// its wgmma reads them so, with the transpose flags and MN-major
+// descriptors (wg_dw_kernel), split-K over S in fixed chunks summed in
+// order.
+//
+// f32 runs on the CUDA cores: pass 1 is one cluster a sample group walking
+// its samples with conv_ln.cuh's slab in shared memory, the products are
+// tile_ops.cuh's FMA gemm.
 
-#include "conv_ln.cuh"
+#include <cstdio>
+
+#include "conv_ln_wg.cuh"
 
 // Everything the backward needs; mirrored by _BwdArgs in
-// vptr_tpu_torch/ops/conv_ln_gelu.py. Inputs, outputs, then the
-// caller-allocated scratch (du: S x Cout f32, or 2 x S x Cout bf16 [hi, lo]
-// when T is bf16; pds, pdt, pdb: groups x HW x Cout f32; dbfull: HW x Cout
-// f32; wpart: ksplit x Cin x Cout f32; partial: parts(HW) x Cout f32).
+// vptr_tpu_torch/ops/conv_ln_gelu.py. Inputs (wt: W^T (Cout, Cin), bf16
+// only), outputs, then the caller-allocated scratch (du: S x Cout f32, or
+// 2 x S x Cout bf16 [hi, lo] when T is bf16; pds, pdt, pdb: groups x HW x
+// Cout f32, groups = N for bf16; dbfull: HW x Cout f32; wpart: ksplit x Cin x Cout f32;
+// partial: parts(HW) x Cout f32).
 struct ClnBwdArgs {
-  const void *x, *w, *b, *scale, *bias2, *g;
+  const void *x, *w, *wt, *b, *scale, *bias2, *g;
   void *dx, *dw, *db, *ds, *dt;
   void *du, *pds, *pdt, *pdb, *dbfull, *wpart, *partial;
   int N, HW, Cin, Cout, dtype, groups, ksplit;
@@ -50,6 +80,8 @@ struct ClnBwdArgs {
 
 namespace {
 
+// ---- the f32 route's pass 1
+
 // Sample groups (clusters of pass 1) for N samples and G blocks a sample:
 // about two resident blocks an SM (132 SMs), at most N.
 int cln_groups(int N, int G) {
@@ -57,15 +89,13 @@ int cln_groups(int N, int G) {
   return N < g ? N : g;
 }
 
-// 1. The per-sample pass: du and the groups' partials.
-template <typename T, int CT>
 __global__ void __launch_bounds__(kClnThreads)
-conv_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, const float* __restrict__ scale,
-                   const float* __restrict__ bias2, const T* __restrict__ g,
-                   float* __restrict__ du, bf16* __restrict__ du_hilo,
-                   float* __restrict__ pds, float* __restrict__ pdt, float* __restrict__ pdb,
-                   int N, int groups, int HW, int Cin, int Cout, int SW, float eps) {
+                   const float* __restrict__ bias2, const float* __restrict__ g,
+                   float* __restrict__ du, float* __restrict__ pds, float* __restrict__ pdt,
+                   float* __restrict__ pdb, int N, int groups, int HW, int Cin, int Cout,
+                   int SW, float eps) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) unsigned char smem_cln[];
   __shared__ ClnRed red;
@@ -76,23 +106,22 @@ conv_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int lds = SW + 4;
   const float inv_n = 1.f / (static_cast<float>(HW) * Cout);
   const long plane = static_cast<long>(HW) * Cout;
-  const long S = static_cast<long>(N) * HW;
   float* ps = pds + grp * plane;
   float* pt = pdt + grp * plane;
   float* pb = pdb + grp * plane;
   for (int n = grp; n < N; n += groups) {
     const bool first = n == grp;
     float mean, rstd;
-    sample_u<T, CT>(x + n * static_cast<long>(HW) * Cin, w, b, HW, Cin, Cout, c0, SW, eps,
-                    smem_cln, red, cluster, mean, rstd);
-    const T* gn = g + n * plane;
+    sample_u(x + n * static_cast<long>(HW) * Cin, w, b, HW, Cin, Cout, c0, SW, eps, smem_cln,
+             red, cluster, mean, rstd);
+    const float* gn = g + n * plane;
     float v[2] = {0.f, 0.f};
     for (int e = threadIdx.x; e < HW * SW; e += kClnThreads) {
       const int r = e / SW, c = e - r * SW;
       const long o = static_cast<long>(r) * Cout + c0 + c;
       const float zh = (slab[r * lds + c] - mean) * rstd;
       const float sc = scale[o];
-      const float dz = to_f32(gn[o]) * vptr_gelu::gelu_grad(zh * sc + bias2[o]) * sc;
+      const float dz = gn[o] * vptr_gelu::gelu_grad(zh * sc + bias2[o]) * sc;
       v[0] += dz;
       v[1] = fmaf(dz, zh, v[1]);
     }
@@ -103,91 +132,391 @@ conv_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const long o = static_cast<long>(r) * Cout + c0 + c;
       const float zh = (slab[r * lds + c] - mean) * rstd;
       const float sc = scale[o];
-      const float da = to_f32(gn[o]) * vptr_gelu::gelu_grad(zh * sc + bias2[o]);
+      const float da = gn[o] * vptr_gelu::gelu_grad(zh * sc + bias2[o]);
       const float d = (da * sc - m1 - zh * m2) * rstd;
-      const long row = n * static_cast<long>(HW) + r;
-      if (du_hilo) {
-        const bf16 hi = __float2bfloat16_rn(d);
-        du_hilo[row * Cout + c0 + c] = hi;
-        du_hilo[S * Cout + row * Cout + c0 + c] = __float2bfloat16_rn(d - __bfloat162float(hi));
-      } else {
-        du[row * Cout + c0 + c] = d;
-      }
+      du[(n * static_cast<long>(HW) + r) * Cout + c0 + c] = d;
       ps[o] = (first ? 0.f : ps[o]) + da * zh;
       pt[o] = (first ? 0.f : pt[o]) + da;
       pb[o] = (first ? 0.f : pb[o]) + d;
     }
-    __syncthreads();                   // the next sample's ring overwrites the slab
+    __syncthreads();                   // the next sample's product overwrites the slab
   }
   cluster.sync();                      // the other blocks are done reading red
 }
 
-template <typename T, int CT>
-cudaError_t launch_pass1(const ClnBwdArgs& a, int G, cudaStream_t s) {
-  const int SW = a.Cout / G;
-  const bool hilo = std::is_same<T, bf16>::value;
-  return launch_clusters(
-      conv_ln_bwd_kernel<T, CT>, a.groups * G, G, cln_smem(a.HW, SW, a.dtype), s,
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w), static_cast<const float*>(a.b),
-      static_cast<const float*>(a.scale), static_cast<const float*>(a.bias2),
-      static_cast<const T*>(a.g), hilo ? nullptr : static_cast<float*>(a.du),
-      hilo ? static_cast<bf16*>(a.du) : nullptr, static_cast<float*>(a.pds),
-      static_cast<float*>(a.pdt), static_cast<float*>(a.pdb), a.N, a.groups, a.HW, a.Cin,
-      a.Cout, SW, a.eps);
+// ---- the bf16 route's pass 1 on wgmma
+
+// Samples a block takes at once for CW column groups: two at fc2's one
+// group (two warpgroups and a feeder), one at fc1's two (the sweeps' loads
+// want more than the 128 registers four warpgroups leave). Only fc2's
+// blocks have a feeder: with one at fc1 ptxas allows 168 registers and the
+// sweeps spill, without one 255.
+__host__ __device__ constexpr int bwd_samples(int cw) { return cw <= 1 ? 2 : 1; }
+__host__ __device__ constexpr bool bwd_feeder(int cw) { return cw == 1; }
+
+// Column octets (each two float pairs a thread, rows r and r + 8) whose
+// loads the epilogue's sweeps issue together, and no more: the compiler
+// would otherwise hoist many octets' loads at once and spill.
+constexpr int kEpiJ = 2;
+
+// Keeps the compiler from moving memory operations across this point.
+__device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
+
+// v, opaque to the compiler: the addresses made from it are formed anew at
+// every sample. (Otherwise the addresses of the affines, the same at every
+// sample, are hoisted out of the sample loop, 44 pointers each, and the
+// registers they hold spill.)
+__device__ __forceinline__ long opaque(long v) {
+  asm volatile("" : "+l"(v));
+  return v;
 }
 
+// The sample kernel (see the note at the top); warpgroup w computes sample
+// w / CW of the group at column group w % CW.
+template <int CW, int S>
+__global__ void __launch_bounds__(wg_threads(CW, S, bwd_feeder(CW)), 1)
+conv_ln_bwd_wg_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, const float* __restrict__ b,
+                      const float* __restrict__ scale, const float* __restrict__ bias2,
+                      const bf16* __restrict__ g, bf16* __restrict__ du,
+                      float* __restrict__ pds, float* __restrict__ pdt, float* __restrict__ pdb,
+                      int N, int HW, int Cin, int Cout, int SW, int stages, float eps) {
+  extern __shared__ unsigned char smem_wg[];
+  __shared__ WgRing ring;
+  __shared__ WgRed<4 * CW * S, 4> red;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank()), c0 = rank * SW;
+  const long plane = static_cast<long>(HW) * Cout, half = static_cast<long>(N) * plane;
+  const float inv_n = 1.f / static_cast<float>(plane);
+  auto epilogue = [&](float (&acc)[kWgAcc], int n, const WgPlace& p, int& count) {
+    const bool rows = 16 * p.q < HW && n + p.s < N;
+    float mean, rstd;
+    wg_stats(acc, b + opaque(0), p, rows, c0, SW, HW, Cout, eps, red, count, G, rank, mean, rstd);
+    const long o = opaque(static_cast<long>(p.r) * Cout + c0 + p.cb);   // (r, c0 + cb)
+    const long po = static_cast<long>(n + p.s) * plane + o;   // the sample's (r, c0 + cb)
+    // Each sweep takes kEpiJ column octets at a time: their loads first,
+    // all in flight together, then the arithmetic and the stores; the
+    // compiler may not move the next octets' loads above the fence.
+    auto live = [&](int j) { return j < kWgN / 8 && p.c * kWgN + 8 * j < SW; };
+    auto at = [&](int j, int h) { return static_cast<long>(8 * h) * Cout + 8 * j; };
+    // u -> zhat in place, da (stored: plain, so that it stays in L2 for the
+    // next sweep), the sums of dz = da scale and dz zhat
+    float s1 = 0.f, s2 = 0.f;
+    if (rows) {
+#pragma unroll
+      for (int j0 = 0; j0 < kWgN / 8; j0 += kEpiJ) {
+        float2 sc[kEpiJ][2], bs[kEpiJ][2], gg[kEpiJ][2];
+#pragma unroll
+        for (int jj = 0; jj < kEpiJ; ++jj)
+          if (live(j0 + jj))
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {                 // rows r and r + 8
+              const long e = o + at(j0 + jj, h);
+              sc[jj][h] = __ldg(reinterpret_cast<const float2*>(scale + e));
+              bs[jj][h] = __ldg(reinterpret_cast<const float2*>(bias2 + e));
+              gg[jj][h] = __bfloat1622float2(
+                  __ldg(reinterpret_cast<const __nv_bfloat162*>(g + po + at(j0 + jj, h))));
+            }
+#pragma unroll
+        for (int jj = 0; jj < kEpiJ; ++jj)
+          if (live(j0 + jj))
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float& z0 = acc[4 * (j0 + jj) + 2 * h];
+              float& z1 = acc[4 * (j0 + jj) + 2 * h + 1];
+              z0 = (z0 - mean) * rstd;
+              z1 = (z1 - mean) * rstd;
+              const float2 c = sc[jj][h], a = bs[jj][h], d = gg[jj][h];
+              const float da0 = d.x * vptr_gelu::gelu_grad(z0 * c.x + a.x);
+              const float da1 = d.y * vptr_gelu::gelu_grad(z1 * c.y + a.y);
+              *reinterpret_cast<float2*>(pdt + po + at(j0 + jj, h)) = make_float2(da0, da1);
+              const float dz0 = da0 * c.x, dz1 = da1 * c.y;
+              s1 += dz0 + dz1;
+              s2 = fmaf(dz0, z0, fmaf(dz1, z1, s2));
+            }
+        compiler_fence();
+      }
+    }
+    float t[4];
+    t[0] = p.s ? 0.f : s1;
+    t[1] = p.s ? 0.f : s2;
+    t[2] = p.s ? s1 : 0.f;
+    t[3] = p.s ? s2 : 0.f;
+    wg_cluster_sum(t, red, count, G, rank);
+    if (!rows) return;
+    const float m1 = (p.s ? t[2] : t[0]) * inv_n, m2 = (p.s ? t[3] : t[1]) * inv_n;
+    // du; its halves and the sample's da zhat and du stored, streaming
+    // (evict-first: W, which every sample's product reads, stays in L2)
+#pragma unroll
+    for (int j0 = 0; j0 < kWgN / 8; j0 += kEpiJ) {
+      float2 sc[kEpiJ][2], da[kEpiJ][2];
+#pragma unroll
+      for (int jj = 0; jj < kEpiJ; ++jj)
+        if (live(j0 + jj))
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sc[jj][h] = __ldg(reinterpret_cast<const float2*>(scale + o + at(j0 + jj, h)));
+            da[jj][h] = *reinterpret_cast<const float2*>(pdt + po + at(j0 + jj, h));
+          }
+#pragma unroll
+      for (int jj = 0; jj < kEpiJ; ++jj)
+        if (live(j0 + jj))
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long e = po + at(j0 + jj, h);
+            const float z0 = acc[4 * (j0 + jj) + 2 * h], z1 = acc[4 * (j0 + jj) + 2 * h + 1];
+            const float2 c = sc[jj][h], a = da[jj][h];
+            const float d0 = (a.x * c.x - m1 - z0 * m2) * rstd;
+            const float d1 = (a.y * c.y - m1 - z1 * m2) * rstd;
+            const __nv_bfloat162 dh = __floats2bfloat162_rn(d0, d1);
+            const float2 dhf = __bfloat1622float2(dh);
+            __stcs(reinterpret_cast<__nv_bfloat162*>(du + e), dh);
+            __stcs(reinterpret_cast<__nv_bfloat162*>(du + half + e),
+                   __floats2bfloat162_rn(d0 - dhf.x, d1 - dhf.y));
+            __stcs(reinterpret_cast<float2*>(pds + e), make_float2(a.x * z0, a.y * z1));
+            __stcs(reinterpret_cast<float2*>(pdb + e), make_float2(d0, d1));
+          }
+      compiler_fence();
+    }
+  };
+  wg_sample_loop<CW, S, bwd_feeder(CW)>(&xmap, &wmap, smem_wg, ring, red, N, Cin, SW, stages,
+                                        epilogue);
+}
+
+// Clusters of the bf16 pass 1 for N samples: as many as the card holds, at
+// most the sample groups.
+template <int CW>
+int pass1_clusters(int N, int Cout) {
+  constexpr int S = bwd_samples(CW);
+  const int G = cln_split(Cout);
+  static int resident[kClnMaxCluster + 1];       // asked once for each cluster size
+  if (!resident[G])
+    resident[G] = resident_clusters(conv_ln_bwd_wg_kernel<CW, S>, G,
+                                    wg_threads(CW, S, bwd_feeder(CW)), wg_smem(CW, S));
+  const int groups = (N + S - 1) / S;
+  return groups < resident[G] ? groups : resident[G];
+}
+
+template <int CW>
+int launch_pass1_wg(const ClnBwdArgs& a, cudaStream_t s) {
+  constexpr int S = bwd_samples(CW);
+  CUtensorMap xmap, wmap;
+  const int err = wg_maps(&xmap, &wmap, a.x, a.wt, a.N, a.HW, a.Cin, a.Cout, S);
+  if (err) return err;
+  const int G = cln_split(a.Cout), clusters = pass1_clusters<CW>(a.N, a.Cout);
+  if (!clusters) return cudaErrorInvalidConfiguration;
+  return launch_cluster_blocks(
+      conv_ln_bwd_wg_kernel<CW, S>, clusters, G, wg_threads(CW, S, bwd_feeder(CW)),
+      wg_smem(CW, S), s, xmap,
+      wmap, static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
+      static_cast<const float*>(a.bias2), static_cast<const bf16*>(a.g), static_cast<bf16*>(a.du),
+      static_cast<float*>(a.pds), static_cast<float*>(a.pdt), static_cast<float*>(a.pdb), a.N,
+      a.HW, a.Cin, a.Cout, a.Cout / G, wg_stages(CW, S), a.eps);
+}
+
+// dx = du W^T on wgmma: A = du's hi and lo halves (N, HW, Cout), B^T = W
+// (Cin, Cout), up to two column groups of Cin a block (with three, each
+// du box serves more columns, but far_mnist's 190 samples over 132 blocks
+// leave the second round mostly empty).
+template <int CW>
+int launch_dx_wg(const ClnBwdArgs& a, cudaStream_t s) {
+  const bf16* hi = static_cast<const bf16*>(a.du);
+  const bf16* lo = hi + static_cast<long>(a.N) * a.HW * a.Cout;
+  CUtensorMap hmap, lmap, wmap;
+  int err = wg_amap(&hmap, hi, a.N, a.HW, a.Cout, 1);
+  if (!err) err = wg_amap(&lmap, lo, a.N, a.HW, a.Cout, 1);
+  if (!err) err = wg_bmap(&wmap, a.w, a.Cin, a.Cout);
+  if (err) return err;
+  return launch_product_walkers<CW, 2>(hmap, lmap, wmap, static_cast<bf16*>(a.dx), a.N, a.HW,
+                                       a.Cout, a.Cin, s);
+}
+
+// dW = x^T du on wgmma with both operands MN-major, as they lie in memory
+// (K = S rows, x rows Cin-contiguous, du rows Cout-contiguous), the
+// product's transpose flags set: a block takes 64 MW rows of Cin (MW
+// warpgroups, 64 each) by one 176-column group of Cout over one K chunk of
+// rows [k0, k0 + kchunk) (kchunk a multiple of 64), and writes its f32 tile
+// into the chunk's partial (wpart[chunk], summed in chunk order after). A
+// ring stage holds MW TMA boxes of x (64 Cin values by 64 rows) and, for
+// each of the T terms of du (hi and lo), three boxes of 64 Cout values by
+// 64 rows (the group's 176 columns and 16 more, left out); a feeder warp
+// issues them. Rows past S and columns past Cin or Cout read zero.
+constexpr int kDwBox = 64 * 64 * 2;        // 8 KB: 64 MN values by 64 rows
+constexpr int kDwMw = 3;                   // warpgroups along Cin a block
+
+__host__ __device__ constexpr int dw_stage_bytes(int mw, int t) { return (mw + 3 * t) * kDwBox; }
+int dw_stages(int mw, int t) {
+  const int n = (232448 - 2048) / dw_stage_bytes(mw, t);
+  return n > kWgMaxStages ? kWgMaxStages : n;
+}
+long dw_smem(int mw, int t) {
+  return static_cast<long>(dw_stages(mw, t)) * dw_stage_bytes(mw, t) + 1024;
+}
+
+template <int MW, int T>
+__global__ void __launch_bounds__(MW * 128 + 32, 1)
+wg_dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap hmap,
+             const __grid_constant__ CUtensorMap lmap, float* __restrict__ out, int M, int Nc,
+             int rows, int kchunk, int stages) {
+  constexpr int kStage = dw_stage_bytes(MW, T);
+  extern __shared__ unsigned char smem_wg[];
+  __shared__ WgRing ring;
+  const int m0 = blockIdx.x * 64 * MW, n0 = blockIdx.y * kWgN, k0 = blockIdx.z * kchunk;
+  const int k1 = min(rows, k0 + kchunk), steps = (k1 - k0 + kWgK - 1) / kWgK;
+  if (threadIdx.x == 0) {
+    wg_ring_init(ring, smem_wg, stages, 4 * MW);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  if (warp == 4 * MW) {                // the feeder
+    if (lane == 0)
+      for (int g = 0; g < steps; ++g) {
+        const int st = g % stages, k = k0 + g * kWgK;
+        if (g >= stages) mbar_wait(&ring.empty[st], ((g / stages) & 1) ^ 1);
+        unsigned char* a = ring.tiles + st * kStage;
+        mbar_expect_tx(&ring.full[st], kStage, true);
+        for (int w = 0; w < MW; ++w)
+          tma_load_2d(a + w * kDwBox, &xmap, &ring.full[st], m0 + 64 * w, k, true);
+        for (int t = 0; t < T; ++t)
+          for (int i = 0; i < 3; ++i)
+            tma_load_2d(a + (MW + 3 * t + i) * kDwBox, t ? &lmap : &hmap, &ring.full[st],
+                        n0 + 64 * i, k, true);
+      }
+    return;
+  }
+  const int w = warp >> 2;
+  float acc[kWgAcc];
+#pragma unroll
+  for (int i = 0; i < kWgAcc; ++i) acc[i] = 0.f;
+  for (int g = 0; g < steps; ++g) {
+    const int st = g % stages;
+    mbar_wait(&ring.full[st], (g / stages) & 1);
+    const unsigned char* a = ring.tiles + st * kStage;
+    wg_fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int q = 0; q < kWgK / 16; ++q)            // +16 rows, 2048 bytes, a slice
+        wgmma_176<1, 1>(acc, wg_desc_mn(a + w * kDwBox + 2048 * q, kDwBox),
+                        wg_desc_mn(a + (MW + 3 * t) * kDwBox + 2048 * q, kDwBox));
+    }
+    wg_commit();
+    wg_fence_acc(acc);
+    if (g > 0) {                       // the previous step's products are done
+      wg_wait<1>();
+      mbar_arrive(&ring.empty[(g - 1) % stages], lane == 0);
+    }
+  }
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  const int r = m0 + 64 * w + 16 * (warp & 3) + (lane >> 2), cb = n0 + 2 * (lane & 3);
+  float* o = out + static_cast<long>(blockIdx.z) * M * Nc;
+#pragma unroll
+  for (int j = 0; j < kWgN / 8; ++j)
+    if (cb + 8 * j < Nc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)                    // rows r and r + 8
+        if (r + 8 * h < M)
+          *reinterpret_cast<float2*>(o + static_cast<long>(r + 8 * h) * Nc + cb + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+}
+
+// The K chunk of the wgmma weight products: S / ksplit rounded up to 64.
+int dw_kchunk(int rows, int ksplit) {
+  return ((rows + ksplit - 1) / ksplit + kWgK - 1) / kWgK * kWgK;
+}
+
+// out[c] (M, Nc) f32 = sum over the T terms of x^T b_t over chunk c's rows,
+// x (rows, M) and b_t (rows, Nc) bf16, for the ksplit chunks.
+template <int T>
+int launch_dw(const void* x, const void* b0, const void* b1, float* out, int rows, int M, int Nc,
+              int ksplit, cudaStream_t s) {
+  CUtensorMap xmap, hmap, lmap;
+  const cuuint32_t box[2] = {64, 64};
+  auto map = [&](CUtensorMap* m, const void* p, int cols) {
+    const cuuint64_t d[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t st = static_cast<cuuint64_t>(cols) * 2;
+    return bf16_map(m, p, 2, d, &st, box);
+  };
+  int err = map(&xmap, x, M);
+  if (!err) err = map(&hmap, b0, Nc);
+  if (!err) err = map(&lmap, b1, Nc);
+  if (err) return err;
+  auto kernel = wg_dw_kernel<kDwMw, T>;
+  const long smem = dw_smem(kDwMw, T);
+  VPTR_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem)));
+  const dim3 grid((M + 64 * kDwMw - 1) / (64 * kDwMw), (Nc + kWgN - 1) / kWgN, ksplit);
+  kernel<<<grid, kDwMw * 128 + 32, smem, s>>>(xmap, hmap, lmap, out, M, Nc, rows,
+                                              dw_kchunk(rows, ksplit), dw_stages(kDwMw, T));
+  return cudaGetLastError();
+}
+
+int pass1_wg(const ClnBwdArgs& a, cudaStream_t s) {
+  switch (wg_groups(a.Cout / cln_split(a.Cout))) {
+    case 1: return launch_pass1_wg<1>(a, s);
+    case 2: return launch_pass1_wg<2>(a, s);
+    default: return launch_pass1_wg<3>(a, s);
+  }
+}
+
+int dx_wg(const ClnBwdArgs& a, cudaStream_t s) {
+  return wg_groups(a.Cin) == 1 ? launch_dx_wg<1>(a, s) : launch_dx_wg<2>(a, s);
+}
+
+// dW = x^T du (Cin x Cout, K = S in ksplit chunks) on wgmma, du's hi and
+// lo halves as two terms.
+int dw_wg(const ClnBwdArgs& a, cudaStream_t s) {
+  const bf16* hi = static_cast<const bf16*>(a.du);
+  const long half = static_cast<long>(a.N) * a.HW * a.Cout;
+  return launch_dw<2>(a.x, hi, hi + half, static_cast<float*>(a.wpart), a.N * a.HW, a.Cin,
+                      a.Cout, a.ksplit, s);
+}
+
+int run_bf16_products(const ClnBwdArgs& a, cudaStream_t s) {
+  if (int err = pass1_wg(a, s)) return err;      // 1. du and the partials
+  if (int err = dx_wg(a, s)) return err;         // 2. dx = du W^T
+  return dw_wg(a, s);                            //    dW = x^T du
+}
+
+int run_f32_products(const ClnBwdArgs& a, cudaStream_t s) {
+  const int G = cln_split(a.Cout), SW = a.Cout / G;
+  VPTR_TRY(launch_clusters(conv_ln_bwd_kernel, a.groups * G, G, cln_smem(a.HW, SW), s,  // 1.
+                           static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+                           static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
+                           static_cast<const float*>(a.bias2), static_cast<const float*>(a.g),
+                           static_cast<float*>(a.du), static_cast<float*>(a.pds),
+                           static_cast<float*>(a.pdt), static_cast<float*>(a.pdb), a.N,
+                           a.groups, a.HW, a.Cin, a.Cout, SW, a.eps));
+  // 2. dx = du W^T (S x Cin, K = Cout);  dW = x^T du (Cin x Cout, K = S in
+  //    ksplit chunks)
+  const int S = a.N * a.HW;
+  GemmBatch gb{};
+  gb.M = S, gb.N = a.Cin, gb.K = a.Cout, gb.lda = a.Cout, gb.ldb = a.Cout, gb.ldo = a.Cin;
+  gb.group = 1, gb.ksplit = 1, gb.kchunk = a.Cout;
+  gb.job[0] = {a.du, a.w, a.dx, nullptr, 1.f, nullptr, nullptr, 0};
+  VPTR_TRY((gemm<float, false, float, true, float, kF32>(gb, 1, s)));
+  gb.M = a.Cin, gb.N = a.Cout, gb.K = S, gb.lda = a.Cin, gb.ldb = a.Cout, gb.ldo = a.Cout;
+  gb.ksplit = a.ksplit, gb.kchunk = ((S + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
+  gb.job[0] = {a.x, a.du, a.wpart, nullptr, 1.f, nullptr, nullptr, 0};
+  return gemm<float, true, float, false, float, kPartial>(gb, 1, s);
+}
+
+// The weight gradient's chunks, then (3.) ds, dt and the per-position db
+// summed over the groups in order, and db over HW.
 template <typename T>
-int run(const ClnBwdArgs& a, cudaStream_t s) {
-  const int G = cln_split(a.Cout);
-  const int S = a.N * a.HW, Cin = a.Cin, Cout = a.Cout;
+int sums(const ClnBwdArgs& a, cudaStream_t s) {
+  const int Cin = a.Cin, Cout = a.Cout;
   auto f = [](void* p) { return static_cast<float*>(p); };
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
-
-  // 1. du and the partials
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (cln_ct(Cout / G)) {
-      case 1: VPTR_TRY((launch_pass1<bf16, 1>(a, G, s))); break;
-      case 2: VPTR_TRY((launch_pass1<bf16, 2>(a, G, s))); break;
-      default: VPTR_TRY((launch_pass1<bf16, 3>(a, G, s))); break;
-    }
-  } else {
-    VPTR_TRY((launch_pass1<T, 1>(a, G, s)));
-  }
-
-  // 2. dx = du W^T (S x Cin, K = Cout);  dW = x^T du (Cin x Cout, K = S in
-  //    ksplit chunks), the chunks summed in order
-  const int kchunk_tc = ((S + a.ksplit - 1) / a.ksplit + TBK - 1) / TBK * TBK;
-  const int kchunk_fma = ((S + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const bf16* hi = static_cast<const bf16*>(a.du);
-    const bf16* lo = hi + static_cast<long>(S) * Cout;
-    TcBatch tb{};
-    tb.M = S, tb.N = Cin, tb.K = Cout, tb.lda = Cout, tb.ldb = Cout, tb.ldo = Cin, tb.group = 1;
-    tb.ksplit = 1, tb.kchunk = Cout;
-    tb.job[0] = tc_job({hi, lo}, {a.w, a.w}, a.dx);
-    VPTR_TRY((tc_gemm<false, true, bf16, kF32>(tb, 1, s)));
-    tb.M = Cin, tb.N = Cout, tb.K = S, tb.lda = Cin, tb.ldb = Cout, tb.ldo = Cout;
-    tb.ksplit = a.ksplit, tb.kchunk = kchunk_tc;
-    tb.job[0] = tc_job({a.x, a.x}, {hi, lo}, a.wpart);
-    VPTR_TRY((tc_gemm<true, false, float, kPartial>(tb, 1, s)));
-  } else {
-    GemmBatch gb{};
-    gb.M = S, gb.N = Cin, gb.K = Cout, gb.lda = Cout, gb.ldb = Cout, gb.ldo = Cin, gb.group = 1;
-    gb.ksplit = 1, gb.kchunk = Cout;
-    gb.job[0] = {a.du, a.w, a.dx, nullptr, 1.f, nullptr, nullptr, 0};
-    VPTR_TRY((gemm<float, false, T, true, T, kF32>(gb, 1, s)));
-    gb.M = Cin, gb.N = Cout, gb.K = S, gb.lda = Cin, gb.ldb = Cout, gb.ldo = Cout;
-    gb.ksplit = a.ksplit, gb.kchunk = kchunk_fma;
-    gb.job[0] = {a.x, a.du, a.wpart, nullptr, 1.f, nullptr, nullptr, 0};
-    VPTR_TRY((gemm<T, true, float, false, float, kPartial>(gb, 1, s)));
-  }
   SplitSum ws{};
   ws.part[0] = cf(a.wpart), ws.out[0] = a.dw;
   ws.ksplit = a.ksplit, ws.n = static_cast<long>(Cin) * Cout;
   split_sum_kernel<T><<<dim3(static_cast<unsigned>((ws.n + 255) / 256), 1), 256, 0, s>>>(ws);
   VPTR_TRY(cudaGetLastError());
-
-  // 3. ds, dt, the per-position db over the groups in order; db over HW
   SplitSum ps{};
   ps.part[0] = cf(a.pds), ps.out[0] = a.ds;
   ps.part[1] = cf(a.pdt), ps.out[1] = a.dt;
@@ -205,18 +534,34 @@ int run(const ClnBwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <typename T>
+int run(const ClnBwdArgs& a, cudaStream_t s) {
+  const bool bf = std::is_same<T, bf16>::value;
+  if (int err = bf ? run_bf16_products(a, s) : run_f32_products(a, s)) return err;
+  return sums<T>(a, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* vptr_error_string(int err) {
+  if (err >= kTmaEncodeError) {
+    static char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kTmaEncodeError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Sample groups of pass 1 (pds, pdt, pdb: groups x HW x Cout f32).
-int vptr_conv_ln_gelu_bwd_groups(int N, int Cout) {
+// Sample groups of pass 1 (pds, pdt, pdb: groups x HW x Cout f32) for
+// dtype 0 (f32: about two resident blocks an SM) or 1 (bf16: one a
+// sample); 0: the shape is not taken.
+int vptr_conv_ln_gelu_bwd_groups(int N, int Cout, int dtype) {
   const int G = Cout % 16 ? 0 : cln_split(Cout);
-  return G ? cln_groups(N, G) : 0;
+  if (!G || N < 1) return 0;
+  return dtype == 1 ? N : cln_groups(N, G);
 }
 
 // K chunks of the weight-gradient product (wpart: ksplit x Cin x Cout f32).
@@ -225,12 +570,23 @@ int vptr_conv_ln_gelu_bwd_ksplit(int rows) { return weight_splits(rows); }
 // Column-sum partials of db (partial: parts x Cout f32).
 int vptr_conv_ln_gelu_bwd_partials(int HW) { return partials(HW); }
 
-// Returns a cudaError_t (0 = every pass launched).
+// The bare MN-major product of the weight gradient: out (M, Nc) f32 = a^T b,
+// a (K, M) and b (K, Nc) bf16, M and Nc multiples of 8, one K chunk.
+int vptr_wgmma_product_mn(const void* a, const void* b, void* out, int K, int M, int Nc,
+                          void* stream) {
+  if (K < 1 || M < 8 || M % 8 || Nc < 8 || Nc % 8) return cudaErrorInvalidValue;
+  return launch_dw<1>(a, b, b, static_cast<float*>(out), K, M, Nc, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a
+// CUresult.
 int vptr_conv_ln_gelu_bwd(const ClnBwdArgs* a, void* stream) {
   if (!a || !cln_shape_ok(a->N, a->HW, a->Cin, a->Cout) || a->dtype < 0 || a->dtype > 1 ||
-      a->groups != cln_groups(a->N, cln_split(a->Cout)) || a->ksplit < 1 || !a->du ||
-      !a->pds || !a->pdt || !a->pdb || !a->dbfull || !a->wpart || !a->partial ||
-      cln_smem(a->HW, a->Cout / cln_split(a->Cout), a->dtype) > kClnSmemLimit)
+      (a->dtype == 1 && !a->wt) || a->groups < 1 ||
+      a->groups != vptr_conv_ln_gelu_bwd_groups(a->N, a->Cout, a->dtype) || a->ksplit < 1 ||
+      !a->du || !a->pds || !a->pdt || !a->pdb || !a->dbfull || !a->wpart || !a->partial ||
+      (a->dtype == 0 && cln_smem(a->HW, a->Cout / cln_split(a->Cout)) > kClnSmemLimit))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a->dtype == 0 ? run<float>(*a, s) : run<bf16>(*a, s);

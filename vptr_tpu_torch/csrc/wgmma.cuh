@@ -5,12 +5,13 @@
 // host-side tensor maps (cuTensorMapEncodeTiled, looked up at run time
 // through the CUDA runtime, so nothing links against libcuda).
 //
-// Layout: both operands K-major (K contiguous), as TMA writes a box of 64
+// Layout: operands K-major (K contiguous), as TMA writes a box of 64
 // bf16 along K (one 128-byte row) by R rows with the 128-byte swizzle: rows
 // of 128 bytes, 8-row atoms of 1024 bytes, the 16-byte chunks of row r
 // XOR-ed with r % 8. A tile starts on a 1024-byte boundary; the descriptor
 // of its k-th 16-deep slice starts 32 k bytes in (the swizzle is applied to
-// the address bits, so the slices of one atom need no other change).
+// the address bits, so the slices of one atom need no other change). Or
+// MN-major, the product's transpose flags set (wg_desc_mn).
 //
 // The accumulator of a 64 x N product (N / 2 floats a thread): warp q of the
 // warpgroup holds rows 16 q + lane / 4 and 16 q + lane / 4 + 8; register
@@ -156,6 +157,18 @@ __device__ __forceinline__ uint64_t wg_desc(const void* tile) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
+// Descriptor of an MN-major tile with the 128-byte swizzle (the transposed
+// operand: M or N contiguous), as TMA writes boxes of 64 bf16 along MN by 64
+// rows along K: each row of 128 bytes holds 64 consecutive M (N) values of
+// one k, 8-row atoms of 1024 bytes follow along K (the stride offset), and
+// the next 64 M (N) values are `mn_stride` bytes on (the leading offset:
+// the next box). The k-th 16-deep slice starts 16 rows, 2048 k bytes, in.
+__device__ __forceinline__ uint64_t wg_desc_mn(const void* tile, uint32_t mn_stride) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(mn_stride >> 4) << 16) | (uint64_t{1024 >> 4} << 32) |
+         (uint64_t{1} << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -178,8 +191,9 @@ __device__ __forceinline__ void wg_fence_acc(float (&d)[kWgAcc]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 176, f32) += A (64 x 16) B (16 x 176), both bf16 K-major in shared
-// memory (descriptors a, b).
+// d (64 x 176, f32) += A (64 x 16) B (16 x 176), both bf16 in shared memory
+// (descriptors a, b), K-major, or MN-major where TA (A) or TB (B) is 1.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_176(float (&d)[kWgAcc], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %90, 0;\n"
@@ -192,10 +206,10 @@ __device__ __forceinline__ void wgmma_176(float (&d)[kWgAcc], uint64_t a, uint64
       "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
       "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
       "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87"
-      "}, %88, %89, p, 1, 1, 0, 0;\n}"
+      "}, %88, %89, p, 1, 1, %91, %92;\n}"
       : VPTR_WG8(0), VPTR_WG8(8), VPTR_WG8(16), VPTR_WG8(24), VPTR_WG8(32), VPTR_WG8(40),
         VPTR_WG8(48), VPTR_WG8(56), VPTR_WG8(64), VPTR_WG8(72), VPTR_WG8(80)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 #undef VPTR_WG8

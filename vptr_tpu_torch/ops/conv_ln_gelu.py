@@ -13,12 +13,13 @@ norm3 -> GELU stages with ``transformer.fused_conv_ffn`` (``layers.py:660-684``)
 
 * ``_forward`` (``pl.pallas_call`` at :174) -> ``csrc/conv_ln_gelu.cu``
   (kernel #11); ``_backward`` (:196) -> ``csrc/conv_ln_gelu_bwd.cu`` (#12);
-  both share ``csrc/conv_ln.cuh``. The forward's bf16 product is Hopper's
-  warpgroup MMA fed by TMA (``csrc/wgmma.cuh``) and takes W transposed,
-  (Cout, Cin), which the wrapper makes; each source's note says what bounds
-  it and what the design does about that.
-* :func:`wgmma_product` runs that product alone (64 rows), for checking the
-  building blocks on the card.
+  both share ``csrc/conv_ln.cuh`` and, in bf16, ``csrc/conv_ln_wg.cuh``:
+  Hopper's warpgroup MMA fed by TMA (``csrc/wgmma.cuh``), whose recomputed
+  product takes W transposed, (Cout, Cin), which the wrapper makes; each
+  source's note says what bounds it and what the design does about that.
+* :func:`wgmma_product` runs that product alone (64 rows), and
+  :func:`wgmma_product_mn` the backward's weight-gradient product (both
+  operands MN-major), for checking the building blocks on the card.
 * :func:`conv_ln_gelu` is a ``torch.autograd.Function``: a CUDA tensor
   launches the kernels (or raises), a CPU tensor takes
   :func:`conv_ln_gelu_plain` forward and :func:`conv_ln_gelu_backward_plain`
@@ -207,10 +208,32 @@ def wgmma_product(a, bt) -> torch.Tensor:
     return out
 
 
+def wgmma_product_mn(a, b) -> torch.Tensor:
+    """a.T @ b in f32 on the backward's weight-gradient product (``wgmma``
+    with both operands MN-major, as x and du lie in memory), with a (K, M)
+    and b (K, N) bf16 on the card, M and N multiples of 8: that product on
+    its own. Not counted in ``conv_ln_gelu.bwd_launches``."""
+    k = a.shape[0]
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or not a.is_cuda
+            or b.device != a.device or a.dim() != 2 or b.dim() != 2 or b.shape[0] != k
+            or a.shape[1] % 8 or b.shape[1] % 8
+            or not (a.is_contiguous() and b.is_contiguous())):
+        raise ValueError(f"wgmma_product_mn takes a (K, M) and b (K, N) bf16 on the card, "
+                         f"M and N multiples of 8, got {tuple(a.shape)} {a.dtype}, "
+                         f"{tuple(b.shape)} {b.dtype}")
+    out = torch.empty(a.shape[1], b.shape[1], dtype=torch.float32, device=a.device)
+    lib = _lib_bwd()
+    err = lib.vptr_wgmma_product_mn(_build.ptr(a), _build.ptr(b), _build.ptr(out), k,
+                                    a.shape[1], b.shape[1],
+                                    torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "wgmma_product_mn")
+    return out
+
+
 class _BwdArgs(ctypes.Structure):
     """Mirror of ``ClnBwdArgs`` in ``csrc/conv_ln_gelu_bwd.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "x", "w", "b", "scale", "bias2", "g", "dx", "dw", "db", "ds", "dt",
+        "x", "w", "wt", "b", "scale", "bias2", "g", "dx", "dw", "db", "ds", "dt",
         "du", "pds", "pdt", "pdb", "dbfull", "wpart", "partial")]
         + [(n, ctypes.c_int) for n in ("N", "HW", "Cin", "Cout", "dtype", "groups",
                                        "ksplit")]
@@ -225,7 +248,7 @@ def _backward_kernel(x, w, b, scale, bias2, g):
     dt, dev, f32 = x.dtype, x.device, torch.float32
     lib = _lib_bwd()
     rows = n * hw
-    groups = lib.vptr_conv_ln_gelu_bwd_groups(n, cout)
+    groups = lib.vptr_conv_ln_gelu_bwd_groups(n, cout, _DTYPES[dt])
     ksplit = lib.vptr_conv_ln_gelu_bwd_ksplit(rows)
     parts = lib.vptr_conv_ln_gelu_bwd_partials(hw)
 
@@ -235,15 +258,17 @@ def _backward_kernel(x, w, b, scale, bias2, g):
     grads = dict(dx=torch.empty_like(x), dw=torch.empty_like(w), db=buf(cout),
                  ds=buf(hw, cout), dt=buf(hw, cout))
     # scratch: du (f32, or its bf16 hi/lo halves for the tensor cores), the
-    # sample groups' partial sums, the per-position db, the split-K
-    # weight-gradient partials and the column-sum partials of db
+    # sample groups' partial sums (bf16: a group a sample), the per-position
+    # db, the split-K weight-gradient partials and the column-sum partials of db
     scratch = dict(du=buf(2, rows, cout, dtype=dt) if dt == torch.bfloat16
                    else buf(rows, cout),
                    pds=buf(groups, hw, cout), pdt=buf(groups, hw, cout),
                    pdb=buf(groups, hw, cout), dbfull=buf(hw, cout),
                    wpart=buf(ksplit, cin, cout), partial=buf(parts, cout))
+    # bf16: W^T (Cout, Cin) too, K-major for the recomputed product on wgmma
+    wt = w.t().contiguous() if dt == torch.bfloat16 else None
     p = _build.ptr
-    a = _BwdArgs(x=p(x), w=p(w), b=p(b), scale=p(scale), bias2=p(bias2), g=p(g),
+    a = _BwdArgs(x=p(x), w=p(w), wt=p(wt), b=p(b), scale=p(scale), bias2=p(bias2), g=p(g),
                  **{k: p(v) for k, v in grads.items()},
                  **{k: p(v) for k, v in scratch.items()},
                  N=n, HW=hw, Cin=cin, Cout=cout, dtype=_DTYPES[dt], groups=groups,
@@ -277,8 +302,11 @@ def _lib_bwd() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.vptr_conv_ln_gelu_bwd_groups.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.vptr_conv_ln_gelu_bwd_groups.argtypes = [ctypes.c_int] * 3
         lib.vptr_conv_ln_gelu_bwd_groups.restype = ctypes.c_int
+        lib.vptr_wgmma_product_mn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.vptr_wgmma_product_mn.restype = ctypes.c_int
         for part in ("ksplit", "partials"):
             f = getattr(lib, f"vptr_conv_ln_gelu_bwd_{part}")
             f.argtypes = [ctypes.c_int]
