@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, without the final result line):
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520);
    count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu
-   forward and backward libraries (cuobjdump) and fail if either has none;
+   forward and backward libraries and the fused_ffn library (cuobjdump)
+   and fail if any has none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
@@ -53,8 +54,9 @@ Phases (any failure exits non-zero, without the final result line):
    yardsticks and bounds, and #1/#3 at the NAR shape with the RPE bias;
 11. the fused-FFN route's kernels (#7/#8 fused_ffn, #9/#10 fused_dw_chain)
    against their plain versions at the far_mnist shapes (FFN rows 12,800
-   for the forward, 12,160 for the backward, C 528, hidden 2112; dw chain
-   200 and 190 samples of 8 x 8 x 2112), bf16 and f32, dropout 0 and 0.1;
+   and 12,160 for the forward, 12,160 for the backward, C 528, hidden
+   2112; dw chain 200 and 190 samples of 8 x 8 x 2112), bf16 and f32,
+   dropout 0 and 0.1;
 12. far_mnist with transformer.fused_ffn and fused_dw: the far_rip predict
    with every counter at 0 just before and read just after (#7, #9, #1
    and #2 120 launches each), the frames checked and compared with
@@ -63,7 +65,8 @@ Phases (any failure exits non-zero, without the final result line):
    launches each), kernels vs kernels="plain" from one cloned state, 10
    steps on one batch with a falling loss;
 14. times: #7-#10 beside their plain versions, a library yardstick and the
-   bound; the far_rip predict and the train step on the fused route and the
+   bound; #7's and #8's yardsticks also replayed from CUDA graphs (the
+   backward's as forward + backward less forward); the far_rip predict and the train step on the fused route and the
    default route in turns, and each step's memory peak above what is held;
 15. #11's bf16 product alone (the wgmma ring, 64 rows by 176, 352 and 528
    columns, K 528 and 2112) and #12's weight-gradient product alone (both
@@ -758,9 +761,11 @@ def ffn_phases(dev):
         gffn = randn(s_step, c).to(dev, dtype)
         gdw = randn(n_step, hw, hid).to(dev, dtype)
         for r in (0.0, rate):
-            e = max_err(tff.fused_ffn(*fops, kseed, r), tff.fused_ffn_plain(*fops, kseed, r))
-            check(e <= tol[dtype], f"fused_ffn {name} dropout {r} {tuple(fops[0].shape)} "
-                  f"({tff.kernel_route(c, hid, dtype)}) max|err| {e:.3e} <= {tol[dtype]}")
+            # #7 at the predict's rows (the value kept) and the step's
+            for ops in (fops_t, fops):
+                e = max_err(tff.fused_ffn(*ops, kseed, r), tff.fused_ffn_plain(*ops, kseed, r))
+                check(e <= tol[dtype], f"fused_ffn {name} dropout {r} {tuple(ops[0].shape)} "
+                      f"({tff.kernel_route(c, hid, dtype)}) max|err| {e:.3e} <= {tol[dtype]}")
             got = tff.fused_ffn_backward(*fops_t, kseed, gffn, r)
             want = tff.fused_ffn_backward_plain(*fops_t, kseed, gffn, r)
             n_worst, worst = worst_rel(got, want, ffn_names)
@@ -858,6 +863,24 @@ def ffn_phases(dev):
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.2f} GFLOP {str(fdt).replace('torch.', '')})")
+    # #7's and #8's yardsticks again, replayed from CUDA graphs (no host
+    # between launches); the backward's as the graph of forward + backward
+    # less the graph of the forward on the step's rows
+    fwd = graph_ms(lambda: ffn_library(*fops))
+    readings["fused_ffn"]["library_graph_ms"] = fwd
+    ins = [t.clone().requires_grad_() for t in fops_t]
+    try:
+        both = graph_ms(lambda: torch.autograd.grad(ffn_library(*ins), ins, gffn))
+        fwd_t = graph_ms(lambda: ffn_library(*fops_t))
+    except RuntimeError as e:         # autograd's backward not capturable here
+        readings["fused_ffn_bwd"]["library_graph_ms"] = None
+        print(f"  #8's yardstick could not be captured: {e}")
+    else:
+        readings["fused_ffn_bwd"]["library_graph_ms"] = both - fwd_t
+        print(f"  fused_ffn library yardstick replayed from a CUDA graph: forward {fwd:.4f} "
+              f"ms ({s_pred} rows); forward + backward {both:.4f} ms, forward {fwd_t:.4f} "
+              f"ms ({s_step} rows): backward {both - fwd_t:.4f} ms")
+    del ins
     rows_out = []
     for name, src, replaces, err, launches in (
             ("fused_ffn", "vptr_tpu_torch/csrc/fused_ffn.cu",
@@ -1252,7 +1275,7 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
-    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd"):
+    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn"):
         n_hgmma = hgmma_count(paths[lib])
         check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
               f"instructions > 0")

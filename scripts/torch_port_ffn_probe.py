@@ -1,16 +1,25 @@
-"""Where kernel #7's (fused_ffn) time goes, on one GPU.
+"""Where kernel #7's (fused_ffn forward, bf16 wgmma route) time goes, on
+one GPU.
 
-    python3 scripts/torch_port_ffn_probe.py [--repeats 3]
+    python3 scripts/torch_port_ffn_probe.py [--repeats 3] [--only NAME ...]
 
 Times fused_ffn at the far_rip path's shape (12,800 rows x 528 channels,
-hidden 2112, bf16, dropout 0) as committed, and three copies of the
-package under build/ffn_probe/ whose csrc/fused_ffn.cu drops one part of
-the work: the fc1 product, the fc2 product, or the GELU (the hidden is
-then fc1 + b1). The difference between the committed kernel and a copy is
-that part's time. The copies compute wrong values by design; the
-committed kernel is not changed. Each copy is built and timed in its own
-process (mean CUDA-event time of 30 calls after 3 warm-ups, --repeats
-times). Prints one JSON line. Exits non-zero without a GPU.
+hidden 2112, bf16; dropout 0, as the predict calls it, and 0.1, as the
+train step does) as committed, and copies of the package under
+build/ffn_probe/ whose csrc/fused_ffn.cu is changed in one place
+(VARIANTS): one part of the work left out (the fc1 product, the fc2
+product, the GELU and dropout of the hidden's epilogue, the LayerNorm
+prologue: wrong values by design), whose difference from the committed
+kernel is that part's time, or another design choice (one row tile a
+block, in waves, instead of the work split evenly over the SMs; the
+first warpgroup refilling every stage; the next tile's x loaded during
+the last chunk; 16-deep ring steps, 7 stages; the exact-division GELU:
+right values). The committed kernel is not changed. The copies' libraries are
+all built first, in parallel; each copy is then timed in its own process
+(mean CUDA-event time of 30 calls after 3 warm-ups, --repeats times).
+Prints one JSON line with every reading, the card's name and each
+variant's best time less the committed kernel's. Exits non-zero without
+a GPU.
 """
 
 from __future__ import annotations
@@ -24,17 +33,41 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCE = "csrc/fused_ffn.cu"
-# variant -> (text of csrc/fused_ffn.cu it replaces, replacement)
+# variant -> [(text of csrc/fused_ffn.cu, replacement), ...]
 VARIANTS = {
-    "without fc1": ("      warp_gemm<1>(xn, ldx, bt, all, H, C / 16, ring, lane, c);\n", ""),
-    "without fc2": ("    warp_gemm<kColTiles>(hc, ldh, bt, owned, C, hw / 16, ring, lane, y);\n",
-                    ""),
-    "without GELU": ("float v = vptr_gelu::gelu(stage[e] + b1[col]);",
-                     "float v = stage[e] + b1[col];"),
+    "without fc1": [("      fc1_step(a1, xn, a + wg * kBox1, k, C);\n", "")],
+    "without fc2": [("      fc2_step<NY>(y, hid, a + 3 * wg * kBox2, k);\n", "")],
+    "without GELU and dropout": [
+        ("float v0 = vptr_gelu::gelu_fast(a1[4 * j + 2 * h] + bb.x);",
+         "float v0 = a1[4 * j + 2 * h] + bb.x;"),
+        ("float v1 = vptr_gelu::gelu_fast(a1[4 * j + 2 * h + 1] + bb.y);",
+         "float v1 = a1[4 * j + 2 * h + 1] + bb.y;"),
+        ("          if (drop.active()) {", "          if (false) {")],
+    "without LN": [("  ln_in_place(xn, ls, lb, C, eps, warp, lane);\n", "")],
+    "one tile a block": [("  return {tiles, (H + kHc - 1) / kHc, tiles < sms ? tiles : sms};",
+                          "  return {tiles, (H + kHc - 1) / kHc, tiles};")],
+    "refills by the first warpgroup": [
+        ("    refiller = refiller + 1 == kFfnWgs ? 0 : refiller + 1;\n", "")],
+    "x of the next tile early": [
+        ("      bar_sync(1, kFfnThreads);        // every warpgroup's fc2 of the last chunk is done\n",
+         "      bar_sync(1, kFfnThreads);\n"
+         "      {\n"
+         "        const bool on = threadIdx.x == 0 && ch == c1 - 1 && u < unit1;\n"
+         "        mbar_expect_tx(&bars.x, (C + 63) / 64 * kXBox, on);\n"
+         "        for (int i = 0; i < (C + 63) / 64; ++i)\n"
+         "          tma_load_2d(xn + i * kXBox, &xmap, &bars.x, 64 * i, u / nch * kFfnRows, on);\n"
+         "      }\n"),
+        ("    if (threadIdx.x == 0) {\n      const int nbx", "    if (threadIdx.x == 0 && seg == 0) {\n      const int nbx")],
+    "16-deep steps": [("constexpr int kDepth = 32;", "constexpr int kDepth = 16;")],
+    "exact GELU": [
+        ("float v0 = vptr_gelu::gelu_fast(", "float v0 = vptr_gelu::gelu("),
+        ("float v1 = vptr_gelu::gelu_fast(", "float v1 = vptr_gelu::gelu(")],
 }
+BUILD = ("import sys; sys.path.insert(0, '.'); from vptr_tpu_torch.ops import _build; "
+         "_build.build(['fused_ffn'])")
 
 
-def time_fused_ffn(root: str, repeats: int) -> list:
+def time_fused_ffn(root: str, repeats: int) -> dict:
     import torch
 
     sys.path.insert(0, root)
@@ -52,24 +85,29 @@ def time_fused_ffn(root: str, repeats: int) -> list:
     ops = (r(12800, c).to(bf), r(c, hid, std=c ** -0.5).to(bf), r(hid, std=0.1),
            r(hid, c, std=hid ** -0.5).to(bf), r(c, std=0.1), 1 + r(c, std=0.1),
            r(c, std=0.1))
-    out = []
-    for _ in range(repeats):
-        for _ in range(3):
-            tff.fused_ffn(*ops)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(30):
-            tff.fused_ffn(*ops)
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / 30)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    out = {}
+    for rate in (0.0, 0.1):
+        ms = []
+        for _ in range(repeats):
+            for _ in range(3):
+                tff.fused_ffn(*ops, seed, rate)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(30):
+                tff.fused_ffn(*ops, seed, rate)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end) / 30)
+        out[f"dropout {rate}"] = ms
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--only", nargs="*", help="variants to time (default: all)")
     parser.add_argument("--time", help=argparse.SUPPRESS)   # one root, in a child
     args = parser.parse_args()
     import torch
@@ -80,31 +118,40 @@ def main() -> int:
     if args.time:
         print(json.dumps(time_fused_ffn(args.time, args.repeats)))
         return 0
-    roots = {"fused_ffn": str(REPO)}
-    for name, (old, new) in VARIANTS.items():
-        root = REPO / "build" / "ffn_probe" / name.replace(" ", "_")
+    roots = {"committed": str(REPO)}
+    for name, edits in VARIANTS.items():
+        if args.only and name not in args.only:
+            continue
+        root = REPO / "build" / "ffn_probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(REPO / "vptr_tpu_torch", root / "vptr_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         src = root / "vptr_tpu_torch" / SOURCE
         text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not in {SOURCE} once")
-        src.write_text(text.replace(old, new))
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the text to replace is not in {SOURCE} once")
+            text = text.replace(old, new)
+        src.write_text(text)
         roots[name] = str(root)
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=root) for root in roots.values()]
+    for b in builds:
+        b.wait(timeout=900)
     result = {}
     for name, root in roots.items():
         run = subprocess.run([sys.executable, __file__, "--time", root, "--repeats",
                               str(args.repeats)], capture_output=True, text=True,
                              timeout=900)
-        if run.returncode != 0:
+        if run.returncode != 0:         # a variant that does not build or run
             print(run.stdout + run.stderr, file=sys.stderr)
-            return 1
+            if name == "committed":
+                return 1
+            continue
         result[name] = json.loads(run.stdout.strip().splitlines()[-1])
-    base = min(result["fused_ffn"])
-    summary = {name: round(base - min(ms), 4) for name, ms in result.items()
-               if name != "fused_ffn"}
-    print(json.dumps({"ms": result, "part_ms": summary,
+    base = {k: min(ms) for k, ms in result["committed"].items()}
+    delta = {name: {k: round(min(ms) - base[k], 4) for k, ms in r.items()}
+             for name, r in result.items() if name != "committed"}
+    print(json.dumps({"ms": result, "minus_committed_ms": delta,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -326,31 +326,60 @@ def _ffn_operands(g, rows, dtype, cuda, c=528, h=2112):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("rows", [12160, 1236])
-def test_fused_ffn_kernels_match_plain(cuda, dtype, rate, rows):
-    """12,160 rows: the training step's (the bf16 tensor-core routes); 1,236:
-    a ragged last row tile, and the backward's generic product route."""
+@pytest.mark.parametrize("rows,c,h", [(12800, 528, 2112), (12160, 528, 2112),
+                                      (1236, 528, 2112), (64, 528, 2112), (1, 528, 2112),
+                                      (100, 176, 192), (1236, 576, 2112)])
+def test_fused_ffn_kernels_match_plain(cuda, dtype, rate, rows, c, h):
+    """12,800 rows: the far_rip predict's; 12,160: the training step's (the
+    bf16 tensor-core routes); 1,236: a ragged last row tile, and the
+    backward's generic product route; 64 and 1: one row tile, so the
+    forward's cluster of two tiles has its second past the rows; C 176, H
+    192: one hidden chunk, y columns for one warpgroup, a ragged tile; C
+    576: the widest the bf16 route takes (192 y columns a warpgroup). The
+    forward gives the same bits on two calls."""
     from vptr_tpu_torch.ops import fused_ffn as tff
 
     g = torch.Generator().manual_seed(13)
-    args = _ffn_operands(g, rows, dtype, cuda)
+    args = _ffn_operands(g, rows, dtype, cuda, c, h)
     seed = _seed(cuda)
+    if dtype == torch.bfloat16:
+        assert tff.kernel_route(c, h, dtype) == "wgmma"
     before = (tff.fused_ffn.launches, tff.fused_ffn.bwd_launches)
     fwd = tff.fused_ffn(*args, seed, rate)
+    fwd2 = tff.fused_ffn(*args, seed, rate)
     want = tff.fused_ffn_plain(*args, seed, rate)
     assert (fwd.float() - want.float()).abs().max().item() <= TOL[dtype]
-    dout = torch.randn(rows, 528, generator=g).to(cuda, dtype)
+    assert torch.equal(fwd, fwd2)
+    dout = torch.randn(rows, c, generator=g).to(cuda, dtype)
     got = tff.fused_ffn_backward(*args, seed, dout, rate)
     want = tff.fused_ffn_backward_plain(*args, seed, dout, rate)
     again = tff.fused_ffn_backward(*args, seed, dout, rate)
     torch.cuda.synchronize()
     assert (tff.fused_ffn.launches, tff.fused_ffn.bwd_launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     for name, a, b, a2 in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
                               got, want, again):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel_err(a, b) <= BWD_TOL[dtype], name
         assert torch.equal(a, a2), name          # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(528, 2112), (528, 64), (576, 192), (16, 16), (80, 176)])
+def test_ffn_fc1_product_matches_matmul(cuda, k, n):
+    """Kernel #7's fc1 product alone (wgmma m64n64k16, b MN-major as w1 is
+    stored) against an f32 matmul of the same bf16 operands: they differ
+    in summation order only."""
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    g = torch.Generator().manual_seed(16)
+    a = torch.randn(64, k, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(k, n, generator=g).to(cuda, torch.bfloat16)
+    got = tff.fc1_product(a, b)
+    want = a.float() @ b.float()
+    torch.cuda.synchronize()
+    assert got.shape == (64, n)
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
 def _dw_operands(g, n, dtype, cuda, hw=64, c=2112):

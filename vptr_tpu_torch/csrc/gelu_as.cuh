@@ -24,6 +24,20 @@ __device__ __forceinline__ float gelu(float a) {
   return 0.5f * a * (1.0f + erf_as(a / 1.41421356237309515f));
 }
 
+// The same A&S GELU for an epilogue that the arithmetic holds back: x / sqrt 2
+// as a product, the reciprocal and the exponential on the special-function
+// unit (__fdividef, __expf: a few ulp of f32 from gelu, far below a bf16
+// rounding of the result), and no division's slow-path branch.
+__device__ __forceinline__ float gelu_fast(float a) {
+  const float x = a * 0.707106781186547524f;
+  const float ax = fabsf(x);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, ax, 1.0f));
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return 0.5f * a * (1.0f + copysignf(1.0f - poly * __expf(-ax * ax), x));
+}
+
 // the A&S cdf plus a times the exact normal pdf
 __device__ __forceinline__ float gelu_grad(float a) {
   const float cdf = 0.5f * (1.0f + erf_as(a / 1.41421356237309515f));

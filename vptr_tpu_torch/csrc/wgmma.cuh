@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for products on the warpgroup MMA
 // (wgmma.mma_async), fed by the Tensor Memory Accelerator (TMA), in inline
-// PTX: shared-memory matrix descriptors, the m64n176k16 bf16 product with f32
-// accumulators in registers, its fences, mbarriers, TMA tile loads and the
-// host-side tensor maps (cuTensorMapEncodeTiled, looked up at run time
-// through the CUDA runtime, so nothing links against libcuda).
+// PTX: shared-memory matrix descriptors, the m64n176k16 bf16 product (and
+// m64n64k16, m64n192k16) with f32 accumulators in registers, its fences,
+// mbarriers, TMA tile loads and the host-side tensor maps
+// (cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so nothing links against libcuda).
 //
 // Layout: operands K-major (K contiguous), as TMA writes a box of 64
 // bf16 along K (one 128-byte row) by R rows with the 128-byte swizzle: rows
@@ -182,9 +183,16 @@ __device__ __forceinline__ void wg_wait() {
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
-__device__ __forceinline__ void wg_fence_acc(float (&d)[kWgAcc]) {
+template <int N>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < kWgAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before later reads of the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 #define VPTR_WG8(i)                                                                        \
@@ -209,6 +217,41 @@ __device__ __forceinline__ void wgmma_176(float (&d)[kWgAcc], uint64_t a, uint64
       "}, %88, %89, p, 1, 1, %91, %92;\n}"
       : VPTR_WG8(0), VPTR_WG8(8), VPTR_WG8(16), VPTR_WG8(24), VPTR_WG8(32), VPTR_WG8(40),
         VPTR_WG8(48), VPTR_WG8(56), VPTR_WG8(64), VPTR_WG8(72), VPTR_WG8(80)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The same products at N = 64 (32 accumulators a thread: the fused FFN's
+// fc1 piece) and N = 192 (96: its fc2 column group).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}"
+      : VPTR_WG8(0), VPTR_WG8(8), VPTR_WG8(16), VPTR_WG8(24)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_192(float (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}"
+      : VPTR_WG8(0), VPTR_WG8(8), VPTR_WG8(16), VPTR_WG8(24), VPTR_WG8(32), VPTR_WG8(40),
+        VPTR_WG8(48), VPTR_WG8(56), VPTR_WG8(64), VPTR_WG8(72), VPTR_WG8(80), VPTR_WG8(88)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 

@@ -150,10 +150,31 @@ def fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed, g, rate: float = 0.0):
 
 
 def kernel_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
-    """Which route kernel #7 takes: ``"tensor cores"`` (bf16 WMMA) or
-    ``"fma"`` (f32 FMAs on the CUDA cores)."""
-    return ("tensor cores" if _lib().vptr_fused_ffn_route(
+    """Which route kernel #7 takes: ``"wgmma"`` (bf16 on the warpgroup
+    MMA, fed by TMA) or ``"fma"`` (f32 FMAs on the CUDA cores)."""
+    return ("wgmma" if _lib().vptr_fused_ffn_route(
         channels, hidden, _DTYPES[dtype]) else "fma")
+
+
+def fc1_product(a, b) -> torch.Tensor:
+    """a @ b in f32 on kernel #7's fc1 product (``wgmma`` m64n64k16 with b
+    read MN-major, as w1 is stored), with a (64, K) and b (K, N) bf16 on
+    the card, K a multiple of 16 up to 576 and N a multiple of 16: that
+    product on its own. Not counted in ``fused_ffn.launches``."""
+    k = a.shape[-1]
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or not a.is_cuda
+            or b.device != a.device or a.shape != (64, k) or b.dim() != 2
+            or b.shape[0] != k or k % 16 or k > 576 or b.shape[1] % 16
+            or not (a.is_contiguous() and b.is_contiguous())):
+        raise ValueError(f"fc1_product takes a (64, K) and b (K, N) bf16 on the card, "
+                         f"K a multiple of 16 up to 576, N a multiple of 16, got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} {b.dtype}")
+    out = torch.empty(64, b.shape[1], dtype=torch.float32, device=a.device)
+    lib = _lib()
+    err = lib.vptr_ffn_fc1_product(_build.ptr(a), _build.ptr(b), _build.ptr(out), k,
+                                   b.shape[1], torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "fc1_product")
+    return out
 
 
 def _operands(x, w1, b1, w2, b2, ls, lb):
@@ -189,9 +210,14 @@ def _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate):
         raise ValueError(f"fused_ffn kernel: C={c}, {x.dtype} needs {smem} B "
                          f"of shared memory (> {SMEM_LIMIT})")
     out = torch.empty_like(x)
+    # scratch for the f32 sums of the row tiles that two blocks share
+    n_part = lib.vptr_fused_ffn_partials(s, c, h, _DTYPES[x.dtype])
+    if n_part < 0:
+        raise RuntimeError("fused_ffn kernel: the card's SM count cannot be read")
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device) if n_part else None
     p = _build.ptr
     err = lib.vptr_fused_ffn(
-        p(x), p(w1), p(b1), p(w2), p(b2), p(ls), p(lb), p(out), s, c, h,
+        p(x), p(w1), p(b1), p(w2), p(b2), p(ls), p(lb), p(out), p(part), s, c, h,
         LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "fused_ffn")
@@ -257,12 +283,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_fused_ffn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 3 + [f, p, f, f, i, p]
+        fn.argtypes = [p] * 9 + [i] * 3 + [f, p, f, f, i, p]
         fn.restype = ctypes.c_int
         lib.vptr_fused_ffn_smem.argtypes = [i] * 3
         lib.vptr_fused_ffn_smem.restype = ctypes.c_long
+        lib.vptr_fused_ffn_partials.argtypes = [i] * 4
+        lib.vptr_fused_ffn_partials.restype = ctypes.c_long
         lib.vptr_fused_ffn_route.argtypes = [i] * 3
         lib.vptr_fused_ffn_route.restype = ctypes.c_int
+        lib.vptr_ffn_fc1_product.argtypes = [p] * 3 + [i] * 2 + [p]
+        lib.vptr_ffn_fc1_product.restype = ctypes.c_int
     return lib
 
 
