@@ -8,8 +8,8 @@ Phases (any failure exits non-zero, without the final result line):
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520);
    count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu
-   forward and backward libraries and the fused_ffn library (cuobjdump)
-   and fail if any has none;
+   and fused_ffn libraries, forward and backward (cuobjdump), and fail if
+   any has none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
@@ -33,7 +33,9 @@ Phases (any failure exits non-zero, without the final result line):
 6. time the far_rip predict call, the train step (median of 8 after 2
    warm-ups, and with kernels="plain") and each kernel beside its plain
    version, a PyTorch library yardstick and its bound (bytes or
-   operations over the card's published peak);
+   operations over the card's published peak); #1's and #3's yardsticks
+   also replayed from CUDA graphs (the backward's as forward + backward
+   less forward);
 7. the NAR slice's kernels against their plain versions at the nar_mnist
    shapes (640 windows x 16 x 528), bf16 and f32, dropout 0 and 0.1:
    the two-stream kernels #5/#6 with an 8-head and a 1-head relative-
@@ -66,8 +68,9 @@ Phases (any failure exits non-zero, without the final result line):
    steps on one batch with a falling loss;
 14. times: #7-#10 beside their plain versions, a library yardstick and the
    bound; #7's and #8's yardsticks also replayed from CUDA graphs (the
-   backward's as forward + backward less forward); the far_rip predict and the train step on the fused route and the
-   default route in turns, and each step's memory peak above what is held;
+   backward's as forward + backward less forward); the far_rip predict and
+   the train step on the fused route and the default route in turns, and
+   each step's memory peak above what is held;
 15. #11's bf16 product alone (the wgmma ring, 64 rows by 176, 352 and 528
    columns, K 528 and 2112) and #12's weight-gradient product alone (both
    operands MN-major, 1024 rows, both stages' Cin x Cout) against f32
@@ -91,8 +94,9 @@ Phases (any failure exits non-zero, without the final result line):
    route in turns; the folded temporal sublayer (#1) against the default
    route's (LayerNorm, projections, #2); #11/#12 at both stages and #1/#3
    at the temporal shapes beside their plain versions, a library yardstick
-   and the bound; #11's and #12's yardsticks also replayed from CUDA graphs
-   (the backward's as forward + backward less forward);
+   and the bound; #11's and #12's yardsticks, and #1's and #3's at the
+   temporal shapes, also replayed from CUDA graphs (the backward's as
+   forward + backward less forward);
 19. nar_mnist with the same two flags: the nar predict (#11 32, #1 16, #5 8,
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
@@ -173,6 +177,23 @@ def graph_ms(fn) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay)
+
+
+def graph_bwd_ms(lib, ops, gout):
+    """Device ms of the library yardstick's backward replayed from CUDA
+    graphs: the graph of lib(*ops) with its gradients for gout (every
+    operand's, as grads_of takes them) less the graph of lib(*ops) alone;
+    None where autograd's backward cannot be captured."""
+    ins = [t.clone().requires_grad_() for t in ops]
+    try:
+        both = graph_ms(lambda: torch.autograd.grad(lib(*ins), ins, gout))
+        fwd = graph_ms(lambda: lib(*ops))
+    except RuntimeError as e:
+        print(f"  the backward yardstick could not be captured: {e}")
+        return None
+    print(f"  backward yardstick replayed from CUDA graphs: forward + backward {both:.4f} "
+          f"ms, forward {fwd:.4f} ms: backward {both - fwd:.4f} ms")
+    return both - fwd
 
 
 def hgmma_count(library) -> int:
@@ -868,19 +889,9 @@ def ffn_phases(dev):
     # less the graph of the forward on the step's rows
     fwd = graph_ms(lambda: ffn_library(*fops))
     readings["fused_ffn"]["library_graph_ms"] = fwd
-    ins = [t.clone().requires_grad_() for t in fops_t]
-    try:
-        both = graph_ms(lambda: torch.autograd.grad(ffn_library(*ins), ins, gffn))
-        fwd_t = graph_ms(lambda: ffn_library(*fops_t))
-    except RuntimeError as e:         # autograd's backward not capturable here
-        readings["fused_ffn_bwd"]["library_graph_ms"] = None
-        print(f"  #8's yardstick could not be captured: {e}")
-    else:
-        readings["fused_ffn_bwd"]["library_graph_ms"] = both - fwd_t
-        print(f"  fused_ffn library yardstick replayed from a CUDA graph: forward {fwd:.4f} "
-              f"ms ({s_pred} rows); forward + backward {both:.4f} ms, forward {fwd_t:.4f} "
-              f"ms ({s_step} rows): backward {both - fwd_t:.4f} ms")
-    del ins
+    print(f"  fused_ffn library yardstick replayed from a CUDA graph: forward {fwd:.4f} ms "
+          f"({s_pred} rows); the backward's on {s_step} rows:")
+    readings["fused_ffn_bwd"]["library_graph_ms"] = graph_bwd_ms(ffn_library, fops_t, gffn)
     rows_out = []
     for name, src, replaces, err, launches in (
             ("fused_ffn", "vptr_tpu_torch/csrc/fused_ffn.cu",
@@ -1100,24 +1111,14 @@ def conv_phases(dev):
               s_step * (2 * cin + cout) * s2b + 2 * cin * cout * s2b + 2 * vecs + cout * 4,
               6 * s_step * cin * cout)
         # the yardsticks again, replayed from CUDA graphs (no host between
-        # launches); the backward's as the graph of forward + backward less
-        # the graph of the forward on the same 190 samples
-        ins = [t.clone().requires_grad_() for t in ops_t]
+        # launches): the forward on the 200 samples, the backward on the 190
         fwd = graph_ms(lambda: library(*ops))
         readings[("conv_ln_gelu", stage)]["library_graph_ms"] = fwd
         print(f"  library yardstick replayed from a CUDA graph, {stage}: forward {fwd:.4f} "
               f"ms (200 samples)")
-        try:
-            both = graph_ms(lambda: torch.autograd.grad(library(*ins), ins, gout))
-            fwd_t = graph_ms(lambda: library(*ops_t))
-        except RuntimeError as e:     # autograd's backward not capturable here
-            readings[("conv_ln_gelu_bwd", stage)]["library_graph_ms"] = None
-            print(f"  the backward yardstick could not be captured: {e}")
-        else:
-            readings[("conv_ln_gelu_bwd", stage)]["library_graph_ms"] = both - fwd_t
-            print(f"  forward + backward {both:.4f} ms, forward {fwd_t:.4f} ms (190 "
-                  f"samples): backward {both - fwd_t:.4f} ms")
-        del ops, ops_t, gout, ins
+        readings[("conv_ln_gelu_bwd", stage)]["library_graph_ms"] = graph_bwd_ms(
+            library, ops_t, gout)
+        del ops, ops_t, gout
 
     # #1 / #3 at the temporal shapes (bf16): #1 as far_rip and the NAR
     # predict call it (dropout 0), #3 as the FAR and NAR steps do (dropout
@@ -1151,6 +1152,9 @@ def conv_phases(dev):
                   lambda: t_library(x, wq, wk, wv, wo),
                   2 * rows * c * s2b + 4 * c * c * s2b + vec,
                   8 * rows * c * c + 4 * rows * t * c)
+            fwd = graph_ms(lambda: t_library(x, wq, wk, wv, wo))
+            readings[("fused_attention_ln", key_f)]["library_graph_ms"] = fwd
+            print(f"  library yardstick replayed from a CUDA graph, {key_f}: {fwd:.4f} ms")
         if key_b:
             r = rates[-1]
             timed(("fused_attention_ln_bwd", key_b),
@@ -1161,6 +1165,8 @@ def conv_phases(dev):
                   grads_of(t_library, (x, wq, wk, wv, wo), gout),
                   3 * rows * c * s2b + 8 * c * c * s2b + vec + 8 * c * 4,
                   22 * rows * c * c + 12 * rows * t * c)
+            readings[("fused_attention_ln_bwd", key_b)]["library_graph_ms"] = graph_bwd_ms(
+                t_library, (x, wq, wk, wv, wo), gout)
         del ops, gout
 
     rows_out = []
@@ -1275,7 +1281,7 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
-    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn"):
+    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd"):
         n_hgmma = hgmma_count(paths[lib])
         check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
               f"instructions > 0")
@@ -1549,6 +1555,13 @@ def main() -> int:
         lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf)),
         (tq_, tk_, tv_), gcore)
 
+    # #1's and #3's yardsticks replayed from CUDA graphs (no host between
+    # launches)
+    graph = {"fused_attention_ln": graph_ms(window_library),
+             "fused_attention_ln_bwd": graph_bwd_ms(window_library, (tops[0], wq, wk, wv, wo),
+                                                    lib_g)}
+    print(f"  fused_attention_ln library yardstick replayed from a CUDA graph: "
+          f"{graph['fused_attention_ln']:.4f} ms")
     rows_out = []
     for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
         ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",
@@ -1596,6 +1609,8 @@ def main() -> int:
                "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "train_step_launches": train_launches[name]}
+        if name in graph:
+            row["library_graph_ms"] = graph[name]
         rows_out.append(row)
         print(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f}"
               f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "

@@ -1,7 +1,7 @@
-"""Where kernel #7's (fused_ffn forward, bf16 wgmma route) time goes, on
-one GPU.
+"""Where kernel #7's (fused_ffn forward) or #8's (its backward) time goes,
+on the bf16 wgmma routes, on one GPU.
 
-    python3 scripts/torch_port_ffn_probe.py [--repeats 3] [--only NAME ...]
+    python3 scripts/torch_port_ffn_probe.py [--bwd] [--repeats 3] [--only NAME ...]
 
 Times fused_ffn at the far_rip path's shape (12,800 rows x 528 channels,
 hidden 2112, bf16; dropout 0, as the predict calls it, and 0.1, as the
@@ -14,8 +14,17 @@ kernel is that part's time, or another design choice (one row tile a
 block, in waves, instead of the work split evenly over the SMs; the
 first warpgroup refilling every stage; the next tile's x loaded during
 the last chunk; 16-deep ring steps, 7 stages; the exact-division GELU:
-right values). The committed kernel is not changed. The copies' libraries are
-all built first, in parallel; each copy is then timed in its own process
+right values). With --bwd it times the backward at the train step's shape
+(12,160 rows) against copies whose csrc/fused_ffn_bwd.cu leaves out one
+part (BWD_VARIANTS: pass 2's two products, pass 2's epilogue, the dW1 and
+dW2 products, the dxn product, the LayerNorm and column-sum passes, the
+split sums; the LayerNorm pass and pass 2 alone, with and without pass
+2's epilogue or products: wrong values by design) or makes another
+choice (the dropout as an IEEE division instead of the reciprocal with a
+remainder correction, plain stores of the halves instead of streaming
+ones, the dW products' K in other numbers of chunks). The committed
+kernel is not changed. The copies' libraries are all built first, in
+parallel; each copy is then timed in its own process
 (mean CUDA-event time of 30 calls after 3 warm-ups, --repeats times).
 Prints one JSON line with every reading, the card's name and each
 variant's best time less the committed kernel's. Exits non-zero without
@@ -63,11 +72,60 @@ VARIANTS = {
         ("float v0 = vptr_gelu::gelu_fast(", "float v0 = vptr_gelu::gelu("),
         ("float v1 = vptr_gelu::gelu_fast(", "float v1 = vptr_gelu::gelu(")],
 }
+BWD_SOURCE = "csrc/fused_ffn_bwd.cu"
+_EPILOGUE = ("    // + b1, the GELU and its gradient, the hash mask (drawn once for both):\n",
+             "    work.advance(rt, ct);\n")
+_PRODUCTS = ("          wgmma_64<0, 1>(a, wg_desc(s + rh * (kP1Box / 2) + 32 * qq),\n"
+         "                         wg_desc_mn(s + (4 + chalf) * (kP1Box / 2) + 2048 * qq, kP1Box / 2));\n"
+         "          wgmma_64<0, 0>(d, wg_desc(s + kP1Box + rh * (kP1Box / 2) + 32 * qq),\n"
+         "                         wg_desc(s + (6 + chalf) * (kP1Box / 2) + 32 * qq));\n", "")
+_ALONE = ("    if (int err = hidden_wg(a, s)) return err;\n",
+          "    if (int err = hidden_wg(a, s)) return err;\n    return 0;\n")
+# variant -> [(text of csrc/fused_ffn_bwd.cu, replacement) or (start, end,
+# None): the text from start up to end left out]
+BWD_VARIANTS = {
+    "without pass 2's products": [_PRODUCTS],
+    "without pass 2's epilogue": [(*_EPILOGUE, None)],
+    "without dW1 and dW2": [
+        ("  if (int err = launch_dw<2>(a.g, hl, hl + plane, f32p(a.wpart2), S, C, H, a.ksplit, s))\n"
+         "    return err;\n", ""),
+        ("  if (int err = launch_dw<2>(a.xn, hl + 2 * plane, hl + 3 * plane, f32p(a.wpart1), S, C, H,\n"
+         "                             a.ksplit, s))\n    return err;\n", "")],
+    "without dxn": [("  return wg_groups(C) == 1\n", "  if (depth) return 0;\n  return wg_groups(C) == 1\n")],
+    "without the LN and column-sum passes": [
+        ("  ln_rows_kernel<T><<<", "  if (!wg) ln_rows_kernel<T><<<"),
+        ("  ln_bwd_kernel<T><<<", "  if (!wg) ln_bwd_kernel<T><<<"),
+        ("  colsum_partial_kernel<T><<<dim3((H + 127) / 128, hb.parts, 1)",
+         "  if (!wg) colsum_partial_kernel<T><<<dim3((H + 127) / 128, hb.parts, 1)"),
+        ("  colsum_final_kernel<<<dim3((H + 127) / 128, 1)",
+         "  if (!wg) colsum_final_kernel<<<dim3((H + 127) / 128, 1)"),
+        ("  colsum_partial_kernel<T><<<dim3((C + 127) / 128, a.parts, 3)",
+         "  if (!wg) colsum_partial_kernel<T><<<dim3((C + 127) / 128, a.parts, 3)"),
+        ("  colsum_final_kernel<<<dim3((C + 127) / 128, 3)",
+         "  if (!wg) colsum_final_kernel<<<dim3((C + 127) / 128, 3)")],
+    "pass 2 alone": [_ALONE],
+    "pass 2 alone without its epilogue": [_ALONE, (*_EPILOGUE, None)],
+    "pass 2 alone without its products": [_ALONE, _PRODUCTS],
+    "dropout as a division": [
+        ("            gl = drop.apply_rcp(gl, kept, rcp);\n            dh = drop.apply_rcp(dh, kept, rcp);\n",
+         "            gl = drop.apply(gl, kept);\n            dh = drop.apply(dh, kept);\n")],
+    **{f"K in {n} chunks": [("  if (!wg_route(C, H, dtype)) return weight_splits(S);\n",
+                             f"  if (wg_route(C, H, dtype)) return {n};\n"
+                             "  return weight_splits(S);\n")]
+       for n in (5, 7, 9, 11)},
+    "K in chunks of 1024 rows": [("  if (!wg_route(C, H, dtype)) return weight_splits(S);\n",
+                                  "  return weight_splits(S);\n")],
+    "plain stores": [('#include "wg_dw.cuh"\n',
+                      '#include "wg_dw.cuh"\n#define __stcs(p, v) (*(p) = (v))\n')],
+    "without the split sums": [
+        ("  split_sum_kernel<T><<<", "  if (!wg) split_sum_kernel<T><<<"),
+        ("    split_sum_t_kernel<T><<<", "    if (!wg) split_sum_t_kernel<T><<<")],
+}
 BUILD = ("import sys; sys.path.insert(0, '.'); from vptr_tpu_torch.ops import _build; "
-         "_build.build(['fused_ffn'])")
+         "_build.build([{lib!r}])")
 
 
-def time_fused_ffn(root: str, repeats: int) -> dict:
+def time_fused_ffn(root: str, repeats: int, bwd: bool) -> dict:
     import torch
 
     sys.path.insert(0, root)
@@ -81,22 +139,29 @@ def time_fused_ffn(root: str, repeats: int) -> dict:
     def r(*shape, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dev)
 
-    c, hid = 528, 2112
-    ops = (r(12800, c).to(bf), r(c, hid, std=c ** -0.5).to(bf), r(hid, std=0.1),
+    c, hid, rows = 528, 2112, 12160 if bwd else 12800
+    ops = (r(rows, c).to(bf), r(c, hid, std=c ** -0.5).to(bf), r(hid, std=0.1),
            r(hid, c, std=hid ** -0.5).to(bf), r(c, std=0.1), 1 + r(c, std=0.1),
            r(c, std=0.1))
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    gout = r(rows, c).to(bf)
     out = {}
     for rate in (0.0, 0.1):
+        def call():
+            if bwd:
+                tff.fused_ffn_backward(*ops, seed, gout, rate)
+            else:
+                tff.fused_ffn(*ops, seed, rate)
+
         ms = []
         for _ in range(repeats):
             for _ in range(3):
-                tff.fused_ffn(*ops, seed, rate)
+                call()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda.synchronize()
             start.record()
             for _ in range(30):
-                tff.fused_ffn(*ops, seed, rate)
+                call()
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end) / 30)
@@ -106,6 +171,8 @@ def time_fused_ffn(root: str, repeats: int) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--bwd", action="store_true",
+                        help="the backward (#8) and its variants instead of #7")
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--only", nargs="*", help="variants to time (default: all)")
     parser.add_argument("--time", help=argparse.SUPPRESS)   # one root, in a child
@@ -116,32 +183,39 @@ def main() -> int:
         print("torch_port_ffn_probe: no GPU", file=sys.stderr)
         return 1
     if args.time:
-        print(json.dumps(time_fused_ffn(args.time, args.repeats)))
+        print(json.dumps(time_fused_ffn(args.time, args.repeats, args.bwd)))
         return 0
+    source, variants = (BWD_SOURCE, BWD_VARIANTS) if args.bwd else (SOURCE, VARIANTS)
     roots = {"committed": str(REPO)}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         if args.only and name not in args.only:
             continue
         root = REPO / "build" / "ffn_probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(REPO / "vptr_tpu_torch", root / "vptr_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = root / "vptr_tpu_torch" / SOURCE
+        src = root / "vptr_tpu_torch" / source
         text = src.read_text()
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the text to replace is not in {SOURCE} once")
-            text = text.replace(old, new)
+        for old, new, *cut in edits:
+            if text.count(old) != 1 or (cut and text.count(new) != 1):
+                raise RuntimeError(f"{name}: the text to replace is not in {source} once")
+            if cut:                     # leave out the text from old up to new
+                i = text.index(old)
+                text = text[:i] + text[text.index(new, i):]
+            else:
+                text = text.replace(old, new)
         src.write_text(text)
         roots[name] = str(root)
-    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=root) for root in roots.values()]
+    lib = Path(source).stem
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD.format(lib=lib)], cwd=root)
+              for root in roots.values()]
     for b in builds:
         b.wait(timeout=900)
     result = {}
     for name, root in roots.items():
         run = subprocess.run([sys.executable, __file__, "--time", root, "--repeats",
-                              str(args.repeats)], capture_output=True, text=True,
-                             timeout=900)
+                              str(args.repeats)] + (["--bwd"] if args.bwd else []),
+                             capture_output=True, text=True, timeout=900)
         if run.returncode != 0:         # a variant that does not build or run
             print(run.stdout + run.stderr, file=sys.stderr)
             if name == "committed":

@@ -2,7 +2,7 @@
 port, for comparing two checkouts on one GPU.
 
     python3 scripts/torch_port_kernel_times.py [--root DIR] [--repeats 5]
-        [--conv-route] [--kernels-only]
+        [--conv-route] [--kernels-only] [--only NAME ...]
 
 Imports ``vptr_tpu_torch`` from ``--root`` (default: the checkout holding
 this script), builds its kernels there, and times in bf16, at the far_mnist
@@ -29,7 +29,9 @@ synchronised step, ``2 * --repeats`` steps after two warm-ups; both again
 on the fused feed-forward route (``ffn_route_*``; null for a tree without
 it) and, with ``--conv-route``, on the conv-FFN route with the folded
 temporal sublayer (``conv_route_*``; null for a tree without it);
-``--kernels-only`` times the kernels alone (no model, predict or step). Prints
+``--kernels-only`` times the kernels alone (no model, predict or step);
+``--only`` times only the kernels named (e.g. ``fused_dw_chain_ms``), so
+that a kernel can be read in a process of its own. Prints
 one JSON line with every reading and their medians. To compare
 two trees, run it on each in turns (A B B A) within one machine. Needs a
 GPU; exits non-zero without one.
@@ -68,6 +70,7 @@ def main() -> int:
                         help="also time #11/#12 and the conv-FFN route")
     parser.add_argument("--kernels-only", action="store_true",
                         help="time the kernels alone, no predict or train step")
+    parser.add_argument("--only", nargs="*", help="the kernels to time (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_kernel_times: no GPU", file=sys.stderr)
@@ -191,6 +194,8 @@ def main() -> int:
                     lambda cops_t=cops_t, gconv=gconv: tcl.conv_ln_gelu_backward(
                         *cops_t, gconv),
             })
+    if args.only:
+        kernels = {name: fn for name, fn in kernels.items() if name in args.only}
     readings = {name: [] for name in kernels}
     for route in routes:
         readings.update({f"{route}predict_ms": [], f"{route}train_step_ms": []})

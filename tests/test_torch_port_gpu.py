@@ -328,22 +328,29 @@ def _ffn_operands(g, rows, dtype, cuda, c=528, h=2112):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("rows,c,h", [(12800, 528, 2112), (12160, 528, 2112),
                                       (1236, 528, 2112), (64, 528, 2112), (1, 528, 2112),
-                                      (100, 176, 192), (1236, 576, 2112)])
+                                      (100, 176, 192), (1236, 576, 2112), (100, 168, 200),
+                                      (100, 172, 196)])
 def test_fused_ffn_kernels_match_plain(cuda, dtype, rate, rows, c, h):
-    """12,800 rows: the far_rip predict's; 12,160: the training step's (the
-    bf16 tensor-core routes); 1,236: a ragged last row tile, and the
-    backward's generic product route; 64 and 1: one row tile, so the
-    forward's cluster of two tiles has its second past the rows; C 176, H
-    192: one hidden chunk, y columns for one warpgroup, a ragged tile; C
-    576: the widest the bf16 route takes (192 y columns a warpgroup). The
-    forward gives the same bits on two calls."""
+    """12,800 rows: the far_rip predict's; 12,160: the training step's; 1,236
+    and 100: a ragged last row tile; 64 and 1: one row tile, the second of
+    the backward's 128-row tiles past the rows; C 176, H 192: one hidden
+    chunk, y columns for one warpgroup; C 576: the widest the forward's
+    bf16 route takes (192 y columns a warpgroup); C 168, H 200: the
+    backward's bf16 route with the last 16-deep slice of both products
+    half past the data (the forward's FMA route); C 172, H 196: the
+    backward's FMA route in bf16 (C not a multiple of 8). Each route is
+    asserted per shape. Forward and backward give the same bits on two
+    calls."""
     from vptr_tpu_torch.ops import fused_ffn as tff
 
     g = torch.Generator().manual_seed(13)
     args = _ffn_operands(g, rows, dtype, cuda, c, h)
     seed = _seed(cuda)
-    if dtype == torch.bfloat16:
-        assert tff.kernel_route(c, h, dtype) == "wgmma"
+    bf = dtype == torch.bfloat16
+    assert tff.kernel_route(c, h, dtype) == (
+        "wgmma" if bf and c % 16 == 0 and h % 16 == 0 else "fma")
+    assert tff.backward_route(c, h, dtype) == (
+        "wgmma" if bf and c % 8 == 0 and h % 8 == 0 else "fma")
     before = (tff.fused_ffn.launches, tff.fused_ffn.bwd_launches)
     fwd = tff.fused_ffn(*args, seed, rate)
     fwd2 = tff.fused_ffn(*args, seed, rate)
@@ -362,6 +369,33 @@ def test_fused_ffn_kernels_match_plain(cuda, dtype, rate, rows, c, h):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel_err(a, b) <= BWD_TOL[dtype], name
         assert torch.equal(a, a2), name          # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("rows,m,n", [(12160, 528, 2112), (1236, 528, 2112), (1, 528, 2112),
+                                      (100, 168, 200)])
+def test_ffn_weight_product_matches_matmul(cuda, transposed, rows, m, n):
+    """Kernel #8's weight-gradient product alone: a^T (b_hi + b_lo) over K =
+    rows on the shared wgmma product (both operands MN-major, in #8's K
+    chunks, their f32 partials summed in order), written as (m, n) as dW1
+    is or transposed, (n, m), as dW2 is; 12,160 rows: the training step's,
+    1,236 and 1 a ragged K. Against an f32 matmul of the same bf16
+    operands: they differ in summation order only."""
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    g = torch.Generator().manual_seed(17)
+    a = torch.randn(rows, m, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(rows, n, generator=g).to(cuda)
+    hi = b.to(torch.bfloat16)
+    lo = (b - hi.float()).to(torch.bfloat16)
+    got = tff.weight_product(a, hi, lo, transposed)
+    want = a.float().t() @ (hi.float() + lo.float())
+    if transposed:
+        want = want.t()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
 @pytest.mark.gpu

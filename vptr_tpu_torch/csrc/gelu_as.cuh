@@ -38,6 +38,22 @@ __device__ __forceinline__ float gelu_fast(float a) {
   return 0.5f * a * (1.0f + copysignf(1.0f - poly * __expf(-ax * ax), x));
 }
 
+// gelu_fast(a) and gelu_grad(a) together, for the backward's epilogue:
+// the pdf's exponential exp(-a^2 / 2) is the erf's exp(-x^2), x = a / sqrt 2,
+// so one __expf serves both (a few ulp of f32 from gelu and gelu_grad).
+__device__ __forceinline__ void gelu_and_grad_fast(float a, float& h, float& grad) {
+  const float x = a * 0.707106781186547524f;
+  const float ax = fabsf(x);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, ax, 1.0f));
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float e = __expf(-ax * ax);
+  const float cdf = 0.5f * (1.0f + copysignf(1.0f - poly * e, x));
+  h = a * cdf;
+  grad = fmaf(a * 0.398942280401432678f, e, cdf);
+}
+
 // the A&S cdf plus a times the exact normal pdf
 __device__ __forceinline__ float gelu_grad(float a) {
   const float cdf = 0.5f * (1.0f + erf_as(a / 1.41421356237309515f));

@@ -53,6 +53,15 @@ struct Params {
   __device__ __forceinline__ float apply(float w, bool kept) const {
     return kept ? w / keep_div : 0.f;
   }
+  // The same quotient without a division: q = w rcp with rcp = 1 / keep_div
+  // (rounded once, by the caller), then one correction by the exact
+  // remainder w - q keep_div (an fma): Markstein's step, which rounds to
+  // the correctly rounded w / keep_div for w and quotients in the normal
+  // range, with no slow-path branch.
+  __device__ __forceinline__ float apply_rcp(float w, bool kept, float rcp) const {
+    const float q = w * rcp;
+    return kept ? fmaf(fmaf(-q, keep_div, w), rcp, q) : 0.f;
+  }
 };
 
 }  // namespace vptr_dropout

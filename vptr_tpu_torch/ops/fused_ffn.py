@@ -156,6 +156,14 @@ def kernel_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
         channels, hidden, _DTYPES[dtype]) else "fma")
 
 
+def backward_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
+    """Which route kernel #8 takes: ``"wgmma"`` (bf16, C and H multiples
+    of 8: every product on the warpgroup MMA, fed by TMA) or ``"fma"`` (f32
+    FMAs on the CUDA cores)."""
+    return ("wgmma" if _lib_bwd().vptr_fused_ffn_bwd_route(
+        channels, hidden, _DTYPES[dtype]) else "fma")
+
+
 def fc1_product(a, b) -> torch.Tensor:
     """a @ b in f32 on kernel #7's fc1 product (``wgmma`` m64n64k16 with b
     read MN-major, as w1 is stored), with a (64, K) and b (K, N) bf16 on
@@ -174,6 +182,35 @@ def fc1_product(a, b) -> torch.Tensor:
     err = lib.vptr_ffn_fc1_product(_build.ptr(a), _build.ptr(b), _build.ptr(out), k,
                                    b.shape[1], torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "fc1_product")
+    return out
+
+
+def weight_product(a, b_hi, b_lo, transposed: bool = False) -> torch.Tensor:
+    """a^T (b_hi + b_lo) in f32 on kernel #8's weight-gradient product
+    (``wgmma`` with both operands MN-major as they lie in memory, K = rows
+    split in #8's chunks, whose partials are summed in order), with a (K,
+    M) and b_hi, b_lo (K, N) bf16 on the card, M and N multiples of 8: (M,
+    N), or (N, M) when ``transposed``, as dW1 and dW2 are written. That
+    product on its own; not counted in ``fused_ffn.bwd_launches``."""
+    k, m = a.shape if a.dim() == 2 else (0, 0)
+    n = b_hi.shape[-1]
+    if (a.dim() != 2 or not a.is_cuda or k < 1 or m % 8 or n % 8 or m < 8 or n < 8
+            or any(t.dtype != torch.bfloat16 or t.device != a.device
+                   or not t.is_contiguous() or t.data_ptr() % 16 for t in (a, b_hi, b_lo))
+            or b_hi.shape != (k, n) or b_lo.shape != (k, n)):
+        raise ValueError(f"weight_product takes a (K, M) and b_hi, b_lo (K, N) bf16 on the "
+                         f"card, M and N multiples of 8, got {tuple(a.shape)} {a.dtype}, "
+                         f"{tuple(b_hi.shape)} {b_hi.dtype}, {tuple(b_lo.shape)} {b_lo.dtype}")
+    lib = _lib_bwd()
+    sizes = (ctypes.c_int * 4)()
+    lib.vptr_fused_ffn_bwd_scratch(k, m, n, _DTYPES[torch.bfloat16], sizes)
+    part = torch.empty(sizes[1], m, n, dtype=torch.float32, device=a.device)
+    out = torch.empty((n, m) if transposed else (m, n), dtype=torch.float32, device=a.device)
+    p = _build.ptr
+    err = lib.vptr_ffn_weight_product(p(a), p(b_hi), p(b_lo), p(part), p(out), k, m, n,
+                                      int(transposed),
+                                      torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "weight_product")
     return out
 
 
@@ -230,7 +267,7 @@ class _BwdArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "x", "w1", "b1", "w2", "b2", "ls", "lb", "seed", "g",
         "dx", "dw1", "db1", "dw2", "db2", "dls", "dlb",
-        "mean", "rstd", "xn", "act", "dact", "hilo", "dxn", "wpart1",
+        "mean", "rstd", "xn", "act", "dact", "hilo", "dbpart", "dxn", "wpart1",
         "wpart2", "partial")]
         + [(n, ctypes.c_int) for n in ("rows", "channels", "hidden", "dtype",
                                        "ksplit", "parts")]
@@ -245,21 +282,27 @@ def _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate):
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     lib = _lib_bwd()
-    parts = lib.vptr_fused_ffn_bwd_partials(s)
-    ksplit = lib.vptr_fused_ffn_bwd_ksplit(s)
+    wg = bool(lib.vptr_fused_ffn_bwd_route(c, h, _DTYPES[dt]))
+    sizes = (ctypes.c_int * 4)()
+    lib.vptr_fused_ffn_bwd_scratch(s, c, h, _DTYPES[dt], sizes)
+    rows, ksplit, parts, dbparts = sizes
 
     def buf(*shape, dtype=f32):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     grads = dict(dx=torch.empty_like(x), dw1=torch.empty_like(w1), db1=buf(h),
                  dw2=torch.empty_like(w2), db2=buf(c), dls=buf(c), dlb=buf(c))
-    # scratch: the LayerNorm pass, the hidden (f32) and its gradient, the
-    # bf16 hi/lo halves of both for the tensor-core products, d(xn), the
-    # split-K weight-gradient partials and the column-sum partials
+    # scratch: the LayerNorm pass; the hidden and its gradient, on the
+    # wgmma route as the bf16 hi/lo halves of both (rows padded to the
+    # product kernel's 64-row tiles) and db1's row partials, on the FMA
+    # route in f32; d(xn), the split-K weight-gradient partials (dW2's
+    # transposed on the wgmma route) and the column-sum partials
     scratch = dict(mean=buf(s), rstd=buf(s), xn=buf(s, c, dtype=dt),
-                   act=buf(s, h), dact=buf(s, h),
-                   hilo=buf(4, s, h, dtype=dt) if dt == torch.bfloat16 else None,
-                   dxn=buf(s, c), wpart1=buf(ksplit, c, h), wpart2=buf(ksplit, h, c),
+                   act=None if wg else buf(s, h), dact=None if wg else buf(s, h),
+                   hilo=buf(4, rows, h, dtype=dt) if wg else None,
+                   dbpart=buf(dbparts, h) if wg else None,
+                   dxn=buf(rows, c), wpart1=buf(ksplit, c, h),
+                   wpart2=buf(ksplit, c, h) if wg else buf(ksplit, h, c),
                    partial=buf(parts, h + 3 * c))
     p = _build.ptr
     seed_p, rate, keep_div = _dropout_args(seed, rate)
@@ -300,10 +343,14 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("fused_ffn_bwd")
     fn = lib.vptr_fused_ffn_bwd
     if fn.argtypes is None:
+        i = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for part in ("partials", "ksplit"):
-            f = getattr(lib, f"vptr_fused_ffn_bwd_{part}")
-            f.argtypes = [ctypes.c_int]
-            f.restype = ctypes.c_int
+        fn.restype = i
+        lib.vptr_fused_ffn_bwd_route.argtypes = [i] * 3
+        lib.vptr_fused_ffn_bwd_route.restype = i
+        lib.vptr_fused_ffn_bwd_scratch.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.vptr_fused_ffn_bwd_scratch.restype = None
+        lib.vptr_ffn_weight_product.argtypes = [ctypes.c_void_p] * 5 + [i] * 4 + [
+            ctypes.c_void_p]
+        lib.vptr_ffn_weight_product.restype = i
     return lib
