@@ -8,8 +8,9 @@ Phases (any failure exits non-zero, without the final result line):
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520);
    count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu
-   and fused_ffn libraries, forward and backward (cuobjdump), and fail if
-   any has none;
+   and fused_ffn libraries, forward and backward, and of the two window-
+   attention backward libraries (#3, #6) (cuobjdump), and fail if any has
+   none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
@@ -33,9 +34,9 @@ Phases (any failure exits non-zero, without the final result line):
 6. time the far_rip predict call, the train step (median of 8 after 2
    warm-ups, and with kernels="plain") and each kernel beside its plain
    version, a PyTorch library yardstick and its bound (bytes or
-   operations over the card's published peak); #1's and #3's yardsticks
-   also replayed from CUDA graphs (the backward's as forward + backward
-   less forward);
+   operations over the card's published peak); #1's to #4's yardsticks
+   also replayed from CUDA graphs (a backward's as forward + backward less
+   forward);
 7. the NAR slice's kernels against their plain versions at the nar_mnist
    shapes (640 windows x 16 x 528), bf16 and f32, dropout 0 and 0.1:
    the two-stream kernels #5/#6 with an 8-head and a 1-head relative-
@@ -53,7 +54,8 @@ Phases (any failure exits non-zero, without the final result line):
    one cloned state; 10 steps on one batch, losses finite and falling;
 10. time the nar predict call and the NAR train step (in turns with
    kernels="plain"), kernels #5/#6 beside their plain versions, library
-   yardsticks and bounds, and #1/#3 at the NAR shape with the RPE bias;
+   yardsticks (also replayed from CUDA graphs) and bounds, and #1/#3 at the
+   NAR shape with the RPE bias;
 11. the fused-FFN route's kernels (#7/#8 fused_ffn, #9/#10 fused_dw_chain)
    against their plain versions at the far_mnist shapes (FFN rows 12,800
    and 12,160 for the forward, 12,160 for the backward, C 528, hidden
@@ -67,7 +69,7 @@ Phases (any failure exits non-zero, without the final result line):
    launches each), kernels vs kernels="plain" from one cloned state, 10
    steps on one batch with a falling loss;
 14. times: #7-#10 beside their plain versions, a library yardstick and the
-   bound; #7's and #8's yardsticks also replayed from CUDA graphs (the
+   bound; #7's to #10's yardsticks also replayed from CUDA graphs (a
    backward's as forward + backward less forward); the far_rip predict and
    the train step on the fused route and the default route in turns, and
    each step's memory peak above what is held;
@@ -454,8 +456,8 @@ def nar_phases(dev):
                                                           heads, r)
                 n_worst, worst = worst_rel(got, want, two_names)
                 check(worst <= bwd_tol[dtype], f"fused_attention backward {name} "
-                      f"{what} dropout {r} worst {n_worst} rel err {worst:.2e} <= "
-                      f"{bwd_tol[dtype]:.2e}")
+                      f"{what} dropout {r} ({tfw.backward_route(tokens, c, dtype, False)} "
+                      f"route) worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
                 if dtype == bf and r > 0 and bias is rpe8:
                     errs["two"] = e
                     errs["two_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
@@ -472,8 +474,8 @@ def nar_phases(dev):
                   f"fused_attention_ln backward {name} returns the 8-head dbias")
             n_worst, worst = worst_rel(got, want, ln_names)
             check(worst <= bwd_tol[dtype], f"fused_attention_ln backward {name} "
-                  f"8-head RPE bias dropout {r} worst {n_worst} rel err "
-                  f"{worst:.2e} <= {bwd_tol[dtype]:.2e}")
+                  f"8-head RPE bias dropout {r} ({tfw.backward_route(tokens, c, dtype)} "
+                  f"route) worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
     torch.cuda.synchronize()
 
     phase("8. nar_mnist full width, nar predict")
@@ -612,6 +614,13 @@ def nar_phases(dev):
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
               f"MB, {flops / 1e9:.2f} GFLOP)")
+    # #5's and #6's yardsticks again, replayed from CUDA graphs (no host
+    # between launches); the backward's as forward + backward less forward
+    readings["fused_attention"]["library_graph_ms"] = fwd = graph_ms(two_library)
+    print(f"  fused_attention library yardstick replayed from a CUDA graph: {fwd:.4f} ms; "
+          f"the backward's:")
+    readings["fused_attention_bwd"]["library_graph_ms"] = graph_bwd_ms(
+        two_library, (x_qk, x_v, wq, wk, wv, wo), gwin)
     rows_out = []
     for name, src, replaces, err, launches in (
             ("fused_attention", "vptr_tpu_torch/csrc/fused_window_attention.cu",
@@ -892,6 +901,12 @@ def ffn_phases(dev):
     print(f"  fused_ffn library yardstick replayed from a CUDA graph: forward {fwd:.4f} ms "
           f"({s_pred} rows); the backward's on {s_step} rows:")
     readings["fused_ffn_bwd"]["library_graph_ms"] = graph_bwd_ms(ffn_library, fops_t, gffn)
+    fwd = graph_ms(lambda: dw_library(*dops))
+    readings["fused_dw_chain"]["library_graph_ms"] = fwd
+    print(f"  fused_dw_chain library yardstick replayed from a CUDA graph: forward {fwd:.4f} "
+          f"ms ({n_pred} samples); the backward's on {n_step}:")
+    readings["fused_dw_chain_bwd"]["library_graph_ms"] = graph_bwd_ms(
+        dw_library, dops_t, gdw.view(n_step, tc.enc_h, w, hid).permute(0, 3, 1, 2))
     rows_out = []
     for name, src, replaces, err, launches in (
             ("fused_ffn", "vptr_tpu_torch/csrc/fused_ffn.cu",
@@ -1042,8 +1057,8 @@ def conv_phases(dev):
                                                              need_dbias=False)
                 n_worst, worst = worst_rel(got, want, ln_names)
                 check(worst <= bwd_tol[dtype], f"fused_attention_ln backward {what} "
-                      f"dropout {r} worst {n_worst} rel err {worst:.2e} <= "
-                      f"{bwd_tol[dtype]:.2e}")
+                      f"dropout {r} ({tfw.backward_route(t, c, dtype)} route) worst "
+                      f"{n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
                 if dtype == bf and r > 0:
                     errs[("ln_bwd", where)] = max(max_err(a, b) for a, b in zip(got, want)
                                                   if b is not None)
@@ -1281,7 +1296,8 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
-    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd"):
+    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
+                "fused_window_attention_ln_bwd", "fused_window_attention_bwd"):
         n_hgmma = hgmma_count(paths[lib])
         check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
               f"instructions > 0")
@@ -1404,9 +1420,9 @@ def main() -> int:
                 n_worst = max(worst, key=worst.get)
                 what = "res, scale, per-head bias" if res else "no bias"
                 check(worst[n_worst] <= bwd_tol[dtype],
-                      f"fused_attention_ln backward {name} dropout {r} ({what})"
-                      f" worst {n_worst} rel err {worst[n_worst]:.2e} <= "
-                      f"{bwd_tol[dtype]:.2e}")
+                      f"fused_attention_ln backward {name} dropout {r} ({what}; "
+                      f"{tfw.backward_route(tokens, c, dtype)} route) worst {n_worst} "
+                      f"rel err {worst[n_worst]:.2e} <= {bwd_tol[dtype]:.2e}")
                 if dtype == torch.bfloat16 and r > 0 and not res:
                     errs[("window_bwd", dtype)] = max(
                         max_err(a, b) for a, b in zip(got, want) if b is not None)
@@ -1551,17 +1567,22 @@ def main() -> int:
     # dq, dk, dv
     lib_g = torch.randn(twindows, tokens, c, generator=g).to(dev, bf)
     window_lib_bwd = grads_of(window_library, (tops[0], wq, wk, wv, wo), lib_g)
-    core_lib_bwd = grads_of(
-        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf)),
-        (tq_, tk_, tv_), gcore)
+    def core_library(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf))
+
+    core_lib_bwd = grads_of(core_library, (tq_, tk_, tv_), gcore)
 
     # #1's and #3's yardsticks replayed from CUDA graphs (no host between
     # launches)
     graph = {"fused_attention_ln": graph_ms(window_library),
              "fused_attention_ln_bwd": graph_bwd_ms(window_library, (tops[0], wq, wk, wv, wo),
-                                                    lib_g)}
-    print(f"  fused_attention_ln library yardstick replayed from a CUDA graph: "
-          f"{graph['fused_attention_ln']:.4f} ms")
+                                                    lib_g),
+             "attention_core": graph_ms(
+                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=causal.to(bf))),
+             "attention_core_bwd": graph_bwd_ms(core_library, (tq_, tk_, tv_), gcore)}
+    print(f"  library yardsticks replayed from CUDA graphs: fused_attention_ln "
+          f"{graph['fused_attention_ln']:.4f} ms, attention_core {graph['attention_core']:.4f} "
+          f"ms")
     rows_out = []
     for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
         ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",

@@ -8,10 +8,10 @@ Times conv_ln_gelu in bf16 at both stages of the far_mnist conv FFN (fc1
 positions, the backward over 190) as committed, and copies of the package
 under build/conv_probe/ whose csrc/conv_ln_gelu.cu, conv_ln_gelu_bwd.cu or
 conv_ln_wg.cuh is changed in a few places (VARIANTS): another design
-choice (samples a block, feeder warp, ring stages, the dx tile, the dW
-product, how many loads the backward's sweeps issue together: right
-values), or one part of the work left out (the affine loads, the cluster
-sums, the output store, the backward's per-sample stores, its last sweep:
+choice (samples a block, feeder warp, ring stages, the dx tile, how
+many loads the backward's sweeps issue together: right values), or one
+part of the work left out (the affine loads, the cluster sums, the output
+store, the backward's per-sample stores, its last sweep:
 wrong values by design), whose difference from the committed kernel is
 that part's time; the backward's passes alone ("pass 1 alone", "dx
 alone", "dW alone", "sums alone") read each pass's own time. The
@@ -38,15 +38,6 @@ PASS1 = "  if (int err = pass1_wg(a, s)) return err;      // 1. du and the parti
 DX = "  if (int err = dx_wg(a, s)) return err;         // 2. dx = du W^T"
 DW = "  return dw_wg(a, s);                            //    dW = x^T du"
 SUMS = "  return sums<T>(a, s);"
-# dW on tile_ops.cuh's WMMA product (the design before wgmma), split-K alike
-DW_TC = """  const int S = a.N * a.HW;
-  const bf16* hi = static_cast<const bf16*>(a.du);
-  TcBatch tb{};
-  tb.M = a.Cin, tb.N = a.Cout, tb.K = S, tb.lda = a.Cin, tb.ldb = a.Cout, tb.ldo = a.Cout;
-  tb.group = 1, tb.ksplit = a.ksplit;
-  tb.kchunk = ((S + a.ksplit - 1) / a.ksplit + TBK - 1) / TBK * TBK;
-  tb.job[0] = tc_job({a.x, a.x}, {hi, hi + static_cast<long>(S) * a.Cout}, a.wpart);
-  return tc_gemm<true, false, float, kPartial>(tb, 1, s);"""
 # variant -> [(source, text it replaces (every occurrence), replacement), ...]
 VARIANTS = {
     "one sample a block": [(
@@ -80,7 +71,6 @@ VARIANTS = {
     "bwd: two samples a block at fc1": [(
         BWD, "constexpr int bwd_samples(int cw) { return cw <= 1 ? 2 : 1; }",
         "constexpr int bwd_samples(int cw) { return cw <= 2 ? 2 : 1; }")],
-    "bwd: dW on the WMMA product": [(BWD, DW, DW_TC)],
     "bwd: no feeder warp": [(
         BWD, "constexpr bool bwd_feeder(int cw) { return cw == 1; }",
         "constexpr bool bwd_feeder(int cw) { return false; }")],

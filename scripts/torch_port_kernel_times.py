@@ -11,7 +11,10 @@ shapes:
   heads, the position table, no bias, dropout 0 (the far_rip shape);
 * ``attention_core`` (#2): 640 x 8 heads x 20 x 66, causal, dropout 0;
 * ``fused_attention_ln_backward`` (#3): 760 windows, dropout 0.1 (the
-  train step's shape);
+  train step's shape), and 640 x 19 causal with the position table, as
+  the folded temporal sublayer's step calls it (``..._t19_ms``);
+* ``fused_attention_backward`` (#6): 640 x 16 x 528 with the 8-head
+  relative-position bias, dropout 0.1 (the nar_mnist step's shape);
 * ``attention_core_backward`` (#4): 640 x 8 x 19 x 66, causal, dropout 0.1;
 * where the tree has the fused feed-forward route: ``fused_ffn`` (#7)
   12,800 x 528 rows, hidden 2112, dropout 0; its backward (#8) 12,160 rows,
@@ -90,6 +93,7 @@ def main() -> int:
         attention_core_backward,
     )
     from vptr_tpu_torch.ops.fused_window_attention import (
+        fused_attention_backward,
         fused_attention_ln,
         fused_attention_ln_backward,
     )
@@ -126,6 +130,11 @@ def main() -> int:
     gwin = r(760, 16, c).to(bf)
     tq, tk, tv, gcore = (r(640, heads, ctx - 1, c // heads).to(bf) for _ in range(4))
     tcausal = causal[:, :ctx - 1, :ctx - 1]
+    t19 = (r(640, ctx - 1, c).to(bf),) + win[1:11] + (r(ctx - 1, c), tcausal)
+    g19 = r(640, ctx - 1, c).to(bf)
+    two = (r(640, 16, c).to(bf), r(640, 16, c).to(bf)) + win[1:9] + (
+        r(heads, 16, 16, std=0.5),)
+    gtwo = r(640, 16, c).to(bf)
 
     cfg = get_preset("far_mnist")
     routes = {} if args.kernels_only else {"": cfg}
@@ -157,6 +166,10 @@ def main() -> int:
         "attention_core_ms": lambda: attention_core(q, k, v, causal),
         "fused_attention_ln_bwd_ms": lambda: fused_attention_ln_backward(
             *twin, None, seed, gwin, heads, 0.1),
+        "fused_attention_ln_bwd_t19_ms": lambda: fused_attention_ln_backward(
+            *t19, seed, g19, heads, 0.1, need_dbias=False),
+        "fused_attention_bwd_ms": lambda: fused_attention_backward(
+            *two, seed, gtwo, heads, 0.1),
         "attention_core_bwd_ms": lambda: attention_core_backward(
             tq, tk, tv, tcausal, seed, gcore, 0.1, need_dbias=False),
     }

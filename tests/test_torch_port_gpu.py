@@ -645,3 +645,123 @@ def test_fused_attention_ln_temporal_shape(cuda, dtype, rate, tokens):
     for name, a, bb in zip(("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
                             "dbo", "dls", "dlb"), got, want):
         assert _rel_err(a, bb) <= BWD_TOL[dtype], name
+
+
+# ---- kernels #3 / #6 on the wgmma route: its products alone against f32
+# matmuls of the same bf16 operands (they differ in summation order only),
+# the backwards at edge shapes against their plain versions, two calls
+# bit-equal
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["mn", "k", "k2"])
+@pytest.mark.parametrize("rows,k,n", [(12160, 528, 528), (592, 528, 528), (37, 64, 96),
+                                      (1, 1584, 528), (247, 96, 64)])
+def test_window_rows_product_matches_matmul(cuda, mode, rows, k, n):
+    """The backward's row-tiled wgmma product alone: "mn" as the projections
+    run it (B = W (K, N) read MN-major as stored), "k" as d(attn) (B^T (N,
+    K) K-major as stored), "k2" as d(xn) (A as its hi and lo halves, two
+    terms); 12,160 rows: the FAR step's; ragged row tiles and depths."""
+    g = torch.Generator().manual_seed(21)
+    a32 = torch.randn(rows, k, generator=g).to(cuda)
+    a = a32.to(torch.bfloat16)
+    a_lo = (a32 - a.float()).to(torch.bfloat16) if mode == "k2" else None
+    b = torch.randn(*((k, n) if mode == "mn" else (n, k)), generator=g).to(cuda, torch.bfloat16)
+    got = tfw.rows_product(a, b, a_lo, b_mn=mode == "mn")
+    bmat = b.float() if mode == "mn" else b.float().t()
+    want = (a.float() + (0 if a_lo is None else a_lo.float())) @ bmat
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,c", [(12160, 528), (592, 96), (247, 64), (1, 528)])
+def test_window_weight_products_match_matmul(cuda, rows, c):
+    """The backward's four weight products in one launch: x_j^T (hi_j +
+    lo_j) over K = rows in its chunks (the fourth one term, as dWo over g
+    without a scale), against f32 matmuls. Both sum up to 12,160 products
+    of unit normals (sums up to ~500) in f32 in different orders: 2e-5 of
+    the largest value (one order's f32 rounding over the sum is ~1e-5)."""
+    g = torch.Generator().manual_seed(22)
+    xs = [torch.randn(rows, c, generator=g).to(cuda, torch.bfloat16) for _ in range(4)]
+    ys = [torch.randn(rows, c, generator=g).to(cuda) for _ in range(4)]
+    his = [y.to(torch.bfloat16) for y in ys]
+    los = [(y - h.float()).to(torch.bfloat16) for y, h in zip(ys[:3], his[:3])] + [None]
+    got = tfw.weight_products(xs, his, los)
+    torch.cuda.synchronize()
+    for j in range(4):
+        want = xs[j].float().t() @ (his[j].float() + (0 if los[j] is None else los[j].float()))
+        assert (got[j] - want).abs().max().item() <= 2e-5 * max(1.0, want.abs().max().item()), j
+
+
+def _window_case(g, kind, bw, tokens, c, dtype, cuda):
+    """Operands of #3 ("ln": a bias of 8 heads, or causal at 19 tokens;
+    "res": with res and a DropPath scale) or #6 ("two": the 8-head bias)."""
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    bias = _causal(tokens, cuda) if tokens == 19 else _rpe_bias(g, 8, tokens, cuda)
+    if kind == "two":
+        x_v = r(bw, tokens, c).to(dtype)
+        return (x_v, r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3],
+                b[3], bias)
+    return (r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3],
+            1 + r(c, std=0.1), r(c, std=0.1), r(tokens, c, std=0.5), bias)
+
+
+def _window_backward(kind, args, seed, dout, rate, scale, plain=False):
+    if kind == "two":
+        fn = tfw.fused_attention_backward_plain if plain else tfw.fused_attention_backward
+        return fn(*args, seed, dout, 8, rate)
+    fn = tfw.fused_attention_ln_backward_plain if plain else tfw.fused_attention_ln_backward
+    return fn(*args, seed, dout, 8, rate, scale, kind == "res")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("c", [64, 96, 528])
+@pytest.mark.parametrize("bw,tokens", [(37, 16), (13, 19), (20, 10)])
+@pytest.mark.parametrize("kind", ["ln", "res", "two"])
+def test_window_backward_wgmma_edge_shapes(cuda, kind, bw, tokens, c, rate):
+    """#3 and #6 on the wgmma route (bf16) at rows that are not a multiple
+    of the 128-row tiles (592, 247, 200), widths of one to three column
+    groups, 8 heads, against their plain versions."""
+    g = torch.Generator().manual_seed(23)
+    dtype = torch.bfloat16
+    assert tfw.backward_route(tokens, c, dtype, kind != "two") == "wgmma"
+    args = _window_case(g, kind, bw, tokens, c, dtype, cuda)
+    scale = (torch.rand(bw, generator=g) * 2).to(cuda) if kind == "res" else None
+    seed, dout = _seed(cuda), torch.randn(bw, tokens, c, generator=g).to(cuda, dtype)
+    got = _window_backward(kind, args, seed, dout, rate, scale)
+    want = _window_backward(kind, args, seed, dout, rate, scale, plain=True)
+    torch.cuda.synchronize()
+    for i, (a, bb) in enumerate(zip(got, want)):
+        if bb is None:
+            assert a is None
+            continue
+        assert a.dtype == bb.dtype and a.shape == bb.shape, i
+        assert _rel_err(a, bb) <= BWD_TOL[dtype], i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["res", "two"])
+def test_window_backward_is_deterministic(cuda, kind):
+    """No float atomics: two calls of #3 / #6 give the same bits."""
+    g = torch.Generator().manual_seed(24)
+    args = _window_case(g, kind, 96, 16, 528, torch.bfloat16, cuda)
+    scale = (torch.rand(96, generator=g) * 2).to(cuda) if kind == "res" else None
+    seed, dout = _seed(cuda), torch.randn(96, 16, 528, generator=g).to(cuda, torch.bfloat16)
+    first = _window_backward(kind, args, seed, dout, 0.1, scale)
+    second = _window_backward(kind, args, seed, dout, 0.1, scale)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_window_backward_routes(cuda):
+    """bf16 with C a multiple of 8 takes wgmma; f32, or C = 100, the FMAs."""
+    for ln in (True, False):
+        assert tfw.backward_route(16, 528, torch.bfloat16, ln) == "wgmma"
+        assert tfw.backward_route(19, 64, torch.bfloat16, ln) == "wgmma"
+        assert tfw.backward_route(16, 100, torch.bfloat16, ln) == "fma"
+        assert tfw.backward_route(16, 528, torch.float32, ln) == "fma"

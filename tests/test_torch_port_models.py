@@ -1,7 +1,8 @@
 """The port's modules against the JAX package's, through the weights
 converter (``vptr_tpu_torch.utils.weights.load_jax_variables``), on the CPU.
 
-(d) ``VPTREnc``/``VPTRDec`` with random BatchNorm running statistics,
+(d) ``VPTREnc``/``VPTRDec`` with random BatchNorm running statistics
+    (also at nar_bair's and nar_kth_128's geometries),
     ``EncoderBlock`` and ``VPTRFormerFAR``, all weights random (seeded
     numpy), both packages in f32, the JAX attention kernels in Pallas
     interpret mode (its own CPU default).
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import vptr_tpu.config as jcfg
+import vptr_tpu_torch.config as tcfg
 from vptr_tpu.models.autoencoder import build_autoencoder as jbuild_ae
 from vptr_tpu.models.transformer import EncoderBlock as JEncoderBlock
 from vptr_tpu.models.transformer import build_transformer as jbuild_tr
@@ -29,7 +32,7 @@ from vptr_tpu_torch.models.position import (
 from vptr_tpu_torch.models.transformer import EncoderBlock, build_transformer
 from vptr_tpu_torch.utils.weights import load_jax_variables
 
-from _torch_port_util import randomize, small_cfgs, t
+from _torch_port_util import SMALL, randomize, small_cfgs, t
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
@@ -52,6 +55,36 @@ def test_autoencoder_matches_jax():
         feat = enc(t(frames))
         out = dec(t(np.asarray(jfeat)))
     assert feat.shape == (2, 3, 8, 8, 48)
+    np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL)
+
+
+@pytest.mark.parametrize("preset,size,channels", [("nar_bair", 64, 3),
+                                                  ("nar_kth_128", 128, 1)])
+def test_autoencoder_preset_geometry_matches_jax(preset, size, channels):
+    """The AE at two more presets' geometries (SMALL widths): nar_bair's
+    three channels, zero padding and tanh head; nar_kth_128's 128 x 128
+    frames (16 x 16 latents)."""
+    over = {"dtype": "float32", "ae": SMALL["ae"]}
+    jc = jcfg.get_preset(preset).override(over)
+    tc = tcfg.get_preset(preset).override(over)
+    assert (tc.ae.img_channels, tc.data.img_size) == (channels, size)
+    rng = np.random.default_rng(11)
+    frames = rng.uniform(0, 1, (2, 2, size, size, channels)).astype(np.float32)
+    jenc, jdec = jbuild_ae(jc.ae)
+    ev = randomize(jenc.init(jax.random.PRNGKey(0), jnp.asarray(frames)), rng)
+    jfeat = jenc.apply(ev, jnp.asarray(frames))
+    dv = randomize(jdec.init(jax.random.PRNGKey(1), jfeat), rng)
+    jout = jdec.apply(dv, jfeat)
+
+    enc, dec = build_autoencoder(tc.ae, device="cpu")
+    load_jax_variables(enc, ev)
+    load_jax_variables(dec, dv)
+    with torch.inference_mode():
+        feat = enc(t(frames))
+        out = dec(t(np.asarray(jfeat)))
+    assert feat.shape == (2, 2, size // 8, size // 8, 48)
+    assert out.shape == (2, 2, size, size, channels)
     np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), atol=ATOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL)
 

@@ -7,7 +7,9 @@ through the weights converter, on the CPU.
     attention, temporal self-attention, enc-dec attention, also with
     Tp = 2 != Tf = 3) on the fused and unfused routes; ``VPTRFormerNAR``
     in eval mode for Tp = Tf = 3 and Tp = 2, Tf = 3 with kernels="cuda"
-    (the wrappers; plain versions on CPU tensors) and kernels="plain";
+    (the wrappers; plain versions on CPU tensors) and kernels="plain", and
+    at nar_kth_128's 16 x 16 latent and nar_bair's Tp = 2 -> Tf = 3 in both
+    modes;
 (the rollout and the weight round trip: ``test_torch_port_nar_rollout.py``).
 
 Weights are random (seeded numpy), f32, the JAX attention kernels in
@@ -16,7 +18,7 @@ f32 summation order over a stack of convs, norms and attention
 sublayers).
 """
 
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import vptr_tpu.config as jcfg
+import vptr_tpu_torch.config as tcfg
 from vptr_tpu.models.transformer import DecoderBlockNAR as JDecoderBlockNAR
 from vptr_tpu.models.transformer import EncoderBlock as JEncoderBlock
 from vptr_tpu.models.transformer import build_transformer as jbuild_tr
@@ -39,7 +43,7 @@ from vptr_tpu_torch.models.transformer import (
 )
 from vptr_tpu_torch.utils.weights import load_jax_variables
 
-from _torch_port_util import random_variables, small_nar_cfgs, t
+from _torch_port_util import SMALL, random_variables, small_nar_cfgs, t
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
@@ -124,3 +128,46 @@ def test_nar_transformer_matches_jax(kernels, past):
     assert got.shape == (2, 3, 8, 8, 48)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_allclose(proj.numpy(), np.asarray(want_proj), atol=ATOL)
+
+
+@lru_cache(maxsize=None)
+def _preset_case(preset, past, future):
+    """The JAX NAR transformer of ``preset`` at SMALL widths (2 + 2 layers,
+    Tp = past, Tf = future) on seeded features: (port config, its random
+    variables, the features, JAX's prediction and NCE projection), computed
+    once for both kernel modes."""
+    over = {**SMALL,
+            "transformer": {**SMALL["transformer"], "num_decoder_layers": 2,
+                            "num_past_frames": past, "num_future_frames": future},
+            "data": {**SMALL["data"], "num_past_frames": past,
+                     "num_future_frames": future}}
+    jc = jcfg.get_preset(preset).override(over)
+    tc = tcfg.get_preset(preset).override(over)
+    h, w = tc.transformer.enc_h, tc.transformer.enc_w
+    rng = np.random.default_rng(73)
+    feats = rng.standard_normal((2, past, h, w, 48)).astype(np.float32)
+    jtr = jbuild_tr(jc.transformer)
+    tv = random_variables(partial(jtr.init, method="init_all"), rng, jnp.asarray(feats))
+    want = jtr.apply(tv, jnp.asarray(feats), train=False)
+    want_proj = jtr.apply(tv, want, method=jtr.nce_project)
+    return tc, tv, feats, np.asarray(want), np.asarray(want_proj)
+
+
+@pytest.mark.parametrize("kernels", ["cuda", "plain"])
+@pytest.mark.parametrize("preset,past,future,latent", [("nar_kth_128", 3, 3, 16),
+                                                       ("nar_bair", 2, 3, 8)])
+def test_nar_transformer_preset_geometry_matches_jax(preset, past, future, latent,
+                                                     kernels):
+    """The NAR transformer at nar_kth_128's 16 x 16 latent (16 windows a
+    frame) and at nar_bair's Tp = 2 -> Tf = 3, SMALL widths, both kernel
+    modes (the wrappers' plain versions on CPU tensors, and plain)."""
+    tc, tv, feats, want, want_proj = _preset_case(preset, past, future)
+    assert (tc.transformer.enc_h, tc.transformer.enc_w) == (latent, latent)
+    tr = load_jax_variables(build_transformer(tc.transformer, device="cpu"), tv)
+    use_kernels(tr, kernels)
+    with torch.inference_mode():
+        got = tr(t(feats))
+        proj = tr.nce_project(got)
+    assert got.shape == (2, future, latent, latent, 48)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(proj.numpy(), want_proj, atol=ATOL)

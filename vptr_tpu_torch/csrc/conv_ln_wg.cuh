@@ -62,6 +62,18 @@ long wg_smem(int cw, int s, int t = 1) {
 
 int wg_groups(int SW) { return (SW + kWgN - 1) / kWgN; }
 
+// The card's SM count (asked once; 0 when it cannot be read).
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }

@@ -94,18 +94,6 @@ bool wg_route(int C, int H, int dtype) { return dtype == 1 && C % 8 == 0 && H % 
 // tiles of the product kernel.
 int pad_rows(int S) { return (S + kClnMaxRows - 1) / kClnMaxRows * kClnMaxRows; }
 
-// The card's SM count (asked once; 0 when it cannot be read).
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-  }
-  return sms;
-}
-
 // K chunks of the weight-gradient products (wpart1/2). The wgmma route:
 // one wave of the product's blocks (a block an SM: its shared memory), at
 // most one a 64 rows; long chunks keep each block's ring streaming and

@@ -14,27 +14,30 @@
 // R x C x C products, 22 R C^2 flops plus 12 windows L^2 C for the
 // attention (63.8 GFLOP at R = 10,240 rows of C = 528, the nar_mnist
 // training step; 0.065 ms at 989 TFLOP/s), against about 59 MB of
-// device-memory traffic. Without the LayerNorm passes (1, 7 and two of
-// the column sums) the work is #3's less the LN; the projections take the
-// same tensor-core route, dx_qk and dx_v one launch of two jobs (four and
-// two hi/lo terms) written in bf16.
+// device-memory traffic. Without the LayerNorm passes (1, 7 and the dlb,
+// dls sums) the work is #3's less the LN; on the bf16 route the
+// products take the same wgmma kernels (the header's note), dWo over g
+// itself (no scale: one term), dx_qk over K = 2C (four hi/lo terms) and
+// dx_v over C (two) in one launch, written in bf16.
 
 #include "fused_window_attention_bwd.cuh"
 
 extern "C" {
 
-const char* vptr_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+const char* vptr_error_string(int err) { return error_string(err); }
+
+// 1 when (C, dtype) takes the wgmma route, 0 for the FMA route.
+int vptr_fused_window_attention_bwd_route(int channels, int dtype) {
+  return wg_route(channels, dtype) ? 1 : 0;
 }
 
-// Rows per partial of the column sums -> number of partials the caller
-// allocates (partial: 6 x partials x C f32; four of the six are used).
-int vptr_fused_window_attention_bwd_partials(int rows) { return partials(rows); }
-
 // K chunks of the weight-gradient products (wpart: 4 x ksplit x C x C f32).
-int vptr_fused_window_attention_bwd_ksplit(int rows) { return weight_splits(rows); }
+int vptr_fused_window_attention_bwd_ksplit(int rows, int channels, int dtype) {
+  return ksplits(rows, channels, dtype);
+}
 
-// Returns a cudaError_t (0 = every pass launched).
+// Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a
+// CUresult.
 int vptr_fused_window_attention_bwd(const BwdArgs* a, void* stream) {
   return run_backward<false>(a, static_cast<cudaStream_t>(stream));
 }

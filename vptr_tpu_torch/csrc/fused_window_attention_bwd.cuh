@@ -18,69 +18,90 @@
 // The TPU kernels walked their grid in order and accumulated the weight,
 // LayerNorm-affine and bias gradients in place across grid steps. Blocks
 // on the card run in parallel, so the work is split into passes, each a
-// kernel of this header, and every reduction over rows is either the K
-// loop of one block or a fixed-order second pass; no float atomics, so the
-// result is the same on every run:
+// kernel, and every reduction over rows is either the K loop of one block
+// or a fixed-order second pass; no float atomics, so the result is the
+// same on every run:
 //   1. ln_rows (LN only): per-row LayerNorm statistics, xn and xqk
 //      (rounded to T); without LN the two inputs are xqk and xn;
 //   2. q, k, v, rounded after the f32 bias add (q * scale in T);
 //   3. d(attn) = (g Wo^T) * scale[window], f32;
 //   4. window_bwd: one block per (window, head) recomputes the softmax and
 //      the hash mask (dropout index over the padded token count) in shared
-//      memory and writes dq, dk, dv (f32), the merged heads (T) and, for
-//      the bias gradient, its logit gradients;
+//      memory and writes dq, dk, dv, the merged heads (T), the logit
+//      gradients for the bias gradient, and its columns' sums of dq, dk,
+//      dv and g * scale over the window's rows (for dbq, dbk, dbv, dbo);
+//      a warp takes two softmax rows at L <= 16, and a thread two rows of
+//      a column after, so each shared-memory read serves both;
 //   5. dW = X^T dY for q, k, v (X = xqk, xqk, xn) and o (X = the merged
-//      heads, dY = g * scale). These have only (C / 64)^2 output tiles each,
-//      so K = R is split in chunks of about 1024 rows (enough blocks to
-//      fill the card); each chunk's f32 sums go to scratch and split_sum
+//      heads, dY = g * scale). These have few output tiles, so K = R is
+//      split in chunks; each chunk's f32 sums go to scratch and split_sum
 //      adds them in chunk order and casts to T;
 //   6. LN: d(xn) = dq Wq^T + dk Wk^T + dv Wv^T (f32);
 //      no LN: dx_qk = dq Wq^T + dk Wk^T and dx_v = dv Wv^T (rounded to T);
-//   7. ln_bwd (LN only): dx per row (+ g for res);
-//   8. colsum: db* (and dls, dlb for LN) as per-chunk partial sums, then a
-//      fixed-order sum of the chunks; dbias sums the logit gradients over
-//      windows.
-// The LayerNorm passes (1, 7), the products, the split-K sums and the
-// column sums are tile_ops.cuh's building blocks, which the FFN backward
-// (fused_ffn_bwd.cu) shares.
+//   7. ln_bwd_sums (LN only): dx per row (+ g for res), and each block's
+//      8-row sums of d(xn) and d(xn) xhat (for dlb, dls);
+//   8. the column sums in fixed order: dbq, dbk, dbv, dbo over pass 4's
+//      window sums (dlb, dls over pass 7's); dbias sums the logit
+//      gradients over windows.
 // Rounding points follow the plain versions
 // (fused_window_attention.py::fused_attention_ln_backward_plain and
 // fused_attention_backward_plain): dq, dk, dv and g * scale stay f32 into
 // the dW and d(xn) / dx products.
 //
-// The products (2, 3, 5, 6) have two routes:
-// * tensor cores (bf16, C and R multiples of 8 -- the training path): a
-//   bf16 WMMA operand cannot hold an f32 value, so split_kernel writes
-//   each f32 operand as hi = bf16(v) and lo = bf16(v - hi) (16 bits of
-//   mantissa, relative error below 2^-16, far below the final rounding of
-//   each dW to bf16) and a product becomes a sum of bf16 terms (d(xn): six;
-//   dx_qk: four; dx_v: two).
-//   tc_gemm runs 128 x 64 output tiles on eight warps of 2 x 2 WMMA
-//   16x16x16 tiles with f32 accumulators, fed by a three-slot cp.async ring
-//   of 16-byte copies that runs over the terms and K steps as one sequence;
-//   transposed operands are staged as they lie and read with column-major
-//   fragments.
-// * FMA (f32, or a bf16 shape the first does not take): gemm, 64 x 64
-//   tiles staged element by element, f32 products on the CUDA cores.
+// What bounds it on an H100: operations. Eleven R x C x C products (the
+// three recomputed projections, d(attn), four dW, three for d(xn)), 22 R
+// C^2 flops, against tens of MB of traffic. The products have two routes:
+// * wgmma (bf16, C a multiple of 8 so that TMA rows are 16-byte aligned;
+//   any R, rows past R read zero and are never stored; backward_route in
+//   ops/fused_window_attention.py names it): every product on Hopper's
+//   warpgroup MMA fed by TMA. An f32 operand reaches the tensor cores as
+//   its bf16 hi and lo halves (hi = bf16(v), lo = bf16(v - hi): relative
+//   error below 2^-16, far below the bf16 rounding of every result), two
+//   terms of each product that takes it; pass 4 writes the halves of dq,
+//   dk, dv (and of g * scale when there is a scale) itself, into two
+//   planes of R rows by 4C ([dq dk dv g*scale], hi and lo), so no pass
+//   reads them in f32:
+//   - 2 and 3 on wg_rows.cuh's row-tiled product (128-row tiles by 176
+//     columns, persistent blocks): q, k, v one launch of three products,
+//     W read MN-major as stored, the bias, rounding and q scale in the
+//     register epilogue, stored in whole 16-byte chunks through shared
+//     memory; d(attn) with Wo the K-major B^T as stored, the window's
+//     scale in the epilogue;
+//   - 5 on wg_dw.cuh's weight-gradient product, the four dW one launch
+//     (both operands MN-major as they lie in memory, dY's halves two
+//     terms, or g itself when there is no scale), K in as many chunks as
+//     one wave of its blocks takes;
+//   - 6 on the row-tiled product over K = 3C (2C for dx_qk): the planes'
+//     dq | dk | dv columns are one operand, and the wrapper's [Wq Wk Wv]
+//     (C, 3C), copied side by side, its B^T.
+// * FMA (f32, or bf16 with C not a multiple of 8): tile_ops.cuh's gemm,
+//   64 x 64 tiles staged element by element, f32 products on the CUDA
+//   cores over dq, dk, dv in f32.
 #pragma once
+
+#include <cstdio>
 
 #include "hash_dropout.cuh"
 #include "tile_ops.cuh"
+#include "wg_dw.cuh"
+#include "wg_rows.cuh"
 
 // Everything the backward needs; mirrored by _BwdArgs in
 // vptr_tpu_torch/ops/fused_window_attention.py. Inputs, outputs, then the
 // caller-allocated scratch (mean/rstd: R f32; xn, xqk, q, k, v, attn: R x C
-// in T; dao, dq, dk, dv: R x C f32; dl: windows x heads x L x L f32 or
-// null; partial: 6 x partials x C f32; wpart: 4 x ksplit x C x C f32;
-// hilo: 8 x R x C bf16 when T is bf16). Without LN, x is x_qk, xv is x_v,
-// dx is dx_qk and dxv dx_v, and mean, rstd, xn, xqk, ls, lb, pos, scale,
-// dls and dlb are unused (null).
+// in T; dao: R x C f32; dl: windows x heads x L x L f32 or null; colpart:
+// 4 x windows x C f32; partial (LN): 2 x ln_parts(R) x C f32; wpart: 4 x
+// ksplit x C x C f32; on the wgmma route planes: 2 x R x 4C bf16 and wcat: C x 3C
+// bf16, dq, dk, dv null; on the FMA route dq, dk, dv: R x C f32, planes and
+// wcat null). Without LN, x is x_qk, xv is x_v, dx is dx_qk and dxv dx_v,
+// and mean, rstd, xn, xqk, ls, lb, pos, scale, dls and dlb are unused
+// (null).
 struct BwdArgs {
   const void *x, *xv, *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo, *ls, *lb, *pos, *bias, *scale,
       *seed, *g;
   void *dx, *dxv, *dwq, *dbq, *dwk, *dbk, *dwv, *dbv, *dwo, *dbo, *dls, *dlb, *dbias;
-  void *mean, *rstd, *xn, *xqk, *q, *k, *v, *attn, *dao, *dq, *dk, *dv, *dl, *partial, *wpart,
-      *hilo;
+  void *mean, *rstd, *xn, *xqk, *q, *k, *v, *attn, *dao, *dq, *dk, *dv, *dl, *colpart, *partial,
+      *wpart, *planes, *wcat;
   int windows, tokens, channels, heads, bias_heads, res, mask_tokens, dtype, ksplit;
   float qscale, dscale, eps, rate, keep_div;
 };
@@ -90,27 +111,23 @@ namespace {
 constexpr int kMaxTokens = 32;
 constexpr int kMaxHeadDim = 128;
 
-// hi = bf16(v), lo = bf16(v - hi) of the f32 operands of the tensor-core
-// products: dq, dk, dv and g * scale[window] (blockIdx.y picks which), into
-// hilo[2 j] and hilo[2 j + 1].
-__global__ void split_kernel(const float* __restrict__ dq, const float* __restrict__ dk,
-                             const float* __restrict__ dv, const bf16* __restrict__ g,
-                             const float* __restrict__ scale, bf16* __restrict__ hilo, long n,
-                             int C, int L) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int j = blockIdx.y;
-  float v;
-  if (j == 3) {
-    v = __bfloat162float(g[i]);
-    if (scale) v *= scale[i / C / L];
-  } else {
-    v = (j == 0 ? dq : (j == 1 ? dk : dv))[i];
-  }
-  const bf16 hi = __float2bfloat16_rn(v);
-  hilo[2 * j * n + i] = hi;
-  hilo[(2 * j + 1) * n + i] = __float2bfloat16_rn(v - __bfloat162float(hi));
+bool wg_route(int C, int dtype) { return dtype == 1 && C % 8 == 0; }
+
+// K chunks of the weight-gradient products (wpart). The wgmma route: one
+// wave of the four products' blocks (a block an SM: its shared memory), at
+// most one a 64 rows; the FMA route: tile_ops.cuh's split.
+int ksplits(int R, int C, int dtype) {
+  if (!wg_route(C, dtype)) return weight_splits(R);
+  const int blocks = 4 * ((C + 64 * kDwMw - 1) / (64 * kDwMw)) * ((C + kWgN - 1) / kWgN);
+  const int k = sm_count() / blocks, most = (R + kWgK - 1) / kWgK;
+  return k < 1 ? 1 : (k > most ? most : k);
 }
+
+// Row blocks of the LayerNorm backward (partial: 2 x ln_parts x C f32).
+int ln_parts(int R) { return (R + 7) / 8; }
+
+float* f32p(void* p) { return static_cast<float*>(p); }
+const float* cf32p(const void* p) { return static_cast<const float*>(p); }
 
 // ---------------------------------------------------------------------------
 // 4. Attention backward of one (window, head), in shared memory
@@ -123,31 +140,90 @@ inline __host__ __device__ int row_stride(int depth) {
   return s % 8 == 0 ? s + 4 : s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
+// Row stride of the L x L tiles in shared memory: rows read as float4.
+constexpr int kWs = kMaxTokens + 4;
+
+// Threads of a window_bwd_kernel block: 256 (at most 64 registers, four
+// blocks an SM) read 0.02 ms less than 128 at the far_mnist step on an
+// H100, each block's latency-bound phases taking half as many rounds.
+constexpr int kWinThreads = 256;
+
+// Shared memory of window_bwd_kernel for L tokens and head width hd:
+// q, k, v, d(attn) of the head (Lq = L rounded up to 4 rows, zero past L),
+// the dropped weights and logit gradients and their transposes and the
+// head's bias (Lq rows of kWs, zero past column L), and the column sums of
+// each row pair (dq, dk, dv, g * scale).
+size_t window_smem(int L, int hd) {
+  const int Lq = (L + 3) & ~3;
+  return sizeof(float) * (4 * Lq * row_stride(hd) + 5 * Lq * kWs + 4 * ((L + 1) / 2) * hd);
+}
+
+// Where pass 4 writes: attn (R x C, T); the FMA route's dq, dk, dv (R x C
+// f32) or the wgmma route's planes (hi at `hi`, lo `plane` on; row stride
+// 4C: dq, dk, dv, g * scale), g * scale's halves only when scale is
+// given; the window sums colpart[j][window][column] of dq, dk, dv and g *
+// scale (g, no scale given); the logit gradients dl (or null).
+struct WinOut {
+  void* attn;
+  float *dq, *dk, *dv;
+  bf16* hi;
+  long plane;
+  const void* g;
+  const float* scale;
+  float* colpart;
+  float* dl;
+};
+
+__device__ __forceinline__ void store_halves(bf16* p, long plane, float v) {
+  const bf16 hi = __float2bfloat16_rn(v);
+  p[0] = hi;
+  p[plane] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float (&b)[4], float acc) {
+  acc = fmaf(a.x, b[0], acc);
+  acc = fmaf(a.y, b[1], acc);
+  acc = fmaf(a.z, b[2], acc);
+  return fmaf(a.w, b[3], acc);
+}
+
+// The kernel is bound by the issue of its instructions and shared-memory
+// reads (counted: about 80 and 100 us of the 0.2 ms it took at the
+// far_mnist step on an H100), so the element phase (after the softmax
+// rows) has each thread take a pair of rows of one column d: the column
+// operands (v, k, q, d(attn) at d) are read once for both rows, and the
+// L x L operands as float4 broadcasts along c (the transposed tiles wdT
+// and dlsT serve the sums over the key row).
+template <typename T, bool HILO>
+__global__ void __launch_bounds__(kWinThreads, 4)
 window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ dao, const float* __restrict__ bias,
-                  T* __restrict__ attn, float* __restrict__ dq, float* __restrict__ dk,
-                  float* __restrict__ dv, float* __restrict__ dl_out, int L, int C, int heads,
-                  int bias_heads, int mask_tokens, float dscale, vptr_dropout::Params drop) {
+                  const float* __restrict__ dao, const float* __restrict__ bias, WinOut out,
+                  int windows, int L, int C, int heads, int bias_heads, int mask_tokens,
+                  float dscale, vptr_dropout::Params drop) {
   extern __shared__ float4 smem4[];
   const int hd = C / heads;
   const int stride = row_stride(hd);
-  const int ws = kMaxTokens + 1;
-  float* qs = reinterpret_cast<float*>(smem4);   // [L][stride] q * scale (rounded to T)
-  float* ks = qs + L * stride;                    // [L][stride]
-  float* vs = ks + L * stride;                    // [L][stride]
-  float* das = vs + L * stride;                   // [L][stride] d(attn) of this head, f32
-  float* wd = das + L * stride;                   // [L][ws] dropped weights, rounded to T
-  float* dls = wd + L * ws;                       // [L][ws] logit gradients
+  const int Lq = (L + 3) & ~3, pairs = (L + 1) / 2;
+  float* qs = reinterpret_cast<float*>(smem4);   // [Lq][stride] q * scale (rounded to T)
+  float* ks = qs + Lq * stride;                   // [Lq][stride]
+  float* vs = ks + Lq * stride;                   // [Lq][stride]
+  float* das = vs + Lq * stride;                  // [Lq][stride] d(attn) of this head, f32
+  float* wd = das + Lq * stride;                  // [Lq][kWs] dropped weights, rounded to T
+  float* wdT = wd + Lq * kWs;                     // [Lq][kWs] its transpose
+  float* dls = wdT + Lq * kWs;                    // [Lq][kWs] logit gradients
+  float* dlsT = dls + Lq * kWs;                   // [Lq][kWs] their transpose
+  float* bs = dlsT + Lq * kWs;                    // [Lq][kWs] the head's bias
+  float* sums = bs + Lq * kWs;                    // [4][pairs][hd] dq, dk, dv, g * scale
 
   const int win = blockIdx.x / heads, h = blockIdx.x - win * heads;
   const long row0 = static_cast<long>(win) * L;
   const int col0 = h * hd;
-  for (int i = threadIdx.x; i < L * stride; i += blockDim.x) {
+  const float* bias_h =
+      bias ? bias + static_cast<long>(bias_heads == 1 ? 0 : h) * L * L : nullptr;
+  for (int i = threadIdx.x; i < Lq * stride; i += kWinThreads) {
     const int r = i / stride, d = i - r * stride;
     float a = 0.f, b = 0.f, c = 0.f, e = 0.f;
-    if (d < hd) {
+    if (r < L && d < hd) {
       const long o = (row0 + r) * C + col0 + d;
       a = to_f32(q[o]);
       b = to_f32(k[o]);
@@ -156,12 +232,13 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
     qs[i] = a, ks[i] = b, vs[i] = c, das[i] = e;
   }
+  for (int i = threadIdx.x; i < 4 * Lq * kWs; i += kWinThreads) wd[i] = 0.f;
+  if (bias_h)
+    for (int i = threadIdx.x; i < L * L; i += kWinThreads) bs[i / L * kWs + i % L] = bias_h[i];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
-  const float* bias_h =
-      bias ? bias + static_cast<long>(bias_heads == 1 ? 0 : h) * L * L : nullptr;
   auto dot = [&](const float* a, const float* b) {
     float acc = 0.f;
     for (int d = 0; d < stride; d += 4) {
@@ -174,112 +251,344 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
     return acc;
   };
-  for (int r = warp; r < L; r += 4) {
-    const bool col = lane < L;
+  // the softmax rows: a warp takes 32 / Lp rows at once (Lp = L rounded up
+  // to a power of two), lane c of segment g key column c of row r + g; the
+  // segments' butterflies add the same values in the same order as a
+  // whole warp's would
+  int Lp = 1;
+  while (Lp < L) Lp <<= 1;
+  const int seg = lane / Lp, kc = lane - seg * Lp;
+  auto seg_max = [&](float x) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < Lp) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+  };
+  auto seg_sum = [&](float x) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < Lp) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  };
+  for (int rb = warp * (32 / Lp); rb < L; rb += kWinThreads / Lp) {
+    const int r = rb + seg;
+    const bool col = kc < L && r < L;
     float logit = -INFINITY;
     if (col) {
-      logit = dot(qs + r * stride, ks + lane * stride);
-      if (bias_h) logit += bias_h[r * L + lane];
+      logit = dot(qs + r * stride, ks + kc * stride);
+      if (bias_h) logit += bs[r * kWs + kc];
     }
-    const float m = warp_max(logit);
+    const float m = seg_max(logit);
     const float e = col ? expf(logit - m) : 0.f;
-    const float w = e / warp_sum(e);                  // pre-dropout, f32
-    float dw = col ? dot(das + r * stride, vs + lane * stride) : 0.f;
+    const float w = e / seg_sum(e);                   // pre-dropout, f32
+    float dw = col ? dot(das + r * stride, vs + kc * stride) : 0.f;
     float w_drop = w;
     if (drop.active() && col) {
       const bool kept = drop.keep(
-          vptr_dropout::element_index(win, heads, h, mask_tokens, r, mask_tokens, lane), seed);
+          vptr_dropout::element_index(win, heads, h, mask_tokens, r, mask_tokens, kc), seed);
       w_drop = drop.apply(w, kept);
       dw = drop.apply(dw, kept);
     }
-    const float s = warp_sum(col ? dw * w : 0.f);
+    const float s = seg_sum(col ? dw * w : 0.f);
     if (col) {
-      const float dl = w * (dw - s);
-      wd[r * ws + lane] = round_t<T>(w_drop);
-      dls[r * ws + lane] = dl;
-      if (dl_out) dl_out[((static_cast<long>(win) * heads + h) * L + r) * L + lane] = dl;
+      const float dl = w * (dw - s), wr = round_t<T>(w_drop);
+      wd[r * kWs + kc] = wr, wdT[kc * kWs + r] = wr;
+      dls[r * kWs + kc] = dl, dlsT[kc * kWs + r] = dl;
+      if (out.dl) out.dl[((static_cast<long>(win) * heads + h) * L + r) * L + kc] = dl;
     }
   }
   __syncthreads();
 
-  // element (r, d): row r of attn and dq, key row r of dk and dv
-  for (int i = threadIdx.x; i < L * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    float a = 0.f, aq = 0.f, ak = 0.f, av = 0.f;
-    for (int c = 0; c < L; ++c) {
-      a = fmaf(wd[r * ws + c], vs[c * stride + d], a);
-      aq = fmaf(dls[r * ws + c], ks[c * stride + d], aq);
-      ak = fmaf(dls[c * ws + r], qs[c * stride + d], ak);
-      av = fmaf(wd[c * ws + r], das[c * stride + d], av);
+  // rows r0 = 2 rp and r0 + 1 of column d: attn and dq (query rows), dk and
+  // dv (key rows); the sums run over c in order, zero past L
+  const long pw = 4L * C;                         // the planes' row stride
+  for (int i = threadIdx.x; i < pairs * hd; i += kWinThreads) {
+    const int rp = i / hd, d = i - rp * hd, r0 = 2 * rp;
+    float a[2] = {0.f, 0.f}, aq[2] = {0.f, 0.f}, ak[2] = {0.f, 0.f}, av[2] = {0.f, 0.f};
+    for (int c = 0; c < Lq; c += 4) {
+      float cv[4], ck[4], cq[4], cd[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = (c + j) * stride + d;
+        cv[j] = vs[o], ck[j] = ks[o], cq[j] = qs[o], cd[j] = das[o];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = (r0 + hh) * kWs + c;
+        a[hh] = dot4(*reinterpret_cast<const float4*>(wd + o), cv, a[hh]);
+        aq[hh] = dot4(*reinterpret_cast<const float4*>(dls + o), ck, aq[hh]);
+        ak[hh] = dot4(*reinterpret_cast<const float4*>(dlsT + o), cq, ak[hh]);
+        av[hh] = dot4(*reinterpret_cast<const float4*>(wdT + o), cd, av[hh]);
+      }
     }
-    const long o = (row0 + r) * C + col0 + d;
-    attn[o] = from_f32<T>(a);
-    dq[o] = aq * dscale;
-    dk[o] = ak;
-    dv[o] = av;
+    float sq = 0.f, sk = 0.f, sv = 0.f, sg = 0.f;
+    const float gsc = out.scale ? out.scale[win] : 1.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + hh;
+      if (r >= L) break;
+      const float dq = aq[hh] * dscale;
+      const long o = (row0 + r) * C + col0 + d;
+      const float gs = to_f32(static_cast<const T*>(out.g)[o]) * gsc;
+      sq += dq, sk += ak[hh], sv += av[hh], sg += gs;
+      static_cast<T*>(out.attn)[o] = from_f32<T>(a[hh]);
+      if constexpr (HILO) {
+        bf16* p = out.hi + (row0 + r) * pw + col0 + d;
+        store_halves(p, out.plane, dq);
+        store_halves(p + C, out.plane, ak[hh]);
+        store_halves(p + 2 * C, out.plane, av[hh]);
+        if (out.scale) store_halves(p + 3 * C, out.plane, gs);
+      } else {
+        out.dq[o] = dq;
+        out.dk[o] = ak[hh];
+        out.dv[o] = av[hh];
+      }
+    }
+    sums[i] = sq, sums[pairs * hd + i] = sk, sums[2 * pairs * hd + i] = sv;
+    sums[3 * pairs * hd + i] = sg;
+  }
+  __syncthreads();
+  // the window's sums of this head's columns of dq, dk, dv, g * scale, row
+  // pairs in order
+  for (int t = threadIdx.x; t < 4 * hd; t += kWinThreads) {
+    const int j = t / hd, d = t - j * hd;
+    const float* sp = sums + j * pairs * hd + d;
+    float acc = 0.f;
+    for (int rp = 0; rp < pairs; ++rp) acc += sp[rp * hd];
+    out.colpart[(static_cast<long>(j) * windows + win) * C + col0 + d] = acc;
   }
 }
 
-// dbias[hb][r][c] = sum over windows (and over heads for a one-head bias)
-// of dl[w][h][r][c], in a fixed order.
-__global__ void bias_grad_kernel(const float* __restrict__ dl, float* __restrict__ dbias,
-                                 int windows, int heads, int L, int bias_heads) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= bias_heads * L * L) return;
-  const int hb = i / (L * L), rc = i - hb * L * L;
-  const int h0 = bias_heads == 1 ? 0 : hb, h1 = bias_heads == 1 ? heads : hb + 1;
-  float acc = 0.f;
-  for (int h = h0; h < h1; ++h)
-    for (int w = 0; w < windows; ++w)
-      acc += dl[(static_cast<long>(w) * heads + h) * L * L + rc];
-  dbias[i] = acc;
+template <typename T, bool HILO>
+int launch_window_bwd(const BwdArgs& a, const WinOut& out, cudaStream_t s) {
+  const int L = a.tokens, hd = a.channels / a.heads;
+  const size_t smem = window_smem(L, hd);
+  VPTR_TRY(cudaFuncSetAttribute(window_bwd_kernel<T, HILO>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem)));
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  window_bwd_kernel<T, HILO><<<a.windows * a.heads, kWinThreads, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      cf32p(a.dao), cf32p(a.bias), out, a.windows, L, a.channels, a.heads, a.bias_heads,
+      a.mask_tokens, a.dscale, drop);
+  return cudaGetLastError();
 }
 
-// The products of the tensor-core route (steps 2, 3, 5, 6; see tc_gemm);
-// a.xqk and a.xn are the projections' inputs.
-template <bool LN>
-int tc_products(const BwdArgs& a, int step, cudaStream_t s) {
-  const int L = a.tokens, C = a.channels, R = a.windows * a.tokens;
-  const float* scale = static_cast<const float*>(a.scale);
-  TcBatch tb{};
-  tb.lda = C, tb.ldb = C, tb.ldo = C, tb.group = L, tb.ksplit = 1;
-  if (step == 2) {           // q, k, v, then d(attn)
-    tb.M = R, tb.N = C, tb.K = C, tb.kchunk = C;
-    tb.job[0] = tc_job({a.xqk}, {a.wq}, a.q, a.bq, a.qscale);
-    tb.job[1] = tc_job({a.xqk}, {a.wk}, a.k, a.bk);
-    tb.job[2] = tc_job({a.xn}, {a.wv}, a.v, a.bv);
-    VPTR_TRY((tc_gemm<false, false, bf16, kProj>(tb, 3, s)));
-    tb.job[0] = tc_job({a.g}, {a.wo}, a.dao, nullptr, 1.f, scale);
-    return tc_gemm<false, true, float, kF32>(tb, 1, s);
+// out[j][c] = sum over the n rows of part[j] (n x C f32; j = blockIdx.y):
+// pass 4's window sums (dbq, dbk, dbv, dbo), the LayerNorm backward's
+// 8-row sums (dlb, dls) and dbias (the logit gradients dl, windows rows of
+// heads L^2, or windows x heads rows of L^2 for a one-head bias). 32
+// columns a block, warp i summing the rows i,
+// i + 32, ... of its lane's column, then one thread a column the 32 warps'
+// sums in order. Fixed order: the same bits on every run.
+struct ColOut {
+  float* out[4];
+};
+
+__global__ void __launch_bounds__(1024)
+rows_sum_kernel(const float* __restrict__ part, ColOut co, int n, int C) {
+  __shared__ float acc[32][33];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane, j = blockIdx.y;
+  const float* p = part + static_cast<long>(j) * n * C + c;
+  float v = 0.f;
+  if (c < C)
+#pragma unroll 4
+    for (int w = warp; w < n; w += 32) v += p[static_cast<long>(w) * C];
+  acc[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && c < C) {
+    float t = 0.f;
+    for (int i = 0; i < 32; ++i) t += acc[i][lane];
+    co.out[j][c] = t;
   }
-  const long n = static_cast<long>(R) * C;
-  const bf16* hl = static_cast<const bf16*>(a.hilo);
-  split_kernel<<<dim3(static_cast<unsigned>((n + 255) / 256), 4), 256, 0, s>>>(
-      static_cast<const float*>(a.dq), static_cast<const float*>(a.dk),
-      static_cast<const float*>(a.dv), static_cast<const bf16*>(a.g), scale,
-      static_cast<bf16*>(a.hilo), n, C, L);
-  VPTR_TRY(cudaGetLastError());
-  // weight gradients X^T dY, K = R in ksplit chunks into wpart
-  tb.M = C, tb.N = C, tb.K = R, tb.ksplit = a.ksplit;
-  tb.kchunk = ((R + a.ksplit - 1) / a.ksplit + TBK - 1) / TBK * TBK;
-  const long cc = static_cast<long>(C) * C;
-  float* wpart = static_cast<float*>(a.wpart);
+}
+
+// 7. dx per row (+ g for res), as tile_ops.cuh's ln_bwd_kernel (one warp a
+// row, eight a block), and the block's sums of d(xn) and d(xn) xhat (rows
+// in order) into part[0][block] and part[1][block] for dlb and dls.
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln_bwd_sums_kernel(const float* __restrict__ dxn, const T* __restrict__ x,
+                   const float* __restrict__ mean, const float* __restrict__ rstd,
+                   const float* __restrict__ ls, const T* __restrict__ g, T* __restrict__ dx,
+                   float* __restrict__ part, int rows, int C, int res) {
+  extern __shared__ float red[];                    // [8][2][C]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + warp;
+  float* mine = red + warp * 2 * C;
+  if (row < rows) {
+    const long o = static_cast<long>(row) * C;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dxh = dxn[o + c] * ls[c];
+      s1 += dxh;
+      s2 = fmaf(dxh, (to_f32(x[o + c]) - mu) * rs, s2);
+    }
+    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = (to_f32(x[o + c]) - mu) * rs, dn = dxn[o + c];
+      float d = (dn * ls[c] - m1 - xhat * m2) * rs;
+      if (res) d += to_f32(g[o + c]);
+      dx[o + c] = from_f32<T>(d);
+      mine[c] = dn, mine[C + c] = dn * xhat;
+    }
+  } else {
+    for (int c = lane; c < 2 * C; c += 32) mine[c] = 0.f;
+  }
+  __syncthreads();
+  const long blocks = gridDim.x;
+  for (int c = threadIdx.x; c < 2 * C; c += 256) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += red[w * 2 * C + c];
+    const int j = c >= C;
+    part[(j * blocks + blockIdx.x) * C + c - j * C] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wgmma route's products (see the note at the top)
+
+// 2. q, k, v (one launch of three products) and 3. d(attn).
+int projections_wg(const BwdArgs& a, cudaStream_t s) {
+  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  RwMaps m;
+  RwWork w{};
+  const void* xs[3] = {a.xqk, a.xqk, a.xn};
+  const void* ws[3] = {a.wq, a.wk, a.wv};
+  void* outs[3] = {a.q, a.k, a.v};
+  const void* bs[3] = {a.bq, a.bk, a.bv};
+  for (int j = 0; j < 3; ++j) {
+    if (int err = rw_amap(&m.a[j][0], xs[j], R, C, C)) return err;
+    if (int err = rw_bmap(&m.b[j], ws[j], C, C, C, true)) return err;
+    w.job[j] = {outs[j], cf32p(bs[j]), j == 0 ? a.qscale : 1.f, nullptr, C};
+  }
+  w.jobs = 3, w.rows = R, w.cols = C, w.group = L;
+  if (int err = launch_rows<1, true, kRwProj>(m, w, s)) return err;
+  if (int err = rw_amap(&m.a[0][0], a.g, R, C, C)) return err;
+  if (int err = rw_bmap(&m.b[0], a.wo, C, C, C, false)) return err;
+  w.job[0] = {a.dao, nullptr, 1.f, cf32p(a.scale), C};
+  w.jobs = 1;
+  return launch_rows<1, false, kRwF32>(m, w, s);
+}
+
+// 5. dWq, dWk, dWv, dWo into their K chunks' partials (one launch).
+int weights_wg(const BwdArgs& a, cudaStream_t s) {
+  const int C = a.channels, R = a.windows * a.tokens;
+  const long pw = 4L * C, plane = static_cast<long>(R) * pw, cc = static_cast<long>(C) * C;
+  const bf16* hi = static_cast<const bf16*>(a.planes);
+  DwJobs<4> jobs;
   const void* xs[4] = {a.xqk, a.xqk, a.xn, a.attn};
-  for (int j = 0; j < 4; ++j)
-    tb.job[j] = tc_job({xs[j], xs[j]}, {hl + 2 * j * n, hl + (2 * j + 1) * n},
-                       wpart + j * a.ksplit * cc);
-  VPTR_TRY((tc_gemm<true, false, float, kPartial>(tb, 4, s)));
-  tb.M = R, tb.N = C, tb.K = C, tb.ksplit = 1, tb.kchunk = C;
-  if constexpr (LN) {
-    // d(xn) = dq Wq^T + dk Wk^T + dv Wv^T, six terms, into dao's memory
-    tb.job[0] = tc_job({hl, hl + n, hl + 2 * n, hl + 3 * n, hl + 4 * n, hl + 5 * n},
-                       {a.wq, a.wq, a.wk, a.wk, a.wv, a.wv}, a.dao);
-    return tc_gemm<false, true, float, kF32>(tb, 1, s);
+  for (int j = 0; j < 4; ++j) {
+    int err = strided_map(&jobs.x[j], xs[j], R, C, C, 64, 64);
+    if (j < 3 || a.scale) {            // dY's halves
+      if (!err) err = strided_map(&jobs.h[j], hi + j * C, R, C, pw, 64, 64);
+      if (!err) err = strided_map(&jobs.l[j], hi + plane + j * C, R, C, pw, 64, 64);
+      jobs.terms[j] = 2;
+    } else {                           // dY = g, exact in bf16
+      if (!err) err = strided_map(&jobs.h[j], a.g, R, C, C, 64, 64);
+      jobs.l[j] = jobs.h[j];
+      jobs.terms[j] = 1;
+    }
+    if (err) return err;
+    jobs.out[j] = f32p(a.wpart) + j * a.ksplit * cc;
   }
-  // dx_qk = dq Wq^T + dk Wk^T (four terms) and dx_v = dv Wv^T (two), in T
-  tb.job[0] = tc_job({hl, hl + n, hl + 2 * n, hl + 3 * n}, {a.wq, a.wq, a.wk, a.wk}, a.dx);
-  tb.job[1] = tc_job({hl + 4 * n, hl + 5 * n}, {a.wv, a.wv}, a.dxv);
-  return tc_gemm<false, true, bf16, kF32>(tb, 2, s);
+  return launch_dw_jobs<4>(jobs, R, C, C, a.ksplit, s);
+}
+
+// 6. LN: d(xn) = [dq dk dv] [Wq Wk Wv]^T (f32, into dao's memory); no LN:
+// dx_qk = [dq dk] [Wq Wk]^T and dx_v = dv Wv^T (in T), one launch.
+template <bool LN>
+int dxn_wg(const BwdArgs& a, cudaStream_t s) {
+  const int C = a.channels, R = a.windows * a.tokens;
+  const long pw = 4L * C, plane = static_cast<long>(R) * pw;
+  const bf16* hi = static_cast<const bf16*>(a.planes);
+  bf16* wcat = static_cast<bf16*>(a.wcat);
+  const void* ws[3] = {a.wq, a.wk, a.wv};
+  for (int j = 0; j < (LN ? 3 : 2); ++j)    // [Wq Wk (Wv)] side by side: (C, 3C)
+    VPTR_TRY(cudaMemcpy2DAsync(wcat + j * C, 3L * C * 2, ws[j], C * 2L, C * 2L, C,
+                               cudaMemcpyDeviceToDevice, s));
+  RwMaps m;
+  RwWork w{};
+  w.rows = R, w.cols = C, w.group = a.tokens;
+  const int kq = LN ? 3 * C : 2 * C;        // the first product's depth
+  int err = rw_amap(&m.a[0][0], hi, R, kq, pw);
+  if (!err) err = rw_amap(&m.a[0][1], hi + plane, R, kq, pw);
+  if (!err) err = rw_bmap(&m.b[0], wcat, kq, C, 3L * C, false);
+  if (err) return err;
+  if constexpr (LN) {
+    w.job[0] = {a.dao, nullptr, 1.f, nullptr, kq};
+    w.jobs = 1;
+    return launch_rows<2, false, kRwF32>(m, w, s);
+  } else {
+    err = rw_amap(&m.a[1][0], hi + 2 * C, R, C, pw);
+    if (!err) err = rw_amap(&m.a[1][1], hi + plane + 2 * C, R, C, pw);
+    if (!err) err = rw_bmap(&m.b[1], a.wv, C, C, C, false);
+    if (err) return err;
+    w.job[0] = {a.dx, nullptr, 1.f, nullptr, kq};
+    w.job[1] = {a.dxv, nullptr, 1.f, nullptr, C};
+    w.jobs = 2;
+    return launch_rows<2, false, kRwBf16>(m, w, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The FMA route's products
+
+// 2. q, k, v;  3. d(attn) = (g Wo^T) * scale[window]
+template <typename T>
+int projections_fma(const BwdArgs& a, cudaStream_t s) {
+  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  GemmBatch gb{};
+  gb.M = R, gb.N = C, gb.K = C, gb.lda = C, gb.ldb = C, gb.ldo = C, gb.group = L;
+  gb.ksplit = 1, gb.kchunk = C;
+  gb.job[0] = {a.xqk, a.wq, a.q, cf32p(a.bq), a.qscale, nullptr, nullptr, 0};
+  gb.job[1] = {a.xqk, a.wk, a.k, cf32p(a.bk), 1.f, nullptr, nullptr, 0};
+  gb.job[2] = {a.xn, a.wv, a.v, cf32p(a.bv), 1.f, nullptr, nullptr, 0};
+  VPTR_TRY((gemm<T, false, T, false, T, kProj>(gb, 3, s)));
+  gb.job[0] = {a.g, a.wo, a.dao, nullptr, 1.f, nullptr, cf32p(a.scale), 0};
+  return gemm<T, false, T, true, float, kF32>(gb, 1, s);
+}
+
+// 5. the weight gradients X^T dY: K = R rows in ksplit chunks into wpart;
+// 6. LN: d(xn) = dq Wq^T + dk Wk^T + dv Wv^T summed in f32 into dao's
+//    memory (dao is done); no LN: dx_qk summed there and cast to T, dx_v
+//    one product written in T
+template <typename T, bool LN>
+int products_fma(const BwdArgs& a, cudaStream_t s) {
+  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  const long cc = static_cast<long>(C) * C;
+  float* wpart = f32p(a.wpart);
+  GemmBatch gw{};
+  gw.M = C, gw.N = C, gw.K = R, gw.lda = C, gw.ldb = C, gw.ldo = C, gw.group = L;
+  gw.ksplit = a.ksplit;
+  gw.kchunk = ((R + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
+  gw.job[0] = {a.xqk, a.dq, wpart, nullptr, 1.f, nullptr, nullptr, 0};
+  gw.job[1] = {a.xqk, a.dk, wpart + a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
+  gw.job[2] = {a.xn, a.dv, wpart + 2 * a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
+  VPTR_TRY((gemm<T, true, float, false, float, kPartial>(gw, 3, s)));
+  gw.job[0] = {a.attn, a.g, wpart + 3 * a.ksplit * cc, nullptr, 1.f, cf32p(a.scale), nullptr, 0};
+  VPTR_TRY((gemm<T, true, T, false, float, kPartial>(gw, 1, s)));
+  GemmBatch gb{};
+  gb.M = R, gb.N = C, gb.K = C, gb.lda = C, gb.ldb = C, gb.ldo = C, gb.group = L;
+  gb.ksplit = 1, gb.kchunk = C;
+  const void* dys[3] = {a.dq, a.dk, a.dv};
+  const void* ws[3] = {a.wq, a.wk, a.wv};
+  for (int j = 0; j < (LN ? 3 : 2); ++j) {
+    gb.job[0] = {dys[j], ws[j], a.dao, nullptr, 1.f, nullptr, nullptr, j > 0};
+    VPTR_TRY((gemm<float, false, T, true, float, kF32>(gb, 1, s)));
+  }
+  if constexpr (!LN) {
+    gb.job[0] = {a.dv, a.wv, a.dxv, nullptr, 1.f, nullptr, nullptr, 0};
+    VPTR_TRY((gemm<float, false, T, true, T, kF32>(gb, 1, s)));
+    SplitSum cast{};   // dx_qk: the f32 sum cast to T
+    cast.part[0] = cf32p(a.dao), cast.out[0] = a.dx, cast.ksplit = 1;
+    cast.n = static_cast<long>(R) * C;
+    split_sum_kernel<T><<<dim3(static_cast<unsigned>((cast.n + 255) / 256), 1), 256, 0, s>>>(
+        cast);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, bool LN>
@@ -290,127 +599,75 @@ int run(const BwdArgs& args, cudaStream_t s) {
     a.xn = const_cast<void*>(args.xv);
   }
   const int L = a.tokens, C = a.channels, R = a.windows * a.tokens;
-  const bool tc_route = std::is_same<T, bf16>::value && C % 8 == 0 && R % 8 == 0;
-  const float* scale = static_cast<const float*>(a.scale);
-  auto f = [](void* p) { return static_cast<float*>(p); };
-  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const bool wg = wg_route(C, a.dtype);
 
   // 1. LayerNorm rows
   if constexpr (LN) {
     ln_rows_kernel<T><<<(R + 7) / 8, 256, 0, s>>>(
-        static_cast<const T*>(a.x), cf(a.ls), cf(a.lb), cf(a.pos), f(a.mean), f(a.rstd),
-        static_cast<T*>(a.xn), static_cast<T*>(a.xqk), R, L, C, a.eps);
+        static_cast<const T*>(a.x), cf32p(a.ls), cf32p(a.lb), cf32p(a.pos), f32p(a.mean),
+        f32p(a.rstd), static_cast<T*>(a.xn), static_cast<T*>(a.xqk), R, L, C, a.eps);
     VPTR_TRY(cudaGetLastError());
   }
 
-  // 2. q, k, v;  3. d(attn) = (g Wo^T) * scale[window]
-  GemmBatch gb{};
-  gb.M = R, gb.N = C, gb.K = C, gb.lda = C, gb.ldb = C, gb.ldo = C, gb.group = L;
-  gb.ksplit = 1, gb.kchunk = C;
-  if (tc_route) {
-    VPTR_TRY(static_cast<cudaError_t>(tc_products<LN>(a, 2, s)));
-  } else {
-    gb.job[0] = {a.xqk, a.wq, a.q, cf(a.bq), a.qscale, nullptr, nullptr, 0};
-    gb.job[1] = {a.xqk, a.wk, a.k, cf(a.bk), 1.f, nullptr, nullptr, 0};
-    gb.job[2] = {a.xn, a.wv, a.v, cf(a.bv), 1.f, nullptr, nullptr, 0};
-    VPTR_TRY((gemm<T, false, T, false, T, kProj>(gb, 3, s)));
-    gb.job[0] = {a.g, a.wo, a.dao, nullptr, 1.f, nullptr, scale, 0};
-    VPTR_TRY((gemm<T, false, T, true, float, kF32>(gb, 1, s)));
-  }
+  // 2. q, k, v;  3. d(attn)
+  if (int err = wg ? projections_wg(a, s) : projections_fma<T>(a, s)) return err;
 
   // 4. attention backward per (window, head)
-  const int hd = C / a.heads;
-  const size_t wsmem = sizeof(float) * (4 * L * row_stride(hd) + 2 * L * (kMaxTokens + 1));
-  VPTR_TRY(cudaFuncSetAttribute(window_bwd_kernel<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(wsmem)));
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
-  window_bwd_kernel<T><<<a.windows * a.heads, 128, wsmem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      cf(a.dao), cf(a.bias), static_cast<T*>(a.attn), f(a.dq), f(a.dk), f(a.dv), f(a.dl), L,
-      C, a.heads, a.bias_heads, a.mask_tokens, a.dscale, drop);
-  VPTR_TRY(cudaGetLastError());
+  WinOut out{a.attn, f32p(a.dq), f32p(a.dk), f32p(a.dv), static_cast<bf16*>(a.planes),
+             static_cast<long>(R) * 4 * C, a.g, cf32p(a.scale),
+             f32p(a.colpart), f32p(a.dl)};
+  if (int err = wg ? launch_window_bwd<bf16, true>(a, out, s)
+                   : launch_window_bwd<T, false>(a, out, s))
+    return err;
 
-  // 5. weight gradients X^T dY: K = R rows in ksplit chunks, each chunk's
-  //    f32 sums to wpart, then their sum in chunk order, cast to T;
-  // 6. LN: d(xn) = dq Wq^T + dk Wk^T + dv Wv^T, into dao's memory (dao is
-  //    done); no LN: dx_qk and dx_v
-  const long cc = static_cast<long>(C) * C;
-  float* wpart = f(a.wpart);
-  void* dxn = a.dao;
-  if (tc_route) {
-    VPTR_TRY(static_cast<cudaError_t>(tc_products<LN>(a, 5, s)));
-  } else {
-    GemmBatch gw{};
-    gw.M = C, gw.N = C, gw.K = R, gw.lda = C, gw.ldb = C, gw.ldo = C, gw.group = L;
-    gw.ksplit = a.ksplit;
-    gw.kchunk = ((R + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
-    gw.job[0] = {a.xqk, a.dq, wpart, nullptr, 1.f, nullptr, nullptr, 0};
-    gw.job[1] = {a.xqk, a.dk, wpart + a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
-    gw.job[2] = {a.xn, a.dv, wpart + 2 * a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
-    VPTR_TRY((gemm<T, true, float, false, float, kPartial>(gw, 3, s)));
-    gw.job[0] = {a.attn, a.g, wpart + 3 * a.ksplit * cc, nullptr, 1.f, scale, nullptr, 0};
-    VPTR_TRY((gemm<T, true, T, false, float, kPartial>(gw, 1, s)));
-    // d(xn) (LN) or dx_qk (no LN) summed in f32 in dao's memory; dx_v
-    // is one product, written in T
-    const void* dys[3] = {a.dq, a.dk, a.dv};
-    const void* ws[3] = {a.wq, a.wk, a.wv};
-    for (int j = 0; j < (LN ? 3 : 2); ++j) {
-      gb.job[0] = {dys[j], ws[j], dxn, nullptr, 1.f, nullptr, nullptr, j > 0};
-      VPTR_TRY((gemm<float, false, T, true, float, kF32>(gb, 1, s)));
-    }
-    if constexpr (!LN) {
-      gb.job[0] = {a.dv, a.wv, a.dxv, nullptr, 1.f, nullptr, nullptr, 0};
-      VPTR_TRY((gemm<float, false, T, true, T, kF32>(gb, 1, s)));
-      SplitSum cast{};   // dx_qk: the f32 sum cast to T
-      cast.part[0] = cf(dxn), cast.out[0] = a.dx, cast.ksplit = 1;
-      cast.n = static_cast<long>(R) * C;
-      split_sum_kernel<T><<<dim3(static_cast<unsigned>((cast.n + 255) / 256), 1), 256, 0,
-                            s>>>(cast);
-      VPTR_TRY(cudaGetLastError());
-    }
+  // 5. weight gradients;  6. d(xn) (LN) or dx_qk, dx_v
+  if (wg) {
+    if (int err = weights_wg(a, s)) return err;
+    if (int err = dxn_wg<LN>(a, s)) return err;
+  } else if (int err = products_fma<T, LN>(a, s)) {
+    return err;
   }
+  const long cc = static_cast<long>(C) * C;
   SplitSum ss{};
   void* dws[4] = {a.dwq, a.dwk, a.dwv, a.dwo};
-  for (int j = 0; j < 4; ++j) ss.part[j] = wpart + j * a.ksplit * cc, ss.out[j] = dws[j];
+  for (int j = 0; j < 4; ++j) ss.part[j] = f32p(a.wpart) + j * a.ksplit * cc, ss.out[j] = dws[j];
   ss.ksplit = a.ksplit, ss.n = cc;
   split_sum_kernel<T><<<dim3(static_cast<unsigned>((cc + 255) / 256), 4), 256, 0, s>>>(ss);
   VPTR_TRY(cudaGetLastError());
 
-  // 7. dx
+  // 7. dx and the 8-row sums for dlb and dls (LN)
   if constexpr (LN) {
-    ln_bwd_kernel<T><<<(R + 7) / 8, 256, 0, s>>>(
-        cf(dxn), static_cast<const T*>(a.x), cf(a.mean), cf(a.rstd), cf(a.ls),
-        static_cast<const T*>(a.g), static_cast<T*>(a.dx), R, C, a.res);
+    const size_t smem = sizeof(float) * 16 * C;
+    VPTR_TRY(cudaFuncSetAttribute(ln_bwd_sums_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem)));
+    ln_bwd_sums_kernel<T><<<ln_parts(R), 256, smem, s>>>(
+        cf32p(a.dao), static_cast<const T*>(a.x), cf32p(a.mean), cf32p(a.rstd), cf32p(a.ls),
+        static_cast<const T*>(a.g), static_cast<T*>(a.dx), f32p(a.partial), R, C, a.res);
+    VPTR_TRY(cudaGetLastError());
+    const ColOut lo{{f32p(a.dlb), f32p(a.dls)}};
+    rows_sum_kernel<<<dim3((C + 31) / 32, 2), 1024, 0, s>>>(cf32p(a.partial), lo, ln_parts(R),
+                                                           C);
     VPTR_TRY(cudaGetLastError());
   }
 
-  // 8. bias and LayerNorm-affine gradients
-  ColBatch cb{};
-  cb.job[0] = {a.dq, 0, nullptr, 0, f(a.dbq)};
-  cb.job[1] = {a.dk, 0, nullptr, 0, f(a.dbk)};
-  cb.job[2] = {a.dv, 0, nullptr, 0, f(a.dbv)};
-  cb.job[3] = {a.g, 1, scale, 0, f(a.dbo)};
-  cb.job[4] = {dxn, 0, nullptr, 0, f(a.dlb)};
-  cb.job[5] = {dxn, 0, nullptr, 1, f(a.dls)};
-  cb.x = a.x, cb.mean = cf(a.mean), cb.rstd = cf(a.rstd), cb.partial = f(a.partial);
-  cb.rows = R, cb.C = C, cb.group = L, cb.parts = partials(R);
-  const int cols = LN ? 6 : 4;   // dbq, dbk, dbv, dbo (+ dlb, dls)
-  colsum_partial_kernel<T><<<dim3((C + 127) / 128, cb.parts, cols), 128, 0, s>>>(cb);
+  // 8. dbq, dbk, dbv, dbo over pass 4's window sums
+  const ColOut db{{f32p(a.dbq), f32p(a.dbk), f32p(a.dbv), f32p(a.dbo)}};
+  rows_sum_kernel<<<dim3((C + 31) / 32, 4), 1024, 0, s>>>(cf32p(a.colpart), db, a.windows, C);
   VPTR_TRY(cudaGetLastError());
-  colsum_final_kernel<<<dim3((C + 127) / 128, cols), 128, 0, s>>>(cb);
-  VPTR_TRY(cudaGetLastError());
-  if (a.dl) {
-    const int n = a.bias_heads * L * L;
-    bias_grad_kernel<<<(n + 255) / 256, 256, 0, s>>>(cf(a.dl), f(a.dbias), a.windows,
-                                                     a.heads, L, a.bias_heads);
+  if (a.dl) {   // dbias: dl summed over the windows (and the heads for a one-head bias)
+    const int one = a.bias_heads == 1, n = one ? a.windows * a.heads : a.windows;
+    const int cols = (one ? 1 : a.heads) * L * L;
+    const ColOut bo{{f32p(a.dbias)}};
+    rows_sum_kernel<<<dim3((cols + 31) / 32, 1), 1024, 0, s>>>(cf32p(a.dl), bo, n, cols);
     VPTR_TRY(cudaGetLastError());
   }
   return cudaSuccess;
 }
 
 // Checks the arguments, then runs the passes for T (dtype 0 = float32,
-// 1 = bfloat16). Returns a cudaError_t (0 = every pass launched).
+// 1 = bfloat16). Returns a cudaError_t (0 = every pass launched), or
+// kTmaEncodeError + a CUresult.
 template <bool LN>
 int run_backward(const BwdArgs* a, cudaStream_t s) {
   if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
@@ -418,11 +675,24 @@ int run_backward(const BwdArgs* a, cudaStream_t s) {
       (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) ||
       (a->dl && (!a->bias || !a->dbias)) || a->dtype < 0 || a->dtype > 1 ||
       (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
-      a->ksplit < 1 || !a->wpart || (a->dtype == 1 && !a->hilo) ||
+      a->ksplit != ksplits(a->windows * a->tokens, a->channels, a->dtype) || !a->wpart ||
+      !a->colpart || (LN && !a->partial) || !a->dao ||
+      (wg_route(a->channels, a->dtype) ? !a->planes || !a->wcat : !a->dq || !a->dk || !a->dv) ||
       (LN && (!a->xn || !a->xqk || !a->mean || !a->rstd)) ||
       (!LN && (!a->xv || !a->dxv || a->res || a->scale)))
     return cudaErrorInvalidValue;
   return a->dtype == 0 ? run<float, LN>(*a, s) : run<bf16, LN>(*a, s);
+}
+
+// The error text of a cudaError_t or of kTmaEncodeError + a CUresult.
+const char* error_string(int err) {
+  if (err >= kTmaEncodeError) {
+    static char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kTmaEncodeError);
+    return msg;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace

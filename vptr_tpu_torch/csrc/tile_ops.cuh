@@ -1,20 +1,17 @@
 // Building blocks shared by the port's multi-pass backward kernels
 // (fused_window_attention_bwd.cuh, fused_ffn_bwd.cu): per-row LayerNorm
 // statistics and its backward, tiled products with an epilogue on the CUDA
-// cores (gemm) or the tensor cores (tc_gemm, bf16 WMMA over hi/lo terms),
-// the fixed-order sum of split-K partials, and column sums in two
-// fixed-order passes. No float atomics anywhere, so every result is the
-// same on every run.
+// cores (gemm: the FMA routes; the bf16 routes' products are wgmma,
+// wg_rows.cuh and wg_dw.cuh), the fixed-order sum of split-K partials, and
+// column sums in two fixed-order passes. No float atomics anywhere, so
+// every result is the same on every run.
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -194,174 +191,6 @@ cudaError_t gemm(const GemmBatch& gb, int jobs, cudaStream_t s) {
   const dim3 grid((gb.N + BN - 1) / BN, (gb.M + BM - 1) / BM, jobs * gb.ksplit);
   gemm_kernel<TA, AT, TB, BT, TO, EPI><<<grid, kGemmThreads, 0, s>>>(gb);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core route's products (bf16, every dimension a multiple of 8):
-// every operand is a bf16 matrix in device memory, an f32 operand having
-// been split into hi and lo matrices (split_kernel), so a product is a sum
-// of up to six terms A_t B_t over one K range. 128 x 64 output tiles, eight
-// warps of 32 x 32 (2 x 2 WMMA tiles), K steps of 32 staged through a
-// three-slot cp.async ring (16-byte copies, zero-filled past an edge) that
-// runs over the terms and K steps as one sequence. A transposed operand is
-// staged as it lies in memory and read with a column-major fragment.
-
-constexpr int TBM = 128, TBN = 64, TBK = 32, kTcStages = 3, kMaxTerms = 6;
-
-struct TcJob {
-  const bf16* a[kMaxTerms];
-  const bf16* b[kMaxTerms];
-  int nterms;
-  void* out;
-  const float* bias;
-  float mul;
-  const float* mscale;
-  int accumulate;
-};
-
-struct TcBatch {
-  TcJob job[4];
-  int M, N, K, lda, ldb, ldo, group, ksplit, kchunk;
-};
-
-template <bool AT, bool BT> struct TcTiles {
-  static constexpr int LA = AT ? TBM + 8 : TBK + 8;     // row strides (x 8)
-  static constexpr int LB = BT ? TBK + 8 : TBN + 8;
-  static constexpr int A_ELEMS = AT ? TBK * LA : TBM * LA;
-  static constexpr int B_ELEMS = BT ? TBN * LB : TBK * LB;
-  static constexpr int STAGE = (A_ELEMS + B_ELEMS + 63) / 64 * 64;   // 128-byte slots
-  static constexpr int SMEM = kTcStages * STAGE * 2 + 8 * 256 * 4;
-};
-
-template <bool AT, bool BT, typename TO, int EPI>
-__global__ void __launch_bounds__(256) tc_gemm_kernel(TcBatch gb) {
-  using namespace nvcuda;
-  using Tiles = TcTiles<AT, BT>;
-  using LayA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using LayB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  extern __shared__ __align__(128) unsigned char tsmem[];
-  const int chunk = blockIdx.z % gb.ksplit;
-  const TcJob& jb = gb.job[blockIdx.z / gb.ksplit];
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kbeg = chunk * gb.kchunk;
-  const int kend = min(gb.K, kbeg + gb.kchunk);
-  const int ksteps = kend > kbeg ? (kend - kbeg + TBK - 1) / TBK : 0;
-  const int steps = jb.nterms * ksteps;
-  bf16* ring = reinterpret_cast<bf16*>(tsmem);
-  float* stage = reinterpret_cast<float*>(ring + kTcStages * Tiles::STAGE) + warp * 256;
-
-  auto load_stage = [&](int step) {
-    if (step < steps) {
-      const int term = step / ksteps;
-      const int k0 = kbeg + (step - term * ksteps) * TBK;
-      const bf16* A = jb.a[term];
-      const bf16* B = jb.b[term];
-      bf16* sa = ring + (step % kTcStages) * Tiles::STAGE;
-      bf16* sb = sa + Tiles::A_ELEMS;
-      for (int c = tid; c < TBM * TBK / 8; c += 256) {
-        int r, col;
-        long off;
-        bool ok;
-        if (AT) {          // rows of K, 8 m per copy
-          r = c / (TBM / 8), col = (c % (TBM / 8)) * 8;
-          ok = k0 + r < kend && m0 + col < gb.M;
-          off = static_cast<long>(k0 + r) * gb.lda + m0 + col;
-        } else {           // rows of M, 8 k per copy
-          r = c / (TBK / 8), col = (c % (TBK / 8)) * 8;
-          ok = m0 + r < gb.M && k0 + col < kend;
-          off = static_cast<long>(m0 + r) * gb.lda + k0 + col;
-        }
-        __pipeline_memcpy_async(sa + r * Tiles::LA + col, A + (ok ? off : 0), 16, ok ? 0 : 16);
-      }
-      for (int c = tid; c < TBK * TBN / 8; c += 256) {
-        int r, col;
-        long off;
-        bool ok;
-        if (BT) {          // rows of N, 8 k per copy
-          r = c / (TBK / 8), col = (c % (TBK / 8)) * 8;
-          ok = n0 + r < gb.N && k0 + col < kend;
-          off = static_cast<long>(n0 + r) * gb.ldb + k0 + col;
-        } else {           // rows of K, 8 n per copy
-          r = c / (TBN / 8), col = (c % (TBN / 8)) * 8;
-          ok = k0 + r < kend && n0 + col < gb.N;
-          off = static_cast<long>(k0 + r) * gb.ldb + n0 + col;
-        }
-        __pipeline_memcpy_async(sb + r * Tiles::LB + col, B + (ok ? off : 0), 16, ok ? 0 : 16);
-      }
-    }
-    __pipeline_commit();
-  };
-
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int st = 0; st < kTcStages - 1; ++st) load_stage(st);
-  for (int step = 0; step < steps; ++step) {
-    load_stage(step + kTcStages - 1);  // into the slot read at step - 1
-    __pipeline_wait_prior(kTcStages - 1);
-    __syncthreads();
-    const bf16* sa = ring + (step % kTcStages) * Tiles::STAGE;
-    const bf16* sb = sa + Tiles::A_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], AT ? sa + ks * Tiles::LA + wm + 16 * i
-                                         : sa + (wm + 16 * i) * Tiles::LA + ks, Tiles::LA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], BT ? sb + (wn + 16 * j) * Tiles::LB + ks
-                                          : sb + ks * Tiles::LB + wn + 16 * j, Tiles::LB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  __pipeline_wait_prior(0);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        epilogue<TO, EPI>(jb, gb, chunk, m0 + wm + 16 * i + (e >> 4),
-                          n0 + wn + 16 * j + (e & 15), stage[e]);
-      __syncwarp();
-    }
-}
-
-template <bool AT, bool BT, typename TO, int EPI>
-cudaError_t tc_gemm(const TcBatch& gb, int jobs, cudaStream_t s) {
-  constexpr int smem = TcTiles<AT, BT>::SMEM;
-  auto kernel = tc_gemm_kernel<AT, BT, TO, EPI>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((gb.N + TBN - 1) / TBN, (gb.M + TBM - 1) / TBM, jobs * gb.ksplit);
-  kernel<<<grid, 256, smem, s>>>(gb);
-  return cudaGetLastError();
-}
-
-TcJob tc_job(std::initializer_list<const void*> a, std::initializer_list<const void*> b,
-             void* out, const void* bias = nullptr, float mul = 1.f,
-             const float* mscale = nullptr) {
-  TcJob j{};
-  int t = 0;
-  for (const void* p : a) j.a[t++] = static_cast<const bf16*>(p);
-  t = 0;
-  for (const void* p : b) j.b[t++] = static_cast<const bf16*>(p);
-  j.nterms = t;
-  j.out = out, j.bias = static_cast<const float*>(bias), j.mul = mul, j.mscale = mscale;
-  return j;
 }
 
 // out_j[i] = sum over the chunks c of part_j[c][i], in chunk order (the

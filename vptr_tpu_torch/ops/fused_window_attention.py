@@ -20,7 +20,9 @@ The kernels are CUDA C++ for sm_90a; #1/#5 share
 ``csrc/fused_window_attention.cuh`` and #3/#6
 ``csrc/fused_window_attention_bwd.cuh`` (a template flag folds the LN in),
 whose notes say what bounds each on the card and what the design does
-about that.
+about that. The backward's bf16 route runs its products on ``wgmma``
+(``csrc/wg_rows.cuh``, ``csrc/wg_dw.cuh``) when C is a multiple of 8, and
+other shapes on FMAs; :func:`backward_route` names the route.
 
 * The wrappers are ``torch.autograd.Function``s: for CUDA tensors they
   launch the kernels (or raise), for CPU tensors they take the plain
@@ -449,10 +451,79 @@ SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 def kernel_route(tokens: int, channels: int, dtype: torch.dtype) -> str:
     """Which of the forward kernel's two routes a shape takes: ``"tensor
     cores"`` (bf16 WMMA projections) or ``"fma"`` (f32 FMAs on the CUDA
-    cores). The backward's products take the tensor cores for bf16 widths
-    that are multiples of 8 and FMAs otherwise."""
+    cores)."""
     return ("tensor cores" if _lib().vptr_fused_window_attention_ln_route(
         tokens, channels, _DTYPES[dtype]) else "fma")
+
+
+def backward_route(tokens: int, channels: int, dtype: torch.dtype,
+                   ln: bool = True) -> str:
+    """Which route the backward kernel (#3 with ``ln``, else #6) takes:
+    ``"wgmma"`` (bf16, C a multiple of 8, any number of rows: every product
+    on the warpgroup MMA, fed by TMA) or ``"fma"`` (f32 FMAs on the CUDA
+    cores). Chosen from the shape before the launch; ``tokens`` does not
+    enter."""
+    del tokens
+    lib, entry = _lib_bwd(ln)
+    return ("wgmma" if getattr(lib, f"{entry}_route")(channels, _DTYPES[dtype])
+            else "fma")
+
+
+def rows_product(a, b, a_lo=None, b_mn: bool = True) -> torch.Tensor:
+    """(a + a_lo) @ B in f32 on the backward's row-tiled ``wgmma`` product
+    (128-row tiles, TMA-fed), with a, a_lo (R, K) bf16 on the card and B =
+    b (K, N) read MN-major as stored when ``b_mn`` (the projections'
+    operand: then no a_lo), else b is B^T (N, K), K-major as stored
+    (d(attn)'s and d(xn)'s); K and N multiples of 8. That product on its
+    own; not counted in any launch count."""
+    rows, k = a.shape if a.dim() == 2 else (0, 0)
+    n = (b.shape[1] if b_mn else b.shape[0]) if b.dim() == 2 else 0
+    want_b = (k, n) if b_mn else (n, k)
+    if (a.dim() != 2 or not a.is_cuda or rows < 1 or k % 8 or n % 8 or k < 8 or n < 8
+            or (b_mn and a_lo is not None) or tuple(b.shape) != want_b
+            or any(t.dtype != torch.bfloat16 or t.device != a.device
+                   or not t.is_contiguous() or t.data_ptr() % 16
+                   for t in (a, b) + (() if a_lo is None else (a_lo,)))
+            or (a_lo is not None and a_lo.shape != a.shape)):
+        raise ValueError(f"rows_product takes a (R, K) (and a_lo) and b (K, N) (b_mn) or "
+                         f"(N, K) bf16 on the card, K and N multiples of 8, got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} {b.dtype}")
+    out = torch.empty(rows, n, dtype=torch.float32, device=a.device)
+    lib, _ = _lib_bwd(True)
+    p = _build.ptr
+    err = lib.vptr_window_rows_product(p(a), p(a_lo), p(b), p(out), rows, k, n, int(b_mn),
+                                       torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "rows_product")
+    return out
+
+
+def weight_products(xs, his, los):
+    """x_j^T (hi_j + lo_j) in f32 for the four j on the backward's weight
+    product (``wgmma``, both operands MN-major as they lie in memory, the
+    four in one launch, K = rows in the backward's chunks summed in order),
+    with every x_j, hi_j, lo_j (R, C) bf16 on the card, C a multiple of 8;
+    a lo_j of None makes that product one term. Returns (4, C, C). That
+    product on its own; not counted in any launch count."""
+    x0 = xs[0]
+    rows, c = x0.shape if x0.dim() == 2 else (0, 0)
+    given = [t for t in (*xs, *his, *los) if t is not None]
+    if (len(xs) != 4 or len(his) != 4 or len(los) != 4 or not x0.is_cuda or rows < 1
+            or c < 8 or c % 8 or any(h is None for h in his)
+            or any(t.shape != (rows, c) or t.dtype != torch.bfloat16
+                   or t.device != x0.device or not t.is_contiguous() or t.data_ptr() % 16
+                   for t in given)):
+        raise ValueError("weight_products takes four x, hi and lo (or None) of one (R, C) "
+                         "bf16 shape on the card, C a multiple of 8")
+    lib, entry = _lib_bwd(True)
+    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, _DTYPES[torch.bfloat16])
+    part = torch.empty(4, ksplit, c, c, dtype=torch.float32, device=x0.device)
+    out = torch.empty(4, c, c, dtype=torch.float32, device=x0.device)
+    ptrs = lambda ts: (ctypes.c_void_p * 4)(*[_build.ptr(t) for t in ts])
+    err = lib.vptr_window_weight_products(ptrs(xs), ptrs(his), ptrs(los), _build.ptr(part),
+                                          _build.ptr(out), rows, c,
+                                          torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.check(lib, err, "weight_products")
+    return out
 
 
 def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
@@ -557,7 +628,7 @@ class _BwdArgs(ctypes.Structure):
         "dx", "dxv", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dls",
         "dlb", "dbias",
         "mean", "rstd", "xn", "xqk", "q", "k", "v", "attn", "dao", "dq",
-        "dk", "dv", "dl", "partial", "wpart", "hilo")]
+        "dk", "dv", "dl", "colpart", "partial", "wpart", "planes", "wcat")]
         + [(n, ctypes.c_int) for n in (
             "windows", "tokens", "channels", "heads", "bias_heads", "res",
             "mask_tokens", "dtype", "ksplit")]
@@ -582,8 +653,10 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
     rows, dt, dev = bw * l, x.dtype, x.device
     f32 = torch.float32
     lib, entry = _lib_bwd(ln)
-    nparts = getattr(lib, f"{entry}_partials")(rows)
-    ksplit = getattr(lib, f"{entry}_ksplit")(rows)
+    wg = bool(getattr(lib, f"{entry}_route")(c, _DTYPES[dt]))
+    if wg and g.data_ptr() % 16:      # TMA reads g's rows
+        raise ValueError(f"{name} backward: g must be 16-byte aligned")
+    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, _DTYPES[dt])
 
     def buf(*shape, dtype=f32):
         return torch.empty(*shape, dtype=dtype, device=dev)
@@ -596,18 +669,24 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
                  dbo=buf(c), dls=buf(c) if ln else None,
                  dlb=buf(c) if ln else None,
                  dbias=buf(*bias.shape) if need_dbias else None)
+    # scratch: the projections, the merged heads, d(attn) (then d(xn)),
+    # the logit gradients, the window sums of dq, dk, dv and g * scale, the
+    # split-K partials; on the wgmma route the bf16 hi and lo planes of [dq
+    # dk dv g*scale] and [Wq Wk Wv] side by side, on the FMA route dq, dk,
+    # dv in f32
+    f32_d = (lambda: None) if wg else (lambda: buf(rows, c))
     scratch = dict(q=buf(rows, c, dtype=dt),
                    k=buf(rows, c, dtype=dt), v=buf(rows, c, dtype=dt),
                    attn=buf(rows, c, dtype=dt), dao=buf(rows, c),
-                   dq=buf(rows, c), dk=buf(rows, c), dv=buf(rows, c),
+                   dq=f32_d(), dk=f32_d(), dv=f32_d(),
                    dl=buf(bw, num_heads, l, l) if need_dbias else None,
-                   partial=buf(6, nparts, c), wpart=buf(4, ksplit, c, c),
-                   # bf16 hi/lo halves of the f32 operands of the tensor-core
-                   # products (dq, dk, dv, g * scale)
-                   hilo=buf(8, rows, c, dtype=dt) if dt == torch.bfloat16 else None)
-    if ln:   # the LayerNorm pass's statistics and outputs
+                   colpart=buf(4, bw, c), wpart=buf(4, ksplit, c, c),
+                   planes=buf(2, rows, 4 * c, dtype=dt) if wg else None,
+                   wcat=buf(c, 3 * c, dtype=dt) if wg else None)
+    if ln:   # the LayerNorm passes' statistics, outputs and column-sum partials
         scratch.update(mean=buf(rows), rstd=buf(rows), xn=buf(rows, c, dtype=dt),
-                       xqk=buf(rows, c, dtype=dt))
+                       xqk=buf(rows, c, dtype=dt),
+                       partial=buf(2, getattr(lib, f"{entry}_partials")(rows), c))
     p = _build.ptr
     a = _BwdArgs(
         x=p(x), xv=p(x_v), wq=p(wq), bq=p(bq), wk=p(wk), bk=p(bk), wv=p(wv), bv=p(bv),
@@ -668,10 +747,16 @@ def _lib_bwd(ln: bool):
     lib, entry = _build.load(name), f"vptr_{name}"
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for part in ("partials", "ksplit"):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_BwdArgs), p]
+        fn.restype = i
+        for part, n in (("ksplit", 3), ("route", 2)) + ((("partials", 1),) if ln else ()):
             f = getattr(lib, f"{entry}_{part}")
-            f.argtypes = [ctypes.c_int]
-            f.restype = ctypes.c_int
+            f.argtypes = [i] * n
+            f.restype = i
+        if ln:
+            lib.vptr_window_rows_product.argtypes = [p] * 4 + [i] * 4 + [p]
+            lib.vptr_window_rows_product.restype = i
+            lib.vptr_window_weight_products.argtypes = [p] * 5 + [i] * 2 + [p]
+            lib.vptr_window_weight_products.restype = i
     return lib, entry
