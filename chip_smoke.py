@@ -7,14 +7,16 @@ Phases (any failure exits non-zero, without the final result line):
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520);
-   count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu
-   and fused_ffn libraries, forward and backward, and of the two window-
-   attention backward libraries (#3, #6) (cuobjdump), and fail if any has
+   count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu,
+   fused_ffn and window-attention libraries, forward and backward (#11,
+   #12, #7, #8, and #1, #5, #3, #6) (cuobjdump), and fail if any has
    none;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
    far_rip shapes, a rectangular attention core and the residual/scale
-   window variant; the forwards with dropout 0.1 at the training shapes;
+   window variant; the forwards with dropout 0.1 at the far_rip and the
+   training shapes, the window's with res and the DropPath scale at the
+   training shape (dropout 0 and 0.1);
    both backward kernels at the training shapes (window 760 x 16 x 528,
    core 640 x 8 x 19 x 66), dropout 0 and 0.1, with a per-head bias for
    the bias gradients;
@@ -41,7 +43,8 @@ Phases (any failure exits non-zero, without the final result line):
    shapes (640 windows x 16 x 528), bf16 and f32, dropout 0 and 0.1:
    the two-stream kernels #5/#6 with an 8-head and a 1-head relative-
    position bias (forward, dx_qk, dx_v, every dW and db, dbias), and #1/#3
-   with the 8-head bias, no position table and the bias gradient;
+   with the 8-head bias, no position table and the bias gradient (#1 also
+   with the 1-head bias);
 8. build nar_mnist at full width from a seed (AE as far_mnist, NAR 4 + 8
    layers / d 528 / 8 heads, RPE) and run the "nar" predict entry point
    for 10 frames from 10 past frames at batch 16, every counter at 0 just
@@ -82,7 +85,7 @@ Phases (any failure exits non-zero, without the final result line):
    2112, fc2 2112 -> 528 over 8 x 8 latents; 200 samples forward, 190
    backward), and #1/#3 as the folded temporal sublayer calls them (the
    position table on q/k: 640 columns x 20 tokens causal, forward; 640 x
-   19 causal and 1024 x 10, forward and backward, dropout 0 and 0.1), bf16
+   19 causal and 1024 x 10, forward and backward; dropout 0 and 0.1), bf16
    and f32;
 16. far_mnist with transformer.fused_conv_ffn and fused_full_temporal: the
    far_rip predict with every counter at 0 just before and read just after
@@ -103,7 +106,8 @@ Phases (any failure exits non-zero, without the final result line):
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
 20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
-   temporal shapes) and, last, {"ok": true, "device": {...}}.
+   temporal shapes and at the NAR shape) and, last, {"ok": true, "device":
+   {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -463,10 +467,12 @@ def nar_phases(dev):
                     errs["two_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
         lops = ln_operands(dtype)
         for r in (0.0, rate):
-            e = max_err(tfw.fused_attention_ln(*lops, rpe8, kseed, heads, r),
-                        tfw.fused_attention_ln_plain(*lops, rpe8, kseed, heads, r))
-            check(e <= tol[dtype], f"fused_attention_ln {name} 8-head RPE bias, no "
-                  f"pos, dropout {r} max|err| {e:.3e} <= {tol[dtype]}")
+            for bias, what in ((rpe8, "8-head RPE bias"), (rpe1, "1-head bias")):
+                e = max_err(tfw.fused_attention_ln(*lops, bias, kseed, heads, r),
+                            tfw.fused_attention_ln_plain(*lops, bias, kseed, heads, r))
+                check(e <= tol[dtype], f"fused_attention_ln {name} {what}, no pos, "
+                      f"dropout {r} ({tfw.kernel_route(tokens, c, dtype)}) max|err| "
+                      f"{e:.3e} <= {tol[dtype]}")
             got = tfw.fused_attention_ln_backward(*lops, rpe8, kseed, gout, heads, r)
             want = tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gout,
                                                          heads, r)
@@ -967,7 +973,7 @@ def conv_phases(dev):
     # the folded temporal sublayer's #1/#3 calls: (columns, T, causal, dropout
     # rates) -- far_rip predict, the FAR step, the NAR encoder and decoder
     attn_rate = lambda t: t.dropout if t.attention_dropout is None else t.attention_dropout
-    temporal = {"far_rip": (BATCH * hw, ctx, True, (0.0,)),
+    temporal = {"far_rip": (BATCH * hw, ctx, True, (0.0, attn_rate(tc))),
                 "far_step": (BATCH * hw, ctx - 1, True, (0.0, attn_rate(tc))),
                 "nar": (nb * hw, ntc.num_past_frames, False, (0.0, attn_rate(ntc)))}
     bf = torch.bfloat16
@@ -1297,6 +1303,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
     for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
+                "fused_window_attention_ln", "fused_window_attention",
                 "fused_window_attention_ln_bwd", "fused_window_attention_bwd"):
         n_hgmma = hgmma_count(paths[lib])
         check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
@@ -1397,6 +1404,17 @@ def main() -> int:
                     fused_attention_ln_plain(*tops, None, kseed, heads, rate))
         check(e <= tol[dtype], f"fused_attention_ln {name} dropout {rate} "
               f"{tuple(tops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
+        e = max_err(fused_attention_ln(*ops, None, kseed, heads, rate),
+                    fused_attention_ln_plain(*ops, None, kseed, heads, rate))
+        check(e <= tol[dtype], f"fused_attention_ln {name} dropout {rate} "
+              f"{tuple(ops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
+        tscale = (torch.rand(twindows, generator=g) * 2).to(dev)
+        for r in (0.0, rate):     # the FAR step's call: res and the DropPath scale
+            e = max_err(fused_attention_ln_res(*tops, None, tscale, kseed, heads, r),
+                        fused_attention_ln_plain(*tops, None, kseed, heads, r,
+                                                 scale=tscale, res=True))
+            check(e <= tol[dtype], f"fused_attention_ln_res {name} (scale, res) dropout "
+                  f"{r} {tuple(tops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
         tq_, tk_, tv_ = core_operands(dtype, tq=tt, tk=tt)
         tcausal = causal[:, :tt, :tt]
         e = max_err(attention_core(tq_, tk_, tv_, tcausal, kseed, rate),
@@ -1652,6 +1670,9 @@ def main() -> int:
     for row in rows_out:          # #1 / #3 at the folded temporal sublayer's shapes
         if row["name"] in temporal_rows:
             row["temporal_shapes"] = temporal_rows[row["name"]]
+        nar_ln = nar_extra["nar_shape_ln_kernels"].get(f"{row['name']} (NAR shape, RPE bias)")
+        if nar_ln:                # and at the NAR shape
+            row["nar_shape"] = nar_ln
 
     phase("20. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "

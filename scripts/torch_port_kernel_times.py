@@ -8,7 +8,13 @@ Imports ``vptr_tpu_torch`` from ``--root`` (default: the checkout holding
 this script), builds its kernels there, and times in bf16, at the far_mnist
 shapes:
 * ``fused_attention_ln`` (#1): 800 windows x 16 tokens x 528 channels, 8
-  heads, the position table, no bias, dropout 0 (the far_rip shape);
+  heads, the position table, no bias, dropout 0 (the far_rip shape); as
+  the folded temporal sublayer calls it, 640 x 20 causal with the position
+  table (``..._t20_ms``) and 1024 x 10 (``..._t10_ms``); and as the NAR
+  encoder does, 640 x 16 with the 8-head relative-position bias, no
+  position table (``..._nar_ms``);
+* ``fused_attention`` (#5): 640 x 16 x 528 with the 8-head relative-position
+  bias, dropout 0 (the nar_mnist decoder's shape);
 * ``attention_core`` (#2): 640 x 8 heads x 20 x 66, causal, dropout 0;
 * ``fused_attention_ln_backward`` (#3): 760 windows, dropout 0.1 (the
   train step's shape), and 640 x 19 causal with the position table, as
@@ -93,6 +99,7 @@ def main() -> int:
         attention_core_backward,
     )
     from vptr_tpu_torch.ops.fused_window_attention import (
+        fused_attention,
         fused_attention_backward,
         fused_attention_ln,
         fused_attention_ln_backward,
@@ -135,6 +142,9 @@ def main() -> int:
     two = (r(640, 16, c).to(bf), r(640, 16, c).to(bf)) + win[1:9] + (
         r(heads, 16, 16, std=0.5),)
     gtwo = r(640, 16, c).to(bf)
+    t20 = (r(640, ctx, c).to(bf),) + win[1:11] + (r(ctx, c), causal)
+    t10 = (r(1024, 10, c).to(bf),) + win[1:11] + (r(10, c), None)
+    nar = (r(640, 16, c).to(bf),) + win[1:11] + (None, two[-1])
 
     cfg = get_preset("far_mnist")
     routes = {} if args.kernels_only else {"": cfg}
@@ -163,6 +173,10 @@ def main() -> int:
     kernels = {
         "fused_attention_ln_ms": lambda: fused_attention_ln(*win, None,
                                                             num_heads=heads),
+        "fused_attention_ln_t20_ms": lambda: fused_attention_ln(*t20, num_heads=heads),
+        "fused_attention_ln_t10_ms": lambda: fused_attention_ln(*t10, num_heads=heads),
+        "fused_attention_ln_nar_ms": lambda: fused_attention_ln(*nar, num_heads=heads),
+        "fused_attention_ms": lambda: fused_attention(*two, num_heads=heads),
         "attention_core_ms": lambda: attention_core(q, k, v, causal),
         "fused_attention_ln_bwd_ms": lambda: fused_attention_ln_backward(
             *twin, None, seed, gwin, heads, 0.1),

@@ -92,7 +92,7 @@ def _ln_inputs(rng, bw, l, c=48):
             1.0 + f(c, scale=0.1), f(c, scale=0.1), f(l, c)]
 
 
-@pytest.mark.parametrize("tokens", [16, 19])
+@pytest.mark.parametrize("tokens", [16, 19, 10, 20])
 @pytest.mark.parametrize("res", [False, True])
 def test_fused_attention_ln_dropout_matches_jax(tokens, res):
     rng = np.random.default_rng(31)

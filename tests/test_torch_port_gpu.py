@@ -765,3 +765,146 @@ def test_window_backward_routes(cuda):
         assert tfw.backward_route(19, 64, torch.bfloat16, ln) == "wgmma"
         assert tfw.backward_route(16, 100, torch.bfloat16, ln) == "fma"
         assert tfw.backward_route(16, 528, torch.float32, ln) == "fma"
+
+
+# ---- kernels #1 / #5 on the wgmma route: its attention pass and its out
+# projection alone, the forwards at edge shapes against their plain
+# versions, two calls bit-equal, the routes
+
+def _attention_bias(g, kind, heads, tokens, cuda):
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return _causal(tokens, cuda)
+    return (torch.randn(heads if kind == "heads" else 1, tokens, tokens, generator=g)
+            * 0.5).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias", ["none", "one", "heads", "causal"])
+@pytest.mark.parametrize("tokens", [2, 10, 16, 19, 20, 32])
+@pytest.mark.parametrize("c,heads", [(528, 8), (264, 8)])
+def test_window_attention_pass_matches_plain(cuda, c, heads, tokens, bias, rate):
+    """The forward's attention pass alone (mma.sync per (window, head)) against
+    a plain version built from _heads_attention: the weights rounded after
+    dropout, P v in f32 rounded once; 37 windows (a ragged last block at L
+    <= 8), heads of 66 and of 33 (odd: two-byte loads)."""
+    g = torch.Generator().manual_seed(31)
+    bw, bf = 37, torch.bfloat16
+    q, k, v = (torch.randn(bw, tokens, c, generator=g).to(cuda, bf) for _ in range(3))
+    hb = _attention_bias(g, bias, heads, tokens, cuda)
+    seed = _seed(cuda)
+    qs, _, _, w_drop, split = tfw._heads_attention(q, k, v, hb, seed, heads, rate)
+    want = torch.matmul(w_drop.float(), split(v).float()).to(bf)
+    want = want.transpose(1, 2).reshape(bw, tokens, c)
+    qs = qs.transpose(1, 2).reshape(bw, tokens, c).contiguous()
+    got = tfw.attention_pass(qs, k, v, hb, seed, heads, rate)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max().item() <= TOL[bf]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue", ["bo", "scale", "scale_res"])
+@pytest.mark.parametrize("rows,tokens,c", [(12800, 16, 528), (592, 16, 64), (247, 19, 96),
+                                           (140, 20, 528), (1, 1, 528)])
+def test_window_out_projection_matches_matmul(cuda, rows, tokens, c, epilogue):
+    """The forward's out projection alone (the row-tiled wgmma product with
+    the kRwOutProj epilogue) against an f32 matmul + bo, * scale[row // L],
+    + x, rounded once: the two differ in summation order only, so at most
+    one bf16 rounding step (2^-7 of the larger of 1 and the value)."""
+    g = torch.Generator().manual_seed(32)
+    bf = torch.bfloat16
+    a = torch.randn(rows, c, generator=g).to(cuda, bf)
+    wo = (torch.randn(c, c, generator=g) * c ** -0.5).to(cuda, bf)
+    bo = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    scale = ((torch.rand(-(-rows // tokens), generator=g) * 2).to(cuda)
+             if epilogue != "bo" else None)
+    res = torch.randn(rows, c, generator=g).to(cuda, bf) if epilogue == "scale_res" else None
+    got = tfw.out_projection(a, wo, bo, tokens, scale, res)
+    want = a.float() @ wo.float() + bo
+    if scale is not None:
+        want = want * scale.repeat_interleave(tokens)[:rows, None]
+    if res is not None:
+        want = want + res.float()
+    want = want.to(bf).float()
+    torch.cuda.synchronize()
+    assert got.dtype == bf and got.shape == (rows, c)
+    assert bool(((got.float() - want).abs() <= 2 ** -7 * want.abs().clamp(min=1.0)).all())
+
+
+def _forward_case(g, kind, bw, tokens, c, heads, dtype, cuda):
+    """Operands of #1 ("ln": the position table and a causal or heads-wide
+    bias; "res": with res and a DropPath scale) or #5 ("two": a one-head
+    bias)."""
+    r = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).to(cuda)
+    w = [r(c, c, std=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [r(c, std=0.02) for _ in range(4)]
+    if kind == "two":
+        x_v = r(bw, tokens, c).to(dtype)
+        return (x_v, r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3],
+                b[3], _attention_bias(g, "one", heads, tokens, cuda))
+    bias = _attention_bias(g, "causal" if tokens != 16 else "heads", heads, tokens, cuda)
+    return (r(bw, tokens, c).to(dtype), w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3],
+            1 + r(c, std=0.1), r(c, std=0.1), r(tokens, c, std=0.5), bias)
+
+
+def _window_forward(kind, args, seed, heads, rate, scale, plain=False):
+    if kind == "two":
+        fn = tfw.fused_attention_plain if plain else tfw.fused_attention
+        return fn(*args, seed, heads, rate)
+    if plain:
+        return tfw.fused_attention_ln_plain(*args, seed, heads, rate, scale, kind == "res")
+    if kind == "res":
+        return tfw.fused_attention_ln_res(*args, scale, seed, heads, rate)
+    return tfw.fused_attention_ln(*args, seed, heads, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("c,heads", [(64, 1), (96, 4), (528, 8), (264, 8)])
+@pytest.mark.parametrize("bw,tokens", [(37, 16), (13, 19), (7, 20)])
+@pytest.mark.parametrize("kind", ["ln", "res", "two"])
+def test_window_forward_wgmma_edge_shapes(cuda, kind, bw, tokens, c, heads, rate):
+    """#1 and #5 on the wgmma route (bf16) at rows that are not a multiple
+    of the 128-row tiles (592, 247, 140), widths of one to three column
+    groups, 1, 4 and 8 heads (of 33 columns at C = 264), against their
+    plain versions; one launch count a call."""
+    g = torch.Generator().manual_seed(33)
+    dtype = torch.bfloat16
+    assert tfw.kernel_route(tokens, c, dtype) == "wgmma"
+    args = _forward_case(g, kind, bw, tokens, c, heads, dtype, cuda)
+    scale = (torch.rand(bw, generator=g) * 2).to(cuda) if kind == "res" else None
+    seed = _seed(cuda)
+    counter = tfw.fused_attention if kind == "two" else tfw.fused_attention_ln
+    before = counter.launches
+    got = _window_forward(kind, args, seed, heads, rate, scale)
+    assert counter.launches == before + 1
+    want = _window_forward(kind, args, seed, heads, rate, scale, plain=True)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["res", "two"])
+def test_window_forward_is_deterministic(cuda, kind):
+    """Two calls of #1 / #5 on the wgmma route give the same bits."""
+    g = torch.Generator().manual_seed(34)
+    args = _forward_case(g, kind, 96, 16, 528, 8, torch.bfloat16, cuda)
+    scale = (torch.rand(96, generator=g) * 2).to(cuda) if kind == "res" else None
+    first = _window_forward(kind, args, _seed(cuda), 8, 0.1, scale)
+    second = _window_forward(kind, args, _seed(cuda), 8, 0.1, scale)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_window_forward_routes(cuda):
+    """bf16 with C a multiple of 8 takes wgmma at any token count; f32, or
+    C = 100, the FMA kernel."""
+    for tokens in (2, 10, 16, 19, 20, 32):
+        assert tfw.kernel_route(tokens, 528, torch.bfloat16) == "wgmma"
+        assert tfw.kernel_route(tokens, 528, torch.float32) == "fma"
+    assert tfw.kernel_route(16, 64, torch.bfloat16) == "wgmma"
+    assert tfw.kernel_route(16, 100, torch.bfloat16) == "fma"

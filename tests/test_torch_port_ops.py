@@ -70,13 +70,18 @@ def _ln_inputs(rng, bw=5, l=16, c=48):
                 lb=f(c, scale=0.1), pos=f(l, c))
 
 
-@pytest.mark.parametrize("with_pos", [True, False])
+# tokens 10 and 20: the attention pass's one- and two-tile query counts
+# (the NAR and FAR folded temporal sublayers), beside the window's 16
+@pytest.mark.parametrize("with_pos,tokens", [
+    pytest.param(True, 16, id="True"), pytest.param(False, 16, id="False"),
+    pytest.param(True, 10, id="True-10"), pytest.param(False, 10, id="False-10"),
+    pytest.param(True, 20, id="True-20"), pytest.param(False, 20, id="False-20")])
 @pytest.mark.parametrize("res", [False, True])
-def test_fused_attention_ln_matches_jax(with_pos, res):
+def test_fused_attention_ln_matches_jax(with_pos, tokens, res):
     rng = np.random.default_rng(2)
-    a = _ln_inputs(rng)
+    a = _ln_inputs(rng, l=tokens)
     heads = 4
-    bias = _causal(16)            # exercise the bias operand too
+    bias = _causal(tokens)        # exercise the bias operand too
     scale = np.array([1.0, 0.0, 2.0, 1.0, 0.5], np.float32)
     pos = a["pos"] if with_pos else None
     (wq, wk, wv, wo), (bq, bk, bv, bo) = a["w"], a["b"]

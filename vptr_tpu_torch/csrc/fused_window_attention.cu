@@ -17,49 +17,34 @@
 // What bounds it on an H100: operations. The four C x C projections are
 // 8 L C^2 flops per window (23.2 GFLOP for 640 windows of 16 x 528, the
 // nar_mnist decoder), against ~35 MB of device-memory traffic (two input
-// streams, the output, four weights). The kernels are
-// fused_window_attention.cuh's with LN = false: the same two routes as the
-// LayerNorm-folded kernel #1, whose xn and xqk shared-memory buffers here
-// receive x_v and x_qk as they are. The second input stream therefore
-// costs no shared memory over #1 (4 x 48 x 536 bf16 + the rings = 230,400
-// of 232,448 bytes on the tensor-core route, three 16-token windows per
-// block).
+// streams, the output, four weights). The passes are
+// fused_window_attention.cuh's with LN = false, the routes of the
+// LayerNorm-folded kernel #1 without its LayerNorm pass: on the bf16
+// wgmma route the two streams are the q/k and v products' A operands as
+// they lie in memory, and the out projection's epilogue adds bo only.
 
 #include "fused_window_attention.cuh"
 
 extern "C" {
 
-const char* vptr_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* vptr_error_string(int err) { return error_string(err); }
 
-// Dynamic shared memory of the route the kernel takes for (L, C, heads,
+// Dynamic shared memory of the route the forward takes for (L, C, heads,
 // dtype), in bytes; more than 232448 means the shape is not supported.
 long vptr_fused_window_attention_smem(int L, int C, int heads, int dtype) {
   return window_smem(L, C, heads, dtype);
 }
 
-// 1 when (L, C, dtype) takes the tensor-core route, 0 for the FMA route.
+// 1 when (L, C, dtype) takes the wgmma route, 0 for the FMA route.
 int vptr_fused_window_attention_route(int L, int C, int dtype) {
-  return use_tc(L, C, dtype) ? 1 : 0;
+  return use_wg(L, C, dtype) ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null; seed (device int32)
-// may be null when rate == 0, keep_div = (float)(1 - rate), mask_tokens =
-// the padded token count of the dropout index. Returns a cudaError_t
-// (0 = launched).
-int vptr_fused_window_attention(const void* xqk, const void* xv, const void* wq,
-                                const void* bq, const void* wk, const void* bk,
-                                const void* wv, const void* bv, const void* wo,
-                                const void* bo, const void* bias, void* out, int windows,
-                                int L, int C, int heads, int bias_heads, float qscale,
-                                const void* seed, float rate, float keep_div,
-                                int mask_tokens, int dtype, void* stream) {
-  // no LayerNorm (ls, lb, pos, eps), no residual epilogue (scale, res)
-  const FwdArgs a{xqk, xv, wq, bq, wk, bk, wv, bv, wo, bo, nullptr, nullptr, nullptr, bias,
-                  nullptr, out, windows, L, C, heads, bias_heads, 0, qscale, 0.f,
-                  {static_cast<const int*>(seed), rate, keep_div}, mask_tokens};
-  return launch_window_attention<false>(a, dtype, static_cast<cudaStream_t>(stream));
+// Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a
+// CUresult. Without LN: x is x_qk, xv is x_v; ls, lb, pos, scale, res,
+// mean, rstd, xn and xqk are unused (null, 0).
+int vptr_fused_window_attention(const FwdArgs* a, void* stream) {
+  return run_forward<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

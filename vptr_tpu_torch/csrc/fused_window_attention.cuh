@@ -1,5 +1,6 @@
 // Window self-attention sublayer forward on Hopper (sm_90a), shared by two
-// libraries through the template flag LN:
+// libraries through the template flag LN. Over R = windows * L rows of C
+// channels (L <= 32 tokens a window):
 //   LN = true  (fused_window_attention_ln.cu, kernel #1):
 //     xn  = LN(x) * ls + lb,  xqk = xn + pos          (both rounded to T)
 //   LN = false (fused_window_attention.cu, kernel #5):
@@ -8,91 +9,91 @@
 //     q,k = xqk Wq|Wk + bq|bk,  v = xn Wv + bv          (f32 sums, to T)
 //     a_h = dropout(softmax(q_h k_h^T * hd^-1/2 + bias_h)) v_h  (per head)
 //     out = [a_1 .. a_H] Wo + bo,  then * scale[window], + x when res (LN)
-// Activations (B, L, C) with L <= 32 tokens per window; W*: (C, C) stored
-// (in, out) like the JAX Dense kernels; biases, ls, lb, pos (L, C), bias
-// (1|H, L, L) and scale (B,) are f32; T = float or bf16.
+// W*: (C, C) stored (in, out) like the JAX Dense kernels; biases, ls, lb,
+// pos (L, C), bias (1|H, L, L) and scale (windows,) are f32; T = float or
+// bf16. Rounding points are the plain versions'
+// (ops/fused_window_attention.py): xn and xqk rounded, q/k/v rounded after
+// the f32 bias add, q * scale rounded, f32 softmax, the weights rounded
+// after dropout, the merged heads rounded, the out projection in f32
+// rounded once. Attention-weight dropout is the counter hash of
+// hash_dropout.cuh, indexed by the padded token count mask_tokens, as the
+// TPU kernels pad L.
 //
-// Both routes keep every intermediate (xn, xqk, q/k/v, logits, weights,
-// merged heads) in shared memory: device memory sees the activations once,
-// the weights (L2-resident, shared by all blocks) and the output once.
+// What bounds it on an H100: operations. The four C x C projections are
+// 8 L C^2 flops a window (28.5 GFLOP at far_rip's 800 windows of 16 x 528,
+// 0.029 ms at 989 TFLOP/s), against 29 MB of device-memory traffic
+// (0.009 ms at 3.35 TB/s). Two routes, chosen from (L, C, dtype) before
+// any launch (kernel_route in ops/fused_window_attention.py names them):
 //
-// * Tensor-core route (bf16, C % 16 == 0 -- the serving path): one block
-//   takes 48 rows, i.e. the whole windows that fit (three 16-token
-//   windows), zero-padded to three 16-row tiles. Twelve warps share the
-//   q/k column tiles (2 C/16 of them), then the v tiles, then the
-//   out-projection tiles; each warp runs WMMA bf16 16x16x16 products with
-//   f32 accumulators over the three row tiles, so every weight tile read
-//   from L2 feeds three products, and streams its weight tiles through a
-//   private 4-slot cp.async ring in shared memory. The weight traffic from
-//   L2 (4 C^2 bf16 per block) is what the block count multiplies, so rows
-//   per block are as many as shared memory allows: four 48-row bf16
-//   activation buffers (xn, xqk, q, k; v and the merged heads reuse freed
-//   ones). The two input streams of LN = false land in the same two
-//   buffers LN = true fills with xn and xqk, so both take the same shared
-//   memory. The accumulators go through a per-warp f32 staging tile where
-//   the bias add and the rounding to bf16 happen, exactly as in the plain
-//   version. Attention runs one warp per (window, head): two lanes per
-//   query row hold its logits in registers (L <= 16; one lane for
-//   L <= 32), softmax by one shuffle, then the row's lanes split the head
-//   width for the weighted sum of v.
-// * FMA route (f32, or a width the first cannot take): one block per
-//   window, heads one at a time; each thread owns one output column of
-//   q_h, k_h or v_h and keeps its L row sums in registers, reading the
-//   activation rows as float4 broadcasts. The per-head tiles use an odd
-//   row stride so column reads across rows are free of bank conflicts.
-//
-// Attention-weight dropout is the counter hash of hash_dropout.cuh,
-// indexed by the padded token count mask_tokens, as the TPU kernels pad L.
+// * wgmma (bf16, C a multiple of 8 so that TMA rows are 16-byte aligned,
+//   any number of windows): four passes through device memory. The TPU
+//   kernel kept a window in VMEM; a fused block here could hold only three
+//   windows (48 rows) and streamed all four weights from L2 for each, with
+//   the products on WMMA over part-filled tiles. As passes, each product
+//   runs over all R rows in 128-row tiles, and the intermediates' round
+//   trips (xn, xqk, q, k, v, the merged heads: 6 R C bf16, partly
+//   L2-resident) cost less than the products gain:
+//   1. LN only: tile_ops.cuh's ln_rows_kernel (one warp a row) writes xn
+//      and, with pos, xqk (its mean and rstd go to scratch); bound by bytes;
+//   2. q, k, v: one launch of three products on wg_rows.cuh's row-tiled
+//      product (W read MN-major as stored; as two launches it read slower
+//      on an H100), the bias, the rounding and q's scale in the register
+//      epilogue (kRwProj); bound by the weights each 128-row tile streams
+//      from L2;
+//   3. window_fwd_kernel, the attention: a block stages the q, k, v rows of
+//      a window in shared memory with cp.async (whole 16-byte chunks of a
+//      row: a head of 66 columns starts only 4-byte aligned) and a warp
+//      takes a head: q k^T on the tensor cores (mma.sync m16n8k16, bf16 in,
+//      f32 sums: the products are exact, as in the plain version's f32
+//      matmul of bf16 values), the bias, the f32 softmax over the quad of
+//      lanes that holds a row, the hash dropout, the weights rounded to
+//      bf16 straight into the A fragments of P v (the logits' accumulator
+//      layout is the A operand's), P v on mma.sync, the merged heads
+//      rounded and written back over the head's q columns, then the rows
+//      stored whole. Any L <= 32: one 16-row query tile for L <= 16, two for
+//      L <= 32, keys and rows past L read as zero. Bound by the bytes it
+//      stages (a few hundred instructions a head);
+//   4. the out projection on the same product with the kRwOutProj epilogue:
+//      + bo, * scale[window], + x (res), rounded once. It has a third of
+//      q/k/v's tiles, so its last wave is part-filled.
+// * FMA (f32, or bf16 with C not a multiple of 8): one block a window,
+//   heads one at a time; each thread owns one output column of q_h, k_h or
+//   v_h and keeps its L row sums in registers, reading the activation rows
+//   as float4 broadcasts; the per-head tiles use an odd row stride so
+//   column reads across rows are free of bank conflicts.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <cuda_pipeline.h>
-#include <mma.h>
-
 #include "hash_dropout.cuh"
+#include "tile_ops.cuh"
+#include "wg_rows.cuh"
+
+// Everything a forward call takes; mirrored by _FwdArgs in
+// vptr_tpu_torch/ops/fused_window_attention.py. Inputs (ls, lb, pos, scale,
+// res belong to LN = true, xv to LN = false; pos, bias, scale and seed may
+// be null), the output, then the wgmma route's scratch the caller
+// allocates: mean, rstd (R f32) and xn, xqk (R x C in T; xqk only with
+// pos) for LN; q, k, v and attn (the merged heads), R x C in T. The FMA
+// route takes no scratch (null).
+struct FwdArgs {
+  const void *x, *xv, *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo, *ls, *lb, *pos, *bias, *scale,
+      *seed;
+  void* out;
+  void *mean, *rstd, *xn, *xqk, *q, *k, *v, *attn;
+  int windows, tokens, channels, heads, bias_heads, res, mask_tokens, dtype;
+  float qscale, eps, rate, keep_div;
+};
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTokens = 32;
 constexpr int kMaxHeadDim = 128;
+constexpr long kSmemLimit = 232448;   // bytes a block may opt in to on sm_90
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// ---------------------------------------------------------------------------
+// FMA route
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Everything a forward launch takes (pointers into device memory; ls, lb,
-// pos, scale and res belong to LN = true, xv to LN = false).
-struct FwdArgs {
-  const void *x, *xv, *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo, *ls, *lb, *pos, *bias, *scale;
-  void* out;
-  int windows, L, C, heads, bias_heads, res;
-  float qscale, eps;
-  vptr_dropout::Params drop;
-  int mask_tokens;
-};
+constexpr int kFmaThreads = 256;
+constexpr int kFmaWarps = kFmaThreads / 32;
 
 // acc[r] += sum_k A[r][k] * W[k][col] for r < rows. A lives in shared
 // memory with row stride lda (a multiple of 4, zero-padded past C); W is a
@@ -122,7 +123,7 @@ __device__ __forceinline__ void column_dot(const float* __restrict__ A, int lda,
 }
 
 template <typename T, int MAXL, bool LN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFmaThreads)
 fused_window_attention_kernel(
     const T* __restrict__ x, const T* __restrict__ xv, const T* __restrict__ wq,
     const float* __restrict__ bq, const T* __restrict__ wk, const float* __restrict__ bk,
@@ -152,7 +153,7 @@ fused_window_attention_kernel(
 
   if constexpr (LN) {
     // 1) LayerNorm, one warp per row, f32 statistics
-    for (int r = warp; r < L; r += kWarps) {
+    for (int r = warp; r < L; r += kFmaWarps) {
       const T* xr = xw + r * C;
       float s = 0.f;
       for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
@@ -177,7 +178,7 @@ fused_window_attention_kernel(
   } else {
     // 1) the two input streams as they are
     const T* xvw = xv + win * L * C;
-    for (int i = threadIdx.x; i < L * lda; i += kThreads) {
+    for (int i = threadIdx.x; i < L * lda; i += kFmaThreads) {
       const int r = i / lda, c = i - r * lda;
       xqk[i] = c < C ? to_f32(xw[r * C + c]) : 0.f;
       xn[i] = c < C ? to_f32(xvw[r * C + c]) : 0.f;
@@ -188,7 +189,7 @@ fused_window_attention_kernel(
 
   // 2) one head at a time: project q_h, k_h, v_h, then attend
   for (int h = 0; h < heads; ++h) {
-    for (int t = threadIdx.x; t < 3 * hd; t += kThreads) {
+    for (int t = threadIdx.x; t < 3 * hd; t += kFmaThreads) {
       const int m = t / hd;            // 0: q, 1: k, 2: v
       const int j = t - m * hd;
       const int col = h * hd + j;
@@ -210,7 +211,7 @@ fused_window_attention_kernel(
 
     const float* bias_h =
         bias ? bias + static_cast<long>(bias_heads == 1 ? 0 : h) * L * L : nullptr;
-    for (int r = warp; r < L; r += kWarps) {
+    for (int r = warp; r < L; r += kFmaWarps) {
       float logit = -INFINITY;
       if (lane < L) {
         const float* qr = qh + r * hs;
@@ -244,7 +245,7 @@ fused_window_attention_kernel(
   // 3) output projection in f32 + bo, then the branch scale and residual
   T* ow = out + win * L * C;
   const float sc = scale ? scale[win] : 1.f;
-  for (int j = threadIdx.x; j < C; j += kThreads) {
+  for (int j = threadIdx.x; j < C; j += kFmaThreads) {
     float acc[MAXL];
     column_dot<T, MAXL>(att, lda, wo, C, j, L, acc);
 #pragma unroll
@@ -259,13 +260,20 @@ fused_window_attention_kernel(
   }
 }
 
+long fma_smem(int L, int C, int heads) {
+  const long lda = (C + 3) & ~3;
+  const long hs = (C / heads) | 1;
+  return static_cast<long>(sizeof(float)) * (3 * L * lda + 3 * L * hs);
+}
+
 template <typename T, int MAXL, bool LN>
-int launch(const FwdArgs& a, size_t smem, cudaStream_t stream) {
+int launch_fma(const FwdArgs& a, cudaStream_t stream) {
+  const long smem = fma_smem(a.tokens, a.channels, a.heads);
   auto kernel = fused_window_attention_kernel<T, MAXL, LN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<a.windows, kThreads, smem, stream>>>(
+  VPTR_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem)));
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  kernel<<<a.windows, kFmaThreads, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.xv), static_cast<const T*>(a.wq),
       static_cast<const float*>(a.bq), static_cast<const T*>(a.wk),
       static_cast<const float*>(a.bk), static_cast<const T*>(a.wv),
@@ -273,373 +281,355 @@ int launch(const FwdArgs& a, size_t smem, cudaStream_t stream) {
       static_cast<const float*>(a.bo), static_cast<const float*>(a.ls),
       static_cast<const float*>(a.lb), static_cast<const float*>(a.pos),
       static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
-      static_cast<T*>(a.out), a.L, a.C, a.heads, a.bias_heads, a.res, a.qscale, a.eps, a.drop,
-      a.mask_tokens);
+      static_cast<T*>(a.out), a.tokens, a.channels, a.heads, a.bias_heads, a.res, a.qscale,
+      a.eps, drop, a.mask_tokens);
   return cudaGetLastError();
-}
-
-template <typename T, bool LN>
-int launch_rows(const FwdArgs& a, size_t smem, cudaStream_t s) {
-  if (a.L <= 16) return launch<T, 16, LN>(a, smem, s);
-  return launch<T, 32, LN>(a, smem, s);
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16)
+// wgmma route: 3. the attention pass
 
-using bf16 = __nv_bfloat16;
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+constexpr int kAttnThreads = 256;
+constexpr int kAttnWarps = kAttnThreads / 32;
 
-constexpr int kTcWarps = 12;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcRows = 48;          // rows per block: three 16-row tiles
-constexpr int kStages = 4;           // weight-tile ring slots per warp
-constexpr long kSmemLimit = 232448;  // bytes a block may opt in to on sm_90
+// Row stride (elements) of the staged q, k, v rows: C, or C + 8 where C is
+// a multiple of 16, so that it is 4 words mod 8 and the eight rows of a
+// fragment load fall in eight different groups of four banks.
+__host__ __device__ __forceinline__ int attn_ld(int C) { return C % 16 ? C : C + 8; }
 
-long tc_smem(int C) {
-  return 4L * kTcRows * (C + 8) * sizeof(bf16)           // xn, xqk, q, k
-         + kTcWarps * kStages * 256L * sizeof(bf16);     // rings (= staging)
+// Shared memory of a window_fwd_kernel block: q, k, v of its window's rows.
+long attn_smem(int L, int C) {
+  return 3L * L * attn_ld(C) * static_cast<long>(sizeof(bf16));
 }
 
-long fma_smem(int L, int C, int heads) {
-  const long lda = (C + 3) & ~3;
-  const long hs = (C / heads) | 1;
-  return static_cast<long>(sizeof(float)) * (3 * L * lda + 3 * L * hs);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 
-bool use_tc(int L, int C, int dtype) {
-  return dtype == 1 && C % 16 == 0 && L <= 32 && tc_smem(C) <= kSmemLimit;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
-// Dynamic shared memory of the route (L, C, heads, dtype) takes.
-long window_smem(int L, int C, int heads, int dtype) {
-  return use_tc(L, C, dtype) ? tc_smem(C) : fma_smem(L, C, heads);
+// d (16 x 8, f32) += A (16 x 16) B (16 x 8), bf16 fragments as PTX lays
+// them out for m16n8k16: with g = lane / 4 and t = lane % 4, a[0..3] hold
+// A[g][2t..], A[g + 8][2t..], A[g][2t + 8..], A[g + 8][2t + 8..]; b[0..1]
+// B[2t..][g], B[2t + 8..][g] (two values each, the lower index in the low
+// half); d[0..1] D[g][2t..], d[2..3] D[g + 8][2t..].
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c_t = A[16t:16t+16, :] W[:, n0:n0+16] for the three row tiles t; A is
-// (48, C) bf16 in shared memory with row stride lda, W (C, C) row-major in
-// device memory. Each weight tile feeds three MMAs. The weight tiles come
-// from L2, hundreds of cycles away, so the warp streams them through its
-// own ring of kStages 16x16 tiles in shared memory with cp.async (16 bytes
-// per lane per tile), keeping kStages - 1 tiles in flight.
-__device__ __forceinline__ void tile_gemm(const bf16* A, int lda, const bf16* __restrict__ W,
-                                          int C, int n0, bf16* ring, int lane, Acc& c0,
-                                          Acc& c1, Acc& c2) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-  const int nk = C / 16;
-  const int row = lane >> 1;
-  const int half = (lane & 1) * 8;
-  auto fetch = [&](int kt) {
-    if (kt < nk)
-      __pipeline_memcpy_async(ring + (kt % kStages) * 256 + row * 16 + half,
-                              W + static_cast<long>(kt * 16 + row) * C + n0 + half, 16);
-    __pipeline_commit();
-  };
-  wmma::fill_fragment(c0, 0.f);
-  wmma::fill_fragment(c1, 0.f);
-  wmma::fill_fragment(c2, 0.f);
-  for (int kt = 0; kt < kStages - 1; ++kt) fetch(kt);
-  for (int kt = 0; kt < nk; ++kt) {
-    fetch(kt + kStages - 1);           // into the slot read at kt - 1
-    __pipeline_wait_prior(kStages - 1);
-    __syncwarp();
-    wmma::load_matrix_sync(b, ring + (kt % kStages) * 256, 16);
-    wmma::load_matrix_sync(a, A + kt * 16, lda);
-    wmma::mma_sync(c0, a, b, c0);
-    wmma::load_matrix_sync(a, A + 16 * lda + kt * 16, lda);
-    wmma::mma_sync(c1, a, b, c1);
-    wmma::load_matrix_sync(a, A + 32 * lda + kt * 16, lda);
-    wmma::mma_sync(c2, a, b, c2);
-    __syncwarp();
-  }
-  __pipeline_wait_prior(0);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Row tile t of the accumulators into the warp's f32 staging tile (the
-// ring's memory, free once tile_gemm returns).
-__device__ __forceinline__ void stage_tile(float* stage, int t, const Acc& c0, const Acc& c1,
-                                           const Acc& c2) {
-  using namespace nvcuda;
-  wmma::store_matrix_sync(stage, t == 0 ? c0 : (t == 1 ? c1 : c2), 16, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// dst[0:48, n0:n0+16] = bf16(bf16(acc + bias) * mul): the plain version's
-// rounding points.
-__device__ __forceinline__ void store_projection(float* stage, const Acc& c0, const Acc& c1,
-                                                 const Acc& c2, const float* __restrict__ bias,
-                                                 float mul, bf16* dst, int ld, int n0,
-                                                 int lane) {
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    stage_tile(stage, t, c0, c1, c2);
-    for (int e = lane; e < 256; e += 32) {
-      const int col = n0 + (e & 15);
-      float y = round_t<bf16>(stage[e] + bias[col]);
-      if (mul != 1.f) y *= mul;
-      dst[(t * 16 + (e >> 4)) * ld + col] = __float2bfloat16_rn(y);
-    }
-    __syncwarp();
-  }
-}
-
-// One warp attends one head of one window. P lanes share a query row
-// (P = 2 for L <= 16, 1 for L <= 32), each holding MAXC key columns of its
-// row's logits in registers: logits by f32 FMAs over the head width,
-// softmax with one shuffle between the P lanes, then the lanes of a row
-// split the head width for the weighted sum of v.
-template <int P, int MAXC>
-__device__ __forceinline__ void head_attention(const bf16* qb, const bf16* kb, const bf16* vb,
-                                               bf16* ob, int ld, int L, int hd, int c0l,
-                                               int wrow0, const float* bias_h, int lane,
-                                               const vptr_dropout::Params& drop,
-                                               uint32_t seed, uint32_t win, int heads,
-                                               int h, int lp) {
-  const int i = lane / P;              // query row
-  const int part = lane % P;
-  const int cpl = (L + P - 1) / P;     // key columns per lane
-  const bool active = i < L;
-  float lg[MAXC];
-#pragma unroll
-  for (int jj = 0; jj < MAXC; ++jj) lg[jj] = 0.f;
-  if (active) {
-    const bf16* qr = qb + (wrow0 + i) * ld + c0l;
-    const bf16* kr = kb + (wrow0 + part * cpl) * ld + c0l;
-    for (int d = 0; d < hd; ++d) {
-      const float qd = __bfloat162float(qr[d]);
-#pragma unroll
-      for (int jj = 0; jj < MAXC; ++jj)
-        if (jj < cpl && part * cpl + jj < L)
-          lg[jj] = fmaf(qd, __bfloat162float(kr[jj * ld + d]), lg[jj]);
-    }
-  }
-  float m = -INFINITY;
-#pragma unroll
-  for (int jj = 0; jj < MAXC; ++jj) {
-    const int j = part * cpl + jj;
-    if (active && jj < cpl && j < L) {
-      if (bias_h) lg[jj] += bias_h[i * L + j];
-      m = fmaxf(m, lg[jj]);
-    }
-  }
-  if (P == 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  float s = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < MAXC; ++jj) {
-    const bool ok = active && jj < cpl && part * cpl + jj < L;
-    lg[jj] = ok ? expf(lg[jj] - m) : 0.f;
-    s += lg[jj];
-  }
-  if (P == 2) s += __shfl_xor_sync(0xffffffffu, s, 1);
-  float wp[MAXC];                      // the other lane's weights (P == 2)
-#pragma unroll
-  for (int jj = 0; jj < MAXC; ++jj) {
-    float w = lg[jj] / s;
-    const int j = part * cpl + jj;
-    if (drop.active() && active && jj < cpl && j < L)
-      w = drop.apply(w, drop.keep(vptr_dropout::element_index(win, heads, h, lp, i, lp, j),
-                                  seed));
-    lg[jj] = active ? round_t<bf16>(w) : 0.f;
-    wp[jj] = P == 2 ? __shfl_xor_sync(0xffffffffu, lg[jj], 1) : 0.f;
-  }
-  if (!active) return;
-  const int dh = (hd + P - 1) / P;
-  const int dhi = min(hd, (part + 1) * dh);
-  for (int d = part * dh; d < dhi; ++d) {
-    float acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-#pragma unroll
-      for (int jj = 0; jj < MAXC; ++jj) {
-        const int c = q * cpl + jj;
-        if (jj < cpl && c < L) {
-          const float wc = (P == 1 || q == part) ? lg[jj] : wp[jj];
-          acc = fmaf(wc, __bfloat162float(vb[(wrow0 + c) * ld + c0l + d]), acc);
-        }
-      }
-    }
-    ob[(wrow0 + i) * ld + c0l + d] = __float2bfloat16_rn(acc);
-  }
-}
-
-template <bool LN>
-__global__ void __launch_bounds__(kTcThreads)
-fused_window_attention_tc_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ xv, const bf16* __restrict__ wq,
-    const float* __restrict__ bq, const bf16* __restrict__ wk, const float* __restrict__ bk,
-    const bf16* __restrict__ wv, const float* __restrict__ bv, const bf16* __restrict__ wo,
-    const float* __restrict__ bo, const float* __restrict__ ls, const float* __restrict__ lb,
-    const float* __restrict__ pos, const float* __restrict__ bias,
-    const float* __restrict__ scale, bf16* __restrict__ out, int windows, int L, int C,
-    int heads, int bias_heads, int res, float qscale, float eps, vptr_dropout::Params drop,
-    int mask_tokens) {
-  // wmma needs 256-bit aligned tiles: every buffer below is a multiple of
-  // 512 bytes long and every tile offset a multiple of 32 bytes
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  const int ld = C + 8;                // row stride: a multiple of 8 elements
-  bf16* xn = reinterpret_cast<bf16*>(smem_tc);  // [48][ld] LN(x)*ls+lb or x_v, then heads
-  bf16* xqk = xn + kTcRows * ld;       // [48][ld] xn + pos or x_qk, then v
-  bf16* qb = xqk + kTcRows * ld;       // [48][ld] q * hd^-1/2
-  bf16* kb = qb + kTcRows * ld;        // [48][ld] k
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  bf16* ring = kb + kTcRows * ld + warp * kStages * 256;
-  float* stage = reinterpret_cast<float*>(ring);
-
-  const int wpb = kTcRows / L;         // whole windows per block
-  const long win0 = static_cast<long>(blockIdx.x) * wpb;
-  const int nwin = windows - win0 < wpb ? static_cast<int>(windows - win0) : wpb;
-  const int rows = nwin * L;
-  const bf16* xb = x + win0 * L * C;
-
-  if constexpr (LN) {
-    // 1) LayerNorm, one warp per row, f32 statistics; padding rows are zero
-    for (int r = warp; r < kTcRows; r += kTcWarps) {
-      if (r < rows) {
-        const bf16* xr = xb + static_cast<long>(r) * C;
-        const float* pr = pos ? pos + static_cast<long>(r % L) * C : nullptr;
-        float s = 0.f;
-        for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
-        const float mean = warp_sum(s) / C;
-        float ss = 0.f;
-        for (int c = lane; c < C; c += 32) {
-          const float d = __bfloat162float(xr[c]) - mean;
-          ss = fmaf(d, d, ss);
-        }
-        const float rstd = rsqrtf(warp_sum(ss) / C + eps);
-        for (int c = lane; c < C; c += 32) {
-          const bf16 n = __float2bfloat16_rn(
-              (__bfloat162float(xr[c]) - mean) * rstd * ls[c] + lb[c]);
-          xn[r * ld + c] = n;
-          xqk[r * ld + c] = pr ? __float2bfloat16_rn(__bfloat162float(n) +
-                                                     round_t<bf16>(pr[c]))
-                               : n;
-        }
-      } else {
-        for (int c = lane; c < C; c += 32) {
-          xn[r * ld + c] = __float2bfloat16_rn(0.f);
-          xqk[r * ld + c] = __float2bfloat16_rn(0.f);
-        }
-      }
-    }
+// Elements d and d + 1 of row p (zero past the head width hd, or when the
+// row is not there): one 4-byte load where hd is even (PAIRS: a pair never
+// straddles a head), two 2-byte loads otherwise.
+template <bool PAIRS>
+__device__ __forceinline__ uint32_t load_pair(const bf16* p, int d, int hd, bool row) {
+  if constexpr (PAIRS) {
+    return row && d < hd ? *reinterpret_cast<const uint32_t*>(p + d) : 0u;
   } else {
-    // 1) the two input streams as they are, 8 bf16 (16 bytes) per copy;
-    //    padding rows are zero
-    const bf16* xvb = xv + win0 * L * C;
-    const int vecs = C / 8;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < kTcRows * vecs; i += kTcThreads) {
-      const int r = i / vecs, c = (i - r * vecs) * 8;
-      const long o = static_cast<long>(r) * C + c;
-      const bool in = r < rows;
-      *reinterpret_cast<uint4*>(xqk + r * ld + c) =
-          in ? *reinterpret_cast<const uint4*>(xb + o) : zero;
-      *reinterpret_cast<uint4*>(xn + r * ld + c) =
-          in ? *reinterpret_cast<const uint4*>(xvb + o) : zero;
+    const uint32_t lo = row && d < hd ? *reinterpret_cast<const uint16_t*>(p + d) : 0u;
+    const uint32_t hi = row && d + 1 < hd ? *reinterpret_cast<const uint16_t*>(p + d + 1) : 0u;
+    return lo | hi << 16;
+  }
+}
+
+// A block stages the q, k, v rows of one window (two windows a block read
+// slower at L = 10 on an H100); warp w takes the heads w, w + 8, ... MT:
+// 16-row query tiles (1 for L <= 16, 2 for L <= 32), so the logits are
+// MT x 2 MT tiles of 16 x 8 and P v runs over MT 16-key steps.
+template <int MT, bool PAIRS>
+__global__ void __launch_bounds__(kAttnThreads, MT == 1 ? 4 : 3)
+window_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ bias,
+                  bf16* __restrict__ out, int L, int C, int heads, int bias_heads,
+                  int mask_tokens, vptr_dropout::Params drop) {
+  constexpr int NT = 2 * MT;
+  extern __shared__ __align__(16) unsigned char smem_attn[];
+  const int ld = attn_ld(C);
+  bf16* qs = reinterpret_cast<bf16*>(smem_attn);  // [L][ld] q, then the merged heads
+  bf16* ks = qs + L * ld;                         // [L][ld]
+  bf16* vs = ks + L * ld;                         // [L][ld]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = C / 8;                        // 16-byte chunks a row
+  const uint32_t win = blockIdx.x;
+  const long base = static_cast<long>(win) * L * C;
+  for (int r = warp; r < L; r += kAttnWarps)
+    for (int c = lane; c < chunks; c += 32) {
+      const long o = base + static_cast<long>(r) * C + 8 * c;
+      cp_async16(qs + r * ld + 8 * c, q + o);
+      cp_async16(ks + r * ld + 8 * c, k + o);
+      cp_async16(vs + r * ld + 8 * c, v + o);
     }
-  }
+  cp_async_wait_all();
   __syncthreads();
 
-  // 2) q and k from xqk (2 C/16 column tiles shared by the warps), then v
-  //    from xn into xqk's place
-  const int nt = C / 16;
-  Acc c0, c1, c2;
-  for (int t = warp; t < 2 * nt; t += kTcWarps) {
-    const int is_k = t >= nt;
-    const int n0 = (t - is_k * nt) * 16;
-    tile_gemm(xqk, ld, is_k ? wk : wq, C, n0, ring, lane, c0, c1, c2);
-    store_projection(stage, c0, c1, c2, is_k ? bk : bq, is_k ? 1.f : qscale,
-                     is_k ? kb : qb, ld, n0, lane);
-  }
-  __syncthreads();
-  bf16* vb = xqk;
-  for (int t = warp; t < nt; t += kTcWarps) {
-    tile_gemm(xn, ld, wv, C, t * 16, ring, lane, c0, c1, c2);
-    store_projection(stage, c0, c1, c2, bv, 1.f, vb, ld, t * 16, lane);
-  }
-  __syncthreads();
-
-  // 3) attention: one warp per (window, head); merged heads go to xn (its
-  //    padding rows stay zero)
   const int hd = C / heads;
+  const int g = lane >> 2, t = lane & 3;
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
-  for (int task = warp; task < nwin * heads; task += kTcWarps) {
-    const int h = task % heads;
-    const int w = task / heads;
+  for (int h = warp; h < heads; h += kAttnWarps) {
+    bf16* qh = qs + h * hd;                        // the head's columns
+    const bf16* kh = ks + h * hd;
+    const bf16* vh = vs + h * hd;
+
+    // logits s[mt][nt]: query rows 16 mt + g (+ 8), keys 8 nt + 2t (+ 1)
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+    for (int k0 = 0; k0 < hd; k0 += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int i0 = 16 * mt + g, i1 = i0 + 8;
+        a[mt][0] = load_pair<PAIRS>(qh + i0 * ld, k0 + 2 * t, hd, i0 < L);
+        a[mt][1] = load_pair<PAIRS>(qh + i1 * ld, k0 + 2 * t, hd, i1 < L);
+        a[mt][2] = load_pair<PAIRS>(qh + i0 * ld, k0 + 2 * t + 8, hd, i0 < L);
+        a[mt][3] = load_pair<PAIRS>(qh + i1 * ld, k0 + 2 * t + 8, hd, i1 < L);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (8 * nt >= L) break;                    // warp-uniform
+        const int j = 8 * nt + g;
+        const uint32_t b0 = load_pair<PAIRS>(kh + j * ld, k0 + 2 * t, hd, j < L);
+        const uint32_t b1 = load_pair<PAIRS>(kh + j * ld, k0 + 2 * t + 8, hd, j < L);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_16816(s[mt][nt], a[mt], b0, b1);
+      }
+    }
+    __syncwarp();                                  // q is read: its columns take the output
+
+    // softmax over each row (the four lanes of a quad hold it), dropout,
+    // the weights rounded to bf16 as P's A fragments: logit tiles 2 ks and
+    // 2 ks + 1 are P's 16-key step ks
     const float* bias_h =
         bias ? bias + static_cast<long>(bias_heads == 1 ? 0 : h) * L * L : nullptr;
-    const uint32_t wg = static_cast<uint32_t>(win0 + w);
-    if (L <= 16)
-      head_attention<2, 8>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane, drop,
-                           seed, wg, heads, h, mask_tokens);
-    else
-      head_attention<1, 32>(qb, kb, vb, xn, ld, L, hd, h * hd, w * L, bias_h, lane, drop,
-                            seed, wg, heads, h, mask_tokens);
-  }
-  __syncthreads();
-
-  // 4) output projection in f32 + bo, then the branch scale and residual
-  bf16* ob = out + win0 * L * C;
-  for (int t = warp; t < nt; t += kTcWarps) {
-    const int n0 = t * 16;
-    tile_gemm(xn, ld, wo, C, n0, ring, lane, c0, c1, c2);
+    uint32_t p[MT][MT][4];
 #pragma unroll
-    for (int rt = 0; rt < 3; ++rt) {
-      stage_tile(stage, rt, c0, c1, c2);
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + (e >> 4);
-        if (r < rows) {
-          const int col = n0 + (e & 15);
-          float y = stage[e] + bo[col];
-          if (scale) y *= scale[win0 + r / L];
-          if (res) y += __bfloat162float(xb[static_cast<long>(r) * C + col]);
-          ob[static_cast<long>(r) * C + col] = __float2bfloat16_rn(y);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 16 * mt + g + 8 * hh;
+        float m = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * nt + 2 * t + e;
+            float x = -INFINITY;
+            if (i < L && j < L) {
+              x = s[mt][nt][2 * hh + e];
+              if (bias_h) x += bias_h[i * L + j];
+            }
+            s[mt][nt][2 * hh + e] = x;
+            m = fmaxf(m, x);
+          }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * nt + 2 * t + e;
+            const float x = i < L && j < L ? expf(s[mt][nt][2 * hh + e] - m) : 0.f;
+            s[mt][nt][2 * hh + e] = x;
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const uint32_t row_idx = vptr_dropout::element_index(
+            win, heads, h, mask_tokens, i, mask_tokens, 0);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float wv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * nt + 2 * t + e;
+            float x = 0.f;                         // rows and keys past L: weight 0
+            if (i < L && j < L) {
+              x = s[mt][nt][2 * hh + e] / sum;
+              if (drop.active()) x = drop.apply(x, drop.keep(row_idx + j, seed));
+            }
+            wv[e] = x;
+          }
+          p[mt][nt >> 1][2 * (nt & 1) + hh] = pack_bf16(wv[0], wv[1]);
         }
       }
-      __syncwarp();
+
+    // P v, eight columns of the head at a time, into the head's q columns
+    for (int n0 = 0; n0 < hd; n0 += 8) {
+      float o[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+      const int d = n0 + g;
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        uint32_t b[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 16 * kk + 8 * half + 2 * t;
+          const uint32_t lo =
+              j < L && d < hd ? *reinterpret_cast<const uint16_t*>(vh + j * ld + d) : 0u;
+          const uint32_t hi =
+              j + 1 < L && d < hd ? *reinterpret_cast<const uint16_t*>(vh + (j + 1) * ld + d)
+                                  : 0u;
+          b[half] = lo | hi << 16;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_16816(o[mt], p[mt][kk], b[0], b[1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 16 * mt + g + 8 * hh, c = n0 + 2 * t;
+          if (i >= L) continue;
+          if constexpr (PAIRS) {
+            if (c < hd)
+              *reinterpret_cast<__nv_bfloat162*>(qh + i * ld + c) =
+                  __floats2bfloat162_rn(o[mt][2 * hh], o[mt][2 * hh + 1]);
+          } else {
+            if (c < hd) qh[i * ld + c] = __float2bfloat16_rn(o[mt][2 * hh]);
+            if (c + 1 < hd) qh[i * ld + c + 1] = __float2bfloat16_rn(o[mt][2 * hh + 1]);
+          }
+        }
     }
   }
+  __syncthreads();
+  for (int r = warp; r < L; r += kAttnWarps)
+    for (int c = lane; c < chunks; c += 32)
+      *reinterpret_cast<uint4*>(out + base + static_cast<long>(r) * C + 8 * c) =
+          *reinterpret_cast<const uint4*>(qs + r * ld + 8 * c);
 }
 
-template <bool LN>
-int launch_tc(const FwdArgs& a, cudaStream_t stream) {
-  const long smem = tc_smem(a.C);
-  auto kernel = fused_window_attention_tc_kernel<LN>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int wpb = kTcRows / a.L;
-  const int blocks = (a.windows + wpb - 1) / wpb;
-  kernel<<<blocks, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.xv),
-      static_cast<const bf16*>(a.wq), static_cast<const float*>(a.bq),
-      static_cast<const bf16*>(a.wk), static_cast<const float*>(a.bk),
-      static_cast<const bf16*>(a.wv), static_cast<const float*>(a.bv),
-      static_cast<const bf16*>(a.wo), static_cast<const float*>(a.bo),
-      static_cast<const float*>(a.ls), static_cast<const float*>(a.lb),
-      static_cast<const float*>(a.pos), static_cast<const float*>(a.bias),
-      static_cast<const float*>(a.scale), static_cast<bf16*>(a.out), a.windows, a.L, a.C,
-      a.heads, a.bias_heads, a.res, a.qscale, a.eps, a.drop, a.mask_tokens);
+// The attention pass over q, k, v (R x C bf16, q already scaled) into attn.
+int launch_attention(const void* q, const void* k, const void* v, const void* bias, void* attn,
+                     int windows, int L, int C, int heads, int bias_heads, int mask_tokens,
+                     const vptr_dropout::Params& drop, cudaStream_t s) {
+  const long smem = attn_smem(L, C);
+  const bool pairs = (C / heads) % 2 == 0;
+  auto kernel = &window_fwd_kernel<1, true>;
+  if (L > 16)
+    kernel = pairs ? &window_fwd_kernel<2, true> : &window_fwd_kernel<2, false>;
+  else if (!pairs)
+    kernel = &window_fwd_kernel<1, false>;
+  VPTR_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem)));
+  kernel<<<windows, kAttnThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(attn), L, C, heads, bias_heads,
+      mask_tokens, drop);
   return cudaGetLastError();
 }
 
-// Checks the shape and the dropout arguments, then launches the route the
-// shape takes (dtype: 0 = float32, 1 = bfloat16). Returns a cudaError_t.
+// ---------------------------------------------------------------------------
+// wgmma route: 2. and 4., the products
+
+// 4. out = (a Wo + bo) * scale[row / L] (+ res), rounded once to bf16.
+int out_projection(const void* a, const void* wo, const void* bo, const void* scale,
+                   const void* res, void* out, int rows, int L, int C, cudaStream_t s) {
+  RwMaps m;
+  RwWork w{};
+  if (int err = rw_amap(&m.a[0][0], a, rows, C, C)) return err;
+  if (int err = rw_bmap(&m.b[0], wo, C, C, C, true)) return err;
+  w.job[0] = {out, static_cast<const float*>(bo), 1.f, static_cast<const float*>(scale), C};
+  w.job[kRwJobs - 1].out = const_cast<void*>(res);
+  w.jobs = 1, w.rows = rows, w.cols = C, w.group = L;
+  return launch_rows<1, true, kRwOutProj>(m, w, s);
+}
+
+// Shapes and the route: wgmma for bf16 with C a multiple of 8 whose
+// attention pass fits a block's shared memory; the FMA kernel otherwise.
+bool use_wg(int L, int C, int dtype) {
+  return dtype == 1 && C % 8 == 0 && attn_smem(L, C) <= kSmemLimit;
+}
+
+// Dynamic shared memory of the route (L, C, heads, dtype) takes: the
+// attention pass's on the wgmma route.
+long window_smem(int L, int C, int heads, int dtype) {
+  return use_wg(L, C, dtype) ? attn_smem(L, C) : fma_smem(L, C, heads);
+}
+
 template <bool LN>
-int launch_window_attention(const FwdArgs& a, int dtype, cudaStream_t s) {
-  if (a.windows < 1 || a.L < 1 || a.L > kMaxTokens || a.heads < 1 || a.C % a.heads != 0 ||
-      a.C / a.heads > kMaxHeadDim ||
-      (a.bias && a.bias_heads != 1 && a.bias_heads != a.heads) || dtype < 0 || dtype > 1 ||
-      window_smem(a.L, a.C, a.heads, dtype) > kSmemLimit ||
-      (a.drop.rate > 0.f && !a.drop.seed) || a.drop.rate >= 1.f || a.mask_tokens < a.L ||
-      (!LN && !a.xv))
+int run_wg(const FwdArgs& a, cudaStream_t s) {
+  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  // the projections' inputs: xn, xqk (xn without pos) or the two streams
+  const void* xqk = LN ? (a.pos ? a.xqk : a.xn) : a.x;
+  const void* xv = LN ? a.xn : a.xv;
+
+  // 1. LayerNorm rows
+  if constexpr (LN) {
+    ln_rows_kernel<bf16><<<(R + 7) / 8, 256, 0, s>>>(
+        static_cast<const bf16*>(a.x), static_cast<const float*>(a.ls),
+        static_cast<const float*>(a.lb), static_cast<const float*>(a.pos),
+        static_cast<float*>(a.mean), static_cast<float*>(a.rstd), static_cast<bf16*>(a.xn),
+        a.pos ? static_cast<bf16*>(a.xqk) : nullptr, R, L, C, a.eps);
+    VPTR_TRY(cudaGetLastError());
+  }
+
+  // 2. q, k, v: one launch of three products
+  RwMaps m;
+  RwWork w{};
+  const void* xs[3] = {xqk, xqk, xv};
+  const void* ws[3] = {a.wq, a.wk, a.wv};
+  void* outs[3] = {a.q, a.k, a.v};
+  const void* bs[3] = {a.bq, a.bk, a.bv};
+  for (int j = 0; j < 3; ++j) {
+    if (int err = rw_amap(&m.a[j][0], xs[j], R, C, C)) return err;
+    if (int err = rw_bmap(&m.b[j], ws[j], C, C, C, true)) return err;
+    w.job[j] = {outs[j], static_cast<const float*>(bs[j]), j == 0 ? a.qscale : 1.f, nullptr,
+                C};
+  }
+  w.jobs = 3, w.rows = R, w.cols = C, w.group = L;
+  if (int err = launch_rows<1, true, kRwProj>(m, w, s)) return err;
+
+  // 3. attention per (window, head)
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  if (int err = launch_attention(a.q, a.k, a.v, a.bias, a.attn, a.windows, L, C, a.heads,
+                                 a.bias_heads, a.mask_tokens, drop, s))
+    return err;
+
+  // 4. the out projection, + bo, * scale, + x
+  return out_projection(a.attn, a.wo, a.bo, a.scale, a.res ? a.x : nullptr, a.out, R, L, C, s);
+}
+
+// Checks the arguments, then runs the route the shape takes (dtype 0 =
+// float32, 1 = bfloat16). Returns a cudaError_t (0 = every pass launched),
+// or kTmaEncodeError + a CUresult.
+template <bool LN>
+int run_forward(const FwdArgs* a, cudaStream_t s) {
+  if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
+      a->channels % a->heads != 0 || a->channels / a->heads > kMaxHeadDim ||
+      (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) || a->dtype < 0 ||
+      a->dtype > 1 || window_smem(a->tokens, a->channels, a->heads, a->dtype) > kSmemLimit ||
+      (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
+      (!LN && (!a->xv || a->res || a->scale)))
     return cudaErrorInvalidValue;
-  if (use_tc(a.L, a.C, dtype)) return launch_tc<LN>(a, s);
-  const size_t smem = fma_smem(a.L, a.C, a.heads);
-  return dtype == 0 ? launch_rows<float, LN>(a, smem, s)
-                    : launch_rows<__nv_bfloat16, LN>(a, smem, s);
+  if (use_wg(a->tokens, a->channels, a->dtype)) {
+    if (!a->q || !a->k || !a->v || !a->attn ||
+        (LN && (!a->mean || !a->rstd || !a->xn || (a->pos && !a->xqk))))
+      return cudaErrorInvalidValue;
+    return run_wg<LN>(*a, s);
+  }
+  if (a->dtype == 0)
+    return a->tokens <= 16 ? launch_fma<float, 16, LN>(*a, s) : launch_fma<float, 32, LN>(*a, s);
+  return a->tokens <= 16 ? launch_fma<bf16, 16, LN>(*a, s) : launch_fma<bf16, 32, LN>(*a, s);
 }
 
 }  // namespace

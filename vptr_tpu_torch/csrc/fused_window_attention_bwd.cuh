@@ -79,8 +79,6 @@
 //   cores over dq, dk, dv in f32.
 #pragma once
 
-#include <cstdio>
-
 #include "hash_dropout.cuh"
 #include "tile_ops.cuh"
 #include "wg_dw.cuh"
@@ -682,17 +680,6 @@ int run_backward(const BwdArgs* a, cudaStream_t s) {
       (!LN && (!a->xv || !a->dxv || a->res || a->scale)))
     return cudaErrorInvalidValue;
   return a->dtype == 0 ? run<float, LN>(*a, s) : run<bf16, LN>(*a, s);
-}
-
-// The error text of a cudaError_t or of kTmaEncodeError + a CUresult.
-const char* error_string(int err) {
-  if (err >= kTmaEncodeError) {
-    static char msg[96];
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
-             err - kTmaEncodeError);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // The row-tiled product on Hopper's warpgroup MMA (sm_90a) of the bf16
-// window-attention backwards (fused_window_attention_bwd.cuh, kernels #3
-// and #6): out (R, N) = sum over the T terms of A_t (R, K) B (K, N), with an
-// epilogue, for up to kRwJobs products of one launch (the projections q, k,
-// v are three). A_t is K-major as it lies in memory (rows of K, any row
+// window-attention passes (fused_window_attention.cuh, the forwards #1 and
+// #5; fused_window_attention_bwd.cuh, the backwards #3 and #6): out (R, N)
+// = sum over the T terms of A_t (R, K) B (K, N), with an epilogue, for up
+// to kRwJobs products of one launch (the projections q, k, v are three).
+// A_t is K-major as it lies in memory (rows of K, any row
 // stride: the hi and lo halves of dq | dk | dv are columns of one plane);
 // B is either MN-major (BMN: W (K, N) as stored, N contiguous, the
 // product's transpose flag) or given as B^T (N, K), K-major as stored.
@@ -18,6 +19,8 @@
 // R, K past the depth and columns past N read zero and are never stored.
 #pragma once
 
+#include <cstdio>
+
 #include "conv_ln_wg.cuh"
 
 namespace {
@@ -32,14 +35,19 @@ constexpr int kRwThreads = kRwWarps * 32 + 32;  // and the feeder
 constexpr int kRwJobs = 3;
 
 // kRwProj: round(acc + bias[col]) * mul, rounded, in bf16 (the projections);
-// kRwF32: acc (* rowscale[row / group]) in f32; kRwBf16: acc in bf16.
-enum RwEpi { kRwProj = 0, kRwF32 = 1, kRwBf16 = 2 };
+// kRwF32: acc (* rowscale[row / group]) in f32; kRwBf16: acc in bf16;
+// kRwOutProj: acc + bias[col], * rowscale[row / group] when given, + the
+// residual res[row][col] when given, rounded once to bf16 (the forwards'
+// out projection). A kRwOutProj launch runs one job; its residual (R, N) bf16,
+// or null, is the out of the spare last job (job[kRwJobs - 1]), so the
+// parameter layout is that of every other launch.
+enum RwEpi { kRwProj = 0, kRwF32 = 1, kRwBf16 = 2, kRwOutProj = 3 };
 
 struct RwJob {
   void* out;                 // (R, N), row-major
-  const float* bias;         // kRwProj
+  const float* bias;         // kRwProj, kRwOutProj
   float mul;                 // kRwProj
-  const float* rowscale;     // kRwF32, or null
+  const float* rowscale;     // kRwF32, kRwOutProj, or null
   int depth;                 // K
 };
 
@@ -173,6 +181,33 @@ wg_rows_kernel(const __grid_constant__ RwMaps maps, const RwWork w, int stages) 
                 make_float2(acc[4 * i + 2 * h] * sc, acc[4 * i + 2 * h + 1] * sc);
       }
     } else {
+      if constexpr (EPI == kRwOutProj) {
+        const __nv_bfloat162* res = static_cast<const __nv_bfloat162*>(w.job[kRwJobs - 1].out);
+        float sc[2];
+        bool in[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          in[h] = r0 + 8 * h < w.rows;
+          sc[h] = in[h] && jb.rowscale ? jb.rowscale[(r0 + 8 * h) / w.group] : 1.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kWgN / 8; ++i) {
+          const int col = cb + 8 * i;
+          if (col >= w.cols) continue;
+          const float2 b = *reinterpret_cast<const float2*>(jb.bias + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float y0 = (acc[4 * i + 2 * h] + b.x) * sc[h];
+            float y1 = (acc[4 * i + 2 * h + 1] + b.y) * sc[h];
+            if (res && in[h]) {
+              const float2 x =
+                  __bfloat1622float2(res[(static_cast<long>(r0 + 8 * h) * w.cols + col) / 2]);
+              y0 += x.x, y1 += x.y;
+            }
+            acc[4 * i + 2 * h] = y0, acc[4 * i + 2 * h + 1] = y1;
+          }
+        }
+      }
       if constexpr (EPI == kRwProj) {
 #pragma unroll
         for (int i = 0; i < kWgN / 8; ++i) {
@@ -258,6 +293,17 @@ int launch_rows(const RwMaps& maps, RwWork w, cudaStream_t s) {
                                 static_cast<int>(smem)));
   kernel<<<units < sms ? units : sms, kRwThreads, smem, s>>>(maps, w, rw_stages(T));
   return cudaGetLastError();
+}
+
+// The error text of a cudaError_t or of kTmaEncodeError + a CUresult.
+const char* error_string(int err) {
+  if (err >= kTmaEncodeError) {
+    static char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kTmaEncodeError);
+    return msg;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace

@@ -20,16 +20,21 @@ The kernels are CUDA C++ for sm_90a; #1/#5 share
 ``csrc/fused_window_attention.cuh`` and #3/#6
 ``csrc/fused_window_attention_bwd.cuh`` (a template flag folds the LN in),
 whose notes say what bounds each on the card and what the design does
-about that. The backward's bf16 route runs its products on ``wgmma``
+about that. Both directions' bf16 routes run their products on ``wgmma``
 (``csrc/wg_rows.cuh``, ``csrc/wg_dw.cuh``) when C is a multiple of 8, and
-other shapes on FMAs; :func:`backward_route` names the route.
+other shapes on FMAs; :func:`kernel_route` and :func:`backward_route` name
+the route. The forward's bf16 route is four passes (LayerNorm rows; q, k,
+v; the attention per (window, head) on ``mma.sync``; the out projection
+with + bo, * scale, + x in its epilogue) over scratch the wrapper
+allocates and frees when the call returns.
 
 * The wrappers are ``torch.autograd.Function``s: for CUDA tensors they
   launch the kernels (or raise), for CPU tensors they take the plain
   versions (``*_plain`` forward, ``*_backward_plain`` backward).
-* ``fused_attention_ln.launches`` / ``.bwd_launches`` count launches of #1
-  and #3 by either LN wrapper, ``fused_attention.launches`` /
-  ``.bwd_launches`` of #5 and #6, and nothing else.
+* ``fused_attention_ln.launches`` / ``.bwd_launches`` count calls of #1
+  and #3 by either LN wrapper (one a call, however many passes it runs),
+  ``fused_attention.launches`` / ``.bwd_launches`` of #5 and #6, and
+  nothing else.
 * Weights are (C_in, C_out) like the JAX Dense kernels, in the compute
   dtype; biases, the LN affine, ``pos`` and ``scale`` are f32. Gradients
   come back in each operand's dtype; ``pos`` (a sine table) and ``scale``
@@ -449,10 +454,12 @@ SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 
 
 def kernel_route(tokens: int, channels: int, dtype: torch.dtype) -> str:
-    """Which of the forward kernel's two routes a shape takes: ``"tensor
-    cores"`` (bf16 WMMA projections) or ``"fma"`` (f32 FMAs on the CUDA
-    cores)."""
-    return ("tensor cores" if _lib().vptr_fused_window_attention_ln_route(
+    """Which route the forward kernels (#1, #5) take: ``"wgmma"`` (bf16, C
+    a multiple of 8, any number of windows: LayerNorm rows, q/k/v and the
+    out projection on the warpgroup MMA fed by TMA, the attention per
+    (window, head) on ``mma.sync``) or ``"fma"`` (f32 FMAs on the CUDA
+    cores). Chosen from the shape before any launch."""
+    return ("wgmma" if _lib().vptr_fused_window_attention_ln_route(
         tokens, channels, _DTYPES[dtype]) else "fma")
 
 
@@ -497,6 +504,63 @@ def rows_product(a, b, a_lo=None, b_mn: bool = True) -> torch.Tensor:
     return out
 
 
+def attention_pass(q, k, v, bias=None, seed: Seed = 0, num_heads: int = 8,
+                   dropout_rate: float = 0.0) -> torch.Tensor:
+    """The forward's attention pass on its own: q, k, v (B, L, C) bf16 on
+    the card (q already scaled and rounded), C a multiple of 8; ``bias``
+    (1 | heads, L, L) or None; returns the merged heads (B, L, C) bf16,
+    ``dropout(softmax(q_h k_h^T + bias_h)) v_h`` with the kernels' rounding
+    points (the weights rounded after dropout). Not counted in any launch
+    count."""
+    bw, l, c = q.shape if q.dim() == 3 else (0, 0, 0)
+    if (q.dim() != 3 or not q.is_cuda or c % 8
+            or any(t.shape != q.shape or t.dtype != torch.bfloat16 or t.device != q.device
+                   or not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(f"attention_pass takes q, k, v of one (B, L, C) bf16 shape on "
+                         f"the card, C a multiple of 8, got {tuple(q.shape)} {q.dtype}")
+    bias_t, bias_heads = None, 0
+    if bias is not None:
+        bias_t = bias.to(device=q.device, dtype=torch.float32).contiguous()
+        bias_heads = bias_t.shape[0]
+    rate = float(dropout_rate)
+    seed_t = seed_tensor(seed, q.device) if rate > 0.0 else None
+    out = torch.empty_like(q)
+    lib, p = _lib(), _build.ptr
+    err = lib.vptr_window_attention_pass(
+        p(q), p(k), p(v), p(bias_t), p(out), bw, l, c, num_heads, bias_heads,
+        *_dropout_args(seed_t, rate), padded_tokens(l, q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "attention_pass")
+    return out
+
+
+def out_projection(a, wo, bo, tokens: int, scale=None, res=None) -> torch.Tensor:
+    """The forward's out projection on its own: ``(a @ wo + bo) *
+    scale[row // tokens] (+ res)`` in f32, rounded once to bf16, on the
+    ``wgmma`` row-tiled product; a, res (R, C) and wo (C, C) bf16, bo (C,)
+    and scale (R // tokens,) f32, on the card, C a multiple of 8. Not
+    counted in any launch count."""
+    rows, c = a.shape if a.dim() == 2 else (0, 0)
+    bf = torch.bfloat16
+    if (a.dim() != 2 or not a.is_cuda or rows < 1 or c % 8 or c < 8
+            or tuple(wo.shape) != (c, c) or tuple(bo.shape) != (c,)
+            or (res is not None and res.shape != a.shape)
+            or (scale is not None and tuple(scale.shape) != (-(-rows // tokens),))
+            or any(t.dtype != dt or t.device != a.device or not t.is_contiguous()
+                   or t.data_ptr() % 16
+                   for t, dt in ((a, bf), (wo, bf), (bo, torch.float32), (res, bf),
+                                 (scale, torch.float32)) if t is not None)):
+        raise ValueError(f"out_projection takes a (R, C), wo (C, C) bf16, bo (C,) f32 on "
+                         f"the card, C a multiple of 8, got {tuple(a.shape)} {a.dtype}")
+    out = torch.empty_like(a)
+    lib, p = _lib(), _build.ptr
+    err = lib.vptr_window_out_projection(
+        p(a), p(wo), p(bo), p(scale), p(res), p(out), rows, tokens, c,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "out_projection")
+    return out
+
+
 def weight_products(xs, his, los):
     """x_j^T (hi_j + lo_j) in f32 for the four j on the backward's weight
     product (``wgmma``, both operands MN-major as they lie in memory, the
@@ -528,9 +592,9 @@ def weight_products(xs, his, los):
 
 def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
               num_heads, x_v=None):
-    """Check every operand against what the kernels take (``x_v`` given:
-    the two-stream kernels, which read x and x_v in 16-byte pieces);
-    returns (bias f32 contiguous or None, bias_heads)."""
+    """Check every operand against what the kernels take (the activations
+    and weights 16-byte aligned: the ``wgmma`` routes read their rows by
+    TMA); returns (bias f32 contiguous or None, bias_heads)."""
     bw, l, c = x.shape
     if c % num_heads or c // num_heads > MAX_HEAD_DIM or l > MAX_TOKENS:
         raise ValueError(f"fused_attention_ln kernel takes L <= {MAX_TOKENS} "
@@ -552,10 +616,10 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
                              f"on {x.device} ({align}-byte aligned)")
 
     f32 = torch.float32
-    operand(x, (bw, l, c), x.dtype, "x", align=1 if x_v is None else 16)
+    operand(x, (bw, l, c), x.dtype, "x", align=16)
     operand(x_v, (bw, l, c), x.dtype, "x_v", align=16)
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
-        operand(w, (c, c), x.dtype, name, align=32)   # whole wmma tiles
+        operand(w, (c, c), x.dtype, name, align=16)
     for name, v in (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo),
                     ("ls", ls), ("lb", lb)):
         operand(v, (c,), f32, name)
@@ -570,52 +634,79 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
     return bias, bias.shape[0]
 
 
-def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                    scale, seed, num_heads, rate, res):
+class _FwdArgs(ctypes.Structure):
+    """Mirror of ``FwdArgs`` in ``csrc/fused_window_attention.cuh``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "xv", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ls", "lb",
+        "pos", "bias", "scale", "seed", "out",
+        "mean", "rstd", "xn", "xqk", "q", "k", "v", "attn")]
+        + [(n, ctypes.c_int) for n in (
+            "windows", "tokens", "channels", "heads", "bias_heads", "res",
+            "mask_tokens", "dtype")]
+        + [(n, ctypes.c_float) for n in ("qscale", "eps", "rate", "keep_div")])
+
+
+def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+                 seed, num_heads, rate, res, x_v=None):
+    """Kernel #1 (LayerNorm folded in) or, with ``x_v``, kernel #5 (x is
+    then x_qk): the route the shape takes, with the wgmma route's scratch
+    (one allocation, returned to torch's stream-ordered allocator when the
+    call returns: later work on the stream runs after the passes). Returns
+    the output."""
+    ln = x_v is None
+    name = "fused_attention_ln" if ln else "fused_attention"
     bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                                 pos, bias, scale, num_heads)
+                                 pos, bias, scale, num_heads, x_v)
     bw, l, c = x.shape
-    lib = _lib()
-    smem = lib.vptr_fused_window_attention_ln_smem(l, c, num_heads,
-                                                   _DTYPES[x.dtype])
+    dt, dev = x.dtype, x.device
+    lib, entry = (_lib(), "vptr_fused_window_attention_ln") if ln else (
+        _lib_two(), "vptr_fused_window_attention")
+    smem = getattr(lib, f"{entry}_smem")(l, c, num_heads, _DTYPES[dt])
     if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_attention_ln kernel: L={l}, C={c}, "
-                         f"{x.dtype} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
+        raise ValueError(f"{name} kernel: L={l}, C={c}, {dt} needs {smem} B of "
+                         f"shared memory (> {SMEM_LIMIT})")
+    rows = bw * l
+    scratch, ptrs = None, {}
+    if getattr(lib, f"{entry}_route")(l, c, _DTYPES[dt]):
+        # one allocation, carved into 256-byte aligned pieces
+        plane = -(-rows * c * x.element_size() // 256) * 256
+        sizes = dict(q=plane, k=plane, v=plane, attn=plane)
+        if ln:
+            vec = -(-rows * 4 // 256) * 256
+            sizes.update(xn=plane, mean=vec, rstd=vec)
+            if pos is not None:
+                sizes["xqk"] = plane
+        scratch = torch.empty(sum(sizes.values()), dtype=torch.uint8, device=dev)
+        at = scratch.data_ptr()
+        for part, n in sizes.items():
+            ptrs[part], at = at, at + n
     out = torch.empty_like(x)
     p = _build.ptr
-    err = lib.vptr_fused_window_attention_ln(
-        p(x), p(wq), p(bq), p(wk), p(bk), p(wv), p(bv), p(wo), p(bo), p(ls),
-        p(lb), p(pos), p(bias), p(scale), p(out), bw, l, c, num_heads,
-        bias_heads, int(res), q_scale(c // num_heads, x.dtype), LN_EPS,
-        *_dropout_args(seed, rate), padded_tokens(l, x.dtype),
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "fused_attention_ln")
+    seed_p, rate, keep_div = _dropout_args(seed, rate)
+    a = _FwdArgs(
+        x=p(x), xv=p(x_v), wq=p(wq), bq=p(bq), wk=p(wk), bk=p(bk), wv=p(wv), bv=p(bv),
+        wo=p(wo), bo=p(bo), ls=p(ls), lb=p(lb), pos=p(pos), bias=p(bias),
+        scale=p(scale), seed=seed_p, out=p(out), **ptrs,
+        windows=bw, tokens=l, channels=c, heads=num_heads, bias_heads=bias_heads,
+        res=int(res), mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt],
+        qscale=q_scale(c // num_heads, dt), eps=LN_EPS, rate=rate, keep_div=keep_div)
+    err = getattr(lib, entry)(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, name)
+    return out
+
+
+def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                    scale, seed, num_heads, rate, res):
+    out = _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
+                       scale, seed, num_heads, rate, res)
     fused_attention_ln.launches += 1
     return out
 
 
 def _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
                         num_heads, rate):
-    bias, bias_heads = _operands(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None,
-                                 None, None, bias, None, num_heads, x_v)
-    bw, l, c = x_qk.shape
-    lib = _lib_two()
-    smem = lib.vptr_fused_window_attention_smem(l, c, num_heads,
-                                                _DTYPES[x_qk.dtype])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_attention kernel: L={l}, C={c}, "
-                         f"{x_qk.dtype} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
-    out = torch.empty_like(x_qk)
-    p = _build.ptr
-    err = lib.vptr_fused_window_attention(
-        p(x_qk), p(x_v), p(wq), p(bq), p(wk), p(bk), p(wv), p(bv), p(wo), p(bo),
-        p(bias), p(out), bw, l, c, num_heads, bias_heads,
-        q_scale(c // num_heads, x_qk.dtype), *_dropout_args(seed, rate),
-        padded_tokens(l, x_qk.dtype), _DTYPES[x_qk.dtype],
-        torch.cuda.current_stream(x_qk.device).cuda_stream)
-    _build.check(lib, err, "fused_attention")
+    out = _run_forward(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None, None,
+                       bias, None, seed, num_heads, rate, False, x_v=x_v)
     fused_attention.launches += 1
     return out
 
@@ -714,30 +805,30 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_window_attention_ln")
-    fn = lib.vptr_fused_window_attention_ln
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 15 + [i] * 6 + [f, f, p, f, f, i, i, p]
-        fn.restype = ctypes.c_int
-        for name, n in (("smem", 4), ("route", 3)):
-            g = getattr(lib, f"vptr_fused_window_attention_ln_{name}")
-            g.argtypes = [i] * n
-            g.restype = ctypes.c_long
-    return lib
+    return _lib_fwd("fused_window_attention_ln", extra=True)
 
 
 def _lib_two() -> ctypes.CDLL:
-    lib = _build.load("fused_window_attention")
-    fn = lib.vptr_fused_window_attention
+    return _lib_fwd("fused_window_attention")
+
+
+def _lib_fwd(name: str, extra: bool = False) -> ctypes.CDLL:
+    """The library of kernel #1 (``extra``: with the passes alone) or #5."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"vptr_{name}")
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 12 + [i] * 5 + [f, p, f, f, i, i, p]
-        fn.restype = ctypes.c_int
-        for name, n in (("smem", 4), ("route", 3)):
-            g = getattr(lib, f"vptr_fused_window_attention_{name}")
+        fn.argtypes = [ctypes.POINTER(_FwdArgs), p]
+        fn.restype = i
+        for part, n, rt in (("smem", 4, ctypes.c_long), ("route", 3, i)):
+            g = getattr(lib, f"vptr_{name}_{part}")
             g.argtypes = [i] * n
-            g.restype = ctypes.c_long
+            g.restype = rt
+        if extra:
+            lib.vptr_window_attention_pass.argtypes = [p] * 5 + [i] * 5 + [p, f, f, i, p]
+            lib.vptr_window_attention_pass.restype = i
+            lib.vptr_window_out_projection.argtypes = [p] * 6 + [i] * 3 + [p]
+            lib.vptr_window_out_projection.restype = i
     return lib
 
 
