@@ -62,7 +62,9 @@ Phases (any failure exits non-zero, without the final result line):
 11. the fused-FFN route's kernels (#7/#8 fused_ffn, #9/#10 fused_dw_chain)
    against their plain versions at the far_mnist shapes (FFN rows 12,800
    and 12,160 for the forward, 12,160 for the backward, C 528, hidden
-   2112; dw chain 200 and 190 samples of 8 x 8 x 2112), bf16 and f32,
+   2112; dw chain 200 and 190 samples of 8 x 8 x 2112, #9 on the route
+   its kernel_route names: persistent 16-block clusters in bf16, a cluster
+   a sample in f32; two calls of #9 give the same bits), bf16 and f32,
    dropout 0 and 0.1;
 12. far_mnist with transformer.fused_ffn and fused_dw: the far_rip predict
    with every counter at 0 just before and read just after (#7, #9, #1
@@ -106,8 +108,8 @@ Phases (any failure exits non-zero, without the final result line):
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
 20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
-   temporal shapes and at the NAR shape) and, last, {"ok": true, "device":
-   {...}}.
+   temporal shapes and at the NAR shape; #9 with its bf16 route and its
+   resident clusters) and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -811,10 +813,18 @@ def ffn_phases(dev):
             if dtype == bf and r > 0:
                 errs["ffn"] = e
                 errs["ffn_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
-            e = max_err(tdw.fused_dw_chain(*dops, kseed, w, r),
-                        tdw.fused_dw_chain_plain(*dops, kseed, w, r))
-            check(e <= tol[dtype], f"fused_dw_chain {name} dropout {r} "
-                  f"{tuple(dops[0].shape)} max|err| {e:.3e} <= {tol[dtype]}")
+            # #9 at the step's samples and the predict's (the value kept);
+            # two calls of a route give the same bits
+            route = tdw.kernel_route(hw, hid, dtype, w)
+            for ops in (dops_t, dops):
+                got = tdw.fused_dw_chain(*ops, kseed, w, r)
+                e = max_err(got, tdw.fused_dw_chain_plain(*ops, kseed, w, r))
+                check(e <= tol[dtype], f"fused_dw_chain {name} dropout {r} "
+                      f"{tuple(ops[0].shape)} ({route}) max|err| {e:.3e} <= {tol[dtype]}")
+                check(torch.equal(got, tdw.fused_dw_chain(*ops, kseed, w, r)),
+                      f"fused_dw_chain {name} dropout {r} {tuple(ops[0].shape)} ({route}) "
+                      f"two calls give the same bits")
+                del got
             got = tdw.fused_dw_chain_backward(*dops_t, kseed, gdw, w, r)
             want = tdw.fused_dw_chain_backward_plain(*dops_t, kseed, gdw, w, r)
             n_worst, worst = worst_rel(got, want, dw_names)
@@ -886,9 +896,12 @@ def ffn_phases(dev):
          grads_of(dw_library, dops_t, gdw.view(n_step, tc.enc_h, w, hid).permute(0, 3, 1, 2)),
          3 * d_step * s2b + (20 * hid + 8 * hw * hid) * 4, 210 * d_step, torch.float32),
     )
-    clusters = tdw.resident_clusters(hw, hid)
-    print(f"  fused_dw_chain clusters of 8 blocks resident at once: forward "
-          f"{clusters[0]}, backward {clusters[1]}")
+    per_sample, bwd_clusters = tdw.resident_clusters(hw, hid)
+    clusters = {"fused_dw_chain per_sample (8 blocks)": per_sample,
+                "fused_dw_chain persistent (16 blocks)": tdw.persistent_clusters(hw, hid, w),
+                "fused_dw_chain_bwd (8 blocks)": bwd_clusters}
+    print(f"  clusters resident at once: {clusters}; #9 in bf16 takes the "
+          f"{tdw.kernel_route(hw, hid, bf, w)} route")
     readings = {}
     for name, fn, plain, lib, nbytes, flops, fdt in cases:
         k_ms, p_ms = timed_turns(fn, plain)
@@ -930,6 +943,10 @@ def ffn_phases(dev):
                          "replaces": replaces, "launches": launches,
                          "max_abs_err": err, **readings[name],
                          "train_step_launches": step_launches[name]})
+        if name == "fused_dw_chain":   # #9's route in bf16 and its resident clusters
+            route = tdw.kernel_route(hw, hid, bf, w)
+            rows_out[-1].update(kernel_route=route, resident_clusters=clusters[
+                f"fused_dw_chain {route} ({16 if route == 'persistent' else 8} blocks)"])
     pm, sm, pk = times["predict_ms"], times["step_ms"], times["step_peak_gib"]
     summary = (f"ffn_route_predict_ms {pm['route']:.3f} default_predict_ms "
                f"{pm['default']:.3f} ffn_route_train_step_ms {sm['route']:.3f} "

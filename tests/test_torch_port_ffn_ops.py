@@ -10,7 +10,13 @@ TPU kernels (Pallas interpret mode), on the CPU.
     interpret=True)``: the forward and all seven gradients, dropout 0 and
     0.3, rows ragged against the JAX row tile;
 (o) kernel #9/#10's (``fused_dw_chain_plain``, the wrapper) against
-    ``fused_dw_chain(..., interpret=True)``, the same way.
+    ``fused_dw_chain(..., interpret=True)``, the same way; and #9's plain
+    version at the real width (C = 2112, N = 2, bf16 input, dropout 0 and
+    0.1) within one bf16 ulp of each output, of 2^-8 at least (both sum in
+    f32 and round to bf16 once: a rounding may fall the other way);
+(p) ``kernel_route`` (#9's route: "persistent" or "per_sample") at the
+    presets' shapes and at the edges of what the persistent route takes, a
+    function of the shapes alone (no library is built on the CPU).
 
 Inputs are seeded numpy in f32. Tolerance 1e-5 (absolute, plus 1e-5
 relative to the largest value of each output or gradient): the same f32
@@ -30,10 +36,12 @@ from vptr_tpu.ops import fused_dw_chain as jdw
 from vptr_tpu.ops import fused_ffn as jffn
 from vptr_tpu_torch.ops import dropout as tdrop
 from vptr_tpu_torch.ops import gelu as tgelu
+from vptr_tpu_torch.config import get_preset, list_presets
 from vptr_tpu_torch.ops.fused_dw_chain import (
     fused_dw_chain,
     fused_dw_chain_backward_plain,
     fused_dw_chain_plain,
+    kernel_route,
 )
 from vptr_tpu_torch.ops.fused_ffn import (
     fused_ffn,
@@ -172,3 +180,58 @@ def test_fused_dw_chain_backward_plain_on_a_wide_grid():
     got = fused_dw_chain_backward_plain(*map(t, args), seed, t(g), w, rate)
     for name, a, b in zip(DW_NAMES, got, want):
         _close(a.numpy(), b, name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_dw_chain_plain_matches_jax_at_the_real_width(rate):
+    """C = 2112 (far_mnist's hidden), an 8 x 8 grid, N = 2, x in bf16 as
+    the bf16 route takes it: the output within one bf16 ulp of JAX's."""
+    rng = np.random.default_rng(84)
+    n, w, c, seed = 2, 8, 2112, 4321
+    args = [a.astype(np.float32) for a in _dw_args(rng, n, w * w, c)]
+    x = torch.from_numpy(args[0]).to(torch.bfloat16)
+    want = jdw.fused_dw_chain(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                              *map(jnp.asarray, args[1:]), seed, w, rate, 2, True)
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    got = fused_dw_chain_plain(x, *map(t, args[1:]), seed, w, rate)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float().numpy().astype(np.float64)
+    # one bf16 ulp of the output; near zero (the GELU's far tail, where
+    # the f32 roundings are large beside the value) one ulp of 2^-8
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -8))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got == want).mean() > 0.99
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("name", [p for p in list_presets()
+                                  if get_preset(p).stage in ("far", "nar")])
+def test_kernel_route_at_the_presets(name):
+    """bf16 samples of 8 x 8 x 2112 take the persistent route; f32 and the
+    16 x 16 grid of nar_kth_128 (its slice does not fit) the per-sample
+    one."""
+    tc = get_preset(name).transformer
+    hw, c = tc.enc_h * tc.enc_w, tc.spatial_ffn_hidden_ratio * tc.d_model
+    want = "persistent" if hw <= 64 else "per_sample"
+    assert kernel_route(hw, c, _BF, tc.enc_w) == want
+    assert kernel_route(hw, c, _F32, tc.enc_w) == "per_sample"
+
+
+@pytest.mark.parametrize("hw,w,c,dtype,want", [
+    (64, 8, 64, _BF, "persistent"),     # the narrowest C: a quad a block
+    (64, 8, 32, _BF, "per_sample"),     # under 4 x 16 channels
+    (64, 8, 96, _BF, "per_sample"),     # not a multiple of 64
+    (64, 8, 2112, _F32, "per_sample"),  # f32 keeps the per-sample kernel
+    (64, 8, 2176, _BF, "per_sample"),   # the slice's shared memory over the limit
+    (16, 4, 4096, _BF, "persistent"),   # a 256-channel slice: the widest TMA box
+    (16, 4, 4160, _BF, "per_sample"),   # 260 channels + 4: wider than a box
+    (256, 32, 64, _BF, "persistent"),   # 256 rows: the tallest box
+    (264, 33, 64, _BF, "per_sample"),
+    (64, 12, 2112, _BF, "per_sample"),  # HW not a multiple of the grid's width
+    (16, 16, 2112, _BF, "persistent"),  # 1,056 pair-columns: 544 past 512, by points
+    (0, 8, 2112, _BF, "per_sample"),
+])
+def test_kernel_route_at_the_edges(hw, w, c, dtype, want):
+    assert kernel_route(hw, c, dtype, w) == want

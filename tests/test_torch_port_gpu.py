@@ -453,6 +453,90 @@ def test_fused_dw_chain_kernels_match_plain(cuda, dtype, rate, n):
         assert torch.equal(a, a2), name
 
 
+# #9's routes: bf16 on persistent 16-block clusters, f32 and the shapes that
+# route refuses on a cluster of 8 blocks a sample
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n", [1, 13, 200, 389])
+def test_fused_dw_chain_persistent_route_matches_plain(cuda, rate, n):
+    """The bf16 route at 1, 13, 200 (far_rip's) and 389 samples (more than
+    two rounds of the resident clusters); two calls give the same bits."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    bf = torch.bfloat16
+    clusters = tdw.persistent_clusters(64, 2112)
+    assert tdw.kernel_route(64, 2112, bf) == "persistent" and clusters >= 1
+    assert n != 389 or n > 2 * clusters
+    g = torch.Generator().manual_seed(16)
+    args = _dw_operands(g, n, bf, cuda)
+    seed = _seed(cuda)
+    before = tdw.fused_dw_chain.launches
+    got = tdw.fused_dw_chain(*args, seed, 8, rate)
+    again = tdw.fused_dw_chain(*args, seed, 8, rate)
+    want = tdw.fused_dw_chain_plain(*args, seed, 8, rate)
+    torch.cuda.synchronize()
+    assert tdw.fused_dw_chain.launches == before + 2
+    assert got.dtype == bf and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[bf]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,w,c", [(32, 16, 1088), (56, 8, 128), (8, 8, 64), (40, 5, 192),
+                                    (16, 4, 4096), (16, 16, 2112), (72, 8, 128), (64, 2, 1024)])
+def test_fused_dw_chain_persistent_route_on_other_grids(cuda, hw, w, c):
+    """Grids of 2 x 16 (64 points past the first 512 pair-columns), 7 x 8,
+    1 x 8, 8 x 5, 4 x 4 (a 256-channel slice), 1 x 16 at C = 2112 (544
+    points: two for some threads), 9 x 8 and 32 x 2, C from 64 up, dropout
+    0.1."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    bf = torch.bfloat16
+    assert tdw.kernel_route(hw, c, bf, w) == "persistent"
+    g = torch.Generator().manual_seed(17)
+    args = _dw_operands(g, 7, bf, cuda, hw=hw, c=c)
+    got = tdw.fused_dw_chain(*args, _seed(cuda), w, 0.1)
+    want = tdw.fused_dw_chain_plain(*args, _seed(cuda), w, 0.1)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[bf]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,w,c", [(64, 8, 2112), (256, 16, 2112), (64, 8, 64), (64, 8, 32),
+                                    (64, 8, 2144), (64, 8, 2176), (16, 16, 2112),
+                                    (16, 4, 4096), (16, 4, 8192), (72, 8, 64),
+                                    (64, 12, 2112), (32, 16, 1088)])
+def test_fused_dw_chain_route_is_the_librarys(cuda, hw, w, c):
+    """kernel_route, a pure function of the shapes, names the route the
+    library's vptr_fused_dw_chain_route names, in both dtypes."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    lib = tdw._lib()
+    for dtype in (torch.float32, torch.bfloat16):
+        want = tdw.ROUTES[lib.vptr_fused_dw_chain_route(hw, w, c, tdw._DTYPES[dtype])]
+        assert tdw.kernel_route(hw, c, dtype, w) == want
+    assert (tdw.persistent_clusters(hw, c, w) > 0) == (
+        tdw.kernel_route(hw, c, torch.bfloat16, w) == "persistent")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,dtype", [(2112, torch.float32), (2144, torch.bfloat16),
+                                     (96, torch.bfloat16)])
+def test_fused_dw_chain_per_sample_route(cuda, c, dtype):
+    """f32, and a C that is not a multiple of 64, take the per-sample
+    kernel; forcing the persistent route on them raises."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    assert tdw.kernel_route(64, c, dtype) == "per_sample"
+    g = torch.Generator().manual_seed(18)
+    args = _dw_operands(g, 5, dtype, cuda, c=c)
+    got = tdw.fused_dw_chain(*args, _seed(cuda), 8, 0.1)
+    want = tdw.fused_dw_chain_plain(*args, _seed(cuda), 8, 0.1)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    with pytest.raises(ValueError, match="not a shape it takes"):
+        tdw._forward_kernel(*args, None, 8, 0.0, route="persistent")
+
+
 # ---- the conv-FFN route: kernels #11 / #12 (conv_ln_gelu) at both stages of
 # the far_mnist conv FFN (fc1 528 -> 2112, fc2 2112 -> 528, 8 x 8 latents),
 # and #1 / #3 at the folded temporal sublayer's shape (T = 20 predict, 19

@@ -15,7 +15,11 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
 * ``_forward`` (``pl.pallas_call`` at :294) -> ``csrc/fused_dw_chain.cu``
   (kernel #9); ``_backward`` (:318) -> ``csrc/fused_dw_chain_bwd.cu`` (#10);
   both share ``csrc/dw_chain.cuh``, whose note says what bounds them and
-  what the design does about that.
+  what the design does about that. #9 has two routes, named by
+  :func:`kernel_route` from the shape and dtype before the launch: bf16
+  takes persistent 16-block clusters (the affines and taps held in shared
+  memory for the whole launch), f32 and the shapes that route refuses a
+  cluster of 8 blocks a sample.
 * :func:`fused_dw_chain` is a ``torch.autograd.Function``: a CUDA tensor
   launches the kernels (or raises), a CPU tensor takes
   :func:`fused_dw_chain_plain` forward and
@@ -40,6 +44,7 @@ from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
 
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("per_sample", "persistent")   # #9's routes, as the library numbers them
 
 
 def _sample_ln(z):
@@ -187,10 +192,53 @@ def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
 SMEM_LIMIT = 231000   # bytes of dynamic shared memory a block may take here
 
 
+# The persistent route of #9 (csrc/fused_dw_chain.cu: kPCluster, kPThreads,
+# kPMaxQ, kPSmemLimit)
+P_CLUSTER, P_THREADS, P_MAX_QUADS = 16, 512, 5
+P_SMEM_LIMIT = 232448 - 1024 - 2048
+
+
+def persistent_smem(hw: int, c: int) -> int:
+    """Dynamic shared memory of a persistent block for samples of (HW, C)
+    (``p_smem``): 128 bytes of alignment, the staged bf16 x (HW rows of the
+    slice's cw channels and, where cw is 4 mod 8, 4 more), the four
+    affines, z1 and z2 in f32, taps and dwb."""
+    cw = c // P_CLUSTER
+    e = hw * cw
+    return 128 + 2 * hw * (cw + cw % 8) + 4 * (6 * e + 10 * cw)
+
+
+def kernel_route(hw: int, c: int, dtype: torch.dtype, w: int = 8) -> str:
+    """Which route kernel #9 takes for samples of (HW, C) on a grid w wide,
+    in ``dtype``: ``"persistent"`` (bf16: as many 16-block clusters as the
+    card holds, each walking the samples, a block's 1/16 channel slice of
+    the affines and taps in shared memory for the whole launch) or
+    ``"per_sample"`` (f32 and every other shape: a cluster of 8 blocks a
+    sample, which still refuses a shape whose slice does not fit). The
+    persistent route takes HW <= 256, C a multiple of 64 whose slice,
+    staged from a 16-byte boundary, is at most 256 channels, and the slice
+    within shared memory. A pure function of the shapes, equal to the
+    library's ``vptr_fused_dw_chain_route``."""
+    if dtype != torch.bfloat16 or not 1 <= hw <= 256 or w < 1 or hw % w \
+            or c < 4 * P_CLUSTER or c % (4 * P_CLUSTER):
+        return "per_sample"
+    cw = c // P_CLUSTER
+    ok = (cw + cw % 8 <= 256 and persistent_smem(hw, c) <= P_SMEM_LIMIT
+          and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS)
+    return "persistent" if ok else "per_sample"
+
+
+def persistent_clusters(hw: int, c: int, w: int = 8) -> int:
+    """How many 16-block clusters of #9's persistent route the card holds
+    at once for samples of (HW, C) on a grid w wide (0 where the route does
+    not take them)."""
+    return _lib().vptr_fused_dw_chain_persistent_clusters(hw, w, c)
+
+
 def resident_clusters(hw: int, c: int) -> tuple:
     """(forward, backward): how many clusters (a sample each; a group of
-    samples in the backward) of the bf16 kernels the card holds at once for
-    samples of (HW, C)."""
+    samples in the backward) of the per-sample forward and the backward in
+    bf16 the card holds at once for samples of (HW, C)."""
     return (_lib().vptr_fused_dw_chain_clusters(hw, c),
             _lib_bwd().vptr_fused_dw_chain_bwd_clusters(hw, c))
 
@@ -220,20 +268,33 @@ def _operands(x, taps, dwb, s1, b1, s2, b2, w):
     return n, hw, c
 
 
-def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, route=None):
+    """Kernel #9 on ``route`` (default: :func:`kernel_route`'s); a shape the
+    route does not take raises."""
     n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
     lib = _lib()
-    smem = lib.vptr_fused_dw_chain_smem(hw, c)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_dw_chain kernel: HW={hw}, C={c} needs {smem} B "
-                         f"of shared memory (> {SMEM_LIMIT})")
+    route = route or kernel_route(hw, c, x.dtype, w)
+    if route == "persistent":
+        if kernel_route(hw, c, x.dtype, w) != "persistent":
+            raise ValueError(f"fused_dw_chain persistent route: HW={hw}, w={w}, C={c}, "
+                             f"{x.dtype} is not a shape it takes")
+        if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2)):
+            raise ValueError("fused_dw_chain persistent route: every operand must be "
+                             "16-byte aligned (the slices are copied in 16-byte pieces)")
+    elif route == "per_sample":
+        smem = lib.vptr_fused_dw_chain_smem(hw, c)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"fused_dw_chain kernel: HW={hw}, C={c} needs {smem} B "
+                             f"of shared memory (> {SMEM_LIMIT})")
+    else:
+        raise ValueError(f"fused_dw_chain: unknown route {route!r}")
     out = torch.empty_like(x)
     p = _build.ptr
     err = lib.vptr_fused_dw_chain(
         p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), n, hw, w, c,
-        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], ROUTES.index(route),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "fused_dw_chain")
+    _build.check(lib, err, f"fused_dw_chain ({route})")
     fused_dw_chain.launches += 1
     return out
 
@@ -272,12 +333,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_fused_dw_chain
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 4 + [f, p, f, f, i, p]
+        fn.argtypes = [p] * 8 + [i] * 4 + [f, p, f, f, i, i, p]
         fn.restype = ctypes.c_int
         lib.vptr_fused_dw_chain_smem.argtypes = [i, i]
         lib.vptr_fused_dw_chain_smem.restype = ctypes.c_long
         lib.vptr_fused_dw_chain_clusters.argtypes = [i, i]
-        lib.vptr_fused_dw_chain_clusters.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_clusters.restype = i
+        lib.vptr_fused_dw_chain_persistent_clusters.argtypes = [i, i, i]
+        lib.vptr_fused_dw_chain_persistent_clusters.restype = i
+        lib.vptr_fused_dw_chain_route.argtypes = [i, i, i, i]
+        lib.vptr_fused_dw_chain_route.restype = i
     return lib
 
 
