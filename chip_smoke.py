@@ -64,8 +64,10 @@ Phases (any failure exits non-zero, without the final result line):
    and 12,160 for the forward, 12,160 for the backward, C 528, hidden
    2112; dw chain 200 and 190 samples of 8 x 8 x 2112, #9 on the route
    its kernel_route names: persistent 16-block clusters in bf16, a cluster
-   a sample in f32; two calls of #9 give the same bits), bf16 and f32,
-   dropout 0 and 0.1;
+   a sample in f32; #10 on the route its backward_route names: persistent
+   16-block clusters in bf16, 8-block clusters over sample groups in f32;
+   two calls of #9 and of #10 give the same bits), bf16 and f32, dropout
+   0 and 0.1;
 12. far_mnist with transformer.fused_ffn and fused_dw: the far_rip predict
    with every counter at 0 just before and read just after (#7, #9, #1
    and #2 120 launches each), the frames checked and compared with
@@ -108,8 +110,8 @@ Phases (any failure exits non-zero, without the final result line):
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
 20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
-   temporal shapes and at the NAR shape; #9 with its bf16 route and its
-   resident clusters) and, last, {"ok": true, "device": {...}}.
+   temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
+   and resident clusters) and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -798,6 +800,7 @@ def ffn_phases(dev):
         dops, dops_t = dw_ops(n_pred, dtype), dw_ops(n_step, dtype)
         gffn = randn(s_step, c).to(dev, dtype)
         gdw = randn(n_step, hw, hid).to(dev, dtype)
+        gdw_pred = randn(n_pred, hw, hid).to(dev, dtype)
         for r in (0.0, rate):
             # #7 at the predict's rows (the value kept) and the step's
             for ops in (fops_t, fops):
@@ -825,16 +828,25 @@ def ffn_phases(dev):
                       f"fused_dw_chain {name} dropout {r} {tuple(ops[0].shape)} ({route}) "
                       f"two calls give the same bits")
                 del got
-            got = tdw.fused_dw_chain_backward(*dops_t, kseed, gdw, w, r)
-            want = tdw.fused_dw_chain_backward_plain(*dops_t, kseed, gdw, w, r)
-            n_worst, worst = worst_rel(got, want, dw_names)
-            check(worst <= bwd_tol[dtype], f"fused_dw_chain backward {name} dropout {r} "
-                  f"{tuple(dops_t[0].shape)} worst {n_worst} rel err {worst:.2e} <= "
-                  f"{bwd_tol[dtype]:.2e}")
+            # #10 at the step's samples (the value kept) and the predict's,
+            # on the route backward_route names; two calls give the same bits
+            broute = tdw.backward_route(hw, hid, dtype, w)
+            for ops, gd in ((dops, gdw_pred), (dops_t, gdw)):
+                got = tdw.fused_dw_chain_backward(*ops, kseed, gd, w, r)
+                want = tdw.fused_dw_chain_backward_plain(*ops, kseed, gd, w, r)
+                n_worst, worst = worst_rel(got, want, dw_names)
+                check(worst <= bwd_tol[dtype], f"fused_dw_chain backward {name} dropout {r} "
+                      f"{tuple(ops[0].shape)} ({broute}) worst {n_worst} rel err "
+                      f"{worst:.2e} <= {bwd_tol[dtype]:.2e}")
+                again = tdw.fused_dw_chain_backward(*ops, kseed, gd, w, r)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fused_dw_chain backward {name} dropout {r} {tuple(ops[0].shape)} "
+                      f"({broute}) two calls give the same bits")
+                del again
             if dtype == bf and r > 0:
                 errs["dw"] = e
                 errs["dw_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
-        del fops, fops_t, dops, dops_t, gffn, gdw, got, want
+        del fops, fops_t, dops, dops_t, gffn, gdw, gdw_pred, got, want
     torch.cuda.synchronize()
 
     n = LAYERS * FUTURE
@@ -899,9 +911,11 @@ def ffn_phases(dev):
     per_sample, bwd_clusters = tdw.resident_clusters(hw, hid)
     clusters = {"fused_dw_chain per_sample (8 blocks)": per_sample,
                 "fused_dw_chain persistent (16 blocks)": tdw.persistent_clusters(hw, hid, w),
-                "fused_dw_chain_bwd (8 blocks)": bwd_clusters}
-    print(f"  clusters resident at once: {clusters}; #9 in bf16 takes the "
-          f"{tdw.kernel_route(hw, hid, bf, w)} route")
+                "fused_dw_chain_bwd groups (8 blocks)": bwd_clusters,
+                "fused_dw_chain_bwd persistent (16 blocks)": tdw.backward_clusters(hw, hid, w)}
+    print(f"  clusters resident at once: {clusters}; in bf16 #9 takes the "
+          f"{tdw.kernel_route(hw, hid, bf, w)} route, #10 the "
+          f"{tdw.backward_route(hw, hid, bf, w)} route")
     readings = {}
     for name, fn, plain, lib, nbytes, flops, fdt in cases:
         k_ms, p_ms = timed_turns(fn, plain)
@@ -943,10 +957,11 @@ def ffn_phases(dev):
                          "replaces": replaces, "launches": launches,
                          "max_abs_err": err, **readings[name],
                          "train_step_launches": step_launches[name]})
-        if name == "fused_dw_chain":   # #9's route in bf16 and its resident clusters
-            route = tdw.kernel_route(hw, hid, bf, w)
+        if name.startswith("fused_dw_chain"):   # #9's / #10's route in bf16, its clusters
+            route = (tdw.kernel_route if name == "fused_dw_chain" else tdw.backward_route)(
+                hw, hid, bf, w)
             rows_out[-1].update(kernel_route=route, resident_clusters=clusters[
-                f"fused_dw_chain {route} ({16 if route == 'persistent' else 8} blocks)"])
+                f"{name} {route} ({16 if route == 'persistent' else 8} blocks)"])
     pm, sm, pk = times["predict_ms"], times["step_ms"], times["step_peak_gib"]
     summary = (f"ffn_route_predict_ms {pm['route']:.3f} default_predict_ms "
                f"{pm['default']:.3f} ffn_route_train_step_ms {sm['route']:.3f} "

@@ -14,9 +14,14 @@ TPU kernels (Pallas interpret mode), on the CPU.
     version at the real width (C = 2112, N = 2, bf16 input, dropout 0 and
     0.1) within one bf16 ulp of each output, of 2^-8 at least (both sum in
     f32 and round to bf16 once: a rounding may fall the other way);
-(p) ``kernel_route`` (#9's route: "persistent" or "per_sample") at the
-    presets' shapes and at the edges of what the persistent route takes, a
-    function of the shapes alone (no library is built on the CPU).
+(p) ``kernel_route`` (#9's route: "persistent" or "per_sample") and
+    ``backward_route`` (#10's: "persistent" or "groups") at the presets'
+    shapes and at the edges of what the persistent routes take, functions
+    of the shapes alone (no library is built on the CPU);
+(q) #10's plain version at the real width (C = 2112, N = 2, x and g in
+    bf16, dropout 0 and 0.1) against the JAX backward kernel: dx within one
+    bf16 ulp (of 2^-8 at least), the f32 gradients within the tolerance
+    below.
 
 Inputs are seeded numpy in f32. Tolerance 1e-5 (absolute, plus 1e-5
 relative to the largest value of each output or gradient): the same f32
@@ -40,6 +45,7 @@ from vptr_tpu_torch.config import get_preset, list_presets
 from vptr_tpu_torch.ops.fused_dw_chain import (
     fused_dw_chain,
     fused_dw_chain_backward_plain,
+    backward_route,
     fused_dw_chain_plain,
     kernel_route,
 )
@@ -203,6 +209,29 @@ def test_fused_dw_chain_plain_matches_jax_at_the_real_width(rate):
     assert (got == want).mean() > 0.99
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_dw_chain_backward_plain_matches_jax_at_the_real_width(rate):
+    """C = 2112, an 8 x 8 grid, N = 2, x and g in bf16 as #10's bf16 route
+    takes them, against the JAX backward kernel: dx within one bf16 ulp of
+    JAX's (of 2^-8 near zero), every f32 gradient within TOL."""
+    rng = np.random.default_rng(85)
+    n, w, c, seed = 2, 8, 2112, 4321
+    args = [a.astype(np.float32) for a in _dw_args(rng, n, w * w, c)]
+    x = torch.from_numpy(args[0]).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((n, w * w, c)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    jx, jg = (jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (x, g))
+    want = jdw._backward(jx, *map(jnp.asarray, args[1:]), seed, jg, w, rate, 2, True)
+    got = fused_dw_chain_backward_plain(x, *map(t, args[1:]), seed, g, w, rate)
+    dx, dx_want = got[0], np.asarray(want[0].astype(jnp.float32), np.float64)
+    assert dx.dtype == torch.bfloat16 and dx.shape == dx_want.shape
+    dx = dx.float().numpy().astype(np.float64)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(dx_want), 2.0 ** -8))) - 7)
+    assert (np.abs(dx - dx_want) <= ulp).all()
+    for name, a, b in zip(DW_NAMES[1:], got[1:], want[1:]):
+        _close(a.numpy(), b, name)
+
+
 _BF, _F32 = torch.bfloat16, torch.float32
 
 
@@ -235,3 +264,37 @@ def test_kernel_route_at_the_presets(name):
 ])
 def test_kernel_route_at_the_edges(hw, w, c, dtype, want):
     assert kernel_route(hw, c, dtype, w) == want
+
+
+@pytest.mark.parametrize("name", [p for p in list_presets()
+                                  if get_preset(p).stage in ("far", "nar")])
+def test_backward_route_at_the_presets(name):
+    """bf16 samples of 8 x 8 x 2112 take #10's persistent route; f32 and
+    the 16 x 16 grid of nar_kth_128 (its slice does not fit) the group
+    route."""
+    tc = get_preset(name).transformer
+    hw, c = tc.enc_h * tc.enc_w, tc.spatial_ffn_hidden_ratio * tc.d_model
+    want = "persistent" if hw <= 64 else "groups"
+    assert backward_route(hw, c, _BF, tc.enc_w) == want
+    assert backward_route(hw, c, _F32, tc.enc_w) == "groups"
+
+
+@pytest.mark.parametrize("hw,w,c,dtype,want", [
+    (64, 8, 2112, _BF, "persistent"),   # far_mnist's: 230,848 bytes of 231,448
+    (64, 8, 64, _BF, "persistent"),     # the narrowest C: a quad a block
+    (64, 8, 32, _BF, "groups"),         # under 4 x 16 channels
+    (64, 8, 96, _BF, "groups"),         # not a multiple of 64
+    (64, 8, 2112, _F32, "groups"),      # f32 keeps the group kernel
+    (64, 8, 2176, _BF, "groups"),       # the block's shared memory over the limit
+    (16, 4, 4096, _BF, "persistent"),   # a 256-channel slice: the widest TMA box
+    (16, 4, 4160, _BF, "groups"),       # 260 channels + 4: wider than a box
+    (256, 32, 64, _BF, "persistent"),   # 256 rows, a grid a warp wide
+    (264, 33, 64, _BF, "groups"),
+    (40, 5, 192, _BF, "groups"),        # 5 does not divide 32 (#9's persistent route takes it)
+    (64, 64, 64, _BF, "groups"),        # a grid wider than a warp
+    (64, 12, 2112, _BF, "groups"),      # HW not a multiple of the grid's width
+    (16, 16, 2112, _BF, "persistent"),  # 1,056 pair-columns: three rounds of 512 threads
+    (0, 8, 2112, _BF, "groups"),
+])
+def test_backward_route_at_the_edges(hw, w, c, dtype, want):
+    assert backward_route(hw, c, dtype, w) == want

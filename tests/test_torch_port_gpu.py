@@ -428,8 +428,9 @@ def _dw_operands(g, n, dtype, cuda, hw=64, c=2112):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("n", [190, 13])
 def test_fused_dw_chain_kernels_match_plain(cuda, dtype, rate, n):
-    """190 samples: the training step's (16 sample groups of up to 12);
-    13: one sample a group."""
+    """190 samples: the training step's (#10 in bf16 on its persistent
+    route, in f32 on 16 sample groups of up to 12); 13: one sample a
+    cluster or a group."""
     from vptr_tpu_torch.ops import fused_dw_chain as tdw
 
     g = torch.Generator().manual_seed(14)
@@ -535,6 +536,97 @@ def test_fused_dw_chain_per_sample_route(cuda, c, dtype):
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     with pytest.raises(ValueError, match="not a shape it takes"):
         tdw._forward_kernel(*args, None, 8, 0.0, route="persistent")
+
+
+# #10's routes: bf16 on persistent 16-block clusters, f32 and the shapes that
+# route refuses on clusters of 8 blocks over sample groups
+
+_DW_GRADS = ("dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2")
+
+
+def _check_dw_backward(tdw, args, seed, dout, w, rate, route):
+    before = tdw.fused_dw_chain.bwd_launches
+    got = tdw.fused_dw_chain_backward(*args, seed, dout, w, rate)
+    again = tdw.fused_dw_chain_backward(*args, seed, dout, w, rate)
+    want = tdw.fused_dw_chain_backward_plain(*args, seed, dout, w, rate)
+    torch.cuda.synchronize()
+    assert tdw.fused_dw_chain.bwd_launches == before + 2
+    assert tdw.backward_route(args[0].shape[1], args[0].shape[2], args[0].dtype, w) == route
+    for name, a, b, a2 in zip(_DW_GRADS, got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[args[0].dtype], name
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n", [1, 13, 190, 389])
+def test_fused_dw_chain_backward_persistent_route_matches_plain(cuda, rate, n):
+    """The bf16 route at 1, 13, 190 (the FAR step's) and 389 samples (more
+    than two rounds of the resident clusters): every gradient against the
+    plain version; two calls give the same bits."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    bf = torch.bfloat16
+    clusters = tdw.backward_clusters(64, 2112)
+    assert tdw.backward_route(64, 2112, bf) == "persistent" and clusters >= 1
+    assert n != 389 or n > 2 * clusters
+    g = torch.Generator().manual_seed(19)
+    args = _dw_operands(g, n, bf, cuda)
+    dout = torch.randn(n, 64, 2112, generator=g).to(cuda, bf)
+    _check_dw_backward(tdw, args, _seed(cuda), dout, 8, rate, "persistent")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,w,c", [(32, 16, 1088), (56, 8, 128), (8, 8, 64), (32, 4, 1024),
+                                    (16, 4, 4096), (16, 16, 2112), (72, 8, 128), (64, 2, 1024)])
+def test_fused_dw_chain_backward_persistent_route_on_other_grids(cuda, hw, w, c):
+    """Grids of 2 x 16, 7 x 8, 1 x 8, 8 x 4, 4 x 4 (a 256-channel slice),
+    1 x 16 at C = 2112 (1,056 pair-columns: a third round of 32), 9 x 8 (the
+    transpose's generic row loop) and 32 x 2, C from 64 up, dropout 0.1."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(20)
+    args = _dw_operands(g, 7, bf, cuda, hw=hw, c=c)
+    dout = torch.randn(7, hw, c, generator=g).to(cuda, bf)
+    _check_dw_backward(tdw, args, _seed(cuda), dout, w, 0.1, "persistent")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,w,c", [(64, 8, 2112), (256, 16, 2112), (64, 8, 64), (64, 8, 32),
+                                    (64, 8, 2144), (64, 8, 2176), (16, 16, 2112),
+                                    (16, 4, 4096), (16, 4, 8192), (72, 8, 64),
+                                    (64, 12, 2112), (40, 5, 192), (64, 64, 64),
+                                    (32, 16, 1088)])
+def test_fused_dw_chain_backward_route_is_the_librarys(cuda, hw, w, c):
+    """backward_route, a pure function of the shapes, names the route the
+    library's vptr_fused_dw_chain_bwd_route names, in both dtypes."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    lib = tdw._lib_bwd()
+    for dtype in (torch.float32, torch.bfloat16):
+        want = tdw.BWD_ROUTES[lib.vptr_fused_dw_chain_bwd_route(hw, w, c, tdw._DTYPES[dtype])]
+        assert tdw.backward_route(hw, c, dtype, w) == want
+    assert (tdw.backward_clusters(hw, c, w) > 0) == (
+        tdw.backward_route(hw, c, torch.bfloat16, w) == "persistent")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,w,c,dtype", [(64, 8, 2112, torch.float32),
+                                          (64, 8, 2144, torch.bfloat16),
+                                          (40, 5, 192, torch.bfloat16)])
+def test_fused_dw_chain_backward_groups_route(cuda, hw, w, c, dtype):
+    """f32, a C that is not a multiple of 64 and a grid 5 wide take the
+    group kernel; forcing the persistent route on them raises."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    g = torch.Generator().manual_seed(21)
+    args = _dw_operands(g, 5, dtype, cuda, hw=hw, c=c)
+    dout = torch.randn(5, hw, c, generator=g).to(cuda, dtype)
+    _check_dw_backward(tdw, args, _seed(cuda), dout, w, 0.1, "groups")
+    with pytest.raises(ValueError, match="not a shape it takes"):
+        tdw._backward_kernel(*args, _seed(cuda), dout, w, 0.1, route="persistent")
 
 
 # ---- the conv-FFN route: kernels #11 / #12 (conv_ln_gelu) at both stages of

@@ -14,12 +14,16 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
 
 * ``_forward`` (``pl.pallas_call`` at :294) -> ``csrc/fused_dw_chain.cu``
   (kernel #9); ``_backward`` (:318) -> ``csrc/fused_dw_chain_bwd.cu`` (#10);
-  both share ``csrc/dw_chain.cuh``, whose note says what bounds them and
-  what the design does about that. #9 has two routes, named by
-  :func:`kernel_route` from the shape and dtype before the launch: bf16
-  takes persistent 16-block clusters (the affines and taps held in shared
-  memory for the whole launch), f32 and the shapes that route refuses a
-  cluster of 8 blocks a sample.
+  both share ``csrc/dw_chain.cuh`` and, on their bf16 routes,
+  ``csrc/dw_persistent.cuh``, whose notes say what bounds them and what the
+  design does about that. Each has two routes, named from the shape and
+  dtype before the launch: #9's by :func:`kernel_route` (bf16 takes
+  persistent 16-block clusters with the affines and taps held in shared
+  memory for the whole launch; f32 and the shapes that route refuses a
+  cluster of 8 blocks a sample), #10's by :func:`backward_route` (bf16
+  takes persistent 16-block clusters that keep the affine-gradient and tap
+  sums in shared memory across their samples; f32 and the shapes that
+  route refuses clusters of 8 blocks over at most 16 groups of samples).
 * :func:`fused_dw_chain` is a ``torch.autograd.Function``: a CUDA tensor
   launches the kernels (or raises), a CPU tensor takes
   :func:`fused_dw_chain_plain` forward and
@@ -45,6 +49,7 @@ from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("per_sample", "persistent")   # #9's routes, as the library numbers them
+BWD_ROUTES = ("groups", "persistent")   # #10's routes, as its library numbers them
 
 
 def _sample_ln(z):
@@ -228,6 +233,49 @@ def kernel_route(hw: int, c: int, dtype: torch.dtype, w: int = 8) -> str:
     return "persistent" if ok else "per_sample"
 
 
+# #10's persistent route (csrc/fused_dw_chain_bwd.cu: kBSmemLimit, the
+# opt-in maximum less the statistics' 936 bytes of static shared memory and
+# 64 for the probe stamps' sums)
+B_SMEM_LIMIT = 232448 - 936 - 64
+
+
+def backward_smem(hw: int, c: int) -> int:
+    """Dynamic shared memory of a persistent backward block for samples of
+    (HW, C) (``b_smem``): 128 bytes of alignment, the bf16 stage (x or g)
+    rounded up to 128 bytes, z2, the four affine-gradient sums and z1 in
+    f32, taps and dwb, and the tap and bias gradients' sums."""
+    cw = c // P_CLUSTER
+    e = hw * cw
+    return 128 + -(-2 * hw * (cw + cw % 8) // 128) * 128 + 4 * (6 * e + 20 * cw)
+
+
+def backward_route(hw: int, c: int, dtype: torch.dtype, w: int = 8) -> str:
+    """Which route kernel #10 takes for samples of (HW, C) on a grid w wide,
+    in ``dtype``: ``"persistent"`` (bf16: as many 16-block clusters as the
+    card holds, each walking the samples and keeping its blocks' 1/16
+    channel slices of the affine-gradient and tap sums in shared memory) or
+    ``"groups"`` (f32 and every other shape: clusters of 8 blocks over at
+    most 16 groups of samples, which still refuses a shape whose slices do
+    not fit). The persistent route takes HW <= 256, w dividing 32, C a
+    multiple of 64 whose slice, staged from a 16-byte boundary, is at most
+    256 channels, and the block within shared memory. A pure function of
+    the shapes, equal to the library's ``vptr_fused_dw_chain_bwd_route``."""
+    if dtype != torch.bfloat16 or not 1 <= hw <= 256 or not 1 <= w <= 32 or 32 % w \
+            or hw % w or c < 4 * P_CLUSTER or c % (4 * P_CLUSTER):
+        return "groups"
+    cw = c // P_CLUSTER
+    ok = (cw + cw % 8 <= 256 and backward_smem(hw, c) <= B_SMEM_LIMIT
+          and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS)
+    return "persistent" if ok else "groups"
+
+
+def backward_clusters(hw: int, c: int, w: int = 8) -> int:
+    """How many 16-block clusters of #10's persistent route the card holds
+    at once for samples of (HW, C) on a grid w wide (0 where the route does
+    not take them)."""
+    return _lib_bwd().vptr_fused_dw_chain_bwd_persistent_clusters(hw, w, c)
+
+
 def persistent_clusters(hw: int, c: int, w: int = 8) -> int:
     """How many 16-block clusters of #9's persistent route the card holds
     at once for samples of (HW, C) on a grid w wide (0 where the route does
@@ -237,8 +285,9 @@ def persistent_clusters(hw: int, c: int, w: int = 8) -> int:
 
 def resident_clusters(hw: int, c: int) -> tuple:
     """(forward, backward): how many clusters (a sample each; a group of
-    samples in the backward) of the per-sample forward and the backward in
-    bf16 the card holds at once for samples of (HW, C)."""
+    samples in the backward) of the per-sample forward and of the
+    backward's group route in bf16 the card holds at once for samples of
+    (HW, C)."""
     return (_lib().vptr_fused_dw_chain_clusters(hw, c),
             _lib_bwd().vptr_fused_dw_chain_bwd_clusters(hw, c))
 
@@ -299,31 +348,50 @@ def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, route=None):
     return out
 
 
-def _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate):
+def _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, route=None):
+    """Kernel #10 on ``route`` (default: :func:`backward_route`'s); a shape
+    the route does not take raises."""
     n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
         raise ValueError(f"fused_dw_chain backward: g {tuple(g.shape)} {g.dtype} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     lib = _lib_bwd()
-    smem = lib.vptr_fused_dw_chain_bwd_smem(hw, c)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_dw_chain backward kernel: HW={hw}, C={c} needs "
-                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+    route = route or backward_route(hw, c, x.dtype, w)
+    if route == "persistent":
+        if backward_route(hw, c, x.dtype, w) != "persistent":
+            raise ValueError(f"fused_dw_chain backward persistent route: HW={hw}, w={w}, "
+                             f"C={c}, {x.dtype} is not a shape it takes")
+        if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2, g)):
+            raise ValueError("fused_dw_chain backward persistent route: every operand must "
+                             "be 16-byte aligned (the slices are read in 16-byte pieces)")
+        resident = lib.vptr_fused_dw_chain_bwd_persistent_clusters(hw, w, c)
+        if resident < 1:
+            raise RuntimeError(f"fused_dw_chain backward persistent route: no cluster of "
+                               f"{P_CLUSTER} blocks fits for HW={hw}, C={c}")
+        groups = min(n, resident)
+    elif route == "groups":
+        smem = lib.vptr_fused_dw_chain_bwd_smem(hw, c)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"fused_dw_chain backward kernel: HW={hw}, C={c} needs "
+                             f"{smem} B of shared memory (> {SMEM_LIMIT})")
+        groups = lib.vptr_fused_dw_chain_bwd_groups(n)
+    else:
+        raise ValueError(f"fused_dw_chain backward: unknown route {route!r}")
     dev, f32 = x.device, torch.float32
-    groups = lib.vptr_fused_dw_chain_bwd_groups(n)
     dx = torch.empty_like(x)
     dtaps, ddwb = torch.empty(9, c, dtype=f32, device=dev), torch.empty(c, dtype=f32, device=dev)
     ds1, db1, ds2, db2 = (torch.empty(hw, c, dtype=f32, device=dev) for _ in range(4))
-    # the sample groups' partial sums, added in group order by the second pass
+    # the groups' (clusters') partial sums, added in their order by the
+    # second pass
     part = torch.empty(groups, 4, hw, c, dtype=f32, device=dev)
     tpart = torch.empty(groups, 10, c, dtype=f32, device=dev)
     p = _build.ptr
     err = lib.vptr_fused_dw_chain_bwd(
         p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
         p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(part), p(tpart), n, hw, w, c,
-        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], BWD_ROUTES.index(route),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "fused_dw_chain backward")
+    _build.check(lib, err, f"fused_dw_chain backward ({route})")
     fused_dw_chain.bwd_launches += 1
     return dx, dtaps, ddwb, ds1, db1, ds2, db2
 
@@ -351,8 +419,12 @@ def _lib_bwd() -> ctypes.CDLL:
     fn = lib.vptr_fused_dw_chain_bwd
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 17 + [i] * 4 + [f, p, f, f, i, p]
+        fn.argtypes = [p] * 17 + [i] * 4 + [f, p, f, f, i, i, p]
         fn.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_bwd_persistent_clusters.argtypes = [i, i, i]
+        lib.vptr_fused_dw_chain_bwd_persistent_clusters.restype = i
+        lib.vptr_fused_dw_chain_bwd_route.argtypes = [i, i, i, i]
+        lib.vptr_fused_dw_chain_bwd_route.restype = i
         lib.vptr_fused_dw_chain_bwd_groups.argtypes = [i]
         lib.vptr_fused_dw_chain_bwd_groups.restype = ctypes.c_int
         lib.vptr_fused_dw_chain_bwd_smem.argtypes = [i, i]
