@@ -6,7 +6,9 @@ Phases (any failure exits non-zero, without the final result line):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and print the build time and ptxas's register / spill report and any
-   warning that it serialised wgmma products (C7520);
+   warning that it serialised wgmma products (C7520), and each
+   instantiation of #2's bf16 kernel (attention_core_mma_kernel) by name
+   with its registers and spills;
    count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu,
    fused_ffn and window-attention libraries, forward and backward (#11,
    #12, #7, #8, and #1, #5, #3, #6) (cuobjdump), and fail if any has
@@ -16,7 +18,12 @@ Phases (any failure exits non-zero, without the final result line):
    far_rip shapes, a rectangular attention core and the residual/scale
    window variant; the forwards with dropout 0.1 at the far_rip and the
    training shapes, the window's with res and the DropPath scale at the
-   training shape (dropout 0 and 0.1);
+   training shape (dropout 0 and 0.1); the attention core (#2) also on
+   q, k, v in the attention layer's strided layout (the (B, H, T, D) view
+   of its projections' (B, T, H*D), the route kernel_route names, the
+   output in q's layout) at far_rip's 640 x 8 x 20 causal, the FAR step's
+   640 x 8 x 19 causal with dropout 0.1, and nar_mnist's 1024 x 8 x 10
+   with dropout 0 and 0.1;
    both backward kernels at the training shapes (window 760 x 16 x 528,
    core 640 x 8 x 19 x 66), dropout 0 and 0.1, with a per-head bias for
    the bias gradients;
@@ -111,7 +118,9 @@ Phases (any failure exits non-zero, without the final result line):
    16, #6 8, #4 8), each against kernels="plain";
 20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
-   and resident clusters) and, last, {"ok": true, "device": {...}}.
+   and resident clusters; #2 timed in the layer's strided layout, with its
+   route, its contiguous-layout time and its NAR-shape time, each also
+   replayed from a CUDA graph) and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -120,6 +129,7 @@ torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -219,6 +229,19 @@ def hgmma_count(library) -> int:
     if out.returncode != 0:
         print(f"  cuobjdump failed: {out.stderr.strip()[:500]}")
     return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
+def ptxas_report(log: str, fragment: str):
+    """ptxas's stack / spill and register lines of every kernel whose
+    (mangled) name holds ``fragment``, from a library's -Xptxas -v log."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and fragment in name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def max_err(a, b) -> float:
@@ -1334,6 +1357,13 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.is_file() else []):
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
+    core_log = paths["attention_core"].with_suffix(".log")
+    core_report = ptxas_report(core_log.read_text() if core_log.is_file() else "",
+                               "attention_core_mma_kernel")
+    for line in core_report:
+        print(f"  #2 bf16 kernel {line}")
+    check(len(core_report) > 0, f"ptxas reports attention_core_mma_kernel "
+          f"({len(core_report)} lines)")
     for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
                 "fused_window_attention_ln", "fused_window_attention",
                 "fused_window_attention_ln_bwd", "fused_window_attention_bwd"):
@@ -1369,6 +1399,14 @@ def main() -> int:
     def core_operands(dtype, b=cols, tq=ctx, tk=ctx):
         return tuple(randn(b, heads, t, hd).to(dev, dtype)
                      for t in (tq, tk, tk))
+
+    def strided_operands(dtype, b=cols, tq=ctx, tk=ctx):
+        """q, k, v as the attention layer hands them to #2: the (B, H, T, D)
+        view of its projections' contiguous (B, T, H*D)."""
+        return tuple(randn(b, t, c).to(dev, dtype).view(b, t, heads, hd).transpose(1, 2)
+                     for t in (tq, tk, tk))
+
+    nar_cols = 16 * tc.enc_h * tc.enc_w    # nar_mnist: batch 16 of 8 x 8 latents
 
     # tolerances: f32 — kernel and plain differ in summation order only
     # (528-long dot products, four chained products in the window kernel);
@@ -1453,6 +1491,19 @@ def main() -> int:
                     attention_core_plain(tq_, tk_, tv_, tcausal, kseed, rate))
         check(e <= tol[dtype], f"attention_core {name} dropout {rate} "
               f"{tuple(tq_.shape)} causal max|err| {e:.3e} <= {tol[dtype]}")
+        # #2 on the layer's strided operands: far_rip's, the FAR step's, NAR's
+        for b_, t_, bias_, r_, what in ((cols, ctx, causal, 0.0, "far_rip"),
+                                        (cols, tt, causal[:, :tt, :tt], rate, "FAR step"),
+                                        (nar_cols, 10, None, 0.0, "NAR"),
+                                        (nar_cols, 10, None, rate, "NAR step")):
+            sq, sk, sv = strided_operands(dtype, b_, t_, t_)
+            got = attention_core(sq, sk, sv, bias_, kseed, r_)
+            e = max_err(got, attention_core_plain(sq, sk, sv, bias_, kseed, r_))
+            check(e <= tol[dtype] and got.stride() == sq.stride(),
+                  f"attention_core {name} strided {what} {tuple(sq.shape)} "
+                  f"({tac.kernel_route(dtype, heads, t_, t_, hd)} route) dropout {r_}: "
+                  f"max|err| {e:.3e} <= {tol[dtype]}, out in q's layout")
+            errs[("core_strided", what, dtype)] = e
 
         # backward kernels at the training shapes
         for r in (0.0, rate):
@@ -1594,6 +1645,7 @@ def main() -> int:
     w_bytes = 2 * windows * tokens * c * s + 4 * c * c * s + (6 * c + tokens * c) * 4
     w_flops = 8 * windows * tokens * c * c + 4 * windows * heads * tokens * tokens * hd
     q, k, v = core_operands(bf)
+    sq, sk, sv = strided_operands(bf)       # #2's operands as the path gives them
     c_bytes = 4 * cols * heads * ctx * hd * s + ctx * ctx * 4
     c_flops = 4 * cols * heads * ctx * ctx * hd
 
@@ -1628,7 +1680,7 @@ def main() -> int:
              "fused_attention_ln_bwd": graph_bwd_ms(window_library, (tops[0], wq, wk, wv, wo),
                                                     lib_g),
              "attention_core": graph_ms(
-                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=causal.to(bf))),
+                 lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(bf))),
              "attention_core_bwd": graph_bwd_ms(core_library, (tq_, tk_, tv_), gcore)}
     print(f"  library yardsticks replayed from CUDA graphs: fused_attention_ln "
           f"{graph['fused_attention_ln']:.4f} ms, attention_core {graph['attention_core']:.4f} "
@@ -1643,10 +1695,11 @@ def main() -> int:
          launches["fused_attention_ln"]),
         ("attention_core", "vptr_tpu_torch/csrc/attention_core.cu",
          "vptr_tpu/ops/attention_core.py:188",
-         lambda: attention_core(q, k, v, causal),
-         lambda: attention_core_plain(q, k, v, causal),
-         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=causal.to(bf)),
-         c_bytes, c_flops, errs[("core", bf)], launches["attention_core"]),
+         lambda: attention_core(sq, sk, sv, causal),
+         lambda: attention_core_plain(sq, sk, sv, causal),
+         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(bf)),
+         c_bytes, c_flops, errs[("core_strided", "far_rip", bf)],
+         launches["attention_core"]),
         ("fused_attention_ln_bwd",
          "vptr_tpu_torch/csrc/fused_window_attention_ln_bwd.cu",
          "vptr_tpu/ops/fused_window_attention.py:769",
@@ -1687,8 +1740,33 @@ def main() -> int:
               f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
 
+    # #2 also on contiguous operands (the layout of its earlier readings)
+    # and at nar_mnist's shape (1024 x 8 x 10, no bias, the layer's layout);
+    # graph_ms: the call replayed from a CUDA graph, the device time without
+    # the wrapper's host time between back-to-back calls
+    core_row = next(row for row in rows_out if row["name"] == "attention_core")
+    core_row["kernel_route"] = tac.kernel_route(bf, heads, ctx, ctx, hd)
+    core_row["graph_ms"] = graph_ms(lambda: attention_core(sq, sk, sv, causal))
+    k1, k2 = (cuda_ms(lambda: attention_core(q, k, v, causal)) for _ in range(2))
+    core_row["contiguous_ms"] = min(k1, k2)
+    core_row["contiguous_graph_ms"] = graph_ms(lambda: attention_core(q, k, v, causal))
+    nq, nk, nv = strided_operands(bf, nar_cols, 10, 10)
+    k_ms, p_ms = timed_turns(lambda: attention_core(nq, nk, nv),
+                             lambda: attention_core_plain(nq, nk, nv))
+    n_lib = lambda: F.scaled_dot_product_attention(nq, nk, nv)
+    b_ms, b_by = bound(4 * nar_cols * heads * 10 * hd * s, 4 * nar_cols * heads * 100 * hd)
+    core_row["nar_shape"] = dict(
+        ms=k_ms, graph_ms=graph_ms(lambda: attention_core(nq, nk, nv)), plain_ms=p_ms,
+        library_ms=cuda_ms(n_lib), library_graph_ms=graph_ms(n_lib), bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=errs[("core_strided", "NAR", bf)])
+    print(f"  attention_core ({core_row['kernel_route']} route): the layer's layout "
+          f"{core_row['ms']:.4f} ms, graph {core_row['graph_ms']:.4f}; contiguous "
+          f"{k1:.4f}/{k2:.4f}, graph {core_row['contiguous_graph_ms']:.4f}; NAR shape "
+          f"{tuple(nq.shape)}: {core_row['nar_shape']}")
+
     # the FAR path's modules and operands go before the NAR phases
     del enc, dec, tr, predict, far, wops, tops, q, k, v, window_lib_bwd, core_lib_bwd
+    del sq, sk, sv, nq, nk, nv
     del gwin, gcore, tq_, tk_, tv_
     torch.cuda.empty_cache()
     nar_rows, nar_extra, nar_summary = nar_phases(dev)

@@ -1,0 +1,194 @@
+"""Where kernel #2's (attention core forward, bf16 "mma" route) time goes,
+on one GPU.
+
+    python3 scripts/torch_port_core_probe.py [--repeats 3] [--only NAME ...]
+
+Times attention_core in bf16 at the shapes its paths give it: far_rip's
+640 x 8 heads x 20 x 66 with the causal bias, on contiguous q, k, v
+("far_rip contiguous") and on the attention layer's strided ones (the
+(B, H, T, D) view of its projections' (B, T, H*D), "far_rip strided");
+the FAR step's 640 x 8 x 19 causal with dropout 0.1 ("FAR step
+strided"); nar_mnist's 1024 x 8 x 10 ("NAR strided"). The committed
+kernel is read first and last; between them, copies of the package under
+build/core_probe/ whose csrc/attention_core.cu is changed in one place
+(VARIANTS): another design choice (right values), or one part of the work
+left out (wrong values by design), whose difference from the committed
+kernel is that part's time. Each tree is timed in its own process, each
+case two ways: the mean CUDA-event time of 50 back-to-back calls after 5
+warm-ups (what a caller that launches one call after another sees; the
+wrapper's host time bounds it where that is longer than the kernel's),
+and of 50 replays of the call captured in a CUDA graph ("... (graph)":
+the device time alone); --repeats times, the best kept; and its largest
+difference from the plain version ("... max|err|"; a variant that keeps
+the work whole should stay within 2^-4). A last case times far_rip's
+contiguous shape again on operands allocated after the others. The copies' libraries are all built first, in parallel. Prints
+one JSON line with every reading, the card's name, and each variant's
+time less the committed kernel's (the mean of its two readings). Exits
+non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+CORE = "csrc/attention_core.cu"
+# variant -> [(text it replaces (every occurrence), replacement), ...]
+VARIANTS = {
+    "persistent ring of two stages": [
+        ("constexpr int kMmaStages = 1;", "constexpr int kMmaStages = 2;")],
+    "q scaled in f32": [
+        ("  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&pair), "
+         "scale);\n  return *reinterpret_cast<const uint32_t*>(&r);",
+         "  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pair));"
+         "\n  const float s = __low2float(scale);\n  return pack_bf16(f.x * s, f.y * s);")],
+    "exact expf and division": [
+        ("__expf(sc[mt][nt][2 * hh + x] - m)", "expf(sc[mt][nt][2 * hh + x] - m)"),
+        ("w = sc[mt][nt][2 * hh + x] * rcp;", "w = sc[mt][nt][2 * hh + x] / sum;")],
+    "every row half's softmax computed": [
+        ("if (16 * mt + 8 * hh >= tq) {", "if (16 * mt + 8 * hh >= 32) {")],
+    "five blocks a SM at Tq, Tk <= 16": [
+        ("__launch_bounds__(kMmaThreads, MQ == 1 && KS == 1 ? 4 : 3)",
+         "__launch_bounds__(kMmaThreads, MQ == 1 && KS == 1 ? 5 : 3)")],
+    "staging and stores alone": [
+        ("    for (int h = warp; h < a.heads; h += kMmaWarps) {",
+         "    for (int h = warp; h < 0; h += kMmaWarps) {")],
+    "without the output store": [
+        ("dst[c] = src[c];", "if (src[c].x == 0x12345u) dst[c] = src[c];")],
+}
+
+BUILD = ("import sys; sys.path.insert(0, '.'); from vptr_tpu_torch.ops import _build; "
+         "_build.build(['attention_core'])")
+
+
+def time_core(root: str, repeats: int) -> dict:
+    import torch
+
+    sys.path.insert(0, root)
+    from vptr_tpu_torch.ops import attention_core as tac
+
+    if Path(tac.__file__).resolve().parents[2] != Path(root).resolve():
+        raise RuntimeError(f"imported {tac.__file__}, not from {root}")
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    heads, hd = 8, 66
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+
+    def ops(b, t, strided):
+        if strided:
+            return [torch.randn(b, t, heads * hd, generator=g).to(dev, bf)
+                    .view(b, t, heads, hd).transpose(1, 2) for _ in range(3)]
+        return [torch.randn(b, heads, t, hd, generator=g).to(dev, bf) for _ in range(3)]
+
+    def causal(t):
+        return torch.full((t, t), -1e30, device=dev).triu(1)[None]
+
+    def mean_ms(fn):
+        for _ in range(5):
+            fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(50):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 50
+
+    def graph_ms(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return mean_ms(graph.replay)
+
+    cases = {
+        "far_rip contiguous": (ops(640, 20, False), causal(20), 0.0),
+        "far_rip strided": (ops(640, 20, True), causal(20), 0.0),
+        "FAR step strided": (ops(640, 19, True), causal(19), 0.1),
+        "NAR strided": (ops(1024, 10, True), None, 0.0),
+    }
+    # the same shape again, allocated after the others (where the operands
+    # lie can move a reading: the 50 MB L2 keeps part of the 40 MB read)
+    cases["far_rip contiguous, allocated last"] = (ops(640, 20, False), causal(20), 0.0)
+    out = {}
+    for _ in range(repeats):
+        for name, (qkv, bias, rate) in cases.items():
+            call = lambda: tac.attention_core(*qkv, bias, seed, rate)
+            out.setdefault(name, []).append(mean_ms(call))
+            out.setdefault(f"{name} (graph)", []).append(graph_ms(call))
+    best = {name: min(ms) for name, ms in out.items()}
+    for name, (qkv, bias, rate) in cases.items():
+        got = tac.attention_core(*qkv, bias, seed, rate).float()
+        want = tac.attention_core_plain(*qkv, bias, seed, rate).float()
+        best[f"{name} max|err|"] = (got - want).abs().max().item()
+    return best
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--only", nargs="*", help="variants to time (default: all)")
+    parser.add_argument("--time", help=argparse.SUPPRESS)   # one root, in a child
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_port_core_probe: no GPU", file=sys.stderr)
+        return 1
+    if args.time:
+        print(json.dumps(time_core(args.time, args.repeats)))
+        return 0
+    roots = {}
+    for name, edits in VARIANTS.items():
+        if args.only and name not in args.only:
+            continue
+        root = REPO / "build" / "core_probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(REPO / "vptr_tpu_torch", root / "vptr_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = root / "vptr_tpu_torch" / CORE
+        text = src.read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{name}: the text to replace is not in {CORE}")
+            text = text.replace(old, new)
+        src.write_text(text)
+        roots[name] = str(root)
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=root)
+              for root in [str(REPO), *roots.values()]]
+    for b in builds:
+        b.wait(timeout=900)
+    order = [("committed", str(REPO)), *roots.items(), ("committed again", str(REPO))]
+    result = {}
+    for name, root in order:
+        run = subprocess.run([sys.executable, __file__, "--time", root, "--repeats",
+                              str(args.repeats)], capture_output=True, text=True,
+                             timeout=900)
+        if run.returncode != 0:         # a variant that does not build or run
+            print(run.stdout + run.stderr, file=sys.stderr)
+            if name.startswith("committed"):
+                return 1
+            continue
+        result[name] = json.loads(run.stdout.strip().splitlines()[-1])
+    base = {case: (result["committed"][case] + result["committed again"][case]) / 2
+            for case in result["committed"]}
+    delta = {name: {case: round(ms - base[case], 4) for case, ms in r.items()
+                    if "err" not in case}
+             for name, r in result.items() if not name.startswith("committed")}
+    print(json.dumps({"ms": result, "minus_committed_ms": delta,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,12 @@ shapes:
   position table (``..._nar_ms``);
 * ``fused_attention`` (#5): 640 x 16 x 528 with the 8-head relative-position
   bias, dropout 0 (the nar_mnist decoder's shape);
-* ``attention_core`` (#2): 640 x 8 heads x 20 x 66, causal, dropout 0;
+* ``attention_core`` (#2): 640 x 8 heads x 20 x 66, causal, dropout 0,
+  contiguous q, k, v; in the attention layer's strided layout (the (B, H,
+  T, D) view of its projections' (B, T, H*D), ``..._strided_ms``; a tree
+  whose kernel refuses that layout is timed as its layer ran it: the
+  three contiguous copies, the call and the output copied back); and at
+  nar_mnist's 1024 x 8 x 10 x 66, no bias, contiguous (``..._nar_ms``);
 * ``fused_attention_ln_backward`` (#3): 760 windows, dropout 0.1 (the
   train step's shape), and 640 x 19 causal with the position table, as
   the folded temporal sublayer's step calls it (``..._t19_ms``);
@@ -40,7 +45,9 @@ it) and, with ``--conv-route``, on the conv-FFN route with the folded
 temporal sublayer (``conv_route_*``; null for a tree without it);
 ``--kernels-only`` times the kernels alone (no model, predict or step);
 ``--only`` times only the kernels named (e.g. ``fused_dw_chain_ms``), so
-that a kernel can be read in a process of its own. Prints
+that a kernel can be read in a process of its own; ``--graph`` times each
+kernel's call replayed from a CUDA graph instead (the device time alone,
+without the wrapper's host time between calls). Prints
 one JSON line with every reading and their medians. To compare
 two trees, run it on each in turns (A B B A) within one machine. Needs a
 GPU; exits non-zero without one.
@@ -71,6 +78,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn) -> float:
+    """cuda_ms of the replays of fn captured in a CUDA graph (one warm-up
+    call on a side stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -80,6 +101,8 @@ def main() -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="time the kernels alone, no predict or train step")
     parser.add_argument("--only", nargs="*", help="the kernels to time (default: all)")
+    parser.add_argument("--graph", action="store_true",
+                        help="time the kernels' calls replayed from CUDA graphs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_kernel_times: no GPU", file=sys.stderr)
@@ -132,6 +155,16 @@ def main() -> int:
            1 + r(c, std=0.1), r(c, std=0.1), r(16, c))
     q, k, v = (r(640, heads, ctx, c // heads).to(bf) for _ in range(3))
     causal = torch.full((ctx, ctx), -1e30, device=dev).triu(1)[None]
+    sq, sk, sv = (r(640, ctx, c).to(bf).view(640, ctx, heads, c // heads).transpose(1, 2)
+                  for _ in range(3))
+    nq, nk, nv = (r(1024, heads, ctx // 2, c // heads).to(bf) for _ in range(3))
+    try:
+        attention_core(sq, sk, sv, causal)
+        strided_core = lambda: attention_core(sq, sk, sv, causal)
+    except ValueError:          # a tree from before the strided layout: its layer's copies
+        def strided_core():
+            out = attention_core(sq.contiguous(), sk.contiguous(), sv.contiguous(), causal)
+            return out.transpose(1, 2).reshape(640, ctx, c)
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     twin = (r(760, 16, c).to(bf),) + win[1:]
     gwin = r(760, 16, c).to(bf)
@@ -178,6 +211,8 @@ def main() -> int:
         "fused_attention_ln_nar_ms": lambda: fused_attention_ln(*nar, num_heads=heads),
         "fused_attention_ms": lambda: fused_attention(*two, num_heads=heads),
         "attention_core_ms": lambda: attention_core(q, k, v, causal),
+        "attention_core_strided_ms": strided_core,
+        "attention_core_nar_ms": lambda: attention_core(nq, nk, nv),
         "fused_attention_ln_bwd_ms": lambda: fused_attention_ln_backward(
             *twin, None, seed, gwin, heads, 0.1),
         "fused_attention_ln_bwd_t19_ms": lambda: fused_attention_ln_backward(
@@ -230,7 +265,7 @@ def main() -> int:
         predict(past)
     for _ in range(args.repeats):
         for name, fn in kernels.items():
-            readings[name].append(cuda_ms(fn))
+            readings[name].append(graph_ms(fn) if args.graph else cuda_ms(fn))
         for route, predict in predicts.items():
             readings[f"{route}predict_ms"].append(host_ms(lambda: predict(past)))
 
@@ -246,7 +281,7 @@ def main() -> int:
             if i >= 2:
                 readings[f"{route}train_step_ms"].append(ms)
         del state, step
-    out = {"root": str(root)}
+    out = {"root": str(root), "graph": args.graph}
     for name, xs in readings.items():
         out[name] = statistics.median(xs)
         out[name.replace("_ms", "_all")] = xs

@@ -92,3 +92,12 @@ def random_variables(init, rng: np.random.Generator, *args):
 
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def heads_view(x) -> torch.Tensor:
+    """numpy (B, H, T, D) -> the same values as the (B, H, T, D) view of a
+    contiguous torch (B, T, H*D) tensor: the attention layer's projections
+    split into heads, strides (T H D, D, H D, 1)."""
+    b, h, tt, d = x.shape
+    rows = t(np.transpose(x, (0, 2, 1, 3)).reshape(b, tt, h * d))
+    return rows.view(b, tt, h, d).transpose(1, 2)

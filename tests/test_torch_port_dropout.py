@@ -6,7 +6,8 @@
     count: square and rectangular shapes, seeds 0, 12345 and 2^31 - 2, an
     index past 2^24;
 (b) the forwards with dropout 0.1 under one integer seed: ``attention_core``
-    and ``fused_attention_ln`` / ``_res`` (their plain versions: the wrappers
+    (also on operands in the layer's strided layout) and
+    ``fused_attention_ln`` / ``_res`` (their plain versions: the wrappers
     take them for CPU tensors) against the JAX functions in Pallas interpret
     mode, atol 1e-5 (f32 summation order; the masks are equal).
 """
@@ -22,7 +23,7 @@ from vptr_tpu_torch.ops import attention_core as tac
 from vptr_tpu_torch.ops import dropout as tdrop
 from vptr_tpu_torch.ops import fused_window_attention as tfw
 
-from _torch_port_util import t
+from _torch_port_util import heads_view, t
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
@@ -82,6 +83,27 @@ def test_attention_core_dropout_matches_jax(seed, case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     no_drop = tac.attention_core(t(q), t(k), t(v), t(bias))
     assert not torch.allclose(got, no_drop)          # dropout did act
+
+
+@pytest.mark.parametrize("seed", [3, 2 ** 31 - 2])
+@pytest.mark.parametrize("tq,tk,bias_heads", [(7, 7, 1), (7, 5, 4), (10, 2, 0)])
+def test_attention_core_strided_dropout_matches_jax(seed, tq, tk, bias_heads):
+    """The layer's strided q, k, v with dropout 0.1: JAX's mask and values."""
+    rng = np.random.default_rng(33)
+    b, h, d = 6, 4, 12
+    bias = None
+    if bias_heads:
+        bias = rng.standard_normal((bias_heads, tq, tk)).astype(np.float32)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d)))
+    want = jac.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              None if bias is None else jnp.asarray(bias),
+                              seed, 0.1, 128, True)
+    views = [heads_view(x) for x in (q, k, v)]
+    tbias = None if bias is None else t(bias)
+    got = tac.attention_core(*views, tbias, seed, 0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert not torch.allclose(got, tac.attention_core(*views, tbias))  # dropout acted
 
 
 def _ln_inputs(rng, bw, l, c=48):

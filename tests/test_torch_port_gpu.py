@@ -51,6 +51,98 @@ def test_attention_core_kernel_matches_plain(cuda, dtype, tq, tk, bias_heads):
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+def _heads(b, h, t, d, strided, g, device, dtype):
+    """Random (b, h, t, d) attention operand: contiguous, or (strided) the
+    (B, H, T, D) view of a contiguous (B, T, H*D) tensor, as the attention
+    layer's projections give it."""
+    if strided:
+        return torch.randn(b, t, h * d, generator=g).to(device, dtype).view(
+            b, t, h, d).transpose(1, 2)
+    return torch.randn(b, h, t, d, generator=g).to(device, dtype)
+
+
+def _core_bias(kind, h, tq, tk, g, device):
+    if kind == "none":
+        return None
+    if kind == "causal":   # keys past the query masked; rectangular too
+        return torch.full((tq, tk), -1e30, device=device).triu(1)[None]
+    return torch.randn(1 if kind == "one" else h, tq, tk, generator=g).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_kind", ["none", "one", "heads", "causal"])
+@pytest.mark.parametrize("hd", [66, 33])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("tq,tk", [(2, 2), (10, 10), (16, 16), (19, 19), (20, 20),
+                                   (32, 32), (10, 20), (32, 7), (10, 2)])
+def test_attention_core_mma_route_matches_plain(cuda, tq, tk, strided, hd, bias_kind,
+                                                rate):
+    g = torch.Generator().manual_seed(40)
+    q, k, v = (_heads(37, 8, t, hd, strided, g, cuda, torch.bfloat16)
+               for t in (tq, tk, tk))
+    bias = _core_bias(bias_kind, 8, tq, tk, g, cuda)
+    seed = _seed(cuda)
+    assert tac.kernel_route(q.dtype, 8, tq, tk, hd) == "mma"
+    before = tac.attention_core.launches
+    got = tac.attention_core(q, k, v, bias, seed, rate)
+    want = tac.attention_core_plain(q, k, v, bias, seed, rate)
+    torch.cuda.synchronize()
+    assert tac.attention_core.launches == before + 1
+    assert got.stride() == q.stride()                  # written in q's layout
+    assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,tq,tk,hd", [(torch.float32, 8, 20, 20, 66),
+                                             (torch.bfloat16, 4, 10, 3, 3)])
+def test_attention_core_fma_route_takes_both_layouts(cuda, dtype, h, tq, tk, hd):
+    g = torch.Generator().manual_seed(41)
+    assert tac.kernel_route(dtype, h, tq, tk, hd) == "fma"
+    for strided in (False, True):
+        q, k, v = (_heads(24, h, t, hd, strided, g, cuda, dtype) for t in (tq, tk, tk))
+        got = tac.attention_core(q, k, v, None, _seed(cuda), 0.1)
+        want = tac.attention_core_plain(q, k, v, None, _seed(cuda), 0.1)
+        torch.cuda.synchronize()
+        assert got.stride() == q.stride()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk", [(20, 20), (19, 19), (10, 10), (10, 2)])
+def test_attention_core_mma_route_is_deterministic(cuda, tq, tk):
+    g = torch.Generator().manual_seed(42)
+    q, k, v = (_heads(640, 8, t, 66, True, g, cuda, torch.bfloat16) for t in (tq, tk, tk))
+    bias = _core_bias("causal", 8, tq, tk, g, cuda)
+    a = tac.attention_core(q, k, v, bias, _seed(cuda), 0.1)
+    b = tac.attention_core(q, k, v, bias, _seed(cuda), 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_core_strided_gradients_equal_contiguous(cuda, rate):
+    """Autograd through the strided forward (the layer's route) gives the
+    gradients of the contiguous one: the backward copies its operands."""
+    g = torch.Generator().manual_seed(43)
+    views = [_heads(96, 8, 19, 66, True, g, cuda, torch.bfloat16) for _ in range(3)]
+    bias0 = torch.randn(8, 19, 19, generator=g).to(cuda)
+    gout = torch.randn(96, 8, 19, 66, generator=g).to(cuda, torch.bfloat16)
+    grads, outs = [], []
+    for ops in (views, [x.contiguous() for x in views]):
+        ins = [x.detach().clone().requires_grad_() for x in ops]   # strides kept
+        bias = bias0.clone().requires_grad_()
+        out = tac.attention_core(*ins, bias, _seed(cuda), rate)
+        grads.append(torch.autograd.grad(out, ins + [bias], gout))
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert tac.layout(views[0]) == 1 and tac.layout(outs[0]) == 1
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tokens,res", [(16, False), (16, True), (19, False),

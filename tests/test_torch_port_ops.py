@@ -2,7 +2,10 @@
 
 (a) ``attention_core`` (its plain version: the wrapper takes it for CPU
     tensors) vs ``vptr_tpu.ops.attention_core.attention_core`` in Pallas
-    interpret mode: square causal, per-head bias, rectangular.
+    interpret mode: square causal, per-head bias, rectangular; also with
+    q, k, v as the (B, H, T, D) view of a (B, T, H*D) tensor (the layer's
+    projections); ``kernel_route`` and ``layout``, pure functions of the
+    shapes and strides.
 (b) ``fused_attention_ln`` / ``_res`` vs the JAX functions (interpret mode),
     with and without the position table.
 (c) window ops and position tables, exactly.
@@ -18,6 +21,7 @@ the same plain versions on the card by ``tests/test_torch_port_gpu.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from vptr_tpu.models import position as jpos
 from vptr_tpu.ops import attention_core as jac
@@ -28,7 +32,7 @@ from vptr_tpu_torch.ops import attention_core as tac
 from vptr_tpu_torch.ops import fused_window_attention as tfw
 from vptr_tpu_torch.ops import window as twin
 
-from _torch_port_util import t
+from _torch_port_util import heads_view, t
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
@@ -60,6 +64,61 @@ def test_attention_core_matches_jax(case):
     got = tac.attention_core(t(q), t(k), t(v),
                              None if bias is None else t(bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("tq,tk,bias_heads", [
+    (7, 7, 0), (7, 7, 1), (7, 7, 4), (7, 5, 1), (5, 9, 4), (10, 2, 0)])
+def test_attention_core_strided_matches_jax(tq, tk, bias_heads):
+    """q, k, v in the projections' layout (the layer passes them so, with
+    no copies): the same values as JAX's contiguous operands give."""
+    rng = np.random.default_rng(2)
+    b, h, d = 6, 4, 12
+    bias = (None if bias_heads == 0 else
+            rng.standard_normal((bias_heads, tq, tk)).astype(np.float32))
+    if bias_heads == 1 and tq == tk:
+        bias = _causal(tq)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d)))
+    views = [heads_view(x) for x in (q, k, v)]
+    assert [tac.layout(x) for x in views] == [1, 1, 1]
+    want = jac.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              None if bias is None else jnp.asarray(bias),
+                              0, 0.0, 128, True)
+    got = tac.attention_core(*views, None if bias is None else t(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,heads,tq,tk,d,want", [
+    (BF, 8, 20, 20, 66, "mma"),      # far_rip's temporal attention
+    (BF, 8, 19, 19, 66, "mma"),      # the FAR step's
+    (BF, 8, 10, 10, 66, "mma"),      # nar_mnist's
+    (BF, 8, 10, 2, 66, "mma"),       # nar_bair's cross attention
+    (BF, 8, 32, 32, 128, "mma"),     # 196,608 B of q, k, v: fits
+    (BF, 8, 20, 20, 33, "mma"),      # odd head width, whole 16-byte slices
+    (F32, 8, 20, 20, 66, "fma"),     # f32 takes the FMA kernel
+    (BF, 1, 7, 7, 33, "fma"),        # a 231-element slice: not whole vectors
+    (BF, 4, 10, 3, 3, "fma"),        # k's 36-element slice: not whole vectors
+    (BF, 16, 32, 32, 128, "fma"),    # 393,216 B: over a block's shared memory
+])
+def test_kernel_route(dtype, heads, tq, tk, d, want):
+    assert tac.kernel_route(dtype, heads, tq, tk, d) == want
+
+
+@pytest.mark.parametrize("tq,tk,d", [(33, 20, 66), (20, 33, 66), (20, 20, 129)])
+def test_kernel_route_refuses_what_no_kernel_takes(tq, tk, d):
+    with pytest.raises(ValueError, match="Tq, Tk <= 32"):
+        tac.kernel_route(BF, 8, tq, tk, d)
+
+
+def test_layout_of_the_operands():
+    x = torch.zeros(2, 3, 5, 4)
+    assert tac.layout(x) == 0
+    assert tac.layout(x.transpose(1, 2).contiguous().transpose(1, 2)) == 1
+    assert tac.layout(x.transpose(2, 3)) is None
+    assert tac.layout(torch.zeros(2, 5, 1, 4).transpose(1, 2)) == 0   # H = 1
 
 
 def _ln_inputs(rng, bw=5, l=16, c=48):

@@ -15,21 +15,39 @@
 // the backward reads q, k, v, g and writes dq, dk, dv (about 90 MB at the
 // FAR training shapes, 640 x 8 heads x 19 x 66 in bf16) and does about
 // 10 Tq Tk D flops: both are far below the ~295 flops per byte at which the
-// tensor cores would become the limit. The design keeps logits, weights,
-// the mask and the logit gradients out of device memory: one block per
-// (b, h) stages its rows in shared memory (read as 16-byte vectors where
-// the (b, h) slice allows it), one warp per query row holds one key column
-// per lane (Tk <= 32) and reads the q and k rows as float4 (row stride
-// padded so those reads are free of bank conflicts), takes the row max and
-// sum with shuffles. The forward accumulates the weighted values with each
-// lane owning up to four columns of D, one weight shuffle per key feeding
-// them all. The backward recomputes the softmax and the mask from the
-// seed, keeps the dropped weights and the logit gradients (Tq x Tk f32) in
-// shared memory, then forms dq, dk and dv one output element per thread.
-// The bias gradient sums over the batch: each (b, h) block writes its
-// Tq x Tk logit gradients and a second kernel sums them over b (and over
-// heads for a (1, Tq, Tk) bias) in a fixed order, so the result is the same
-// on every run (no float atomics).
+// tensor cores would become the limit. Both keep logits, weights, the mask
+// and the logit gradients out of device memory. Two forward routes, named
+// by ops/attention_core.py::kernel_route from the shapes:
+//
+// * mma (bf16 where each batch element's q and k slices are whole 16-byte
+//   vectors and fit a block's shared memory): attention_core_mma_kernel.
+//   A block takes a batch element and all of its heads: the element's q,
+//   k and v slices are contiguous in both layouts the route reads (the
+//   contiguous (B, H, T, D), and the (B, H, T, D) view of the projections'
+//   contiguous (B, T, H D), so the layer needs no copies), so one thread
+//   stages each with one bulk copy completing on an mbarrier. A warp takes
+//   a head as kernels #1/#5's window_fwd_kernel takes one (mma_sync.cuh's
+//   helpers): q k^T on mma.sync m16n8k16 (bf16 in, f32 sums; q * scale
+//   rounded as its A fragments are formed), the bias, the f32 softmax on a
+//   quad of lanes, the hash dropout, the weights rounded into P's A
+//   fragments, P v on mma.sync, the output written over the head's q; the
+//   block stores the slice whole in 16-byte vectors, in q's layout.
+// * FMA (f32, and bf16 shapes mma does not take; contiguous operands):
+//   attention_core_kernel, one block per (b, h) staging its rows in shared
+//   memory as f32 (read as 16-byte vectors where the (b, h) slice allows
+//   it), one warp per query row holding one key column per lane (Tk <=
+//   32), the q and k rows read as float4 (row stride padded so those reads
+//   are free of bank conflicts), the row max and sum by shuffles, and the
+//   weighted values accumulated with each lane owning up to four columns
+//   of D, one weight shuffle per key feeding them all.
+//
+// The backward (contiguous operands) recomputes the softmax and the mask
+// from the seed, keeps the dropped weights and the logit gradients (Tq x
+// Tk f32) in shared memory, then forms dq, dk and dv one output element
+// per thread. The bias gradient sums over the batch: each (b, h) block
+// writes its Tq x Tk logit gradients and a second kernel sums them over b
+// (and over heads for a (1, Tq, Tk) bias) in a fixed order, so the result
+// is the same on every run (no float atomics).
 //
 // Rounding points follow the plain versions in attention_core.py: q * scale
 // (the scale in T) is rounded to T, logits, softmax and dropout are f32,
@@ -42,6 +60,8 @@
 #include <math.h>
 
 #include "hash_dropout.cuh"
+#include "mma_sync.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -341,6 +361,306 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias, co
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route ("mma"): a batch element a unit of work, every head of it
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaStages = 1;           // slices a block holds (2: a persistent ring)
+constexpr long kMaxSmem = 232448;       // dynamic shared memory a block may use
+
+// Where row r of head h lies in an operand's batch-element slice: element
+// h * head + r * row. Layout 0, the contiguous (B, H, T, D): head = T D,
+// row = D; layout 1, the (B, H, T, D) view of a contiguous (B, T, H D):
+// head = D, row = H D. Either way the slice is H T D contiguous elements.
+struct Slice {
+  int head, row;
+};
+
+inline Slice slice_of(int layout, int heads, int tokens, int depth) {
+  return layout == 0 ? Slice{tokens * depth, depth} : Slice{depth, heads * depth};
+}
+
+// Everything a launch of attention_core_mma_kernel takes; out has q's layout.
+struct MmaArgs {
+  const __nv_bfloat16 *q, *k, *v;
+  const float* bias;
+  __nv_bfloat16* out;
+  int batch, heads, tq, tk, depth, bias_heads;
+  Slice qs, ks, vs;
+  float scale;
+  vptr_dropout::Params drop;
+};
+
+// Bytes of one stage: the q, k and v slices of a batch element.
+inline long mma_stage_bytes(int heads, int tq, int tk, int depth) {
+  return 2L * heads * (tq + 2L * tk) * depth;
+}
+
+// Whether the mma kernel takes the shape: bf16, each slice a whole number
+// of 16-byte vectors (the bulk copies and the vector stores need it), the
+// stages and their barriers within a block's shared memory.
+bool mma_takes(int heads, int tq, int tk, int depth, int dtype) {
+  return dtype == 1 && (static_cast<long>(heads) * tq * depth) % 8 == 0 &&
+         (static_cast<long>(heads) * tk * depth) % 8 == 0 &&
+         kMmaStages * (mma_stage_bytes(heads, tq, tk, depth) + 8) <= kMaxSmem;
+}
+
+// One 1-D bulk copy (the async proxy) of `bytes` from device memory into
+// shared memory, completing on bar; both addresses 16-byte aligned, bytes
+// a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A q pair times the scale in one bf16x2 multiply, correctly rounded as
+// the plain version's q * scale in bf16 is.
+__device__ __forceinline__ uint32_t scaled_pair(uint32_t pair, __nv_bfloat162 scale) {
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&pair), scale);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// A block walks the batch elements e = blockIdx.x, + gridDim.x, ...: one
+// thread stages e's q, k and v slices with three bulk copies on the stage's
+// mbarrier, warp w takes the heads w, w + 8, ... of the staged element as
+// window_fwd_kernel takes a window's heads (q k^T on mma.sync, the softmax
+// on the quads' accumulators, the weights rounded into P's A fragments, P v
+// on mma.sync), writes the head's output over its q, and the block stores
+// the slice whole in 16-byte vectors. MQ: 16-row query tiles (Tq <= 16 or
+// <= 32), KS: 16-key steps of P v (Tk <= 16 or <= 32), so the logits are
+// MQ x 2 KS tiles of 16 x 8. With kMmaStages = 2 (a design measured and
+// not kept) the block is persistent and the next element's copies fly
+// while this one computes.
+template <int MQ, int KS, bool PAIRS>
+__global__ void __launch_bounds__(kMmaThreads, MQ == 1 && KS == 1 ? 4 : 3)
+attention_core_mma_kernel(const MmaArgs a) {
+  constexpr int NT = 2 * KS;
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth;
+  const int qn = a.heads * tq * hd, kn = a.heads * tk * hd;  // slice elements
+  const int stage = qn + 2 * kn;
+  bf16* const stages = reinterpret_cast<bf16*>(smem_mma);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(stages + kMmaStages * stage);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const __nv_bfloat162 scale = __float2bfloat162_rn(a.scale);  // exact: a bf16 value
+
+  auto stage_in = [&](long e, int s) {           // thread 0
+    bf16* dst = stages + s * stage;
+    mbar_expect_tx(bars + s, 2u * stage, true);
+    bulk_load(dst, a.q + e * qn, 2u * qn, bars + s);
+    bulk_load(dst + qn, a.k + e * kn, 2u * kn, bars + s);
+    bulk_load(dst + qn + kn, a.v + e * kn, 2u * kn, bars + s);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMmaStages; ++s) mbar_init(bars + s, 1);
+    mbar_fence_init();
+    for (int s = 0; s < kMmaStages; ++s) {
+      const long e = blockIdx.x + static_cast<long>(s) * gridDim.x;
+      if (e < a.batch) stage_in(e, s);
+    }
+  }
+  __syncthreads();                               // the barriers are initialised
+
+  int it = 0;
+  for (long e = blockIdx.x; e < a.batch; e += gridDim.x, ++it) {
+    const int s = it % kMmaStages;
+    bf16* const qs = stages + s * stage;          // q, then the output
+    const bf16* const ks = qs + qn;
+    const bf16* const vs = ks + kn;
+    mbar_wait(bars + s, (it / kMmaStages) & 1);
+
+    for (int h = warp; h < a.heads; h += kMmaWarps) {
+      bf16* const qh = qs + h * a.qs.head;
+      const bf16* const kh = ks + h * a.ks.head;
+      const bf16* const vh = vs + h * a.vs.head;
+      const int qr = a.qs.row, kr = a.ks.row, vr = a.vs.row;
+
+      // logits s[mt][nt]: query rows 16 mt + g (+ 8), keys 8 nt + 2t (+ 1)
+      float sc[MQ][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[mt][nt][x] = 0.f;
+      for (int k0 = 0; k0 < hd; k0 += 16) {
+        uint32_t af[MQ][4];
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt) {
+          const int i0 = 16 * mt + g, i1 = i0 + 8;
+          af[mt][0] = scaled_pair(load_pair<PAIRS>(qh + i0 * qr, k0 + 2 * t, hd, i0 < tq), scale);
+          af[mt][1] = scaled_pair(load_pair<PAIRS>(qh + i1 * qr, k0 + 2 * t, hd, i1 < tq), scale);
+          af[mt][2] =
+              scaled_pair(load_pair<PAIRS>(qh + i0 * qr, k0 + 2 * t + 8, hd, i0 < tq), scale);
+          af[mt][3] =
+              scaled_pair(load_pair<PAIRS>(qh + i1 * qr, k0 + 2 * t + 8, hd, i1 < tq), scale);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (8 * nt >= tk) break;                   // warp-uniform
+          const int j = 8 * nt + g;
+          const uint32_t b0 = load_pair<PAIRS>(kh + j * kr, k0 + 2 * t, hd, j < tk);
+          const uint32_t b1 = load_pair<PAIRS>(kh + j * kr, k0 + 2 * t + 8, hd, j < tk);
+#pragma unroll
+          for (int mt = 0; mt < MQ; ++mt) mma_16816(sc[mt][nt], af[mt], b0, b1);
+        }
+      }
+      __syncwarp();                                // q is read: the output takes its place
+
+      // the bias, the softmax over each row (a quad of lanes holds it; the
+      // exponential on the SFU, one reciprocal a row), the dropout, the
+      // weights rounded to bf16 as P's A fragments: logit tiles 2 ks and
+      // 2 ks + 1 are P's 16-key step ks
+      const float* bias_h =
+          a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+      uint32_t p[MQ][KS][4];
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (16 * mt + 8 * hh >= tq) {              // rows past Tq: weight 0 (warp-uniform)
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) p[mt][kk][hh] = p[mt][kk][2 + hh] = 0u;
+            continue;
+          }
+          const int i = 16 * mt + g + 8 * hh;
+          float m = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int j = 8 * nt + 2 * t + x;
+              float l = -INFINITY;
+              if (i < tq && j < tk) {
+                l = sc[mt][nt][2 * hh + x];
+                if (bias_h) l += __ldg(bias_h + i * tk + j);
+              }
+              sc[mt][nt][2 * hh + x] = l;
+              m = fmaxf(m, l);
+            }
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int j = 8 * nt + 2 * t + x;
+              const float y = i < tq && j < tk ? __expf(sc[mt][nt][2 * hh + x] - m) : 0.f;
+              sc[mt][nt][2 * hh + x] = y;
+              sum += y;
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          const float rcp = 1.f / sum;
+          const uint32_t row_idx = vptr_dropout::element_index(
+              static_cast<uint32_t>(e), a.heads, h, tq, i, tk, 0);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            float wv[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int j = 8 * nt + 2 * t + x;
+              float w = 0.f;                         // rows and keys past Tq, Tk: weight 0
+              if (i < tq && j < tk) {
+                w = sc[mt][nt][2 * hh + x] * rcp;
+                if (a.drop.active()) w = a.drop.apply(w, a.drop.keep(row_idx + j, seed));
+              }
+              wv[x] = w;
+            }
+            p[mt][nt >> 1][2 * (nt & 1) + hh] = pack_bf16(wv[0], wv[1]);
+          }
+        }
+
+      // P v, eight columns of the head at a time, over the head's q
+      for (int n0 = 0; n0 < hd; n0 += 8) {
+        float o[MQ][4];
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) o[mt][x] = 0.f;
+        const int d = n0 + g;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t b[2];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j = 16 * kk + 8 * half + 2 * t;
+            const uint32_t lo =
+                j < tk && d < hd ? *reinterpret_cast<const uint16_t*>(vh + j * vr + d) : 0u;
+            const uint32_t hi =
+                j + 1 < tk && d < hd ? *reinterpret_cast<const uint16_t*>(vh + (j + 1) * vr + d)
+                                     : 0u;
+            b[half] = lo | hi << 16;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MQ; ++mt) mma_16816(o[mt], p[mt][kk], b[0], b[1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 16 * mt + g + 8 * hh, c = n0 + 2 * t;
+            if (i >= tq) continue;
+            bf16* const dst = qh + i * qr + c;
+            if constexpr (PAIRS) {
+              if (c < hd)
+                *reinterpret_cast<__nv_bfloat162*>(dst) =
+                    __floats2bfloat162_rn(o[mt][2 * hh], o[mt][2 * hh + 1]);
+            } else {
+              if (c < hd) dst[0] = __float2bfloat16_rn(o[mt][2 * hh]);
+              if (c + 1 < hd) dst[1] = __float2bfloat16_rn(o[mt][2 * hh + 1]);
+            }
+          }
+      }
+    }
+    __syncthreads();
+
+    // the output slice, in q's layout, stored whole
+    const uint4* src = reinterpret_cast<const uint4*>(qs);
+    uint4* dst = reinterpret_cast<uint4*>(a.out + e * qn);
+    for (int c = threadIdx.x; c < qn / 8; c += kMmaThreads) dst[c] = src[c];
+    const long next = e + static_cast<long>(kMmaStages) * gridDim.x;
+    if (next < a.batch) {                          // block-uniform: refill this stage
+      fence_proxy_async();                         // generic accesses before the async copies
+      __syncthreads();
+      if (threadIdx.x == 0) stage_in(next, s);
+    }
+  }
+}
+
+int launch_mma(const MmaArgs& a, cudaStream_t stream) {
+  using Kernel = void (*)(const MmaArgs);
+  static const Kernel kernels[2][2][2] = {
+      {{&attention_core_mma_kernel<1, 1, false>, &attention_core_mma_kernel<1, 1, true>},
+       {&attention_core_mma_kernel<1, 2, false>, &attention_core_mma_kernel<1, 2, true>}},
+      {{&attention_core_mma_kernel<2, 1, false>, &attention_core_mma_kernel<2, 1, true>},
+       {&attention_core_mma_kernel<2, 2, false>, &attention_core_mma_kernel<2, 2, true>}}};
+  const Kernel kernel = kernels[a.tq > 16][a.tk > 16][a.depth % 2 == 0];
+  const int smem = static_cast<int>(
+      kMmaStages * (mma_stage_bytes(a.heads, a.tq, a.tk, a.depth) + 8));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = a.batch;
+  if (kMmaStages > 1) {                          // persistent: as many blocks as fit
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
+    if (err != cudaSuccess) return err;
+    blocks = per_sm * sms < blocks ? per_sm * sms : blocks;
+  }
+  kernel<<<blocks, kMmaThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias,
                int bias_heads, int dtype, const void* seed, float rate) {
   return batch < 1 || heads < 1 || tq < 1 || tq > kMaxTokens || tk < 1 ||
@@ -358,16 +678,37 @@ const char* vptr_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. seed: device int32 (may be null when
-// rate == 0); keep_div = (float)(1 - rate). Returns a cudaError_t (0 =
-// launched).
+// rate == 0); keep_div = (float)(1 - rate). route: 0 = the FMA kernel (q,
+// k, v and out contiguous), 1 = the mma kernel (bf16; each of q, k, v in
+// layout 0 or 1 of Slice, out in q's). Returns a cudaError_t (0 =
+// launched); a route that does not take the shape is cudaErrorInvalidValue.
 int vptr_attention_core(const void* q, const void* k, const void* v, const void* bias,
                         void* out, int batch, int heads, int tq, int tk, int depth,
                         int bias_heads, float scale, const void* seed, float rate,
-                        float keep_div, int dtype, void* stream) {
+                        float keep_div, int dtype, int route, int q_layout, int k_layout,
+                        int v_layout, void* stream) {
   if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate))
     return cudaErrorInvalidValue;
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int layouts[3] = {q_layout, k_layout, v_layout};
+  for (int l : layouts)
+    if (l != 0 && (l != 1 || route != 1)) return cudaErrorInvalidValue;
+  if (route == 1) {
+    if (!mma_takes(heads, tq, tk, depth, dtype)) return cudaErrorInvalidValue;
+    const MmaArgs a{static_cast<const __nv_bfloat16*>(q),
+                    static_cast<const __nv_bfloat16*>(k),
+                    static_cast<const __nv_bfloat16*>(v),
+                    static_cast<const float*>(bias),
+                    static_cast<__nv_bfloat16*>(out),
+                    batch, heads, tq, tk, depth, bias_heads,
+                    slice_of(q_layout, heads, tq, depth),
+                    slice_of(k_layout, heads, tk, depth),
+                    slice_of(v_layout, heads, tk, depth),
+                    scale, drop};
+    return launch_mma(a, s);
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, bias, out, batch, heads, tq, tk, depth, bias_heads,
                          scale, drop, s);

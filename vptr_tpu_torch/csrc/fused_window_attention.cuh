@@ -64,6 +64,7 @@
 #pragma once
 
 #include "hash_dropout.cuh"
+#include "mma_sync.cuh"
 #include "tile_ops.cuh"
 #include "wg_rows.cuh"
 
@@ -309,39 +310,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
-
-// d (16 x 8, f32) += A (16 x 16) B (16 x 8), bf16 fragments as PTX lays
-// them out for m16n8k16: with g = lane / 4 and t = lane % 4, a[0..3] hold
-// A[g][2t..], A[g + 8][2t..], A[g][2t + 8..], A[g + 8][2t + 8..]; b[0..1]
-// B[2t..][g], B[2t + 8..][g] (two values each, the lower index in the low
-// half); d[0..1] D[g][2t..], d[2..3] D[g + 8][2t..].
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Elements d and d + 1 of row p (zero past the head width hd, or when the
-// row is not there): one 4-byte load where hd is even (PAIRS: a pair never
-// straddles a head), two 2-byte loads otherwise.
-template <bool PAIRS>
-__device__ __forceinline__ uint32_t load_pair(const bf16* p, int d, int hd, bool row) {
-  if constexpr (PAIRS) {
-    return row && d < hd ? *reinterpret_cast<const uint32_t*>(p + d) : 0u;
-  } else {
-    const uint32_t lo = row && d < hd ? *reinterpret_cast<const uint16_t*>(p + d) : 0u;
-    const uint32_t hi = row && d + 1 < hd ? *reinterpret_cast<const uint16_t*>(p + d + 1) : 0u;
-    return lo | hi << 16;
-  }
 }
 
 // A block stages the q, k, v rows of one window (two windows a block read

@@ -235,14 +235,13 @@ class MultiHeadAttention(nn.Module):
         k = _linear(self.k_proj, k_in, self.dtype)
         v = _linear(self.v_proj, v_in, self.dtype)
 
-        def heads(z):  # (..., L, C) -> (B, H, L, hd), contiguous
+        def heads(z):  # (..., L, C) -> (B, H, L, hd): a view of the projection
             z = z.reshape(z.shape[:-1] + (self.num_heads, hd))
-            return z.movedim(-2, -3).reshape(
-                (-1, self.num_heads, z.shape[-3], hd)).contiguous()
+            return z.movedim(-2, -3).reshape((-1, self.num_heads, z.shape[-3], hd))
 
         core = attention_core if self.fused and not plain else attention_core_plain
         out = core(heads(q), heads(k), heads(v), bias, seed, rate)
-        out = out.transpose(1, 2).reshape(q.shape)
+        out = out.transpose(1, 2).reshape(q.shape)   # a view where out has q's layout
         return _linear(self.out_proj, out, self.dtype)
 
 

@@ -6,6 +6,16 @@ kernels ``_core_forward`` (``pl.pallas_call`` at :188) and ``_core_backward``
 ``csrc/attention_core.cu`` (CUDA C++ for sm_90a); its source note says what
 bounds each on the card and what its design does about that.
 
+* The forward has two routes, named by :func:`kernel_route` from the
+  shapes: "mma" (bf16: a batch element a block, q k^T and P v on the
+  tensor cores) and "fma" (f32, and the bf16 shapes "mma" does not take).
+* q, k and v may each be contiguous (B, H, T, D) or the (B, H, T, D) view
+  of a contiguous (B, T, H*D) tensor, the layout of the attention layer's
+  projections (``heads()`` in ``models/layers.py``); the output has q's
+  layout. The "fma" kernel reads contiguous operands, so on that route
+  the wrapper copies a strided operand first. The backward kernel, too,
+  takes contiguous operands: ``_AttentionCore.backward`` copies them.
+
 * :func:`attention_core` is the wrapper, a ``torch.autograd.Function``. A
   CUDA tensor launches the kernels (or raises); a CPU tensor takes
   :func:`attention_core_plain` forward and
@@ -35,7 +45,36 @@ from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dropout_keep_mask
 
 MAX_TOKENS = 32
 MAX_DEPTH = 128
+MAX_SMEM = 232448          # dynamic shared memory of a block on the H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"fma": 0, "mma": 1}
+
+
+def kernel_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
+                 depth: int) -> str:
+    """The forward kernel that takes (B, ``heads``, Tq, D) attention: "mma"
+    for bf16 where each batch element's q and k/v slices are whole 16-byte
+    vectors (for the bulk copies and the vector stores) and q, k and v of
+    one element fit a block's shared memory (with its 8-byte barrier);
+    "fma" otherwise. Both layouts keep an element's slice contiguous, so
+    the layout does not enter. Raises beyond Tq, Tk <= 32 and D <= 128."""
+    if not (tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH):
+        raise ValueError(f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} "
+                         f"and D <= {MAX_DEPTH}, got Tq={tq} Tk={tk} D={depth}")
+    if (dtype == torch.bfloat16 and heads * tq * depth % 8 == 0
+            and heads * tk * depth % 8 == 0
+            and 2 * heads * (tq + 2 * tk) * depth + 8 <= MAX_SMEM):
+        return "mma"
+    return "fma"
+
+
+def layout(t: torch.Tensor) -> Optional[int]:
+    """0 for a contiguous (B, H, T, D) tensor, 1 for the (B, H, T, D) view
+    of a contiguous (B, T, H*D) one (strides (T H D, D, H D, 1)), None for
+    any other strides. Where H or T is 1 the two coincide: 0."""
+    if t.is_contiguous():
+        return 0
+    return 1 if t.transpose(1, 2).is_contiguous() else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,7 +170,8 @@ class _AttentionCore(torch.autograd.Function):
         q, k, v, bias, seed = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[3]
         dq, dk, dv, dbias = attention_core_backward(
-            q, k, v, bias, seed, g.contiguous(), ctx.rate, need_dbias)
+            q.contiguous(), k.contiguous(), v.contiguous(), bias, seed,
+            g.contiguous(), ctx.rate, need_dbias)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, None, None
@@ -140,10 +180,11 @@ class _AttentionCore(torch.autograd.Function):
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, seed: Seed = 0,
                    dropout_rate: float = 0.0) -> torch.Tensor:
-    """q: (B, H, Tq, D), k/v: (B, H, Tk, D), Tq/Tk <= 32, D <= 128;
+    """q: (B, H, Tq, D), k/v: (B, H, Tk, D), Tq/Tk <= 32, D <= 128, each
+    contiguous or the (B, H, T, D) view of a contiguous (B, T, H*D);
     ``bias``: None or (1 | H, Tq, Tk) additive logits (a causal mask as
-    -1e30). Returns (B, H, Tq, D) in q's dtype; differentiable in q, k, v
-    and bias."""
+    -1e30). Returns (B, H, Tq, D) in q's dtype (on the card in q's
+    layout); differentiable in q, k, v and bias."""
     if q.device.type != "cpu" and not q.is_cuda:
         raise ValueError(f"attention_core: unsupported device {q.device}")
     rate = float(dropout_rate)
@@ -172,9 +213,10 @@ def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
                             need_dbias and bias is not None)
 
 
-def _check(q, k, v, bias):
-    """Shape, dtype and layout checks; returns (bias f32 contiguous or
-    None, bias_heads)."""
+def _check(q, k, v, bias, strided: bool = False):
+    """Shape, dtype and layout checks (``strided``: each of q, k, v may
+    also be in layout 1); returns (bias f32 contiguous or None,
+    bias_heads, the layouts of q, k, v)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
@@ -186,17 +228,21 @@ def _check(q, k, v, bias):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention_core kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"attention_core: {name} must be contiguous on "
+    layouts = tuple(layout(t) for t in (q, k, v))
+    for name, t, lay in zip("qkv", (q, k, v), layouts):
+        if (lay is None or (lay and not strided) or t.device != q.device
+                or t.data_ptr() % 16):
+            what = ("contiguous or the (B, H, T, D) view of a contiguous "
+                    "(B, T, H*D)") if strided else "contiguous"
+            raise ValueError(f"attention_core: {name} must be {what} on "
                              f"{q.device} (16-byte aligned)")
     if bias is None:
-        return None, 0
+        return None, 0, layouts
     bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
     if bias.shape not in ((1, tq, tk), (h, tq, tk)):
         raise ValueError(f"attention_core: bias {tuple(bias.shape)} is "
                          f"not (1|{h}, {tq}, {tk})")
-    return bias, bias.shape[0]
+    return bias, bias.shape[0], layouts
 
 
 def _dropout_args(seed, rate):
@@ -207,22 +253,29 @@ def _dropout_args(seed, rate):
 
 
 def _forward_kernel(q, k, v, bias, seed, rate):
-    bias, bias_heads = _check(q, k, v, bias)
+    bias, bias_heads, layouts = _check(q, k, v, bias, strided=True)
     b, h, tq, d = q.shape
-    out = torch.empty_like(q)
+    route = kernel_route(q.dtype, h, tq, k.shape[2], d)
+    out = torch.empty_like(q)            # q's layout (its strides kept)
+    ops, res = (q, k, v), out
+    if route == "fma" and any(layouts):  # the FMA kernel reads contiguous rows
+        ops, layouts = tuple(t.contiguous() for t in ops), (0, 0, 0)
+        res = out if out.is_contiguous() else torch.empty_like(ops[0])
     lib = _lib()
     err = lib.vptr_attention_core(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(bias),
-        out.data_ptr(), b, h, tq, k.shape[2], d, bias_heads,
-        q_scale(d, q.dtype), *_dropout_args(seed, rate), _DTYPES[q.dtype],
+        *(t.data_ptr() for t in ops), _build.ptr(bias), res.data_ptr(), b, h,
+        tq, k.shape[2], d, bias_heads, q_scale(d, q.dtype),
+        *_dropout_args(seed, rate), _DTYPES[q.dtype], _ROUTES[route], *layouts,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "attention_core")
+    _build.check(lib, err, f"attention_core ({route} route)")
     attention_core.launches += 1
+    if res is not out:
+        out.copy_(res)
     return out
 
 
 def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
-    bias, bias_heads = _check(q, k, v, bias)
+    bias, bias_heads, _ = _check(q, k, v, bias)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
@@ -250,7 +303,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_attention_core
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f, i, p]
+        fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
         bwd = lib.vptr_attention_core_bwd
         bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f, i, p]
