@@ -7,8 +7,8 @@ Phases (any failure exits non-zero, without the final result line):
 2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and print the build time and ptxas's register / spill report and any
    warning that it serialised wgmma products (C7520), and each
-   instantiation of #2's bf16 kernel (attention_core_mma_kernel) by name
-   with its registers and spills;
+   instantiation of #2's and #4's bf16 kernels (attention_core_mma_kernel,
+   attention_core_bwd_mma_kernel) by name with its registers and spills;
    count the HGMMA (wgmma) instructions in the SASS of the conv_ln_gelu,
    fused_ffn and window-attention libraries, forward and backward (#11,
    #12, #7, #8, and #1, #5, #3, #6) (cuobjdump), and fail if any has
@@ -26,7 +26,12 @@ Phases (any failure exits non-zero, without the final result line):
    with dropout 0 and 0.1;
    both backward kernels at the training shapes (window 760 x 16 x 528,
    core 640 x 8 x 19 x 66), dropout 0 and 0.1, with a per-head bias for
-   the bias gradients;
+   the bias gradients; the attention core's backward (#4) also on q, k,
+   v and g in the layer's strided layout (the route backward_route names;
+   dq, dk, dv in their inputs' layouts): the FAR step's 640 x 8 x 19
+   causal with dropout 0.1, nar_mnist's 1024 x 8 x 10 with dropout 0 and
+   0.1, and 640 x 8 x 19 with an 8-head bias and its gradient (two calls
+   bit-equal, dbias included);
 4. build far_mnist at full width from a seed (AE ngf 64 / feat 528 / 9 res
    blocks, FAR 12 layers / d 528 / 8 heads), run the far_rip predict entry
    point for 10 frames from 10 past frames at batch 10 with every launch
@@ -118,9 +123,11 @@ Phases (any failure exits non-zero, without the final result line):
    16, #6 8, #4 8), each against kernels="plain";
 20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
-   and resident clusters; #2 timed in the layer's strided layout, with its
-   route, its contiguous-layout time and its NAR-shape time, each also
-   replayed from a CUDA graph) and, last, {"ok": true, "device": {...}}.
+   and resident clusters; #2 and #4 timed in the layer's strided layout,
+   their library yardsticks too, with the route, the contiguous-layout
+   time (and #4's error there) and the NAR-shape time, each also replayed
+   from a CUDA graph) and,
+   last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -1358,12 +1365,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "C7520" in line:   # serialised wgmma
                 print(f"  {name}: {line.strip()}")
     core_log = paths["attention_core"].with_suffix(".log")
-    core_report = ptxas_report(core_log.read_text() if core_log.is_file() else "",
-                               "attention_core_mma_kernel")
-    for line in core_report:
-        print(f"  #2 bf16 kernel {line}")
-    check(len(core_report) > 0, f"ptxas reports attention_core_mma_kernel "
-          f"({len(core_report)} lines)")
+    for number, kernel in (("#2", "attention_core_mma_kernel"),
+                           ("#4", "attention_core_bwd_mma_kernel")):
+        core_report = ptxas_report(core_log.read_text() if core_log.is_file() else "",
+                                   kernel)
+        for line in core_report:
+            print(f"  {number} bf16 kernel {line}")
+        check(len(core_report) > 0, f"ptxas reports {kernel} ({len(core_report)} lines)")
     for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
                 "fused_window_attention_ln", "fused_window_attention",
                 "fused_window_attention_ln_bwd", "fused_window_attention_bwd"):
@@ -1547,6 +1555,32 @@ def main() -> int:
                 if dtype == torch.bfloat16 and r > 0 and bias is tcausal:
                     errs[("core_bwd", dtype)] = max(
                         max_err(a, b) for a, b in zip(got, want) if b is not None)
+        # #4 on the layer's strided q, k, v and g: the FAR step's, NAR's, and
+        # an 8-head bias with its gradient (two calls bit-equal)
+        hbias = torch.randn(heads, tt, tt, generator=g).to(dev)
+        for b_, t_, bias_, r_, what in ((cols, tt, causal[:, :tt, :tt], rate, "FAR step"),
+                                        (nar_cols, 10, None, 0.0, "NAR"),
+                                        (nar_cols, 10, None, rate, "NAR step"),
+                                        (cols, tt, hbias, rate, "8-head bias, dbias")):
+            sq, sk, sv = strided_operands(dtype, b_, t_, t_)
+            sg = strided_operands(dtype, b_, t_, t_)[0]
+            got = tac.attention_core_backward(sq, sk, sv, bias_, kseed, sg, r_)
+            want = attention_core_backward_plain(sq, sk, sv, bias_, kseed, sg, r_)
+            n_worst, worst = worst_rel(got, want, ("dq", "dk", "dv", "dbias"))
+            strides = all(a.stride() == x.stride() for a, x in zip(got, (sq, sk, sv)))
+            same = True
+            if bias_ is hbias:
+                again = tac.attention_core_backward(sq, sk, sv, bias_, kseed, sg, r_)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(worst <= bwd_tol[dtype] and strides and same,
+                  f"attention_core backward {name} strided {what} {tuple(sq.shape)} "
+                  f"({tac.backward_route(dtype, heads, t_, t_, hd)} route) dropout {r_}: "
+                  f"worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}, dq, dk, "
+                  f"dv in their inputs' layouts" + (", two calls bit-equal"
+                                                     if bias_ is hbias else ""))
+            errs[("core_bwd_strided", what, dtype)] = max(
+                max_err(a, b) for a, b in zip(got, want) if b is not None)
+            del sq, sk, sv, sg, got, want
     torch.cuda.synchronize()
 
     phase("4. far_mnist full width, far_rip predict")
@@ -1662,6 +1696,10 @@ def main() -> int:
     tq_, tk_, tv_ = core_operands(bf, tq=tt, tk=tt)
     gcore = core_operands(bf, tq=tt, tk=tt)[0]
     tcausal = causal[:, :tt, :tt]
+    # #4's operands as the FAR step's layer gives them: q, k, v and g views
+    # of (B, T, H*D) tensors
+    bq_, bk_, bv_ = strided_operands(bf, cols, tt, tt)
+    bg_ = strided_operands(bf, cols, tt, tt)[0]
     cb_bytes = 7 * cols * heads * tt * hd * s + tt * tt * 4
     cb_flops = 10 * cols * heads * tt * tt * hd
 
@@ -1672,7 +1710,7 @@ def main() -> int:
     def core_library(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf))
 
-    core_lib_bwd = grads_of(core_library, (tq_, tk_, tv_), gcore)
+    core_lib_bwd = grads_of(core_library, (bq_, bk_, bv_), bg_)
 
     # #1's and #3's yardsticks replayed from CUDA graphs (no host between
     # launches)
@@ -1681,7 +1719,7 @@ def main() -> int:
                                                     lib_g),
              "attention_core": graph_ms(
                  lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(bf))),
-             "attention_core_bwd": graph_bwd_ms(core_library, (tq_, tk_, tv_), gcore)}
+             "attention_core_bwd": graph_bwd_ms(core_library, (bq_, bk_, bv_), bg_)}
     print(f"  library yardsticks replayed from CUDA graphs: fused_attention_ln "
           f"{graph['fused_attention_ln']:.4f} ms, attention_core {graph['attention_core']:.4f} "
           f"ms")
@@ -1712,12 +1750,12 @@ def main() -> int:
          train_launches["fused_attention_ln_bwd"]),
         ("attention_core_bwd", "vptr_tpu_torch/csrc/attention_core.cu",
          "vptr_tpu/ops/attention_core.py:317",
-         lambda: tac.attention_core_backward(tq_, tk_, tv_, tcausal, kseed,
-                                             gcore, rate, need_dbias=False),
-         lambda: attention_core_backward_plain(tq_, tk_, tv_, tcausal, kseed,
-                                               gcore, rate, False),
+         lambda: tac.attention_core_backward(bq_, bk_, bv_, tcausal, kseed,
+                                             bg_, rate, need_dbias=False),
+         lambda: attention_core_backward_plain(bq_, bk_, bv_, tcausal, kseed,
+                                               bg_, rate, False),
          core_lib_bwd,
-         cb_bytes, cb_flops, errs[("core_bwd", bf)],
+         cb_bytes, cb_flops, errs[("core_bwd_strided", "FAR step", bf)],
          train_launches["attention_core_bwd"]),
     ):
         before = (attention_core.launches, fused_attention_ln.launches,
@@ -1764,10 +1802,38 @@ def main() -> int:
           f"{k1:.4f}/{k2:.4f}, graph {core_row['contiguous_graph_ms']:.4f}; NAR shape "
           f"{tuple(nq.shape)}: {core_row['nar_shape']}")
 
+    # #4 likewise: the layer's layout above; contiguous operands; nar_mnist's
+    # step shape (1024 x 8 x 10, no bias, dropout 0.1, the layer's layout)
+    bwd_row = next(row for row in rows_out if row["name"] == "attention_core_bwd")
+    bwd_row["backward_route"] = tac.backward_route(bf, heads, tt, tt, hd)
+    # max_abs_err above is on the layer's strided operands; this one on the
+    # contiguous operands of phase 3 (the FAR step's, dropout 0.1, causal)
+    bwd_row["contiguous_max_abs_err"] = errs[("core_bwd", bf)]
+    bwd = lambda *ops: (lambda: tac.attention_core_backward(
+        *ops[:3], ops[4], kseed, ops[3], rate, need_dbias=False))
+    bwd_row["graph_ms"] = graph_ms(bwd(bq_, bk_, bv_, bg_, tcausal))
+    k1, k2 = (cuda_ms(bwd(tq_, tk_, tv_, gcore, tcausal)) for _ in range(2))
+    bwd_row["contiguous_ms"] = min(k1, k2)
+    bwd_row["contiguous_graph_ms"] = graph_ms(bwd(tq_, tk_, tv_, gcore, tcausal))
+    nops = strided_operands(bf, nar_cols, 10, 10) + strided_operands(bf, nar_cols, 10, 10)[:1]
+    k_ms, p_ms = timed_turns(bwd(*nops, None), lambda: attention_core_backward_plain(
+        *nops[:3], None, kseed, nops[3], rate, False))
+    n_lib = lambda q, k, v: F.scaled_dot_product_attention(q, k, v)
+    b_ms, b_by = bound(7 * nar_cols * heads * 10 * hd * s, 10 * nar_cols * heads * 100 * hd)
+    bwd_row["nar_shape"] = dict(
+        ms=k_ms, graph_ms=graph_ms(bwd(*nops, None)), plain_ms=p_ms,
+        library_ms=cuda_ms(grads_of(n_lib, nops[:3], nops[3])),
+        library_graph_ms=graph_bwd_ms(n_lib, nops[:3], nops[3]), bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=errs[("core_bwd_strided", "NAR step", bf)])
+    print(f"  attention_core_bwd ({bwd_row['backward_route']} route): the layer's layout "
+          f"{bwd_row['ms']:.4f} ms, graph {bwd_row['graph_ms']:.4f}; contiguous "
+          f"{k1:.4f}/{k2:.4f}, graph {bwd_row['contiguous_graph_ms']:.4f}; NAR shape "
+          f"{tuple(nops[0].shape)}: {bwd_row['nar_shape']}")
+
     # the FAR path's modules and operands go before the NAR phases
     del enc, dec, tr, predict, far, wops, tops, q, k, v, window_lib_bwd, core_lib_bwd
     del sq, sk, sv, nq, nk, nv
-    del gwin, gcore, tq_, tk_, tv_
+    del gwin, gcore, tq_, tk_, tv_, bq_, bk_, bv_, bg_, nops
     torch.cuda.empty_cache()
     nar_rows, nar_extra, nar_summary = nar_phases(dev)
     rows_out += nar_rows

@@ -1,7 +1,8 @@
-"""Where kernel #2's (attention core forward, bf16 "mma" route) time goes,
-on one GPU.
+"""Where kernel #2's (attention core forward, bf16 "mma" route) or, with
+--bwd, kernel #4's (its backward, bf16 "mma" route) time goes, on one GPU.
 
-    python3 scripts/torch_port_core_probe.py [--repeats 3] [--only NAME ...]
+    python3 scripts/torch_port_core_probe.py [--bwd] [--repeats 3]
+        [--only NAME ...]
 
 Times attention_core in bf16 at the shapes its paths give it: far_rip's
 640 x 8 heads x 20 x 66 with the causal bias, on contiguous q, k, v
@@ -21,7 +22,15 @@ and of 50 replays of the call captured in a CUDA graph ("... (graph)":
 the device time alone); --repeats times, the best kept; and its largest
 difference from the plain version ("... max|err|"; a variant that keeps
 the work whole should stay within 2^-4). A last case times far_rip's
-contiguous shape again on operands allocated after the others. The copies' libraries are all built first, in parallel. Prints
+contiguous shape again on operands allocated after the others. With
+--bwd the cases are the backward's: the FAR step's 640 x 8 x 19 causal
+with dropout 0.1 on the layer's strided q, k, v, g ("FAR step strided")
+and on contiguous ones ("FAR step contiguous"), and the NAR step's 1024 x
+8 x 10 with dropout 0.1, strided ("NAR step strided"); the variants
+BWD_VARIANTS, and the error is the largest of dq's, dk's and dv's
+relative to max(1, the plain gradient's largest magnitude) (a variant
+that keeps the work whole should stay within 2^-5). The copies'
+libraries are all built first, in parallel. Prints
 one JSON line with every reading, the card's name, and each variant's
 time less the committed kernel's (the mean of its two readings). Exits
 non-zero without a GPU.
@@ -38,7 +47,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CORE = "csrc/attention_core.cu"
-# variant -> [(text it replaces (every occurrence), replacement), ...]
+# variant -> [(text it replaces (every occurrence), replacement), ...]; a
+# forward variant's text may also occur in the backward kernel, which the
+# forward's cases do not run
 VARIANTS = {
     "persistent ring of two stages": [
         ("constexpr int kMmaStages = 1;", "constexpr int kMmaStages = 2;")],
@@ -62,11 +73,45 @@ VARIANTS = {
         ("dst[c] = src[c];", "if (src[c].x == 0x12345u) dst[c] = src[c];")],
 }
 
+# the same for #4's bf16 kernel, attention_core_bwd_mma_kernel
+BWD_VARIANTS = {
+    "dropout quotient by division": [
+        ("a.drop.apply_rcp(w, kept, keep_rcp)", "a.drop.apply(w, kept)"),
+        ("a.drop.apply_rcp(dwd, kept, keep_rcp)", "a.drop.apply(dwd, kept)")],
+    "one chunk at a time": [
+        ("#pragma unroll 2\n  for (int n0 = 0; n0 < hd; n0 += 8) {",
+         "  for (int n0 = 0; n0 < hd; n0 += 8) {")],
+    "one barrier for the four copies": [
+        ("    mbar_init(bar + 1, 1);\n", ""),
+        ("    mbar_expect_tx(bar, 2u * (qn + kn), true);",
+         "    mbar_expect_tx(bar, 2u * (2 * qn + 2 * kn), true);"),
+        ("    mbar_expect_tx(bar + 1, 2u * (qn + kn), true);\n", ""),
+        ("bulk_load(vs, a.v + e * kn, 2u * kn, bar + 1);", "bulk_load(vs, a.v + e * kn, 2u * kn, bar);"),
+        ("bulk_load(gs, a.g + e * qn, 2u * qn, bar + 1);", "bulk_load(gs, a.g + e * qn, 2u * qn, bar);"),
+        ("    mbar_wait(bar + 1, 0);                         // v and g: in flight under S\n", ""),
+        ("  mbar_wait(bar + 1, 0);                           // a warp with no head waits here\n",
+         "")],
+    "staging and stores alone": [
+        ("  for (int h = warp; h < a.heads; h += kMmaWarps) {\n    const bf16* const qh = qs + h",
+         "  for (int h = warp; h < 0; h += kMmaWarps) {\n    const bf16* const qh = qs + h")],
+    "without the stores": [
+        ("d4[c] = s4[c];", "if (s4[c].x == 0x12345u) d4[c] = s4[c];"),
+        ("      dst[hh * a.qs.head", "      if (c < 0) dst[hh * a.qs.head")],
+    "without the lo terms": [
+        ("        mma_16816(ol[mt], al[mt][kk], b[kk][0], b[kk][1]);\n", "")],
+    "movmatrix left out": [
+        ('asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(y) : "r"(x));',
+         "y = x;")],
+    "without the three column products": [
+        ("  for (int n0 = 0; n0 < hd; n0 += 8) {\n    uint32_t b[KT][2];",
+         "  for (int n0 = 0; n0 < 0; n0 += 8) {\n    uint32_t b[KT][2];")],
+}
+
 BUILD = ("import sys; sys.path.insert(0, '.'); from vptr_tpu_torch.ops import _build; "
          "_build.build(['attention_core'])")
 
 
-def time_core(root: str, repeats: int) -> dict:
+def time_core(root: str, repeats: int, bwd: bool) -> dict:
     import torch
 
     sys.path.insert(0, root)
@@ -111,6 +156,8 @@ def time_core(root: str, repeats: int) -> dict:
             fn()
         return mean_ms(graph.replay)
 
+    if bwd:
+        return time_bwd(tac, ops, causal, seed, mean_ms, graph_ms, repeats)
     cases = {
         "far_rip contiguous": (ops(640, 20, False), causal(20), 0.0),
         "far_rip strided": (ops(640, 20, True), causal(20), 0.0),
@@ -134,8 +181,34 @@ def time_core(root: str, repeats: int) -> dict:
     return best
 
 
+def time_bwd(tac, ops, causal, seed, mean_ms, graph_ms, repeats) -> dict:
+    """The backward's cases (see the module note), as time_core's."""
+    cases = {
+        "FAR step strided": (ops(640, 19, True) + ops(640, 19, True)[:1], causal(19)),
+        "FAR step contiguous": (ops(640, 19, False) + ops(640, 19, False)[:1], causal(19)),
+        "NAR step strided": (ops(1024, 10, True) + ops(1024, 10, True)[:1], None),
+    }
+    out = {}
+    for _ in range(repeats):
+        for name, (qkvg, bias) in cases.items():
+            call = lambda: tac.attention_core_backward(*qkvg[:3], bias, seed, qkvg[3], 0.1,
+                                                       need_dbias=False)
+            out.setdefault(name, []).append(mean_ms(call))
+            out.setdefault(f"{name} (graph)", []).append(graph_ms(call))
+    best = {name: min(ms) for name, ms in out.items()}
+    for name, (qkvg, bias) in cases.items():
+        got = tac.attention_core_backward(*qkvg[:3], bias, seed, qkvg[3], 0.1, need_dbias=False)
+        want = tac.attention_core_backward_plain(*qkvg[:3], bias, seed, qkvg[3], 0.1, False)
+        best[f"{name} max|err|"] = max(
+            ((a.float() - b.float()).abs().max() / max(1.0, b.float().abs().max().item())).item()
+            for a, b in zip(got[:3], want[:3]))
+    return best
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--bwd", action="store_true",
+                        help="kernel #4 (the backward) and BWD_VARIANTS")
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--only", nargs="*", help="variants to time (default: all)")
     parser.add_argument("--time", help=argparse.SUPPRESS)   # one root, in a child
@@ -146,10 +219,10 @@ def main() -> int:
         print("torch_port_core_probe: no GPU", file=sys.stderr)
         return 1
     if args.time:
-        print(json.dumps(time_core(args.time, args.repeats)))
+        print(json.dumps(time_core(args.time, args.repeats, args.bwd)))
         return 0
     roots = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in (BWD_VARIANTS if args.bwd else VARIANTS).items():
         if args.only and name not in args.only:
             continue
         root = REPO / "build" / "core_probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
@@ -172,8 +245,8 @@ def main() -> int:
     result = {}
     for name, root in order:
         run = subprocess.run([sys.executable, __file__, "--time", root, "--repeats",
-                              str(args.repeats)], capture_output=True, text=True,
-                             timeout=900)
+                              str(args.repeats)] + (["--bwd"] if args.bwd else []),
+                             capture_output=True, text=True, timeout=900)
         if run.returncode != 0:         # a variant that does not build or run
             print(run.stdout + run.stderr, file=sys.stderr)
             if name.startswith("committed"):

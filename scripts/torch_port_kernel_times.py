@@ -26,7 +26,14 @@ shapes:
   the folded temporal sublayer's step calls it (``..._t19_ms``);
 * ``fused_attention_backward`` (#6): 640 x 16 x 528 with the 8-head
   relative-position bias, dropout 0.1 (the nar_mnist step's shape);
-* ``attention_core_backward`` (#4): 640 x 8 x 19 x 66, causal, dropout 0.1;
+* ``attention_core_backward`` (#4): 640 x 8 x 19 x 66, causal, dropout 0.1,
+  contiguous q, k, v, g; in the attention layer's layout (q, k, v and g
+  the (B, H, T, D) views of (B, T, H*D) tensors, ``..._strided_ms``; a
+  tree whose kernel refuses that layout is timed as its layer ran it: the
+  four contiguous copies, the call and dq, dk, dv copied into the
+  projections' layout); and at nar_mnist's step shape, 1024 x 8 x 10 x 66,
+  no bias, dropout 0.1, in the layer's layout (``..._nar_ms``, with the
+  copies where the tree refuses it);
 * where the tree has the fused feed-forward route: ``fused_ffn`` (#7)
   12,800 x 528 rows, hidden 2112, dropout 0; its backward (#8) 12,160 rows,
   dropout 0.1; ``fused_dw_chain`` (#9) 200 x 64 x 2112, dropout 0; its
@@ -166,10 +173,31 @@ def main() -> int:
             out = attention_core(sq.contiguous(), sk.contiguous(), sv.contiguous(), causal)
             return out.transpose(1, 2).reshape(640, ctx, c)
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
+
+    def strided(b_, t_):
+        return r(b_, t_, c).to(bf).view(b_, t_, heads, c // heads).transpose(1, 2)
+
+    def strided_core_bwd(ops, bias):
+        """#4 on the layer's operands: the call, or (a tree that refuses the
+        layout) the copies in, the call and the copies out."""
+        try:
+            attention_core_backward(*ops[:3], bias, seed, ops[3], 0.1, need_dbias=False)
+            return lambda: attention_core_backward(*ops[:3], bias, seed, ops[3], 0.1,
+                                                   need_dbias=False)
+        except ValueError:
+            def copied():
+                grads = attention_core_backward(*(x.contiguous() for x in ops[:3]), bias,
+                                                seed, ops[3].contiguous(), 0.1,
+                                                need_dbias=False)
+                return [x.transpose(1, 2).reshape(x.shape[0], x.shape[2], c)
+                        for x in grads[:3]]
+            return copied
     twin = (r(760, 16, c).to(bf),) + win[1:]
     gwin = r(760, 16, c).to(bf)
     tq, tk, tv, gcore = (r(640, heads, ctx - 1, c // heads).to(bf) for _ in range(4))
     tcausal = causal[:, :ctx - 1, :ctx - 1]
+    core_bwd_strided = strided_core_bwd([strided(640, ctx - 1) for _ in range(4)], tcausal)
+    core_bwd_nar = strided_core_bwd([strided(1024, ctx // 2) for _ in range(4)], None)
     t19 = (r(640, ctx - 1, c).to(bf),) + win[1:11] + (r(ctx - 1, c), tcausal)
     g19 = r(640, ctx - 1, c).to(bf)
     two = (r(640, 16, c).to(bf), r(640, 16, c).to(bf)) + win[1:9] + (
@@ -221,6 +249,8 @@ def main() -> int:
             *two, seed, gtwo, heads, 0.1),
         "attention_core_bwd_ms": lambda: attention_core_backward(
             tq, tk, tv, tcausal, seed, gcore, 0.1, need_dbias=False),
+        "attention_core_bwd_strided_ms": core_bwd_strided,
+        "attention_core_bwd_nar_ms": core_bwd_nar,
     }
     if tff is not None:
         hid = 4 * c

@@ -7,6 +7,7 @@ the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
 
     python3 scripts/torch_port_profile.py [--nar] [--train]
         [--ffn-route | --conv-route] [--kernels cuda|plain] [--top 15]
+        [--around NAME] [--window 4] [--root DIR]
 
 Builds the preset at full width from a seed (as chip_smoke.py does), warms
 the predict call (far_rip, batch 10, 10 frames; --nar: nar, batch 16,
@@ -16,7 +17,12 @@ call with torch.profiler
 and prints: the wall time of the traced call, the summed device time of
 its kernels, the device idle share (1 - device time / wall time; one
 stream, so kernels do not overlap), and the top kernels by device time
-with their launch counts. Needs a GPU; exits non-zero without one.
+with their launch counts. ``--around NAME`` also prints, over the launches
+of every kernel whose name holds NAME (e.g. ``attention_core_bwd``), the
+device events within ``--window`` launches before and after each, in time
+order, counted by name, and the events around one launch in order: what
+runs beside a kernel (layout copies, for one). ``--root`` imports the package of another checkout (e.g. the parent,
+unpacked with git archive). Needs a GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -27,8 +33,6 @@ import time
 from pathlib import Path
 
 import torch
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main() -> int:
@@ -43,10 +47,14 @@ def main() -> int:
                         help="transformer.fused_ffn and fused_dw on")
     parser.add_argument("--conv-route", action="store_true",
                         help="transformer.fused_conv_ffn and fused_full_temporal on")
+    parser.add_argument("--around", help="count the device events beside this kernel's")
+    parser.add_argument("--window", type=int, default=4)
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -108,6 +116,23 @@ def main() -> int:
           f"device {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
     for ms, count, key in rows[:args.top]:
         print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} {key[:90]}")
+    if args.around:
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        hits = [i for i, e in enumerate(events) if args.around in e.name]
+        beside = {}
+        for i in hits:
+            for e in events[max(0, i - args.window):i] + events[i + 1:i + 1 + args.window]:
+                beside[e.name[:90]] = beside.get(e.name[:90], 0) + 1
+        print(f"  {len(hits)} launches of *{args.around}*; the device events within "
+              f"{args.window} launches of them, by name:")
+        for name, n in sorted(beside.items(), key=lambda kv: -kv[1]):
+            print(f"    x{n:<5d} {name}")
+        if hits:
+            i = hits[len(hits) // 2]
+            print(f"  in time order around launch {len(hits) // 2} of them:")
+            for e in events[max(0, i - args.window):i + 1 + args.window]:
+                print(f"    {'>>' if args.around in e.name else '  '} {e.name[:100]}")
     return 0
 
 

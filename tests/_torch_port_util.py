@@ -1,16 +1,21 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX
 package: small FAR and NAR configurations, seeded numpy inputs and weights
-that go to both packages, and the JAX variables as nested numpy dicts."""
+that go to both packages, the JAX variables as nested numpy dicts, and the
+attention core's backward held against JAX's on operands in the layer's
+layout."""
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import vptr_tpu.config as jcfg
 import vptr_tpu_torch.config as tcfg
+from vptr_tpu.ops import attention_core as jax_core
+from vptr_tpu_torch.ops import attention_core as torch_core
 
 # f32, small: d_model 48 over 4 heads (head width 12, not a power of two),
 # 2 FAR layers, AE ngf 8 / feat 48 / 1 res block, 64x64 frames, Tp = Tf = 3
@@ -101,3 +106,59 @@ def heads_view(x) -> torch.Tensor:
     b, h, tt, d = x.shape
     rows = t(np.transpose(x, (0, 2, 1, 3)).reshape(b, tt, h * d))
     return rows.view(b, tt, h, d).transpose(1, 2)
+
+
+def assert_grad_close(got, want, name):
+    """max |got - want| <= 1e-5 times the larger of 1 and max |want|."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    err = np.abs(got - want).max()
+    assert err <= tol, f"{name}: max |err| {err:.3e} > {tol:.3e}"
+
+
+# layouts of q, k, v and g: 1 the layer's (heads_view), 0 contiguous
+CORE_LAYOUTS = {"strided": (1, 1, 1, 1), "mixed": (1, 0, 1, 0)}
+
+
+def core_bias(kind, rng, h, tq, tk):
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return np.triu(np.full((tq, tk), -1e30, np.float32), 1)[None]
+    return rng.standard_normal((1 if kind == "one" else h, tq, tk)).astype(np.float32)
+
+
+def jax_core_vjp(q, k, v, bias, g, seed, rate):
+    """JAX's (dq, dk, dv[, dbias]) of the attention core (interpret mode)."""
+    prim = (q, k, v) if bias is None else (q, k, v, bias)
+    f = lambda *a: jax_core.attention_core(*a[:3], a[3] if len(a) > 3 else None,
+                                           seed, rate, 128, True)
+    _, vjp = jax.vjp(f, *map(jnp.asarray, prim))
+    return vjp(jnp.asarray(g))
+
+
+def check_strided_core_backward(tq, tk, bias_kind, layouts, rate, rng):
+    """The backward on operands in ``layouts`` against JAX's on contiguous
+    ones: called alone, and through autograd with g in g's layout."""
+    b, h, d, seed = 3, 8, 12, 4321
+    q, k, v, g = (rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d), (b, h, tq, d)))
+    bias = core_bias(bias_kind, rng, h, tq, tk)
+    want = jax_core_vjp(q, k, v, bias, g, seed, rate)
+    ops = [heads_view(x) if lay else t(x)
+           for x, lay in zip((q, k, v, g), CORE_LAYOUTS[layouts])]
+    assert tuple(torch_core.layout(x) for x in ops) == CORE_LAYOUTS[layouts]
+    tbias = None if bias is None else t(bias)
+    got = torch_core.attention_core_backward(*ops[:3], tbias, seed, ops[3], rate,
+                                             need_dbias=bias is not None)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert_grad_close(a, w, name)
+    ins = [x.detach().clone().requires_grad_() for x in ops[:3]]   # strides kept
+    extra = [] if bias is None else [tbias.clone().requires_grad_()]
+    out = torch_core.attention_core(*ins, extra[0] if extra else None, seed, rate)
+    grads = torch.autograd.grad(out, ins + extra, ops[3])
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        assert_grad_close(a, w, name + " (autograd)")
+
+

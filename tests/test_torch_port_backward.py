@@ -9,7 +9,11 @@
     with and without pos, per-head and (1, T, T) bias, rectangular
     attention, L = 16 and the padded L = 19, dropout 0 and 0.1 under one
     seed. The plain backward also matches autograd through the plain
-    forward.
+    forward. The attention core's backward also on q, k, v and g in the
+    attention layer's layout (the (B, H, T, D) view of a (B, T, H*D)
+    tensor, ``heads_view``) and in mixed layouts, called alone and through
+    autograd; and the gradients of ``MultiHeadAttention`` on its fused
+    route (the core on ``heads()``'s views, passed on with no copy).
 
 Tolerance (f32): 1e-5 times the larger of 1 and the largest magnitude of
 each gradient. The gradients that sum over windows or the batch (dW, db,
@@ -29,16 +33,14 @@ from vptr_tpu.ops import fused_window_attention as jfw
 from vptr_tpu_torch.ops import attention_core as tac
 from vptr_tpu_torch.ops import fused_window_attention as tfw
 
-from _torch_port_util import t
+from _torch_port_util import (
+    assert_grad_close,
+    check_strided_core_backward,
+    core_bias,
+    random_variables,
+    t,
+)
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
-
-
-def assert_grad_close(got, want, name):
-    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
-    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
-    err = np.abs(got - want).max()
-    assert err <= tol, f"{name}: max |err| {err:.3e} > {tol:.3e}"
 
 
 def _core_case(case, rng):
@@ -173,3 +175,60 @@ def test_core_plain_backward_matches_autograd(rate):
                                             rate)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         assert_grad_close(a, w.numpy(), name)
+
+
+@pytest.mark.parametrize("layouts", ["strided", "mixed"])
+@pytest.mark.parametrize("tq,tk,bias_kind", [
+    (19, 19, "none"), (19, 19, "causal"), (10, 20, "one"), (10, 20, "heads"),
+    (10, 10, "heads"), (10, 10, "none")])
+def test_attention_core_backward_strided_matches_jax(tq, tk, bias_kind, layouts):
+    check_strided_core_backward(tq, tk, bias_kind, layouts, 0.0,
+                                np.random.default_rng(44))
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "heads"])
+def test_multi_head_attention_gradients_match_jax(bias_kind, monkeypatch):
+    """Gradients through ``MultiHeadAttention(fused=True)`` (input, the four
+    projections and the bias) equal JAX's; the core's backward gets q, k,
+    v and g in the layer's layout, uncopied."""
+    from vptr_tpu.models.layers import MultiHeadAttention as JMultiHeadAttention
+    from vptr_tpu_torch.models.layers import MultiHeadAttention
+    from vptr_tpu_torch.utils.weights import load_jax_variables
+
+    rng = np.random.default_rng(45)
+    c, h, l = 48, 4, 7
+    x = rng.standard_normal((2, 3, l, c)).astype(np.float32)
+    bias = None if bias_kind == "none" else core_bias("heads", rng, h, l, l)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jm = JMultiHeadAttention(c, h, fused=True)
+    jb = None if bias is None else jnp.asarray(bias)
+    variables = random_variables(
+        lambda key, x: jm.init(key, x, x, x, bias=jb), rng, jnp.asarray(x))
+
+    def f(params, x, *b):
+        return jm.apply({"params": params}, x, x, x, bias=b[0] if b else None)
+
+    prim = (variables["params"], jnp.asarray(x)) + (() if jb is None else (jb,))
+    _, vjp = jax.vjp(f, *prim)
+    want = vjp(jnp.asarray(g))
+
+    seen = []
+    real = tac.attention_core_backward
+
+    def spy(q, k, v, bias, seed, g, *args):
+        seen.append(tuple(tac.layout(z) for z in (q, k, v, g)))
+        return real(q, k, v, bias, seed, g, *args)
+
+    monkeypatch.setattr(tac, "attention_core_backward", spy)
+    m = load_jax_variables(MultiHeadAttention(c, h, fused=True), variables)
+    tx = t(x).requires_grad_()
+    tb = None if bias is None else t(bias).requires_grad_()
+    m(tx, tx, tx, bias=tb).backward(t(g))
+    assert seen == [(1, 1, 1, 1)]
+    assert_grad_close(tx.grad, want[1], "dx")
+    if tb is not None:
+        assert_grad_close(tb.grad, want[2], "dbias")
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        lin = getattr(m, name)
+        assert_grad_close(lin.weight.grad.t(), want[0][name]["kernel"], name + " kernel")
+        assert_grad_close(lin.bias.grad, want[0][name]["bias"], name + " bias")

@@ -9,7 +9,10 @@
     (also on operands in the layer's strided layout) and
     ``fused_attention_ln`` / ``_res`` (their plain versions: the wrappers
     take them for CPU tensors) against the JAX functions in Pallas interpret
-    mode, atol 1e-5 (f32 summation order; the masks are equal).
+    mode, atol 1e-5 (f32 summation order; the masks are equal);
+(c) the attention core's backward with dropout 0.1 on q, k, v and g in the
+    layer's layout and in mixed layouts, against ``jax.vjp`` of the JAX
+    function (relative 1e-5, as ``test_torch_port_backward.py``).
 """
 
 import jax.numpy as jnp
@@ -23,7 +26,7 @@ from vptr_tpu_torch.ops import attention_core as tac
 from vptr_tpu_torch.ops import dropout as tdrop
 from vptr_tpu_torch.ops import fused_window_attention as tfw
 
-from _torch_port_util import heads_view, t
+from _torch_port_util import check_strided_core_backward, heads_view, t
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
@@ -145,3 +148,11 @@ def test_seed_as_device_tensor_equals_int_seed():
     b = tac.attention_core(q, k, v, None, torch.tensor([12345], dtype=torch.int32),
                            0.1)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layouts", ["strided", "mixed"])
+@pytest.mark.parametrize("tq,tk,bias_kind", [
+    (19, 19, "causal"), (10, 20, "heads"), (10, 10, "none")])
+def test_attention_core_backward_strided_dropout_matches_jax(tq, tk, bias_kind, layouts):
+    check_strided_core_backward(tq, tk, bias_kind, layouts, 0.1,
+                                np.random.default_rng(34))

@@ -124,7 +124,8 @@ def test_attention_core_mma_route_is_deterministic(cuda, tq, tk):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_core_strided_gradients_equal_contiguous(cuda, rate):
     """Autograd through the strided forward (the layer's route) gives the
-    gradients of the contiguous one: the backward copies its operands."""
+    gradients of the contiguous one: both backward routes compute the same
+    arithmetic in either layout."""
     g = torch.Generator().manual_seed(43)
     views = [_heads(96, 8, 19, 66, True, g, cuda, torch.bfloat16) for _ in range(3)]
     bias0 = torch.randn(8, 19, 19, generator=g).to(cuda)
@@ -231,6 +232,139 @@ def test_attention_core_backward_kernel_matches_plain(cuda, dtype, rate, tq, tk,
             assert a is None
             continue
         assert _rel_err(a, b) <= BWD_TOL[dtype], name
+
+
+def _check_core_backward(q, k, v, bias, seed, dout, rate, tol):
+    """The backward kernel against the plain version: one launch, dq, dk and
+    dv with q's, k's and v's strides, every gradient (dbias where the bias
+    is given) within ``tol`` of the plain version's largest magnitude."""
+    before = tac.attention_core.bwd_launches
+    got = tac.attention_core_backward(q, k, v, bias, seed, dout, rate)
+    want = tac.attention_core_backward_plain(q, k, v, bias, seed, dout, rate)
+    torch.cuda.synchronize()
+    assert tac.attention_core.bwd_launches == before + 1
+    for name, a, b, x in zip(("dq", "dk", "dv", "dbias"), got, want, (q, k, v, bias)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.stride() == x.stride(), name
+        assert _rel_err(a, b) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_kind", ["none", "one", "heads", "causal"])
+@pytest.mark.parametrize("hd", [66, 33])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("tq,tk", [(2, 2), (10, 10), (16, 16), (19, 19), (20, 20),
+                                   (32, 32), (10, 20), (32, 7), (10, 2)])
+def test_attention_core_backward_mma_route_matches_plain(cuda, tq, tk, strided, hd,
+                                                         bias_kind, rate):
+    g = torch.Generator().manual_seed(60)
+    q, k, v, dout = (_heads(37, 8, t, hd, strided, g, cuda, torch.bfloat16)
+                     for t in (tq, tk, tk, tq))
+    bias = _core_bias(bias_kind, 8, tq, tk, g, cuda)
+    assert tac.backward_route(q.dtype, 8, tq, tk, hd) == "mma"
+    _check_core_backward(q, k, v, bias, _seed(cuda), dout, rate, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layouts", [(1, 0, 1, 0), (0, 1, 0, 1), (0, 0, 0, 1), (1, 1, 1, 0)])
+@pytest.mark.parametrize("tq,tk,hd", [(19, 19, 66), (10, 20, 33), (10, 2, 66)])
+def test_attention_core_backward_mma_route_mixed_layouts(cuda, tq, tk, hd, layouts):
+    """q, k, v and g each in its own layout (dq moves from g's into q's)."""
+    g = torch.Generator().manual_seed(61)
+    q, k, v, dout = (_heads(29, 8, t, hd, bool(lay), g, cuda, torch.bfloat16)
+                     for t, lay in zip((tq, tk, tk, tq), layouts))
+    assert tuple(tac.layout(x) for x in (q, k, v, dout)) == layouts
+    bias = _core_bias("heads", 8, tq, tk, g, cuda)
+    _check_core_backward(q, k, v, bias, _seed(cuda), dout, 0.1, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,tq,tk,hd", [(torch.float32, 8, 19, 19, 66),
+                                             (torch.bfloat16, 4, 10, 3, 3),
+                                             (torch.bfloat16, 8, 32, 32, 128)])
+def test_attention_core_backward_fma_route_takes_both_layouts(cuda, dtype, h, tq, tk, hd):
+    g = torch.Generator().manual_seed(62)
+    assert tac.backward_route(dtype, h, tq, tk, hd) == "fma"
+    for strided in (False, True):
+        q, k, v, dout = (_heads(24, h, t, hd, strided, g, cuda, dtype)
+                         for t in (tq, tk, tk, tq))
+        bias = _core_bias("causal", h, tq, tk, g, cuda)
+        _check_core_backward(q, k, v, bias, _seed(cuda), dout, 0.1, BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk,bias_kind", [(19, 19, "causal"), (19, 19, "heads"),
+                                             (10, 10, "none"), (10, 20, "one")])
+def test_attention_core_backward_mma_route_is_deterministic(cuda, tq, tk, bias_kind):
+    g = torch.Generator().manual_seed(63)
+    q, k, v, dout = (_heads(640, 8, t, 66, True, g, cuda, torch.bfloat16)
+                     for t in (tq, tk, tk, tq))
+    bias = _core_bias(bias_kind, 8, tq, tk, g, cuda)
+    a = tac.attention_core_backward(q, k, v, bias, _seed(cuda), dout, 0.1)
+    b = tac.attention_core_backward(q, k, v, bias, _seed(cuda), dout, 0.1)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_attention_core_backward_route_is_the_librarys(cuda):
+    lib = tac._lib()
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, tq, tk, hd in ((8, 19, 19, 66), (8, 10, 10, 66), (8, 32, 32, 96),
+                              (8, 32, 32, 128), (1, 7, 7, 33), (4, 10, 3, 3),
+                              (16, 32, 32, 64), (8, 20, 20, 33), (3, 5, 9, 8)):
+            want = tac.backward_route(dtype, h, tq, tk, hd) == "mma"
+            got = lib.vptr_attention_core_bwd_route(h, tq, tk, hd, tac._DTYPES[dtype])
+            assert bool(got) == want, (dtype, h, tq, tk, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_layer_gradients_strided_equal_contiguous(cuda, rate, monkeypatch):
+    """A training step's gradients through MultiHeadAttention (bf16, the
+    fused core, causal bias, dropout): the core on heads()'s views, its
+    backward on g as autograd delivers it, all in the projections' layout
+    and dq, dk, dv returned in it (so heads()'s backward copies nothing);
+    equal to the gradients with q, k and v copied to contiguous before the
+    core (its output, and so dq, dk, dv, then contiguous; g still in the
+    layer's layout)."""
+    from vptr_tpu_torch.models import layers
+
+    torch.manual_seed(64)
+    m = layers.MultiHeadAttention(528, 8, fused=True, dtype=torch.bfloat16,
+                                  dropout=0.1).to(cuda).train()
+    x = torch.randn(64, 19, 528, generator=torch.Generator().manual_seed(65)).to(cuda)
+    gout = torch.randn(64, 19, 528, generator=torch.Generator().manual_seed(66)).to(cuda)
+    bias = _causal(19, cuda)
+    real, seen = layers.attention_core, []
+
+    def contiguous_core(q, k, v, *args):
+        return real(q.contiguous(), k.contiguous(), v.contiguous(), *args)
+
+    real_bwd = tac.attention_core_backward
+
+    def spy(q, k, v, bias, seed, g, *args):
+        got = real_bwd(q, k, v, bias, seed, g, *args)
+        seen.append(tuple(tac.layout(z) for z in (q, k, v, g, *got[:3])))
+        return got
+
+    monkeypatch.setattr(tac, "attention_core_backward", spy)
+    grads = []
+    for core in (real, contiguous_core):
+        monkeypatch.setattr(layers, "attention_core", core)
+        m.zero_grad()
+        xi = x.clone().requires_grad_()
+        out = m(xi, xi, xi, bias=bias, generator=torch.Generator(cuda).manual_seed(7))
+        out.float().backward(gout)
+        grads.append([xi.grad] + [p.grad.clone() for p in m.parameters()])
+    torch.cuda.synchronize()
+    assert seen == [(1,) * 7, (0, 0, 0, 1, 0, 0, 0)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -4,8 +4,8 @@
     tensors) vs ``vptr_tpu.ops.attention_core.attention_core`` in Pallas
     interpret mode: square causal, per-head bias, rectangular; also with
     q, k, v as the (B, H, T, D) view of a (B, T, H*D) tensor (the layer's
-    projections); ``kernel_route`` and ``layout``, pure functions of the
-    shapes and strides.
+    projections); ``kernel_route``, ``backward_route`` and ``layout``, pure
+    functions of the shapes and strides.
 (b) ``fused_attention_ln`` / ``_res`` vs the JAX functions (interpret mode),
     with and without the position table.
 (c) window ops and position tables, exactly.
@@ -111,6 +111,28 @@ def test_kernel_route(dtype, heads, tq, tk, d, want):
 def test_kernel_route_refuses_what_no_kernel_takes(tq, tk, d):
     with pytest.raises(ValueError, match="Tq, Tk <= 32"):
         tac.kernel_route(BF, 8, tq, tk, d)
+
+
+@pytest.mark.parametrize("dtype,heads,tq,tk,d,want", [
+    (BF, 8, 19, 19, 66, "mma"),      # the FAR step's temporal attention
+    (BF, 8, 10, 10, 66, "mma"),      # the NAR step's
+    (BF, 8, 10, 20, 66, "mma"),      # rectangular
+    (BF, 8, 10, 2, 66, "mma"),       # nar_bair's cross attention
+    (BF, 8, 20, 20, 33, "mma"),      # odd head width, whole 16-byte slices
+    (BF, 8, 32, 32, 96, "mma"),      # 196,608 B of q, k, v, g: fits
+    (BF, 8, 32, 32, 128, "fma"),     # 262,144 B: over a block's shared memory
+    (F32, 8, 19, 19, 66, "fma"),     # f32 takes the FMA kernel
+    (BF, 1, 7, 7, 33, "fma"),        # a 231-element slice: not whole vectors
+    (BF, 4, 10, 3, 3, "fma"),        # k's 36-element slice: not whole vectors
+])
+def test_backward_route(dtype, heads, tq, tk, d, want):
+    assert tac.backward_route(dtype, heads, tq, tk, d) == want
+
+
+@pytest.mark.parametrize("tq,tk,d", [(33, 19, 66), (19, 33, 66), (19, 19, 129)])
+def test_backward_route_refuses_what_no_kernel_takes(tq, tk, d):
+    with pytest.raises(ValueError, match="Tq, Tk <= 32"):
+        tac.backward_route(BF, 8, tq, tk, d)
 
 
 def test_layout_of_the_operands():

@@ -41,19 +41,44 @@
 //   weighted values accumulated with each lane owning up to four columns
 //   of D, one weight shuffle per key feeding them all.
 //
-// The backward (contiguous operands) recomputes the softmax and the mask
-// from the seed, keeps the dropped weights and the logit gradients (Tq x
-// Tk f32) in shared memory, then forms dq, dk and dv one output element
-// per thread. The bias gradient sums over the batch: each (b, h) block
-// writes its Tq x Tk logit gradients and a second kernel sums them over b
-// (and over heads for a (1, Tq, Tk) bias) in a fixed order, so the result
-// is the same on every run (no float atomics).
+// The backward recomputes the softmax and the mask from the seed. Two
+// routes, named by ops/attention_core.py::backward_route from the shapes:
+//
+// * mma (bf16, the shapes the forward's mma route takes where q, k, v and
+//   g of a batch element fit a block's shared memory):
+//   attention_core_bwd_mma_kernel. A block takes a batch element and all
+//   of its heads; one thread stages its q, k, v and g slices with four
+//   bulk copies on two mbarriers (q and k; then v and g, which land while
+//   S is formed), each operand in layout 0 or 1 of Slice, g too. A warp
+//   takes a head: S = (q scale) k^T and dW = g v^T on mma.sync; the
+//   softmax, the mask, the dropped weights and the logit gradients dS in
+//   registers on the quads (the dropout quotient by a reciprocal and one
+//   correction, no division); then dv = w_drop^T g, dq = dS k dscale and
+//   dk = dS^T (q scale) on mma.sync. dS and w_drop are f32 and enter the
+//   tensor cores as two bf16 terms (hi = bf16(x), lo = bf16(x - hi)).
+//   Every transposed operand comes from movmatrix, the warp's 8 x 8
+//   register transpose: dS^T and w_drop^T (the A operands of dk and dv)
+//   from the accumulators, and the B operands of the three products (two
+//   tokens a register, down a column of the staged rows) from 4-byte
+//   loads along the rows. Each output is written over an input its head
+//   has done reading (dv over v, dq over g, dk over k) and the block
+//   stores the three slices whole, each in its input's layout (dq in q's).
+// * FMA (f32, and bf16 shapes mma does not take; contiguous operands):
+//   attention_core_bwd_kernel keeps the dropped weights and the logit
+//   gradients (Tq x Tk f32) in shared memory, then forms dq, dk and dv one
+//   output element per thread.
+//
+// The bias gradient sums over the batch: each (b, h) writes its Tq x Tk
+// logit gradients and a second kernel sums them over b (and over heads
+// for a (1, Tq, Tk) bias) in a fixed order, so the result is the same on
+// every run (no float atomics).
 //
 // Rounding points follow the plain versions in attention_core.py: q * scale
 // (the scale in T) is rounded to T, logits, softmax and dropout are f32,
 // the forward rounds the weights to T before the value product, which
 // accumulates in f32 and is rounded to T; the backward works in f32 on the
-// unrounded weights and rounds dq, dk, dv to T.
+// unrounded weights and rounds dq, dk, dv to T (its mma route: the
+// products of the f32 dS and w_drop as two bf16 terms each, f32 sums).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,6 +361,15 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   return cudaGetLastError();
 }
 
+int launch_bias_grad(const void* dl, void* dbias, int batch, int heads, int tq, int tk,
+                     int bias_heads, cudaStream_t stream) {
+  const int n = bias_heads * tq * tk;
+  bias_grad_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(dl), static_cast<float*>(dbias), batch, heads, tq, tk,
+      bias_heads);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* bias, const void* g,
                void* dq, void* dk, void* dv, void* dl, void* dbias, int batch, int heads,
@@ -354,11 +388,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias, co
       depth, bias_heads, scale, dscale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dl) return err;
-  const int n = bias_heads * tq * tk;
-  bias_grad_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(dl), static_cast<float*>(dbias), batch, heads, tq, tk,
-      bias_heads);
-  return cudaGetLastError();
+  return launch_bias_grad(dl, dbias, batch, heads, tq, tk, bias_heads, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -661,6 +691,376 @@ int launch_mma(const MmaArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward route ("mma"): a batch element a block, every head of it
+
+// Everything a launch of attention_core_bwd_mma_kernel takes; dq has q's
+// layout, dk k's, dv v's.
+struct MmaBwdArgs {
+  const __nv_bfloat16 *q, *k, *v, *g;
+  const float* bias;
+  __nv_bfloat16 *dq, *dk, *dv;
+  float* dl;                      // (B, H, Tq, Tk) f32 logit gradients, or null
+  int batch, heads, tq, tk, depth, bias_heads;
+  Slice qs, ks, vs, gs;
+  float scale, dscale;
+  vptr_dropout::Params drop;
+};
+
+// Bytes a block stages: the q, k, v and g slices of a batch element.
+inline long mma_bwd_bytes(int heads, int tq, int tk, int depth) {
+  return 4L * heads * (tq + tk) * depth;
+}
+
+// Whether the mma backward kernel takes the shape: bf16, each slice a whole
+// number of 16-byte vectors, the four slices and two barriers within a
+// block's shared memory (ops/attention_core.py::backward_route says the same).
+bool mma_bwd_takes(int heads, int tq, int tk, int depth, int dtype) {
+  return dtype == 1 && (static_cast<long>(heads) * tq * depth) % 8 == 0 &&
+         (static_cast<long>(heads) * tk * depth) % 8 == 0 &&
+         mma_bwd_bytes(heads, tq, tk, depth) + 16 <= kMaxSmem;
+}
+
+// The 8 x 8 bf16 block a warp holds one register a lane (lane l: row l / 4,
+// elements 2 (l % 4) and + 1: an mma.sync A fragment register or a packed
+// accumulator pair), transposed, in the same layout.
+__device__ __forceinline__ uint32_t transpose_8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The f32 pair (a, b) as two bf16 terms each, packed a pair a register:
+// hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// acc[mt][nt] = x y^T over one head's width: x's rows 16 mt + g (+ 8) (those
+// below rows_x), y's rows 8 nt + g (below rows_y), both read as pairs along
+// the width as the forward reads q and k; x times the scale (SCALED) as its
+// A fragments are formed.
+template <int MQ, int NT, bool PAIRS, bool SCALED>
+__device__ __forceinline__ void row_products(float (&acc)[MQ][NT][4], const bf16* x, int xr,
+                                             int rows_x, const bf16* y, int yr, int rows_y,
+                                             int hd, int g, int t, __nv_bfloat162 scale) {
+#pragma unroll
+  for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  for (int k0 = 0; k0 < hd; k0 += 16) {
+    uint32_t af[MQ][4];
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt) {
+      const int i0 = 16 * mt + g, i1 = i0 + 8;
+      af[mt][0] = load_pair<PAIRS>(x + i0 * xr, k0 + 2 * t, hd, i0 < rows_x);
+      af[mt][1] = load_pair<PAIRS>(x + i1 * xr, k0 + 2 * t, hd, i1 < rows_x);
+      af[mt][2] = load_pair<PAIRS>(x + i0 * xr, k0 + 2 * t + 8, hd, i0 < rows_x);
+      af[mt][3] = load_pair<PAIRS>(x + i1 * xr, k0 + 2 * t + 8, hd, i1 < rows_x);
+      if constexpr (SCALED) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) af[mt][c] = scaled_pair(af[mt][c], scale);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt >= rows_y) break;                 // warp-uniform
+      const int j = 8 * nt + g;
+      const uint32_t b0 = load_pair<PAIRS>(y + j * yr, k0 + 2 * t, hd, j < rows_y);
+      const uint32_t b1 = load_pair<PAIRS>(y + j * yr, k0 + 2 * t + 8, hd, j < rows_y);
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
+    }
+  }
+}
+
+// dst = factor (A B), rounded to bf16, eight columns of the head at a time:
+// A as two bf16 terms (ah + al; MT 16-row tiles by KT 16-deep steps of A
+// fragments), B's 16 x 8 tiles read from y's rows (those below rows_y;
+// times the scale when SCALED) as two 8 x 8 blocks, each one 4-byte pair a
+// lane along the row, transposed into B's fragment layout by movmatrix;
+// the rows 16 mt + g (+ 8) below rows_out written to dst with row stride
+// dr; two chunks an iteration. The two terms sum apart and meet in f32.
+template <int MT, int KT, bool PAIRS, bool SCALED>
+__device__ __forceinline__ void col_products(const uint32_t (&ah)[MT][KT][4],
+                                             const uint32_t (&al)[MT][KT][4], const bf16* y,
+                                             int yr, int rows_y, bf16* dst, int dr, int rows_out,
+                                             int hd, float factor, int g, int t,
+                                             __nv_bfloat162 scale) {
+#pragma unroll 2
+  for (int n0 = 0; n0 < hd; n0 += 8) {
+    uint32_t b[KT][2];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 16 * kk + 8 * half + g;      // row g of the block, before its transpose
+        const uint32_t p = load_pair<PAIRS>(y + j * yr, n0 + 2 * t, hd, j < rows_y);
+        b[kk][half] = transpose_8x8(SCALED ? scaled_pair(p, scale) : p);
+      }
+    float oh[MT][4], ol[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) oh[mt][c] = ol[mt][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_16816(oh[mt], ah[mt][kk], b[kk][0], b[kk][1]);
+        mma_16816(ol[mt], al[mt][kk], b[kk][0], b[kk][1]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 16 * mt + g + 8 * hh, c = n0 + 2 * t;
+        if (i >= rows_out) continue;
+        bf16* const p = dst + i * dr + c;
+        const float v0 = (oh[mt][2 * hh] + ol[mt][2 * hh]) * factor;
+        const float v1 = (oh[mt][2 * hh + 1] + ol[mt][2 * hh + 1]) * factor;
+        if constexpr (PAIRS) {
+          if (c < hd) *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < hd) p[0] = __float2bfloat16_rn(v0);
+          if (c + 1 < hd) p[1] = __float2bfloat16_rn(v1);
+        }
+      }
+  }
+}
+
+// A Tq x Tk matrix's A fragments p[MQ][KS][4] (rows: queries, depth: keys)
+// transposed into A fragments pt[KS][MQ][4] (rows: keys, depth: queries):
+// register r of p[mt][kk] holds the 8 x 8 block (2 mt + r % 2, 2 kk + r / 2).
+template <int MQ, int KS>
+__device__ __forceinline__ void transpose_frags(const uint32_t (&p)[MQ][KS][4],
+                                                uint32_t (&pt)[KS][MQ][4]) {
+#pragma unroll
+  for (int mk = 0; mk < KS; ++mk)
+#pragma unroll
+    for (int kq = 0; kq < MQ; ++kq) {
+      pt[mk][kq][0] = transpose_8x8(p[kq][mk][0]);
+      pt[mk][kq][1] = transpose_8x8(p[kq][mk][2]);
+      pt[mk][kq][2] = transpose_8x8(p[kq][mk][1]);
+      pt[mk][kq][3] = transpose_8x8(p[kq][mk][3]);
+    }
+}
+
+// A block takes batch element blockIdx.x: one thread stages its q, k, v and
+// g slices with four bulk copies on two mbarriers (q and k; v and g, awaited
+// after S); warp w takes the heads w,
+// w + 8, ...: S = (q scale) k^T and dW = g v^T on mma.sync, the softmax
+// (as the forward: __expf, one reciprocal a row), the mask, w_drop, the
+// dropped dW, the row sums of dW w by quad shuffles and dS = w (dW - sum)
+// on the quads' accumulators; then dv = w_drop^T g over v, dq = dS k dscale
+// over g (in g's layout), dk = dS^T (q scale) over k: each place is read
+// for the last time by the head's earlier products before it is written.
+// The block stores the three slices whole. MQ, KS as for
+// attention_core_mma_kernel (Tq, Tk <= 16 or <= 32).
+template <int MQ, int KS, bool PAIRS>
+__global__ void __launch_bounds__(kMmaThreads, MQ == 1 && KS == 1 ? 4 : 2)
+attention_core_bwd_mma_kernel(const MmaBwdArgs a) {
+  constexpr int NT = 2 * KS;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth;
+  const int qn = a.heads * tq * hd, kn = a.heads * tk * hd;  // slice elements
+  bf16* const qs = reinterpret_cast<bf16*>(smem_bwd);        // q
+  bf16* const ks = qs + qn;                                   // k, then dk
+  bf16* const vs = ks + kn;                                   // v, then dv
+  bf16* const gs = vs + kn;                                   // g, then dq (in g's layout)
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(gs + qn);  // [0]: q, k; [1]: v, g
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long e = blockIdx.x;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const float keep_rcp = 1.f / a.drop.keep_div;
+  const __nv_bfloat162 scale = __float2bfloat162_rn(a.scale);  // exact: a bf16 value
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_fence_init();
+    mbar_expect_tx(bar, 2u * (qn + kn), true);
+    bulk_load(qs, a.q + e * qn, 2u * qn, bar);
+    bulk_load(ks, a.k + e * kn, 2u * kn, bar);
+    mbar_expect_tx(bar + 1, 2u * (qn + kn), true);
+    bulk_load(vs, a.v + e * kn, 2u * kn, bar + 1);
+    bulk_load(gs, a.g + e * qn, 2u * qn, bar + 1);
+  }
+  __syncthreads();                                 // the barriers are initialised
+  mbar_wait(bar, 0);
+
+  for (int h = warp; h < a.heads; h += kMmaWarps) {
+    const bf16* const qh = qs + h * a.qs.head;
+    bf16* const kh = ks + h * a.ks.head;
+    bf16* const vh = vs + h * a.vs.head;
+    bf16* const gh = gs + h * a.gs.head;
+    const int qr = a.qs.row, kr = a.ks.row, vr = a.vs.row, gr = a.gs.row;
+
+    // S and dW: query rows 16 mt + g (+ 8), keys 8 nt + 2t (+ 1)
+    float sc[MQ][NT][4], dw[MQ][NT][4];
+    row_products<MQ, NT, PAIRS, true>(sc, qh, qr, tq, kh, kr, tk, hd, g, t, scale);
+    mbar_wait(bar + 1, 0);                         // v and g: in flight under S
+    row_products<MQ, NT, PAIRS, false>(dw, gh, gr, tq, vh, vr, tk, hd, g, t, scale);
+    __syncwarp();                                  // v is read: dv takes its place
+
+    // a row's softmax, mask, w_drop, dropped dW and dS on its quad of
+    // lanes; dS and w_drop packed as A fragments of two bf16 terms (logit
+    // tiles 2 kk and 2 kk + 1 are the 16-key step kk), dS also to dl
+    const float* bias_h =
+        a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+    float* const dl_h = a.dl ? a.dl + (e * a.heads + h) * tq * tk : nullptr;
+    uint32_t dsh[MQ][KS][4], dsl[MQ][KS][4], wdh[MQ][KS][4], wdl[MQ][KS][4];
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (16 * mt + 8 * hh >= tq) {              // rows past Tq: 0 (warp-uniform)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+            for (int r = hh; r < 4; r += 2)
+              dsh[mt][kk][r] = dsl[mt][kk][r] = wdh[mt][kk][r] = wdl[mt][kk][r] = 0u;
+          continue;
+        }
+        const int i = 16 * mt + g + 8 * hh;
+        float m = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int j = 8 * nt + 2 * t + x;
+            float l = -INFINITY;
+            if (i < tq && j < tk) {
+              l = sc[mt][nt][2 * hh + x];
+              if (bias_h) l += __ldg(bias_h + i * tk + j);
+            }
+            sc[mt][nt][2 * hh + x] = l;
+            m = fmaxf(m, l);
+          }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int j = 8 * nt + 2 * t + x;
+            const float y = i < tq && j < tk ? __expf(sc[mt][nt][2 * hh + x] - m) : 0.f;
+            sc[mt][nt][2 * hh + x] = y;
+            sum += y;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float rcp = 1.f / sum;
+        const uint32_t row_idx = vptr_dropout::element_index(
+            static_cast<uint32_t>(e), a.heads, h, tq, i, tk, 0);
+        float dot = 0.f;                             // the row's sum of dW w
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float wv[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int j = 8 * nt + 2 * t + x;
+            float w = 0.f, wd = 0.f, dwd = 0.f;      // rows and keys past Tq, Tk: 0
+            if (i < tq && j < tk) {
+              w = wd = sc[mt][nt][2 * hh + x] * rcp;
+              dwd = dw[mt][nt][2 * hh + x];
+              if (a.drop.active()) {
+                const bool kept = a.drop.keep(row_idx + j, seed);
+                wd = a.drop.apply_rcp(w, kept, keep_rcp);
+                dwd = a.drop.apply_rcp(dwd, kept, keep_rcp);
+              }
+            }
+            sc[mt][nt][2 * hh + x] = w;
+            dw[mt][nt][2 * hh + x] = dwd;
+            dot += dwd * w;
+            wv[x] = wd;
+          }
+          split_pair(wv[0], wv[1], wdh[mt][nt >> 1][2 * (nt & 1) + hh],
+                     wdl[mt][nt >> 1][2 * (nt & 1) + hh]);
+        }
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int j = 8 * nt + 2 * t + x;
+            ds[x] = sc[mt][nt][2 * hh + x] * (dw[mt][nt][2 * hh + x] - dot);
+            if (dl_h && i < tq && j < tk) dl_h[i * tk + j] = ds[x];
+          }
+          split_pair(ds[0], ds[1], dsh[mt][nt >> 1][2 * (nt & 1) + hh],
+                     dsl[mt][nt >> 1][2 * (nt & 1) + hh]);
+        }
+      }
+
+    // dv = w_drop^T g over v; dq = dS k dscale over g; dk = dS^T (q scale) over k
+    {
+      uint32_t th[KS][MQ][4], tl[KS][MQ][4];
+      transpose_frags<MQ, KS>(wdh, th);
+      transpose_frags<MQ, KS>(wdl, tl);
+      col_products<KS, MQ, PAIRS, false>(th, tl, gh, gr, tq, vh, vr, tk, hd, 1.f, g, t, scale);
+    }
+    __syncwarp();                                  // g is read: dq takes its place
+    col_products<MQ, KS, PAIRS, false>(dsh, dsl, kh, kr, tk, gh, gr, tq, hd, a.dscale, g, t,
+                                       scale);
+    __syncwarp();                                  // k is read: dk takes its place
+    {
+      uint32_t th[KS][MQ][4], tl[KS][MQ][4];
+      transpose_frags<MQ, KS>(dsh, th);
+      transpose_frags<MQ, KS>(dsl, tl);
+      col_products<KS, MQ, PAIRS, true>(th, tl, qh, qr, tq, kh, kr, tk, hd, 1.f, g, t, scale);
+    }
+  }
+  mbar_wait(bar + 1, 0);                           // a warp with no head waits here
+  __syncthreads();
+
+  // the three slices stored whole in 16-byte vectors, each in its input's
+  // layout; dq from g's place, moved into q's layout where the two differ
+  auto store = [&](bf16* dst, const bf16* src, int n) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int c = threadIdx.x; c < n / 8; c += kMmaThreads) d4[c] = s4[c];
+  };
+  store(a.dv + e * kn, vs, kn);
+  store(a.dk + e * kn, ks, kn);
+  if (a.qs.head == a.gs.head && a.qs.row == a.gs.row) {
+    store(a.dq + e * qn, gs, qn);
+  } else {
+    bf16* const dst = a.dq + e * qn;
+    for (int c = threadIdx.x; c < qn; c += kMmaThreads) {
+      const int d = c % hd, r = c / hd % tq, hh = c / (tq * hd);
+      dst[hh * a.qs.head + r * a.qs.row + d] = gs[hh * a.gs.head + r * a.gs.row + d];
+    }
+  }
+}
+
+int launch_bwd_mma(const MmaBwdArgs& a, void* dbias, cudaStream_t stream) {
+  using Kernel = void (*)(const MmaBwdArgs);
+  static const Kernel kernels[2][2][2] = {
+      {{&attention_core_bwd_mma_kernel<1, 1, false>, &attention_core_bwd_mma_kernel<1, 1, true>},
+       {&attention_core_bwd_mma_kernel<1, 2, false>, &attention_core_bwd_mma_kernel<1, 2, true>}},
+      {{&attention_core_bwd_mma_kernel<2, 1, false>, &attention_core_bwd_mma_kernel<2, 1, true>},
+       {&attention_core_bwd_mma_kernel<2, 2, false>,
+        &attention_core_bwd_mma_kernel<2, 2, true>}}};
+  const Kernel kernel = kernels[a.tq > 16][a.tk > 16][a.depth % 2 == 0];
+  const int smem = static_cast<int>(mma_bwd_bytes(a.heads, a.tq, a.tk, a.depth) + 16);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.batch, kMmaThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !a.dl) return err;
+  return launch_bias_grad(a.dl, dbias, a.batch, a.heads, a.tq, a.tk, a.bias_heads, stream);
+}
+
 bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias,
                int bias_heads, int dtype, const void* seed, float rate) {
   return batch < 1 || heads < 1 || tq < 1 || tq > kMaxTokens || tk < 1 ||
@@ -718,22 +1118,55 @@ int vptr_attention_core(const void* q, const void* k, const void* v, const void*
 
 // Backward: dq, dk, dv (T) and, when dl and dbias are given (dl: a
 // (B, H, Tq, Tk) f32 scratch, dbias: (bias_heads, Tq, Tk) f32), the bias
-// gradient. scale multiplies q (in T), dscale the dq sums (f32).
+// gradient. scale multiplies q (in T), dscale the dq sums (f32). route: 0 =
+// the FMA kernel (every operand contiguous), 1 = the mma kernel (bf16; each
+// of q, k, v, g in layout 0 or 1 of Slice; dq in q's layout, dk in k's, dv
+// in v's). A route that does not take the shape is cudaErrorInvalidValue.
 int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const void* bias,
                             const void* g, void* dq, void* dk, void* dv, void* dl,
                             void* dbias, int batch, int heads, int tq, int tk, int depth,
                             int bias_heads, float scale, float dscale, const void* seed,
-                            float rate, float keep_div, int dtype, void* stream) {
+                            float rate, float keep_div, int dtype, int route, int q_layout,
+                            int k_layout, int v_layout, int g_layout, void* stream) {
   if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate) ||
       (dl && (!bias || !dbias)))
     return cudaErrorInvalidValue;
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int layouts[4] = {q_layout, k_layout, v_layout, g_layout};
+  for (int l : layouts)
+    if (l != 0 && (l != 1 || route != 1)) return cudaErrorInvalidValue;
+  if (route == 1) {
+    if (!mma_bwd_takes(heads, tq, tk, depth, dtype)) return cudaErrorInvalidValue;
+    const MmaBwdArgs a{static_cast<const __nv_bfloat16*>(q),
+                       static_cast<const __nv_bfloat16*>(k),
+                       static_cast<const __nv_bfloat16*>(v),
+                       static_cast<const __nv_bfloat16*>(g),
+                       static_cast<const float*>(bias),
+                       static_cast<__nv_bfloat16*>(dq),
+                       static_cast<__nv_bfloat16*>(dk),
+                       static_cast<__nv_bfloat16*>(dv),
+                       static_cast<float*>(dl),
+                       batch, heads, tq, tk, depth, bias_heads,
+                       slice_of(q_layout, heads, tq, depth),
+                       slice_of(k_layout, heads, tk, depth),
+                       slice_of(v_layout, heads, tk, depth),
+                       slice_of(g_layout, heads, tq, depth),
+                       scale, dscale, drop};
+    return launch_bwd_mma(a, dbias, s);
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads, tq,
                              tk, depth, bias_heads, scale, dscale, drop, s);
   return launch_bwd<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads,
                                    tq, tk, depth, bias_heads, scale, dscale, drop, s);
+}
+
+// The backward route the library takes for the shape: 1 = mma, 0 = FMA
+// (what ops/attention_core.py::backward_route names, for the tests).
+int vptr_attention_core_bwd_route(int heads, int tq, int tk, int depth, int dtype) {
+  return mma_bwd_takes(heads, tq, tk, depth, dtype) ? 1 : 0;
 }
 
 }  // extern "C"

@@ -9,12 +9,15 @@ bounds each on the card and what its design does about that.
 * The forward has two routes, named by :func:`kernel_route` from the
   shapes: "mma" (bf16: a batch element a block, q k^T and P v on the
   tensor cores) and "fma" (f32, and the bf16 shapes "mma" does not take).
-* q, k and v may each be contiguous (B, H, T, D) or the (B, H, T, D) view
-  of a contiguous (B, T, H*D) tensor, the layout of the attention layer's
-  projections (``heads()`` in ``models/layers.py``); the output has q's
-  layout. The "fma" kernel reads contiguous operands, so on that route
-  the wrapper copies a strided operand first. The backward kernel, too,
-  takes contiguous operands: ``_AttentionCore.backward`` copies them.
+* The backward has two routes, named by :func:`backward_route`: "mma"
+  (bf16: a batch element a block, dq, dk and dv on the tensor cores) and
+  "fma" (f32, and the bf16 shapes "mma" does not take).
+* q, k, v (and the backward's g) may each be contiguous (B, H, T, D) or
+  the (B, H, T, D) view of a contiguous (B, T, H*D) tensor, the layout of
+  the attention layer's projections (``heads()`` in ``models/layers.py``);
+  the output has q's layout, and dq, dk, dv have q's, k's and v's. The
+  "fma" kernels read and write contiguous rows, so on those routes the
+  wrapper copies a strided operand first (and a result back).
 
 * :func:`attention_core` is the wrapper, a ``torch.autograd.Function``. A
   CUDA tensor launches the kernels (or raises); a CPU tensor takes
@@ -50,20 +53,43 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"fma": 0, "mma": 1}
 
 
+def _check_tokens(tq: int, tk: int, depth: int) -> None:
+    if not (tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH):
+        raise ValueError(f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} "
+                         f"and D <= {MAX_DEPTH}, got Tq={tq} Tk={tk} D={depth}")
+
+
+def _whole_vectors(heads: int, tq: int, tk: int, depth: int) -> bool:
+    """Whether a batch element's q and k/v slices are whole 16-byte vectors
+    of bf16 (for the bulk copies and the vector stores)."""
+    return heads * tq * depth % 8 == 0 and heads * tk * depth % 8 == 0
+
+
 def kernel_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
                  depth: int) -> str:
     """The forward kernel that takes (B, ``heads``, Tq, D) attention: "mma"
     for bf16 where each batch element's q and k/v slices are whole 16-byte
-    vectors (for the bulk copies and the vector stores) and q, k and v of
-    one element fit a block's shared memory (with its 8-byte barrier);
-    "fma" otherwise. Both layouts keep an element's slice contiguous, so
-    the layout does not enter. Raises beyond Tq, Tk <= 32 and D <= 128."""
-    if not (tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH):
-        raise ValueError(f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} "
-                         f"and D <= {MAX_DEPTH}, got Tq={tq} Tk={tk} D={depth}")
-    if (dtype == torch.bfloat16 and heads * tq * depth % 8 == 0
-            and heads * tk * depth % 8 == 0
+    vectors and q, k and v of one element fit a block's shared memory
+    (with its 8-byte barrier); "fma" otherwise. Both layouts keep an
+    element's slice contiguous, so the layout does not enter. Raises
+    beyond Tq, Tk <= 32 and D <= 128."""
+    _check_tokens(tq, tk, depth)
+    if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
             and 2 * heads * (tq + 2 * tk) * depth + 8 <= MAX_SMEM):
+        return "mma"
+    return "fma"
+
+
+def backward_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
+                   depth: int) -> str:
+    """The backward kernel that takes (B, ``heads``, Tq, D) attention: "mma"
+    where the forward's vector conditions hold and q, k, v and g of one
+    batch element fit a block's shared memory (with its two 8-byte barriers);
+    "fma" otherwise (the library's ``vptr_attention_core_bwd_route`` says
+    the same). Raises beyond Tq, Tk <= 32 and D <= 128."""
+    _check_tokens(tq, tk, depth)
+    if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
+            and 4 * heads * (tq + tk) * depth + 16 <= MAX_SMEM):
         return "mma"
     return "fma"
 
@@ -169,9 +195,10 @@ class _AttentionCore(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, seed = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[3]
+        if layout(g) is None:       # e.g. the expanded gradient of a sum
+            g = g.contiguous()
         dq, dk, dv, dbias = attention_core_backward(
-            q.contiguous(), k.contiguous(), v.contiguous(), bias, seed,
-            g.contiguous(), ctx.rate, need_dbias)
+            q, k, v, bias, seed, g, ctx.rate, need_dbias)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, None, None
@@ -201,9 +228,11 @@ attention_core.bwd_launches = 0
 def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
                             need_dbias: bool = True):
     """The backward on its own (what the autograd Function calls): the
-    kernel for CUDA tensors (counted in ``attention_core.bwd_launches``),
-    :func:`attention_core_backward_plain` for CPU tensors. Returns (dq, dk,
-    dv, dbias or None)."""
+    kernel for CUDA tensors (counted in ``attention_core.bwd_launches``;
+    q, k, v and g each contiguous or in the layer's layout, see
+    :func:`layout`), :func:`attention_core_backward_plain` for CPU tensors.
+    Returns (dq, dk, dv, dbias or None); on the card dq, dk and dv have
+    q's, k's and v's layouts."""
     if q.device.type == "cpu":
         return attention_core_backward_plain(q, k, v, bias, seed, g,
                                              dropout_rate, need_dbias)
@@ -213,28 +242,24 @@ def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
                             need_dbias and bias is not None)
 
 
-def _check(q, k, v, bias, strided: bool = False):
-    """Shape, dtype and layout checks (``strided``: each of q, k, v may
-    also be in layout 1); returns (bias f32 contiguous or None,
-    bias_heads, the layouts of q, k, v)."""
+def _check(q, k, v, bias):
+    """Shape, dtype and layout checks (each of q, k, v in layout 0 or 1);
+    returns (bias f32 contiguous or None, bias_heads, the layouts of q, k,
+    v)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
         raise ValueError(f"attention_core: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
-    if not (tq <= MAX_TOKENS and tk <= MAX_TOKENS and d <= MAX_DEPTH):
-        raise ValueError(f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} "
-                         f"and D <= {MAX_DEPTH}, got Tq={tq} Tk={tk} D={d}")
+    _check_tokens(tq, tk, d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention_core kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     layouts = tuple(layout(t) for t in (q, k, v))
     for name, t, lay in zip("qkv", (q, k, v), layouts):
-        if (lay is None or (lay and not strided) or t.device != q.device
-                or t.data_ptr() % 16):
-            what = ("contiguous or the (B, H, T, D) view of a contiguous "
-                    "(B, T, H*D)") if strided else "contiguous"
-            raise ValueError(f"attention_core: {name} must be {what} on "
+        if lay is None or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"attention_core: {name} must be contiguous or the "
+                             f"(B, H, T, D) view of a contiguous (B, T, H*D) on "
                              f"{q.device} (16-byte aligned)")
     if bias is None:
         return None, 0, layouts
@@ -253,7 +278,7 @@ def _dropout_args(seed, rate):
 
 
 def _forward_kernel(q, k, v, bias, seed, rate):
-    bias, bias_heads, layouts = _check(q, k, v, bias, strided=True)
+    bias, bias_heads, layouts = _check(q, k, v, bias)
     b, h, tq, d = q.shape
     route = kernel_route(q.dtype, h, tq, k.shape[2], d)
     out = torch.empty_like(q)            # q's layout (its strides kept)
@@ -275,13 +300,24 @@ def _forward_kernel(q, k, v, bias, seed, rate):
 
 
 def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
-    bias, bias_heads, _ = _check(q, k, v, bias)
+    bias, bias_heads, layouts = _check(q, k, v, bias)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
+    g_layout = layout(g)
+    if (g.shape != q.shape or g.dtype != q.dtype or g.device != q.device
+            or g_layout is None or g.data_ptr() % 16):
         raise ValueError(f"attention_core backward: g {tuple(g.shape)} "
-                         f"{g.dtype} does not match q {tuple(q.shape)} {q.dtype}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+                         f"{g.dtype} does not match q {tuple(q.shape)} {q.dtype} "
+                         f"(contiguous or the (B, H, T, D) view of a contiguous "
+                         f"(B, T, H*D), 16-byte aligned)")
+    route = backward_route(q.dtype, h, tq, tk, d)
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    ops, res, layouts = (q, k, v, g), grads, layouts + (g_layout,)
+    if route == "fma" and any(layouts):  # the FMA kernel reads and writes contiguous rows
+        ops = tuple(t.contiguous() for t in ops)
+        res = tuple(r if r.is_contiguous() else torch.empty_like(o)
+                    for r, o in zip(grads, ops))
+        layouts = (0, 0, 0, 0)
     dl = dbias = None
     if need_dbias:
         dl = torch.empty(b, h, tq, tk, dtype=torch.float32, device=q.device)
@@ -289,13 +325,16 @@ def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
     lib = _lib()
     p = _build.ptr
     err = lib.vptr_attention_core_bwd(
-        p(q), p(k), p(v), p(bias), p(g), p(dq), p(dk), p(dv), p(dl), p(dbias),
-        b, h, tq, tk, d, bias_heads, q_scale(d, q.dtype), d ** -0.5,
-        *_dropout_args(seed, rate), _DTYPES[q.dtype],
+        *(p(t) for t in ops[:3]), p(bias), p(ops[3]), *(p(t) for t in res), p(dl),
+        p(dbias), b, h, tq, tk, d, bias_heads, q_scale(d, q.dtype), d ** -0.5,
+        *_dropout_args(seed, rate), _DTYPES[q.dtype], _ROUTES[route], *layouts,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "attention_core backward")
+    _build.check(lib, err, f"attention_core backward ({route} route)")
     attention_core.bwd_launches += 1
-    return dq, dk, dv, dbias
+    for out, r in zip(grads, res):
+        if r is not out:
+            out.copy_(r)
+    return grads + (dbias,)
 
 
 def _lib() -> ctypes.CDLL:
@@ -306,6 +345,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
         bwd = lib.vptr_attention_core_bwd
-        bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f, i, p]
+        bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f] + [i] * 6 + [p]
         bwd.restype = ctypes.c_int
+        lib.vptr_attention_core_bwd_route.argtypes = [i] * 5
+        lib.vptr_attention_core_bwd_route.restype = ctypes.c_int
     return lib
