@@ -121,7 +121,22 @@ Phases (any failure exits non-zero, without the final result line):
 19. nar_mnist with the same two flags: the nar predict (#11 32, #1 16, #5 8,
    #2 8 launches) and the train step (those and the backwards #12 32, #3
    16, #6 8, #4 8), each against kernels="plain";
-20. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
+20. build ae_mnist at full width from a seed (AE ngf 64 / feat 528 / 9 res
+   blocks, PatchGAN ndf 64 / 3 layers, bf16, Adam(2e-4, 0.5, 0.999) for G
+   and D, vanilla GAN at lam_gan 0.01) and take one stage-1 step on
+   batch 32 x (10 + 10) frames of moving squares: every metric finite,
+   Dtotal > 0, every parameter and every running statistic of the
+   encoder, decoder and discriminator changed; 10 steps on one batch with
+   AE_total falling; the eval step's frames shaped, finite, in [0, 1];
+21. far_mnist's train step with lam_gan 0.01 and the discriminator on the
+   default route: every counter at 0 just before and read just after
+   (#1-#4 12 launches each), kernels vs kernels="plain" from one cloned
+   state, Dtotal and T_gan finite and positive; then nar_mnist's once
+   (phase 9's launches);
+22. time the AE step (median of 8 after 2 warm-ups, training frames/s =
+   640 / step time, the memory peak above what is held) and its eval
+   step, and the far_mnist step with and without the GAN term in turns;
+23. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
    and resident clusters; #2 and #4 timed in the layer's strided layout,
    their library yardsticks too, with the route, the contiguous-layout
@@ -1312,6 +1327,198 @@ def conv_phases(dev):
     return rows_out, temporal_rows, extra, summary
 
 
+def moving_squares(n: int, t: int, size: int, g: torch.Generator) -> torch.Tensor:
+    """(n, t, size, size, 1) frames in [0, 1]: two bright 12 x 12 squares a
+    clip on black, each moving at its own constant speed and bouncing off
+    the borders (the layout of Moving MNIST, without digits)."""
+    frames = torch.zeros(n, t, size, size, 1)
+    side = 12
+    span = size - side
+    pos = torch.rand(n, 2, 2, generator=g) * span
+    vel = (torch.rand(n, 2, 2, generator=g) - 0.5) * 6
+    for step in range(t):
+        p = torch.remainder(pos + vel * step, 2 * span)   # reflected into [0, span]
+        p = torch.where(p > span, 2 * span - p, p).long()
+        for i in range(n):
+            for k in range(2):
+                y, x = p[i, k].tolist()
+                frames[i, step, y:y + side, x:x + side] = 1.0
+    return frames
+
+
+def ae_gan_phases(dev):
+    """Phases 20-22: the stage-1 AE/GAN step of ae_mnist at full width,
+    lam_gan on the far_mnist and nar_mnist steps, and their times. Returns
+    (the summary line, extra readings)."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.discriminator import build_discriminator
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_ae_train_state, create_far_train_state
+    from vptr_tpu_torch.train.steps import (
+        make_ae_eval_step,
+        make_ae_train_step,
+        make_far_train_step,
+        make_nar_train_step,
+    )
+
+    bf = torch.bfloat16
+    phase("20. ae_mnist full width, AE/GAN train step")
+    cfg = get_preset("ae_mnist")
+    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
+    batch, n_past, n_fut = (cfg.data.batch_size, cfg.data.num_past_frames,
+                            cfg.data.num_future_frames)
+    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED + 30))
+    disc = build_discriminator(cfg.disc, dtype, dev, torch.Generator().manual_seed(SEED + 31))
+    g_opt, d_opt = build_optimizer(cfg.optim), build_optimizer(cfg.optim_d)
+    state = create_ae_train_state(enc, dec, disc, g_opt, d_opt, seed=SEED + 32)
+    train_step = make_ae_train_step(enc, dec, disc, g_opt, d_opt, cfg.loss)
+    eval_step = make_ae_eval_step(enc, dec, disc, cfg.loss)
+    counts = {n: sum(p.numel() for p in m.parameters())
+              for n, m in (("enc", enc), ("dec", dec), ("disc", disc))}
+    print(f"  params {counts}, dtype {dtype}; AE ngf {cfg.ae.ngf} feat {cfg.ae.feat_dim} "
+          f"res blocks {cfg.ae.n_res_blocks} norm {cfg.ae.norm}; D ndf {cfg.disc.ndf} "
+          f"n_layers {cfg.disc.n_layers}; G {cfg.optim.optimizer} lr {cfg.optim.lr} "
+          f"b1 {cfg.optim.b1}, D {cfg.optim_d.optimizer} lr {cfg.optim_d.lr} b1 "
+          f"{cfg.optim_d.b1}, mu_dtype {cfg.optim.mu_dtype}; {cfg.loss.gan_mode} GAN at "
+          f"lam_gan {cfg.loss.lam_gan}; batch {batch}, {n_past} + {n_fut} frames")
+    frames = moving_squares(batch, n_past + n_fut, 64, torch.Generator().manual_seed(SEED + 33))
+    past, future = frames[:, :n_past].to(dev), frames[:, n_past:].to(dev)
+    before = {n: {k: v.clone() for k, v in m.state_dict().items()}
+              for n, m in (("enc", enc), ("dec", dec), ("disc", disc))}
+    state, m = train_step(state, past, future)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v)) for v in m.values()),
+          f"first AE step metrics finite: { {k: round(float(v), 6) for k, v in m.items()} }")
+    check(float(m["Dtotal"]) > 0, f"Dtotal {float(m['Dtotal']):.6f} > 0")
+    for name, module in (("enc", state.enc), ("dec", state.dec), ("disc", state.disc)):
+        params = dict(module.named_parameters())
+        stats = {k: v for k, v in module.state_dict().items() if k not in params}
+        same_p = [k for k, p in params.items() if torch.equal(p, before[name][k])]
+        same_s = [k for k, v in stats.items() if torch.equal(v, before[name][k])]
+        check(not same_p, f"{name}: all {len(params)} parameters changed by the step "
+              f"(unchanged: {same_p})")
+        check(len(stats) > 0 and not same_s, f"{name}: all {len(stats)} running "
+              f"statistics changed by the step (unchanged: {same_s})")
+    del before
+    fixed = state.clone()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        fixed, mm = train_step(fixed, past, future)
+        losses.append(float(mm["AE_total"]))
+    del fixed
+    print(f"  AE_total over {TRAIN_STEPS} steps on one batch: {[round(x, 6) for x in losses]}")
+    check(all(x == x and abs(x) != float("inf") for x in losses), "AE train losses finite")
+    check(losses[-1] < losses[0], f"AE_total falls over {TRAIN_STEPS} steps: "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    em, rec = eval_step(state, past, future)
+    check(all(bool(torch.isfinite(v)) for v in em.values()),
+          f"AE eval metrics finite: { {k: round(float(v), 6) for k, v in em.items()} }")
+    check_frames(rec, (batch, n_past + n_fut, 64, 64, 1), "AE eval step")
+    del rec
+
+    phase("21. far_mnist and nar_mnist train steps with lam_gan 0.01 (default route)")
+    fcfg = get_preset("far_mnist").override({"loss": {"lam_gan": 0.01}})
+    ftc = fcfg.transformer
+    fenc, fdec = build_autoencoder(fcfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    ftr = build_transformer(ftc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    fdisc = build_discriminator(fcfg.disc, dtype, dev, torch.Generator().manual_seed(SEED + 31))
+    opt, fd_opt = build_optimizer(fcfg.optim, ftc.d_model), build_optimizer(fcfg.optim_d)
+    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    fpast, ffuture = frames[:, :PAST].to(dev), frames[:, PAST:].to(dev)
+    plain_state = create_far_train_state(fenc, fdec, ftr, opt, seed=SEED + 3).clone()
+    gan_state = create_far_train_state(fenc, fdec, ftr, opt, seed=SEED + 3, disc=fdisc,
+                                       d_optimizer=fd_opt)
+    gan_step = make_far_train_step(fenc, fdec, ftr, opt, fcfg.loss, disc=fdisc,
+                                   d_optimizer=fd_opt)
+    plain_step = make_far_train_step(fenc, fdec, ftr, opt, get_preset("far_mnist").loss)
+    gan_state, far_launches = counted_step(
+        gan_step, gan_state, fpast, ffuture,
+        {k: LAYERS for k in ("fused_attention_ln", "attention_core",
+                             "fused_attention_ln_bwd", "attention_core_bwd")},
+        "FAR train step with the GAN term")
+    step_vs_plain(gan_step, gan_state, fpast, ffuture, "FAR GAN step")
+    _, m = gan_step(gan_state.clone(), fpast, ffuture)
+    check(float(m["Dtotal"]) > 0 and float(m["T_gan"]) > 0,
+          f"FAR GAN step Dtotal {float(m['Dtotal']):.6f}, T_gan {float(m['T_gan']):.6f} "
+          f"finite and > 0")
+
+    ncfg = get_preset("nar_mnist").override({"loss": {"lam_gan": 0.01}})
+    ntc = ncfg.transformer
+    nb, nn_past, nn_fut = ncfg.data.batch_size, ntc.num_past_frames, ntc.num_future_frames
+    enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
+    nenc, ndec = build_autoencoder(ncfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    ntr = build_transformer(ntc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    ndisc = build_discriminator(ncfg.disc, dtype, dev, torch.Generator().manual_seed(SEED + 31))
+    nopt, nd_opt = build_optimizer(ncfg.optim, ntc.d_model), build_optimizer(ncfg.optim_d)
+    nframes = torch.rand(nb, nn_past + nn_fut, 64, 64, 1,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    npast, nfuture = nframes[:, :nn_past].to(dev), nframes[:, nn_past:].to(dev)
+    nstate = create_far_train_state(nenc, ndec, ntr, nopt, seed=SEED + 3, disc=ndisc,
+                                    d_optimizer=nd_opt)
+    nar_step = make_nar_train_step(nenc, ndec, ntr, nopt, ncfg.loss, disc=ndisc,
+                                   d_optimizer=nd_opt)
+    want = {"fused_attention_ln": enc_l, "fused_attention_ln_bwd": enc_l,
+            "fused_attention": dec_l, "fused_attention_bwd": dec_l,
+            "attention_core": enc_l + 2 * dec_l, "attention_core_bwd": enc_l + 2 * dec_l}
+    nstate, nar_launches = counted_step(nar_step, nstate, npast, nfuture, want,
+                                        "NAR train step with the GAN term")
+    _, m = nar_step(nstate.clone(), npast, nfuture)
+    check(float(m["Dtotal"]) > 0 and float(m["T_gan"]) > 0,
+          f"NAR GAN step Dtotal {float(m['Dtotal']):.6f}, T_gan {float(m['T_gan']):.6f} "
+          f"finite and > 0")
+    del nstate, nar_step, nenc, ndec, ntr, ndisc
+    torch.cuda.empty_cache()
+
+    phase("22. timing: the AE step and its eval step; the FAR step with and without "
+          "the GAN term, in turns")
+    frames_per_step = batch * (n_past + n_fut)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = [host_ms(lambda: train_step(state, past, future))
+             for _ in range(WARMUP_STEPS + TIMED_STEPS)][WARMUP_STEPS:]
+    ae_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    ae_ms = statistics.median(times)
+    eval_times = [host_ms(lambda: eval_step(state, past, future))
+                  for _ in range(WARMUP_STEPS + TIMED_STEPS)][WARMUP_STEPS:]
+    eval_ms = statistics.median(eval_times)
+    print(f"  AE/GAN train step (batch {batch}, {n_past + n_fut} frames): median "
+          f"{ae_ms:.3f} ms of {len(times)} ({[round(x, 3) for x in times]}), "
+          f"{frames_per_step / ae_ms * 1e3:.1f} training frames/s; peak {ae_peak:.3f} "
+          f"GiB above the {held / 2 ** 30:.3f} GiB held (the AE and FAR modules and "
+          f"states); eval step median {eval_ms:.3f} ms "
+          f"({[round(x, 3) for x in eval_times]}), "
+          f"{frames_per_step / eval_ms * 1e3:.1f} frames/s")
+    del state, enc, dec, disc, train_step, eval_step, past, future
+    torch.cuda.empty_cache()
+
+    steps = {"gan": (gan_step, gan_state), "plain": (plain_step, plain_state)}
+    step_times = {"gan": [], "plain": []}
+    for i in range(WARMUP_STEPS + TIMED_STEPS):   # plain, gan, gan, plain, ...
+        for name in (("plain", "gan") if i % 2 == 0 else ("gan", "plain")):
+            fn, st = steps[name]
+            ms = host_ms(lambda: fn(st, fpast, ffuture))
+            if i >= WARMUP_STEPS:
+                step_times[name].append(ms)
+    far_ms = {k: statistics.median(v) for k, v in step_times.items()}
+    print(f"  FAR train step (batch {BATCH}, T {PAST + FUTURE - 1}): with the GAN term "
+          f"median {far_ms['gan']:.3f} ms ({[round(x, 3) for x in step_times['gan']]}), "
+          f"without {far_ms['plain']:.3f} ms "
+          f"({[round(x, 3) for x in step_times['plain']]}): the GAN term costs "
+          f"{far_ms['gan'] - far_ms['plain']:.3f} ms")
+    del steps, gan_state, plain_state, gan_step, plain_step, fenc, fdec, ftr, fdisc
+    torch.cuda.empty_cache()
+    summary = (f"ae_train_step_ms {ae_ms:.3f} ae_train_frames_per_s "
+               f"{frames_per_step / ae_ms * 1e3:.1f} ae_train_peak_gib {ae_peak:.3f} "
+               f"ae_eval_step_ms {eval_ms:.3f} far_gan_step_ms {far_ms['gan']:.3f} "
+               f"far_plain_step_ms {far_ms['plain']:.3f}")
+    extra = {"far_gan_step_launches": far_launches, "nar_gan_step_launches": nar_launches}
+    return summary, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1850,7 +2057,10 @@ def main() -> int:
         if nar_ln:                # and at the NAR shape
             row["nar_shape"] = nar_ln
 
-    phase("20. result")
+    torch.cuda.empty_cache()
+    ae_summary, ae_extra = ae_gan_phases(dev)
+
+    phase("23. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -1861,6 +2071,8 @@ def main() -> int:
     print(f"  {json.dumps(ffn_extra)}")
     print(f"  {conv_summary}")
     print(f"  {json.dumps(conv_extra)}")
+    print(f"  {ae_summary}")
+    print(f"  {json.dumps(ae_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

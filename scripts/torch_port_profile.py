@@ -3,9 +3,12 @@ GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR); --ffn-route turns on
 the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
 #7-#10), --conv-route the conv-FFN route with the folded temporal sublayer
 (transformer.fused_conv_ffn and fused_full_temporal: kernels #11/#12, and
-#1/#3 on the temporal sublayer).
+#1/#3 on the temporal sublayer); --gan adds the GAN term (lam_gan 0.01
+and the PatchGAN discriminator) to the train step; --ae traces the
+stage-1 AE/GAN train step of ae_mnist instead (batch 32, 10 + 10 frames,
+lam_gan 0.01).
 
-    python3 scripts/torch_port_profile.py [--nar] [--train]
+    python3 scripts/torch_port_profile.py [--nar] [--train [--gan]] [--ae]
         [--ffn-route | --conv-route] [--kernels cuda|plain] [--top 15]
         [--around NAME] [--window 4] [--root DIR]
 
@@ -43,6 +46,10 @@ def main() -> int:
                         help="trace one train step instead of a predict call")
     parser.add_argument("--nar", action="store_true",
                         help="nar_mnist (NAR) instead of far_mnist (FAR)")
+    parser.add_argument("--gan", action="store_true",
+                        help="with --train: the GAN term (lam_gan 0.01) and its discriminator")
+    parser.add_argument("--ae", action="store_true",
+                        help="the ae_mnist AE/GAN train step instead")
     parser.add_argument("--ffn-route", action="store_true",
                         help="transformer.fused_ffn and fused_dw on")
     parser.add_argument("--conv-route", action="store_true",
@@ -55,9 +62,8 @@ def main() -> int:
         print("torch_port_profile: no GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    if args.ae:
+        return trace(*ae_step(torch.device("cuda")), args, "ae_mnist")
     from vptr_tpu_torch.config import get_preset
     from vptr_tpu_torch.eval.harness import make_predict_fn
     from vptr_tpu_torch.models.autoencoder import build_autoencoder
@@ -84,17 +90,59 @@ def main() -> int:
     past, future = frames[:, :10], frames[:, 10:]
     if args.train:
         opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
-        state = create_far_train_state(enc, dec, tr, opt, seed=3)
+        gan = {}
+        if args.gan:
+            from vptr_tpu_torch.models.discriminator import build_discriminator
+
+            cfg = cfg.override({"loss": {"lam_gan": 0.01}})
+            gan = {"disc": build_discriminator(cfg.disc, torch.bfloat16, dev,
+                                               torch.Generator().manual_seed(4)),
+                   "d_optimizer": build_optimizer(cfg.optim_d)}
+        state = create_far_train_state(enc, dec, tr, opt, seed=3, **gan)
         make_step = make_nar_train_step if args.nar else make_far_train_step
-        step = make_step(enc, dec, tr, opt, cfg.loss)
+        step = make_step(enc, dec, tr, opt, cfg.loss, **gan)
         run = lambda: step(state, past, future)
         what = (f"NAR train step (batch {batch}, 10 -> 10)" if args.nar
-                else "train step (batch 10, T 19)")
+                else "train step (batch 10, T 19)") + (" with the GAN term" if args.gan else "")
     else:
         mode = "nar" if args.nar else "far_rip"
         predict = make_predict_fn(cfg, enc, dec, tr, mode, 10, dev)
         run = lambda: predict(past)
         what = f"{mode} predict (batch {batch}, 10 frames)"
+    route = " + ".join(name for name, on in (("fused-FFN route", args.ffn_route),
+                                             ("conv-FFN route", args.conv_route))
+                       if on) or "default route"
+    return trace(run, what, args, route)
+
+
+def ae_step(dev):
+    """(one ae_mnist AE/GAN train step at full width from a seed, its
+    label)."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.discriminator import build_discriminator
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_ae_train_state
+    from vptr_tpu_torch.train.steps import make_ae_train_step
+
+    cfg = get_preset("ae_mnist")
+    enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev, torch.Generator().manual_seed(0))
+    disc = build_discriminator(cfg.disc, torch.bfloat16, dev, torch.Generator().manual_seed(1))
+    g_opt, d_opt = build_optimizer(cfg.optim), build_optimizer(cfg.optim_d)
+    state = create_ae_train_state(enc, dec, disc, g_opt, d_opt, seed=3)
+    step = make_ae_train_step(enc, dec, disc, g_opt, d_opt, cfg.loss)
+    batch = cfg.data.batch_size
+    frames = torch.rand(batch, 20, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    return (lambda: step(state, frames[:, :10], frames[:, 10:]),
+            f"AE/GAN train step (batch {batch}, 10 + 10 frames)")
+
+
+def trace(run, what, args, route) -> int:
+    """Warm ``run`` up, trace one call and print the readings (module notes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -109,9 +157,6 @@ def main() -> int:
             rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
-    route = " + ".join(name for name, on in (("fused-FFN route", args.ffn_route),
-                                             ("conv-FFN route", args.conv_route))
-                       if on) or "default route"
     print(f"kernels={args.kernels} {route} {what}, traced: wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
     for ms, count, key in rows[:args.top]:

@@ -162,3 +162,54 @@ def check_strided_core_backward(tq, tk, bias_kind, layouts, rate, rng):
         assert_grad_close(a, w, name + " (autograd)")
 
 
+
+
+def recording(opt):
+    """optax transformation that applies ``opt`` and keeps the gradients it
+    was given in its state (``state[1]``): one JAX step gives both its exact
+    gradients and its updated parameters."""
+    import optax
+
+    def update(g, s, p=None):
+        u, inner = opt.update(g, s[0], p)
+        return u, (inner, g)
+
+    return optax.GradientTransformation(
+        lambda p: (opt.init(p), jax.tree.map(jnp.zeros_like, p)), update)
+
+
+def leaf_errors(got, want, rel: float, floor: float = 1e-9):
+    """The leaves where max |got - want| > rel * max |want| + floor, as
+    'path: err > tol' lines (empty when every leaf agrees)."""
+    bad = []
+
+    def check(path, g, w):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        tol = rel * np.abs(w).max() + floor
+        err = np.abs(g - w).max()
+        if not err <= tol:
+            bad.append(f"{jax.tree_util.keystr(path)}: {err:.3e} > {tol:.3e}")
+    jax.tree_util.tree_map_with_path(check, got, want)
+    return bad
+
+
+def adam_param_errors(got, want, grads, lr: float, grad_rel: float,
+                      grad_floor: float = 1e-9, eps: float = 1e-8):
+    """Parameters after one Adam step against JAX's. The first step moves an
+    element by lr * g / (|g| + eps): with the gradient known to within
+    d = grad_rel * (the leaf's largest) + grad_floor, an element with
+    |g| <= d may step lr either way (bound 2 lr), and any other moves by at
+    most lr * eps * d / (|g| + eps)^2 more than JAX's (its derivative);
+    2e-6 absolute on top for the rest of the arithmetic."""
+    bad = []
+
+    def check(path, g, w, gr):
+        g, w, gr = (np.asarray(a, np.float64) for a in (g, w, gr))
+        d = grad_rel * np.abs(gr).max() + grad_floor
+        tol = np.where(np.abs(gr) <= d, 2 * lr,
+                       2e-6 + lr * eps * d / (np.abs(gr) + eps) ** 2)
+        err = np.abs(g - w)
+        if not (err <= tol).all():
+            bad.append(f"{jax.tree_util.keystr(path)}: {err.max():.3e}")
+    jax.tree_util.tree_map_with_path(check, got, want, grads)
+    return bad

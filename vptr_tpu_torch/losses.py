@@ -1,11 +1,12 @@
-"""Training criterion of the FAR and NAR steps: MSE / L1 / GDL, the
-temporal weight, BiPatchNCE and the Noam schedule, in PyTorch.
+"""Training criterion of the AE, FAR and NAR steps: MSE / L1 / GDL, the
+temporal weight, the GAN objective, BiPatchNCE and the Noam schedule, in
+PyTorch.
 
-Counterpart of ``vptr_tpu/losses.py:17-85,107-142`` (itself the reference's
+Counterpart of ``vptr_tpu/losses.py:17-142`` (itself the reference's
 ``model/criterion.py``). Frames are (N, T, H, W, C) like the JAX package's;
-every loss is computed in f32 and returns a 0-d f32 tensor. The GAN term
-comes with the stage-1 AE slice; ``build_optimizer`` lives in
-``vptr_tpu_torch.train.optim``.
+every loss is computed in f32 and returns a 0-d f32 tensor. ``gan_loss``
+(``losses.py:88-104``) is the GAN steps' objective on discriminator
+logits; ``build_optimizer`` lives in ``vptr_tpu_torch.train.optim``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def temporal_weight(t: int, device=None) -> torch.Tensor:
@@ -101,6 +103,24 @@ def gdl_loss(gt, pred, alpha: float = 1.0, weights=None) -> torch.Tensor:
     if alpha != 1.0:
         g1, g2 = torch.pow(g1, alpha), torch.pow(g2, alpha)
     return _weighted_mean(g1, weights) + _weighted_mean(g2, weights)
+
+
+def gan_loss(logits: torch.Tensor, target_is_real: bool,
+             mode: str = "vanilla") -> torch.Tensor:
+    """GAN objective on discriminator patch logits (criterion.py:15-74),
+    the logits cast to f32 first: vanilla, binary cross-entropy with
+    logits against all-1 (real) or all-0 (fake) labels; lsgan, the mean
+    squared distance to those labels; wgangp, -mean(logits) for real and
+    mean(logits) for fake."""
+    logits = logits.float()
+    if mode == "vanilla":
+        label = torch.ones_like if target_is_real else torch.zeros_like
+        return F.binary_cross_entropy_with_logits(logits, label(logits))
+    if mode == "lsgan":
+        return torch.mean(torch.square(logits - (1.0 if target_is_real else 0.0)))
+    if mode == "wgangp":
+        return -torch.mean(logits) if target_is_real else torch.mean(logits)
+    raise ValueError(f"unknown gan mode {mode!r}")
 
 
 def noam_schedule(d_model: int, factor: float = 2.0, warmup_steps: int = 4000):

@@ -17,7 +17,8 @@ Counterpart of ``vptr_tpu/models/layers.py``:
   learned relative-position bias with :func:`relative_position_index`),
   :class:`TemporalAttention` (causal mask as a -1e30 (1, T, T) bias;
   cross-attention over ``kv``), :class:`LayerNorm`, :class:`LayerNormHWC`,
-  :class:`BatchNorm` (flax semantics), :class:`MlpDWBN` in both norm
+  :class:`BatchNorm` and :class:`GroupNorm` (flax semantics; also the
+  autoencoder's and the discriminator's), :class:`MlpDWBN` in both norm
   flavours, :class:`Mlp`, :class:`DropPath` and :class:`Dropout` (both the
   identity in eval mode).
 * The feed-forward kernel routes: :class:`Mlp` with ``fused`` takes its
@@ -391,6 +392,27 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - view(mean)) * view(mul) + view(self.bias)
+        return y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(epsilon=1e-5)`` over the channels of an NCHW
+    tensor: ``groups`` groups of C // groups channels, f32 statistics over
+    (group channels, H, W) with the biased variance, the per-channel affine,
+    the result cast to ``dtype``. No running statistics: train and eval
+    mode are the same."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % groups:
+            raise ValueError(f"{channels} channels do not split into {groups} groups")
+        self.groups, self.eps, self.dtype = groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.groups, self.weight, self.bias, self.eps)
         return y.to(self.dtype)
 
 

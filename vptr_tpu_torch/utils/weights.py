@@ -8,9 +8,13 @@ tree), so gradients and updated parameters compare leaf for leaf.
 ``variables`` is what ``jax.tree.map(np.asarray, variables)`` gives for a
 flax module: ``{"params": {...}, "batch_stats": {...}}`` as nested dicts of
 numpy arrays (the port never imports JAX; callers convert). The port's
-module names mirror the JAX tree, so a leaf's path names its target; the
-only renames are the flax ``BatchNorm_0`` wrapper (dropped) and the leaf
-names. Layout conversions:
+module names mirror the JAX tree, so a leaf's path names its target and
+only the leaf names change. That includes the names flax gives a norm
+inside a module: the autoencoder's ``_NormAct`` holds its norm as a child
+named ``BatchNorm_0`` or ``GroupNorm_0`` (none for ``norm="none"``), as
+the JAX ``_NormAct`` does, while the discriminator's ``norm{n}`` and the
+transformer's norms are named directly, so the place of a norm in the tree
+decides its path, not its class. Layout conversions:
 
 * Dense ``kernel`` (in, out)          -> ``nn.Linear.weight`` (out, in)
 * Conv ``kernel`` HWIO                 -> ``nn.Conv2d.weight`` OIHW; the
@@ -19,8 +23,8 @@ names. Layout conversions:
   (in, out, kh, kw). The JAX module flips the kernel at call time and
   correlates the dilated input; ``conv_transpose2d`` does that flip
   itself, so the stored kernel maps over without one.
-* LayerNorm / BatchNorm ``scale``      -> ``weight``; BatchNorm ``mean`` /
-  ``var`` -> ``running_mean`` / ``running_var``
+* LayerNorm / BatchNorm / GroupNorm ``scale`` -> ``weight``; BatchNorm
+  ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
 * ``LayerNormHWC`` (H, W, C) affine    -> (C, H, W)
 * bare parameters (``rpe_table`` of a window attention, the NAR
   ``frame_queries``) keep their names and layouts
@@ -76,7 +80,7 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     done = set()
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
-            names = [p for p in path[:-1] if p != "BatchNorm_0"]
+            names = list(path[:-1])
             owner = module.get_submodule(".".join(names))
             name = ".".join(names + [_LEAF[path[-1]]])
             if name not in targets:
@@ -112,7 +116,7 @@ def _export(owner: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarr
             return "kernel", arr.transpose(2, 3, 1, 0)
         if isinstance(owner, LayerNormHWC):
             return "scale", arr.transpose(1, 2, 0)
-        return "scale", arr                 # LayerNorm / BatchNorm
+        return "scale", arr                 # LayerNorm / BatchNorm / GroupNorm
     if leaf == "bias" and isinstance(owner, LayerNormHWC):
         return "bias", arr.transpose(1, 2, 0)
     return _INV_LEAF[leaf], arr
@@ -145,12 +149,28 @@ def export_jax_variables(module: nn.Module,
                       else "params")
         if collection not in out:
             continue
-        keys = path[:-1] + (["BatchNorm_0"] if isinstance(owner, nn.BatchNorm2d)
-                            else [])
         node = out[collection]
-        for k in keys:
+        for k in path[:-1]:
             node = node.setdefault(k, {})
         node[leaf] = np.ascontiguousarray(arr)
     if tensors is None and not out["batch_stats"]:
         del out["batch_stats"]
     return out
+
+
+def ae_train_state_from_jax(variables: MappingT[str, Optional[Mapping]], enc: nn.Module,
+                            dec: nn.Module, disc: Optional[nn.Module], g_optimizer,
+                            d_optimizer=None, seed: int = 0):
+    """The port's stage-1 state from a JAX ``AETrainState``'s modules:
+    ``variables`` maps "enc", "dec" and "disc" (None without the GAN term) to
+    ``{"params": ..., "batch_stats": ...}`` of numpy arrays (a JAX
+    ``ModuleState``'s params and stats). They are loaded into ``enc``, ``dec``
+    and ``disc``, which :func:`vptr_tpu_torch.train.state.create_ae_train_state`
+    then takes with fresh optimizer states (the JAX package's at step 0)."""
+    from vptr_tpu_torch.train.state import create_ae_train_state
+
+    load_jax_variables(enc, variables["enc"])
+    load_jax_variables(dec, variables["dec"])
+    if disc is not None:
+        load_jax_variables(disc, variables["disc"])
+    return create_ae_train_state(enc, dec, disc, g_optimizer, d_optimizer, seed)
