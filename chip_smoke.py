@@ -136,7 +136,27 @@ Phases (any failure exits non-zero, without the final result line):
 22. time the AE step (median of 8 after 2 warm-ups, training frames/s =
    640 / step time, the memory peak above what is held) and its eval
    step, and the far_mnist step with and without the GAN term in turns;
-23. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
+23. the commands users run, through vptr_tpu_torch.cli.main, on the
+   synthetic loader (no dataset on disk), into a temporary directory
+   removed at the end: `cli train` of ae_mnist at full width (8 steps and
+   a validation pass; the metrics finite, ckpt/8/ written; its steps/s and
+   training frames/s beside phase 22's bare AE step);
+24. `cli train` of far_mnist at full width on phase 23's autoencoder
+   (ae_ckpt), 12 steps and a validation pass, every counter at 0 just
+   before and read just after (#1-#4 12 launches a train step, #1 and #2
+   12 a validation batch); its steps/s, training frames/s and TFLOP/s
+   beside phase 6's bare step; the train loader alone, on its native and
+   its Python path, in batches/s, and the path the trainer took; a second
+   `cli train` that logs "resumed from step 12" and writes ckpt/24/; the
+   checkpoint's bytes and its save and restore times;
+25. `cli eval --mode far_rip --max-batches 2` from that checkpoint: the
+   curves finite, #1 and #2 120 launches a batch; evaluate's ms a batch
+   and the metrics' share of it; one batch's PSNR / SSIM / MSE on the card
+   (with cuDNN TF32 allowed: the metrics turn it off) against the same
+   frames' on the CPU, 1e-5 relative;
+26. `cli predict --mode far_rip --batches 1`: #1 and #2 120 launches; four
+   GIFs and two clips written where PIL imports (else it says so);
+27. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
    and resident clusters; #2 and #4 timed in the layer's strided layout,
    their library yardsticks too, with the route, the contiguous-layout
@@ -150,13 +170,16 @@ torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import gc
 import json
+import logging
 import re
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and flop/s
@@ -167,6 +190,7 @@ SEED = 0
 BATCH, PAST, FUTURE = 10, 10, 10
 LAYERS = 12
 TRAIN_STEPS = 10              # the loss-falling run
+AE_CLI_STEPS, FAR_CLI_STEPS = 8, 12   # train steps of the cli train runs
 TIMED_STEPS, WARMUP_STEPS = 8, 2
 
 failures = []
@@ -1515,7 +1539,275 @@ def ae_gan_phases(dev):
                f"{frames_per_step / ae_ms * 1e3:.1f} ae_train_peak_gib {ae_peak:.3f} "
                f"ae_eval_step_ms {eval_ms:.3f} far_gan_step_ms {far_ms['gan']:.3f} "
                f"far_plain_step_ms {far_ms['plain']:.3f}")
-    extra = {"far_gan_step_launches": far_launches, "nar_gan_step_launches": nar_launches}
+    extra = {"far_gan_step_launches": far_launches, "nar_gan_step_launches": nar_launches,
+             "ae_train_step_ms": ae_ms}
+    return summary, extra
+
+
+class _Records(logging.Handler):
+    """The messages logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _history(ckpt_dir):
+    """{"train": {key: last value}, "val": {...}} of a run's history.json."""
+    hist = json.loads((ckpt_dir / "ckpt" / "history.json").read_text())
+    return {split: {k: v[-1][1] for k, v in hist.get(split, {}).items()}
+            for split in ("train", "val")}
+
+
+def _finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def loader_batches_per_s(loader, n: int) -> float:
+    """Batches/s of a loader alone over n batches after its first (the
+    thread pool running)."""
+    from contextlib import closing
+
+    with closing(iter(loader)) as it:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        return n / (time.perf_counter() - t0)
+
+
+class _PerClip:
+    """A dataset without its native batch path: the loader builds each
+    clip with ``get`` (the Python generator)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def get(self, index, rng=None):
+        return self.ds.get(index, rng)
+
+
+def entry_point_phases(dev, bare_step_ms, bare_ae_ms):
+    """Phases 23-26: the commands users run, ``python -m vptr_tpu_torch.cli
+    train / eval / predict``, through ``cli.main`` at full width on the
+    synthetic loader (no dataset on disk), into a temporary directory that is
+    removed at the end. Returns (the summary line, extra readings)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from vptr_tpu_torch import cli
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data import native
+    from vptr_tpu_torch.data.loader import ClipLoader, build_loader
+    from vptr_tpu_torch.eval.harness import evaluate, make_predict_fn
+    from vptr_tpu_torch.eval.metrics import METRIC_FNS
+    from vptr_tpu_torch.train.checkpoint import CheckpointManager
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_"))
+    records = _Records()
+    logging.getLogger("vptr_tpu_torch").addHandler(records)
+    try:
+        phase(f"23. cli train: ae_mnist at full width, {AE_CLI_STEPS} steps and a "
+              f"validation pass")
+        ae_dir = root / "ae"
+        acfg = get_preset("ae_mnist")
+        t0 = time.perf_counter()
+        cli.main(["train", "--preset", "ae_mnist", "--ckpt-dir", str(ae_dir),
+                  "--set", "epochs=1", "--set", f"steps_per_epoch={AE_CLI_STEPS}",
+                  "--set", "val_per_epochs=1"])
+        ae_wall = time.perf_counter() - t0
+        ah = _history(ae_dir)
+        ae_frames = acfg.data.batch_size * (acfg.data.num_past_frames
+                                            + acfg.data.num_future_frames)
+        ae_sps = ah["train"]["steps_per_sec"]
+        print(f"  train {ah['train']}\n  val {ah['val']}")
+        check(_finite(ah["train"].values()) and _finite(ah["val"].values())
+              and "AE_total" in ah["val"], "ae_mnist cli train: train and val metrics finite")
+        check((ae_dir / "ckpt" / str(AE_CLI_STEPS) / "state.pt").is_file(),
+              f"ae_mnist cli train wrote ckpt/{AE_CLI_STEPS}/")
+        print(f"  ae_mnist trainer: {ae_sps:.3f} steps/s ({1e3 / ae_sps:.1f} ms a step), "
+              f"{ae_sps * ae_frames:.1f} training frames/s ({ae_frames} a step); the bare "
+              f"AE step (phase 22) {bare_ae_ms:.3f} ms = {ae_frames / bare_ae_ms * 1e3:.1f} "
+              f"frames/s; the command's wall {ae_wall:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase(f"24. cli train: far_mnist at full width on phase 23's autoencoder, "
+              f"{FAR_CLI_STEPS} steps and a validation pass; the loader alone; a resumed run")
+        far_dir = root / "far"
+        sets = ["--set", f"ae_ckpt={ae_dir / 'ckpt'}", "--set", "epochs=1", "--set",
+                f"steps_per_epoch={FAR_CLI_STEPS}", "--set", "val_per_epochs=1"]
+        far_args = ["--preset", "far_mnist", "--ckpt-dir", str(far_dir), *sets]
+        cfg = get_preset("far_mnist").override({"ae_ckpt": str(ae_dir / "ckpt"),
+                                                "ckpt_dir": str(far_dir)})
+        val_batches = len(build_loader(cfg.data, split="val", seed=cfg.seed))
+        frames_per_step = cfg.data.batch_size * (cfg.data.num_past_frames
+                                                 + cfg.data.num_future_frames - 1)
+        zero_counters()
+        t0 = time.perf_counter()
+        cli.main(["train", *far_args])
+        torch.cuda.synchronize()
+        far_wall = time.perf_counter() - t0
+        fwd = LAYERS * (FAR_CLI_STEPS + val_batches)
+        far_launches = launch_counts("fused_attention_ln", "attention_core",
+                                     "fused_attention_ln_bwd", "attention_core_bwd")
+        check_counts(far_launches, {"fused_attention_ln": fwd, "attention_core": fwd,
+                                    "fused_attention_ln_bwd": LAYERS * FAR_CLI_STEPS,
+                                    "attention_core_bwd": LAYERS * FAR_CLI_STEPS},
+                     f"cli train far_mnist ({FAR_CLI_STEPS} steps x 12, {val_batches} "
+                     f"validation batches x 12 forward)")
+        fh = _history(far_dir)
+        print(f"  train {fh['train']}\n  val {fh['val']}")
+        check(_finite(fh["train"].values()) and _finite(fh["val"].values()),
+              "far_mnist cli train: train and val metrics finite")
+        check((far_dir / "ckpt" / str(FAR_CLI_STEPS) / "state.pt").is_file(),
+              f"far_mnist cli train wrote ckpt/{FAR_CLI_STEPS}/")
+        sps = fh["train"]["steps_per_sec"]
+        print(f"  far_mnist trainer: {sps:.3f} steps/s ({1e3 / sps:.1f} ms a step), "
+              f"{sps * frames_per_step:.1f} training frames/s ({frames_per_step} a step), "
+              f"{fh['train']['transformer_tflops_per_sec']:.2f} transformer TFLOP/s; the "
+              f"bare step (phase 6) {bare_step_ms:.3f} ms = {1e3 / bare_step_ms:.3f} "
+              f"steps/s: the trainer's step costs {1e3 / sps / bare_step_ms:.3f}x the bare "
+              f"step's; the command's wall {far_wall:.1f} s")
+
+        loader = build_loader(cfg.data, split="train", seed=cfg.seed)
+        route = ("native (native/libclipgen.so)" if native.native_available()
+                 and loader.dataset.get_batch(np.arange(1)) is not None else "Python")
+        native_bps = loader_batches_per_s(loader, 30)
+        py_loader = ClipLoader(_PerClip(loader.dataset), loader.batch_size, seed=cfg.seed,
+                               prefetch=cfg.data.prefetch, num_workers=cfg.data.num_workers)
+        python_bps = loader_batches_per_s(py_loader, 6)
+        print(f"  loader alone (batch {cfg.data.batch_size} x {cfg.total_frames} frames of "
+              f"{cfg.data.synthetic_digits}-digit {cfg.data.synthetic_motion} synthetic "
+              f"Moving MNIST, {cfg.data.num_workers} threads, prefetch "
+              f"{cfg.data.prefetch}): the path the trainer took: {route}; native "
+              f"{native_bps:.1f} batches/s, Python {python_bps:.2f} batches/s, against the "
+              f"trainer's {sps:.3f} steps/s")
+
+        records.messages.clear()
+        cli.main(["train", *far_args])
+        resumed = [m for m in records.messages if m.startswith("resumed from step")]
+        check(resumed == [f"resumed from step {FAR_CLI_STEPS} (epoch 1)"],
+              f"the second cli train logs {resumed}")
+        check((far_dir / "ckpt" / str(2 * FAR_CLI_STEPS) / "state.pt").is_file(),
+              f"the resumed run continued to ckpt/{2 * FAR_CLI_STEPS}/")
+        fh2 = _history(far_dir)
+        sps2 = fh2["train"]["steps_per_sec"]
+        print(f"  resumed run: {sps2:.3f} steps/s; T_total {fh2['train']['T_total']:.6f}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        trainer = Trainer(cfg, device=dev)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.ckpt.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = (far_dir / "ckpt" / str(2 * FAR_CLI_STEPS) / "state.pt").stat().st_size
+        check(state.step == 2 * FAR_CLI_STEPS, f"restored step {state.step}")
+        t0 = time.perf_counter()
+        CheckpointManager(str(root / "save_probe")).save(state.step, state)
+        save_s = time.perf_counter() - t0
+        print(f"  far_mnist checkpoint: {ckpt_bytes} bytes; save {save_s:.3f} s, restore "
+              f"onto the card {restore_s:.3f} s")
+
+        phase("25. cli eval --mode far_rip --max-batches 2 from that checkpoint")
+        eval_args = ["--preset", "far_mnist", "--ckpt-dir", str(far_dir), *sets]
+        zero_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["eval", *eval_args, "--mode", "far_rip", "--max-batches", "2"])
+        torch.cuda.synchronize()
+        curves = json.loads(buf.getvalue())
+        print(f"  {json.dumps(curves)}")
+        want = LAYERS * FUTURE * 2
+        eval_launches = launch_counts("fused_attention_ln", "attention_core")
+        check_counts(eval_launches, {"fused_attention_ln": want, "attention_core": want},
+                     "cli eval far_rip (2 batches of 10 x 12 layers)")
+        check(all(len(curves[m]) == FUTURE and _finite(curves[m])
+                  for m in ("psnr", "ssim", "mse")), "cli eval curves finite, 10 long")
+
+        test = build_loader(cfg.data, split="test", seed=cfg.seed)
+        batches = list(zip(range(3), test))
+        batches = [b for _, b in batches]
+        evaluate(trainer, state, batches[:1], mode="far_rip")          # warm-up
+        eval_ms = host_ms(lambda: evaluate(trainer, state, batches, mode="far_rip")) / 3
+        predict = make_predict_fn(cfg, state.enc, state.dec, state.transformer,
+                                  "far_rip", FUTURE, dev)
+        pred_ms = host_ms(lambda: [predict(*trainer.put_batch(p, f)) for p, f in batches]) / 3
+        past_d, future_d = trainer.put_batch(*batches[0])
+        pred = predict(past_d, future_d)
+        pr = torch.clamp(trainer.renorm(pred.float()), 0.0, 1.0)
+        tg = torch.clamp(trainer.renorm(future_d.float()), 0.0, 1.0)
+
+        def curves_of(a, b):
+            return {m: torch.stack([fn(a[:, t], b[:, t]) for t in range(FUTURE)])
+                    for m, fn in METRIC_FNS.items()}
+
+        metrics_ms = host_ms(lambda: curves_of(pr, tg))
+        print(f"  evaluate far_rip: {eval_ms:.3f} ms a batch of {BATCH} (3 batches), of "
+              f"which the rollout and staging {pred_ms:.3f} ms; the metrics alone "
+              f"{metrics_ms:.3f} ms a batch ({metrics_ms / eval_ms:.3f} of it)")
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True      # the metrics turn it off themselves
+        card = curves_of(pr, tg)
+        torch.backends.cudnn.allow_tf32 = prev
+        host = curves_of(pr.cpu(), tg.cpu())
+        for m in METRIC_FNS:
+            rel = ((card[m].cpu() - host[m]).abs() / host[m].abs().clamp_min(1e-12)).max().item()
+            check(rel <= 1e-5, f"{m} of one batch on the card (cuDNN TF32 allowed) vs the "
+                  f"CPU: max rel err {rel:.3e} <= 1e-5")
+        del trainer, state, predict, pred, pr, tg, past_d, future_d
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase("26. cli predict --mode far_rip --batches 1")
+        out_dir = root / "predictions"
+        zero_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", *eval_args, "--out", str(out_dir), "--batches", "1"])
+        torch.cuda.synchronize()
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        want = LAYERS * FUTURE
+        check_counts(launch_counts("fused_attention_ln", "attention_core"),
+                     {"fused_attention_ln": want, "attention_core": want},
+                     "cli predict far_rip (1 batch)")
+        if importlib.util.find_spec("PIL") is not None:
+            gifs = sorted(p.name for p in out_dir.rglob("*.gif"))
+            clips = sorted(p.name for p in out_dir.rglob("*.avi")) + sorted(
+                p.name for p in out_dir.rglob("*.mp4"))
+            check(len(gifs) == min(4, cfg.data.batch_size) and len(clips) == 2,
+                  f"cli predict wrote {gifs} and {clips}")
+        else:
+            print("  PIL does not import here: cli predict wrote no GIF or clip")
+            check("PIL does not import" in buf.getvalue(), "cli predict said so")
+    finally:
+        logging.getLogger("vptr_tpu_torch").removeHandler(records)
+        shutil.rmtree(root, ignore_errors=True)
+    summary = (f"ae_trainer_steps_per_s {ae_sps:.4f} ae_trainer_frames_per_s "
+               f"{ae_sps * ae_frames:.1f} far_trainer_steps_per_s {sps:.4f} "
+               f"far_trainer_frames_per_s {sps * frames_per_step:.1f} "
+               f"far_resumed_steps_per_s {sps2:.4f} far_bare_step_ms {bare_step_ms:.3f} "
+               f"loader_native_batches_per_s {native_bps:.2f} loader_python_batches_per_s "
+               f"{python_bps:.3f} eval_far_rip_ms_per_batch {eval_ms:.3f} "
+               f"eval_predict_ms_per_batch {pred_ms:.3f} eval_metrics_ms_per_batch "
+               f"{metrics_ms:.3f} ckpt_bytes {ckpt_bytes} ckpt_save_s {save_s:.3f} "
+               f"ckpt_restore_s {restore_s:.3f}")
+    extra = {"cli_train_far_launches": far_launches, "cli_eval_launches": eval_launches,
+             "loader_path": route}
     return summary, extra
 
 
@@ -2059,8 +2351,10 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     ae_summary, ae_extra = ae_gan_phases(dev)
+    torch.cuda.empty_cache()
+    cli_summary, cli_extra = entry_point_phases(dev, step_ms, ae_extra["ae_train_step_ms"])
 
-    phase("23. result")
+    phase("27. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -2073,6 +2367,8 @@ def main() -> int:
     print(f"  {json.dumps(conv_extra)}")
     print(f"  {ae_summary}")
     print(f"  {json.dumps(ae_extra)}")
+    print(f"  {cli_summary}")
+    print(f"  {json.dumps(cli_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

@@ -6,11 +6,18 @@ the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
 #1/#3 on the temporal sublayer); --gan adds the GAN term (lam_gan 0.01
 and the PatchGAN discriminator) to the train step; --ae traces the
 stage-1 AE/GAN train step of ae_mnist instead (batch 32, 10 + 10 frames,
-lam_gan 0.01).
+lam_gan 0.01). --trainer times ``Trainer.train`` itself (far_mnist, or
+ae_mnist with --ae; the synthetic loader, no validation): two untraced
+epochs of 20 steps (the second warm), then ``--steps`` steady steps of
+another run traced from the third (the trainer's ``profile_dir`` window),
+split into device time and the host spans of the loop (loader wait,
+batch staging, step enqueue, metric fetch), then one bare train step of
+the same modules on a batch already on the card, traced as above.
 
     python3 scripts/torch_port_profile.py [--nar] [--train [--gan]] [--ae]
         [--ffn-route | --conv-route] [--kernels cuda|plain] [--top 15]
         [--around NAME] [--window 4] [--root DIR]
+    python3 scripts/torch_port_profile.py --trainer [--ae] [--steps 5]
 
 Builds the preset at full width from a seed (as chip_smoke.py does), warms
 the predict call (far_rip, batch 10, 10 frames; --nar: nar, batch 16,
@@ -57,11 +64,17 @@ def main() -> int:
     parser.add_argument("--around", help="count the device events beside this kernel's")
     parser.add_argument("--window", type=int, default=4)
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--trainer", action="store_true",
+                        help="trace Trainer.train's steady steps (module notes)")
+    parser.add_argument("--steps", type=int, default=5,
+                        help="with --trainer: the traced steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
+    if args.trainer:
+        return trainer_trace(args)
     if args.ae:
         return trace(*ae_step(torch.device("cuda")), args, "ae_mnist")
     from vptr_tpu_torch.config import get_preset
@@ -136,6 +149,70 @@ def ae_step(dev):
                         generator=torch.Generator().manual_seed(2)).to(dev)
     return (lambda: step(state, frames[:, :10], frames[:, 10:]),
             f"AE/GAN train step (batch {batch}, 10 + 10 frames)")
+
+
+SPANS = ("trainer.loader_wait", "trainer.put_batch", "trainer.step",
+         "trainer.fetch_metrics")
+
+
+def trainer_trace(args) -> int:
+    """Time ``Trainer.train`` untraced (a first epoch that warms up, then a
+    steady one), trace ``args.steps`` steady steps of another run and print
+    the window's wall, device time and idle share a step and each host span
+    of the loop a step; then the bare step (module notes)."""
+    import tempfile
+    from contextlib import closing
+
+    from torch.autograd import DeviceType
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    preset = "ae_mnist" if args.ae else "far_mnist"
+    with tempfile.TemporaryDirectory() as root:
+        base = get_preset(preset).override({"epochs": 1, "val_per_epochs": 10 ** 6,
+                                            "ckpt_dir": root})
+        d = base.data
+        frames = d.batch_size * (d.num_past_frames + d.num_future_frames
+                                 - (preset == "far_mnist"))
+        trainer = Trainer(base.override({"steps_per_epoch": 20}), device="cuda",
+                          write_outputs=False)
+        state = trainer.train()
+        state = trainer.train(state)
+        sps = trainer.history["train"]["steps_per_sec"]
+        print(f"{preset} Trainer.train untraced, 20 steps an epoch: first epoch "
+              f"{sps[0][1]:.4f} steps/s, second {sps[1][1]:.4f} steps/s = "
+              f"{1e3 / sps[1][1]:.3f} ms a step, {sps[1][1] * frames:.1f} training "
+              f"frames/s ({frames} a step)")
+        del trainer, state
+        traced = Trainer(base.override({"steps_per_epoch": 2 + args.steps + 1,
+                                        "profile_dir": root,
+                                        "profile_steps": args.steps}),
+                         device="cuda", write_outputs=False)
+        state = traced.train()
+        prof = traced.profiler
+    events = prof.events()
+    # the loop's spans also appear on the device track (as annotations that
+    # cover their kernels): count kernels, copies and sets only
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and e.name not in SPANS)
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    wall_us = max(e.time_range.end for e in cpu) - min(e.time_range.start for e in cpu)
+    n = args.steps
+    spans = {name: sum(e.cpu_time_total for e in cpu if e.name == name) for name in SPANS}
+    print(f"  traced window of {n} steps (the profiler slows the host): wall "
+          f"{wall_us / n / 1e3:.3f} ms a step, device {dev_us / n / 1e3:.3f} ms a step, "
+          f"idle share {1 - dev_us / wall_us:.3f}; host spans a step: "
+          + ", ".join(f"{k.split('.')[1]} {v / n / 1e3:.3f} ms" for k, v in spans.items())
+          + f", outside them {(wall_us - sum(spans.values())) / n / 1e3:.3f} ms")
+
+    loader = build_loader(traced.cfg.data, split="train", seed=traced.cfg.seed)
+    with closing(iter(loader)) as it:
+        past, future = traced.put_batch(*next(it))
+    return trace(lambda: traced.train_step(state, past, future),
+                 f"bare {preset} train step (the trainer's modules, a batch on the card)",
+                 args, "default route")
 
 
 def trace(run, what, args, route) -> int:

@@ -3,7 +3,9 @@
 (f) every preset of the port's config equals the JAX package's, field for
     field (the port keeps its own copy of ``vptr_tpu/config.py``).
 (g) importing ``vptr_tpu_torch`` (every module) pulls in neither ``jax``
-    nor ``vptr_tpu``; entry points asked for the card raise when there is
+    nor ``vptr_tpu`` (nor orbax, nor the optional PIL, tensorboardX,
+    TensorFlow and detectron2, which only the functions needing them
+    import); entry points asked for the card raise when there is
     none instead of running on the CPU; unported routes raise.
 """
 
@@ -17,10 +19,12 @@ import torch
 
 import vptr_tpu.config as jcfg
 import vptr_tpu_torch.config as tcfg
+from vptr_tpu_torch.cli import main as cli_main
 from vptr_tpu_torch.eval.harness import make_predict_fn
 from vptr_tpu_torch.models.autoencoder import build_autoencoder
 from vptr_tpu_torch.models.transformer import build_transformer
 from vptr_tpu_torch.ops import attention_core as tac
+from vptr_tpu_torch.train.trainer import Trainer
 
 from _torch_port_util import small_cfgs
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
@@ -47,7 +51,9 @@ def test_port_imports_no_jax():
         "import vptr_tpu_torch\n"
         "for m in pkgutil.walk_packages(vptr_tpu_torch.__path__, 'vptr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'vptr_tpu', 'flax'))\n"
+        "lazy = ('jax', 'vptr_tpu', 'flax', 'orbax', 'PIL', 'tensorboardX',\n"
+        "        'tensorflow', 'detectron2')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in lazy)\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -66,6 +72,11 @@ def test_cuda_entry_points_raise_without_gpu(monkeypatch):
     tr = build_transformer(cfg.transformer, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_predict_fn(cfg, enc, dec, tr, "far_rip", 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, write_outputs=False)
+    for cmd in ("train", "eval", "predict"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main([cmd, "--preset", "far_mnist"])
 
 
 def test_nar_entry_points_raise_without_gpu(monkeypatch):
@@ -90,10 +101,10 @@ def test_kernel_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize("override,match", [
     ({"variant": "nar", "tslma": True}, "TSLMA slice"),
-    ({"remat": True}, "trainer slice"),
+    ({"remat": True}, "remat slice"),
     ({"sequence_parallel": True}, "multi-GPU slice"),
     ({"variant": "nar", "sequence_parallel": True}, "multi-GPU slice"),
-    ({"scan_layers": True}, "trainer slice"),
+    ({"scan_layers": True}, "scan_layers slice"),
 ])
 def test_unported_routes_raise(override, match):
     _, cfg = small_cfgs()

@@ -1,7 +1,10 @@
-"""Prediction entry point: (past, future) -> predicted future frames.
+"""Test-set evaluation: the prediction entry point and per-timestep metric
+curves over a loader.
 
-Counterpart of ``vptr_tpu/eval/harness.py:35-70`` (``make_predict_fn``, the
-function ``python -m vptr_tpu.cli predict`` calls):
+Counterpart of ``vptr_tpu/eval/harness.py``. :func:`make_predict_fn`
+(``:35-70``, what ``python -m vptr_tpu_torch.cli predict`` calls) maps
+(past, future) to predicted future frames in one of the rollout modes
+(reference: Test_VPTR.ipynb cells 5-11):
 
 * ``far``     — teacher-forced one shot over past + future[:-1];
 * ``far_rip`` — autoregressive, pixel-space recurrence (canonical);
@@ -9,13 +12,22 @@ function ``python -m vptr_tpu.cli predict`` calls):
 * ``nar``     — NAR blocks of Tf frames chained to ``num_pred``.
 
 The modules are passed in (built by ``build_autoencoder`` /
-``build_transformer``, or loaded with ``vptr_tpu_torch.utils.weights``).
-The metric loop, the CLI and checkpoints come with later slices.
+``build_transformer``, restored from a checkpoint, or loaded with
+``vptr_tpu_torch.utils.weights``). :func:`evaluate` (``:73-118``, what
+``cli eval`` calls; reference ``pred_ave_metrics``, utils/metrics.py:108-137)
+rolls a trainer's state out over a loader and averages each metric per
+future timestep.
 """
 
 from __future__ import annotations
 
+from itertools import islice
+from typing import Dict, Optional
+
+import numpy as np
 import torch
+
+from vptr_tpu_torch.eval.metrics import METRIC_FNS
 
 from vptr_tpu_torch.eval.rollout import (
     far_rollout_latent,
@@ -65,3 +77,49 @@ def make_predict_fn(cfg, enc, dec, transformer, mode: str, num_pred: int,
         return rollout(enc, dec, transformer, past, num_pred, context)
 
     return predict
+
+
+def evaluate(trainer, state, loader, *, mode: str = "far",
+             num_pred: Optional[int] = None,
+             metrics=("psnr", "ssim", "mse"),
+             lpips_fn=None, max_batches: Optional[int] = None
+             ) -> Dict[str, np.ndarray]:
+    """Per-future-timestep metric curves averaged over a loader.
+
+    Returns {metric: (num_pred,) array}. Pixel metrics are computed on
+    renormalized frames clipped to [0, 1]; LPIPS on the raw normalized
+    frames (gray -> RGB inside), both as the reference notebook does. The
+    curves stay on the trainer's device until the loop ends: one read to
+    the host for the whole loader, summed in f64 there as the JAX package
+    sums them."""
+    num_pred = num_pred or trainer.cfg.data.test_future_frames
+    predict = make_predict_fn(trainer.cfg, state.enc, state.dec, state.transformer,
+                              mode, num_pred, trainer.device)
+    names = list(metrics) + (["lpips"] if lpips_fn is not None else [])
+    curves, sizes = [], []
+    batches = iter(loader)
+    try:
+        with torch.inference_mode():
+            for past, future in islice(batches, max_batches):
+                past_d, future_d = trainer.put_batch(past, future)
+                pred = predict(past_d, future_d)[:, :num_pred]
+                target = future_d[:, :num_pred]
+                pr = torch.clamp(trainer.renorm(pred.float()), 0.0, 1.0)
+                tr_ = torch.clamp(trainer.renorm(target.float()), 0.0, 1.0)
+                rows = [torch.stack([METRIC_FNS[m](pr[:, t], tr_[:, t])
+                                     for t in range(num_pred)]) for m in metrics]
+                if lpips_fn is not None:
+                    rows.append(torch.stack([lpips_fn(pred[:, t], target[:, t]).mean()
+                                             for t in range(num_pred)]))
+                curves.append(torch.stack(rows))
+                sizes.append(past.shape[0])
+    finally:
+        if hasattr(batches, "close"):       # a loader's iterator: stop its pool
+            batches.close()
+    if not curves:
+        return {m: np.zeros(num_pred) for m in names}
+    per_batch = torch.stack(curves).cpu().numpy().astype(np.float64)
+    sums = np.zeros((len(names), num_pred))
+    for c, n in zip(per_batch, sizes):
+        sums += c * n
+    return dict(zip(names, sums / sum(sizes)))

@@ -68,8 +68,9 @@ _LATER = {
     "tslma": "TSLMA enc-dec attention with the 3D position table "
              "(TSLMA slice)",
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
-    "scan_layers": "the stacked (scanned) parameter tree (trainer slice)",
-    "remat": "activation checkpointing of the blocks (trainer slice)",
+    "scan_layers": "the stacked (scanned) parameter tree (scan_layers slice)",
+    "remat": "activation checkpointing of the blocks that replays each "
+             "block's dropout draws from its torch.Generator (remat slice)",
 }
 
 

@@ -1,1 +1,2 @@
-"""Training of the port: optimizer, state and steps (FAR stage 2)."""
+"""Training of the port: optimizer, states, steps, checkpoints and the
+Trainer's epoch loop."""
