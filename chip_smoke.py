@@ -156,13 +156,33 @@ Phases (any failure exits non-zero, without the final result line):
    frames' on the CPU, 1e-5 relative;
 26. `cli predict --mode far_rip --batches 1`: #1 and #2 120 launches; four
    GIFs and two clips written where PIL imports (else it says so);
-27. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
+27. TSLMA (transformer.tslma): #2 and #4 on their long route against the
+   plain versions at nar_mnist's (64 windows, 8 heads, 160, 160, 66) and
+   nar_bair's 160 x 32, bf16 (and f32 at 16 windows), contiguous and in
+   the layer's layout, dropout 0 and 0.1, with and without a (8 | 1, Tq,
+   Tk) bias and its gradient; both timed at 160 x 160 in the layer's
+   layout (plain, kernel, kernel, plain; replayed from a CUDA graph),
+   beside SDPA eager and graph-replayed (the backends that take the shape,
+   the one dispatch picks) and the bound;
+28. nar_mnist with transformer.tslma at full width: the nar predict with
+   every counter at 0 just before and read just after (#1 4, #5 8, #2 20:
+   12 on the mma route, 8 on the long route), the frames checked and
+   compared with kernels="plain";
+29. its train step (#3 4, #6 8, #4 20: 12 mma, 8 long), kernels vs
+   kernels="plain" from one cloned state, 10 steps with a falling loss;
+30. `cli predict --preset nar_mnist --set transformer.tslma=true --mode nar
+   --batches 1`: 8 long-route launches of #2, its frames on the card and
+   finite;
+31. the TSLMA predict and train step against nar_mnist's full temporal
+   enc-dec attention (same preset, tslma off), in turns: ms, frames/s;
+32. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
    and resident clusters; #2 and #4 timed in the layer's strided layout,
    their library yardsticks too, with the route, the contiguous-layout
    time (and #4's error there) and the NAR-shape time, each also replayed
-   from a CUDA graph) and,
-   last, {"ok": true, "device": {...}}.
+   from a CUDA graph; #2's and #4's long route as rows of their own,
+   attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160)
+   and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -339,6 +359,10 @@ def zero_counters():
     for w in _wrappers().values():
         w.launches = 0
         w.bwd_launches = 0
+        for counts in (getattr(w, "launches_by_route", {}),
+                       getattr(w, "bwd_launches_by_route", {})):
+            for route in counts:
+                counts[route] = 0
 
 
 def launch_counts(*names):
@@ -1811,6 +1835,284 @@ def entry_point_phases(dev, bare_step_ms, bare_ae_ms):
     return summary, extra
 
 
+def sdpa_backends(q, k, v):
+    """(the SDPA backends that take these operands alone, the one PyTorch's
+    dispatch picks for them or None where it does not say): the flash
+    backend refuses a head width of 66."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        names[int(backend)] = name
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel([backend]):
+                    F.scaled_dot_product_attention(q, k, v)
+            except RuntimeError:
+                names[int(backend)] = None
+    takes = [n for n in names.values() if n]
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    picked = names.get(int(choice(q, k, v))) if choice else None
+    return takes, picked
+
+
+def tslma_phases(dev):
+    """Phases 27-31: TSLMA (transformer.tslma), nar_mnist's enc-dec attention
+    over space-time windows, on the attention core's long route. Returns
+    (the kernel rows of #2's and #4's long route, extra readings, the
+    summary line)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch import cli
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval import harness
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.ops import attention_core as tac
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_nar_train_state
+    from vptr_tpu_torch.train.steps import make_nar_train_step
+
+    base = get_preset("nar_mnist")
+    cfg = base.override({"transformer": {"tslma": True}})
+    tc = cfg.transformer
+    c, heads = tc.d_model, tc.n_heads
+    hd = c // heads
+    batch, n_past, n_fut = cfg.data.batch_size, tc.num_past_frames, tc.num_future_frames
+    win2 = tc.window_size ** 2
+    windows = batch * (tc.enc_h // tc.window_size) * (tc.enc_w // tc.window_size)
+    tq = n_fut * win2                          # 160 queries a window
+    bair_tk = 2 * win2                         # nar_bair's 2 past frames: 32 keys
+    bf, f32 = torch.bfloat16, torch.float32
+    randn = normals(torch.Generator().manual_seed(SEED + 90))
+    kseed = torch.tensor([SEED + 97531], dtype=torch.int32, device=dev)
+    rate = tc.dropout
+    tol = {f32: 1e-3, bf: 2 ** -4}             # as phase 3
+    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
+    names = ("dq", "dk", "dv", "dbias")
+
+    def operands(dtype, b, tk, strided):
+        """q, k, v, g: contiguous (B, H, T, D), or (strided) the (B, H, T, D)
+        views of (B, T, H*D) tensors, as TSLMA's layer hands them over."""
+        def one(t):
+            if strided:
+                return randn(b, t, c).to(dev, dtype).view(b, t, heads, hd).transpose(1, 2)
+            return randn(b, heads, t, hd).to(dev, dtype)
+        return one(tq), one(tk), one(tk), one(tq)
+
+    phase("27. TSLMA: #2 and #4 on the long route against their plain versions (card)")
+    errs = {}
+    for dtype, b in ((bf, windows), (f32, 16)):
+        name = str(dtype).replace("torch.", "")
+        for tk in (tq, bair_tk):
+            check(tac.kernel_route(dtype, heads, tq, tk, hd) == "long"
+                  and tac.backward_route(dtype, heads, tq, tk, hd) == "long",
+                  f"{name} ({b}, {heads}, {tq}, {tk}, {hd}) takes the long route both ways")
+            for strided in (True, False):
+                q, k, v, g = operands(dtype, b, tk, strided)
+                for r in (0.0, rate):
+                    for nb in (0, heads if tk == tq else 1):
+                        bias = randn(nb, tq, tk).to(dev) if nb else None
+                        what = (f"{name} ({b}, {heads}, {tq}, {tk}, {hd}) "
+                                f"{'layer layout' if strided else 'contiguous'} dropout {r} "
+                                f"bias {'(%d, %d, %d)' % (nb, tq, tk) if nb else 'none'}")
+                        out = tac.attention_core(q, k, v, bias, kseed, r)
+                        e = max_err(out, tac.attention_core_plain(q, k, v, bias, kseed, r))
+                        check(e <= tol[dtype] and out.stride() == q.stride(),
+                              f"attention_core long {what}: max|err| {e:.3e} <= {tol[dtype]}")
+                        got = tac.attention_core_backward(q, k, v, bias, kseed, g, r,
+                                                          need_dbias=nb > 0)
+                        want = tac.attention_core_backward_plain(q, k, v, bias, kseed, g, r,
+                                                                 nb > 0)
+                        n_worst, worst = worst_rel(got, want, names)
+                        check(worst <= bwd_tol[dtype], f"attention_core backward long {what}: "
+                              f"worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
+                        if dtype == bf and strided and tk == tq and not nb:
+                            errs[("fwd", r)] = e
+                            errs[("bwd", r)] = max(max_err(x, y) for x, y in
+                                                   zip(got[:3], want[:3]))
+    torch.cuda.synchronize()
+
+    # times at nar_mnist's 160 x 160, bf16, the layer's layout: the forward
+    # as predict calls it (no dropout), the backward as the step does (0.1)
+    q, k, v, g = operands(bf, windows, tq, True)
+    fwd = lambda: tac.attention_core(q, k, v)
+    bwd = lambda: tac.attention_core_backward(q, k, v, None, kseed, g, rate, need_dbias=False)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v)
+    takes, picked = sdpa_backends(q, k, v)
+    print(f"  SDPA at ({windows}, {heads}, {tq}, {tq}, {hd}) bf16: backends that take it "
+          f"{takes}, dispatch picks {picked}")
+    elems = windows * heads * tq * hd
+    readings = {}
+    for key, fn, plain, lib, lib_graph, nbytes, flops in (
+            ("fwd", fwd, lambda: tac.attention_core_plain(q, k, v), lambda: sdpa(q, k, v),
+             lambda: graph_ms(lambda: sdpa(q, k, v)), 4 * elems * 2,
+             4 * windows * heads * tq * tq * hd),
+            ("bwd", bwd, lambda: tac.attention_core_backward_plain(q, k, v, None, kseed, g,
+                                                                   rate, False),
+             grads_of(sdpa, (q, k, v), g), lambda: graph_bwd_ms(sdpa, (q, k, v), g),
+             7 * elems * 2, 10 * windows * heads * tq * tq * hd)):
+        k_ms, p_ms = timed_turns(fn, plain)
+        b_ms, b_by = bound(nbytes, flops)
+        readings[key] = dict(ms=k_ms, graph_ms=graph_ms(fn), plain_ms=p_ms,
+                             library_ms=cuda_ms(lib), library_graph_ms=lib_graph(),
+                             bound_ms=b_ms, bound_by=b_by)
+        print(f"  attention_core{'_bwd' if key == 'bwd' else ''} long route "
+              f"({windows}, {heads}, {tq}, {tq}, {hd}): {readings[key]} ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+
+    phase("28. nar_mnist + transformer.tslma at full width, nar predict")
+    dtype = bf if cfg.dtype == "bfloat16" else f32
+    enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    print(f"  NAR {tc.num_encoder_layers}+{tc.num_decoder_layers} layers, d {c}, {heads} "
+          f"heads, TSLMA in every decoder block: {windows} windows x {tq} queries over "
+          f"{n_past * win2} keys")
+    frames = torch.rand(batch, n_past + n_fut, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    past, future = frames[:, :n_past].to(dev), frames[:, n_past:].to(dev)
+    predict = harness.make_predict_fn(cfg, enc, dec, tr, "nar", n_fut, dev)
+    enc_l, dec_l = tc.num_encoder_layers, tc.num_decoder_layers
+    routes = lambda n_long: {"long": n_long, "mma": enc_l + dec_l, "fma": 0}
+    want = {"fused_attention_ln": enc_l, "fused_attention": dec_l,
+            "attention_core": enc_l + 2 * dec_l}
+    pred, pred_launches = counted_predict(predict, (past,), want, (batch, n_fut, 64, 64, 1),
+                                          "TSLMA nar predict")
+    pred_routes = dict(tac.attention_core.launches_by_route)
+    check(pred_routes == routes(dec_l), f"attention_core launches by route in the TSLMA "
+          f"nar predict: {pred_routes} == {routes(dec_l)}")
+    predict_vs_plain(predict, (past,), tr, pred, "TSLMA nar predict")
+
+    phase("29. nar_mnist + transformer.tslma at full width, train step")
+    opt = build_optimizer(cfg.optim, c)
+    state = create_nar_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    train_step = make_nar_train_step(enc, dec, tr, opt, cfg.loss)
+    want = {"fused_attention_ln": enc_l, "fused_attention_ln_bwd": enc_l,
+            "fused_attention": dec_l, "fused_attention_bwd": dec_l,
+            "attention_core": enc_l + 2 * dec_l, "attention_core_bwd": enc_l + 2 * dec_l}
+    state, step_launches = counted_step(train_step, state, past, future, want,
+                                        "TSLMA NAR train step")
+    step_routes = {"forward": dict(tac.attention_core.launches_by_route),
+                   "backward": dict(tac.attention_core.bwd_launches_by_route)}
+    for way, got in step_routes.items():
+        check(got == routes(dec_l), f"attention_core {way} launches by route in one TSLMA "
+              f"NAR train step: {got} == {routes(dec_l)}")
+    step_vs_plain(train_step, state, past, future, "TSLMA NAR step")
+    loss_falls(train_step, state, past, future, "TSLMA NAR")
+
+    phase("30. cli predict --preset nar_mnist --set transformer.tslma=true --mode nar "
+          "--batches 1")
+    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_tslma_"))
+    outputs, make = [], harness.make_predict_fn
+
+    def recording(*args, **kwargs):          # the predictions the command makes
+        fn = make(*args, **kwargs)
+
+        def run(*batch_args):
+            out = fn(*batch_args)
+            outputs.append(out)
+            return out
+        return run
+
+    harness.make_predict_fn = recording
+    try:
+        zero_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--preset", "nar_mnist", "--ckpt-dir", str(root / "run"),
+                      "--set", "transformer.tslma=true", "--mode", "nar", "--batches", "1",
+                      "--out", str(root / "predictions")])
+        torch.cuda.synchronize()
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        cli_routes = dict(tac.attention_core.launches_by_route)
+        check(cli_routes == routes(dec_l), f"attention_core launches by route in cli "
+              f"predict: {cli_routes} == {routes(dec_l)}")
+        check(len(outputs) == 1 and outputs[0].is_cuda
+              and bool(torch.isfinite(outputs[0].float()).all()),
+              f"cli predict ran on the card, its frames finite "
+              f"({[(tuple(o.shape), str(o.device)) for o in outputs]})")
+    finally:
+        harness.make_predict_fn = make
+        shutil.rmtree(root, ignore_errors=True)
+    del outputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("31. TSLMA timing: predict and train step against nar_mnist's full temporal "
+          "enc-dec attention, in turns")
+    tr0 = build_transformer(base.transformer, dtype, dev, torch.Generator().manual_seed(SEED + 1))
+    predict0 = harness.make_predict_fn(base, enc, dec, tr0, "nar", n_fut, dev)
+    opt0 = build_optimizer(base.optim, c)
+    state0 = create_nar_train_state(enc, dec, tr0, opt0, seed=SEED + 3)
+    step0 = make_nar_train_step(enc, dec, tr0, opt0, base.loss)
+    state0, _ = step0(state0, past, future)    # one step past the seeded init, as state
+    pairs = {"tslma": (predict, train_step, state), "full": (predict0, step0, state0)}
+    pred_times = {key: [] for key in pairs}
+    for i in range(6):
+        for key in (("tslma", "full") if i % 2 == 0 else ("full", "tslma")):
+            ms = host_ms(lambda: pairs[key][0](past))
+            if i:                                # the first warms up
+                pred_times[key].append(ms)
+    step_times = {key: [] for key in pairs}
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        for key in (("tslma", "full") if i % 2 == 0 else ("full", "tslma")):
+            _, step, st = pairs[key]
+            ms = host_ms(lambda: step(st, past, future))
+            if i >= WARMUP_STEPS:
+                step_times[key].append(ms)
+    med = {f"{what}_{key}": statistics.median(times[key]) for what, times in
+           (("predict_ms", pred_times), ("train_step_ms", step_times)) for key in pairs}
+    for key in pairs:
+        print(f"  {key}: predict median {med['predict_ms_' + key]:.3f} ms "
+              f"({[round(x, 3) for x in pred_times[key]]}), "
+              f"{batch * n_fut / med['predict_ms_' + key] * 1e3:.1f} frames/s; train step "
+              f"median {med['train_step_ms_' + key]:.3f} ms "
+              f"({[round(x, 3) for x in step_times[key]]}), "
+              f"{batch * n_fut / med['train_step_ms_' + key] * 1e3:.1f} training frames/s")
+    del pairs, state, state0, tr, tr0, enc, dec, predict, predict0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = []
+    for key, replaces, launches in (
+            ("fwd", "vptr_tpu/ops/attention_core.py:188", pred_routes["long"]),
+            ("bwd", "vptr_tpu/ops/attention_core.py:317", step_routes["backward"]["long"])):
+        rows.append({"name": "attention_core_long" if key == "fwd" else "attention_core_bwd_long",
+                     "route": "cuda", "source": "vptr_tpu_torch/csrc/attention_core.cu",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": errs[(key, 0.0 if key == "fwd" else rate)],
+                     **readings[key], "kernel_route": "long",
+                     "shape": [windows, heads, tq, tq, hd],
+                     "train_step_launches": step_routes["forward" if key == "fwd"
+                                                        else "backward"]["long"],
+                     "sdpa_backends": takes, "sdpa_dispatch": picked})
+    summary = (f"tslma_predict_ms {med['predict_ms_tslma']:.3f} full_enc_dec_predict_ms "
+               f"{med['predict_ms_full']:.3f} tslma_train_step_ms "
+               f"{med['train_step_ms_tslma']:.3f} full_enc_dec_train_step_ms "
+               f"{med['train_step_ms_full']:.3f} tslma_train_frames_per_s "
+               f"{batch * n_fut / med['train_step_ms_tslma'] * 1e3:.1f}")
+    extra = {"tslma_predict_launches": pred_launches, "tslma_predict_routes": pred_routes,
+             "tslma_step_launches": step_launches, "tslma_step_routes": step_routes,
+             "tslma_cli_predict_routes": cli_routes,
+             "attention_core_long_errs": {f"{k[0]} dropout {k[1]}": v for k, v in errs.items()}}
+    return rows, extra, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2353,8 +2655,11 @@ def main() -> int:
     ae_summary, ae_extra = ae_gan_phases(dev)
     torch.cuda.empty_cache()
     cli_summary, cli_extra = entry_point_phases(dev, step_ms, ae_extra["ae_train_step_ms"])
+    torch.cuda.empty_cache()
+    tslma_rows, tslma_extra, tslma_summary = tslma_phases(dev)
+    rows_out += tslma_rows
 
-    phase("27. result")
+    phase("32. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -2369,6 +2674,8 @@ def main() -> int:
     print(f"  {json.dumps(ae_extra)}")
     print(f"  {cli_summary}")
     print(f"  {json.dumps(cli_extra)}")
+    print(f"  {tslma_summary}")
+    print(f"  {json.dumps(tslma_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

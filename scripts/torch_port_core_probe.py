@@ -1,7 +1,8 @@
 """Where kernel #2's (attention core forward, bf16 "mma" route) or, with
---bwd, kernel #4's (its backward, bf16 "mma" route) time goes, on one GPU.
+--bwd, kernel #4's (its backward, bf16 "mma" route) time goes, on one GPU;
+with --long, both on their bf16 "long" route.
 
-    python3 scripts/torch_port_core_probe.py [--bwd] [--repeats 3]
+    python3 scripts/torch_port_core_probe.py [--bwd | --long] [--repeats 3]
         [--only NAME ...]
 
 Times attention_core in bf16 at the shapes its paths give it: far_rip's
@@ -29,7 +30,12 @@ and on contiguous ones ("FAR step contiguous"), and the NAR step's 1024 x
 8 x 10 with dropout 0.1, strided ("NAR step strided"); the variants
 BWD_VARIANTS, and the error is the largest of dq's, dk's and dv's
 relative to max(1, the plain gradient's largest magnitude) (a variant
-that keeps the work whole should stay within 2^-5). The copies'
+that keeps the work whole should stay within 2^-5). With --long the cases
+are TSLMA's, in the layer's layout: nar_mnist's (64 windows, 8 heads, 160,
+160, 66) and nar_bair's 160 x 32, the forward without dropout and the
+backward with 0.1 ("... fwd", "... bwd"), and the variants LONG_VARIANTS
+(each changes the forward's or the backward's long kernel; the error of
+a "bwd" case as --bwd's). The copies'
 libraries are all built first, in parallel. Prints
 one JSON line with every reading, the card's name, and each variant's
 time less the committed kernel's (the mean of its two readings). Exits
@@ -107,11 +113,37 @@ BWD_VARIANTS = {
          "  for (int n0 = 0; n0 < 0; n0 += 8) {\n    uint32_t b[KT][2];")],
 }
 
+# the same for the long route's bf16 kernels, attention_core_long_kernel
+# and attention_core_long_bwd_kernel
+LONG_VARIANTS = {
+    "forward: staging alone": [
+        ("  if (r0 >= tq) return;                          // warp-uniform; no barrier follows",
+         "  return;")],
+    "forward: four warps a block (64 query rows)": [
+        ("constexpr int kLongWarps = 5;", "constexpr int kLongWarps = 4;")],
+    "backward: staging alone": [
+        ("  scale_rows<PAIRS>(qs, st, tq, hd, scale);\n  __syncthreads();",
+         "  scale_rows<PAIRS>(qs, st, tq, hd, scale);\n  __syncthreads();\n  if (tq > 0) return;")],
+    "backward: without the query pass": [
+        ("  for (int r0 = 16 * warp; r0 < tq; r0 += 16 * kLongBwdWarps) {",
+         "  for (int r0 = 16 * warp; r0 < 0; r0 += 16 * kLongBwdWarps) {")],
+    "backward: without the key pass": [
+        ("  for (int c0 = 16 * warp; c0 < tk; c0 += 16 * kLongBwdWarps) {",
+         "  for (int c0 = 16 * warp; c0 < 0; c0 += 16 * kLongBwdWarps) {")],
+    "backward: eight warps a block": [
+        ("constexpr int kLongBwdWarps = 10;", "constexpr int kLongBwdWarps = 8;")],
+    "backward: two blocks a SM (128 registers)": [
+        ("__global__ void __launch_bounds__(kLongBwdWarps * 32, 1)\n"
+         "attention_core_long_bwd_kernel",
+         "__global__ void __launch_bounds__(kLongBwdWarps * 32, 2)\n"
+         "attention_core_long_bwd_kernel")],
+}
+
 BUILD = ("import sys; sys.path.insert(0, '.'); from vptr_tpu_torch.ops import _build; "
          "_build.build(['attention_core'])")
 
 
-def time_core(root: str, repeats: int, bwd: bool) -> dict:
+def time_core(root: str, repeats: int, bwd: bool, long: bool = False) -> dict:
     import torch
 
     sys.path.insert(0, root)
@@ -156,6 +188,8 @@ def time_core(root: str, repeats: int, bwd: bool) -> dict:
             fn()
         return mean_ms(graph.replay)
 
+    if long:
+        return time_long(tac, ops, seed, mean_ms, graph_ms, repeats)
     if bwd:
         return time_bwd(tac, ops, causal, seed, mean_ms, graph_ms, repeats)
     cases = {
@@ -205,10 +239,43 @@ def time_bwd(tac, ops, causal, seed, mean_ms, graph_ms, repeats) -> dict:
     return best
 
 
+def time_long(tac, ops, seed, mean_ms, graph_ms, repeats) -> dict:
+    """The long route's cases (see the module note), as time_core's."""
+    def qkvg(tk):
+        q, g = ops(64, 160, True)[:2]
+        k, v = ops(64, tk, True)[:2]
+        return q, k, v, g
+
+    operands = {"160x160": qkvg(160), "160x32": qkvg(32)}
+    calls = {}
+    for name, (q, k, v, g) in operands.items():
+        calls[f"{name} fwd"] = lambda q=q, k=k, v=v: tac.attention_core(q, k, v)
+        calls[f"{name} bwd"] = lambda q=q, k=k, v=v, g=g: tac.attention_core_backward(
+            q, k, v, None, seed, g, 0.1, need_dbias=False)
+    out = {}
+    for _ in range(repeats):
+        for name, call in calls.items():
+            out.setdefault(name, []).append(mean_ms(call))
+            out.setdefault(f"{name} (graph)", []).append(graph_ms(call))
+    best = {name: min(ms) for name, ms in out.items()}
+    for name, (q, k, v, g) in operands.items():
+        got = tac.attention_core(q, k, v).float()
+        best[f"{name} fwd max|err|"] = (
+            got - tac.attention_core_plain(q, k, v).float()).abs().max().item()
+        got = tac.attention_core_backward(q, k, v, None, seed, g, 0.1, need_dbias=False)
+        want = tac.attention_core_backward_plain(q, k, v, None, seed, g, 0.1, False)
+        best[f"{name} bwd max|err|"] = max(
+            ((a.float() - b.float()).abs().max() / max(1.0, b.float().abs().max().item())).item()
+            for a, b in zip(got[:3], want[:3]))
+    return best
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--bwd", action="store_true",
                         help="kernel #4 (the backward) and BWD_VARIANTS")
+    parser.add_argument("--long", action="store_true",
+                        help="#2's and #4's long route and LONG_VARIANTS")
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--only", nargs="*", help="variants to time (default: all)")
     parser.add_argument("--time", help=argparse.SUPPRESS)   # one root, in a child
@@ -219,10 +286,11 @@ def main() -> int:
         print("torch_port_core_probe: no GPU", file=sys.stderr)
         return 1
     if args.time:
-        print(json.dumps(time_core(args.time, args.repeats, args.bwd)))
+        print(json.dumps(time_core(args.time, args.repeats, args.bwd, args.long)))
         return 0
     roots = {}
-    for name, edits in (BWD_VARIANTS if args.bwd else VARIANTS).items():
+    variants = LONG_VARIANTS if args.long else BWD_VARIANTS if args.bwd else VARIANTS
+    for name, edits in variants.items():
         if args.only and name not in args.only:
             continue
         root = REPO / "build" / "core_probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
@@ -245,7 +313,8 @@ def main() -> int:
     result = {}
     for name, root in order:
         run = subprocess.run([sys.executable, __file__, "--time", root, "--repeats",
-                              str(args.repeats)] + (["--bwd"] if args.bwd else []),
+                              str(args.repeats)] + (["--bwd"] if args.bwd else [])
+                             + (["--long"] if args.long else []),
                              capture_output=True, text=True, timeout=900)
         if run.returncode != 0:         # a variant that does not build or run
             print(run.stdout + run.stderr, file=sys.stderr)

@@ -34,6 +34,10 @@ shapes:
   projections' layout); and at nar_mnist's step shape, 1024 x 8 x 10 x 66,
   no bias, dropout 0.1, in the layer's layout (``..._nar_ms``, with the
   copies where the tree refuses it);
+* #2 and #4 on their long route at TSLMA's (64 windows, 8 heads, 160,
+  160, 66) in the layer's layout, no bias, dropout 0 forward and 0.1
+  backward (``attention_core_long_ms``, ``attention_core_bwd_long_ms``;
+  null for a tree without the long route);
 * where the tree has the fused feed-forward route: ``fused_ffn`` (#7)
   12,800 x 528 rows, hidden 2112, dropout 0; its backward (#8) 12,160 rows,
   dropout 0.1; ``fused_dw_chain`` (#9) 200 x 64 x 2112, dropout 0; its
@@ -192,6 +196,15 @@ def main() -> int:
                 return [x.transpose(1, 2).reshape(x.shape[0], x.shape[2], c)
                         for x in grads[:3]]
             return copied
+    lq, lk, lv, lg = (strided(64, 160) for _ in range(4))
+    try:
+        attention_core(lq, lk, lv)
+        long_core = {
+            "attention_core_long_ms": lambda: attention_core(lq, lk, lv),
+            "attention_core_bwd_long_ms": lambda: attention_core_backward(
+                lq, lk, lv, None, seed, lg, 0.1, need_dbias=False)}
+    except ValueError:          # a tree from before the long route
+        long_core = {}
     twin = (r(760, 16, c).to(bf),) + win[1:]
     gwin = r(760, 16, c).to(bf)
     tq, tk, tv, gcore = (r(640, heads, ctx - 1, c // heads).to(bf) for _ in range(4))
@@ -251,6 +264,7 @@ def main() -> int:
             tq, tk, tv, tcausal, seed, gcore, 0.1, need_dbias=False),
         "attention_core_bwd_strided_ms": core_bwd_strided,
         "attention_core_bwd_nar_ms": core_bwd_nar,
+        **long_core,
     }
     if tff is not None:
         hid = 4 * c
@@ -315,6 +329,8 @@ def main() -> int:
     for name, xs in readings.items():
         out[name] = statistics.median(xs)
         out[name.replace("_ms", "_all")] = xs
+    if not long_core:
+        out["attention_core_long_ms"] = out["attention_core_bwd_long_ms"] = None
     if tff is None:
         for name in ("fused_ffn_ms", "fused_ffn_bwd_ms", "fused_dw_chain_ms",
                      "fused_dw_chain_bwd_ms", "ffn_route_predict_ms",

@@ -3,7 +3,9 @@ GPU: far_mnist (FAR) or, with --nar, nar_mnist (NAR); --ffn-route turns on
 the fused feed-forward route (transformer.fused_ffn and fused_dw: kernels
 #7-#10), --conv-route the conv-FFN route with the folded temporal sublayer
 (transformer.fused_conv_ffn and fused_full_temporal: kernels #11/#12, and
-#1/#3 on the temporal sublayer); --gan adds the GAN term (lam_gan 0.01
+#1/#3 on the temporal sublayer); --tslma (with --nar) puts TSLMA in every
+decoder block (transformer.tslma: the enc-dec attention over 160-token
+space-time windows, #2/#4 on their long route); --gan adds the GAN term (lam_gan 0.01
 and the PatchGAN discriminator) to the train step; --ae traces the
 stage-1 AE/GAN train step of ae_mnist instead (batch 32, 10 + 10 frames,
 lam_gan 0.01). --trainer times ``Trainer.train`` itself (far_mnist, or
@@ -14,7 +16,7 @@ split into device time and the host spans of the loop (loader wait,
 batch staging, step enqueue, metric fetch), then one bare train step of
 the same modules on a batch already on the card, traced as above.
 
-    python3 scripts/torch_port_profile.py [--nar] [--train [--gan]] [--ae]
+    python3 scripts/torch_port_profile.py [--nar [--tslma]] [--train [--gan]] [--ae]
         [--ffn-route | --conv-route] [--kernels cuda|plain] [--top 15]
         [--around NAME] [--window 4] [--root DIR]
     python3 scripts/torch_port_profile.py --trainer [--ae] [--steps 5]
@@ -57,6 +59,8 @@ def main() -> int:
                         help="with --train: the GAN term (lam_gan 0.01) and its discriminator")
     parser.add_argument("--ae", action="store_true",
                         help="the ae_mnist AE/GAN train step instead")
+    parser.add_argument("--tslma", action="store_true",
+                        help="with --nar: transformer.tslma on")
     parser.add_argument("--ffn-route", action="store_true",
                         help="transformer.fused_ffn and fused_dw on")
     parser.add_argument("--conv-route", action="store_true",
@@ -91,6 +95,10 @@ def main() -> int:
     if args.conv_route:
         cfg = cfg.override({"transformer": {"fused_conv_ffn": True,
                                             "fused_full_temporal": True}})
+    if args.tslma:
+        if not args.nar:
+            parser.error("--tslma needs --nar")
+        cfg = cfg.override({"transformer": {"tslma": True}})
     batch = cfg.data.batch_size if args.nar else 10
     dev = torch.device("cuda")
     enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
@@ -123,7 +131,8 @@ def main() -> int:
         run = lambda: predict(past)
         what = f"{mode} predict (batch {batch}, 10 frames)"
     route = " + ".join(name for name, on in (("fused-FFN route", args.ffn_route),
-                                             ("conv-FFN route", args.conv_route))
+                                             ("conv-FFN route", args.conv_route),
+                                             ("TSLMA", args.tslma))
                        if on) or "default route"
     return trace(run, what, args, route)
 

@@ -100,7 +100,6 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"variant": "nar", "tslma": True}, "TSLMA slice"),
     ({"remat": True}, "remat slice"),
     ({"sequence_parallel": True}, "multi-GPU slice"),
     ({"variant": "nar", "sequence_parallel": True}, "multi-GPU slice"),
@@ -111,3 +110,12 @@ def test_unported_routes_raise(override, match):
     with pytest.raises(NotImplementedError, match=match):
         build_transformer(cfg.transformer.__class__(
             **{**dataclasses.asdict(cfg.transformer), **override}), device="cpu")
+
+
+def test_tslma_route_builds():
+    """The config that raised until TSLMA was ported now builds it."""
+    _, cfg = small_cfgs()
+    tr = build_transformer(cfg.transformer.__class__(
+        **{**dataclasses.asdict(cfg.transformer), "variant": "nar", "tslma": True}),
+        device="cpu")
+    assert all(getattr(tr, f"dec_block{i}").use_tslma for i in range(tr.num_decoder_layers))

@@ -170,9 +170,10 @@ def test_fused_attention_ln_kernel_matches_plain(cuda, dtype, tokens, res):
 
 @pytest.mark.gpu
 def test_kernels_refuse_unsupported_shapes(cuda):
-    q = torch.zeros(1, 1, 33, 8, device=cuda)
-    with pytest.raises(ValueError, match="Tq, Tk <= 32"):
+    q = torch.zeros(1, 1, 161, 8, device=cuda)
+    with pytest.raises(ValueError, match="Tq, Tk <= 160 with D <= 80"):
         tac.attention_core(q, q, q)
+    q = q[:, :, :33]
     x = torch.zeros(1, 40, 16, device=cuda)
     w, c = torch.zeros(16, 16, device=cuda), torch.zeros(16, device=cuda)
     with pytest.raises(ValueError, match="L <= 32"):
@@ -316,10 +317,82 @@ def test_attention_core_backward_route_is_the_librarys(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         for h, tq, tk, hd in ((8, 19, 19, 66), (8, 10, 10, 66), (8, 32, 32, 96),
                               (8, 32, 32, 128), (1, 7, 7, 33), (4, 10, 3, 3),
-                              (16, 32, 32, 64), (8, 20, 20, 33), (3, 5, 9, 8)):
-            want = tac.backward_route(dtype, h, tq, tk, hd) == "mma"
+                              (16, 32, 32, 64), (8, 20, 20, 33), (3, 5, 9, 8),
+                              (8, 160, 160, 66), (8, 160, 32, 66), (8, 33, 2, 80)):
+            want = tac._ROUTES[tac.backward_route(dtype, h, tq, tk, hd)]
             got = lib.vptr_attention_core_bwd_route(h, tq, tk, hd, tac._DTYPES[dtype])
-            assert bool(got) == want, (dtype, h, tq, tk, hd)
+            assert got == want, (dtype, h, tq, tk, hd)
+
+
+# ---- the long route (Tq or Tk past 32: TSLMA's space-time windows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_kind", ["none", "one", "heads", "causal"])
+@pytest.mark.parametrize("hd", [66, 33])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq,tk", [(160, 160), (160, 32), (33, 33), (40, 160), (150, 7)])
+def test_attention_core_long_route_matches_plain(cuda, tq, tk, dtype, strided, hd,
+                                                 bias_kind, rate):
+    """Forward and backward on the long route against the plain versions:
+    one launch of each, counted under "long"; the output in q's layout,
+    dq, dk, dv in q's, k's and v's; dbias where the bias is given."""
+    g = torch.Generator().manual_seed(64)
+    q, k, v, dout = (_heads(12, 8, t, hd, strided, g, cuda, dtype) for t in (tq, tk, tk, tq))
+    bias = _core_bias(bias_kind, 8, tq, tk, g, cuda)
+    seed = _seed(cuda)
+    assert tac.kernel_route(dtype, 8, tq, tk, hd) == "long"
+    assert tac.backward_route(dtype, 8, tq, tk, hd) == "long"
+    before = tac.attention_core.launches_by_route["long"]
+    got = tac.attention_core(q, k, v, bias, seed, rate)
+    want = tac.attention_core_plain(q, k, v, bias, seed, rate)
+    torch.cuda.synchronize()
+    assert tac.attention_core.launches_by_route["long"] == before + 1
+    assert got.stride() == q.stride()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    before = tac.attention_core.bwd_launches_by_route["long"]
+    _check_core_backward(q, k, v, bias, seed, dout, rate, BWD_TOL[dtype])
+    assert tac.attention_core.bwd_launches_by_route["long"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,batch", [(torch.bfloat16, 64), (torch.float32, 16)])
+@pytest.mark.parametrize("tk", [160, 32])
+def test_attention_core_long_route_at_tslma_shapes(cuda, dtype, batch, tk):
+    """nar_mnist's (64 windows, 8 heads, 160 x 160, 66) and nar_bair's 160 x
+    32 as TSLMA's layer hands them over (the projections' layout), dropout
+    0.1, forward and backward; two calls give the same bits."""
+    g = torch.Generator().manual_seed(65)
+    q, k, v, dout = (_heads(batch, 8, t, 66, True, g, cuda, dtype) for t in (160, tk, tk, 160))
+    seed = _seed(cuda)
+    got = tac.attention_core(q, k, v, None, seed, 0.1)
+    want = tac.attention_core_plain(q, k, v, None, seed, 0.1)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(got, tac.attention_core(q, k, v, None, seed, 0.1))
+    _check_core_backward(q, k, v, None, seed, dout, 0.1, BWD_TOL[dtype])
+    a = tac.attention_core_backward(q, k, v, None, seed, dout, 0.1)
+    b = tac.attention_core_backward(q, k, v, None, seed, dout, 0.1)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layouts", [(1, 0, 1, 0), (0, 1, 0, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_core_long_route_mixed_layouts(cuda, dtype, layouts):
+    g = torch.Generator().manual_seed(66)
+    q, k, v, dout = (_heads(6, 8, t, 66, bool(lay), g, cuda, dtype)
+                     for t, lay in zip((160, 48, 48, 160), layouts))
+    bias = _core_bias("heads", 8, 160, 48, g, cuda)
+    got = tac.attention_core(q, k, v, bias, _seed(cuda), 0.1)
+    want = tac.attention_core_plain(q, k, v, bias, _seed(cuda), 0.1)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    _check_core_backward(q, k, v, bias, _seed(cuda), dout, 0.1, BWD_TOL[dtype])
 
 
 @pytest.mark.gpu

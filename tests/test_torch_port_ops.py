@@ -107,7 +107,7 @@ def test_kernel_route(dtype, heads, tq, tk, d, want):
     assert tac.kernel_route(dtype, heads, tq, tk, d) == want
 
 
-@pytest.mark.parametrize("tq,tk,d", [(33, 20, 66), (20, 33, 66), (20, 20, 129)])
+@pytest.mark.parametrize("tq,tk,d", [(161, 20, 66), (20, 161, 66), (20, 20, 129)])
 def test_kernel_route_refuses_what_no_kernel_takes(tq, tk, d):
     with pytest.raises(ValueError, match="Tq, Tk <= 32"):
         tac.kernel_route(BF, 8, tq, tk, d)
@@ -129,7 +129,7 @@ def test_backward_route(dtype, heads, tq, tk, d, want):
     assert tac.backward_route(dtype, heads, tq, tk, d) == want
 
 
-@pytest.mark.parametrize("tq,tk,d", [(33, 19, 66), (19, 33, 66), (19, 19, 129)])
+@pytest.mark.parametrize("tq,tk,d", [(161, 19, 66), (19, 161, 66), (19, 19, 129)])
 def test_backward_route_refuses_what_no_kernel_takes(tq, tk, d):
     with pytest.raises(ValueError, match="Tq, Tk <= 32"):
         tac.backward_route(BF, 8, tq, tk, d)

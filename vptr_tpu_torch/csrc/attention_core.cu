@@ -1,10 +1,11 @@
-// Attention core for short sequences on Hopper (sm_90a), forward and
-// backward:
+// Attention core on Hopper (sm_90a), forward and backward:
 //     w   = softmax(q k^T * D^-1/2 + bias)            (softmax in f32)
 //     out = dropout(w) v
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), bias: none, (1, Tq, Tk) or
-// (H, Tq, Tk) f32, out: (B, H, Tq, D); T = float or bf16; Tq, Tk <= 32,
-// D <= 128. Dropout is the counter hash of hash_dropout.cuh.
+// (H, Tq, Tk) f32, out: (B, H, Tq, D); T = float or bf16; Tq, Tk <= 32 and
+// D <= 128 on the short routes (FMA, mma), Tq, Tk <= 160 and D <= 80 on the
+// long route (TSLMA's space-time windows, at the end of this file). Dropout
+// is the counter hash of hash_dropout.cuh.
 //
 // Replaces the TPU kernels vptr_tpu/ops/attention_core.py::_core_forward
 // (_kernel, pl.pallas_call at :188) and ::_core_backward (_bwd_kernel,
@@ -72,6 +73,17 @@
 // logit gradients and a second kernel sums them over b (and over heads
 // for a (1, Tq, Tk) bias) in a fixed order, so the result is the same on
 // every run (no float atomics).
+//
+// The long route ("long", Tq or Tk past 32): a block takes one head of one
+// batch element (a batch element's q, k, v no longer fit a block), its
+// rows staged with 4-byte loads into padded shared-memory rows. bf16 on
+// mma.sync: attention_core_long_kernel (80 query rows a block, a 16-row
+// strip a warp, the strip's whole row of logits in registers) and
+// attention_core_long_bwd_kernel (a pass over query strips for dq and the
+// softmax statistics, then a pass over key strips for dk and dv, w and dS
+// formed again from the statistics); f32 on the FMA units:
+// attention_core_long_fma_kernel and attention_core_long_bwd_fma_kernel,
+// the same two passes a warp a row.
 //
 // Rounding points follow the plain versions in attention_core.py: q * scale
 // (the scale in T) is rounded to T, logits, softmax and dropout are f32,
@@ -1061,10 +1073,900 @@ int launch_bwd_mma(const MmaBwdArgs& a, void* dbias, cudaStream_t stream) {
   return launch_bias_grad(a.dl, dbias, a.batch, a.heads, a.tq, a.tk, a.bias_heads, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Long-sequence route ("long"): Tq, Tk <= 160, D <= 80 (TSLMA's space-time
+// windows: 160 queries over 160 or 32 keys at D = 66). A batch element's
+// q, k and v slices no longer fit a block's shared memory (3 x 160 x 1,056 B
+// in the layer's layout), so a block takes one head of one element: its k
+// and v rows (and in the backward its q and g rows) are staged row by row
+// into shared memory with a padded row stride (4-byte loads: a head's row
+// in the layer's layout starts on a 4-byte, not a 16-byte, boundary), and
+// the q rows of the forward are read straight into the A fragments.
+
+constexpr int kLongTokens = 160;
+constexpr int kLongDepth = 80;
+constexpr int kLongKd = (kLongDepth + 15) / 16;  // 16-wide steps over the head width
+constexpr int kLongNd = (kLongDepth + 7) / 8;    // 8-wide column tiles of the head width
+constexpr int kLongWarps = 5;                    // forward: a 16-row query strip a warp
+constexpr int kLongRows = 16 * kLongWarps;       // forward: query rows a block (160 = 2 x 80)
+constexpr int kLongBwdWarps = 10;                // backward: a 16-row strip a warp at 160 tokens
+constexpr int kLongFmaRows = 32;                 // f32 forward: query rows a block
+
+// Everything a launch of the long route takes. q, k, v and g each in layout
+// 0 or 1 of Slice; out (forward) in q's layout, dq in q's, dk in k's, dv
+// in v's; element (e, h, r, d) of an operand lies at e H T D + h head + r row + d.
+struct LongArgs {
+  const void *q, *k, *v, *g;
+  const float* bias;
+  void *out, *dq, *dk, *dv;
+  float* dl;                      // (B, H, Tq, Tk) f32 logit gradients, or null
+  int batch, heads, tq, tk, depth, bias_heads;
+  Slice qs, ks, vs, gs;
+  float scale, dscale;
+  vptr_dropout::Params drop;
+};
+
+// Whether the long route takes the shape (either dtype; both routes of it
+// fit a block's shared memory at the limits: ops/attention_core.py says
+// the same).
+bool long_takes(int tq, int tk, int depth) {
+  return tq <= kLongTokens && tk <= kLongTokens && depth <= kLongDepth;
+}
+
+// Shared-memory row stride (bf16 elements) of the staged rows: an even
+// number of 4-byte words that is 4 mod 8, so that the eight rows g = lane / 4
+// of a fragment load, each read at word t = lane % 4, fall in 32 different
+// banks.
+inline __host__ __device__ int long_stride(int depth) {
+  int words = ((depth + 1) / 2 + 3) & ~3;
+  if (words % 8 == 0) words += 4;
+  return 2 * words;
+}
+
+// One 4-byte asynchronous copy from device into shared memory; the block's
+// copies complete at cp_async4_wait.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// rows x hd bf16 elements of one head (src: its row 0, row pitch sr) into
+// dst with row stride st, a warp a row: 4-byte asynchronous copies where hd
+// is even (all in flight at once; the caller waits with cp_async4_wait),
+// element loads otherwise.
+template <bool PAIRS>
+__device__ __forceinline__ void stage_head(bf16* dst, int st, const bf16* src, long sr,
+                                           int rows, int hd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps) {
+    if constexpr (PAIRS) {
+      for (int w = lane; 2 * w < hd; w += 32) cp_async4(dst + r * st + 2 * w, src + r * sr + 2 * w);
+    } else {
+      for (int d = lane; d < hd; d += 32) dst[r * st + d] = src[r * sr + d];
+    }
+  }
+}
+
+// The staged q rows times the scale in bf16, in place (as the plain
+// version's q * scale), once they have landed.
+template <bool PAIRS>
+__device__ __forceinline__ void scale_rows(bf16* x, int st, int rows, int hd,
+                                           __nv_bfloat162 scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps) {
+    if constexpr (PAIRS) {
+      for (int w = lane; 2 * w < hd; w += 32) {
+        uint32_t* p = reinterpret_cast<uint32_t*>(x + r * st + 2 * w);
+        *p = scaled_pair(*p, scale);
+      }
+    } else {
+      for (int d = lane; d < hd; d += 32) x[r * st + d] = __hmul(x[r * st + d], scale.x);
+    }
+  }
+}
+
+// The A fragments of a 16-row strip (x: its row 0, row stride xr, rows_x rows
+// there) over the whole head width, one 16-wide step each: as row_products
+// forms them, zero past hd.
+template <bool PAIRS>
+__device__ __forceinline__ void strip_frags(uint32_t (&a)[kLongKd][4], const bf16* x, int xr,
+                                            int rows_x, int hd, int g, int t) {
+#pragma unroll
+  for (int kd = 0; kd < kLongKd; ++kd) {
+    const int k0 = 16 * kd;
+    a[kd][0] = load_pair<PAIRS>(x + g * xr, k0 + 2 * t, hd, g < rows_x);
+    a[kd][1] = load_pair<PAIRS>(x + (g + 8) * xr, k0 + 2 * t, hd, g + 8 < rows_x);
+    a[kd][2] = load_pair<PAIRS>(x + g * xr, k0 + 2 * t + 8, hd, g < rows_x);
+    a[kd][3] = load_pair<PAIRS>(x + (g + 8) * xr, k0 + 2 * t + 8, hd, g + 8 < rows_x);
+  }
+}
+
+// One 16 x 8 tile of a x^T y^T-style product: acc = A (the strip's fragments)
+// times rows j0 + g of y (those below rows_y) over the head width.
+template <bool PAIRS>
+__device__ __forceinline__ void strip_tile(float (&acc)[4], const uint32_t (&a)[kLongKd][4],
+                                           const bf16* y, int yr, int j0, int rows_y, int hd,
+                                           int g, int t) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] = 0.f;
+  const int j = j0 + g;
+#pragma unroll
+  for (int kd = 0; kd < kLongKd; ++kd) {
+    if (16 * kd >= hd) break;                    // warp-uniform
+    const uint32_t b0 = load_pair<PAIRS>(y + j * yr, 16 * kd + 2 * t, hd, j < rows_y);
+    const uint32_t b1 = load_pair<PAIRS>(y + j * yr, 16 * kd + 2 * t + 8, hd, j < rows_y);
+    mma_16816(acc, a[kd], b0, b1);
+  }
+}
+
+// Rows 16 mt + g (+ 8) of a 16-row strip of the output, two f32 sums a lane
+// for columns c, c + 1, stored as bf16 at dst (row stride dr) where the row
+// is below rows and the column below hd.
+template <bool PAIRS>
+__device__ __forceinline__ void store_pair(bf16* dst, long dr, int i, int rows, int c, int hd,
+                                           float v0, float v1) {
+  if (i >= rows) return;
+  bf16* const p = dst + i * dr + c;
+  if constexpr (PAIRS) {
+    if (c < hd) *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (c < hd) p[0] = __float2bfloat16_rn(v0);
+    if (c + 1 < hd) p[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// o[n] (head columns 8 n + 2t (+ 1), the strip's rows g (+ 8)) = the sum over
+// 16-row steps kk of A[kk] (plus the low term al[kk] with LO) times rows
+// 16 kk .. + 15 of y (those below rows_y): every column tile accumulates at
+// once, so the products of one step are independent; the B operands come
+// from 4-byte pairs along y's rows, transposed by movmatrix.
+template <int KS, bool PAIRS, bool LO>
+__device__ __forceinline__ void strip_times_rows(float (&o)[kLongNd][4],
+                                                 const uint32_t (&ah)[KS][4],
+                                                 const uint32_t (&al)[KS][4], const bf16* y,
+                                                 int yr, int rows_y, int hd, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < kLongNd; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if (16 * kk >= rows_y) break;                // warp-uniform
+#pragma unroll
+    for (int n = 0; n < kLongNd; ++n) {
+      if (8 * n >= hd) break;                    // warp-uniform
+      uint32_t b[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 16 * kk + 8 * half + g;    // row g of the block, before its transpose
+        b[half] = transpose_8x8(load_pair<PAIRS>(y + j * yr, 8 * n + 2 * t, hd, j < rows_y));
+      }
+      mma_16816(o[n], ah[kk], b[0], b[1]);
+      if constexpr (LO) mma_16816(o[n], al[kk], b[0], b[1]);
+    }
+  }
+}
+
+// The strip's output rows g (+ 8), o[n] as strip_times_rows leaves it,
+// times factor, stored as bf16 at dst (row stride dr) below rows.
+template <bool PAIRS>
+__device__ __forceinline__ void store_strip(bf16* dst, long dr, int rows, int hd,
+                                            const float (&o)[kLongNd][4], float factor,
+                                            int g, int t) {
+#pragma unroll
+  for (int n = 0; n < kLongNd; ++n) {
+    if (8 * n >= hd) break;
+    store_pair<PAIRS>(dst, dr, g, rows, 8 * n + 2 * t, hd, o[n][0] * factor, o[n][1] * factor);
+    store_pair<PAIRS>(dst, dr, g + 8, rows, 8 * n + 2 * t, hd, o[n][2] * factor,
+                      o[n][3] * factor);
+  }
+}
+
+// Forward, bf16: a block takes (batch element e, head h, 80 query rows), its
+// grid (element x query tile, head). The head's k and v rows and the tile's
+// q rows are staged (4-byte asynchronous copies); warp w takes query rows
+// 16 w .. + 15 of the tile: S = (q scale) k^T on mma.sync (row_products, q
+// scaled as its A fragments are formed), the bias, the f32 softmax on the
+// quads (__expf, one reciprocal a row, as the mma route), the hash dropout,
+// the weights rounded into P's A fragments, P v on mma.sync with every
+// column tile at once (strip_times_rows), the output stored in q's layout.
+// KS: 16-key steps (Tk <= 16 KS); the logits of a strip are 2 KS tiles of
+// 16 x 8 in registers.
+template <int KS, bool PAIRS>
+__global__ void __launch_bounds__(kLongWarps * 32)
+attention_core_long_kernel(const LongArgs a) {
+  constexpr int NT = 2 * KS;
+  extern __shared__ __align__(16) unsigned char smem_long[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth, st = long_stride(hd);
+  const int tiles = (tq + kLongRows - 1) / kLongRows;
+  const long e = blockIdx.x / tiles;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kLongRows, r0 = q0 + 16 * warp;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const __nv_bfloat162 scale = __float2bfloat162_rn(a.scale);  // exact: a bf16 value
+  const long qn = static_cast<long>(a.heads) * tq * hd, kn = static_cast<long>(a.heads) * tk * hd;
+  const int qr = a.qs.row;
+  bf16* const oh = static_cast<bf16*>(a.out) + e * qn + h * a.qs.head;
+  bf16* const ks = reinterpret_cast<bf16*>(smem_long);          // [tk][st]
+  bf16* const vs = ks + tk * st;                                 // [tk][st]
+  bf16* const qsm = vs + tk * st;                                // [64][st] the tile's q
+  stage_head<PAIRS>(ks, st, static_cast<const bf16*>(a.k) + e * kn + h * a.ks.head, a.ks.row,
+                    tk, hd);
+  stage_head<PAIRS>(vs, st, static_cast<const bf16*>(a.v) + e * kn + h * a.vs.head, a.vs.row,
+                    tk, hd);
+  stage_head<PAIRS>(qsm, st, static_cast<const bf16*>(a.q) + e * qn + h * a.qs.head +
+                                 static_cast<long>(q0) * qr,
+                    qr, min(kLongRows, tq - q0), hd);
+  cp_async4_wait();
+  __syncthreads();
+  if (r0 >= tq) return;                          // warp-uniform; no barrier follows
+  const int rows = tq - r0;
+
+  float sc[1][NT][4];
+  row_products<1, NT, PAIRS, true>(sc, qsm + (r0 - q0) * st, st, rows, ks, st, tk, hd, g, t,
+                                   scale);
+  const float* bias_h =
+      a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+  uint32_t p[KS][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = g + 8 * hh;                    // row of the strip
+    float m = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int j = 8 * nt + 2 * t + x;
+        float l = -INFINITY;
+        if (i < rows && j < tk) {
+          l = sc[0][nt][2 * hh + x];
+          if (bias_h) l += __ldg(bias_h + static_cast<long>(r0 + i) * tk + j);
+        }
+        sc[0][nt][2 * hh + x] = l;
+        m = fmaxf(m, l);
+      }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int j = 8 * nt + 2 * t + x;
+        const float y = i < rows && j < tk ? __expf(sc[0][nt][2 * hh + x] - m) : 0.f;
+        sc[0][nt][2 * hh + x] = y;
+        sum += y;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float rcp = 1.f / sum;
+    const uint32_t row_idx = vptr_dropout::element_index(
+        static_cast<uint32_t>(e), a.heads, h, tq, r0 + i, tk, 0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float wv[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int j = 8 * nt + 2 * t + x;
+        float w = 0.f;                           // rows and keys past Tq, Tk: weight 0
+        if (i < rows && j < tk) {
+          w = sc[0][nt][2 * hh + x] * rcp;
+          if (a.drop.active()) w = a.drop.apply(w, a.drop.keep(row_idx + j, seed));
+        }
+        wv[x] = w;
+      }
+      p[nt >> 1][2 * (nt & 1) + hh] = pack_bf16(wv[0], wv[1]);
+    }
+  }
+
+  // P v, stored in q's layout
+  float o[kLongNd][4];
+  strip_times_rows<KS, PAIRS, false>(o, p, p, vs, st, tk, hd, g, t);
+  store_strip<PAIRS>(oh + static_cast<long>(r0) * qr, qr, rows, hd, o, 1.f, g, t);
+}
+
+// The f32 operands of the long route's FMA kernels: rows x hd f32 elements
+// of one head (src: its row 0, row pitch sr) into dst with row stride st
+// (row_stride), a warp a row, by 4-byte asynchronous copies (the caller
+// waits with cp_async4_wait); zeros in the padding columns (the float4 dot
+// products read them).
+__device__ __forceinline__ void stage_head_f32(float* dst, int st, const float* src, long sr,
+                                               int rows, int hd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps)
+    for (int d = lane; d < st; d += 32) {
+      if (d < hd)
+        cp_async4(dst + r * st + d, src + r * sr + d);
+      else
+        dst[r * st + d] = 0.f;
+    }
+}
+
+// The staged f32 q rows times the scale, in place, once they have landed.
+__device__ __forceinline__ void scale_rows_f32(float* x, int st, int rows, int hd, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps)
+    for (int d = lane; d < hd; d += 32) x[r * st + d] *= scale;
+}
+
+__device__ __forceinline__ float dot_rows(const float* a, const float* c, int stride) {
+  float acc = 0.f;
+  for (int d = 0; d < stride; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d);
+    const float4 y = *reinterpret_cast<const float4*>(c + d);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+    acc = fmaf(x.z, y.z, acc);
+    acc = fmaf(x.w, y.w, acc);
+  }
+  return acc;
+}
+
+constexpr int kLongLanes = (kLongTokens + 31) / 32;   // tokens a lane (a row's keys or queries)
+constexpr int kLongCols = (kLongDepth + 31) / 32;     // head columns a lane
+
+// Forward, f32: a block takes (element, head, 32 query rows); the q rows
+// (scaled), the head's k and v rows are staged as f32; a warp takes a query
+// row at a time, lane l the keys l + 32 j (as the FMA route: expf, the
+// division by the sum), then the weighted sum of v with lane l owning the
+// columns l + 32 c, one weight shuffle a key feeding them all.
+__global__ void __launch_bounds__(kLongWarps * 32)
+attention_core_long_fma_kernel(const LongArgs a) {
+  extern __shared__ float4 smem_long4[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth, st = row_stride(hd);
+  const int tiles = (tq + kLongFmaRows - 1) / kLongFmaRows;
+  const long e = blockIdx.x / tiles;
+  const int h = blockIdx.y;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kLongFmaRows;
+  const int rows = min(kLongFmaRows, tq - q0);
+  const long qn = static_cast<long>(a.heads) * tq * hd, kn = static_cast<long>(a.heads) * tk * hd;
+  float* const qsm = reinterpret_cast<float*>(smem_long4);     // [32][st] q * scale
+  float* const ksm = qsm + kLongFmaRows * st;                   // [tk][st]
+  float* const vsm = ksm + tk * st;                             // [tk][st]
+  const long qoff = e * qn + h * a.qs.head + static_cast<long>(q0) * a.qs.row;
+  stage_head_f32(qsm, st, static_cast<const float*>(a.q) + qoff, a.qs.row, rows, hd);
+  stage_head_f32(ksm, st, static_cast<const float*>(a.k) + e * kn + h * a.ks.head, a.ks.row, tk,
+                 hd);
+  stage_head_f32(vsm, st, static_cast<const float*>(a.v) + e * kn + h * a.vs.head, a.vs.row, tk,
+                 hd);
+  cp_async4_wait();
+  __syncthreads();
+  scale_rows_f32(qsm, st, rows, hd, a.scale);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const float* bias_h =
+      a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+  float* const out = static_cast<float*>(a.out) + qoff;
+  for (int r = warp; r < rows; r += kLongWarps) {
+    float w[kLongLanes];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int c = lane + 32 * j;
+      w[j] = -INFINITY;
+      if (c < tk) {
+        w[j] = dot_rows(qsm + r * st, ksm + c * st, st);
+        if (bias_h) w[j] += bias_h[static_cast<long>(q0 + r) * tk + c];
+      }
+      m = fmaxf(m, w[j]);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      w[j] = lane + 32 * j < tk ? expf(w[j] - m) : 0.f;
+      sum += w[j];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int c = lane + 32 * j;
+      w[j] /= sum;
+      if (a.drop.active() && c < tk)
+        w[j] = a.drop.apply(w[j], a.drop.keep(vptr_dropout::element_index(
+                                                  static_cast<uint32_t>(e), a.heads, h, tq,
+                                                  q0 + r, tk, c), seed));
+    }
+    float acc[kLongCols];
+#pragma unroll
+    for (int c = 0; c < kLongCols; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      for (int src = 0; src < 32; ++src) {
+        const int c = 32 * j + src;
+        if (c >= tk) break;                      // warp-uniform
+        const float wc = __shfl_sync(0xffffffffu, w[j], src);
+        const float* vr = vsm + c * st;
+#pragma unroll
+        for (int cc = 0; cc < kLongCols; ++cc)
+          if (lane + 32 * cc < hd) acc[cc] = fmaf(wc, vr[lane + 32 * cc], acc[cc]);
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < kLongCols; ++cc)
+      if (lane + 32 * cc < hd) out[r * a.qs.row + lane + 32 * cc] = acc[cc];
+  }
+}
+
+int launch_long(const LongArgs& a, int dtype, cudaStream_t stream) {
+  using Kernel = void (*)(const LongArgs);
+  if (dtype == 0) {
+    const int tiles = (a.tq + kLongFmaRows - 1) / kLongFmaRows;
+    const int smem = static_cast<int>(sizeof(float) * (kLongFmaRows + 2 * a.tk) *
+                                      row_stride(a.depth));
+    cudaError_t err = cudaFuncSetAttribute(attention_core_long_fma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attention_core_long_fma_kernel<<<dim3(a.batch * tiles, a.heads), kLongWarps * 32, smem,
+                                     stream>>>(a);
+    return cudaGetLastError();
+  }
+  static const Kernel kernels[2][2] = {
+      {&attention_core_long_kernel<2, false>, &attention_core_long_kernel<2, true>},
+      {&attention_core_long_kernel<kLongTokens / 16, false>,
+       &attention_core_long_kernel<kLongTokens / 16, true>}};
+  const Kernel kernel = kernels[a.tk > 32][a.depth % 2 == 0];
+  const int tiles = (a.tq + kLongRows - 1) / kLongRows;
+  const int smem =
+      static_cast<int>(sizeof(bf16) * (2 * a.tk + kLongRows) * long_stride(a.depth));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.batch * tiles, a.heads), kLongWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Backward, bf16: a block takes (batch element e, head h), its grid the
+// element x head pairs. q (times the scale), k, v and g of the head are
+// staged; then two passes over 16-row strips, ten warps each (a strip a
+// warp at 160 tokens):
+//  * query strips: S = (q scale) k^T on mma.sync, the softmax as the
+//    forward's (its max and reciprocal sum kept for the key pass); the row
+//    sums of dW_drop w with dW = g v^T formed a 16 x 8 tile at a time from
+//    g's A fragments held in registers (the keep decisions kept as bits),
+//    then each tile formed again for dS = w (dW_drop - sum) (into dl where
+//    the bias gradient is wanted) and packed as A fragments of two bf16
+//    terms; dq = dS k dscale on mma.sync with every column tile at once
+//    (strip_times_rows), stored in q's layout;
+//  * key strips, after a barrier: S^T = k (q scale)^T and dW^T = v g^T a 16
+//    x 16 step of queries at a time from k's and v's A fragments in
+//    registers, the weights from the kept statistics, w_drop^T and dS^T
+//    packed from the accumulators as A fragments (no transpose), dv +=
+//    w_drop^T g and dk += dS^T (q scale) over the head width (the B
+//    operands from the staged rows by movmatrix), stored in v's and k's
+//    layouts.
+// KS: 16-key steps of a query strip (Tk <= 16 KS).
+template <int KS, bool PAIRS>
+__global__ void __launch_bounds__(kLongBwdWarps * 32, 1)
+attention_core_long_bwd_kernel(const LongArgs a) {
+  constexpr int NT = 2 * KS;
+  extern __shared__ __align__(16) unsigned char smem_long_bwd[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth, st = long_stride(hd);
+  const long e = blockIdx.x / a.heads;
+  const int h = static_cast<int>(blockIdx.x % a.heads);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const float keep_rcp = 1.f / a.drop.keep_div;
+  const __nv_bfloat162 scale = __float2bfloat162_rn(a.scale);  // exact: a bf16 value
+  const long qn = static_cast<long>(a.heads) * tq * hd, kn = static_cast<long>(a.heads) * tk * hd;
+  bf16* const qs = reinterpret_cast<bf16*>(smem_long_bwd);     // [tq][st] q * scale
+  bf16* const gs = qs + tq * st;                               // [tq][st]
+  bf16* const ks = gs + tq * st;                               // [tk][st]
+  bf16* const vs = ks + tk * st;                               // [tk][st]
+  float* const stats = reinterpret_cast<float*>(vs + tk * st);  // [tq][3]: max, 1 / sum, sum dW w
+  stage_head<PAIRS>(qs, st, static_cast<const bf16*>(a.q) + e * qn + h * a.qs.head, a.qs.row,
+                    tq, hd);
+  stage_head<PAIRS>(gs, st, static_cast<const bf16*>(a.g) + e * qn + h * a.gs.head, a.gs.row,
+                    tq, hd);
+  stage_head<PAIRS>(ks, st, static_cast<const bf16*>(a.k) + e * kn + h * a.ks.head, a.ks.row,
+                    tk, hd);
+  stage_head<PAIRS>(vs, st, static_cast<const bf16*>(a.v) + e * kn + h * a.vs.head, a.vs.row,
+                    tk, hd);
+  cp_async4_wait();
+  __syncthreads();
+  scale_rows<PAIRS>(qs, st, tq, hd, scale);
+  __syncthreads();
+  const float* bias_h =
+      a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+  float* const dl_h = a.dl ? a.dl + (e * a.heads + h) * tq * tk : nullptr;
+
+  // query strips: dq, the statistics
+  for (int r0 = 16 * warp; r0 < tq; r0 += 16 * kLongBwdWarps) {
+    const int rows = tq - r0;
+    float sc[1][NT][4];
+    row_products<1, NT, PAIRS, false>(sc, qs + r0 * st, st, rows, ks, st, tk, hd, g, t, scale);
+    uint32_t ga[kLongKd][4];
+    strip_frags<PAIRS>(ga, gs + r0 * st, st, rows, hd, g, t);
+    float dot[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = g + 8 * hh;
+      float m = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int j = 8 * nt + 2 * t + x;
+          float l = -INFINITY;
+          if (i < rows && j < tk) {
+            l = sc[0][nt][2 * hh + x];
+            if (bias_h) l += __ldg(bias_h + (r0 + i) * tk + j);
+          }
+          sc[0][nt][2 * hh + x] = l;
+          m = fmaxf(m, l);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int j = 8 * nt + 2 * t + x;
+          const float y = i < rows && j < tk ? __expf(sc[0][nt][2 * hh + x] - m) : 0.f;
+          sc[0][nt][2 * hh + x] = y;
+          sum += y;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float rcp = 1.f / sum;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)                                   // w, 0 past Tq, Tk
+          sc[0][nt][2 * hh + x] = i < rows && 8 * nt + 2 * t + x < tk ? sc[0][nt][2 * hh + x] * rcp
+                                                                      : 0.f;
+      if (t == 0 && i < rows) {
+        stats[3 * (r0 + i)] = m;
+        stats[3 * (r0 + i) + 1] = rcp;
+      }
+      dot[hh] = 0.f;
+    }
+    // the row sums of dW_drop w, dW a tile at a time; the keep decisions
+    // of the lane's 4 NT elements kept as bits (4 nt + 2 hh + x) for the
+    // second pass
+    uint32_t kept[(4 * NT + 31) / 32];
+#pragma unroll
+    for (int b = 0; b < (4 * NT + 31) / 32; ++b) kept[b] = 0u;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt >= tk) break;                   // warp-uniform
+      float dw[4];
+      strip_tile<PAIRS>(dw, ga, vs, st, 8 * nt, tk, hd, g, t);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int i = g + 8 * hh, j = 8 * nt + 2 * t + x, bit = 4 * nt + 2 * hh + x;
+          float d = dw[2 * hh + x];
+          if (a.drop.active()) {
+            const bool k = i < rows && j < tk &&
+                           a.drop.keep(vptr_dropout::element_index(static_cast<uint32_t>(e),
+                                                                   a.heads, h, tq, r0 + i, tk,
+                                                                   j), seed);
+            if (k) kept[bit >> 5] |= 1u << (bit & 31);
+            d = a.drop.apply_rcp(d, k, keep_rcp);
+          }
+          dot[hh] += d * sc[0][nt][2 * hh + x];
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 1);
+      dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 2);
+      if (t == 0 && g + 8 * hh < rows) stats[3 * (r0 + g + 8 * hh) + 2] = dot[hh];
+    }
+    // dS a tile at a time, packed as A fragments of two bf16 terms
+    uint32_t dsh[1][KS][4], dsl[1][KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dsh[0][kk][c] = dsl[0][kk][c] = 0u;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt >= tk) break;                   // warp-uniform
+      float dw[4];
+      strip_tile<PAIRS>(dw, ga, vs, st, 8 * nt, tk, hd, g, t);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = g + 8 * hh;
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int j = 8 * nt + 2 * t + x, bit = 4 * nt + 2 * hh + x;
+          float d = dw[2 * hh + x];
+          if (a.drop.active()) d = a.drop.apply_rcp(d, (kept[bit >> 5] >> (bit & 31)) & 1u, keep_rcp);
+          ds[x] = sc[0][nt][2 * hh + x] * (d - dot[hh]);
+          if (dl_h && i < rows && j < tk) dl_h[(r0 + i) * tk + j] = ds[x];
+        }
+        split_pair(ds[0], ds[1], dsh[0][nt >> 1][2 * (nt & 1) + hh],
+                   dsl[0][nt >> 1][2 * (nt & 1) + hh]);
+      }
+    }
+    float o[kLongNd][4];
+    strip_times_rows<KS, PAIRS, true>(o, dsh[0], dsl[0], ks, st, tk, hd, g, t);
+    store_strip<PAIRS>(static_cast<bf16*>(a.dq) + e * qn + h * a.qs.head +
+                           static_cast<long>(r0) * a.qs.row,
+                       a.qs.row, rows, hd, o, a.dscale, g, t);
+  }
+  __syncthreads();                                 // the statistics are in
+
+  // key strips: dk, dv
+  for (int c0 = 16 * warp; c0 < tk; c0 += 16 * kLongBwdWarps) {
+    const int keys = tk - c0;
+    uint32_t ka[kLongKd][4], va[kLongKd][4];
+    strip_frags<PAIRS>(ka, ks + c0 * st, st, keys, hd, g, t);
+    strip_frags<PAIRS>(va, vs + c0 * st, st, keys, hd, g, t);
+    float dk[kLongNd][4], dv[kLongNd][4];
+#pragma unroll
+    for (int n = 0; n < kLongNd; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+    for (int i0 = 0; i0 < tq; i0 += 16) {
+      // S^T and dW^T for keys c0 + g (+ 8) and queries i0 + 8 half + 2t (+ 1);
+      // packed as A fragments (rows: keys, depth: the 16 queries)
+      uint32_t wdh[4], wdl[4], dsh[4], dsl[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float s[4], dw[4];
+        strip_tile<PAIRS>(s, ka, qs, st, i0 + 8 * half, tq, hd, g, t);
+        strip_tile<PAIRS>(dw, va, gs, st, i0 + 8 * half, tq, hd, g, t);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = c0 + g + 8 * hh;
+          float wd[2], ds[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int i = i0 + 8 * half + 2 * t + x;
+            wd[x] = ds[x] = 0.f;
+            if (i < tq && j < tk) {
+              float l = s[2 * hh + x];
+              if (bias_h) l += __ldg(bias_h + i * tk + j);
+              const float w = __expf(l - stats[3 * i]) * stats[3 * i + 1];
+              float d = dw[2 * hh + x];
+              wd[x] = w;
+              if (a.drop.active()) {
+                const bool kept = a.drop.keep(vptr_dropout::element_index(
+                    static_cast<uint32_t>(e), a.heads, h, tq, i, tk, j), seed);
+                wd[x] = a.drop.apply_rcp(w, kept, keep_rcp);
+                d = a.drop.apply_rcp(d, kept, keep_rcp);
+              }
+              ds[x] = w * (d - stats[3 * i + 2]);
+            }
+          }
+          split_pair(wd[0], wd[1], wdh[2 * half + hh], wdl[2 * half + hh]);
+          split_pair(ds[0], ds[1], dsh[2 * half + hh], dsl[2 * half + hh]);
+        }
+      }
+      // dv += w_drop^T g, dk += dS^T (q scale): the 16 query rows of g and q
+      // as B operands, an 8 x 8 block a lane pair at a time by movmatrix
+#pragma unroll
+      for (int n = 0; n < kLongNd; ++n) {
+        if (8 * n >= hd) break;                  // warp-uniform
+        uint32_t bg[2], bq[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + 8 * half + g;
+          bg[half] = transpose_8x8(load_pair<PAIRS>(gs + i * st, 8 * n + 2 * t, hd, i < tq));
+          bq[half] = transpose_8x8(load_pair<PAIRS>(qs + i * st, 8 * n + 2 * t, hd, i < tq));
+        }
+        mma_16816(dv[n], wdh, bg[0], bg[1]);
+        mma_16816(dv[n], wdl, bg[0], bg[1]);
+        mma_16816(dk[n], dsh, bq[0], bq[1]);
+        mma_16816(dk[n], dsl, bq[0], bq[1]);
+      }
+    }
+    bf16* const dkh = static_cast<bf16*>(a.dk) + e * kn + h * a.ks.head +
+                      static_cast<long>(c0) * a.ks.row;
+    bf16* const dvh = static_cast<bf16*>(a.dv) + e * kn + h * a.vs.head +
+                      static_cast<long>(c0) * a.vs.row;
+#pragma unroll
+    for (int n = 0; n < kLongNd; ++n) {
+      if (8 * n >= hd) break;
+      const int c = 8 * n + 2 * t;
+      store_pair<PAIRS>(dkh, a.ks.row, g, keys, c, hd, dk[n][0], dk[n][1]);
+      store_pair<PAIRS>(dkh, a.ks.row, g + 8, keys, c, hd, dk[n][2], dk[n][3]);
+      store_pair<PAIRS>(dvh, a.vs.row, g, keys, c, hd, dv[n][0], dv[n][1]);
+      store_pair<PAIRS>(dvh, a.vs.row, g + 8, keys, c, hd, dv[n][2], dv[n][3]);
+    }
+  }
+}
+
+// Backward, f32: a block takes (element, head); q (scaled), k, v and g of
+// the head staged as f32. Query rows, a warp a row at a time, lane l the keys
+// l + 32 j: the softmax as the f32 forward (expf, the division), dW = g v^T,
+// the mask, the row sum of dW_drop w, dS (into dl where wanted), dq = dS k
+// dscale with lane l owning columns l + 32 c; the row's max, sum and row sum
+// kept. After a barrier, key rows, a warp a key at a time, lane l the
+// queries l + 32 j: the weights again from the kept statistics (the same
+// dot products in the same order, so the same values), dS and w_drop, then
+// dk = dS^T (q scale) and dv = w_drop^T g.
+__global__ void __launch_bounds__(kLongBwdWarps * 32, 1)
+attention_core_long_bwd_fma_kernel(const LongArgs a) {
+  extern __shared__ float4 smem_long_bwd4[];
+  const int tq = a.tq, tk = a.tk, hd = a.depth, st = row_stride(hd);
+  const long e = blockIdx.x / a.heads;
+  const int h = static_cast<int>(blockIdx.x % a.heads);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t seed = a.drop.active() ? a.drop.seed_u32() : 0u;
+  const long qn = static_cast<long>(a.heads) * tq * hd, kn = static_cast<long>(a.heads) * tk * hd;
+  const long qoff = e * qn + h * a.qs.head, goff = e * qn + h * a.gs.head;
+  const long koff = e * kn + h * a.ks.head, voff = e * kn + h * a.vs.head;
+  float* const qsm = reinterpret_cast<float*>(smem_long_bwd4);  // [tq][st] q * scale
+  float* const gsm = qsm + tq * st;                             // [tq][st]
+  float* const ksm = gsm + tq * st;                             // [tk][st]
+  float* const vsm = ksm + tk * st;                             // [tk][st]
+  float* const stats = vsm + tk * st;                           // [tq][3]: max, sum, sum dW w
+  stage_head_f32(qsm, st, static_cast<const float*>(a.q) + qoff, a.qs.row, tq, hd);
+  stage_head_f32(gsm, st, static_cast<const float*>(a.g) + goff, a.gs.row, tq, hd);
+  stage_head_f32(ksm, st, static_cast<const float*>(a.k) + koff, a.ks.row, tk, hd);
+  stage_head_f32(vsm, st, static_cast<const float*>(a.v) + voff, a.vs.row, tk, hd);
+  cp_async4_wait();
+  __syncthreads();
+  scale_rows_f32(qsm, st, tq, hd, a.scale);
+  __syncthreads();
+  const float* bias_h =
+      a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
+  float* const dl_h = a.dl ? a.dl + (e * a.heads + h) * tq * tk : nullptr;
+  auto kept = [&](int i, int j) {
+    return a.drop.keep(vptr_dropout::element_index(static_cast<uint32_t>(e), a.heads, h, tq, i,
+                                                   tk, j), seed);
+  };
+  // out[c] = sum over the tokens u of coef(u) rows[u][lane + 32 c]
+  auto weighted_rows = [&](const float (&coef)[kLongLanes], int tokens, const float* rows,
+                           float (&out)[kLongCols]) {
+#pragma unroll
+    for (int c = 0; c < kLongCols; ++c) out[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j)
+      for (int src = 0; src < 32; ++src) {
+        const int u = 32 * j + src;
+        if (u >= tokens) break;                  // warp-uniform
+        const float w = __shfl_sync(0xffffffffu, coef[j], src);
+#pragma unroll
+        for (int c = 0; c < kLongCols; ++c)
+          if (lane + 32 * c < hd) out[c] = fmaf(w, rows[u * st + lane + 32 * c], out[c]);
+      }
+  };
+
+  for (int r = warp; r < tq; r += kLongBwdWarps) {
+    float w[kLongLanes], dw[kLongLanes];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int c = lane + 32 * j;
+      w[j] = -INFINITY;
+      if (c < tk) {
+        w[j] = dot_rows(qsm + r * st, ksm + c * st, st);
+        if (bias_h) w[j] += bias_h[r * tk + c];
+      }
+      m = fmaxf(m, w[j]);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      w[j] = lane + 32 * j < tk ? expf(w[j] - m) : 0.f;
+      sum += w[j];
+    }
+    sum = warp_sum(sum);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int c = lane + 32 * j;
+      w[j] /= sum;
+      dw[j] = 0.f;
+      if (c < tk) {
+        dw[j] = dot_rows(gsm + r * st, vsm + c * st, st);
+        if (a.drop.active()) dw[j] = a.drop.apply(dw[j], kept(r, c));
+      }
+      dot += dw[j] * w[j];
+    }
+    dot = warp_sum(dot);
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int c = lane + 32 * j;
+      dw[j] = w[j] * (dw[j] - dot);              // dS
+      if (dl_h && c < tk) dl_h[r * tk + c] = dw[j];
+    }
+    if (lane == 0) {
+      stats[3 * r] = m;
+      stats[3 * r + 1] = sum;
+      stats[3 * r + 2] = dot;
+    }
+    float acc[kLongCols];
+    weighted_rows(dw, tk, ksm, acc);
+    float* const dq = static_cast<float*>(a.dq) + qoff + static_cast<long>(r) * a.qs.row;
+#pragma unroll
+    for (int c = 0; c < kLongCols; ++c)
+      if (lane + 32 * c < hd) dq[lane + 32 * c] = acc[c] * a.dscale;
+  }
+  __syncthreads();                                 // the statistics are in
+
+  for (int c = warp; c < tk; c += kLongBwdWarps) {
+    float wd[kLongLanes], ds[kLongLanes];
+#pragma unroll
+    for (int j = 0; j < kLongLanes; ++j) {
+      const int i = lane + 32 * j;
+      wd[j] = ds[j] = 0.f;
+      if (i < tq) {
+        float l = dot_rows(qsm + i * st, ksm + c * st, st);
+        if (bias_h) l += bias_h[i * tk + c];
+        const float w = expf(l - stats[3 * i]) / stats[3 * i + 1];
+        float d = dot_rows(gsm + i * st, vsm + c * st, st);
+        wd[j] = w;
+        if (a.drop.active()) {
+          const bool k_ = kept(i, c);
+          wd[j] = a.drop.apply(w, k_);
+          d = a.drop.apply(d, k_);
+        }
+        ds[j] = w * (d - stats[3 * i + 2]);
+      }
+    }
+    float dk[kLongCols], dv[kLongCols];
+    weighted_rows(ds, tq, qsm, dk);
+    weighted_rows(wd, tq, gsm, dv);
+    float* const dkr = static_cast<float*>(a.dk) + koff + static_cast<long>(c) * a.ks.row;
+    float* const dvr = static_cast<float*>(a.dv) + voff + static_cast<long>(c) * a.vs.row;
+#pragma unroll
+    for (int cc = 0; cc < kLongCols; ++cc)
+      if (lane + 32 * cc < hd) {
+        dkr[lane + 32 * cc] = dk[cc];
+        dvr[lane + 32 * cc] = dv[cc];
+      }
+  }
+}
+
+// Dynamic shared memory of the long backward: q, g, k, v of a head and the
+// statistics (ops/attention_core.py's limits keep it within a block's).
+inline long long_bwd_bytes(int tq, int tk, int depth, int dtype) {
+  const long rows = 2L * (tq + tk);
+  return (dtype == 1 ? rows * long_stride(depth) * 2 : rows * row_stride(depth) * 4) +
+         12L * tq;
+}
+
+int launch_long_bwd(const LongArgs& a, int dtype, void* dbias, cudaStream_t stream) {
+  using Kernel = void (*)(const LongArgs);
+  static const Kernel kernels[2][2] = {
+      {&attention_core_long_bwd_kernel<2, false>, &attention_core_long_bwd_kernel<2, true>},
+      {&attention_core_long_bwd_kernel<kLongTokens / 16, false>,
+       &attention_core_long_bwd_kernel<kLongTokens / 16, true>}};
+  const Kernel kernel =
+      dtype == 0 ? &attention_core_long_bwd_fma_kernel : kernels[a.tk > 32][a.depth % 2 == 0];
+  const int smem = static_cast<int>(long_bwd_bytes(a.tq, a.tk, a.depth, dtype));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.batch * a.heads, kLongBwdWarps * 32, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !a.dl) return err;
+  return launch_bias_grad(a.dl, dbias, a.batch, a.heads, a.tq, a.tk, a.bias_heads, stream);
+}
+
+// Whether the short routes (FMA, mma) take the token counts and the width.
+bool short_takes(int tq, int tk, int depth) {
+  return tq <= kMaxTokens && tk <= kMaxTokens && depth <= kMaxDepth;
+}
+
+// A shape or argument no route takes; route: 0 FMA, 1 mma, 2 long. Each of
+// q, k, v (and g) in layout 0 or 1; layout 1 on the mma and long routes only.
 bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias,
-               int bias_heads, int dtype, const void* seed, float rate) {
-  return batch < 1 || heads < 1 || tq < 1 || tq > kMaxTokens || tk < 1 ||
-         tk > kMaxTokens || depth < 1 || depth > kMaxDepth ||
+               int bias_heads, int dtype, const void* seed, float rate, int route,
+               const int* layouts, int n_layouts) {
+  if (route < 0 || route > 2) return true;
+  for (int i = 0; i < n_layouts; ++i)
+    if (layouts[i] != 0 && (layouts[i] != 1 || route == 0)) return true;
+  return batch < 1 || heads < 1 || tq < 1 || tk < 1 || depth < 1 ||
+         !(route == 2 ? long_takes(tq, tk, depth) : short_takes(tq, tk, depth)) ||
          (bias && bias_heads != 1 && bias_heads != heads) || dtype < 0 || dtype > 1 ||
          (rate > 0.f && !seed) || rate >= 1.f;
 }
@@ -1080,20 +1982,28 @@ const char* vptr_error_string(int err) {
 // dtype: 0 = float32, 1 = bfloat16. seed: device int32 (may be null when
 // rate == 0); keep_div = (float)(1 - rate). route: 0 = the FMA kernel (q,
 // k, v and out contiguous), 1 = the mma kernel (bf16; each of q, k, v in
-// layout 0 or 1 of Slice, out in q's). Returns a cudaError_t (0 =
-// launched); a route that does not take the shape is cudaErrorInvalidValue.
+// layout 0 or 1 of Slice, out in q's), 2 = the long route (Tq, Tk <= 160,
+// D <= 80; bf16 on mma.sync, f32 on the FMA units; layouts as route 1).
+// Returns a cudaError_t (0 = launched); a route that does not take the
+// shape is cudaErrorInvalidValue.
 int vptr_attention_core(const void* q, const void* k, const void* v, const void* bias,
                         void* out, int batch, int heads, int tq, int tk, int depth,
                         int bias_heads, float scale, const void* seed, float rate,
                         float keep_div, int dtype, int route, int q_layout, int k_layout,
                         int v_layout, void* stream) {
-  if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate))
+  const int layouts[3] = {q_layout, k_layout, v_layout};
+  if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate, route,
+                layouts, 3))
     return cudaErrorInvalidValue;
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int layouts[3] = {q_layout, k_layout, v_layout};
-  for (int l : layouts)
-    if (l != 0 && (l != 1 || route != 1)) return cudaErrorInvalidValue;
+  if (route == 2) {
+    const LongArgs a{q, k, v, nullptr, static_cast<const float*>(bias), out, nullptr, nullptr,
+                     nullptr, nullptr, batch, heads, tq, tk, depth, bias_heads,
+                     slice_of(q_layout, heads, tq, depth), slice_of(k_layout, heads, tk, depth),
+                     slice_of(v_layout, heads, tk, depth), Slice{0, 0}, scale, 0.f, drop};
+    return launch_long(a, dtype, s);
+  }
   if (route == 1) {
     if (!mma_takes(heads, tq, tk, depth, dtype)) return cudaErrorInvalidValue;
     const MmaArgs a{static_cast<const __nv_bfloat16*>(q),
@@ -1108,7 +2018,6 @@ int vptr_attention_core(const void* q, const void* k, const void* v, const void*
                     scale, drop};
     return launch_mma(a, s);
   }
-  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, bias, out, batch, heads, tq, tk, depth, bias_heads,
                          scale, drop, s);
@@ -1121,21 +2030,29 @@ int vptr_attention_core(const void* q, const void* k, const void* v, const void*
 // gradient. scale multiplies q (in T), dscale the dq sums (f32). route: 0 =
 // the FMA kernel (every operand contiguous), 1 = the mma kernel (bf16; each
 // of q, k, v, g in layout 0 or 1 of Slice; dq in q's layout, dk in k's, dv
-// in v's). A route that does not take the shape is cudaErrorInvalidValue.
+// in v's), 2 = the long route (layouts as route 1). A route that does not
+// take the shape is cudaErrorInvalidValue.
 int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const void* bias,
                             const void* g, void* dq, void* dk, void* dv, void* dl,
                             void* dbias, int batch, int heads, int tq, int tk, int depth,
                             int bias_heads, float scale, float dscale, const void* seed,
                             float rate, float keep_div, int dtype, int route, int q_layout,
                             int k_layout, int v_layout, int g_layout, void* stream) {
-  if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate) ||
+  const int layouts[4] = {q_layout, k_layout, v_layout, g_layout};
+  if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate, route,
+                layouts, 4) ||
       (dl && (!bias || !dbias)))
     return cudaErrorInvalidValue;
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int layouts[4] = {q_layout, k_layout, v_layout, g_layout};
-  for (int l : layouts)
-    if (l != 0 && (l != 1 || route != 1)) return cudaErrorInvalidValue;
+  if (route == 2) {
+    const LongArgs a{q, k, v, g, static_cast<const float*>(bias), nullptr, dq, dk, dv,
+                     static_cast<float*>(dl), batch, heads, tq, tk, depth, bias_heads,
+                     slice_of(q_layout, heads, tq, depth), slice_of(k_layout, heads, tk, depth),
+                     slice_of(v_layout, heads, tk, depth), slice_of(g_layout, heads, tq, depth),
+                     scale, dscale, drop};
+    return launch_long_bwd(a, dtype, dbias, s);
+  }
   if (route == 1) {
     if (!mma_bwd_takes(heads, tq, tk, depth, dtype)) return cudaErrorInvalidValue;
     const MmaBwdArgs a{static_cast<const __nv_bfloat16*>(q),
@@ -1155,7 +2072,6 @@ int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const v
                        scale, dscale, drop};
     return launch_bwd_mma(a, dbias, s);
   }
-  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads, tq,
                              tk, depth, bias_heads, scale, dscale, drop, s);
@@ -1163,10 +2079,12 @@ int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const v
                                    tq, tk, depth, bias_heads, scale, dscale, drop, s);
 }
 
-// The backward route the library takes for the shape: 1 = mma, 0 = FMA
-// (what ops/attention_core.py::backward_route names, for the tests).
+// The backward route the library takes for the shape: 1 = mma, 0 = FMA,
+// 2 = long, -1 = none (what ops/attention_core.py::backward_route names,
+// for the tests).
 int vptr_attention_core_bwd_route(int heads, int tq, int tk, int depth, int dtype) {
-  return mma_bwd_takes(heads, tq, tk, depth, dtype) ? 1 : 0;
+  if (short_takes(tq, tk, depth)) return mma_bwd_takes(heads, tq, tk, depth, dtype) ? 1 : 0;
+  return long_takes(tq, tk, depth) ? 2 : -1;
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-"""Sinusoidal position embeddings (1D temporal, 2D window) as tensors.
+"""Sinusoidal position embeddings (1D temporal, 2D window, 3D
+spatio-temporal) as tensors.
 
-Counterpart of ``vptr_tpu/models/position.py:17-66``: the tables are built
+Counterpart of ``vptr_tpu/models/position.py:17-88``: the tables are built
 in float64 numpy (same math, DETR-style interleaved sin/cos) and handed to
-torch once; models keep them as buffers. The 3D table belongs to the NAR
-slice (TSLMA).
+torch once; models keep them as buffers. The 3D table feeds TSLMA.
 """
 
 from __future__ import annotations
@@ -52,3 +52,26 @@ def position_embedding_2d(height: int, width: int, dim: int,
     ey = np.broadcast_to(ey[:, None, :], (height, width, dim // 2))
     ex = np.broadcast_to(ex[None, :, :], (height, width, dim // 2))
     return torch.from_numpy(np.concatenate([ey, ex], axis=-1)).to(dtype)
+
+
+def position_embedding_3d(length: int, height: int, width: int, dim: int,
+                          temperature: float = 10000.0, normalize: bool = False,
+                          dtype=torch.float32) -> torch.Tensor:
+    """3D (t, y, x) embedding, shape (length, height, width, dim): channels
+    laid out (t-part, y-part, x-part), each dim // 3 wide; dim must divide
+    by 3."""
+    if dim % 3:
+        raise ValueError(f"embedding size must be divisible by 3, got {dim}")
+    d3 = dim // 3
+    t = np.arange(1, length + 1, dtype=np.float64)
+    y = np.arange(1, height + 1, dtype=np.float64)
+    x = np.arange(1, width + 1, dtype=np.float64)
+    if normalize:
+        t = t / (length + 1e-6) * (2 * math.pi)
+        y = y / (height + 1e-6) * (2 * math.pi)
+        x = x / (width + 1e-6) * (2 * math.pi)
+    shape = (length, height, width, d3)
+    et = np.broadcast_to(_sine_embed(t, d3, temperature)[:, None, None, :], shape)
+    ey = np.broadcast_to(_sine_embed(y, d3, temperature)[None, :, None, :], shape)
+    ex = np.broadcast_to(_sine_embed(x, d3, temperature)[None, None, :, :], shape)
+    return torch.from_numpy(np.concatenate([et, ey, ex], axis=-1)).to(dtype)

@@ -11,7 +11,11 @@ Counterpart of ``vptr_tpu/models/transformer.py``:
 * :class:`DecoderBlockNAR` (``:159-277``): window self-attention of the
   queries (q/k carry ``query_pos``, v does not), conv FFN, temporal
   self-attention over the Tf query frames, linear FFN, encoder-decoder
-  attention over time, second conv FFN.
+  attention over time (or, with ``tslma``, :class:`TSLMA`), second conv
+  FFN.
+* :class:`TSLMA` (``:280-308``): encoder-decoder attention within each
+  spatial window across time, Tf x win^2 query tokens over Tp x win^2
+  memory tokens, the 3D position table on both.
 * :class:`VPTRFormerNAR` (``:491-649``): encoder over the past latents,
   decoder over learned ``frame_queries``, and the NCE projector.
 
@@ -29,11 +33,12 @@ the JAX package; the NAR encoder's BatchNorm conv FFN ignores both).
 ``fused_full_temporal`` (with ``fused_attention`` and ``fused_full``)
 folds the temporal self-attention sublayer's LayerNorm into
 ``fused_attention_ln`` at T tokens (``transformer.py:134-145, 224-238``);
-the enc-dec attention stays on ``attention_core``. In train mode the
+the enc-dec attention (full temporal or TSLMA) stays on
+``attention_core``, TSLMA's at its long-sequence route. In train mode the
 attention dropout runs inside the kernels, DropPath acts on the window,
 conv-FFN (and enc-dec) branches and Dropout on the temporal and
 linear-FFN branches, all drawn from the ``generator`` passed to
-``forward``. TSLMA comes with a later slice and raises here.
+``forward``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from vptr_tpu_torch.models.layers import (
     LayerNorm,
     Mlp,
     MlpDWBN,
+    MultiHeadAttention,
     TemporalAttention,
     WindowAttention,
     _linear,
@@ -61,12 +67,15 @@ from vptr_tpu_torch.models.layers import (
 from vptr_tpu_torch.models.position import (
     position_embedding_1d,
     position_embedding_2d,
+    position_embedding_3d,
+)
+from vptr_tpu_torch.ops.window import (
+    temporal_window_partition,
+    temporal_window_reverse,
 )
 
 # config routes that need kernels or modules of a later slice
 _LATER = {
-    "tslma": "TSLMA enc-dec attention with the 3D position table "
-             "(TSLMA slice)",
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
     "scan_layers": "the stacked (scanned) parameter tree (scan_layers slice)",
     "remat": "activation checkpointing of the blocks that replays each "
@@ -218,9 +227,44 @@ class VPTRFormerFAR(nn.Module):
         return torch.relu(self.final_norm(x))
 
 
+class TSLMA(nn.Module):
+    """Temporal-spatial local multi-head attention (``transformer.py:280-308``;
+    reference VidHRFormer_modules.py:219-284): encoder-decoder attention
+    over the (T x win^2)-token sequences of each spatial window. Its one
+    ``attn`` runs without the window kernels' folding (``fused_full`` off):
+    q, k and v projections, ``attention_core`` (the kernel with
+    ``fused``), the out projection."""
+
+    def __init__(self, dim: int, num_heads: int, window: int = 4,
+                 dropout: float = 0.0, fused: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.window = window
+        self.attn = MultiHeadAttention(dim, num_heads, fused, False, dtype,
+                                       dropout)
+
+    def forward(self, memory, query, pos3d, generator=None):
+        """memory: (N, T1, h, w, C), query: (N, T2, h, w, C), pos3d: (T1 +
+        T2, win, win, C) (keys take its first T1 frames, queries the rest,
+        each cast to the activations' dtype). Returns (N, T2, h, w, C)."""
+        t1 = memory.shape[1]
+        t2, h, w, c = query.shape[1:]
+        win2 = self.window * self.window
+        mem_w = temporal_window_partition(memory, self.window)
+        qry_w = temporal_window_partition(query, self.window)
+        pos = pos3d.reshape(t1 + t2, win2, c)
+        pos_k = pos[:t1].reshape(1, t1 * win2, c).to(mem_w.dtype)
+        pos_q = pos[t1:t1 + t2].reshape(1, t2 * win2, c).to(qry_w.dtype)
+        out = self.attn(qry_w + pos_q, mem_w + pos_k, mem_w, generator=generator)
+        return temporal_window_reverse(out, self.window, t2, (h, w))
+
+
 class DecoderBlockNAR(nn.Module):
-    """VidHRFormerBlockDecNAR with full temporal enc-dec attention
-    (``transformer.py:159-277``; reference VidHRFormer_modules.py:125-211).
+    """VidHRFormerBlockDecNAR (``transformer.py:159-277``; reference
+    VidHRFormer_modules.py:125-211) with full temporal enc-dec attention
+    (``enc_dec``) or, with ``tslma``, :class:`TSLMA` in its place (a
+    ``tslma`` child instead of ``enc_dec``, as flax creates only the one it
+    calls; it takes the block's ``dropout``, not ``attn_dropout``).
     ``fused_residual`` is accepted and unused, as in the JAX package: the
     window self-attention's value differs from its q/k input."""
 
@@ -237,7 +281,7 @@ class DecoderBlockNAR(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         del fused_residual
-        _refuse_later(tslma=tslma, sequence_parallel=sequence_parallel)
+        _refuse_later(sequence_parallel=sequence_parallel)
         attn_drop = dropout if attn_dropout is None else attn_dropout
         conv_ffn = lambda: MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
                                    "layer", dtype, dropout, fused_dw,
@@ -255,17 +299,22 @@ class DecoderBlockNAR(nn.Module):
         self.norm4 = LayerNorm(dim, dtype=dtype)
         self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.norm5 = LayerNorm(dim, dtype=dtype)
-        self.enc_dec = temporal(False)
+        self.use_tslma = tslma
+        if tslma:
+            self.tslma = TSLMA(dim, num_heads, window, dropout, fused_attention,
+                               dtype)
+        else:
+            self.enc_dec = temporal(False)
         self.norm6 = LayerNorm(dim, dtype=dtype)
         self.spatial_ffn2 = conv_ffn()
         self.drop_path = DropPath(drop_path)
         self.drop = Dropout(dropout)
 
     def forward(self, tgt, query_pos, memory, pos2d, pos_t_future, pos_t_past,
-                generator=None):
+                pos3d=None, generator=None):
         """tgt, query_pos: (N, Tf, h, w, C); memory: (N, Tp, h, w, C);
         pos_t_future (Tf, C) and pos_t_past (Tp, C) go on the enc-dec
-        queries and keys."""
+        queries and keys; ``pos3d`` (Tp + Tf, win, win, C) on TSLMA's."""
         dp = lambda y: self.drop_path(y, generator)
         drop = lambda y: self.drop(y, generator)
         # 1) window self-attention: q/k carry query_pos, the value does not
@@ -276,9 +325,13 @@ class DecoderBlockNAR(nn.Module):
         tgt = tgt + drop(_temporal(self.temporal, self.norm3, tgt, pos_t_future,
                                    generator))
         tgt = tgt + drop(_ffn(self.ffn, self.norm4, tgt, generator))
-        # 5) encoder-decoder attention over time at each location
-        y = self.enc_dec(self.norm5(tgt) + query_pos, pos_t_future, generator,
-                         kv=memory, pos_k=pos_t_past)
+        # 5) encoder-decoder attention: TSLMA over space-time windows, or
+        #    over time at each location
+        if self.use_tslma:
+            y = self.tslma(memory, self.norm5(tgt) + query_pos, pos3d, generator)
+        else:
+            y = self.enc_dec(self.norm5(tgt) + query_pos, pos_t_future, generator,
+                             kv=memory, pos_k=pos_t_past)
         tgt = tgt + dp(y)
         return tgt + dp(self.spatial_ffn2(self.norm6(tgt), generator))
 
@@ -302,7 +355,6 @@ class VPTRFormerNAR(nn.Module):
         """``routes``: the kernel-route flags of :class:`EncoderBlock`
         (``fused_attention``, ``fused_full``, ...)."""
         super().__init__()
-        _refuse_later(tslma=tslma)
         self.enc_h, self.enc_w, self.dtype = enc_h, enc_w, dtype
         self.num_future_frames = num_future_frames
         self.t_max = num_past_frames + num_future_frames
@@ -332,6 +384,10 @@ class VPTRFormerNAR(nn.Module):
                 window * window, d_model), persistent=False)
         self.register_buffer("pos_t", position_embedding_1d(self.t_max, d_model),
                              persistent=False)
+        # TSLMA's (t, y, x) table over the Tp + Tf frames (transformer.py:606-607)
+        self.register_buffer("pos3d", position_embedding_3d(
+            self.t_max, window, window, d_model) if tslma else None,
+            persistent=False)
 
     def forward(self, past_feats, generator: Optional[torch.Generator] = None):
         """``generator``: the source of every training draw; needed in train
@@ -357,7 +413,7 @@ class VPTRFormerNAR(nn.Module):
         for i in range(self.num_decoder_layers):
             tgt = getattr(self, f"dec_block{i}")(
                 tgt, query_pos, memory, self.pos2d, pos_future, pos_past,
-                generator)
+                self.pos3d, generator)
         return torch.relu(self.dec_norm(tgt))
 
     def nce_project(self, feats):
@@ -407,8 +463,7 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
     device = resolve_device(device)
     if cfg.variant not in ("far", "nar"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat,
-                  tslma=cfg.variant == "nar" and cfg.tslma)
+    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat)
     if cfg.d_model % cfg.n_heads:
         raise ValueError(f"d_model {cfg.d_model} is not divisible by "
                          f"{cfg.n_heads} heads")

@@ -1,4 +1,4 @@
-"""Attention core for short sequences: dropout(softmax(q k^T * D^-1/2 + bias)) v.
+"""Attention core: dropout(softmax(q k^T * D^-1/2 + bias)) v.
 
 Counterpart of ``vptr_tpu/ops/attention_core.py::attention_core``: the TPU
 kernels ``_core_forward`` (``pl.pallas_call`` at :188) and ``_core_backward``
@@ -6,18 +6,23 @@ kernels ``_core_forward`` (``pl.pallas_call`` at :188) and ``_core_backward``
 ``csrc/attention_core.cu`` (CUDA C++ for sm_90a); its source note says what
 bounds each on the card and what its design does about that.
 
-* The forward has two routes, named by :func:`kernel_route` from the
-  shapes: "mma" (bf16: a batch element a block, q k^T and P v on the
-  tensor cores) and "fma" (f32, and the bf16 shapes "mma" does not take).
-* The backward has two routes, named by :func:`backward_route`: "mma"
-  (bf16: a batch element a block, dq, dk and dv on the tensor cores) and
-  "fma" (f32, and the bf16 shapes "mma" does not take).
+* The forward has three routes, named by :func:`kernel_route` from the
+  shapes. At Tq, Tk <= 32: "mma" (bf16: a batch element a block, q k^T
+  and P v on the tensor cores) and "fma" (f32, and the bf16 shapes "mma"
+  does not take). Past 32 tokens, up to Tq, Tk <= 160 with D <= 80:
+  "long" (TSLMA's space-time windows: a head of a batch element a block,
+  bf16 on the tensor cores, f32 on the FMA units).
+* The backward has the same three, named by :func:`backward_route`:
+  "mma" (bf16: a batch element a block, dq, dk and dv on the tensor
+  cores), "fma" and "long" (a head a block: a pass over query strips for
+  dq, then one over key strips for dk and dv).
 * q, k, v (and the backward's g) may each be contiguous (B, H, T, D) or
   the (B, H, T, D) view of a contiguous (B, T, H*D) tensor, the layout of
   the attention layer's projections (``heads()`` in ``models/layers.py``);
   the output has q's layout, and dq, dk, dv have q's, k's and v's. The
   "fma" kernels read and write contiguous rows, so on those routes the
-  wrapper copies a strided operand first (and a result back).
+  wrapper copies a strided operand first (and a result back); the "mma"
+  and "long" routes read and write both layouts.
 
 * :func:`attention_core` is the wrapper, a ``torch.autograd.Function``. A
   CUDA tensor launches the kernels (or raises); a CPU tensor takes
@@ -25,7 +30,9 @@ bounds each on the card and what its design does about that.
   :func:`attention_core_backward_plain` backward, the same functions in
   plain PyTorch with the same rounding points.
 * ``attention_core.launches`` counts forward kernel launches and
-  ``attention_core.bwd_launches`` backward kernel launches, nothing else.
+  ``attention_core.bwd_launches`` backward kernel launches, nothing else;
+  ``attention_core.launches_by_route`` and ``bwd_launches_by_route`` split
+  them by route.
 * Attention-weight dropout is the counter hash of ``ops/dropout.py``: the
   backward regenerates the forward's mask from the seed. ``seed`` is an
   int32, as a Python int or a one-element int32 tensor on the operands'
@@ -46,17 +53,25 @@ import torch
 from vptr_tpu_torch.ops import _build
 from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dropout_keep_mask
 
-MAX_TOKENS = 32
+MAX_TOKENS = 32            # the short routes ("mma", "fma")
 MAX_DEPTH = 128
+LONG_TOKENS = 160          # the long route
+LONG_DEPTH = 80
 MAX_SMEM = 232448          # dynamic shared memory of a block on the H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"fma": 0, "mma": 1}
+_ROUTES = {"fma": 0, "mma": 1, "long": 2}
 
 
-def _check_tokens(tq: int, tk: int, depth: int) -> None:
-    if not (tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH):
-        raise ValueError(f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} "
-                         f"and D <= {MAX_DEPTH}, got Tq={tq} Tk={tk} D={depth}")
+def _is_long(tq: int, tk: int, depth: int) -> bool:
+    """Whether the shape takes the long route; raises past its reach."""
+    if tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH:
+        return False
+    if tq <= LONG_TOKENS and tk <= LONG_TOKENS and depth <= LONG_DEPTH:
+        return True
+    raise ValueError(
+        f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} with D <= {MAX_DEPTH}, "
+        f"or Tq, Tk <= {LONG_TOKENS} with D <= {LONG_DEPTH} (the long route), got "
+        f"Tq={tq} Tk={tk} D={depth}")
 
 
 def _whole_vectors(heads: int, tq: int, tk: int, depth: int) -> bool:
@@ -67,13 +82,15 @@ def _whole_vectors(heads: int, tq: int, tk: int, depth: int) -> bool:
 
 def kernel_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
                  depth: int) -> str:
-    """The forward kernel that takes (B, ``heads``, Tq, D) attention: "mma"
-    for bf16 where each batch element's q and k/v slices are whole 16-byte
-    vectors and q, k and v of one element fit a block's shared memory
-    (with its 8-byte barrier); "fma" otherwise. Both layouts keep an
-    element's slice contiguous, so the layout does not enter. Raises
-    beyond Tq, Tk <= 32 and D <= 128."""
-    _check_tokens(tq, tk, depth)
+    """The forward kernel that takes (B, ``heads``, Tq, D) attention: "long"
+    past 32 tokens (up to Tq, Tk <= 160 with D <= 80, either dtype); at Tq,
+    Tk <= 32 and D <= 128 "mma" for bf16 where each batch element's q and
+    k/v slices are whole 16-byte vectors and q, k and v of one element fit
+    a block's shared memory (with its 8-byte barrier), "fma" otherwise.
+    Both layouts keep an element's slice contiguous, so the layout does not
+    enter. Raises past the long route's reach."""
+    if _is_long(tq, tk, depth):
+        return "long"
     if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
             and 2 * heads * (tq + 2 * tk) * depth + 8 <= MAX_SMEM):
         return "mma"
@@ -82,12 +99,15 @@ def kernel_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
 
 def backward_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
                    depth: int) -> str:
-    """The backward kernel that takes (B, ``heads``, Tq, D) attention: "mma"
+    """The backward kernel that takes (B, ``heads``, Tq, D) attention:
+    "long" past 32 tokens, as :func:`kernel_route`; at Tq, Tk <= 32 "mma"
     where the forward's vector conditions hold and q, k, v and g of one
-    batch element fit a block's shared memory (with its two 8-byte barriers);
-    "fma" otherwise (the library's ``vptr_attention_core_bwd_route`` says
-    the same). Raises beyond Tq, Tk <= 32 and D <= 128."""
-    _check_tokens(tq, tk, depth)
+    batch element fit a block's shared memory (with its two 8-byte
+    barriers), "fma" otherwise (the library's
+    ``vptr_attention_core_bwd_route`` says the same). Raises past the long
+    route's reach."""
+    if _is_long(tq, tk, depth):
+        return "long"
     if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
             and 4 * heads * (tq + tk) * depth + 16 <= MAX_SMEM):
         return "mma"
@@ -207,8 +227,9 @@ class _AttentionCore(torch.autograd.Function):
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, seed: Seed = 0,
                    dropout_rate: float = 0.0) -> torch.Tensor:
-    """q: (B, H, Tq, D), k/v: (B, H, Tk, D), Tq/Tk <= 32, D <= 128, each
-    contiguous or the (B, H, T, D) view of a contiguous (B, T, H*D);
+    """q: (B, H, Tq, D), k/v: (B, H, Tk, D) (on the card Tq, Tk <= 32 with
+    D <= 128, or Tq, Tk <= 160 with D <= 80), each contiguous or the (B, H,
+    T, D) view of a contiguous (B, T, H*D);
     ``bias``: None or (1 | H, Tq, Tk) additive logits (a causal mask as
     -1e30). Returns (B, H, Tq, D) in q's dtype (on the card in q's
     layout); differentiable in q, k, v and bias."""
@@ -223,6 +244,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_core.launches = 0
 attention_core.bwd_launches = 0
+attention_core.launches_by_route = dict.fromkeys(_ROUTES, 0)
+attention_core.bwd_launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
@@ -251,7 +274,7 @@ def _check(q, k, v, bias):
     if k.shape != (b, h, tk, d) or v.shape != k.shape:
         raise ValueError(f"attention_core: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
-    _check_tokens(tq, tk, d)
+    _is_long(tq, tk, d)                  # raises past the long route's reach
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention_core kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -294,6 +317,7 @@ def _forward_kernel(q, k, v, bias, seed, rate):
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"attention_core ({route} route)")
     attention_core.launches += 1
+    attention_core.launches_by_route[route] += 1
     if res is not out:
         out.copy_(res)
     return out
@@ -331,6 +355,7 @@ def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"attention_core backward ({route} route)")
     attention_core.bwd_launches += 1
+    attention_core.bwd_launches_by_route[route] += 1
     for out, r in zip(grads, res):
         if r is not out:
             out.copy_(r)

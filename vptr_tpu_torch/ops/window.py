@@ -1,9 +1,9 @@
 """Window partitioning for local spatial attention, on (..., H, W, C) tensors.
 
-Counterpart of ``vptr_tpu/ops/window.py:18-70``: static reshape/permutes
+Counterpart of ``vptr_tpu/ops/window.py:18-90``: static reshape/permutes
 with the same token and window order (row-major (ph, pw) inside a window,
-row-major (qh, qw) over windows, batch leading). The temporal (TSLMA)
-partition belongs to the NAR slice.
+row-major (qh, qw) over windows, batch leading), and the temporal (TSLMA)
+partition that gathers one spatial window's tokens over every frame.
 """
 
 from __future__ import annotations
@@ -60,3 +60,29 @@ def window_reverse(x: torch.Tensor, window: int,
     x = x.reshape(b, nh, nw, window, window, c)
     x = x.permute(0, 1, 3, 2, 4, 5)  # (b, nh, ph, nw, pw, c)
     return x.reshape(b, h, w, c)
+
+
+def temporal_window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B * nWh * nWw, T * window * window, C): each
+    spatial window's tokens over all T frames as one sequence, ordered
+    (t, ph, pw), batch-major. H and W must divide by ``window``."""
+    b, t, h, w, c = x.shape
+    if h % window or w % window:
+        raise ValueError(f"({h}, {w}) is not a multiple of the window {window}")
+    nh, nw = h // window, w // window
+    x = x.reshape(b, t, nh, window, nw, window, c)
+    x = x.permute(0, 2, 4, 1, 3, 5, 6)  # (b, nh, nw, t, ph, pw, c)
+    return x.reshape(b * nh * nw, t * window * window, c)
+
+
+def temporal_window_reverse(x: torch.Tensor, window: int, t: int,
+                            hw: Tuple[int, int]) -> torch.Tensor:
+    """Inverse of :func:`temporal_window_partition`: (B*nW, T*win*win, C) ->
+    (B, T, H, W, C)."""
+    h, w = hw
+    nh, nw = h // window, w // window
+    b = x.shape[0] // (nh * nw)
+    c = x.shape[-1]
+    x = x.reshape(b, nh, nw, t, window, window, c)
+    x = x.permute(0, 3, 1, 4, 2, 5, 6)  # (b, t, nh, ph, nw, pw, c)
+    return x.reshape(b, t, h, w, c)
