@@ -175,7 +175,38 @@ Phases (any failure exits non-zero, without the final result line):
    finite;
 31. the TSLMA predict and train step against nar_mnist's full temporal
    enc-dec attention (same preset, tslma off), in turns: ms, frames/s;
-32. print {"kernels": [...]} (all twelve kernels; #1/#3 also at the
+32. data parallelism (vptr_tpu_torch.parallel) at far_bair_dp full width:
+   NCCL up at W = the machine's cards (each rank a process of this file
+   with --dp-worker, told its rank as torchrun tells it), an all-reduce of
+   the far_bair_dp transformer's gradient bytes (its exact f32 parameter
+   count) checked and, at W > 1 only, timed, with its algorithm and bus
+   bandwidth (at W = 1 NCCL moves nothing: no time is read);
+33. far_bair_dp (d_model 528, 12 layers, 8 heads, bf16) on the synthetic
+   BAIR-shaped loader: the one-rank train step at the preset's global
+   batch 64 (halved until it fits, with the memory peak said), every
+   counter at 0 just before and read just after (#1-#4 12 launches each),
+   its ms (median of 8 after 2 warm-ups), training frames/s (64 x 11
+   teacher-forced frames a step) and memory peak; the DropPath / Dropout
+   masks of one step (recorded, then drawn alone: what every rank draws
+   at the global shape);
+34. two ranks (two cards over NCCL where the machine has them, else two
+   processes on the one card over gloo, labelled so): one far_bair_dp step
+   at global batch 16 from the seeded init, every counter at 0 just
+   before each rank's first step (#1-#4 12 launches each on each rank),
+   against the one-rank step at 16: the averaged gradients within 2^-5 as
+   one vector and 2^-2 leaf by leaf (L2), grad_norm within 5%, T_total
+   within 2e-3, the parameters within lr/4 where the two gradients share a
+   sign by a margin and 2 lr anywhere, bit-equal across the ranks; the
+   step's ms and the gradient all-reduce's share of it; with more than two
+   cards the same at W = the cards and the preset's batch 64;
+35. `torchrun --standalone --nproc_per_node=<cards> -m vptr_tpu_torch.cli
+   train --preset far_bair_dp` (3 steps and a validation pass) on the
+   autoencoder of a 2-step `cli train --preset ae_bair`, then `cli eval
+   --mode far_rip --num-pred 10 --max-batches 1` on that checkpoint: exit
+   codes 0, rank 0's checkpoint, log and scalars, finite losses and
+   curves, in a temporary directory removed at the end;
+36. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+   launches in one far_bair_dp step, `far_bair_dp_launches`; #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
    and resident clusters; #2 and #4 timed in the layer's strided layout,
    their library yardsticks too, with the route, the contiguous-layout
@@ -2113,6 +2144,468 @@ def tslma_phases(dev):
     return rows, extra, summary
 
 
+# ---------------------------------------------------------------- data parallel
+
+DP_PRESET = "far_bair_dp"
+DP_STEP_BATCH = 16            # phase 34's global batch
+DP_CLI_STEPS = 3              # phase 35's cli train steps
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(job: str, world: int, backend: str, out_dir, one_card: bool,
+                 timeout: float = 600):
+    """``world`` processes of ``python3 chip_smoke.py --dp-worker <job>``
+    (this file), each told its rank as torchrun would tell it; on
+    ``one_card`` every rank's LOCAL_RANK is card 0. Waits for all (killing
+    any left at the time limit) and returns [(exit code, output tail,
+    result dict or None)] by rank."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    for r in range(world):       # no result of an earlier launch is read as this one's
+        (out_dir / f"{job}.rank{r}.json").unlink(missing_ok=True)
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(world),
+           "PYTHONPATH": os.pathsep.join([root] + ([os.environ["PYTHONPATH"]]
+                                                   if os.environ.get("PYTHONPATH") else []))}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-worker", job, backend,
+         str(out_dir)], env={**env, "RANK": str(r), "LOCAL_RANK": "0" if one_card else str(r)},
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[killed at the time limit]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        path = out_dir / f"{job}.rank{r}.json"
+        results.append((p.returncode, out[-3000:],
+                        json.loads(path.read_text()) if path.is_file() else None))
+    return results
+
+
+def _ranks_ok(results, what) -> bool:
+    ok = all(rc == 0 and res is not None for rc, _, res in results)
+    check(ok, f"{what}: every rank exited 0 with a result")
+    if not ok:
+        for r, (rc, out, _) in enumerate(results):
+            print(f"  rank {r} exit {rc}:\n{out}")
+    return ok
+
+
+def _worker_allreduce(out_dir):
+    """Phase 32 on each rank: an NCCL all-reduce of the FAR transformer's
+    gradient bytes (f32), the sum checked; timed with CUDA events at W > 1
+    only (at W = 1 NCCL moves nothing, so there is no time to read)."""
+    import torch.distributed as dist
+
+    from vptr_tpu_torch.parallel import host_id, num_hosts
+
+    n = json.loads((out_dir / "args.json").read_text())["n_params"]
+    w, r = num_hosts(), host_id()
+    buf = torch.full((n,), float(r + 1), device="cuda")
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    want = w * (w + 1) / 2
+    correct = bool((buf == want).all())
+    ms = cuda_ms(lambda: dist.all_reduce(buf), iters=10, warmup=3) if w > 1 else None
+    return {"backend": dist.get_backend(), "world": w, "n": n, "sum_correct": correct,
+            "ms": ms, "card": torch.cuda.get_device_name()}
+
+
+# A key projection's bias has a zero gradient in exact arithmetic: it adds
+# q·b to every logit of a query's row, which the softmax does not see. What
+# either run computes there is rounding noise, so the leaf-by-leaf check
+# leaves these leaves out (the whole-vector check keeps them).
+ZERO_GRAD_LEAF = "k_proj.bias"
+
+
+def _against_one_rank(named, ref, lr):
+    """Rank 0's step against the one-rank step at the same global batch
+    (``ref``: its parameters and gradients by name): the averaged gradients
+    as one vector and leaf by leaf, |g_W - g_1| / |g_1|; the parameters,
+    the largest gap anywhere, and where |g_1| > 2 |g_W - g_1| (there the two
+    gradients have one sign, so two first AdamW steps, lr·g / (|g| + eps),
+    are less than 0.18 lr apart)."""
+    rels, p_err, p_err_firm, firm_leaf = {}, 0.0, 0.0, ""
+    d2 = n2 = 0.0
+    for name, p in named.items():
+        g1 = ref["grads"][name].to(p.device)
+        diff = p.grad.float() - g1
+        dn, gn = float(diff.square().sum()), float(g1.square().sum())
+        d2, n2 = d2 + dn, n2 + gn
+        gap = (p.detach().float() - ref["params"][name].to(p.device)).abs()
+        p_err = max(p_err, float(gap.max()))
+        firm = g1.abs() > 2 * diff.abs()
+        if bool(firm.any()) and float(gap[firm].max()) > p_err_firm:
+            p_err_firm, firm_leaf = float(gap[firm].max()), name
+        if not name.endswith(ZERO_GRAD_LEAF):
+            rels[name] = (dn / gn) ** 0.5 if gn > 0 else (0.0 if dn == 0 else float("inf"))
+    worst = sorted(rels, key=rels.get, reverse=True)[:3]
+    return {"grad_rel_err": rels[worst[0]], "grad_worst_leaves": {n: rels[n] for n in worst},
+            "grad_vector_rel_err": (d2 / n2) ** 0.5, "lr": lr,
+            "max_abs_err_vs_one_rank": p_err, "firm_param_err": p_err_firm,
+            "firm_param_leaf": firm_leaf}
+
+
+def _worker_step(out_dir):
+    """Phase 34 on each rank: far_bair_dp's Trainer at the global batch
+    DP_STEP_BATCH, one train step on the rank's rows of the saved batch
+    with every launch counter at 0 just before it, its parameters against
+    rank 0's (broadcast) and, on rank 0, its averaged gradients and
+    parameters against the one-rank step's; then the step's and the
+    gradient all-reduce's times."""
+    import torch.distributed as dist
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.parallel import all_reduce_grads, host_id, num_hosts
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    args = json.loads((out_dir / "args.json").read_text())
+    cfg = get_preset(DP_PRESET).override({"data": {"batch_size": args["batch"]}})
+    tr = Trainer(cfg, write_outputs=False)
+    state = tr.init_state()
+    batch = torch.load(out_dir / "batch.pt")
+    w, r = num_hosts(), host_id()
+    rows = slice(r * args["batch"] // w, (r + 1) * args["batch"] // w)
+    past, future = tr.put_batch(batch["past"][rows].numpy(), batch["future"][rows].numpy())
+    zero_counters()
+    state, m = tr.train_step(state, past, future)
+    torch.cuda.synchronize()
+    launches = launch_counts("fused_attention_ln", "attention_core",
+                             "fused_attention_ln_bwd", "attention_core_bwd")
+    named = dict(state.transformer.named_parameters())
+    flat = torch.cat([p.detach().float().reshape(-1) for p in named.values()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    same = torch.tensor([float(torch.equal(flat, theirs))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    out = {"backend": dist.get_backend(), "world": w, "local_rows": past.shape[0],
+           "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
+           "bit_equal_across_ranks": bool(same.item() == 1.0)}
+    del flat, theirs
+    if r == 0:
+        out.update(_against_one_rank(named, torch.load(out_dir / "ref.pt"), cfg.optim.lr))
+    for _ in range(WARMUP_STEPS):
+        state, _ = tr.train_step(state, past, future)
+    step_ms = statistics.median(
+        [host_ms(lambda: tr.train_step(state, past, future)) for _ in range(TIMED_STEPS)])
+    params = state.params()
+    ar_ms = statistics.median([host_ms(lambda: all_reduce_grads(params))
+                               for _ in range(TIMED_STEPS)])
+    out.update(step_ms=step_ms, all_reduce_ms=ar_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def dp_worker(argv) -> int:
+    """``python3 chip_smoke.py --dp-worker <job> <backend> <dir>``: one rank
+    of phase 32 or 34, launched by :func:`launch_ranks`; writes
+    ``<dir>/<job>.rank<r>.json``."""
+    from pathlib import Path
+
+    from vptr_tpu_torch.parallel import destroy_distributed, host_id, init_distributed
+
+    job, backend, out_dir = argv[0], argv[1], Path(argv[2])
+    if not init_distributed("cuda", backend=backend):
+        print("dp worker: no process group in the environment", file=sys.stderr)
+        return 1
+    try:
+        result = {"allreduce": _worker_allreduce, "step": _worker_step}[job](out_dir)
+        (out_dir / f"{job}.rank{host_id()}.json").write_text(json.dumps(result))
+    finally:
+        destroy_distributed()
+    return 0
+
+
+def dp_phases(dev, card):
+    """Phases 32-35: data parallelism (vptr_tpu_torch.parallel) and
+    far_bair_dp at full width. Returns (the summary line, extra readings,
+    far_bair_dp's launches of #1-#4 in one train step)."""
+    import os
+    import shutil
+    import tempfile
+    from contextlib import closing
+    from pathlib import Path
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+    from vptr_tpu_torch.models import layers
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    cards = torch.cuda.device_count()
+    cfg = get_preset(DP_PRESET)
+    tc, dc = cfg.transformer, cfg.data
+    extra = {"cards": cards, "card": card}
+    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_dp_"))
+    try:
+        phase(f"32. NCCL at W = {cards} (the machine's cards): an all-reduce of the "
+              f"{DP_PRESET} transformer's gradient bytes")
+        n_params = sum(p.numel() for p in build_transformer(tc, torch.bfloat16, "cpu")
+                       .parameters())
+        (root / "args.json").write_text(json.dumps({"n_params": n_params}))
+        res = launch_ranks("allreduce", cards, "nccl", root, one_card=False)
+        if _ranks_ok(res, f"NCCL all-reduce at W = {cards}"):
+            a = res[0][2]
+            nbytes = 4 * n_params
+            check(all(x[2]["sum_correct"] for x in res),
+                  f"all-reduce of {n_params} f32 values sums the {cards} ranks")
+            check(a["backend"] == "nccl", f"backend {a['backend']} == nccl")
+            extra.update(allreduce_params=n_params)
+            if cards == 1:
+                print(f"  {card}: NCCL up at W = 1, {n_params} f32 parameters "
+                      f"({nbytes / 2 ** 20:.1f} MiB) summed right; no time or bandwidth "
+                      f"measured (NCCL moves nothing at W = 1)")
+            else:
+                alg = nbytes / a["ms"] / 1e6                  # GB/s
+                bus = alg * 2 * (cards - 1) / cards
+                print(f"  {card}: {n_params} f32 parameters ({nbytes / 2 ** 20:.1f} MiB), "
+                      f"all-reduce {a['ms']:.3f} ms at W = {cards}: algorithm bandwidth "
+                      f"{alg:.1f} GB/s, bus bandwidth {bus:.1f} GB/s (2 (W-1)/W of it)")
+                extra.update(allreduce_ms=a["ms"], allreduce_algbw_gbs=alg,
+                             allreduce_busbw_gbs=bus)
+
+        phase(f"33. {DP_PRESET} at full width (d_model {tc.d_model}, "
+              f"{tc.num_encoder_layers} layers, {tc.n_heads} heads, {cfg.dtype}) on the "
+              f"synthetic BAIR-shaped loader: the one-rank train step")
+        loader = build_loader(dc, split="train", seed=cfg.seed)
+        with closing(iter(loader)) as it:
+            past_np, future_np = next(it)
+        t_tf = dc.num_past_frames + dc.num_future_frames - 1
+        want = {k: tc.num_encoder_layers for k in (
+            "fused_attention_ln", "attention_core", "fused_attention_ln_bwd",
+            "attention_core_bwd")}
+        launches, batch = None, dc.batch_size
+        while batch >= 8:
+            trainer = state = None
+            try:
+                trainer = Trainer(cfg.override({"data": {"batch_size": batch}}),
+                                  write_outputs=False)
+                state = trainer.init_state()
+                past, future = trainer.put_batch(past_np[:batch], future_np[:batch])
+                torch.cuda.reset_peak_memory_stats()
+                state, launches = counted_step(trainer.train_step, state, past, future,
+                                               want, f"{DP_PRESET} train step")
+                for _ in range(WARMUP_STEPS):
+                    state, _ = trainer.train_step(state, past, future)
+                times = [host_ms(lambda: trainer.train_step(state, past, future))
+                         for _ in range(TIMED_STEPS)]
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"  batch {batch} does not fit one card: "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB allocated "
+                      f"at the peak; halving it")
+                del trainer, state
+                gc.collect()
+                torch.cuda.empty_cache()
+                batch //= 2
+        check(launches is not None, f"{DP_PRESET} train step fits one card at batch >= 8")
+        if launches is None:
+            return "", extra, None
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        frames = batch * t_tf
+        print(f"  {card}: batch {batch} (the preset's {dc.batch_size}) x {t_tf} "
+              f"teacher-forced frames of {dc.img_size}x{dc.img_size}x{dc.img_channels}: "
+              f"median {step_ms:.3f} ms of {len(times)} ({[round(t, 3) for t in times]}), "
+              f"{frames / step_ms * 1e3:.1f} training frames/s, peak {peak:.3f} GiB; "
+              f"#1-#4 launches a step {launches}")
+        extra.update(one_rank_batch=batch, one_rank_step_ms=step_ms,
+                     one_rank_frames_per_s=frames / step_ms * 1e3, one_rank_peak_gib=peak)
+        # the DropPath / Dropout masks of one step (drawn at the global
+        # shape on every rank): their shapes, then those draws alone
+        shapes = []
+        draw = layers.bernoulli_keep
+
+        def recording(shape, keep, generator, device):
+            out = draw(shape, keep, generator, device)
+            shapes.append((tuple(out.shape), keep))
+            return out
+        layers.bernoulli_keep = recording
+        try:
+            trainer.train_step(state, past, future)
+        finally:
+            layers.bernoulli_keep = draw
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        mask_ms = cuda_ms(lambda: [torch.rand(sh, generator=gen, device=dev) < keep
+                                   for sh, keep in shapes], iters=3, warmup=1)
+        n_drawn = sum(int(np.prod(sh)) for sh, _ in shapes)
+        print(f"  the step's torch.rand masks: {len(shapes)} draws, {n_drawn} elements at "
+              f"the global batch, {mask_ms:.3f} ms alone ({mask_ms / step_ms:.1%} of the "
+              f"step); under W ranks every rank draws them all (its own rows: 1/W)")
+        extra.update(mask_draws=len(shapes), mask_elements=n_drawn, mask_ms=mask_ms)
+        del trainer, state, past, future
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def ranks_step(world, batch, two_cards):
+            """One far_bair_dp step at global batch ``batch`` on ``world``
+            ranks against the one-rank step at ``batch``, then the ranks'
+            step and all-reduce times; returns rank 0's result or None."""
+            backend = "nccl" if two_cards else "gloo"
+            label = (f"{world} cards over NCCL" if two_cards else
+                     f"{world} processes on the one card over gloo (the all-reduce "
+                     f"staged through the host)")
+            one = Trainer(cfg.override({"data": {"batch_size": batch}}), write_outputs=False)
+            s1 = one.init_state()
+            s1, m1 = one.train_step(s1, *one.put_batch(past_np[:batch], future_np[:batch]))
+            named = list(s1.transformer.named_parameters())
+            torch.save({"params": {n: p.detach().float().cpu() for n, p in named},
+                        "grads": {n: p.grad.detach().float().cpu() for n, p in named}},
+                       root / "ref.pt")
+            one_total, one_norm = float(m1["T_total"]), float(m1["grad_norm"])
+            del one, s1, m1, named
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.save({"past": torch.from_numpy(past_np[:batch]),
+                        "future": torch.from_numpy(future_np[:batch])}, root / "batch.pt")
+            (root / "args.json").write_text(json.dumps({"batch": batch}))
+            res = launch_ranks("step", world, backend, root, one_card=not two_cards)
+            if not _ranks_ok(res, f"{world}-rank {DP_PRESET} step ({label})"):
+                return None
+            r0 = res[0][2]
+            err, lr = r0["max_abs_err_vs_one_rank"], r0["lr"]
+            d_total = abs(r0["metrics"]["T_total"] - one_total)
+            d_norm = abs(r0["metrics"]["grad_norm"] / one_norm - 1)
+            for x in res:
+                check_counts(x[2]["launches"], want, f"a rank's step of the {world}-rank run")
+            check(r0["backend"] == backend and r0["world"] == world
+                  and r0["local_rows"] == batch // world,
+                  f"backend {r0['backend']}, world {r0['world']}, {r0['local_rows']} rows "
+                  f"a rank")
+            check(all(x[2]["bit_equal_across_ranks"] for x in res),
+                  f"parameters bit-equal across the {world} ranks after the step")
+            check(r0["grad_vector_rel_err"] <= 2 ** -5,
+                  f"averaged gradients against the one-rank step's as one vector: "
+                  f"|g_W - g_1| / |g_1| {r0['grad_vector_rel_err']:.3e} <= 2^-5")
+            # bf16 weight gradients of the attention's q / k leaves cancel
+            # over the batch; a leaf left unaveraged reads 0.5 or more
+            check(r0["grad_rel_err"] <= 2 ** -2,
+                  f"averaged gradients against the one-rank step's, leaf by leaf but the "
+                  f"{ZERO_GRAD_LEAF} leaves: |g_W - g_1| / |g_1| "
+                  f"{r0['grad_rel_err']:.3e} <= 2^-2 (the worst "
+                  f"{ {n: f'{v:.3e}' for n, v in r0['grad_worst_leaves'].items()} })")
+            check(d_norm <= 0.05, f"grad_norm {r0['metrics']['grad_norm']:.6e} against the "
+                  f"one-rank {one_norm:.6e}: rel diff {d_norm:.3e} <= 0.05")
+            check(r0["firm_param_err"] <= lr / 4,
+                  f"parameters against the one-rank step where |g_1| > 2 |g_W - g_1|: "
+                  f"max|err| {r0['firm_param_err']:.3e} <= lr/4 = {lr / 4:.3e} "
+                  f"({r0['firm_param_leaf']})")
+            check(err <= 2 * lr + 1e-6,
+                  f"parameters against the one-rank step anywhere: max|err| {err:.3e} <= "
+                  f"2 lr (two first AdamW steps of opposite sign)")
+            check(d_total <= 2e-3 * max(1.0, one_total),
+                  f"T_total {r0['metrics']['T_total']:.6f} against the one-rank "
+                  f"{one_total:.6f}: |d| {d_total:.3e}")
+            share = r0["all_reduce_ms"] / r0["step_ms"]
+            print(f"  {card}: {world}-rank step at global batch {batch} median "
+                  f"{r0['step_ms']:.3f} ms (the slowest rank "
+                  f"{max(x[2]['step_ms'] for x in res):.3f}), {batch // world} rows a rank, "
+                  f"{batch * t_tf / r0['step_ms'] * 1e3:.1f} training frames/s; the gradient "
+                  f"all-reduce alone {r0['all_reduce_ms']:.3f} ms = {share:.1%} of the step "
+                  f"({label}); peak {r0['peak_gib']:.3f} GiB a rank")
+            return {"backend": backend, "step_ms": r0["step_ms"],
+                    "all_reduce_ms": r0["all_reduce_ms"], "all_reduce_share": share,
+                    "param_err": err, "firm_param_err": r0["firm_param_err"],
+                    "grad_rel_err": r0["grad_rel_err"],
+                    "grad_vector_rel_err": r0["grad_vector_rel_err"],
+                    "grad_norm_rel_diff": d_norm,
+                    "launches": r0["launches"]}
+
+        two_cards = cards >= 2
+        how = ("two cards over NCCL" if two_cards else
+               "two processes on the one card over gloo")
+        more = f"; then {cards} ranks at the preset's batch {dc.batch_size}"
+        phase(f"34. two ranks ({how}): one {DP_PRESET} step at global batch "
+              f"{DP_STEP_BATCH} against the one-rank step at {DP_STEP_BATCH}"
+              + (more if cards > 2 else ""))
+        two = ranks_step(2, DP_STEP_BATCH, two_cards)
+        if two:
+            extra.update({f"two_rank_{k}": v for k, v in two.items()})
+        if cards > 2:
+            every = ranks_step(cards, dc.batch_size, True)
+            if every:
+                extra.update({f"{cards}_rank_{k}": v for k, v in every.items()})
+
+        phase(f"35. torchrun --nproc_per_node={cards} -m vptr_tpu_torch.cli train --preset "
+              f"{DP_PRESET} ({DP_CLI_STEPS} steps and a validation pass) on a 2-step "
+              f"ae_bair checkpoint, then cli eval")
+        here = str(Path(__file__).resolve().parent)
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+        cli = [sys.executable, "-m", "vptr_tpu_torch.cli"]
+        run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={cards}", "-m", "vptr_tpu_torch.cli"]
+        ae_dir, far_dir = root / "ae", root / "far"
+
+        def command(args, what, timeout=600):
+            t0 = time.perf_counter()
+            p = subprocess.run(args, cwd=here, env=env, capture_output=True, text=True,
+                               timeout=timeout)
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"{what}: exit {p.returncode} ({wall:.1f} s)")
+            if p.returncode != 0:
+                print((p.stdout + p.stderr)[-3000:])
+            return p, wall
+
+        command(cli + ["train", "--preset", "ae_bair", "--ckpt-dir", str(ae_dir), "--set",
+                       "epochs=1", "--set", "steps_per_epoch=2", "--set",
+                       "val_per_epochs=2"], "cli train --preset ae_bair (2 steps)")
+        _, far_wall = command(run + [
+            "train", "--preset", DP_PRESET, "--ckpt-dir", str(far_dir), "--set",
+            f"ae_ckpt={ae_dir / 'ckpt'}", "--set", "epochs=1", "--set",
+            f"steps_per_epoch={DP_CLI_STEPS}", "--set", "val_per_epochs=1"],
+            f"torchrun {cards} x cli train --preset {DP_PRESET}")
+        files = sorted(str(p.relative_to(far_dir)) for p in far_dir.rglob("*") if p.is_file())
+        print(f"  the run directory holds {files}")
+        check((far_dir / "ckpt" / str(DP_CLI_STEPS) / "state.pt").is_file()
+              and (far_dir / "train_log.log").is_file()
+              and (far_dir / "tb" / "scalars.jsonl").is_file(),
+              f"rank 0 wrote ckpt/{DP_CLI_STEPS}/, train_log.log and tb/scalars.jsonl")
+        if (far_dir / "ckpt" / "history.json").is_file():
+            fh = _history(far_dir)
+            print(f"  train {fh['train']}\n  val {fh['val']}")
+            check(_finite(fh["train"].values()) and _finite(fh["val"].values())
+                  and "T_total" in fh["val"], f"{DP_PRESET} cli train: losses finite")
+            extra.update(cli_train_steps_per_s=fh["train"]["steps_per_sec"],
+                         cli_train_wall_s=far_wall)
+        # the test split is 2 -> 28 frames: the autoregressive rollout, 10 of them
+        ev, _ = command(run + ["eval", "--preset", DP_PRESET, "--ckpt-dir", str(far_dir),
+                               "--mode", "far_rip", "--num-pred", "10", "--max-batches",
+                               "1", "--no-lpips"],
+                        f"torchrun {cards} x cli eval --preset {DP_PRESET} --mode far_rip")
+        try:
+            curves = json.loads(ev.stdout[ev.stdout.index("{"):ev.stdout.rindex("}") + 1])
+            check(_finite(curves["mean"].values()), f"cli eval curves finite: "
+                  f"{curves['mean']}")
+        except ValueError:
+            check(False, f"cli eval printed its curves: {ev.stdout[-500:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                       for k, v in extra.items())
+    return summary, extra, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2658,8 +3151,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     tslma_rows, tslma_extra, tslma_summary = tslma_phases(dev)
     rows_out += tslma_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_summary, dp_extra, dp_launches = dp_phases(dev, card)
+    for row in rows_out:          # #1-#4 in one far_bair_dp train step (phase 33)
+        if dp_launches and row["name"] in dp_launches:
+            row["far_bair_dp_launches"] = dp_launches[row["name"]]
 
-    phase("32. result")
+    phase("36. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -2676,6 +3175,8 @@ def main() -> int:
     print(f"  {json.dumps(cli_extra)}")
     print(f"  {tslma_summary}")
     print(f"  {json.dumps(tslma_extra)}")
+    print(f"  {dp_summary}")
+    print(f"  {json.dumps(dp_extra)}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)
@@ -2689,4 +3190,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -195,8 +195,13 @@ def test_checkpoint_cadence_and_keep(tmp_path, per, keep, want):
 
 @pytest.mark.parametrize("mesh", [{"model": 2}, {"data": 2}])
 def test_one_card_only(mesh):
+    """In one process the mesh is one card: a model axis is refused (the
+    TP/SP slice is not ported) and an explicit data axis must equal the
+    world, here 1."""
     cfg = tcfg.get_preset("far_mnist").override({**FAR, "mesh": mesh})
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    error, match = ((NotImplementedError, "TP/SP slice") if "model" in mesh
+                    else (ValueError, "process group has 1 rank"))
+    with pytest.raises(error, match=match):
         ttrainer.Trainer(cfg, device="cpu", write_outputs=False)
 
 

@@ -15,12 +15,24 @@ card; ``cpu`` runs the kernels' plain versions on the CPU):
 
 Checkpoints are the port's own (``vptr_tpu_torch.train.checkpoint``), not
 the JAX package's orbax ones.
+
+``train`` and ``eval`` run data parallel under ``torchrun`` (the
+reference's ``_mp`` drivers), one process a card, NCCL between them (gloo
+with ``--device cpu``):
+
+    torchrun --standalone --nproc_per_node=8 -m vptr_tpu_torch.cli train \
+        --preset far_bair_dp
+
+``eval`` then evaluates each rank's shard of the test set and every rank
+holds the curves over all of them (rank 0 prints them). ``predict`` runs in
+one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def _parse_value(raw: str):
@@ -87,8 +99,10 @@ def cmd_info(args):
 
 
 def cmd_train(args):
+    from vptr_tpu_torch.parallel import init_distributed
     from vptr_tpu_torch.train.trainer import Trainer
 
+    init_distributed(args.device)
     Trainer(_load_cfg(args), device=args.device).train()
 
 
@@ -96,10 +110,13 @@ def cmd_eval(args):
     from vptr_tpu_torch.data.loader import build_loader
     from vptr_tpu_torch.eval.harness import evaluate
     from vptr_tpu_torch.eval.lpips import lpips_available, make_lpips_fn
+    from vptr_tpu_torch.parallel import host_id, init_distributed, num_hosts
 
+    init_distributed(args.device)
     trainer, state = _restored(args)
     cfg = trainer.cfg
-    loader = build_loader(cfg.data, split="test", seed=cfg.seed)
+    loader = build_loader(cfg.data, split="test", seed=cfg.seed,
+                          host_id=host_id(), num_hosts=num_hosts())
     # LPIPS reports automatically when pretrained weights are present
     # (reference: Test_VPTR.ipynb cell 9); --no-lpips opts out
     lpips_fn = (make_lpips_fn(device=trainer.device)
@@ -110,7 +127,8 @@ def cmd_eval(args):
     out = {m: [round(float(v), 4) for v in c] for m, c in curves.items()}
     out["mean"] = {m: round(float(sum(c) / len(c)), 4)
                    for m, c in curves.items()}
-    print(json.dumps(out, indent=2))
+    if host_id() == 0:
+        print(json.dumps(out, indent=2))
 
 
 def cmd_predict(args):
@@ -128,8 +146,13 @@ def cmd_predict(args):
     from vptr_tpu_torch.data.loader import build_loader
     from vptr_tpu_torch.data.preprocessing import visualize_clip
     from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.parallel import num_hosts
     from vptr_tpu_torch.train.summary import visualize_batch_clips
 
+    world = max(int(os.environ.get("WORLD_SIZE") or 1), num_hosts())
+    if world > 1:
+        raise RuntimeError(f"predict runs in one process; it was launched as one "
+                           f"of {world} (WORLD_SIZE): run it without torchrun")
     trainer, state = _restored(args)
     cfg = trainer.cfg
     num_pred = args.num_pred or cfg.data.test_future_frames
@@ -201,7 +224,12 @@ def main(argv=None):
     p_pred.set_defaults(fn=cmd_predict)
 
     args = parser.parse_args(argv)
-    args.fn(args)
+    from vptr_tpu_torch.parallel import destroy_distributed
+
+    try:
+        args.fn(args)
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

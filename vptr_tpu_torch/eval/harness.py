@@ -34,6 +34,7 @@ from vptr_tpu_torch.eval.rollout import (
     far_rollout_pixel,
     nar_rollout,
 )
+from vptr_tpu_torch.parallel.mesh import all_reduce_sum
 from vptr_tpu_torch.utils.device import resolve_device
 
 ROLLOUT_MODES = ("far", "far_rip", "far_ril", "nar")
@@ -91,7 +92,13 @@ def evaluate(trainer, state, loader, *, mode: str = "far",
     frames (gray -> RGB inside), both as the reference notebook does. The
     curves stay on the trainer's device until the loop ends: one read to
     the host for the whole loader, summed in f64 there as the JAX package
-    sums them."""
+    sums them.
+
+    Under W > 1 ranks each rank passes its shard of the loader (batches of
+    any size) and the row-weighted sums and the row counts are all-reduced
+    in f64 at the end, so every rank returns the curves over all the ranks'
+    rows (the JAX package's multi-host evaluate takes them over its global
+    arrays)."""
     num_pred = num_pred or trainer.cfg.data.test_future_frames
     predict = make_predict_fn(trainer.cfg, state.enc, state.dec, state.transformer,
                               mode, num_pred, trainer.device)
@@ -101,7 +108,7 @@ def evaluate(trainer, state, loader, *, mode: str = "far",
     try:
         with torch.inference_mode():
             for past, future in islice(batches, max_batches):
-                past_d, future_d = trainer.put_batch(past, future)
+                past_d, future_d = trainer.put_batch(past, future, ragged_ok=True)
                 pred = predict(past_d, future_d)[:, :num_pred]
                 target = future_d[:, :num_pred]
                 pr = torch.clamp(trainer.renorm(pred.float()), 0.0, 1.0)
@@ -116,10 +123,16 @@ def evaluate(trainer, state, loader, *, mode: str = "far",
     finally:
         if hasattr(batches, "close"):       # a loader's iterator: stop its pool
             batches.close()
-    if not curves:
-        return {m: np.zeros(num_pred) for m in names}
-    per_batch = torch.stack(curves).cpu().numpy().astype(np.float64)
     sums = np.zeros((len(names), num_pred))
-    for c, n in zip(per_batch, sizes):
-        sums += c * n
-    return dict(zip(names, sums / sum(sizes)))
+    if curves:
+        per_batch = torch.stack(curves).cpu().numpy().astype(np.float64)
+        for c, n in zip(per_batch, sizes):
+            sums += c * n
+    # every rank's sums and rows (a rank without a batch takes part too)
+    total = all_reduce_sum(torch.tensor(np.append(sums.ravel(), sum(sizes)),
+                                        dtype=torch.float64, device=trainer.device))
+    total = total.cpu().numpy()
+    count = total[-1]
+    if count == 0:
+        return {m: np.zeros(num_pred) for m in names}
+    return dict(zip(names, total[:-1].reshape(sums.shape) / count))

@@ -42,6 +42,17 @@ above 0 and no generator raises. The masks differ from ``jax.random``'s
 (another generator); the kernels' hash masks are bit-equal to the JAX
 package's for the same seed.
 
+Under a process group of W > 1 ranks (:mod:`vptr_tpu_torch.parallel`) each
+rank holds b rows of a global batch of W·b, and every train-mode module
+computes what one process computes at the global batch: BatchNorm takes its
+statistics over the global batch (the per-channel sums all-reduced through
+autograd); DropPath and Dropout draw the global shape from the shared
+generator and keep rows r·b .. (r+1)·b; the kernels' seed is folded by the
+rank's element offset (:func:`~vptr_tpu_torch.parallel.mesh.fold_seed`),
+since every kernel's mask index is sample-major (windows n·T·nW, temporal
+columns n·HW, FFN rows n·T·HW, dw samples n·T). Every rank's generator
+advances identically.
+
 Each kernel-backed module's (attention, :class:`Mlp`, :class:`MlpDWBN`)
 ``kernels`` attribute is ``"cuda"`` (the wrappers: the kernel on a CUDA
 tensor, the plain version on a CPU tensor) or ``"plain"`` (the plain
@@ -61,6 +72,7 @@ from torch import nn
 
 from vptr_tpu_torch.ops.attention_core import attention_core, attention_core_plain
 from vptr_tpu_torch.ops.conv_ln_gelu import conv_ln_gelu, conv_ln_gelu_plain
+from vptr_tpu_torch.ops.dropout import padded_tokens
 from vptr_tpu_torch.ops.fused_dw_chain import fused_dw_chain, fused_dw_chain_plain
 from vptr_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_plain
 from vptr_tpu_torch.ops.fused_window_attention import (
@@ -76,6 +88,7 @@ from vptr_tpu_torch.ops.window import (
     window_partition,
     window_reverse,
 )
+from vptr_tpu_torch.parallel.mesh import all_reduce_sum, host_id, num_hosts, rank_seed
 
 KERNEL_MODES = ("cuda", "plain")
 
@@ -115,10 +128,16 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
 def bernoulli_keep(shape, keep: float, generator: Optional[torch.Generator],
                    device) -> torch.Tensor:
     """Boolean mask of ``shape`` (an int or a tuple), True with probability
-    ``keep``."""
+    ``keep``. Under W > 1 ranks the leading axis is this rank's b rows of
+    the global batch: the mask of the global shape (W·b, ...) is drawn and
+    rows r·b .. (r+1)·b kept, so every rank draws what one process at the
+    global batch draws."""
     if generator is None:
         raise ValueError("a training forward with dropout needs a generator")
-    return torch.rand(shape, generator=generator, device=device) < keep
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    w, b, r = num_hosts(), shape[0], host_id()
+    full = torch.rand((w * b,) + shape[1:], generator=generator, device=device)
+    return full[r * b:(r + 1) * b] < keep
 
 
 def _keep_scaled(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -170,6 +189,12 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
+    def _window_seed(self, seed, windows: int, tokens: int):
+        """The seed of this rank's ``windows`` of a window-kernel call (#1,
+        #5): its mask index runs over the padded token count."""
+        lp = padded_tokens(tokens, self.dtype)
+        return rank_seed(seed, windows * self.num_heads * lp * lp)
+
     def _dense_params(self):
         """(W (in, out) in dtype, b f32) for q, k, v, out — the fused
         kernel's operand layout (the JAX Dense kernel layout)."""
@@ -198,6 +223,7 @@ class MultiHeadAttention(nn.Module):
                 (wq, bq), (wk, bk), (wv, bv), (wo, bo) = self._dense_params()
                 lead, l = q_in.shape[:-2], q_in.shape[-2]
                 xf = q_in.reshape(-1, l, self.dim).to(self.dtype).contiguous()
+                seed = self._window_seed(seed, xf.shape[0], l)
                 args = (xf, wq, bq, wk, bk, wv, bv, wo, bo, ln[0].float(),
                         ln[1].float(),
                         None if qk_pos is None else qk_pos.float().contiguous(),
@@ -227,8 +253,9 @@ class MultiHeadAttention(nn.Module):
             lead, l = q_in.shape[:-2], q_in.shape[-2]
             flat = lambda z: z.reshape(-1, l, self.dim).to(self.dtype).contiguous()
             fn = fused_attention_plain if plain else fused_attention
-            out = fn(flat(q_in), flat(v_in), wq, bq, wk, bk, wv, bv, wo, bo,
-                     bias, seed, self.num_heads, rate)
+            xqk = flat(q_in)
+            out = fn(xqk, flat(v_in), wq, bq, wk, bk, wv, bv, wo, bo, bias,
+                     self._window_seed(seed, xqk.shape[0], l), self.num_heads, rate)
             return out.reshape(lead + (l, self.dim))
 
         hd = self.dim // self.num_heads
@@ -241,7 +268,9 @@ class MultiHeadAttention(nn.Module):
             return z.movedim(-2, -3).reshape((-1, self.num_heads, z.shape[-3], hd))
 
         core = attention_core if self.fused and not plain else attention_core_plain
-        out = core(heads(q), heads(k), heads(v), bias, seed, rate)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        seed = rank_seed(seed, qh.shape[0] * self.num_heads * qh.shape[2] * kh.shape[2])
+        out = core(qh, kh, vh, bias, seed, rate)
         out = out.transpose(1, 2).reshape(q.shape)   # a view where out has q's layout
         return _linear(self.out_proj, out, self.dtype)
 
@@ -367,7 +396,11 @@ class BatchNorm(nn.Module):
     train mode it normalises with the batch statistics (gradients flow
     through them) and sets running = 0.9 running + 0.1 batch, the variance
     biased too (torch's ``BatchNorm2d`` keeps the unbiased one); in eval
-    mode it uses the running statistics."""
+    mode it uses the running statistics. Under W > 1 ranks the train-mode
+    statistics are the global batch's: the per-channel sums of x and x^2
+    and the count, all-reduced together through autograd (the backward
+    sums their gradients over the ranks), so every rank's running
+    statistics update identically."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -382,8 +415,11 @@ class BatchNorm(nn.Module):
         view = lambda v: v[:, None, None]
         if self.training:
             x32 = x.float()
-            mean = x32.mean((0, 2, 3))
-            var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
+            if num_hosts() > 1:
+                mean, sq = _global_moments(x32)
+            else:
+                mean, sq = x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -393,6 +429,17 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - view(mean)) * view(mul) + view(self.bias)
         return y.to(self.dtype)
+
+
+def _global_moments(x32: torch.Tensor):
+    """(E[x], E[x^2]) per channel of an NCHW tensor over every rank's rows:
+    one all-reduce of the sums and the count."""
+    c = x32.shape[1]
+    count = x32.new_full((1,), x32.numel() / c)
+    total = all_reduce_sum(torch.cat([x32.sum((0, 2, 3)),
+                                      (x32 * x32).sum((0, 2, 3)), count]))
+    n = total[2 * c]
+    return total[:c] / n, total[c:2 * c] / n
 
 
 class GroupNorm(nn.Module):
@@ -476,6 +523,7 @@ class MlpDWBN(nn.Module):
         def hwc(p):   # a LayerNormHWC affine (hd, h, w) -> (h w, hd)
             return p.permute(1, 2, 0).reshape(h * w, hd).contiguous()
 
+        seed = rank_seed(seed, y.numel())         # (n t, h w, hd), sample-major
         chain = fused_dw_chain_plain if self.kernels == "plain" else fused_dw_chain
         y = chain(y.contiguous(), self.dw3x3.weight.reshape(hd, 9).t().contiguous(),
                   self.dw3x3.bias, hwc(self.norm1.weight), hwc(self.norm1.bias),
@@ -544,6 +592,7 @@ class Mlp(nn.Module):
             rate = self.drop.rate if self.training else 0.0
             seed = draw_seed(generator, x.device) if rate > 0.0 else 0
             dim = x.shape[-1]
+            seed = rank_seed(seed, x.numel() // dim * self.linear1.out_features)
             fn = fused_ffn_plain if self.kernels == "plain" else fused_ffn
             out = fn(x.reshape(-1, dim).to(self.dtype).contiguous(),
                      self.linear1.weight.t().to(self.dtype).contiguous(),

@@ -14,6 +14,11 @@ running statistics included; a stage-2 state's frozen encoder and decoder
 too) and every optimizer state (count, first and second moments in their
 dtypes). :meth:`CheckpointManager.restore` loads it into a state of the
 same configuration, in place, on that state's device.
+
+Under a process group of W > 1 ranks, rank 0 writes (the others write
+nothing, not even the directory) and a barrier follows every save, so no
+rank looks for a step that is still being renamed into place; every rank
+restores the same file onto its own device.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Optional
 
 import torch
 
+from vptr_tpu_torch.parallel.mesh import barrier, host_id
 from vptr_tpu_torch.train.optim import AdamState
 from vptr_tpu_torch.train.state import AETrainState, Stage2TrainState
 
@@ -92,11 +98,19 @@ def load_state_dict(state, saved: dict):
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        if host_id() == 0:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
 
     def save(self, step: int, state: Any, *, config_json: Optional[str] = None,
              history: Optional[dict] = None):
+        """Write ``step`` (rank 0; every rank waits for it)."""
+        if host_id() == 0:
+            self._save(step, state, config_json, history)
+        barrier()
+
+    def _save(self, step: int, state: Any, config_json: Optional[str],
+              history: Optional[dict]):
         tmp = Path(tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory))
         try:
             torch.save(state_dict(state), tmp / _FILE)
@@ -117,6 +131,8 @@ class CheckpointManager:
 
     def all_steps(self):
         """The saved steps, oldest first."""
+        if not self.directory.is_dir():
+            return []
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.is_dir() and p.name.isdigit() and (p / _FILE).exists())
 

@@ -15,6 +15,12 @@ two steps can start from one state.
 With the GAN term (``loss.lam_gan``) a state also holds the PatchGAN
 discriminator and its own optimizer state (``cfg.optim_d``); both are None
 without it.
+
+Under a process group of W > 1 ranks every rank starts from the same
+state: each builds it from the same seed, and creation copies rank 0's
+parameters and buffers to the others (:func:`replicate`), so no rank can
+start from different weights; a restore loads the same file on every
+rank.
 """
 
 from __future__ import annotations
@@ -26,7 +32,15 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from vptr_tpu_torch.parallel.mesh import broadcast_tensors
 from vptr_tpu_torch.train.optim import AdamState, Optimizer
+
+
+def replicate(*modules: Optional[nn.Module]) -> None:
+    """Rank 0's parameters and persistent buffers of ``modules`` on every
+    rank, in place; nothing in one process."""
+    broadcast_tensors([t for m in modules if m is not None
+                       for t in m.state_dict().values()])
 
 
 def _copy_generator(gen: torch.Generator) -> torch.Generator:
@@ -98,6 +112,7 @@ def create_ae_train_state(enc: nn.Module, dec: nn.Module,
     for m in (enc, dec):
         _trainable(m)
     gen = torch.Generator(device=device).manual_seed(seed)
+    replicate(enc, dec, disc)
     return AETrainState(0, gen, enc, dec, disc, g_optimizer.init(_g_params(enc, dec)),
                         _d_opt_init(disc, d_optimizer))
 
@@ -138,6 +153,7 @@ def create_far_train_state(enc: nn.Module, dec: nn.Module,
     for m in (enc, dec):
         m.eval().requires_grad_(False)
     gen = torch.Generator(device=device).manual_seed(seed)
+    replicate(transformer, enc, dec, disc)
     return Stage2TrainState(0, gen, transformer,
                             optimizer.init(dict(transformer.named_parameters())),
                             enc, dec, disc, _d_opt_init(disc, d_optimizer))

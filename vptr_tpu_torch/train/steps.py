@@ -60,6 +60,15 @@ clipping; every metric is a 0-d tensor on the device (reading one
 synchronises). After a step the trained modules' ``.grad`` hold that
 step's gradients (D's from its own update). Everything runs where the
 modules are (the card unless they were built with ``device="cpu"``).
+
+Under a process group of W > 1 ranks (:mod:`vptr_tpu_torch.parallel`),
+each rank steps on its b rows of a global batch of W·b and the step is the
+one-process step at the global batch: the modules take global-batch
+statistics and masks (:mod:`vptr_tpu_torch.models.layers`), every update
+(G's, D's, the transformer's) averages the gradients over the ranks after
+the whole backward and before the clip, so ``grad_norm`` is the global
+gradient's norm on every rank, and the metrics a train or eval step returns
+are their means over the ranks.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ from vptr_tpu_torch.losses import (
     mse_loss,
     temporal_weight,
 )
+from vptr_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_mean, num_hosts
 from vptr_tpu_torch.train.optim import Optimizer, apply_updates
 from vptr_tpu_torch.train.state import AETrainState, Stage2TrainState
 
@@ -91,15 +101,24 @@ def _frames(device, *frames):
 
 def _optimize(params, optimizer: Optimizer, opt_state):
     """Optimizer step from the parameters' ``.grad`` (a parameter the loss
-    does not reach gets a zero gradient, as ``jax.grad`` gives it), in
-    place; returns (new optimizer state, gradient norm)."""
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    does not reach gets a zero gradient, as ``jax.grad`` gives it), the
+    gradients first averaged over the ranks, in place; returns (new
+    optimizer state, gradient norm)."""
+    all_reduce_grads(params)
     grads = {k: p.grad for k, p in params.items()}
     updates, opt_state, norm = optimizer.update(grads, opt_state, params)
     apply_updates(params, updates)
     return opt_state, norm
+
+
+def _global_means(metrics):
+    """The step's metrics as their means over the ranks (each rank's are
+    means over its equal share of the global batch); ``grad_norm`` is
+    global already."""
+    if num_hosts() == 1:
+        return metrics
+    keys = [k for k in metrics if k != "grad_norm"]
+    return {**metrics, **dict(zip(keys, all_reduce_mean([metrics[k] for k in keys])))}
 
 
 def _zero_grads(params) -> None:
@@ -214,7 +233,7 @@ def make_ae_train_step(enc, dec, disc, g_optimizer: Optimizer,
         metrics = {"AE_MSE": l_mse.detach(), "AE_GDL": l_gdl.detach(),
                    "AEgan": l_gan.detach(), "AE_total": total.detach(),
                    **d_metrics, "grad_norm": norm}
-        return state, metrics
+        return state, _global_means(metrics)
 
     return step
 
@@ -239,7 +258,7 @@ def make_ae_eval_step(enc, dec, disc, loss_cfg):
             metrics["AEgan"] = gan_loss(state.disc.eval()(_flat_frames(rec)), True,
                                         loss_cfg.gan_mode)
             metrics["AE_total"] = metrics["AE_total"] + loss_cfg.lam_gan * metrics["AEgan"]
-        return metrics, rec
+        return _global_means(metrics), rec
 
     return step
 
@@ -283,7 +302,7 @@ def make_far_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
         metrics = {"T_MSE": l_mse.detach(), "T_GDL": l_gdl.detach(),
                    "T_gan": l_gan.detach(), "T_total": total.detach(),
                    **d_metrics, "grad_norm": norm}
-        return state, metrics
+        return state, _global_means(metrics)
 
     return step
 
@@ -300,7 +319,8 @@ def make_far_eval_step(enc, dec, transformer, loss_cfg):
         pred = state.dec(state.transformer(state.enc(x)))
         l_mse = mse_loss(pred, target)
         l_gdl = gdl_loss(target, pred, alpha=loss_cfg.gdl_alpha)
-        return {"T_MSE": l_mse, "T_GDL": l_gdl, "T_total": l_mse + l_gdl}, pred
+        return _global_means({"T_MSE": l_mse, "T_GDL": l_gdl,
+                              "T_total": l_mse + l_gdl}), pred
 
     return step
 
@@ -351,7 +371,7 @@ def make_nar_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
         metrics = {"T_MSE": l_mse.detach(), "T_GDL": l_gdl.detach(),
                    "T_bpc": l_nce.detach(), "T_gan": l_gan.detach(),
                    "T_total": total.detach(), **d_metrics, "grad_norm": norm}
-        return state, metrics
+        return state, _global_means(metrics)
 
     return step
 
@@ -378,6 +398,6 @@ def make_nar_eval_step(enc, dec, transformer, loss_cfg):
             metrics["T_bpc"] = _nce(tr, pred_feats, state.enc(future), loss_cfg)
             total = total + lam_nce * metrics["T_bpc"]
         metrics["T_total"] = total
-        return metrics, pred
+        return _global_means(metrics), pred
 
     return step

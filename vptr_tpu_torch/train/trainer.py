@@ -1,5 +1,5 @@
 """The experiment loop: build the modules, create or restore the train state,
-run the epoch loop, on one card.
+run the epoch loop, on one card or on W ranks.
 
 Counterpart of ``vptr_tpu/train/trainer.py`` (the reference's five train
 scripts, train_AutoEncoder.py / train_FAR.py / train_NAR.py and their
@@ -27,8 +27,21 @@ and ``Trainer(cfg).train()`` runs it:
   and ``trainer.fetch_metrics`` split the loop's wall
   (``scripts/torch_port_profile.py --trainer`` reads them).
 
-One card only: ``mesh.data`` must be -1 or 1 and ``mesh.model`` 1 (the
-multi-GPU slice is not ported). ``steps_per_dispatch`` K > 1 runs the K
+Data parallelism (the reference's ``_mp`` drivers, the JAX Trainer's data
+axis): under a process group of W ranks (``torchrun``, see
+:func:`vptr_tpu_torch.parallel.init_distributed`), ``mesh.data`` -1 or W
+and ``mesh.model`` 1 (:func:`~vptr_tpu_torch.parallel.make_mesh`), each
+rank loads its shard of every epoch, ``data.batch_size // W`` rows a batch
+(a ``batch_size`` that W does not divide raises, as does a batch of other
+than that many rows in :meth:`Trainer.put_batch`), and the steps are the
+one-process steps at the global batch (:mod:`vptr_tpu_torch.train.steps`).
+The logger, the summary writer, the GIFs and the profiler run on rank 0
+only and checkpoints are written by rank 0; validation runs over the
+sharded val loader with the metrics' global means; the steps/s of an epoch
+is the slowest rank's, so every rank keeps the same history and
+``train()`` returns the same state on every rank.
+
+``steps_per_dispatch`` K > 1 runs the K
 steps of a group one after another with the same metrics: there is no
 ``lax.scan`` to fold them into. ``debug_nans`` turns on
 ``torch.autograd.set_detect_anomaly`` for the run: a backward that produces
@@ -55,6 +68,7 @@ from vptr_tpu_torch.data.transforms import ReNormalize
 from vptr_tpu_torch.models.autoencoder import build_autoencoder
 from vptr_tpu_torch.models.discriminator import build_discriminator
 from vptr_tpu_torch.models.transformer import build_transformer
+from vptr_tpu_torch.parallel.mesh import make_mesh, max_over_ranks
 from vptr_tpu_torch.train.checkpoint import CheckpointManager, load_ae_modules
 from vptr_tpu_torch.train.optim import build_optimizer
 from vptr_tpu_torch.train.state import create_ae_train_state, create_far_train_state
@@ -89,14 +103,6 @@ def _dtype_of(name: str) -> torch.dtype:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)} in the port, "
                          f"got {name!r}")
     return _DTYPES[name]
-
-
-def _one_card(mesh) -> None:
-    if mesh.data not in (-1, 1) or mesh.model != 1:
-        raise NotImplementedError(
-            f"mesh data={mesh.data} model={mesh.model} needs more than one card "
-            f"(the multi-GPU slice); not ported yet: set mesh.data to -1 or 1 "
-            f"and mesh.model to 1")
 
 
 def _waited(batches):
@@ -136,20 +142,28 @@ class Trainer:
                 f"ckpt_per_epochs must be >= 1, got {cfg.ckpt_per_epochs}")
         if cfg.stage not in ("ae", "far", "nar"):
             raise ValueError(f"unknown stage {cfg.stage!r}")
-        _one_card(cfg.mesh)
+        self.mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+        if cfg.data.batch_size % self.mesh.data:
+            raise ValueError(f"data.batch_size {cfg.data.batch_size} does not split "
+                             f"over {self.mesh.data} ranks")
+        self.local_batch = cfg.data.batch_size // self.mesh.data
         self.renorm = ReNormalize(cfg.data.mean, cfg.data.std)
         self._build_models()
         self._build_steps()
-        if write_outputs:
-            self.ckpt = CheckpointManager(str(Path(cfg.ckpt_dir) / "ckpt"),
-                                          keep=cfg.ckpt_keep)
+        # checkpoints on every rank (rank 0 writes, all restore); the logs,
+        # scalars and GIFs on rank 0 only (reference: train_FAR_mp.py's
+        # rank == 0 gates)
+        host0 = self.mesh.rank == 0
+        self.ckpt = (CheckpointManager(str(Path(cfg.ckpt_dir) / "ckpt"),
+                                       keep=cfg.ckpt_keep)
+                     if write_outputs else None)
+        if write_outputs and host0:
             self.logger = setup_logging(cfg.ckpt_dir)
             self.writer = SummaryWriter(str(Path(cfg.ckpt_dir) / "tb"))
         else:
-            self.ckpt = None
             self.logger = logging.getLogger("vptr_tpu_torch.silent")
             self.writer = None
-        self.write_outputs = write_outputs
+        self.write_outputs = write_outputs and host0
         self.history: Dict[str, Any] = {}
 
     # ------------------------------------------------------------------
@@ -222,9 +236,19 @@ class Trainer:
         # from reuse until its asynchronous copy has landed
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def put_batch(self, past, future):
+    def put_batch(self, past, future, ragged_ok: bool = False):
         """(past, future) numpy batches -> tensors on the trainer's device in
-        the compute dtype."""
+        the compute dtype. Under W > 1 ranks a batch of other than
+        ``batch_size // W`` rows raises ValueError unless ``ragged_ok``: the
+        steps weigh every rank's means alike, so unequal shares would not be
+        the global batch's means (the JAX Trainer raises on a ragged batch
+        under multi-host, ``trainer.py:265-284``)."""
+        if (not ragged_ok and self.mesh.data > 1
+                and np.shape(past)[0] != self.local_batch):
+            raise ValueError(
+                f"ragged batch of {np.shape(past)[0]} rows on rank {self.mesh.rank}: "
+                f"each of the {self.mesh.data} ranks takes {self.local_batch} "
+                f"(data.batch_size // W); use drop_last batches")
         return self._stage(past), self._stage(future)
 
     def _sync(self):
@@ -248,8 +272,11 @@ class Trainer:
                 self.logger.info("resumed from step %s (epoch %d)",
                                  latest, start_epoch)
 
-        train_loader = build_loader(cfg.data, split="train", seed=cfg.seed)
-        val_loader = build_loader(cfg.data, split="val", seed=cfg.seed)
+        # each rank iterates its shard of the index space (the reference's
+        # DistributedSampler for train and val, train_FAR_mp.py:71-77)
+        shard = {"host_id": self.mesh.rank, "num_hosts": self.mesh.data}
+        train_loader = build_loader(cfg.data, split="train", seed=cfg.seed, **shard)
+        val_loader = build_loader(cfg.data, split="val", seed=cfg.seed, **shard)
         # the loaders' epoch counts (their shuffles and augmentation draws)
         # go on from where the saved run stopped
         train_loader.epoch = start_epoch
@@ -257,11 +284,15 @@ class Trainer:
         if self.steps_per_dispatch > 1:
             self.logger.info("steps_per_dispatch %d: the port runs the steps of "
                              "a group one after another", self.steps_per_dispatch)
+        if self.mesh.data > 1:
+            self.logger.info("data parallel over %d ranks, %d rows a rank",
+                             self.mesh.data, self.local_batch)
 
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             for epoch in range(start_epoch + 1, start_epoch + epochs + 1):
                 epoch_start = datetime.now()
-                profile = bool(cfg.profile_dir) and epoch == start_epoch + 1
+                profile = (bool(cfg.profile_dir) and epoch == start_epoch + 1
+                           and self.mesh.rank == 0)
                 state, avg = self._train_epoch(state, train_loader, profile)
                 if self.writer is not None:
                     self.writer.write_scalars(epoch, avg, prefix="train/")
@@ -311,7 +342,7 @@ class Trainer:
         self._sync()
         if prof is not None:
             self._stop_profile(prof)
-        dt = time.perf_counter() - t0
+        dt = max_over_ranks(time.perf_counter() - t0)   # the slowest rank's
 
         avg = meters.averages()
         avg["steps_per_sec"] = n_steps / max(dt, 1e-9)
