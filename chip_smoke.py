@@ -205,15 +205,48 @@ Phases (any failure exits non-zero, without the final result line):
    --mode far_rip --num-pred 10 --max-batches 1` on that checkpoint: exit
    codes 0, rank 0's checkpoint, log and scalars, finite losses and
    curves, in a temporary directory removed at the end;
-36. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
-   launches in one far_bair_dp step, `far_bair_dp_launches`; #1/#3 also at the
+36. the reference's checkpoints: the torch re-derivations of the reference
+   modules (tests/_torch_port_upstream.py, seeded, random BatchNorm
+   statistics) at far_mnist's geometry (AE ngf 64 / feat 528 / 9 res blocks,
+   FAR 12 layers / d 528 / 8 heads) and nar_mnist's (NAR 4 + 8, RPE) written
+   as epoch_N.tar files in the whole save_ckpt envelope (module. prefixes,
+   an unimportable Loss_tuple, an Adam state, the code bytes), read by
+   import_reference_checkpoint and put into port states on the card by
+   state_with_reference_weights, f32 and bf16: the transformer's latents
+   and the teacher-forced "far" and the "nar" frames against the
+   re-derivations' f32 forwards on the card; the far_rip predict (#1 and
+   #2 120 launches) and the nar predict (#1 4, #5 8, #2 20) from those
+   weights;
+37. transformer.remat at far_mnist full width, on the default route and on
+   the fused-FFN route: a train step with remat off and one with remat on
+   (and the decoder checkpointed, as the Trainer sets it) from one seed,
+   the forward kernels launched twice and the backward kernels once with
+   remat; T_total, every gradient and parameter leaf (within 2^-8 of its
+   largest, or 4x the floor the remat-off step run twice gives: the card's
+   backward is not bit-reproducible), the generator's state after the
+   step; ms (off, on, on, off) and each step's memory peak;
+38. the same at nar_mnist, with and without transformer.tslma, the
+   BatchNorm running statistics too;
+39. far_bair_dp's one-rank step at the preset's batch 64 with remat, through
+   the Trainer: #1/#2 24 and #3/#4 12 launches, its ms, training frames/s
+   and memory peak, the peak below phase 33's without remat;
+40. transformer.scan_layers at far_mnist and nar_mnist full width: the
+   unrolled model's weights as a stacked JAX-layout tree (numpy) loaded by
+   load_jax_variables into the scan_layers model, its predict frames equal
+   to the unrolled model's and its train step's T_total and gradients
+   against the unrolled step's (as phase 37), and the same with remat on;
+41. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+   launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
+   remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
+   #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
+   #1/#3 also at the
    temporal shapes and at the NAR shape; #9 and #10 with their bf16 routes
    and resident clusters; #2 and #4 timed in the layer's strided layout,
    their library yardsticks too, with the route, the contiguous-layout
    time (and #4's error there) and the NAR-shape time, each also replayed
    from a CUDA graph; #2's and #4's long route as rows of their own,
-   attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160)
-   and, last, {"ok": true, "device": {...}}.
+   attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160),
+   the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
 torch.cuda.is_available() is false.
@@ -238,6 +271,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SEED = 0
+ADAM_EPS = 1e-8               # train/optim.py::adam's eps, the presets' optimizers'
 BATCH, PAST, FUTURE = 10, 10, 10
 LAYERS = 12
 TRAIN_STEPS = 10              # the loss-falling run
@@ -2606,6 +2640,540 @@ def dp_phases(dev, card):
     return summary, extra, launches
 
 
+# ----------------------------------------------------------------------------
+# phases 36-40: the upstream .tar loader, transformer.remat, scan_layers
+
+def _upstream():
+    """tests/_torch_port_upstream.py beside this file (the reference modules
+    re-derived in torch and the save_ckpt envelope; torch and numpy only),
+    loaded by its path: another package named ``tests`` may be installed."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "_torch_port_upstream.py"
+    spec = importlib.util.spec_from_file_location("_torch_port_upstream", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _leaf_diffs(a, b):
+    """{name: |a - b|_2 over |a|_2} for two {name: tensor} of one shape
+    each."""
+    return {n: (a[n].float() - b[n].float()).norm().item()
+            / max(a[n].float().norm().item(), 1e-30) for n in a}
+
+
+def grads_against_floor(what, ref, again, got):
+    """Each gradient leaf of ``got`` against ``ref`` ({name: tensor}) by its
+    relative L2 distance, beside the floor the same step run twice gives
+    (``again`` against ``ref``): the card's backward is not bit-
+    reproducible (reductions whose order varies from run to run), and a
+    leaf whose exact gradient is 0 -- a key projection's bias, which the
+    softmax cancels; a bias that a BatchNorm removes -- holds only that
+    noise (distance ~1 from run to run). A leaf passes within 2^-8 or 4x
+    its floor; a step that drew other masks or recomputed other values
+    moves the leaves with real gradients by far more than either. Returns
+    (bit-equal, the remat-off step reproducible bit for bit, the worst
+    leaf by its margin over the allowance, its distance, its floor)."""
+    diff, floor = _leaf_diffs(ref, got), _leaf_diffs(ref, again)
+    margin = {n: diff[n] / max(2 ** -8, 4 * floor[n]) for n in diff}
+    worst = max(margin, key=margin.get)
+    check(margin[worst] <= 1.0, f"{what}: every leaf within 2^-8 (relative L2) or 4x the "
+          f"same step's run-to-run floor (the worst {worst}: {diff[worst]:.3e}, floor "
+          f"{floor[worst]:.3e})")
+    return (all(torch.equal(ref[n], got[n]) for n in ref),
+            all(torch.equal(ref[n], again[n]) for n in ref), worst, diff[worst], floor[worst])
+
+
+def params_on_firm_gradients(what, start, ref, got, g_ref, g_again, clip_scale):
+    """Each parameter leaf after the step, ``got`` against ``ref``, where the
+    gradient is firm: AdamW's first step moves an element by lr g / (|g| +
+    eps), about lr times the sign of g, so where the gradient is run-to-run
+    noise the two steps may move it 2 lr apart, and where |g| is near eps
+    the move follows |g| itself (g after the clip: ``clip_scale`` times the
+    raw gradient). Leaves whose gradient is noise as a whole (their L2
+    floor above 2^-4) are left out; in the others an element counts where
+    its gradient is above 2^-6 of its leaf's largest, its clipped gradient
+    above 64 eps, and its gradient above 8x its own run-to-run difference.
+    Held at a sixteenth of the leaf's largest move; returns the worst
+    (leaf, error over that move, elements compared)."""
+    floor = _leaf_diffs(g_ref, g_again)
+    worst, worst_rel, n_firm = None, 0.0, 0
+    for n, p in ref.items():
+        g, d = g_ref[n].float().abs(), (g_ref[n].float() - g_again[n].float()).abs()
+        firm = (g > 2 ** -6 * g.max()) & (clip_scale * g > 64 * ADAM_EPS) & (g > 8 * d)
+        step = (p.float() - start[n].float()).abs().max().item()
+        if floor[n] > 2 ** -4 or not bool(firm.any()) or step == 0.0:
+            continue
+        n_firm += int(firm.sum())
+        rel = (got[n].float() - p.float()).abs()[firm].max().item() / step
+        if rel >= worst_rel:
+            worst, worst_rel = n, rel
+    check(n_firm > 0 and worst_rel <= 2 ** -4, f"{what}: the parameters where the "
+          f"gradient is firm ({n_firm} elements) within 1/16 of their leaf's largest move "
+          f"(the worst {worst}: {worst_rel:.3e})")
+    return worst, worst_rel, n_firm
+
+
+def upstream_phases(dev):
+    """Phase 36: reference-format epoch_N.tar files of far_mnist's and
+    nar_mnist's geometry loaded into port states on the card. Returns
+    (extra readings, far_rip launches)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.position import position_embedding_1d, position_embedding_2d
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.utils import torch_import
+
+    up = _upstream()
+    far_cfg, nar_cfg = get_preset("far_mnist"), get_preset("nar_mnist")
+    ae, ftc, ntc = far_cfg.ae, far_cfg.transformer, nar_cfg.transformer
+    c, heads, win = ftc.d_model, ftc.n_heads, ftc.window_size
+    extra = {}
+
+    def seeded(cls, seed, *args, **kw):
+        torch.manual_seed(seed)
+        m = cls(*args, **kw).eval()
+        up.randomize_bn(m, torch.Generator().manual_seed(seed))
+        return m
+
+    phase(f"36. upstream epoch_N.tar at full width: the reference's far_mnist (AE ngf "
+          f"{ae.ngf} / feat {ae.feat_dim} / {ae.n_res_blocks} res blocks, FAR "
+          f"{ftc.num_encoder_layers} layers at {c} / {heads} heads) and nar_mnist (NAR "
+          f"{ntc.num_encoder_layers} + {ntc.num_decoder_layers}, RPE) modules, loaded "
+          f"through import_reference_checkpoint + state_with_reference_weights")
+    tenc = seeded(up.TorchVPTREnc, SEED + 200, ae.img_channels, ae.ngf, ae.feat_dim,
+                  ae.n_downsampling, ae.n_res_blocks)
+    tdec = seeded(up.TorchVPTRDec, SEED + 201, ae.img_channels, ae.ngf, ae.feat_dim,
+                  ae.n_downsampling)
+    tfar = seeded(up.TorchFAR, SEED + 202, ftc.num_encoder_layers, c, heads, win,
+                  ftc.enc_h, ftc.enc_w)
+    tnar = seeded(up.TorchNAR, SEED + 203, ntc.num_encoder_layers, ntc.num_decoder_layers,
+                  c, heads, win, ntc.enc_h, ntc.enc_w, ntc.num_future_frames)
+    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_tar_"))
+    try:
+        t0 = time.perf_counter()
+        up.write_reference_tar(root / "epoch_40.tar", {"VPTR_Enc": tenc, "VPTR_Dec": tdec,
+                                                       "VPTR_Transformer": tfar}, epoch=40)
+        up.write_reference_tar(root / "epoch_50.tar", {"VPTR_Transformer": tnar}, epoch=50)
+        t1 = time.perf_counter()
+        far_conv = torch_import.import_reference_checkpoint(str(root / "epoch_40.tar"))
+        nar_conv = torch_import.import_reference_checkpoint(str(root / "epoch_50.tar"))
+        t2 = time.perf_counter()
+        sizes = {p.name: p.stat().st_size for p in root.iterdir()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  files {sizes} bytes (module. prefixes, an unimportable Loss_tuple, an Adam "
+          f"state, the code bytes): written in {t1 - t0:.2f} s, read and converted in "
+          f"{t2 - t1:.2f} s")
+    check(set(far_conv) == {"VPTR_Enc", "VPTR_Dec", "VPTR_Transformer"}
+          and set(nar_conv) == {"VPTR_Transformer"},
+          f"modules recognised: {sorted(far_conv)}, {sorted(nar_conv)}")
+    extra.update(tar_bytes=sizes, tar_read_s=t2 - t1)
+
+    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 204)).to(dev)
+    past, future = frames[:, :PAST], frames[:, PAST:]
+    nb = nar_cfg.data.batch_size
+    nar_past = torch.rand(nb, ntc.num_past_frames, 64, 64, 1,
+                          generator=torch.Generator().manual_seed(SEED + 205)).to(dev)
+    lw = position_embedding_2d(win, win, c).to(dev)
+    tpos = position_embedding_1d(ftc.num_past_frames + ftc.num_future_frames, c).to(dev)
+
+    # the re-derivations' f32 forwards on the card (TF32 off)
+    with torch.inference_mode():
+        for m in (tenc, tdec, tfar, tnar):
+            m.to(dev)
+        x = torch.cat([past, future[:, :-1]], dim=1)
+        far_lat = tfar(up.encode_clips(tenc, x), lw, tpos[:x.shape[1]])
+        want_far = up.decode_clips(tdec, far_lat)[:, -FUTURE:]
+        nar_lat = tnar(up.encode_clips(tenc, nar_past), lw, tpos)
+        want_nar = up.decode_clips(tdec, nar_lat)
+        for m in (tenc, tdec, tfar, tnar):
+            m.cpu()
+    torch.cuda.empty_cache()
+
+    def loaded(cfg, conv, dtype):
+        enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
+        tr = build_transformer(cfg.transformer, dtype, dev,
+                               torch.Generator().manual_seed(SEED + 1))
+        state = create_far_train_state(enc, dec, tr, build_optimizer(cfg.optim, c),
+                                       seed=SEED + 3)
+        new = torch_import.state_with_reference_weights(state, conv)
+        check(all(next(getattr(new, f).parameters()).device.type == "cuda"
+                  for f in ("enc", "dec", "transformer")),
+              f"{cfg.transformer.variant} state {dtype}: the loaded modules are on the card")
+        return new
+
+    def latents(s, frames, want, what, dtype):
+        """The loaded transformer's output on the loaded encoder's latents
+        against the re-derivation's: max |err| over max(1, max |want|);
+        held in f32 (2e-3, the CPU parity tests' bound at this depth),
+        printed in bf16."""
+        with torch.inference_mode():
+            e = rel_err(s.transformer.eval()(s.enc.eval()(frames)), want)
+        if dtype == torch.float32:
+            check(e <= 2e-3, f"{what} from the .tar, the transformer's latents, port f32 vs "
+                  f"the re-derivation's: rel err {e:.3e} <= 2e-3")
+        else:
+            print(f"  {what} from the .tar, the transformer's latents, port bf16 vs the "
+                  f"re-derivation's f32: rel err {e:.3e}")
+        return e
+
+    both = {"VPTR_Enc": far_conv["VPTR_Enc"], "VPTR_Dec": far_conv["VPTR_Dec"], **nar_conv}
+    # frames: f32 as the latents; bf16 as phase 3's bf16 kernels (2^-4)
+    tol = {torch.float32: 2e-3, torch.bfloat16: 2 ** -4}
+    far_launches = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        s = loaded(far_cfg, far_conv, dtype)
+        far = make_predict_fn(far_cfg, s.enc, s.dec, s.transformer, "far", FUTURE, dev)
+        e = max_err(far(past, future), want_far)
+        check(e <= tol[dtype], f"far_mnist from the .tar, teacher-forced 'far' frames, port "
+              f"{name} vs the re-derivation's f32 forward: max|err| {e:.3e} <= {tol[dtype]}")
+        extra[f"far_{name}_max_abs_err"] = e
+        extra[f"far_{name}_latent_rel_err"] = latents(s, x, far_lat, "far_mnist", dtype)
+        if dtype == torch.bfloat16:
+            rip = make_predict_fn(far_cfg, s.enc, s.dec, s.transformer, "far_rip", FUTURE,
+                                  dev)
+            want = LAYERS * FUTURE
+            _, far_launches = counted_predict(
+                rip, (past,), {"fused_attention_ln": want, "attention_core": want},
+                (BATCH, FUTURE, 64, 64, 1), "far_rip from the .tar")
+        del s, far
+        torch.cuda.empty_cache()
+        s = loaded(nar_cfg, both, dtype)
+        nar = make_predict_fn(nar_cfg, s.enc, s.dec, s.transformer, "nar",
+                              ntc.num_future_frames, dev)
+        enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
+        got, _ = counted_predict(nar, (nar_past,), {
+            "fused_attention_ln": enc_l, "fused_attention": dec_l,
+            "attention_core": enc_l + 2 * dec_l}, (nb, ntc.num_future_frames, 64, 64, 1),
+            f"nar predict from the .tar ({name})")
+        e = max_err(got, want_nar)
+        check(e <= tol[dtype], f"nar_mnist from the .tar, nar frames, port {name} vs the "
+              f"re-derivation's f32 forward: max|err| {e:.3e} <= {tol[dtype]}")
+        extra[f"nar_{name}_max_abs_err"] = e
+        extra[f"nar_{name}_latent_rel_err"] = latents(s, nar_past, nar_lat, "nar_mnist", dtype)
+        del s, nar, got
+        torch.cuda.empty_cache()
+    return extra, far_launches
+
+
+def remat_pair(dev, preset, flags, label, want_fwd, want_bwd):
+    """Two train steps at full width from one seed, ``transformer.remat``
+    off and on (the decoder checkpointed with it, as the Trainer sets it),
+    on the route ``flags``: the metrics, every gradient, the parameters
+    after the step, the generator's state and the BatchNorm statistics
+    compared (bit-equal expected; a leaf past 2^-8 of its largest fails);
+    the launches around each step (forwards twice with remat, backwards
+    once); then each step's ms (off, on, on, off) and memory peak above
+    what the state holds. Returns the readings."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
+
+    cfg = get_preset(preset).override({"transformer": flags})
+    tc = cfg.transformer
+    nar = tc.variant == "nar"
+    batch = cfg.data.batch_size if nar else BATCH
+    frames = torch.rand(batch, tc.num_past_frames + tc.num_future_frames, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 210)).to(dev)
+    past, future = frames[:, :tc.num_past_frames], frames[:, tc.num_past_frames:]
+    enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
+                                 torch.Generator().manual_seed(SEED))
+    make = make_nar_train_step if nar else make_far_train_step
+    runs = {}
+    for remat in (False, True):
+        rc = cfg.override({"transformer": {"remat": remat}})
+        tr = build_transformer(rc.transformer, torch.bfloat16, dev,
+                               torch.Generator().manual_seed(SEED + 1))
+        opt = build_optimizer(rc.optim, tc.d_model)
+        state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+        step = make(enc, dec, tr, opt, rc.loss, remat_decoder=remat)
+        zero_counters()
+        after, m = step(state.clone(), past, future)
+        torch.cuda.synchronize()
+        launches = launch_counts(*want_fwd, *want_bwd)
+        want = {k: (2 * n if remat else n) for k, n in want_fwd.items()}
+        check_counts(launches, {**want, **want_bwd},
+                     f"one {label} step with remat {'on' if remat else 'off'}")
+        runs[remat] = dict(state=state, step=step, launches=launches, after=after,
+                           metrics={k: float(v) for k, v in m.items()})
+    # the remat-off step once more from the same state: the card's floor
+    again, _ = runs[False]["step"](runs[False]["state"].clone(), past, future)
+    a, b = runs[False]["after"], runs[True]["after"]
+    ma, mb = runs[False]["metrics"], runs[True]["metrics"]
+    check(all(v == v and abs(v) != float("inf") for v in mb.values()),
+          f"{label}: remat step metrics finite")
+    check(abs(ma["T_total"] - mb["T_total"]) <= 2 ** -8 * max(1.0, abs(ma["T_total"])),
+          f"{label}: T_total remat on {mb['T_total']!r} vs off {ma['T_total']!r} "
+          f"(equal: {ma['T_total'] == mb['T_total']})")
+
+    def tensors(st, grad):
+        return {n: (p.grad if grad else p) for n, p in st.transformer.named_parameters()}
+    equal, reproducible, *_ = grads_against_floor(
+        f"{label}: remat on vs off, the gradients", tensors(a, True), tensors(again, True),
+        tensors(b, True))
+    clip = cfg.optim.max_grad_norm       # the optimizer's global-norm clip
+    params_on_firm_gradients(f"{label}: remat on vs off",
+                             tensors(runs[False]["state"], False), tensors(a, False),
+                             tensors(b, False), tensors(a, True), tensors(again, True),
+                             1.0 if clip is None else clip / max(ma["grad_norm"], clip))
+    stats = {n: t for n, t in a.transformer.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    if nar:
+        moved = {n: t for n, t in b.transformer.named_buffers() if n in stats}
+        e = max(max_err(stats[n], moved[n]) / max(stats[n].abs().max().item(), 1e-30)
+                for n in stats)
+        check(len(stats) > 0 and e <= 2 ** -8, f"{label}: the {len(stats)} BatchNorm "
+              f"statistics after the step, remat on vs off, within 2^-8 of each leaf's "
+              f"largest (the forward is reproducible; {e:.3e})")
+        equal = equal and e == 0.0
+    gen_equal = torch.equal(a.generator.get_state(), b.generator.get_state())
+    check(gen_equal, f"{label}: the generator's state after the step equal with remat on "
+          f"and off")
+    bit_equal = ma == mb and gen_equal and equal
+    worst_grad = max(_leaf_diffs(tensors(a, True), tensors(b, True)).values())
+    del again
+
+    # times (off, on, on, off) and each step's peak above what is held
+    timing = {False: [], True: [], "peak": {}}
+    for remat in (False, True, True, False):
+        r = runs[remat]
+        s = r["state"].clone()
+        for _ in range(WARMUP_STEPS):
+            s, _ = r["step"](s, past, future)
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = [host_ms(lambda: r["step"](s, past, future)) for _ in range(3)]
+        timing[remat].append(statistics.median(times))
+        timing["peak"][remat] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        del s
+    off_ms, on_ms = min(timing[False]), min(timing[True])
+    frames_step = batch * (tc.num_future_frames if nar
+                           else tc.num_past_frames + tc.num_future_frames - 1)
+    print(f"  {label}: remat off {off_ms:.3f} ms ({timing[False]}), on {on_ms:.3f} ms "
+          f"({timing[True]}): x{on_ms / off_ms:.3f}, {frames_step / on_ms * 1e3:.1f} training "
+          f"frames/s with remat; step peak above the state off {timing['peak'][False]:.3f} "
+          f"GiB, on {timing['peak'][True]:.3f} GiB; bit-equal {bit_equal} (remat off "
+          f"reproducible bit for bit: {reproducible}); launches off "
+          f"{runs[False]['launches']}, on {runs[True]['launches']}")
+    out = dict(off_ms=off_ms, on_ms=on_ms, off_peak_gib=timing["peak"][False],
+               on_peak_gib=timing["peak"][True], bit_equal=bit_equal,
+               reproducible=reproducible, worst_grad_l2=worst_grad,
+               launches_off=runs[False]["launches"], launches_on=runs[True]["launches"])
+    del runs, a, b, enc, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phases(dev, dp_extra):
+    """Phases 37-39: transformer.remat at far_mnist (the default and the
+    fused-FFN route), nar_mnist (with and without TSLMA) and far_bair_dp's
+    one-rank step. Returns the readings."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    core = {"fused_attention_ln": LAYERS, "attention_core": LAYERS}
+    core_bwd = {"fused_attention_ln_bwd": LAYERS, "attention_core_bwd": LAYERS}
+    phase("37. transformer.remat at far_mnist full width: the default route and the "
+          "fused-FFN route (fused_ffn + fused_dw), remat off against on from one seed")
+    out["far_default"] = remat_pair(dev, "far_mnist", {}, "far_mnist default route", core,
+                                    core_bwd)
+    out["far_ffn"] = remat_pair(
+        dev, "far_mnist", {"fused_ffn": True, "fused_dw": True}, "far_mnist fused-FFN route",
+        {**core, "fused_ffn": LAYERS, "fused_dw_chain": LAYERS},
+        {**core_bwd, "fused_ffn_bwd": LAYERS, "fused_dw_chain_bwd": LAYERS})
+
+    ntc = get_preset("nar_mnist").transformer
+    enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
+    nfwd = {"fused_attention_ln": enc_l, "fused_attention": dec_l,
+            "attention_core": enc_l + 2 * dec_l}
+    nbwd = {"fused_attention_ln_bwd": enc_l, "fused_attention_bwd": dec_l,
+            "attention_core_bwd": enc_l + 2 * dec_l}
+    phase("38. transformer.remat at nar_mnist full width, with and without "
+          "transformer.tslma: remat off against on, the BatchNorm statistics too")
+    out["nar"] = remat_pair(dev, "nar_mnist", {}, "nar_mnist", nfwd, nbwd)
+    out["nar_tslma"] = remat_pair(dev, "nar_mnist", {"tslma": True}, "nar_mnist + tslma",
+                                  nfwd, nbwd)
+
+    cfg = get_preset(DP_PRESET).override({"transformer": {"remat": True}})
+    tc, dc = cfg.transformer, cfg.data
+    phase(f"39. {DP_PRESET}'s one-rank step at the preset's batch {dc.batch_size} with "
+          f"transformer.remat (Trainer: the blocks and the decoder checkpointed) against "
+          f"phase 33's without")
+    from contextlib import closing
+    with closing(iter(build_loader(dc, split="train", seed=cfg.seed))) as it:
+        past_np, future_np = next(it)
+    trainer = Trainer(cfg, write_outputs=False)
+    state = trainer.init_state()
+    past, future = trainer.put_batch(past_np, future_np)
+    want = {k: 2 * tc.num_encoder_layers for k in ("fused_attention_ln", "attention_core")}
+    want.update({k: tc.num_encoder_layers for k in ("fused_attention_ln_bwd",
+                                                    "attention_core_bwd")})
+    torch.cuda.reset_peak_memory_stats()
+    state, launches = counted_step(trainer.train_step, state, past, future, want,
+                                   f"{DP_PRESET} train step with remat")
+    for _ in range(WARMUP_STEPS):
+        state, _ = trainer.train_step(state, past, future)
+    times = [host_ms(lambda: trainer.train_step(state, past, future))
+             for _ in range(TIMED_STEPS)]
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frames = dc.batch_size * (dc.num_past_frames + dc.num_future_frames - 1)
+    off_ms, off_peak = dp_extra.get("one_rank_step_ms"), dp_extra.get("one_rank_peak_gib")
+    print(f"  batch {dc.batch_size}: remat median {step_ms:.3f} ms of {len(times)} "
+          f"({[round(t, 3) for t in times]}), {frames / step_ms * 1e3:.1f} training "
+          f"frames/s, peak {peak:.3f} GiB; phase 33 without remat: {off_ms} ms, "
+          f"{off_peak} GiB (batch {dp_extra.get('one_rank_batch')})")
+    check(off_peak is not None and dp_extra.get("one_rank_batch") == dc.batch_size
+          and peak < off_peak, f"{DP_PRESET} peak with remat {peak:.3f} GiB below phase "
+          f"33's {off_peak} GiB without, at one batch")
+    out["far_bair_dp"] = dict(batch=dc.batch_size, ms=step_ms,
+                              frames_per_s=frames / step_ms * 1e3, peak_gib=peak,
+                              launches=launches, off_ms=off_ms, off_peak_gib=off_peak)
+    del trainer, state, past, future
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stacked(tree, prefix, stack):
+    """The JAX scan_layers layout of an unrolled tree: the ``<prefix>{i}``
+    subtrees as one ``<stack>/block`` whose leaves stack them on axis 0
+    (what nn.scan's variable_axes 0 gives)."""
+    layers = [tree.pop(f"{prefix}{i}") for i in range(len(tree))
+              if f"{prefix}{i}" in tree]
+
+    def stack_(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack_([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+    if layers:
+        tree[stack] = {"block": stack_(layers)}
+    return tree
+
+
+def scan_phases(dev):
+    """Phase 40: transformer.scan_layers at far_mnist and nar_mnist full
+    width, from the unrolled model's weights as a stacked JAX-layout tree.
+    Returns the readings."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
+    from vptr_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
+
+    phase("40. transformer.scan_layers at far_mnist and nar_mnist full width: weights "
+          "as a stacked JAX-layout tree (numpy) through load_jax_variables; predict and "
+          "one train step against the unrolled model's, then with remat too")
+    out = {}
+    for preset in ("far_mnist", "nar_mnist"):
+        cfg = get_preset(preset)
+        tc = cfg.transformer
+        nar = tc.variant == "nar"
+        batch = cfg.data.batch_size if nar else BATCH
+        frames = torch.rand(batch, tc.num_past_frames + tc.num_future_frames, 64, 64, 1,
+                            generator=torch.Generator().manual_seed(SEED + 220)).to(dev)
+        past, future = frames[:, :tc.num_past_frames], frames[:, tc.num_past_frames:]
+        enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
+                                     torch.Generator().manual_seed(SEED))
+        tree = None
+        results = {}
+        for label, over in (("unrolled", {}), ("scan_layers", {"scan_layers": True}),
+                            ("scan_layers + remat", {"scan_layers": True, "remat": True})):
+            rc = cfg.override({"transformer": over})
+            tr = build_transformer(rc.transformer, torch.bfloat16, dev,
+                                   torch.Generator().manual_seed(SEED + 1 + len(results)))
+            if tree is None:
+                tree = export_jax_variables(tr)
+                stacked = {col: (_stacked(_stacked(dict(t), "enc_block", "enc_blocks"),
+                                          "dec_block", "dec_blocks") if nar else
+                                 _stacked(dict(t), "block", "blocks"))
+                           for col, t in tree.items()}
+                stacks = sorted(k for k in stacked["params"] if k.endswith("blocks"))
+                lead = {k: next(iter(_flat_leaves(stacked["params"][k]))).shape[0]
+                        for k in stacks}
+                print(f"  {preset}: stacked tree {stacks}, leading axes {lead}"
+                      + (f", batch_stats {sorted(stacked['batch_stats'])}" if nar else ""))
+            else:
+                load_jax_variables(tr, stacked)
+            mode = "nar" if nar else "far_rip"
+            predict = make_predict_fn(rc, enc, dec, tr, mode, tc.num_future_frames, dev)
+            pred = predict(past)
+            opt = build_optimizer(rc.optim, tc.d_model)
+            state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+            make = make_nar_train_step if nar else make_far_train_step
+            step = make(enc, dec, tr, opt, rc.loss, remat_decoder=rc.transformer.remat)
+            runs = []
+            for _ in range(2 if label == "unrolled" else 1):   # unrolled twice: the floor
+                after, m = step(state.clone(), past, future)
+                runs.append(({_unrolled_name(n): p.grad.detach().clone()
+                              for n, p in after.transformer.named_parameters()},
+                             float(m["T_total"])))
+            results[label] = dict(pred=pred, runs=runs)
+            del state, tr, opt, predict, after
+            torch.cuda.empty_cache()
+        (base, base_total), (again, _) = results["unrolled"]["runs"]
+        for label in ("scan_layers", "scan_layers + remat"):
+            r = results[label]
+            grads, total = r["runs"][0]
+            e_pred = max_err(r["pred"], results["unrolled"]["pred"])
+            check(e_pred == 0.0, f"{preset} {label}: {mode} frames equal the unrolled "
+                  f"model's from the same weights (max|err| {e_pred:.3e})")
+            check(abs(total - base_total) <= 2 ** -8 * max(1.0, base_total),
+                  f"{preset} {label}: T_total {total!r} vs unrolled {base_total!r} "
+                  f"(equal: {total == base_total})")
+            equal, reproducible, worst, diff, floor = grads_against_floor(
+                f"{preset} {label}: the step's gradients against the unrolled step's",
+                base, again, grads)
+            out[f"{preset} {label}"] = dict(pred_max_abs_err=e_pred, grads_bit_equal=equal,
+                                            unrolled_reproducible=reproducible,
+                                            worst_leaf=worst, worst_rel=diff,
+                                            floor=floor, total=total,
+                                            unrolled_total=base_total)
+        del results, base, again, enc, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _unrolled_name(name: str) -> str:
+    """A scan_layers parameter's name as the unrolled model's
+    (``blocks.3.x`` -> ``block3.x``, ``enc_blocks.1.x`` -> ``enc_block1.x``)."""
+    return re.sub(r"^(enc_|dec_)?blocks\.(\d+)\.", r"\1block\2.", name)
+
+
+def _flat_leaves(tree):
+    """The numpy leaves of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat_leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2638,6 +3206,7 @@ def main() -> int:
     from vptr_tpu_torch.train.state import create_far_train_state
     from vptr_tpu_torch.train.steps import make_far_train_step
 
+    run_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 = full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3157,8 +3726,21 @@ def main() -> int:
     for row in rows_out:          # #1-#4 in one far_bair_dp train step (phase 33)
         if dp_launches and row["name"] in dp_launches:
             row["far_bair_dp_launches"] = dp_launches[row["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    upstream_extra, tar_launches = upstream_phases(dev)
+    remat_extra = remat_phases(dev, dp_extra)
+    scan_extra = scan_phases(dev)
+    remat_launches = {**remat_extra["far_default"]["launches_on"],
+                      **remat_extra["far_ffn"]["launches_on"]}
+    for row in rows_out:
+        name = row["name"]
+        if tar_launches and name in tar_launches:     # phase 36's far_rip from the .tar
+            row["upstream_far_rip_launches"] = tar_launches[name]
+        if name in remat_launches:   # a far_mnist remat step (phase 37; #7-#10: fused-FFN)
+            row["far_remat_step_launches"] = remat_launches[name]
 
-    phase("36. result")
+    phase("41. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -3177,6 +3759,10 @@ def main() -> int:
     print(f"  {json.dumps(tslma_extra)}")
     print(f"  {dp_summary}")
     print(f"  {json.dumps(dp_extra)}")
+    print(f"  upstream .tar: {json.dumps(upstream_extra)}")
+    print(f"  remat: {json.dumps(remat_extra)}")
+    print(f"  scan_layers: {json.dumps(scan_extra)}")
+    print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

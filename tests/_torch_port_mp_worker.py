@@ -140,7 +140,7 @@ def run_case(case):
         state = tstate.create_far_train_state(enc, dec, tr, opt, seed=7)
         make = (tsteps.make_far_train_step if case["kind"] == "far"
                 else tsteps.make_nar_train_step)
-        step = make(enc, dec, tr, opt, cfg.loss)
+        step = make(enc, dec, tr, opt, cfg.loss, remat_decoder=cfg.transformer.remat)
         trained = {"transformer": state.transformer}
     w, r = num_hosts(), host_id()
     b = case["past"].shape[0] // w

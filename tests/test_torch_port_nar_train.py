@@ -116,14 +116,15 @@ def _min_neighbour_gap(pred: torch.Tensor) -> float:
                float((pred[..., :, 1:, :] - pred[..., :, :-1, :]).abs().min()))
 
 
-def check_train_step(route, past, weighted, seed=80):
+def check_train_step(route, past, weighted, seed=80, remat_decoder=False):
     """One step of both packages from one set of weights (the module
-    notes); ``seed`` draws the weights and frames."""
+    notes); ``seed`` draws the weights and frames; ``remat_decoder``
+    checkpoints both steps' decoder."""
     s = _setup(route, past, seed=seed, weighted=weighted)
     jc, tc = s["jc"], s["tc"]
     (jenc, jdec, jtr), tv = s["jmods"], s["jvars"][2]
     jstep = jax.jit(jmake_nar_train_step(jenc, jdec, jtr, None, _grad_probe(),
-                                         None, jc.loss))
+                                         None, jc.loss, remat_decoder=remat_decoder))
     jnew, jm = jstep(_jax_state(s["jvars"], _grad_probe()),
                      jnp.asarray(s["past"]), jnp.asarray(s["future"]))
     jgrads = jnew.t_opt
@@ -140,7 +141,8 @@ def check_train_step(route, past, weighted, seed=80):
     with torch.no_grad():
         gap = _min_neighbour_gap(dec(probe(enc(t(s["past"])))))
     assert gap >= 1e-7, f"seed {seed}: neighbouring predicted pixels tie ({gap})"
-    step = make_nar_train_step(enc, dec, state.transformer, opt, tc.loss)
+    step = make_nar_train_step(enc, dec, state.transformer, opt, tc.loss,
+                               remat_decoder=remat_decoder)
     state, m = step(state, t(s["past"]), t(s["future"]))
 
     for k in ("T_MSE", "T_GDL", "T_bpc"):

@@ -20,6 +20,12 @@ one process at the global batch, and against the JAX package.
 (c) the parameters are ``torch.equal`` across the ranks after each step,
     and the BatchNorm running statistics (the AE's and D's, the NAR
     encoder's conv FFN) within 1e-5 of the one-process run's;
+(e) the ranks with ``transformer.remat`` on (the blocks and the decoder
+    checkpointed; under W ranks the NAR encoder's BatchNorm sums pass
+    through the all-reduce again in each recompute) on the fused-FFN route
+    (FAR, ``fused_ffn`` + ``fused_dw``) and with TSLMA (NAR), dropout 0.1,
+    against the one-process step with remat off, by (a)'s and (c)'s
+    checks: the BatchNorm statistics move once;
 (d) ``fold_seed``, in one process without a group: rank r's mask under the
     folded seed equals rows r·b .. (r+1)·b of the global call's, bit for
     bit, for the four hash masks against the JAX package's oracles at the
@@ -84,7 +90,12 @@ PRESETS = {"far": "far_mnist", "nar": "nar_mnist", "ae": "ae_mnist"}
 # their E[x^2] - E[x]^2 differ by ~1e-5 at each BatchNorm output, and a
 # kink crossed apart moves a few gradients by 1-6%; the test checks it)
 CASES = {"far": ("far", 0.1, 1), "nar": ("nar", 0.1, 2), "ae": ("ae", 0.1, 3),
-         "far0": ("far", 0.0, 4), "nar0": ("nar", 0.0, 5), "ae0": ("ae", 0.0, 38)}
+         "far0": ("far", 0.0, 4), "nar0": ("nar", 0.0, 5), "ae0": ("ae", 0.0, 38),
+         # (e): the ranks with transformer.remat (and the decoder
+         # checkpointed) on a kernel route, transformer flags last
+         "far_ffn_remat": ("far", 0.1, 6, {"fused_ffn": True, "fused_dw": True,
+                                           "remat": True}),
+         "nar_tslma_remat": ("nar", 0.1, 7, {"tslma": True, "remat": True})}
 METRIC_TOL = {"far": 1e-5, "nar": 1e-5, "ae": 1e-4}
 PARAM_TOL, GRAD_REL, STAT_TOL = 1e-4, 1e-4, 1e-5
 
@@ -92,8 +103,10 @@ PARAM_TOL, GRAD_REL, STAT_TOL = 1e-4, 1e-4, 1e-5
 def _case(name):
     """The case's config overrides, JAX modules, seeded random JAX-layout
     variables and a global batch of 8."""
-    kind, drop, seed = CASES[name]
+    kind, drop, seed, *flags = CASES[name]
     over = _over(kind, drop)
+    if flags:
+        over["transformer"].update(flags[0])
     jc = jcfg.get_preset(PRESETS[kind]).override(over)
     rng = np.random.default_rng(seed)
     frames = rng.uniform(0, 1, (8, 4, 32, 32, 1)).astype(np.float32)
@@ -143,10 +156,33 @@ def test_dp_step_matches_one_process(dp, name):
     case = built[name][0]
     ref = run_case(case)                   # no group here: one process, batch 8
     ranks = [r[name] for r in launch.results()]
+    _check_ranks(ranks, ref, name)
+    # dropout acted: the step differs from its dropout-0 twin's
+    assert ref["metrics"] != run_case({**case, "over": _over(case["kind"], 0.0)})["metrics"]
+
+
+@pytest.mark.parametrize("name", ["far_ffn_remat", "nar_tslma_remat"])
+def test_dp_remat_step_matches_one_process(dp, name):
+    """(e): W = 2 with remat against the one-process step without it."""
+    built, launch = dp
+    case = built[name][0]
+    assert case["over"]["transformer"]["remat"]
+    off = {**case["over"], "transformer": {**case["over"]["transformer"], "remat": False}}
+    ref = run_case({**case, "over": off})
+    ranks = [r[name] for r in launch.results()]
+    _check_ranks(ranks, ref, case["kind"])
+    if case["kind"] == "nar":   # they moved, and equal the remat-off step's: once
+        start = case["vars"]["transformer"]["batch_stats"]["enc_block0"]["spatial_ffn"]
+        got = ranks[0]["stats"]["transformer.enc_block0.spatial_ffn.norm1.running_mean"]
+        assert not np.allclose(got.numpy(), start["norm1"]["mean"], atol=1e-3)
+
+
+def _check_ranks(ranks, ref, kind):
+    """(a) and (c) for each rank's result against the one-process ``ref``."""
     for r, got in enumerate(ranks):
         assert got["metrics"].keys() == ref["metrics"].keys()
         for k, want in ref["metrics"].items():
-            assert abs(got["metrics"][k] - want) <= METRIC_TOL[name], (r, k, got["metrics"][k],
+            assert abs(got["metrics"][k] - want) <= METRIC_TOL[kind], (r, k, got["metrics"][k],
                                                                        want)
         for n, want in ref["params"].items():
             _close(got["params"][n], want, PARAM_TOL, f"rank {r} param {n}")
@@ -160,9 +196,7 @@ def test_dp_step_matches_one_process(dp, name):
         assert torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]), n
     for n in ref["stats"]:
         assert torch.equal(ranks[0]["stats"][n], ranks[1]["stats"][n]), n
-    assert (len(ref["stats"]) > 0) == (name in ("nar", "ae"))
-    # dropout acted: the step differs from its dropout-0 twin's
-    assert ref["metrics"] != run_case({**case, "over": _over(case["kind"], 0.0)})["metrics"]
+    assert (len(ref["stats"]) > 0) == (kind in ("nar", "ae"))
 
 
 def _jax_step(kind, jc, jmods, v, past, future):

@@ -285,7 +285,20 @@ def test_far_train_step_with_dropout_runs_and_repeats():
 
 
 def test_far_train_step_refuses_later_slices():
+    """Of the routes a later slice ports only sequence_parallel is left;
+    remat, refused until it was ported, builds and trains (its step
+    against remat off: test_torch_port_remat.py)."""
     _, tc = small_cfgs()
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_transformer(tc.override({"transformer": {"remat": True}}).transformer,
-                          device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        build_transformer(tc.override({"transformer": {"sequence_parallel": True}})
+                          .transformer, device="cpu")
+    enc, dec = build_autoencoder(tc.ae, device="cpu")
+    tr = build_transformer(tc.override({"transformer": {"remat": True}}).transformer,
+                           device="cpu")
+    opt = build_optimizer(tc.optim, tc.transformer.d_model)
+    state = create_far_train_state(enc, dec, tr, opt, seed=5)
+    frames = t(_frames(np.random.default_rng(23), 2, 6))
+    state, m = make_far_train_step(enc, dec, tr, opt, tc.loss, remat_decoder=True)(
+        state, frames[:, :3], frames[:, 3:])
+    assert tr.remat and state.step == 1
+    assert all(bool(torch.isfinite(v)) for v in m.values())

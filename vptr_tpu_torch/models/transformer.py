@@ -39,14 +39,28 @@ attention dropout runs inside the kernels, DropPath acts on the window,
 conv-FFN (and enc-dec) branches and Dropout on the temporal and
 linear-FFN branches, all drawn from the ``generator`` passed to
 ``forward``.
+
+``remat`` (``transformer.py:340-341, 482-483, 569-572``: ``nn.remat`` of
+each block) checkpoints every block of a training forward with autograd
+on (:func:`checkpoint_block`): its activations are dropped and the
+backward runs its forward again, drawing what the forward drew from the
+generator and leaving the BatchNorm running statistics as the forward left
+them. ``scan_layers`` (``:311-357, 472-479, 547-566``: ``nn.scan`` over one
+``block``, every leaf stacked on axis 0) holds the blocks in a
+:class:`BlockStack` named as the JAX stack (``blocks``, ``enc_blocks``,
+``dec_blocks``) instead of ``block{i}`` children; ``utils/weights.py``
+slices the stacked leaves into it and stacks them back. The arithmetic is
+the unrolled stack's, and the blocks draw from the generator in order
+(JAX's scan splits the dropout rng per layer instead).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 import numpy as np
 
@@ -77,9 +91,6 @@ from vptr_tpu_torch.ops.window import (
 # config routes that need kernels or modules of a later slice
 _LATER = {
     "sequence_parallel": "sequence parallelism (multi-GPU slice)",
-    "scan_layers": "the stacked (scanned) parameter tree (scan_layers slice)",
-    "remat": "activation checkpointing of the blocks that replays each "
-             "block's dropout draws from its torch.Generator (remat slice)",
 }
 
 
@@ -88,6 +99,89 @@ def _refuse_later(**flags) -> None:
         if on:
             raise NotImplementedError(
                 f"transformer.{name}=True needs {_LATER[name]}; not ported yet")
+
+
+class BlockStack(nn.ModuleList):
+    """The blocks of a ``scan_layers`` stack, ``<stack>.{i}``. The JAX tree
+    holds one ``<stack>/block`` whose every leaf is stacked on axis 0 over
+    the blocks; :func:`~vptr_tpu_torch.utils.weights.load_jax_variables`
+    slices such a leaf into the blocks and
+    :func:`~vptr_tpu_torch.utils.weights.export_jax_variables` stacks it
+    back."""
+
+
+def _blocks(model: nn.Module, blocks: List[nn.Module], scan: bool,
+            stack: str, prefix: str) -> None:
+    """Register ``blocks`` on ``model``: as the :class:`BlockStack`
+    ``stack`` with ``scan``, else as ``<prefix>{i}`` children."""
+    if scan:
+        model.add_module(stack, BlockStack(blocks))
+    else:
+        for i, block in enumerate(blocks):
+            model.add_module(f"{prefix}{i}", block)
+
+
+def _layers(model: nn.Module, scan: bool, stack: str, prefix: str,
+            n: int) -> List[nn.Module]:
+    """The blocks :func:`_blocks` registered, in order."""
+    if scan:
+        return list(getattr(model, stack))
+    return [getattr(model, f"{prefix}{i}") for i in range(n)]
+
+
+def checkpoint_block(block: nn.Module, generator: Optional[torch.Generator],
+                     *args):
+    """``block(*args, generator=generator)`` with its activations
+    checkpointed (``torch.utils.checkpoint``, non-reentrant): autograd keeps
+    the block's inputs only, and the backward runs the block's forward
+    again before its own.
+
+    That recompute must compute what the forward computed. Every training
+    draw (the kernels' dropout seeds, the DropPath / Dropout masks) comes
+    from ``generator``, which ``torch.utils.checkpoint`` does not restore
+    (``preserve_rng_state`` covers only the default generators, which
+    nothing here draws from, so it is off). So the generator's state at
+    the block's entry is kept; the recompute starts from it, and the state
+    the generator had when the recompute began is put back after it, so the
+    step's later draws and the next step's stay where they were. The
+    BatchNorm running statistics the recompute would move a second time
+    (the NAR encoder's conv FFN; under W ranks their sums pass through an
+    all-reduce again, in the same order on every rank) are put back too:
+    they move once a step, as flax keeps only the forward's
+    ``batch_stats``."""
+    entry = None if generator is None else generator.get_state()
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:                  # the forward
+            return block(*a, generator=generator)
+        now = None if generator is None else generator.get_state()
+        stats = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+        if entry is not None:
+            generator.set_state(entry)
+        try:
+            return block(*a, generator=generator)
+        finally:
+            if now is not None:
+                generator.set_state(now)
+            with torch.no_grad():
+                for m, (mean, var) in zip(norms, stats):
+                    m.running_mean.copy_(mean)
+                    m.running_var.copy_(var)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _run_block(model: nn.Module, block: nn.Module, generator, *args):
+    """One block of ``model``'s stack: checkpointed with ``model.remat`` in
+    a training forward with autograd on, else called directly (remat
+    changes nothing in eval mode or under ``no_grad``)."""
+    if model.remat and model.training and torch.is_grad_enabled():
+        return checkpoint_block(block, generator, *args)
+    return block(*args, generator=generator)
 
 
 def _ffn(ffn: Mlp, norm: LayerNorm, x, generator):
@@ -190,21 +284,23 @@ class VPTRFormerFAR(nn.Module):
                  fused_full_temporal: bool = False,
                  fused_residual: bool = False, fused_ffn: bool = False,
                  fused_dw: bool = False, fused_conv_ffn: bool = False,
-                 sequence_parallel: bool = False,
+                 sequence_parallel: bool = False, remat: bool = False,
+                 scan_layers: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.t_max = num_past_frames + num_future_frames
         self.dtype = dtype
-        for i in range(num_encoder_layers):
-            self.add_module(f"block{i}", EncoderBlock(
-                d_model, num_heads, enc_h, enc_w, window, drop_path,
-                ffn_hidden_ratio, ffn_hidden_ratio * d_model, far=True,
-                rpe=rpe, fused_attention=fused_attention,
-                fused_full=fused_full, fused_full_temporal=fused_full_temporal,
-                fused_residual=fused_residual, fused_ffn=fused_ffn,
-                fused_dw=fused_dw, fused_conv_ffn=fused_conv_ffn,
-                sequence_parallel=sequence_parallel, dropout=dropout,
-                attn_dropout=attn_dropout, dtype=dtype))
+        self.remat, self.scan_layers = remat, scan_layers
+        _blocks(self, [EncoderBlock(
+            d_model, num_heads, enc_h, enc_w, window, drop_path,
+            ffn_hidden_ratio, ffn_hidden_ratio * d_model, far=True,
+            rpe=rpe, fused_attention=fused_attention,
+            fused_full=fused_full, fused_full_temporal=fused_full_temporal,
+            fused_residual=fused_residual, fused_ffn=fused_ffn,
+            fused_dw=fused_dw, fused_conv_ffn=fused_conv_ffn,
+            sequence_parallel=sequence_parallel, dropout=dropout,
+            attn_dropout=attn_dropout, dtype=dtype)
+            for _ in range(num_encoder_layers)], scan_layers, "blocks", "block")
         self.num_encoder_layers = num_encoder_layers
         self.final_norm = LayerNorm(d_model, dtype=dtype)
         self.register_buffer(
@@ -222,8 +318,9 @@ class VPTRFormerFAR(nn.Module):
             raise ValueError(f"sequence length {t} exceeds {self.t_max}")
         x = feats.to(self.dtype)
         pos_t = self.pos_t[:t]
-        for i in range(self.num_encoder_layers):
-            x = getattr(self, f"block{i}")(x, self.pos2d, pos_t, generator)
+        for block in _layers(self, self.scan_layers, "blocks", "block",
+                             self.num_encoder_layers):
+            x = _run_block(self, block, generator, x, self.pos2d, pos_t)
         return torch.relu(self.final_norm(x))
 
 
@@ -340,7 +437,8 @@ class VPTRFormerNAR(nn.Module):
     """Non-autoregressive latent transformer (``transformer.py:491-649``):
     (N, Tp, h, w, d_model) past latents -> (N, Tf, h, w, d_model) future
     latents in one call. Parameter names mirror the JAX tree (``enc_block{i}``,
-    ``dec_block{i}``, ``enc_norm``, ``dec_norm``, ``frame_queries``,
+    ``dec_block{i}`` or, with ``scan_layers``, ``enc_blocks.{i}``,
+    ``dec_blocks.{i}``; ``enc_norm``, ``dec_norm``, ``frame_queries``,
     ``nce_fc1``, ``nce_fc2``)."""
 
     def __init__(self, num_past_frames: int = 10, num_future_frames: int = 10,
@@ -351,11 +449,13 @@ class VPTRFormerNAR(nn.Module):
                  attn_dropout: Optional[float] = None,
                  ffn_hidden_ratio: int = 4, tslma: bool = False,
                  rpe: bool = True, conv_ffn_norm_enc: Optional[str] = None,
+                 remat: bool = False, scan_layers: bool = False,
                  dtype: torch.dtype = torch.float32, **routes):
         """``routes``: the kernel-route flags of :class:`EncoderBlock`
         (``fused_attention``, ``fused_full``, ...)."""
         super().__init__()
         self.enc_h, self.enc_w, self.dtype = enc_h, enc_w, dtype
+        self.remat, self.scan_layers = remat, scan_layers
         self.num_future_frames = num_future_frames
         self.t_max = num_past_frames + num_future_frames
         common = dict(dim=d_model, num_heads=num_heads, enc_h=enc_h,
@@ -366,11 +466,12 @@ class VPTRFormerNAR(nn.Module):
                       **routes)
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
-        for i in range(num_encoder_layers):
-            self.add_module(f"enc_block{i}", EncoderBlock(
-                far=False, conv_ffn_norm=conv_ffn_norm_enc, **common))
-        for i in range(num_decoder_layers):
-            self.add_module(f"dec_block{i}", DecoderBlockNAR(tslma=tslma, **common))
+        _blocks(self, [EncoderBlock(far=False, conv_ffn_norm=conv_ffn_norm_enc,
+                                    **common) for _ in range(num_encoder_layers)],
+                scan_layers, "enc_blocks", "enc_block")
+        _blocks(self, [DecoderBlockNAR(tslma=tslma, **common)
+                       for _ in range(num_decoder_layers)],
+                scan_layers, "dec_blocks", "dec_block")
         self.enc_norm = LayerNorm(d_model, dtype=dtype)
         self.dec_norm = LayerNorm(d_model, dtype=dtype)
         # learned frame queries (reference: VPTR_modules.py:132)
@@ -403,17 +504,18 @@ class VPTRFormerNAR(nn.Module):
                              "the position table covers")
         x = past_feats.to(self.dtype)
         pos_past, pos_future = self.pos_t[:tp], self.pos_t[tp:tp + tf]
-        for i in range(self.num_encoder_layers):
-            x = getattr(self, f"enc_block{i}")(x, self.pos2d, pos_past, generator)
+        for block in _layers(self, self.scan_layers, "enc_blocks", "enc_block",
+                             self.num_encoder_layers):
+            x = _run_block(self, block, generator, x, self.pos2d, pos_past)
         memory = self.enc_norm(x)
         # queries broadcast over the batch; the target starts at zero
         query_pos = self.frame_queries.to(self.dtype)[None].expand(
             (n,) + self.frame_queries.shape)
         tgt = torch.zeros(query_pos.shape, dtype=self.dtype, device=x.device)
-        for i in range(self.num_decoder_layers):
-            tgt = getattr(self, f"dec_block{i}")(
-                tgt, query_pos, memory, self.pos2d, pos_future, pos_past,
-                self.pos3d, generator)
+        for block in _layers(self, self.scan_layers, "dec_blocks", "dec_block",
+                             self.num_decoder_layers):
+            tgt = _run_block(self, block, generator, tgt, query_pos, memory,
+                             self.pos2d, pos_future, pos_past, self.pos3d)
         return torch.relu(self.dec_norm(tgt))
 
     def nce_project(self, feats):
@@ -463,7 +565,6 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
     device = resolve_device(device)
     if cfg.variant not in ("far", "nar"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    _refuse_later(scan_layers=cfg.scan_layers, remat=cfg.remat)
     if cfg.d_model % cfg.n_heads:
         raise ValueError(f"d_model {cfg.d_model} is not divisible by "
                          f"{cfg.n_heads} heads")
@@ -479,7 +580,8 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
         fused_full=cfg.fused_full, fused_full_temporal=cfg.fused_full_temporal,
         fused_residual=cfg.fused_residual, fused_ffn=cfg.fused_ffn,
         fused_dw=cfg.fused_dw, fused_conv_ffn=cfg.fused_conv_ffn,
-        sequence_parallel=cfg.sequence_parallel, dtype=dtype)
+        sequence_parallel=cfg.sequence_parallel, remat=cfg.remat,
+        scan_layers=cfg.scan_layers, dtype=dtype)
     if cfg.variant == "far":
         model = VPTRFormerFAR(**common)
     else:

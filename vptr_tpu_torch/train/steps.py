@@ -61,6 +61,12 @@ synchronises). After a step the trained modules' ``.grad`` hold that
 step's gradients (D's from its own update). Everything runs where the
 modules are (the card unless they were built with ``device="cpu"``).
 
+With ``remat_decoder`` (``steps.py:206, 231-236, 310, 337``; the
+Trainer sets it from ``transformer.remat``) the FAR and NAR steps
+checkpoint the frozen decoder's apply: its 64 x 64 conv activations are
+recomputed in the backward instead of kept (the decoder is in eval mode
+and draws nothing).
+
 Under a process group of W > 1 ranks (:mod:`vptr_tpu_torch.parallel`),
 each rank steps on its b rows of a global batch of W·b and the step is the
 one-process step at the global batch: the modules take global-batch
@@ -76,6 +82,7 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vptr_tpu_torch.losses import (
     bi_patch_nce,
@@ -265,6 +272,15 @@ def make_ae_eval_step(enc, dec, disc, loss_cfg):
 
 # ---------------------------------------------------------------- stage 2
 
+def _decode(dec, feats, remat: bool):
+    """The frozen decoder on the transformer's latents, gradients flowing
+    through it to them; with ``remat`` its activations are recomputed in
+    the backward (``jax.checkpoint(dec_apply)``)."""
+    if remat:
+        return checkpoint(dec, feats, use_reentrant=False, preserve_rng_state=False)
+    return dec(feats)
+
+
 def _inputs(state: Stage2TrainState, past, future):
     past, future = _frames(_device(state.transformer), past, future)
     x = torch.cat([past, future[:, :-1]], dim=1)
@@ -273,13 +289,14 @@ def _inputs(state: Stage2TrainState, past, future):
 
 
 def make_far_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
-                        *, disc=None, d_optimizer=None):
+                        *, disc=None, d_optimizer=None, remat_decoder: bool = False):
     """``step(state, past, future) -> (state, metrics)`` for frames
     (N, T, H, W, C) in [0, 1] (numpy arrays or tensors). ``enc``, ``dec``,
     ``transformer`` and ``disc`` are the modules the state was created with;
     the step runs the ones the state holds (a clone holds its own
     transformer and discriminator). ``disc`` and ``d_optimizer``: the GAN
-    term with ``loss.lam_gan`` (module notes)."""
+    term with ``loss.lam_gan``; ``remat_decoder``: the decoder's
+    activations recomputed in the backward (module notes)."""
     use_gan = _use_gan(loss_cfg, disc, d_optimizer)
     del enc, dec, transformer, disc  # the state carries the modules
 
@@ -293,7 +310,8 @@ def make_far_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
         tr.train()
         params = state.params()
         _zero_grads(params)
-        pred = state.dec(tr(gt_feats, generator=state.generator))
+        pred = _decode(state.dec, tr(gt_feats, generator=state.generator),
+                       remat_decoder)
         l_mse = mse_loss(pred, target, weights=weights)
         l_gdl = gdl_loss(target, pred, alpha=loss_cfg.gdl_alpha, weights=weights)
         total, l_gan, d_metrics = _with_gan(state, d_optimizer, pred, future,
@@ -334,10 +352,11 @@ def _nce(tr, pred_feats, future_feats, loss_cfg):
 
 
 def make_nar_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
-                        *, disc=None, d_optimizer=None):
+                        *, disc=None, d_optimizer=None, remat_decoder: bool = False):
     """``step(state, past, future) -> (state, metrics)`` for frames
     (N, Tp, H, W, C) and (N, Tf, H, W, C) in [0, 1]; see the module notes
-    (``disc`` and ``d_optimizer`` as :func:`make_far_train_step`'s).
+    (``disc``, ``d_optimizer`` and ``remat_decoder`` as
+    :func:`make_far_train_step`'s).
     Metrics: ``T_MSE``, ``T_GDL``, ``T_bpc`` (0 without ``lam_nce``),
     ``T_gan``, ``T_total``, ``Dtotal``, ``Dfake``, ``Dreal``,
     ``grad_norm``."""
@@ -357,7 +376,7 @@ def make_nar_train_step(enc, dec, transformer, optimizer: Optimizer, loss_cfg,
         params = state.params()
         _zero_grads(params)
         pred_feats = tr(past_feats, generator=state.generator)
-        pred = state.dec(pred_feats)
+        pred = _decode(state.dec, pred_feats, remat_decoder)
         l_mse = mse_loss(future, pred, weights=weights)
         l_gdl = gdl_loss(future, pred, alpha=loss_cfg.gdl_alpha, weights=weights)
         total = l_gdl + l_mse

@@ -190,12 +190,14 @@ class Trainer:
                                                cfg.loss)
         elif cfg.stage == "far":
             self.train_step = make_far_train_step(
-                self.enc, self.dec, self.transformer, self.g_opt, cfg.loss, **gan)
+                self.enc, self.dec, self.transformer, self.g_opt, cfg.loss, **gan,
+                remat_decoder=cfg.transformer.remat)
             self.eval_step = make_far_eval_step(self.enc, self.dec,
                                                 self.transformer, cfg.loss)
         else:
             self.train_step = make_nar_train_step(
-                self.enc, self.dec, self.transformer, self.g_opt, cfg.loss, **gan)
+                self.enc, self.dec, self.transformer, self.g_opt, cfg.loss, **gan,
+                remat_decoder=cfg.transformer.remat)
             self.eval_step = make_nar_eval_step(self.enc, self.dec,
                                                 self.transformer, cfg.loss)
         # 0 = auto: 1 (the JAX package's TPU choice of 8 folds steps into

@@ -28,6 +28,11 @@ decides its path, not its class. Layout conversions:
 * ``LayerNormHWC`` (H, W, C) affine    -> (C, H, W)
 * bare parameters (``rpe_table`` of a window attention, the NAR
   ``frame_queries``) keep their names and layouts
+* a ``scan_layers`` stack (a
+  :class:`~vptr_tpu_torch.models.transformer.BlockStack`: JAX
+  ``<stack>/block/...`` with every leaf, ``params`` and ``batch_stats``,
+  stacked on axis 0) -> one leaf per block, ``<stack>.{i}...``; exported,
+  the blocks' leaves are stacked back
 
 Every parameter and persistent buffer of the module must be covered, and
 every leaf must land somewhere; anything else raises. Each conversion is a
@@ -44,6 +49,7 @@ import torch
 from torch import nn
 
 from vptr_tpu_torch.models.layers import LayerNormHWC
+from vptr_tpu_torch.models.transformer import BlockStack
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
@@ -56,6 +62,44 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v)
+
+
+def _stacks(module: nn.Module) -> Dict[str, int]:
+    """{dotted name: block count} of the module's scan_layers stacks."""
+    return {name: len(m) for name, m in module.named_modules()
+            if isinstance(m, BlockStack)}
+
+
+def _unstacked(stacks: Dict[str, int], path: Tuple[str, ...], arr: np.ndarray):
+    """(path, array) pairs of one JAX leaf: a stacked leaf of a stack
+    (``<stack>/block/...``) as one leaf a block (``<stack>/<i>/...``),
+    any other leaf as it is."""
+    for j in range(1, len(path) - 1):
+        n = stacks.get(".".join(path[:j]))
+        if n is not None and path[j] == "block":
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{'/'.join(path)}: {arr.shape} is not stacked over "
+                                 f"the {n} blocks of {'.'.join(path[:j])}")
+            return [(path[:j] + (str(i),) + path[j + 1:], arr[i]) for i in range(n)]
+    return [(path, arr)]
+
+
+def _restack(tree: dict, stacks: Dict[str, int]) -> None:
+    """In place: each stack's per-block subtrees ``<stack>/<i>/...`` of the
+    exported ``tree`` as one ``<stack>/block/...`` whose leaves stack the
+    blocks' on axis 0."""
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    for name, n in stacks.items():
+        *parents, last = name.split(".")
+        node = tree
+        for k in parents:
+            node = node.get(k, {})
+        if last in node:
+            node[last] = {"block": stack([node[last][str(i)] for i in range(n)])}
 
 
 def _convert(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
@@ -77,9 +121,11 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     returns the module."""
     targets = {name: t for name, t in module.state_dict(keep_vars=True).items()
                if not name.endswith("num_batches_tracked")}
+    stacks = _stacks(module)
     done = set()
     for collection in ("params", "batch_stats"):
-        for path, arr in _leaves(variables.get(collection, {})):
+        for path, arr in (pair for leaf in _leaves(variables.get(collection, {}))
+                          for pair in _unstacked(stacks, *leaf)):
             names = list(path[:-1])
             owner = module.get_submodule(".".join(names))
             name = ".".join(names + [_LEAF[path[-1]]])
@@ -127,9 +173,10 @@ def export_jax_variables(module: nn.Module,
                          ) -> Dict[str, dict]:
     """The module's variables as the JAX tree: ``{"params": ...,
     "batch_stats": ...}`` of nested dicts of f32 numpy arrays (the inverse
-    of :func:`load_jax_variables`). With ``tensors`` (name -> tensor for
-    every parameter, e.g. ``{n: p.grad}``) those take the parameters'
-    places and only ``"params"`` is returned."""
+    of :func:`load_jax_variables`; a scan_layers stack's leaves stacked).
+    With ``tensors`` (name -> tensor for every parameter, e.g. ``{n:
+    p.grad}``) those take the parameters' places and only ``"params"`` is
+    returned."""
     out: Dict[str, dict] = {"params": {}}
     if tensors is None:
         out["batch_stats"] = {}
@@ -152,9 +199,12 @@ def export_jax_variables(module: nn.Module,
         node = out[collection]
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, order="C")      # a copy, never a view of t
     if tensors is None and not out["batch_stats"]:
         del out["batch_stats"]
+    stacks = _stacks(module)
+    for tree in out.values():
+        _restack(tree, stacks)
     return out
 
 
