@@ -235,7 +235,30 @@ Phases (any failure exits non-zero, without the final result line):
    load_jax_variables into the scan_layers model, its predict frames equal
    to the unrolled model's and its train step's T_total and gradients
    against the unrolled step's (as phase 37), and the same with remat on;
-41. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+41. kernels #1/#3, #5/#6 and #2/#4 on a head subset (tensor parallelism):
+   heads 0-3, 4-7 (Cl 264) and 0-1 (Cl 132) of 8 at hd 66, the far_mnist
+   and nar_mnist training shapes, dropout 0.1, bf16 and f32, each against
+   its plain version on the subset (the route the wrapper names and the
+   library's agreeing); #2/#4 also against the whole call's slice of those
+   heads (bit equality reported) at 640 x 19 causal, with a per-head bias,
+   and on the long route at 64 x 160; #1's and #5's two halves summed
+   (bo added once) and their input gradients against the whole call;
+42. far_mnist at full width on a (1, 2) mesh (mesh.model 2: 4 heads and
+   1056 hidden channels a rank; two cards over NCCL, or two processes on
+   the one card over gloo, labelled so): one train step from the seeds of
+   phase 37 against the one-rank step (T_total, grad_norm, every gradient
+   leaf whole through grads_against_floor, the parameters through
+   params_on_firm_gradients), #1-#4 12 launches a rank; each rank's step
+   ms, peak memory and the model group's collectives' share;
+43. the same for nar_mnist with transformer.sequence_parallel (#1 4, #5 8,
+   #2 20 and their backwards a rank);
+44. `torchrun --nproc_per_node=2 -m vptr_tpu_torch.cli train --preset
+   far_mnist --set mesh.model=2 --set transformer.sequence_parallel=true`
+   (2 steps and a checkpoint; on one card the ranks share it over gloo,
+   VPTR_RANKS_SHARE_CARDS), resumed by one process's cli train with
+   mesh.model 1 for 2 more, against an unbroken one-process run of 4
+   (each epoch's T_total, the transformer's relative L2);
+45. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -245,7 +268,9 @@ Phases (any failure exits non-zero, without the final result line):
    their library yardsticks too, with the route, the contiguous-layout
    time (and #4's error there) and the NAR-shape time, each also replayed
    from a CUDA graph; #2's and #4's long route as rows of their own,
-   attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160),
+   attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160;
+   #1-#6 with their head-subset readings, `head_subset`, and a rank's
+   launches in phases 42 and 43, `tp_step_launches_a_rank`),
    the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -257,6 +282,7 @@ from __future__ import annotations
 import gc
 import json
 import logging
+import math
 import re
 import statistics
 import subprocess
@@ -2363,7 +2389,8 @@ def dp_worker(argv) -> int:
         print("dp worker: no process group in the environment", file=sys.stderr)
         return 1
     try:
-        result = {"allreduce": _worker_allreduce, "step": _worker_step}[job](out_dir)
+        result = {"allreduce": _worker_allreduce, "step": _worker_step,
+                  "tp_step": _worker_tp_step}[job](out_dir)
         (out_dir / f"{job}.rank{host_id()}.json").write_text(json.dumps(result))
     finally:
         destroy_distributed()
@@ -2470,8 +2497,8 @@ def dp_phases(dev, card):
         shapes = []
         draw = layers.bernoulli_keep
 
-        def recording(shape, keep, generator, device):
-            out = draw(shape, keep, generator, device)
+        def recording(shape, keep, generator, device, split=None):
+            out = draw(shape, keep, generator, device, split)
             shapes.append((tuple(out.shape), keep))
             return out
         layers.bernoulli_keep = recording
@@ -3174,6 +3201,534 @@ def _flat_leaves(tree):
             yield v
 
 
+# ---------------------------------------------------------------- tensor parallelism
+
+TP_SUBSETS = ((4, 0), (4, 4), (2, 0))   # (heads, first head) of 8: Cl 264, 264, 132
+TP_BATCH = 8                             # phases 42-44's global batch
+TP_TIMED_STEPS = 3                       # a rank's timed steps (a gloo step on one card: ~3 s)
+
+
+def _subset_window_ops(ops, hl, h0, hd):
+    """A window kernel's operands (x [, x_v], wq, bq, wk, bk, wv, bv, wo, bo,
+    ...) for heads h0 .. h0 + hl - 1: the columns of Wq, Wk, Wv and their
+    biases, the rows of Wo, bo 0 (the layer adds it once, after the sum)."""
+    n_in = 2 if ops[1].dim() == 3 else 1
+    xs, (wq, bq, wk, bk, wv, bv, wo, bo), rest = ops[:n_in], ops[n_in:n_in + 8], ops[n_in + 8:]
+    cols = slice(h0 * hd, (h0 + hl) * hd)
+    return xs + (wq[:, cols].contiguous(), bq[cols].contiguous(), wk[:, cols].contiguous(),
+                 bk[cols].contiguous(), wv[:, cols].contiguous(), bv[cols].contiguous(),
+                 wo[cols].contiguous(), torch.zeros_like(bo)) + rest
+
+
+def tp_kernel_phases(dev):
+    """Phase 41: kernels #1/#3, #5/#6 and #2/#4 on a head subset (heads h0 ..
+    h0 + Hl - 1 of 8, hd 66) at the far_mnist / nar_mnist training shapes,
+    dropout 0.1, bf16 and f32: each against its plain version on the same
+    subset; #2/#4 against the whole call's slice of those heads (bit
+    equality reported), also on the long route at 160 tokens; #1's and #5's
+    two halves (4 + 4 heads) summed with bo added once against the whole
+    call. Returns {kernel name: its head-subset readings}."""
+    from vptr_tpu_torch.ops import attention_core as tac
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+
+    phase("41. kernels #1-#6 on a head subset (tensor parallelism)")
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 1e-3, bf: 6.25e-2}                       # as phase 3
+    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
+    g = torch.Generator().manual_seed(SEED + 41)
+    randn = normals(g)
+    c, heads, hd, rate = 528, 8, 66, 0.1
+    seed = torch.tensor([SEED + 4141], dtype=torch.int32, device=dev)
+    far_windows, nar_windows = BATCH * 19 * 4, 16 * 10 * 4     # the FAR / NAR step's windows
+    out = {"fused_attention_ln": {}, "fused_attention": {}, "attention_core": {}}
+
+    def window_ops(dtype, bw, two):
+        w = [randn(c, c, std=(1.0 / c) ** 0.5).to(dev, dtype) for _ in range(4)]
+        b = [randn(c, std=0.02).to(dev) for _ in range(4)]
+        xs = tuple(randn(bw, 16, c).to(dev, dtype) for _ in range(2 if two else 1))
+        wb = (w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3])
+        if two:
+            return xs + wb
+        pos = randn(16, c, std=0.5).to(dev)
+        return xs + wb + ((1 + randn(c, std=0.1)).to(dev), randn(c, std=0.1).to(dev), pos)
+
+    for name, two, bw in (("fused_attention_ln", False, far_windows),
+                          ("fused_attention", True, nar_windows)):
+        fwd = tfw.fused_attention if two else tfw.fused_attention_ln
+        plain = tfw.fused_attention_plain if two else tfw.fused_attention_ln_plain
+        bwd = tfw.fused_attention_backward if two else tfw.fused_attention_ln_backward
+        bwd_plain = (tfw.fused_attention_backward_plain if two
+                     else tfw.fused_attention_ln_backward_plain)
+        for dtype in (bf, f32):
+            dn = str(dtype).replace("torch.", "")
+            ops = window_ops(dtype, bw, two)
+            rpe = randn(heads, 16, 16, std=0.5).to(dev) if two else None
+            gout = randn(bw, 16, c).to(dev, dtype)
+            halves = []
+            for hl, h0 in TP_SUBSETS:
+                sub = _subset_window_ops(ops, hl, h0, hd)
+                bias = None if rpe is None else rpe[h0:h0 + hl].contiguous()
+                kw = dict(num_heads=hl, dropout_rate=rate, mask_heads=heads, head0=h0)
+                got = fwd(*sub, bias, seed, **kw)
+                e = max_err(got, plain(*sub, bias, seed, **kw))
+                route = tfw.kernel_route(16, c, dtype, inner=hl * hd)
+                lib = tfw._lib_two() if two else tfw._lib()
+                entry = "vptr_fused_window_attention" if two else "vptr_fused_window_attention_ln"
+                lib_route = getattr(lib, f"{entry}_route")(16, c, hl * hd, tfw._DTYPES[dtype])
+                check(e <= tol[dtype] and (route == "wgmma") == bool(lib_route),
+                      f"{name} {dn} heads {h0}..{h0 + hl - 1} of {heads} (Cl {hl * hd}, "
+                      f"{route} route, the library's agrees) dropout {rate} vs plain "
+                      f"max|err| {e:.3e} <= {tol[dtype]}")
+                bargs = (*sub, bias, seed, gout, hl, rate)
+                if two:
+                    kg = bwd(*bargs, True, heads, h0)
+                    pg = bwd_plain(*bargs, True, heads, h0)
+                else:
+                    kg = bwd(*bargs, None, False, False, heads, h0)
+                    pg = bwd_plain(*bargs, None, False, False, heads, h0)
+                worst = max(rel_err(a, b) for a, b in zip(kg, pg) if a is not None)
+                broute = tfw.backward_route(16, c, dtype, not two, inner=hl * hd)
+                check(worst <= bwd_tol[dtype], f"{name} backward {dn} heads {h0}..{h0 + hl - 1}"
+                      f" ({broute} route) vs plain worst rel err {worst:.3e} <= "
+                      f"{bwd_tol[dtype]}")
+                key = f"{dn} {hl} of {heads} heads from {h0}"
+                out[name][key] = {"route": route, "backward_route": broute,
+                                  "max_abs_err": e, "bwd_rel_err": worst}
+                if hl == 4:
+                    halves.append((got, kg))
+                    if dtype == bf and h0 == 0:
+                        kernel_ms, plain_ms = timed_turns(
+                            lambda: fwd(*sub, bias, seed, **kw),
+                            lambda: plain(*sub, bias, seed, **kw))
+                        bk_ms, bp_ms = timed_turns(
+                            lambda: bwd(*bargs, True, heads, h0) if two
+                            else bwd(*bargs, None, False, False, heads, h0),
+                            lambda: bwd_plain(*bargs, True, heads, h0) if two
+                            else bwd_plain(*bargs, None, False, False, heads, h0))
+                        out[name][key].update(ms=kernel_ms, plain_ms=plain_ms,
+                                              bwd_ms=bk_ms, bwd_plain_ms=bp_ms)
+            kw = dict(num_heads=heads, dropout_rate=rate)
+            whole = fwd(*ops, rpe, seed, **kw)
+            bo = ops[9 if two else 8]
+            summed = halves[0][0].float() + halves[1][0].float() + bo
+            e = max_err(summed, whole)
+            check(e <= 2 * tol[dtype], f"{name} {dn}: the two halves' outputs (4 + 4 heads) "
+                  f"summed, bo once, vs the whole call max|err| {e:.3e} <= {2 * tol[dtype]}")
+            wg = (bwd(*ops, rpe, seed, gout, heads, rate, True) if two
+                  else bwd(*ops, None, seed, gout, heads, rate, None, False, False))
+            n_x = 2 if two else 1
+            ex = max(rel_err(halves[0][1][i].float() + halves[1][1][i].float(), wg[i])
+                     for i in range(n_x))
+            check(ex <= 2 * bwd_tol[dtype], f"{name} backward {dn}: the halves' input "
+                  f"gradients summed vs the whole call's rel err {ex:.3e} <= "
+                  f"{2 * bwd_tol[dtype]}")
+            out[name][f"{dn} halves"] = {"out_max_abs_err": e, "dx_rel_err": ex}
+
+    # #2 / #4: the FAR temporal step's (640 columns, 19 tokens, causal) and
+    # TSLMA's long route (64 x 160 tokens), q, k, v in the layer's layout
+    causal = torch.full((19, 19), -1e30).triu(1)[None].to(dev)
+    for label, b, t, bias_kind, dtypes in (("far temporal", BATCH * 64, 19, "causal", (bf, f32)),
+                                           ("per-head bias", BATCH * 64, 19, "heads", (bf,)),
+                                           ("long", 64, 160, None, (bf,))):
+        for dtype in dtypes:
+            dn = str(dtype).replace("torch.", "")
+            q, k, v, gq = (randn(b, t, c).to(dev, dtype).view(b, t, heads, hd).transpose(1, 2)
+                           for _ in range(4))
+            bias = (causal if bias_kind == "causal" else
+                    randn(heads, t, t, std=0.5).to(dev) if bias_kind == "heads" else None)
+            whole = tac.attention_core(q, k, v, bias, seed, rate)
+            wgr = tac.attention_core_backward(q, k, v, bias, seed, gq, rate, bias_kind == "heads")
+            for hl, h0 in TP_SUBSETS:
+                sl = slice(h0, h0 + hl)
+
+                def sub(z):   # the subset in the layer's layout: (B, Hl, T, hd) of (B, T, Cl)
+                    return z[:, sl].transpose(1, 2).contiguous().view(b, t, hl * hd).view(
+                        b, t, hl, hd).transpose(1, 2)
+                qs, ks, vs, gs = sub(q), sub(k), sub(v), sub(gq)
+                bs = bias[sl].contiguous() if bias_kind == "heads" else bias
+                got = tac.attention_core(qs, ks, vs, bs, seed, rate, heads, h0)
+                e = max_err(got, tac.attention_core_plain(qs, ks, vs, bs, seed, rate, heads, h0))
+                eq = torch.equal(got, whole[:, sl])
+                route = tac.kernel_route(dtype, hl, t, t, hd)
+                check(e <= tol[dtype] and max_err(got, whole[:, sl]) <= tol[dtype],
+                      f"attention_core {label} {dn} heads {h0}..{h0 + hl - 1} of {heads} "
+                      f"({route} route) vs plain max|err| {e:.3e}; the whole call's slice "
+                      f"{'bit-equal' if eq else f'max|err| {max_err(got, whole[:, sl]):.3e}'}")
+                kg = tac.attention_core_backward(qs, ks, vs, bs, seed, gs, rate,
+                                                 bias_kind == "heads", heads, h0)
+                pg = tac.attention_core_backward_plain(qs, ks, vs, bs, seed, gs, rate,
+                                                       bias_kind == "heads", heads, h0)
+                worst = max(rel_err(a, p) for a, p in zip(kg, pg) if a is not None)
+                wslices = [wgr[0][:, sl], wgr[1][:, sl], wgr[2][:, sl]] + (
+                    [wgr[3][sl]] if bias_kind == "heads" else [])
+                beq = all(torch.equal(a, w) for a, w in zip(kg, wslices))
+                bworst = max(rel_err(a, w) for a, w in zip(kg, wslices))
+                broute = tac.backward_route(dtype, hl, t, t, hd)
+                check(worst <= bwd_tol[dtype] and bworst <= bwd_tol[dtype],
+                      f"attention_core backward {label} {dn} heads {h0}..{h0 + hl - 1} "
+                      f"({broute} route) vs plain worst rel err {worst:.3e}; the whole "
+                      f"call's slice {'bit-equal' if beq else f'rel err {bworst:.3e}'}")
+                out["attention_core"][f"{label} {dn} {hl} of {heads} heads from {h0}"] = {
+                    "route": route, "backward_route": broute, "max_abs_err": e,
+                    "bwd_rel_err": worst, "bit_equal_to_whole_slice": eq,
+                    "bwd_bit_equal_to_whole_slice": beq}
+    return out
+
+
+TP_COUNTERS = ("fused_attention_ln", "fused_attention", "attention_core",
+               "fused_attention_ln_bwd", "fused_attention_bwd", "attention_core_bwd")
+
+
+def _tp_run(dev, preset, flags, mesh=None):
+    """The preset's train step at full width (bf16) from the seeds
+    remat_pair uses (the autoencoder SEED, the transformer SEED + 1, the
+    state SEED + 3) on moving-square frames: built whole and, on a ``mesh``
+    with a model axis, cut to this rank's shares. Returns (step, the state
+    before, its parameters whole, the frames)."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
+
+    cfg = get_preset(preset).override({"transformer": flags})
+    tc = cfg.transformer
+    nar = tc.variant == "nar"
+    frames = moving_squares(TP_BATCH, tc.num_past_frames + tc.num_future_frames, 64,
+                            torch.Generator().manual_seed(SEED + 420)).to(dev)
+    past, future = frames[:, :tc.num_past_frames], frames[:, tc.num_past_frames:]
+    enc, dec = build_autoencoder(cfg.ae, torch.bfloat16, dev,
+                                 torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, torch.bfloat16, dev, torch.Generator().manual_seed(SEED + 1),
+                           mesh=mesh)
+    opt = build_optimizer(cfg.optim, tc.d_model)
+    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    step = (make_nar_train_step if nar else make_far_train_step)(enc, dec, tr, opt, cfg.loss)
+    return step, state, cfg, (past, future)
+
+
+def _whole(state, grad):
+    """The transformer's parameters (or gradients) by name, whole, f32 on the
+    CPU (a sharded transformer's shares gathered over the model group)."""
+    from vptr_tpu_torch.models.transformer import tp_shards
+    from vptr_tpu_torch.parallel.mesh import gather_state
+
+    named = dict(state.transformer.named_parameters())
+    got = gather_state({n: (p.grad if grad else p).detach() for n, p in named.items()},
+                       tp_shards(state.transformer))
+    return {n: t.float().cpu() for n, t in got.items()}
+
+
+def _worker_tp_step(out_dir):
+    """Phases 42 and 43 on each rank: the preset's step on a (1, W) mesh
+    (tensor parallelism, and sequence parallelism with the flag), every
+    launch counter at 0 just before it; rank 0 saves the whole gradients
+    and parameters. Then the step's ms, its peak memory, and one step with
+    every collective timed (synchronised before and after it: the model
+    group's all-reduces and all-gathers, the only collectives of a step on
+    one data rank) for their share."""
+    import torch.distributed as dist
+
+    from vptr_tpu_torch.parallel import host_id, make_mesh, num_hosts
+
+    args = json.loads((out_dir / "args.json").read_text())
+    mesh = make_mesh(1, num_hosts())
+    step, state, cfg, (past, future) = _tp_run(torch.device("cuda"), args["preset"],
+                                               args["flags"], mesh)
+    start = _whole(state, False)
+    zero_counters()
+    state, m = step(state, past, future)
+    torch.cuda.synchronize()
+    launches = launch_counts(*TP_COUNTERS)
+    grads, params = _whole(state, True), _whole(state, False)
+    if host_id() == 0:
+        torch.save({"start": start, "grads": grads, "params": params}, out_dir / "got.pt")
+    del start, grads, params
+    # the replicated leaves (and every rank's gathered whole) the same bits
+    # on every rank
+    from vptr_tpu_torch.models.transformer import tp_shards
+
+    shards = tp_shards(state.transformer)
+    flat = torch.cat([p.detach().float().reshape(-1)
+                      for n, p in state.transformer.named_parameters() if n not in shards])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    same = torch.tensor([float(torch.equal(flat, theirs))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    out = {"backend": dist.get_backend(), "world": num_hosts(),
+           "mesh": [mesh.data, mesh.model], "metrics": {k: float(v) for k, v in m.items()},
+           "launches": launches, "replicated_bit_equal": bool(same.item() == 1.0),
+           "local_q_rows": int(next(mod for mod in state.transformer.modules()
+                                    if type(mod).__name__ == "MultiHeadAttention")
+                               .q_proj.weight.shape[0])}
+    state, _ = step(state, past, future)                 # a warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = [host_ms(lambda: step(state, past, future)) for _ in range(TP_TIMED_STEPS)]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    spent = [0.0, 0]
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return r
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        instrumented = host_ms(lambda: step(state, past, future))
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    out.update(step_ms=statistics.median(times), step_times=times, peak_gib=peak,
+               held_gib=held / 2 ** 30, collectives=spent[1],
+               collectives_ms=spent[0] * 1e3, instrumented_step_ms=instrumented,
+               collectives_share=spent[0] * 1e3 / instrumented)
+    return out
+
+
+def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
+    """Phase 42 or 43: the preset's step on two ranks (two cards over NCCL,
+    or two processes on the one card over gloo) on a (1, 2) mesh, against
+    the one-rank step from the same seeds; returns the readings."""
+    backend = "nccl" if two_cards else "gloo"
+    label = ("two cards over NCCL" if two_cards else
+             "two processes on the one card over gloo (a correctness run: the ranks share "
+             "the card, and every collective is staged through the host)")
+    what = f"{preset} mesh.model=2" + (" + sequence_parallel" if flags.get(
+        "sequence_parallel") else "")
+    phase(f"{number}. {what} train step at full width ({label}) against the one-rank step")
+    # the one-rank step twice from the same state: the reference and the
+    # card's run-to-run floor; then its time and peak
+    step, state, cfg, (past, future) = _tp_run(dev, preset, flags)
+    start = _whole(state, False)
+    a, ma = step(state.clone(), past, future)
+    again, _ = step(state.clone(), past, future)
+    ref = {"grads": _whole(a, True), "params": _whole(a, False),
+           "again": _whole(again, True)}
+    ma = {k: float(v) for k, v in ma.items()}
+    del again
+    s = state.clone()
+    for _ in range(WARMUP_STEPS):
+        s, _ = step(s, past, future)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one_ms = statistics.median([host_ms(lambda: step(s, past, future))
+                                for _ in range(TIMED_STEPS)])
+    one_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    del s, state, a, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    (root / "args.json").write_text(json.dumps({"preset": preset, "flags": flags}))
+    res = launch_ranks("tp_step", 2, backend, root, one_card=not two_cards)
+    out = {"backend": backend, "one_rank_step_ms": one_ms, "one_rank_peak_gib": one_peak}
+    if not _ranks_ok(res, f"two-rank {what} step ({label})"):
+        return out
+    r0 = res[0][2]
+    got = torch.load(root / "got.pt")
+    check(r0["mesh"] == [1, 2] and r0["backend"] == backend,
+          f"mesh {r0['mesh']} (data 1, model 2), backend {r0['backend']}; q_proj rows a rank "
+          f"{r0['local_q_rows']} (of {cfg.transformer.d_model})")
+    for x in res:
+        check_counts(x[2]["launches"], want, f"a rank's {what} step")
+    check(all(x[2]["metrics"] == r0["metrics"] for x in res),
+          "the metrics equal on both ranks")
+    check(all(x[2]["replicated_bit_equal"] for x in res),
+          "the replicated parameters bit-equal on both ranks after the step")
+    check(all(torch.equal(got["start"][n], start[n]) for n in start),
+          "the ranks' shares gathered are the one-rank init, bit for bit")
+    d_total = abs(r0["metrics"]["T_total"] - ma["T_total"])
+    norm, norm1 = r0["metrics"]["grad_norm"], ma["grad_norm"]
+    finite = math.isfinite(norm1)
+    d_norm = abs(norm / norm1 - 1) if finite else float("nan")
+    check(d_total <= 2e-3 * max(1.0, abs(ma["T_total"])),
+          f"T_total {r0['metrics']['T_total']:.6f} against the one-rank {ma['T_total']:.6f}: "
+          f"|d| {d_total:.3e}")
+    check(d_norm <= 0.05 if finite else norm == norm1,
+          f"grad_norm {norm:.6e} against the one-rank {norm1:.6e}: rel diff {d_norm:.3e} <= "
+          f"0.05" + ("" if finite else " (both overflow f32 at this init: the NCE head's "
+                                       "L2-normalised projections of near-zero features)"))
+    # the gradients whole. TP moves the bf16 rounding points (each rank's
+    # partial sums rounded, then summed in f32), and a leaf whose gradient
+    # cancels over the batch (the conv FFN's hidden norm affines) moves by
+    # far more than the card's run-to-run floor; so, as phase 34 holds the
+    # data-parallel step, the gradients within 2^-5 as one vector and 2^-2
+    # leaf by leaf (f64 sums; leaves whose exact gradient is 0, noise run to
+    # run, left out), with each leaf's distance beside that floor reported
+    g1, gw, ga = ref["grads"], got["grads"], ref["again"]
+    d2 = {n: float((gw[n].double() - g1[n].double()).square().sum()) for n in g1}
+    n2 = {n: float(g1[n].double().square().sum()) for n in g1}
+    a2 = {n: float((ga[n].double() - g1[n].double()).square().sum()) for n in g1}
+    rel = {n: (d2[n] / n2[n]) ** 0.5 if n2[n] > 0 else 0.0 for n in g1}
+    floor = {n: (a2[n] / n2[n]) ** 0.5 if n2[n] > 0 else 0.0 for n in g1}
+    vec = (sum(d2.values()) / sum(n2.values())) ** 0.5
+    firm = {n: r for n, r in rel.items() if floor[n] <= 2 ** -4 and not n.endswith(ZERO_GRAD_LEAF)}
+    worst = max(firm, key=firm.get)
+    margin = {n: rel[n] / max(2 ** -8, 4 * floor[n]) for n in firm}
+    worst_m = max(margin, key=margin.get)
+    # (where the norm overflows, the clip zeroes the update and the vector is
+    # the NCE head's ~1e19 gradients of near-zero features: leaf by leaf only)
+    check(vec <= 2 ** -5 or not finite, f"{what}: the gradients against the one-rank step's "
+          f"as one vector: |g_TP - g_1| / |g_1| {vec:.3e} <= 2^-5"
+          + ("" if finite else " (not held: the norm overflows, the update is 0)"))
+    check(firm[worst] <= 2 ** -2, f"{what}: leaf by leaf ({len(firm)} of {len(rel)}; the "
+          f"others noise run to run) within 2^-2 (the worst {worst}: {firm[worst]:.3e})")
+    print(f"  against the card's run-to-run floor: {sum(m <= 1 for m in margin.values())} of "
+          f"{len(margin)} leaves within 2^-8 or 4x it; the furthest {worst_m} {rel[worst_m]:.3e}"
+          f" (floor {floor[worst_m]:.3e})")
+    clip = cfg.optim.max_grad_norm
+    if finite:
+        params_on_firm_gradients(f"{what}: the parameters after the step", start,
+                                 ref["params"], got["params"], g1, ga,
+                                 1.0 if clip is None else clip / max(norm1, clip))
+    else:     # the clip scales every gradient to 0: weight decay alone moves them
+        e = max(max_err(got["params"][n], ref["params"][n]) for n in start)
+        check(e <= 1e-6, f"{what}: the parameters after the step (the clip zeroes the "
+              f"update) against the one-rank step's max|err| {e:.3e} <= 1e-6")
+    equal = all(torch.equal(g1[n], gw[n]) for n in g1)
+    reproducible = all(torch.equal(g1[n], ga[n]) for n in g1)
+    worst_d, worst_floor = firm[worst], floor[worst]
+    for r, (_, _, x) in enumerate(res):
+        print(f"  {card}: rank {r} step median {x['step_ms']:.3f} ms "
+              f"({[round(t, 3) for t in x['step_times']]}), peak {x['peak_gib']:.3f} GiB "
+              f"above the held {x['held_gib']:.3f} GiB; {x['collectives']} model-group "
+              f"collectives {x['collectives_ms']:.3f} ms of a {x['instrumented_step_ms']:.3f} "
+              f"ms step with each one synchronised = {x['collectives_share']:.1%} ({label})")
+    print(f"  {card}: the one-rank step {one_ms:.3f} ms, peak {one_peak:.3f} GiB above the "
+          f"state; gradients bit-equal {equal} (the one-rank step reproducible bit for "
+          f"bit: {reproducible}; the worst leaf {worst} {worst_d:.3e}, floor "
+          f"{worst_floor:.3e}); launches a rank {r0['launches']}")
+    out.update(grad_vector_rel_err=vec, leaves_within_floor=sum(m <= 1 for m in
+                                                                    margin.values()),
+               rank_step_ms=[x[2]["step_ms"] for x in res],
+               rank_peak_gib=[x[2]["peak_gib"] for x in res],
+               collectives=r0["collectives"], collectives_ms=r0["collectives_ms"],
+               collectives_share=r0["collectives_share"], launches=r0["launches"],
+               grads_bit_equal=equal, worst_grad_leaf=worst, worst_grad_l2=worst_d,
+               t_total_diff=d_total, grad_norm_rel_diff=d_norm)
+    return out
+
+
+def tp_cli_phase(card, root, cards):
+    """Phase 44: torchrun ... cli train --preset far_mnist with mesh.model 2
+    and sequence_parallel (2 steps, a checkpoint), resumed by one process's
+    cli train with mesh.model 1 for 2 more; its steps against an unbroken
+    one-process run of 4."""
+    import os
+    from pathlib import Path
+
+    n = 2
+    phase(f"44. torchrun --nproc_per_node={n} -m vptr_tpu_torch.cli train --preset far_mnist "
+          f"--set mesh.model=2 --set transformer.sequence_parallel=true (2 steps), resumed "
+          f"in one process with mesh.model=1, against an unbroken one-process run")
+    here = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
+    if cards < n:          # the ranks share the card, over gloo
+        env["VPTR_RANKS_SHARE_CARDS"] = "1"
+    sets = lambda **kw: [a for k, v in {"epochs": 1, "steps_per_epoch": 2,
+                                        "val_per_epochs": 4, "data.batch_size": TP_BATCH,
+                                        **kw}.items() for a in ("--set", f"{k}={v}")]
+    cli = [sys.executable, "-m", "vptr_tpu_torch.cli", "train", "--preset", "far_mnist"]
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", "-m", "vptr_tpu_torch.cli", "train", "--preset",
+           "far_mnist"]
+    out = {}
+
+    def command(args, what):
+        t0 = time.perf_counter()
+        p = subprocess.run(args, cwd=here, env=env, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"{what}: exit {p.returncode} ({wall:.1f} s)")
+        if p.returncode != 0:
+            print((p.stdout + p.stderr)[-3000:])
+        return wall
+
+    tp_dir, one_dir = root / "cli_tp", root / "cli_one"
+    out["tp_wall_s"] = command(run + ["--ckpt-dir", str(tp_dir)] + sets(
+        **{"mesh.model": 2, "transformer.sequence_parallel": "true"}),
+        f"torchrun {n} x cli train --set mesh.model=2 --set transformer.sequence_parallel=true")
+    log = (tp_dir / "train_log.log").read_text() if (tp_dir / "train_log.log").is_file() else ""
+    check((tp_dir / "ckpt" / "2" / "state.pt").is_file()
+          and "tensor parallel over 2 model ranks" in log,
+          "rank 0 wrote ckpt/2/ and logged the model axis")
+    out["resume_wall_s"] = command(cli + ["--ckpt-dir", str(tp_dir)] + sets(
+        **{"mesh.model": 1}), "cli train resumed in one process (mesh.model=1)")
+    out["one_wall_s"] = command(cli + ["--ckpt-dir", str(one_dir)] + sets(epochs=2),
+                                "cli train, one process, 4 steps unbroken")
+    try:
+        hist = lambda d: json.loads((d / "ckpt" / "history.json").read_text())
+        check("resumed from step 2" in (tp_dir / "train_log.log").read_text(),
+              "the one-process run resumed the mesh's checkpoint at step 2")
+        ra, rb = hist(tp_dir)["train"]["T_total"], hist(one_dir)["train"]["T_total"]
+        print(f"  T_total by epoch: the mesh then one process {ra}, unbroken {rb}")
+        check(len(ra) == len(rb) == 2 and all(
+            abs(x[1] - y[1]) <= 2e-3 * max(1.0, abs(y[1])) for x, y in zip(ra, rb)),
+            "each epoch's T_total within 2e-3 of the unbroken run's")
+        sa = torch.load(tp_dir / "ckpt" / "4" / "state.pt", weights_only=True)
+        sb = torch.load(one_dir / "ckpt" / "4" / "state.pt", weights_only=True)
+        num = sum(float((sa["transformer"][k].float() - v.float()).square().sum())
+                  for k, v in sb["transformer"].items())
+        den = sum(float(v.float().square().sum()) for v in sb["transformer"].values())
+        rel = (num / den) ** 0.5
+        check(rel <= 2 ** -7, f"the transformer after 4 steps against the unbroken run's: "
+              f"relative L2 {rel:.3e} <= 2^-7")
+        out.update(t_total=ra, unbroken_t_total=rb, state_rel_l2=rel)
+    except (OSError, KeyError, ValueError) as e:
+        check(False, f"the runs' histories and checkpoints read: {e!r}")
+    print(f"  {card}: walls {out.get('tp_wall_s', 0):.1f} s ({n} ranks), "
+          f"{out.get('resume_wall_s', 0):.1f} s (resumed), {out.get('one_wall_s', 0):.1f} s "
+          f"(unbroken, 4 steps)")
+    return out
+
+
+def tp_phases(dev, card, which=(42, 43, 44)):
+    """Phases 42-44 (tensor and sequence parallelism at full width).
+    Returns the readings."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    cards = torch.cuda.device_count()
+    two_cards = cards >= 2
+    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_tp_"))
+    out = {"cards": cards, "card": card}
+    try:
+        if 42 in which:
+            far = {k: 12 for k in ("fused_attention_ln", "attention_core",
+                                   "fused_attention_ln_bwd", "attention_core_bwd")}
+            far.update(fused_attention=0, fused_attention_bwd=0)
+            out["far_tp"] = tp_step_phase(dev, card, root, 42, "far_mnist", {}, far,
+                                          two_cards)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 43 in which:
+            nar = {"fused_attention_ln": 4, "fused_attention": 8, "attention_core": 20,
+                   "fused_attention_ln_bwd": 4, "fused_attention_bwd": 8,
+                   "attention_core_bwd": 20}
+            out["nar_tp_sp"] = tp_step_phase(dev, card, root, 43, "nar_mnist",
+                                             {"sequence_parallel": True}, nar, two_cards)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 44 in which:
+            out["cli"] = tp_cli_phase(card, root, cards)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3739,8 +4294,23 @@ def main() -> int:
             row["upstream_far_rip_launches"] = tar_launches[name]
         if name in remat_launches:   # a far_mnist remat step (phase 37; #7-#10: fused-FFN)
             row["far_remat_step_launches"] = remat_launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_kernels = tp_kernel_phases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_extra = tp_phases(dev, card)
+    for row in rows_out:          # #1-#6 on a head subset (phase 41), a rank's
+        name = row["name"]        # launches in the mesh.model = 2 steps (42, 43)
+        base = name[:-4] if name.endswith("_bwd") else name
+        if base in tp_kernels:
+            row["head_subset"] = tp_kernels[base]
+        for key in ("far_tp", "nar_tp_sp"):
+            counts = tp_extra.get(key, {}).get("launches") or {}
+            if name in counts:
+                row.setdefault("tp_step_launches_a_rank", {})[key] = counts[name]
 
-    phase("41. result")
+    phase("45. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -3762,6 +4332,7 @@ def main() -> int:
     print(f"  upstream .tar: {json.dumps(upstream_extra)}")
     print(f"  remat: {json.dumps(remat_extra)}")
     print(f"  scan_layers: {json.dumps(scan_extra)}")
+    print(f"  tensor parallel: {json.dumps(tp_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",

@@ -1,0 +1,53 @@
+"""The tensor-parallel phases of chip_smoke.py alone, on the card.
+
+    python3 scripts/torch_port_tp_probe.py [--phases 41 42 43 44]
+
+Builds the kernels, then runs the named phases (default: all four): 41,
+kernels #1-#6 on a head subset against their plain versions; 42 and 43,
+the far_mnist and nar_mnist (with sequence_parallel) train steps at
+mesh.model = 2 against the one-rank step; 44, ``torchrun ... cli train
+--set mesh.model=2`` resumed in one process. Exits non-zero when a check
+failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke
+    from vptr_tpu_torch.ops import _build
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", nargs="*", type=int, default=[41, 42, 43, 44])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_port_tp_probe: no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"built in {time.perf_counter() - t0:.1f} s; {chip_smoke.card_line()}", flush=True)
+    dev = torch.device("cuda")
+    if 41 in args.phases:
+        print(chip_smoke.json.dumps(chip_smoke.tp_kernel_phases(dev)))
+    steps = [p for p in (42, 43, 44) if p in args.phases]
+    if steps:
+        print(chip_smoke.json.dumps(chip_smoke.tp_phases(dev, chip_smoke.card_line(), steps)))
+    if chip_smoke.failures:
+        print(f"{len(chip_smoke.failures)} check(s) failed: {chip_smoke.failures}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,12 +14,19 @@ gloo group through ``vptr_tpu_torch.parallel.init_distributed("cpu")``, runs
 
 * ``steps``: every case of ``<dir>/cases.pkl`` (:func:`run_case`: one FAR,
   NAR or AE/GAN train step on the rank's rows of the case's global batch,
-  from the case's weights);
+  from the case's weights; a case with a ``mesh`` (data, model) runs on
+  that mesh, its transformer sharded, and reports its tensors whole);
 * ``trainer``: ``Trainer.train`` of a tiny far_mnist for 2 epochs of 2
   steps, the same run cut after its first epoch and resumed, a ragged
   ``put_batch``, ``evaluate`` over the rank's shard of the test split, the
   refusals, and every file-system write of the rank under the run
-  directory (an audit hook).
+  directory (an audit hook);
+* ``tp_trainer``: the same Trainer on a (1, W) mesh (tensor parallelism
+  and ``sequence_parallel``): its first epoch with a checkpoint, the
+  second epoch of a one-process run's checkpoint resumed on the mesh,
+  ``evaluate``, and the JAX-layout round trip of the sharded transformer
+  (``export_jax_variables`` / ``load_jax_variables``, unrolled and with
+  ``scan_layers``).
 
 Imports torch and the port only (no JAX), so a worker starts in seconds.
 """
@@ -111,8 +118,9 @@ def run_case(case):
     from vptr_tpu_torch.config import get_preset
     from vptr_tpu_torch.models.autoencoder import build_autoencoder
     from vptr_tpu_torch.models.discriminator import build_discriminator
-    from vptr_tpu_torch.models.transformer import build_transformer
-    from vptr_tpu_torch.parallel import host_id, num_hosts
+    from vptr_tpu_torch.models.transformer import build_transformer, tp_shards
+    from vptr_tpu_torch.parallel import host_id, make_mesh, num_hosts
+    from vptr_tpu_torch.parallel.mesh import gather_state
     from vptr_tpu_torch.train import state as tstate
     from vptr_tpu_torch.train import steps as tsteps
     from vptr_tpu_torch.train.optim import build_optimizer
@@ -124,6 +132,7 @@ def run_case(case):
 
     cfg = get_preset(case["preset"]).override(case["over"])
     v = case["vars"]
+    mesh = make_mesh(*case["mesh"]) if case.get("mesh") else None
     enc, dec = build_autoencoder(cfg.ae, device="cpu")
     if case["kind"] == "ae":
         disc = build_discriminator(cfg.disc, device="cpu")
@@ -134,28 +143,36 @@ def run_case(case):
     else:
         load_jax_variables(enc, v["enc"])
         load_jax_variables(dec, v["dec"])
-        tr = load_jax_variables(build_transformer(cfg.transformer, device="cpu"),
-                                v["transformer"])
+        tr = build_transformer(cfg.transformer, device="cpu")
+        if mesh is not None:
+            from vptr_tpu_torch.models.transformer import shard_transformer
+            shard_transformer(tr, mesh, case.get("tensor_parallel", True))
+        tr = load_jax_variables(tr, v["transformer"])
         opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
         state = tstate.create_far_train_state(enc, dec, tr, opt, seed=7)
         make = (tsteps.make_far_train_step if case["kind"] == "far"
                 else tsteps.make_nar_train_step)
         step = make(enc, dec, tr, opt, cfg.loss, remat_decoder=cfg.transformer.remat)
         trained = {"transformer": state.transformer}
-    w, r = num_hosts(), host_id()
+    w, r = (mesh.data, mesh.data_rank) if mesh is not None else (num_hosts(), host_id())
     b = case["past"].shape[0] // w
     rows = slice(r * b, (r + 1) * b)
     state, m = step(state, torch.from_numpy(case["past"][rows]),
                     torch.from_numpy(case["future"][rows]))
     out = {"metrics": {k: float(x) for k, x in m.items()}, "params": {}, "grads": {},
            "stats": {}}
-    for root, module in trained.items():
-        for n, p in module.named_parameters():
-            out["params"][f"{root}.{n}"] = p.detach().clone()
-            out["grads"][f"{root}.{n}"] = p.grad.detach().clone()
-        for n, buf in module.named_buffers():
-            if n.endswith(("running_mean", "running_var")):
-                out["stats"][f"{root}.{n}"] = buf.clone()
+    for root, module in trained.items():    # whole, a sharded module's shares gathered
+        shards = tp_shards(module)
+        named = dict(module.named_parameters())
+        params = gather_state({n: p.detach() for n, p in named.items()}, shards)
+        grads = gather_state({n: p.grad.detach() for n, p in named.items()}, shards)
+        stats = gather_state({n: b_ for n, b_ in module.named_buffers()
+                              if n.endswith(("running_mean", "running_var"))}, shards)
+        for n in named:
+            out["params"][f"{root}.{n}"] = params[n].clone()
+            out["grads"][f"{root}.{n}"] = grads[n].clone()
+        for n, buf in stats.items():
+            out["stats"][f"{root}.{n}"] = buf.clone()
     # the same in the JAX package's layout: {"params", "batch_stats"} and
     # the gradients' "params"
     out["jax"] = {root: export_jax_variables(m) for root, m in trained.items()}
@@ -271,13 +288,85 @@ def job_trainer(out_dir: Path):
     def trainer(over):
         return lambda: ttrainer.Trainer(cfg.override(over), device="cpu",
                                         write_outputs=False)
-    out["refuse_model"] = _raises(trainer({"mesh": {"model": 2}}), NotImplementedError)
+    out["refuse_model"] = _raises(trainer({"mesh": {"model": 2},
+                                           "transformer": {"fused_ffn": True}}),
+                                  NotImplementedError)
     out["refuse_data"] = _raises(trainer({"mesh": {"data": 3}}), ValueError)
     out["refuse_batch"] = _raises(trainer({"data": {"batch_size": 7}}), ValueError)
     out["refuse_predict"] = _raises(lambda: cli.cmd_predict(
         cli.argparse.Namespace(preset="far_mnist", set=None, ckpt_dir=str(run / "a"),
                                device="cpu", mode="far", num_pred=None, batches=1,
                                out=str(out_dir / "preds"))), RuntimeError)
+    return out
+
+
+# the tensor-parallel Trainer runs: TRAINER on a (1, W) mesh with the
+# temporal columns split too
+TP_TRAINER = {**TRAINER, "transformer": {**TRAINER["transformer"],
+                                         "sequence_parallel": True}}
+
+
+def whole_state(state):
+    """A stage-2 state's tensors by name, whole (a sharded transformer's
+    shares and optimizer moments gathered: every model rank calls it), its
+    step and optimizer count."""
+    from vptr_tpu_torch.train.checkpoint import state_dict
+
+    saved = state_dict(state)
+    out = {f"transformer.{k}": v.clone() for k, v in saved["transformer"].items()}
+    out.update({f"mu.{k}": v.clone() for k, v in saved["opt_state"]["mu"].items()})
+    out.update({f"nu.{k}": v.clone() for k, v in saved["opt_state"]["nu"].items()})
+    out["generator"] = state.generator.get_state()
+    return out, (state.step, int(state.opt_state.count))
+
+
+def job_tp_trainer(out_dir: Path):
+    import numpy as np
+    import torch
+
+    import vptr_tpu_torch.train.trainer as ttrainer
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+    from vptr_tpu_torch.eval.harness import evaluate
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.parallel import num_hosts
+    from vptr_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
+
+    short_val(ttrainer)
+    run = out_dir / "run"
+    model = {"mesh": {"model": num_hosts()}}
+    cfg = get_preset("far_mnist").override(TP_TRAINER).override(model)
+    out = {}
+    first = ttrainer.Trainer(cfg.override({"ckpt_dir": str(run / "b")}), device="cpu")
+    out["first"] = whole_state(first.train(epochs=1))
+    out["first_history"] = first.history
+    resumed = ttrainer.Trainer(cfg.override({"ckpt_dir": str(run / "c")}), device="cpu")
+    got = resumed.train(epochs=1)        # the one-process run's checkpoint, on the mesh
+    out["resumed"], out["resumed_history"] = whole_state(got), resumed.history
+    test = build_loader(cfg.data, split="test", seed=cfg.seed, host_id=0, num_hosts=1)
+    out["curves"] = evaluate(resumed, got, test, mode="far", num_pred=2,
+                             max_batches=EVAL_BATCHES)
+
+    # the JAX-layout round trip of the sharded transformer
+    trips = {}
+    for scan in (False, True):
+        c = cfg.override({"transformer": {"scan_layers": scan}})
+        whole = build_transformer(c.transformer, device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+        tree = export_jax_variables(whole)
+        sharded = build_transformer(c.transformer, device="cpu", mesh=first.mesh)
+        load_jax_variables(sharded, tree)
+        back = export_jax_variables(sharded)
+        leaves = lambda t, p=(): ([(p, t)] if not isinstance(t, dict) else
+                                  [x for k, v in t.items() for x in leaves(v, p + (k,))])
+        a, b = dict(leaves(tree)), dict(leaves(back))
+        trips[scan] = {"same_leaves": a.keys() == b.keys(),
+                       "equal": all(np.array_equal(a[k], b[k]) for k in a),
+                       "sharded_params": len(sharded.tp_shards),
+                       "local_q": tuple(dict(sharded.named_parameters())[
+                           ("blocks.0." if scan else "block0.")
+                           + "slmhsa.attn.q_proj.weight"].shape)}
+    out["round_trip"] = trips
     return out
 
 
@@ -290,7 +379,8 @@ def main():
 
     assert init_distributed("cpu"), "no process group in the environment"
     try:
-        result = {"steps": job_steps, "trainer": job_trainer}[job](out_dir)
+        result = {"steps": job_steps, "trainer": job_trainer,
+                  "tp_trainer": job_tp_trainer}[job](out_dir)
         torch.save(result, out_dir / f"{job}.rank{host_id()}.pt")
     finally:
         destroy_distributed()

@@ -100,15 +100,19 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize("override,match", [
-    # remat and scan_layers raised until they were ported; their cases now
-    # check that the config builds the working path (ids kept)
+    # remat, scan_layers and sequence_parallel raised until they were
+    # ported; their cases now check that the config builds the working path
+    # (ids kept)
     pytest.param({"remat": True}, None, id="override0-remat slice"),
-    ({"sequence_parallel": True}, "multi-GPU slice"),
-    ({"variant": "nar", "sequence_parallel": True}, "multi-GPU slice"),
+    pytest.param({"sequence_parallel": True}, None, id="override1-multi-GPU slice"),
+    pytest.param({"variant": "nar", "sequence_parallel": True}, None,
+                 id="override2-multi-GPU slice"),
     pytest.param({"scan_layers": True}, None, id="override3-scan_layers slice"),
 ])
 def test_unported_routes_raise(override, match):
-    """sequence_parallel still raises; remat and scan_layers build."""
+    """remat, scan_layers and sequence_parallel build (sequence_parallel's
+    temporal attentions split their columns on a mesh with a model axis:
+    tests/test_torch_port_tp.py)."""
     _, cfg = small_cfgs()
     tcfg = cfg.transformer.__class__(**{**dataclasses.asdict(cfg.transformer), **override})
     if match is not None:
@@ -117,8 +121,12 @@ def test_unported_routes_raise(override, match):
         return
     tr = build_transformer(tcfg, device="cpu")
     assert (tr.remat, tr.scan_layers) == (tcfg.remat, tcfg.scan_layers)
-    assert hasattr(tr, "blocks") == tcfg.scan_layers
-    assert hasattr(tr, "block0") != tcfg.scan_layers
+    temporal = [m for m in tr.modules() if type(m).__name__ == "TemporalAttention"]
+    assert temporal and all(m.sequence_parallel == tcfg.sequence_parallel and m.sp is None
+                            for m in temporal)
+    first = "enc_block" if tcfg.variant == "nar" else "block"
+    assert hasattr(tr, first + "s") == tcfg.scan_layers
+    assert hasattr(tr, first + "0") != tcfg.scan_layers
 
 
 def test_tslma_route_builds():

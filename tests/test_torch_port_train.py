@@ -285,13 +285,17 @@ def test_far_train_step_with_dropout_runs_and_repeats():
 
 
 def test_far_train_step_refuses_later_slices():
-    """Of the routes a later slice ports only sequence_parallel is left;
-    remat, refused until it was ported, builds and trains (its step
-    against remat off: test_torch_port_remat.py)."""
+    """No route of a later slice is left: sequence_parallel, refused until
+    it was ported, builds, and in one process (no model axis) its forward
+    is the one without it, bit for bit (its mesh steps:
+    test_torch_port_tp.py); remat, refused until it was ported, builds and
+    trains (its step against remat off: test_torch_port_remat.py)."""
     _, tc = small_cfgs()
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        build_transformer(tc.override({"transformer": {"sequence_parallel": True}})
-                          .transformer, device="cpu")
+    sp = build_transformer(tc.override({"transformer": {"sequence_parallel": True}})
+                           .transformer, device="cpu")
+    feats = t(np.random.default_rng(29).standard_normal((2, 3, 8, 8, 48)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(sp(feats), build_transformer(tc.transformer, device="cpu")(feats))
     enc, dec = build_autoencoder(tc.ae, device="cpu")
     tr = build_transformer(tc.override({"transformer": {"remat": True}}).transformer,
                            device="cpu")

@@ -26,6 +26,17 @@ with ``--device cpu``):
 ``eval`` then evaluates each rank's shard of the test set and every rank
 holds the curves over all of them (rank 0 prints them). ``predict`` runs in
 one process.
+
+With ``--set mesh.model=M`` the W ranks form a (W / M, M) mesh: the
+transformer's heads and hidden channels are split over the M ranks of each
+data group (tensor parallelism), and ``--set
+transformer.sequence_parallel=true`` also splits its temporal columns:
+
+    torchrun --standalone --nproc_per_node=2 -m vptr_tpu_torch.cli train \
+        --preset far_mnist --set mesh.model=2 --set transformer.sequence_parallel=true
+
+Its checkpoints are whole (the one-process layout): the run resumes with
+another ``mesh.model``, in one process too.
 """
 
 from __future__ import annotations
@@ -110,13 +121,14 @@ def cmd_eval(args):
     from vptr_tpu_torch.data.loader import build_loader
     from vptr_tpu_torch.eval.harness import evaluate
     from vptr_tpu_torch.eval.lpips import lpips_available, make_lpips_fn
-    from vptr_tpu_torch.parallel import host_id, init_distributed, num_hosts
+    from vptr_tpu_torch.parallel import host_id, init_distributed
 
     init_distributed(args.device)
     trainer, state = _restored(args)
     cfg = trainer.cfg
+    # each data rank's shard (the model ranks of a data group hold the same rows)
     loader = build_loader(cfg.data, split="test", seed=cfg.seed,
-                          host_id=host_id(), num_hosts=num_hosts())
+                          host_id=trainer.mesh.data_rank, num_hosts=trainer.mesh.data)
     # LPIPS reports automatically when pretrained weights are present
     # (reference: Test_VPTR.ipynb cell 9); --no-lpips opts out
     lpips_fn = (make_lpips_fn(device=trainer.device)

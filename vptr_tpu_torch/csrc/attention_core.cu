@@ -74,6 +74,14 @@
 // for a (1, Tq, Tk) bias) in a fixed order, so the result is the same on
 // every run (no float atomics).
 //
+// A head subset (tensor parallelism): a call may hold heads h0 .. h0 + H - 1
+// of Hg, its q, k, v (B, H, T, D) those heads' and a per-head bias those
+// heads' rows. Every route takes it; only the dropout index changes, to
+// the global head's (hash_dropout.cuh's Params::index, from the
+// mask_heads and head0 of the C entry points). The gradient of a one-head
+// (1, Tq, Tk) bias is then the sum over the call's heads, which the layer
+// sums over the ranks.
+//
 // The long route ("long", Tq or Tk past 32): a block takes one head of one
 // batch element (a batch element's q, k, v no longer fit a block), its
 // rows staged with 4-byte loads into padded shared-memory rows. bf16 on
@@ -223,7 +231,7 @@ attention_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float e = lane < tk ? expf(logit - m) : 0.f;
     float w = e / warp_sum(e);
     if (drop.active() && lane < tk)
-      w = drop.apply(w, drop.keep(vptr_dropout::element_index(b, heads, h, tq, r, tk, lane),
+      w = drop.apply(w, drop.keep(drop.index(b, heads, h, tq, r, tk, lane),
                                   seed));
     w = round_t<T>(w);
     // weighted sum of v: lane owns columns lane + 32 j, one weight shuffle
@@ -306,7 +314,7 @@ attention_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float w_drop = w;
     if (drop.active() && col) {
       const bool kept =
-          drop.keep(vptr_dropout::element_index(b, heads, h, tq, r, tk, lane), seed);
+          drop.keep(drop.index(b, heads, h, tq, r, tk, lane), seed);
       w_drop = drop.apply(w, kept);
       dw = drop.apply(dw, kept);
     }
@@ -601,7 +609,7 @@ attention_core_mma_kernel(const MmaArgs a) {
           sum += __shfl_xor_sync(0xffffffffu, sum, 1);
           sum += __shfl_xor_sync(0xffffffffu, sum, 2);
           const float rcp = 1.f / sum;
-          const uint32_t row_idx = vptr_dropout::element_index(
+          const uint32_t row_idx = a.drop.index(
               static_cast<uint32_t>(e), a.heads, h, tq, i, tk, 0);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
@@ -970,7 +978,7 @@ attention_core_bwd_mma_kernel(const MmaBwdArgs a) {
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         const float rcp = 1.f / sum;
-        const uint32_t row_idx = vptr_dropout::element_index(
+        const uint32_t row_idx = a.drop.index(
             static_cast<uint32_t>(e), a.heads, h, tq, i, tk, 0);
         float dot = 0.f;                             // the row's sum of dW w
 #pragma unroll
@@ -1346,7 +1354,7 @@ attention_core_long_kernel(const LongArgs a) {
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float rcp = 1.f / sum;
-    const uint32_t row_idx = vptr_dropout::element_index(
+    const uint32_t row_idx = a.drop.index(
         static_cast<uint32_t>(e), a.heads, h, tq, r0 + i, tk, 0);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -1471,7 +1479,7 @@ attention_core_long_fma_kernel(const LongArgs a) {
       const int c = lane + 32 * j;
       w[j] /= sum;
       if (a.drop.active() && c < tk)
-        w[j] = a.drop.apply(w[j], a.drop.keep(vptr_dropout::element_index(
+        w[j] = a.drop.apply(w[j], a.drop.keep(a.drop.index(
                                                   static_cast<uint32_t>(e), a.heads, h, tq,
                                                   q0 + r, tk, c), seed));
     }
@@ -1650,7 +1658,7 @@ attention_core_long_bwd_kernel(const LongArgs a) {
           float d = dw[2 * hh + x];
           if (a.drop.active()) {
             const bool k = i < rows && j < tk &&
-                           a.drop.keep(vptr_dropout::element_index(static_cast<uint32_t>(e),
+                           a.drop.keep(a.drop.index(static_cast<uint32_t>(e),
                                                                    a.heads, h, tq, r0 + i, tk,
                                                                    j), seed);
             if (k) kept[bit >> 5] |= 1u << (bit & 31);
@@ -1735,7 +1743,7 @@ attention_core_long_bwd_kernel(const LongArgs a) {
               float d = dw[2 * hh + x];
               wd[x] = w;
               if (a.drop.active()) {
-                const bool kept = a.drop.keep(vptr_dropout::element_index(
+                const bool kept = a.drop.keep(a.drop.index(
                     static_cast<uint32_t>(e), a.heads, h, tq, i, tk, j), seed);
                 wd[x] = a.drop.apply_rcp(w, kept, keep_rcp);
                 d = a.drop.apply_rcp(d, kept, keep_rcp);
@@ -1818,7 +1826,7 @@ attention_core_long_bwd_fma_kernel(const LongArgs a) {
       a.bias ? a.bias + static_cast<long>(a.bias_heads == 1 ? 0 : h) * tq * tk : nullptr;
   float* const dl_h = a.dl ? a.dl + (e * a.heads + h) * tq * tk : nullptr;
   auto kept = [&](int i, int j) {
-    return a.drop.keep(vptr_dropout::element_index(static_cast<uint32_t>(e), a.heads, h, tq, i,
+    return a.drop.keep(a.drop.index(static_cast<uint32_t>(e), a.heads, h, tq, i,
                                                    tk, j), seed);
   };
   // out[c] = sum over the tokens u of coef(u) rows[u][lane + 32 c]
@@ -1971,6 +1979,13 @@ bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias
          (rate > 0.f && !seed) || rate >= 1.f;
 }
 
+// A head subset no mask index takes: heads h0 .. h0 + heads - 1 of
+// mask_heads (0, 0: the call's own heads).
+bool bad_heads(int heads, int mask_heads, int head0) {
+  if (mask_heads == 0) return head0 != 0;
+  return head0 < 0 || head0 + heads > mask_heads;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1984,18 +1999,22 @@ const char* vptr_error_string(int err) {
 // k, v and out contiguous), 1 = the mma kernel (bf16; each of q, k, v in
 // layout 0 or 1 of Slice, out in q's), 2 = the long route (Tq, Tk <= 160,
 // D <= 80; bf16 on mma.sync, f32 on the FMA units; layouts as route 1).
-// Returns a cudaError_t (0 = launched); a route that does not take the
-// shape is cudaErrorInvalidValue.
+// mask_heads, head0: a call over heads h0 .. h0 + heads - 1 of mask_heads
+// (tensor parallelism) draws their dropout by the global head; 0, 0 for
+// the call's own heads. Returns a cudaError_t (0 = launched); a route that
+// does not take the shape is cudaErrorInvalidValue.
 int vptr_attention_core(const void* q, const void* k, const void* v, const void* bias,
                         void* out, int batch, int heads, int tq, int tk, int depth,
                         int bias_heads, float scale, const void* seed, float rate,
                         float keep_div, int dtype, int route, int q_layout, int k_layout,
-                        int v_layout, void* stream) {
+                        int v_layout, int mask_heads, int head0, void* stream) {
   const int layouts[3] = {q_layout, k_layout, v_layout};
   if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate, route,
-                layouts, 3))
+                layouts, 3) ||
+      bad_heads(heads, mask_heads, head0))
     return cudaErrorInvalidValue;
-  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_heads,
+                                  head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
     const LongArgs a{q, k, v, nullptr, static_cast<const float*>(bias), out, nullptr, nullptr,
@@ -2030,20 +2049,23 @@ int vptr_attention_core(const void* q, const void* k, const void* v, const void*
 // gradient. scale multiplies q (in T), dscale the dq sums (f32). route: 0 =
 // the FMA kernel (every operand contiguous), 1 = the mma kernel (bf16; each
 // of q, k, v, g in layout 0 or 1 of Slice; dq in q's layout, dk in k's, dv
-// in v's), 2 = the long route (layouts as route 1). A route that does not
-// take the shape is cudaErrorInvalidValue.
+// in v's), 2 = the long route (layouts as route 1). mask_heads, head0 as
+// the forward's. A route that does not take the shape is
+// cudaErrorInvalidValue.
 int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const void* bias,
                             const void* g, void* dq, void* dk, void* dv, void* dl,
                             void* dbias, int batch, int heads, int tq, int tk, int depth,
                             int bias_heads, float scale, float dscale, const void* seed,
                             float rate, float keep_div, int dtype, int route, int q_layout,
-                            int k_layout, int v_layout, int g_layout, void* stream) {
+                            int k_layout, int v_layout, int g_layout, int mask_heads, int head0,
+                            void* stream) {
   const int layouts[4] = {q_layout, k_layout, v_layout, g_layout};
   if (bad_shape(batch, heads, tq, tk, depth, bias, bias_heads, dtype, seed, rate, route,
                 layouts, 4) ||
-      (dl && (!bias || !dbias)))
+      bad_heads(heads, mask_heads, head0) || (dl && (!bias || !dbias)))
     return cudaErrorInvalidValue;
-  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_heads,
+                                  head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
     const LongArgs a{q, k, v, g, static_cast<const float*>(bias), nullptr, dq, dk, dv,

@@ -29,15 +29,16 @@ extern "C" {
 
 const char* vptr_error_string(int err) { return error_string(err); }
 
-// Dynamic shared memory of the route the forward takes for (L, C, heads,
-// dtype), in bytes; more than 232448 means the shape is not supported.
-long vptr_fused_window_attention_smem(int L, int C, int heads, int dtype) {
-  return window_smem(L, C, heads, dtype);
+// Dynamic shared memory of the route the forward takes for (L, C, Cl,
+// heads, dtype) (Cl: the inner width, C for every head), in bytes; more
+// than 232448 means the shape is not supported.
+long vptr_fused_window_attention_smem(int L, int C, int Cl, int heads, int dtype) {
+  return window_smem(L, C, Cl, heads, dtype);
 }
 
-// 1 when (L, C, dtype) takes the wgmma route, 0 for the FMA route.
-int vptr_fused_window_attention_route(int L, int C, int dtype) {
-  return use_wg(L, C, dtype) ? 1 : 0;
+// 1 when (L, C, Cl, dtype) takes the wgmma route, 0 for the FMA route.
+int vptr_fused_window_attention_route(int L, int C, int Cl, int dtype) {
+  return use_wg(L, C, Cl, dtype) ? 1 : 0;
 }
 
 // Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a

@@ -11,7 +11,11 @@
 //     out = [a_1 .. a_H] Wo + bo,  then * scale[window], + x when res (LN)
 // W*: (C, C) stored (in, out) like the JAX Dense kernels; biases, ls, lb,
 // pos (L, C), bias (1|H, L, L) and scale (windows,) are f32; T = float or
-// bf16. Rounding points are the plain versions'
+// bf16. A head subset (tensor parallelism: heads h0 .. h0 + H - 1 of Hg,
+// each hd wide): Wq, Wk, Wv are (C, Cl) and Wo (Cl, C) with Cl = H hd the
+// inner width, so q, k, v and the merged heads are R x Cl and out is this
+// subset's share of the sum over all heads (the caller sums the shares and
+// passes bo = 0 or adds it once); the dropout index takes the global head. Rounding points are the plain versions'
 // (ops/fused_window_attention.py): xn and xqk rounded, q/k/v rounded after
 // the f32 bias add, q * scale rounded, f32 softmax, the weights rounded
 // after dropout, the merged heads rounded, the out projection in f32
@@ -81,6 +85,7 @@ struct FwdArgs {
   void* out;
   void *mean, *rstd, *xn, *xqk, *q, *k, *v, *attn;
   int windows, tokens, channels, heads, bias_heads, res, mask_tokens, dtype;
+  int inner, mask_heads, head0;   // Cl = heads * hd; the global heads and the first
   float qscale, eps, rate, keep_div;
 };
 
@@ -97,11 +102,11 @@ constexpr int kFmaThreads = 256;
 constexpr int kFmaWarps = kFmaThreads / 32;
 
 // acc[r] += sum_k A[r][k] * W[k][col] for r < rows. A lives in shared
-// memory with row stride lda (a multiple of 4, zero-padded past C); W is a
-// (C, C) row-major matrix in device memory.
+// memory with row stride lda (a multiple of 4, zero-padded past K); W is a
+// (K, N) row-major matrix in device memory.
 template <typename T, int MAXL>
 __device__ __forceinline__ void column_dot(const float* __restrict__ A, int lda,
-                                           const T* __restrict__ W, int C, int col,
+                                           const T* __restrict__ W, int K, int N, int col,
                                            int rows, float (&acc)[MAXL]) {
 #pragma unroll
   for (int r = 0; r < MAXL; ++r) acc[r] = 0.f;
@@ -109,7 +114,7 @@ __device__ __forceinline__ void column_dot(const float* __restrict__ A, int lda,
     float w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      w[i] = kk + i < C ? to_f32(W[static_cast<long>(kk + i) * C + col]) : 0.f;
+      w[i] = kk + i < K ? to_f32(W[static_cast<long>(kk + i) * N + col]) : 0.f;
 #pragma unroll
     for (int r = 0; r < MAXL; ++r) {
       if (r < rows) {
@@ -131,18 +136,19 @@ fused_window_attention_kernel(
     const T* __restrict__ wv, const float* __restrict__ bv, const T* __restrict__ wo,
     const float* __restrict__ bo, const float* __restrict__ ls, const float* __restrict__ lb,
     const float* __restrict__ pos, const float* __restrict__ bias,
-    const float* __restrict__ scale, T* __restrict__ out, int L, int C, int heads,
+    const float* __restrict__ scale, T* __restrict__ out, int L, int C, int Cl, int heads,
     int bias_heads, int res, float qscale, float eps, vptr_dropout::Params drop,
     int mask_tokens) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lda = (C + 3) & ~3;
-  const int hd = C / heads;
+  const int ldo = (Cl + 3) & ~3;
+  const int hd = Cl / heads;
   const int hs = hd | 1;
   float* xn = smem;                    // [L][lda]  LN(x) * ls + lb (or x_v), rounded to T
   float* xqk = xn + L * lda;           // [L][lda]  xn + pos (or x_qk), rounded to T
-  float* att = xqk + L * lda;          // [L][lda]  merged head outputs, rounded to T
-  float* qh = att + L * lda;           // [L][hs]   q_h * hd^-1/2, rounded to T
+  float* att = xqk + L * lda;          // [L][ldo]  merged head outputs, rounded to T
+  float* qh = att + L * ldo;           // [L][hs]   q_h * hd^-1/2, rounded to T
   float* kh = qh + L * hs;             // [L][hs]
   float* vh = kh + L * hs;             // [L][hs]
 
@@ -173,7 +179,6 @@ fused_window_attention_kernel(
         }
         xn[r * lda + c] = n;
         xqk[r * lda + c] = nq;
-        att[r * lda + c] = 0.f;
       }
     }
   } else {
@@ -183,9 +188,9 @@ fused_window_attention_kernel(
       const int r = i / lda, c = i - r * lda;
       xqk[i] = c < C ? to_f32(xw[r * C + c]) : 0.f;
       xn[i] = c < C ? to_f32(xvw[r * C + c]) : 0.f;
-      att[i] = 0.f;
     }
   }
+  for (int i = threadIdx.x; i < L * ldo; i += kFmaThreads) att[i] = 0.f;
   __syncthreads();
 
   // 2) one head at a time: project q_h, k_h, v_h, then attend
@@ -195,7 +200,7 @@ fused_window_attention_kernel(
       const int j = t - m * hd;
       const int col = h * hd + j;
       float acc[MAXL];
-      column_dot<T, MAXL>(m == 2 ? xn : xqk, lda, m == 0 ? wq : (m == 1 ? wk : wv), C,
+      column_dot<T, MAXL>(m == 2 ? xn : xqk, lda, m == 0 ? wq : (m == 1 ? wk : wv), C, Cl,
                           col, L, acc);
       const float b = (m == 0 ? bq : (m == 1 ? bk : bv))[col];
       float* dst = m == 0 ? qh : (m == 1 ? kh : vh);
@@ -225,9 +230,8 @@ fused_window_attention_kernel(
       const float e = lane < L ? expf(logit - mx) : 0.f;
       float w = e / warp_sum(e);
       if (drop.active() && lane < L)
-        w = drop.apply(w, drop.keep(vptr_dropout::element_index(
-                                        static_cast<uint32_t>(win), heads, h, mask_tokens,
-                                        r, mask_tokens, lane),
+        w = drop.apply(w, drop.keep(drop.index(static_cast<uint32_t>(win), heads, h,
+                                               mask_tokens, r, mask_tokens, lane),
                                     seed));
       w = round_t<T>(w);
       for (int d0 = 0; d0 < hd; d0 += 32) {
@@ -237,7 +241,7 @@ fused_window_attention_kernel(
           const float wc = __shfl_sync(0xffffffffu, w, c);
           if (d < hd) acc = fmaf(wc, vh[c * hs + d], acc);
         }
-        if (d < hd) att[r * lda + h * hd + d] = round_t<T>(acc);
+        if (d < hd) att[r * ldo + h * hd + d] = round_t<T>(acc);
       }
     }
     __syncthreads();
@@ -248,7 +252,7 @@ fused_window_attention_kernel(
   const float sc = scale ? scale[win] : 1.f;
   for (int j = threadIdx.x; j < C; j += kFmaThreads) {
     float acc[MAXL];
-    column_dot<T, MAXL>(att, lda, wo, C, j, L, acc);
+    column_dot<T, MAXL>(att, ldo, wo, Cl, C, j, L, acc);
 #pragma unroll
     for (int r = 0; r < MAXL; ++r) {
       if (r < L) {
@@ -261,19 +265,20 @@ fused_window_attention_kernel(
   }
 }
 
-long fma_smem(int L, int C, int heads) {
-  const long lda = (C + 3) & ~3;
-  const long hs = (C / heads) | 1;
-  return static_cast<long>(sizeof(float)) * (3 * L * lda + 3 * L * hs);
+long fma_smem(int L, int C, int Cl, int heads) {
+  const long lda = (C + 3) & ~3, ldo = (Cl + 3) & ~3;
+  const long hs = (Cl / heads) | 1;
+  return static_cast<long>(sizeof(float)) * (2 * L * lda + L * ldo + 3 * L * hs);
 }
 
 template <typename T, int MAXL, bool LN>
 int launch_fma(const FwdArgs& a, cudaStream_t stream) {
-  const long smem = fma_smem(a.tokens, a.channels, a.heads);
+  const long smem = fma_smem(a.tokens, a.channels, a.inner, a.heads);
   auto kernel = fused_window_attention_kernel<T, MAXL, LN>;
   VPTR_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem)));
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div,
+                                  a.mask_heads, a.head0};
   kernel<<<a.windows, kFmaThreads, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.xv), static_cast<const T*>(a.wq),
       static_cast<const float*>(a.bq), static_cast<const T*>(a.wk),
@@ -282,7 +287,8 @@ int launch_fma(const FwdArgs& a, cudaStream_t stream) {
       static_cast<const float*>(a.bo), static_cast<const float*>(a.ls),
       static_cast<const float*>(a.lb), static_cast<const float*>(a.pos),
       static_cast<const float*>(a.bias), static_cast<const float*>(a.scale),
-      static_cast<T*>(a.out), a.tokens, a.channels, a.heads, a.bias_heads, a.res, a.qscale,
+      static_cast<T*>(a.out), a.tokens, a.channels, a.inner, a.heads, a.bias_heads, a.res,
+      a.qscale,
       a.eps, drop, a.mask_tokens);
   return cudaGetLastError();
 }
@@ -419,8 +425,7 @@ window_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const uint32_t row_idx = vptr_dropout::element_index(
-            win, heads, h, mask_tokens, i, mask_tokens, 0);
+        const uint32_t row_idx = drop.index(win, heads, h, mask_tokens, i, mask_tokens, 0);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           float wv[2];
@@ -509,34 +514,37 @@ int launch_attention(const void* q, const void* k, const void* v, const void* bi
 // ---------------------------------------------------------------------------
 // wgmma route: 2. and 4., the products
 
-// 4. out = (a Wo + bo) * scale[row / L] (+ res), rounded once to bf16.
+// 4. out = (a Wo + bo) * scale[row / L] (+ res), rounded once to bf16; a
+// (rows, K), Wo (K, C).
 int out_projection(const void* a, const void* wo, const void* bo, const void* scale,
-                   const void* res, void* out, int rows, int L, int C, cudaStream_t s) {
+                   const void* res, void* out, int rows, int L, int K, int C, cudaStream_t s) {
   RwMaps m;
   RwWork w{};
-  if (int err = rw_amap(&m.a[0][0], a, rows, C, C)) return err;
-  if (int err = rw_bmap(&m.b[0], wo, C, C, C, true)) return err;
-  w.job[0] = {out, static_cast<const float*>(bo), 1.f, static_cast<const float*>(scale), C};
+  if (int err = rw_amap(&m.a[0][0], a, rows, K, K)) return err;
+  if (int err = rw_bmap(&m.b[0], wo, K, C, C, true)) return err;
+  w.job[0] = {out, static_cast<const float*>(bo), 1.f, static_cast<const float*>(scale), K};
   w.job[kRwJobs - 1].out = const_cast<void*>(res);
   w.jobs = 1, w.rows = rows, w.cols = C, w.group = L;
   return launch_rows<1, true, kRwOutProj>(m, w, s);
 }
 
-// Shapes and the route: wgmma for bf16 with C a multiple of 8 whose
-// attention pass fits a block's shared memory; the FMA kernel otherwise.
-bool use_wg(int L, int C, int dtype) {
-  return dtype == 1 && C % 8 == 0 && attn_smem(L, C) <= kSmemLimit;
+// Shapes and the route: wgmma for bf16 with C and the inner width Cl
+// multiples of 8 (TMA rows and the attention pass's 16-byte chunks) whose
+// attention pass fits a block's shared memory; the FMA kernel otherwise
+// (Cl = 132, 2 of 8 heads of 66 at C = 528, takes the FMA kernel).
+bool use_wg(int L, int C, int Cl, int dtype) {
+  return dtype == 1 && C % 8 == 0 && Cl % 8 == 0 && attn_smem(L, Cl) <= kSmemLimit;
 }
 
-// Dynamic shared memory of the route (L, C, heads, dtype) takes: the
+// Dynamic shared memory of the route (L, C, Cl, heads, dtype) takes: the
 // attention pass's on the wgmma route.
-long window_smem(int L, int C, int heads, int dtype) {
-  return use_wg(L, C, dtype) ? attn_smem(L, C) : fma_smem(L, C, heads);
+long window_smem(int L, int C, int Cl, int heads, int dtype) {
+  return use_wg(L, C, Cl, dtype) ? attn_smem(L, Cl) : fma_smem(L, C, Cl, heads);
 }
 
 template <bool LN>
 int run_wg(const FwdArgs& a, cudaStream_t s) {
-  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  const int L = a.tokens, C = a.channels, Cl = a.inner, R = a.windows * L;
   // the projections' inputs: xn, xqk (xn without pos) or the two streams
   const void* xqk = LN ? (a.pos ? a.xqk : a.xn) : a.x;
   const void* xv = LN ? a.xn : a.xv;
@@ -560,21 +568,23 @@ int run_wg(const FwdArgs& a, cudaStream_t s) {
   const void* bs[3] = {a.bq, a.bk, a.bv};
   for (int j = 0; j < 3; ++j) {
     if (int err = rw_amap(&m.a[j][0], xs[j], R, C, C)) return err;
-    if (int err = rw_bmap(&m.b[j], ws[j], C, C, C, true)) return err;
+    if (int err = rw_bmap(&m.b[j], ws[j], C, Cl, Cl, true)) return err;
     w.job[j] = {outs[j], static_cast<const float*>(bs[j]), j == 0 ? a.qscale : 1.f, nullptr,
                 C};
   }
-  w.jobs = 3, w.rows = R, w.cols = C, w.group = L;
+  w.jobs = 3, w.rows = R, w.cols = Cl, w.group = L;
   if (int err = launch_rows<1, true, kRwProj>(m, w, s)) return err;
 
-  // 3. attention per (window, head)
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
-  if (int err = launch_attention(a.q, a.k, a.v, a.bias, a.attn, a.windows, L, C, a.heads,
+  // 3. attention per (window, head) over the Cl columns of q, k, v
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div,
+                                  a.mask_heads, a.head0};
+  if (int err = launch_attention(a.q, a.k, a.v, a.bias, a.attn, a.windows, L, Cl, a.heads,
                                  a.bias_heads, a.mask_tokens, drop, s))
     return err;
 
-  // 4. the out projection, + bo, * scale, + x
-  return out_projection(a.attn, a.wo, a.bo, a.scale, a.res ? a.x : nullptr, a.out, R, L, C, s);
+  // 4. the out projection (K = Cl), + bo, * scale, + x
+  return out_projection(a.attn, a.wo, a.bo, a.scale, a.res ? a.x : nullptr, a.out, R, L, Cl, C,
+                        s);
 }
 
 // Checks the arguments, then runs the route the shape takes (dtype 0 =
@@ -583,13 +593,16 @@ int run_wg(const FwdArgs& a, cudaStream_t s) {
 template <bool LN>
 int run_forward(const FwdArgs* a, cudaStream_t s) {
   if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
-      a->channels % a->heads != 0 || a->channels / a->heads > kMaxHeadDim ||
+      a->channels < 1 || a->inner < 1 || a->inner % a->heads != 0 ||
+      a->inner / a->heads > kMaxHeadDim ||
+      (a->mask_heads ? a->head0 < 0 || a->head0 + a->heads > a->mask_heads : a->head0 != 0) ||
       (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) || a->dtype < 0 ||
-      a->dtype > 1 || window_smem(a->tokens, a->channels, a->heads, a->dtype) > kSmemLimit ||
+      a->dtype > 1 ||
+      window_smem(a->tokens, a->channels, a->inner, a->heads, a->dtype) > kSmemLimit ||
       (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
       (!LN && (!a->xv || a->res || a->scale)))
     return cudaErrorInvalidValue;
-  if (use_wg(a->tokens, a->channels, a->dtype)) {
+  if (use_wg(a->tokens, a->channels, a->inner, a->dtype)) {
     if (!a->q || !a->k || !a->v || !a->attn ||
         (LN && (!a->mean || !a->rstd || !a->xn || (a->pos && !a->xqk))))
       return cudaErrorInvalidValue;

@@ -26,14 +26,15 @@ extern "C" {
 
 const char* vptr_error_string(int err) { return error_string(err); }
 
-// 1 when (C, dtype) takes the wgmma route, 0 for the FMA route.
-int vptr_fused_window_attention_bwd_route(int channels, int dtype) {
-  return wg_route(channels, dtype) ? 1 : 0;
+// 1 when (C, Cl, dtype) takes the wgmma route, 0 for the FMA route (Cl:
+// the inner width, C for every head).
+int vptr_fused_window_attention_bwd_route(int channels, int inner, int dtype) {
+  return wg_route(channels, inner, dtype) ? 1 : 0;
 }
 
-// K chunks of the weight-gradient products (wpart: 4 x ksplit x C x C f32).
-int vptr_fused_window_attention_bwd_ksplit(int rows, int channels, int dtype) {
-  return ksplits(rows, channels, dtype);
+// K chunks of the weight-gradient products (wpart: 4 x ksplit x C x Cl f32).
+int vptr_fused_window_attention_bwd_ksplit(int rows, int channels, int inner, int dtype) {
+  return ksplits(rows, channels, inner, dtype);
 }
 
 // Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a

@@ -43,6 +43,13 @@
 //   8. the column sums in fixed order: dbq, dbk, dbv, dbo over pass 4's
 //      window sums (dlb, dls over pass 7's); dbias sums the logit
 //      gradients over windows.
+// A head subset (tensor parallelism; the forward's note): Wq, Wk, Wv are
+// (C, Cl), Wo (Cl, C) and q, k, v, d(attn), the merged heads and dq, dk, dv
+// R x Cl; dx (or dx_qk, dx_v), dls and dlb are this subset's share of the
+// sum over all heads (the caller sums them over the ranks) and dbo is the
+// column sum of g over all C columns (block (window, h) sums its C / H of
+// them). The dropout index takes the global head; scale and res need every
+// head (Cl = C).
 // Rounding points follow the plain versions
 // (fused_window_attention.py::fused_attention_ln_backward_plain and
 // fused_attention_backward_plain): dq, dk, dv and g * scale stay f32 into
@@ -86,12 +93,13 @@
 
 // Everything the backward needs; mirrored by _BwdArgs in
 // vptr_tpu_torch/ops/fused_window_attention.py. Inputs, outputs, then the
-// caller-allocated scratch (mean/rstd: R f32; xn, xqk, q, k, v, attn: R x C
-// in T; dao: R x C f32; dl: windows x heads x L x L f32 or null; colpart:
-// 4 x windows x C f32; partial (LN): 2 x ln_parts(R) x C f32; wpart: 4 x
-// ksplit x C x C f32; on the wgmma route planes: 2 x R x 4C bf16 and wcat: C x 3C
-// bf16, dq, dk, dv null; on the FMA route dq, dk, dv: R x C f32, planes and
-// wcat null). Without LN, x is x_qk, xv is x_v, dx is dx_qk and dxv dx_v,
+// caller-allocated scratch (mean/rstd: R f32; xn, xqk: R x C in T; q, k, v,
+// attn: R x Cl in T; dao: R x C f32; dl: windows x heads x L x L f32 or
+// null; colpart: 4 x windows x C f32; partial (LN): 2 x ln_parts(R) x C f32;
+// wpart: 4 x ksplit x C x Cl f32; on the wgmma route planes: 2 x R x
+// (3 Cl + C) bf16 and wcat: C x 3 Cl bf16, dq, dk, dv null; on the FMA
+// route dq, dk, dv: R x Cl f32, planes and wcat null). Cl = inner (C for
+// every head). Without LN, x is x_qk, xv is x_v, dx is dx_qk and dxv dx_v,
 // and mean, rstd, xn, xqk, ls, lb, pos, scale, dls and dlb are unused
 // (null).
 struct BwdArgs {
@@ -101,6 +109,7 @@ struct BwdArgs {
   void *mean, *rstd, *xn, *xqk, *q, *k, *v, *attn, *dao, *dq, *dk, *dv, *dl, *colpart, *partial,
       *wpart, *planes, *wcat;
   int windows, tokens, channels, heads, bias_heads, res, mask_tokens, dtype, ksplit;
+  int inner, mask_heads, head0;   // Cl = heads * hd; the global heads and the first
   float qscale, dscale, eps, rate, keep_div;
 };
 
@@ -109,14 +118,17 @@ namespace {
 constexpr int kMaxTokens = 32;
 constexpr int kMaxHeadDim = 128;
 
-bool wg_route(int C, int dtype) { return dtype == 1 && C % 8 == 0; }
+bool wg_route(int C, int Cl, int dtype) { return dtype == 1 && C % 8 == 0 && Cl % 8 == 0; }
 
 // K chunks of the weight-gradient products (wpart). The wgmma route: one
 // wave of the four products' blocks (a block an SM: its shared memory), at
 // most one a 64 rows; the FMA route: tile_ops.cuh's split.
-int ksplits(int R, int C, int dtype) {
-  if (!wg_route(C, dtype)) return weight_splits(R);
-  const int blocks = 4 * ((C + 64 * kDwMw - 1) / (64 * kDwMw)) * ((C + kWgN - 1) / kWgN);
+int ksplits(int R, int C, int Cl, int dtype) {
+  if (!wg_route(C, Cl, dtype)) return weight_splits(R);
+  auto tiles = [](int m, int n) {
+    return ((m + 64 * kDwMw - 1) / (64 * kDwMw)) * ((n + kWgN - 1) / kWgN);
+  };
+  const int blocks = 3 * tiles(C, Cl) + tiles(Cl, C);
   const int k = sm_count() / blocks, most = (R + kWgK - 1) / kWgK;
   return k < 1 ? 1 : (k > most ? most : k);
 }
@@ -196,10 +208,10 @@ template <typename T, bool HILO>
 __global__ void __launch_bounds__(kWinThreads, 4)
 window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ dao, const float* __restrict__ bias, WinOut out,
-                  int windows, int L, int C, int heads, int bias_heads, int mask_tokens,
+                  int windows, int L, int C, int Cl, int heads, int bias_heads, int mask_tokens,
                   float dscale, vptr_dropout::Params drop) {
   extern __shared__ float4 smem4[];
-  const int hd = C / heads;
+  const int hd = Cl / heads;
   const int stride = row_stride(hd);
   const int Lq = (L + 3) & ~3, pairs = (L + 1) / 2;
   float* qs = reinterpret_cast<float*>(smem4);   // [Lq][stride] q * scale (rounded to T)
@@ -222,7 +234,7 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     const int r = i / stride, d = i - r * stride;
     float a = 0.f, b = 0.f, c = 0.f, e = 0.f;
     if (r < L && d < hd) {
-      const long o = (row0 + r) * C + col0 + d;
+      const long o = (row0 + r) * Cl + col0 + d;
       a = to_f32(q[o]);
       b = to_f32(k[o]);
       c = to_f32(v[o]);
@@ -283,7 +295,7 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     float w_drop = w;
     if (drop.active() && col) {
       const bool kept = drop.keep(
-          vptr_dropout::element_index(win, heads, h, mask_tokens, r, mask_tokens, kc), seed);
+          drop.index(win, heads, h, mask_tokens, r, mask_tokens, kc), seed);
       w_drop = drop.apply(w, kept);
       dw = drop.apply(dw, kept);
     }
@@ -299,7 +311,7 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   // rows r0 = 2 rp and r0 + 1 of column d: attn and dq (query rows), dk and
   // dv (key rows); the sums run over c in order, zero past L
-  const long pw = 4L * C;                         // the planes' row stride
+  const long pw = 3L * Cl + C;                    // the planes' row stride
   for (int i = threadIdx.x; i < pairs * hd; i += kWinThreads) {
     const int rp = i / hd, d = i - rp * hd, r0 = 2 * rp;
     float a[2] = {0.f, 0.f}, aq[2] = {0.f, 0.f}, ak[2] = {0.f, 0.f}, av[2] = {0.f, 0.f};
@@ -319,23 +331,24 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         av[hh] = dot4(*reinterpret_cast<const float4*>(wdT + o), cd, av[hh]);
       }
     }
-    float sq = 0.f, sk = 0.f, sv = 0.f, sg = 0.f;
+    float sq = 0.f, sk = 0.f, sv = 0.f;
     const float gsc = out.scale ? out.scale[win] : 1.f;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = r0 + hh;
       if (r >= L) break;
       const float dq = aq[hh] * dscale;
-      const long o = (row0 + r) * C + col0 + d;
-      const float gs = to_f32(static_cast<const T*>(out.g)[o]) * gsc;
-      sq += dq, sk += ak[hh], sv += av[hh], sg += gs;
+      const long o = (row0 + r) * Cl + col0 + d;
+      sq += dq, sk += ak[hh], sv += av[hh];
       static_cast<T*>(out.attn)[o] = from_f32<T>(a[hh]);
       if constexpr (HILO) {
         bf16* p = out.hi + (row0 + r) * pw + col0 + d;
         store_halves(p, out.plane, dq);
-        store_halves(p + C, out.plane, ak[hh]);
-        store_halves(p + 2 * C, out.plane, av[hh]);
-        if (out.scale) store_halves(p + 3 * C, out.plane, gs);
+        store_halves(p + Cl, out.plane, ak[hh]);
+        store_halves(p + 2 * Cl, out.plane, av[hh]);
+        if (out.scale)   // every head (Cl = C): g's column is the head's
+          store_halves(p + 3 * Cl, out.plane,
+                       to_f32(static_cast<const T*>(out.g)[(row0 + r) * C + col0 + d]) * gsc);
       } else {
         out.dq[o] = dq;
         out.dk[o] = ak[hh];
@@ -343,36 +356,52 @@ window_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       }
     }
     sums[i] = sq, sums[pairs * hd + i] = sk, sums[2 * pairs * hd + i] = sv;
-    sums[3 * pairs * hd + i] = sg;
   }
   __syncthreads();
-  // the window's sums of this head's columns of dq, dk, dv, g * scale, row
-  // pairs in order
-  for (int t = threadIdx.x; t < 4 * hd; t += kWinThreads) {
+  // the window's sums of this head's columns of dq, dk, dv, row pairs in
+  // order
+  for (int t = threadIdx.x; t < 3 * hd; t += kWinThreads) {
     const int j = t / hd, d = t - j * hd;
     const float* sp = sums + j * pairs * hd + d;
     float acc = 0.f;
     for (int rp = 0; rp < pairs; ++rp) acc += sp[rp * hd];
     out.colpart[(static_cast<long>(j) * windows + win) * C + col0 + d] = acc;
   }
+  // and of g * scale over the block's C / heads columns of g (the head's
+  // columns when Cl = C), summed in row pairs as above
+  const int gc = C / heads, g0 = h * gc;
+  const float gsc = out.scale ? out.scale[win] : 1.f;
+  for (int t = threadIdx.x; t < gc; t += kWinThreads) {
+    const T* gp = static_cast<const T*>(out.g) + row0 * C + g0 + t;
+    float acc = 0.f;
+    for (int rp = 0; rp < pairs; ++rp) {
+      float sg = 0.f;
+      for (int hh = 0; hh < 2 && 2 * rp + hh < L; ++hh)
+        sg += to_f32(gp[static_cast<long>(2 * rp + hh) * C]) * gsc;
+      acc += sg;
+    }
+    out.colpart[(3L * windows + win) * C + g0 + t] = acc;
+  }
 }
 
 template <typename T, bool HILO>
 int launch_window_bwd(const BwdArgs& a, const WinOut& out, cudaStream_t s) {
-  const int L = a.tokens, hd = a.channels / a.heads;
+  const int L = a.tokens, hd = a.inner / a.heads;
   const size_t smem = window_smem(L, hd);
   VPTR_TRY(cudaFuncSetAttribute(window_bwd_kernel<T, HILO>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem)));
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div,
+                                  a.mask_heads, a.head0};
   window_bwd_kernel<T, HILO><<<a.windows * a.heads, kWinThreads, smem, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      cf32p(a.dao), cf32p(a.bias), out, a.windows, L, a.channels, a.heads, a.bias_heads,
-      a.mask_tokens, a.dscale, drop);
+      cf32p(a.dao), cf32p(a.bias), out, a.windows, L, a.channels, a.inner, a.heads,
+      a.bias_heads, a.mask_tokens, a.dscale, drop);
   return cudaGetLastError();
 }
 
-// out[j][c] = sum over the n rows of part[j] (n x C f32; j = blockIdx.y):
+// out[j][c] = sum over the n rows of part[j] (n x C f32 of row stride ld; j
+// = blockIdx.y):
 // pass 4's window sums (dbq, dbk, dbv, dbo), the LayerNorm backward's
 // 8-row sums (dlb, dls) and dbias (the logit gradients dl, windows rows of
 // heads L^2, or windows x heads rows of L^2 for a one-head bias). 32
@@ -384,15 +413,15 @@ struct ColOut {
 };
 
 __global__ void __launch_bounds__(1024)
-rows_sum_kernel(const float* __restrict__ part, ColOut co, int n, int C) {
+rows_sum_kernel(const float* __restrict__ part, ColOut co, int n, int C, int ld) {
   __shared__ float acc[32][33];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * 32 + lane, j = blockIdx.y;
-  const float* p = part + static_cast<long>(j) * n * C + c;
+  const float* p = part + static_cast<long>(j) * n * ld + c;
   float v = 0.f;
   if (c < C)
 #pragma unroll 4
-    for (int w = warp; w < n; w += 32) v += p[static_cast<long>(w) * C];
+    for (int w = warp; w < n; w += 32) v += p[static_cast<long>(w) * ld];
   acc[warp][lane] = v;
   __syncthreads();
   if (warp == 0 && c < C) {
@@ -450,7 +479,7 @@ ln_bwd_sums_kernel(const float* __restrict__ dxn, const T* __restrict__ x,
 
 // 2. q, k, v (one launch of three products) and 3. d(attn).
 int projections_wg(const BwdArgs& a, cudaStream_t s) {
-  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  const int L = a.tokens, C = a.channels, Cl = a.inner, R = a.windows * L;
   RwMaps m;
   RwWork w{};
   const void* xs[3] = {a.xqk, a.xqk, a.xn};
@@ -459,30 +488,33 @@ int projections_wg(const BwdArgs& a, cudaStream_t s) {
   const void* bs[3] = {a.bq, a.bk, a.bv};
   for (int j = 0; j < 3; ++j) {
     if (int err = rw_amap(&m.a[j][0], xs[j], R, C, C)) return err;
-    if (int err = rw_bmap(&m.b[j], ws[j], C, C, C, true)) return err;
+    if (int err = rw_bmap(&m.b[j], ws[j], C, Cl, Cl, true)) return err;
     w.job[j] = {outs[j], cf32p(bs[j]), j == 0 ? a.qscale : 1.f, nullptr, C};
   }
-  w.jobs = 3, w.rows = R, w.cols = C, w.group = L;
+  w.jobs = 3, w.rows = R, w.cols = Cl, w.group = L;
   if (int err = launch_rows<1, true, kRwProj>(m, w, s)) return err;
   if (int err = rw_amap(&m.a[0][0], a.g, R, C, C)) return err;
-  if (int err = rw_bmap(&m.b[0], a.wo, C, C, C, false)) return err;
+  if (int err = rw_bmap(&m.b[0], a.wo, C, Cl, C, false)) return err;   // Wo (Cl, C) is B^T
   w.job[0] = {a.dao, nullptr, 1.f, cf32p(a.scale), C};
   w.jobs = 1;
   return launch_rows<1, false, kRwF32>(m, w, s);
 }
 
 // 5. dWq, dWk, dWv, dWo into their K chunks' partials (one launch).
+// With a head subset (Cl < C) dWq, dWk, dWv are (C, Cl) and dWo (Cl, C):
+// one launch of the three and one of dWo.
 int weights_wg(const BwdArgs& a, cudaStream_t s) {
-  const int C = a.channels, R = a.windows * a.tokens;
-  const long pw = 4L * C, plane = static_cast<long>(R) * pw, cc = static_cast<long>(C) * C;
+  const int C = a.channels, Cl = a.inner, R = a.windows * a.tokens;
+  const long pw = 3L * Cl + C, plane = static_cast<long>(R) * pw, cc = static_cast<long>(C) * Cl;
   const bf16* hi = static_cast<const bf16*>(a.planes);
   DwJobs<4> jobs;
   const void* xs[4] = {a.xqk, a.xqk, a.xn, a.attn};
   for (int j = 0; j < 4; ++j) {
-    int err = strided_map(&jobs.x[j], xs[j], R, C, C, 64, 64);
+    const int xc = j < 3 ? C : Cl, yc = j < 3 ? Cl : C;
+    int err = strided_map(&jobs.x[j], xs[j], R, xc, xc, 64, 64);
     if (j < 3 || a.scale) {            // dY's halves
-      if (!err) err = strided_map(&jobs.h[j], hi + j * C, R, C, pw, 64, 64);
-      if (!err) err = strided_map(&jobs.l[j], hi + plane + j * C, R, C, pw, 64, 64);
+      if (!err) err = strided_map(&jobs.h[j], hi + j * Cl, R, yc, pw, 64, 64);
+      if (!err) err = strided_map(&jobs.l[j], hi + plane + j * Cl, R, yc, pw, 64, 64);
       jobs.terms[j] = 2;
     } else {                           // dY = g, exact in bf16
       if (!err) err = strided_map(&jobs.h[j], a.g, R, C, C, 64, 64);
@@ -492,40 +524,49 @@ int weights_wg(const BwdArgs& a, cudaStream_t s) {
     if (err) return err;
     jobs.out[j] = f32p(a.wpart) + j * a.ksplit * cc;
   }
-  return launch_dw_jobs<4>(jobs, R, C, C, a.ksplit, s);
+  if (Cl == C) return launch_dw_jobs<4>(jobs, R, C, C, a.ksplit, s);
+  DwJobs<3> qkv;
+  DwJobs<1> o;
+  for (int j = 0; j < 3; ++j)
+    qkv.x[j] = jobs.x[j], qkv.h[j] = jobs.h[j], qkv.l[j] = jobs.l[j], qkv.out[j] = jobs.out[j],
+    qkv.terms[j] = jobs.terms[j];
+  o.x[0] = jobs.x[3], o.h[0] = jobs.h[3], o.l[0] = jobs.l[3], o.out[0] = jobs.out[3];
+  o.terms[0] = jobs.terms[3];
+  if (int err = launch_dw_jobs<3>(qkv, R, C, Cl, a.ksplit, s)) return err;
+  return launch_dw_jobs<1>(o, R, Cl, C, a.ksplit, s);
 }
 
 // 6. LN: d(xn) = [dq dk dv] [Wq Wk Wv]^T (f32, into dao's memory); no LN:
 // dx_qk = [dq dk] [Wq Wk]^T and dx_v = dv Wv^T (in T), one launch.
 template <bool LN>
 int dxn_wg(const BwdArgs& a, cudaStream_t s) {
-  const int C = a.channels, R = a.windows * a.tokens;
-  const long pw = 4L * C, plane = static_cast<long>(R) * pw;
+  const int C = a.channels, Cl = a.inner, R = a.windows * a.tokens;
+  const long pw = 3L * Cl + C, plane = static_cast<long>(R) * pw;
   const bf16* hi = static_cast<const bf16*>(a.planes);
   bf16* wcat = static_cast<bf16*>(a.wcat);
   const void* ws[3] = {a.wq, a.wk, a.wv};
-  for (int j = 0; j < (LN ? 3 : 2); ++j)    // [Wq Wk (Wv)] side by side: (C, 3C)
-    VPTR_TRY(cudaMemcpy2DAsync(wcat + j * C, 3L * C * 2, ws[j], C * 2L, C * 2L, C,
+  for (int j = 0; j < (LN ? 3 : 2); ++j)    // [Wq Wk (Wv)] side by side: (C, 3 Cl)
+    VPTR_TRY(cudaMemcpy2DAsync(wcat + j * Cl, 3L * Cl * 2, ws[j], Cl * 2L, Cl * 2L, C,
                                cudaMemcpyDeviceToDevice, s));
   RwMaps m;
   RwWork w{};
   w.rows = R, w.cols = C, w.group = a.tokens;
-  const int kq = LN ? 3 * C : 2 * C;        // the first product's depth
+  const int kq = LN ? 3 * Cl : 2 * Cl;      // the first product's depth
   int err = rw_amap(&m.a[0][0], hi, R, kq, pw);
   if (!err) err = rw_amap(&m.a[0][1], hi + plane, R, kq, pw);
-  if (!err) err = rw_bmap(&m.b[0], wcat, kq, C, 3L * C, false);
+  if (!err) err = rw_bmap(&m.b[0], wcat, kq, C, 3L * Cl, false);
   if (err) return err;
   if constexpr (LN) {
     w.job[0] = {a.dao, nullptr, 1.f, nullptr, kq};
     w.jobs = 1;
     return launch_rows<2, false, kRwF32>(m, w, s);
   } else {
-    err = rw_amap(&m.a[1][0], hi + 2 * C, R, C, pw);
-    if (!err) err = rw_amap(&m.a[1][1], hi + plane + 2 * C, R, C, pw);
-    if (!err) err = rw_bmap(&m.b[1], a.wv, C, C, C, false);
+    err = rw_amap(&m.a[1][0], hi + 2 * Cl, R, Cl, pw);
+    if (!err) err = rw_amap(&m.a[1][1], hi + plane + 2 * Cl, R, Cl, pw);
+    if (!err) err = rw_bmap(&m.b[1], a.wv, Cl, C, Cl, false);
     if (err) return err;
     w.job[0] = {a.dx, nullptr, 1.f, nullptr, kq};
-    w.job[1] = {a.dxv, nullptr, 1.f, nullptr, C};
+    w.job[1] = {a.dxv, nullptr, 1.f, nullptr, Cl};
     w.jobs = 2;
     return launch_rows<2, false, kRwBf16>(m, w, s);
   }
@@ -537,14 +578,15 @@ int dxn_wg(const BwdArgs& a, cudaStream_t s) {
 // 2. q, k, v;  3. d(attn) = (g Wo^T) * scale[window]
 template <typename T>
 int projections_fma(const BwdArgs& a, cudaStream_t s) {
-  const int L = a.tokens, C = a.channels, R = a.windows * L;
+  const int L = a.tokens, C = a.channels, Cl = a.inner, R = a.windows * L;
   GemmBatch gb{};
-  gb.M = R, gb.N = C, gb.K = C, gb.lda = C, gb.ldb = C, gb.ldo = C, gb.group = L;
+  gb.M = R, gb.N = Cl, gb.K = C, gb.lda = C, gb.ldb = Cl, gb.ldo = Cl, gb.group = L;
   gb.ksplit = 1, gb.kchunk = C;
   gb.job[0] = {a.xqk, a.wq, a.q, cf32p(a.bq), a.qscale, nullptr, nullptr, 0};
   gb.job[1] = {a.xqk, a.wk, a.k, cf32p(a.bk), 1.f, nullptr, nullptr, 0};
   gb.job[2] = {a.xn, a.wv, a.v, cf32p(a.bv), 1.f, nullptr, nullptr, 0};
   VPTR_TRY((gemm<T, false, T, false, T, kProj>(gb, 3, s)));
+  gb.ldb = C;                          // Wo (Cl, C) read transposed
   gb.job[0] = {a.g, a.wo, a.dao, nullptr, 1.f, nullptr, cf32p(a.scale), 0};
   return gemm<T, false, T, true, float, kF32>(gb, 1, s);
 }
@@ -555,22 +597,23 @@ int projections_fma(const BwdArgs& a, cudaStream_t s) {
 //    one product written in T
 template <typename T, bool LN>
 int products_fma(const BwdArgs& a, cudaStream_t s) {
-  const int L = a.tokens, C = a.channels, R = a.windows * L;
-  const long cc = static_cast<long>(C) * C;
+  const int L = a.tokens, C = a.channels, Cl = a.inner, R = a.windows * L;
+  const long cc = static_cast<long>(C) * Cl;
   float* wpart = f32p(a.wpart);
   GemmBatch gw{};
-  gw.M = C, gw.N = C, gw.K = R, gw.lda = C, gw.ldb = C, gw.ldo = C, gw.group = L;
+  gw.M = C, gw.N = Cl, gw.K = R, gw.lda = C, gw.ldb = Cl, gw.ldo = Cl, gw.group = L;
   gw.ksplit = a.ksplit;
   gw.kchunk = ((R + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
   gw.job[0] = {a.xqk, a.dq, wpart, nullptr, 1.f, nullptr, nullptr, 0};
   gw.job[1] = {a.xqk, a.dk, wpart + a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
   gw.job[2] = {a.xn, a.dv, wpart + 2 * a.ksplit * cc, nullptr, 1.f, nullptr, nullptr, 0};
   VPTR_TRY((gemm<T, true, float, false, float, kPartial>(gw, 3, s)));
+  gw.M = Cl, gw.N = C, gw.lda = Cl, gw.ldb = C, gw.ldo = C;    // dWo (Cl, C)
   gw.job[0] = {a.attn, a.g, wpart + 3 * a.ksplit * cc, nullptr, 1.f, cf32p(a.scale), nullptr, 0};
   VPTR_TRY((gemm<T, true, T, false, float, kPartial>(gw, 1, s)));
   GemmBatch gb{};
-  gb.M = R, gb.N = C, gb.K = C, gb.lda = C, gb.ldb = C, gb.ldo = C, gb.group = L;
-  gb.ksplit = 1, gb.kchunk = C;
+  gb.M = R, gb.N = C, gb.K = Cl, gb.lda = Cl, gb.ldb = Cl, gb.ldo = C, gb.group = L;
+  gb.ksplit = 1, gb.kchunk = Cl;
   const void* dys[3] = {a.dq, a.dk, a.dv};
   const void* ws[3] = {a.wq, a.wk, a.wv};
   for (int j = 0; j < (LN ? 3 : 2); ++j) {
@@ -596,8 +639,8 @@ int run(const BwdArgs& args, cudaStream_t s) {
     a.xqk = const_cast<void*>(args.x);
     a.xn = const_cast<void*>(args.xv);
   }
-  const int L = a.tokens, C = a.channels, R = a.windows * a.tokens;
-  const bool wg = wg_route(C, a.dtype);
+  const int L = a.tokens, C = a.channels, Cl = a.inner, R = a.windows * a.tokens;
+  const bool wg = wg_route(C, Cl, a.dtype);
 
   // 1. LayerNorm rows
   if constexpr (LN) {
@@ -612,7 +655,7 @@ int run(const BwdArgs& args, cudaStream_t s) {
 
   // 4. attention backward per (window, head)
   WinOut out{a.attn, f32p(a.dq), f32p(a.dk), f32p(a.dv), static_cast<bf16*>(a.planes),
-             static_cast<long>(R) * 4 * C, a.g, cf32p(a.scale),
+             static_cast<long>(R) * (3L * Cl + C), a.g, cf32p(a.scale),
              f32p(a.colpart), f32p(a.dl)};
   if (int err = wg ? launch_window_bwd<bf16, true>(a, out, s)
                    : launch_window_bwd<T, false>(a, out, s))
@@ -625,7 +668,7 @@ int run(const BwdArgs& args, cudaStream_t s) {
   } else if (int err = products_fma<T, LN>(a, s)) {
     return err;
   }
-  const long cc = static_cast<long>(C) * C;
+  const long cc = static_cast<long>(C) * Cl;
   SplitSum ss{};
   void* dws[4] = {a.dwq, a.dwk, a.dwv, a.dwo};
   for (int j = 0; j < 4; ++j) ss.part[j] = f32p(a.wpart) + j * a.ksplit * cc, ss.out[j] = dws[j];
@@ -645,19 +688,30 @@ int run(const BwdArgs& args, cudaStream_t s) {
     VPTR_TRY(cudaGetLastError());
     const ColOut lo{{f32p(a.dlb), f32p(a.dls)}};
     rows_sum_kernel<<<dim3((C + 31) / 32, 2), 1024, 0, s>>>(cf32p(a.partial), lo, ln_parts(R),
-                                                           C);
+                                                           C, C);
     VPTR_TRY(cudaGetLastError());
   }
 
-  // 8. dbq, dbk, dbv, dbo over pass 4's window sums
-  const ColOut db{{f32p(a.dbq), f32p(a.dbk), f32p(a.dbv), f32p(a.dbo)}};
-  rows_sum_kernel<<<dim3((C + 31) / 32, 4), 1024, 0, s>>>(cf32p(a.colpart), db, a.windows, C);
+  // 8. dbq, dbk, dbv (Cl columns), dbo (C) over pass 4's window sums
+  if (Cl == C) {
+    const ColOut db{{f32p(a.dbq), f32p(a.dbk), f32p(a.dbv), f32p(a.dbo)}};
+    rows_sum_kernel<<<dim3((C + 31) / 32, 4), 1024, 0, s>>>(cf32p(a.colpart), db, a.windows, C,
+                                                           C);
+  } else {
+    const ColOut db{{f32p(a.dbq), f32p(a.dbk), f32p(a.dbv)}};
+    rows_sum_kernel<<<dim3((Cl + 31) / 32, 3), 1024, 0, s>>>(cf32p(a.colpart), db, a.windows,
+                                                            Cl, C);
+    VPTR_TRY(cudaGetLastError());
+    const ColOut dbo{{f32p(a.dbo)}};
+    rows_sum_kernel<<<dim3((C + 31) / 32, 1), 1024, 0, s>>>(
+        cf32p(a.colpart) + 3L * a.windows * C, dbo, a.windows, C, C);
+  }
   VPTR_TRY(cudaGetLastError());
   if (a.dl) {   // dbias: dl summed over the windows (and the heads for a one-head bias)
     const int one = a.bias_heads == 1, n = one ? a.windows * a.heads : a.windows;
     const int cols = (one ? 1 : a.heads) * L * L;
     const ColOut bo{{f32p(a.dbias)}};
-    rows_sum_kernel<<<dim3((cols + 31) / 32, 1), 1024, 0, s>>>(cf32p(a.dl), bo, n, cols);
+    rows_sum_kernel<<<dim3((cols + 31) / 32, 1), 1024, 0, s>>>(cf32p(a.dl), bo, n, cols, cols);
     VPTR_TRY(cudaGetLastError());
   }
   return cudaSuccess;
@@ -669,13 +723,17 @@ int run(const BwdArgs& args, cudaStream_t s) {
 template <bool LN>
 int run_backward(const BwdArgs* a, cudaStream_t s) {
   if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
-      a->channels % a->heads != 0 || a->channels / a->heads > kMaxHeadDim ||
+      a->channels % a->heads != 0 || a->inner < 1 || a->inner % a->heads != 0 ||
+      a->inner / a->heads > kMaxHeadDim ||
+      (a->inner != a->channels && (a->scale || a->res)) ||
+      (a->mask_heads ? a->head0 < 0 || a->head0 + a->heads > a->mask_heads : a->head0 != 0) ||
       (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) ||
       (a->dl && (!a->bias || !a->dbias)) || a->dtype < 0 || a->dtype > 1 ||
       (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
-      a->ksplit != ksplits(a->windows * a->tokens, a->channels, a->dtype) || !a->wpart ||
-      !a->colpart || (LN && !a->partial) || !a->dao ||
-      (wg_route(a->channels, a->dtype) ? !a->planes || !a->wcat : !a->dq || !a->dk || !a->dv) ||
+      a->ksplit != ksplits(a->windows * a->tokens, a->channels, a->inner, a->dtype) ||
+      !a->wpart || !a->colpart || (LN && !a->partial) || !a->dao ||
+      (wg_route(a->channels, a->inner, a->dtype) ? !a->planes || !a->wcat
+                                                 : !a->dq || !a->dk || !a->dv) ||
       (LN && (!a->xn || !a->xqk || !a->mean || !a->rstd)) ||
       (!LN && (!a->xv || !a->dxv || a->res || a->scale)))
     return cudaErrorInvalidValue;

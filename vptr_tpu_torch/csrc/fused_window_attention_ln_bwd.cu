@@ -22,18 +22,19 @@ extern "C" {
 
 const char* vptr_error_string(int err) { return error_string(err); }
 
-// 1 when (C, dtype) takes the wgmma route, 0 for the FMA route.
-int vptr_fused_window_attention_ln_bwd_route(int channels, int dtype) {
-  return wg_route(channels, dtype) ? 1 : 0;
+// 1 when (C, Cl, dtype) takes the wgmma route, 0 for the FMA route (Cl:
+// the inner width, C for every head).
+int vptr_fused_window_attention_ln_bwd_route(int channels, int inner, int dtype) {
+  return wg_route(channels, inner, dtype) ? 1 : 0;
 }
 
 // Rows of the LayerNorm backward's column-sum partials the caller
 // allocates (partial: 2 x rows x C f32).
 int vptr_fused_window_attention_ln_bwd_partials(int rows) { return ln_parts(rows); }
 
-// K chunks of the weight-gradient products (wpart: 4 x ksplit x C x C f32).
-int vptr_fused_window_attention_ln_bwd_ksplit(int rows, int channels, int dtype) {
-  return ksplits(rows, channels, dtype);
+// K chunks of the weight-gradient products (wpart: 4 x ksplit x C x Cl f32).
+int vptr_fused_window_attention_ln_bwd_ksplit(int rows, int channels, int inner, int dtype) {
+  return ksplits(rows, channels, inner, dtype);
 }
 
 // Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a
@@ -73,7 +74,7 @@ int vptr_window_weight_products(const void* const* x, const void* const* h,
                                 void* stream) {
   if (rows < 1 || C < 8 || C % 8) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ksplit = ksplits(rows, C, 1);
+  const int ksplit = ksplits(rows, C, C, 1);
   const long cc = static_cast<long>(C) * C;
   DwJobs<4> jobs;
   for (int j = 0; j < 4; ++j) {

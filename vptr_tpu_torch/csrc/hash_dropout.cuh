@@ -8,7 +8,10 @@
 // torch twin is vptr_tpu_torch/ops/dropout.py. The element index is
 //     ((b * H + h) * Tq + r) * Tk + c
 // with b the global batch or window index (the window kernels index their
-// tokens by the padded count, see dropout.py::padded_tokens).
+// tokens by the padded count, see dropout.py::padded_tokens). A kernel that
+// holds a subset of the heads (tensor parallelism: heads h0 .. h0 + Hl - 1
+// of Hg) indexes by the global head: ((b * Hg + h0 + h) * Tq + r) * Tk + c
+// (Params::index).
 #pragma once
 
 #include <stdint.h>
@@ -37,13 +40,24 @@ __device__ __forceinline__ uint32_t element_index(uint32_t b, uint32_t heads, ui
 // (an int32 the caller drew on the card, so drawing it needs no host
 // synchronisation); rate and the divisor (float)(1 - rate) come from the
 // host. active is false at rate 0, and then no weight is touched.
+// mask_heads and head0: the global head count and the first head of a
+// kernel that holds a subset of the heads (0, 0: the kernel's own heads).
 struct Params {
   const int* seed;
   float rate;
   float keep_div;
+  int mask_heads;
+  int head0;
   __device__ __forceinline__ bool active() const { return rate > 0.f; }
   __device__ __forceinline__ uint32_t seed_u32() const {
     return static_cast<uint32_t>(*seed);
+  }
+  // element_index of head h of the kernel's `heads`, by the global head
+  __device__ __forceinline__ uint32_t index(uint32_t b, uint32_t heads, uint32_t h,
+                                            uint32_t tq, uint32_t r, uint32_t tk,
+                                            uint32_t c) const {
+    return element_index(b, mask_heads ? static_cast<uint32_t>(mask_heads) : heads,
+                         static_cast<uint32_t>(head0) + h, tq, r, tk, c);
   }
   __device__ __forceinline__ bool keep(uint32_t idx, uint32_t s) const {
     return hash_uniform(idx, s) >= rate;

@@ -53,6 +53,26 @@ since every kernel's mask index is sample-major (windows n·T·nW, temporal
 columns n·HW, FFN rows n·T·HW, dw samples n·T). Every rank's generator
 advances identically.
 
+Tensor parallelism (a mesh with ``model`` M > 1,
+:func:`~vptr_tpu_torch.models.transformer.shard_transformer`): each module
+that holds heads or hidden channels holds its rank's share of them (whole
+heads [m H/M, (m+1) H/M) and the matching hidden channels, by the TP rules
+of :mod:`vptr_tpu_torch.parallel.mesh`) and runs the Megatron pattern:
+its replicated input enters the TP region (:func:`enter_model`: the
+backward sums the input's gradient over the model group), the
+column-parallel products (q/k/v, linear1, fc1) and what follows them per
+head or channel run on the share, and the row-parallel product (out_proj,
+linear2, fc2) gives a partial sum that :func:`reduce_model` adds up over
+the model group, in f32, before the replicated bias is added once. The
+kernels take the head subset (``mask_heads``, ``head0``), so their
+dropout is the whole call's; a hidden dropout draws the global shape and
+keeps the rank's rows and channels; LayerNormHWC over the split hidden
+takes its moments over the model group (:func:`model_sum`). Sequence
+parallelism (``TemporalAttention.sp``): each model rank attends over a
+contiguous share of the flattened (N·HW) temporal columns with every head
+(the sublayer's parameters gathered whole for the call, their gradients
+summed over the model group), and the shares are gathered after.
+
 Each kernel-backed module's (attention, :class:`Mlp`, :class:`MlpDWBN`)
 ``kernels`` attribute is ``"cuda"`` (the wrappers: the kernel on a CUDA
 tensor, the plain version on a CPU tensor) or ``"plain"`` (the plain
@@ -88,7 +108,20 @@ from vptr_tpu_torch.ops.window import (
     window_partition,
     window_reverse,
 )
-from vptr_tpu_torch.parallel.mesh import all_reduce_sum, host_id, num_hosts, rank_seed
+from vptr_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    data_rank,
+    data_size,
+    enter_model,
+    gather_model,
+    gather_params,
+    model_rank,
+    model_size,
+    model_sum,
+    rank_seed,
+    reduce_model,
+    scatter_model,
+)
 
 KERNEL_MODES = ("cuda", "plain")
 
@@ -126,18 +159,27 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
 
 
 def bernoulli_keep(shape, keep: float, generator: Optional[torch.Generator],
-                   device) -> torch.Tensor:
+                   device, split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Boolean mask of ``shape`` (an int or a tuple), True with probability
-    ``keep``. Under W > 1 ranks the leading axis is this rank's b rows of
-    the global batch: the mask of the global shape (W·b, ...) is drawn and
-    rows r·b .. (r+1)·b kept, so every rank draws what one process at the
-    global batch draws."""
+    ``keep``. Under W > 1 data ranks the leading axis is this rank's b rows
+    of the global batch: the mask of the global shape (W·b, ...) is drawn
+    and rows r·b .. (r+1)·b kept, so every rank draws what one process at
+    the global batch draws. ``split`` (dim, M, m): ``shape``'s ``dim`` is
+    model rank m's share of M (a tensor-parallel hidden); the draw takes
+    the whole dim and keeps the share."""
     if generator is None:
         raise ValueError("a training forward with dropout needs a generator")
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    w, b, r = num_hosts(), shape[0], host_id()
-    full = torch.rand((w * b,) + shape[1:], generator=generator, device=device)
-    return full[r * b:(r + 1) * b] < keep
+    w, b, r = data_size(), shape[0], data_rank()
+    full = [w * b] + list(shape[1:])
+    if split is not None:
+        dim, m_size, m_rank = split
+        dim %= len(shape)
+        full[dim] *= m_size
+    mask = torch.rand(full, generator=generator, device=device)[r * b:(r + 1) * b]
+    if split is not None:
+        mask = mask.narrow(dim, m_rank * shape[dim], shape[dim])
+    return mask < keep
 
 
 def _keep_scaled(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -150,6 +192,21 @@ def _keep_scaled(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tens
 def _linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """nn.Dense in ``dtype``: input, kernel and bias cast to it."""
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_linear` of a weight (out, in) and bias (or None) given as
+    tensors."""
+    return F.linear(x.to(dtype), w.to(dtype), None if b is None else b.to(dtype))
+
+
+def _row_parallel_out(partial: torch.Tensor, bias: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel product's output: the ranks' partial sums added up
+    over the model group in f32, the replicated bias added once, cast to
+    ``dtype``."""
+    return (reduce_model(partial) + bias.float()).to(dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -167,11 +224,37 @@ class LayerNorm(nn.LayerNorm):
 
 class LayerNormHWC(LayerNorm):
     """LayerNorm over a whole (C, H, W) NCHW sample with per-element affine
-    (``layers.py:522-543``; the JAX module stores its affine (H, W, C))."""
+    (``layers.py:522-543``; the JAX module stores its affine (H, W, C)).
+
+    ``tp`` (set by :meth:`shard`): the module holds its model rank's share
+    of the C channels (and of the affine); the sample's moments are taken
+    over every rank's channels (:func:`model_sum`, forward and backward)."""
+
+    tp: Optional[Tuple[int, int]] = None
+
+    def shard(self, size: int, rank: int) -> None:
+        self.tp = (size, rank)
+        self.normalized_shape = tuple(self.weight.shape)
+
+    def forward(self, x):
+        if self.tp is None:
+            return super().forward(x)
+        x32 = x.float()
+        n = x32[0].numel() * self.tp[0]
+        view = lambda v: v[:, None, None, None]
+        mean = model_sum(x32.sum((1, 2, 3))) / n
+        d = x32 - view(mean)
+        var = model_sum((d * d).sum((1, 2, 3))) / n
+        y = d * view(torch.rsqrt(var + self.eps)) * self.weight + self.bias
+        return y.to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with separate q/k/v/out projections over (..., L, C)."""
+    """Self-attention with separate q/k/v/out projections over (..., L, C).
+
+    :meth:`shard` keeps heads [m H/M, (m+1) H/M) of model rank m: q/k/v
+    project C to Cl = H/M hd, out_proj Cl to C into a partial sum (see the
+    module notes)."""
 
     def __init__(self, dim: int, num_heads: int, fused: bool = False,
                  fused_full: bool = False, dtype: torch.dtype = torch.float32,
@@ -184,62 +267,113 @@ class MultiHeadAttention(nn.Module):
         self.fused, self.fused_full = fused, fused_full
         self.dtype = dtype
         self.kernels = "cuda"            # see use_kernels
+        self.tp: Optional[Tuple[int, int]] = None    # (M, m) after shard()
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
-    def _window_seed(self, seed, windows: int, tokens: int):
-        """The seed of this rank's ``windows`` of a window-kernel call (#1,
-        #5): its mask index runs over the padded token count."""
-        lp = padded_tokens(tokens, self.dtype)
-        return rank_seed(seed, windows * self.num_heads * lp * lp)
+    def shard(self, size: int, rank: int) -> None:
+        """Hold model rank ``rank``'s heads of ``size`` (the parameters are
+        cut by ``shard_transformer``); whole heads only."""
+        if self.num_heads % size:
+            raise ValueError(
+                f"n_heads {self.num_heads} does not split over mesh.model={size}: a rank "
+                f"holds whole heads (d_model {self.dim} = {self.num_heads} heads of "
+                f"{self.dim // self.num_heads}); the JAX package would split a head, which "
+                f"the head-subset kernels cannot take")
+        self.tp = (size, rank)
 
-    def _dense_params(self):
-        """(W (in, out) in dtype, b f32) for q, k, v, out — the fused
-        kernel's operand layout (the JAX Dense kernel layout)."""
-        return [(lin.weight.t().to(self.dtype).contiguous(), lin.bias.float())
-                for lin in (self.q_proj, self.k_proj, self.v_proj,
-                            self.out_proj)]
+    @property
+    def local_heads(self) -> int:
+        return self.num_heads if self.tp is None else self.num_heads // self.tp[0]
+
+    def _params(self, sp: bool, ln):
+        """(wq, bq, wk, bk, wv, bv, wo, bo, ls, lb) in torch layouts: the
+        module's own, or for a sequence-parallel call (``sp``) every head's
+        (gathered from the model ranks when sharded), their gradients and
+        the folded LayerNorm's summed over the model group."""
+        ps = [self.q_proj.weight, self.q_proj.bias, self.k_proj.weight, self.k_proj.bias,
+              self.v_proj.weight, self.v_proj.bias, self.out_proj.weight,
+              self.out_proj.bias]
+        lns = list(ln) if ln is not None else []
+        if sp:
+            dims = ([0, 0, 0, 0, 0, 0, 1, None] if self.tp is not None else [None] * 8)
+            ps = gather_params(ps + lns, dims + [None] * len(lns))
+            ps, lns = ps[:8], ps[8:]
+        return ps + (lns or [None, None])
+
+    def _window_seed(self, seed, windows: int, tokens: int, index=None):
+        """The seed of this rank's ``windows`` of a window-kernel call (#1,
+        #5): its mask index runs over the padded token count and every
+        head."""
+        lp = padded_tokens(tokens, self.dtype)
+        return rank_seed(seed, windows * self.num_heads * lp * lp, index)
 
     def forward(self, q_in, k_in, v_in, *, bias=None,
                 ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 qk_pos=None, residual: bool = False, branch_scale=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, sp: bool = False):
         """``ln``: (scale, bias) of the sublayer's leading LayerNorm; callers
         then pass the raw x as q_in = k_in = v_in and q/k = LN(x) + qk_pos,
         v = LN(x). ``residual`` (fused LN route only) returns x +
         branch_scale * attn(...), ``branch_scale`` (leading batch,) f32 or
-        None. ``bias``: None or (1 | H, Lq, Lk) additive logits. Without
-        ``ln``, q_in = k_in of v_in's shape takes the two-stream kernel on
-        the fused_full route."""
+        None. ``bias``: None or (1 | H, Lq, Lk) additive logits (the rank's
+        heads of a per-head bias when sharded). Without ``ln``, q_in = k_in
+        of v_in's shape takes the two-stream kernel on the fused_full route.
+        ``sp``: a sequence-parallel call over this rank's share of the
+        columns, with every head (the caller scatters and gathers)."""
         plain = self.kernels == "plain"
         rate = self.dropout if self.training else 0.0
         seed = draw_seed(generator, q_in.device) if rate > 0.0 else 0
+        tp = self.tp is not None and not sp
+        heads = self.local_heads if tp else self.num_heads
+        mask = dict(mask_heads=self.num_heads, head0=self.tp[1] * heads) if tp else {}
+        # the seed's share: the data rank's rows, or under SP the (data,
+        # model) rank's share of the flattened columns
+        index = data_rank() * model_size() + model_rank() if sp else None
+        wq, bq, wk, bk, wv, bv, wo, bo, ls, lb = self._params(sp, ln)
+        if tp:      # into the TP region: the inputs' gradients sum over the ranks
+            uniq = []
+            for t in (q_in, k_in, v_in):
+                if not any(t is u for u in uniq):
+                    uniq.append(t)
+            # a one-head bias is every rank's: its gradient, a sum over the
+            # rank's heads, sums over the model group too
+            shared = bias if bias is not None and bias.shape[0] == 1 else None
+            moved = enter_model(*uniq, ls, lb, shared)
+            pick = lambda t: moved[next(i for i, u in enumerate(uniq) if t is u)]
+            q_in, k_in, v_in = pick(q_in), pick(k_in), pick(v_in)
+            ls, lb = moved[-3:-1]
+            bias = moved[-1] if shared is not None else bias
+        out_bias = torch.zeros_like(bo.float()) if tp else bo.float()
+
+        def finish(out):   # (..., C): the whole output, or the rank's partial sum
+            return _row_parallel_out(out, bo, self.dtype) if tp else out
+
+        def weights():     # the kernels' (in, out) layout, the biases f32
+            return [w.t().to(self.dtype).contiguous() if i % 2 == 0 else w.float()
+                    for i, w in enumerate((wq, bq, wk, bk, wv, bv, wo))] + [out_bias]
+
         if ln is not None:
             if not (q_in is k_in and k_in is v_in):
                 raise ValueError("ln folding expects q_in = k_in = v_in = x")
             if self.fused and self.fused_full:
-                (wq, bq), (wk, bk), (wv, bv), (wo, bo) = self._dense_params()
                 lead, l = q_in.shape[:-2], q_in.shape[-2]
                 xf = q_in.reshape(-1, l, self.dim).to(self.dtype).contiguous()
-                seed = self._window_seed(seed, xf.shape[0], l)
-                args = (xf, wq, bq, wk, bk, wv, bv, wo, bo, ln[0].float(),
-                        ln[1].float(),
-                        None if qk_pos is None else qk_pos.float().contiguous(),
-                        bias)
+                seed = self._window_seed(seed, xf.shape[0], l, index)
+                args = (xf, *weights(), ls.float(), lb.float(),
+                        None if qk_pos is None else qk_pos.float().contiguous(), bias)
                 scale = branch_scale if residual else None
                 if plain:
                     out = fused_attention_ln_plain(
-                        *args, seed, self.num_heads, rate, scale, residual)
+                        *args, seed, heads, rate, scale, residual, **mask)
                 elif residual:
-                    out = fused_attention_ln_res(*args, scale, seed,
-                                                 self.num_heads, rate)
+                    out = fused_attention_ln_res(*args, scale, seed, heads, rate)
                 else:
-                    out = fused_attention_ln(*args, seed, self.num_heads, rate)
-                return out.reshape(lead + (l, self.dim))
-            xn = F.layer_norm(q_in.float(), (self.dim,), ln[0], ln[1],
-                              1e-5).to(self.dtype)
+                    out = fused_attention_ln(*args, seed, heads, rate, **mask)
+                return finish(out).reshape(lead + (l, self.dim))
+            xn = F.layer_norm(q_in.float(), (self.dim,), ls, lb, 1e-5).to(self.dtype)
             q_in = k_in = xn + qk_pos.to(self.dtype) if qk_pos is not None else xn
             v_in = xn
             if residual:
@@ -249,30 +383,31 @@ class MultiHeadAttention(nn.Module):
         if (self.fused and self.fused_full and q_in is k_in
                 and v_in.shape == q_in.shape and q_in.shape[-1] == self.dim):
             # the whole sublayer with v from its own input (kernel #5)
-            (wq, bq), (wk, bk), (wv, bv), (wo, bo) = self._dense_params()
             lead, l = q_in.shape[:-2], q_in.shape[-2]
             flat = lambda z: z.reshape(-1, l, self.dim).to(self.dtype).contiguous()
             fn = fused_attention_plain if plain else fused_attention
             xqk = flat(q_in)
-            out = fn(xqk, flat(v_in), wq, bq, wk, bk, wv, bv, wo, bo, bias,
-                     self._window_seed(seed, xqk.shape[0], l), self.num_heads, rate)
-            return out.reshape(lead + (l, self.dim))
+            out = fn(xqk, flat(v_in), *weights(), bias,
+                     self._window_seed(seed, xqk.shape[0], l, index), heads, rate, **mask)
+            return finish(out).reshape(lead + (l, self.dim))
 
-        hd = self.dim // self.num_heads
-        q = _linear(self.q_proj, q_in, self.dtype)
-        k = _linear(self.k_proj, k_in, self.dtype)
-        v = _linear(self.v_proj, v_in, self.dtype)
+        q = _dense(q_in, wq, bq, self.dtype)
+        k = _dense(k_in, wk, bk, self.dtype)
+        v = _dense(v_in, wv, bv, self.dtype)
+        hd = q.shape[-1] // heads
 
-        def heads(z):  # (..., L, C) -> (B, H, L, hd): a view of the projection
-            z = z.reshape(z.shape[:-1] + (self.num_heads, hd))
-            return z.movedim(-2, -3).reshape((-1, self.num_heads, z.shape[-3], hd))
+        def split(z):  # (..., L, Cl) -> (B, H, L, hd): a view of the projection
+            z = z.reshape(z.shape[:-1] + (heads, hd))
+            return z.movedim(-2, -3).reshape((-1, heads, z.shape[-3], hd))
 
         core = attention_core if self.fused and not plain else attention_core_plain
-        qh, kh, vh = heads(q), heads(k), heads(v)
-        seed = rank_seed(seed, qh.shape[0] * self.num_heads * qh.shape[2] * kh.shape[2])
-        out = core(qh, kh, vh, bias, seed, rate)
+        qh, kh, vh = split(q), split(k), split(v)
+        seed = rank_seed(seed, qh.shape[0] * self.num_heads * qh.shape[2] * kh.shape[2], index)
+        out = core(qh, kh, vh, bias, seed, rate, **mask)
         out = out.transpose(1, 2).reshape(q.shape)   # a view where out has q's layout
-        return _linear(self.out_proj, out, self.dtype)
+        if tp:
+            return finish(_dense(out, wo, None, self.dtype))
+        return _dense(out, wo, bo, self.dtype)
 
 
 class WindowAttention(nn.Module):
@@ -347,13 +482,23 @@ class TemporalAttention(nn.Module):
     adds the static mask as a -1e30 (1, T, T) bias (self-attention only).
     ``fused_full`` (with ``fused``): a self-attention call with ``ln`` runs
     the whole sublayer, its LayerNorm folded in, in ``fused_attention_ln``
-    (``layers.py:503-508``)."""
+    (``layers.py:503-508``).
+
+    ``sequence_parallel`` (``layers.py:452-491``'s ``sp``): on a mesh with a
+    model axis (``sp`` set by ``shard_transformer``) each model rank runs
+    the attention, every head, over a contiguous share of the N·HW columns
+    (flattened: the JAX package shards the HW axis, the port the flattened
+    one, so a rank's kernel-mask elements are one contiguous range), and
+    the shares are gathered after."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  fused: bool = False, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, fused_full: bool = False):
+                 dropout: float = 0.0, fused_full: bool = False,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.causal = causal
+        self.sequence_parallel = sequence_parallel
+        self.sp: Optional[Tuple[int, int]] = None     # (M, m) on a model axis
         self.attn = MultiHeadAttention(dim, num_heads, fused, fused_full, dtype,
                                        dropout)
 
@@ -364,9 +509,18 @@ class TemporalAttention(nn.Module):
         (scale, bias) with x the raw pre-norm input (self-attention only):
         q/k = LN(x) + pos_q, v = LN(x)."""
         n, t, h, w, c = x.shape
+        sp = self.sp is not None
+        if sp and (n * h * w) % self.sp[0]:
+            raise ValueError(f"sequence_parallel: {n * h * w} temporal columns (N {n} x "
+                             f"{h * w}) do not split over mesh.model={self.sp[0]}")
 
-        def cols(y):   # (N, T, H, W, C) -> (N, H*W, T, C)
-            return y.permute(0, 2, 3, 1, 4).reshape(n, h * w, y.shape[1], c)
+        def cols(y):   # (N, T, H, W, C) -> (N, H*W, T, C), or this rank's share of the rows
+            y = y.permute(0, 2, 3, 1, 4).reshape(n, h * w, y.shape[1], c)
+            return scatter_model(y.reshape(n * h * w, y.shape[2], c)) if sp else y
+
+        def back(out):
+            out = gather_model(out) if sp else out
+            return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
 
         bias = None
         if self.causal and kv is None:   # -1e30 above the diagonal
@@ -375,17 +529,15 @@ class TemporalAttention(nn.Module):
         if ln is not None:
             if kv is not None:
                 raise ValueError("ln folding needs self-attention (kv=None)")
-            out = self.attn(xc, xc, xc, bias=bias, ln=ln, qk_pos=pos_q,
-                            generator=generator)
-            return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
-        q = xc + pos_q[None, None].to(x.dtype)
+            return back(self.attn(xc, xc, xc, bias=bias, ln=ln, qk_pos=pos_q,
+                                  generator=generator, sp=sp))
+        q = xc + pos_q[None].to(x.dtype)
         if kv is None:
             k, v = q, xc
         else:
             v = cols(kv)
-            k = v + pos_k[None, None].to(x.dtype)
-        out = self.attn(q, k, v, bias=bias, generator=generator)
-        return out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4)
+            k = v + pos_k[None].to(x.dtype)
+        return back(self.attn(q, k, v, bias=bias, generator=generator, sp=sp))
 
 
 class BatchNorm(nn.Module):
@@ -396,11 +548,13 @@ class BatchNorm(nn.Module):
     train mode it normalises with the batch statistics (gradients flow
     through them) and sets running = 0.9 running + 0.1 batch, the variance
     biased too (torch's ``BatchNorm2d`` keeps the unbiased one); in eval
-    mode it uses the running statistics. Under W > 1 ranks the train-mode
-    statistics are the global batch's: the per-channel sums of x and x^2
-    and the count, all-reduced together through autograd (the backward
-    sums their gradients over the ranks), so every rank's running
-    statistics update identically."""
+    mode it uses the running statistics. Under W > 1 data ranks the
+    train-mode statistics are the global batch's: the per-channel sums of x
+    and x^2 and the count, all-reduced together through autograd over the
+    data group (the backward sums their gradients over it), so every data
+    rank's running statistics update identically. Under tensor parallelism
+    a BatchNorm over the conv FFN's split hidden holds its rank's channels
+    (their statistics need no other model rank's)."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -415,7 +569,7 @@ class BatchNorm(nn.Module):
         view = lambda v: v[:, None, None]
         if self.training:
             x32 = x.float()
-            if num_hosts() > 1:
+            if data_size() > 1:
                 mean, sq = _global_moments(x32)
             else:
                 mean, sq = x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
@@ -432,8 +586,8 @@ class BatchNorm(nn.Module):
 
 
 def _global_moments(x32: torch.Tensor):
-    """(E[x], E[x^2]) per channel of an NCHW tensor over every rank's rows:
-    one all-reduce of the sums and the count."""
+    """(E[x], E[x^2]) per channel of an NCHW tensor over every data rank's
+    rows: one all-reduce of the sums and the count."""
     c = x32.shape[1]
     count = x32.new_full((1,), x32.numel() / c)
     total = all_reduce_sum(torch.cat([x32.sum((0, 2, 3)),
@@ -503,6 +657,24 @@ class MlpDWBN(nn.Module):
         self.fc2 = nn.Conv2d(hidden_dim, dim, 1)
         self.norm3 = make_norm(dim)
         self.drop = Dropout(dropout)
+        self.tp: Optional[Tuple[int, int]] = None     # (M, m) after shard()
+
+    def shard(self, size: int, rank: int) -> None:
+        """Hold model rank ``rank``'s share of the hidden channels (fc1's
+        and dw3x3's outputs, fc2's inputs, norm1's and norm2's channels;
+        the parameters are cut by ``shard_transformer``, which refuses the
+        fused routes)."""
+        hidden = self.fc1.out_channels
+        if hidden % size:
+            raise ValueError(f"the conv FFN's {hidden} hidden channels do not split "
+                             f"over mesh.model={size}")
+        self.tp = (size, rank)
+        local = hidden // size
+        self.fc1.out_channels = self.dw3x3.in_channels = self.fc2.in_channels = local
+        self.dw3x3.out_channels = self.dw3x3.groups = local
+        for norm in (self.norm1, self.norm2):
+            if isinstance(norm, LayerNormHWC):
+                norm.shard(size, rank)
 
     def _conv(self, conv: nn.Conv2d, y):
         return F.conv2d(y, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
@@ -558,9 +730,17 @@ class MlpDWBN(nn.Module):
             return self._conv_ln_forward(x, generator)
         n, t, h, w, c = x.shape
         y = x.reshape(n * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
-        y = F.gelu(self.norm1(self._conv(self.fc1, y)))
-        y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator)
-        y = self.drop(F.gelu(self.norm3(self._conv(self.fc2, y))), generator)
+        if self.tp is not None:     # the hidden split over the model ranks
+            y = F.gelu(self.norm1(self._conv(self.fc1, enter_model(y)[0])))
+            y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator,
+                          split=(1,) + self.tp)
+            y = F.conv2d(y, self.fc2.weight.to(self.dtype))
+            y = (reduce_model(y) + self.fc2.bias.float()[:, None, None]).to(self.dtype)
+        else:
+            y = F.gelu(self.norm1(self._conv(self.fc1, y)))
+            y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator)
+            y = self._conv(self.fc2, y)
+        y = self.drop(F.gelu(self.norm3(y)), generator)
         return y.permute(0, 2, 3, 1).reshape(n, t, h, w, -1)
 
 
@@ -583,6 +763,16 @@ class Mlp(nn.Module):
         self.linear1 = nn.Linear(dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, dim)
         self.drop = Dropout(dropout)
+        self.tp: Optional[Tuple[int, int]] = None     # (M, m) after shard()
+
+    def shard(self, size: int, rank: int) -> None:
+        """Hold model rank ``rank``'s share of the hidden (linear1's outputs,
+        linear2's inputs; the parameters are cut by ``shard_transformer``,
+        which refuses the fused route)."""
+        if self.linear1.out_features % size:
+            raise ValueError(f"the FFN's {self.linear1.out_features} hidden features do "
+                             f"not split over mesh.model={size}")
+        self.tp = (size, rank)
 
     def forward(self, x, generator=None, *,
                 ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -601,6 +791,11 @@ class Mlp(nn.Module):
                      self.linear2.bias.float(), ln[0].float(), ln[1].float(),
                      seed, rate)
             return out.reshape(x.shape)
+        if self.tp is not None:     # linear1 column-, linear2 row-parallel
+            y = F.gelu(_linear(self.linear1, enter_model(x)[0], self.dtype))
+            y = self.drop(y, generator, split=(-1,) + self.tp)
+            return _row_parallel_out(_dense(y, self.linear2.weight, None, self.dtype),
+                                     self.linear2.bias, self.dtype)
         y = self.drop(F.gelu(_linear(self.linear1, x, self.dtype)), generator)
         return _linear(self.linear2, y, self.dtype)
 
@@ -629,8 +824,11 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                split: Optional[Tuple[int, int, int]] = None):
+        """``split``: (dim, M, m) when x's ``dim`` is model rank m's share
+        (:func:`bernoulli_keep`)."""
         if not self.training or self.rate == 0.0:
             return x
-        keep = bernoulli_keep(x.shape, 1.0 - self.rate, generator, x.device)
+        keep = bernoulli_keep(x.shape, 1.0 - self.rate, generator, x.device, split)
         return _keep_scaled(x, keep, self.rate)

@@ -56,7 +56,7 @@ the unrolled stack's, and the blocks draw from the generator in order
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -88,17 +88,70 @@ from vptr_tpu_torch.ops.window import (
     temporal_window_reverse,
 )
 
-# config routes that need kernels or modules of a later slice
-_LATER = {
-    "sequence_parallel": "sequence parallelism (multi-GPU slice)",
-}
+# kernel routes that run a sharded sublayer through kernels #7-#12, or fold
+# the residual into #1 (where each model rank would add x again): refused
+# under tensor parallelism
+TP_REFUSED_ROUTES = ("fused_ffn", "fused_dw", "fused_conv_ffn", "fused_residual")
 
 
-def _refuse_later(**flags) -> None:
-    for name, on in flags.items():
-        if on:
+def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> nn.Module:
+    """Cut a whole transformer to model rank ``mesh.model_rank``'s share of
+    ``mesh.model`` (tensor parallelism), in place; the identity at model 1.
+
+    Every parameter and buffer the TP rules name
+    (:func:`vptr_tpu_torch.parallel.mesh.tp_dim`) becomes its share (whole
+    heads, the matching hidden channels), each attention, linear FFN and
+    conv FFN holds its share (their ``shard``), and each temporal attention
+    built with ``sequence_parallel`` runs over its share of the columns.
+    ``model.tp_shards`` maps each sharded name to its dim (what the
+    optimizer's norm, the checkpoints and the weight conversions read).
+    ``tensor_parallel=False`` keeps every parameter whole and sets the
+    sequence-parallel columns only (``state_sharding(...,
+    tensor_parallel=False)``'s counterpart).
+    Raises NotImplementedError on a kernel route of
+    :data:`TP_REFUSED_ROUTES` and ValueError where the heads or the hidden
+    do not split (a rank holds whole heads; the JAX package would split
+    one)."""
+    from vptr_tpu_torch.parallel.mesh import shard_of, tp_dim
+
+    size, rank = mesh.model, mesh.model_rank
+    model.tp_shards = {}
+    if size == 1:
+        return model
+    for m in model.modules():
+        if isinstance(m, TemporalAttention) and m.sequence_parallel:
+            m.sp = (size, rank)
+    if not tensor_parallel:
+        return model
+    for flag in TP_REFUSED_ROUTES:
+        if model.route_flags.get(flag):
             raise NotImplementedError(
-                f"transformer.{name}=True needs {_LATER[name]}; not ported yet")
+                f"transformer.{flag}=True with mesh.model={size}: tensor parallel on the "
+                f"{flag} route is not ported (the TP/SP slice runs kernels #1-#6 on a head "
+                f"subset; ROADMAP queues #7-#12 on a hidden subset)")
+    for m in model.modules():
+        if isinstance(m, (MultiHeadAttention, Mlp, MlpDWBN)):
+            m.shard(size, rank)
+    with torch.no_grad():
+        for name, t in list(model.state_dict(keep_vars=True).items()):
+            dim = tp_dim(name)
+            if dim is None:
+                continue
+            *path, leaf = name.split(".")
+            owner = model.get_submodule(".".join(path))
+            part = shard_of(name, t.detach(), size, rank).clone()
+            if isinstance(t, nn.Parameter):
+                setattr(owner, leaf, nn.Parameter(part, requires_grad=t.requires_grad))
+            else:
+                owner.register_buffer(leaf, part, persistent=True)
+            model.tp_shards[name] = dim
+    return model
+
+
+def tp_shards(model: Optional[nn.Module]) -> Dict[str, int]:
+    """The sharded names of a transformer (:func:`shard_transformer`), {}
+    for a whole one or another module."""
+    return getattr(model, "tp_shards", None) or {}
 
 
 class BlockStack(nn.ModuleList):
@@ -220,7 +273,6 @@ class EncoderBlock(nn.Module):
                  dropout: float = 0.0, attn_dropout: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _refuse_later(sequence_parallel=sequence_parallel)
         self.fold = fused_attention and fused_full
         self.fused_residual = fused_residual
         attn_drop = dropout if attn_dropout is None else attn_dropout
@@ -237,7 +289,8 @@ class EncoderBlock(nn.Module):
                                           fused=fused_attention, dtype=dtype,
                                           dropout=attn_drop,
                                           fused_full=self.fold
-                                          and fused_full_temporal)
+                                          and fused_full_temporal,
+                                          sequence_parallel=sequence_parallel)
         self.norm4 = LayerNorm(dim, dtype=dtype)
         self.ffn = Mlp(dim, dim_feedforward, dtype, dropout, fused_ffn)
         self.drop_path = DropPath(drop_path)
@@ -291,6 +344,9 @@ class VPTRFormerFAR(nn.Module):
         self.t_max = num_past_frames + num_future_frames
         self.dtype = dtype
         self.remat, self.scan_layers = remat, scan_layers
+        self.route_flags = dict(fused_ffn=fused_ffn, fused_dw=fused_dw,
+                                fused_conv_ffn=fused_conv_ffn,
+                                fused_residual=fused_residual)
         _blocks(self, [EncoderBlock(
             d_model, num_heads, enc_h, enc_w, window, drop_path,
             ffn_hidden_ratio, ffn_hidden_ratio * d_model, far=True,
@@ -378,13 +434,13 @@ class DecoderBlockNAR(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         del fused_residual
-        _refuse_later(sequence_parallel=sequence_parallel)
         attn_drop = dropout if attn_dropout is None else attn_dropout
         conv_ffn = lambda: MlpDWBN(dim, ffn_hidden_ratio * dim, enc_h, enc_w,
                                    "layer", dtype, dropout, fused_dw,
                                    fused_conv_ffn)
         temporal = lambda fused_full: TemporalAttention(
-            dim, num_heads, False, fused_attention, dtype, attn_drop, fused_full)
+            dim, num_heads, False, fused_attention, dtype, attn_drop, fused_full,
+            sequence_parallel)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.slmhsa = WindowAttention(dim, num_heads, window, fused_attention,
                                       fused_full, dtype, attn_drop, rpe)
@@ -456,6 +512,7 @@ class VPTRFormerNAR(nn.Module):
         super().__init__()
         self.enc_h, self.enc_w, self.dtype = enc_h, enc_w, dtype
         self.remat, self.scan_layers = remat, scan_layers
+        self.route_flags = {k: routes.get(k, False) for k in TP_REFUSED_ROUTES}
         self.num_future_frames = num_future_frames
         self.t_max = num_past_frames + num_future_frames
         common = dict(dim=d_model, num_heads=num_heads, enc_h=enc_h,
@@ -555,11 +612,14 @@ def init_transformer_(module: nn.Module, generator: torch.Generator) -> None:
 
 def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
                       generator: Optional[torch.Generator] = None,
-                      kernels: str = "cuda") -> nn.Module:
+                      kernels: str = "cuda", mesh=None) -> nn.Module:
     """The FAR or NAR transformer of a TransformerConfig (``cfg.variant``),
     initialised on the CPU from ``generator`` (default seed 0), moved to
     ``device``, in eval mode. ``kernels="plain"`` routes it through the
-    kernels' plain versions."""
+    kernels' plain versions. ``mesh``: a (data, model) mesh whose model
+    axis shards the whole model after its initialisation
+    (:func:`shard_transformer`: every rank draws the whole init from the
+    seed, as one process does, then keeps its share)."""
     from vptr_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -591,4 +651,6 @@ def build_transformer(cfg, dtype: torch.dtype = torch.float32, device="cuda",
                                else cfg.conv_ffn_norm), **common)
     init_transformer_(model, generator if generator is not None
                       else torch.Generator().manual_seed(0))
+    if mesh is not None:
+        shard_transformer(model, mesh)
     return use_kernels(model.to(device).eval(), kernels)

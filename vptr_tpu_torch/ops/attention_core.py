@@ -37,6 +37,12 @@ bounds each on the card and what its design does about that.
   backward regenerates the forward's mask from the seed. ``seed`` is an
   int32, as a Python int or a one-element int32 tensor on the operands'
   device (drawn there, it costs no host synchronisation).
+* A head subset (tensor parallelism): q, k, v may hold heads h0 .. h0 + H
+  - 1 of Hg (``mask_heads`` Hg, ``head0`` h0); every route and the plain
+  versions then draw those heads' rows of the whole call's dropout mask
+  (the element index ``((b Hg + h0 + h) Tq + r) Tk + c``), so the subset's
+  output is the whole call's output of those heads. A per-head bias holds
+  the subset's heads; a one-head bias's gradient is the subset's share.
 * As in the JAX package, ``q * D^-1/2`` multiplies by the scale in q's dtype
   (a Python float times a bf16 array is a bf16 product in JAX), while the
   backward's ``dq * D^-1/2`` is an f32 product.
@@ -130,7 +136,7 @@ def q_scale(depth: int, dtype: torch.dtype) -> float:
     return torch.tensor(depth ** -0.5, dtype=dtype).item()
 
 
-def _logits_and_weights(q, k, bias, seed, dropout_rate):
+def _logits_and_weights(q, k, bias, seed, dropout_rate, mask_heads=None, head0=0):
     """(q * scale rounded, f32 softmax weights, keep mask or None)."""
     b, h, tq, d = q.shape
     qs = q * torch.tensor(q_scale(d, q.dtype), dtype=q.dtype)
@@ -141,29 +147,32 @@ def _logits_and_weights(q, k, bias, seed, dropout_rate):
     keep = None
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(seed, b, h, tq, dropout_rate, k.shape[2],
-                                 device=q.device)
+                                 device=q.device, mask_heads=mask_heads, head0=head0)
     return qs, w, keep
 
 
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, seed: Seed = 0,
-                         dropout_rate: float = 0.0) -> torch.Tensor:
+                         dropout_rate: float = 0.0, mask_heads: Optional[int] = None,
+                         head0: int = 0) -> torch.Tensor:
     """Plain PyTorch version (mirrors ``_kernel``): q * scale is rounded to
     q's dtype, logits and softmax are f32, dropout divides the kept f32
     weights by (1 - rate), the weights are rounded to q's dtype before the
-    f32-accumulated value product."""
-    _, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate)
+    f32-accumulated value product. ``mask_heads``, ``head0``: q, k, v hold
+    heads h0 .. h0 + H - 1 of that many (the module notes)."""
+    _, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate, mask_heads, head0)
     weights = apply_dropout(w, keep, dropout_rate).to(q.dtype)
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
 def attention_core_backward_plain(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
-                                  need_dbias: bool = True):
+                                  need_dbias: bool = True, mask_heads: Optional[int] = None,
+                                  head0: int = 0):
     """Plain backward (mirrors ``_bwd_kernel``): recompute the softmax and
     the mask, run the softmax backward on the pre-dropout f32 weights.
     Returns (dq, dk, dv) in q's dtype and dbias (f32, the bias's shape:
     summed over the batch, and over heads for a (1, Tq, Tk) bias) or None."""
-    qs, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate)
+    qs, w, keep = _logits_and_weights(q, k, bias, seed, dropout_rate, mask_heads, head0)
     gf, vf = g.float(), v.float()
     w_drop = apply_dropout(w, keep, dropout_rate)
     dv = torch.matmul(w_drop.transpose(-1, -2), gf)
@@ -196,20 +205,20 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _forward(q, k, v, bias, seed, rate):
+def _forward(q, k, v, bias, seed, rate, mask_heads=None, head0=0):
     """The forward for either device; ``seed`` a tensor or None (rate 0)."""
     if q.device.type == "cpu":
-        return attention_core_plain(q, k, v, bias, seed, rate)
-    return _forward_kernel(q, k, v, bias, seed, rate)
+        return attention_core_plain(q, k, v, bias, seed, rate, mask_heads, head0)
+    return _forward_kernel(q, k, v, bias, seed, rate, mask_heads, head0)
 
 
 class _AttentionCore(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate):
+    def forward(ctx, q, k, v, bias, seed, rate, mask_heads, head0):
         ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.rate = rate
-        return _forward(q, k, v, bias, seed, rate)
+        ctx.rate, ctx.heads = rate, (mask_heads, head0)
+        return _forward(q, k, v, bias, seed, rate, mask_heads, head0)
 
     @staticmethod
     def backward(ctx, g):
@@ -218,28 +227,41 @@ class _AttentionCore(torch.autograd.Function):
         if layout(g) is None:       # e.g. the expanded gradient of a sum
             g = g.contiguous()
         dq, dk, dv, dbias = attention_core_backward(
-            q, k, v, bias, seed, g, ctx.rate, need_dbias)
+            q, k, v, bias, seed, g, ctx.rate, need_dbias, *ctx.heads)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
-        return dq, dk, dv, dbias, None, None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, seed: Seed = 0,
-                   dropout_rate: float = 0.0) -> torch.Tensor:
+                   dropout_rate: float = 0.0, mask_heads: Optional[int] = None,
+                   head0: int = 0) -> torch.Tensor:
     """q: (B, H, Tq, D), k/v: (B, H, Tk, D) (on the card Tq, Tk <= 32 with
     D <= 128, or Tq, Tk <= 160 with D <= 80), each contiguous or the (B, H,
     T, D) view of a contiguous (B, T, H*D);
     ``bias``: None or (1 | H, Tq, Tk) additive logits (a causal mask as
-    -1e30). Returns (B, H, Tq, D) in q's dtype (on the card in q's
-    layout); differentiable in q, k, v and bias."""
+    -1e30). ``mask_heads``, ``head0``: the H heads are heads h0 .. h0 + H -
+    1 of ``mask_heads`` (their dropout is the whole call's). Returns (B, H,
+    Tq, D) in q's dtype (on the card in q's layout); differentiable in q,
+    k, v and bias."""
     if q.device.type != "cpu" and not q.is_cuda:
         raise ValueError(f"attention_core: unsupported device {q.device}")
+    _check_heads(q.shape[1], mask_heads, head0)
     rate = float(dropout_rate)
     seed = seed_tensor(seed, q.device) if rate > 0.0 else None
     if needs_grad(q, k, v, bias):
-        return _AttentionCore.apply(q, k, v, bias, seed, rate)
-    return _forward(q, k, v, bias, seed, rate)
+        return _AttentionCore.apply(q, k, v, bias, seed, rate, mask_heads, head0)
+    return _forward(q, k, v, bias, seed, rate, mask_heads, head0)
+
+
+def _check_heads(heads: int, mask_heads: Optional[int], head0: int) -> None:
+    if mask_heads is None:
+        if head0:
+            raise ValueError(f"head0 {head0} needs mask_heads")
+    elif head0 < 0 or head0 + heads > mask_heads:
+        raise ValueError(f"heads {head0} .. {head0 + heads - 1} are not heads of "
+                         f"{mask_heads}")
 
 
 attention_core.launches = 0
@@ -249,20 +271,22 @@ attention_core.bwd_launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 def attention_core_backward(q, k, v, bias, seed, g, dropout_rate: float = 0.0,
-                            need_dbias: bool = True):
+                            need_dbias: bool = True, mask_heads: Optional[int] = None,
+                            head0: int = 0):
     """The backward on its own (what the autograd Function calls): the
     kernel for CUDA tensors (counted in ``attention_core.bwd_launches``;
     q, k, v and g each contiguous or in the layer's layout, see
     :func:`layout`), :func:`attention_core_backward_plain` for CPU tensors.
     Returns (dq, dk, dv, dbias or None); on the card dq, dk and dv have
     q's, k's and v's layouts."""
+    _check_heads(q.shape[1], mask_heads, head0)
     if q.device.type == "cpu":
         return attention_core_backward_plain(q, k, v, bias, seed, g,
-                                             dropout_rate, need_dbias)
+                                             dropout_rate, need_dbias, mask_heads, head0)
     if dropout_rate > 0.0:
         seed = seed_tensor(seed, q.device)
     return _backward_kernel(q, k, v, bias, seed, g, dropout_rate,
-                            need_dbias and bias is not None)
+                            need_dbias and bias is not None, mask_heads, head0)
 
 
 def _check(q, k, v, bias):
@@ -300,7 +324,7 @@ def _dropout_args(seed, rate):
     return seed.data_ptr(), rate, 1.0 - rate
 
 
-def _forward_kernel(q, k, v, bias, seed, rate):
+def _forward_kernel(q, k, v, bias, seed, rate, mask_heads=None, head0=0):
     bias, bias_heads, layouts = _check(q, k, v, bias)
     b, h, tq, d = q.shape
     route = kernel_route(q.dtype, h, tq, k.shape[2], d)
@@ -314,7 +338,7 @@ def _forward_kernel(q, k, v, bias, seed, rate):
         *(t.data_ptr() for t in ops), _build.ptr(bias), res.data_ptr(), b, h,
         tq, k.shape[2], d, bias_heads, q_scale(d, q.dtype),
         *_dropout_args(seed, rate), _DTYPES[q.dtype], _ROUTES[route], *layouts,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        mask_heads or 0, head0, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"attention_core ({route} route)")
     attention_core.launches += 1
     attention_core.launches_by_route[route] += 1
@@ -323,7 +347,7 @@ def _forward_kernel(q, k, v, bias, seed, rate):
     return out
 
 
-def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
+def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias, mask_heads=None, head0=0):
     bias, bias_heads, layouts = _check(q, k, v, bias)
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -352,7 +376,7 @@ def _backward_kernel(q, k, v, bias, seed, g, rate, need_dbias):
         *(p(t) for t in ops[:3]), p(bias), p(ops[3]), *(p(t) for t in res), p(dl),
         p(dbias), b, h, tq, tk, d, bias_heads, q_scale(d, q.dtype), d ** -0.5,
         *_dropout_args(seed, rate), _DTYPES[q.dtype], _ROUTES[route], *layouts,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        mask_heads or 0, head0, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"attention_core backward ({route} route)")
     attention_core.bwd_launches += 1
     attention_core.bwd_launches_by_route[route] += 1
@@ -367,10 +391,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_attention_core
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f] + [i] * 5 + [p]
+        fn.argtypes = [p] * 5 + [i] * 6 + [f, p, f, f] + [i] * 7 + [p]
         fn.restype = ctypes.c_int
         bwd = lib.vptr_attention_core_bwd
-        bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f] + [i] * 6 + [p]
+        bwd.argtypes = [p] * 10 + [i] * 6 + [f, f, p, f, f] + [i] * 8 + [p]
         bwd.restype = ctypes.c_int
         lib.vptr_attention_core_bwd_route.argtypes = [i] * 5
         lib.vptr_attention_core_bwd_route.restype = ctypes.c_int

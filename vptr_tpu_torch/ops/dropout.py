@@ -9,7 +9,10 @@ attention kernels' element index is
 
     idx = ((b * H + h) * Tq + r) * Tk + c          (uint32, wrapping)
 
-with ``b`` the global batch (or window) index; the feed-forward kernels
+with ``b`` the global batch (or window) index and ``h`` the global head: a
+call over heads h0 .. h0 + Hl - 1 of Hg (tensor parallelism) indexes
+((b * Hg + h0 + h) * Tq + r) * Tk + c (``mask_heads``, ``head0``); the
+feed-forward kernels
 index their hidden by row * H + col (:func:`ffn_keep_mask`) and the
 dw chain by (sample * HW + r) * C + col (:func:`dw_keep_mask`). The device
 function with the same arithmetic is ``csrc/hash_dropout.cuh``; this module
@@ -64,30 +67,40 @@ def hash_uniform(idx: torch.Tensor, seed: Seed) -> torch.Tensor:
 
 def element_index(b: int, h: int, tq: int, tk: int, *,
                   tq_index: Optional[int] = None, tk_index: Optional[int] = None,
+                  mask_heads: Optional[int] = None, head0: int = 0,
                   device=None) -> torch.Tensor:
-    """(b, h, tq, tk) int64 tensor of the uint32 index ((b*H + h)*Tq' + r)*Tk'
-    + c. ``tq_index`` and ``tk_index`` (default tq, tk) are the Tq' and Tk'
-    of the index when they differ from the tensor's extent: the window
-    kernel indexes a window's tokens by the padded token count
-    (:func:`padded_tokens`) while only the first L rows and columns exist."""
+    """(b, h, tq, tk) int64 tensor of the uint32 index ((b*H' + h0 + h)*Tq'
+    + r)*Tk' + c. ``tq_index`` and ``tk_index`` (default tq, tk) are the Tq'
+    and Tk' of the index when they differ from the tensor's extent: the
+    window kernel indexes a window's tokens by the padded token count
+    (:func:`padded_tokens`) while only the first L rows and columns exist.
+    ``mask_heads`` (H', default h) and ``head0`` (h0): the h heads are heads
+    h0 .. h0 + h - 1 of H'."""
     tqi = tq if tq_index is None else tq_index
     tki = tk if tk_index is None else tk_index
+    hg = h if mask_heads is None else mask_heads
+    if head0 < 0 or head0 + h > hg:
+        raise ValueError(f"heads {head0} .. {head0 + h - 1} are not heads of {hg}")
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     bi = ar(b).view(b, 1, 1, 1)
-    hi = ar(h).view(1, h, 1, 1)
+    hi = ar(h).view(1, h, 1, 1) + head0
     r = ar(tq).view(1, 1, tq, 1)
     c = ar(tk).view(1, 1, 1, tk)
-    idx = (_mul32(bi, h) + hi) & _U32
+    idx = (_mul32(bi, hg) + hi) & _U32
     idx = (_mul32(idx, tqi) + r) & _U32
     return (_mul32(idx, tki) + c) & _U32
 
 
 def dropout_keep_mask(seed: Seed, b: int, h: int, t: int, rate: float,
-                      tk: Optional[int] = None, device=None) -> torch.Tensor:
+                      tk: Optional[int] = None, device=None,
+                      mask_heads: Optional[int] = None, head0: int = 0) -> torch.Tensor:
     """(B, H, T, Tk) boolean keep mask for the whole tensor (``tk`` defaults
-    to ``t``), bit-equal to ``vptr_tpu.ops.attention_core.dropout_keep_mask``."""
+    to ``t``), bit-equal to ``vptr_tpu.ops.attention_core.dropout_keep_mask``;
+    with ``mask_heads`` and ``head0`` the rows of heads h0 .. h0 + H - 1 of
+    that call's ``mask_heads``."""
     tk = t if tk is None else tk
-    idx = element_index(b, h, t, tk, device=device)
+    idx = element_index(b, h, t, tk, mask_heads=mask_heads, head0=head0,
+                        device=device)
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 
@@ -100,12 +113,15 @@ def padded_tokens(tokens: int, dtype: torch.dtype) -> int:
 
 
 def window_keep_mask(seed: Seed, windows: int, heads: int, tokens: int,
-                     rate: float, dtype: torch.dtype, device=None) -> torch.Tensor:
-    """(BW, H, L, L) keep mask of the LayerNorm-folded window kernel: the
-    element index runs over the padded token count of ``dtype``."""
+                     rate: float, dtype: torch.dtype, device=None,
+                     mask_heads: Optional[int] = None, head0: int = 0) -> torch.Tensor:
+    """(BW, H, L, L) keep mask of the window kernels: the element index runs
+    over the padded token count of ``dtype`` (and over the global heads
+    with ``mask_heads`` and ``head0``)."""
     lp = padded_tokens(tokens, dtype)
     idx = element_index(windows, heads, tokens, tokens, tq_index=lp,
-                        tk_index=lp, device=device)
+                        tk_index=lp, mask_heads=mask_heads, head0=head0,
+                        device=device)
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 

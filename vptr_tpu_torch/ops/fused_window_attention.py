@@ -42,17 +42,26 @@ allocates and frees when the call returns.
 * Attention-weight dropout is the counter hash of ``ops/dropout.py``; its
   element index runs over the padded token count (:func:`padded_tokens`),
   as the TPU kernels pad the token axis before building their masks.
+* A head subset (tensor parallelism): with ``num_heads`` H of ``mask_heads``
+  Hg starting at ``head0`` h0, Wq, Wk, Wv are (C, Cl) and Wo (Cl, C), Cl = H
+  hd the inner width (hd = Cl / H); the call computes those heads' share of
+  the sublayer, out = [a_h0 .. a_h0+H-1] Wo + bo, whose sum over the
+  subsets (with bo added once) is the whole call's output. The mask is the
+  whole call's rows of those heads; the gradients of x (and of ls, lb) are
+  the subset's shares, dbo the whole column sum of g.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from vptr_tpu_torch.ops import _build
 from vptr_tpu_torch.ops.attention_core import (
+    _check_heads,
     _dropout_args,
     needs_grad,
     q_scale,
@@ -71,9 +80,10 @@ LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate):
+def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate, mask_heads=None,
+                     head0=0):
     """Per-head attention of the window kernels in plain PyTorch: q, k, v
-    (B, L, C) projections in the compute dtype. Returns (qs, w, keep,
+    (B, L, Cl) projections in the compute dtype. Returns (qs, w, keep,
     w_drop rounded, split) with qs = q_h * scale rounded, w the f32
     pre-dropout weights, all (B, H, L, ...)."""
     b, l, c = q.shape
@@ -91,19 +101,19 @@ def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate):
     keep = None
     if dropout_rate > 0.0:
         keep = window_keep_mask(seed, b, num_heads, l, dropout_rate, dt,
-                                device=q.device)
+                                device=q.device, mask_heads=mask_heads, head0=head0)
     w_drop = apply_dropout(w, keep, dropout_rate).to(dt)
     return qs, w, keep, w_drop, split
 
 
 def _sublayer_plain(xqk, xv, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                    num_heads, dropout_rate):
+                    num_heads, dropout_rate, mask_heads=None, head0=0):
     """The attention sublayer after its inputs, with the kernels' rounding
     points: q/k from ``xqk`` and v from ``xv`` (B, L, C, compute dtype),
     each rounded after its f32 bias add; per-head attention; the merged
     heads rounded; returns the output projection + bo in f32 (unrounded)."""
     dt = xqk.dtype
-    b, l, c = xqk.shape
+    b, l, _ = xqk.shape
 
     def proj(a, w, bb):
         return (torch.matmul(a.float(), w.float()) + bb.float()).to(dt)
@@ -111,28 +121,31 @@ def _sublayer_plain(xqk, xv, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
     v = proj(xv, wv, bv)
     _, _, _, w_drop, split = _heads_attention(
         proj(xqk, wq, bq), proj(xqk, wk, bk), v, bias, seed, num_heads,
-        dropout_rate)
+        dropout_rate, mask_heads, head0)
     o = torch.matmul(w_drop.float(), split(v).float()).to(dt)
-    out = torch.matmul(o.transpose(1, 2).reshape(b, l, c).float(), wo.float())
+    out = torch.matmul(o.transpose(1, 2).reshape(b, l, wq.shape[1]).float(), wo.float())
     return out + bo.float()
 
 
 def fused_attention_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
                           bias=None, seed: Seed = 0, num_heads: int = 8,
-                          dropout_rate: float = 0.0) -> torch.Tensor:
+                          dropout_rate: float = 0.0, mask_heads=None,
+                          head0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of kernel #5 (``_reference_attention`` with
     the Pallas kernel's rounding points): q/k from ``x_qk``, v from
     ``x_v``, each rounded after its f32 bias add, q * scale rounded, f32
     softmax, dropout, weights rounded before the value product, the merged
     heads rounded, the output projection in f32 plus bo, rounded once."""
     return _sublayer_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
-                           seed, num_heads, dropout_rate).to(x_qk.dtype)
+                           seed, num_heads, dropout_rate, mask_heads,
+                           head0).to(x_qk.dtype)
 
 
 def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
                              pos=None, bias=None, seed: Seed = 0,
                              num_heads: int = 8, dropout_rate: float = 0.0,
-                             scale=None, res: bool = False) -> torch.Tensor:
+                             scale=None, res: bool = False, mask_heads=None,
+                             head0: int = 0) -> torch.Tensor:
     """Plain PyTorch version with the kernel's rounding points: xn rounded
     to x's dtype, q/k/v rounded after their f32 bias add, q * scale rounded,
     f32 softmax, dropout, weights rounded before the value product, the
@@ -144,7 +157,7 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     xn = F.layer_norm(x32, (c,), ls.float(), lb.float(), LN_EPS).to(dt)
     xqk = xn + pos.to(dt) if pos is not None else xn
     out = _sublayer_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                          num_heads, dropout_rate)
+                          num_heads, dropout_rate, mask_heads, head0)
     if scale is not None:
         out = out * scale.float()[:, None, None]
     if res:
@@ -153,7 +166,8 @@ def fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
 
 
 def _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias, seed,
-                             g2, bw, l, num_heads, dropout_rate, need_dbias):
+                             g2, bw, l, num_heads, dropout_rate, need_dbias,
+                             mask_heads=None, head0=0):
     """The backward after the sublayer's inputs (mirrors ``_bwd_kernel``):
     ``xqk`` / ``xn`` (R, C) the q/k and v inputs in the compute dtype, ``g2``
     (R, C) f32 the output cotangent (times the branch scale). Recomputes
@@ -166,7 +180,7 @@ def _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias, seed,
     dwo, dbo, dbias): each dW in its weight's dtype, the vectors f32,
     dbias f32 in the bias's shape (or None)."""
     dt = xqk.dtype
-    c = xqk.shape[-1]
+    c = wq.shape[1]                  # the inner width Cl (C for every head)
     hd = c // num_heads
 
     def proj(a, w, bb):
@@ -175,7 +189,7 @@ def _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias, seed,
     q3, k3, v3 = (proj(xqk, wq, bq), proj(xqk, wk, bk), proj(xn, wv, bv))
     qs, w, keep, w_drop, split = _heads_attention(
         q3.reshape(bw, l, c), k3.reshape(bw, l, c), v3.reshape(bw, l, c),
-        bias, seed, num_heads, dropout_rate)
+        bias, seed, num_heads, dropout_rate, mask_heads, head0)
     vh = split(v3.reshape(bw, l, c)).float()
     attn = torch.matmul(w_drop.float(), vh).to(dt)
     dao = split(torch.matmul(g2, wo.float().t()).reshape(bw, l, c))
@@ -209,7 +223,8 @@ def _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias, seed,
 def fused_attention_backward_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
                                    bias, seed, g, num_heads: int = 8,
                                    dropout_rate: float = 0.0,
-                                   need_dbias: bool = True):
+                                   need_dbias: bool = True, mask_heads=None,
+                                   head0: int = 0):
     """Plain backward of kernel #5 (mirrors ``_bwd_kernel``). Returns
     (dx_qk, dx_v, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias): dx_qk =
     dq Wq^T + dk Wk^T and dx_v = dv Wv^T summed in f32 and rounded to the
@@ -220,7 +235,7 @@ def fused_attention_backward_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
     dxqk, dxv, *rest = _sublayer_backward_plain(
         x_qk.reshape(-1, c), x_v.reshape(-1, c), wq, bq, wk, bk, wv, bv, wo,
         bias, seed, g.float().reshape(-1, c), bw, l, num_heads, dropout_rate,
-        need_dbias)
+        need_dbias, mask_heads, head0)
     dt = x_qk.dtype
     return (dxqk.to(dt).reshape(bw, l, c), dxv.to(dt).reshape(bw, l, c),
             *rest)
@@ -231,7 +246,8 @@ def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
                                       num_heads: int = 8,
                                       dropout_rate: float = 0.0, scale=None,
                                       res: bool = False,
-                                      need_dbias: bool = True):
+                                      need_dbias: bool = True, mask_heads=None,
+                                      head0: int = 0):
     """Plain backward (mirrors ``_bwd_kernel_ln``): recompute LN, +pos,
     q/k/v, the per-head softmax and mask; then the attention backward per
     head and the weight, LN-affine and bias gradients summed over all
@@ -260,7 +276,7 @@ def fused_attention_ln_backward_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
     dxqk, dxv, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias = \
         _sublayer_backward_plain(xqk, xn, wq, bq, wk, bk, wv, bv, wo, bias,
                                  seed, g2, bw, l, num_heads, dropout_rate,
-                                 need_dbias)
+                                 need_dbias, mask_heads, head0)
     dxn = dxqk + dxv
     dls = (dxn * xhat).sum(0)
     dlb = dxn.sum(0)
@@ -279,12 +295,13 @@ class _FusedAttentionLN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                scale, seed, num_heads, rate, res):
+                scale, seed, num_heads, rate, res, mask_heads, head0):
         ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
                               bias, scale, seed)
         ctx.num_heads, ctx.rate, ctx.res = num_heads, rate, res
+        ctx.heads = (mask_heads, head0)
         return _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                        scale, seed, num_heads, rate, res)
+                        scale, seed, num_heads, rate, res, mask_heads, head0)
 
     @staticmethod
     def backward(ctx, g):
@@ -294,24 +311,27 @@ class _FusedAttentionLN(torch.autograd.Function):
         (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dls, dlb,
          dbias) = fused_attention_ln_backward(
             x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed,
-            g.contiguous(), ctx.num_heads, ctx.rate, scale, ctx.res, need_dbias)
+            g.contiguous(), ctx.num_heads, ctx.rate, scale, ctx.res, need_dbias,
+            *ctx.heads)
         cast = lambda d, ref: None if d is None else d.to(ref.dtype)
         dpos = torch.zeros_like(pos) if ctx.needs_input_grad[11] else None
         dscale = torch.zeros_like(scale) if ctx.needs_input_grad[13] else None
         return (dx, dwq, cast(dbq, bq), dwk, cast(dbk, bk), dwv, cast(dbv, bv),
                 dwo, cast(dbo, bo), cast(dls, ls), cast(dlb, lb), dpos,
-                cast(dbias, bias), dscale, None, None, None, None)
+                cast(dbias, bias), dscale, None, None, None, None, None, None)
 
 
 def fused_attention_ln(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos=None,
                        bias=None, seed: Seed = 0, num_heads: int = 8,
-                       dropout_rate: float = 0.0) -> torch.Tensor:
+                       dropout_rate: float = 0.0, mask_heads=None,
+                       head0: int = 0) -> torch.Tensor:
     """LN-folded attention sublayer over x (B, L, C), L <= 32. ``pos``:
     optional (L, C) table added to q/k only; ``bias``: optional
     (1 | heads, L, L) additive logits; ``seed``/``dropout_rate``: the
-    attention-weight dropout."""
+    attention-weight dropout; ``mask_heads``/``head0``: a head subset (the
+    module notes)."""
     return _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, None,
-                  seed, num_heads, dropout_rate, False)
+                  seed, num_heads, dropout_rate, False, mask_heads, head0)
 
 
 def fused_attention_ln_res(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
@@ -321,28 +341,29 @@ def fused_attention_ln_res(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
     """``x + scale * fused_attention_ln(x, ...)`` in one kernel; ``scale``:
     optional (B,) f32 per-window branch factor (the DropPath mask)."""
     return _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
-                  seed, num_heads, dropout_rate, True)
+                  seed, num_heads, dropout_rate, True, None, 0)
 
 
 def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
-             seed, num_heads, rate, res):
+             seed, num_heads, rate, res, mask_heads=None, head0=0):
     """The forward for either device; ``seed`` a tensor or None (rate 0)."""
     if x.device.type == "cpu":
         return fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
                                         lb, pos, bias, seed, num_heads, rate,
-                                        scale, res)
+                                        scale, res, mask_heads, head0)
     return _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
-                           bias, scale, seed, num_heads, rate, res)
+                           bias, scale, seed, num_heads, rate, res, mask_heads, head0)
 
 
 def _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
-           num_heads, rate, res):
+           num_heads, rate, res, mask_heads, head0):
     if x.device.type != "cpu" and not x.is_cuda:
         raise ValueError(f"fused_attention_ln: unsupported device {x.device}")
+    _check_heads(num_heads, mask_heads, head0)
     rate = float(rate)
     seed = seed_tensor(seed, x.device) if rate > 0.0 else None
     args = (x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
-            num_heads, rate, res)
+            num_heads, rate, res, mask_heads, head0)
     if needs_grad(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale):
         return _FusedAttentionLN.apply(*args)
     return _forward(*args)
@@ -355,7 +376,8 @@ fused_attention_ln.bwd_launches = 0
 def fused_attention_ln_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
                                 bias, seed, g, num_heads: int = 8,
                                 dropout_rate: float = 0.0, scale=None,
-                                res: bool = False, need_dbias: bool = True):
+                                res: bool = False, need_dbias: bool = True,
+                                mask_heads=None, head0: int = 0):
     """The backward of both wrappers on its own (what the autograd Function
     calls): the kernel for CUDA tensors (counted in
     ``fused_attention_ln.bwd_launches``),
@@ -364,12 +386,13 @@ def fused_attention_ln_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
     if x.device.type == "cpu":
         return fused_attention_ln_backward_plain(
             x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, seed, g,
-            num_heads, dropout_rate, scale, res, need_dbias)
+            num_heads, dropout_rate, scale, res, need_dbias, mask_heads, head0)
     if dropout_rate > 0.0:
         seed = seed_tensor(seed, x.device)
     return _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
                             bias, seed, g, num_heads, dropout_rate, scale, res,
-                            need_dbias and bias is not None)
+                            need_dbias and bias is not None, mask_heads=mask_heads,
+                            head0=head0)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -377,12 +400,12 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                num_heads, rate):
+                num_heads, rate, mask_heads, head0):
         ctx.save_for_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
                               seed)
-        ctx.num_heads, ctx.rate = num_heads, rate
+        ctx.num_heads, ctx.rate, ctx.heads = num_heads, rate, (mask_heads, head0)
         return _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
-                            seed, num_heads, rate)
+                            seed, num_heads, rate, mask_heads, head0)
 
     @staticmethod
     def backward(ctx, g):
@@ -391,27 +414,30 @@ class _FusedAttention(torch.autograd.Function):
         (dxqk, dxv, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
          dbias) = fused_attention_backward(
             x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-            g.contiguous(), ctx.num_heads, ctx.rate, need_dbias)
+            g.contiguous(), ctx.num_heads, ctx.rate, need_dbias, *ctx.heads)
         cast = lambda d, ref: None if d is None else d.to(ref.dtype)
         return (dxqk, dxv, dwq, cast(dbq, bq), dwk, cast(dbk, bk), dwv,
                 cast(dbv, bv), dwo, cast(dbo, bo), cast(dbias, bias), None,
-                None, None)
+                None, None, None, None)
 
 
 def fused_attention(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias=None,
                     seed: Seed = 0, num_heads: int = 8,
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, mask_heads=None,
+                    head0: int = 0) -> torch.Tensor:
     """Attention sublayer over (B, L, C), L <= 32, with q/k from ``x_qk``
     and v from ``x_v`` (same shape and dtype). ``bias``: optional
     (1 | heads, L, L) additive logits (the relative-position bias);
-    ``seed``/``dropout_rate``: the attention-weight dropout. Differentiable
-    in every tensor but the seed."""
+    ``seed``/``dropout_rate``: the attention-weight dropout;
+    ``mask_heads``/``head0``: a head subset (the module notes).
+    Differentiable in every tensor but the seed."""
     if x_qk.device.type != "cpu" and not x_qk.is_cuda:
         raise ValueError(f"fused_attention: unsupported device {x_qk.device}")
+    _check_heads(num_heads, mask_heads, head0)
     rate = float(dropout_rate)
     seed = seed_tensor(seed, x_qk.device) if rate > 0.0 else None
     args = (x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed, num_heads,
-            rate)
+            rate, mask_heads, head0)
     if needs_grad(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias):
         return _FusedAttention.apply(*args)
     return _forward_two(*args)
@@ -422,19 +448,20 @@ fused_attention.bwd_launches = 0
 
 
 def _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                 num_heads, rate):
+                 num_heads, rate, mask_heads=None, head0=0):
     """Kernel #5's forward for either device; ``seed`` a tensor or None."""
     if x_qk.device.type == "cpu":
         return fused_attention_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
-                                     bias, seed, num_heads, rate)
+                                     bias, seed, num_heads, rate, mask_heads, head0)
     return _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
-                               seed, num_heads, rate)
+                               seed, num_heads, rate, mask_heads, head0)
 
 
 def fused_attention_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
                              seed, g, num_heads: int = 8,
                              dropout_rate: float = 0.0,
-                             need_dbias: bool = True):
+                             need_dbias: bool = True, mask_heads=None,
+                             head0: int = 0):
     """Kernel #5's backward on its own (what the autograd Function calls):
     kernel #6 for CUDA tensors (counted in ``fused_attention.bwd_launches``),
     :func:`fused_attention_backward_plain` for CPU tensors. Returns the
@@ -442,37 +469,50 @@ def fused_attention_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
     if x_qk.device.type == "cpu":
         return fused_attention_backward_plain(
             x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed, g,
-            num_heads, dropout_rate, need_dbias)
+            num_heads, dropout_rate, need_dbias, mask_heads, head0)
     if dropout_rate > 0.0:
         seed = seed_tensor(seed, x_qk.device)
     return _backward_kernel(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None,
                             None, bias, seed, g, num_heads, dropout_rate, None,
-                            False, need_dbias and bias is not None, x_v=x_v)
+                            False, need_dbias and bias is not None, x_v=x_v,
+                            mask_heads=mask_heads, head0=head0)
 
 
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 
 
-def kernel_route(tokens: int, channels: int, dtype: torch.dtype) -> str:
+def _attn_smem(tokens: int, inner: int) -> int:
+    """Shared memory of the wgmma route's attention pass (``attn_smem`` in
+    ``csrc/fused_window_attention.cuh``): q, k, v rows of padded width."""
+    ld = inner if inner % 16 else inner + 8
+    return 3 * tokens * ld * 2
+
+
+def kernel_route(tokens: int, channels: int, dtype: torch.dtype,
+                 inner: Optional[int] = None) -> str:
     """Which route the forward kernels (#1, #5) take: ``"wgmma"`` (bf16, C
-    a multiple of 8, any number of windows: LayerNorm rows, q/k/v and the
-    out projection on the warpgroup MMA fed by TMA, the attention per
-    (window, head) on ``mma.sync``) or ``"fma"`` (f32 FMAs on the CUDA
-    cores). Chosen from the shape before any launch."""
-    return ("wgmma" if _lib().vptr_fused_window_attention_ln_route(
-        tokens, channels, _DTYPES[dtype]) else "fma")
+    and the inner width Cl (``inner``, default C: every head) multiples of
+    8, any number of windows: LayerNorm rows, q/k/v and the out projection
+    on the warpgroup MMA fed by TMA, the attention per (window, head) on
+    ``mma.sync``) or ``"fma"`` (FMAs on the CUDA cores; f32, and bf16 at
+    other widths, e.g. Cl = 132). Chosen from the shape before any launch;
+    the libraries' ``*_route`` entry points say the same."""
+    inner = channels if inner is None else inner
+    return ("wgmma" if dtype == torch.bfloat16 and channels % 8 == 0 and inner % 8 == 0
+            and _attn_smem(tokens, inner) <= SMEM_LIMIT else "fma")
 
 
 def backward_route(tokens: int, channels: int, dtype: torch.dtype,
-                   ln: bool = True) -> str:
+                   ln: bool = True, inner: Optional[int] = None) -> str:
     """Which route the backward kernel (#3 with ``ln``, else #6) takes:
-    ``"wgmma"`` (bf16, C a multiple of 8, any number of rows: every product
-    on the warpgroup MMA, fed by TMA) or ``"fma"`` (f32 FMAs on the CUDA
-    cores). Chosen from the shape before the launch; ``tokens`` does not
-    enter."""
-    del tokens
-    lib, entry = _lib_bwd(ln)
-    return ("wgmma" if getattr(lib, f"{entry}_route")(channels, _DTYPES[dtype])
+    ``"wgmma"`` (bf16, C and the inner width ``inner`` (default C)
+    multiples of 8, any number of rows: every product on the warpgroup
+    MMA, fed by TMA) or ``"fma"`` (FMAs on the CUDA cores). Chosen from the
+    shape before the launch; ``tokens`` and ``ln`` do not enter; the
+    libraries' ``*_route`` entry points say the same."""
+    del tokens, ln
+    inner = channels if inner is None else inner
+    return ("wgmma" if dtype == torch.bfloat16 and channels % 8 == 0 and inner % 8 == 0
             else "fma")
 
 
@@ -579,7 +619,7 @@ def weight_products(xs, his, los):
         raise ValueError("weight_products takes four x, hi and lo (or None) of one (R, C) "
                          "bf16 shape on the card, C a multiple of 8")
     lib, entry = _lib_bwd(True)
-    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, _DTYPES[torch.bfloat16])
+    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, c, _DTYPES[torch.bfloat16])
     part = torch.empty(4, ksplit, c, c, dtype=torch.float32, device=x0.device)
     out = torch.empty(4, c, c, dtype=torch.float32, device=x0.device)
     ptrs = lambda ts: (ctypes.c_void_p * 4)(*[_build.ptr(t) for t in ts])
@@ -594,12 +634,14 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
               num_heads, x_v=None):
     """Check every operand against what the kernels take (the activations
     and weights 16-byte aligned: the ``wgmma`` routes read their rows by
-    TMA); returns (bias f32 contiguous or None, bias_heads)."""
+    TMA); returns (bias f32 contiguous or None, bias_heads, the inner width
+    Cl of Wq)."""
     bw, l, c = x.shape
-    if c % num_heads or c // num_heads > MAX_HEAD_DIM or l > MAX_TOKENS:
+    cl = wq.shape[1] if wq.dim() == 2 else c
+    if cl % num_heads or cl // num_heads > MAX_HEAD_DIM or l > MAX_TOKENS:
         raise ValueError(f"fused_attention_ln kernel takes L <= {MAX_TOKENS} "
-                         f"and a head width <= {MAX_HEAD_DIM} dividing C; got "
-                         f"L={l} C={c} heads={num_heads}")
+                         f"and a head width <= {MAX_HEAD_DIM} dividing Cl; got "
+                         f"L={l} C={c} Cl={cl} heads={num_heads}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_attention_ln kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -618,20 +660,23 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
     f32 = torch.float32
     operand(x, (bw, l, c), x.dtype, "x", align=16)
     operand(x_v, (bw, l, c), x.dtype, "x_v", align=16)
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
-        operand(w, (c, c), x.dtype, name, align=16)
-    for name, v in (("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo),
-                    ("ls", ls), ("lb", lb)):
-        operand(v, (c,), f32, name)
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
+        operand(w, (c, cl), x.dtype, name, align=16)
+    operand(wo, (cl, c), x.dtype, "wo", align=16)
+    for name, v, n in (("bq", bq, cl), ("bk", bk, cl), ("bv", bv, cl), ("bo", bo, c),
+                       ("ls", ls, c), ("lb", lb, c)):
+        operand(v, (n,), f32, name)
     operand(pos, (l, c), f32, "pos")
     operand(scale, (bw,), f32, "scale")
+    if cl != c and (scale is not None):
+        raise ValueError("fused_attention_ln: a head subset takes no scale")
     if bias is None:
-        return None, 0
+        return None, 0, cl
     bias = bias.to(device=x.device, dtype=f32).contiguous()
     if tuple(bias.shape) not in ((1, l, l), (num_heads, l, l)):
         raise ValueError(f"fused_attention_ln: bias {tuple(bias.shape)} "
                          f"is not (1|{num_heads}, {l}, {l})")
-    return bias, bias.shape[0]
+    return bias, bias.shape[0], cl
 
 
 class _FwdArgs(ctypes.Structure):
@@ -642,12 +687,12 @@ class _FwdArgs(ctypes.Structure):
         "mean", "rstd", "xn", "xqk", "q", "k", "v", "attn")]
         + [(n, ctypes.c_int) for n in (
             "windows", "tokens", "channels", "heads", "bias_heads", "res",
-            "mask_tokens", "dtype")]
+            "mask_tokens", "dtype", "inner", "mask_heads", "head0")]
         + [(n, ctypes.c_float) for n in ("qscale", "eps", "rate", "keep_div")])
 
 
 def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
-                 seed, num_heads, rate, res, x_v=None):
+                 seed, num_heads, rate, res, x_v=None, mask_heads=None, head0=0):
     """Kernel #1 (LayerNorm folded in) or, with ``x_v``, kernel #5 (x is
     then x_qk): the route the shape takes, with the wgmma route's scratch
     (one allocation, returned to torch's stream-ordered allocator when the
@@ -655,22 +700,23 @@ def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
     the output."""
     ln = x_v is None
     name = "fused_attention_ln" if ln else "fused_attention"
-    bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                                 pos, bias, scale, num_heads, x_v)
+    bias, bias_heads, cl = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
+                                     pos, bias, scale, num_heads, x_v)
     bw, l, c = x.shape
     dt, dev = x.dtype, x.device
     lib, entry = (_lib(), "vptr_fused_window_attention_ln") if ln else (
         _lib_two(), "vptr_fused_window_attention")
-    smem = getattr(lib, f"{entry}_smem")(l, c, num_heads, _DTYPES[dt])
+    smem = getattr(lib, f"{entry}_smem")(l, c, cl, num_heads, _DTYPES[dt])
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{name} kernel: L={l}, C={c}, {dt} needs {smem} B of "
+        raise ValueError(f"{name} kernel: L={l}, C={c}, Cl={cl}, {dt} needs {smem} B of "
                          f"shared memory (> {SMEM_LIMIT})")
     rows = bw * l
     scratch, ptrs = None, {}
-    if getattr(lib, f"{entry}_route")(l, c, _DTYPES[dt]):
+    if getattr(lib, f"{entry}_route")(l, c, cl, _DTYPES[dt]):
         # one allocation, carved into 256-byte aligned pieces
         plane = -(-rows * c * x.element_size() // 256) * 256
-        sizes = dict(q=plane, k=plane, v=plane, attn=plane)
+        inner = -(-rows * cl * x.element_size() // 256) * 256
+        sizes = dict(q=inner, k=inner, v=inner, attn=inner)
         if ln:
             vec = -(-rows * 4 // 256) * 256
             sizes.update(xn=plane, mean=vec, rstd=vec)
@@ -688,25 +734,28 @@ def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
         wo=p(wo), bo=p(bo), ls=p(ls), lb=p(lb), pos=p(pos), bias=p(bias),
         scale=p(scale), seed=seed_p, out=p(out), **ptrs,
         windows=bw, tokens=l, channels=c, heads=num_heads, bias_heads=bias_heads,
-        res=int(res), mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt],
-        qscale=q_scale(c // num_heads, dt), eps=LN_EPS, rate=rate, keep_div=keep_div)
+        res=int(res), mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt], inner=cl,
+        mask_heads=mask_heads or 0, head0=head0,
+        qscale=q_scale(cl // num_heads, dt), eps=LN_EPS, rate=rate, keep_div=keep_div)
     err = getattr(lib, entry)(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, name)
     return out
 
 
 def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                    scale, seed, num_heads, rate, res):
+                    scale, seed, num_heads, rate, res, mask_heads=None, head0=0):
     out = _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                       scale, seed, num_heads, rate, res)
+                       scale, seed, num_heads, rate, res, mask_heads=mask_heads,
+                       head0=head0)
     fused_attention_ln.launches += 1
     return out
 
 
 def _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                        num_heads, rate):
+                        num_heads, rate, mask_heads=None, head0=0):
     out = _run_forward(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None, None,
-                       bias, None, seed, num_heads, rate, False, x_v=x_v)
+                       bias, None, seed, num_heads, rate, False, x_v=x_v,
+                       mask_heads=mask_heads, head0=head0)
     fused_attention.launches += 1
     return out
 
@@ -722,32 +771,35 @@ class _BwdArgs(ctypes.Structure):
         "dk", "dv", "dl", "colpart", "partial", "wpart", "planes", "wcat")]
         + [(n, ctypes.c_int) for n in (
             "windows", "tokens", "channels", "heads", "bias_heads", "res",
-            "mask_tokens", "dtype", "ksplit")]
+            "mask_tokens", "dtype", "ksplit", "inner", "mask_heads", "head0")]
         + [(n, ctypes.c_float) for n in ("qscale", "dscale", "eps", "rate",
                                          "keep_div")])
 
 
 def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
                      seed, g, num_heads, rate, scale, res, need_dbias,
-                     x_v=None):
+                     x_v=None, mask_heads=None, head0=0):
     """Kernel #3 (LayerNorm folded in) or, with ``x_v``, kernel #6 (x is
     then x_qk); returns the gradients in the order of the matching plain
     backward."""
     ln = x_v is None
     name = "fused_attention_ln" if ln else "fused_attention"
-    bias, bias_heads = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
-                                 pos, bias, scale, num_heads, x_v)
+    bias, bias_heads, cl = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
+                                     pos, bias, scale, num_heads, x_v)
     bw, l, c = x.shape
+    if cl != c and res:
+        raise ValueError(f"{'fused_attention_ln' if x_v is None else 'fused_attention'} "
+                         f"backward: a head subset takes no residual")
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
         raise ValueError(f"{name} backward: g {tuple(g.shape)} "
                          f"{g.dtype} does not match x {tuple(x.shape)} {x.dtype}")
     rows, dt, dev = bw * l, x.dtype, x.device
     f32 = torch.float32
     lib, entry = _lib_bwd(ln)
-    wg = bool(getattr(lib, f"{entry}_route")(c, _DTYPES[dt]))
+    wg = bool(getattr(lib, f"{entry}_route")(c, cl, _DTYPES[dt]))
     if wg and g.data_ptr() % 16:      # TMA reads g's rows
         raise ValueError(f"{name} backward: g must be 16-byte aligned")
-    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, _DTYPES[dt])
+    ksplit = getattr(lib, f"{entry}_ksplit")(rows, c, cl, _DTYPES[dt])
 
     def buf(*shape, dtype=f32):
         return torch.empty(*shape, dtype=dtype, device=dev)
@@ -756,7 +808,7 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
                  dxv=None if ln else torch.empty_like(x_v),
                  dwq=torch.empty_like(wq),
                  dwk=torch.empty_like(wk), dwv=torch.empty_like(wv),
-                 dwo=torch.empty_like(wo), dbq=buf(c), dbk=buf(c), dbv=buf(c),
+                 dwo=torch.empty_like(wo), dbq=buf(cl), dbk=buf(cl), dbv=buf(cl),
                  dbo=buf(c), dls=buf(c) if ln else None,
                  dlb=buf(c) if ln else None,
                  dbias=buf(*bias.shape) if need_dbias else None)
@@ -764,16 +816,16 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
     # the logit gradients, the window sums of dq, dk, dv and g * scale, the
     # split-K partials; on the wgmma route the bf16 hi and lo planes of [dq
     # dk dv g*scale] and [Wq Wk Wv] side by side, on the FMA route dq, dk,
-    # dv in f32
-    f32_d = (lambda: None) if wg else (lambda: buf(rows, c))
-    scratch = dict(q=buf(rows, c, dtype=dt),
-                   k=buf(rows, c, dtype=dt), v=buf(rows, c, dtype=dt),
-                   attn=buf(rows, c, dtype=dt), dao=buf(rows, c),
+    # dv in f32 (the projections' width is the inner Cl)
+    f32_d = (lambda: None) if wg else (lambda: buf(rows, cl))
+    scratch = dict(q=buf(rows, cl, dtype=dt),
+                   k=buf(rows, cl, dtype=dt), v=buf(rows, cl, dtype=dt),
+                   attn=buf(rows, cl, dtype=dt), dao=buf(rows, c),
                    dq=f32_d(), dk=f32_d(), dv=f32_d(),
                    dl=buf(bw, num_heads, l, l) if need_dbias else None,
-                   colpart=buf(4, bw, c), wpart=buf(4, ksplit, c, c),
-                   planes=buf(2, rows, 4 * c, dtype=dt) if wg else None,
-                   wcat=buf(c, 3 * c, dtype=dt) if wg else None)
+                   colpart=buf(4, bw, c), wpart=buf(4, ksplit, c, cl),
+                   planes=buf(2, rows, 3 * cl + c, dtype=dt) if wg else None,
+                   wcat=buf(c, 3 * cl, dtype=dt) if wg else None)
     if ln:   # the LayerNorm passes' statistics, outputs and column-sum partials
         scratch.update(mean=buf(rows), rstd=buf(rows), xn=buf(rows, c, dtype=dt),
                        xqk=buf(rows, c, dtype=dt),
@@ -788,7 +840,8 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
         windows=bw, tokens=l, channels=c, heads=num_heads,
         bias_heads=bias_heads, res=int(res),
         mask_tokens=padded_tokens(l, dt), dtype=_DTYPES[dt], ksplit=ksplit,
-        qscale=q_scale(c // num_heads, dt), dscale=(c // num_heads) ** -0.5,
+        inner=cl, mask_heads=mask_heads or 0, head0=head0,
+        qscale=q_scale(cl // num_heads, dt), dscale=(cl // num_heads) ** -0.5,
         eps=LN_EPS, rate=rate, keep_div=1.0 - rate)
     err = getattr(lib, entry)(ctypes.byref(a),
                               torch.cuda.current_stream(dev).cuda_stream)
@@ -820,7 +873,7 @@ def _lib_fwd(name: str, extra: bool = False) -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [ctypes.POINTER(_FwdArgs), p]
         fn.restype = i
-        for part, n, rt in (("smem", 4, ctypes.c_long), ("route", 3, i)):
+        for part, n, rt in (("smem", 5, ctypes.c_long), ("route", 4, i)):
             g = getattr(lib, f"vptr_{name}_{part}")
             g.argtypes = [i] * n
             g.restype = rt
@@ -841,7 +894,7 @@ def _lib_bwd(ln: bool):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ctypes.POINTER(_BwdArgs), p]
         fn.restype = i
-        for part, n in (("ksplit", 3), ("route", 2)) + ((("partials", 1),) if ln else ()):
+        for part, n in (("ksplit", 4), ("route", 3)) + ((("partials", 1),) if ln else ()):
             f = getattr(lib, f"{entry}_{part}")
             f.argtypes = [i] * n
             f.restype = i

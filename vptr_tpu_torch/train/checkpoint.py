@@ -18,7 +18,12 @@ same configuration, in place, on that state's device.
 Under a process group of W > 1 ranks, rank 0 writes (the others write
 nothing, not even the directory) and a barrier follows every save, so no
 rank looks for a step that is still being renamed into place; every rank
-restores the same file onto its own device.
+restores the same file onto its own device. A checkpoint is always whole,
+in the one-process layout: under tensor parallelism every rank takes part
+in gathering the transformer's shares and its optimizer moments (the
+model group's all-gathers) before rank 0 writes, and a restore cuts each
+rank's shares from the whole tensors, so a run on one mesh resumes on
+another (``mesh.model`` 2 in one process, and the other way round).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from typing import Any, Optional
 
 import torch
 
-from vptr_tpu_torch.parallel.mesh import barrier, host_id
+from vptr_tpu_torch.models.transformer import tp_shards
+from vptr_tpu_torch.parallel.mesh import barrier, gather_state, host_id, shard_state
 from vptr_tpu_torch.train.optim import AdamState
 from vptr_tpu_torch.train.state import AETrainState, Stage2TrainState
 
@@ -42,6 +48,14 @@ _MODULES = {AETrainState: ("enc", "dec", "disc"),
             Stage2TrainState: ("transformer", "enc", "dec", "disc")}
 _OPTS = {AETrainState: ("g_opt_state", "d_opt_state"),
          Stage2TrainState: ("opt_state", "d_opt_state")}
+# the module whose parameters an optimizer state's moments mirror (its
+# shards are theirs)
+_OPT_OF = {"opt_state": "transformer", "d_opt_state": "disc", "g_opt_state": None}
+
+
+def _shards(state, opt_name: str):
+    owner = _OPT_OF[opt_name]
+    return tp_shards(getattr(state, owner)) if owner else {}
 
 
 def _write_text(path: Path, text: str) -> None:
@@ -51,17 +65,22 @@ def _write_text(path: Path, text: str) -> None:
 
 
 def state_dict(state) -> dict:
-    """The train state as a dict of tensors, ints and strings."""
+    """The train state as a dict of tensors, ints and strings, whole (a
+    sharded transformer's shares gathered: a collective every model rank
+    calls)."""
     kind = type(state)
     out = {"kind": kind.__name__, "step": int(state.step),
            "generator": state.generator.get_state()}
     for name in _MODULES[kind]:
         module = getattr(state, name)
-        out[name] = None if module is None else module.state_dict()
+        out[name] = (None if module is None else
+                     gather_state(module.state_dict(), tp_shards(module)))
     for name in _OPTS[kind]:
         opt = getattr(state, name)
-        out[name] = None if opt is None else {"count": opt.count, "mu": opt.mu,
-                                              "nu": opt.nu}
+        shards = _shards(state, name)
+        out[name] = None if opt is None else {"count": opt.count,
+                                              "mu": gather_state(opt.mu, shards),
+                                              "nu": gather_state(opt.nu, shards)}
     return out
 
 
@@ -79,7 +98,7 @@ def load_state_dict(state, saved: dict):
             raise ValueError(f"the checkpoint's {name} and the state's do not "
                              f"match (one of them is None)")
         if module is not None:
-            module.load_state_dict(saved[name])
+            module.load_state_dict(shard_state(saved[name], tp_shards(module)))
     device = next(getattr(state, _MODULES[kind][0]).parameters()).device
     for name in _OPTS[kind]:
         opt = saved[name]
@@ -87,9 +106,11 @@ def load_state_dict(state, saved: dict):
             raise ValueError(f"the checkpoint's {name} and the state's do not "
                              f"match (one of them is None)")
         if opt is not None:
+            shards = _shards(state, name)
             setattr(state, name, AdamState(
-                opt["count"], {k: v.to(device) for k, v in opt["mu"].items()},
-                {k: v.to(device) for k, v in opt["nu"].items()}))
+                opt["count"],
+                {k: v.to(device) for k, v in shard_state(opt["mu"], shards).items()},
+                {k: v.to(device) for k, v in shard_state(opt["nu"], shards).items()}))
     state.step = saved["step"]
     state.generator.set_state(saved["generator"])
     return state
@@ -104,16 +125,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, *, config_json: Optional[str] = None,
              history: Optional[dict] = None):
-        """Write ``step`` (rank 0; every rank waits for it)."""
+        """Write ``step`` (rank 0, after every rank took part in gathering
+        the state whole; every rank waits for it)."""
+        saved = state_dict(state)
         if host_id() == 0:
-            self._save(step, state, config_json, history)
+            self._save(step, saved, config_json, history)
         barrier()
 
-    def _save(self, step: int, state: Any, config_json: Optional[str],
+    def _save(self, step: int, saved: dict, config_json: Optional[str],
               history: Optional[dict]):
         tmp = Path(tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory))
         try:
-            torch.save(state_dict(state), tmp / _FILE)
+            torch.save(saved, tmp / _FILE)
             final = self.directory / str(step)
             if final.exists():
                 shutil.rmtree(final)

@@ -18,6 +18,12 @@ weight_decay=wd, mu_dtype=mu_dtype))`` in optax 0.2.6:
   of the step count before this update;
 * :func:`apply_updates`: p + u, in place.
 
+Under tensor parallelism (a model axis) a sharded leaf holds the rank's
+share: the clip's global norm is the square root of the replicated leaves'
+squares plus the model group's sum of the sharded leaves' squares, the
+same number on every rank; AdamW and the bf16 first moment act on the
+shares as they are (every step is elementwise).
+
 Parameters, gradients and moments are dicts name -> tensor in one order;
 the moments live on the parameters' device. The arithmetic runs as
 ``torch._foreach_*`` ops (a few launches per step instead of a dozen per
@@ -33,6 +39,7 @@ from typing import Callable, Dict, NamedTuple
 import torch
 
 from vptr_tpu_torch.losses import noam_schedule
+from vptr_tpu_torch.parallel.mesh import model_sum
 
 _MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,24 +59,32 @@ class AdamState:
 
 
 class Optimizer(NamedTuple):
-    """``init(params) -> state``; ``update(grads, state, params) ->
-    (updates, new_state, grad_norm)``, grad_norm the 0-d global norm of
-    the gradients before clipping."""
+    """``init(params) -> state``; ``update(grads, state, params,
+    sharded=()) -> (updates, new_state, grad_norm)``, grad_norm the 0-d
+    global norm of the gradients before clipping (``sharded``: the names of
+    the leaves that hold a model rank's share)."""
 
     init: Callable
     update: Callable
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, a 0-d f32 tensor."""
+def global_norm(tensors, sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, a 0-d f32 tensor.
+    ``sharded``: one flag a tensor, True for a model rank's share of a
+    whole leaf; their squares are summed over the model group."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    flags = torch.tensor(sharded, device=sq.device)
+    rep_sq, shard_sq = sq[~flags].sum(), sq[flags].sum()
+    return torch.sqrt(rep_sq + model_sum(shard_sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sharded=None):
     """(clipped list, norm): optax's rule, without a host synchronisation
-    (the choice is made on the device)."""
-    norm = global_norm(grads)
+    (the choice is made on the device); ``sharded`` as :func:`global_norm`'s."""
+    norm = global_norm(grads, sharded)
     clip = norm >= max_norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     div = torch.where(clip, norm, one)
@@ -99,13 +114,14 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads: Dict[str, torch.Tensor], state: AdamState,
-               params: Dict[str, torch.Tensor]):
+               params: Dict[str, torch.Tensor], sharded=()):
         names = list(grads)
         g = [grads[k].float() for k in names]
+        flags = [k in sharded for k in names] if sharded else None
         if max_grad_norm is not None:
-            g, norm = clip_by_global_norm(g, max_grad_norm)
+            g, norm = clip_by_global_norm(g, max_grad_norm, flags)
         else:
-            norm = global_norm(g)
+            norm = global_norm(g, flags)
         count = state.count + 1
         mu = torch._foreach_mul(g, 1.0 - b1)
         mu_old = torch._foreach_mul([state.mu[k] for k in names], b1_mu)

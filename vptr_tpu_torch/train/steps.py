@@ -74,7 +74,13 @@ statistics and masks (:mod:`vptr_tpu_torch.models.layers`), every update
 (G's, D's, the transformer's) averages the gradients over the ranks after
 the whole backward and before the clip, so ``grad_norm`` is the global
 gradient's norm on every rank, and the metrics a train or eval step returns
-are their means over the ranks.
+are their means over the ranks. On a (data, model) mesh the ranks of one
+model group hold the same rows and a sharded transformer
+(``shard_transformer``): the model-group sums its layers need happen in
+the backward itself (:mod:`vptr_tpu_torch.parallel.mesh`'s autograd
+collectives), the mean runs over the data group after them, the clip's
+norm adds the shares' squares over the model group, and the metrics are
+the data group's means, the same on every rank.
 """
 
 from __future__ import annotations
@@ -92,7 +98,8 @@ from vptr_tpu_torch.losses import (
     mse_loss,
     temporal_weight,
 )
-from vptr_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_mean, num_hosts
+from vptr_tpu_torch.models.transformer import tp_shards
+from vptr_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_mean, data_size
 from vptr_tpu_torch.train.optim import Optimizer, apply_updates
 from vptr_tpu_torch.train.state import AETrainState, Stage2TrainState
 
@@ -106,14 +113,15 @@ def _frames(device, *frames):
                  for f in frames)
 
 
-def _optimize(params, optimizer: Optimizer, opt_state):
+def _optimize(params, optimizer: Optimizer, opt_state, sharded=()):
     """Optimizer step from the parameters' ``.grad`` (a parameter the loss
     does not reach gets a zero gradient, as ``jax.grad`` gives it), the
-    gradients first averaged over the ranks, in place; returns (new
+    gradients first averaged over the ranks (``all_reduce_grads``), in
+    place; ``sharded``: the names of a model rank's shares. Returns (new
     optimizer state, gradient norm)."""
-    all_reduce_grads(params)
+    all_reduce_grads(params, sharded)
     grads = {k: p.grad for k, p in params.items()}
-    updates, opt_state, norm = optimizer.update(grads, opt_state, params)
+    updates, opt_state, norm = optimizer.update(grads, opt_state, params, sharded)
     apply_updates(params, updates)
     return opt_state, norm
 
@@ -122,7 +130,7 @@ def _global_means(metrics):
     """The step's metrics as their means over the ranks (each rank's are
     means over its equal share of the global batch); ``grad_norm`` is
     global already."""
-    if num_hosts() == 1:
+    if data_size() == 1:
         return metrics
     keys = [k for k in metrics if k != "grad_norm"]
     return {**metrics, **dict(zip(keys, all_reduce_mean([metrics[k] for k in keys])))}
@@ -137,7 +145,8 @@ def _update(state: Stage2TrainState, optimizer: Optimizer, total, params):
     """Backward of ``total``, then clip -> Adam(W) in place; returns the
     gradient norm."""
     total.backward()
-    state.opt_state, norm = _optimize(params, optimizer, state.opt_state)
+    state.opt_state, norm = _optimize(params, optimizer, state.opt_state,
+                                      tp_shards(state.transformer))
     state.step += 1
     return norm
 

@@ -27,11 +27,18 @@ and ``Trainer(cfg).train()`` runs it:
   and ``trainer.fetch_metrics`` split the loop's wall
   (``scripts/torch_port_profile.py --trainer`` reads them).
 
-Data parallelism (the reference's ``_mp`` drivers, the JAX Trainer's data
-axis): under a process group of W ranks (``torchrun``, see
-:func:`vptr_tpu_torch.parallel.init_distributed`), ``mesh.data`` -1 or W
-and ``mesh.model`` 1 (:func:`~vptr_tpu_torch.parallel.make_mesh`), each
-rank loads its shard of every epoch, ``data.batch_size // W`` rows a batch
+Data, tensor and sequence parallelism (the reference's ``_mp`` drivers,
+the JAX Trainer's (data, model) mesh): under a process group of W ranks
+(``torchrun``, see :func:`vptr_tpu_torch.parallel.init_distributed`),
+``mesh.data`` x ``mesh.model`` = W (``mesh.data`` -1: W / ``mesh.model``;
+:func:`~vptr_tpu_torch.parallel.make_mesh`). With ``mesh.model`` M > 1 the
+transformer is built whole from the seed on every rank and cut to the
+rank's shares (``shard_transformer``: heads and hidden channels; with
+``transformer.sequence_parallel`` also the temporal columns), where the
+JAX Trainer replicates unless its caller passes TP out-shardings; the M
+ranks of a data group load the same rows. Each data rank loads its shard
+of every epoch, ``data.batch_size // W`` rows a batch (W here the data
+ranks)
 (a ``batch_size`` that W does not divide raises, as does a batch of other
 than that many rows in :meth:`Trainer.put_batch`), and the steps are the
 one-process steps at the global batch (:mod:`vptr_tpu_torch.train.steps`).
@@ -175,7 +182,7 @@ class Trainer:
         self.disc = (build_discriminator(cfg.disc, self.dtype, self.device, gen)
                      if self.use_gan else None)
         self.transformer = (build_transformer(cfg.transformer, self.dtype,
-                                              self.device, gen)
+                                              self.device, gen, mesh=self.mesh)
                             if cfg.stage in ("far", "nar") else None)
         self.g_opt = build_optimizer(cfg.optim, d_model=cfg.transformer.d_model)
         self.d_opt = build_optimizer(cfg.optim_d) if self.use_gan else None
@@ -276,7 +283,7 @@ class Trainer:
 
         # each rank iterates its shard of the index space (the reference's
         # DistributedSampler for train and val, train_FAR_mp.py:71-77)
-        shard = {"host_id": self.mesh.rank, "num_hosts": self.mesh.data}
+        shard = {"host_id": self.mesh.data_rank, "num_hosts": self.mesh.data}
         train_loader = build_loader(cfg.data, split="train", seed=cfg.seed, **shard)
         val_loader = build_loader(cfg.data, split="val", seed=cfg.seed, **shard)
         # the loaders' epoch counts (their shuffles and augmentation draws)
@@ -289,6 +296,10 @@ class Trainer:
         if self.mesh.data > 1:
             self.logger.info("data parallel over %d ranks, %d rows a rank",
                              self.mesh.data, self.local_batch)
+        if self.mesh.model > 1:
+            self.logger.info("tensor parallel over %d model ranks%s", self.mesh.model,
+                             ", sequence parallel temporal columns"
+                             if cfg.transformer.sequence_parallel else "")
 
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             for epoch in range(start_epoch + 1, start_epoch + epochs + 1):

@@ -37,6 +37,14 @@ decides its path, not its class. Layout conversions:
 Every parameter and persistent buffer of the module must be covered, and
 every leaf must land somewhere; anything else raises. Each conversion is a
 transpose, so it maps gradients as it maps weights.
+
+A transformer sharded over a model axis
+(:func:`~vptr_tpu_torch.models.transformer.shard_transformer`) loads the
+whole JAX tree and keeps this rank's share of each sharded leaf; exported,
+its shares are gathered whole first (a collective every model rank calls),
+so both directions speak the one-process tree. Under ``scan_layers`` a
+stacked JAX leaf is sliced into the blocks before the shares are cut (the
+JAX rules shard such a leaf along another axis; the numbers are the same).
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ import torch
 from torch import nn
 
 from vptr_tpu_torch.models.layers import LayerNormHWC
-from vptr_tpu_torch.models.transformer import BlockStack
+from vptr_tpu_torch.models.transformer import BlockStack, tp_shards
+from vptr_tpu_torch.parallel.mesh import gather_state, shard_state
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
@@ -122,6 +131,7 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     targets = {name: t for name, t in module.state_dict(keep_vars=True).items()
                if not name.endswith("num_batches_tracked")}
     stacks = _stacks(module)
+    shards = tp_shards(module)
     done = set()
     for collection in ("params", "batch_stats"):
         for path, arr in (pair for leaf in _leaves(variables.get(collection, {}))
@@ -133,6 +143,8 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                 raise KeyError(f"JAX leaf {'/'.join(path)} has no target "
                                f"{name!r} in {type(module).__name__}")
             value = np.ascontiguousarray(_convert(owner, path[-1], arr))
+            if name in shards:        # this model rank's share of the whole leaf
+                value = shard_state({name: torch.from_numpy(value)}, shards)[name].numpy()
             target = targets[name]
             if tuple(target.shape) != value.shape:
                 raise ValueError(f"{'/'.join(path)}: {value.shape} does not "
@@ -187,6 +199,7 @@ def export_jax_variables(module: nn.Module,
         missing = sorted(set(dict(module.named_parameters())) - set(tensors))
         if missing:
             raise KeyError(f"no tensor for parameters {missing}")
+    items = list(gather_state(dict(items), tp_shards(module)).items())
     for name, t in items:
         path = name.split(".")
         owner = module.get_submodule(".".join(path[:-1]))
