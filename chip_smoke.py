@@ -258,7 +258,31 @@ Phases (any failure exits non-zero, without the final result line):
    VPTR_RANKS_SHARE_CARDS), resumed by one process's cli train with
    mesh.model 1 for 2 more, against an unbroken one-process run of 4
    (each epoch's T_total, the transformer's relative L2);
-45. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+45. kernels #9-#12 at nar_kth_128's 16 x 16 latent (80 decoder samples of
+   256 positions; #9/#10 at the hidden 2112 on a 16-wide grid, #11/#12 at
+   fc1 528 -> 2112 and fc2 2112 -> 528) against their plain versions on
+   the routes the route functions name (the tiled routes), bf16 and f32,
+   dropout 0 and 0.1, two calls bit-equal;
+46. their times beside the plain versions, a library yardstick (eager and
+   replayed from a CUDA graph) and the bound;
+47-49. nar_kth_128 at full width (AE ngf 64 / feat 528 at 128 x 128 x 1, NAR
+   4 + 8 blocks at d 528, RPE, batch 8, bf16, seeded random weights; one
+   batch of the synthetic KTH-shaped loader) on the default route, the
+   fused-FFN route (fused_ffn + fused_dw: #7, #9 16, and their backwards)
+   and the conv-FFN route (fused_conv_ffn + fused_full_temporal: #11 32,
+   #1 16, #5 8, #2 8 and their backwards): the nar predict 10 -> 10 with
+   every counter at 0 just before and read just after (kth_launches: the
+   counts of nar_mnist on the same route), its frames against
+   kernels="plain"; 10 -> 40 (four NAR calls, four times the launches), 8 x
+   40 frames finite and in [-1, 1]; the train step's launches, the step
+   against kernels="plain" (on the fused routes at batch 2: the plain
+   versions' autograd intermediates at batch 8 exceed the card), 10 steps
+   on one batch with a falling loss; ms, frames/s and the step's memory
+   peak;
+50. `cli train --preset nar_kth_128` (3 steps and a validation pass), a
+   resumed run, `cli eval --mode nar --max-batches 1` (10 -> 40) and `cli
+   predict --mode nar --batches 1`, the launches of each checked;
+51. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -269,8 +293,10 @@ Phases (any failure exits non-zero, without the final result line):
    time (and #4's error there) and the NAR-shape time, each also replayed
    from a CUDA graph; #2's and #4's long route as rows of their own,
    attention_core_long and attention_core_bwd_long, at TSLMA's 160 x 160;
-   #1-#6 with their head-subset readings, `head_subset`, and a rank's
-   launches in phases 42 and 43, `tp_step_launches_a_rank`),
+   #1-#6 with their head-subset readings, `head_subset` (with the subset's
+   library yardstick and bound), and a rank's launches in phases 42 and
+   43, `tp_step_launches_a_rank`; #9-#12 at nar_kth_128's shapes,
+   `nar_kth_128`),
    the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -307,7 +333,15 @@ TIMED_STEPS, WARMUP_STEPS = 8, 2
 failures = []
 
 
+_phase_start = [None]
+
+
 def phase(name):
+    """Starts a phase: its name, and the wall time the one before it took."""
+    now = time.perf_counter()
+    if _phase_start[0] is not None:
+        print(f"  (the phase took {now - _phase_start[0]:.1f} s)", flush=True)
+    _phase_start[0] = now
     print(f"\n=== {name}", flush=True)
 
 
@@ -3220,6 +3254,49 @@ def _subset_window_ops(ops, hl, h0, hd):
                  wo[cols].contiguous(), torch.zeros_like(bo)) + rest
 
 
+def _subset_yardsticks(sub, two, hl, hd, bias, gout):
+    """A window kernel's function on a head subset as one PyTorch call
+    (LayerNorm for #1, the q/k/v projections to Cl = hl hd, SDPA with the
+    subset's bias, the out projection Cl -> C; bo 0, as the subset's call):
+    its forward eager and graph-replayed, its backward, and the bounds of
+    the forward and the backward (phase 6's byte and operation counts at Cl)."""
+    import torch.nn.functional as F
+
+    windows, tokens, c = sub[0].shape
+    dt = sub[0].dtype
+    mask = None if bias is None else bias.to(dt)[None]
+    split = lambda z: z.view(windows, tokens, hl, hd).transpose(1, 2)
+    n_in = 2 if two else 1
+    bq, bk, bv = sub[n_in + 1], sub[n_in + 3], sub[n_in + 5]
+
+    def core(xqk, xv, wq, wk, wv, wo):
+        o = F.scaled_dot_product_attention(
+            split(F.linear(xqk, wq.t(), bq.to(dt))), split(F.linear(xqk, wk.t(), bk.to(dt))),
+            split(F.linear(xv, wv.t(), bv.to(dt))), attn_mask=mask)
+        return F.linear(o.transpose(1, 2).reshape(windows, tokens, hl * hd), wo.t())
+
+    w4 = (sub[n_in], sub[n_in + 2], sub[n_in + 4], sub[n_in + 6])
+    if two:
+        fn, ops = core, sub[:2] + w4
+    else:
+        ls, lb, pos = sub[n_in + 8:n_in + 11]
+
+        def fn(x, wq, wk, wv, wo):
+            xn = F.layer_norm(x, (c,), ls.to(dt), lb.to(dt))
+            return core(xn + pos.to(dt), xn, wq, wk, wv, wo)
+        ops = sub[:1] + w4
+    rows, cl, s2 = windows * tokens, hl * hd, 2
+    vec = 4 * c * 4 + (hl * tokens * tokens * 4 if bias is not None else 0)
+    b_ms, b_by = bound((n_in + 1) * rows * c * s2 + 4 * c * cl * s2 + vec,
+                       8 * rows * c * cl + 4 * rows * tokens * cl)
+    bb_ms, bb_by = bound((2 * n_in + 1) * rows * c * s2 + 8 * c * cl * s2 + 2 * vec,
+                         22 * rows * c * cl + 12 * rows * tokens * cl)
+    return dict(library_ms=cuda_ms(lambda: fn(*ops)), library_graph_ms=graph_ms(lambda: fn(*ops)),
+                bound_ms=b_ms, bound_by=b_by,
+                bwd_library_ms=cuda_ms(grads_of(fn, ops, gout)), bwd_bound_ms=bb_ms,
+                bwd_bound_by=bb_by)
+
+
 def tp_kernel_phases(dev):
     """Phase 41: kernels #1/#3, #5/#6 and #2/#4 on a head subset (heads h0 ..
     h0 + Hl - 1 of 8, hd 66) at the far_mnist / nar_mnist training shapes,
@@ -3307,6 +3384,7 @@ def tp_kernel_phases(dev):
                             else bwd_plain(*bargs, None, False, False, heads, h0))
                         out[name][key].update(ms=kernel_ms, plain_ms=plain_ms,
                                               bwd_ms=bk_ms, bwd_plain_ms=bp_ms)
+                        out[name][key].update(_subset_yardsticks(sub, two, hl, hd, bias, gout))
             kw = dict(num_heads=heads, dropout_rate=rate)
             whole = fwd(*ops, rpe, seed, **kw)
             bo = ops[9 if two else 8]
@@ -3727,6 +3805,464 @@ def tp_phases(dev, card, which=(42, 43, 44)):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+
+# ---------------------------------------------------------------- nar_kth_128
+# phases 45-50: kernels #9-#12 on their tiled routes at the 16 x 16 latent,
+# nar_kth_128 at full width on three routes, and its entry points
+
+KTH = "nar_kth_128"
+KTH_ROUTES = (("default route", {}),
+              ("fused-FFN route", {"fused_ffn": True, "fused_dw": True}),
+              ("conv-FFN route", {"fused_conv_ffn": True, "fused_full_temporal": True}))
+
+
+def kth_launches(tc, flags, step):
+    """The kernels' launches in one NAR forward of ``tc``'s model on the
+    route ``flags`` (one nar call), and with ``step`` in one train step
+    (the backward once each too). They follow from the blocks
+    (models/transformer.py), not from HW, so they are nar_mnist's on the
+    same route. An encoder block: the window attention with its LayerNorm
+    (#1), the temporal attention (#2; #1 folded on the conv-FFN route), the
+    linear FFN (#7 on the fused-FFN route), the BatchNorm conv FFN (no
+    kernel). A decoder block: the two-stream window attention (#5), the
+    temporal self-attention (#2; #1 folded), the enc-dec attention (#2),
+    the linear FFN (#7), two LayerNorm conv FFNs (#9 each on the fused-FFN
+    route; #11 at fc1 and fc2 each on the conv-FFN route)."""
+    e, d = tc.num_encoder_layers, tc.num_decoder_layers
+    if flags.get("fused_conv_ffn"):
+        want = {"fused_attention_ln": 2 * e + d, "fused_attention": d, "attention_core": d,
+                "conv_ln_gelu": 4 * d}
+    else:
+        want = {"fused_attention_ln": e, "fused_attention": d, "attention_core": e + 2 * d}
+        if flags.get("fused_ffn"):
+            want.update(fused_ffn=e + d, fused_dw_chain=2 * d)
+    if step:
+        want.update({f"{k}_bwd": v for k, v in list(want.items())})
+    return want
+
+
+def check_tanh_frames(pred, shape, what):
+    """The frames' shape, finite, and in the tanh output layer's [-1, 1]."""
+    check(tuple(pred.shape) == shape, f"{what} output shape {tuple(pred.shape)} == {shape}")
+    check(bool(torch.isfinite(pred.float()).all()), f"{what} output finite")
+    lo, hi = pred.float().min().item(), pred.float().max().item()
+    check(-1.0 <= lo and hi <= 1.0, f"{what} output in [-1, 1] ({lo:.4f}, {hi:.4f})")
+
+
+def kth_kernel_phases(dev):
+    """Phases 45-46: kernels #9-#12 at nar_kth_128's shapes (80 decoder
+    samples of 16 x 16 positions; #9/#10 at the hidden 2112 on a 16-wide
+    grid, #11/#12 at fc1 528 -> 2112 and fc2 2112 -> 528) against their
+    plain versions, bf16 and f32, dropout 0 and 0.1, two calls bit-equal,
+    on the routes the route functions name; then their times beside the
+    plain versions, a library yardstick (eager and graph-replayed) and the
+    bound. Returns {row name: readings}."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    cfg = get_preset(KTH)
+    tc = cfg.transformer
+    c, h, w = tc.d_model, tc.enc_h, tc.enc_w
+    hid, hw = tc.spatial_ffn_hidden_ratio * c, h * w
+    n = cfg.data.batch_size * tc.num_future_frames        # 80: the decoder's samples
+    rate = tc.dropout
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 1e-3, bf: 6.25e-2}                       # as phase 3
+    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
+    randn = normals(torch.Generator().manual_seed(SEED + 45))
+    kseed = torch.tensor([SEED + 4545], dtype=torch.int32, device=dev)
+    stages = {"fc1": (c, hid), "fc2": (hid, c)}
+    dw_names = ("dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2")
+    cl_names = ("dx", "dw", "db", "dscale", "dbias2")
+
+    def dw_ops(dtype):
+        return (randn(n, hw, hid).to(dev, dtype), randn(9, hid, std=0.3).to(dev),
+                randn(hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev))
+
+    def conv_ops(cin, cout, dtype):
+        return (randn(n, hw, cin).to(dev, dtype), randn(cin, cout, std=cin ** -0.5).to(dev, dtype),
+                randn(cout, std=0.1).to(dev), (1 + randn(hw, cout, std=0.1)).to(dev),
+                randn(hw, cout, std=0.1).to(dev))
+
+    phase(f"45. kernels #9-#12 at {KTH}'s 16 x 16 latent against their plain versions (card)")
+    routes = {}
+    for dtype in (bf, f32):
+        dn = str(dtype).replace("torch.", "")
+        routes[dn] = {"fused_dw_chain": tdw.kernel_route(hw, hid, dtype, w),
+                      "fused_dw_chain_bwd": tdw.backward_route(hw, hid, dtype, w),
+                      **{f"conv_ln_gelu {st}": tcl.kernel_route(hw, ci, co, dtype)
+                         for st, (ci, co) in stages.items()}}
+    print(f"  routes the route functions name: {routes}")
+    errs = {}
+    for dtype in (bf, f32):
+        dn = str(dtype).replace("torch.", "")
+        ops, gd = dw_ops(dtype), randn(n, hw, hid).to(dev, dtype)
+        for r in (0.0, rate):
+            got = tdw.fused_dw_chain(*ops, kseed, w, r)
+            e = max_err(got, tdw.fused_dw_chain_plain(*ops, kseed, w, r))
+            check(e <= tol[dtype], f"fused_dw_chain {dn} dropout {r} {tuple(ops[0].shape)} w {w} "
+                  f"({routes[dn]['fused_dw_chain']}) max|err| {e:.3e} <= {tol[dtype]}")
+            check(torch.equal(got, tdw.fused_dw_chain(*ops, kseed, w, r)),
+                  f"fused_dw_chain {dn} dropout {r}: two calls give the same bits")
+            got = tdw.fused_dw_chain_backward(*ops, kseed, gd, w, r)
+            want = tdw.fused_dw_chain_backward_plain(*ops, kseed, gd, w, r)
+            n_worst, worst = worst_rel(got, want, dw_names)
+            check(worst <= bwd_tol[dtype], f"fused_dw_chain backward {dn} dropout {r} "
+                  f"({routes[dn]['fused_dw_chain_bwd']}) worst {n_worst} rel err {worst:.2e} "
+                  f"<= {bwd_tol[dtype]:.2e}")
+            again = tdw.fused_dw_chain_backward(*ops, kseed, gd, w, r)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"fused_dw_chain backward {dn} dropout {r}: two calls give the same bits")
+            if dtype == bf:
+                errs[("fused_dw_chain", r)] = e
+                errs[("fused_dw_chain_bwd", r)] = max(max_err(a, b) for a, b in zip(got, want))
+            del got, want, again
+        del ops, gd
+        for st, (ci, co) in stages.items():
+            ops, gc_ = conv_ops(ci, co, dtype), randn(n, hw, co).to(dev, dtype)
+            got = tcl.conv_ln_gelu(*ops)
+            e = max_err(got, tcl.conv_ln_gelu_plain(*ops))
+            route = routes[dn][f"conv_ln_gelu {st}"]
+            check(e <= tol[dtype], f"conv_ln_gelu {dn} {st} {tuple(ops[0].shape)} -> {co} "
+                  f"({route}) max|err| {e:.3e} <= {tol[dtype]}")
+            check(torch.equal(got, tcl.conv_ln_gelu(*ops)),
+                  f"conv_ln_gelu {dn} {st}: two calls give the same bits")
+            got = tcl.conv_ln_gelu_backward(*ops, gc_)
+            want = tcl.conv_ln_gelu_backward_plain(*ops, gc_)
+            n_worst, worst = worst_rel(got, want, cl_names)
+            check(worst <= bwd_tol[dtype], f"conv_ln_gelu backward {dn} {st} ({route}) worst "
+                  f"{n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
+            again = tcl.conv_ln_gelu_backward(*ops, gc_)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"conv_ln_gelu backward {dn} {st}: two calls give the same bits")
+            if dtype == bf:
+                errs[("conv_ln_gelu", st)] = e
+                errs[("conv_ln_gelu_bwd", st)] = max(max_err(a, b) for a, b in zip(got, want))
+            del ops, gc_, got, want, again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    phase(f"46. kernels #9-#12 at {KTH}'s shapes: times beside the plain versions, the "
+          f"library and the bound (bf16)")
+
+    def dw_library(x, taps, dwb, s1, b1, s2, b2):
+        img = x.view(n, h, w, hid).permute(0, 3, 1, 2)
+        aff = lambda p: p.t().reshape(hid, h, w).to(bf)
+        z = F.gelu(F.layer_norm(img, img.shape[1:], aff(s1), aff(b1)))
+        z = F.conv2d(z, taps.t().reshape(hid, 1, 3, 3).to(bf), dwb.to(bf), padding=1, groups=hid)
+        return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
+
+    def conv_library(x, wt, b, scale, bias2):
+        u = F.linear(x, wt.t(), b.to(bf))
+        return F.gelu(F.layer_norm(u, u.shape[1:], scale.to(bf), bias2.to(bf)))
+
+    readings = {}
+
+    def timed(key, fn, plain, lib, lib_bwd_ops, nbytes, flops, fdt):
+        k_ms, p_ms = timed_turns(fn, plain)
+        b_ms, b_by = bound(nbytes, flops, fdt)
+        if lib_bwd_ops is None:
+            lib_ms, lib_graph = cuda_ms(lib), graph_ms(lib)
+        else:
+            lib_ms = cuda_ms(grads_of(*lib_bwd_ops))
+            lib_graph = graph_bwd_ms(*lib_bwd_ops)
+        readings[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                             library_graph_ms=lib_graph, bound_ms=b_ms, bound_by=b_by)
+        print(f"  {' '.join(key)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (graph-replayed {lib_graph}), bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
+              f"{str(fdt).replace('torch.', '')})")
+
+    d, s2b = n * hw * hid, 2
+    ops, gd = dw_ops(bf), randn(n, hw, hid).to(dev, bf)
+    # as phase 14: ~80 f32 operations an element forward, ~210 backward
+    timed(("fused_dw_chain", KTH), lambda: tdw.fused_dw_chain(*ops, kseed, w, 0.0),
+          lambda: tdw.fused_dw_chain_plain(*ops, kseed, w, 0.0), lambda: dw_library(*ops), None,
+          2 * d * s2b + (10 * hid + 4 * hw * hid) * 4, 80 * d, f32)
+    timed(("fused_dw_chain_bwd", KTH),
+          lambda: tdw.fused_dw_chain_backward(*ops, kseed, gd, w, rate),
+          lambda: tdw.fused_dw_chain_backward_plain(*ops, kseed, gd, w, rate), None,
+          (dw_library, ops, gd.view(n, h, w, hid).permute(0, 3, 1, 2)),
+          3 * d * s2b + (20 * hid + 8 * hw * hid) * 4, 210 * d, f32)
+    del ops, gd
+    for st, (ci, co) in stages.items():
+        ops, gc_ = conv_ops(ci, co, bf), randn(n, hw, co).to(dev, bf)
+        rows, vecs = n * hw, co * 4 + 2 * hw * co * 4
+        timed(("conv_ln_gelu", st), lambda: tcl.conv_ln_gelu(*ops),
+              lambda: tcl.conv_ln_gelu_plain(*ops), lambda: conv_library(*ops), None,
+              rows * (ci + co) * s2b + ci * co * s2b + vecs, 2 * rows * ci * co, bf)
+        timed(("conv_ln_gelu_bwd", st), lambda: tcl.conv_ln_gelu_backward(*ops, gc_),
+              lambda: tcl.conv_ln_gelu_backward_plain(*ops, gc_), None,
+              (conv_library, ops, gc_),
+              rows * (2 * ci + co) * s2b + 2 * ci * co * s2b + 2 * vecs + co * 4,
+              6 * rows * ci * co, bf)
+        del ops, gc_
+    torch.cuda.empty_cache()
+    out = {}
+    for name in ("fused_dw_chain", "fused_dw_chain_bwd"):
+        out[name] = {**readings[(name, KTH)],
+                     "max_abs_err": errs[(name, 0.0 if name == "fused_dw_chain" else rate)],
+                     "route": routes["bfloat16"][name], "f32_route": routes["float32"][name],
+                     "shape": [n, hw, hid], "grid_w": w}
+    for name in ("conv_ln_gelu", "conv_ln_gelu_bwd"):
+        out[name] = {**readings[(name, "fc1")], "max_abs_err": errs[(name, "fc1")],
+                     "route": routes["bfloat16"]["conv_ln_gelu fc1"],
+                     "shape": [n, hw, c, hid],
+                     "fc2_stage": {**readings[(name, "fc2")], "max_abs_err": errs[(name, "fc2")]}}
+    return out
+
+
+def kth_batches(cfg, dev):
+    """One batch of the synthetic KTH-shaped loader's train split (Tp + Tf
+    frames) and one of its test split (Tp + test_future_frames), on the
+    card."""
+    import contextlib
+
+    from vptr_tpu_torch.data.loader import build_loader
+
+    put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    out = []
+    for split in ("train", "test"):
+        with contextlib.closing(iter(build_loader(cfg.data, split=split, seed=cfg.seed))) as it:
+            past, future = next(it)
+        out.append((put(past), put(future)))
+    return out
+
+
+def kth_route_phase(dev, number, label, flags, train, test):
+    """Phase ``number``: nar_kth_128 at full width (AE ngf 64 / feat 528 at
+    128 x 128 x 1, NAR 4 + 8 blocks at d 528, 8 heads, RPE, bf16; seeded
+    random weights) on a route: the nar predict 10 -> 10 with every counter
+    at 0 just before and read just after (kth_launches), its frames against
+    kernels="plain"; 10 -> 40 through nar_rollout (four NAR calls: four
+    times the launches), 8 x 40 frames of 128 x 128 x 1 finite and in
+    [-1, 1]; the train step's launches, the step against kernels="plain"
+    (phase 5's gates; on the fused routes on the batch's first
+    KTH_PLAIN_ROWS clips) and 10 steps on one batch with a falling loss; the
+    predict's and the step's ms, frames/s and memory peak. Returns the
+    readings."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.layers import use_kernels
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_nar_train_state
+    from vptr_tpu_torch.train.steps import make_nar_train_step
+
+    cfg = get_preset(KTH).override({"transformer": flags}) if flags else get_preset(KTH)
+    tc, dc = cfg.transformer, cfg.data
+    bf = torch.bfloat16
+    b, n_past, n_fut, n_test = (dc.batch_size, tc.num_past_frames, tc.num_future_frames,
+                                dc.test_future_frames)
+    size = dc.img_size
+    what = f"{KTH} {label}"
+    phase(f"{number}. {KTH} at full width, {label}"
+          + (f" ({' + '.join(flags)})" if flags else "")
+          + f": nar predict {n_past} -> {n_fut} and {n_past} -> {n_test}, train step")
+    enc, dec = build_autoencoder(cfg.ae, bf, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, bf, dev, torch.Generator().manual_seed(SEED + 1))
+    past, future = train
+    test_past = test[0]
+    predict = make_predict_fn(cfg, enc, dec, tr, "nar", n_fut, dev)
+    want = kth_launches(tc, flags, False)
+    zero_counters()
+    pred = predict(past)
+    torch.cuda.synchronize()
+    pred_launches = launch_counts(*want)
+    check_counts(pred_launches, want, f"the {what} nar predict")
+    check_tanh_frames(pred, (b, n_fut, size, size, 1), f"{what} nar predict")
+    use_kernels(tr, "plain")
+    e = max_err(pred, predict(past))
+    use_kernels(tr, "cuda")
+    check(e <= 1e-1, f"{what} nar predict kernels vs kernels='plain' max|err| {e:.3e} <= 1e-1 "
+          f"(bf16 tanh frames in [-1, 1] after 12 layers: phase 4's 5e-2 on sigmoid frames, "
+          f"over twice the range)")
+    predict40 = make_predict_fn(cfg, enc, dec, tr, "nar", n_test, dev)
+    calls = -(-n_test // n_fut)
+    zero_counters()
+    pred40 = predict40(test_past)
+    torch.cuda.synchronize()
+    check_counts(launch_counts(*want), {k: calls * v for k, v in want.items()},
+                 f"the {what} nar predict {n_past} -> {n_test} ({calls} NAR calls)")
+    check_tanh_frames(pred40, (b, n_test, size, size, 1), f"{what} nar predict {n_past} -> "
+                      f"{n_test}")
+    del pred, pred40
+
+    opt = build_optimizer(cfg.optim, tc.d_model)
+    state = create_nar_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    step = make_nar_train_step(enc, dec, tr, opt, cfg.loss)
+    state, _ = step(state, past, future)    # the first step's norm is ~1e10
+    state, step_launches = counted_step(step, state, past, future,
+                                        kth_launches(tc, flags, True), f"{what} NAR train step")
+    # the plain versions of #9-#12 keep their f32 intermediates for autograd
+    # (tens of GiB at 80 samples of 256 x 2112): on those routes the step is
+    # held against kernels="plain" on the batch's first KTH_PLAIN_ROWS clips
+    rows = b if not flags else KTH_PLAIN_ROWS
+    step_vs_plain(step, state, past[:rows], future[:rows], f"{what} step (batch {rows})")
+    loss_falls(step, state, past, future, what)
+
+    pred_ms = statistics.median([host_ms(lambda: predict(past)) for _ in range(4)][1:])
+    pred40_ms = statistics.median([host_ms(lambda: predict40(test_past)) for _ in range(3)])
+    use_kernels(tr, "plain")
+    plain_pred_ms = host_ms(lambda: predict(past))
+    use_kernels(tr, "cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_times = [host_ms(lambda: step(state, past, future)) for _ in range(WARMUP_STEPS + 4)]
+    step_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    step_ms = statistics.median(step_times[WARMUP_STEPS:])
+    out = {"predict_ms": pred_ms, "predict_frames_per_s": b * n_fut / pred_ms * 1e3,
+           "plain_predict_ms": plain_pred_ms, "predict_40_ms": pred40_ms,
+           "predict_40_frames_per_s": b * n_test / pred40_ms * 1e3,
+           "train_step_ms": step_ms, "train_frames_per_s": b * n_fut / step_ms * 1e3,
+           "step_peak_gib_above_held": step_peak, "held_gib": held / 2 ** 30,
+           "predict_launches": pred_launches, "step_launches": step_launches}
+    print(f"  {what}: nar predict (batch {b}, {n_past} -> {n_fut}) {pred_ms:.3f} ms "
+          f"({out['predict_frames_per_s']:.1f} frames/s; kernels='plain' {plain_pred_ms:.3f} "
+          f"ms), {n_past} -> {n_test} {pred40_ms:.3f} ms ({out['predict_40_frames_per_s']:.1f} "
+          f"frames/s); train step {step_ms:.3f} ms ({[round(t, 3) for t in step_times]}), "
+          f"{out['train_frames_per_s']:.1f} training frames/s, peak {step_peak:.3f} GiB above "
+          f"the {held / 2 ** 30:.3f} GiB held")
+    del enc, dec, tr, state, step, predict, predict40, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+KTH_CLI_STEPS = 3
+KTH_PLAIN_ROWS = 2   # the clips of a fused route's step against kernels="plain"
+
+
+def kth_cli_phase(dev, number):
+    """Phase ``number``: ``cli train --preset nar_kth_128`` at full width on
+    the synthetic KTH-shaped loader (KTH_CLI_STEPS steps and a validation
+    pass: the epoch cut, nothing else), a second ``cli train`` that resumes
+    it, ``cli eval --mode nar --max-batches 1`` (10 -> 40: four NAR calls
+    a batch) and ``cli predict --mode nar --batches 1``, every counter at 0
+    before each command, in a temporary directory removed at the end.
+    Returns the readings."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from vptr_tpu_torch import cli
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+
+    cfg = get_preset(KTH)
+    tc, dc = cfg.transformer, cfg.data
+    phase(f"{number}. cli train --preset {KTH} ({KTH_CLI_STEPS} steps and a validation pass), "
+          f"a resumed run, cli eval --mode nar --max-batches 1, cli predict --mode nar "
+          f"--batches 1")
+    root = Path(tempfile.mkdtemp(prefix="vptr_kth_"))
+    records = _Records()
+    logging.getLogger("vptr_tpu_torch").addHandler(records)
+    out = {}
+    try:
+        ckpt = root / "kth"
+        args = ["--preset", KTH, "--ckpt-dir", str(ckpt), "--set", "epochs=1", "--set",
+                f"steps_per_epoch={KTH_CLI_STEPS}", "--set", "val_per_epochs=1"]
+        val_batches = len(build_loader(dc, split="val", seed=cfg.seed))
+        fwd = kth_launches(tc, {}, False)
+        zero_counters()
+        t0 = time.perf_counter()
+        cli.main(["train", *args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = {k: v * (KTH_CLI_STEPS + val_batches) for k, v in fwd.items()}
+        want.update({f"{k}_bwd": v * KTH_CLI_STEPS for k, v in fwd.items()})
+        got = launch_counts(*want)
+        check_counts(got, want, f"cli train {KTH} ({KTH_CLI_STEPS} steps, {val_batches} "
+                     f"validation batches)")
+        hist = _history(ckpt)
+        print(f"  train {hist['train']}\n  val {hist['val']}")
+        check(_finite(hist["train"].values()) and _finite(hist["val"].values()),
+              f"{KTH} cli train: train and val metrics finite")
+        check((ckpt / "ckpt" / str(KTH_CLI_STEPS) / "state.pt").is_file(),
+              f"{KTH} cli train wrote ckpt/{KTH_CLI_STEPS}/")
+        sps = hist["train"]["steps_per_sec"]
+        out.update(cli_train_steps_per_s=sps, cli_train_wall_s=wall, cli_train_launches=got)
+        records.messages.clear()
+        cli.main(["train", *args])
+        resumed = [m for m in records.messages if m.startswith("resumed from step")]
+        check(resumed == [f"resumed from step {KTH_CLI_STEPS} (epoch 1)"],
+              f"the second cli train logs {resumed}")
+        check((ckpt / "ckpt" / str(2 * KTH_CLI_STEPS) / "state.pt").is_file(),
+              f"the resumed run continued to ckpt/{2 * KTH_CLI_STEPS}/")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        calls = -(-dc.test_future_frames // tc.num_future_frames)
+        want = {k: calls * v for k, v in fwd.items()}
+        zero_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["eval", *args, "--mode", "nar", "--max-batches", "1"])
+        torch.cuda.synchronize()
+        curves = json.loads(buf.getvalue())
+        print(f"  {json.dumps(curves)}")
+        check_counts(launch_counts(*want), want, f"cli eval nar ({calls} NAR calls)")
+        check(all(len(curves[m]) == dc.test_future_frames and _finite(curves[m])
+                  for m in ("psnr", "ssim", "mse")),
+              f"cli eval curves finite, {dc.test_future_frames} long")
+        out["cli_eval_curves_mean"] = {m: curves[m + "_mean"] if m + "_mean" in curves
+                                       else statistics.mean(curves[m])
+                                       for m in ("psnr", "ssim", "mse")}
+
+        zero_counters()
+        buf = io.StringIO()
+        preds = root / "predictions"
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", *args, "--mode", "nar", "--out", str(preds), "--batches", "1"])
+        torch.cuda.synchronize()
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        check_counts(launch_counts(*want), want, f"cli predict nar ({calls} NAR calls)")
+        written = sorted(p.name for p in preds.rglob("*") if p.is_file())
+        if importlib.util.find_spec("PIL") is not None:
+            check(len(written) > 0, f"cli predict wrote {written}")
+        else:
+            check("PIL does not import" in buf.getvalue(),
+                  "cli predict said that PIL does not import")
+    finally:
+        logging.getLogger("vptr_tpu_torch").removeHandler(records)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def kth_phases(dev):
+    """Phases 45-50 (nar_kth_128). Returns (the kernel readings of #9-#12 at
+    its shapes by row name, the routes' and the commands' readings, the
+    summary line)."""
+    from vptr_tpu_torch.config import get_preset
+
+    kernels = kth_kernel_phases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, test = kth_batches(get_preset(KTH), dev)
+    routes = {}
+    for i, (label, flags) in enumerate(KTH_ROUTES):
+        routes[label] = kth_route_phase(dev, 47 + i, label, flags, train, test)
+    del train, test
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_out = kth_cli_phase(dev, 50)
+    summary = " ".join(
+        f"kth_{label.split()[0].replace('-', '_').lower()}_predict_ms {r['predict_ms']:.3f} "
+        f"kth_{label.split()[0].replace('-', '_').lower()}_train_step_ms "
+        f"{r['train_step_ms']:.3f}" for label, r in routes.items())
+    return kernels, {"routes": routes, "cli": cli_out}, summary
 
 
 def main() -> int:
@@ -4310,7 +4846,20 @@ def main() -> int:
             if name in counts:
                 row.setdefault("tp_step_launches_a_rank", {})[key] = counts[name]
 
-    phase("45. result")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kth_kernels, kth_extra, kth_summary = kth_phases(dev)
+    for row in rows_out:          # #9-#12 at nar_kth_128's shapes (phases 45-46), their
+        name = row["name"]        # launches in its nar predict / train step (47-49)
+        if name in kth_kernels:
+            route = ("fused-FFN route" if name.startswith("fused_dw_chain")
+                     else "conv-FFN route")
+            r = kth_extra["routes"][route]
+            row["nar_kth_128"] = {**kth_kernels[name],
+                                  "predict_launches": r["predict_launches"].get(name, 0),
+                                  "train_step_launches": r["step_launches"][name]}
+
+    phase("51. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -4333,6 +4882,8 @@ def main() -> int:
     print(f"  remat: {json.dumps(remat_extra)}")
     print(f"  scan_layers: {json.dumps(scan_extra)}")
     print(f"  tensor parallel: {json.dumps(tp_extra)}")
+    print(f"  {kth_summary}")
+    print(f"  {KTH}: {json.dumps(kth_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",

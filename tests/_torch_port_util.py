@@ -46,18 +46,19 @@ def small_cfgs():
             tcfg.get_preset("far_mnist").override(SMALL))
 
 
-def small_nar_cfgs(past: int = 3, future: int = 3, **transformer):
-    """(JAX config, port config) of nar_mnist cut to SMALL with 2 + 2
-    layers (RPE on, as the preset) and Tp = ``past``, Tf = ``future``;
-    ``transformer`` overrides more fields."""
+def small_nar_cfgs(past: int = 3, future: int = 3, preset: str = "nar_mnist",
+                   **transformer):
+    """(JAX config, port config) of ``preset`` (nar_mnist by default) cut to
+    SMALL with 2 + 2 layers (RPE on, as the preset) and Tp = ``past``, Tf =
+    ``future``; ``transformer`` overrides more fields."""
     over = {**SMALL,
             "transformer": {**SMALL["transformer"], "num_decoder_layers": 2,
                             "num_past_frames": past,
                             "num_future_frames": future, **transformer},
             "data": {**SMALL["data"], "num_past_frames": past,
                      "num_future_frames": future}}
-    return (jcfg.get_preset("nar_mnist").override(over),
-            tcfg.get_preset("nar_mnist").override(over))
+    return (jcfg.get_preset(preset).override(over),
+            tcfg.get_preset(preset).override(over))
 
 
 def to_numpy(tree):

@@ -14,10 +14,10 @@ TPU kernels (Pallas interpret mode), on the CPU.
     version at the real width (C = 2112, N = 2, bf16 input, dropout 0 and
     0.1) within one bf16 ulp of each output, of 2^-8 at least (both sum in
     f32 and round to bf16 once: a rounding may fall the other way);
-(p) ``kernel_route`` (#9's route: "persistent" or "per_sample") and
-    ``backward_route`` (#10's: "persistent" or "groups") at the presets'
-    shapes and at the edges of what the persistent routes take, functions
-    of the shapes alone (no library is built on the CPU);
+(p) ``kernel_route`` (#9's route: "persistent", "per_sample" or "tiled")
+    and ``backward_route`` (#10's: "persistent", "groups" or "tiled") at
+    the presets' shapes and at the edges of what the persistent routes
+    take, functions of the shapes alone (no library is built on the CPU);
 (q) #10's plain version at the real width (C = 2112, N = 2, x and g in
     bf16, dropout 0 and 0.1) against the JAX backward kernel: dx within one
     bf16 ulp (of 2^-8 at least), the f32 gradients within the tolerance
@@ -238,14 +238,13 @@ _BF, _F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("name", [p for p in list_presets()
                                   if get_preset(p).stage in ("far", "nar")])
 def test_kernel_route_at_the_presets(name):
-    """bf16 samples of 8 x 8 x 2112 take the persistent route; f32 and the
-    16 x 16 grid of nar_kth_128 (its slice does not fit) the per-sample
-    one."""
+    """bf16 samples of 8 x 8 x 2112 take the persistent route, f32 the
+    per-sample one; the 16 x 16 grid of nar_kth_128 (a per-sample slice
+    does not fit shared memory) the tiled route in both dtypes."""
     tc = get_preset(name).transformer
     hw, c = tc.enc_h * tc.enc_w, tc.spatial_ffn_hidden_ratio * tc.d_model
-    want = "persistent" if hw <= 64 else "per_sample"
-    assert kernel_route(hw, c, _BF, tc.enc_w) == want
-    assert kernel_route(hw, c, _F32, tc.enc_w) == "per_sample"
+    assert kernel_route(hw, c, _BF, tc.enc_w) == ("persistent" if hw <= 64 else "tiled")
+    assert kernel_route(hw, c, _F32, tc.enc_w) == ("per_sample" if hw <= 64 else "tiled")
 
 
 @pytest.mark.parametrize("hw,w,c,dtype,want", [
@@ -269,14 +268,13 @@ def test_kernel_route_at_the_edges(hw, w, c, dtype, want):
 @pytest.mark.parametrize("name", [p for p in list_presets()
                                   if get_preset(p).stage in ("far", "nar")])
 def test_backward_route_at_the_presets(name):
-    """bf16 samples of 8 x 8 x 2112 take #10's persistent route; f32 and
-    the 16 x 16 grid of nar_kth_128 (its slice does not fit) the group
-    route."""
+    """bf16 samples of 8 x 8 x 2112 take #10's persistent route, f32 the
+    group route; the 16 x 16 grid of nar_kth_128 (a group block's slices
+    do not fit shared memory) the tiled route in both dtypes."""
     tc = get_preset(name).transformer
     hw, c = tc.enc_h * tc.enc_w, tc.spatial_ffn_hidden_ratio * tc.d_model
-    want = "persistent" if hw <= 64 else "groups"
-    assert backward_route(hw, c, _BF, tc.enc_w) == want
-    assert backward_route(hw, c, _F32, tc.enc_w) == "groups"
+    assert backward_route(hw, c, _BF, tc.enc_w) == ("persistent" if hw <= 64 else "tiled")
+    assert backward_route(hw, c, _F32, tc.enc_w) == ("groups" if hw <= 64 else "tiled")
 
 
 @pytest.mark.parametrize("hw,w,c,dtype,want", [

@@ -52,10 +52,16 @@
 // Also exported: vptr_wgmma_product, the bare ring product (64 x cols x K)
 // into f32 (conv_ln_wg.cuh's product kernel, which the backward's dx runs),
 // so the building blocks can be checked on their own.
+//
+// Two routes, named from the shape before the launch
+// (vptr_conv_ln_gelu_route; ops/conv_ln_gelu.py::kernel_route): the one
+// above, "cluster", for HW <= 64; "tiled" past it (nar_kth_128's HW 256),
+// in passes through device memory with per-row partial moments
+// (conv_ln_tiled.cuh, whose note says what bounds it).
 
 #include <cstdio>
 
-#include "conv_ln_wg.cuh"
+#include "conv_ln_tiled.cuh"
 
 namespace {
 
@@ -164,6 +170,21 @@ int launch_product(const void* a, const void* bt, void* out, int K, int cols, cu
                                        kClnMaxRows, K, cols, s);
 }
 
+// The tiled route: u = x W into u (f32), the statistics, the epilogue.
+template <typename T>
+int tiled_forward(const void* x, const void* w, const void* b, const void* scale,
+                  const void* bias2, void* out, void* u, void* part, void* stats, int N, int HW,
+                  int Cin, int Cout, float eps, cudaStream_t s) {
+  float *uf = static_cast<float*>(u), *st = static_cast<float*>(stats);
+  if (int err = cln_tiled_stats<T>(x, w, static_cast<const float*>(b), uf,
+                                   static_cast<float*>(part), st, N, HW, Cin, Cout, eps, s))
+    return err;
+  clnt_out_kernel<T><<<dim3(HW, N), kTThreads, 0, s>>>(
+      uf, static_cast<const float*>(b), static_cast<const float*>(scale),
+      static_cast<const float*>(bias2), st, static_cast<T*>(out), HW, Cout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -180,6 +201,12 @@ const char* vptr_error_string(int err) {
 
 // Blocks per sample (the cluster size) for Cout; 0: Cout is not taken.
 int vptr_conv_ln_gelu_split(int Cout) { return Cout % 16 ? 0 : cln_split(Cout); }
+
+// The route for (HW, Cin, Cout, dtype): 0 = cluster, 1 = tiled, -1 = none
+// (the same in both dtypes).
+int vptr_conv_ln_gelu_route(int HW, int Cin, int Cout, int dtype) {
+  return dtype < 0 || dtype > 1 ? -1 : cln_route(HW, Cin, Cout);
+}
 
 // Dynamic shared memory a block takes for (HW, Cout, dtype), in bytes.
 long vptr_conv_ln_gelu_smem(int HW, int Cout, int dtype) {
@@ -212,6 +239,24 @@ int vptr_conv_ln_gelu(const void* x, const void* w, const void* b, const void* s
     case 2: return launch_wg<2>(x, w, b, scale, bias2, out, N, HW, Cin, Cout, eps, s);
     default: return launch_wg<3>(x, w, b, scale, bias2, out, N, HW, Cin, Cout, eps, s);
   }
+}
+
+// The tiled route on any shape it takes (cln_tiled_ok; N <= 65535), in
+// either dtype with w (Cin, Cout) as stored, and the caller's f32 scratch:
+// u (N HW, Cout), part (N, HW, 2), stats (N, 2). Returns as
+// vptr_conv_ln_gelu.
+int vptr_conv_ln_gelu_tiled(const void* x, const void* w, const void* b, const void* scale,
+                            const void* bias2, void* out, void* u, void* part, void* stats,
+                            int N, int HW, int Cin, int Cout, float eps, int dtype,
+                            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > kClnTiledMaxN || !cln_tiled_ok(HW, Cin, Cout) || dtype < 0 || dtype > 1 ||
+      !u || !part || !stats)
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? tiled_forward<float>(x, w, b, scale, bias2, out, u, part, stats, N, HW,
+                                           Cin, Cout, eps, s)
+                    : tiled_forward<bf16>(x, w, b, scale, bias2, out, u, part, stats, N, HW, Cin,
+                                          Cout, eps, s);
 }
 
 // The bare ring product: out (64, cols) f32 = a (64, K) bt^T, a and bt

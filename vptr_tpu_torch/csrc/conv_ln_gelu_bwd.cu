@@ -59,21 +59,31 @@
 // f32 runs on the CUDA cores: pass 1 is one cluster a sample group walking
 // its samples with conv_ln.cuh's slab in shared memory, the products are
 // tile_ops.cuh's FMA gemm.
+//
+// That is the "cluster" route, for HW <= 64. Past it (nar_kth_128's HW
+// 256) the "tiled" route replaces pass 1 (conv_ln_tiled.cuh: u recomputed
+// into f32 scratch, the statistics and LN's backward sums from per-row
+// partials, then du, a group a sample in both dtypes) and runs passes 2
+// and 3 as above, dx on wg_rows.cuh's row-tiled product in bf16.
 
 #include <cstdio>
 
+#include "conv_ln_tiled.cuh"
 #include "wg_dw.cuh"
 
 // Everything the backward needs; mirrored by _BwdArgs in
 // vptr_tpu_torch/ops/conv_ln_gelu.py. Inputs (wt: W^T (Cout, Cin), bf16
-// only), outputs, then the caller-allocated scratch (du: S x Cout f32, or
-// 2 x S x Cout bf16 [hi, lo] when T is bf16; pds, pdt, pdb: groups x HW x
-// Cout f32, groups = N for bf16; dbfull: HW x Cout f32; wpart: ksplit x Cin x Cout f32;
-// partial: parts(HW) x Cout f32).
+// on the cluster route only), outputs, then the caller-allocated scratch
+// (du: S x Cout f32, or 2 x S x Cout bf16 [hi, lo] when T is bf16; pds,
+// pdt, pdb: groups x HW x Cout f32, groups = N for bf16 and on the tiled
+// route; dbfull: HW x Cout f32; wpart: ksplit x Cin x Cout f32; partial:
+// parts(HW) x Cout f32; the tiled route's u: S x Cout, tpart: N x HW x 2,
+// tstats: 2 x N x 2, f32).
 struct ClnBwdArgs {
   const void *x, *w, *wt, *b, *scale, *bias2, *g;
   void *dx, *dw, *db, *ds, *dt;
   void *du, *pds, *pdt, *pdb, *dbfull, *wpart, *partial;
+  void *u, *tpart, *tstats;
   int N, HW, Cin, Cout, dtype, groups, ksplit;
   float eps;
 };
@@ -359,17 +369,9 @@ int run_bf16_products(const ClnBwdArgs& a, cudaStream_t s) {
   return dw_wg(a, s);                            //    dW = x^T du
 }
 
-int run_f32_products(const ClnBwdArgs& a, cudaStream_t s) {
-  const int G = cln_split(a.Cout), SW = a.Cout / G;
-  VPTR_TRY(launch_clusters(conv_ln_bwd_kernel, a.groups * G, G, cln_smem(a.HW, SW), s,  // 1.
-                           static_cast<const float*>(a.x), static_cast<const float*>(a.w),
-                           static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
-                           static_cast<const float*>(a.bias2), static_cast<const float*>(a.g),
-                           static_cast<float*>(a.du), static_cast<float*>(a.pds),
-                           static_cast<float*>(a.pdt), static_cast<float*>(a.pdb), a.N,
-                           a.groups, a.HW, a.Cin, a.Cout, SW, a.eps));
-  // 2. dx = du W^T (S x Cin, K = Cout);  dW = x^T du (Cin x Cout, K = S in
-  //    ksplit chunks)
+// 2. on the CUDA cores: dx = du W^T (S x Cin, K = Cout);  dW = x^T du (Cin
+//    x Cout, K = S in ksplit chunks)
+int f32_products(const ClnBwdArgs& a, cudaStream_t s) {
   const int S = a.N * a.HW;
   GemmBatch gb{};
   gb.M = S, gb.N = a.Cin, gb.K = a.Cout, gb.lda = a.Cout, gb.ldb = a.Cout, gb.ldo = a.Cin;
@@ -380,6 +382,57 @@ int run_f32_products(const ClnBwdArgs& a, cudaStream_t s) {
   gb.ksplit = a.ksplit, gb.kchunk = ((S + a.ksplit - 1) / a.ksplit + BK - 1) / BK * BK;
   gb.job[0] = {a.x, a.du, a.wpart, nullptr, 1.f, nullptr, nullptr, 0};
   return gemm<float, true, float, false, float, kPartial>(gb, 1, s);
+}
+
+int run_f32_products(const ClnBwdArgs& a, cudaStream_t s) {
+  const int G = cln_split(a.Cout), SW = a.Cout / G;
+  VPTR_TRY(launch_clusters(conv_ln_bwd_kernel, a.groups * G, G, cln_smem(a.HW, SW), s,  // 1.
+                           static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+                           static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
+                           static_cast<const float*>(a.bias2), static_cast<const float*>(a.g),
+                           static_cast<float*>(a.du), static_cast<float*>(a.pds),
+                           static_cast<float*>(a.pdt), static_cast<float*>(a.pdb), a.N,
+                           a.groups, a.HW, a.Cin, a.Cout, SW, a.eps));
+  return f32_products(a, s);
+}
+
+// The tiled route: 1. u recomputed, its statistics, LN's backward sums,
+// du and the samples' partials; 2. dx and dW (bf16: dx on the row-tiled
+// product, du's hi and lo halves as two terms, B^T = W (Cin, Cout) as
+// stored; dW as the cluster route's).
+template <typename T>
+int run_tiled_products(const ClnBwdArgs& a, cudaStream_t s) {
+  const int N = a.N, HW = a.HW, Cout = a.Cout, R = N * HW;
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  float *u = f(a.u), *part = f(a.tpart), *st = f(a.tstats);
+  if (int err = cln_tiled_stats<T>(a.x, a.w, cf(a.b), u, part, st, N, HW, a.Cin, Cout, a.eps, s))
+    return err;
+  const dim3 rows(HW, N);
+  const T* g = static_cast<const T*>(a.g);
+  clnt_dz_sums_kernel<T><<<rows, kTThreads, 0, s>>>(u, cf(a.b), cf(a.scale), cf(a.bias2), g, st,
+                                                    part, HW, Cout);
+  VPTR_TRY(cudaGetLastError());
+  VPTR_TRY(tiled_stats(part, st + 2 * N, N, HW, static_cast<float>(Cout), a.eps, kTSums, s));
+  clnt_du_kernel<T><<<rows, kTThreads, 0, s>>>(
+      u, cf(a.b), cf(a.scale), cf(a.bias2), g, st, st + 2 * N, static_cast<T*>(a.du), f(a.pds),
+      f(a.pdt), f(a.pdb), HW, Cout, static_cast<long>(R) * Cout);
+  VPTR_TRY(cudaGetLastError());
+  if constexpr (!std::is_same<T, bf16>::value) {
+    return f32_products(a, s);
+  } else {
+    const bf16* hi = static_cast<const bf16*>(a.du);
+    RwMaps m;
+    RwWork wk{};
+    int err = rw_amap(&m.a[0][0], hi, R, Cout, Cout);
+    if (!err) err = rw_amap(&m.a[0][1], hi + static_cast<long>(R) * Cout, R, Cout, Cout);
+    if (!err) err = rw_bmap(&m.b[0], a.w, Cout, a.Cin, Cout, false);
+    if (err) return err;
+    wk.job[0] = {a.dx, nullptr, 1.f, nullptr, Cout};
+    wk.jobs = 1, wk.rows = R, wk.cols = a.Cin, wk.group = 1;
+    if ((err = launch_rows<2, false, kRwBf16>(m, wk, s))) return err;
+    return dw_wg(a, s);
+  }
 }
 
 // The weight gradient's chunks, then (3.) ds, dt and the per-position db
@@ -414,7 +467,10 @@ int sums(const ClnBwdArgs& a, cudaStream_t s) {
 template <typename T>
 int run(const ClnBwdArgs& a, cudaStream_t s) {
   const bool bf = std::is_same<T, bf16>::value;
-  if (int err = bf ? run_bf16_products(a, s) : run_f32_products(a, s)) return err;
+  const int err = cln_route(a.HW, a.Cin, a.Cout) == 1
+                      ? run_tiled_products<T>(a, s)
+                      : (bf ? run_bf16_products(a, s) : run_f32_products(a, s));
+  if (err) return err;
   return sums<T>(a, s);
 }
 
@@ -433,12 +489,13 @@ const char* vptr_error_string(int err) {
 }
 
 // Sample groups of pass 1 (pds, pdt, pdb: groups x HW x Cout f32) for
-// dtype 0 (f32: about two resident blocks an SM) or 1 (bf16: one a
-// sample); 0: the shape is not taken.
-int vptr_conv_ln_gelu_bwd_groups(int N, int Cout, int dtype) {
-  const int G = Cout % 16 ? 0 : cln_split(Cout);
-  if (!G || N < 1) return 0;
-  return dtype == 1 ? N : cln_groups(N, G);
+// dtype 0 (f32: about two resident blocks an SM on the cluster route) or 1
+// (bf16: one a sample), one a sample on the tiled route; 0: the shape is
+// not taken.
+int vptr_conv_ln_gelu_bwd_groups(int N, int HW, int Cout, int dtype) {
+  const int route = N < 1 ? -1 : cln_route(HW, 16, Cout);
+  if (route < 0) return 0;
+  return dtype == 1 || route == 1 ? N : cln_groups(N, cln_split(Cout));
 }
 
 // K chunks of the weight-gradient product (wpart: ksplit x Cin x Cout f32).
@@ -459,11 +516,17 @@ int vptr_wgmma_product_mn(const void* a, const void* b, void* out, int K, int M,
 // Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a
 // CUresult.
 int vptr_conv_ln_gelu_bwd(const ClnBwdArgs* a, void* stream) {
-  if (!a || !cln_shape_ok(a->N, a->HW, a->Cin, a->Cout) || a->dtype < 0 || a->dtype > 1 ||
-      (a->dtype == 1 && !a->wt) || a->groups < 1 ||
-      a->groups != vptr_conv_ln_gelu_bwd_groups(a->N, a->Cout, a->dtype) || a->ksplit < 1 ||
-      !a->du || !a->pds || !a->pdt || !a->pdb || !a->dbfull || !a->wpart || !a->partial ||
-      (a->dtype == 0 && cln_smem(a->HW, a->Cout / cln_split(a->Cout)) > kClnSmemLimit))
+  const int route = a && a->N >= 1 ? cln_route(a->HW, a->Cin, a->Cout) : -1;
+  if (route < 0 || a->dtype < 0 || a->dtype > 1 || a->groups < 1 ||
+      a->groups != vptr_conv_ln_gelu_bwd_groups(a->N, a->HW, a->Cout, a->dtype) ||
+      a->ksplit < 1 || !a->du || !a->pds || !a->pdt || !a->pdb || !a->dbfull || !a->wpart ||
+      !a->partial)
+    return cudaErrorInvalidValue;
+  if (route == 0 && ((a->dtype == 1 && !a->wt) ||
+                     (a->dtype == 0 && cln_smem(a->HW, a->Cout / cln_split(a->Cout)) >
+                                           kClnSmemLimit)))
+    return cudaErrorInvalidValue;
+  if (route == 1 && (a->N > kClnTiledMaxN || !a->u || !a->tpart || !a->tstats))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a->dtype == 0 ? run<float>(*a, s) : run<bf16>(*a, s);

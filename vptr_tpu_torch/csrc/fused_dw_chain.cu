@@ -12,7 +12,7 @@
 // parameters (2.2 MB) are ~110 MB, 0.033 ms at 3.35 TB/s; the f32
 // arithmetic, ~80 flops an element, is 2.2 GFLOP (0.032 ms at 67 TFLOP/s).
 //
-// Two routes, chosen by the caller from the shape and dtype before the
+// Three routes, chosen by the caller from the shape and dtype before the
 // launch (vptr_fused_dw_chain_route; ops/fused_dw_chain.py::kernel_route):
 // * "per_sample" (f32, and every shape the other refuses): one cluster of
 //   kCluster blocks per sample, each block a 264-channel slice (at
@@ -39,10 +39,15 @@
 //   GELUs' two MUFU operations an element; device memory sees x and the
 //   output once and the parameters once a cluster; 20 of the 132 SMs hold
 //   no cluster.
+// * "tiled" (both dtypes, the shapes whose per-sample block does not fit;
+//   t_route_ok says which): nar_kth_128's 16 x 16 x 2112 samples, in three
+//   passes through device memory with per-tile partial moments
+//   (dw_tiled.cuh, whose note says what bounds it).
 
 #include <cstdio>
 
 #include "dw_persistent.cuh"
+#include "dw_tiled.cuh"
 
 namespace {
 
@@ -329,6 +334,25 @@ int launch_persistent(const void* x, const void* taps, const void* dwb, const vo
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// ---- the tiled route (dw_tiled.cuh): x's moments, z2 and its moments,
+// then the output
+
+template <typename T>
+int launch_tiled(const void* x, const void* taps, const void* dwb, const void* s1,
+                 const void* b1, const void* s2, const void* b2, void* out, void* z2, void* part,
+                 void* stats, int N, int HW, int W, int C, float eps, vptr_dropout::Params drop,
+                 cudaStream_t s) {
+  float* st = static_cast<float*>(stats);
+  VPTR_TRY(dwt_to_z2<T>(static_cast<const T*>(x), static_cast<const float*>(taps),
+                        static_cast<const float*>(dwb), static_cast<const float*>(s1),
+                        static_cast<const float*>(b1), static_cast<float*>(z2),
+                        static_cast<float*>(part), st, N, HW, W, C, eps, s));
+  dwt_out_kernel<T><<<dim3(C / kTCh, HW / W, N), kTThreads, 0, s>>>(
+      static_cast<const float*>(z2), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), st + 2 * N, static_cast<T*>(out), HW, W, C, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -360,9 +384,12 @@ int vptr_fused_dw_chain_persistent_clusters(int HW, int W, int C) {
   return p_route_ok(HW, W, C, 1) ? p_resident(dw_chain_persistent_kernel, p_smem(HW, C)) : 0;
 }
 
-// The route for (HW, W, C, dtype): 1 = persistent, 0 = per_sample.
+// The route for (HW, W, C, dtype): 1 = persistent, 2 = tiled (the shapes
+// whose per-sample block needs more than kDwRouteSmem bytes), 0 =
+// per_sample.
 int vptr_fused_dw_chain_route(int HW, int W, int C, int dtype) {
-  return p_route_ok(HW, W, C, dtype);
+  if (p_route_ok(HW, W, C, dtype)) return 1;
+  return dw_smem(HW, C, 2) > kDwRouteSmem && t_route_ok(HW, W, C) ? 2 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; W the row-grid width (HW = H * W);
@@ -385,6 +412,26 @@ int vptr_fused_dw_chain(const void* x, const void* taps, const void* dwb, const 
   if (dw_smem(HW, C, 2) > kDwSmemLimit) return cudaErrorInvalidValue;
   return dtype == 0 ? launch<float>(x, taps, dwb, s1, b1, s2, b2, out, N, HW, W, C, eps, drop, s)
                     : launch<bf16>(x, taps, dwb, s1, b1, s2, b2, out, N, HW, W, C, eps, drop, s);
+}
+
+// The tiled route on any shape it takes (t_route_ok; N <= 65535), with
+// the caller's f32 scratch: z2 (N, HW, C), part (N, T, 2) and stats (2, N,
+// 2), T = HW / W x C / 32. The other arguments as vptr_fused_dw_chain's.
+int vptr_fused_dw_chain_tiled(const void* x, const void* taps, const void* dwb, const void* s1,
+                              const void* b1, const void* s2, const void* b2, void* out,
+                              void* z2, void* part, void* stats, int N, int HW, int W, int C,
+                              float eps, const void* seed, float rate, float keep_div, int dtype,
+                              void* stream) {
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 || dtype > 1 ||
+      (rate > 0.f && !seed) || rate >= 1.f || !z2 || !part || !stats)
+    return cudaErrorInvalidValue;
+  return dtype == 0
+             ? launch_tiled<float>(x, taps, dwb, s1, b1, s2, b2, out, z2, part, stats, N, HW, W,
+                                   C, eps, drop, s)
+             : launch_tiled<bf16>(x, taps, dwb, s1, b1, s2, b2, out, z2, part, stats, N, HW, W,
+                                  C, eps, drop, s);
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@
 // 3.35 TB/s.
 //
 // The TPU kernel walked its sample grid in order and summed the parameter
-// gradients in place across grid steps. Two routes here, chosen by the
+// gradients in place across grid steps. Three routes here, chosen by the
 // caller from the shape and dtype before the launch
 // (vptr_fused_dw_chain_bwd_route; ops/fused_dw_chain.py::backward_route):
 // * "groups" (f32, and every shape the other refuses): a cluster of 8
@@ -47,12 +47,18 @@
 //   gradients and the conv's transpose are two walks down each grid
 //   column, their terms summed over a pair's columns by halving shuffles.
 //   x and g are staged by TMA in one buffer in turn (x, g, x again).
+// * "tiled" (both dtypes, the shapes whose group block does not fit;
+//   t_route_ok says which): nar_kth_128's 16 x 16 x 2112 samples, in
+//   passes through device memory with per-tile partial moments and sums
+//   and sample groups for the sums over samples (dw_tiled.cuh, whose note
+//   says what bounds it).
 // A second pass sums the groups' or the clusters' partials in their order.
 // No float atomics: the gradients are the same on every run.
 
 #include <cstdio>
 
 #include "dw_persistent.cuh"
+#include "dw_tiled.cuh"
 
 namespace {
 
@@ -853,6 +859,55 @@ int launch_persistent(const void* x, const void* taps, const void* dwb, const vo
   return cudaGetLastError();
 }
 
+// ---- the tiled route (dw_tiled.cuh)
+
+// Its operands: the inputs, the outputs, then the caller's f32 scratch
+// (z2, da1: N x HW x C; part: N x T x 2, T = HW / W x C / 32; stats: 4 x N
+// x 2; gpart: groups x 4 x HW x C; tpart: groups x H x 10 x C).
+struct TBwd {
+  const void *x, *taps, *dwb, *s1, *b1, *s2, *b2, *g;
+  void *dx, *dtaps, *ddwb, *ds1, *db1, *ds2, *db2;
+  void *z2, *da1, *part, *stats, *gpart, *tpart;
+};
+
+template <typename T>
+int launch_tiled(const TBwd& a, int N, int HW, int W, int C, float eps,
+                 vptr_dropout::Params drop, cudaStream_t s) {
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  float *z2 = f(a.z2), *da1 = f(a.da1), *part = f(a.part), *st = f(a.stats);
+  // 1-2. the forward to z2; st[0 .. 2N): LN1's (mean, rstd), [2N, 4N): LN2's
+  VPTR_TRY(dwt_to_z2<T>(x, cf(a.taps), cf(a.dwb), cf(a.s1), cf(a.b1), z2, part, st, N, HW, W,
+                        C, eps, s));
+  const int G = t_groups(N), H = HW / W, T_ = (C / kTCh) * H;
+  const float cnt = static_cast<float>(W * kTCh);
+  const dim3 by_group(C / kTCh, H, G), by_sample(C / kTCh, H, N);
+  // 4. LN2's backward sums -> st[4N, 6N); ds2, db2 by group
+  dwt_ln2_bwd_kernel<T><<<by_group, kTThreads, 0, s>>>(z2, g, cf(a.s2), cf(a.b2), st + 2 * N,
+                                                     part, f(a.gpart), N, HW, W, C, drop);
+  VPTR_TRY(cudaGetLastError());
+  VPTR_TRY(tiled_stats(part, st + 4 * N, N, T_, cnt, eps, kTSums, s));
+  // 5. the conv's backward: da1, LN1's backward sums -> st[6N, 8N); ds1,
+  // db1 by group; the tap sums by group and row
+  dwt_conv_bwd_kernel<T><<<by_group, kTThreads, 6 * W * kTCh * sizeof(float), s>>>(
+      x, z2, g, cf(a.taps), cf(a.s1), cf(a.b1), cf(a.s2), cf(a.b2), st, da1, part, f(a.gpart),
+      f(a.tpart), N, HW, W, C, drop);
+  VPTR_TRY(cudaGetLastError());
+  VPTR_TRY(tiled_stats(part, st + 6 * N, N, T_, cnt, eps, kTSums, s));
+  // 6. dx
+  dwt_dx_kernel<T><<<by_sample, kTThreads, 0, s>>>(x, da1, cf(a.s1), st, st + 6 * N,
+                                                 static_cast<T*>(a.dx), HW, W, C);
+  VPTR_TRY(cudaGetLastError());
+  // 7. the partial gradients in order
+  const long hwc = static_cast<long>(HW) * C, total = 4 * hwc + 10L * C;
+  dwt_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      cf(a.gpart), cf(a.tpart), f(a.ds1), f(a.db1), f(a.ds2), f(a.db2), f(a.dtaps), f(a.ddwb),
+      G, H, hwc, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -890,10 +945,15 @@ int vptr_fused_dw_chain_bwd_persistent_clusters(int HW, int W, int C) {
                                  : 0;
 }
 
-// The route for (HW, W, C, dtype): 1 = persistent, 0 = groups.
+// The route for (HW, W, C, dtype): 1 = persistent, 2 = tiled (the shapes
+// whose group block needs more than kDwRouteSmem bytes), 0 = groups.
 int vptr_fused_dw_chain_bwd_route(int HW, int W, int C, int dtype) {
-  return b_route_ok(HW, W, C, dtype);
+  if (b_route_ok(HW, W, C, dtype)) return 1;
+  return bwd_smem(HW, C) > kDwRouteSmem && t_route_ok(HW, W, C) ? 2 : 0;
 }
+
+// Sample groups of the tiled route's sums over samples for N samples.
+int vptr_fused_dw_chain_bwd_tiled_groups(int N) { return N < 1 ? 0 : t_groups(N); }
 
 // dtype: 0 = float32, 1 = bfloat16; route as vptr_fused_dw_chain_bwd_route
 // names it (a shape the route does not take is refused). Outputs: dx in T,
@@ -920,6 +980,28 @@ int vptr_fused_dw_chain_bwd(const void* x, const void* taps, const void* dwb, co
                                     ds2, db2, part, tpart, N, HW, W, C, eps, drop, s)
                     : launch<bf16>(x, taps, dwb, s1, b1, s2, b2, g, dx, dtaps, ddwb, ds1, db1,
                                    ds2, db2, part, tpart, N, HW, W, C, eps, drop, s);
+}
+
+// The tiled route on any shape it takes (t_route_ok; N <= 65535): the
+// inputs and outputs as vptr_fused_dw_chain_bwd's, then the caller's f32
+// scratch (TBwd's note; groups = vptr_fused_dw_chain_bwd_tiled_groups(N)).
+int vptr_fused_dw_chain_bwd_tiled(const void* x, const void* taps, const void* dwb,
+                                  const void* s1, const void* b1, const void* s2, const void* b2,
+                                  const void* g, void* dx, void* dtaps, void* ddwb, void* ds1,
+                                  void* db1, void* ds2, void* db2, void* z2, void* da1,
+                                  void* part, void* stats, void* gpart, void* tpart, int N,
+                                  int HW, int W, int C, float eps, const void* seed, float rate,
+                                  float keep_div, int dtype, void* stream) {
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 || dtype > 1 ||
+      (rate > 0.f && !seed) || rate >= 1.f || !z2 || !da1 || !part || !stats || !gpart ||
+      !tpart)
+    return cudaErrorInvalidValue;
+  const TBwd a{x, taps, dwb, s1, b1, s2, b2, g, dx, dtaps, ddwb, ds1, db1, ds2, db2,
+               z2, da1, part, stats, gpart, tpart};
+  return dtype == 0 ? launch_tiled<float>(a, N, HW, W, C, eps, drop, s)
+                    : launch_tiled<bf16>(a, N, HW, W, C, eps, drop, s);
 }
 
 }  // extern "C"

@@ -17,6 +17,10 @@ norm3 -> GELU stages with ``transformer.fused_conv_ffn`` (``layers.py:660-684``)
   Hopper's warpgroup MMA fed by TMA (``csrc/wgmma.cuh``), whose recomputed
   product takes W transposed, (Cout, Cin), which the wrapper makes; each
   source's note says what bounds it and what the design does about that.
+  That is the "cluster" route, for HW <= 64; past it (nar_kth_128's HW
+  256) the "tiled" route (``csrc/conv_ln_tiled.cuh``) takes u through
+  device memory with per-row partial moments; :func:`kernel_route`, a pure
+  function of the shapes, names the route.
 * :func:`wgmma_product` runs that product alone (64 rows), and
   :func:`wgmma_product_mn` the backward's weight-gradient product (both
   operands MN-major), for checking the building blocks on the card.
@@ -26,7 +30,8 @@ norm3 -> GELU stages with ``transformer.fused_conv_ffn`` (``layers.py:660-684``)
   backward. Only the inputs are saved for the backward, as in the JAX
   ``custom_vjp``.
 * ``conv_ln_gelu.launches`` / ``.bwd_launches`` count launches of #11 / #12
-  and nothing else.
+  and nothing else (``.launches_by_route`` / ``.bwd_launches_by_route`` the
+  same by route).
 * x and w (Cin, Cout) are in the compute dtype; b (Cout,), scale and bias2
   (HW, Cout) f32. The gradients: dx in x's dtype, dw in w's dtype (the JAX
   route passes ``kernel.astype(dtype)``, so in bf16 its weight gradient is
@@ -46,6 +51,7 @@ from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
 
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("cluster", "tiled")   # as the library numbers them
 
 
 def _project(x, w, b):
@@ -122,6 +128,8 @@ def conv_ln_gelu(x, w, b, scale, bias2) -> torch.Tensor:
 
 conv_ln_gelu.launches = 0
 conv_ln_gelu.bwd_launches = 0
+conv_ln_gelu.launches_by_route = dict.fromkeys(ROUTES, 0)
+conv_ln_gelu.bwd_launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def conv_ln_gelu_backward(x, w, b, scale, bias2, g):
@@ -136,25 +144,59 @@ def conv_ln_gelu_backward(x, w, b, scale, bias2, g):
 
 SMEM_LIMIT = 231424   # bytes of dynamic shared memory a block may take here
 
+# The cluster route's slabs (csrc/conv_ln.cuh: kClnWarps, kClnMaxCt,
+# kClnMaxCluster) and the tiled route's limit (csrc/conv_ln_tiled.cuh)
+CLN_WARPS, CLN_MAX_CT, CLN_MAX_CLUSTER = 11, 3, 8
+TILED_MAX_HW, TILED_MAX_N = 4096, 65535
+
 
 def cluster_split(cout: int) -> int:
-    """Blocks per sample (the thread-block cluster size) the kernels take
-    for Cout output channels; 0 when they do not take Cout."""
-    return _lib().vptr_conv_ln_gelu_split(cout)
+    """Blocks per sample (the thread-block cluster size) the cluster route
+    takes for Cout output channels; 0 when it does not take Cout. A pure
+    function (``cln_split``): the smallest G <= 8 that splits Cout / 16
+    column tiles into slabs of at most 22 tiles, else of at most 33."""
+    if cout < 16 or cout % 16:
+        return 0
+    nt = cout // 16
+    for cap in (2 * CLN_WARPS, CLN_MAX_CT * CLN_WARPS):
+        for g in range(1, CLN_MAX_CLUSTER + 1):
+            if nt % g == 0 and nt // g <= cap:
+                return g
+    return 0
+
+
+def kernel_route(hw: int, cin: int, cout: int, dtype: torch.dtype):
+    """Which route kernels #11 and #12 take for samples of (HW, Cin) ->
+    Cout, in ``dtype`` (the same in both): ``"cluster"`` (HW a multiple of
+    16 up to 64 and Cout that :func:`cluster_split` splits: a sample a
+    thread-block cluster, its u in registers), ``"tiled"`` (every other HW
+    a multiple of 16 up to 4096: u through device memory with per-row
+    partial moments) or None (no route: a CUDA tensor raises); Cin and
+    Cout multiples of 16 on both. A pure function of the shapes, equal to
+    the library's ``vptr_conv_ln_gelu_route``."""
+    if (dtype not in _DTYPES or hw < 16 or hw % 16 or cin < 16 or cin % 16
+            or cout < 16 or cout % 16):
+        return None
+    if hw <= 64 and cluster_split(cout):
+        return "cluster"
+    return "tiled" if hw <= TILED_MAX_HW else None
 
 
 def _operands(x, w, b, scale, bias2):
     """Check every operand against what the kernels take; returns (N, HW,
-    Cin, Cout). Rows and weights are read in 16-byte pieces."""
+    Cin, Cout, route). Rows and weights are read in 16-byte pieces."""
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"conv_ln_gelu kernel takes x (N, HW, Cin) in float32 or "
                          f"bfloat16, got {tuple(x.shape)} {x.dtype}")
     n, hw, cin = x.shape
     cout = w.shape[-1]
-    if hw % 16 or not 16 <= hw <= 64 or cin % 16 or cout % 16 or not cluster_split(cout):
-        raise ValueError(f"conv_ln_gelu kernel takes HW a multiple of 16 up to 64 and "
-                         f"Cin, Cout multiples of 16 that split into at most 8 slabs; "
-                         f"got HW={hw} Cin={cin} Cout={cout}")
+    route = kernel_route(hw, cin, cout, x.dtype)
+    if route is None or (route == "tiled" and n > TILED_MAX_N):
+        raise ValueError(f"conv_ln_gelu kernel takes HW a multiple of 16 (up to 64 on the "
+                         f"cluster route, whose Cout splits into at most 8 slabs; up to "
+                         f"{TILED_MAX_HW} and N <= {TILED_MAX_N} on the tiled route) and "
+                         f"Cin, Cout multiples of 16; got N={n} HW={hw} Cin={cin} "
+                         f"Cout={cout}")
     f32 = torch.float32
     for name, t, shape, dtype in (
             ("x", x, (n, hw, cin), x.dtype), ("w", w, (cin, cout), x.dtype),
@@ -166,25 +208,41 @@ def _operands(x, w, b, scale, bias2):
         if not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
             raise ValueError(f"conv_ln_gelu: {name} must be contiguous on "
                              f"{x.device} (16-byte aligned)")
-    return n, hw, cin, cout
+    return n, hw, cin, cout, route
+
+
+def _tiled_scratch(n, hw, cout, device):
+    """The tiled route's f32 scratch: u (N HW, Cout), the per-row partials
+    (N, HW, 2) and the per-sample statistics (2, N, 2; the forward uses the
+    first N x 2)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(n * hw, cout, **f32), torch.empty(n, hw, 2, **f32),
+            torch.empty(2, n, 2, **f32))
 
 
 def _forward_kernel(x, w, b, scale, bias2):
-    n, hw, cin, cout = _operands(x, w, b, scale, bias2)
+    n, hw, cin, cout, route = _operands(x, w, b, scale, bias2)
     lib = _lib()
-    smem = lib.vptr_conv_ln_gelu_smem(hw, cout, _DTYPES[x.dtype])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"conv_ln_gelu kernel: HW={hw}, Cout={cout} needs {smem} B "
-                         f"of shared memory (> {SMEM_LIMIT})")
     out = torch.empty(n, hw, cout, dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        w = w.t().contiguous()          # K-major, (Cout, Cin), for the wgmma product
     p = _build.ptr
-    err = lib.vptr_conv_ln_gelu(p(x), p(w), p(b), p(scale), p(bias2), p(out), n, hw,
-                                cin, cout, LN_EPS, _DTYPES[x.dtype],
-                                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "conv_ln_gelu")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "tiled":
+        u, part, stats = _tiled_scratch(n, hw, cout, x.device)
+        err = lib.vptr_conv_ln_gelu_tiled(p(x), p(w), p(b), p(scale), p(bias2), p(out), p(u),
+                                          p(part), p(stats), n, hw, cin, cout, LN_EPS,
+                                          _DTYPES[x.dtype], stream)
+    else:
+        smem = lib.vptr_conv_ln_gelu_smem(hw, cout, _DTYPES[x.dtype])
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"conv_ln_gelu kernel: HW={hw}, Cout={cout} needs {smem} B "
+                             f"of shared memory (> {SMEM_LIMIT})")
+        if x.dtype == torch.bfloat16:
+            w = w.t().contiguous()          # K-major, (Cout, Cin), for the wgmma product
+        err = lib.vptr_conv_ln_gelu(p(x), p(w), p(b), p(scale), p(bias2), p(out), n, hw,
+                                    cin, cout, LN_EPS, _DTYPES[x.dtype], stream)
+    _build.check(lib, err, f"conv_ln_gelu ({route})")
     conv_ln_gelu.launches += 1
+    conv_ln_gelu.launches_by_route[route] += 1
     return out
 
 
@@ -234,21 +292,21 @@ class _BwdArgs(ctypes.Structure):
     """Mirror of ``ClnBwdArgs`` in ``csrc/conv_ln_gelu_bwd.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "x", "w", "wt", "b", "scale", "bias2", "g", "dx", "dw", "db", "ds", "dt",
-        "du", "pds", "pdt", "pdb", "dbfull", "wpart", "partial")]
+        "du", "pds", "pdt", "pdb", "dbfull", "wpart", "partial", "u", "tpart", "tstats")]
         + [(n, ctypes.c_int) for n in ("N", "HW", "Cin", "Cout", "dtype", "groups",
                                        "ksplit")]
         + [("eps", ctypes.c_float)])
 
 
 def _backward_kernel(x, w, b, scale, bias2, g):
-    n, hw, cin, cout = _operands(x, w, b, scale, bias2)
+    n, hw, cin, cout, route = _operands(x, w, b, scale, bias2)
     if g.shape != (n, hw, cout) or g.dtype != x.dtype or not g.is_contiguous():
         raise ValueError(f"conv_ln_gelu backward: g {tuple(g.shape)} {g.dtype} "
                          f"does not match the output {(n, hw, cout)} {x.dtype}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     lib = _lib_bwd()
     rows = n * hw
-    groups = lib.vptr_conv_ln_gelu_bwd_groups(n, cout, _DTYPES[dt])
+    groups = lib.vptr_conv_ln_gelu_bwd_groups(n, hw, cout, _DTYPES[dt])
     ksplit = lib.vptr_conv_ln_gelu_bwd_ksplit(rows)
     parts = lib.vptr_conv_ln_gelu_bwd_partials(hw)
 
@@ -265,8 +323,11 @@ def _backward_kernel(x, w, b, scale, bias2, g):
                    pds=buf(groups, hw, cout), pdt=buf(groups, hw, cout),
                    pdb=buf(groups, hw, cout), dbfull=buf(hw, cout),
                    wpart=buf(ksplit, cin, cout), partial=buf(parts, cout))
-    # bf16: W^T (Cout, Cin) too, K-major for the recomputed product on wgmma
-    wt = w.t().contiguous() if dt == torch.bfloat16 else None
+    # the cluster route in bf16: W^T (Cout, Cin) too, K-major for the
+    # recomputed product on wgmma; the tiled route: u and the statistics
+    wt = w.t().contiguous() if dt == torch.bfloat16 and route == "cluster" else None
+    if route == "tiled":
+        scratch.update(zip(("u", "tpart", "tstats"), _tiled_scratch(n, hw, cout, dev)))
     p = _build.ptr
     a = _BwdArgs(x=p(x), w=p(w), wt=p(wt), b=p(b), scale=p(scale), bias2=p(bias2), g=p(g),
                  **{k: p(v) for k, v in grads.items()},
@@ -275,8 +336,9 @@ def _backward_kernel(x, w, b, scale, bias2, g):
                  ksplit=ksplit, eps=LN_EPS)
     err = lib.vptr_conv_ln_gelu_bwd(ctypes.byref(a),
                                     torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "conv_ln_gelu backward")
+    _build.check(lib, err, f"conv_ln_gelu backward ({route})")
     conv_ln_gelu.bwd_launches += 1
+    conv_ln_gelu.bwd_launches_by_route[route] += 1
     return tuple(grads[k] for k in ("dx", "dw", "db", "ds", "dt"))
 
 
@@ -287,8 +349,10 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p] * 6 + [i] * 4 + [f, i, p]
         fn.restype = ctypes.c_int
-        lib.vptr_conv_ln_gelu_split.argtypes = [i]
-        lib.vptr_conv_ln_gelu_split.restype = ctypes.c_int
+        lib.vptr_conv_ln_gelu_route.argtypes = [i] * 4
+        lib.vptr_conv_ln_gelu_route.restype = ctypes.c_int
+        lib.vptr_conv_ln_gelu_tiled.argtypes = [p] * 9 + [i] * 4 + [f, i, p]
+        lib.vptr_conv_ln_gelu_tiled.restype = ctypes.c_int
         lib.vptr_conv_ln_gelu_smem.argtypes = [i, i, i]
         lib.vptr_conv_ln_gelu_smem.restype = ctypes.c_long
         lib.vptr_wgmma_product.argtypes = [p] * 3 + [i] * 2 + [p]
@@ -302,7 +366,7 @@ def _lib_bwd() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.vptr_conv_ln_gelu_bwd_groups.argtypes = [ctypes.c_int] * 3
+        lib.vptr_conv_ln_gelu_bwd_groups.argtypes = [ctypes.c_int] * 4
         lib.vptr_conv_ln_gelu_bwd_groups.restype = ctypes.c_int
         lib.vptr_wgmma_product_mn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]

@@ -14,23 +14,27 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
 
 * ``_forward`` (``pl.pallas_call`` at :294) -> ``csrc/fused_dw_chain.cu``
   (kernel #9); ``_backward`` (:318) -> ``csrc/fused_dw_chain_bwd.cu`` (#10);
-  both share ``csrc/dw_chain.cuh`` and, on their bf16 routes,
-  ``csrc/dw_persistent.cuh``, whose notes say what bounds them and what the
-  design does about that. Each has two routes, named from the shape and
-  dtype before the launch: #9's by :func:`kernel_route` (bf16 takes
-  persistent 16-block clusters with the affines and taps held in shared
-  memory for the whole launch; f32 and the shapes that route refuses a
-  cluster of 8 blocks a sample), #10's by :func:`backward_route` (bf16
-  takes persistent 16-block clusters that keep the affine-gradient and tap
-  sums in shared memory across their samples; f32 and the shapes that
-  route refuses clusters of 8 blocks over at most 16 groups of samples).
+  both share ``csrc/dw_chain.cuh``, on their bf16 routes
+  ``csrc/dw_persistent.cuh`` and on their tiled routes ``csrc/dw_tiled.cuh``,
+  whose notes say what bounds them and what the design does about that.
+  Each has three routes, named from the shape and dtype before the launch:
+  #9's by :func:`kernel_route` (bf16 takes persistent 16-block clusters
+  with the affines and taps held in shared memory for the whole launch; f32
+  and the shapes that route refuses a cluster of 8 blocks a sample; the
+  samples too large for that, nar_kth_128's 16 x 16 x 2112, the tiled
+  route's passes through device memory), #10's by :func:`backward_route`
+  (bf16 takes persistent 16-block clusters that keep the affine-gradient
+  and tap sums in shared memory across their samples; f32 and the shapes
+  that route refuses clusters of 8 blocks over at most 16 groups of
+  samples; the samples too large for that the tiled route).
 * :func:`fused_dw_chain` is a ``torch.autograd.Function``: a CUDA tensor
   launches the kernels (or raises), a CPU tensor takes
   :func:`fused_dw_chain_plain` forward and
   :func:`fused_dw_chain_backward_plain` backward. Only the inputs are saved
   for the backward, as in the JAX ``custom_vjp``.
 * ``fused_dw_chain.launches`` / ``.bwd_launches`` count launches of #9 /
-  #10 and nothing else.
+  #10 and nothing else (``.launches_by_route`` / ``.bwd_launches_by_route``
+  the same by route).
 * The dropout is the counter hash of ``ops/dropout.py`` with element index
   (sample * HW + r) * C + col.
 """
@@ -48,8 +52,8 @@ from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
 
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("per_sample", "persistent")   # #9's routes, as the library numbers them
-BWD_ROUTES = ("groups", "persistent")   # #10's routes, as its library numbers them
+ROUTES = ("per_sample", "persistent", "tiled")   # #9's routes, as the library numbers them
+BWD_ROUTES = ("groups", "persistent", "tiled")   # #10's routes, as its library numbers them
 
 
 def _sample_ln(z):
@@ -178,6 +182,8 @@ def fused_dw_chain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 8,
 
 fused_dw_chain.launches = 0
 fused_dw_chain.bwd_launches = 0
+fused_dw_chain.launches_by_route = dict.fromkeys(ROUTES, 0)
+fused_dw_chain.bwd_launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
@@ -195,6 +201,30 @@ def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
 
 
 SMEM_LIMIT = 231000   # bytes of dynamic shared memory a block may take here
+
+
+def per_sample_smem(hw: int, c: int) -> int:
+    """Dynamic shared memory of #9's per-sample block for samples of (HW,
+    C) (``dw_smem``: two f32 slices of C / 8 channels)."""
+    return 4 * 2 * hw * (c // 8)
+
+
+def groups_smem(hw: int, c: int) -> int:
+    """Dynamic shared memory of #10's group block for samples of (HW, C)
+    (``bwd_smem``: three f32 slices of C / 8 channels and their ten tap
+    sums)."""
+    return 4 * 3 * hw * (c // 8) + 4 * 10 * (c // 8)
+
+
+# The tiled routes (csrc/dw_tiled.cuh: kTCh, kTMaxW, kTMaxN)
+T_CH, T_MAX_W, T_MAX_N = 32, 32, 65535
+
+
+def tiled_ok(hw: int, c: int, w: int) -> bool:
+    """Whether the tiled routes of #9 and #10 take samples of (HW, C) on a
+    grid w wide, in either dtype: w at most 32 dividing HW, C a multiple
+    of 32 (and at most 65,535 samples a call)."""
+    return hw >= 1 and 1 <= w <= T_MAX_W and hw % w == 0 and c >= T_CH and c % T_CH == 0
 
 
 # The persistent route of #9 (csrc/fused_dw_chain.cu: kPCluster, kPThreads,
@@ -217,20 +247,25 @@ def kernel_route(hw: int, c: int, dtype: torch.dtype, w: int = 8) -> str:
     """Which route kernel #9 takes for samples of (HW, C) on a grid w wide,
     in ``dtype``: ``"persistent"`` (bf16: as many 16-block clusters as the
     card holds, each walking the samples, a block's 1/16 channel slice of
-    the affines and taps in shared memory for the whole launch) or
-    ``"per_sample"`` (f32 and every other shape: a cluster of 8 blocks a
+    the affines and taps in shared memory for the whole launch),
+    ``"tiled"`` (either dtype: the samples whose per-sample block would
+    need more than ``SMEM_LIMIT`` bytes, in passes through device memory
+    with per-tile partial moments; :func:`tiled_ok` says which it takes)
+    or ``"per_sample"`` (f32 and every other shape: a cluster of 8 blocks a
     sample, which still refuses a shape whose slice does not fit). The
     persistent route takes HW <= 256, C a multiple of 64 whose slice,
     staged from a 16-byte boundary, is at most 256 channels, and the slice
     within shared memory. A pure function of the shapes, equal to the
     library's ``vptr_fused_dw_chain_route``."""
-    if dtype != torch.bfloat16 or not 1 <= hw <= 256 or w < 1 or hw % w \
-            or c < 4 * P_CLUSTER or c % (4 * P_CLUSTER):
-        return "per_sample"
-    cw = c // P_CLUSTER
-    ok = (cw + cw % 8 <= 256 and persistent_smem(hw, c) <= P_SMEM_LIMIT
-          and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS)
-    return "persistent" if ok else "per_sample"
+    if dtype == torch.bfloat16 and 1 <= hw <= 256 and w >= 1 and not hw % w \
+            and c >= 4 * P_CLUSTER and not c % (4 * P_CLUSTER):
+        cw = c // P_CLUSTER
+        if (cw + cw % 8 <= 256 and persistent_smem(hw, c) <= P_SMEM_LIMIT
+                and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS):
+            return "persistent"
+    if per_sample_smem(hw, c) > SMEM_LIMIT and tiled_ok(hw, c, w):
+        return "tiled"
+    return "per_sample"
 
 
 # #10's persistent route (csrc/fused_dw_chain_bwd.cu: kBSmemLimit, the
@@ -253,20 +288,26 @@ def backward_route(hw: int, c: int, dtype: torch.dtype, w: int = 8) -> str:
     """Which route kernel #10 takes for samples of (HW, C) on a grid w wide,
     in ``dtype``: ``"persistent"`` (bf16: as many 16-block clusters as the
     card holds, each walking the samples and keeping its blocks' 1/16
-    channel slices of the affine-gradient and tap sums in shared memory) or
-    ``"groups"`` (f32 and every other shape: clusters of 8 blocks over at
-    most 16 groups of samples, which still refuses a shape whose slices do
-    not fit). The persistent route takes HW <= 256, w dividing 32, C a
-    multiple of 64 whose slice, staged from a 16-byte boundary, is at most
-    256 channels, and the block within shared memory. A pure function of
-    the shapes, equal to the library's ``vptr_fused_dw_chain_bwd_route``."""
-    if dtype != torch.bfloat16 or not 1 <= hw <= 256 or not 1 <= w <= 32 or 32 % w \
-            or hw % w or c < 4 * P_CLUSTER or c % (4 * P_CLUSTER):
-        return "groups"
-    cw = c // P_CLUSTER
-    ok = (cw + cw % 8 <= 256 and backward_smem(hw, c) <= B_SMEM_LIMIT
-          and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS)
-    return "persistent" if ok else "groups"
+    channel slices of the affine-gradient and tap sums in shared memory),
+    ``"tiled"`` (either dtype: the samples whose group block would need
+    more than ``SMEM_LIMIT`` bytes, in passes through device memory with
+    per-tile partial moments and sums and the sums over samples in up to 8
+    sample groups; :func:`tiled_ok` says which it takes) or ``"groups"``
+    (f32 and every other shape: clusters of 8 blocks over at most 16 groups
+    of samples, which still refuses a shape whose slices do not fit). The
+    persistent route takes HW <= 256, w dividing 32, C a multiple of 64
+    whose slice, staged from a 16-byte boundary, is at most 256 channels,
+    and the block within shared memory. A pure function of the shapes,
+    equal to the library's ``vptr_fused_dw_chain_bwd_route``."""
+    if dtype == torch.bfloat16 and 1 <= hw <= 256 and 1 <= w <= 32 and not 32 % w \
+            and not hw % w and c >= 4 * P_CLUSTER and not c % (4 * P_CLUSTER):
+        cw = c // P_CLUSTER
+        if (cw + cw % 8 <= 256 and backward_smem(hw, c) <= B_SMEM_LIMIT
+                and hw * (cw // 4) <= P_MAX_QUADS * P_THREADS):
+            return "persistent"
+    if groups_smem(hw, c) > SMEM_LIMIT and tiled_ok(hw, c, w):
+        return "tiled"
+    return "groups"
 
 
 def backward_clusters(hw: int, c: int, w: int = 8) -> int:
@@ -317,34 +358,58 @@ def _operands(x, taps, dwb, s1, b1, s2, b2, w):
     return n, hw, c
 
 
+def _refuse(what, hw, c, w, smem, x):
+    raise ValueError(f"{what}: HW={hw}, w={w}, C={c}, {x.dtype} needs {smem} B of shared "
+                     f"memory (> {SMEM_LIMIT}) on the cluster route, and the tiled route "
+                     f"takes w <= {T_MAX_W} dividing HW and C a multiple of {T_CH}")
+
+
+def _check_tiled(what, x, w):
+    n, hw, c = x.shape
+    if not tiled_ok(hw, c, w) or n > T_MAX_N:
+        raise ValueError(f"{what} tiled route: HW={hw}, w={w}, C={c}, N={n} is not a shape "
+                         f"it takes (w <= {T_MAX_W} dividing HW, C a multiple of {T_CH}, "
+                         f"N <= {T_MAX_N})")
+
+
 def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, route=None):
     """Kernel #9 on ``route`` (default: :func:`kernel_route`'s); a shape the
     route does not take raises."""
     n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
     lib = _lib()
     route = route or kernel_route(hw, c, x.dtype, w)
-    if route == "persistent":
-        if kernel_route(hw, c, x.dtype, w) != "persistent":
-            raise ValueError(f"fused_dw_chain persistent route: HW={hw}, w={w}, C={c}, "
-                             f"{x.dtype} is not a shape it takes")
-        if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2)):
-            raise ValueError("fused_dw_chain persistent route: every operand must be "
-                             "16-byte aligned (the slices are copied in 16-byte pieces)")
-    elif route == "per_sample":
-        smem = lib.vptr_fused_dw_chain_smem(hw, c)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"fused_dw_chain kernel: HW={hw}, C={c} needs {smem} B "
-                             f"of shared memory (> {SMEM_LIMIT})")
-    else:
-        raise ValueError(f"fused_dw_chain: unknown route {route!r}")
     out = torch.empty_like(x)
     p = _build.ptr
-    err = lib.vptr_fused_dw_chain(
-        p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), n, hw, w, c,
-        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], ROUTES.index(route),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "tiled":
+        _check_tiled("fused_dw_chain", x, w)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        z2 = torch.empty(n, hw, c, **f32)
+        part = torch.empty(n, (hw // w) * (c // T_CH), 2, **f32)
+        stats = torch.empty(2, n, 2, **f32)
+        err = lib.vptr_fused_dw_chain_tiled(
+            p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), p(z2), p(part),
+            p(stats), n, hw, w, c, LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], stream)
+    else:
+        if route == "persistent":
+            if kernel_route(hw, c, x.dtype, w) != "persistent":
+                raise ValueError(f"fused_dw_chain persistent route: HW={hw}, w={w}, C={c}, "
+                                 f"{x.dtype} is not a shape it takes")
+            if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2)):
+                raise ValueError("fused_dw_chain persistent route: every operand must be "
+                                 "16-byte aligned (the slices are copied in 16-byte pieces)")
+        elif route == "per_sample":
+            smem = lib.vptr_fused_dw_chain_smem(hw, c)
+            if smem > SMEM_LIMIT:
+                _refuse("fused_dw_chain kernel", hw, c, w, smem, x)
+        else:
+            raise ValueError(f"fused_dw_chain: unknown route {route!r}")
+        err = lib.vptr_fused_dw_chain(
+            p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), n, hw, w, c,
+            LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], ROUTES.index(route), stream)
     _build.check(lib, err, f"fused_dw_chain ({route})")
     fused_dw_chain.launches += 1
+    fused_dw_chain.launches_by_route[route] += 1
     return out
 
 
@@ -357,42 +422,60 @@ def _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, route=None)
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     lib = _lib_bwd()
     route = route or backward_route(hw, c, x.dtype, w)
-    if route == "persistent":
-        if backward_route(hw, c, x.dtype, w) != "persistent":
-            raise ValueError(f"fused_dw_chain backward persistent route: HW={hw}, w={w}, "
-                             f"C={c}, {x.dtype} is not a shape it takes")
-        if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2, g)):
-            raise ValueError("fused_dw_chain backward persistent route: every operand must "
-                             "be 16-byte aligned (the slices are read in 16-byte pieces)")
-        resident = lib.vptr_fused_dw_chain_bwd_persistent_clusters(hw, w, c)
-        if resident < 1:
-            raise RuntimeError(f"fused_dw_chain backward persistent route: no cluster of "
-                               f"{P_CLUSTER} blocks fits for HW={hw}, C={c}")
-        groups = min(n, resident)
-    elif route == "groups":
-        smem = lib.vptr_fused_dw_chain_bwd_smem(hw, c)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"fused_dw_chain backward kernel: HW={hw}, C={c} needs "
-                             f"{smem} B of shared memory (> {SMEM_LIMIT})")
-        groups = lib.vptr_fused_dw_chain_bwd_groups(n)
-    else:
-        raise ValueError(f"fused_dw_chain backward: unknown route {route!r}")
     dev, f32 = x.device, torch.float32
     dx = torch.empty_like(x)
     dtaps, ddwb = torch.empty(9, c, dtype=f32, device=dev), torch.empty(c, dtype=f32, device=dev)
     ds1, db1, ds2, db2 = (torch.empty(hw, c, dtype=f32, device=dev) for _ in range(4))
-    # the groups' (clusters') partial sums, added in their order by the
-    # second pass
-    part = torch.empty(groups, 4, hw, c, dtype=f32, device=dev)
-    tpart = torch.empty(groups, 10, c, dtype=f32, device=dev)
     p = _build.ptr
-    err = lib.vptr_fused_dw_chain_bwd(
-        p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
-        p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(part), p(tpart), n, hw, w, c,
-        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], BWD_ROUTES.index(route),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tiled":
+        _check_tiled("fused_dw_chain backward", x, w)
+        groups = lib.vptr_fused_dw_chain_bwd_tiled_groups(n)
+        z2, da1 = (torch.empty(n, hw, c, dtype=f32, device=dev) for _ in range(2))
+        part = torch.empty(n, (hw // w) * (c // T_CH), 2, dtype=f32, device=dev)
+        stats = torch.empty(4, n, 2, dtype=f32, device=dev)
+        # the sample groups' partial sums (and the tap sums by group and grid
+        # row), added in their order by the last pass
+        gpart = torch.empty(groups, 4, hw, c, dtype=f32, device=dev)
+        tpart = torch.empty(groups, hw // w, 10, c, dtype=f32, device=dev)
+        err = lib.vptr_fused_dw_chain_bwd_tiled(
+            p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
+            p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(z2), p(da1), p(part), p(stats),
+            p(gpart), p(tpart), n, hw, w, c, LN_EPS, *_dropout_args(seed, rate),
+            _DTYPES[x.dtype], stream)
+    else:
+        if route == "persistent":
+            if backward_route(hw, c, x.dtype, w) != "persistent":
+                raise ValueError(f"fused_dw_chain backward persistent route: HW={hw}, w={w}, "
+                                 f"C={c}, {x.dtype} is not a shape it takes")
+            if any(t.data_ptr() % 16 for t in (x, taps, dwb, s1, b1, s2, b2, g)):
+                raise ValueError("fused_dw_chain backward persistent route: every operand "
+                                 "must be 16-byte aligned (the slices are read in 16-byte "
+                                 "pieces)")
+            resident = lib.vptr_fused_dw_chain_bwd_persistent_clusters(hw, w, c)
+            if resident < 1:
+                raise RuntimeError(f"fused_dw_chain backward persistent route: no cluster of "
+                                   f"{P_CLUSTER} blocks fits for HW={hw}, C={c}")
+            groups = min(n, resident)
+        elif route == "groups":
+            smem = lib.vptr_fused_dw_chain_bwd_smem(hw, c)
+            if smem > SMEM_LIMIT:
+                _refuse("fused_dw_chain backward kernel", hw, c, w, smem, x)
+            groups = lib.vptr_fused_dw_chain_bwd_groups(n)
+        else:
+            raise ValueError(f"fused_dw_chain backward: unknown route {route!r}")
+        # the groups' (clusters') partial sums, added in their order by the
+        # second pass
+        part = torch.empty(groups, 4, hw, c, dtype=f32, device=dev)
+        tpart = torch.empty(groups, 10, c, dtype=f32, device=dev)
+        err = lib.vptr_fused_dw_chain_bwd(
+            p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
+            p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(part), p(tpart), n, hw, w, c,
+            LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype], BWD_ROUTES.index(route),
+            stream)
     _build.check(lib, err, f"fused_dw_chain backward ({route})")
     fused_dw_chain.bwd_launches += 1
+    fused_dw_chain.bwd_launches_by_route[route] += 1
     return dx, dtaps, ddwb, ds1, db1, ds2, db2
 
 
@@ -411,6 +494,8 @@ def _lib() -> ctypes.CDLL:
         lib.vptr_fused_dw_chain_persistent_clusters.restype = i
         lib.vptr_fused_dw_chain_route.argtypes = [i, i, i, i]
         lib.vptr_fused_dw_chain_route.restype = i
+        lib.vptr_fused_dw_chain_tiled.argtypes = [p] * 11 + [i] * 4 + [f, p, f, f, i, p]
+        lib.vptr_fused_dw_chain_tiled.restype = i
     return lib
 
 
@@ -431,4 +516,8 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.vptr_fused_dw_chain_bwd_smem.restype = ctypes.c_long
         lib.vptr_fused_dw_chain_bwd_clusters.argtypes = [i, i]
         lib.vptr_fused_dw_chain_bwd_clusters.restype = ctypes.c_int
+        lib.vptr_fused_dw_chain_bwd_tiled_groups.argtypes = [i]
+        lib.vptr_fused_dw_chain_bwd_tiled_groups.restype = i
+        lib.vptr_fused_dw_chain_bwd_tiled.argtypes = [p] * 21 + [i] * 4 + [f, p, f, f, i, p]
+        lib.vptr_fused_dw_chain_bwd_tiled.restype = i
     return lib
