@@ -45,7 +45,7 @@ Phases (any failure exits non-zero, without the final result line):
    just before and read just after (each of the four kernels must run 12
    times); one step with the kernels and one with kernels="plain" from one
    cloned state; 10 steps on one fixed batch, losses finite and falling;
-6. time the far_rip predict call, the train step (median of 8 after 2
+6. time the far_rip predict call, the train step (median of 5 after 2
    warm-ups, and with kernels="plain") and each kernel beside its plain
    version, a PyTorch library yardstick and its bound (bytes or
    operations over the card's published peak); #1's to #4's yardsticks
@@ -133,7 +133,7 @@ Phases (any failure exits non-zero, without the final result line):
    (#1-#4 12 launches each), kernels vs kernels="plain" from one cloned
    state, Dtotal and T_gan finite and positive; then nar_mnist's once
    (phase 9's launches);
-22. time the AE step (median of 8 after 2 warm-ups, training frames/s =
+22. time the AE step (median of 5 after 2 warm-ups, training frames/s =
    640 / step time, the memory peak above what is held) and its eval
    step, and the far_mnist step with and without the GAN term in turns;
 23. the commands users run, through vptr_tpu_torch.cli.main, on the
@@ -185,7 +185,7 @@ Phases (any failure exits non-zero, without the final result line):
    BAIR-shaped loader: the one-rank train step at the preset's global
    batch 64 (halved until it fits, with the memory peak said), every
    counter at 0 just before and read just after (#1-#4 12 launches each),
-   its ms (median of 8 after 2 warm-ups), training frames/s (64 x 11
+   its ms (median of 5 after 2 warm-ups), training frames/s (64 x 11
    teacher-forced frames a step) and memory peak; the DropPath / Dropout
    masks of one step (recorded, then drawn alone: what every rank draws
    at the global shape);
@@ -254,10 +254,12 @@ Phases (any failure exits non-zero, without the final result line):
    #2 20 and their backwards a rank);
 44. `torchrun --nproc_per_node=2 -m vptr_tpu_torch.cli train --preset
    far_mnist --set mesh.model=2 --set transformer.sequence_parallel=true`
-   (2 steps and a checkpoint; on one card the ranks share it over gloo,
-   VPTR_RANKS_SHARE_CARDS), resumed by one process's cli train with
-   mesh.model 1 for 2 more, against an unbroken one-process run of 4
-   (each epoch's T_total, the transformer's relative L2);
+   with the fused-FFN route's five flags (fused_attention, fused_full,
+   fused_residual, fused_ffn, fused_dw) (2 steps and a checkpoint; on one
+   card the ranks share it over gloo, VPTR_RANKS_SHARE_CARDS), resumed by
+   one process's cli train with mesh.model 1 for 2 more, against an
+   unbroken one-process run of 4 on the route that runs beside the
+   torchrun (each epoch's T_total, the transformer's relative L2);
 45. kernels #9-#12 at nar_kth_128's 16 x 16 latent (80 decoder samples of
    256 positions; #9/#10 at the hidden 2112 on a 16-wide grid, #11/#12 at
    fc1 528 -> 2112 and fc2 2112 -> 528) against their plain versions on
@@ -282,7 +284,22 @@ Phases (any failure exits non-zero, without the final result line):
 50. `cli train --preset nar_kth_128` (3 steps and a validation pass), a
    resumed run, `cli eval --mode nar --max-batches 1` (10 -> 40) and `cli
    predict --mode nar --batches 1`, the launches of each checked;
-51. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+51. kernels #7-#10 on a hidden-channel subset (tensor parallelism): #7/#8
+   on hidden columns 0-1055 and 1056-2111 of 2112 at far_mnist's step
+   (12,160 rows, C 528), bf16 and f32, dropout 0 and 0.1, against their
+   plain versions on those columns and, the halves summed (b2 once),
+   against the whole call; #9/#10 on the tiled route split at its
+   statistics, two ranks' 1056-channel halves run in step in one process
+   (the exchange a stack of their partials), at far_mnist's 190 x 64 and
+   nar_kth_128's 80 x 256, dropout 0.1, against the plain version's slice
+   and the whole tiled call's (bit equality reported); each on a rank's
+   share beside its plain version, a library yardstick and its bound;
+52. far_mnist at full width on a (1, 2) mesh on the fused-FFN route
+   (fused_attention, fused_full, fused_residual, fused_ffn, fused_dw): one
+   train step against the one-rank step as phase 42, each rank launching
+   #1-#4 and #7-#10 12 times (#9/#10 all on the split tiled route); its
+   torchrun cli train is phase 44's;
+53. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -296,7 +313,8 @@ Phases (any failure exits non-zero, without the final result line):
    #1-#6 with their head-subset readings, `head_subset` (with the subset's
    library yardstick and bound), and a rank's launches in phases 42 and
    43, `tp_step_launches_a_rank`; #9-#12 at nar_kth_128's shapes,
-   `nar_kth_128`),
+   `nar_kth_128`; #7-#10 with their hidden-subset readings,
+   `hidden_subset`, and a rank's launches in phase 52),
    the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -314,6 +332,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -328,7 +347,7 @@ BATCH, PAST, FUTURE = 10, 10, 10
 LAYERS = 12
 TRAIN_STEPS = 10              # the loss-falling run
 AE_CLI_STEPS, FAR_CLI_STEPS = 8, 12   # train steps of the cli train runs
-TIMED_STEPS, WARMUP_STEPS = 8, 2
+TIMED_STEPS, WARMUP_STEPS = 5, 2
 
 failures = []
 
@@ -3239,7 +3258,10 @@ def _flat_leaves(tree):
 
 TP_SUBSETS = ((4, 0), (4, 4), (2, 0))   # (heads, first head) of 8: Cl 264, 264, 132
 TP_BATCH = 8                             # phases 42-44's global batch
-TP_TIMED_STEPS = 3                       # a rank's timed steps (a gloo step on one card: ~3 s)
+TP_TIMED_STEPS = 1                       # a rank's timed steps (a gloo step on one card: 3-6 s)
+# the fused-FFN route with the folded window residual (phases 44 and 52)
+TP_FFN_FLAGS = {"fused_attention": True, "fused_full": True, "fused_residual": True,
+                "fused_ffn": True, "fused_dw": True}
 
 
 def _subset_window_ops(ops, hl, h0, hd):
@@ -3454,7 +3476,8 @@ def tp_kernel_phases(dev):
 
 
 TP_COUNTERS = ("fused_attention_ln", "fused_attention", "attention_core",
-               "fused_attention_ln_bwd", "fused_attention_bwd", "attention_core_bwd")
+               "fused_attention_ln_bwd", "fused_attention_bwd", "attention_core_bwd",
+               "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd")
 
 
 def _tp_run(dev, preset, flags, mesh=None):
@@ -3499,10 +3522,11 @@ def _whole(state, grad):
 
 
 def _worker_tp_step(out_dir):
-    """Phases 42 and 43 on each rank: the preset's step on a (1, W) mesh
+    """Phases 42, 43 and 52 on each rank: the preset's step on a (1, W) mesh
     (tensor parallelism, and sequence parallelism with the flag), every
     launch counter at 0 just before it; rank 0 saves the whole gradients
-    and parameters. Then the step's ms, its peak memory, and one step with
+    and parameters. Then, that step the warm-up, the next one's ms and
+    peak memory (TP_TIMED_STEPS), and one step with
     every collective timed (synchronised before and after it: the model
     group's all-reduces and all-gathers, the only collectives of a step on
     one data rank) for their share."""
@@ -3515,10 +3539,14 @@ def _worker_tp_step(out_dir):
     step, state, cfg, (past, future) = _tp_run(torch.device("cuda"), args["preset"],
                                                args["flags"], mesh)
     start = _whole(state, False)
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
     zero_counters()
     state, m = step(state, past, future)
     torch.cuda.synchronize()
     launches = launch_counts(*TP_COUNTERS)
+    dw_routes = {"forward": dict(tdw.fused_dw_chain.launches_by_route),
+                 "backward": dict(tdw.fused_dw_chain.bwd_launches_by_route)}
     grads, params = _whole(state, True), _whole(state, False)
     if host_id() == 0:
         torch.save({"start": start, "grads": grads, "params": params}, out_dir / "got.pt")
@@ -3536,12 +3564,12 @@ def _worker_tp_step(out_dir):
     dist.all_reduce(same, op=dist.ReduceOp.MIN)
     out = {"backend": dist.get_backend(), "world": num_hosts(),
            "mesh": [mesh.data, mesh.model], "metrics": {k: float(v) for k, v in m.items()},
-           "launches": launches, "replicated_bit_equal": bool(same.item() == 1.0),
+           "launches": launches, "dw_routes": dw_routes,
+           "replicated_bit_equal": bool(same.item() == 1.0),
            "local_q_rows": int(next(mod for mod in state.transformer.modules()
                                     if type(mod).__name__ == "MultiHeadAttention")
                                .q_proj.weight.shape[0])}
-    state, _ = step(state, past, future)                 # a warm-up
-    gc.collect()
+    gc.collect()                           # the counted step was the warm-up
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3575,15 +3603,19 @@ def _worker_tp_step(out_dir):
 
 
 def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
-    """Phase 42 or 43: the preset's step on two ranks (two cards over NCCL,
-    or two processes on the one card over gloo) on a (1, 2) mesh, against
-    the one-rank step from the same seeds; returns the readings."""
+    """Phase 42, 43 or 52: the preset's step on two ranks (two cards over
+    NCCL, or two processes on the one card over gloo) on a (1, 2) mesh,
+    against the one-rank step from the same seeds; returns the readings.
+    With ``transformer.fused_dw`` every rank's #9/#10 must take the tiled
+    route split at its statistics."""
     backend = "nccl" if two_cards else "gloo"
     label = ("two cards over NCCL" if two_cards else
              "two processes on the one card over gloo (a correctness run: the ranks share "
              "the card, and every collective is staged through the host)")
     what = f"{preset} mesh.model=2" + (" + sequence_parallel" if flags.get(
-        "sequence_parallel") else "")
+        "sequence_parallel") else "") + (" on the fused-FFN route (" + ", ".join(
+            k for k in ("fused_residual", "fused_ffn", "fused_dw") if flags.get(k)) + ")"
+        if flags.get("fused_ffn") else "")
     phase(f"{number}. {what} train step at full width ({label}) against the one-rank step")
     # the one-rank step twice from the same state: the reference and the
     # card's run-to-run floor; then its time and peak
@@ -3620,6 +3652,12 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
           f"{r0['local_q_rows']} (of {cfg.transformer.d_model})")
     for x in res:
         check_counts(x[2]["launches"], want, f"a rank's {what} step")
+        if flags.get("fused_dw"):
+            routes = x[2]["dw_routes"]
+            check(routes["forward"]["tiled_split"] == want["fused_dw_chain"]
+                  and routes["backward"]["tiled_split"] == want["fused_dw_chain_bwd"],
+                  f"#9 / #10 on the tiled route split at its statistics in every launch: "
+                  f"{routes}")
     check(all(x[2]["metrics"] == r0["metrics"] for x in res),
           "the metrics equal on both ranks")
     check(all(x[2]["replicated_bit_equal"] for x in res),
@@ -3699,17 +3737,21 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
 
 
 def tp_cli_phase(card, root, cards):
-    """Phase 44: torchrun ... cli train --preset far_mnist with mesh.model 2
-    and sequence_parallel (2 steps, a checkpoint), resumed by one process's
-    cli train with mesh.model 1 for 2 more; its steps against an unbroken
-    one-process run of 4."""
+    """Phase 44: torchrun ... cli train --preset far_mnist with mesh.model 2,
+    sequence_parallel and the fused-FFN route's flags (TP_FFN_FLAGS: #1
+    unfolded, #7/#8 on a hidden subset, #9/#10 split) (2 steps, a
+    checkpoint), resumed by one process's cli train with mesh.model 1 for 2
+    more; its steps against an unbroken one-process run of 4 on the route,
+    which runs beside the torchrun (it needs none of its files)."""
     import os
     from pathlib import Path
 
     n = 2
+    route = {f"transformer.{k}": "true" for k in TP_FFN_FLAGS}
+    flags = " ".join(f"--set {k}={v}" for k, v in route.items())
     phase(f"44. torchrun --nproc_per_node={n} -m vptr_tpu_torch.cli train --preset far_mnist "
-          f"--set mesh.model=2 --set transformer.sequence_parallel=true (2 steps), resumed "
-          f"in one process with mesh.model=1, against an unbroken one-process run")
+          f"--set mesh.model=2 --set transformer.sequence_parallel=true {flags} (2 steps), "
+          f"resumed in one process with mesh.model=1, against an unbroken one-process run")
     here = str(Path(__file__).resolve().parent)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
@@ -3717,35 +3759,47 @@ def tp_cli_phase(card, root, cards):
         env["VPTR_RANKS_SHARE_CARDS"] = "1"
     sets = lambda **kw: [a for k, v in {"epochs": 1, "steps_per_epoch": 2,
                                         "val_per_epochs": 4, "data.batch_size": TP_BATCH,
-                                        **kw}.items() for a in ("--set", f"{k}={v}")]
+                                        **route, **kw}.items() for a in ("--set", f"{k}={v}")]
     cli = [sys.executable, "-m", "vptr_tpu_torch.cli", "train", "--preset", "far_mnist"]
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", "-m", "vptr_tpu_torch.cli", "train", "--preset",
            "far_mnist"]
     out = {}
 
-    def command(args, what):
-        t0 = time.perf_counter()
-        p = subprocess.run(args, cwd=here, env=env, capture_output=True, text=True,
-                           timeout=600)
-        wall = time.perf_counter() - t0
-        check(p.returncode == 0, f"{what}: exit {p.returncode} ({wall:.1f} s)")
+    def start(args, name):     # its output into a file: a pipe could fill while it waits
+        log = open(root / f"{name}.out", "w")
+        return time.perf_counter(), log, subprocess.Popen(
+            args, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+
+    def finish(started, what, timed=True):
+        """Its wall; None untimed (a run read after others: its end is not seen)."""
+        t0, log, p = started
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.close()
+        wall = time.perf_counter() - t0 if timed else None
+        check(p.returncode == 0, f"{what}: exit {p.returncode}"
+              + ("" if wall is None else f" ({wall:.1f} s)"))
         if p.returncode != 0:
-            print((p.stdout + p.stderr)[-3000:])
+            print(open(log.name).read()[-3000:])
         return wall
 
     tp_dir, one_dir = root / "cli_tp", root / "cli_one"
-    out["tp_wall_s"] = command(run + ["--ckpt-dir", str(tp_dir)] + sets(
-        **{"mesh.model": 2, "transformer.sequence_parallel": "true"}),
-        f"torchrun {n} x cli train --set mesh.model=2 --set transformer.sequence_parallel=true")
+    unbroken = start(cli + ["--ckpt-dir", str(one_dir)] + sets(epochs=2), "unbroken")
+    out["tp_wall_s"] = finish(start(run + ["--ckpt-dir", str(tp_dir)] + sets(
+        **{"mesh.model": 2, "transformer.sequence_parallel": "true"}), "tp"),
+        f"torchrun {n} x cli train --set mesh.model=2 --set transformer.sequence_parallel=true "
+        f"{flags}")
     log = (tp_dir / "train_log.log").read_text() if (tp_dir / "train_log.log").is_file() else ""
     check((tp_dir / "ckpt" / "2" / "state.pt").is_file()
           and "tensor parallel over 2 model ranks" in log,
           "rank 0 wrote ckpt/2/ and logged the model axis")
-    out["resume_wall_s"] = command(cli + ["--ckpt-dir", str(tp_dir)] + sets(
-        **{"mesh.model": 1}), "cli train resumed in one process (mesh.model=1)")
-    out["one_wall_s"] = command(cli + ["--ckpt-dir", str(one_dir)] + sets(epochs=2),
-                                "cli train, one process, 4 steps unbroken")
+    out["resume_wall_s"] = finish(start(cli + ["--ckpt-dir", str(tp_dir)] + sets(
+        **{"mesh.model": 1}), "resumed"), "cli train resumed in one process (mesh.model=1)")
+    finish(unbroken, "cli train, one process, 4 steps unbroken (beside the torchrun)", False)
     try:
         hist = lambda d: json.loads((d / "ckpt" / "history.json").read_text())
         check("resumed from step 2" in (tp_dir / "train_log.log").read_text(),
@@ -3766,15 +3820,16 @@ def tp_cli_phase(card, root, cards):
         out.update(t_total=ra, unbroken_t_total=rb, state_rel_l2=rel)
     except (OSError, KeyError, ValueError) as e:
         check(False, f"the runs' histories and checkpoints read: {e!r}")
-    print(f"  {card}: walls {out.get('tp_wall_s', 0):.1f} s ({n} ranks), "
-          f"{out.get('resume_wall_s', 0):.1f} s (resumed), {out.get('one_wall_s', 0):.1f} s "
-          f"(unbroken, 4 steps)")
+    print(f"  {card}: walls {out.get('tp_wall_s', 0):.1f} s ({n} ranks"
+          f"{', gloo on one card' if cards < n else ', NCCL'}), {out.get('resume_wall_s', 0):.1f} "
+          f"s (resumed); the unbroken run beside the torchrun")
     return out
 
 
 def tp_phases(dev, card, which=(42, 43, 44)):
-    """Phases 42-44 (tensor and sequence parallelism at full width).
-    Returns the readings."""
+    """Phases 42-44 (tensor and sequence parallelism at full width; 44 on the
+    fused-FFN route) and 52 (the fused-FFN route's step). Returns the
+    readings."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3787,7 +3842,9 @@ def tp_phases(dev, card, which=(42, 43, 44)):
         if 42 in which:
             far = {k: 12 for k in ("fused_attention_ln", "attention_core",
                                    "fused_attention_ln_bwd", "attention_core_bwd")}
-            far.update(fused_attention=0, fused_attention_bwd=0)
+            far.update(dict.fromkeys(("fused_attention", "fused_attention_bwd", "fused_ffn",
+                                      "fused_ffn_bwd", "fused_dw_chain",
+                                      "fused_dw_chain_bwd"), 0))
             out["far_tp"] = tp_step_phase(dev, card, root, 42, "far_mnist", {}, far,
                                           two_cards)
             gc.collect()
@@ -3795,17 +3852,229 @@ def tp_phases(dev, card, which=(42, 43, 44)):
         if 43 in which:
             nar = {"fused_attention_ln": 4, "fused_attention": 8, "attention_core": 20,
                    "fused_attention_ln_bwd": 4, "fused_attention_bwd": 8,
-                   "attention_core_bwd": 20}
+                   "attention_core_bwd": 20, **dict.fromkeys((
+                       "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd"), 0)}
             out["nar_tp_sp"] = tp_step_phase(dev, card, root, 43, "nar_mnist",
                                              {"sequence_parallel": True}, nar, two_cards)
             gc.collect()
             torch.cuda.empty_cache()
         if 44 in which:
             out["cli"] = tp_cli_phase(card, root, cards)
+        if 52 in which:   # every kernel of the route 12 times a rank (#5/#6 none)
+            want = {k: LAYERS for k in TP_COUNTERS}
+            want.update(fused_attention=0, fused_attention_bwd=0)
+            out["far_ffn_tp"] = tp_step_phase(dev, card, root, 52, "far_mnist", TP_FFN_FLAGS,
+                                              want, two_cards)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
 
+
+
+# ------------------------------------------------ tensor parallel, fused-FFN route
+# phases 51-52: kernels #7-#10 on a hidden-channel subset, and far_mnist's
+# fused-FFN route (with the folded window residual) on a (1, 2) mesh (its
+# torchrun cli train is phase 44's)
+
+
+def tp_ffn_kernel_phase(dev):
+    """Phase 51: kernels #7/#8 on hidden columns 0-1055 and 1056-2111 of
+    2112 at far_mnist's step (12,160 rows, C 528), bf16 and f32, dropout 0
+    and 0.1, against their plain versions on the same columns and, the
+    halves summed (b2 once), against the whole call; #9/#10 on the tiled
+    route split at its statistics, two ranks' halves of the channels run
+    in step in one process (run_split: the exchange stacks their partials
+    where the mesh gathers them), at far_mnist's step (190 samples of 8 x
+    8) and nar_kth_128's (80 of 16 x 16), dropout 0.1, against the plain
+    version's slice and the whole tiled call's (bit equality reported);
+    then each one's time on a rank's share beside its plain version, a
+    library yardstick (eager and graph-replayed) and its bound. Returns
+    {kernel name: its hidden-subset readings}."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    phase("51. kernels #7-#10 on a hidden-channel subset (tensor parallelism, mesh.model 2)")
+    tc = get_preset("far_mnist").transformer
+    c, hid, hw, w = (tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model,
+                     tc.enc_h * tc.enc_w, tc.enc_w)
+    ctx = tc.num_past_frames + tc.num_future_frames
+    s_step, n_step, hl = BATCH * (ctx - 1) * hw, BATCH * (ctx - 1), hid // 2
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 1e-3, bf: 6.25e-2}                       # as phase 3
+    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
+    kseed = torch.tensor([SEED + 5151], dtype=torch.int32, device=dev)
+    randn = normals(torch.Generator().manual_seed(SEED + 51))
+    ffn_names = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
+    names = ("fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd")
+    out = {n: {} for n in names}
+    cols = lambda m: slice(m * hl, (m + 1) * hl)
+
+    def ffn_ops(dtype):
+        return (randn(s_step, c).to(dev, dtype), randn(c, hid, std=c ** -0.5).to(dev, dtype),
+                randn(hid, std=0.1).to(dev), randn(hid, c, std=hid ** -0.5).to(dev, dtype),
+                randn(c, std=0.1).to(dev), (1 + randn(c, std=0.1)).to(dev),
+                randn(c, std=0.1).to(dev))
+
+    def ffn_half(ops, m):      # w1's columns, b1's and w2's rows; b2 0 (added after the sum)
+        x, w1, b1, w2, b2, ls, lb = ops
+        return (x, w1[:, cols(m)].contiguous(), b1[cols(m)].contiguous(),
+                w2[cols(m)].contiguous(), torch.zeros_like(b2), ls, lb)
+
+    for dtype in (bf, f32):
+        dn = str(dtype).replace("torch.", "")
+        ops, gout = ffn_ops(dtype), randn(s_step, c).to(dev, dtype)
+        for r in (0.0, 0.1):
+            halves = []
+            for m in range(2):
+                sub, kw = ffn_half(ops, m), dict(mask_cols=hid, col0=m * hl)
+                got = tff.fused_ffn(*sub, kseed, r, **kw)
+                e = max_err(got, tff.fused_ffn_plain(*sub, kseed, r, **kw))
+                route = tff.kernel_route(c, hl, dtype)
+                what = f"{dn} hidden {m * hl}..{(m + 1) * hl - 1} of {hid} dropout {r}"
+                check(e <= tol[dtype], f"fused_ffn {what} ({route} route) vs plain max|err| "
+                      f"{e:.3e} <= {tol[dtype]}")
+                kg = tff.fused_ffn_backward(*sub, kseed, gout, r, **kw)
+                n_worst, worst = worst_rel(kg, tff.fused_ffn_backward_plain(
+                    *sub, kseed, gout, r, **kw), ffn_names)
+                broute = tff.backward_route(c, hl, dtype)
+                check(worst <= bwd_tol[dtype], f"fused_ffn backward {what} ({broute} route) vs "
+                      f"plain worst {n_worst} rel err {worst:.3e} <= {bwd_tol[dtype]}")
+                out["fused_ffn"][what] = {"route": route, "max_abs_err": e}
+                out["fused_ffn_bwd"][what] = {"route": broute, "rel_err": worst}
+                halves.append((got, kg))
+            whole = tff.fused_ffn(*ops, kseed, r)
+            e = max_err(halves[0][0].float() + halves[1][0].float() + ops[4], whole)
+            wg = tff.fused_ffn_backward(*ops, kseed, gout, r)
+            ex = max(rel_err(halves[0][1][i].float() + halves[1][1][i].float(), wg[i])
+                     for i in (0, 5, 6))
+            es = max(rel_err(torch.cat([halves[0][1][i], halves[1][1][i]], dim), wg[i])
+                     for i, dim in ((1, 1), (2, 0), (3, 0)))
+            check(e <= 2 * tol[dtype] and ex <= 2 * bwd_tol[dtype] and es <= bwd_tol[dtype],
+                  f"fused_ffn {dn} dropout {r}: the halves' outputs summed (b2 once) vs the "
+                  f"whole call max|err| {e:.3e} <= {2 * tol[dtype]}; dx, dls, dlb summed rel "
+                  f"err {ex:.3e} <= {2 * bwd_tol[dtype]}; dw1, db1, dw2 the whole's slices "
+                  f"rel err {es:.3e} <= {bwd_tol[dtype]}")
+            out["fused_ffn"][f"{dn} dropout {r} halves"] = {
+                "out_max_abs_err": e, "grads_summed_rel_err": ex, "shares_rel_err": es}
+            del halves, whole, wg
+        del ops, gout
+
+    def dw_ops(n, hw_, dtype):
+        return (randn(n, hw_, hid).to(dev, dtype), randn(9, hid, std=0.3).to(dev),
+                randn(hid, std=0.1).to(dev), (1 + randn(hw_, hid, std=0.1)).to(dev),
+                randn(hw_, hid, std=0.1).to(dev), (1 + randn(hw_, hid, std=0.1)).to(dev),
+                randn(hw_, hid, std=0.1).to(dev))
+
+    def grad_slices(grads, m):     # (dx, dtaps, ddwb, ds1, db1, ds2, db2): rank m's channels
+        return ([grads[0][..., cols(m)], grads[1][:, cols(m)], grads[2][cols(m)]]
+                + [d[:, cols(m)] for d in grads[3:]])
+
+    rate = tc.dropout
+    for label, n, hw_, w_, dtypes in (("far_mnist", n_step, hw, w, (bf, f32)),
+                                      ("nar_kth_128", 80, 256, 16, (bf,))):
+        for dtype in dtypes:
+            dn = str(dtype).replace("torch.", "")
+            ops, gout = dw_ops(n, hw_, dtype), randn(n, hw_, hid).to(dev, dtype)
+            shares = [tuple(o[..., cols(m)].contiguous() for o in ops) for m in range(2)]
+            gshares = [gout[..., cols(m)].contiguous() for m in range(2)]
+            whole = tdw._forward_kernel(*ops, kseed, w_, rate, route="tiled")
+            outs = tdw.run_split([tdw.split_forward(*shares[m], kseed, w_, rate, (2, m))
+                                  for m in range(2)])
+            plain = tdw.fused_dw_chain_plain(*ops, kseed, w_, rate)
+            e = max(max_err(outs[m], plain[..., cols(m)]) for m in range(2))
+            ew = max(max_err(outs[m], whole[..., cols(m)]) for m in range(2))
+            eq = all(torch.equal(outs[m], whole[..., cols(m)]) for m in range(2))
+            what = (f"{label} {dn} {tuple(ops[0].shape)} on two ranks' {hl} channels "
+                    f"(tiled_split), dropout {rate}")
+            check(e <= tol[dtype] and ew <= tol[dtype], f"fused_dw_chain {what} vs plain "
+                  f"max|err| {e:.3e} <= {tol[dtype]}; the whole tiled call's slices "
+                  f"{'bit-equal' if eq else f'max|err| {ew:.3e}'}")
+            del whole, plain, outs
+            wgr = tdw._backward_kernel(*ops, kseed, gout, w_, rate, route="tiled")
+            bwds = tdw.run_split([tdw.split_backward(*shares[m], kseed, gshares[m], w_, rate,
+                                                     (2, m)) for m in range(2)])
+            beq = all(torch.equal(a, b) for m in range(2)
+                      for a, b in zip(bwds[m], grad_slices(wgr, m)))
+            bw = max(rel_err(a, b) for m in range(2) for a, b in zip(bwds[m], grad_slices(wgr, m)))
+            del wgr
+            pg = tdw.fused_dw_chain_backward_plain(*ops, kseed, gout, w_, rate)
+            worst = max(rel_err(a, b) for m in range(2) for a, b in zip(bwds[m],
+                                                                       grad_slices(pg, m)))
+            check(worst <= bwd_tol[dtype] and bw <= bwd_tol[dtype],
+                  f"fused_dw_chain backward {what} vs plain worst rel err {worst:.3e} <= "
+                  f"{bwd_tol[dtype]}; the whole tiled call's slices "
+                  f"{'bit-equal' if beq else f'rel err {bw:.3e}'}")
+            out["fused_dw_chain"][f"{label} {dn}"] = {
+                "route": "tiled_split", "max_abs_err": e, "bit_equal_to_whole_slice": eq,
+                "whole_slice_max_abs_err": ew}
+            out["fused_dw_chain_bwd"][f"{label} {dn}"] = {
+                "route": "tiled_split", "rel_err": worst, "bit_equal_to_whole_slice": beq,
+                "whole_slice_rel_err": bw}
+            del pg, bwds, ops, gout, shares, gshares
+    torch.cuda.synchronize()
+
+    # a rank's call at far_mnist's step, bf16 (#7 dropout 0, #8 / #9 / #10
+    # at the preset's 0.1, as phase 14): beside the plain version on the
+    # same share, one library yardstick (the share's LayerNorm, products,
+    # GELU and conv) and the bound of the share's bytes and operations.
+    # The split calls' exchange is a local stack of the rank's own
+    # partials here (the mesh's gather is timed in phase 52's step)
+    fops, gffn = ffn_ops(bf), randn(s_step, c).to(dev, bf)
+    sub, kw = ffn_half(fops, 0), dict(mask_cols=hid, col0=0)
+    dops = tuple(o[..., :hl].contiguous() for o in dw_ops(n_step, hw, bf))
+    gdw = randn(n_step, hw, hl).to(dev, bf)
+    own = lambda parts: [torch.stack([parts[0], parts[0]])]
+
+    def ffn_library(x, w1, b1, w2):
+        xn = F.layer_norm(x, (c,), sub[5].to(bf), sub[6].to(bf))
+        return F.linear(F.gelu(F.linear(xn, w1.t(), b1.to(bf))), w2.t())
+
+    def dw_library(x, taps, dwb, s1, b1, s2, b2):
+        img = x.view(n_step, tc.enc_h, w, hl).permute(0, 3, 1, 2)
+        aff = lambda p: p.t().reshape(hl, tc.enc_h, w).to(bf)
+        z = F.gelu(F.layer_norm(img, img.shape[1:], aff(s1), aff(b1)))
+        z = F.conv2d(z, taps.t().reshape(hl, 1, 3, 3).to(bf), dwb.to(bf), padding=1, groups=hl)
+        return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
+
+    e, d, s2b = s_step * c, n_step * hw * hl, 2
+    gimg = gdw.view(n_step, tc.enc_h, w, hl).permute(0, 3, 1, 2)
+    cases = (
+        ("fused_ffn", lambda: tff.fused_ffn(*sub, kseed, 0.0, **kw),
+         lambda: tff.fused_ffn_plain(*sub, kseed, 0.0, **kw), ffn_library, sub[:4], None,
+         2 * e * s2b + 2 * c * hl * s2b + (hl + 3 * c) * 4, 4 * s_step * c * hl, bf),
+        ("fused_ffn_bwd", lambda: tff.fused_ffn_backward(*sub, kseed, gffn, rate, **kw),
+         lambda: tff.fused_ffn_backward_plain(*sub, kseed, gffn, rate, **kw), ffn_library,
+         sub[:4], gffn, 3 * e * s2b + 4 * c * hl * s2b + 2 * hl * 4 + 6 * c * 4,
+         10 * s_step * c * hl, bf),
+        ("fused_dw_chain",
+         lambda: tdw.run_split([tdw.split_forward(*dops, kseed, w, rate, (2, 0))], own),
+         lambda: tdw.fused_dw_chain_plain(*dops, kseed, w, rate), dw_library, dops, None,
+         2 * d * s2b + (10 * hl + 4 * hw * hl) * 4, 80 * d, f32),
+        ("fused_dw_chain_bwd",
+         lambda: tdw.run_split([tdw.split_backward(*dops, kseed, gdw, w, rate, (2, 0))], own),
+         lambda: tdw.fused_dw_chain_backward_plain(*dops, kseed, gdw, w, rate), dw_library,
+         dops, gimg, 3 * d * s2b + (20 * hl + 8 * hw * hl) * 4, 210 * d, f32),
+    )
+    for name, fn, plain, lib, lib_ops, lib_g, nbytes, flops, fdt in cases:
+        k_ms, p_ms = timed_turns(fn, plain)
+        if lib_g is None:
+            lib_ms, lib_graph = cuda_ms(lambda: lib(*lib_ops)), graph_ms(lambda: lib(*lib_ops))
+        else:
+            lib_ms, lib_graph = cuda_ms(grads_of(lib, lib_ops, lib_g)), graph_bwd_ms(
+                lib, lib_ops, lib_g)
+        b_ms, b_by = bound(nbytes, flops, fdt)
+        out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, library_graph_ms=lib_graph,
+                         bound_ms=b_ms, bound_by=b_by, shape=(
+                             f"{s_step} rows x {c}, hidden {hl} of {hid}" if "ffn" in name
+                             else f"{n_step} x {hw} x {hl} of {hid}"))
+        print(f"  {name} on a rank's share: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (graph {lib_graph if lib_graph is None else round(lib_graph, 4)}"
+              f"), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
+              f"{str(fdt).replace('torch.', '')})")
+    return out
 
 
 # ---------------------------------------------------------------- nar_kth_128
@@ -4326,10 +4595,12 @@ def main() -> int:
         for line in core_report:
             print(f"  {number} bf16 kernel {line}")
         check(len(core_report) > 0, f"ptxas reports {kernel} ({len(core_report)} lines)")
-    for lib in ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
-                "fused_window_attention_ln", "fused_window_attention",
-                "fused_window_attention_ln_bwd", "fused_window_attention_bwd"):
-        n_hgmma = hgmma_count(paths[lib])
+    wg_libs = ("conv_ln_gelu", "conv_ln_gelu_bwd", "fused_ffn", "fused_ffn_bwd",
+               "fused_window_attention_ln", "fused_window_attention",
+               "fused_window_attention_ln_bwd", "fused_window_attention_bwd")
+    with ThreadPoolExecutor(len(wg_libs)) as pool:   # one cuobjdump a library, together
+        counts = list(pool.map(lambda lib: hgmma_count(paths[lib]), wg_libs))
+    for lib, n_hgmma in zip(wg_libs, counts):
         check(n_hgmma > 0, f"{lib} library SASS holds {n_hgmma} HGMMA (wgmma) "
               f"instructions > 0")
 
@@ -4859,7 +5130,21 @@ def main() -> int:
                                   "predict_launches": r["predict_launches"].get(name, 0),
                                   "train_step_launches": r["step_launches"][name]}
 
-    phase("51. result")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_ffn_kernels = tp_ffn_kernel_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_ffn_extra = tp_phases(dev, card, which=(52,))
+    ffn_counts = tp_ffn_extra.get("far_ffn_tp", {}).get("launches") or {}
+    for row in rows_out:          # #7-#10 on a hidden subset (phase 51), a rank's launches
+        name = row["name"]        # in the fused-FFN route's mesh.model = 2 step (52)
+        if name in tp_ffn_kernels:
+            row["hidden_subset"] = tp_ffn_kernels[name]
+        if name in ffn_counts:
+            row.setdefault("tp_step_launches_a_rank", {})["far_ffn_tp"] = ffn_counts[name]
+
+    phase("53. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -4882,6 +5167,7 @@ def main() -> int:
     print(f"  remat: {json.dumps(remat_extra)}")
     print(f"  scan_layers: {json.dumps(scan_extra)}")
     print(f"  tensor parallel: {json.dumps(tp_extra)}")
+    print(f"  tensor parallel, fused-FFN route: {json.dumps(tp_ffn_extra)}")
     print(f"  {kth_summary}")
     print(f"  {KTH}: {json.dumps(kth_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")

@@ -1,12 +1,16 @@
 """The tensor-parallel phases of chip_smoke.py alone, on the card.
 
-    python3 scripts/torch_port_tp_probe.py [--phases 41 42 43 44]
+    python3 scripts/torch_port_tp_probe.py [--phases 41 42 43 44 51 52]
 
-Builds the kernels, then runs the named phases (default: all four): 41,
+Builds the kernels, then runs the named phases (default: all six): 41,
 kernels #1-#6 on a head subset against their plain versions; 42 and 43,
 the far_mnist and nar_mnist (with sequence_parallel) train steps at
 mesh.model = 2 against the one-rank step; 44, ``torchrun ... cli train
---set mesh.model=2`` resumed in one process. Exits non-zero when a check
+--set mesh.model=2`` (with sequence_parallel and the fused-FFN route's
+flags) resumed in one process; 51, kernels #7-#10 on a hidden-channel
+subset (#9/#10 split over two ranks' channels) against their plain
+versions and the whole call; 52, far_mnist's fused-FFN route step at
+mesh.model = 2 against the one-rank step. Exits non-zero when a check
 failed.
 """
 
@@ -28,7 +32,7 @@ def main() -> int:
     from vptr_tpu_torch.ops import _build
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", nargs="*", type=int, default=[41, 42, 43, 44])
+    ap.add_argument("--phases", nargs="*", type=int, default=[41, 42, 43, 44, 51, 52])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_tp_probe: no CUDA device", file=sys.stderr)
@@ -39,7 +43,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if 41 in args.phases:
         print(chip_smoke.json.dumps(chip_smoke.tp_kernel_phases(dev)))
-    steps = [p for p in (42, 43, 44) if p in args.phases]
+    if 51 in args.phases:
+        print(chip_smoke.json.dumps(chip_smoke.tp_ffn_kernel_phase(dev)))
+    steps = [p for p in (42, 43, 44, 52) if p in args.phases]
     if steps:
         print(chip_smoke.json.dumps(chip_smoke.tp_phases(dev, chip_smoke.card_line(), steps)))
     if chip_smoke.failures:

@@ -26,7 +26,12 @@ gloo group through ``vptr_tpu_torch.parallel.init_distributed("cpu")``, runs
   second epoch of a one-process run's checkpoint resumed on the mesh,
   ``evaluate``, and the JAX-layout round trip of the sharded transformer
   (``export_jax_variables`` / ``load_jax_variables``, unrolled and with
-  ``scan_layers``).
+  ``scan_layers``);
+* ``dw_split``: every case of ``<dir>/cases.pkl`` (the dw chain's whole
+  operands) on a (1, W) mesh, each rank on its share of the channels
+  (:func:`run_dw_split`): the wrapper's forward and gradients (its
+  autograd Function: the plain split forward and backward) and the plain
+  version's under autograd.
 
 Imports torch and the port only (no JAX), so a worker starts in seconds.
 """
@@ -289,7 +294,7 @@ def job_trainer(out_dir: Path):
         return lambda: ttrainer.Trainer(cfg.override(over), device="cpu",
                                         write_outputs=False)
     out["refuse_model"] = _raises(trainer({"mesh": {"model": 2},
-                                           "transformer": {"fused_ffn": True}}),
+                                           "transformer": {"fused_conv_ffn": True}}),
                                   NotImplementedError)
     out["refuse_data"] = _raises(trainer({"mesh": {"data": 3}}), ValueError)
     out["refuse_batch"] = _raises(trainer({"data": {"batch_size": 7}}), ValueError)
@@ -370,6 +375,39 @@ def job_tp_trainer(out_dir: Path):
     return out
 
 
+# ---------------------------------------------------------------- dw_split
+
+def run_dw_split(case):
+    """``fused_dw_chain`` on this model rank's share of ``case``'s channels
+    (``args``: x, taps, dwb, s1, b1, s2, b2 whole, numpy f32; ``g`` the
+    output cotangent; ``seed``, ``w``, ``rate``): the output and the seven
+    gradients through the wrapper and through the plain version."""
+    import torch
+
+    from vptr_tpu_torch.ops.fused_dw_chain import fused_dw_chain, fused_dw_chain_plain
+    from vptr_tpu_torch.parallel import model_rank, model_size
+
+    m, r = model_size(), model_rank()
+    c = case["args"][0].shape[-1] // m
+    share = lambda a: torch.from_numpy(a[..., r * c:(r + 1) * c].copy())
+    out = {}
+    for name, fn in (("wrapper", fused_dw_chain), ("plain", fused_dw_chain_plain)):
+        ops = [share(a).requires_grad_() for a in case["args"]]
+        y = fn(*ops, case["seed"], case["w"], case["rate"], model=(m, r))
+        grads = torch.autograd.grad(y, ops, share(case["g"]))
+        out[name] = [y.detach()] + [d.detach() for d in grads]
+    return out
+
+
+def job_dw_split(out_dir: Path):
+    from vptr_tpu_torch.parallel import make_mesh, num_hosts
+
+    make_mesh(1, num_hosts())
+    with open(out_dir / "cases.pkl", "rb") as f:
+        cases = pickle.load(f)
+    return {name: run_dw_split(case) for name, case in cases.items()}
+
+
 def main():
     job, out_dir = sys.argv[1], Path(sys.argv[2])
     import torch
@@ -380,7 +418,7 @@ def main():
     assert init_distributed("cpu"), "no process group in the environment"
     try:
         result = {"steps": job_steps, "trainer": job_trainer,
-                  "tp_trainer": job_tp_trainer}[job](out_dir)
+                  "tp_trainer": job_tp_trainer, "dw_split": job_dw_split}[job](out_dir)
         torch.save(result, out_dir / f"{job}.rank{host_id()}.pt")
     finally:
         destroy_distributed()

@@ -8,7 +8,10 @@ are ``tests/test_torch_port_tp_nar.py``'s, with this module's helpers.
 (a) FAR (NAR in the other module) with tensor parallelism at (1, 2) and
     (2, 2); FAR with ``sequence_parallel`` alone (the parameters whole) and
     with SP + TP (and NAR with SP + TP at (2, 2)); NAR with ``tslma`` at
-    model 2; FAR with ``remat`` and SP + TP; dropout and DropPath 0.1: every metric
+    model 2; FAR with ``remat`` and SP + TP; the kernel routes on the model
+    axis: FAR ``fused_ffn`` + ``fused_dw`` at (1, 2), FAR with those and
+    ``fused_residual`` (the five flags of far_mnist's fused-FFN route) at
+    (2, 2), NAR ``fused_dw`` at (1, 2); dropout and DropPath 0.1: every metric
     within 1e-5, every parameter within 1e-4 and every gradient within 1e-4
     of its leaf's largest against the one-process port step at batch 8
     from the same weights and generator seed (so the kernels' masks on a
@@ -19,9 +22,12 @@ are ``tests/test_torch_port_tp_nar.py``'s, with this module's helpers.
     put on the mesh by ``state_sharding(..., tensor_parallel=True)`` for
     TP, the batch over ``data``, ``sequence_parallel`` in the JAX config):
     metrics and gradients within ``tests/test_parallel.py``'s 1e-4, the
-    parameters by ``adam_param_errors``, the BatchNorm statistics 1e-5;
+    parameters by ``adam_param_errors``, the BatchNorm statistics 1e-5 (the
+    JAX step's window sublayers on XLA, its #7-#10 in Pallas interpret
+    mode);
 (c) the refusals: ``n_heads % model``, the kernel routes of
-    ``TP_REFUSED_ROUTES`` and one-process ``mesh.model`` 2.
+    ``TP_REFUSED_ROUTES`` (the conv FFN's #11/#12) and one-process
+    ``mesh.model`` 2.
 
 The geometry is ``tests/test_parallel.py``'s TINY (``test_torch_port_parallel``'s
 cases): d_model 24 over 4 heads (2 a model rank), 2 layers (NAR 2 + 2),
@@ -79,6 +85,15 @@ CASES = {
     "nar_tslma_tp": ("nar", 18, (1, 2), {"tslma": True}, True),
     "far_remat_sp_tp": ("far", 19, (1, 2), {"remat": True, "sequence_parallel": True},
                         True),
+    # the kernel routes on the model axis: #7/#8 on a hidden subset and the
+    # dw chain's LayerNorms over every rank's channels; with the window
+    # sublayer's residual folded (#1 unfolded on the head subset, x added
+    # after the reduce); the NAR decoder's dw chain
+    "far_ffn_tp": ("far", 21, (1, 2), {"fused_ffn": True, "fused_dw": True}, True),
+    "far_fused_dp_tp": ("far", 22, (2, 2), {"fused_attention": True, "fused_full": True,
+                                            "fused_residual": True, "fused_ffn": True,
+                                            "fused_dw": True}, True),
+    "nar_dw_tp": ("nar", 23, (1, 2), {"fused_dw": True}, True),
 }
 METRIC_TOL, PARAM_TOL, GRAD_REL, STAT_TOL = 1e-5, 1e-4, 1e-4, 1e-5
 JAX_TOL = 1e-4              # tests/test_parallel.py's
@@ -243,8 +258,8 @@ def check_jax_mesh(tp, name):
 # ------------------------------------------------------------ (c) refusals
 
 def test_refusals():
-    """Whole heads only; the routes of kernels #7-#12 and the folded
-    residual under a model axis; one-process mesh.model 2."""
+    """Whole heads only; the routes left in TP_REFUSED_ROUTES (#11/#12)
+    under a model axis; one-process mesh.model 2."""
     cfg = tcfg.get_preset("far_mnist").override(
         {"dtype": "float32", "transformer": {**TR_TINY, "n_heads": 3}})
     tr = build_transformer(cfg.transformer, device="cpu")
@@ -259,3 +274,22 @@ def test_refusals():
             shard_transformer(tr, mesh)
     with pytest.raises(NotImplementedError, match="one process per model rank"):
         parallel.make_mesh(-1, 2)
+
+
+@pytest.mark.parametrize("kind", ["far", "nar"])
+def test_fused_routes_shard(kind):
+    """far_mnist and nar_mnist with fused_ffn, fused_dw and fused_residual
+    build and cut to a rank's shares at mesh.model 2: every linear FFN and
+    LayerNorm conv FFN holds half the hidden, and only fused_conv_ffn is
+    left refused."""
+    assert TP_REFUSED_ROUTES == ("fused_conv_ffn",)
+    flags = {"fused_ffn": True, "fused_dw": True, "fused_residual": True}
+    cfg = tcfg.get_preset(PRESETS[kind]).override(_over(kind, 0.0, flags))
+    tr = shard_transformer(build_transformer(cfg.transformer, device="cpu"),
+                           parallel.Mesh(data=1, rank=1, model=2))
+    hidden = 4 * TR_TINY["d_model"]
+    ffns = [m for n, m in tr.named_modules() if n.endswith(".ffn")]
+    dws = [m for m in tr.modules() if getattr(m, "fused_dw", False)]
+    assert ffns and dws
+    assert all(m.tp == (2, 1) and m.linear1.weight.shape[0] == hidden // 2 for m in ffns)
+    assert all(m.tp == (2, 1) and m.fc1.weight.shape[0] == hidden // 2 for m in dws)

@@ -35,6 +35,17 @@
 // order in one thread) summed in group order: no atomics, the same bits on
 // every run.
 //
+// Tensor parallelism: a call over channels c0 .. c0 + C - 1 of Cg (a model
+// rank's share of the hidden) runs the same passes as steps with the
+// LayerNorms' statistics merged between them over every share
+// (fused_dw_chain.cu / fused_dw_chain_bwd.cu: vptr_*_tiled_step and
+// vptr_fused_dw_chain_tiled_merge): a share's tiles are whole tiles of the
+// whole call, so its partials are the whole call's, and merged in the
+// whole call's tile order (within a grid row rank 0's tiles, then rank
+// 1's, ...) the statistics are the whole call's bits. The dropout indexes
+// by the global channel (TTile::drop_idx). What stays per channel (the
+// conv, the taps', dwb's and the affines' gradients) needs no other share.
+//
 // What bounds it on an H100: bytes. The forward moves x three times (its
 // moments, the conv's three rows of z1, once more as the halo), z2 in f32
 // twice and the output once; the backward also g twice, z2 and da1 in f32.
@@ -80,6 +91,12 @@ struct TTile {
     return (n * HW + static_cast<long>(r) * W + jj) * C + c0 + lane;
   }
   __device__ float cnt() const { return static_cast<float>(W * kTCh); }
+  // the dropout's element index of (n, r, jj) at this thread's channel:
+  // (n HW + r W + jj) C + c0 + lane, by the global channel for a share
+  __device__ uint32_t drop_idx(const vptr_dropout::Params& d, long n, int r, int jj) const {
+    return d.col_index(static_cast<uint32_t>(n * HW + static_cast<long>(r) * W + jj),
+                       static_cast<uint32_t>(C), static_cast<uint32_t>(c0 + lane));
+  }
   __device__ long part(long n) const { return 2 * (n * T + tile); }
 };
 
@@ -193,21 +210,24 @@ dwt_out_kernel(const float* __restrict__ z2, const float* __restrict__ s2,
     const int jj = tl.j(m);
     const long o = tl.off(n, tl.row, jj), a = tl.off(0, tl.row, jj);
     float y = vptr_gelu::gelu((z2[o] - mean) * rstd * s2[a] + b2[a]);
-    if (drop.active()) y = drop.apply(y, drop.keep(static_cast<uint32_t>(o), seed));
+    if (drop.active()) y = drop.apply(y, drop.keep(tl.drop_idx(drop, n, tl.row, jj), seed));
     out[o] = from_f32<T>(y);
   }
 }
 
-// The cotangent of LN2's input at (sample n, offset o, affine offset a):
-// da2 = dropout(g) gelu'(a2), dxh2 = da2 s2 (xh: xhat2).
+// The cotangent of LN2's input at (sample n, grid row r, column jj) with
+// the affine (sc, bi) there: da2 = dropout(g) gelu'(a2), dxh2 = da2 s2
+// (xh: xhat2).
 template <typename T>
-__device__ __forceinline__ float dwt_da2(const float* __restrict__ z2, const T* __restrict__ g,
-                                         float sc, float bi, long o, float mean, float rstd,
+__device__ __forceinline__ float dwt_da2(const TTile& tl, const float* __restrict__ z2,
+                                         const T* __restrict__ g, float sc, float bi, long n,
+                                         int r, int jj, float mean, float rstd,
                                          const vptr_dropout::Params& drop, uint32_t seed,
                                          float& xh) {
+  const long o = tl.off(n, r, jj);
   xh = (z2[o] - mean) * rstd;
   float gs = to_f32(g[o]);
-  if (drop.active()) gs = drop.apply(gs, drop.keep(static_cast<uint32_t>(o), seed));
+  if (drop.active()) gs = drop.apply(gs, drop.keep(tl.drop_idx(drop, n, r, jj), seed));
   return gs * vptr_gelu::gelu_grad(xh * sc + bi);
 }
 
@@ -241,8 +261,8 @@ dwt_ln2_bwd_kernel(const float* __restrict__ z2, const T* __restrict__ g,
     for (int m = 0; m < kTPer; ++m)
       if (m < nm) {
         float xh;
-        const float da = dwt_da2(z2, g, sc[m], bi[m], tl.off(n, tl.row, tl.j(m)), mean, rstd,
-                                 drop, seed, xh);
+        const float da = dwt_da2(tl, z2, g, sc[m], bi[m], n, tl.row, tl.j(m), mean, rstd, drop,
+                                 seed, xh);
         ds[m] = fmaf(da, xh, ds[m]);
         db[m] += da;
         const float dxh = da * sc[m];
@@ -315,7 +335,7 @@ dwt_conv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z2,
       if (r >= 0 && r < tl.H) {
         const long a = tl.off(0, r, jj);
         float xh;
-        const float da = dwt_da2(z2, g, s2[a], b2[a], tl.off(n, r, jj), m2, r2, drop, seed, xh);
+        const float da = dwt_da2(tl, z2, g, s2[a], b2[a], n, r, jj, m2, r2, drop, seed, xh);
         d = (da * s2[a] - ma - xh * mb) * r2;
       }
       dzs[s * kTCh + tl.lane] = d;
@@ -418,23 +438,40 @@ __global__ void dwt_sum_kernel(const float* __restrict__ gpart, const float* __r
   }
 }
 
-// The forward (steps 1-2, the statistics after each) into z2, part and
+// Steps 0 and 1 of either direction: 0, x's moments into part; 1 (st1:
+// LN1's (mean, rstd) a sample), z2 and its moments into part.
+template <typename T>
+cudaError_t dwt_z2_step(int step, const T* x, const float* taps, const float* dwb,
+                        const float* s1, const float* b1, const float* st1, float* z2,
+                        float* part, int N, int HW, int W, int C, cudaStream_t s) {
+  const dim3 grid(C / kTCh, HW / W, N);
+  if (step == 0)
+    dwt_moments_kernel<T><<<grid, kTThreads, 0, s>>>(x, part, HW, W, C);
+  else
+    dwt_conv_kernel<T><<<grid, kTThreads, 3 * W * kTCh * sizeof(float), s>>>(
+        x, taps, dwb, s1, b1, st1, z2, part, HW, W, C);
+  return cudaGetLastError();
+}
+
+// A sample's statistics (kTMoments) or sums' means (kTSums) into out (N, 2)
+// from part (N, T, 2) of T tiles of W x 32 values.
+cudaError_t dwt_merge(const float* part, float* out, int N, int T, int W, float eps, int mode,
+                      cudaStream_t s) {
+  return tiled_stats(part, out, N, T, static_cast<float>(W * kTCh), eps, mode, s);
+}
+
+// The forward (steps 0-1, the statistics after each) into z2, part and
 // stats (2 x N x 2: LN1's, LN2's (mean, rstd)) of the caller; shared with
 // the backward, which recomputes it.
 template <typename T>
 cudaError_t dwt_to_z2(const T* x, const float* taps, const float* dwb, const float* s1,
                       const float* b1, float* z2, float* part, float* stats, int N, int HW,
                       int W, int C, float eps, cudaStream_t s) {
-  const dim3 grid(C / kTCh, HW / W, N);
   const int T_ = (C / kTCh) * (HW / W);
-  const float cnt = static_cast<float>(W * kTCh);
-  dwt_moments_kernel<T><<<grid, kTThreads, 0, s>>>(x, part, HW, W, C);
-  VPTR_TRY(cudaGetLastError());
-  VPTR_TRY(tiled_stats(part, stats, N, T_, cnt, eps, kTMoments, s));
-  dwt_conv_kernel<T><<<grid, kTThreads, 3 * W * kTCh * sizeof(float), s>>>(
-      x, taps, dwb, s1, b1, stats, z2, part, HW, W, C);
-  VPTR_TRY(cudaGetLastError());
-  return tiled_stats(part, stats + 2 * N, N, T_, cnt, eps, kTMoments, s);
+  VPTR_TRY(dwt_z2_step<T>(0, x, taps, dwb, s1, b1, stats, z2, part, N, HW, W, C, s));
+  VPTR_TRY(dwt_merge(part, stats, N, T_, W, eps, kTMoments, s));
+  VPTR_TRY(dwt_z2_step<T>(1, x, taps, dwb, s1, b1, stats, z2, part, N, HW, W, C, s));
+  return dwt_merge(part, stats + 2 * N, N, T_, W, eps, kTMoments, s);
 }
 
 }  // namespace

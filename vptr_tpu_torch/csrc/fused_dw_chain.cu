@@ -337,20 +337,36 @@ int launch_persistent(const void* x, const void* taps, const void* dwb, const vo
 // ---- the tiled route (dw_tiled.cuh): x's moments, z2 and its moments,
 // then the output
 
+// Step 0: x's moments into part; 1 (stats[0] merged): z2 and its moments
+// into part; 2 (stats[1] merged): the output.
+template <typename T>
+int tiled_step(int step, const void* x, const void* taps, const void* dwb, const void* s1,
+               const void* b1, const void* s2, const void* b2, void* out, void* z2, void* part,
+               void* stats, int N, int HW, int W, int C, vptr_dropout::Params drop,
+               cudaStream_t s) {
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const float* st = cf(stats);
+  if (step < 2)
+    return dwt_z2_step<T>(step, static_cast<const T*>(x), cf(taps), cf(dwb), cf(s1), cf(b1),
+                          st, static_cast<float*>(z2), static_cast<float*>(part), N, HW, W, C,
+                          s);
+  dwt_out_kernel<T><<<dim3(C / kTCh, HW / W, N), kTThreads, 0, s>>>(
+      cf(z2), cf(s2), cf(b2), st + 2 * N, static_cast<T*>(out), HW, W, C, drop);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_tiled(const void* x, const void* taps, const void* dwb, const void* s1,
                  const void* b1, const void* s2, const void* b2, void* out, void* z2, void* part,
                  void* stats, int N, int HW, int W, int C, float eps, vptr_dropout::Params drop,
                  cudaStream_t s) {
-  float* st = static_cast<float*>(stats);
   VPTR_TRY(dwt_to_z2<T>(static_cast<const T*>(x), static_cast<const float*>(taps),
                         static_cast<const float*>(dwb), static_cast<const float*>(s1),
                         static_cast<const float*>(b1), static_cast<float*>(z2),
-                        static_cast<float*>(part), st, N, HW, W, C, eps, s));
-  dwt_out_kernel<T><<<dim3(C / kTCh, HW / W, N), kTThreads, 0, s>>>(
-      static_cast<const float*>(z2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), st + 2 * N, static_cast<T*>(out), HW, W, C, drop);
-  return cudaGetLastError();
+                        static_cast<float*>(part), static_cast<float*>(stats), N, HW, W, C, eps,
+                        s));
+  return tiled_step<T>(2, x, taps, dwb, s1, b1, s2, b2, out, z2, part, stats, N, HW, W, C, drop,
+                       s);
 }
 
 }  // namespace
@@ -432,6 +448,46 @@ int vptr_fused_dw_chain_tiled(const void* x, const void* taps, const void* dwb, 
                                    C, eps, drop, s)
              : launch_tiled<bf16>(x, taps, dwb, s1, b1, s2, b2, out, z2, part, stats, N, HW, W,
                                   C, eps, drop, s);
+}
+
+// The tiled route split at its two LayerNorms' statistics, for a call over
+// channels col0 .. col0 + C - 1 of mask_cols whose LayerNorms run over
+// every share's channels (tensor parallelism; dw_tiled.cuh's note): step 0
+// writes x's per-(sample, tile) moments into part (N, HW / W, C / 32, 2);
+// the caller merges every share's, in the whole call's tile order, into
+// stats[0] (vptr_fused_dw_chain_tiled_merge); step 1 writes z2 and its
+// moments into part, merged likewise into stats[1]; step 2 the output,
+// its dropout at the global channel. The operands as
+// vptr_fused_dw_chain_tiled's.
+int vptr_fused_dw_chain_tiled_step(int step, const void* x, const void* taps, const void* dwb,
+                                   const void* s1, const void* b1, const void* s2,
+                                   const void* b2, void* out, void* z2, void* part, void* stats,
+                                   int N, int HW, int W, int C, const void* seed, float rate,
+                                   float keep_div, int mask_cols, int col0, int dtype,
+                                   void* stream) {
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_cols,
+                                  col0};
+  if (step < 0 || step > 2 || N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 ||
+      dtype > 1 || (rate > 0.f && !seed) || rate >= 1.f || col0 < 0 ||
+      (mask_cols && col0 + C > mask_cols) || !z2 || !part || !stats)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? tiled_step<float>(step, x, taps, dwb, s1, b1, s2, b2, out, z2, part,
+                                        stats, N, HW, W, C, drop, s)
+                    : tiled_step<bf16>(step, x, taps, dwb, s1, b1, s2, b2, out, z2, part,
+                                       stats, N, HW, W, C, drop, s);
+}
+
+// A split call's merge (forward and backward): out (N, 2) from part (N, T,
+// 2), T tiles of W x 32 values a sample in the whole call's order; mode 0:
+// each tile's (mean, M2) merged into (mean, rstd), 1: the two sums'
+// means over the sample.
+int vptr_fused_dw_chain_tiled_merge(const void* part, void* out, int N, int T, int W, float eps,
+                                    int mode, void* stream) {
+  if (N < 1 || T < 1 || W < 1 || W > kTMaxW || mode < 0 || mode > 1 || !part || !out)
+    return cudaErrorInvalidValue;
+  return dwt_merge(static_cast<const float*>(part), static_cast<float*>(out), N, T, W, eps,
+                   mode, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

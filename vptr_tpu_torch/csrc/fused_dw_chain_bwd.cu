@@ -870,42 +870,60 @@ struct TBwd {
   void *z2, *da1, *part, *stats, *gpart, *tpart;
 };
 
+// Step 0-1: the forward to z2 (x's moments into part; after stats[0], z2
+// and its moments); 2 (stats[1]): LN2's backward sums into part, ds2 and
+// db2 by group; 3 (stats[2]): the conv's backward, da1 and LN1's backward
+// sums into part, ds1, db1 and the tap sums by group; 4 (stats[3]): dx and
+// the gradients summed. stats (4, N, 2): LN1's, LN2's (mean, rstd), LN2's
+// and LN1's backward means.
 template <typename T>
-int launch_tiled(const TBwd& a, int N, int HW, int W, int C, float eps,
-                 vptr_dropout::Params drop, cudaStream_t s) {
+int tiled_step(int step, const TBwd& a, int N, int HW, int W, int C,
+               vptr_dropout::Params drop, cudaStream_t s) {
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
   auto f = [](void* p) { return static_cast<float*>(p); };
   const T* x = static_cast<const T*>(a.x);
   const T* g = static_cast<const T*>(a.g);
   float *z2 = f(a.z2), *da1 = f(a.da1), *part = f(a.part), *st = f(a.stats);
-  // 1-2. the forward to z2; st[0 .. 2N): LN1's (mean, rstd), [2N, 4N): LN2's
-  VPTR_TRY(dwt_to_z2<T>(x, cf(a.taps), cf(a.dwb), cf(a.s1), cf(a.b1), z2, part, st, N, HW, W,
-                        C, eps, s));
-  const int G = t_groups(N), H = HW / W, T_ = (C / kTCh) * H;
-  const float cnt = static_cast<float>(W * kTCh);
+  if (step < 2)
+    return dwt_z2_step<T>(step, x, cf(a.taps), cf(a.dwb), cf(a.s1), cf(a.b1), st, z2, part, N,
+                          HW, W, C, s);
+  const int G = t_groups(N), H = HW / W;
   const dim3 by_group(C / kTCh, H, G), by_sample(C / kTCh, H, N);
-  // 4. LN2's backward sums -> st[4N, 6N); ds2, db2 by group
-  dwt_ln2_bwd_kernel<T><<<by_group, kTThreads, 0, s>>>(z2, g, cf(a.s2), cf(a.b2), st + 2 * N,
-                                                     part, f(a.gpart), N, HW, W, C, drop);
-  VPTR_TRY(cudaGetLastError());
-  VPTR_TRY(tiled_stats(part, st + 4 * N, N, T_, cnt, eps, kTSums, s));
-  // 5. the conv's backward: da1, LN1's backward sums -> st[6N, 8N); ds1,
-  // db1 by group; the tap sums by group and row
-  dwt_conv_bwd_kernel<T><<<by_group, kTThreads, 6 * W * kTCh * sizeof(float), s>>>(
-      x, z2, g, cf(a.taps), cf(a.s1), cf(a.b1), cf(a.s2), cf(a.b2), st, da1, part, f(a.gpart),
-      f(a.tpart), N, HW, W, C, drop);
-  VPTR_TRY(cudaGetLastError());
-  VPTR_TRY(tiled_stats(part, st + 6 * N, N, T_, cnt, eps, kTSums, s));
-  // 6. dx
-  dwt_dx_kernel<T><<<by_sample, kTThreads, 0, s>>>(x, da1, cf(a.s1), st, st + 6 * N,
-                                                 static_cast<T*>(a.dx), HW, W, C);
-  VPTR_TRY(cudaGetLastError());
-  // 7. the partial gradients in order
-  const long hwc = static_cast<long>(HW) * C, total = 4 * hwc + 10L * C;
-  dwt_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      cf(a.gpart), cf(a.tpart), f(a.ds1), f(a.db1), f(a.ds2), f(a.db2), f(a.dtaps), f(a.ddwb),
-      G, H, hwc, C);
+  if (step == 2) {
+    dwt_ln2_bwd_kernel<T><<<by_group, kTThreads, 0, s>>>(z2, g, cf(a.s2), cf(a.b2), st + 2 * N,
+                                                       part, f(a.gpart), N, HW, W, C, drop);
+  } else if (step == 3) {
+    dwt_conv_bwd_kernel<T><<<by_group, kTThreads, 6 * W * kTCh * sizeof(float), s>>>(
+        x, z2, g, cf(a.taps), cf(a.s1), cf(a.b1), cf(a.s2), cf(a.b2), st, da1, part,
+        f(a.gpart), f(a.tpart), N, HW, W, C, drop);
+  } else {
+    dwt_dx_kernel<T><<<by_sample, kTThreads, 0, s>>>(x, da1, cf(a.s1), st, st + 6 * N,
+                                                   static_cast<T*>(a.dx), HW, W, C);
+    VPTR_TRY(cudaGetLastError());
+    // the partial gradients in order
+    const long hwc = static_cast<long>(HW) * C, total = 4 * hwc + 10L * C;
+    dwt_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+        cf(a.gpart), cf(a.tpart), f(a.ds1), f(a.db1), f(a.ds2), f(a.db2), f(a.dtaps),
+        f(a.ddwb), G, H, hwc, C);
+  }
   return cudaGetLastError();
+}
+
+// The merge after each of steps 0-3 (0, 1: moments; 2, 3: sums).
+constexpr int kTStepMode[4] = {kTMoments, kTMoments, kTSums, kTSums};
+
+// In one call: the steps with each merge over the call's own tiles.
+template <typename T>
+int launch_tiled(const TBwd& a, int N, int HW, int W, int C, float eps,
+                 vptr_dropout::Params drop, cudaStream_t s) {
+  const int T_ = (C / kTCh) * (HW / W);
+  float* st = static_cast<float*>(a.stats);
+  for (int k = 0; k < 4; ++k) {
+    if (int err = tiled_step<T>(k, a, N, HW, W, C, drop, s)) return err;
+    VPTR_TRY(dwt_merge(static_cast<const float*>(a.part), st + 2 * k * N, N, T_, W, eps,
+                       kTStepMode[k], s));
+  }
+  return tiled_step<T>(4, a, N, HW, W, C, drop, s);
 }
 
 }  // namespace
@@ -1002,6 +1020,35 @@ int vptr_fused_dw_chain_bwd_tiled(const void* x, const void* taps, const void* d
                z2, da1, part, stats, gpart, tpart};
   return dtype == 0 ? launch_tiled<float>(a, N, HW, W, C, eps, drop, s)
                     : launch_tiled<bf16>(a, N, HW, W, C, eps, drop, s);
+}
+
+// #10's tiled route split at its four statistics (tensor parallelism, as
+// vptr_fused_dw_chain_tiled_step): steps 0-4 as tiled_step's note; after
+// each of steps 0-3 the caller merges every share's part (N, HW / W, C /
+// 32, 2), in the whole call's tile order, into stats[step]
+// (vptr_fused_dw_chain_tiled_merge, mode 0 after steps 0-1, 1 after 2-3).
+// The dropout at the global channel (mask_cols, col0). The operands as
+// vptr_fused_dw_chain_bwd_tiled's.
+int vptr_fused_dw_chain_bwd_tiled_step(int step, const void* x, const void* taps,
+                                       const void* dwb, const void* s1, const void* b1,
+                                       const void* s2, const void* b2, const void* g, void* dx,
+                                       void* dtaps, void* ddwb, void* ds1, void* db1, void* ds2,
+                                       void* db2, void* z2, void* da1, void* part, void* stats,
+                                       void* gpart, void* tpart, int N, int HW, int W, int C,
+                                       const void* seed, float rate, float keep_div,
+                                       int mask_cols, int col0, int dtype, void* stream) {
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_cols,
+                                  col0};
+  if (step < 0 || step > 4 || N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 ||
+      dtype > 1 || (rate > 0.f && !seed) || rate >= 1.f || col0 < 0 ||
+      (mask_cols && col0 + C > mask_cols) || !z2 || !da1 || !part || !stats || !gpart ||
+      !tpart)
+    return cudaErrorInvalidValue;
+  const TBwd a{x, taps, dwb, s1, b1, s2, b2, g, dx, dtaps, ddwb, ds1, db1, ds2, db2,
+               z2, da1, part, stats, gpart, tpart};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? tiled_step<float>(step, a, N, HW, W, C, drop, s)
+                    : tiled_step<bf16>(step, a, N, HW, W, C, drop, s);
 }
 
 }  // extern "C"

@@ -5,6 +5,10 @@
 //     hd = dropout(h)                        (hash of row * H + col)
 //     y  = T(hd) w2 + b2                     (f32 sums, rounded to T once)
 // x, w1 (C, H), w2 (H, C) in T (float or bf16); b1, b2, ls, lb f32.
+// Under tensor parallelism a call holds hidden columns c0 .. c0 + H - 1 of
+// Hg (w1's columns, w2's rows) and b2 = 0: y is the rank's partial sum,
+// which the caller adds up over the ranks before b2; the dropout indexes
+// row * Hg + c0 + col (hash_dropout.cuh's col_index), the whole call's mask.
 //
 // Replaces the TPU kernel vptr_tpu/ops/fused_ffn.py::_forward (_fwd_kernel
 // at :77, pl.pallas_call at :188). The backward is fused_ffn_bwd.cu.
@@ -386,7 +390,7 @@ ffn_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
             float v0 = vptr_gelu::gelu_fast(a1[4 * j + 2 * h] + bb.x);
             float v1 = vptr_gelu::gelu_fast(a1[4 * j + 2 * h + 1] + bb.y);
             if (drop.active()) {
-              const uint32_t e = static_cast<uint32_t>((row0 + r0 + 8 * h) * H + col);
+              const uint32_t e = drop.col_index(static_cast<uint32_t>(row0 + r0 + 8 * h), H, col);
               v0 = drop.apply(v0, drop.keep(e, seed));
               v1 = drop.apply(v1, drop.keep(e + 1, seed));
             }
@@ -631,7 +635,8 @@ ffn_fma_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* _
       for (int r = 0; r < kFmaRows; ++r) {
         float v = vptr_gelu::gelu(acc[r] + b1[col]);
         if (drop.active())
-          v = drop.apply(v, drop.keep(static_cast<uint32_t>((row0 + r) * H + col), seed));
+          v = drop.apply(
+              v, drop.keep(drop.col_index(static_cast<uint32_t>(row0 + r), H, col), seed));
         hb[r * kFmaHc + j] = round_t<T>(v);
       }
     }
@@ -708,17 +713,21 @@ long vptr_fused_ffn_partials(int S, int C, int H, int dtype) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. seed (device int32) may be null when
-// rate == 0; keep_div = (float)(1 - rate); part: vptr_fused_ffn_partials
-// f32 elements of scratch (null when that is 0). Returns a cudaError_t (0
-// = launched), or kTmaEncodeError + a CUresult.
+// rate == 0; keep_div = (float)(1 - rate); mask_cols, col0: the H hidden
+// columns are columns col0 .. col0 + H - 1 of mask_cols (tensor
+// parallelism: the dropout indexes row * mask_cols + col0 + col; 0, 0: the
+// call's own). part: vptr_fused_ffn_partials f32 elements of scratch (null
+// when that is 0). Returns a cudaError_t (0 = launched), or
+// kTmaEncodeError + a CUresult.
 int vptr_fused_ffn(const void* x, const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* ls, const void* lb, void* out, void* part, int S,
                    int C, int H, float eps, const void* seed, float rate, float keep_div,
-                   int dtype, void* stream) {
-  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div};
+                   int mask_cols, int col0, int dtype, void* stream) {
+  const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_cols,
+                                  col0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S < 1 || C < 1 || H < 1 || dtype < 0 || dtype > 1 || ffn_smem(C, H, dtype) > kSmemLimit ||
-      (rate > 0.f && !seed) || rate >= 1.f)
+      (rate > 0.f && !seed) || rate >= 1.f || col0 < 0 || (mask_cols && col0 + H > mask_cols))
     return cudaErrorInvalidValue;
   if (use_wg(C, H, dtype))
     return C <= 3 * kWgN   // y columns a warpgroup: 176 (88 registers) or 192 (96)

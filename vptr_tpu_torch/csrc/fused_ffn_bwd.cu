@@ -27,7 +27,11 @@
 //   5. column sums in two fixed-order passes: db1 = sum da, db2 = sum g,
 //      dlb = sum dxn, dls = sum dxn xhat.
 // The hidden-width scratch lives only for this call: the forward saved
-// nothing but its inputs.
+// nothing but its inputs. Under tensor parallelism a call holds hidden
+// columns col0 .. col0 + H - 1 of mask_cols (FfnBwdArgs) with b2 = 0: the
+// mask is drawn at the global column, dW1, db1, dW2 are the rank's share,
+// and dx, dls, dlb its partial sums (the caller adds them up over the
+// ranks; db2, a sum of g, is the caller's, outside the kernel).
 //
 // * wgmma route (bf16, C and H multiples of 8, any S): every product on
 //   Hopper's warpgroup MMA fed by TMA. An f32 operand reaches the tensor
@@ -83,6 +87,7 @@ struct FfnBwdArgs {
   void *dx, *dw1, *db1, *dw2, *db2, *dls, *dlb;
   void *mean, *rstd, *xn, *act, *dact, *hilo, *dbpart, *dxn, *wpart1, *wpart2, *partial;
   int rows, channels, hidden, dtype, ksplit, parts;
+  int mask_cols, col0;   // hidden columns col0 .. col0 + hidden - 1 of mask_cols (0, 0: all)
   float eps, rate, keep_div;
 };
 
@@ -107,16 +112,18 @@ int ksplits(int S, int C, int H, int dtype) {
 }
 
 // The FMA route's hidden: act <- dropout(gelu(act)), dact <- dropout(dact)
-// gelu'(act), element i = row * H + col (the forward's dropout index).
+// gelu'(act), element i = row * H + col (the forward's dropout index, by
+// the global column).
 __global__ void act_grad_kernel(float* __restrict__ act, float* __restrict__ dact, long n,
-                                vptr_dropout::Params drop) {
+                                int H, vptr_dropout::Params drop) {
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
   for (long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += static_cast<long>(gridDim.x) * blockDim.x) {
     const float a = act[i];
     float hd = vptr_gelu::gelu(a), dh = dact[i];
     if (drop.active()) {
-      const bool kept = drop.keep(static_cast<uint32_t>(i), seed);
+      const bool kept = drop.keep(
+          drop.col_index(static_cast<uint32_t>(i / H), H, static_cast<uint32_t>(i % H)), seed);
       hd = drop.apply(hd, kept);
       dh = drop.apply(dh, kept);
     }
@@ -346,7 +353,8 @@ ffn_bwd_hidden_kernel(const __grid_constant__ P1Maps maps, const float* __restri
           float gl, gr, dh = d[i];
           vptr_gelu::gelu_and_grad_fast(a[i] + (e ? bb.y : bb.x), gl, gr);
           if (drop.active()) {
-            const bool kept = drop.keep(static_cast<uint32_t>(row * H + col + e), seed);
+            const bool kept =
+                drop.keep(drop.col_index(static_cast<uint32_t>(row), H, col + e), seed);
             gl = drop.apply_rcp(gl, kept, rcp);
             dh = drop.apply_rcp(dh, kept, rcp);
           }
@@ -439,7 +447,8 @@ int hidden_wg(const FfnBwdArgs& a, cudaStream_t s) {
   VPTR_TRY(cudaFuncSetAttribute(ffn_bwd_hidden_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem)));
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div,
+                                  a.mask_cols, a.col0};
   ffn_bwd_hidden_kernel<<<G, kP1Threads, smem, s>>>(
       maps, cf32p(a.b1), static_cast<bf16*>(a.hilo), f32p(a.dbpart), w, S, C, H,
       static_cast<long>(pad_rows(S)) * H, drop);
@@ -485,9 +494,10 @@ int products_fma(const FfnBwdArgs& a, cudaStream_t s) {
   gb.ldb = C;
   gb.job[0] = {a.g, a.w2, a.dact, nullptr, 1.f, nullptr, nullptr, 0};
   VPTR_TRY((gemm<T, false, T, true, float, kF32>(gb, 1, s)));
-  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div};
+  const vptr_dropout::Params drop{static_cast<const int*>(a.seed), a.rate, a.keep_div,
+                                  a.mask_cols, a.col0};
   const long n = static_cast<long>(S) * H;
-  act_grad_kernel<<<1056, 256, 0, s>>>(f32p(a.act), f32p(a.dact), n, drop);
+  act_grad_kernel<<<1056, 256, 0, s>>>(f32p(a.act), f32p(a.dact), n, H, drop);
   VPTR_TRY(cudaGetLastError());
   gb = GemmBatch{};
   gb.M = H, gb.N = C, gb.K = S, gb.lda = H, gb.ldb = C, gb.ldo = C, gb.group = 1;
@@ -621,7 +631,8 @@ int vptr_ffn_weight_product(const void* a, const void* b0, const void* b1, void*
 // CUresult.
 int vptr_fused_ffn_bwd(const FfnBwdArgs* a, void* stream) {
   if (!a || a->rows < 1 || a->channels < 1 || a->hidden < 1 || a->dtype < 0 || a->dtype > 1 ||
-      (a->rate > 0.f && !a->seed) || a->rate >= 1.f ||
+      (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->col0 < 0 ||
+      (a->mask_cols && a->col0 + a->hidden > a->mask_cols) ||
       a->ksplit != ksplits(a->rows, a->channels, a->hidden, a->dtype) ||
       a->parts != partials(a->rows) || !a->wpart1 || !a->wpart2 || !a->partial || !a->dxn ||
       (wg_route(a->channels, a->hidden, a->dtype) ? !a->hilo || !a->dbpart

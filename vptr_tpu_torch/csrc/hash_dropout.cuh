@@ -11,7 +11,10 @@
 // tokens by the padded count, see dropout.py::padded_tokens). A kernel that
 // holds a subset of the heads (tensor parallelism: heads h0 .. h0 + Hl - 1
 // of Hg) indexes by the global head: ((b * Hg + h0 + h) * Tq + r) * Tk + c
-// (Params::index).
+// (Params::index). The feed-forward kernels index their hidden by row * H
+// + col (#7/#8: rows of x; #9/#10: (sample * HW + r), channels); one that
+// holds hidden columns c0 .. c0 + Hl - 1 of Hg indexes row * Hg + c0 + col
+// (Params::col_index).
 #pragma once
 
 #include <stdint.h>
@@ -41,7 +44,9 @@ __device__ __forceinline__ uint32_t element_index(uint32_t b, uint32_t heads, ui
 // synchronisation); rate and the divisor (float)(1 - rate) come from the
 // host. active is false at rate 0, and then no weight is touched.
 // mask_heads and head0: the global head count and the first head of a
-// kernel that holds a subset of the heads (0, 0: the kernel's own heads).
+// kernel that holds a subset of the heads (0, 0: the kernel's own heads);
+// in the feed-forward kernels the global column count and the first
+// column of a subset of the hidden columns.
 struct Params {
   const int* seed;
   float rate;
@@ -58,6 +63,12 @@ struct Params {
                                             uint32_t c) const {
     return element_index(b, mask_heads ? static_cast<uint32_t>(mask_heads) : heads,
                          static_cast<uint32_t>(head0) + h, tq, r, tk, c);
+  }
+  // row * cols + c of a kernel over `cols` hidden columns, by the global
+  // column: row * Hg + c0 + c
+  __device__ __forceinline__ uint32_t col_index(uint32_t row, uint32_t cols, uint32_t c) const {
+    return row * (mask_heads ? static_cast<uint32_t>(mask_heads) : cols) +
+           static_cast<uint32_t>(head0) + c;
   }
   __device__ __forceinline__ bool keep(uint32_t idx, uint32_t s) const {
     return hash_uniform(idx, s) >= rate;

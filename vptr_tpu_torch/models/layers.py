@@ -67,7 +67,15 @@ the model group, in f32, before the replicated bias is added once. The
 kernels take the head subset (``mask_heads``, ``head0``), so their
 dropout is the whole call's; a hidden dropout draws the global shape and
 keeps the rank's rows and channels; LayerNormHWC over the split hidden
-takes its moments over the model group (:func:`model_sum`). Sequence
+takes its moments over the model group (:func:`model_sum`). On the kernel
+routes: ``fused_ffn`` runs kernels #7/#8 on the rank's hidden columns
+(``mask_cols``, ``col0``: the hidden dropout at the global column) into a
+partial sum, b2 added after the reduce; ``fused_dw`` runs the chain on
+the rank's hidden channels with its whole-sample LayerNorms over every
+rank's (``fused_dw_chain(..., model=)``: on the card #9/#10's tiled route
+split at its statistics, which are exchanged over the model group); the
+residual-folded window sublayer (``fused_residual``) calls #1 unfolded on
+the head subset and adds x + scale * branch once after the reduce. Sequence
 parallelism (``TemporalAttention.sp``): each model rank attends over a
 contiguous share of the flattened (N·HW) temporal columns with every head
 (the sublayer's parameters gathered whole for the call, their gradients
@@ -333,6 +341,7 @@ class MultiHeadAttention(nn.Module):
         # model) rank's share of the flattened columns
         index = data_rank() * model_size() + model_rank() if sp else None
         wq, bq, wk, bk, wv, bv, wo, bo, ls, lb = self._params(sp, ln)
+        x_res = q_in         # the residual's x, outside the TP region
         if tp:      # into the TP region: the inputs' gradients sum over the ranks
             uniq = []
             for t in (q_in, k_in, v_in):
@@ -365,6 +374,16 @@ class MultiHeadAttention(nn.Module):
                 args = (xf, *weights(), ls.float(), lb.float(),
                         None if qk_pos is None else qk_pos.float().contiguous(), bias)
                 scale = branch_scale if residual else None
+                if tp and residual:
+                    # each rank's branch is a partial sum: x + scale * (the
+                    # sum + bo) after the reduce, not x folded in per rank
+                    part = (fused_attention_ln_plain(*args, seed, heads, rate, **mask)
+                            if plain else fused_attention_ln(*args, seed, heads, rate, **mask))
+                    out = reduce_model(part) + bo.float()
+                    if scale is not None:
+                        out = out * scale.float()[:, None, None]
+                    out = (x_res.reshape(xf.shape).float() + out).to(self.dtype)
+                    return out.reshape(lead + (l, self.dim))
                 if plain:
                     out = fused_attention_ln_plain(
                         *args, seed, heads, rate, scale, residual, **mask)
@@ -663,7 +682,7 @@ class MlpDWBN(nn.Module):
         """Hold model rank ``rank``'s share of the hidden channels (fc1's
         and dw3x3's outputs, fc2's inputs, norm1's and norm2's channels;
         the parameters are cut by ``shard_transformer``, which refuses the
-        fused routes)."""
+        ``fused_ln`` route, kernels #11/#12)."""
         hidden = self.fc1.out_channels
         if hidden % size:
             raise ValueError(f"the conv FFN's {hidden} hidden channels do not split "
@@ -686,21 +705,35 @@ class MlpDWBN(nn.Module):
                         conv.bias.to(self.dtype))
 
     def _fused_forward(self, x, generator):
+        """The ``fused_dw`` route. Under tensor parallelism fc1 is
+        column-parallel (x into the TP region), the chain runs on the rank's
+        hidden channels with its LayerNorms over every rank's (``model``),
+        and fc2 is row-parallel (its partial sums reduced, then the bias)."""
         n, t, h, w, c = x.shape
         hd = self.fc1.out_channels
-        y = self._pointwise(self.fc1, x.reshape(n * t, h * w, c).to(self.dtype))
+        x = x.reshape(n * t, h * w, c).to(self.dtype)
+        if self.tp is not None:
+            x = enter_model(x)[0]
+        y = self._pointwise(self.fc1, x)
         rate = self.drop.rate if self.training else 0.0
         seed = draw_seed(generator, x.device) if rate > 0.0 else 0
 
         def hwc(p):   # a LayerNormHWC affine (hd, h, w) -> (h w, hd)
             return p.permute(1, 2, 0).reshape(h * w, hd).contiguous()
 
-        seed = rank_seed(seed, y.numel())         # (n t, h w, hd), sample-major
+        # (n t, h w, hidden), sample-major over the whole hidden
+        m = 1 if self.tp is None else self.tp[0]
+        seed = rank_seed(seed, y.numel() * m)
         chain = fused_dw_chain_plain if self.kernels == "plain" else fused_dw_chain
         y = chain(y.contiguous(), self.dw3x3.weight.reshape(hd, 9).t().contiguous(),
                   self.dw3x3.bias, hwc(self.norm1.weight), hwc(self.norm1.bias),
-                  hwc(self.norm2.weight), hwc(self.norm2.bias), seed, w, rate)
-        y = self._pointwise(self.fc2, y).reshape(n * t, h, w, c).permute(0, 3, 1, 2)
+                  hwc(self.norm2.weight), hwc(self.norm2.bias), seed, w, rate, model=self.tp)
+        if self.tp is not None:
+            y = F.linear(y, self.fc2.weight[:, :, 0, 0].to(self.dtype))
+            y = _row_parallel_out(y, self.fc2.bias, self.dtype)
+        else:
+            y = self._pointwise(self.fc2, y)
+        y = y.reshape(n * t, h, w, c).permute(0, 3, 1, 2)
         y = self.drop(F.gelu(self.norm3(y)), generator)
         return y.permute(0, 2, 3, 1).reshape(n, t, h, w, c)
 
@@ -767,8 +800,7 @@ class Mlp(nn.Module):
 
     def shard(self, size: int, rank: int) -> None:
         """Hold model rank ``rank``'s share of the hidden (linear1's outputs,
-        linear2's inputs; the parameters are cut by ``shard_transformer``,
-        which refuses the fused route)."""
+        linear2's inputs; the parameters are cut by ``shard_transformer``)."""
         if self.linear1.out_features % size:
             raise ValueError(f"the FFN's {self.linear1.out_features} hidden features do "
                              f"not split over mesh.model={size}")
@@ -782,14 +814,24 @@ class Mlp(nn.Module):
             rate = self.drop.rate if self.training else 0.0
             seed = draw_seed(generator, x.device) if rate > 0.0 else 0
             dim = x.shape[-1]
-            seed = rank_seed(seed, x.numel() // dim * self.linear1.out_features)
+            ls, lb = ln
+            # the hidden dropout's row stride is the whole hidden's Hg; under
+            # tensor parallelism the kernel holds columns m Hl .. (m+1) Hl
+            hl = self.linear1.weight.shape[0]
+            m_size, m_rank = self.tp or (1, 0)
+            seed = rank_seed(seed, x.numel() // dim * hl * m_size)
+            b2 = self.linear2.bias.float()
+            if self.tp is not None:   # x, ls, lb into the TP region; b2 after the sum
+                x, ls, lb = enter_model(x, ls, lb)
+                b2 = torch.zeros_like(b2)
             fn = fused_ffn_plain if self.kernels == "plain" else fused_ffn
             out = fn(x.reshape(-1, dim).to(self.dtype).contiguous(),
                      self.linear1.weight.t().to(self.dtype).contiguous(),
                      self.linear1.bias.float(),
                      self.linear2.weight.t().to(self.dtype).contiguous(),
-                     self.linear2.bias.float(), ln[0].float(), ln[1].float(),
-                     seed, rate)
+                     b2, ls.float(), lb.float(), seed, rate, hl * m_size, hl * m_rank)
+            if self.tp is not None:
+                out = _row_parallel_out(out, self.linear2.bias, self.dtype)
             return out.reshape(x.shape)
         if self.tp is not None:     # linear1 column-, linear2 row-parallel
             y = F.gelu(_linear(self.linear1, enter_model(x)[0], self.dtype))

@@ -88,10 +88,13 @@ from vptr_tpu_torch.ops.window import (
     temporal_window_reverse,
 )
 
-# kernel routes that run a sharded sublayer through kernels #7-#12, or fold
-# the residual into #1 (where each model rank would add x again): refused
-# under tensor parallelism
-TP_REFUSED_ROUTES = ("fused_ffn", "fused_dw", "fused_conv_ffn", "fused_residual")
+# kernel routes refused under tensor parallelism: the conv FFN's fc1 / fc2
+# stages through kernels #11/#12, whose whole-sample LayerNorms would run
+# over a rank's hidden share (queued: the statistics exchanged as #9's are).
+# fused_ffn (#7/#8 on a hidden subset), fused_dw (#9/#10's tiled route
+# split at its statistics) and fused_residual (#1 unfolded, the residual
+# added after the reduce) run on the model axis.
+TP_REFUSED_ROUTES = ("fused_conv_ffn",)
 
 
 def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> nn.Module:
@@ -128,7 +131,7 @@ def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> n
             raise NotImplementedError(
                 f"transformer.{flag}=True with mesh.model={size}: tensor parallel on the "
                 f"{flag} route is not ported (the TP/SP slice runs kernels #1-#6 on a head "
-                f"subset; ROADMAP queues #7-#12 on a hidden subset)")
+                f"subset and #7-#10 on a hidden-channel subset; ROADMAP queues #11/#12)")
     for m in model.modules():
         if isinstance(m, (MultiHeadAttention, Mlp, MlpDWBN)):
             m.shard(size, rank)

@@ -14,7 +14,9 @@ call over heads h0 .. h0 + Hl - 1 of Hg (tensor parallelism) indexes
 ((b * Hg + h0 + h) * Tq + r) * Tk + c (``mask_heads``, ``head0``); the
 feed-forward kernels
 index their hidden by row * H + col (:func:`ffn_keep_mask`) and the
-dw chain by (sample * HW + r) * C + col (:func:`dw_keep_mask`). The device
+dw chain by (sample * HW + r) * C + col (:func:`dw_keep_mask`), and a
+call over hidden columns c0 .. c0 + Hl - 1 of Hg by row * Hg + c0 + col
+(``mask_cols``, ``col0``). The device
 function with the same arithmetic is ``csrc/hash_dropout.cuh``; this module
 is its torch twin, bit-equal to the JAX functions, used by the plain
 versions and the tests.
@@ -125,21 +127,37 @@ def window_keep_mask(seed: Seed, windows: int, heads: int, tokens: int,
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 
-def ffn_keep_mask(seed: Seed, rows: int, cols: int, rate: float,
-                  device=None) -> torch.Tensor:
-    """(rows, cols) hidden-dropout keep mask of the fused FFN kernel: the
-    element index is row * cols + col (``fused_ffn.py:47-57``)."""
+def column_index(rows: int, cols: int, mask_cols: Optional[int] = None,
+                 col0: int = 0, device=None) -> torch.Tensor:
+    """(rows, cols) int64 tensor of the uint32 index row * C' + c0 + col:
+    the ``cols`` columns are columns c0 .. c0 + cols - 1 of ``mask_cols``
+    (C', default ``cols``)."""
+    cg = cols if mask_cols is None else mask_cols
+    if col0 < 0 or col0 + cols > cg:
+        raise ValueError(f"columns {col0} .. {col0 + cols - 1} are not columns of {cg}")
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    idx = (_mul32(ar(rows)[:, None], cols) + ar(cols)[None, :]) & _U32
+    return (_mul32(ar(rows)[:, None] & _U32, cg) + col0 + ar(cols)[None, :]) & _U32
+
+
+def ffn_keep_mask(seed: Seed, rows: int, cols: int, rate: float,
+                  device=None, mask_cols: Optional[int] = None,
+                  col0: int = 0) -> torch.Tensor:
+    """(rows, cols) hidden-dropout keep mask of the fused FFN kernel: the
+    element index is row * cols + col (``fused_ffn.py:47-57``); with
+    ``mask_cols`` and ``col0`` the columns c0 .. c0 + cols - 1 of that
+    call's ``mask_cols``."""
+    idx = column_index(rows, cols, mask_cols, col0, device)
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 
 def dw_keep_mask(seed: Seed, n: int, hw: int, c: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, mask_cols: Optional[int] = None,
+                 col0: int = 0) -> torch.Tensor:
     """(N, HW, C) keep mask of the fused dw-chain kernel: the element index
     is (sample * HW + r) * C + col with r over the (h, w) positions in
-    row-major order (``fused_dw_chain.py:44-60``)."""
-    idx = element_index(n, hw, 1, c, device=device)[:, :, 0]
+    row-major order (``fused_dw_chain.py:44-60``); with ``mask_cols`` and
+    ``col0`` the channels c0 .. c0 + C - 1 of that call's ``mask_cols``."""
+    idx = column_index(n * hw, c, mask_cols, col0, device).view(n, hw, c)
     return hash_uniform(idx, seed) >= torch.tensor(rate, dtype=torch.float32)
 
 

@@ -37,6 +37,18 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
   the same by route).
 * The dropout is the counter hash of ``ops/dropout.py`` with element index
   (sample * HW + r) * C + col.
+* Tensor parallelism (``model`` = (M, m)): x holds model rank m's share of
+  Cg = M C channels, c0 = m C .. c0 + C - 1, and both LayerNorms run over
+  the whole sample, every share's channels. On the card the call takes
+  the tiled route split at its statistics (:func:`split_forward`,
+  :func:`split_backward`): each pass writes the share's per-tile partials,
+  every rank's are gathered over the model group
+  (:func:`~vptr_tpu_torch.parallel.mesh.gather_model_parts`) and merged in
+  the whole call's tile order, so a rank's output is its slice of the
+  whole tiled call's bits. The plain versions take the sample's sums over
+  the model group (:func:`~vptr_tpu_torch.parallel.mesh.model_sum`). The
+  dropout indexes by the global channel, (sample * HW + r) * Cg + c0 +
+  col; the taps', dwb's and the affines' gradients are the share's.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from vptr_tpu_torch.ops import _build
 from vptr_tpu_torch.ops.attention_core import _dropout_args, needs_grad, seed_tensor
 from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dw_keep_mask
 from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
+from vptr_tpu_torch.parallel.mesh import gather_model_parts, model_size, model_sum
 
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,13 +69,34 @@ ROUTES = ("per_sample", "persistent", "tiled")   # #9's routes, as the library n
 BWD_ROUTES = ("groups", "persistent", "tiled")   # #10's routes, as its library numbers them
 
 
-def _sample_ln(z):
+def _sample_mean(z, model=None):
+    """The mean over each sample's (HW, C) of z (N, HW, C); under ``model``
+    (M, m) over every model rank's channels (the sums added up over the
+    model group, differentiably)."""
+    if model is None:
+        return z.mean((1, 2), keepdim=True)
+    return model_sum(z.sum((1, 2), keepdim=True)) / (z.shape[1] * z.shape[2] * model[0])
+
+
+def _sample_ln(z, model=None):
     """(xhat, rstd) of a whole-sample LayerNorm over (HW, C), two-pass
-    variance (``_sample_forward``)."""
-    mean = z.mean((1, 2), keepdim=True)
-    zc = z - mean
-    rstd = torch.rsqrt((zc * zc).mean((1, 2), keepdim=True) + LN_EPS)
+    variance (``_sample_forward``); under ``model`` over every rank's
+    channels."""
+    zc = z - _sample_mean(z, model)
+    rstd = torch.rsqrt(_sample_mean(zc * zc, model) + LN_EPS)
     return zc * rstd, rstd
+
+
+def _model(model):
+    """``model`` (M, m) as the plain versions take it: None for a whole
+    call; a share needs the active mesh's model group of M ranks."""
+    if model is None or model[0] == 1:
+        return None
+    if model_size() != model[0]:
+        raise ValueError(f"fused_dw_chain on model rank {model[1]} of {model[0]}: the LayerNorms "
+                         f"run over every rank's channels, which needs the mesh's model group "
+                         f"(the active mesh has mesh.model={model_size()})")
+    return model
 
 
 def _dw3x3(z, taps, dwb, w: int):
@@ -89,45 +123,49 @@ def _dw3x3_t(dz, taps, w: int):
     return acc.reshape(n, hw, c)
 
 
-def _keep(seed, x, rate):
+def _keep(seed, x, rate, model=None):
     n, hw, c = x.shape
-    return dw_keep_mask(seed, n, hw, c, rate, x.device) if rate > 0.0 else None
+    cols = {} if model is None else dict(mask_cols=c * model[0], col0=c * model[1])
+    return dw_keep_mask(seed, n, hw, c, rate, x.device, **cols) if rate > 0.0 else None
 
 
-def _chain(x, taps, dwb, s1, b1, s2, b2, w):
+def _chain(x, taps, dwb, s1, b1, s2, b2, w, model=None):
     """The forward in f32 before the dropout; returns (z3, xhat1, rstd1,
     a1, z1, xhat2, rstd2, a2)."""
-    xhat1, rstd1 = _sample_ln(x.float())
+    xhat1, rstd1 = _sample_ln(x.float(), model)
     a1 = xhat1 * s1.float() + b1.float()
     z1 = gelu_as(a1)
     z2 = _dw3x3(z1, taps, dwb, w)
-    xhat2, rstd2 = _sample_ln(z2)
+    xhat2, rstd2 = _sample_ln(z2, model)
     a2 = xhat2 * s2.float() + b2.float()
     return gelu_as(a2), xhat1, rstd1, a1, z1, xhat2, rstd2, a2
 
 
 def fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 8,
-                         rate: float = 0.0) -> torch.Tensor:
+                         rate: float = 0.0, model=None) -> torch.Tensor:
     """Plain PyTorch version of kernel #9 (``_reference_dw_chain``): all f32,
-    rounded to x's dtype once."""
-    z3 = _chain(x, taps, dwb, s1, b1, s2, b2, w)[0]
-    return apply_dropout(z3, _keep(seed, x, rate), rate).to(x.dtype)
+    rounded to x's dtype once. ``model`` (M, m): x is model rank m's share
+    of the channels (the module notes)."""
+    model = _model(model)
+    z3 = _chain(x, taps, dwb, s1, b1, s2, b2, w, model)[0]
+    return apply_dropout(z3, _keep(seed, x, rate, model), rate).to(x.dtype)
 
 
 def fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
-                                  rate: float = 0.0):
+                                  rate: float = 0.0, model=None):
     """Plain backward of kernel #9 (mirrors ``_bwd_kernel``). Returns (dx,
     dtaps, ddwb, ds1, db1, ds2, db2): dx in x's dtype, the rest f32 summed
-    over the samples."""
+    over the samples (under ``model`` the share's)."""
+    model = _model(model)
     _, xhat1, rstd1, a1, z1, xhat2, rstd2, a2 = _chain(x, taps, dwb, s1, b1,
-                                                       s2, b2, w)
-    gs = apply_dropout(g.float(), _keep(seed, x, rate), rate)
+                                                       s2, b2, w, model)
+    gs = apply_dropout(g.float(), _keep(seed, x, rate, model), rate)
     da2 = gs * gelu_as_grad(a2)
     dxh2 = da2 * s2.float()
 
     def ln_back(dxh, xhat, rstd):
-        return (dxh - dxh.mean((1, 2), keepdim=True)
-                - xhat * (dxh * xhat).mean((1, 2), keepdim=True)) * rstd
+        return (dxh - _sample_mean(dxh, model)
+                - xhat * _sample_mean(dxh * xhat, model)) * rstd
 
     dz2 = ln_back(dxh2, xhat2, rstd2)
     n, hw, c = x.shape
@@ -141,62 +179,70 @@ def fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int 
             da1.sum(0), (da2 * xhat2).sum(0), da2.sum(0))
 
 
-def _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+def _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model=None):
     """The forward for either device; ``seed`` a tensor or None (rate 0)."""
     if x.device.type == "cpu":
-        return fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+        return fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)
+    if _model(model) is not None:
+        return run_split([split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)],
+                         _model_exchange)[0]
     return _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
 
 
 class _FusedDwChain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, taps, dwb, s1, b1, s2, b2, seed, w, rate):
+    def forward(ctx, x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model):
         ctx.save_for_backward(x, taps, dwb, s1, b1, s2, b2, seed)
-        ctx.w, ctx.rate = w, rate
-        return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+        ctx.w, ctx.rate, ctx.model = w, rate, model
+        return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)
 
     @staticmethod
     def backward(ctx, g):
         x, taps, dwb, s1, b1, s2, b2, seed = ctx.saved_tensors
         grads = fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed,
-                                        g.contiguous(), ctx.w, ctx.rate)
+                                        g.contiguous(), ctx.w, ctx.rate, ctx.model)
         refs = (x, taps, dwb, s1, b1, s2, b2)
-        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None,) * 3
+        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None,) * 4
 
 
 def fused_dw_chain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 8,
-                   rate: float = 0.0) -> torch.Tensor:
+                   rate: float = 0.0, model=None) -> torch.Tensor:
     """norm1 -> GELU -> dw3x3 -> norm2 -> GELU -> dropout over x (N, HW, C)
     on the (HW / w, w) grid; see the module docstring. The caller runs fc1
-    before and fc2 (+ norm3, GELU, dropout) after. Differentiable in every
-    tensor but the seed."""
+    before and fc2 (+ norm3, GELU, dropout) after. ``model`` (M, m): x is
+    model rank m's share of the channels, the call a collective of the
+    model group (the module notes). Differentiable in every tensor but the
+    seed."""
     if x.device.type != "cpu" and not x.is_cuda:
         raise ValueError(f"fused_dw_chain: unsupported device {x.device}")
     rate = float(rate)
     seed = seed_tensor(seed, x.device) if rate > 0.0 else None
     if needs_grad(x, taps, dwb, s1, b1, s2, b2):
-        return _FusedDwChain.apply(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
-    return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
+        return _FusedDwChain.apply(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)
+    return _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)
 
 
 fused_dw_chain.launches = 0
 fused_dw_chain.bwd_launches = 0
-fused_dw_chain.launches_by_route = dict.fromkeys(ROUTES, 0)
-fused_dw_chain.bwd_launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+fused_dw_chain.launches_by_route = dict.fromkeys(ROUTES + ("tiled_split",), 0)
+fused_dw_chain.bwd_launches_by_route = dict.fromkeys(BWD_ROUTES + ("tiled_split",), 0)
 
 
 def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
-                            rate: float = 0.0):
+                            rate: float = 0.0, model=None):
     """The backward on its own (what the autograd Function calls): kernel
     #10 for CUDA tensors (counted in ``fused_dw_chain.bwd_launches``),
     :func:`fused_dw_chain_backward_plain` for CPU tensors. Returns the tuple
     that function documents."""
     if x.device.type == "cpu":
         return fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed,
-                                             g, w, rate)
+                                             g, w, rate, model)
     if rate > 0.0:
         seed = seed_tensor(seed, x.device)
+    if _model(model) is not None:
+        return run_split([split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate,
+                                         model)], _model_exchange)[0]
     return _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate)
 
 
@@ -372,6 +418,125 @@ def _check_tiled(what, x, w):
                          f"N <= {T_MAX_N})")
 
 
+# ---- the tiled route split at its statistics (tensor parallelism)
+
+def _check_split(what, x, w, model):
+    if x.dim() != 3:
+        raise ValueError(f"{what} takes x (N, HW, C), got {tuple(x.shape)}")
+    n, hw, c = x.shape
+    if not tiled_ok(hw, c, w) or n > T_MAX_N:
+        raise ValueError(
+            f"{what} on model rank {model[1]} of {model[0]} runs the tiled route split at its "
+            f"statistics, which takes a rank's channels a multiple of {T_CH} (whole tiles of "
+            f"the whole call), w <= {T_MAX_W} dividing HW and N <= {T_MAX_N}: got C={c} a rank "
+            f"(C={c * model[0]} over mesh.model={model[0]}), HW={hw}, w={w}, N={n}")
+
+
+def _merge(lib, parts, out, w, mode, stream):
+    """Every rank's partials ``parts`` (M, N, H, Cl / 32, 2), in rank order,
+    merged into ``out`` (N, 2) in the whole call's tile order (a grid row's
+    tiles rank by rank): mode 0 moments into (mean, rstd), 1 sums into
+    their means."""
+    whole = parts.permute(1, 2, 0, 3, 4).contiguous()
+    n, tiles = whole.shape[0], whole.shape[1] * whole.shape[2] * whole.shape[3]
+    err = lib.vptr_fused_dw_chain_tiled_merge(_build.ptr(whole), _build.ptr(out), n, tiles, w,
+                                              LN_EPS, mode, stream)
+    _build.check(lib, err, "fused_dw_chain tiled merge")
+
+
+def split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model):
+    """Kernel #9's tiled route on model rank m's share of the channels
+    (``model`` = (M, m); every operand the share's, ``seed`` a tensor or
+    None at rate 0), as a generator of its exchanges: it yields each
+    statistic's per-tile partials (N, HW / w, C / 32, 2) and takes back
+    every rank's stacked in rank order (M, N, HW / w, C / 32, 2); returns
+    the share's output (:func:`run_split` drives it). Counted in
+    ``fused_dw_chain.launches`` when it completes."""
+    _check_split("fused_dw_chain", x, w, model)
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    lib, p = _lib(), _build.ptr
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out, z2 = torch.empty_like(x), torch.empty(n, hw, c, **f32)
+    part = torch.empty(n, hw // w, c // T_CH, 2, **f32)
+    stats = torch.empty(2, n, 2, **f32)
+    drop = (*_dropout_args(seed, rate), c * model[0], c * model[1])
+    for step in range(3):
+        err = lib.vptr_fused_dw_chain_tiled_step(
+            step, p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(out), p(z2), p(part),
+            p(stats), n, hw, w, c, *drop, _DTYPES[x.dtype], stream)
+        _build.check(lib, err, f"fused_dw_chain (tiled_split, step {step})")
+        if step < 2:
+            _merge(lib, (yield part), stats[step], w, 0, stream)
+    fused_dw_chain.launches += 1
+    fused_dw_chain.launches_by_route["tiled_split"] += 1
+    return out
+
+
+def split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, model):
+    """Kernel #10's tiled route on model rank m's share, as
+    :func:`split_forward`: four exchanges (x's and z2's moments, LN2's and
+    LN1's backward sums); returns the share's (dx, dtaps, ddwb, ds1, db1,
+    ds2, db2). Counted in ``fused_dw_chain.bwd_launches`` when it
+    completes."""
+    _check_split("fused_dw_chain backward", x, w, model)
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"fused_dw_chain backward: g {tuple(g.shape)} {g.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    lib, fwd_lib, p = _lib_bwd(), _lib(), _build.ptr
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    f32 = dict(dtype=torch.float32, device=x.device)
+    groups = lib.vptr_fused_dw_chain_bwd_tiled_groups(n)
+    dx = torch.empty_like(x)
+    dtaps, ddwb = torch.empty(9, c, **f32), torch.empty(c, **f32)
+    ds1, db1, ds2, db2 = (torch.empty(hw, c, **f32) for _ in range(4))
+    z2, da1 = (torch.empty(n, hw, c, **f32) for _ in range(2))
+    part = torch.empty(n, hw // w, c // T_CH, 2, **f32)
+    stats = torch.empty(4, n, 2, **f32)
+    gpart = torch.empty(groups, 4, hw, c, **f32)
+    tpart = torch.empty(groups, hw // w, 10, c, **f32)
+    drop = (*_dropout_args(seed, rate), c * model[0], c * model[1])
+    for step in range(5):
+        err = lib.vptr_fused_dw_chain_bwd_tiled_step(
+            step, p(x), p(taps), p(dwb), p(s1), p(b1), p(s2), p(b2), p(g), p(dx), p(dtaps),
+            p(ddwb), p(ds1), p(db1), p(ds2), p(db2), p(z2), p(da1), p(part), p(stats),
+            p(gpart), p(tpart), n, hw, w, c, *drop, _DTYPES[x.dtype], stream)
+        _build.check(lib, err, f"fused_dw_chain backward (tiled_split, step {step})")
+        if step < 4:
+            _merge(fwd_lib, (yield part), stats[step], w, 0 if step < 2 else 1, stream)
+    fused_dw_chain.bwd_launches += 1
+    fused_dw_chain.bwd_launches_by_route["tiled_split"] += 1
+    return dx, dtaps, ddwb, ds1, db1, ds2, db2
+
+
+def run_split(calls, exchange=None):
+    """Drive model ranks' split calls (:func:`split_forward`,
+    :func:`split_backward`) in step; returns each one's result. ``exchange``
+    maps the calls' partials to what each gets back; the default stacks
+    them in order, so ``calls`` of ranks 0 .. M - 1 run the M ranks in one
+    process (the tests' and the smoke run's comparisons)."""
+    exchange = exchange or (lambda parts: [torch.stack(parts)] * len(parts))
+    got, results = [None] * len(calls), [None] * len(calls)
+    while True:
+        parts = []
+        for i, call in enumerate(calls):
+            try:
+                parts.append(call.send(got[i]))
+            except StopIteration as done:
+                results[i] = done.value
+        if len(parts) == 0:
+            return results
+        if len(parts) != len(calls):
+            raise RuntimeError("fused_dw_chain: the split calls are out of step")
+        got = exchange(parts)
+
+
+def _model_exchange(parts):
+    """A rank's partials gathered over the model group in rank order."""
+    return [gather_model_parts(parts[0])]
+
+
 def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, route=None):
     """Kernel #9 on ``route`` (default: :func:`kernel_route`'s); a shape the
     route does not take raises."""
@@ -496,6 +661,11 @@ def _lib() -> ctypes.CDLL:
         lib.vptr_fused_dw_chain_route.restype = i
         lib.vptr_fused_dw_chain_tiled.argtypes = [p] * 11 + [i] * 4 + [f, p, f, f, i, p]
         lib.vptr_fused_dw_chain_tiled.restype = i
+        lib.vptr_fused_dw_chain_tiled_step.argtypes = [i] + [p] * 11 + [i] * 4 + [
+            p, f, f, i, i, i, p]
+        lib.vptr_fused_dw_chain_tiled_step.restype = i
+        lib.vptr_fused_dw_chain_tiled_merge.argtypes = [p, p, i, i, i, f, i, p]
+        lib.vptr_fused_dw_chain_tiled_merge.restype = i
     return lib
 
 
@@ -520,4 +690,7 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.vptr_fused_dw_chain_bwd_tiled_groups.restype = i
         lib.vptr_fused_dw_chain_bwd_tiled.argtypes = [p] * 21 + [i] * 4 + [f, p, f, f, i, p]
         lib.vptr_fused_dw_chain_bwd_tiled.restype = i
+        lib.vptr_fused_dw_chain_bwd_tiled_step.argtypes = [i] + [p] * 21 + [i] * 4 + [
+            p, f, f, i, i, i, p]
+        lib.vptr_fused_dw_chain_bwd_tiled_step.restype = i
     return lib

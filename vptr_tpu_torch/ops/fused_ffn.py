@@ -22,6 +22,12 @@ joined by ``jax.custom_vjp``:
 * x (S, C) and the weights (w1 (C, H), w2 (H, C), the JAX Dense layout)
   are in the compute dtype T; b1, b2, ls, lb are f32. The gradients come
   back in each operand's dtype.
+* Tensor parallelism: a call over hidden columns c0 .. c0 + Hl - 1 of Hg
+  (``mask_cols`` Hg, ``col0`` c0: w1's columns, b1's and w2's rows, b2
+  zero) gives the rank's partial sum of y; its hidden dropout is the whole
+  call's mask at those columns, its dx, dls, dlb partial sums and dW1,
+  db1, dW2 the rank's shares (``models/layers.py::Mlp`` sums them over the
+  model group).
 """
 
 from __future__ import annotations
@@ -49,25 +55,27 @@ def _ln_rows(x2, ls, lb):
     return xhat * ls.float() + lb.float(), xhat, rstd
 
 
-def _keep(seed, rows, hidden, rate, device):
-    return ffn_keep_mask(seed, rows, hidden, rate, device) if rate > 0.0 else None
+def _keep(seed, rows, hidden, rate, device, mask_cols=None, col0=0):
+    return (ffn_keep_mask(seed, rows, hidden, rate, device, mask_cols, col0)
+            if rate > 0.0 else None)
 
 
 def fused_ffn_plain(x, w1, b1, w2, b2, ls, lb, seed: Seed = 0,
-                    rate: float = 0.0) -> torch.Tensor:
+                    rate: float = 0.0, mask_cols=None, col0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of kernel #7 (``_reference_ffn``): xn rounded
-    to x's dtype, fc1 in f32 + b1, the A&S GELU, the hash dropout, the
-    hidden rounded to x's dtype, fc2 in f32 + b2, rounded once."""
+    to x's dtype, fc1 in f32 + b1, the A&S GELU, the hash dropout (at the
+    hidden columns c0 .. of ``mask_cols``, default all), the hidden rounded
+    to x's dtype, fc2 in f32 + b2, rounded once."""
     dt = x.dtype
     xn = _ln_rows(x.float(), ls, lb)[0].to(dt)
     a = torch.matmul(xn.float(), w1.float()) + b1.float()
-    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device)
+    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device, mask_cols, col0)
     hd = apply_dropout(gelu_as(a), keep, rate).to(dt)
     return (torch.matmul(hd.float(), w2.float()) + b2.float()).to(dt)
 
 
 def fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
-                             rate: float = 0.0):
+                             rate: float = 0.0, mask_cols=None, col0: int = 0):
     """Plain backward of kernel #7 (mirrors ``_bwd_kernel``): recompute
     xn (rounded) and the f32 hidden; every product on f32 operands, dW2
     from the unrounded dropped hidden (the forward's fc2 took it rounded).
@@ -78,7 +86,7 @@ def fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
     xn32, xhat, rstd = _ln_rows(x.float(), ls, lb)
     xn = xn32.to(dt).float()
     a = torch.matmul(xn, w1.float()) + b1.float()
-    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device)
+    keep = _keep(seed, x.shape[0], w1.shape[1], rate, x.device, mask_cols, col0)
     hd = apply_dropout(gelu_as(a), keep, rate)
     dw2 = torch.matmul(hd.t(), g2)
     dh = apply_dropout(torch.matmul(g2, w2.float().t()), keep, rate)
@@ -93,60 +101,66 @@ def fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
             g2.sum(0), (dxn * xhat).sum(0), dxn.sum(0))
 
 
-def _forward(x, w1, b1, w2, b2, ls, lb, seed, rate):
+def _forward(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols=None, col0=0):
     """The forward for either device; ``seed`` a tensor or None (rate 0)."""
     if x.device.type == "cpu":
-        return fused_ffn_plain(x, w1, b1, w2, b2, ls, lb, seed, rate)
-    return _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate)
+        return fused_ffn_plain(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0)
+    return _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0)
 
 
 class _FusedFFN(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, ls, lb, seed, rate):
+    def forward(ctx, x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0):
         ctx.save_for_backward(x, w1, b1, w2, b2, ls, lb, seed)
-        ctx.rate = rate
-        return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate)
+        ctx.rate, ctx.cols = rate, (mask_cols, col0)
+        return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, b2, ls, lb, seed = ctx.saved_tensors
         grads = fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed,
-                                   g.contiguous(), ctx.rate)
+                                   g.contiguous(), ctx.rate, *ctx.cols)
         refs = (x, w1, b1, w2, b2, ls, lb)
-        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None, None)
+        return tuple(d.to(r.dtype) for d, r in zip(grads, refs)) + (None,) * 4
 
 
 def fused_ffn(x, w1, b1, w2, b2, ls, lb, seed: Seed = 0,
-              rate: float = 0.0) -> torch.Tensor:
+              rate: float = 0.0, mask_cols=None, col0: int = 0) -> torch.Tensor:
     """norm4 + Mlp over x (S, C): ``ls``/``lb`` the LayerNorm affine (C,),
     ``seed``/``rate`` the in-kernel hidden dropout. The caller adds the
-    residual and the block's outer dropout. Differentiable in every tensor
-    but the seed."""
+    residual and the block's outer dropout. ``mask_cols``, ``col0``: the
+    call holds hidden columns c0 .. c0 + H - 1 of ``mask_cols`` (tensor
+    parallelism; the module notes). Differentiable in every tensor but the
+    seed."""
     if x.device.type != "cpu" and not x.is_cuda:
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
+    if col0 < 0 or col0 + w1.shape[-1] > (mask_cols or w1.shape[-1]):
+        raise ValueError(f"fused_ffn: hidden columns {col0} .. {col0 + w1.shape[-1] - 1} are "
+                         f"not columns of {mask_cols}")
     rate = float(rate)
     seed = seed_tensor(seed, x.device) if rate > 0.0 else None
     if needs_grad(x, w1, b1, w2, b2, ls, lb):
-        return _FusedFFN.apply(x, w1, b1, w2, b2, ls, lb, seed, rate)
-    return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate)
+        return _FusedFFN.apply(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0)
+    return _forward(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols, col0)
 
 
 fused_ffn.launches = 0
 fused_ffn.bwd_launches = 0
 
 
-def fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed, g, rate: float = 0.0):
+def fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed, g, rate: float = 0.0,
+                       mask_cols=None, col0: int = 0):
     """The backward on its own (what the autograd Function calls): kernel
     #8 for CUDA tensors (counted in ``fused_ffn.bwd_launches``),
     :func:`fused_ffn_backward_plain` for CPU tensors. Returns the tuple
     that function documents."""
     if x.device.type == "cpu":
         return fused_ffn_backward_plain(x, w1, b1, w2, b2, ls, lb, seed, g,
-                                        rate)
+                                        rate, mask_cols, col0)
     if rate > 0.0:
         seed = seed_tensor(seed, x.device)
-    return _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate)
+    return _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate, mask_cols, col0)
 
 
 def kernel_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
@@ -239,7 +253,7 @@ def _operands(x, w1, b1, w2, b2, ls, lb):
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 
 
-def _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate):
+def _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate, mask_cols=None, col0=0):
     s, c, h = _operands(x, w1, b1, w2, b2, ls, lb)
     lib = _lib()
     smem = lib.vptr_fused_ffn_smem(c, h, _DTYPES[x.dtype])
@@ -255,7 +269,7 @@ def _forward_kernel(x, w1, b1, w2, b2, ls, lb, seed, rate):
     p = _build.ptr
     err = lib.vptr_fused_ffn(
         p(x), p(w1), p(b1), p(w2), p(b2), p(ls), p(lb), p(out), p(part), s, c, h,
-        LN_EPS, *_dropout_args(seed, rate), _DTYPES[x.dtype],
+        LN_EPS, *_dropout_args(seed, rate), mask_cols or 0, col0, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "fused_ffn")
     fused_ffn.launches += 1
@@ -270,11 +284,11 @@ class _BwdArgs(ctypes.Structure):
         "mean", "rstd", "xn", "act", "dact", "hilo", "dbpart", "dxn", "wpart1",
         "wpart2", "partial")]
         + [(n, ctypes.c_int) for n in ("rows", "channels", "hidden", "dtype",
-                                       "ksplit", "parts")]
+                                       "ksplit", "parts", "mask_cols", "col0")]
         + [(n, ctypes.c_float) for n in ("eps", "rate", "keep_div")])
 
 
-def _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate):
+def _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate, mask_cols=None, col0=0):
     s, c, h = _operands(x, w1, b1, w2, b2, ls, lb)
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() \
             or g.data_ptr() % 16:
@@ -311,8 +325,8 @@ def _backward_kernel(x, w1, b1, w2, b2, ls, lb, seed, g, rate):
                  **{k: p(v) for k, v in grads.items()},
                  **{k: p(v) for k, v in scratch.items()},
                  rows=s, channels=c, hidden=h, dtype=_DTYPES[dt],
-                 ksplit=ksplit, parts=parts, eps=LN_EPS, rate=rate,
-                 keep_div=keep_div)
+                 ksplit=ksplit, parts=parts, mask_cols=mask_cols or 0, col0=col0,
+                 eps=LN_EPS, rate=rate, keep_div=keep_div)
     err = lib.vptr_fused_ffn_bwd(ctypes.byref(a),
                                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused_ffn backward")
@@ -326,7 +340,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vptr_fused_ffn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 3 + [f, p, f, f, i, p]
+        fn.argtypes = [p] * 9 + [i] * 3 + [f, p, f, f, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.vptr_fused_ffn_smem.argtypes = [i] * 3
         lib.vptr_fused_ffn_smem.restype = ctypes.c_long

@@ -24,7 +24,8 @@ data axis (``train_FAR_mp.py:200-204, 295-316, 320-326``):
   global call's mask;
 * the model axis: the autograd collectives of the TP and SP regions
   (:func:`enter_model`, :func:`reduce_model`, :func:`model_sum`,
-  :func:`scatter_model`, :func:`gather_model`, :func:`gather_params`) and
+  :func:`scatter_model`, :func:`gather_model`, :func:`gather_params`), the
+  split kernels' exchange of partials (:func:`gather_model_parts`) and
   the port's TP rules (:func:`tp_dim`), by which a whole state is cut to a
   rank's shares (:func:`shard_state`) and gathered back
   (:func:`gather_state`).
@@ -307,6 +308,20 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     over channels split across the model ranks (LayerNormHWC's moments
     over the conv FFN's hidden); ``x`` itself without a model axis."""
     return _AllReduceSum.apply(x, _model_group()) if model_size() > 1 else x
+
+
+def gather_model_parts(x: torch.Tensor) -> torch.Tensor:
+    """Every model rank's ``x`` (f32 partials: a split kernel's per-tile
+    moments or sums), stacked in rank order on a new leading dim (M, ...):
+    every rank holds the same bits, so a merge of them in a fixed order is
+    the same on every rank. Not differentiable (a kernel's exchange)."""
+    if model_size() == 1:
+        return x[None]
+    group = _model_group()
+    x32 = _f32(x)
+    parts = [torch.empty_like(x32) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x32, group=group)
+    return torch.stack(parts)
 
 
 def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
