@@ -254,12 +254,15 @@ Phases (any failure exits non-zero, without the final result line):
    #2 20 and their backwards a rank);
 44. `torchrun --nproc_per_node=2 -m vptr_tpu_torch.cli train --preset
    far_mnist --set mesh.model=2 --set transformer.sequence_parallel=true`
-   with the fused-FFN route's five flags (fused_attention, fused_full,
-   fused_residual, fused_ffn, fused_dw) (2 steps and a checkpoint; on one
-   card the ranks share it over gloo, VPTR_RANKS_SHARE_CARDS), resumed by
-   one process's cli train with mesh.model 1 for 2 more, against an
-   unbroken one-process run of 4 on the route that runs beside the
-   torchrun (each epoch's T_total, the transformer's relative L2);
+   on two routes side by side: the fused-FFN route's five flags
+   (fused_attention, fused_full, fused_residual, fused_ffn, fused_dw) and
+   the conv-FFN route's (fused_attention, fused_full, fused_residual,
+   fused_ffn, fused_conv_ffn, fused_full_temporal) (2 steps and a
+   checkpoint each; on one card the ranks share it over gloo,
+   VPTR_RANKS_SHARE_CARDS), each resumed by one process's cli train with
+   mesh.model 1 for 2 more, against an unbroken one-process run of 4 on
+   its route that runs beside the torchrun (each epoch's T_total, the
+   transformer's relative L2);
 45. kernels #9-#12 at nar_kth_128's 16 x 16 latent (80 decoder samples of
    256 positions; #9/#10 at the hidden 2112 on a 16-wide grid, #11/#12 at
    fc1 528 -> 2112 and fc2 2112 -> 528) against their plain versions on
@@ -299,7 +302,21 @@ Phases (any failure exits non-zero, without the final result line):
    train step against the one-rank step as phase 42, each rank launching
    #1-#4 and #7-#10 12 times (#9/#10 all on the split tiled route); its
    torchrun cli train is phase 44's;
-53. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+53. kernels #11/#12 as the conv FFN's column-parallel fc1 (each rank on
+   its share of the 2112 hidden channels, norm1's per-row moments and
+   LN's backward sums gathered over the ranks and merged) and row-parallel
+   fc2 (the ranks' partial products summed in f32 in rank order before
+   the moments), two and four ranks run in step in one process, at
+   far_mnist's 190 x 64, bf16 and f32, against their plain versions on a
+   rank's share and against the whole tiled call (its max |err|
+   reported); a rank's times beside the plain versions, a library
+   yardstick (eager and graph-replayed) and their bounds;
+54. far_mnist at full width on a (1, 2) mesh on the conv-FFN route
+   (fused_conv_ffn, fused_full_temporal): one train step against the
+   one-rank step as phase 42, each rank launching #1/#3 and #11/#12 24
+   times (12 `tiled_split` and 12 `tiled_rows` each); its torchrun cli
+   train is phase 44's;
+55. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -314,7 +331,9 @@ Phases (any failure exits non-zero, without the final result line):
    library yardstick and bound), and a rank's launches in phases 42 and
    43, `tp_step_launches_a_rank`; #9-#12 at nar_kth_128's shapes,
    `nar_kth_128`; #7-#10 with their hidden-subset readings,
-   `hidden_subset`, and a rank's launches in phase 52),
+   `hidden_subset`, and a rank's launches in phase 52; #11/#12 with
+   their fc1 split and fc2 rows readings, `tensor_parallel`, and a rank's
+   launches in phase 54),
    the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -3262,6 +3281,15 @@ TP_TIMED_STEPS = 1                       # a rank's timed steps (a gloo step on 
 # the fused-FFN route with the folded window residual (phases 44 and 52)
 TP_FFN_FLAGS = {"fused_attention": True, "fused_full": True, "fused_residual": True,
                 "fused_ffn": True, "fused_dw": True}
+# the conv-FFN route with the folded temporal sublayer (phase 54)
+TP_CONV_FLAGS = {"fused_conv_ffn": True, "fused_full_temporal": True}
+# phase 44's conv-FFN route torchrun (its fused-FFN route one runs TP_FFN_FLAGS
+# beside it; one run cannot hold both, fused_dw taking precedence over
+# fused_conv_ffn): #1 unfolded at the window sublayer and folded at the
+# temporal one, #7/#8 on a hidden subset, #11/#12 as fc1's column- and fc2's
+# row-parallel steps
+TP_CONV_CLI_FLAGS = {"fused_attention": True, "fused_full": True, "fused_residual": True,
+                "fused_ffn": True, "fused_conv_ffn": True, "fused_full_temporal": True}
 
 
 def _subset_window_ops(ops, hl, h0, hd):
@@ -3477,7 +3505,8 @@ def tp_kernel_phases(dev):
 
 TP_COUNTERS = ("fused_attention_ln", "fused_attention", "attention_core",
                "fused_attention_ln_bwd", "fused_attention_bwd", "attention_core_bwd",
-               "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd")
+               "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd",
+               "conv_ln_gelu", "conv_ln_gelu_bwd")
 
 
 def _tp_run(dev, preset, flags, mesh=None):
@@ -3522,7 +3551,7 @@ def _whole(state, grad):
 
 
 def _worker_tp_step(out_dir):
-    """Phases 42, 43 and 52 on each rank: the preset's step on a (1, W) mesh
+    """Phases 42, 43, 52 and 54 on each rank: the preset's step on a (1, W) mesh
     (tensor parallelism, and sequence parallelism with the flag), every
     launch counter at 0 just before it; rank 0 saves the whole gradients
     and parameters. Then, that step the warm-up, the next one's ms and
@@ -3539,6 +3568,7 @@ def _worker_tp_step(out_dir):
     step, state, cfg, (past, future) = _tp_run(torch.device("cuda"), args["preset"],
                                                args["flags"], mesh)
     start = _whole(state, False)
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
     from vptr_tpu_torch.ops import fused_dw_chain as tdw
 
     zero_counters()
@@ -3547,6 +3577,8 @@ def _worker_tp_step(out_dir):
     launches = launch_counts(*TP_COUNTERS)
     dw_routes = {"forward": dict(tdw.fused_dw_chain.launches_by_route),
                  "backward": dict(tdw.fused_dw_chain.bwd_launches_by_route)}
+    conv_routes = {"forward": dict(tcl.conv_ln_gelu.launches_by_route),
+                   "backward": dict(tcl.conv_ln_gelu.bwd_launches_by_route)}
     grads, params = _whole(state, True), _whole(state, False)
     if host_id() == 0:
         torch.save({"start": start, "grads": grads, "params": params}, out_dir / "got.pt")
@@ -3564,7 +3596,7 @@ def _worker_tp_step(out_dir):
     dist.all_reduce(same, op=dist.ReduceOp.MIN)
     out = {"backend": dist.get_backend(), "world": num_hosts(),
            "mesh": [mesh.data, mesh.model], "metrics": {k: float(v) for k, v in m.items()},
-           "launches": launches, "dw_routes": dw_routes,
+           "launches": launches, "dw_routes": dw_routes, "conv_routes": conv_routes,
            "replicated_bit_equal": bool(same.item() == 1.0),
            "local_q_rows": int(next(mod for mod in state.transformer.modules()
                                     if type(mod).__name__ == "MultiHeadAttention")
@@ -3603,11 +3635,13 @@ def _worker_tp_step(out_dir):
 
 
 def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
-    """Phase 42, 43 or 52: the preset's step on two ranks (two cards over
-    NCCL, or two processes on the one card over gloo) on a (1, 2) mesh,
-    against the one-rank step from the same seeds; returns the readings.
-    With ``transformer.fused_dw`` every rank's #9/#10 must take the tiled
-    route split at its statistics."""
+    """Phase 42, 43, 52 or 54: the preset's step on two ranks (two cards
+    over NCCL, or two processes on the one card over gloo) on a (1, 2)
+    mesh, against the one-rank step from the same seeds; returns the
+    readings. With ``transformer.fused_dw`` every rank's #9/#10 must take
+    the tiled route split at its statistics; with ``fused_conv_ffn`` every
+    rank's #11/#12 the tiled route's steps, half at fc1 (``tiled_split``)
+    and half at fc2 (``tiled_rows``)."""
     backend = "nccl" if two_cards else "gloo"
     label = ("two cards over NCCL" if two_cards else
              "two processes on the one card over gloo (a correctness run: the ranks share "
@@ -3615,7 +3649,8 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
     what = f"{preset} mesh.model=2" + (" + sequence_parallel" if flags.get(
         "sequence_parallel") else "") + (" on the fused-FFN route (" + ", ".join(
             k for k in ("fused_residual", "fused_ffn", "fused_dw") if flags.get(k)) + ")"
-        if flags.get("fused_ffn") else "")
+        if flags.get("fused_ffn") else "") + (" on the conv-FFN route (" + ", ".join(
+            k for k in TP_CONV_FLAGS if flags.get(k)) + ")" if flags.get("fused_conv_ffn") else "")
     phase(f"{number}. {what} train step at full width ({label}) against the one-rank step")
     # the one-rank step twice from the same state: the reference and the
     # card's run-to-run floor; then its time and peak
@@ -3658,6 +3693,14 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
                   and routes["backward"]["tiled_split"] == want["fused_dw_chain_bwd"],
                   f"#9 / #10 on the tiled route split at its statistics in every launch: "
                   f"{routes}")
+        if flags.get("fused_conv_ffn"):
+            routes, half = x[2]["conv_routes"], want["conv_ln_gelu"] // 2
+            check(all(routes[d][r] == half for d in ("forward", "backward")
+                      for r in ("tiled_split", "tiled_rows"))
+                  and sum(routes["forward"].values()) == want["conv_ln_gelu"]
+                  and sum(routes["backward"].values()) == want["conv_ln_gelu_bwd"],
+                  f"#11 / #12 on the tiled route's steps in every launch, {half} at fc1 "
+                  f"(tiled_split) and {half} at fc2 (tiled_rows) each way: {routes}")
     check(all(x[2]["metrics"] == r0["metrics"] for x in res),
           "the metrics equal on both ranks")
     check(all(x[2]["replicated_bit_equal"] for x in res),
@@ -3737,34 +3780,39 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
 
 
 def tp_cli_phase(card, root, cards):
-    """Phase 44: torchrun ... cli train --preset far_mnist with mesh.model 2,
-    sequence_parallel and the fused-FFN route's flags (TP_FFN_FLAGS: #1
-    unfolded, #7/#8 on a hidden subset, #9/#10 split) (2 steps, a
-    checkpoint), resumed by one process's cli train with mesh.model 1 for 2
-    more; its steps against an unbroken one-process run of 4 on the route,
-    which runs beside the torchrun (it needs none of its files)."""
+    """Phase 44: torchrun ... cli train --preset far_mnist with mesh.model 2
+    and sequence_parallel on two routes side by side, the fused-FFN route
+    (TP_FFN_FLAGS: #1 unfolded, #7/#8 on a hidden subset, #9/#10 split) and
+    the conv-FFN route (TP_CONV_CLI_FLAGS: #11/#12 as the conv FFN's
+    column- and row-parallel steps); each (2 steps, a checkpoint) resumed by
+    one process's cli train with mesh.model 1 for 2 more, its steps against
+    an unbroken one-process run of 4 on the route, which runs beside the
+    torchrun (it needs none of its files)."""
     import os
     from pathlib import Path
 
     n = 2
-    route = {f"transformer.{k}": "true" for k in TP_FFN_FLAGS}
-    flags = " ".join(f"--set {k}={v}" for k, v in route.items())
+    routes = {"fused-FFN route": TP_FFN_FLAGS, "conv-FFN route": TP_CONV_CLI_FLAGS}
+    sets_of = {label: {f"transformer.{k}": "true" for k in flags}
+               for label, flags in routes.items()}
+    shown = lambda label: " ".join(f"--set {k}={v}" for k, v in sets_of[label].items())
     phase(f"44. torchrun --nproc_per_node={n} -m vptr_tpu_torch.cli train --preset far_mnist "
-          f"--set mesh.model=2 --set transformer.sequence_parallel=true {flags} (2 steps), "
-          f"resumed in one process with mesh.model=1, against an unbroken one-process run")
+          f"--set mesh.model=2 --set transformer.sequence_parallel=true on two routes side by "
+          f"side, " + " and ".join(f"the {label} ({shown(label)})" for label in routes)
+          + " (2 steps each), each resumed in one process with mesh.model=1, against an "
+          "unbroken one-process run")
     here = str(Path(__file__).resolve().parent)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
     if cards < n:          # the ranks share the card, over gloo
         env["VPTR_RANKS_SHARE_CARDS"] = "1"
-    sets = lambda **kw: [a for k, v in {"epochs": 1, "steps_per_epoch": 2,
-                                        "val_per_epochs": 4, "data.batch_size": TP_BATCH,
-                                        **route, **kw}.items() for a in ("--set", f"{k}={v}")]
+    sets = lambda label, **kw: [a for k, v in {
+        "epochs": 1, "steps_per_epoch": 2, "val_per_epochs": 4, "data.batch_size": TP_BATCH,
+        **sets_of[label], **kw}.items() for a in ("--set", f"{k}={v}")]
     cli = [sys.executable, "-m", "vptr_tpu_torch.cli", "train", "--preset", "far_mnist"]
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", "-m", "vptr_tpu_torch.cli", "train", "--preset",
            "far_mnist"]
-    out = {}
 
     def start(args, name):     # its output into a file: a pipe could fill while it waits
         log = open(root / f"{name}.out", "w")
@@ -3787,49 +3835,64 @@ def tp_cli_phase(card, root, cards):
             print(open(log.name).read()[-3000:])
         return wall
 
-    tp_dir, one_dir = root / "cli_tp", root / "cli_one"
-    unbroken = start(cli + ["--ckpt-dir", str(one_dir)] + sets(epochs=2), "unbroken")
-    out["tp_wall_s"] = finish(start(run + ["--ckpt-dir", str(tp_dir)] + sets(
-        **{"mesh.model": 2, "transformer.sequence_parallel": "true"}), "tp"),
-        f"torchrun {n} x cli train --set mesh.model=2 --set transformer.sequence_parallel=true "
-        f"{flags}")
-    log = (tp_dir / "train_log.log").read_text() if (tp_dir / "train_log.log").is_file() else ""
-    check((tp_dir / "ckpt" / "2" / "state.pt").is_file()
-          and "tensor parallel over 2 model ranks" in log,
-          "rank 0 wrote ckpt/2/ and logged the model axis")
-    out["resume_wall_s"] = finish(start(cli + ["--ckpt-dir", str(tp_dir)] + sets(
-        **{"mesh.model": 1}), "resumed"), "cli train resumed in one process (mesh.model=1)")
-    finish(unbroken, "cli train, one process, 4 steps unbroken (beside the torchrun)", False)
-    try:
-        hist = lambda d: json.loads((d / "ckpt" / "history.json").read_text())
-        check("resumed from step 2" in (tp_dir / "train_log.log").read_text(),
-              "the one-process run resumed the mesh's checkpoint at step 2")
-        ra, rb = hist(tp_dir)["train"]["T_total"], hist(one_dir)["train"]["T_total"]
-        print(f"  T_total by epoch: the mesh then one process {ra}, unbroken {rb}")
-        check(len(ra) == len(rb) == 2 and all(
-            abs(x[1] - y[1]) <= 2e-3 * max(1.0, abs(y[1])) for x, y in zip(ra, rb)),
-            "each epoch's T_total within 2e-3 of the unbroken run's")
-        sa = torch.load(tp_dir / "ckpt" / "4" / "state.pt", weights_only=True)
-        sb = torch.load(one_dir / "ckpt" / "4" / "state.pt", weights_only=True)
-        num = sum(float((sa["transformer"][k].float() - v.float()).square().sum())
-                  for k, v in sb["transformer"].items())
-        den = sum(float(v.float().square().sum()) for v in sb["transformer"].values())
-        rel = (num / den) ** 0.5
-        check(rel <= 2 ** -7, f"the transformer after 4 steps against the unbroken run's: "
-              f"relative L2 {rel:.3e} <= 2^-7")
-        out.update(t_total=ra, unbroken_t_total=rb, state_rel_l2=rel)
-    except (OSError, KeyError, ValueError) as e:
-        check(False, f"the runs' histories and checkpoints read: {e!r}")
-    print(f"  {card}: walls {out.get('tp_wall_s', 0):.1f} s ({n} ranks"
-          f"{', gloo on one card' if cards < n else ', NCCL'}), {out.get('resume_wall_s', 0):.1f} "
-          f"s (resumed); the unbroken run beside the torchrun")
+    out, dirs, runs = {}, {}, {}
+    for i, label in enumerate(routes):
+        dirs[label] = tp_dir, one_dir = root / f"cli_tp_{i}", root / f"cli_one_{i}"
+        runs[label] = (
+            start(cli + ["--ckpt-dir", str(one_dir)] + sets(label, epochs=2), f"unbroken_{i}"),
+            start(run + ["--ckpt-dir", str(tp_dir)] + sets(
+                label, **{"mesh.model": 2, "transformer.sequence_parallel": "true"}), f"tp_{i}"))
+    resumed = {}
+    for i, label in enumerate(routes):
+        tp_dir = dirs[label][0]
+        out[label] = {"tp_wall_s": finish(
+            runs[label][1], f"{label}: torchrun {n} x cli train --set mesh.model=2 --set "
+            f"transformer.sequence_parallel=true {shown(label)}")}
+        log = ((tp_dir / "train_log.log").read_text() if (tp_dir / "train_log.log").is_file()
+               else "")
+        check((tp_dir / "ckpt" / "2" / "state.pt").is_file()
+              and "tensor parallel over 2 model ranks" in log,
+              f"{label}: rank 0 wrote ckpt/2/ and logged the model axis")
+        resumed[label] = start(cli + ["--ckpt-dir", str(tp_dir)] + sets(
+            label, **{"mesh.model": 1}), f"resumed_{i}")
+    for label in routes:
+        tp_dir, one_dir = dirs[label]
+        r = out[label]
+        r["resume_wall_s"] = finish(resumed[label], f"{label}: cli train resumed in one "
+                                    f"process (mesh.model=1)")
+        finish(runs[label][0], f"{label}: cli train, one process, 4 steps unbroken (beside "
+               f"the torchrun)", False)
+        try:
+            hist = lambda d: json.loads((d / "ckpt" / "history.json").read_text())
+            check("resumed from step 2" in (tp_dir / "train_log.log").read_text(),
+                  f"{label}: the one-process run resumed the mesh's checkpoint at step 2")
+            ra, rb = hist(tp_dir)["train"]["T_total"], hist(one_dir)["train"]["T_total"]
+            print(f"  {label}: T_total by epoch: the mesh then one process {ra}, unbroken {rb}")
+            check(len(ra) == len(rb) == 2 and all(
+                abs(x[1] - y[1]) <= 2e-3 * max(1.0, abs(y[1])) for x, y in zip(ra, rb)),
+                f"{label}: each epoch's T_total within 2e-3 of the unbroken run's")
+            sa = torch.load(tp_dir / "ckpt" / "4" / "state.pt", weights_only=True)
+            sb = torch.load(one_dir / "ckpt" / "4" / "state.pt", weights_only=True)
+            num = sum(float((sa["transformer"][k].float() - v.float()).square().sum())
+                      for k, v in sb["transformer"].items())
+            den = sum(float(v.float().square().sum()) for v in sb["transformer"].values())
+            rel = (num / den) ** 0.5
+            check(rel <= 2 ** -7, f"{label}: the transformer after 4 steps against the unbroken "
+                  f"run's: relative L2 {rel:.3e} <= 2^-7")
+            r.update(t_total=ra, unbroken_t_total=rb, state_rel_l2=rel)
+        except (OSError, KeyError, ValueError) as e:
+            check(False, f"{label}: the runs' histories and checkpoints read: {e!r}")
+        print(f"  {card}, {label}: walls {r.get('tp_wall_s') or 0:.1f} s ({n} ranks"
+              f"{', gloo on one card' if cards < n else ', NCCL'}), "
+              f"{r.get('resume_wall_s') or 0:.1f} s (resumed); the unbroken run beside the "
+              f"torchrun, both routes' runs side by side")
     return out
 
 
 def tp_phases(dev, card, which=(42, 43, 44)):
-    """Phases 42-44 (tensor and sequence parallelism at full width; 44 on the
-    fused-FFN route) and 52 (the fused-FFN route's step). Returns the
-    readings."""
+    """Phases 42-44 (tensor and sequence parallelism at full width; 44's
+    torchruns on the fused-FFN and conv-FFN routes), 52 (the fused-FFN
+    route's step) and 54 (the conv-FFN route's). Returns the readings."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3843,8 +3906,8 @@ def tp_phases(dev, card, which=(42, 43, 44)):
             far = {k: 12 for k in ("fused_attention_ln", "attention_core",
                                    "fused_attention_ln_bwd", "attention_core_bwd")}
             far.update(dict.fromkeys(("fused_attention", "fused_attention_bwd", "fused_ffn",
-                                      "fused_ffn_bwd", "fused_dw_chain",
-                                      "fused_dw_chain_bwd"), 0))
+                                      "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd",
+                                      "conv_ln_gelu", "conv_ln_gelu_bwd"), 0))
             out["far_tp"] = tp_step_phase(dev, card, root, 42, "far_mnist", {}, far,
                                           two_cards)
             gc.collect()
@@ -3853,7 +3916,8 @@ def tp_phases(dev, card, which=(42, 43, 44)):
             nar = {"fused_attention_ln": 4, "fused_attention": 8, "attention_core": 20,
                    "fused_attention_ln_bwd": 4, "fused_attention_bwd": 8,
                    "attention_core_bwd": 20, **dict.fromkeys((
-                       "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd"), 0)}
+                       "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd",
+                       "conv_ln_gelu", "conv_ln_gelu_bwd"), 0)}
             out["nar_tp_sp"] = tp_step_phase(dev, card, root, 43, "nar_mnist",
                                              {"sequence_parallel": True}, nar, two_cards)
             gc.collect()
@@ -3862,9 +3926,16 @@ def tp_phases(dev, card, which=(42, 43, 44)):
             out["cli"] = tp_cli_phase(card, root, cards)
         if 52 in which:   # every kernel of the route 12 times a rank (#5/#6 none)
             want = {k: LAYERS for k in TP_COUNTERS}
-            want.update(fused_attention=0, fused_attention_bwd=0)
+            want.update(fused_attention=0, fused_attention_bwd=0, conv_ln_gelu=0,
+                        conv_ln_gelu_bwd=0)
             out["far_ffn_tp"] = tp_step_phase(dev, card, root, 52, "far_mnist", TP_FFN_FLAGS,
                                               want, two_cards)
+        if 54 in which:   # #1/#3 (window and folded temporal) and #11/#12 (fc1, fc2) 24 each
+            want = dict.fromkeys(TP_COUNTERS, 0)
+            want.update(dict.fromkeys(("fused_attention_ln", "fused_attention_ln_bwd",
+                                       "conv_ln_gelu", "conv_ln_gelu_bwd"), 2 * LAYERS))
+            out["far_conv_tp"] = tp_step_phase(dev, card, root, 54, "far_mnist", TP_CONV_FLAGS,
+                                               want, two_cards)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4074,6 +4145,209 @@ def tp_ffn_kernel_phase(dev):
               f"{lib_ms:.4f} ms (graph {lib_graph if lib_graph is None else round(lib_graph, 4)}"
               f"), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
               f"{str(fdt).replace('torch.', '')})")
+    return out
+
+
+# ------------------------------------------------ tensor parallel, conv-FFN route
+# phases 53-54: kernels #11/#12 as the conv FFN's column-parallel fc1 and
+# row-parallel fc2 (the tiled route's steps with the model group's
+# exchanges between them), and far_mnist's conv-FFN route (with the folded
+# temporal sublayer) on a (1, 2) mesh (its torchrun cli train is phase 44's)
+
+def tp_conv_kernel_phase(dev):
+    """Phase 53: kernels #11/#12 at far_mnist's step (190 samples of 8 x 8,
+    C 528, hidden 2112), bf16 and f32: fc1 column-parallel
+    (``split_forward`` / ``split_backward``, each rank on its Cout / M hidden
+    channels, norm1's per-row partials exchanged) and fc2 row-parallel
+    (``rows_forward`` / ``rows_backward``, each rank on its Cin / M, the
+    partial products summed in rank order), M ranks run in step in one
+    process (``run_split``: the exchange stacks their partials where the
+    mesh gathers them), M 2 and 4; against the plain whole call (its
+    slices, its sums) and the whole tiled call (the same steps at M 1),
+    the difference reported; then a rank's call at M 2 beside its plain
+    version, a library yardstick (eager and graph-replayed) and its bound.
+    Returns {kernel name: its readings}."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.ops import conv_ln_gelu as tcl
+    from vptr_tpu_torch.ops._split import run_split
+
+    phase("53. kernels #11/#12 as the conv FFN's column-parallel fc1 and row-parallel fc2 "
+          "(tensor parallelism, mesh.model 2 and 4)")
+    tc = get_preset("far_mnist").transformer
+    c, hid, hw = tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model, tc.enc_h * tc.enc_w
+    ctx = tc.num_past_frames + tc.num_future_frames
+    n, bf, f32 = BATCH * (ctx - 1), torch.bfloat16, torch.float32
+    s_rows = n * hw
+    tol = {f32: 1e-3, bf: 6.25e-2}                       # as phase 3
+    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
+    randn = normals(torch.Generator().manual_seed(SEED + 53))
+    names = ("dx", "dw", "db", "dscale", "dbias2")
+    out = {"conv_ln_gelu": {}, "conv_ln_gelu_bwd": {}}
+
+    def ops_of(cin, cout, dtype):
+        return (randn(n, hw, cin).to(dev, dtype), randn(cin, cout, std=cin ** -0.5).to(dev, dtype),
+                randn(cout, std=0.1).to(dev), (1 + randn(hw, cout, std=0.1)).to(dev),
+                randn(hw, cout, std=0.1).to(dev))
+
+    def cols(a, m, mm, dim=-1):      # rank m's share of mm along dim
+        k = a.shape[dim] // mm
+        return a.narrow(dim, m * k, k).contiguous()
+
+    def split_share(ops, m, mm):     # fc1: w's, b's, scale's, bias2's Cout channels
+        x, w, b, sc, b2 = ops
+        return (x, cols(w, m, mm), cols(b, m, mm), cols(sc, m, mm), cols(b2, m, mm))
+
+    def rows_share(ops, m, mm):      # fc2: x's and w's Cin channels
+        x, w, b, sc, b2 = ops
+        return (cols(x, m, mm), cols(w, m, mm, 0), b, sc, b2)
+
+    for dtype, ms in ((bf, (2, 4)), (f32, (2,))):
+        dn = str(dtype).replace("torch.", "")
+        # fc1, column-parallel
+        ops, g = ops_of(c, hid, dtype), randn(n, hw, hid).to(dev, dtype)
+        plain = tcl.conv_ln_gelu_plain(*ops)
+        pg = tcl.conv_ln_gelu_backward_plain(*ops, g)
+        whole = run_split([tcl.split_forward(*ops, (1, 0))])[0]
+        wg = run_split([tcl.split_backward(*ops, g, (1, 0))])[0]
+        for mm in ms:
+            outs = run_split([tcl.split_forward(*split_share(ops, m, mm), (mm, m))
+                              for m in range(mm)])
+            bwds = run_split([tcl.split_backward(*split_share(ops, m, mm), cols(g, m, mm),
+                                                 (mm, m)) for m in range(mm)])
+            e = max(max_err(outs[m], cols(plain, m, mm)) for m in range(mm))
+            ew = max(max_err(outs[m], cols(whole, m, mm)) for m in range(mm))
+            eq = all(torch.equal(outs[m], cols(whole, m, mm)) for m in range(mm))
+            dx = sum(b_[0].float() for b_ in bwds)
+            share = lambda grads, m: [cols(grads[1], m, mm)] + [cols(d, m, mm) for d in grads[2:]]
+            e_dx = rel_err(dx, pg[0])
+            e_share = max(rel_err(a, b_) for m in range(mm) for a, b_ in
+                          zip(bwds[m][1:], share(pg, m)))
+            worst = max(e_dx, e_share)
+            worst_w = max([rel_err(dx, wg[0].float())] + [
+                rel_err(a, b_) for m in range(mm) for a, b_ in zip(bwds[m][1:], share(wg, m))])
+            what = f"fc1 {dn} {tuple(ops[0].shape)} -> {hid // mm} of {hid} on {mm} ranks"
+            check(e <= tol[dtype], f"conv_ln_gelu {what} (tiled_split) vs the plain whole call's "
+                  f"slices max|err| {e:.3e} <= {tol[dtype]}; vs the whole tiled call's "
+                  f"{'bit-equal' if eq else f'max|err| {ew:.3e}'} (the merged statistics differ "
+                  f"by rounding)")
+            check(e_dx <= 2 * bwd_tol[dtype] and e_share <= bwd_tol[dtype],
+                  f"conv_ln_gelu backward {what} (tiled_split) vs plain: dx summed over the "
+                  f"ranks rel err {e_dx:.3e} <= {2 * bwd_tol[dtype]}, dw, db, dscale, dbias2 the "
+                  f"slices worst {e_share:.3e} <= {bwd_tol[dtype]}; vs the whole tiled call's "
+                  f"worst {worst_w:.3e}")
+            out["conv_ln_gelu"][what] = {"route": "tiled_split", "max_abs_err": e,
+                                         "whole_tiled_max_abs_err": ew,
+                                         "bit_equal_to_whole_tiled": eq}
+            out["conv_ln_gelu_bwd"][what] = {"route": "tiled_split", "rel_err": worst,
+                                             "whole_tiled_rel_err": worst_w}
+            del outs, bwds, dx
+        del ops, g, plain, pg, whole, wg
+        # fc2, row-parallel
+        ops, g = ops_of(hid, c, dtype), randn(n, hw, c).to(dev, dtype)
+        plain = tcl.conv_ln_gelu_plain(*ops)
+        pg = tcl.conv_ln_gelu_backward_plain(*ops, g)
+        whole, wu, wst = run_split([tcl.rows_forward(*ops, (1, 0))])[0]
+        wg = tcl.rows_backward(*ops, g, wu, wst)
+        del wu, wst
+        for mm in ms:
+            fwds = run_split([tcl.rows_forward(*rows_share(ops, m, mm), (mm, m))
+                              for m in range(mm)])
+            bwds = [tcl.rows_backward(*rows_share(ops, m, mm), g, *fwds[m][1:])
+                    for m in range(mm)]
+            same = all(torch.equal(f[0], fwds[0][0]) for f in fwds) and all(
+                torch.equal(a, b_) for bw in bwds for a, b_ in zip(bw[2:], bwds[0][2:]))
+            e = max(max_err(f[0], plain) for f in fwds)
+            ew = max(max_err(f[0], whole) for f in fwds)
+            share = lambda grads, m: [cols(grads[0], m, mm), cols(grads[1], m, mm, 0)] + list(
+                grads[2:])
+            worst = max(rel_err(a, b_) for m in range(mm) for a, b_ in zip(bwds[m],
+                                                                           share(pg, m)))
+            worst_w = max(rel_err(a, b_) for m in range(mm) for a, b_ in zip(bwds[m],
+                                                                             share(wg, m)))
+            what = f"fc2 {dn} {tuple(ops[0].shape)} -> {c}, {hid // mm} of {hid} in on {mm} ranks"
+            check(e <= tol[dtype] and same, f"conv_ln_gelu {what} (tiled_rows) vs the plain "
+                  f"whole call max|err| {e:.3e} <= {tol[dtype]}, every rank's output and db, "
+                  f"dscale, dbias2 bit-equal; vs the whole tiled call's max|err| {ew:.3e} (the "
+                  f"partial products summed in f32)")
+            check(worst <= bwd_tol[dtype], f"conv_ln_gelu backward {what} (tiled_rows) vs plain: "
+                  f"dx, dw the slices, db, dscale, dbias2 whole (not summed over the ranks), "
+                  f"worst rel err {worst:.3e} <= {bwd_tol[dtype]}; vs the whole tiled call's "
+                  f"{worst_w:.3e}")
+            out["conv_ln_gelu"][what] = {"route": "tiled_rows", "max_abs_err": e,
+                                         "whole_tiled_max_abs_err": ew, "ranks_bit_equal": same}
+            out["conv_ln_gelu_bwd"][what] = {"route": "tiled_rows", "rel_err": worst,
+                                             "whole_tiled_rel_err": worst_w}
+            del fwds, bwds
+        del ops, g, plain, pg, whole, wg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # a rank's call at M 2, bf16, beside the plain version on the same share
+    # (a whole call on the share's shape), one library yardstick (the share's
+    # product, LayerNorm and GELU; fc2's adds the other rank's partial) and the
+    # bound of the share's bytes and operations (fc2's inputs include the
+    # other rank's f32 partial, and its backward reads the forward's u)
+    own = lambda parts: [torch.stack([parts[0], parts[0]])]
+    hl, s2b = hid // 2, 2
+    f_ops = split_share(ops_of(c, hid, bf), 0, 2)
+    f_g = randn(n, hw, hl).to(dev, bf)
+    r_ops = rows_share(ops_of(hid, c, bf), 0, 2)
+    r_g = randn(n, hw, c).to(dev, bf)
+    _, r_u, r_st = run_split([tcl.rows_forward(*r_ops, (2, 0))], own)[0]
+    other = randn(n, hw, c).to(dev)
+
+    def split_library(x, w, b, sc, b2):
+        u = F.linear(x, w.t(), b.to(bf))
+        return F.gelu(F.layer_norm(u, u.shape[1:], sc.to(bf), b2.to(bf)))
+
+    def rows_library(x, w, b, sc, b2, o):
+        u = F.linear(x, w.t()) + (o + b).to(bf)
+        return F.gelu(F.layer_norm(u, u.shape[1:], sc.to(bf), b2.to(bf)))
+
+    fv, rv = hl * 4 + 2 * hw * hl * 4, c * 4 + 2 * hw * c * 4
+    cases = (
+        ("conv_ln_gelu", "tiled_split",
+         lambda: run_split([tcl.split_forward(*f_ops, (2, 0))], own)[0],
+         lambda: tcl.conv_ln_gelu_plain(*f_ops), split_library, f_ops, None,
+         s_rows * (c + hl) * s2b + c * hl * s2b + fv, 2 * s_rows * c * hl),
+        ("conv_ln_gelu_bwd", "tiled_split",
+         lambda: run_split([tcl.split_backward(*f_ops, f_g, (2, 0))], own)[0],
+         lambda: tcl.conv_ln_gelu_backward_plain(*f_ops, f_g), split_library, f_ops, f_g,
+         s_rows * (2 * c + hl) * s2b + 2 * c * hl * s2b + 2 * fv + hl * 4, 6 * s_rows * c * hl),
+        ("conv_ln_gelu", "tiled_rows",
+         lambda: run_split([tcl.rows_forward(*r_ops, (2, 0))], own)[0],
+         lambda: tcl.conv_ln_gelu_plain(*r_ops), rows_library, r_ops + (other,), None,
+         s_rows * (hl + c) * s2b + 2 * s_rows * c * 4 + hl * c * s2b + rv,
+         2 * s_rows * hl * c),
+        ("conv_ln_gelu_bwd", "tiled_rows",
+         lambda: tcl.rows_backward(*r_ops, r_g, r_u, r_st),
+         lambda: tcl.conv_ln_gelu_backward_plain(*r_ops, r_g), rows_library, r_ops + (other,),
+         r_g, s_rows * (2 * hl + c) * s2b + s_rows * c * 4 + 2 * hl * c * s2b + 2 * rv + c * 4,
+         4 * s_rows * hl * c),
+    )
+    for name, route, fn, plain, lib, lib_ops, lib_g, nbytes, flops in cases:
+        k_ms, p_ms = timed_turns(fn, plain)
+        if lib_g is None:
+            lib_ms, lib_graph = cuda_ms(lambda: lib(*lib_ops)), graph_ms(lambda: lib(*lib_ops))
+        else:
+            lib_ms, lib_graph = cuda_ms(grads_of(lib, lib_ops, lib_g)), graph_bwd_ms(
+                lib, lib_ops, lib_g)
+        b_ms, b_by = bound(nbytes, flops)
+        out[name][route] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                library_graph_ms=lib_graph, bound_ms=b_ms, bound_by=b_by,
+                                shape=f"{n} x {hw}, " + (f"{c} -> {hl} of {hid}" if route ==
+                                                         "tiled_split" else
+                                                         f"{hl} of {hid} -> {c}"))
+        print(f"  {name} {route} on a rank's share: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms (graph {lib_graph if lib_graph is None else round(lib_graph, 4)}), "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    mib = r_u.numel() * r_u.element_size() / 2 ** 20      # the u this run's forward kept
+    print(f"  fc2's backward takes the forward's u (N HW x C f32, {mib:.1f} MiB a layer, "
+          f"{LAYERS * mib:.1f} MiB over far_mnist's {LAYERS} layers) and statistics, so it needs "
+          f"no exchange")
+    out["conv_ln_gelu_bwd"]["tiled_rows"]["kept_u_mib_a_layer"] = mib
     return out
 
 
@@ -5144,7 +5418,21 @@ def main() -> int:
         if name in ffn_counts:
             row.setdefault("tp_step_launches_a_rank", {})["far_ffn_tp"] = ffn_counts[name]
 
-    phase("53. result")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_conv_kernels = tp_conv_kernel_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_conv_extra = tp_phases(dev, card, which=(54,))
+    conv_counts = tp_conv_extra.get("far_conv_tp", {}).get("launches") or {}
+    for row in rows_out:          # #11/#12 as fc1's column- and fc2's row-parallel steps
+        name = row["name"]        # (phase 53), a rank's launches in the conv-FFN route's
+        if name in tp_conv_kernels:                         # mesh.model = 2 step (54)
+            row["tensor_parallel"] = tp_conv_kernels[name]
+        if name in conv_counts:
+            row.setdefault("tp_step_launches_a_rank", {})["far_conv_tp"] = conv_counts[name]
+
+    phase("55. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -5168,6 +5456,7 @@ def main() -> int:
     print(f"  scan_layers: {json.dumps(scan_extra)}")
     print(f"  tensor parallel: {json.dumps(tp_extra)}")
     print(f"  tensor parallel, fused-FFN route: {json.dumps(tp_ffn_extra)}")
+    print(f"  tensor parallel, conv-FFN route: {json.dumps(tp_conv_extra)}")
     print(f"  {kth_summary}")
     print(f"  {KTH}: {json.dumps(kth_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")

@@ -1,17 +1,21 @@
 """The tensor-parallel phases of chip_smoke.py alone, on the card.
 
-    python3 scripts/torch_port_tp_probe.py [--phases 41 42 43 44 51 52]
+    python3 scripts/torch_port_tp_probe.py [--phases 41 42 43 44 51 52 53 54]
 
-Builds the kernels, then runs the named phases (default: all six): 41,
+Builds the kernels, then runs the named phases (default: all eight): 41,
 kernels #1-#6 on a head subset against their plain versions; 42 and 43,
 the far_mnist and nar_mnist (with sequence_parallel) train steps at
 mesh.model = 2 against the one-rank step; 44, ``torchrun ... cli train
---set mesh.model=2`` (with sequence_parallel and the fused-FFN route's
-flags) resumed in one process; 51, kernels #7-#10 on a hidden-channel
-subset (#9/#10 split over two ranks' channels) against their plain
-versions and the whole call; 52, far_mnist's fused-FFN route step at
-mesh.model = 2 against the one-rank step. Exits non-zero when a check
-failed.
+--set mesh.model=2`` (with sequence_parallel, on the fused-FFN and the
+conv-FFN route side by side) each resumed in one process; 51, kernels
+#7-#10 on a hidden-channel subset (#9/#10 split over two ranks' channels)
+against their plain versions and the whole call; 52, far_mnist's fused-FFN
+route step at mesh.model = 2 against the one-rank step; 53, kernels
+#11/#12 as the conv
+FFN's column-parallel fc1 and row-parallel fc2 (ranks run in step in one
+process, M 2 and 4) against their plain versions and the whole tiled
+call; 54, far_mnist's conv-FFN route step at mesh.model = 2 against the
+one-rank step. Exits non-zero when a check failed.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def main() -> int:
     from vptr_tpu_torch.ops import _build
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", nargs="*", type=int, default=[41, 42, 43, 44, 51, 52])
+    ap.add_argument("--phases", nargs="*", type=int, default=[41, 42, 43, 44, 51, 52, 53, 54])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_tp_probe: no CUDA device", file=sys.stderr)
@@ -45,7 +49,9 @@ def main() -> int:
         print(chip_smoke.json.dumps(chip_smoke.tp_kernel_phases(dev)))
     if 51 in args.phases:
         print(chip_smoke.json.dumps(chip_smoke.tp_ffn_kernel_phase(dev)))
-    steps = [p for p in (42, 43, 44, 52) if p in args.phases]
+    if 53 in args.phases:
+        print(chip_smoke.json.dumps(chip_smoke.tp_conv_kernel_phase(dev)))
+    steps = [p for p in (42, 43, 44, 52, 54) if p in args.phases]
     if steps:
         print(chip_smoke.json.dumps(chip_smoke.tp_phases(dev, chip_smoke.card_line(), steps)))
     if chip_smoke.failures:

@@ -31,7 +31,12 @@ gloo group through ``vptr_tpu_torch.parallel.init_distributed("cpu")``, runs
   operands) on a (1, W) mesh, each rank on its share of the channels
   (:func:`run_dw_split`): the wrapper's forward and gradients (its
   autograd Function: the plain split forward and backward) and the plain
-  version's under autograd.
+  version's under autograd;
+* ``conv_split``: every case of ``<dir>/cases.pkl`` (a conv_ln_gelu
+  stage's whole operands) on a (1, W) mesh, each rank on its share
+  (:func:`run_conv_split`: fc1 column-parallel, its Cout channels; fc2
+  row-parallel, its Cin channels), through the wrapper and the plain
+  version under autograd.
 
 Imports torch and the port only (no JAX), so a worker starts in seconds.
 """
@@ -294,8 +299,7 @@ def job_trainer(out_dir: Path):
         return lambda: ttrainer.Trainer(cfg.override(over), device="cpu",
                                         write_outputs=False)
     out["refuse_model"] = _raises(trainer({"mesh": {"model": 2},
-                                           "transformer": {"fused_conv_ffn": True}}),
-                                  NotImplementedError)
+                                           "transformer": {"n_heads": 3}}), ValueError)
     out["refuse_data"] = _raises(trainer({"mesh": {"data": 3}}), ValueError)
     out["refuse_batch"] = _raises(trainer({"data": {"batch_size": 7}}), ValueError)
     out["refuse_predict"] = _raises(lambda: cli.cmd_predict(
@@ -408,6 +412,49 @@ def job_dw_split(out_dir: Path):
     return {name: run_dw_split(case) for name, case in cases.items()}
 
 
+# -------------------------------------------------------------- conv_split
+
+def run_conv_split(case):
+    """``conv_ln_gelu`` on this model rank's share of ``case``'s stage
+    (``args``: x, w, b, scale, bias2 whole, numpy f32; ``g`` the output
+    cotangent; ``rows``: fc2 row-parallel, the share x's and w's Cin
+    channels, else fc1 column-parallel, the share w's, b's, scale's and
+    bias2's Cout channels): the output and the five gradients through the
+    wrapper and through the plain version."""
+    import torch
+
+    from vptr_tpu_torch.ops.conv_ln_gelu import conv_ln_gelu, conv_ln_gelu_plain
+    from vptr_tpu_torch.parallel import model_rank, model_size
+
+    m, r = model_size(), model_rank()
+    x, w, b, scale, bias2 = case["args"]
+    rows = case["rows"]
+    cut = lambda a, axis: a.take(range(r * a.shape[axis] // m, (r + 1) * a.shape[axis] // m),
+                                 axis)
+    if rows:
+        args = (cut(x, -1), cut(w, 0), b, scale, bias2)
+        g = case["g"]
+    else:
+        args = (x, cut(w, 1), cut(b, 0), cut(scale, 1), cut(bias2, 1))
+        g = cut(case["g"], -1)
+    out = {}
+    for name, fn in (("wrapper", conv_ln_gelu), ("plain", conv_ln_gelu_plain)):
+        ops = [torch.from_numpy(a.copy()).requires_grad_() for a in args]
+        y = fn(*ops, model=(m, r), rows=rows)
+        grads = torch.autograd.grad(y, ops, torch.from_numpy(g.copy()))
+        out[name] = [y.detach()] + [d.detach() for d in grads]
+    return out
+
+
+def job_conv_split(out_dir: Path):
+    from vptr_tpu_torch.parallel import make_mesh, num_hosts
+
+    make_mesh(1, num_hosts())
+    with open(out_dir / "cases.pkl", "rb") as f:
+        cases = pickle.load(f)
+    return {name: run_conv_split(case) for name, case in cases.items()}
+
+
 def main():
     job, out_dir = sys.argv[1], Path(sys.argv[2])
     import torch
@@ -418,7 +465,8 @@ def main():
     assert init_distributed("cpu"), "no process group in the environment"
     try:
         result = {"steps": job_steps, "trainer": job_trainer,
-                  "tp_trainer": job_tp_trainer, "dw_split": job_dw_split}[job](out_dir)
+                  "tp_trainer": job_tp_trainer, "dw_split": job_dw_split,
+                  "conv_split": job_conv_split}[job](out_dir)
         torch.save(result, out_dir / f"{job}.rank{host_id()}.pt")
     finally:
         destroy_distributed()

@@ -113,7 +113,10 @@ def test_evaluate_matches_one_process_over_the_shards(ranks):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("refuse_model", "TP/SP slice"), ("refuse_data", "process group has 2 rank"),
+    # a tensor-parallel (TP/SP slice) refusal: heads that do not split over the model ranks
+    pytest.param("refuse_model", "does not split over mesh.model",
+                 id="refuse_model-TP/SP slice"),
+    ("refuse_data", "process group has 2 rank"),
     ("refuse_batch", "does not split over 2 ranks"),
     ("refuse_predict", "predict runs in one process")])
 def test_refusals_at_two_ranks(ranks, what, match):

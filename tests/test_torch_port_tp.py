@@ -11,7 +11,11 @@ are ``tests/test_torch_port_tp_nar.py``'s, with this module's helpers.
     model 2; FAR with ``remat`` and SP + TP; the kernel routes on the model
     axis: FAR ``fused_ffn`` + ``fused_dw`` at (1, 2), FAR with those and
     ``fused_residual`` (the five flags of far_mnist's fused-FFN route) at
-    (2, 2), NAR ``fused_dw`` at (1, 2); dropout and DropPath 0.1: every metric
+    (2, 2), NAR ``fused_dw`` at (1, 2); FAR ``fused_conv_ffn`` +
+    ``fused_full_temporal`` at (1, 2) and with ``fused_attention`` and
+    ``fused_full`` at (2, 2), NAR ``fused_conv_ffn`` at (1, 2) (#11/#12 as
+    fc1's column- and fc2's row-parallel call, the folded temporal
+    sublayer on the head subset); dropout and DropPath 0.1: every metric
     within 1e-5, every parameter within 1e-4 and every gradient within 1e-4
     of its leaf's largest against the one-process port step at batch 8
     from the same weights and generator seed (so the kernels' masks on a
@@ -25,9 +29,8 @@ are ``tests/test_torch_port_tp_nar.py``'s, with this module's helpers.
     parameters by ``adam_param_errors``, the BatchNorm statistics 1e-5 (the
     JAX step's window sublayers on XLA, its #7-#10 in Pallas interpret
     mode);
-(c) the refusals: ``n_heads % model``, the kernel routes of
-    ``TP_REFUSED_ROUTES`` (the conv FFN's #11/#12) and one-process
-    ``mesh.model`` 2.
+(c) the refusals: ``n_heads % model`` and one-process ``mesh.model`` 2;
+    every kernel route shards (none is refused under a model axis).
 
 The geometry is ``tests/test_parallel.py``'s TINY (``test_torch_port_parallel``'s
 cases): d_model 24 over 4 heads (2 a model rank), 2 layers (NAR 2 + 2),
@@ -54,11 +57,7 @@ from vptr_tpu.train.state import ModuleState, Stage2TrainState
 from vptr_tpu.train.steps import make_far_train_step as jmake_far_train_step
 from vptr_tpu.train.steps import make_nar_train_step as jmake_nar_train_step
 from vptr_tpu_torch import parallel
-from vptr_tpu_torch.models.transformer import (
-    TP_REFUSED_ROUTES,
-    build_transformer,
-    shard_transformer,
-)
+from vptr_tpu_torch.models.transformer import build_transformer, shard_transformer
 
 from _torch_port_mp_worker import Launch, run_case
 from _torch_port_util import adam_param_errors, leaf_errors, random_variables, recording
@@ -94,6 +93,15 @@ CASES = {
                                             "fused_residual": True, "fused_ffn": True,
                                             "fused_dw": True}, True),
     "nar_dw_tp": ("nar", 23, (1, 2), {"fused_dw": True}, True),
+    # the conv FFN's #11/#12 on the model axis: fc1 column-parallel with
+    # norm1's statistics over every rank's hidden, fc2 row-parallel; with
+    # the temporal sublayer folded into #1 on the head subset
+    "far_conv_tp": ("far", 24, (1, 2), {"fused_conv_ffn": True, "fused_full_temporal": True},
+                    True),
+    "far_conv_dp_tp": ("far", 25, (2, 2), {"fused_attention": True, "fused_full": True,
+                                           "fused_conv_ffn": True, "fused_full_temporal": True},
+                       True),
+    "nar_conv_tp": ("nar", 26, (1, 2), {"fused_conv_ffn": True}, True),
 }
 METRIC_TOL, PARAM_TOL, GRAD_REL, STAT_TOL = 1e-5, 1e-4, 1e-4, 1e-5
 JAX_TOL = 1e-4              # tests/test_parallel.py's
@@ -258,38 +266,34 @@ def check_jax_mesh(tp, name):
 # ------------------------------------------------------------ (c) refusals
 
 def test_refusals():
-    """Whole heads only; the routes left in TP_REFUSED_ROUTES (#11/#12)
-    under a model axis; one-process mesh.model 2."""
+    """Whole heads only; one-process mesh.model 2."""
     cfg = tcfg.get_preset("far_mnist").override(
         {"dtype": "float32", "transformer": {**TR_TINY, "n_heads": 3}})
     tr = build_transformer(cfg.transformer, device="cpu")
     mesh = parallel.Mesh(data=1, rank=1, model=2)
     with pytest.raises(ValueError, match="n_heads 3 does not split over mesh.model=2"):
         shard_transformer(tr, mesh)
-    for flag in TP_REFUSED_ROUTES:
-        cfg = tcfg.get_preset("far_mnist").override(
-            {"dtype": "float32", "transformer": {**TR_TINY, flag: True}})
-        tr = build_transformer(cfg.transformer, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"tensor parallel on the {flag} route"):
-            shard_transformer(tr, mesh)
     with pytest.raises(NotImplementedError, match="one process per model rank"):
         parallel.make_mesh(-1, 2)
 
 
 @pytest.mark.parametrize("kind", ["far", "nar"])
 def test_fused_routes_shard(kind):
-    """far_mnist and nar_mnist with fused_ffn, fused_dw and fused_residual
-    build and cut to a rank's shares at mesh.model 2: every linear FFN and
-    LayerNorm conv FFN holds half the hidden, and only fused_conv_ffn is
-    left refused."""
-    assert TP_REFUSED_ROUTES == ("fused_conv_ffn",)
-    flags = {"fused_ffn": True, "fused_dw": True, "fused_residual": True}
-    cfg = tcfg.get_preset(PRESETS[kind]).override(_over(kind, 0.0, flags))
-    tr = shard_transformer(build_transformer(cfg.transformer, device="cpu"),
-                           parallel.Mesh(data=1, rank=1, model=2))
+    """far_mnist and nar_mnist with fused_ffn, fused_dw and fused_residual,
+    and with fused_conv_ffn and fused_full_temporal, build and cut to a
+    rank's shares at mesh.model 2: every linear FFN and LayerNorm conv FFN
+    (on the dw chain's route, or on #11/#12's) holds half the hidden; no
+    route is refused."""
     hidden = 4 * TR_TINY["d_model"]
-    ffns = [m for n, m in tr.named_modules() if n.endswith(".ffn")]
-    dws = [m for m in tr.modules() if getattr(m, "fused_dw", False)]
-    assert ffns and dws
-    assert all(m.tp == (2, 1) and m.linear1.weight.shape[0] == hidden // 2 for m in ffns)
-    assert all(m.tp == (2, 1) and m.fc1.weight.shape[0] == hidden // 2 for m in dws)
+    for flags, route in (({"fused_ffn": True, "fused_dw": True, "fused_residual": True},
+                          "fused_dw"),
+                         ({"fused_conv_ffn": True, "fused_full_temporal": True}, "fused_ln")):
+        cfg = tcfg.get_preset(PRESETS[kind]).override(_over(kind, 0.0, flags))
+        tr = shard_transformer(build_transformer(cfg.transformer, device="cpu"),
+                               parallel.Mesh(data=1, rank=1, model=2))
+        ffns = [m for n, m in tr.named_modules() if n.endswith(".ffn")]
+        convs = [m for m in tr.modules() if getattr(m, route, False)]
+        assert ffns and convs, flags
+        assert all(m.tp == (2, 1) and m.linear1.weight.shape[0] == hidden // 2 for m in ffns)
+        assert all(m.tp == (2, 1) and m.fc1.weight.shape[0] == hidden // 2
+                   and m.fc2.weight.shape[1] == hidden // 2 for m in convs)

@@ -57,7 +57,9 @@
 // (vptr_conv_ln_gelu_route; ops/conv_ln_gelu.py::kernel_route): the one
 // above, "cluster", for HW <= 64; "tiled" past it (nar_kth_128's HW 256),
 // in passes through device memory with per-row partial moments
-// (conv_ln_tiled.cuh, whose note says what bounds it).
+// (conv_ln_tiled.cuh, whose note says what bounds it). That route is also
+// exported step by step (vptr_conv_ln_gelu_tiled_step and _merge), for a
+// tensor-parallel rank's share with the exchanges between the steps.
 
 #include <cstdio>
 
@@ -170,19 +172,38 @@ int launch_product(const void* a, const void* bt, void* out, int K, int cols, cu
                                        kClnMaxRows, K, cols, s);
 }
 
+// A step of the tiled route: 0, u = x W (f32, without b); 1, each row's
+// partial moments of u + b into part (with `parts`, M partial products in
+// rank order, u first written as their sum); 2, the epilogue with the
+// statistics `stats` (N x 2: mean, rstd).
+template <typename T>
+int tiled_step(int step, const void* x, const void* w, const void* b, const void* scale,
+               const void* bias2, void* out, void* u, void* part, const void* stats,
+               const void* parts, int M, int N, int HW, int Cin, int Cout, cudaStream_t s) {
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  float* uf = static_cast<float*>(u);
+  if (step == 0) return cln_u_product<T>(x, w, uf, N * HW, Cin, Cout, s);
+  if (step == 1)
+    return clnt_moments(uf, cf(parts), M, cf(b), static_cast<float*>(part), N, HW, Cout, s);
+  clnt_out_kernel<T><<<dim3(HW, N), kTThreads, 0, s>>>(uf, cf(b), cf(scale), cf(bias2),
+                                                       cf(stats), static_cast<T*>(out), HW,
+                                                       Cout);
+  return cudaGetLastError();
+}
+
 // The tiled route: u = x W into u (f32), the statistics, the epilogue.
 template <typename T>
 int tiled_forward(const void* x, const void* w, const void* b, const void* scale,
                   const void* bias2, void* out, void* u, void* part, void* stats, int N, int HW,
                   int Cin, int Cout, float eps, cudaStream_t s) {
-  float *uf = static_cast<float*>(u), *st = static_cast<float*>(stats);
-  if (int err = cln_tiled_stats<T>(x, w, static_cast<const float*>(b), uf,
-                                   static_cast<float*>(part), st, N, HW, Cin, Cout, eps, s))
-    return err;
-  clnt_out_kernel<T><<<dim3(HW, N), kTThreads, 0, s>>>(
-      uf, static_cast<const float*>(b), static_cast<const float*>(scale),
-      static_cast<const float*>(bias2), st, static_cast<T*>(out), HW, Cout);
-  return cudaGetLastError();
+  for (int step = 0; step < 2; ++step)
+    if (int err = tiled_step<T>(step, x, w, b, scale, bias2, out, u, part, stats, nullptr, 1, N,
+                                HW, Cin, Cout, s))
+      return err;
+  VPTR_TRY(tiled_stats(static_cast<const float*>(part), static_cast<float*>(stats), N, HW,
+                       static_cast<float>(Cout), eps, kTMoments, s));
+  return tiled_step<T>(2, x, w, b, scale, bias2, out, u, part, stats, nullptr, 1, N, HW, Cin,
+                       Cout, s);
 }
 
 }  // namespace
@@ -257,6 +278,39 @@ int vptr_conv_ln_gelu_tiled(const void* x, const void* w, const void* b, const v
                                            Cin, Cout, eps, s)
                     : tiled_forward<bf16>(x, w, b, scale, bias2, out, u, part, stats, N, HW, Cin,
                                           Cout, eps, s);
+}
+
+// The tiled route as separate steps (tensor parallelism: a rank's share of
+// a column- or row-parallel call, its exchanges between the steps; see
+// tiled_step): step 0 writes u, step 1 part (N, HW, 2) (parts: null, or M
+// planes of N HW x Cout partial products summed into u in rank order),
+// step 2 the output from stats, which vptr_conv_ln_gelu_tiled_merge fills.
+// The operands as vptr_conv_ln_gelu_tiled's; returns as it.
+int vptr_conv_ln_gelu_tiled_step(int step, const void* x, const void* w, const void* b,
+                                 const void* scale, const void* bias2, void* out, void* u,
+                                 void* part, const void* stats, const void* parts, int M, int N,
+                                 int HW, int Cin, int Cout, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (step < 0 || step > 2 || N < 1 || N > kClnTiledMaxN || !cln_tiled_ok(HW, Cin, Cout) ||
+      dtype < 0 || dtype > 1 || !u || (step == 1 && (!part || (parts && M < 1))) ||
+      (step == 2 && !stats))
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? tiled_step<float>(step, x, w, b, scale, bias2, out, u, part, stats, parts,
+                                        M, N, HW, Cin, Cout, s)
+                    : tiled_step<bf16>(step, x, w, b, scale, bias2, out, u, part, stats, parts,
+                                       M, N, HW, Cin, Cout, s);
+}
+
+// A split call's merge (forward and backward): out (N, 2) from part (N, T,
+// 2), T partials of cnt values a sample in the whole call's order; mode 0:
+// each partial's (mean, M2) merged into (mean, rstd), 1: the two sums'
+// means over the sample's T cnt values.
+int vptr_conv_ln_gelu_tiled_merge(const void* part, void* out, int N, int T, float cnt, float eps,
+                                  int mode, void* stream) {
+  if (N < 1 || T < 1 || !(cnt >= 1.f) || mode < 0 || mode > 1 || !part || !out)
+    return cudaErrorInvalidValue;
+  return tiled_stats(static_cast<const float*>(part), static_cast<float*>(out), N, T, cnt, eps,
+                     mode, static_cast<cudaStream_t>(stream));
 }
 
 // The bare ring product: out (64, cols) f32 = a (64, K) bt^T, a and bt

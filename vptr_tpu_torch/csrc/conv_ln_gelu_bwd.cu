@@ -64,7 +64,9 @@
 // 256) the "tiled" route replaces pass 1 (conv_ln_tiled.cuh: u recomputed
 // into f32 scratch, the statistics and LN's backward sums from per-row
 // partials, then du, a group a sample in both dtypes) and runs passes 2
-// and 3 as above, dx on wg_rows.cuh's row-tiled product in bf16.
+// and 3 as above, dx on wg_rows.cuh's row-tiled product in bf16; it is
+// also exported step by step (vptr_conv_ln_gelu_bwd_tiled_step), for a
+// tensor-parallel rank's share with the exchanges between the steps.
 
 #include <cstdio>
 
@@ -396,31 +398,15 @@ int run_f32_products(const ClnBwdArgs& a, cudaStream_t s) {
   return f32_products(a, s);
 }
 
-// The tiled route: 1. u recomputed, its statistics, LN's backward sums,
-// du and the samples' partials; 2. dx and dW (bf16: dx on the row-tiled
+// The tiled route's products: dx and dW (bf16: dx on the row-tiled
 // product, du's hi and lo halves as two terms, B^T = W (Cin, Cout) as
 // stored; dW as the cluster route's).
 template <typename T>
-int run_tiled_products(const ClnBwdArgs& a, cudaStream_t s) {
-  const int N = a.N, HW = a.HW, Cout = a.Cout, R = N * HW;
-  auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  auto f = [](void* p) { return static_cast<float*>(p); };
-  float *u = f(a.u), *part = f(a.tpart), *st = f(a.tstats);
-  if (int err = cln_tiled_stats<T>(a.x, a.w, cf(a.b), u, part, st, N, HW, a.Cin, Cout, a.eps, s))
-    return err;
-  const dim3 rows(HW, N);
-  const T* g = static_cast<const T*>(a.g);
-  clnt_dz_sums_kernel<T><<<rows, kTThreads, 0, s>>>(u, cf(a.b), cf(a.scale), cf(a.bias2), g, st,
-                                                    part, HW, Cout);
-  VPTR_TRY(cudaGetLastError());
-  VPTR_TRY(tiled_stats(part, st + 2 * N, N, HW, static_cast<float>(Cout), a.eps, kTSums, s));
-  clnt_du_kernel<T><<<rows, kTThreads, 0, s>>>(
-      u, cf(a.b), cf(a.scale), cf(a.bias2), g, st, st + 2 * N, static_cast<T*>(a.du), f(a.pds),
-      f(a.pdt), f(a.pdb), HW, Cout, static_cast<long>(R) * Cout);
-  VPTR_TRY(cudaGetLastError());
+int tiled_products(const ClnBwdArgs& a, cudaStream_t s) {
   if constexpr (!std::is_same<T, bf16>::value) {
     return f32_products(a, s);
   } else {
+    const int R = a.N * a.HW, Cout = a.Cout;
     const bf16* hi = static_cast<const bf16*>(a.du);
     RwMaps m;
     RwWork wk{};
@@ -433,6 +419,59 @@ int run_tiled_products(const ClnBwdArgs& a, cudaStream_t s) {
     if ((err = launch_rows<2, false, kRwBf16>(m, wk, s))) return err;
     return dw_wg(a, s);
   }
+}
+
+template <typename T>
+int sums(const ClnBwdArgs& a, cudaStream_t s);
+
+// A step of the tiled route (tstats (2, N, 2): the forward's (mean, rstd),
+// then LN's two backward means): 0, u = x W recomputed (f32, without b);
+// 1, each row's partial moments of u + b into tpart; 2, each row's LN
+// backward sums (dz, dz zhat) into tpart, from tstats[0]; 3, du and the
+// samples' da zhat, da, du, from tstats[0] and [1]; 4, dx, dW and the sums
+// over the samples. The merges (tiled_stats) fill tstats after steps 1
+// and 2.
+template <typename T>
+int tiled_bwd_step(int step, const ClnBwdArgs& a, cudaStream_t s) {
+  const int N = a.N, HW = a.HW, Cout = a.Cout;
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  float *u = f(a.u), *part = f(a.tpart), *st = f(a.tstats);
+  const dim3 rows(HW, N);
+  const T* g = static_cast<const T*>(a.g);
+  switch (step) {
+    case 0: return cln_u_product<T>(a.x, a.w, u, N * HW, a.Cin, Cout, s);
+    case 1: return clnt_moments(u, nullptr, 1, cf(a.b), part, N, HW, Cout, s);
+    case 2:
+      clnt_dz_sums_kernel<T><<<rows, kTThreads, 0, s>>>(u, cf(a.b), cf(a.scale), cf(a.bias2), g,
+                                                        st, part, HW, Cout);
+      return cudaGetLastError();
+    case 3:
+      clnt_du_kernel<T><<<rows, kTThreads, 0, s>>>(
+          u, cf(a.b), cf(a.scale), cf(a.bias2), g, st, st + 2 * N, static_cast<T*>(a.du),
+          f(a.pds), f(a.pdt), f(a.pdb), HW, Cout, static_cast<long>(N) * HW * Cout);
+      return cudaGetLastError();
+    default:
+      if (int err = tiled_products<T>(a, s)) return err;
+      return sums<T>(a, s);
+  }
+}
+
+// The merge after steps 1 and 2 (moments, then sums).
+constexpr int kClntMerge[2] = {kTMoments, kTSums};
+
+// The tiled route in one call: the steps, each merge over the call's own
+// rows.
+template <typename T>
+int run_tiled(const ClnBwdArgs& a, cudaStream_t s) {
+  float* st = static_cast<float*>(a.tstats);
+  for (int step = 0; step < 4; ++step) {
+    if (int err = tiled_bwd_step<T>(step, a, s)) return err;
+    if (step == 1 || step == 2)
+      VPTR_TRY(tiled_stats(static_cast<const float*>(a.tpart), st + 2 * (step - 1) * a.N, a.N,
+                           a.HW, static_cast<float>(a.Cout), a.eps, kClntMerge[step - 1], s));
+  }
+  return tiled_bwd_step<T>(4, a, s);
 }
 
 // The weight gradient's chunks, then (3.) ds, dt and the per-position db
@@ -466,10 +505,8 @@ int sums(const ClnBwdArgs& a, cudaStream_t s) {
 
 template <typename T>
 int run(const ClnBwdArgs& a, cudaStream_t s) {
-  const bool bf = std::is_same<T, bf16>::value;
-  const int err = cln_route(a.HW, a.Cin, a.Cout) == 1
-                      ? run_tiled_products<T>(a, s)
-                      : (bf ? run_bf16_products(a, s) : run_f32_products(a, s));
+  if (cln_route(a.HW, a.Cin, a.Cout) == 1) return run_tiled<T>(a, s);
+  const int err = std::is_same<T, bf16>::value ? run_bf16_products(a, s) : run_f32_products(a, s);
   if (err) return err;
   return sums<T>(a, s);
 }
@@ -511,6 +548,21 @@ int vptr_wgmma_product_mn(const void* a, const void* b, void* out, int K, int M,
   if (K < 1 || M < 8 || M % 8 || Nc < 8 || Nc % 8) return cudaErrorInvalidValue;
   return launch_dw<1>(a, b, b, static_cast<float*>(out), K, M, Nc, 1,
                       static_cast<cudaStream_t>(stream));
+}
+
+// A step of the tiled route on any shape it takes (cln_tiled_ok; N <=
+// 65535), with groups = N (a group a sample) and u, tpart, tstats (see
+// tiled_bwd_step; tensor parallelism: a rank's share, its exchanges and
+// the merges, vptr_conv_ln_gelu_tiled_merge in conv_ln_gelu.cu, between
+// the steps). Returns as vptr_conv_ln_gelu_bwd.
+int vptr_conv_ln_gelu_bwd_tiled_step(int step, const ClnBwdArgs* a, void* stream) {
+  if (!a || step < 0 || step > 4 || a->N < 1 || a->N > kClnTiledMaxN ||
+      !cln_tiled_ok(a->HW, a->Cin, a->Cout) || a->dtype < 0 || a->dtype > 1 ||
+      a->groups != a->N || a->ksplit < 1 || !a->u || !a->tpart || !a->tstats || !a->du ||
+      !a->pds || !a->pdt || !a->pdb || !a->dbfull || !a->wpart || !a->partial)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a->dtype == 0 ? tiled_bwd_step<float>(step, *a, s) : tiled_bwd_step<bf16>(step, *a, s);
 }
 
 // Returns a cudaError_t (0 = every pass launched), or kTmaEncodeError + a

@@ -19,6 +19,16 @@
 // row-tiled product, dW = x^T du on wg_dw.cuh's, the sums over the samples
 // in sample order). No atomics: the same bits on every run.
 //
+// Under tensor parallelism the route runs as separate steps with the
+// model group's exchanges between them (conv_ln_gelu.cu's
+// vptr_conv_ln_gelu_tiled_step / _merge, conv_ln_gelu_bwd.cu's
+// vptr_conv_ln_gelu_bwd_tiled_step; ops/conv_ln_gelu.py drives them):
+// fc1 column-parallel, each rank's per-row partials over its Cout / M
+// channels gathered and merged as T = HW M partials of Cout / M values;
+// fc2 row-parallel, each rank's partial u = x_m W_m gathered and summed in
+// rank order by the moments kernel, the rest the whole call's on every
+// rank.
+//
 // What bounds it on an H100: operations in the products (2 R Cin Cout
 // flops each), bytes in the passes (u in f32 written once and read three
 // times forward, five backward). Made right and simple first: its time
@@ -69,15 +79,30 @@ int cln_u_product(const void* x, const void* w, float* u, int R, int Cin, int Co
   }
 }
 
-// The row's (mean, M2) of u + b (grid: HW, N; part (N, HW, 2)).
+// The row's (mean, M2) of u + b (grid: HW, N; part (N, HW, 2)). With
+// `parts` (M partial products of N HW x Cout, `plane` apart, in rank order:
+// a row-parallel call's), u is first written as their sum, the planes
+// added in rank order, so every rank that holds the same parts writes the
+// same bits.
 __global__ void __launch_bounds__(kTThreads)
-clnt_moments_kernel(const float* __restrict__ u, const float* __restrict__ b,
-                    float* __restrict__ part, int HW, int Cout) {
+clnt_moments_kernel(float* __restrict__ u, const float* __restrict__ parts, int M, long plane,
+                    const float* __restrict__ b, float* __restrict__ part, int HW, int Cout) {
   __shared__ float red[1][kTWarps];
   const long row = static_cast<long>(blockIdx.y) * HW + blockIdx.x;
-  const float* ur = u + row * Cout;
+  float* ur = u + row * Cout;
   float s[1] = {0.f};
-  for (int c = threadIdx.x; c < Cout; c += kTThreads) s[0] += ur[c] + b[c];
+  for (int c = threadIdx.x; c < Cout; c += kTThreads) {
+    float v;
+    if (parts) {
+      const float* p = parts + row * Cout + c;
+      v = p[0];
+      for (int m = 1; m < M; ++m) v += p[m * plane];
+      ur[c] = v;
+    } else {
+      v = ur[c];
+    }
+    s[0] += v + b[c];
+  }
   block_sum(s, red);
   const float mean = s[0] / static_cast<float>(Cout);
   float q[1] = {0.f};
@@ -92,14 +117,13 @@ clnt_moments_kernel(const float* __restrict__ u, const float* __restrict__ b,
   }
 }
 
-// u, then the statistics st (N x 2: mean, rstd) through part (N x HW x 2).
-template <typename T>
-int cln_tiled_stats(const void* x, const void* w, const float* b, float* u, float* part,
-                    float* st, int N, int HW, int Cin, int Cout, float eps, cudaStream_t s) {
-  if (int err = cln_u_product<T>(x, w, u, N * HW, Cin, Cout, s)) return err;
-  clnt_moments_kernel<<<dim3(HW, N), kTThreads, 0, s>>>(u, b, part, HW, Cout);
-  VPTR_TRY(cudaGetLastError());
-  return tiled_stats(part, st, N, HW, static_cast<float>(Cout), eps, kTMoments, s);
+// Launches clnt_moments_kernel over the N HW rows (parts: null, or M
+// partial products to sum into u first).
+cudaError_t clnt_moments(float* u, const float* parts, int M, const float* b, float* part, int N,
+                         int HW, int Cout, cudaStream_t s) {
+  clnt_moments_kernel<<<dim3(HW, N), kTThreads, 0, s>>>(
+      u, parts, M, static_cast<long>(N) * HW * Cout, b, part, HW, Cout);
+  return cudaGetLastError();
 }
 
 // The forward's epilogue: out = gelu((u + b - mean) rstd scale + bias2),

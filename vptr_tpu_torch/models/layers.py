@@ -73,7 +73,11 @@ routes: ``fused_ffn`` runs kernels #7/#8 on the rank's hidden columns
 partial sum, b2 added after the reduce; ``fused_dw`` runs the chain on
 the rank's hidden channels with its whole-sample LayerNorms over every
 rank's (``fused_dw_chain(..., model=)``: on the card #9/#10's tiled route
-split at its statistics, which are exchanged over the model group); the
+split at its statistics, which are exchanged over the model group);
+``fused_conv_ffn`` runs kernels #11/#12 as fc1's column-parallel and fc2's
+row-parallel call (``conv_ln_gelu(..., model=, rows=)``: on the card the
+tiled route's steps, norm1's statistics exchanged over the model group and
+fc2's partial products summed in f32 before its bias); the
 residual-folded window sublayer (``fused_residual``) calls #1 unfolded on
 the head subset and adds x + scale * branch once after the reduce. Sequence
 parallelism (``TemporalAttention.sp``): each model rank attends over a
@@ -681,8 +685,9 @@ class MlpDWBN(nn.Module):
     def shard(self, size: int, rank: int) -> None:
         """Hold model rank ``rank``'s share of the hidden channels (fc1's
         and dw3x3's outputs, fc2's inputs, norm1's and norm2's channels;
-        the parameters are cut by ``shard_transformer``, which refuses the
-        ``fused_ln`` route, kernels #11/#12)."""
+        the parameters are cut by ``shard_transformer``). Every route runs
+        on the share: the ``fused_ln`` route's kernels #11/#12 as the
+        column- and row-parallel steps of their tiled route."""
         hidden = self.fc1.out_channels
         if hidden % size:
             raise ValueError(f"the conv FFN's {hidden} hidden channels do not split "
@@ -738,22 +743,33 @@ class MlpDWBN(nn.Module):
         return y.permute(0, 2, 3, 1).reshape(n, t, h, w, c)
 
     def _conv_ln_forward(self, x, generator):
+        """The ``fused_ln`` route. Under tensor parallelism fc1 is
+        column-parallel (x into the TP region; norm1's statistics over
+        every rank's hidden channels), the depthwise conv, norm2 and the
+        hidden dropout run on the rank's hidden channels, and fc2 is
+        row-parallel (the partial products summed over the model group
+        before its bias, norm3 on the whole)."""
         n, t, h, w, c = x.shape
         fn = conv_ln_gelu_plain if self.kernels == "plain" else conv_ln_gelu
 
-        def stage(conv: nn.Conv2d, norm: LayerNormHWC, z):
+        def stage(conv: nn.Conv2d, norm: LayerNormHWC, z, rows):
             # z (n t, h w, C_in) -> gelu(norm(conv(z))) (n t, h w, C_out); the
             # LayerNormHWC affine (C_out, h, w) goes in as (h w, C_out)
             cout = conv.out_channels
             hwc = lambda p: p.permute(1, 2, 0).reshape(h * w, cout).contiguous()
             return fn(z.contiguous(), conv.weight[:, :, 0, 0].t().to(self.dtype).contiguous(),
-                      conv.bias.float(), hwc(norm.weight), hwc(norm.bias))
+                      conv.bias.float(), hwc(norm.weight), hwc(norm.bias), model=self.tp,
+                      rows=rows)
 
-        y = stage(self.fc1, self.norm1, x.reshape(n * t, h * w, c).to(self.dtype))
+        x = x.reshape(n * t, h * w, c).to(self.dtype)
+        if self.tp is not None:
+            x = enter_model(x)[0]
+        y = stage(self.fc1, self.norm1, x, False)
         hd = y.shape[-1]
         y = y.reshape(n * t, h, w, hd).permute(0, 3, 1, 2)
-        y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator)
-        y = stage(self.fc2, self.norm3, y.permute(0, 2, 3, 1).reshape(n * t, h * w, hd))
+        split = {} if self.tp is None else {"split": (1,) + self.tp}
+        y = self.drop(F.gelu(self.norm2(self._conv(self.dw3x3, y))), generator, **split)
+        y = stage(self.fc2, self.norm3, y.permute(0, 2, 3, 1).reshape(n * t, h * w, hd), True)
         return self.drop(y, generator).reshape(n, t, h, w, c)
 
     def forward(self, x, generator=None):

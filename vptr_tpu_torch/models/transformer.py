@@ -88,15 +88,6 @@ from vptr_tpu_torch.ops.window import (
     temporal_window_reverse,
 )
 
-# kernel routes refused under tensor parallelism: the conv FFN's fc1 / fc2
-# stages through kernels #11/#12, whose whole-sample LayerNorms would run
-# over a rank's hidden share (queued: the statistics exchanged as #9's are).
-# fused_ffn (#7/#8 on a hidden subset), fused_dw (#9/#10's tiled route
-# split at its statistics) and fused_residual (#1 unfolded, the residual
-# added after the reduce) run on the model axis.
-TP_REFUSED_ROUTES = ("fused_conv_ffn",)
-
-
 def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> nn.Module:
     """Cut a whole transformer to model rank ``mesh.model_rank``'s share of
     ``mesh.model`` (tensor parallelism), in place; the identity at model 1.
@@ -111,10 +102,13 @@ def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> n
     ``tensor_parallel=False`` keeps every parameter whole and sets the
     sequence-parallel columns only (``state_sharding(...,
     tensor_parallel=False)``'s counterpart).
-    Raises NotImplementedError on a kernel route of
-    :data:`TP_REFUSED_ROUTES` and ValueError where the heads or the hidden
-    do not split (a rank holds whole heads; the JAX package would split
-    one)."""
+    Every kernel route runs on the model axis: fused_ffn (#7/#8 on a
+    hidden subset), fused_dw (#9/#10's tiled route split at its
+    statistics), fused_conv_ffn (#11/#12's tiled route as fc1's
+    column-parallel and fc2's row-parallel steps) and fused_residual (#1
+    unfolded, the residual added after the reduce). Raises ValueError where
+    the heads or the hidden do not split (a rank holds whole heads; the JAX
+    package would split one)."""
     from vptr_tpu_torch.parallel.mesh import shard_of, tp_dim
 
     size, rank = mesh.model, mesh.model_rank
@@ -126,12 +120,6 @@ def shard_transformer(model: nn.Module, mesh, tensor_parallel: bool = True) -> n
             m.sp = (size, rank)
     if not tensor_parallel:
         return model
-    for flag in TP_REFUSED_ROUTES:
-        if model.route_flags.get(flag):
-            raise NotImplementedError(
-                f"transformer.{flag}=True with mesh.model={size}: tensor parallel on the "
-                f"{flag} route is not ported (the TP/SP slice runs kernels #1-#6 on a head "
-                f"subset and #7-#10 on a hidden-channel subset; ROADMAP queues #11/#12)")
     for m in model.modules():
         if isinstance(m, (MultiHeadAttention, Mlp, MlpDWBN)):
             m.shard(size, rank)
@@ -347,9 +335,6 @@ class VPTRFormerFAR(nn.Module):
         self.t_max = num_past_frames + num_future_frames
         self.dtype = dtype
         self.remat, self.scan_layers = remat, scan_layers
-        self.route_flags = dict(fused_ffn=fused_ffn, fused_dw=fused_dw,
-                                fused_conv_ffn=fused_conv_ffn,
-                                fused_residual=fused_residual)
         _blocks(self, [EncoderBlock(
             d_model, num_heads, enc_h, enc_w, window, drop_path,
             ffn_hidden_ratio, ffn_hidden_ratio * d_model, far=True,
@@ -515,7 +500,6 @@ class VPTRFormerNAR(nn.Module):
         super().__init__()
         self.enc_h, self.enc_w, self.dtype = enc_h, enc_w, dtype
         self.remat, self.scan_layers = remat, scan_layers
-        self.route_flags = {k: routes.get(k, False) for k in TP_REFUSED_ROUTES}
         self.num_future_frames = num_future_frames
         self.t_max = num_past_frames + num_future_frames
         common = dict(dim=d_model, num_heads=num_heads, enc_h=enc_h,

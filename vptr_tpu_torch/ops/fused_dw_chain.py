@@ -43,7 +43,7 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
   the tiled route split at its statistics (:func:`split_forward`,
   :func:`split_backward`): each pass writes the share's per-tile partials,
   every rank's are gathered over the model group
-  (:func:`~vptr_tpu_torch.parallel.mesh.gather_model_parts`) and merged in
+  (:func:`~vptr_tpu_torch.ops._split.run_split`) and merged in
   the whole call's tile order, so a rank's output is its slice of the
   whole tiled call's bits. The plain versions take the sample's sums over
   the model group (:func:`~vptr_tpu_torch.parallel.mesh.model_sum`). The
@@ -58,45 +58,21 @@ import ctypes
 import torch
 
 from vptr_tpu_torch.ops import _build
+from vptr_tpu_torch.ops._split import (
+    model_exchange,
+    run_split,
+    sample_ln,
+    sample_mean,
+    share_model,
+)
 from vptr_tpu_torch.ops.attention_core import _dropout_args, needs_grad, seed_tensor
 from vptr_tpu_torch.ops.dropout import Seed, apply_dropout, dw_keep_mask
 from vptr_tpu_torch.ops.gelu import gelu_as, gelu_as_grad
-from vptr_tpu_torch.parallel.mesh import gather_model_parts, model_size, model_sum
 
 LN_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("per_sample", "persistent", "tiled")   # #9's routes, as the library numbers them
 BWD_ROUTES = ("groups", "persistent", "tiled")   # #10's routes, as its library numbers them
-
-
-def _sample_mean(z, model=None):
-    """The mean over each sample's (HW, C) of z (N, HW, C); under ``model``
-    (M, m) over every model rank's channels (the sums added up over the
-    model group, differentiably)."""
-    if model is None:
-        return z.mean((1, 2), keepdim=True)
-    return model_sum(z.sum((1, 2), keepdim=True)) / (z.shape[1] * z.shape[2] * model[0])
-
-
-def _sample_ln(z, model=None):
-    """(xhat, rstd) of a whole-sample LayerNorm over (HW, C), two-pass
-    variance (``_sample_forward``); under ``model`` over every rank's
-    channels."""
-    zc = z - _sample_mean(z, model)
-    rstd = torch.rsqrt(_sample_mean(zc * zc, model) + LN_EPS)
-    return zc * rstd, rstd
-
-
-def _model(model):
-    """``model`` (M, m) as the plain versions take it: None for a whole
-    call; a share needs the active mesh's model group of M ranks."""
-    if model is None or model[0] == 1:
-        return None
-    if model_size() != model[0]:
-        raise ValueError(f"fused_dw_chain on model rank {model[1]} of {model[0]}: the LayerNorms "
-                         f"run over every rank's channels, which needs the mesh's model group "
-                         f"(the active mesh has mesh.model={model_size()})")
-    return model
 
 
 def _dw3x3(z, taps, dwb, w: int):
@@ -132,11 +108,11 @@ def _keep(seed, x, rate, model=None):
 def _chain(x, taps, dwb, s1, b1, s2, b2, w, model=None):
     """The forward in f32 before the dropout; returns (z3, xhat1, rstd1,
     a1, z1, xhat2, rstd2, a2)."""
-    xhat1, rstd1 = _sample_ln(x.float(), model)
+    xhat1, rstd1 = sample_ln(x.float(), model)
     a1 = xhat1 * s1.float() + b1.float()
     z1 = gelu_as(a1)
     z2 = _dw3x3(z1, taps, dwb, w)
-    xhat2, rstd2 = _sample_ln(z2, model)
+    xhat2, rstd2 = sample_ln(z2, model)
     a2 = xhat2 * s2.float() + b2.float()
     return gelu_as(a2), xhat1, rstd1, a1, z1, xhat2, rstd2, a2
 
@@ -146,7 +122,7 @@ def fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed: Seed = 0, w: int = 
     """Plain PyTorch version of kernel #9 (``_reference_dw_chain``): all f32,
     rounded to x's dtype once. ``model`` (M, m): x is model rank m's share
     of the channels (the module notes)."""
-    model = _model(model)
+    model = share_model(model, "fused_dw_chain")
     z3 = _chain(x, taps, dwb, s1, b1, s2, b2, w, model)[0]
     return apply_dropout(z3, _keep(seed, x, rate, model), rate).to(x.dtype)
 
@@ -156,7 +132,7 @@ def fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int 
     """Plain backward of kernel #9 (mirrors ``_bwd_kernel``). Returns (dx,
     dtaps, ddwb, ds1, db1, ds2, db2): dx in x's dtype, the rest f32 summed
     over the samples (under ``model`` the share's)."""
-    model = _model(model)
+    model = share_model(model, "fused_dw_chain")
     _, xhat1, rstd1, a1, z1, xhat2, rstd2, a2 = _chain(x, taps, dwb, s1, b1,
                                                        s2, b2, w, model)
     gs = apply_dropout(g.float(), _keep(seed, x, rate, model), rate)
@@ -164,8 +140,8 @@ def fused_dw_chain_backward_plain(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int 
     dxh2 = da2 * s2.float()
 
     def ln_back(dxh, xhat, rstd):
-        return (dxh - _sample_mean(dxh, model)
-                - xhat * _sample_mean(dxh * xhat, model)) * rstd
+        return (dxh - sample_mean(dxh, model)
+                - xhat * sample_mean(dxh * xhat, model)) * rstd
 
     dz2 = ln_back(dxh2, xhat2, rstd2)
     n, hw, c = x.shape
@@ -183,9 +159,9 @@ def _forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model=None):
     """The forward for either device; ``seed`` a tensor or None (rate 0)."""
     if x.device.type == "cpu":
         return fused_dw_chain_plain(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)
-    if _model(model) is not None:
+    if share_model(model, "fused_dw_chain") is not None:
         return run_split([split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model)],
-                         _model_exchange)[0]
+                         model_exchange)[0]
     return _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate)
 
 
@@ -240,9 +216,9 @@ def fused_dw_chain_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w: int = 8,
                                              g, w, rate, model)
     if rate > 0.0:
         seed = seed_tensor(seed, x.device)
-    if _model(model) is not None:
+    if share_model(model, "fused_dw_chain") is not None:
         return run_split([split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate,
-                                         model)], _model_exchange)[0]
+                                         model)], model_exchange)[0]
     return _backward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate)
 
 
@@ -450,7 +426,7 @@ def split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model):
     None at rate 0), as a generator of its exchanges: it yields each
     statistic's per-tile partials (N, HW / w, C / 32, 2) and takes back
     every rank's stacked in rank order (M, N, HW / w, C / 32, 2); returns
-    the share's output (:func:`run_split` drives it). Counted in
+    the share's output (``ops/_split.py::run_split`` drives it). Counted in
     ``fused_dw_chain.launches`` when it completes."""
     _check_split("fused_dw_chain", x, w, model)
     n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
@@ -508,33 +484,6 @@ def split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, model):
     fused_dw_chain.bwd_launches += 1
     fused_dw_chain.bwd_launches_by_route["tiled_split"] += 1
     return dx, dtaps, ddwb, ds1, db1, ds2, db2
-
-
-def run_split(calls, exchange=None):
-    """Drive model ranks' split calls (:func:`split_forward`,
-    :func:`split_backward`) in step; returns each one's result. ``exchange``
-    maps the calls' partials to what each gets back; the default stacks
-    them in order, so ``calls`` of ranks 0 .. M - 1 run the M ranks in one
-    process (the tests' and the smoke run's comparisons)."""
-    exchange = exchange or (lambda parts: [torch.stack(parts)] * len(parts))
-    got, results = [None] * len(calls), [None] * len(calls)
-    while True:
-        parts = []
-        for i, call in enumerate(calls):
-            try:
-                parts.append(call.send(got[i]))
-            except StopIteration as done:
-                results[i] = done.value
-        if len(parts) == 0:
-            return results
-        if len(parts) != len(calls):
-            raise RuntimeError("fused_dw_chain: the split calls are out of step")
-        got = exchange(parts)
-
-
-def _model_exchange(parts):
-    """A rank's partials gathered over the model group in rank order."""
-    return [gather_model_parts(parts[0])]
 
 
 def _forward_kernel(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, route=None):
