@@ -138,7 +138,7 @@ Phases (any failure exits non-zero, without the final result line):
    step, and the far_mnist step with and without the GAN term in turns;
 23. the commands users run, through vptr_tpu_torch.cli.main, on the
    synthetic loader (no dataset on disk), into a temporary directory
-   removed at the end: `cli train` of ae_mnist at full width (8 steps and
+   removed after phase 57: `cli train` of ae_mnist at full width (8 steps and
    a validation pass; the metrics finite, ckpt/8/ written; its steps/s and
    training frames/s beside phase 22's bare AE step);
 24. `cli train` of far_mnist at full width on phase 23's autoencoder
@@ -316,7 +316,31 @@ Phases (any failure exits non-zero, without the final result line):
    one-rank step as phase 42, each rank launching #1/#3 and #11/#12 24
    times (12 `tiled_split` and 12 `tiled_rows` each); its torchrun cli
    train is phase 44's;
-55. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+55. far_mnist's hidden over mesh.model 4 (528 channels a rank: 16 whole
+   32-channel tiles and a partial one of 16): #7/#8 on each quarter of the
+   hidden columns against their plain versions and, summed, the whole
+   call; #9/#10's tiled route split at its statistics, four ranks run in
+   step in one process (run_split), at the step's 190 samples of 8 x 8,
+   bf16 and f32, dropout 0 and 0.1, each share against the plain
+   version's slice (phase 51's gates), the four against the whole tiled
+   call (max |err|: not the same bits, a whole-call tile straddles two
+   ranks), two calls bit-equal; a rank's #9/#10 beside its plain version,
+   the library yardstick (eager and graph-replayed) and the bound;
+56. far_mnist at full width on a (1, 4) mesh on the fused-FFN route
+   (TP_FFN_FLAGS: 2 heads, 528 hidden columns and channels a rank; four
+   cards over NCCL, or four processes on the one card over gloo): one
+   train step against the one-rank step as phase 42, each rank launching
+   #1-#4 and #7-#10 12 times (#9/#10 all `tiled_split`);
+57. the examples on the card, through their main(): test_vptr_torch.py
+   --mode far_rip --max-batches 1 --gif-dir on phase 24's far_mnist
+   checkpoint (#1/#2 240 launches: evaluate's batch and the GIF batch's
+   predict; four GIFs where PIL imports), --mode nar on nar_mnist's
+   seeded init saved as a step-0 checkpoint (#1 4, #5 8, #2 20; a 2-step
+   `cli train` leaves NaN weights on the card, ROADMAP §3), and
+   test_autoencoder_torch.py on phase 23's ae_mnist checkpoint (PSNR /
+   SSIM finite, no kernel of the twelve launched, the strip written where
+   PIL imports); then phases 23-26's directory is removed;
+58. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -333,7 +357,8 @@ Phases (any failure exits non-zero, without the final result line):
    `nar_kth_128`; #7-#10 with their hidden-subset readings,
    `hidden_subset`, and a rank's launches in phase 52; #11/#12 with
    their fc1 split and fc2 rows readings, `tensor_parallel`, and a rank's
-   launches in phase 54),
+   launches in phase 54; #7-#10 with their mesh.model 4 readings,
+   `hidden_quarter`, and a rank's launches in phase 56),
    the run's wall time and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when
@@ -1780,17 +1805,16 @@ class _PerClip:
         return self.ds.get(index, rng)
 
 
-def entry_point_phases(dev, bare_step_ms, bare_ae_ms):
+def entry_point_phases(dev, bare_step_ms, bare_ae_ms, root):
     """Phases 23-26: the commands users run, ``python -m vptr_tpu_torch.cli
     train / eval / predict``, through ``cli.main`` at full width on the
-    synthetic loader (no dataset on disk), into a temporary directory that is
-    removed at the end. Returns (the summary line, extra readings)."""
+    synthetic loader (no dataset on disk), into the directory ``root``
+    (the caller's: phase 57 runs the examples on its ae_mnist and far_mnist
+    checkpoints, ``root / "ae"`` and ``root / "far"``, then removes it).
+    Returns (the summary line, extra readings)."""
     import contextlib
     import importlib.util
     import io
-    import shutil
-    import tempfile
-    from pathlib import Path
 
     from vptr_tpu_torch import cli
     from vptr_tpu_torch.config import get_preset
@@ -1801,7 +1825,6 @@ def entry_point_phases(dev, bare_step_ms, bare_ae_ms):
     from vptr_tpu_torch.train.checkpoint import CheckpointManager
     from vptr_tpu_torch.train.trainer import Trainer
 
-    root = Path(tempfile.mkdtemp(prefix="vptr_smoke_"))
     records = _Records()
     logging.getLogger("vptr_tpu_torch").addHandler(records)
     try:
@@ -1983,7 +2006,6 @@ def entry_point_phases(dev, bare_step_ms, bare_ae_ms):
             check("PIL does not import" in buf.getvalue(), "cli predict said so")
     finally:
         logging.getLogger("vptr_tpu_torch").removeHandler(records)
-        shutil.rmtree(root, ignore_errors=True)
     summary = (f"ae_trainer_steps_per_s {ae_sps:.4f} ae_trainer_frames_per_s "
                f"{ae_sps * ae_frames:.1f} far_trainer_steps_per_s {sps:.4f} "
                f"far_trainer_frames_per_s {sps * frames_per_step:.1f} "
@@ -3276,6 +3298,9 @@ def _flat_leaves(tree):
 # ---------------------------------------------------------------- tensor parallelism
 
 TP_SUBSETS = ((4, 0), (4, 4), (2, 0))   # (heads, first head) of 8: Cl 264, 264, 132
+DW_TOL = {torch.float32: 1e-3, torch.bfloat16: 6.25e-2}          # phase 3's gates on #9 (#7)
+DW_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}      # and #10 (and #7/#8)
+FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
 TP_BATCH = 8                             # phases 42-44's global batch
 TP_TIMED_STEPS = 1                       # a rank's timed steps (a gloo step on one card: 3-6 s)
 # the fused-FFN route with the folded window residual (phases 44 and 52)
@@ -3634,19 +3659,21 @@ def _worker_tp_step(out_dir):
     return out
 
 
-def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
-    """Phase 42, 43, 52 or 54: the preset's step on two ranks (two cards
-    over NCCL, or two processes on the one card over gloo) on a (1, 2)
-    mesh, against the one-rank step from the same seeds; returns the
-    readings. With ``transformer.fused_dw`` every rank's #9/#10 must take
-    the tiled route split at its statistics; with ``fused_conv_ffn`` every
-    rank's #11/#12 the tiled route's steps, half at fc1 (``tiled_split``)
-    and half at fc2 (``tiled_rows``)."""
-    backend = "nccl" if two_cards else "gloo"
-    label = ("two cards over NCCL" if two_cards else
-             "two processes on the one card over gloo (a correctness run: the ranks share "
-             "the card, and every collective is staged through the host)")
-    what = f"{preset} mesh.model=2" + (" + sequence_parallel" if flags.get(
+def tp_step_phase(dev, card, root, number, preset, flags, want, cards, ranks=2):
+    """Phase 42, 43, 52, 54 or 56: the preset's step on ``ranks`` ranks (a
+    card each over NCCL where the machine has ``ranks`` cards, else
+    ``ranks`` processes on the one card over gloo) on a (1, ranks) mesh,
+    against the one-rank step from the same seeds; returns the readings.
+    With ``transformer.fused_dw`` every rank's #9/#10 must take the tiled
+    route split at its statistics; with ``fused_conv_ffn`` every rank's
+    #11/#12 the tiled route's steps, half at fc1 (``tiled_split``) and half
+    at fc2 (``tiled_rows``)."""
+    own_cards = cards >= ranks
+    backend = "nccl" if own_cards else "gloo"
+    label = (f"{ranks} cards over NCCL" if own_cards else
+             f"{ranks} processes on the one card over gloo (a correctness run: the ranks share "
+             f"the card, and every collective is staged through the host)")
+    what = f"{preset} mesh.model={ranks}" + (" + sequence_parallel" if flags.get(
         "sequence_parallel") else "") + (" on the fused-FFN route (" + ", ".join(
             k for k in ("fused_residual", "fused_ffn", "fused_dw") if flags.get(k)) + ")"
         if flags.get("fused_ffn") else "") + (" on the conv-FFN route (" + ", ".join(
@@ -3676,15 +3703,16 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
     gc.collect()
     torch.cuda.empty_cache()
     (root / "args.json").write_text(json.dumps({"preset": preset, "flags": flags}))
-    res = launch_ranks("tp_step", 2, backend, root, one_card=not two_cards)
-    out = {"backend": backend, "one_rank_step_ms": one_ms, "one_rank_peak_gib": one_peak}
-    if not _ranks_ok(res, f"two-rank {what} step ({label})"):
+    res = launch_ranks("tp_step", ranks, backend, root, one_card=not own_cards)
+    out = {"backend": backend, "ranks": ranks, "one_rank_step_ms": one_ms,
+           "one_rank_peak_gib": one_peak}
+    if not _ranks_ok(res, f"{ranks}-rank {what} step ({label})"):
         return out
     r0 = res[0][2]
     got = torch.load(root / "got.pt")
-    check(r0["mesh"] == [1, 2] and r0["backend"] == backend,
-          f"mesh {r0['mesh']} (data 1, model 2), backend {r0['backend']}; q_proj rows a rank "
-          f"{r0['local_q_rows']} (of {cfg.transformer.d_model})")
+    check(r0["mesh"] == [1, ranks] and r0["backend"] == backend,
+          f"mesh {r0['mesh']} (data 1, model {ranks}), backend {r0['backend']}; q_proj rows a "
+          f"rank {r0['local_q_rows']} (of {cfg.transformer.d_model})")
     for x in res:
         check_counts(x[2]["launches"], want, f"a rank's {what} step")
         if flags.get("fused_dw"):
@@ -3702,9 +3730,9 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, two_cards):
                   f"#11 / #12 on the tiled route's steps in every launch, {half} at fc1 "
                   f"(tiled_split) and {half} at fc2 (tiled_rows) each way: {routes}")
     check(all(x[2]["metrics"] == r0["metrics"] for x in res),
-          "the metrics equal on both ranks")
+          "the metrics equal on every rank")
     check(all(x[2]["replicated_bit_equal"] for x in res),
-          "the replicated parameters bit-equal on both ranks after the step")
+          "the replicated parameters bit-equal on every rank after the step")
     check(all(torch.equal(got["start"][n], start[n]) for n in start),
           "the ranks' shares gathered are the one-rank init, bit for bit")
     d_total = abs(r0["metrics"]["T_total"] - ma["T_total"])
@@ -3892,13 +3920,13 @@ def tp_cli_phase(card, root, cards):
 def tp_phases(dev, card, which=(42, 43, 44)):
     """Phases 42-44 (tensor and sequence parallelism at full width; 44's
     torchruns on the fused-FFN and conv-FFN routes), 52 (the fused-FFN
-    route's step) and 54 (the conv-FFN route's). Returns the readings."""
+    route's step), 54 (the conv-FFN route's) and 56 (the fused-FFN route's
+    at mesh.model 4). Returns the readings."""
     import shutil
     import tempfile
     from pathlib import Path
 
     cards = torch.cuda.device_count()
-    two_cards = cards >= 2
     root = Path(tempfile.mkdtemp(prefix="vptr_smoke_tp_"))
     out = {"cards": cards, "card": card}
     try:
@@ -3908,8 +3936,7 @@ def tp_phases(dev, card, which=(42, 43, 44)):
             far.update(dict.fromkeys(("fused_attention", "fused_attention_bwd", "fused_ffn",
                                       "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd",
                                       "conv_ln_gelu", "conv_ln_gelu_bwd"), 0))
-            out["far_tp"] = tp_step_phase(dev, card, root, 42, "far_mnist", {}, far,
-                                          two_cards)
+            out["far_tp"] = tp_step_phase(dev, card, root, 42, "far_mnist", {}, far, cards)
             gc.collect()
             torch.cuda.empty_cache()
         if 43 in which:
@@ -3919,23 +3946,27 @@ def tp_phases(dev, card, which=(42, 43, 44)):
                        "fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd",
                        "conv_ln_gelu", "conv_ln_gelu_bwd"), 0)}
             out["nar_tp_sp"] = tp_step_phase(dev, card, root, 43, "nar_mnist",
-                                             {"sequence_parallel": True}, nar, two_cards)
+                                             {"sequence_parallel": True}, nar, cards)
             gc.collect()
             torch.cuda.empty_cache()
         if 44 in which:
             out["cli"] = tp_cli_phase(card, root, cards)
-        if 52 in which:   # every kernel of the route 12 times a rank (#5/#6 none)
-            want = {k: LAYERS for k in TP_COUNTERS}
-            want.update(fused_attention=0, fused_attention_bwd=0, conv_ln_gelu=0,
+        # the fused-FFN route: every kernel of the route 12 times a rank (#5/#6 none)
+        ffn_want = {k: LAYERS for k in TP_COUNTERS}
+        ffn_want.update(fused_attention=0, fused_attention_bwd=0, conv_ln_gelu=0,
                         conv_ln_gelu_bwd=0)
+        if 52 in which:
             out["far_ffn_tp"] = tp_step_phase(dev, card, root, 52, "far_mnist", TP_FFN_FLAGS,
-                                              want, two_cards)
+                                              ffn_want, cards)
         if 54 in which:   # #1/#3 (window and folded temporal) and #11/#12 (fc1, fc2) 24 each
             want = dict.fromkeys(TP_COUNTERS, 0)
             want.update(dict.fromkeys(("fused_attention_ln", "fused_attention_ln_bwd",
                                        "conv_ln_gelu", "conv_ln_gelu_bwd"), 2 * LAYERS))
             out["far_conv_tp"] = tp_step_phase(dev, card, root, 54, "far_mnist", TP_CONV_FLAGS,
-                                               want, two_cards)
+                                               want, cards)
+        if 56 in which:   # 2 heads, 528 hidden columns and channels a rank
+            out["far_ffn_tp4"] = tp_step_phase(dev, card, root, 56, "far_mnist", TP_FFN_FLAGS,
+                                               ffn_want, cards, ranks=4)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -3948,6 +3979,189 @@ def tp_phases(dev, card, which=(42, 43, 44)):
 # torchrun cli train is phase 44's)
 
 
+def ffn_ops(randn, dev, dtype, s, c, hid):
+    """#7's operands at S rows x C, hidden H, from the host normals randn."""
+    return (randn(s, c).to(dev, dtype), randn(c, hid, std=c ** -0.5).to(dev, dtype),
+            randn(hid, std=0.1).to(dev), randn(hid, c, std=hid ** -0.5).to(dev, dtype),
+            randn(c, std=0.1).to(dev), (1 + randn(c, std=0.1)).to(dev),
+            randn(c, std=0.1).to(dev))
+
+
+def ffn_share(ops, m, parts):
+    """#7's operands and keywords on share m of ``parts`` equal shares of
+    the hidden columns: w1's columns, b1's and w2's rows, b2 0 (added
+    after the sum), the dropout at the global column."""
+    x, w1, b1, w2, b2, ls, lb = ops
+    hl = w1.shape[1] // parts
+    cols = slice(m * hl, (m + 1) * hl)
+    return ((x, w1[:, cols].contiguous(), b1[cols].contiguous(), w2[cols].contiguous(),
+             torch.zeros_like(b2), ls, lb), dict(mask_cols=w1.shape[1], col0=m * hl))
+
+
+def ffn_share_check(out, ops, gout, kseed, rate, parts):
+    """Phases 51 and 55: #7/#8 on each of ``parts`` shares of the hidden
+    columns against their plain versions (phase 3's gates), and the shares
+    summed (b2 once) against the whole call: dx, dls, dlb summed, dw1,
+    db1, dw2 the whole's slices. Readings into out["fused_ffn"] and
+    out["fused_ffn_bwd"]."""
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    dtype, (c, hid) = ops[0].dtype, ops[1].shape
+    dn, hl = str(dtype).replace("torch.", ""), hid // parts
+    tol, btol = DW_TOL[dtype], DW_BWD_TOL[dtype]
+    shares = []
+    for m in range(parts):
+        sub, kw = ffn_share(ops, m, parts)
+        got = tff.fused_ffn(*sub, kseed, rate, **kw)
+        e = max_err(got, tff.fused_ffn_plain(*sub, kseed, rate, **kw))
+        route = tff.kernel_route(c, hl, dtype)
+        what = f"{dn} hidden {m * hl}..{(m + 1) * hl - 1} of {hid} dropout {rate}"
+        check(e <= tol, f"fused_ffn {what} ({route} route) vs plain max|err| {e:.3e} <= {tol}")
+        kg = tff.fused_ffn_backward(*sub, kseed, gout, rate, **kw)
+        n_worst, worst = worst_rel(kg, tff.fused_ffn_backward_plain(*sub, kseed, gout, rate,
+                                                                    **kw), FFN_GRADS)
+        broute = tff.backward_route(c, hl, dtype)
+        check(worst <= btol, f"fused_ffn backward {what} ({broute} route) vs plain worst "
+              f"{n_worst} rel err {worst:.3e} <= {btol}")
+        out["fused_ffn"][what] = {"route": route, "max_abs_err": e}
+        out["fused_ffn_bwd"][what] = {"route": broute, "rel_err": worst}
+        shares.append((got, kg))
+    e = max_err(sum(o.float() for o, _ in shares) + ops[4], tff.fused_ffn(*ops, kseed, rate))
+    wg = tff.fused_ffn_backward(*ops, kseed, gout, rate)
+    ex = max(rel_err(sum(g[i].float() for _, g in shares), wg[i]) for i in (0, 5, 6))
+    es = max(rel_err(torch.cat([g[i] for _, g in shares], dim), wg[i])
+             for i, dim in ((1, 1), (2, 0), (3, 0)))
+    check(e <= 2 * tol and ex <= 2 * btol and es <= btol,
+          f"fused_ffn {dn} dropout {rate}: the {parts} shares' outputs summed (b2 once) vs the "
+          f"whole call max|err| {e:.3e} <= {2 * tol}; dx, dls, dlb summed rel err {ex:.3e} <= "
+          f"{2 * btol}; dw1, db1, dw2 the whole's slices rel err {es:.3e} <= {btol}")
+    out["fused_ffn"][f"{dn} dropout {rate} {parts} shares"] = {
+        "out_max_abs_err": e, "grads_summed_rel_err": ex, "shares_rel_err": es}
+
+
+def _dw_slices(grads, cols):
+    """#10's (dx, dtaps, ddwb, ds1, db1, ds2, db2) at the channels cols."""
+    return ([grads[0][..., cols], grads[1][:, cols], grads[2][cols]]
+            + [d[:, cols] for d in grads[3:]])
+
+
+def dw_split_check(label, ops, gout, kseed, w, rate, ranks):
+    """Phases 51 and 55: #9/#10 on the tiled route split at its statistics
+    over ``ranks`` equal shares of ``ops``' channels, run in step in one
+    process (run_split: the exchange stacks their partials where a mesh
+    gathers them), twice. Each share against the plain version's slice
+    (phase 3's gates); the shares against the whole tiled call's slices,
+    bit-equal where they are whole 32-channel tiles, else within the same
+    gates (a partial tile merges tiles of two sizes, and a whole-call tile
+    straddles two ranks); the two calls bit-equal. Returns (#9's readings,
+    #10's)."""
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    dtype, cl = ops[0].dtype, ops[0].shape[-1] // ranks
+    dn, tol, btol = str(dtype).replace("torch.", ""), DW_TOL[dtype], DW_BWD_TOL[dtype]
+    whole_tiles = cl % tdw.T_CH == 0
+    cols = [slice(m * cl, (m + 1) * cl) for m in range(ranks)]
+    shares = [tuple(o[..., c].contiguous() for o in ops) for c in cols]
+    gshares = [gout[..., c].contiguous() for c in cols]
+    split = lambda: tdw.run_split([tdw.split_forward(*shares[m], kseed, w, rate, (ranks, m))
+                                   for m in range(ranks)])
+    split_bwd = lambda: tdw.run_split([tdw.split_backward(
+        *shares[m], kseed, gshares[m], w, rate, (ranks, m)) for m in range(ranks)])
+    what = (f"{label} {dn} {tuple(ops[0].shape)} on {ranks} ranks' {cl} channels "
+            f"(tiled_split), dropout {rate}")
+    against = "" if whole_tiles else f" <= {tol} (a partial tile: not the same bits)"
+
+    outs, again = split(), split()
+    whole = tdw._forward_kernel(*ops, kseed, w, rate, route="tiled")
+    plain = tdw.fused_dw_chain_plain(*ops, kseed, w, rate)
+    e = max(max_err(o, plain[..., c]) for o, c in zip(outs, cols))
+    ew = max(max_err(o, whole[..., c]) for o, c in zip(outs, cols))
+    eq = all(torch.equal(o, whole[..., c]) for o, c in zip(outs, cols))
+    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    check(e <= tol and same and (eq if whole_tiles else ew <= tol),
+          f"fused_dw_chain {what} vs plain max|err| {e:.3e} <= {tol}; the whole tiled call's "
+          f"slices {'bit-equal' if eq else f'max|err| {ew:.3e}'}{against}; two calls "
+          f"bit-equal {same}")
+    del outs, again, whole, plain
+    bwds, bagain = split_bwd(), split_bwd()
+    bsame = all(torch.equal(a, b) for x, y in zip(bwds, bagain) for a, b in zip(x, y))
+    wgr = tdw._backward_kernel(*ops, kseed, gout, w, rate, route="tiled")
+    beq = all(torch.equal(a, b) for g, c in zip(bwds, cols) for a, b in zip(g, _dw_slices(wgr, c)))
+    bw = max(rel_err(a, b) for g, c in zip(bwds, cols) for a, b in zip(g, _dw_slices(wgr, c)))
+    del wgr, bagain
+    pg = tdw.fused_dw_chain_backward_plain(*ops, kseed, gout, w, rate)
+    worst = max(rel_err(a, b) for g, c in zip(bwds, cols) for a, b in zip(g, _dw_slices(pg, c)))
+    check(worst <= btol and bsame and (beq if whole_tiles else bw <= btol),
+          f"fused_dw_chain backward {what} vs plain worst rel err {worst:.3e} <= {btol}; the "
+          f"whole tiled call's slices {'bit-equal' if beq else f'rel err {bw:.3e}'}"
+          f"{'' if whole_tiles else f' <= {btol}'}; two calls bit-equal {bsame}")
+    return ({"route": "tiled_split", "max_abs_err": e, "bit_equal_to_whole_slice": eq,
+             "whole_slice_max_abs_err": ew, "two_calls_bit_equal": same},
+            {"route": "tiled_split", "rel_err": worst, "bit_equal_to_whole_slice": beq,
+             "whole_slice_rel_err": bw, "two_calls_bit_equal": bsame})
+
+
+def dw_share_cases(dops, gdw, kseed, w, rate, ranks):
+    """Phases 51 and 55's timed cases of #9 and #10 on a rank's share dops
+    (N, HW, Cl) of ``ranks`` shares, bf16 (the exchange a local stack of
+    the rank's own partials: the mesh's gather is timed in the steps): the
+    plain version on the share, the library yardstick (the share's
+    LayerNorms, GELUs and depthwise conv) and the bytes and f32 operations
+    of the bound, as :func:`time_share_cases` takes them."""
+    import torch.nn.functional as F
+
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    n, hw, cl = dops[0].shape
+    bf, h = torch.bfloat16, hw // w
+    own = lambda parts: [torch.stack([parts[0]] * ranks)]
+
+    def library(x, taps, dwb, s1, b1, s2, b2):
+        img = x.view(n, h, w, cl).permute(0, 3, 1, 2)
+        aff = lambda p: p.t().reshape(cl, h, w).to(bf)
+        z = F.gelu(F.layer_norm(img, img.shape[1:], aff(s1), aff(b1)))
+        z = F.conv2d(z, taps.t().reshape(cl, 1, 3, 3).to(bf), dwb.to(bf), padding=1, groups=cl)
+        return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
+
+    d, s2b = n * hw * cl, 2
+    shape = f"{n} x {hw} x {cl} of {cl * ranks}"
+    return (
+        ("fused_dw_chain",
+         lambda: tdw.run_split([tdw.split_forward(*dops, kseed, w, rate, (ranks, 0))], own),
+         lambda: tdw.fused_dw_chain_plain(*dops, kseed, w, rate), library, dops, None,
+         2 * d * s2b + (10 * cl + 4 * hw * cl) * 4, 80 * d, torch.float32, shape),
+        ("fused_dw_chain_bwd",
+         lambda: tdw.run_split([tdw.split_backward(*dops, kseed, gdw, w, rate, (ranks, 0))],
+                               own),
+         lambda: tdw.fused_dw_chain_backward_plain(*dops, kseed, gdw, w, rate), library, dops,
+         gdw.view(n, h, w, cl).permute(0, 3, 1, 2), 3 * d * s2b + (20 * cl + 8 * hw * cl) * 4,
+         210 * d, torch.float32, shape),
+    )
+
+
+def time_share_cases(out, cases):
+    """Each case (name, kernel call, plain call, library yardstick, its
+    operands, its output gradient (None: a forward), bytes, operations,
+    their dtype, shape): the kernel beside the plain version in turns, the
+    library eager and replayed from a CUDA graph (a backward's as forward
+    + backward less forward), and the bound, into out[name]."""
+    for name, fn, plain, lib, lib_ops, lib_g, nbytes, flops, fdt, shape in cases:
+        k_ms, p_ms = timed_turns(fn, plain)
+        if lib_g is None:
+            lib_ms, lib_graph = cuda_ms(lambda: lib(*lib_ops)), graph_ms(lambda: lib(*lib_ops))
+        else:
+            lib_ms, lib_graph = cuda_ms(grads_of(lib, lib_ops, lib_g)), graph_bwd_ms(
+                lib, lib_ops, lib_g)
+        b_ms, b_by = bound(nbytes, flops, fdt)
+        out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, library_graph_ms=lib_graph,
+                         bound_ms=b_ms, bound_by=b_by, shape=shape)
+        print(f"  {name} on a rank's share ({shape}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms (graph "
+              f"{lib_graph if lib_graph is None else round(lib_graph, 4)}), bound {b_ms:.4f} "
+              f"ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
+              f"{str(fdt).replace('torch.', '')})")
+
+
 def tp_ffn_kernel_phase(dev):
     """Phase 51: kernels #7/#8 on hidden columns 0-1055 and 1056-2111 of
     2112 at far_mnist's step (12,160 rows, C 528), bf16 and f32, dropout 0
@@ -3957,14 +4171,13 @@ def tp_ffn_kernel_phase(dev):
     in step in one process (run_split: the exchange stacks their partials
     where the mesh gathers them), at far_mnist's step (190 samples of 8 x
     8) and nar_kth_128's (80 of 16 x 16), dropout 0.1, against the plain
-    version's slice and the whole tiled call's (bit equality reported);
-    then each one's time on a rank's share beside its plain version, a
-    library yardstick (eager and graph-replayed) and its bound. Returns
-    {kernel name: its hidden-subset readings}."""
+    version's slice and the whole tiled call's (bit-equal: whole tiles;
+    dw_split_check); then each one's time on a rank's share beside its
+    plain version, a library yardstick (eager and graph-replayed) and its
+    bound. Returns {kernel name: its hidden-subset readings}."""
     import torch.nn.functional as F
 
     from vptr_tpu_torch.config import get_preset
-    from vptr_tpu_torch.ops import fused_dw_chain as tdw
     from vptr_tpu_torch.ops import fused_ffn as tff
 
     phase("51. kernels #7-#10 on a hidden-channel subset (tensor parallelism, mesh.model 2)")
@@ -3974,63 +4187,15 @@ def tp_ffn_kernel_phase(dev):
     ctx = tc.num_past_frames + tc.num_future_frames
     s_step, n_step, hl = BATCH * (ctx - 1) * hw, BATCH * (ctx - 1), hid // 2
     bf, f32 = torch.bfloat16, torch.float32
-    tol = {f32: 1e-3, bf: 6.25e-2}                       # as phase 3
-    bwd_tol = {f32: 1e-4, bf: 2 ** -5}
     kseed = torch.tensor([SEED + 5151], dtype=torch.int32, device=dev)
     randn = normals(torch.Generator().manual_seed(SEED + 51))
-    ffn_names = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
     names = ("fused_ffn", "fused_ffn_bwd", "fused_dw_chain", "fused_dw_chain_bwd")
     out = {n: {} for n in names}
-    cols = lambda m: slice(m * hl, (m + 1) * hl)
-
-    def ffn_ops(dtype):
-        return (randn(s_step, c).to(dev, dtype), randn(c, hid, std=c ** -0.5).to(dev, dtype),
-                randn(hid, std=0.1).to(dev), randn(hid, c, std=hid ** -0.5).to(dev, dtype),
-                randn(c, std=0.1).to(dev), (1 + randn(c, std=0.1)).to(dev),
-                randn(c, std=0.1).to(dev))
-
-    def ffn_half(ops, m):      # w1's columns, b1's and w2's rows; b2 0 (added after the sum)
-        x, w1, b1, w2, b2, ls, lb = ops
-        return (x, w1[:, cols(m)].contiguous(), b1[cols(m)].contiguous(),
-                w2[cols(m)].contiguous(), torch.zeros_like(b2), ls, lb)
 
     for dtype in (bf, f32):
-        dn = str(dtype).replace("torch.", "")
-        ops, gout = ffn_ops(dtype), randn(s_step, c).to(dev, dtype)
+        ops, gout = ffn_ops(randn, dev, dtype, s_step, c, hid), randn(s_step, c).to(dev, dtype)
         for r in (0.0, 0.1):
-            halves = []
-            for m in range(2):
-                sub, kw = ffn_half(ops, m), dict(mask_cols=hid, col0=m * hl)
-                got = tff.fused_ffn(*sub, kseed, r, **kw)
-                e = max_err(got, tff.fused_ffn_plain(*sub, kseed, r, **kw))
-                route = tff.kernel_route(c, hl, dtype)
-                what = f"{dn} hidden {m * hl}..{(m + 1) * hl - 1} of {hid} dropout {r}"
-                check(e <= tol[dtype], f"fused_ffn {what} ({route} route) vs plain max|err| "
-                      f"{e:.3e} <= {tol[dtype]}")
-                kg = tff.fused_ffn_backward(*sub, kseed, gout, r, **kw)
-                n_worst, worst = worst_rel(kg, tff.fused_ffn_backward_plain(
-                    *sub, kseed, gout, r, **kw), ffn_names)
-                broute = tff.backward_route(c, hl, dtype)
-                check(worst <= bwd_tol[dtype], f"fused_ffn backward {what} ({broute} route) vs "
-                      f"plain worst {n_worst} rel err {worst:.3e} <= {bwd_tol[dtype]}")
-                out["fused_ffn"][what] = {"route": route, "max_abs_err": e}
-                out["fused_ffn_bwd"][what] = {"route": broute, "rel_err": worst}
-                halves.append((got, kg))
-            whole = tff.fused_ffn(*ops, kseed, r)
-            e = max_err(halves[0][0].float() + halves[1][0].float() + ops[4], whole)
-            wg = tff.fused_ffn_backward(*ops, kseed, gout, r)
-            ex = max(rel_err(halves[0][1][i].float() + halves[1][1][i].float(), wg[i])
-                     for i in (0, 5, 6))
-            es = max(rel_err(torch.cat([halves[0][1][i], halves[1][1][i]], dim), wg[i])
-                     for i, dim in ((1, 1), (2, 0), (3, 0)))
-            check(e <= 2 * tol[dtype] and ex <= 2 * bwd_tol[dtype] and es <= bwd_tol[dtype],
-                  f"fused_ffn {dn} dropout {r}: the halves' outputs summed (b2 once) vs the "
-                  f"whole call max|err| {e:.3e} <= {2 * tol[dtype]}; dx, dls, dlb summed rel "
-                  f"err {ex:.3e} <= {2 * bwd_tol[dtype]}; dw1, db1, dw2 the whole's slices "
-                  f"rel err {es:.3e} <= {bwd_tol[dtype]}")
-            out["fused_ffn"][f"{dn} dropout {r} halves"] = {
-                "out_max_abs_err": e, "grads_summed_rel_err": ex, "shares_rel_err": es}
-            del halves, whole, wg
+            ffn_share_check(out, ops, gout, kseed, r, 2)
         del ops, gout
 
     def dw_ops(n, hw_, dtype):
@@ -4039,52 +4204,16 @@ def tp_ffn_kernel_phase(dev):
                 randn(hw_, hid, std=0.1).to(dev), (1 + randn(hw_, hid, std=0.1)).to(dev),
                 randn(hw_, hid, std=0.1).to(dev))
 
-    def grad_slices(grads, m):     # (dx, dtaps, ddwb, ds1, db1, ds2, db2): rank m's channels
-        return ([grads[0][..., cols(m)], grads[1][:, cols(m)], grads[2][cols(m)]]
-                + [d[:, cols(m)] for d in grads[3:]])
-
     rate = tc.dropout
     for label, n, hw_, w_, dtypes in (("far_mnist", n_step, hw, w, (bf, f32)),
                                       ("nar_kth_128", 80, 256, 16, (bf,))):
         for dtype in dtypes:
             dn = str(dtype).replace("torch.", "")
             ops, gout = dw_ops(n, hw_, dtype), randn(n, hw_, hid).to(dev, dtype)
-            shares = [tuple(o[..., cols(m)].contiguous() for o in ops) for m in range(2)]
-            gshares = [gout[..., cols(m)].contiguous() for m in range(2)]
-            whole = tdw._forward_kernel(*ops, kseed, w_, rate, route="tiled")
-            outs = tdw.run_split([tdw.split_forward(*shares[m], kseed, w_, rate, (2, m))
-                                  for m in range(2)])
-            plain = tdw.fused_dw_chain_plain(*ops, kseed, w_, rate)
-            e = max(max_err(outs[m], plain[..., cols(m)]) for m in range(2))
-            ew = max(max_err(outs[m], whole[..., cols(m)]) for m in range(2))
-            eq = all(torch.equal(outs[m], whole[..., cols(m)]) for m in range(2))
-            what = (f"{label} {dn} {tuple(ops[0].shape)} on two ranks' {hl} channels "
-                    f"(tiled_split), dropout {rate}")
-            check(e <= tol[dtype] and ew <= tol[dtype], f"fused_dw_chain {what} vs plain "
-                  f"max|err| {e:.3e} <= {tol[dtype]}; the whole tiled call's slices "
-                  f"{'bit-equal' if eq else f'max|err| {ew:.3e}'}")
-            del whole, plain, outs
-            wgr = tdw._backward_kernel(*ops, kseed, gout, w_, rate, route="tiled")
-            bwds = tdw.run_split([tdw.split_backward(*shares[m], kseed, gshares[m], w_, rate,
-                                                     (2, m)) for m in range(2)])
-            beq = all(torch.equal(a, b) for m in range(2)
-                      for a, b in zip(bwds[m], grad_slices(wgr, m)))
-            bw = max(rel_err(a, b) for m in range(2) for a, b in zip(bwds[m], grad_slices(wgr, m)))
-            del wgr
-            pg = tdw.fused_dw_chain_backward_plain(*ops, kseed, gout, w_, rate)
-            worst = max(rel_err(a, b) for m in range(2) for a, b in zip(bwds[m],
-                                                                       grad_slices(pg, m)))
-            check(worst <= bwd_tol[dtype] and bw <= bwd_tol[dtype],
-                  f"fused_dw_chain backward {what} vs plain worst rel err {worst:.3e} <= "
-                  f"{bwd_tol[dtype]}; the whole tiled call's slices "
-                  f"{'bit-equal' if beq else f'rel err {bw:.3e}'}")
-            out["fused_dw_chain"][f"{label} {dn}"] = {
-                "route": "tiled_split", "max_abs_err": e, "bit_equal_to_whole_slice": eq,
-                "whole_slice_max_abs_err": ew}
-            out["fused_dw_chain_bwd"][f"{label} {dn}"] = {
-                "route": "tiled_split", "rel_err": worst, "bit_equal_to_whole_slice": beq,
-                "whole_slice_rel_err": bw}
-            del pg, bwds, ops, gout, shares, gshares
+            (out["fused_dw_chain"][f"{label} {dn}"],
+             out["fused_dw_chain_bwd"][f"{label} {dn}"]) = dw_split_check(
+                label, ops, gout, kseed, w_, rate, 2)
+            del ops, gout
     torch.cuda.synchronize()
 
     # a rank's call at far_mnist's step, bf16 (#7 dropout 0, #8 / #9 / #10
@@ -4093,58 +4222,26 @@ def tp_ffn_kernel_phase(dev):
     # GELU and conv) and the bound of the share's bytes and operations.
     # The split calls' exchange is a local stack of the rank's own
     # partials here (the mesh's gather is timed in phase 52's step)
-    fops, gffn = ffn_ops(bf), randn(s_step, c).to(dev, bf)
-    sub, kw = ffn_half(fops, 0), dict(mask_cols=hid, col0=0)
+    fops, gffn = ffn_ops(randn, dev, bf, s_step, c, hid), randn(s_step, c).to(dev, bf)
+    sub, kw = ffn_share(fops, 0, 2)
     dops = tuple(o[..., :hl].contiguous() for o in dw_ops(n_step, hw, bf))
     gdw = randn(n_step, hw, hl).to(dev, bf)
-    own = lambda parts: [torch.stack([parts[0], parts[0]])]
 
     def ffn_library(x, w1, b1, w2):
         xn = F.layer_norm(x, (c,), sub[5].to(bf), sub[6].to(bf))
         return F.linear(F.gelu(F.linear(xn, w1.t(), b1.to(bf))), w2.t())
 
-    def dw_library(x, taps, dwb, s1, b1, s2, b2):
-        img = x.view(n_step, tc.enc_h, w, hl).permute(0, 3, 1, 2)
-        aff = lambda p: p.t().reshape(hl, tc.enc_h, w).to(bf)
-        z = F.gelu(F.layer_norm(img, img.shape[1:], aff(s1), aff(b1)))
-        z = F.conv2d(z, taps.t().reshape(hl, 1, 3, 3).to(bf), dwb.to(bf), padding=1, groups=hl)
-        return F.gelu(F.layer_norm(z, z.shape[1:], aff(s2), aff(b2)))
-
-    e, d, s2b = s_step * c, n_step * hw * hl, 2
-    gimg = gdw.view(n_step, tc.enc_h, w, hl).permute(0, 3, 1, 2)
-    cases = (
+    e, s2b = s_step * c, 2
+    shape = f"{s_step} rows x {c}, hidden {hl} of {hid}"
+    time_share_cases(out, (
         ("fused_ffn", lambda: tff.fused_ffn(*sub, kseed, 0.0, **kw),
          lambda: tff.fused_ffn_plain(*sub, kseed, 0.0, **kw), ffn_library, sub[:4], None,
-         2 * e * s2b + 2 * c * hl * s2b + (hl + 3 * c) * 4, 4 * s_step * c * hl, bf),
+         2 * e * s2b + 2 * c * hl * s2b + (hl + 3 * c) * 4, 4 * s_step * c * hl, bf, shape),
         ("fused_ffn_bwd", lambda: tff.fused_ffn_backward(*sub, kseed, gffn, rate, **kw),
          lambda: tff.fused_ffn_backward_plain(*sub, kseed, gffn, rate, **kw), ffn_library,
          sub[:4], gffn, 3 * e * s2b + 4 * c * hl * s2b + 2 * hl * 4 + 6 * c * 4,
-         10 * s_step * c * hl, bf),
-        ("fused_dw_chain",
-         lambda: tdw.run_split([tdw.split_forward(*dops, kseed, w, rate, (2, 0))], own),
-         lambda: tdw.fused_dw_chain_plain(*dops, kseed, w, rate), dw_library, dops, None,
-         2 * d * s2b + (10 * hl + 4 * hw * hl) * 4, 80 * d, f32),
-        ("fused_dw_chain_bwd",
-         lambda: tdw.run_split([tdw.split_backward(*dops, kseed, gdw, w, rate, (2, 0))], own),
-         lambda: tdw.fused_dw_chain_backward_plain(*dops, kseed, gdw, w, rate), dw_library,
-         dops, gimg, 3 * d * s2b + (20 * hl + 8 * hw * hl) * 4, 210 * d, f32),
-    )
-    for name, fn, plain, lib, lib_ops, lib_g, nbytes, flops, fdt in cases:
-        k_ms, p_ms = timed_turns(fn, plain)
-        if lib_g is None:
-            lib_ms, lib_graph = cuda_ms(lambda: lib(*lib_ops)), graph_ms(lambda: lib(*lib_ops))
-        else:
-            lib_ms, lib_graph = cuda_ms(grads_of(lib, lib_ops, lib_g)), graph_bwd_ms(
-                lib, lib_ops, lib_g)
-        b_ms, b_by = bound(nbytes, flops, fdt)
-        out[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, library_graph_ms=lib_graph,
-                         bound_ms=b_ms, bound_by=b_by, shape=(
-                             f"{s_step} rows x {c}, hidden {hl} of {hid}" if "ffn" in name
-                             else f"{n_step} x {hw} x {hl} of {hid}"))
-        print(f"  {name} on a rank's share: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms (graph {lib_graph if lib_graph is None else round(lib_graph, 4)}"
-              f"), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
-              f"{str(fdt).replace('torch.', '')})")
+         10 * s_step * c * hl, bf, shape),
+    ) + dw_share_cases(dops, gdw, kseed, w, rate, 2))
     return out
 
 
@@ -4348,6 +4445,181 @@ def tp_conv_kernel_phase(dev):
           f"{LAYERS * mib:.1f} MiB over far_mnist's {LAYERS} layers) and statistics, so it needs "
           f"no exchange")
     out["conv_ln_gelu_bwd"]["tiled_rows"]["kept_u_mib_a_layer"] = mib
+    return out
+
+
+# ------------------------------------------------ tensor parallel, mesh.model 4
+# phases 55-56: #9/#10's split on a share that ends in a partial tile (and
+# #7/#8 on a quarter of the hidden) at far_mnist's step, four ranks in one
+# process; far_mnist's fused-FFN route on a (1, 4) mesh (tp_phases, 56)
+
+TP4 = 4                                  # mesh.model of phases 55-56
+
+
+def tp_quarter_kernel_phase(dev):
+    """Phase 55: far_mnist's 2112 hidden channels over mesh.model 4 (528 a
+    rank: 16 whole 32-channel tiles and a partial one of 16). #7/#8 on each
+    quarter of the hidden columns against their plain versions and,
+    summed, the whole call (bf16 and f32, dropout 0 and 0.1); #9/#10 on
+    the tiled route split at its statistics, the four ranks run in step in
+    one process (run_split), at the step's 190 samples of 8 x 8, bf16 and
+    f32, dropout 0 and 0.1: each share against the plain version's slice
+    under phase 51's gates, the four together against the whole tiled
+    call (within those gates: a whole-call tile straddles two ranks, so not
+    the same bits), two calls bit-equal (dw_split_check); then a rank's
+    #9/#10 beside its plain version, the library yardstick (eager and
+    graph-replayed) and the bound. Returns {kernel name: its readings}."""
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.ops import fused_dw_chain as tdw
+
+    tc = get_preset("far_mnist").transformer
+    c, hid, hw, w = (tc.d_model, tc.spatial_ffn_hidden_ratio * tc.d_model,
+                     tc.enc_h * tc.enc_w, tc.enc_w)
+    ctx = tc.num_past_frames + tc.num_future_frames
+    s_step, n_step, cl = BATCH * (ctx - 1) * hw, BATCH * (ctx - 1), hid // TP4
+    phase(f"55. kernels #7-#10 on a quarter of the hidden (tensor parallelism, mesh.model "
+          f"{TP4}: {cl} channels a rank, {cl // 32} tiles and a partial one of {cl % 32})")
+    bf, f32 = torch.bfloat16, torch.float32
+    kseed = torch.tensor([SEED + 5555], dtype=torch.int32, device=dev)
+    randn = normals(torch.Generator().manual_seed(SEED + 55))
+    out = {n: {} for n in ("fused_ffn", "fused_ffn_bwd", "fused_dw_chain",
+                           "fused_dw_chain_bwd")}
+    check(tdw.split_ok(hw, cl, w, n_step) and cl % tdw.T_CH != 0,
+          f"split_ok takes a {cl}-channel share ({cl % tdw.T_CH} channels in the last tile)")
+    for dtype in (bf, f32):
+        ops, gout = ffn_ops(randn, dev, dtype, s_step, c, hid), randn(s_step, c).to(dev, dtype)
+        for r in (0.0, 0.1):
+            ffn_share_check(out, ops, gout, kseed, r, TP4)
+        del ops, gout
+
+    def dw_ops(n, dtype):
+        return (randn(n, hw, hid).to(dev, dtype), randn(9, hid, std=0.3).to(dev),
+                randn(hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev), (1 + randn(hw, hid, std=0.1)).to(dev),
+                randn(hw, hid, std=0.1).to(dev))
+
+    for dtype in (bf, f32):
+        dn = str(dtype).replace("torch.", "")
+        ops, gout = dw_ops(n_step, dtype), randn(n_step, hw, hid).to(dev, dtype)
+        for r in (0.0, 0.1):
+            (out["fused_dw_chain"][f"{dn} dropout {r}"],
+             out["fused_dw_chain_bwd"][f"{dn} dropout {r}"]) = dw_split_check(
+                "far_mnist", ops, gout, kseed, w, r, TP4)
+        del ops, gout
+    torch.cuda.synchronize()
+
+    # a rank's #9 / #10 at the step's 190 samples, bf16, the preset's dropout
+    # 0.1 (as phase 51)
+    dops = tuple(o[..., :cl].contiguous() for o in dw_ops(n_step, bf))
+    time_share_cases(out, dw_share_cases(dops, randn(n_step, hw, cl).to(dev, bf), kseed, w,
+                                         tc.dropout, TP4))
+    return out
+
+
+# ---------------------------------------------------------------- the examples
+# phase 57: examples/test_vptr_torch.py and examples/test_autoencoder_torch.py
+# through their main() on the card
+
+def _example(name):
+    """examples/<name>.py as a module (its main() returns what it prints)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_smoke_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_phase(dev, root, ae_dir=None, far_dir=None):
+    """Phase 57: the examples on the card. ``test_vptr_torch.py --mode
+    far_rip --max-batches 1 --gif-dir`` on far_mnist's checkpoint (phase
+    24's; ``far_dir`` None: a 2-step ``cli train`` here), #1/#2 launches
+    counted as phase 25 counts them (evaluate's batch and the GIF
+    batch's predict); ``--mode nar`` on nar_mnist's seeded init saved as a
+    checkpoint of step 0 (#1, #5, #2 as phase 8's predict; a trained one
+    holds NaN, ROADMAP §3);
+    ``test_autoencoder_torch.py`` on ae_mnist's checkpoint (phase 23's;
+    ``ae_dir`` None: a 2-step ``cli train`` here), which launches none of
+    the twelve kernels. Each: the curves or metrics finite, the files
+    written where PIL imports. Everything under ``root``. Returns the
+    readings."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from vptr_tpu_torch import cli
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.train.checkpoint import CheckpointManager
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    phase("57. the examples on the card: test_vptr_torch.py (far_rip on far_mnist, nar on "
+          "nar_mnist) and test_autoencoder_torch.py (ae_mnist)")
+    have_pil = importlib.util.find_spec("PIL") is not None
+    short = ["--set", "epochs=1", "--set", "steps_per_epoch=2", "--set", "val_per_epochs=4"]
+    if ae_dir is None:
+        ae_dir = root / "ex_ae"
+        cli.main(["train", "--preset", "ae_mnist", "--ckpt-dir", str(ae_dir), *short])
+    ae_set = ["--set", f"ae_ckpt={ae_dir / 'ckpt'}"]
+    if far_dir is None:
+        far_dir = root / "ex_far"
+        cli.main(["train", "--preset", "far_mnist", "--ckpt-dir", str(far_dir), *ae_set, *short])
+    # nar_mnist's seeded init (on phase 23's autoencoder) as a checkpoint of
+    # step 0: its first train step on the card has NaN gradients in the
+    # decoder's first block, kernels and plain route alike (ROADMAP §3), so
+    # a trained one holds NaN
+    nar_dir = root / "ex_nar"
+    ncfg = get_preset("nar_mnist").override({"ae_ckpt": str(ae_dir / "ckpt"),
+                                             "ckpt_dir": str(nar_dir)})
+    CheckpointManager(str(nar_dir / "ckpt")).save(
+        0, Trainer(ncfg, device=dev, write_outputs=False).init_state())
+    out = {}
+    vptr = _example("test_vptr_torch")
+    runs = (("far_rip", "far_mnist", far_dir, {"fused_attention_ln": 2 * LAYERS * FUTURE,
+                                               "attention_core": 2 * LAYERS * FUTURE}),
+            ("nar", "nar_mnist", nar_dir, {"fused_attention_ln": 4, "fused_attention": 8,
+                                           "attention_core": 20}))
+    for mode, preset, run, want in runs:
+        gif_dir = root / f"ex_gifs_{mode}"
+        args = ["--preset", preset, "--ckpt-dir", str(run), "--mode", mode, "--max-batches", "1",
+                *ae_set] + (["--gif-dir", str(gif_dir)] if mode == "far_rip" else [])
+        zero_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            curves = vptr.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        got = launch_counts(*want)
+        check_counts(got, want, f"test_vptr_torch.py --mode {mode} on {preset}"
+                     + (" (evaluate's batch and the GIF batch)" if mode == "far_rip" else ""))
+        check(all(len(c) == FUTURE and _finite(c) for c in curves.values())
+              and set(curves) == {"psnr", "ssim", "mse"},
+              f"test_vptr_torch.py --mode {mode}: psnr, ssim, mse curves finite, {FUTURE} long")
+        if mode == "far_rip":
+            gifs = sorted(p.name for p in gif_dir.glob("*.gif"))
+            check(len(gifs) == 4 if have_pil else "PIL does not import" in buf.getvalue(),
+                  f"test_vptr_torch.py --gif-dir: {gifs if have_pil else 'PIL absent, said so'}")
+        out[mode] = {"preset": preset, "launches": got, "wall_s": wall,
+                     "mean": {m: float(np.mean(c)) for m, c in curves.items()}}
+    zero_counters()
+    png = root / "ex_recon.png"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ae = _example("test_autoencoder_torch").main(
+            ["--preset", "ae_mnist", "--ckpt-dir", str(ae_dir), "--out", str(png)])
+    torch.cuda.synchronize()
+    print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+    counts = launch_counts(*TP_COUNTERS)
+    check(_finite(ae.values()) and sum(counts.values()) == 0,
+          f"test_autoencoder_torch.py: PSNR {ae['psnr']:.4f}, SSIM {ae['ssim']:.4f} finite; "
+          f"none of the twelve kernels launched ({sum(counts.values())})")
+    check(png.is_file() if have_pil else "PIL does not import" in buf.getvalue(),
+          f"test_autoencoder_torch.py wrote {png.name}" if have_pil else
+          "test_autoencoder_torch.py: PIL absent, said so")
+    out["autoencoder"] = ae
     return out
 
 
@@ -4813,6 +5085,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU only", file=sys.stderr)
         return 1
+    import tempfile
+    from pathlib import Path
+
     import torch.nn.functional as F
 
     from vptr_tpu_torch.config import get_preset
@@ -5352,7 +5627,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ae_summary, ae_extra = ae_gan_phases(dev)
     torch.cuda.empty_cache()
-    cli_summary, cli_extra = entry_point_phases(dev, step_ms, ae_extra["ae_train_step_ms"])
+    # phases 23-26's directory, kept for phase 57's examples (removed after
+    # them, or at exit)
+    entry_dir = tempfile.TemporaryDirectory(prefix="vptr_smoke_")
+    entry_root = Path(entry_dir.name)
+    cli_summary, cli_extra = entry_point_phases(dev, step_ms, ae_extra["ae_train_step_ms"],
+                                                entry_root)
     torch.cuda.empty_cache()
     tslma_rows, tslma_extra, tslma_summary = tslma_phases(dev)
     rows_out += tslma_rows
@@ -5432,7 +5712,27 @@ def main() -> int:
         if name in conv_counts:
             row.setdefault("tp_step_launches_a_rank", {})["far_conv_tp"] = conv_counts[name]
 
-    phase("55. result")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp4_kernels = tp_quarter_kernel_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp4_extra = tp_phases(dev, card, which=(56,))
+    tp4_counts = tp4_extra.get("far_ffn_tp4", {}).get("launches") or {}
+    for row in rows_out:          # #7-#10 on a quarter of the hidden (phase 55), a rank's
+        name = row["name"]        # launches in the fused-FFN route's mesh.model = 4 step (56)
+        if name in tp4_kernels:
+            row["hidden_quarter"] = tp4_kernels[name]
+        if name in tp4_counts:
+            row.setdefault("tp_step_launches_a_rank", {})["far_ffn_tp4"] = tp4_counts[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        example_extra = example_phase(dev, entry_root, entry_root / "ae", entry_root / "far")
+    finally:
+        entry_dir.cleanup()
+
+    phase("58. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -5457,6 +5757,8 @@ def main() -> int:
     print(f"  tensor parallel: {json.dumps(tp_extra)}")
     print(f"  tensor parallel, fused-FFN route: {json.dumps(tp_ffn_extra)}")
     print(f"  tensor parallel, conv-FFN route: {json.dumps(tp_conv_extra)}")
+    print(f"  tensor parallel at mesh.model 4, fused-FFN route: {json.dumps(tp4_extra)}")
+    print(f"  the examples: {json.dumps(example_extra)}")
     print(f"  {kth_summary}")
     print(f"  {KTH}: {json.dumps(kth_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")

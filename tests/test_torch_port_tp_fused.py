@@ -10,7 +10,7 @@ and the JAX package.
     dropout 0 and 0.3: the halves' outputs summed plus b2, and their dx,
     dls, dlb summed, equal the whole plain call's, and their dw1, db1, dw2
     are its slices, in f32 within 1e-6 (of the largest value of each);
-(c) #9/#10 (``fused_dw_chain(..., model=(2, m))`` and its backward) on two
+(c) #9/#10 (``fused_dw_chain(..., model=(M, m))`` and its backward) on two
     gloo ranks (``tests/_torch_port_mp_worker.py``'s ``dw_split`` job,
     spawned once for the module), each on its half of the channels with
     the whole-sample LayerNorms over both ranks': through the wrapper and
@@ -18,10 +18,14 @@ and the JAX package.
     gradient against the whole plain call's channel slice and against the
     JAX package's Pallas kernels in interpret mode (1e-5, as
     ``test_torch_port_ffn_ops.py``), dropout 0 and 0.3, on an 8 x 8 and a
-    4 x 16 grid;
-(d) the split route's limits: a rank's channels a multiple of 32 (far_mnist's
-    2112 over mesh.model 4 is 528 a rank: refused, naming the limit), and
-    a share without the mesh's model group.
+    4 x 16 grid; and on four gloo ranks (a second launch) over 176
+    channels, 44 a rank: a share that on the card ends each grid row in a
+    partial tile of 12 channels (one whole 32-channel tile and 12 lanes);
+(d) the split route's limits (``split_ok``): far_mnist's hidden 2112 over
+    mesh.model 2, 4 and 8 (1056, 528 = 16 tiles and a half, 264 a rank)
+    taken; a grid wider than 32 and more than 65,535 samples refused
+    before any launch, naming the limit; a share without the mesh's model
+    group.
 """
 
 import pickle
@@ -131,37 +135,44 @@ def test_ffn_subset_refuses_columns_outside_the_whole():
 # --------------------------------------------------- (c) #9/#10 on two ranks
 
 DW_GRADS = ("z3", "dx", "dtaps", "ddwb", "ds1", "db1", "ds2", "db2")
-# case -> (rows, grid width, dropout rate, seed)
-DW_CASES = {"8x8": (8, 8, 0.0, 31), "8x8_drop": (8, 8, 0.3, 32),
-            "4x16_drop": (4, 16, 0.3, 33)}
-N, CG = 3, 64
+# case -> (rows, grid width, dropout rate, seed, ranks, channels); the
+# four-rank case's 44 channels a rank are one whole tile and 12 lanes
+DW_CASES = {"8x8": (8, 8, 0.0, 31, 2, 64), "8x8_drop": (8, 8, 0.3, 32, 2, 64),
+            "4x16_drop": (4, 16, 0.3, 33, 2, 64),
+            "8x8_drop_4ranks_partial_tile": (8, 8, 0.3, 34, 4, 176)}
+N = 3
 
 
 def _dw_case(name):
-    h, w, rate, seed = DW_CASES[name]
+    h, w, rate, seed, _, cg = DW_CASES[name]
     rng = np.random.default_rng(seed)
     hw = h * w
     args = [a.astype(np.float32) for a in (
-        rng.standard_normal((N, hw, CG)), rng.standard_normal((9, CG)) * 0.2,
-        rng.standard_normal(CG) * 0.05, 1 + 0.1 * rng.standard_normal((hw, CG)),
-        0.1 * rng.standard_normal((hw, CG)), 1 + 0.1 * rng.standard_normal((hw, CG)),
-        0.1 * rng.standard_normal((hw, CG)))]
-    g = rng.standard_normal((N, hw, CG)).astype(np.float32)
+        rng.standard_normal((N, hw, cg)), rng.standard_normal((9, cg)) * 0.2,
+        rng.standard_normal(cg) * 0.05, 1 + 0.1 * rng.standard_normal((hw, cg)),
+        0.1 * rng.standard_normal((hw, cg)), 1 + 0.1 * rng.standard_normal((hw, cg)),
+        0.1 * rng.standard_normal((hw, cg)))]
+    g = rng.standard_normal((N, hw, cg)).astype(np.float32)
     return {"args": args, "g": g, "seed": seed * 7, "w": w, "rate": rate}
 
 
 @pytest.fixture(scope="module")
 def dw_ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dw_split")
+    """The cases and a launch a world size (2 and 4 ranks), each running
+    that world's cases."""
     cases = {name: _dw_case(name) for name in DW_CASES}
-    with open(out / "cases.pkl", "wb") as f:
-        pickle.dump(cases, f)
-    launch = Launch("dw_split", out, world=2)
-    yield cases, launch
-    for p in launch.procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    launches = {}
+    for world in sorted({c[4] for c in DW_CASES.values()}):
+        out = tmp_path_factory.mktemp(f"dw_split_w{world}")
+        with open(out / "cases.pkl", "wb") as f:
+            pickle.dump({n: c for n, c in cases.items() if DW_CASES[n][4] == world}, f)
+        launches[world] = Launch("dw_split", out, world=world)
+    yield cases, launches
+    for launch in launches.values():
+        for p in launch.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def _whole_plain(case):
@@ -177,35 +188,61 @@ def _whole_jax(case):
     return [np.asarray(y)] + [np.asarray(d) for d in vjp(jnp.asarray(case["g"]))]
 
 
-def _rank_slice(whole, i, r, m=2):
-    """Rank r's share of output / gradient i of the whole call."""
-    c = CG // m
-    return np.asarray(whole[i])[..., r * c:(r + 1) * c]
+def _rank_slice(whole, i, r, m):
+    """Rank r of m's share of output / gradient i of the whole call."""
+    arr = np.asarray(whole[i])
+    c = arr.shape[-1] // m
+    return arr[..., r * c:(r + 1) * c]
 
 
 @pytest.mark.parametrize("route", ["wrapper", "plain"])
 @pytest.mark.parametrize("name", list(DW_CASES))
 def test_dw_split_matches_the_whole_calls_slice(dw_ranks, name, route):
-    cases, launch = dw_ranks
-    case = cases[name]
+    cases, launches = dw_ranks
+    case, world = cases[name], DW_CASES[name][4]
     want, oracle = _whole_plain(case), _whole_jax(case)
-    for r, res in enumerate(launch.results()):
+    results = launches[world].results()
+    assert len(results) == world
+    for r, res in enumerate(results):
         got = res[name][route]
         for i, what in enumerate(DW_GRADS):
-            _close(got[i], _rank_slice(want, i, r), DW_TOL, f"rank {r} {what} vs whole plain")
-            _close(got[i], _rank_slice(oracle, i, r), DW_TOL, f"rank {r} {what} vs JAX")
+            _close(got[i], _rank_slice(want, i, r, world), DW_TOL,
+                   f"rank {r} {what} vs whole plain")
+            _close(got[i], _rank_slice(oracle, i, r, world), DW_TOL, f"rank {r} {what} vs JAX")
 
 
 # -------------------------------------------------------------- (d) limits
 
-def test_dw_split_refuses_a_share_that_is_not_whole_tiles():
-    """far_mnist's hidden 2112 over mesh.model 4: 528 channels a rank, not
-    whole 32-channel tiles; refused before anything is launched."""
-    x = torch.zeros(2, 64, 528)
-    ops = (x, torch.zeros(9, 528), torch.zeros(528)) + tuple(torch.zeros(64, 528)
-                                                             for _ in range(4))
-    with pytest.raises(ValueError, match="a rank's channels a multiple of 32"):
-        tdw.run_split([tdw.split_forward(*ops, None, 8, 0.0, (4, 1))])
+@pytest.mark.parametrize("model", [2, 4, 8])
+def test_dw_split_takes_far_mnists_shares(model):
+    """far_mnist's hidden 2112 over mesh.model 2, 4 and 8 (1056, 528 and
+    264 channels a rank: 33 tiles, 16 and a half, 8 and a quarter) at its
+    step's 190 samples of 8 x 8: the split route takes each."""
+    c = 2112 // model
+    assert tdw.split_ok(64, c, 8, 190)
+    assert (c % tdw.T_CH == 0) == (model == 2)
+
+
+def _dw_zeros(n, hw, c):
+    return (torch.zeros(n, hw, c), torch.zeros(9, c), torch.zeros(c)) + tuple(
+        torch.zeros(hw, c) for _ in range(4))
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("shape,w,limit", [((2, 128, 48), 64, "w <= 32"),
+                                           ((65536, 1, 1), 1, "N <= 65535")],
+                         ids=["grid_wider_than_32", "too_many_samples"])
+def test_dw_split_refuses_what_the_route_cannot_take(direction, shape, w, limit):
+    """The split route's two limits: a grid more than 32 wide and more than
+    65,535 samples (a grid dimension); refused before anything is built or
+    launched, naming the limit."""
+    n, hw, c = shape
+    assert not tdw.split_ok(hw, c, w, n)
+    ops = _dw_zeros(n, hw, c)
+    call = (tdw.split_forward(*ops, None, w, 0.0, (4, 1)) if direction == "forward" else
+            tdw.split_backward(*ops, None, torch.zeros(n, hw, c), w, 0.0, (4, 1)))
+    with pytest.raises(ValueError, match=limit):
+        tdw.run_split([call])
 
 
 def test_dw_share_needs_the_model_group():

@@ -39,12 +39,21 @@
 // rank's share of the hidden) runs the same passes as steps with the
 // LayerNorms' statistics merged between them over every share
 // (fused_dw_chain.cu / fused_dw_chain_bwd.cu: vptr_*_tiled_step and
-// vptr_fused_dw_chain_tiled_merge): a share's tiles are whole tiles of the
-// whole call, so its partials are the whole call's, and merged in the
-// whole call's tile order (within a grid row rank 0's tiles, then rank
-// 1's, ...) the statistics are the whole call's bits. The dropout indexes
-// by the global channel (TTile::drop_idx). What stays per channel (the
-// conv, the taps', dwb's and the affines' gradients) needs no other share.
+// vptr_fused_dw_chain_tiled_merge). Where a share is whole tiles of the
+// whole call (C a multiple of 32), its partials are the whole call's, and
+// merged in the whole call's tile order (within a grid row rank 0's tiles,
+// then rank 1's, ...) the statistics are the whole call's bits. A share
+// of C = 32 k + r channels (0 < r < 32: far_mnist's 2112 over mesh.model
+// 4 is 528 = 16 tiles and 16 channels) ends each grid row in one partial
+// tile of r channels: its lanes past the share load nothing and store
+// nothing, its moments and LN backward sums count W r values, and the merge
+// weighs each tile by its count (dwt_stats_uneven). Such a
+// share's tiles are not the whole call's (a whole-call tile straddles two
+// ranks: channels 512..543 of 2112 lie across ranks 0 and 1), so its
+// statistics and output differ from the whole tiled call's by rounding.
+// The dropout indexes by the global channel (TTile::drop_idx). What stays
+// per channel (the conv, the taps', dwb's and the affines' gradients) needs
+// no other share, and only the lanes inside the share write it.
 //
 // What bounds it on an H100: bytes. The forward moves x three times (its
 // moments, the conv's three rows of z1, once more as the halo), z2 in f32
@@ -71,18 +80,33 @@ bool t_route_ok(int HW, int W, int C) {
   return HW >= 1 && W >= 1 && W <= kTMaxW && HW % W == 0 && C >= kTCh && C % kTCh == 0;
 }
 
+// The shapes its steps take on a share of the channels (tensor
+// parallelism): any C >= 1, the last tile of a grid row partial where C is
+// not a multiple of 32.
+bool t_split_ok(int HW, int W, int C) {
+  return HW >= 1 && W >= 1 && W <= kTMaxW && HW % W == 0 && C >= 1;
+}
+
+// Tiles of 32 channels across C channels (the last one partial where 32
+// does not divide C).
+int t_cols(int C) { return (C + kTCh - 1) / kTCh; }
+
 int t_groups(int N) { return N < kTGroups ? N : kTGroups; }
 
 // The block's tile: grid row `row` (blockIdx.y) of H, channels c0 .. c0 +
-// 31 (blockIdx.x); thread t holds channel c0 + t % 32 at the positions
-// (row, t / 32 + 8 m), m < mine(); T tiles a sample.
+// width - 1 (blockIdx.x; width 32 but in a partial last tile); thread t
+// holds channel c0 + t % 32 at the positions (row, t / 32 + 8 m), m <
+// mine(), and touches memory only where `on` (its lane inside the tile);
+// T tiles a sample.
 struct TTile {
-  int row, c0, lane, j0, H, W, HW, C, T, tile;
+  int row, c0, lane, j0, H, W, HW, C, T, tile, width;
+  bool on;
   __device__ TTile(int W_, int HW_, int C_)
       : row(static_cast<int>(blockIdx.y)), c0(static_cast<int>(blockIdx.x) * kTCh),
         lane(static_cast<int>(threadIdx.x) & 31), j0(static_cast<int>(threadIdx.x) >> 5),
         H(HW_ / W_), W(W_), HW(HW_), C(C_), T(static_cast<int>(gridDim.x * gridDim.y)),
-        tile(static_cast<int>(blockIdx.y * gridDim.x + blockIdx.x)) {}
+        tile(static_cast<int>(blockIdx.y * gridDim.x + blockIdx.x)),
+        width(C_ - c0 < kTCh ? C_ - c0 : kTCh), on(lane < width) {}
   __device__ int mine() const { return j0 < W ? (W - j0 + kTWarps - 1) / kTWarps : 0; }
   __device__ int j(int m) const { return j0 + kTWarps * m; }
   // (sample n, grid row r, column jj, this thread's channel) in (N, HW, C);
@@ -90,7 +114,7 @@ struct TTile {
   __device__ long off(long n, int r, int jj) const {
     return (n * HW + static_cast<long>(r) * W + jj) * C + c0 + lane;
   }
-  __device__ float cnt() const { return static_cast<float>(W * kTCh); }
+  __device__ float cnt() const { return static_cast<float>(W * width); }
   // the dropout's element index of (n, r, jj) at this thread's channel:
   // (n HW + r W + jj) C + c0 + lane, by the global channel for a share
   __device__ uint32_t drop_idx(const vptr_dropout::Params& d, long n, int r, int jj) const {
@@ -100,10 +124,11 @@ struct TTile {
   __device__ long part(long n) const { return 2 * (n * T + tile); }
 };
 
-// The tile's (mean, M2) of the thread's values v[m < mine()] into p.
+// The tile's (mean, M2) of the thread's values v[m < mine()] into p (v 0
+// in the lanes past a partial tile).
 __device__ __forceinline__ void tile_moments(const TTile& tl, const float (&v)[kTPer],
                                              float (*red)[kTWarps], float* p) {
-  const int nm = tl.mine();
+  const int nm = tl.on ? tl.mine() : 0;
   float s[1] = {0.f};
 #pragma unroll
   for (int m = 0; m < kTPer; ++m)
@@ -134,7 +159,7 @@ __device__ __forceinline__ void stage_z1(const TTile& tl, const T* __restrict__ 
   for (int s = tl.j0; s < 3 * tl.W; s += kTWarps) {
     const int rr = s / tl.W, jj = s - rr * tl.W, r = tl.row + rr - 1;
     float z = 0.f;
-    if (r >= 0 && r < tl.H) {
+    if (tl.on && r >= 0 && r < tl.H) {
       const long a = tl.off(0, r, jj);
       z = vptr_gelu::gelu((to_f32(x[tl.off(n, r, jj)]) - mean) * rstd * s1[a] + b1[a]);
     }
@@ -142,7 +167,7 @@ __device__ __forceinline__ void stage_z1(const TTile& tl, const T* __restrict__ 
   }
 }
 
-// 1. the tile's moments of x (grid: C / 32, H, N)
+// 1. the tile's moments of x (grid: t_cols(C), H, N)
 template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 dwt_moments_kernel(const T* __restrict__ x, float* __restrict__ part, int HW, int W, int C) {
@@ -152,12 +177,12 @@ dwt_moments_kernel(const T* __restrict__ x, float* __restrict__ part, int HW, in
   float v[kTPer];
 #pragma unroll
   for (int m = 0; m < kTPer; ++m)
-    v[m] = m < tl.mine() ? to_f32(x[tl.off(n, tl.row, tl.j(m))]) : 0.f;
+    v[m] = tl.on && m < tl.mine() ? to_f32(x[tl.off(n, tl.row, tl.j(m))]) : 0.f;
   tile_moments(tl, v, red, part + tl.part(n));
 }
 
 // 2. z2 = dw3x3(z1) + dwb of the tile into z2 (f32) and its moments (grid:
-// C / 32, H, N; dynamic shared memory 3 W 32 floats)
+// t_cols(C), H, N; dynamic shared memory 3 W 32 floats)
 template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 dwt_conv_kernel(const T* __restrict__ x, const float* __restrict__ taps,
@@ -171,14 +196,15 @@ dwt_conv_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   stage_z1(tl, x, s1, b1, n, st1[2 * n], st1[2 * n + 1], smem_t);
   float tp[9];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) tp[t] = taps[static_cast<long>(t) * C + tl.c0 + tl.lane];
-  const float bias = dwb[tl.c0 + tl.lane];
+  for (int t = 0; t < 9; ++t)
+    tp[t] = tl.on ? taps[static_cast<long>(t) * C + tl.c0 + tl.lane] : 0.f;
+  const float bias = tl.on ? dwb[tl.c0 + tl.lane] : 0.f;
   __syncthreads();
   float v[kTPer];
 #pragma unroll
   for (int m = 0; m < kTPer; ++m) {
     v[m] = 0.f;
-    if (m < tl.mine()) {
+    if (tl.on && m < tl.mine()) {
       const int jj = tl.j(m);
       float acc = bias;
 #pragma unroll
@@ -196,13 +222,14 @@ dwt_conv_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   tile_moments(tl, v, red, part + tl.part(n));
 }
 
-// 3. out = dropout(gelu((z2 - mean2) rstd2 s2 + b2)) (grid: C / 32, H, N)
+// 3. out = dropout(gelu((z2 - mean2) rstd2 s2 + b2)) (grid: t_cols(C), H, N)
 template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 dwt_out_kernel(const float* __restrict__ z2, const float* __restrict__ s2,
                const float* __restrict__ b2, const float* __restrict__ st2, T* __restrict__ out,
                int HW, int W, int C, vptr_dropout::Params drop) {
   const TTile tl(W, HW, C);
+  if (!tl.on) return;
   const long n = blockIdx.z;
   const float mean = st2[2 * n], rstd = st2[2 * n + 1];
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
@@ -233,8 +260,8 @@ __device__ __forceinline__ float dwt_da2(const TTile& tl, const float* __restric
 
 // 4. LN2's backward sums per (sample, tile) into part: (sum dxh2, sum dxh2
 // xhat2); ds2 = sum da2 xhat2, db2 = sum da2 over the group's samples into
-// gpart[group][2], [3] (grid: C / 32, H, groups; group z takes the samples
-// z, z + groups, ...)
+// gpart[group][2], [3] (grid: t_cols(C), H, groups; group z takes the
+// samples z, z + groups, ...)
 template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 dwt_ln2_bwd_kernel(const float* __restrict__ z2, const T* __restrict__ g,
@@ -244,7 +271,7 @@ dwt_ln2_bwd_kernel(const float* __restrict__ z2, const T* __restrict__ g,
                    vptr_dropout::Params drop) {
   __shared__ float red[2][kTWarps];
   const TTile tl(W, HW, C);
-  const int nm = tl.mine(), G = static_cast<int>(gridDim.z);
+  const int nm = tl.on ? tl.mine() : 0, G = static_cast<int>(gridDim.z);
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
   float sc[kTPer], bi[kTPer], ds[kTPer], db[kTPer];
 #pragma unroll
@@ -286,7 +313,7 @@ dwt_ln2_bwd_kernel(const float* __restrict__ z2, const T* __restrict__ g,
     }
 }
 
-// 5. the conv's backward (grid: C / 32, H, groups; dynamic shared memory 6
+// 5. the conv's backward (grid: t_cols(C), H, groups; dynamic shared memory 6
 // W 32 floats): for each of the group's samples, z1 and dz2 of grid rows
 // row - 1 .. row + 1 staged; da1 = (sum over the taps of dz2 at the
 // mirrored offset times the tap) gelu'(a1) of the tile into da1 (f32);
@@ -309,13 +336,14 @@ dwt_conv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z2,
   float* z1s = smem_t;                 // [3][W][32]
   float* dzs = smem_t + 3 * W * kTCh;  // [3][W][32]
   const TTile tl(W, HW, C);
-  const int nm = tl.mine(), G = static_cast<int>(gridDim.z);
+  const int nm = tl.on ? tl.mine() : 0, G = static_cast<int>(gridDim.z);
   const uint32_t seed = drop.active() ? drop.seed_u32() : 0u;
   // stats: [0] LN1's (mean, rstd), [1] LN2's, [2] LN2's backward means
   const float *st1 = stats, *st2 = stats + 2 * N, *st3 = stats + 4 * N;
   float tp[9], tacc[10], sc1[kTPer], bi1[kTPer], ds[kTPer], db[kTPer];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) tp[t] = taps[static_cast<long>(t) * C + tl.c0 + tl.lane];
+  for (int t = 0; t < 9; ++t)
+    tp[t] = tl.on ? taps[static_cast<long>(t) * C + tl.c0 + tl.lane] : 0.f;
 #pragma unroll
   for (int t = 0; t < 10; ++t) tacc[t] = 0.f;
 #pragma unroll
@@ -332,7 +360,7 @@ dwt_conv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z2,
     for (int s = tl.j0; s < 3 * W; s += kTWarps) {
       const int rr = s / W, jj = s - rr * W, r = tl.row + rr - 1;
       float d = 0.f;
-      if (r >= 0 && r < tl.H) {
+      if (tl.on && r >= 0 && r < tl.H) {
         const long a = tl.off(0, r, jj);
         float xh;
         const float da = dwt_da2(tl, z2, g, s2[a], b2[a], n, r, jj, m2, r2, drop, seed, xh);
@@ -387,7 +415,7 @@ dwt_conv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z2,
 #pragma unroll
   for (int t = 0; t < 10; ++t) tred[t][tl.j0][tl.lane] = tacc[t];
   __syncthreads();
-  if (tl.j0 == 0)
+  if (tl.j0 == 0 && tl.on)
     for (int t = 0; t < 10; ++t) {
       float s = 0.f;
       for (int w = 0; w < kTWarps; ++w) s += tred[t][w][tl.lane];
@@ -396,13 +424,14 @@ dwt_conv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ z2,
 }
 
 // 6. dx = (da1 s1 - mean(da1 s1) - xhat1 mean(da1 s1 xhat1)) rstd1 (grid:
-// C / 32, H, N; st4: LN1's backward means)
+// t_cols(C), H, N; st4: LN1's backward means)
 template <typename T>
 __global__ void __launch_bounds__(kTThreads)
 dwt_dx_kernel(const T* __restrict__ x, const float* __restrict__ da1,
               const float* __restrict__ s1, const float* __restrict__ st1,
               const float* __restrict__ st4, T* __restrict__ dx, int HW, int W, int C) {
   const TTile tl(W, HW, C);
+  if (!tl.on) return;
   const long n = blockIdx.z;
   const float m1 = st1[2 * n], r1 = st1[2 * n + 1], ma = st4[2 * n], mb = st4[2 * n + 1];
   for (int m = 0; m < tl.mine(); ++m) {
@@ -444,7 +473,7 @@ template <typename T>
 cudaError_t dwt_z2_step(int step, const T* x, const float* taps, const float* dwb,
                         const float* s1, const float* b1, const float* st1, float* z2,
                         float* part, int N, int HW, int W, int C, cudaStream_t s) {
-  const dim3 grid(C / kTCh, HW / W, N);
+  const dim3 grid(t_cols(C), HW / W, N);
   if (step == 0)
     dwt_moments_kernel<T><<<grid, kTThreads, 0, s>>>(x, part, HW, W, C);
   else
@@ -453,11 +482,71 @@ cudaError_t dwt_z2_step(int step, const T* x, const float* taps, const float* dw
   return cudaGetLastError();
 }
 
+// tiled.cuh's tiled_stats_kernel for tiles of two sizes (a tensor-parallel
+// share's partial tile): the T tiles run in groups of `period`, each
+// group's last tile holding `last` values and the others cnt. Chan's merge
+// weighs each tile by its count n_t: mean = sum_t n_t mean_t / n, M2 =
+// sum_t M2_t + n_t (mean_t - mean)^2 over the sample's n = sum_t n_t
+// values; kTSums divides the sums by n. A separate kernel, so that the
+// calls of equal tiles keep their bits.
+__global__ void __launch_bounds__(kTThreads)
+dwt_stats_uneven_kernel(const float* __restrict__ part, float* __restrict__ out, int T,
+                        int period, float cnt, float last, float eps, int mode) {
+  __shared__ float red[2][kTWarps];
+  const float* p = part + 2L * T * blockIdx.x;
+  const float n =
+      static_cast<float>(T / period) * (static_cast<float>(period - 1) * cnt + last);
+  auto count = [&](int t) { return t % period == period - 1 ? last : cnt; };
+  float v[2] = {0.f, 0.f};
+  for (int t = threadIdx.x; t < T; t += kTThreads) {
+    if (mode == kTSums) {
+      v[0] += p[2 * t];
+      v[1] += p[2 * t + 1];
+    } else {
+      v[0] = fmaf(count(t), p[2 * t], v[0]);
+    }
+  }
+  block_sum(v, red);
+  if (mode == kTSums) {
+    if (threadIdx.x == 0) {
+      out[2 * blockIdx.x] = v[0] / n;
+      out[2 * blockIdx.x + 1] = v[1] / n;
+    }
+    return;
+  }
+  const float mean = v[0] / n;
+  float m2[1] = {0.f};
+  for (int t = threadIdx.x; t < T; t += kTThreads) {
+    const float d = p[2 * t] - mean;
+    m2[0] += fmaf(count(t) * d, d, p[2 * t + 1]);
+  }
+  block_sum(m2, red);
+  if (threadIdx.x == 0) {
+    out[2 * blockIdx.x] = mean;
+    out[2 * blockIdx.x + 1] = rsqrtf(m2[0] / n + eps);
+  }
+}
+
+// Launches dwt_stats_uneven_kernel over N samples (T a multiple of period).
+cudaError_t dwt_stats_uneven(const float* part, float* out, int N, int T, int period,
+                             float cnt, float last, float eps, int mode, cudaStream_t s) {
+  if (period < 1 || T % period) return cudaErrorInvalidValue;
+  dwt_stats_uneven_kernel<<<N, kTThreads, 0, s>>>(part, out, T, period, cnt, last, eps,
+                                                  mode);
+  return cudaGetLastError();
+}
+
 // A sample's statistics (kTMoments) or sums' means (kTSums) into out (N, 2)
-// from part (N, T, 2) of T tiles of W x 32 values.
-cudaError_t dwt_merge(const float* part, float* out, int N, int T, int W, float eps, int mode,
-                      cudaStream_t s) {
-  return tiled_stats(part, out, N, T, static_cast<float>(W * kTCh), eps, mode, s);
+// from part (N, T, 2) of T tiles of W x 32 values; or, where the tiles
+// are shares' of C channels each (C not a multiple of 32), of shares
+// whose last tile of a grid row holds W (C mod 32) values: T is then grid
+// rows x shares x t_cols(C), in that order.
+cudaError_t dwt_merge(const float* part, float* out, int N, int T, int W, int C, float eps,
+                      int mode, cudaStream_t s) {
+  if (C % kTCh == 0)
+    return tiled_stats(part, out, N, T, static_cast<float>(W * kTCh), eps, mode, s);
+  return dwt_stats_uneven(part, out, N, T, t_cols(C), static_cast<float>(W * kTCh),
+                          static_cast<float>(W * (C % kTCh)), eps, mode, s);
 }
 
 // The forward (steps 0-1, the statistics after each) into z2, part and
@@ -467,11 +556,11 @@ template <typename T>
 cudaError_t dwt_to_z2(const T* x, const float* taps, const float* dwb, const float* s1,
                       const float* b1, float* z2, float* part, float* stats, int N, int HW,
                       int W, int C, float eps, cudaStream_t s) {
-  const int T_ = (C / kTCh) * (HW / W);
+  const int T_ = t_cols(C) * (HW / W);
   VPTR_TRY(dwt_z2_step<T>(0, x, taps, dwb, s1, b1, stats, z2, part, N, HW, W, C, s));
-  VPTR_TRY(dwt_merge(part, stats, N, T_, W, eps, kTMoments, s));
+  VPTR_TRY(dwt_merge(part, stats, N, T_, W, C, eps, kTMoments, s));
   VPTR_TRY(dwt_z2_step<T>(1, x, taps, dwb, s1, b1, stats, z2, part, N, HW, W, C, s));
-  return dwt_merge(part, stats + 2 * N, N, T_, W, eps, kTMoments, s);
+  return dwt_merge(part, stats + 2 * N, N, T_, W, C, eps, kTMoments, s);
 }
 
 }  // namespace

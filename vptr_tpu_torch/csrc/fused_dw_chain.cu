@@ -350,7 +350,7 @@ int tiled_step(int step, const void* x, const void* taps, const void* dwb, const
     return dwt_z2_step<T>(step, static_cast<const T*>(x), cf(taps), cf(dwb), cf(s1), cf(b1),
                           st, static_cast<float*>(z2), static_cast<float*>(part), N, HW, W, C,
                           s);
-  dwt_out_kernel<T><<<dim3(C / kTCh, HW / W, N), kTThreads, 0, s>>>(
+  dwt_out_kernel<T><<<dim3(t_cols(C), HW / W, N), kTThreads, 0, s>>>(
       cf(z2), cf(s2), cf(b2), st + 2 * N, static_cast<T*>(out), HW, W, C, drop);
   return cudaGetLastError();
 }
@@ -453,12 +453,13 @@ int vptr_fused_dw_chain_tiled(const void* x, const void* taps, const void* dwb, 
 // The tiled route split at its two LayerNorms' statistics, for a call over
 // channels col0 .. col0 + C - 1 of mask_cols whose LayerNorms run over
 // every share's channels (tensor parallelism; dw_tiled.cuh's note): step 0
-// writes x's per-(sample, tile) moments into part (N, HW / W, C / 32, 2);
-// the caller merges every share's, in the whole call's tile order, into
-// stats[0] (vptr_fused_dw_chain_tiled_merge); step 1 writes z2 and its
-// moments into part, merged likewise into stats[1]; step 2 the output,
-// its dropout at the global channel. The operands as
-// vptr_fused_dw_chain_tiled's.
+// writes x's per-(sample, tile) moments into part (N, HW / W, ceil(C /
+// 32), 2); the caller merges every share's, in the whole call's tile
+// order, into stats[0] (vptr_fused_dw_chain_tiled_merge); step 1 writes z2
+// and its moments into part, merged likewise into stats[1]; step 2 the
+// output, its dropout at the global channel. C is any share (t_split_ok:
+// where 32 does not divide it, each grid row ends in a partial tile). The
+// operands as vptr_fused_dw_chain_tiled's.
 int vptr_fused_dw_chain_tiled_step(int step, const void* x, const void* taps, const void* dwb,
                                    const void* s1, const void* b1, const void* s2,
                                    const void* b2, void* out, void* z2, void* part, void* stats,
@@ -467,7 +468,7 @@ int vptr_fused_dw_chain_tiled_step(int step, const void* x, const void* taps, co
                                    void* stream) {
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_cols,
                                   col0};
-  if (step < 0 || step > 2 || N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 ||
+  if (step < 0 || step > 2 || N < 1 || N > kTMaxN || !t_split_ok(HW, W, C) || dtype < 0 ||
       dtype > 1 || (rate > 0.f && !seed) || rate >= 1.f || col0 < 0 ||
       (mask_cols && col0 + C > mask_cols) || !z2 || !part || !stats)
     return cudaErrorInvalidValue;
@@ -479,14 +480,18 @@ int vptr_fused_dw_chain_tiled_step(int step, const void* x, const void* taps, co
 }
 
 // A split call's merge (forward and backward): out (N, 2) from part (N, T,
-// 2), T tiles of W x 32 values a sample in the whole call's order; mode 0:
-// each tile's (mean, M2) merged into (mean, rstd), 1: the two sums'
-// means over the sample.
-int vptr_fused_dw_chain_tiled_merge(const void* part, void* out, int N, int T, int W, float eps,
-                                    int mode, void* stream) {
-  if (N < 1 || T < 1 || W < 1 || W > kTMaxW || mode < 0 || mode > 1 || !part || !out)
+// 2) in the whole call's order: T = grid rows x shares x ceil(C / 32)
+// tiles of a share of C channels (C a multiple of 32: whole tiles of W x
+// 32 values; else each share's last tile of a grid row holds W (C mod 32)
+// values and every tile is weighed by its count); mode 0: each tile's
+// (mean, M2) merged into (mean, rstd), 1: the two sums' means over the
+// sample.
+int vptr_fused_dw_chain_tiled_merge(const void* part, void* out, int N, int T, int W, int C,
+                                    float eps, int mode, void* stream) {
+  if (N < 1 || T < 1 || W < 1 || W > kTMaxW || C < 1 || T % t_cols(C) || mode < 0 ||
+      mode > 1 || !part || !out)
     return cudaErrorInvalidValue;
-  return dwt_merge(static_cast<const float*>(part), static_cast<float*>(out), N, T, W, eps,
+  return dwt_merge(static_cast<const float*>(part), static_cast<float*>(out), N, T, W, C, eps,
                    mode, static_cast<cudaStream_t>(stream));
 }
 

@@ -862,8 +862,9 @@ int launch_persistent(const void* x, const void* taps, const void* dwb, const vo
 // ---- the tiled route (dw_tiled.cuh)
 
 // Its operands: the inputs, the outputs, then the caller's f32 scratch
-// (z2, da1: N x HW x C; part: N x T x 2, T = HW / W x C / 32; stats: 4 x N
-// x 2; gpart: groups x 4 x HW x C; tpart: groups x H x 10 x C).
+// (z2, da1: N x HW x C; part: N x T x 2, T = HW / W x ceil(C / 32);
+// stats: 4 x N x 2; gpart: groups x 4 x HW x C; tpart: groups x H x 10 x
+// C).
 struct TBwd {
   const void *x, *taps, *dwb, *s1, *b1, *s2, *b2, *g;
   void *dx, *dtaps, *ddwb, *ds1, *db1, *ds2, *db2;
@@ -888,7 +889,7 @@ int tiled_step(int step, const TBwd& a, int N, int HW, int W, int C,
     return dwt_z2_step<T>(step, x, cf(a.taps), cf(a.dwb), cf(a.s1), cf(a.b1), st, z2, part, N,
                           HW, W, C, s);
   const int G = t_groups(N), H = HW / W;
-  const dim3 by_group(C / kTCh, H, G), by_sample(C / kTCh, H, N);
+  const dim3 by_group(t_cols(C), H, G), by_sample(t_cols(C), H, N);
   if (step == 2) {
     dwt_ln2_bwd_kernel<T><<<by_group, kTThreads, 0, s>>>(z2, g, cf(a.s2), cf(a.b2), st + 2 * N,
                                                        part, f(a.gpart), N, HW, W, C, drop);
@@ -916,11 +917,11 @@ constexpr int kTStepMode[4] = {kTMoments, kTMoments, kTSums, kTSums};
 template <typename T>
 int launch_tiled(const TBwd& a, int N, int HW, int W, int C, float eps,
                  vptr_dropout::Params drop, cudaStream_t s) {
-  const int T_ = (C / kTCh) * (HW / W);
+  const int T_ = t_cols(C) * (HW / W);
   float* st = static_cast<float*>(a.stats);
   for (int k = 0; k < 4; ++k) {
     if (int err = tiled_step<T>(k, a, N, HW, W, C, drop, s)) return err;
-    VPTR_TRY(dwt_merge(static_cast<const float*>(a.part), st + 2 * k * N, N, T_, W, eps,
+    VPTR_TRY(dwt_merge(static_cast<const float*>(a.part), st + 2 * k * N, N, T_, W, C, eps,
                        kTStepMode[k], s));
   }
   return tiled_step<T>(4, a, N, HW, W, C, drop, s);
@@ -1024,10 +1025,12 @@ int vptr_fused_dw_chain_bwd_tiled(const void* x, const void* taps, const void* d
 
 // #10's tiled route split at its four statistics (tensor parallelism, as
 // vptr_fused_dw_chain_tiled_step): steps 0-4 as tiled_step's note; after
-// each of steps 0-3 the caller merges every share's part (N, HW / W, C /
-// 32, 2), in the whole call's tile order, into stats[step]
+// each of steps 0-3 the caller merges every share's part (N, HW / W,
+// ceil(C / 32), 2), in the whole call's tile order, into stats[step]
 // (vptr_fused_dw_chain_tiled_merge, mode 0 after steps 0-1, 1 after 2-3).
-// The dropout at the global channel (mask_cols, col0). The operands as
+// C any share (t_split_ok; a partial last tile where 32 does not divide
+// it, whose lanes past the share write no gradient). The dropout at the
+// global channel (mask_cols, col0). The operands as
 // vptr_fused_dw_chain_bwd_tiled's.
 int vptr_fused_dw_chain_bwd_tiled_step(int step, const void* x, const void* taps,
                                        const void* dwb, const void* s1, const void* b1,
@@ -1039,7 +1042,7 @@ int vptr_fused_dw_chain_bwd_tiled_step(int step, const void* x, const void* taps
                                        int mask_cols, int col0, int dtype, void* stream) {
   const vptr_dropout::Params drop{static_cast<const int*>(seed), rate, keep_div, mask_cols,
                                   col0};
-  if (step < 0 || step > 4 || N < 1 || N > kTMaxN || !t_route_ok(HW, W, C) || dtype < 0 ||
+  if (step < 0 || step > 4 || N < 1 || N > kTMaxN || !t_split_ok(HW, W, C) || dtype < 0 ||
       dtype > 1 || (rate > 0.f && !seed) || rate >= 1.f || col0 < 0 ||
       (mask_cols && col0 + C > mask_cols) || !z2 || !da1 || !part || !stats || !gpart ||
       !tpart)

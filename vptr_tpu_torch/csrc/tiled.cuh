@@ -3,7 +3,9 @@
 // conv_ln_gelu): a sample too large for one block or one cluster is cut
 // into tiles of equal size, each tile's block writes its partial moments
 // (or partial sums) into device memory, and a second kernel merges a
-// sample's partials into its statistics. Every sum is in a fixed order
+// sample's partials into its statistics (tiled_stats; where a
+// tensor-parallel share of the dw chain's channels ends in a partial tile,
+// dw_tiled.cuh's dwt_stats_uneven). Every sum is in a fixed order
 // (a thread's own values in turn, lanes by a shuffle tree, warps in order,
 // tiles in order; no atomics), so two calls give the same bits.
 #pragma once
@@ -40,8 +42,9 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float (*red)[kTWarps])
 // block a sample, into out (N, 2):
 //   kTMoments: part holds each tile's (mean, M2) of cnt values; out =
 //     (mean, rstd) over the T cnt values: the mean of the tile means, then
-//     M2 = sum_t M2_t + cnt (mean_t - mean)^2 (Chan's merge; the tiles are
-//     of equal size), rstd = rsqrt(M2 / (T cnt) + eps);
+//     M2 = sum_t M2_t + cnt (mean_t - mean)^2 (Chan's merge; here every
+//     tile is of one size, cnt: dw_tiled.cuh's dwt_stats_uneven weighs
+//     tiles of two sizes), rstd = rsqrt(M2 / (T cnt) + eps);
 //   kTSums: part holds each tile's two plain sums; out = the two sums over
 //     the sample divided by T cnt (the means).
 enum TStats { kTMoments = 0, kTSums = 1 };

@@ -45,10 +45,16 @@ in (dy, dx) (cross-correlation), dwb (C,) and the (HW, C) affines f32.
   every rank's are gathered over the model group
   (:func:`~vptr_tpu_torch.ops._split.run_split`) and merged in
   the whole call's tile order, so a rank's output is its slice of the
-  whole tiled call's bits. The plain versions take the sample's sums over
-  the model group (:func:`~vptr_tpu_torch.parallel.mesh.model_sum`). The
-  dropout indexes by the global channel, (sample * HW + r) * Cg + c0 +
-  col; the taps', dwb's and the affines' gradients are the share's.
+  whole tiled call's bits where the share is whole 32-channel tiles (C a
+  multiple of 32). A share of 32 k + r channels (far_mnist's 2112 over
+  mesh.model 4: 528) ends each grid row in a partial tile of r channels,
+  whose masked lanes touch no memory; its partials count W r values and
+  the merge weighs every tile by its count, so the statistics differ from
+  the whole call's by rounding (:func:`split_ok` says which shares the
+  route takes). The plain versions take the sample's sums over the model
+  group (:func:`~vptr_tpu_torch.parallel.mesh.model_sum`). The dropout
+  indexes by the global channel, (sample * HW + r) * Cg + c0 + col; the
+  taps', dwb's and the affines' gradients are the share's.
 """
 
 from __future__ import annotations
@@ -355,16 +361,16 @@ def resident_clusters(hw: int, c: int) -> tuple:
             _lib_bwd().vptr_fused_dw_chain_bwd_clusters(hw, c))
 
 
-def _operands(x, taps, dwb, s1, b1, s2, b2, w):
-    """Check every operand against what the kernels take; returns (N, HW,
-    C)."""
+def _operands(x, taps, dwb, s1, b1, s2, b2, w, share=False):
+    """Check every operand against what the kernels take (a tensor-parallel
+    ``share`` any C); returns (N, HW, C)."""
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"fused_dw_chain kernel takes x (N, HW, C) in float32 "
                          f"or bfloat16, got {tuple(x.shape)} {x.dtype}")
     n, hw, c = x.shape
     if w < 1 or hw % w:
         raise ValueError(f"fused_dw_chain: HW={hw} is not a multiple of w={w}")
-    if c % 32:
+    if c % 32 and not share:
         raise ValueError(f"fused_dw_chain kernel takes C a multiple of 32 (eight "
                          f"blocks of whole channel quads), got C={c}")
     f32 = torch.float32
@@ -396,27 +402,37 @@ def _check_tiled(what, x, w):
 
 # ---- the tiled route split at its statistics (tensor parallelism)
 
+def split_ok(hw: int, c: int, w: int, n: int = 1) -> bool:
+    """Whether the split tiled route (:func:`split_forward`,
+    :func:`split_backward`) takes a rank's share of n samples of (HW, C) on
+    a grid w wide: w at most 32 dividing HW, any C (its last tile partial
+    where 32 does not divide it), at most 65,535 samples. Equal to the
+    library's ``t_split_ok``."""
+    return hw >= 1 and 1 <= w <= T_MAX_W and hw % w == 0 and c >= 1 and 1 <= n <= T_MAX_N
+
+
 def _check_split(what, x, w, model):
     if x.dim() != 3:
         raise ValueError(f"{what} takes x (N, HW, C), got {tuple(x.shape)}")
     n, hw, c = x.shape
-    if not tiled_ok(hw, c, w) or n > T_MAX_N:
+    if not split_ok(hw, c, w, n):
         raise ValueError(
             f"{what} on model rank {model[1]} of {model[0]} runs the tiled route split at its "
-            f"statistics, which takes a rank's channels a multiple of {T_CH} (whole tiles of "
-            f"the whole call), w <= {T_MAX_W} dividing HW and N <= {T_MAX_N}: got C={c} a rank "
-            f"(C={c * model[0]} over mesh.model={model[0]}), HW={hw}, w={w}, N={n}")
+            f"statistics, which takes w <= {T_MAX_W} dividing HW and N <= {T_MAX_N}: got "
+            f"HW={hw}, w={w}, N={n} (C={c} a rank of {c * model[0]} over "
+            f"mesh.model={model[0]})")
 
 
-def _merge(lib, parts, out, w, mode, stream):
-    """Every rank's partials ``parts`` (M, N, H, Cl / 32, 2), in rank order,
-    merged into ``out`` (N, 2) in the whole call's tile order (a grid row's
-    tiles rank by rank): mode 0 moments into (mean, rstd), 1 sums into
-    their means."""
+def _merge(lib, parts, out, w, c, mode, stream):
+    """Every rank's partials ``parts`` (M, N, H, ceil(C / 32), 2) of shares
+    of C channels, in rank order, merged into ``out`` (N, 2) in the whole
+    call's tile order (a grid row's tiles rank by rank; each tile weighed
+    by its count where a share ends in a partial tile): mode 0 moments
+    into (mean, rstd), 1 sums into their means."""
     whole = parts.permute(1, 2, 0, 3, 4).contiguous()
     n, tiles = whole.shape[0], whole.shape[1] * whole.shape[2] * whole.shape[3]
     err = lib.vptr_fused_dw_chain_tiled_merge(_build.ptr(whole), _build.ptr(out), n, tiles, w,
-                                              LN_EPS, mode, stream)
+                                              c, LN_EPS, mode, stream)
     _build.check(lib, err, "fused_dw_chain tiled merge")
 
 
@@ -424,17 +440,17 @@ def split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model):
     """Kernel #9's tiled route on model rank m's share of the channels
     (``model`` = (M, m); every operand the share's, ``seed`` a tensor or
     None at rate 0), as a generator of its exchanges: it yields each
-    statistic's per-tile partials (N, HW / w, C / 32, 2) and takes back
-    every rank's stacked in rank order (M, N, HW / w, C / 32, 2); returns
-    the share's output (``ops/_split.py::run_split`` drives it). Counted in
-    ``fused_dw_chain.launches`` when it completes."""
+    statistic's per-tile partials (N, HW / w, ceil(C / 32), 2) and takes
+    back every rank's stacked in rank order (M, N, HW / w, ceil(C / 32),
+    2); returns the share's output (``ops/_split.py::run_split`` drives
+    it). Counted in ``fused_dw_chain.launches`` when it completes."""
     _check_split("fused_dw_chain", x, w, model)
-    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w, share=True)
     lib, p = _lib(), _build.ptr
     stream = torch.cuda.current_stream(x.device).cuda_stream
     f32 = dict(dtype=torch.float32, device=x.device)
     out, z2 = torch.empty_like(x), torch.empty(n, hw, c, **f32)
-    part = torch.empty(n, hw // w, c // T_CH, 2, **f32)
+    part = torch.empty(n, hw // w, -(-c // T_CH), 2, **f32)
     stats = torch.empty(2, n, 2, **f32)
     drop = (*_dropout_args(seed, rate), c * model[0], c * model[1])
     for step in range(3):
@@ -443,7 +459,7 @@ def split_forward(x, taps, dwb, s1, b1, s2, b2, seed, w, rate, model):
             p(stats), n, hw, w, c, *drop, _DTYPES[x.dtype], stream)
         _build.check(lib, err, f"fused_dw_chain (tiled_split, step {step})")
         if step < 2:
-            _merge(lib, (yield part), stats[step], w, 0, stream)
+            _merge(lib, (yield part), stats[step], w, c, 0, stream)
     fused_dw_chain.launches += 1
     fused_dw_chain.launches_by_route["tiled_split"] += 1
     return out
@@ -456,7 +472,7 @@ def split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, model):
     ds2, db2). Counted in ``fused_dw_chain.bwd_launches`` when it
     completes."""
     _check_split("fused_dw_chain backward", x, w, model)
-    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w)
+    n, hw, c = _operands(x, taps, dwb, s1, b1, s2, b2, w, share=True)
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
         raise ValueError(f"fused_dw_chain backward: g {tuple(g.shape)} {g.dtype} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
@@ -468,7 +484,7 @@ def split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, model):
     dtaps, ddwb = torch.empty(9, c, **f32), torch.empty(c, **f32)
     ds1, db1, ds2, db2 = (torch.empty(hw, c, **f32) for _ in range(4))
     z2, da1 = (torch.empty(n, hw, c, **f32) for _ in range(2))
-    part = torch.empty(n, hw // w, c // T_CH, 2, **f32)
+    part = torch.empty(n, hw // w, -(-c // T_CH), 2, **f32)
     stats = torch.empty(4, n, 2, **f32)
     gpart = torch.empty(groups, 4, hw, c, **f32)
     tpart = torch.empty(groups, hw // w, 10, c, **f32)
@@ -480,7 +496,7 @@ def split_backward(x, taps, dwb, s1, b1, s2, b2, seed, g, w, rate, model):
             p(gpart), p(tpart), n, hw, w, c, *drop, _DTYPES[x.dtype], stream)
         _build.check(lib, err, f"fused_dw_chain backward (tiled_split, step {step})")
         if step < 4:
-            _merge(fwd_lib, (yield part), stats[step], w, 0 if step < 2 else 1, stream)
+            _merge(fwd_lib, (yield part), stats[step], w, c, 0 if step < 2 else 1, stream)
     fused_dw_chain.bwd_launches += 1
     fused_dw_chain.bwd_launches_by_route["tiled_split"] += 1
     return dx, dtaps, ddwb, ds1, db1, ds2, db2
@@ -613,7 +629,7 @@ def _lib() -> ctypes.CDLL:
         lib.vptr_fused_dw_chain_tiled_step.argtypes = [i] + [p] * 11 + [i] * 4 + [
             p, f, f, i, i, i, p]
         lib.vptr_fused_dw_chain_tiled_step.restype = i
-        lib.vptr_fused_dw_chain_tiled_merge.argtypes = [p, p, i, i, i, f, i, p]
+        lib.vptr_fused_dw_chain_tiled_merge.argtypes = [p, p, i, i, i, i, f, i, p]
         lib.vptr_fused_dw_chain_tiled_merge.restype = i
     return lib
 
