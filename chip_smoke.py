@@ -14,9 +14,13 @@ Phases (any failure exits non-zero, without the final result line):
    #12, #7, #8, and #1, #5, #3, #6) (cuobjdump), and fail if any has
    none;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the far_mnist paths give it, in bf16 and f32: the forwards at the
-   far_rip shapes, a rectangular attention core and the residual/scale
-   window variant; the forwards with dropout 0.1 at the far_rip and the
+   shapes the far_mnist paths give it, in bf16, f32 and f16 (f16 every
+   call on the FMA routes, none on a bf16 tensor-core kernel; gates
+   forward 2^-7 absolute beside bf16's 2^-4, backward 2^-8 relative
+   beside bf16's 2^-5): the forwards at the far_rip shapes, a rectangular
+   attention core, the residual/scale window variant and L 19 causal
+   (dropout 0 and 0.1: the mask index over 24 tokens, bf16's 32); the
+   forwards with dropout 0.1 at the far_rip and the
    training shapes, the window's with res and the DropPath scale at the
    training shape (dropout 0 and 0.1); the attention core (#2) also on
    q, k, v in the attention layer's strided layout (the (B, H, T, D) view
@@ -50,9 +54,12 @@ Phases (any failure exits non-zero, without the final result line):
    version, a PyTorch library yardstick and its bound (bytes or
    operations over the card's published peak); #1's to #4's yardsticks
    also replayed from CUDA graphs (a backward's as forward + backward less
-   forward);
+   forward); #1-#4 again in f16 by the same code (the rows
+   ``<name>_f16``: the same bytes, f16 products at 989 TFLOP/s, the
+   yardstick in f16);
 7. the NAR slice's kernels against their plain versions at the nar_mnist
-   shapes (640 windows x 16 x 528), bf16 and f32, dropout 0 and 0.1:
+   shapes (640 windows x 16 x 528), bf16, f32 and f16 (as phase 3),
+   dropout 0 and 0.1:
    the two-stream kernels #5/#6 with an 8-head and a 1-head relative-
    position bias (forward, dx_qk, dx_v, every dW and db, dbias), and #1/#3
    with the 8-head bias, no position table and the bias gradient (#1 also
@@ -70,7 +77,7 @@ Phases (any failure exits non-zero, without the final result line):
 10. time the nar predict call and the NAR train step (in turns with
    kernels="plain"), kernels #5/#6 beside their plain versions, library
    yardsticks (also replayed from CUDA graphs) and bounds, and #1/#3 at the
-   NAR shape with the RPE bias;
+   NAR shape with the RPE bias; the kernels' readings again in f16;
 11. the fused-FFN route's kernels (#7/#8 fused_ffn, #9/#10 fused_dw_chain)
    against their plain versions at the far_mnist shapes (FFN rows 12,800
    and 12,160 for the forward, 12,160 for the backward, C 528, hidden
@@ -138,7 +145,7 @@ Phases (any failure exits non-zero, without the final result line):
    step, and the far_mnist step with and without the GAN term in turns;
 23. the commands users run, through vptr_tpu_torch.cli.main, on the
    synthetic loader (no dataset on disk), into a temporary directory
-   removed after phase 57: `cli train` of ae_mnist at full width (8 steps and
+   removed after phase 58: `cli train` of ae_mnist at full width (8 steps and
    a validation pass; the metrics finite, ckpt/8/ written; its steps/s and
    training frames/s beside phase 22's bare AE step);
 24. `cli train` of far_mnist at full width on phase 23's autoencoder
@@ -200,8 +207,8 @@ Phases (any failure exits non-zero, without the final result line):
    step's ms and the gradient all-reduce's share of it; with more than two
    cards the same at W = the cards and the preset's batch 64;
 35. `torchrun --standalone --nproc_per_node=<cards> -m vptr_tpu_torch.cli
-   train --preset far_bair_dp` (3 steps and a validation pass) on the
-   autoencoder of a 2-step `cli train --preset ae_bair`, then `cli eval
+   train --preset far_bair_dp` (2 steps and a validation pass) on the
+   autoencoder of a 1-step `cli train --preset ae_bair`, then `cli eval
    --mode far_rip --num-pred 10 --max-batches 1` on that checkpoint: exit
    codes 0, rank 0's checkpoint, log and scalars, finite losses and
    curves, in a temporary directory removed at the end;
@@ -257,10 +264,10 @@ Phases (any failure exits non-zero, without the final result line):
    on two routes side by side: the fused-FFN route's five flags
    (fused_attention, fused_full, fused_residual, fused_ffn, fused_dw) and
    the conv-FFN route's (fused_attention, fused_full, fused_residual,
-   fused_ffn, fused_conv_ffn, fused_full_temporal) (2 steps and a
+   fused_ffn, fused_conv_ffn, fused_full_temporal) (1 step and a
    checkpoint each; on one card the ranks share it over gloo,
    VPTR_RANKS_SHARE_CARDS), each resumed by one process's cli train with
-   mesh.model 1 for 2 more, against an unbroken one-process run of 4 on
+   mesh.model 1 for 1 more, against an unbroken one-process run of 2 on
    its route that runs beside the torchrun (each epoch's T_total, the
    transformer's relative L2);
 45. kernels #9-#12 at nar_kth_128's 16 x 16 latent (80 decoder samples of
@@ -339,8 +346,38 @@ Phases (any failure exits non-zero, without the final result line):
    `cli train` leaves NaN weights on the card, ROADMAP §3), and
    test_autoencoder_torch.py on phase 23's ae_mnist checkpoint (PSNR /
    SSIM finite, no kernel of the twelve launched, the strip written where
-   PIL imports); then phases 23-26's directory is removed;
-58. print {"kernels": [...]} (all twelve kernels; #1-#4 also with their
+   PIL imports);
+58. the float16 slice at full width (``dtype=float16``): far_mnist's
+   far_rip predict (#1 and #2 120 launches) and nar_mnist's nar predict
+   (#1 4, #5 8, #2 20) from phases 4's and 8's builds, against
+   kernels="plain" in f16; each model's first f16 train step from those
+   builds beside the f32 step on the same weights (f16 holds 2^-24 to
+   65,504 and no loss is scaled: a gradient that underflows to 0 or
+   overflows passes only where the f32 step shows why,
+   f16_default_init_step); the far_mnist train step (#1-#4 12) on weights
+   drawn anew (redraw: from the default initializers f16 keeps 2 of its
+   482 gradient leaves) and the nar_mnist one (#1/#3 4, #5/#6 8, #2/#4 20)
+   on phase 8/9's build, every launch on the FMA route, each against
+   kernels="plain" in f16 (phases 5/9's gates: T_total within 2e-3, the
+   gradient norm within 5%) and, with the plain version, against the f32
+   step on the same weights (f16_step_gates: the kernels' gradient no
+   farther from it than 1.5x the plain version's + 1e-3), 10 steps with a
+   falling loss; nar_mnist's first step from the Trainer's seeded init in
+   f16 (its non-finite gradient leaves reported, not gated: ROADMAP §3);
+   an ae_mnist AE/GAN step from the default initializers beside the f32
+   step on the same weights: every encoder and decoder parameter moved,
+   every discriminator parameter with a non-zero f32 gradient, and each
+   one moved in f16 or at an exactly-0 f16 gradient behind a point (its
+   layer's output or a later one) where the f16 cotangent is 0 and the f32
+   one below 2^-14 (underflow); none of the twelve kernels, 10 steps with a
+   falling AE_total; `cli train --preset far_mnist --set dtype=float16`
+   (2 steps on phase 23's autoencoder) and `cli predict --mode far_rip
+   --batches 1` from it (#1/#2 120, the FMA route); then phases 23-26's
+   directory is removed;
+59. far_rip predict and the FAR and NAR train steps in f16, bf16 and f32
+   (phase 58's weights in each dtype), in turns: ms and frames/s;
+60. print {"kernels": [...]} (all twelve kernels and #1-#6's f16 rows,
+   `<name>_f16`, their launches from phase 58; #1-#4 also with their
    launches in one far_bair_dp step, `far_bair_dp_launches`, in a far_mnist
    remat step, `far_remat_step_launches` (#7-#10 on the fused-FFN route),
    #1/#2 in the far_rip predict from a .tar, `upstream_far_rip_launches`;
@@ -383,7 +420,7 @@ import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and flop/s
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
 SEED = 0
 ADAM_EPS = 1e-8               # train/optim.py::adam's eps, the presets' optimizers'
@@ -496,6 +533,15 @@ def ptxas_report(log: str, fragment: str):
         elif name and fragment in name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The preset's compute dtype through the trainer's map (float32,
+    bfloat16 or float16; any other name raises), so that no preset is run
+    in a dtype other than its own."""
+    from vptr_tpu_torch.train.trainer import _dtype_of
+
+    return _dtype_of(cfg.dtype)
 
 
 def max_err(a, b) -> float:
@@ -614,7 +660,8 @@ def counted_step(train_step, state, past, future, want, what):
 def step_vs_plain(train_step, state, past, future, what):
     """One step with the kernels and one with kernels="plain" from one
     cloned state. bf16 through the layers and the decoder: the step's loss
-    agrees to about 1e-3 of its value, the gradient norm to a few percent."""
+    agrees to about 1e-3 of its value, the gradient norm to a few percent.
+    Returns the two states after their step."""
     from vptr_tpu_torch.models.layers import use_kernels
 
     a, b = state.clone(), state.clone()
@@ -629,6 +676,7 @@ def step_vs_plain(train_step, state, past, future, what):
     check(d_norm <= 0.05, f"{what} kernels vs kernels='plain' grad norm rel diff "
           f"{d_norm:.3e} <= 0.05 ({float(ma['grad_norm']):.6e} vs "
           f"{float(mb['grad_norm']):.6e})")
+    return a, b
 
 
 def loss_falls(train_step, state, past, future, what):
@@ -698,9 +746,9 @@ def nar_phases(dev):
     rate = tc.dropout
     randn = normals(torch.Generator().manual_seed(SEED + 20))
     kseed = torch.tensor([SEED + 54321], dtype=torch.int32, device=dev)
-    bf = torch.bfloat16
-    tol = {torch.float32: 1e-3, bf: 6.25e-2}            # as phase 3
-    bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5}
+    bf, f16 = torch.bfloat16, torch.float16
+    tol = {torch.float32: 1e-3, bf: 6.25e-2, f16: F16_TOL}            # as phase 3
+    bwd_tol = {torch.float32: 1e-4, bf: 2 ** -5, f16: F16_BWD_TOL}
     idx = torch.from_numpy(relative_position_index(tc.window_size).reshape(-1))
 
     def rpe_bias(nb):
@@ -729,8 +777,9 @@ def nar_phases(dev):
     errs = {}
 
     phase("7. NAR kernels against their plain versions (card)")
-    for dtype in (bf, torch.float32):
+    for dtype in (bf, torch.float32, f16):
         name = str(dtype).replace("torch.", "")
+        zero_counters()
         ops = two_stream(dtype)
         gout = randn(windows, tokens, c).to(dev, dtype)
         for bias, what in ((rpe8, "8-head RPE bias"), (rpe1, "1-head bias")):
@@ -747,9 +796,9 @@ def nar_phases(dev):
                 check(worst <= bwd_tol[dtype], f"fused_attention backward {name} "
                       f"{what} dropout {r} ({tfw.backward_route(tokens, c, dtype, False)} "
                       f"route) worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
-                if dtype == bf and r > 0 and bias is rpe8:
-                    errs["two"] = e
-                    errs["two_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+                if r > 0 and bias is rpe8:
+                    errs[("two", dtype)] = e
+                    errs[("two_bwd", dtype)] = max(max_err(a, b) for a, b in zip(got, want))
         lops = ln_operands(dtype)
         for r in (0.0, rate):
             for bias, what in ((rpe8, "8-head RPE bias"), (rpe1, "1-head bias")):
@@ -767,10 +816,13 @@ def nar_phases(dev):
             check(worst <= bwd_tol[dtype], f"fused_attention_ln backward {name} "
                   f"8-head RPE bias dropout {r} ({tfw.backward_route(tokens, c, dtype)} "
                   f"route) worst {n_worst} rel err {worst:.2e} <= {bwd_tol[dtype]:.2e}")
+        if dtype == f16:
+            torch.cuda.synchronize()
+            _routes_only_fma("phase 7's f16 calls")
     torch.cuda.synchronize()
 
     phase("8. nar_mnist full width, nar predict")
-    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(cfg)
     enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
     tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
     n_params = sum(p.numel() for m in (enc, dec, tr) for p in m.parameters())
@@ -842,89 +894,107 @@ def nar_phases(dev):
           f"{plain_step_ms:.3f} ms ({[round(t, 3) for t in plain_times]}); peak "
           f"{step_peak:.3f} GiB with one state")
 
-    # kernels at the NAR shapes, bf16, the training dropout, the RPE bias
-    ops = two_stream(bf)
-    x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo = ops
-    gwin = randn(windows, tokens, c).to(dev, bf)
-    mask = rpe8.to(bf)[None]
+    def nar_rows(dt, launches=None, step_launches=None):
+        """#5's and #6's rows of the kernels line in ``dt`` (bf16; f16 on the
+        FMA routes, named ``<name>_f16``) at the NAR shapes (the training
+        dropout, the RPE bias), and #1/#3 there: each timed beside its plain
+        version in turns, the library yardstick in ``dt`` (#5/#6's also
+        replayed from CUDA graphs) and the bound. ``launches`` /
+        ``step_launches``: the nar predict's and the train step's counts in
+        ``dt`` (None: filled in by the caller). Returns (the rows, #1/#3's
+        readings at the NAR shape by name)."""
+        ops = two_stream(dt)
+        x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo = ops
+        gwin = randn(windows, tokens, c).to(dev, dt)
+        mask = rpe8.to(dt)[None]
 
-    def split(z):
-        return z.view(windows, tokens, heads, hd).transpose(1, 2)
+        def split(z):
+            return z.view(windows, tokens, heads, hd).transpose(1, 2)
 
-    def two_library(x_qk=x_qk, x_v=x_v, wq=wq, wk=wk, wv=wv, wo=wo):
-        o = F.scaled_dot_product_attention(
-            split(F.linear(x_qk, wq.t(), bq.to(bf))),
-            split(F.linear(x_qk, wk.t(), bk.to(bf))),
-            split(F.linear(x_v, wv.t(), bv.to(bf))), attn_mask=mask)
-        return F.linear(o.transpose(1, 2).reshape(windows, tokens, c), wo.t(),
-                        bo.to(bf))
+        def two_library(x_qk=x_qk, x_v=x_v, wq=wq, wk=wk, wv=wv, wo=wo):
+            o = F.scaled_dot_product_attention(
+                split(F.linear(x_qk, wq.t(), bq.to(dt))),
+                split(F.linear(x_qk, wk.t(), bk.to(dt))),
+                split(F.linear(x_v, wv.t(), bv.to(dt))), attn_mask=mask)
+            return F.linear(o.transpose(1, 2).reshape(windows, tokens, c), wo.t(),
+                            bo.to(dt))
 
-    lops = ln_operands(bf)
-    x, ls, lb = lops[0], lops[9], lops[10]
+        lops = ln_operands(dt)
+        x, ls, lb = lops[0], lops[9], lops[10]
 
-    def ln_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
-        xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
-        return two_library(xn, xn, wq, wk, wv, wo)
+        def ln_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
+            xn = F.layer_norm(x, (c,), ls.to(dt), lb.to(dt))
+            return two_library(xn, xn, wq, wk, wv, wo)
 
-    s = 2   # bytes per bf16 element
-    vec = 4 * c * 4 + heads * tokens * tokens * 4
-    fwd_flops = 8 * rows * c * c + 4 * rows * tokens * c
-    bwd_flops = 22 * rows * c * c + 12 * rows * tokens * c
-    cases = (
-        # name, fn, plain, library, bytes, flops
-        ("fused_attention",
-         lambda: tfw.fused_attention(*ops, rpe8, kseed, heads, rate),
-         lambda: tfw.fused_attention_plain(*ops, rpe8, kseed, heads, rate),
-         two_library, 3 * rows * c * s + 4 * c * c * s + vec, fwd_flops),
-        ("fused_attention_bwd",
-         lambda: tfw.fused_attention_backward(*ops, rpe8, kseed, gwin, heads, rate),
-         lambda: tfw.fused_attention_backward_plain(*ops, rpe8, kseed, gwin, heads,
-                                                    rate),
-         grads_of(two_library, (x_qk, x_v, wq, wk, wv, wo), gwin),
-         5 * rows * c * s + 8 * c * c * s + 2 * vec, bwd_flops),
-        ("fused_attention_ln (NAR shape, RPE bias)",
-         lambda: tfw.fused_attention_ln(*lops, rpe8, kseed, heads, rate),
-         lambda: tfw.fused_attention_ln_plain(*lops, rpe8, kseed, heads, rate),
-         ln_library, 2 * rows * c * s + 4 * c * c * s + vec + 2 * c * 4,
-         fwd_flops),
-        ("fused_attention_ln_bwd (NAR shape, RPE bias)",
-         lambda: tfw.fused_attention_ln_backward(*lops, rpe8, kseed, gwin, heads,
-                                                 rate),
-         lambda: tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gwin,
-                                                       heads, rate),
-         grads_of(ln_library, (x, wq, wk, wv, wo), gwin),
-         3 * rows * c * s + 8 * c * c * s + 2 * vec + 4 * c * 4, bwd_flops),
-    )
-    readings = {}
-    for name, fn, plain, lib, nbytes, flops in cases:
-        k_ms, p_ms = timed_turns(fn, plain)
-        lib_ms = cuda_ms(lib)
-        b_ms, b_by = bound(nbytes, flops)
-        readings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                              bound_ms=b_ms, bound_by=b_by)
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
-              f"MB, {flops / 1e9:.2f} GFLOP)")
-    # #5's and #6's yardsticks again, replayed from CUDA graphs (no host
-    # between launches); the backward's as forward + backward less forward
-    readings["fused_attention"]["library_graph_ms"] = fwd = graph_ms(two_library)
-    print(f"  fused_attention library yardstick replayed from a CUDA graph: {fwd:.4f} ms; "
-          f"the backward's:")
-    readings["fused_attention_bwd"]["library_graph_ms"] = graph_bwd_ms(
-        two_library, (x_qk, x_v, wq, wk, wv, wo), gwin)
-    rows_out = []
-    for name, src, replaces, err, launches in (
-            ("fused_attention", "vptr_tpu_torch/csrc/fused_window_attention.cu",
-             "vptr_tpu/ops/fused_window_attention.py:239", errs["two"],
-             pred_launches["fused_attention"]),
+        s = dt.itemsize
+        vec = 4 * c * 4 + heads * tokens * tokens * 4
+        fwd_flops = 8 * rows * c * c + 4 * rows * tokens * c
+        bwd_flops = 22 * rows * c * c + 12 * rows * tokens * c
+        cases = (
+            # name, fn, plain, library, bytes, flops
+            ("fused_attention",
+             lambda: tfw.fused_attention(*ops, rpe8, kseed, heads, rate),
+             lambda: tfw.fused_attention_plain(*ops, rpe8, kseed, heads, rate),
+             two_library, 3 * rows * c * s + 4 * c * c * s + vec, fwd_flops),
             ("fused_attention_bwd",
-             "vptr_tpu_torch/csrc/fused_window_attention_bwd.cu",
-             "vptr_tpu/ops/fused_window_attention.py:386", errs["two_bwd"],
-             step_launches["fused_attention_bwd"])):
-        rows_out.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": replaces, "launches": launches,
-                         "max_abs_err": err, **readings[name],
-                         "train_step_launches": step_launches[name]})
+             lambda: tfw.fused_attention_backward(*ops, rpe8, kseed, gwin, heads, rate),
+             lambda: tfw.fused_attention_backward_plain(*ops, rpe8, kseed, gwin, heads,
+                                                        rate),
+             grads_of(two_library, (x_qk, x_v, wq, wk, wv, wo), gwin),
+             5 * rows * c * s + 8 * c * c * s + 2 * vec, bwd_flops),
+            ("fused_attention_ln (NAR shape, RPE bias)",
+             lambda: tfw.fused_attention_ln(*lops, rpe8, kseed, heads, rate),
+             lambda: tfw.fused_attention_ln_plain(*lops, rpe8, kseed, heads, rate),
+             ln_library, 2 * rows * c * s + 4 * c * c * s + vec + 2 * c * 4,
+             fwd_flops),
+            ("fused_attention_ln_bwd (NAR shape, RPE bias)",
+             lambda: tfw.fused_attention_ln_backward(*lops, rpe8, kseed, gwin, heads,
+                                                     rate),
+             lambda: tfw.fused_attention_ln_backward_plain(*lops, rpe8, kseed, gwin,
+                                                           heads, rate),
+             grads_of(ln_library, (x, wq, wk, wv, wo), gwin),
+             3 * rows * c * s + 8 * c * c * s + 2 * vec + 4 * c * 4, bwd_flops),
+        )
+        readings = {}
+        for name, fn, plain, lib, nbytes, flops in cases:
+            k_ms, p_ms = timed_turns(fn, plain)
+            lib_ms = cuda_ms(lib)
+            b_ms, b_by = bound(nbytes, flops, dt)
+            readings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by)
+            print(f"  {name} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
+                  f"MB, {flops / 1e9:.2f} GFLOP)")
+        # #5's and #6's yardsticks again, replayed from CUDA graphs (no host
+        # between launches); the backward's as forward + backward less forward
+        readings["fused_attention"]["library_graph_ms"] = fwd = graph_ms(two_library)
+        print(f"  fused_attention library yardstick ({dt}) replayed from a CUDA graph: "
+              f"{fwd:.4f} ms; the backward's:")
+        readings["fused_attention_bwd"]["library_graph_ms"] = graph_bwd_ms(
+            two_library, (x_qk, x_v, wq, wk, wv, wo), gwin)
+        suffix = "_f16" if dt == f16 else ""
+        out = []
+        for name, src, replaces, counts in (
+                ("fused_attention", "vptr_tpu_torch/csrc/fused_window_attention.cu",
+                 "vptr_tpu/ops/fused_window_attention.py:239", launches),
+                ("fused_attention_bwd",
+                 "vptr_tpu_torch/csrc/fused_window_attention_bwd.cu",
+                 "vptr_tpu/ops/fused_window_attention.py:386", step_launches)):
+            out.append({"name": name + suffix, "route": "cuda", "source": src,
+                        "replaces": replaces, "dtype": str(dt).replace("torch.", ""),
+                        "launches": counts[name] if counts else None,
+                        "max_abs_err": errs[(name.replace("fused_attention", "two"), dt)],
+                        **readings[name],
+                        "train_step_launches": step_launches[name] if step_launches
+                        else None})
+        ln = {k.replace(" (", f"{suffix} (", 1): v for k, v in readings.items()
+              if k.startswith("fused_attention_ln")}
+        return out, ln
+
+    rows_out, ln_readings = nar_rows(bf, pred_launches, step_launches)
+    f16_rows, f16_ln = nar_rows(f16)
+    rows_out += f16_rows
+    ln_readings.update(f16_ln)
     summary = (f"nar_predict_ms {pred_ms:.3f} nar_plain_predict_ms "
                f"{plain_pred_ms:.3f} nar_train_step_ms {step_ms:.3f} "
                f"nar_plain_train_step_ms {plain_step_ms:.3f} "
@@ -932,8 +1002,7 @@ def nar_phases(dev):
                f"{step_peak:.3f}")
     extra = {"nar_predict_launches": pred_launches,
              "nar_step_launches": step_launches,
-             "nar_shape_ln_kernels": {k: v for k, v in readings.items()
-                                      if k.startswith("fused_attention_ln")}}
+             "nar_shape_ln_kernels": ln_readings}
     return rows_out, extra, summary
 
 
@@ -962,7 +1031,7 @@ def route_phases(dev, flags, label, first, want_pred, want_step):
     ctx = tc.num_past_frames + tc.num_future_frames
 
     phase(f"{first}. far_mnist {label} ({' + '.join(flags)}), far_rip predict")
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(cfg)
     enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
     tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
     # the default route with the same weights (the parameter trees agree)
@@ -1523,7 +1592,7 @@ def conv_phases(dev):
             temporal_rows[name][shape] = {"max_abs_err": err, **reading}
 
     phase("19. nar_mnist conv-FFN route (fused_conv_ffn + fused_full_temporal)")
-    dtype = bf if ncfg.dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(ncfg)
     n_past, n_fut = ntc.num_past_frames, ntc.num_future_frames
     enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
     nenc, ndec = build_autoencoder(ncfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
@@ -1602,7 +1671,7 @@ def ae_gan_phases(dev):
     bf = torch.bfloat16
     phase("20. ae_mnist full width, AE/GAN train step")
     cfg = get_preset("ae_mnist")
-    dtype = bf if cfg.dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(cfg)
     batch, n_past, n_fut = (cfg.data.batch_size, cfg.data.num_past_frames,
                             cfg.data.num_future_frames)
     enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED + 30))
@@ -2162,7 +2231,7 @@ def tslma_phases(dev):
     torch.cuda.empty_cache()
 
     phase("28. nar_mnist + transformer.tslma at full width, nar predict")
-    dtype = bf if cfg.dtype == "bfloat16" else f32
+    dtype = compute_dtype(cfg)
     enc, dec = build_autoencoder(cfg.ae, dtype, dev, torch.Generator().manual_seed(SEED))
     tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
     print(f"  NAR {tc.num_encoder_layers}+{tc.num_decoder_layers} layers, d {c}, {heads} "
@@ -2302,7 +2371,8 @@ def tslma_phases(dev):
 
 DP_PRESET = "far_bair_dp"
 DP_STEP_BATCH = 16            # phase 34's global batch
-DP_CLI_STEPS = 3              # phase 35's cli train steps
+DP_CLI_STEPS = 2              # phase 35's cli train steps
+AE_BAIR_STEPS = 1             # phase 35's ae_bair checkpoint
 
 
 def _free_port() -> int:
@@ -2702,8 +2772,8 @@ def dp_phases(dev, card):
                 extra.update({f"{cards}_rank_{k}": v for k, v in every.items()})
 
         phase(f"35. torchrun --nproc_per_node={cards} -m vptr_tpu_torch.cli train --preset "
-              f"{DP_PRESET} ({DP_CLI_STEPS} steps and a validation pass) on a 2-step "
-              f"ae_bair checkpoint, then cli eval")
+              f"{DP_PRESET} ({DP_CLI_STEPS} steps and a validation pass) on a "
+              f"{AE_BAIR_STEPS}-step ae_bair checkpoint, then cli eval")
         here = str(Path(__file__).resolve().parent)
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(
             [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))}
@@ -2723,8 +2793,9 @@ def dp_phases(dev, card):
             return p, wall
 
         command(cli + ["train", "--preset", "ae_bair", "--ckpt-dir", str(ae_dir), "--set",
-                       "epochs=1", "--set", "steps_per_epoch=2", "--set",
-                       "val_per_epochs=2"], "cli train --preset ae_bair (2 steps)")
+                       "epochs=1", "--set", f"steps_per_epoch={AE_BAIR_STEPS}", "--set",
+                       "val_per_epochs=2"], f"cli train --preset ae_bair ({AE_BAIR_STEPS} "
+                f"steps)")
         _, far_wall = command(run + [
             "train", "--preset", DP_PRESET, "--ckpt-dir", str(far_dir), "--set",
             f"ae_ckpt={ae_dir / 'ckpt'}", "--set", "epochs=1", "--set",
@@ -3303,6 +3374,7 @@ DW_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}      # and #10 (and 
 FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb")
 TP_BATCH = 8                             # phases 42-44's global batch
 TP_TIMED_STEPS = 1                       # a rank's timed steps (a gloo step on one card: 3-6 s)
+TP_CLI_STEPS = 1                         # phase 44's steps a run (then resumed for as many)
 # the fused-FFN route with the folded window residual (phases 44 and 52)
 TP_FFN_FLAGS = {"fused_attention": True, "fused_full": True, "fused_residual": True,
                 "fused_ffn": True, "fused_dw": True}
@@ -3689,9 +3761,7 @@ def tp_step_phase(dev, card, root, number, preset, flags, want, cards, ranks=2):
            "again": _whole(again, True)}
     ma = {k: float(v) for k, v in ma.items()}
     del again
-    s = state.clone()
-    for _ in range(WARMUP_STEPS):
-        s, _ = step(s, past, future)
+    s = state.clone()                  # the two steps above were the warm-up
     gc.collect()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -3812,9 +3882,10 @@ def tp_cli_phase(card, root, cards):
     and sequence_parallel on two routes side by side, the fused-FFN route
     (TP_FFN_FLAGS: #1 unfolded, #7/#8 on a hidden subset, #9/#10 split) and
     the conv-FFN route (TP_CONV_CLI_FLAGS: #11/#12 as the conv FFN's
-    column- and row-parallel steps); each (2 steps, a checkpoint) resumed by
-    one process's cli train with mesh.model 1 for 2 more, its steps against
-    an unbroken one-process run of 4 on the route, which runs beside the
+    column- and row-parallel steps); each (TP_CLI_STEPS steps, a checkpoint)
+    resumed by one process's cli train with mesh.model 1 for as many more,
+    its steps against an unbroken one-process run of both on the route, which
+    runs beside the
     torchrun (it needs none of its files)."""
     import os
     from pathlib import Path
@@ -3827,7 +3898,8 @@ def tp_cli_phase(card, root, cards):
     phase(f"44. torchrun --nproc_per_node={n} -m vptr_tpu_torch.cli train --preset far_mnist "
           f"--set mesh.model=2 --set transformer.sequence_parallel=true on two routes side by "
           f"side, " + " and ".join(f"the {label} ({shown(label)})" for label in routes)
-          + " (2 steps each), each resumed in one process with mesh.model=1, against an "
+          + f" ({TP_CLI_STEPS} step(s) each), each resumed in one process with mesh.model=1, "
+          "against an "
           "unbroken one-process run")
     here = str(Path(__file__).resolve().parent)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -3835,7 +3907,8 @@ def tp_cli_phase(card, root, cards):
     if cards < n:          # the ranks share the card, over gloo
         env["VPTR_RANKS_SHARE_CARDS"] = "1"
     sets = lambda label, **kw: [a for k, v in {
-        "epochs": 1, "steps_per_epoch": 2, "val_per_epochs": 4, "data.batch_size": TP_BATCH,
+        "epochs": 1, "steps_per_epoch": TP_CLI_STEPS, "val_per_epochs": 4,
+        "data.batch_size": TP_BATCH,
         **sets_of[label], **kw}.items() for a in ("--set", f"{k}={v}")]
     cli = [sys.executable, "-m", "vptr_tpu_torch.cli", "train", "--preset", "far_mnist"]
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3878,9 +3951,9 @@ def tp_cli_phase(card, root, cards):
             f"transformer.sequence_parallel=true {shown(label)}")}
         log = ((tp_dir / "train_log.log").read_text() if (tp_dir / "train_log.log").is_file()
                else "")
-        check((tp_dir / "ckpt" / "2" / "state.pt").is_file()
+        check((tp_dir / "ckpt" / str(TP_CLI_STEPS) / "state.pt").is_file()
               and "tensor parallel over 2 model ranks" in log,
-              f"{label}: rank 0 wrote ckpt/2/ and logged the model axis")
+              f"{label}: rank 0 wrote ckpt/{TP_CLI_STEPS}/ and logged the model axis")
         resumed[label] = start(cli + ["--ckpt-dir", str(tp_dir)] + sets(
             label, **{"mesh.model": 1}), f"resumed_{i}")
     for label in routes:
@@ -3888,25 +3961,27 @@ def tp_cli_phase(card, root, cards):
         r = out[label]
         r["resume_wall_s"] = finish(resumed[label], f"{label}: cli train resumed in one "
                                     f"process (mesh.model=1)")
-        finish(runs[label][0], f"{label}: cli train, one process, 4 steps unbroken (beside "
-               f"the torchrun)", False)
+        finish(runs[label][0], f"{label}: cli train, one process, {2 * TP_CLI_STEPS} steps "
+               f"unbroken (beside the torchrun)", False)
         try:
             hist = lambda d: json.loads((d / "ckpt" / "history.json").read_text())
-            check("resumed from step 2" in (tp_dir / "train_log.log").read_text(),
-                  f"{label}: the one-process run resumed the mesh's checkpoint at step 2")
+            check(f"resumed from step {TP_CLI_STEPS}" in (tp_dir / "train_log.log").read_text(),
+                  f"{label}: the one-process run resumed the mesh's checkpoint at step "
+                  f"{TP_CLI_STEPS}")
             ra, rb = hist(tp_dir)["train"]["T_total"], hist(one_dir)["train"]["T_total"]
             print(f"  {label}: T_total by epoch: the mesh then one process {ra}, unbroken {rb}")
             check(len(ra) == len(rb) == 2 and all(
                 abs(x[1] - y[1]) <= 2e-3 * max(1.0, abs(y[1])) for x, y in zip(ra, rb)),
                 f"{label}: each epoch's T_total within 2e-3 of the unbroken run's")
-            sa = torch.load(tp_dir / "ckpt" / "4" / "state.pt", weights_only=True)
-            sb = torch.load(one_dir / "ckpt" / "4" / "state.pt", weights_only=True)
+            last = str(2 * TP_CLI_STEPS)
+            sa = torch.load(tp_dir / "ckpt" / last / "state.pt", weights_only=True)
+            sb = torch.load(one_dir / "ckpt" / last / "state.pt", weights_only=True)
             num = sum(float((sa["transformer"][k].float() - v.float()).square().sum())
                       for k, v in sb["transformer"].items())
             den = sum(float(v.float().square().sum()) for v in sb["transformer"].values())
             rel = (num / den) ** 0.5
-            check(rel <= 2 ** -7, f"{label}: the transformer after 4 steps against the unbroken "
-                  f"run's: relative L2 {rel:.3e} <= 2^-7")
+            check(rel <= 2 ** -7, f"{label}: the transformer after {last} steps against the "
+                  f"unbroken run's: relative L2 {rel:.3e} <= 2^-7")
             r.update(t_total=ra, unbroken_t_total=rb, state_rel_l2=rel)
         except (OSError, KeyError, ValueError) as e:
             check(False, f"{label}: the runs' histories and checkpoints read: {e!r}")
@@ -4623,6 +4698,546 @@ def example_phase(dev, root, ae_dir=None, far_dir=None):
     return out
 
 
+# ---------------------------------------------------------------- float16
+# phases 58-59: the float16 compute dtype on the default route at full
+# width (#1-#6 on their FMA routes; their checks against the plain versions
+# and their times are the f16 cases of phases 3, 6, 7 and 10), and its
+# times beside bf16's and f32's
+
+F16_TOL, F16_BWD_TOL = 2 ** -7, 2 ** -8     # the f16 gates (bf16's: 2^-4, 2^-5)
+F16_NORMAL = 2 ** -14                       # f16's smallest normal magnitude
+
+
+def _routes_only_fma(what):
+    """Every launch of #1-#6 since the counters were zeroed took the FMA
+    route: no f16 call reached a bf16 (tensor-core) kernel."""
+    from vptr_tpu_torch.ops import fused_window_attention as tfw
+    from vptr_tpu_torch.ops.attention_core import attention_core
+
+    by = {}
+    for name, w in (("fused_attention_ln", tfw.fused_attention_ln),
+                    ("fused_attention", tfw.fused_attention),
+                    ("attention_core", attention_core)):
+        by[name] = dict(w.launches_by_route)
+        by[name + "_bwd"] = dict(w.bwd_launches_by_route)
+    tensor_core = sum(n for counts in by.values() for r, n in counts.items() if r != "fma")
+    check(tensor_core == 0, f"{what}: every launch of #1-#6 on the FMA route, none on a "
+          f"bf16 tensor-core route: {by}")
+    return by
+
+
+def redraw(*modules, seed: int):
+    """Every parameter of ``modules`` drawn anew from ``seed`` as the CPU
+    parity tests draw theirs (tests/_torch_port_util.py::randomize):
+    weights of rank 2 and up normal over sqrt(fan-in), norm scales 1 + 0.1
+    normal, every other parameter (biases, tables, queries) 0.1 normal;
+    the running statistics kept. Unlike the models' default initializers
+    (zero biases), no LayerNorm sees an all-zero input and no decoder
+    output is flat, so f16's range holds the FAR step's gradients."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in modules:
+            for name, p in module.named_parameters():
+                noise = torch.randn(p.shape, generator=g)
+                if p.dim() >= 2 and name.endswith("weight"):
+                    noise = noise / math.sqrt(p[0].numel())
+                elif name.endswith("weight"):
+                    noise = 1 + 0.1 * noise
+                else:
+                    noise = 0.1 * noise
+                p.copy_(noise.to(p.dtype))
+
+
+def same_weights(dst, src):
+    """``dst`` (the same build functions' modules in f32) given ``src``'s
+    parameters and buffers: the step in f32 from the f16 model's weights."""
+    for a, b in zip(dst, src):
+        a.load_state_dict(b.state_dict())
+    return dst
+
+
+def _grads(module):
+    """{name: gradient in f32} of the module's parameters that have one."""
+    return {n: p.grad.detach().float() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _rel_l2(got, want) -> float:
+    """|got - want| / |want| over want's leaves as one vector (f64 sums; a
+    leaf missing from got counts as 0)."""
+    num = sum(float(((got[n].double() if n in got else 0) - w.double()).square().sum())
+              for n, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def f16_default_init_step(kind, cfg, models, past, future):
+    """One train step of far_mnist (``kind`` "far") or nar_mnist ("nar") in
+    f16 from the default initializers (phases 4/5's and 8/9's seeds),
+    beside the same step in f32 on the same weights: ``models`` maps
+    "float16" and "float32" to (encoder, decoder, transformer). Each step
+    runs on a clone (the modules stay as built). f16 holds magnitudes from
+    2^-24 to 65,504 and the step scales no loss (the JAX package has no
+    loss scaling): the f16 gradient is finite and non-zero (the leaves that
+    are exactly 0 counted, with the f32 step's cotangent at the
+    transformer's output beside f16's normal range); or exactly 0 with the
+    f16 cotangent at the transformer's output exactly 0 and the f32 step's
+    there below 2^-14, f16's smallest normal (underflow: a near-flat random
+    decoder passes back cotangents in f16's subnormal range, which its f16
+    backward flushes to 0); or not finite where the f32 step's largest
+    gradient passes 65,504 (overflow). Any other reading fails. Returns the
+    readings."""
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import create_far_train_state, create_nar_train_state
+    from vptr_tpu_torch.train.steps import make_far_train_step, make_nar_train_step
+
+    create, make = ((create_far_train_state, make_far_train_step) if kind == "far"
+                    else (create_nar_train_state, make_nar_train_step))
+    out = {}
+    for name, (enc, dec, tr) in models.items():
+        opt = build_optimizer(cfg.optim, cfg.transformer.d_model)
+        state = create(enc, dec, tr, opt, seed=SEED + 3).clone()
+        seen = []
+
+        def watch(module, inputs, output):      # the cotangent of the transformer's output
+            output.register_hook(lambda g: seen.append(g.detach().float().abs().max().item()))
+
+        hook = state.transformer.register_forward_hook(watch)
+        state, m = make(enc, dec, tr, opt, cfg.loss)(state, past, future)
+        torch.cuda.synchronize()
+        hook.remove()
+        grads = _grads(state.transformer)
+        finite = {n: g for n, g in grads.items() if bool(torch.isfinite(g).all())}
+        out[name] = {
+            "T_total": float(m["T_total"]), "grad_norm": float(m["grad_norm"]),
+            "nonfinite_leaves": len(grads) - len(finite),
+            "zero_leaves": sum(not bool(g.any()) for g in finite.values()),
+            "leaves": len(grads),
+            "largest_grad": max((g.abs().max().item() for g in finite.values()), default=0.0),
+            "max_output_cotangent": max(seen, default=float("nan"))}
+        del opt, state, grads, finite
+    r16, r32 = out["float16"], out["float32"]
+    norm = r16["grad_norm"]
+    if norm == norm and 0 < norm < float("inf"):
+        verdict = (f"finite and non-zero, {r16['zero_leaves']} of {r16['leaves']} leaves "
+                   f"exactly 0 (the f32 step's cotangent at the transformer's output "
+                   f"{r32['max_output_cotangent']:.3e}, f16's {r16['max_output_cotangent']:.3e}"
+                   f"; 2^-14 = {F16_NORMAL:.3e})")
+        ok = True
+    elif norm == 0:
+        verdict = (f"exactly 0 (underflow: the f16 cotangent at the transformer's output "
+                   f"{r16['max_output_cotangent']:.3e}, the f32 step's "
+                   f"{r32['max_output_cotangent']:.3e} < 2^-14 = {F16_NORMAL:.3e})")
+        ok = r16["max_output_cotangent"] == 0 and r32["max_output_cotangent"] < F16_NORMAL
+    else:
+        verdict = (f"not finite in {r16['nonfinite_leaves']} of {r16['leaves']} leaves "
+                   f"(overflow: the f32 step's largest gradient {r32['largest_grad']:.3e} "
+                   f"> 65,504)")
+        ok = r32["largest_grad"] > 65504
+    check(ok, f"{kind}_mnist's f16 step from the default initializers: grad_norm "
+          f"{norm:.4e}, {verdict}; f32 on the same weights: grad_norm "
+          f"{r32['grad_norm']:.4e}, T_total {r32['T_total']:.6f} (f16 {r16['T_total']:.6f})")
+    out["verdict"] = verdict
+    return out
+
+
+def f16_step_gates(train_step, state, step32, models32, past, future, what):
+    """step_vs_plain's gates for an f16 stage-2 train step (kernels against
+    kernels="plain" from one cloned state: T_total within 2e-3, the
+    gradient norm within 5%), then both f16 steps held against the f32 step
+    (``step32``, kernels="plain") on ``models32`` (the f32 encoder, decoder
+    and transformer) given the state's weights, optimizer moments and
+    random stream: the kernels' gradient, as one vector, no farther from
+    the f32 step's than 1.5x the plain version's distance + 1e-3 relative
+    L2 (the rule tests/test_torch_port_f16.py holds the port's f16 step to
+    beside JAX's). Returns the distances."""
+    from vptr_tpu_torch.models.layers import use_kernels
+
+    a, b = step_vs_plain(train_step, state, past, future, what)
+    enc32, dec32, tr32 = models32
+    tr32.load_state_dict(state.transformer.state_dict())
+    ref = state.clone()
+    ref.enc, ref.dec, ref.transformer = enc32, dec32, tr32
+    use_kernels(tr32, "plain")
+    ref, m32 = step32(ref, past, future)
+    use_kernels(tr32, "cuda")
+    g32 = _grads(ref.transformer)
+    dk, dp = _rel_l2(_grads(a.transformer), g32), _rel_l2(_grads(b.transformer), g32)
+    check(dk <= 1.5 * dp + 1e-3, f"{what}: the gradient against the f32 step's on the same "
+          f"weights (grad_norm {float(m32['grad_norm']):.6e}): kernels {dk:.3e} <= 1.5 x "
+          f"plain's {dp:.3e} + 1e-3 relative L2")
+    del a, b, ref
+    return {"kernels_to_f32": dk, "plain_to_f32": dp, "f32_grad_norm": float(m32["grad_norm"])}
+
+
+def disc_cotangents(disc):
+    """Hooks on a discriminator that record, in the backward of D's own
+    loss (its first two passes of an AE/GAN step; the generator's term is
+    the third), the largest |cotangent| at each conv{n}'s output (n >= 1:
+    its norm's input), at each norm{n}'s output and at the logits
+    ("head"). Returns (the readings, the hooks' handles)."""
+    seen, passes = {}, [0]
+
+    def record(name, t):
+        def hook(g):
+            if passes[0] <= 2:
+                seen[name] = max(seen.get(name, 0.0), g.detach().float().abs().max().item())
+        if t.requires_grad:
+            t.register_hook(hook)
+
+    def on_norm(n):
+        def hook(module, inputs, output):
+            record(f"conv{n}", inputs[0])
+            record(f"norm{n}", output)
+        return hook
+
+    def on_disc(module, inputs, output):
+        passes[0] += 1
+        record("head", output)
+
+    handles = [getattr(disc, f"norm{n}").register_forward_hook(on_norm(n))
+               for n in range(1, disc.n_layers + 1)]
+    handles.append(disc.register_forward_hook(on_disc))
+    return seen, handles
+
+
+def f16_phases(dev, card, root):
+    """Phases 58-59: float16. 58: the f16 slice at full width (far_mnist's
+    far_rip predict and train step, nar_mnist's nar predict and train step
+    on phase 8/9's build, the seeded-init NAR first step through the
+    Trainer, one ae_mnist AE/GAN step from the default initializers beside
+    the f32 step on the same weights, ``cli train --set dtype=float16`` on
+    phase 23's autoencoder and ``cli predict`` from it, under ``root``); 59:
+    far_rip and the FAR and NAR steps in f16, bf16 and f32 in turns.
+    Returns ({"launches" | "train_step_launches": {kernel: count}} for
+    #1-#6's f16 rows, extra readings, a summary line)."""
+    import contextlib
+    import io
+    from contextlib import closing
+
+    from vptr_tpu_torch import cli
+    from vptr_tpu_torch.config import get_preset
+    from vptr_tpu_torch.data.loader import build_loader
+    from vptr_tpu_torch.eval.harness import make_predict_fn
+    from vptr_tpu_torch.models.autoencoder import build_autoencoder
+    from vptr_tpu_torch.models.discriminator import build_discriminator
+    from vptr_tpu_torch.models.transformer import build_transformer
+    from vptr_tpu_torch.train.optim import build_optimizer
+    from vptr_tpu_torch.train.state import (
+        create_ae_train_state,
+        create_far_train_state,
+        create_nar_train_state,
+    )
+    from vptr_tpu_torch.train.steps import (
+        make_ae_train_step,
+        make_far_train_step,
+        make_nar_train_step,
+    )
+    from vptr_tpu_torch.train.trainer import Trainer
+
+    f16, bf, f32 = torch.float16, torch.bfloat16, torch.float32
+    cfg = get_preset("far_mnist").override({"dtype": "float16"})
+    ncfg = get_preset("nar_mnist").override({"dtype": "float16"})
+    assert compute_dtype(cfg) == f16 == compute_dtype(ncfg)
+    tc, ntc = cfg.transformer, ncfg.transformer
+    c = tc.d_model
+    tt = PAST + FUTURE - 1
+    nbatch = ncfg.data.batch_size
+
+    phase("58. float16 at full width: far_mnist far_rip predict and train step, nar_mnist "
+          "nar predict and train step, the seeded-init NAR step, an ae_mnist AE/GAN step, "
+          "cli train --set dtype=float16 and cli predict")
+    extra = {}
+    enc, dec = build_autoencoder(cfg.ae, f16, dev, torch.Generator().manual_seed(SEED))
+    tr = build_transformer(tc, f16, dev, torch.Generator().manual_seed(SEED + 1))
+    frames = torch.rand(BATCH, PAST + FUTURE, 64, 64, 1,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    past, future = frames[:, :PAST], frames[:, PAST:]
+    predict = make_predict_fn(cfg, enc, dec, tr, "far_rip", FUTURE, dev)
+    want = LAYERS * FUTURE
+    _, far_pred = counted_predict(predict, (past,), {"fused_attention_ln": want,
+                                                     "attention_core": want},
+                                  (BATCH, FUTURE, 64, 64, 1), "f16 far_rip")
+    _routes_only_fma("the f16 far_rip predict")
+    far = make_predict_fn(cfg, enc, dec, tr, "far", FUTURE, dev)
+    predict_vs_plain(far, (past, future), tr, far(past, future), "f16 far mode")
+    tpast, tfuture = past.to(dev), future.to(dev)
+    e32, d32 = build_autoencoder(cfg.ae, f32, dev, torch.Generator().manual_seed(SEED))
+    far32 = same_weights((e32, d32, build_transformer(tc, f32, dev, torch.Generator()
+                                                      .manual_seed(SEED + 1))), (enc, dec, tr))
+    extra["far_default_init_step"] = f16_default_init_step(
+        "far", cfg, {"float16": (enc, dec, tr), "float32": far32}, tpast, tfuture)
+    # the FAR train-step gates (and phase 59's times) on weights drawn anew:
+    # from the default initializers f16 keeps 2 of the FAR step's 482
+    # gradient leaves (PERF.md §6)
+    redraw(enc, dec, tr, seed=SEED + 62)
+    same_weights(far32, (enc, dec, tr))
+    opt = build_optimizer(cfg.optim, c)
+    state = create_far_train_state(enc, dec, tr, opt, seed=SEED + 3)
+    far_step = make_far_train_step(enc, dec, tr, opt, cfg.loss)
+    state, far_launches = counted_step(
+        far_step, state, tpast, tfuture,
+        {k: LAYERS for k in ("fused_attention_ln", "attention_core", "fused_attention_ln_bwd",
+                             "attention_core_bwd")}, "f16 FAR train step")
+    _routes_only_fma("the f16 FAR step")
+    e32, d32 = build_autoencoder(cfg.ae, f32, dev, torch.Generator().manual_seed(SEED))
+    twin = same_weights((e32, d32, build_transformer(tc, f32, dev)), (enc, dec, tr))
+    opt32 = build_optimizer(cfg.optim, c)
+    create_far_train_state(*twin, opt32)        # frozen autoencoder, as the state's
+    extra["far_step_against_f32"] = f16_step_gates(
+        far_step, state, make_far_train_step(*twin, opt32, cfg.loss), twin, tpast, tfuture,
+        "f16 FAR step")
+    del twin
+    loss_falls(far_step, state, tpast, tfuture, "f16 FAR")
+    far_models = (state, far_step, predict, tpast, tfuture, past, far32)
+
+    nenc, ndec = build_autoencoder(ncfg.ae, f16, dev, torch.Generator().manual_seed(SEED))
+    ntr = build_transformer(ntc, f16, dev, torch.Generator().manual_seed(SEED + 1))
+    n_past, n_fut = ntc.num_past_frames, ntc.num_future_frames
+    nframes = torch.rand(nbatch, n_past + n_fut, 64, 64, 1,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    npast, nfuture = nframes[:, :n_past].to(dev), nframes[:, n_past:].to(dev)
+    npredict = make_predict_fn(ncfg, nenc, ndec, ntr, "nar", n_fut, dev)
+    enc_l, dec_l = ntc.num_encoder_layers, ntc.num_decoder_layers
+    pred, nar_pred = counted_predict(
+        npredict, (npast,), {"fused_attention_ln": enc_l, "fused_attention": dec_l,
+                             "attention_core": enc_l + 2 * dec_l},
+        (nbatch, n_fut, 64, 64, 1), "f16 nar predict")
+    _routes_only_fma("the f16 nar predict")
+    predict_vs_plain(npredict, (npast,), ntr, pred, "f16 nar predict")
+    e32, d32 = build_autoencoder(ncfg.ae, f32, dev, torch.Generator().manual_seed(SEED))
+    nar32 = same_weights((e32, d32, build_transformer(ntc, f32, dev, torch.Generator()
+                                                      .manual_seed(SEED + 1))),
+                         (nenc, ndec, ntr))
+    extra["nar_default_init_step"] = f16_default_init_step(
+        "nar", ncfg, {"float16": (nenc, ndec, ntr), "float32": nar32}, npast, nfuture)
+    # the NAR train-step gates on phase 8/9's build itself: its first step
+    # counted, the gates on the second (as phase 9; the f32 first step from
+    # this build is not a reference: its gradient norm is ~1e10, the NCE
+    # head's L2-normalised near-zero features, ROADMAP §3)
+    nopt = build_optimizer(ncfg.optim, c)
+    nstate = create_nar_train_state(nenc, ndec, ntr, nopt, seed=SEED + 3)
+    nar_step = make_nar_train_step(nenc, ndec, ntr, nopt, ncfg.loss)
+    nstate, nar_launches = counted_step(
+        nar_step, nstate, npast, nfuture,
+        {"fused_attention_ln": enc_l, "fused_attention_ln_bwd": enc_l,
+         "fused_attention": dec_l, "fused_attention_bwd": dec_l,
+         "attention_core": enc_l + 2 * dec_l, "attention_core_bwd": enc_l + 2 * dec_l},
+        "f16 NAR train step")
+    _routes_only_fma("the f16 NAR step")
+    nopt32 = build_optimizer(ncfg.optim, c)
+    create_nar_train_state(*nar32, nopt32)      # frozen autoencoder, as the state's
+    extra["nar_step_against_f32"] = f16_step_gates(
+        nar_step, nstate, make_nar_train_step(*nar32, nopt32, ncfg.loss), nar32, npast,
+        nfuture, "f16 NAR step")
+    loss_falls(nar_step, nstate, npast, nfuture, "f16 NAR")
+    nar_models = (nstate, nar_step, npast, nfuture, nar32)
+
+    # the seeded init's first step (ROADMAP §3 "To check" 3): reported, not gated
+    trainer = Trainer(ncfg.override({"mesh": {"data": 1, "model": 1}}), device=dev,
+                      write_outputs=False)
+    st = trainer.init_state()
+    with closing(iter(build_loader(ncfg.data, split="train", seed=ncfg.seed))) as batches:
+        bp, bfut = next(batches)
+    st, m = trainer.train_step(st, *trainer.put_batch(bp, bfut))
+    torch.cuda.synchronize()
+    grads = [(n, p.grad) for n, p in st.transformer.named_parameters() if p.grad is not None]
+    bad = [n for n, g in grads if not bool(torch.isfinite(g).all())]
+    seeded = {"nonfinite_leaves": len(bad), "leaves": len(grads), "first": bad[:4],
+              "T_total": float(m["T_total"]), "grad_norm": float(m["grad_norm"])}
+    del trainer, st, grads
+    print(f"  nar_mnist's seeded-init first step in f16 (Trainer init, the first synthetic "
+          f"batch, batch {nbatch}; not gated): {seeded}")
+    extra["nar_seeded_init_first_step"] = seeded
+
+    # ae_mnist: one AE/GAN step from the default initializers in f16 and in
+    # f32 on the same weights
+    acfg = get_preset("ae_mnist").override({"dtype": "float16"})
+    ab, ap, af = (acfg.data.batch_size, acfg.data.num_past_frames,
+                  acfg.data.num_future_frames)
+    aframes = moving_squares(ab, ap + af, 64, torch.Generator().manual_seed(SEED + 33))
+    apast, afuture = aframes[:, :ap].to(dev), aframes[:, ap:].to(dev)
+    a16 = build_autoencoder(acfg.ae, f16, dev, torch.Generator().manual_seed(SEED + 30)) + (
+        build_discriminator(acfg.disc, f16, dev, torch.Generator().manual_seed(SEED + 31)),)
+    a32 = same_weights(build_autoencoder(acfg.ae, f32, dev, torch.Generator().manual_seed(
+        SEED + 30)) + (build_discriminator(acfg.disc, f32, dev, torch.Generator().manual_seed(
+            SEED + 31)),), a16)
+    names = ("enc", "dec", "disc")
+
+    def ae_step_from(mods, what):
+        """One AE/GAN step from ``mods``' weights: (metrics, the state, the
+        step, the parameters it moved of each module, D's gradients, D's
+        cotangents, launches of the twelve)."""
+        g_opt, d_opt = build_optimizer(acfg.optim), build_optimizer(acfg.optim_d)
+        step = make_ae_train_step(*mods, g_opt, d_opt, acfg.loss)
+        st = create_ae_train_state(*mods, g_opt, d_opt, seed=SEED + 32)
+        held = (st.enc, st.dec, st.disc)
+        before = {n: [p.detach().clone() for p in mod.parameters()]
+                  for n, mod in zip(names, held)}
+        seen, hooks = disc_cotangents(st.disc)
+        zero_counters()
+        st, m = step(st, apast, afuture)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        moved = {n: sum(not torch.equal(p, q) for p, q in zip(mod.parameters(), before[n]))
+                 for n, mod in zip(names, held)}
+        print(f"  ae_mnist AE/GAN step ({what}; batch {ab} x {ap + af}): "
+              f"{ {k: round(float(v), 6) for k, v in m.items()} }; parameters moved {moved}; "
+              f"D's largest cotangents in its own backward "
+              f"{ {k: float(f'{v:.3e}') for k, v in seen.items()} }")
+        return m, st, step, moved, _grads(st.disc), seen, launch_counts(*TP_COUNTERS)
+
+    am, astate, ae_step, moved, g16, cot16, ae_counts = ae_step_from(
+        a16, "f16, the default initializers")
+    _, _, _, _, g32, cot32, _ = ae_step_from(a32, "f32 on the same weights")
+    total = {n: sum(1 for _ in mod.parameters()) for n, mod in zip(names, a16)}
+    check(all(bool(torch.isfinite(v)) for v in am.values()) and float(am["Dtotal"]) > 0,
+          f"f16 AE step: metrics finite, Dtotal {float(am['Dtotal']):.6f} > 0")
+    check(moved["enc"] == total["enc"] and moved["dec"] == total["dec"]
+          and sum(ae_counts.values()) == 0,
+          f"f16 AE step: every encoder and decoder parameter moved ({moved} of {total}); "
+          f"none of the twelve kernels launched (cuDNN / ATen)")
+    # D's loss is lam_gan 0.01 x a mean over 640 frames' patches: its
+    # cotangents start near f16's subnormal floor. A D leaf with an exactly-0
+    # f16 gradient passes only where the f32 step on the same weights gives
+    # every D leaf a non-zero gradient (D's gradient path whole) and, at its
+    # layer's output or a later one on the way to the logits, the f16
+    # cotangent is exactly 0 where the f32 one is non-zero and below 2^-14
+    # (underflow: a zero cotangent there zeroes every gradient before it)
+    f32_dead = [n for n, g in g32.items() if not (bool(g.any()) and bool(torch.isfinite(g).all()))]
+    check(len(g32) == total["disc"] and not f32_dead,
+          f"the f32 AE step on the same weights gives every one of D's {total['disc']} "
+          f"parameters a finite non-zero gradient ({len(g32)} with a gradient; 0 or not "
+          f"finite: {f32_dead})")
+    zero = [n for n, g in g16.items() if not bool(g.any())]
+    layers = (["conv0"] + [f"{k}{n}" for n in range(1, a16[2].n_layers + 1)
+                           for k in ("conv", "norm")] + ["head"])
+
+    def underflow(leaf):
+        """The first point from the leaf's layer to the logits where the f16
+        cotangent is exactly 0 and the f32 one non-zero below 2^-14."""
+        after = layers[layers.index(leaf.split(".")[0]):]
+        return next(((k, cot32[k]) for k in after if cot16.get(k) == 0
+                     and 0 < cot32.get(k, 0) < F16_NORMAL), None)
+
+    witness = {n: underflow(n) for n in zero}
+    unexplained = [n for n, w in witness.items() if w is None]
+    check(moved["disc"] + len(zero) == total["disc"] and not unexplained,
+          f"f16 AE step: D moved {moved['disc']} of {total['disc']} parameters; each of the "
+          f"other {len(zero)} has an exactly-0 f16 gradient behind a point where the f16 "
+          f"cotangent is 0 and the f32 one below 2^-14 = {F16_NORMAL:.3e} (underflow): "
+          f"{witness}; unexplained: {unexplained}")
+    extra["ae_disc"] = {"moved": moved["disc"], "of": total["disc"], "zero_f16_grad": witness}
+    fixed, losses = astate.clone(), []
+    for _ in range(TRAIN_STEPS):
+        fixed, mm = ae_step(fixed, apast, afuture)
+        losses.append(float(mm["AE_total"]))
+    print(f"  f16 AE_total over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 6) for x in losses]}")
+    check(_finite(losses) and losses[-1] < losses[0], f"f16 AE_total finite and falls over "
+          f"{TRAIN_STEPS} steps: {losses[0]:.6f} -> {losses[-1]:.6f}")
+    del a16, a32, astate, ae_step, fixed, g16, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f16_dir = root / "far_f16"
+    sets = ["--set", "dtype=float16", "--set", f"ae_ckpt={root / 'ae' / 'ckpt'}"]
+    cli.main(["train", "--preset", "far_mnist", "--ckpt-dir", str(f16_dir), *sets,
+              "--set", "epochs=1", "--set", "steps_per_epoch=2", "--set", "val_per_epochs=4"])
+    hist = _history(f16_dir)
+    check((f16_dir / "ckpt" / "2" / "state.pt").is_file() and _finite(hist["train"].values()),
+          f"cli train --preset far_mnist --set dtype=float16: 2 steps, ckpt/2/ written, "
+          f"losses finite: {hist['train']}")
+    config = json.loads((f16_dir / "ckpt" / "config.json").read_text())
+    check(config.get("dtype") == "float16", f"the run's config.json dtype {config.get('dtype')}")
+    zero_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["predict", "--preset", "far_mnist", "--ckpt-dir", str(f16_dir), *sets,
+                  "--mode", "far_rip", "--batches", "1", "--out", str(root / "f16_preds")])
+    torch.cuda.synchronize()
+    print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+    check_counts(launch_counts("fused_attention_ln", "attention_core"),
+                 {"fused_attention_ln": want, "attention_core": want},
+                 "cli predict far_rip in f16 (1 batch)")
+    _routes_only_fma("cli predict in f16")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("59. float16 timing: far_rip predict and the FAR and NAR train steps in f16, "
+          "bf16 and f32, in turns")
+    times = {}
+    state, far_step, predict, tpast, tfuture, past, far32 = far_models
+    paths = {"float16": (predict, far_step, state)}
+    for name, dt in (("bfloat16", bf), ("float32", f32)):
+        if dt == f32:
+            e, d, t = far32                         # phase 58's f16 weights
+        else:
+            e, d = build_autoencoder(cfg.ae, dt, dev, torch.Generator().manual_seed(SEED))
+            t = build_transformer(tc, dt, dev, torch.Generator().manual_seed(SEED + 1))
+            same_weights((e, d, t), far32)
+        o = build_optimizer(cfg.optim, c)
+        paths[name] = (make_predict_fn(cfg.override({"dtype": name}), e, d, t, "far_rip",
+                                       FUTURE, dev),
+                       make_far_train_step(e, d, t, o, cfg.loss),
+                       create_far_train_state(e, d, t, o, seed=SEED + 3))
+    order = list(paths)
+    for i in range(3):                          # the first round warms up
+        for name in (order if i % 2 == 0 else order[::-1]):
+            p, stp, st = paths[name]
+            ms = host_ms(lambda: p(past))
+            sms = host_ms(lambda: stp(st, tpast, tfuture))
+            if i:
+                times.setdefault(f"far_rip_{name}", []).append(ms)
+                times.setdefault(f"far_step_{name}", []).append(sms)
+    del paths, far_models, far32, enc, dec, tr, state, far_step, predict
+    gc.collect()
+    torch.cuda.empty_cache()
+    nstate, nar_step, npast, nfuture, nar32 = nar_models
+    paths = {"float16": (nar_step, nstate)}
+    for name, dt in (("bfloat16", bf), ("float32", f32)):
+        if dt == f32:
+            e, d, t = nar32                         # phase 58's f32 twin
+        else:
+            e, d = build_autoencoder(ncfg.ae, dt, dev, torch.Generator().manual_seed(SEED))
+            t = build_transformer(ntc, dt, dev, torch.Generator().manual_seed(SEED + 1))
+        o = build_optimizer(ncfg.optim, c)
+        paths[name] = (make_nar_train_step(e, d, t, o, ncfg.loss),
+                       create_nar_train_state(e, d, t, o, seed=SEED + 3))
+    for i in range(3):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            stp, st = paths[name]
+            ms = host_ms(lambda: stp(st, npast, nfuture))
+            if i:
+                times.setdefault(f"nar_step_{name}", []).append(ms)
+    del paths, nar_models, nar32, nenc, ndec, ntr, nstate, nar_step, npredict
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for what, frames_n in (("far_rip", BATCH * FUTURE), ("far_step", BATCH * tt),
+                           ("nar_step", nbatch * n_fut)):
+        print(f"  {card}: {what} " + ", ".join(
+            f"{d} {med[f'{what}_{d}']:.3f} ms ({frames_n / med[f'{what}_{d}'] * 1e3:.1f} "
+            f"frames/s; {[round(x, 3) for x in times[f'{what}_{d}']]})" for d in order))
+    extra["times_ms"] = med
+    counts = {
+        "launches": {"fused_attention_ln": far_pred["fused_attention_ln"],
+                     "attention_core": far_pred["attention_core"],
+                     "fused_attention_ln_bwd": far_launches["fused_attention_ln_bwd"],
+                     "attention_core_bwd": far_launches["attention_core_bwd"],
+                     "fused_attention": nar_pred["fused_attention"],
+                     "fused_attention_bwd": nar_launches["fused_attention_bwd"]},
+        "train_step_launches": {**{k: far_launches[k] for k in (
+            "fused_attention_ln", "attention_core", "fused_attention_ln_bwd",
+            "attention_core_bwd")}, **{k: nar_launches[k] for k in (
+                "fused_attention", "fused_attention_bwd")}}}
+    extra.update(far_step_launches=far_launches, nar_predict_launches=nar_pred,
+                 nar_step_launches=nar_launches)
+    summary = " ".join(f"{k} {v:.3f}" for k, v in med.items())
+    return counts, extra, summary
+
+
 # ---------------------------------------------------------------- nar_kth_128
 # phases 45-50: kernels #9-#12 on their tiled routes at the 16 x 16 latent,
 # nar_kth_128 at full width on three routes, and its entry points
@@ -4860,7 +5475,7 @@ def kth_route_phase(dev, number, label, flags, train, test):
     times the launches), 8 x 40 frames of 128 x 128 x 1 finite and in
     [-1, 1]; the train step's launches, the step against kernels="plain"
     (phase 5's gates; on the fused routes on the batch's first
-    KTH_PLAIN_ROWS clips) and 10 steps on one batch with a falling loss; the
+    KTH_PLAIN_ROWS clips) and TRAIN_STEPS steps on one batch with a falling loss; the
     predict's and the step's ms, frames/s and memory peak. Returns the
     readings."""
     from vptr_tpu_torch.config import get_preset
@@ -5194,8 +5809,9 @@ def main() -> int:
     # (528-long dot products, four chained products in the window kernel);
     # bf16 — one bf16 ulp of an output of magnitude <= 8 is 2^-5, and a
     # rounding that flips at an intermediate (xn, q/k/v, weights) moves
-    # the output by less than that
-    tol = {torch.float32: 1e-3, torch.bfloat16: 6.25e-2}
+    # the output by less than that; f16 (F16_TOL) — the same at f16's 2^-11
+    # ulp, 2^-7 (bf16's gate over 8)
+    tol = {torch.float32: 1e-3, torch.bfloat16: 6.25e-2, torch.float16: F16_TOL}
 
     # the training path: T = 19 teacher-forced frames, dropout 0.1
     tt = ctx - 1
@@ -5207,15 +5823,17 @@ def main() -> int:
     # gradients sum 12,160 rows); bf16 2^-5 — every gradient is rounded to
     # bf16 (2^-8), and an intermediate rounding (xn, q/k/v, the dropped
     # weights) that falls the other way moves the terms it feeds by one
-    # bf16 ulp; the weight gradients are cast to bf16 at the end
-    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+    # bf16 ulp; the weight gradients are cast to bf16 at the end; f16
+    # (F16_BWD_TOL) 2^-8, bf16's over 8
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5, torch.float16: F16_BWD_TOL}
     grad_names = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
                   "dbo", "dls", "dlb", "dbias")
 
     phase("3. kernels against their plain versions (card)")
     errs = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         name = str(dtype).replace("torch.", "")
+        zero_counters()
         ops = window_operands(dtype)
         e = max_err(fused_attention_ln(*ops, None, num_heads=heads),
                     fused_attention_ln_plain(*ops, None, num_heads=heads))
@@ -5230,12 +5848,12 @@ def main() -> int:
         check(e <= tol[dtype], f"fused_attention_ln_res {name} (scale, res) "
               f"max|err| {e:.3e} <= {tol[dtype]}")
         ops19 = window_operands(dtype, bw=64, l=19)
-        e = max_err(fused_attention_ln(*ops19, causal[:, :19, :19],
-                                       num_heads=heads),
-                    fused_attention_ln_plain(*ops19, causal[:, :19, :19],
-                                             num_heads=heads))
-        check(e <= tol[dtype], f"fused_attention_ln {name} L=19 causal bias "
-              f"max|err| {e:.3e} <= {tol[dtype]}")
+        for r in (0.0, rate):   # dropout: the mask index over 24 tokens (bf16: 32)
+            e = max_err(fused_attention_ln(*ops19, causal[:, :19, :19], kseed, heads, r),
+                        fused_attention_ln_plain(*ops19, causal[:, :19, :19], kseed, heads,
+                                                 r))
+            check(e <= tol[dtype], f"fused_attention_ln {name} L=19 causal bias dropout {r} "
+                  f"max|err| {e:.3e} <= {tol[dtype]}")
         q, k, v = core_operands(dtype)
         e = max_err(attention_core(q, k, v, causal),
                     attention_core_plain(q, k, v, causal))
@@ -5306,7 +5924,7 @@ def main() -> int:
                       f"fused_attention_ln backward {name} dropout {r} ({what}; "
                       f"{tfw.backward_route(tokens, c, dtype)} route) worst {n_worst} "
                       f"rel err {worst[n_worst]:.2e} <= {bwd_tol[dtype]:.2e}")
-                if dtype == torch.bfloat16 and r > 0 and not res:
+                if r > 0 and not res:
                     errs[("window_bwd", dtype)] = max(
                         max_err(a, b) for a, b in zip(got, want) if b is not None)
             gcore = core_operands(dtype, tq=tt, tk=tt)[0]
@@ -5355,10 +5973,13 @@ def main() -> int:
             errs[("core_bwd_strided", what, dtype)] = max(
                 max_err(a, b) for a, b in zip(got, want) if b is not None)
             del sq, sk, sv, sg, got, want
+        if dtype == torch.float16:
+            torch.cuda.synchronize()
+            _routes_only_fma("phase 3's f16 calls")
     torch.cuda.synchronize()
 
     phase("4. far_mnist full width, far_rip predict")
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(cfg)
     enc, dec = build_autoencoder(cfg.ae, dtype, dev,
                                  torch.Generator().manual_seed(SEED))
     tr = build_transformer(tc, dtype, dev, torch.Generator().manual_seed(SEED + 1))
@@ -5434,123 +6055,136 @@ def main() -> int:
           f"median {plain_step_ms:.3f} ms ({[round(t, 3) for t in plain_times]});"
           f" peak {step_peak:.3f} GiB with both states held")
 
+    def timing_rows(dt, launches=None, step_launches=None):
+        """#1-#4's rows of the kernels line in ``dt`` (bf16; f16 on the FMA
+        routes, named ``<name>_f16``): far_rip's #1/#2 and the FAR step's
+        #3/#4 (dropout 0.1, no window bias, the causal temporal mask) on the
+        path's operands, each timed beside its plain version in turns, the
+        library yardstick in ``dt`` (eager, and replayed from CUDA graphs)
+        and the bound (the same bytes in either 2-byte dtype, the products
+        at the dtype's peak). ``launches`` / ``step_launches``: the counts
+        of the predict and the train step in ``dt`` (None: filled in by the
+        caller). Returns (the rows, the strided operands of #2 and #4)."""
+        s = dt.itemsize
+        wops = window_operands(dt)
+        x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos = wops
+
+        def window_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
+            xn = F.layer_norm(x, (c,), ls.to(dt), lb.to(dt))
+            xqk = xn + pos.to(dt)
+            split = lambda z: z.view(x.shape[0], tokens, heads, hd).transpose(1, 2)
+            o = F.scaled_dot_product_attention(
+                split(F.linear(xqk, wq.t(), bq.to(dt))),
+                split(F.linear(xqk, wk.t(), bk.to(dt))),
+                split(F.linear(xn, wv.t(), bv.to(dt))))
+            return F.linear(o.transpose(1, 2).reshape(x.shape[0], tokens, c),
+                            wo.t(), bo.to(dt))
+
+        w_bytes = 2 * windows * tokens * c * s + 4 * c * c * s + (6 * c + tokens * c) * 4
+        w_flops = 8 * windows * tokens * c * c + 4 * windows * heads * tokens * tokens * hd
+        sq, sk, sv = strided_operands(dt)       # #2's operands as the path gives them
+        c_bytes = 4 * cols * heads * ctx * hd * s + ctx * ctx * 4
+        c_flops = 4 * cols * heads * ctx * ctx * hd
+
+        # the backward kernels at the training shapes (dropout 0.1, the
+        # path's operands: no window bias, the causal temporal mask)
+        rows = twindows * tokens
+        tops = window_operands(dt, bw=twindows)
+        gwin = randn(twindows, tokens, c).to(dev, dt)
+        # x, g read; dx written; four weights read, four dW written; vectors
+        wb_bytes = 3 * rows * c * s + 8 * c * c * s + (14 * c + tokens * c) * 4
+        # eleven R x C x C products (q, k, v recomputed, d(attn), four dW, three
+        # for d(xn)) plus the per-head attention backward
+        wb_flops = 22 * rows * c * c + 12 * twindows * tokens * tokens * c
+        # #4's operands as the FAR step's layer gives them: q, k, v and g views
+        # of (B, T, H*D) tensors
+        bq_, bk_, bv_ = strided_operands(dt, cols, tt, tt)
+        bg_ = strided_operands(dt, cols, tt, tt)[0]
+        cb_bytes = 7 * cols * heads * tt * hd * s + tt * tt * 4
+        cb_flops = 10 * cols * heads * tt * tt * hd
+
+        # the library yardsticks' backwards: dx and the four weight gradients;
+        # dq, dk, dv
+        lib_g = torch.randn(twindows, tokens, c, generator=g).to(dev, dt)
+        window_lib_bwd = grads_of(window_library, (tops[0], wq, wk, wv, wo), lib_g)
+
+        def core_library(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(dt))
+
+        core_lib_bwd = grads_of(core_library, (bq_, bk_, bv_), bg_)
+
+        # the yardsticks replayed from CUDA graphs (no host between launches)
+        graph = {"fused_attention_ln": graph_ms(window_library),
+                 "fused_attention_ln_bwd": graph_bwd_ms(window_library,
+                                                        (tops[0], wq, wk, wv, wo), lib_g),
+                 "attention_core": graph_ms(lambda: F.scaled_dot_product_attention(
+                     sq, sk, sv, attn_mask=causal.to(dt))),
+                 "attention_core_bwd": graph_bwd_ms(core_library, (bq_, bk_, bv_), bg_)}
+        print(f"  library yardsticks ({dt}) replayed from CUDA graphs: fused_attention_ln "
+              f"{graph['fused_attention_ln']:.4f} ms, attention_core "
+              f"{graph['attention_core']:.4f} ms")
+        suffix = "_f16" if dt == torch.float16 else ""
+        out = []
+        for name, src, replaces, fn, plain, lib, nbytes, flops, err in (
+            ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",
+             "vptr_tpu/ops/fused_window_attention.py:586",
+             lambda: fused_attention_ln(*wops, None, num_heads=heads),
+             lambda: fused_attention_ln_plain(*wops, None, num_heads=heads),
+             window_library, w_bytes, w_flops, errs[("window", dt)]),
+            ("attention_core", "vptr_tpu_torch/csrc/attention_core.cu",
+             "vptr_tpu/ops/attention_core.py:188",
+             lambda: attention_core(sq, sk, sv, causal),
+             lambda: attention_core_plain(sq, sk, sv, causal),
+             lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(dt)),
+             c_bytes, c_flops, errs[("core_strided", "far_rip", dt)]),
+            ("fused_attention_ln_bwd",
+             "vptr_tpu_torch/csrc/fused_window_attention_ln_bwd.cu",
+             "vptr_tpu/ops/fused_window_attention.py:769",
+             lambda: tfw.fused_attention_ln_backward(*tops, None, kseed, gwin, heads,
+                                                     rate),
+             lambda: fused_attention_ln_backward_plain(*tops, None, kseed, gwin,
+                                                       heads, rate),
+             window_lib_bwd, wb_bytes, wb_flops, errs[("window_bwd", dt)]),
+            ("attention_core_bwd", "vptr_tpu_torch/csrc/attention_core.cu",
+             "vptr_tpu/ops/attention_core.py:317",
+             lambda: tac.attention_core_backward(bq_, bk_, bv_, tcausal, kseed,
+                                                 bg_, rate, need_dbias=False),
+             lambda: attention_core_backward_plain(bq_, bk_, bv_, tcausal, kseed,
+                                                   bg_, rate, False),
+             core_lib_bwd, cb_bytes, cb_flops, errs[("core_bwd_strided", "FAR step", dt)]),
+        ):
+            before = (attention_core.launches, fused_attention_ln.launches,
+                      attention_core.bwd_launches, fused_attention_ln.bwd_launches)
+            # plain, kernel, kernel, plain: compare within one call, in turns
+            p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fn), cuda_ms(fn), cuda_ms(plain))
+            (attention_core.launches, fused_attention_ln.launches,
+             attention_core.bwd_launches, fused_attention_ln.bwd_launches) = before
+            lib_ms = cuda_ms(lib)
+            b_ms, b_by = bound(nbytes, flops, dt)
+            row = {"name": name + suffix, "route": "cuda", "source": src,
+                   "replaces": replaces, "dtype": str(dt).replace("torch.", ""),
+                   "launches": launches[name] if launches else None,
+                   "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                   "library_graph_ms": graph[name],
+                   "train_step_launches": step_launches[name] if step_launches else None}
+            out.append(row)
+            print(f"  {card}: {name} {dt}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.4f}/{p2:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+        return out, (sq, sk, sv), (bq_, bk_, bv_, bg_)
+
     bf = torch.bfloat16
-    wops = window_operands(bf)
-    x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos = wops
-    s = 2   # bytes per bf16 element
-
-    def window_library(x=x, wq=wq, wk=wk, wv=wv, wo=wo):
-        xn = F.layer_norm(x, (c,), ls.to(bf), lb.to(bf))
-        xqk = xn + pos.to(bf)
-        split = lambda z: z.view(x.shape[0], tokens, heads, hd).transpose(1, 2)
-        o = F.scaled_dot_product_attention(
-            split(F.linear(xqk, wq.t(), bq.to(bf))),
-            split(F.linear(xqk, wk.t(), bk.to(bf))),
-            split(F.linear(xn, wv.t(), bv.to(bf))))
-        return F.linear(o.transpose(1, 2).reshape(x.shape[0], tokens, c),
-                        wo.t(), bo.to(bf))
-
-    w_bytes = 2 * windows * tokens * c * s + 4 * c * c * s + (6 * c + tokens * c) * 4
-    w_flops = 8 * windows * tokens * c * c + 4 * windows * heads * tokens * tokens * hd
+    far_launches = {**launches, **{k: train_launches[k] for k in ("fused_attention_ln_bwd",
+                                                                  "attention_core_bwd")}}
+    rows_out, (sq, sk, sv), (bq_, bk_, bv_, bg_) = timing_rows(bf, far_launches, train_launches)
+    f16_far_rows, _, _ = timing_rows(torch.float16)
+    rows_out += f16_far_rows
+    tcausal = causal[:, :tt, :tt]
     q, k, v = core_operands(bf)
-    sq, sk, sv = strided_operands(bf)       # #2's operands as the path gives them
-    c_bytes = 4 * cols * heads * ctx * hd * s + ctx * ctx * 4
-    c_flops = 4 * cols * heads * ctx * ctx * hd
-
-    # the backward kernels at the training shapes (bf16, dropout 0.1, the
-    # path's operands: no window bias, the causal temporal mask)
-    rows = twindows * tokens
-    tops = window_operands(bf, bw=twindows)
-    gwin = randn(twindows, tokens, c).to(dev, bf)
-    # x, g read; dx written; four weights read, four dW written; vectors
-    wb_bytes = 3 * rows * c * s + 8 * c * c * s + (14 * c + tokens * c) * 4
-    # eleven R x C x C products (q, k, v recomputed, d(attn), four dW, three
-    # for d(xn)) plus the per-head attention backward
-    wb_flops = 22 * rows * c * c + 12 * twindows * tokens * tokens * c
     tq_, tk_, tv_ = core_operands(bf, tq=tt, tk=tt)
     gcore = core_operands(bf, tq=tt, tk=tt)[0]
-    tcausal = causal[:, :tt, :tt]
-    # #4's operands as the FAR step's layer gives them: q, k, v and g views
-    # of (B, T, H*D) tensors
-    bq_, bk_, bv_ = strided_operands(bf, cols, tt, tt)
-    bg_ = strided_operands(bf, cols, tt, tt)[0]
-    cb_bytes = 7 * cols * heads * tt * hd * s + tt * tt * 4
-    cb_flops = 10 * cols * heads * tt * tt * hd
-
-    # the library yardsticks' backwards: dx and the four weight gradients;
-    # dq, dk, dv
-    lib_g = torch.randn(twindows, tokens, c, generator=g).to(dev, bf)
-    window_lib_bwd = grads_of(window_library, (tops[0], wq, wk, wv, wo), lib_g)
-    def core_library(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=tcausal.to(bf))
-
-    core_lib_bwd = grads_of(core_library, (bq_, bk_, bv_), bg_)
-
-    # #1's and #3's yardsticks replayed from CUDA graphs (no host between
-    # launches)
-    graph = {"fused_attention_ln": graph_ms(window_library),
-             "fused_attention_ln_bwd": graph_bwd_ms(window_library, (tops[0], wq, wk, wv, wo),
-                                                    lib_g),
-             "attention_core": graph_ms(
-                 lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(bf))),
-             "attention_core_bwd": graph_bwd_ms(core_library, (bq_, bk_, bv_), bg_)}
-    print(f"  library yardsticks replayed from CUDA graphs: fused_attention_ln "
-          f"{graph['fused_attention_ln']:.4f} ms, attention_core {graph['attention_core']:.4f} "
-          f"ms")
-    rows_out = []
-    for name, src, replaces, fn, plain, lib, nbytes, flops, err, n_launch in (
-        ("fused_attention_ln", "vptr_tpu_torch/csrc/fused_window_attention_ln.cu",
-         "vptr_tpu/ops/fused_window_attention.py:586",
-         lambda: fused_attention_ln(*wops, None, num_heads=heads),
-         lambda: fused_attention_ln_plain(*wops, None, num_heads=heads),
-         window_library, w_bytes, w_flops, errs[("window", bf)],
-         launches["fused_attention_ln"]),
-        ("attention_core", "vptr_tpu_torch/csrc/attention_core.cu",
-         "vptr_tpu/ops/attention_core.py:188",
-         lambda: attention_core(sq, sk, sv, causal),
-         lambda: attention_core_plain(sq, sk, sv, causal),
-         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=causal.to(bf)),
-         c_bytes, c_flops, errs[("core_strided", "far_rip", bf)],
-         launches["attention_core"]),
-        ("fused_attention_ln_bwd",
-         "vptr_tpu_torch/csrc/fused_window_attention_ln_bwd.cu",
-         "vptr_tpu/ops/fused_window_attention.py:769",
-         lambda: tfw.fused_attention_ln_backward(*tops, None, kseed, gwin, heads,
-                                                 rate),
-         lambda: fused_attention_ln_backward_plain(*tops, None, kseed, gwin,
-                                                   heads, rate),
-         window_lib_bwd,
-         wb_bytes, wb_flops, errs[("window_bwd", bf)],
-         train_launches["fused_attention_ln_bwd"]),
-        ("attention_core_bwd", "vptr_tpu_torch/csrc/attention_core.cu",
-         "vptr_tpu/ops/attention_core.py:317",
-         lambda: tac.attention_core_backward(bq_, bk_, bv_, tcausal, kseed,
-                                             bg_, rate, need_dbias=False),
-         lambda: attention_core_backward_plain(bq_, bk_, bv_, tcausal, kseed,
-                                               bg_, rate, False),
-         core_lib_bwd,
-         cb_bytes, cb_flops, errs[("core_bwd_strided", "FAR step", bf)],
-         train_launches["attention_core_bwd"]),
-    ):
-        before = (attention_core.launches, fused_attention_ln.launches,
-                  attention_core.bwd_launches, fused_attention_ln.bwd_launches)
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fn), cuda_ms(fn), cuda_ms(plain))
-        (attention_core.launches, fused_attention_ln.launches,
-         attention_core.bwd_launches, fused_attention_ln.bwd_launches) = before
-        lib_ms = cuda_ms(lib)
-        b_ms, b_by = bound(nbytes, flops)
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": n_launch,
-               "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "train_step_launches": train_launches[name]}
-        if name in graph:
-            row["library_graph_ms"] = graph[name]
-        rows_out.append(row)
-        print(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f}"
-              f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    s = 2   # bytes per bf16 element
 
     # #2 also on contiguous operands (the layout of its earlier readings)
     # and at nar_mnist's shape (1024 x 8 x 10, no bias, the layer's layout);
@@ -5605,9 +6239,8 @@ def main() -> int:
           f"{tuple(nops[0].shape)}: {bwd_row['nar_shape']}")
 
     # the FAR path's modules and operands go before the NAR phases
-    del enc, dec, tr, predict, far, wops, tops, q, k, v, window_lib_bwd, core_lib_bwd
-    del sq, sk, sv, nq, nk, nv
-    del gwin, gcore, tq_, tk_, tv_, bq_, bk_, bv_, bg_, nops
+    del enc, dec, tr, predict, far, q, k, v, sq, sk, sv, nq, nk, nv
+    del gcore, tq_, tk_, tv_, bq_, bk_, bv_, bg_, nops
     torch.cuda.empty_cache()
     nar_rows, nar_extra, nar_summary = nar_phases(dev)
     rows_out += nar_rows
@@ -5627,8 +6260,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ae_summary, ae_extra = ae_gan_phases(dev)
     torch.cuda.empty_cache()
-    # phases 23-26's directory, kept for phase 57's examples (removed after
-    # them, or at exit)
+    # phases 23-26's directory, kept for phase 57's examples and phase 58's
+    # f16 cli run (removed after them, or at exit)
     entry_dir = tempfile.TemporaryDirectory(prefix="vptr_smoke_")
     entry_root = Path(entry_dir.name)
     cli_summary, cli_extra = entry_point_phases(dev, step_ms, ae_extra["ae_train_step_ms"],
@@ -5729,10 +6362,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         example_extra = example_phase(dev, entry_root, entry_root / "ae", entry_root / "far")
+        gc.collect()
+        torch.cuda.empty_cache()
+        f16_counts, f16_extra, f16_summary = f16_phases(dev, card, entry_root)
+        for row in rows_out:      # #1-#6's f16 rows: launches in phase 58's f16 runs
+            if row["name"].endswith("_f16"):
+                for key, counts in f16_counts.items():
+                    row[key] = counts[row["name"][:-4]]
     finally:
         entry_dir.cleanup()
 
-    phase("58. result")
+    phase("60. result")
     print(f"  predict_ms {pred_ms:.3f} plain_predict_ms {plain_pred_ms:.3f} "
           f"train_step_ms {step_ms:.3f} plain_train_step_ms {plain_step_ms:.3f} "
           f"train_frames_per_s {frames_per_step / step_ms * 1e3:.1f} "
@@ -5761,6 +6401,8 @@ def main() -> int:
     print(f"  the examples: {json.dumps(example_extra)}")
     print(f"  {kth_summary}")
     print(f"  {KTH}: {json.dumps(kth_extra)}")
+    print(f"  float16: {f16_summary}")
+    print(f"  float16: {json.dumps(f16_extra)}")
     print(f"  the whole run: {time.perf_counter() - run_start:.1f} s")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",

@@ -37,7 +37,7 @@ def _largest(pairs, k=3):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "float16"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--jax", action="store_true")
@@ -98,7 +98,8 @@ def main() -> int:
     from vptr_tpu.train.steps import make_nar_train_step
 
     jc = japply_sets(jget_preset("nar_mnist").override(over), args.set)
-    dt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[args.dtype]
+    dt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+          "float16": jnp.float16}[args.dtype]
     # an optax transformation whose state becomes the gradients it is given
     probe = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p),
@@ -121,9 +122,9 @@ def main() -> int:
         if k in ("T_MSE", "T_GDL", "T_bpc", "T_total"))
           + f", global norm (f32) {float(optax.global_norm(jnew.t_opt)):.6g}, summed in f64 "
           f"{f64:.6g}")
-    print(f"  non-finite gradient leaves: " + str(
-        [jax.tree_util.keystr(p) for p, x in leaves if not np.isfinite(np.asarray(
-            x, np.float32)).all()][:6]))
+    jbad = [jax.tree_util.keystr(p) for p, x in leaves
+            if not np.isfinite(np.asarray(x, np.float32)).all()]
+    print(f"  non-finite gradient leaves {len(jbad)}: {jbad[:6]}")
     print(f"  largest |grad|: " + ", ".join(f"{v:.4g} {n}" for v, n in _largest(
         (float(np.abs(np.asarray(x, np.float64)).max()), jax.tree_util.keystr(p))
         for p, x in leaves)))

@@ -1383,3 +1383,101 @@ def test_window_forward_routes(cuda):
         assert tfw.kernel_route(tokens, 528, torch.float32) == "fma"
     assert tfw.kernel_route(16, 64, torch.bfloat16) == "wgmma"
     assert tfw.kernel_route(16, 100, torch.bfloat16) == "fma"
+
+
+# ---- float16: #1-#6 on their FMA routes (no f16 tensor-core route)
+
+# f16 gates: the forward 2^-7 absolute (two f16 ulps of outputs of magnitude
+# 4 to 8; bf16's is 2^-4), the backward 2^-8 relative to the larger of 1 and
+# the largest gradient (bf16's 2^-5): f16 keeps 10 mantissa bits to bf16's 7
+F16_TOL, F16_BWD_TOL = 2 ** -7, 2 ** -8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (16, 16), (17, 17), (32, 32), (19, 19), (10, 2)])
+def test_attention_core_f16_fma_route_matches_plain(cuda, tq, tk, strided, rate):
+    """#2 and #4 in f16 at the FMA route's edge token counts (1, 16, 17,
+    32), the FAR step's 19 and a rectangular 10 x 2, head width 66, q, k, v
+    and g contiguous or in the layer's strided layout (the wrapper copies
+    for the FMA kernels and writes back in each input's layout)."""
+    g = torch.Generator().manual_seed(70)
+    q, k, v, dout = (_heads(37, 8, t, 66, strided, g, cuda, torch.float16)
+                     for t in (tq, tk, tk, tq))
+    bias = _core_bias("causal" if tq == tk else "heads", 8, tq, tk, g, cuda)
+    seed = _seed(cuda)
+    assert tac.kernel_route(torch.float16, 8, tq, tk, 66) == "fma"
+    assert tac.backward_route(torch.float16, 8, tq, tk, 66) == "fma"
+    fwd, bwd = (dict(d) for d in (tac.attention_core.launches_by_route,
+                                  tac.attention_core.bwd_launches_by_route))
+    got = tac.attention_core(q, k, v, bias, seed, rate)
+    want = tac.attention_core_plain(q, k, v, bias, seed, rate)
+    torch.cuda.synchronize()
+    assert tac.attention_core.launches_by_route["fma"] == fwd["fma"] + 1
+    assert got.dtype == torch.float16 and got.stride() == q.stride()
+    assert (got.float() - want.float()).abs().max().item() <= F16_TOL
+    _check_core_backward(q, k, v, bias, seed, dout, rate, F16_BWD_TOL)
+    assert tac.attention_core.bwd_launches_by_route["fma"] == bwd["fma"] + 1
+    assert tac.attention_core.launches_by_route["mma"] == fwd["mma"]
+    assert tac.attention_core.bwd_launches_by_route["mma"] == bwd["mma"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tokens", [1, 16, 17, 32])
+@pytest.mark.parametrize("kind", ["ln", "res", "two"])
+def test_window_kernels_f16_fma_route_match_plain(cuda, kind, tokens, rate):
+    """#1/#3 ("ln", "res": the residual and the DropPath scale) and #5/#6
+    ("two") in f16 at 8 heads of 66 (C 528) and the FMA route's edge token
+    counts, forward and backward against their plain versions."""
+    g = torch.Generator().manual_seed(71)
+    bw, c = 37, 528
+    args = _forward_case(g, kind, bw, tokens, c, 8, torch.float16, cuda)
+    assert tfw.kernel_route(tokens, c, torch.float16) == "fma"
+    assert tfw.backward_route(tokens, c, torch.float16, kind != "two") == "fma"
+    scale = (torch.rand(bw, generator=g) * 2).to(cuda) if kind == "res" else None
+    seed = _seed(cuda)
+    counter = tfw.fused_attention if kind == "two" else tfw.fused_attention_ln
+    before = (counter.launches, counter.bwd_launches)
+    got = _window_forward(kind, args, seed, 8, rate, scale)
+    want = _window_forward(kind, args, seed, 8, rate, scale, plain=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16
+    assert (got.float() - want.float()).abs().max().item() <= F16_TOL
+    dout = torch.randn(bw, tokens, c, generator=g).to(cuda, torch.float16)
+    grads = _window_backward(kind, args, seed, dout, rate, scale)
+    plain = _window_backward(kind, args, seed, dout, rate, scale, plain=True)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for i, (a, b) in enumerate(zip(grads, plain)):
+        if b is None:
+            continue
+        assert a.dtype == b.dtype and _rel_err(a, b) <= F16_BWD_TOL, i
+
+
+@pytest.mark.gpu
+def test_f16_refused_before_any_launch(cuda):
+    """#2/#4's long route and #7-#12 have no f16 kernel: a CUDA f16 tensor
+    raises ValueError naming float16 before any launch; the library's
+    backward route for f16 is the FMA route short and none long."""
+    from vptr_tpu_torch.ops import fused_ffn as tff
+
+    q = torch.zeros(2, 8, 40, 66, dtype=torch.float16, device=cuda)
+    before = (tac.attention_core.launches, tac.attention_core.bwd_launches)
+    with pytest.raises(ValueError, match="float16"):
+        tac.attention_core(q, q, q)
+    with pytest.raises(ValueError, match="float16"):
+        tac.attention_core_backward(q, q, q, None, 0, q)
+    assert (tac.attention_core.launches, tac.attention_core.bwd_launches) == before
+    x = torch.zeros(64, 528, dtype=torch.float16, device=cuda)
+    w1 = torch.zeros(528, 2112, dtype=torch.float16, device=cuda)
+    w2 = torch.zeros(2112, 528, dtype=torch.float16, device=cuda)
+    vec = lambda n: torch.zeros(n, device=cuda)
+    n_ffn = tff.fused_ffn.launches
+    with pytest.raises(ValueError, match="float16"):
+        tff.fused_ffn(x, w1, vec(2112), w2, vec(528), vec(528), vec(528))
+    assert tff.fused_ffn.launches == n_ffn
+    lib = tac._lib()
+    assert lib.vptr_attention_core_bwd_route(8, 19, 19, 66, tac._DTYPES[torch.float16]) == 0
+    assert lib.vptr_attention_core_bwd_route(8, 40, 40, 66, tac._DTYPES[torch.float16]) == -1

@@ -2,9 +2,9 @@
 //     w   = softmax(q k^T * D^-1/2 + bias)            (softmax in f32)
 //     out = dropout(w) v
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), bias: none, (1, Tq, Tk) or
-// (H, Tq, Tk) f32, out: (B, H, Tq, D); T = float or bf16; Tq, Tk <= 32 and
-// D <= 128 on the short routes (FMA, mma), Tq, Tk <= 160 and D <= 80 on the
-// long route (TSLMA's space-time windows, at the end of this file). Dropout
+// (H, Tq, Tk) f32, out: (B, H, Tq, D); T = float, bf16 or f16; Tq, Tk <= 32
+// and D <= 128 on the short routes (FMA, mma), Tq, Tk <= 160 and D <= 80 on
+// the long route (TSLMA's space-time windows, at the end of this file). Dropout
 // is the counter hash of hash_dropout.cuh.
 //
 // Replaces the TPU kernels vptr_tpu/ops/attention_core.py::_core_forward
@@ -33,9 +33,9 @@
 //   quad of lanes, the hash dropout, the weights rounded into P's A
 //   fragments, P v on mma.sync, the output written over the head's q; the
 //   block stores the slice whole in 16-byte vectors, in q's layout.
-// * FMA (f32, and bf16 shapes mma does not take; contiguous operands):
-//   attention_core_kernel, one block per (b, h) staging its rows in shared
-//   memory as f32 (read as 16-byte vectors where the (b, h) slice allows
+// * FMA (f32, f16, and bf16 shapes mma does not take; contiguous
+//   operands): attention_core_kernel, one block per (b, h) staging its
+//   rows in shared memory as f32 (read as 16-byte vectors where the (b, h) slice allows
 //   it), one warp per query row holding one key column per lane (Tk <=
 //   32), the q and k rows read as float4 (row stride padded so those reads
 //   are free of bank conflicts), the row max and sum by shuffles, and the
@@ -64,10 +64,10 @@
 //   loads along the rows. Each output is written over an input its head
 //   has done reading (dv over v, dq over g, dk over k) and the block
 //   stores the three slices whole, each in its input's layout (dq in q's).
-// * FMA (f32, and bf16 shapes mma does not take; contiguous operands):
-//   attention_core_bwd_kernel keeps the dropped weights and the logit
-//   gradients (Tq x Tk f32) in shared memory, then forms dq, dk and dv one
-//   output element per thread.
+// * FMA (f32, f16, and bf16 shapes mma does not take; contiguous
+//   operands): attention_core_bwd_kernel keeps the dropped weights and the
+//   logit gradients (Tq x Tk f32) in shared memory, then forms dq, dk and
+//   dv one output element per thread.
 //
 // The bias gradient sums over the batch: each (b, h) writes its Tq x Tk
 // logit gradients and a second kernel sums them over b (and over heads
@@ -91,7 +91,8 @@
 // softmax statistics, then a pass over key strips for dk and dv, w and dS
 // formed again from the statistics); f32 on the FMA units:
 // attention_core_long_fma_kernel and attention_core_long_bwd_fma_kernel,
-// the same two passes a warp a row.
+// the same two passes a warp a row. No f16 kernel: the long route refuses
+// dtype 2 (cudaErrorInvalidValue; ops/attention_core.py raises first).
 //
 // Rounding points follow the plain versions in attention_core.py: q * scale
 // (the scale in T) is rounded to T, logits, softmax and dropout are f32,
@@ -101,6 +102,7 @@
 // products of the f32 dS and w_drop as two bf16 terms each, f32 sums).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -116,11 +118,16 @@ constexpr int kWarps = 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+// f16: round to nearest even, as torch's and XLA's f32 -> f16 casts
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // value rounded to T and widened back to f32
@@ -1506,6 +1513,7 @@ attention_core_long_fma_kernel(const LongArgs a) {
 
 int launch_long(const LongArgs& a, int dtype, cudaStream_t stream) {
   using Kernel = void (*)(const LongArgs);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;   // no f16 long kernel
   if (dtype == 0) {
     const int tiles = (a.tq + kLongFmaRows - 1) / kLongFmaRows;
     const int smem = static_cast<int>(sizeof(float) * (kLongFmaRows + 2 * a.tk) *
@@ -1948,6 +1956,7 @@ int launch_long_bwd(const LongArgs& a, int dtype, void* dbias, cudaStream_t stre
       {&attention_core_long_bwd_kernel<2, false>, &attention_core_long_bwd_kernel<2, true>},
       {&attention_core_long_bwd_kernel<kLongTokens / 16, false>,
        &attention_core_long_bwd_kernel<kLongTokens / 16, true>}};
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;   // no f16 long kernel
   const Kernel kernel =
       dtype == 0 ? &attention_core_long_bwd_fma_kernel : kernels[a.tk > 32][a.depth % 2 == 0];
   const int smem = static_cast<int>(long_bwd_bytes(a.tq, a.tk, a.depth, dtype));
@@ -1965,8 +1974,10 @@ bool short_takes(int tq, int tk, int depth) {
   return tq <= kMaxTokens && tk <= kMaxTokens && depth <= kMaxDepth;
 }
 
-// A shape or argument no route takes; route: 0 FMA, 1 mma, 2 long. Each of
-// q, k, v (and g) in layout 0 or 1; layout 1 on the mma and long routes only.
+// A shape or argument no route takes; route: 0 FMA, 1 mma, 2 long; dtype 0
+// f32, 1 bf16, 2 f16 (the FMA route only: the mma and long routes have no
+// f16 kernel). Each of q, k, v (and g) in layout 0 or 1; layout 1 on the mma
+// and long routes only.
 bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias,
                int bias_heads, int dtype, const void* seed, float rate, int route,
                const int* layouts, int n_layouts) {
@@ -1975,7 +1986,8 @@ bool bad_shape(int batch, int heads, int tq, int tk, int depth, const void* bias
     if (layouts[i] != 0 && (layouts[i] != 1 || route == 0)) return true;
   return batch < 1 || heads < 1 || tq < 1 || tk < 1 || depth < 1 ||
          !(route == 2 ? long_takes(tq, tk, depth) : short_takes(tq, tk, depth)) ||
-         (bias && bias_heads != 1 && bias_heads != heads) || dtype < 0 || dtype > 1 ||
+         (bias && bias_heads != 1 && bias_heads != heads) || dtype < 0 || dtype > 2 ||
+         (dtype == 2 && route != 0) ||
          (rate > 0.f && !seed) || rate >= 1.f;
 }
 
@@ -1994,11 +2006,12 @@ const char* vptr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. seed: device int32 (may be null when
-// rate == 0); keep_div = (float)(1 - rate). route: 0 = the FMA kernel (q,
-// k, v and out contiguous), 1 = the mma kernel (bf16; each of q, k, v in
-// layout 0 or 1 of Slice, out in q's), 2 = the long route (Tq, Tk <= 160,
-// D <= 80; bf16 on mma.sync, f32 on the FMA units; layouts as route 1).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (route 0 only). seed:
+// device int32 (may be null when rate == 0); keep_div = (float)(1 - rate).
+// route: 0 = the FMA kernel (q, k, v and out contiguous), 1 = the mma
+// kernel (bf16; each of q, k, v in layout 0 or 1 of Slice, out in q's), 2
+// = the long route (Tq, Tk <= 160, D <= 80; bf16 on mma.sync, f32 on the
+// FMA units; layouts as route 1).
 // mask_heads, head0: a call over heads h0 .. h0 + heads - 1 of mask_heads
 // (tensor parallelism) draws their dropout by the global head; 0, 0 for
 // the call's own heads. Returns a cudaError_t (0 = launched); a route that
@@ -2037,11 +2050,18 @@ int vptr_attention_core(const void* q, const void* k, const void* v, const void*
                     scale, drop};
     return launch_mma(a, s);
   }
-  if (dtype == 0)
-    return launch<float>(q, k, v, bias, out, batch, heads, tq, tk, depth, bias_heads,
-                         scale, drop, s);
-  return launch<__nv_bfloat16>(q, k, v, bias, out, batch, heads, tq, tk, depth,
-                               bias_heads, scale, drop, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(q, k, v, bias, out, batch, heads, tq, tk, depth, bias_heads,
+                           scale, drop, s);
+    case 1:
+      return launch<__nv_bfloat16>(q, k, v, bias, out, batch, heads, tq, tk, depth,
+                                   bias_heads, scale, drop, s);
+    case 2:
+      return launch<__half>(q, k, v, bias, out, batch, heads, tq, tk, depth, bias_heads,
+                            scale, drop, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Backward: dq, dk, dv (T) and, when dl and dbias are given (dl: a
@@ -2094,19 +2114,27 @@ int vptr_attention_core_bwd(const void* q, const void* k, const void* v, const v
                        scale, dscale, drop};
     return launch_bwd_mma(a, dbias, s);
   }
-  if (dtype == 0)
-    return launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads, tq,
-                             tk, depth, bias_heads, scale, dscale, drop, s);
-  return launch_bwd<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads,
-                                   tq, tk, depth, bias_heads, scale, dscale, drop, s);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads, tq,
+                               tk, depth, bias_heads, scale, dscale, drop, s);
+    case 1:
+      return launch_bwd<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch,
+                                       heads, tq, tk, depth, bias_heads, scale, dscale, drop,
+                                       s);
+    case 2:
+      return launch_bwd<__half>(q, k, v, bias, g, dq, dk, dv, dl, dbias, batch, heads, tq,
+                                tk, depth, bias_heads, scale, dscale, drop, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The backward route the library takes for the shape: 1 = mma, 0 = FMA,
-// 2 = long, -1 = none (what ops/attention_core.py::backward_route names,
-// for the tests).
+// 2 = long, -1 = none (f16 past 32 tokens too; what
+// ops/attention_core.py::backward_route names, for the tests).
 int vptr_attention_core_bwd_route(int heads, int tq, int tk, int depth, int dtype) {
   if (short_takes(tq, tk, depth)) return mma_bwd_takes(heads, tq, tk, depth, dtype) ? 1 : 0;
-  return long_takes(tq, tk, depth) ? 2 : -1;
+  return long_takes(tq, tk, depth) && dtype != 2 ? 2 : -1;
 }
 
 }  // extern "C"

@@ -10,12 +10,13 @@
 //     a_h = dropout(softmax(q_h k_h^T * hd^-1/2 + bias_h)) v_h  (per head)
 //     out = [a_1 .. a_H] Wo + bo,  then * scale[window], + x when res (LN)
 // W*: (C, C) stored (in, out) like the JAX Dense kernels; biases, ls, lb,
-// pos (L, C), bias (1|H, L, L) and scale (windows,) are f32; T = float or
-// bf16. A head subset (tensor parallelism: heads h0 .. h0 + H - 1 of Hg,
-// each hd wide): Wq, Wk, Wv are (C, Cl) and Wo (Cl, C) with Cl = H hd the
-// inner width, so q, k, v and the merged heads are R x Cl and out is this
-// subset's share of the sum over all heads (the caller sums the shares and
-// passes bo = 0 or adds it once); the dropout index takes the global head. Rounding points are the plain versions'
+// pos (L, C), bias (1|H, L, L) and scale (windows,) are f32; T = float,
+// bf16 or f16 (dtype 0, 1, 2). A head subset (tensor parallelism: heads
+// h0 .. h0 + H - 1 of Hg, each hd wide): Wq, Wk, Wv are (C, Cl) and Wo
+// (Cl, C) with Cl = H hd the inner width, so q, k, v and the merged heads
+// are R x Cl and out is this subset's share of the sum over all heads (the
+// caller sums the shares and passes bo = 0 or adds it once); the dropout
+// index takes the global head. Rounding points are the plain versions'
 // (ops/fused_window_attention.py): xn and xqk rounded, q/k/v rounded after
 // the f32 bias add, q * scale rounded, f32 softmax, the weights rounded
 // after dropout, the merged heads rounded, the out projection in f32
@@ -60,7 +61,7 @@
 //   4. the out projection on the same product with the kRwOutProj epilogue:
 //      + bo, * scale[window], + x (res), rounded once. It has a third of
 //      q/k/v's tiles, so its last wave is part-filled.
-// * FMA (f32, or bf16 with C not a multiple of 8): one block a window,
+// * FMA (f32, f16, or bf16 with C not a multiple of 8): a block a window,
 //   heads one at a time; each thread owns one output column of q_h, k_h or
 //   v_h and keeps its L row sums in registers, reading the activation rows
 //   as float4 broadcasts; the per-head tiles use an odd row stride so
@@ -531,7 +532,7 @@ int out_projection(const void* a, const void* wo, const void* bo, const void* sc
 // Shapes and the route: wgmma for bf16 with C and the inner width Cl
 // multiples of 8 (TMA rows and the attention pass's 16-byte chunks) whose
 // attention pass fits a block's shared memory; the FMA kernel otherwise
-// (Cl = 132, 2 of 8 heads of 66 at C = 528, takes the FMA kernel).
+// (f32 and f16 always; Cl = 132, 2 of 8 heads of 66 at C = 528).
 bool use_wg(int L, int C, int Cl, int dtype) {
   return dtype == 1 && C % 8 == 0 && Cl % 8 == 0 && attn_smem(L, Cl) <= kSmemLimit;
 }
@@ -588,8 +589,8 @@ int run_wg(const FwdArgs& a, cudaStream_t s) {
 }
 
 // Checks the arguments, then runs the route the shape takes (dtype 0 =
-// float32, 1 = bfloat16). Returns a cudaError_t (0 = every pass launched),
-// or kTmaEncodeError + a CUresult.
+// float32, 1 = bfloat16, 2 = float16: FMA only). Returns a cudaError_t
+// (0 = every pass launched), or kTmaEncodeError + a CUresult.
 template <bool LN>
 int run_forward(const FwdArgs* a, cudaStream_t s) {
   if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
@@ -597,7 +598,7 @@ int run_forward(const FwdArgs* a, cudaStream_t s) {
       a->inner / a->heads > kMaxHeadDim ||
       (a->mask_heads ? a->head0 < 0 || a->head0 + a->heads > a->mask_heads : a->head0 != 0) ||
       (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) || a->dtype < 0 ||
-      a->dtype > 1 ||
+      a->dtype > 2 ||
       window_smem(a->tokens, a->channels, a->inner, a->heads, a->dtype) > kSmemLimit ||
       (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
       (!LN && (!a->xv || a->res || a->scale)))
@@ -608,9 +609,16 @@ int run_forward(const FwdArgs* a, cudaStream_t s) {
       return cudaErrorInvalidValue;
     return run_wg<LN>(*a, s);
   }
-  if (a->dtype == 0)
-    return a->tokens <= 16 ? launch_fma<float, 16, LN>(*a, s) : launch_fma<float, 32, LN>(*a, s);
-  return a->tokens <= 16 ? launch_fma<bf16, 16, LN>(*a, s) : launch_fma<bf16, 32, LN>(*a, s);
+  const bool short_l = a->tokens <= 16;
+  switch (a->dtype) {
+    case 0:
+      return short_l ? launch_fma<float, 16, LN>(*a, s) : launch_fma<float, 32, LN>(*a, s);
+    case 1:
+      return short_l ? launch_fma<bf16, 16, LN>(*a, s) : launch_fma<bf16, 32, LN>(*a, s);
+    case 2:
+      return short_l ? launch_fma<__half, 16, LN>(*a, s) : launch_fma<__half, 32, LN>(*a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -81,8 +81,8 @@
 //   - 6 on the row-tiled product over K = 3C (2C for dx_qk): the planes'
 //     dq | dk | dv columns are one operand, and the wrapper's [Wq Wk Wv]
 //     (C, 3C), copied side by side, its B^T.
-// * FMA (f32, or bf16 with C not a multiple of 8): tile_ops.cuh's gemm,
-//   64 x 64 tiles staged element by element, f32 products on the CUDA
+// * FMA (f32, f16, or bf16 with C not a multiple of 8): tile_ops.cuh's
+//   gemm, 64 x 64 tiles staged element by element, f32 products on the CUDA
 //   cores over dq, dk, dv in f32.
 #pragma once
 
@@ -118,6 +118,7 @@ namespace {
 constexpr int kMaxTokens = 32;
 constexpr int kMaxHeadDim = 128;
 
+// The wgmma route: bf16 only (f32 and f16 take the FMA route).
 bool wg_route(int C, int Cl, int dtype) { return dtype == 1 && C % 8 == 0 && Cl % 8 == 0; }
 
 // K chunks of the weight-gradient products (wpart). The wgmma route: one
@@ -718,8 +719,8 @@ int run(const BwdArgs& args, cudaStream_t s) {
 }
 
 // Checks the arguments, then runs the passes for T (dtype 0 = float32,
-// 1 = bfloat16). Returns a cudaError_t (0 = every pass launched), or
-// kTmaEncodeError + a CUresult.
+// 1 = bfloat16, 2 = float16). Returns a cudaError_t (0 = every pass
+// launched), or kTmaEncodeError + a CUresult.
 template <bool LN>
 int run_backward(const BwdArgs* a, cudaStream_t s) {
   if (!a || a->windows < 1 || a->tokens < 1 || a->tokens > kMaxTokens || a->heads < 1 ||
@@ -728,7 +729,7 @@ int run_backward(const BwdArgs* a, cudaStream_t s) {
       (a->inner != a->channels && (a->scale || a->res)) ||
       (a->mask_heads ? a->head0 < 0 || a->head0 + a->heads > a->mask_heads : a->head0 != 0) ||
       (a->bias && a->bias_heads != 1 && a->bias_heads != a->heads) ||
-      (a->dl && (!a->bias || !a->dbias)) || a->dtype < 0 || a->dtype > 1 ||
+      (a->dl && (!a->bias || !a->dbias)) || a->dtype < 0 || a->dtype > 2 ||
       (a->rate > 0.f && !a->seed) || a->rate >= 1.f || a->mask_tokens < a->tokens ||
       a->ksplit != ksplits(a->windows * a->tokens, a->channels, a->inner, a->dtype) ||
       !a->wpart || !a->colpart || (LN && !a->partial) || !a->dao ||
@@ -737,7 +738,15 @@ int run_backward(const BwdArgs* a, cudaStream_t s) {
       (LN && (!a->xn || !a->xqk || !a->mean || !a->rstd)) ||
       (!LN && (!a->xv || !a->dxv || a->res || a->scale)))
     return cudaErrorInvalidValue;
-  return a->dtype == 0 ? run<float, LN>(*a, s) : run<bf16, LN>(*a, s);
+  switch (a->dtype) {
+    case 0:
+      return run<float, LN>(*a, s);
+    case 1:
+      return run<bf16, LN>(*a, s);
+    case 2:
+      return run<__half, LN>(*a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

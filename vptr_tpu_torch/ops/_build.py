@@ -24,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention_core", "fused_window_attention_ln",
@@ -108,6 +110,22 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vptr_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+F16_QUEUED = ("float16 runs on kernels #1-#6's FMA routes only; f16 kernels for #7-#12 "
+              "and for #2/#4's long route are queued (ROADMAP.md §1)")
+
+
+def dtype_code(dtypes: Dict[torch.dtype, int], dtype: torch.dtype, what: str) -> int:
+    """``dtypes[dtype]``, the code a kernel's entry points take for the
+    dtype; a dtype the kernel has no instantiation for raises ValueError
+    before any launch, naming what it takes (for float16, where f16 runs
+    and that the rest is queued)."""
+    if dtype in dtypes:
+        return dtypes[dtype]
+    takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+    queued = f"; {F16_QUEUED}" if dtype == torch.float16 else ""
+    raise ValueError(f"{what} kernel takes {takes}, got {dtype}{queued}")
 
 
 def ptr(t) -> Optional[int]:

@@ -8,10 +8,11 @@ bounds each on the card and what its design does about that.
 
 * The forward has three routes, named by :func:`kernel_route` from the
   shapes. At Tq, Tk <= 32: "mma" (bf16: a batch element a block, q k^T
-  and P v on the tensor cores) and "fma" (f32, and the bf16 shapes "mma"
-  does not take). Past 32 tokens, up to Tq, Tk <= 160 with D <= 80:
+  and P v on the tensor cores) and "fma" (f32, f16, and the bf16 shapes
+  "mma" does not take). Past 32 tokens, up to Tq, Tk <= 160 with D <= 80:
   "long" (TSLMA's space-time windows: a head of a batch element a block,
-  bf16 on the tensor cores, f32 on the FMA units).
+  bf16 on the tensor cores, f32 on the FMA units; no f16 kernel, so f16
+  raises there before any launch, :func:`kernel_route` saying so).
 * The backward has the same three, named by :func:`backward_route`:
   "mma" (bf16: a batch element a block, dq, dk and dv on the tensor
   cores), "fma" and "long" (a head a block: a pass over query strips for
@@ -64,15 +65,20 @@ MAX_DEPTH = 128
 LONG_TOKENS = 160          # the long route
 LONG_DEPTH = 80
 MAX_SMEM = 232448          # dynamic shared memory of a block on the H100
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ROUTES = {"fma": 0, "mma": 1, "long": 2}
 
 
-def _is_long(tq: int, tk: int, depth: int) -> bool:
-    """Whether the shape takes the long route; raises past its reach."""
+def _is_long(tq: int, tk: int, depth: int, dtype: Optional[torch.dtype] = None) -> bool:
+    """Whether the shape takes the long route; raises past its reach, and
+    for a ``dtype`` the long route has no kernel for (float16)."""
     if tq <= MAX_TOKENS and tk <= MAX_TOKENS and depth <= MAX_DEPTH:
         return False
     if tq <= LONG_TOKENS and tk <= LONG_TOKENS and depth <= LONG_DEPTH:
+        if dtype == torch.float16:
+            raise ValueError(f"attention_core's long route (Tq={tq}, Tk={tk} past "
+                             f"{MAX_TOKENS}) takes float32 or bfloat16, got float16; "
+                             f"{_build.F16_QUEUED}")
         return True
     raise ValueError(
         f"attention_core kernel takes Tq, Tk <= {MAX_TOKENS} with D <= {MAX_DEPTH}, "
@@ -94,8 +100,10 @@ def kernel_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
     k/v slices are whole 16-byte vectors and q, k and v of one element fit
     a block's shared memory (with its 8-byte barrier), "fma" otherwise.
     Both layouts keep an element's slice contiguous, so the layout does not
-    enter. Raises past the long route's reach."""
-    if _is_long(tq, tk, depth):
+    enter. f16 takes "fma" (no f16 "mma" kernel). Raises past the long
+    route's reach, and for f16 past 32 tokens (ValueError naming float16:
+    the long route's f16 kernel is queued)."""
+    if _is_long(tq, tk, depth, dtype):
         return "long"
     if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
             and 2 * heads * (tq + 2 * tk) * depth + 8 <= MAX_SMEM):
@@ -111,8 +119,8 @@ def backward_route(dtype: torch.dtype, heads: int, tq: int, tk: int,
     batch element fit a block's shared memory (with its two 8-byte
     barriers), "fma" otherwise (the library's
     ``vptr_attention_core_bwd_route`` says the same). Raises past the long
-    route's reach."""
-    if _is_long(tq, tk, depth):
+    route's reach and for f16 past 32 tokens, as :func:`kernel_route`."""
+    if _is_long(tq, tk, depth, dtype):
         return "long"
     if (dtype == torch.bfloat16 and _whole_vectors(heads, tq, tk, depth)
             and 4 * heads * (tq + tk) * depth + 16 <= MAX_SMEM):
@@ -300,7 +308,7 @@ def _check(q, k, v, bias):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
     _is_long(tq, tk, d)                  # raises past the long route's reach
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention_core kernel takes float32 or bfloat16 "
+        raise TypeError(f"attention_core kernel takes float32, bfloat16 or float16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     layouts = tuple(layout(t) for t in (q, k, v))
     for name, t, lay in zip("qkv", (q, k, v), layouts):

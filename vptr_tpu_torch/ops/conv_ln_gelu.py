@@ -249,9 +249,9 @@ def kernel_route(hw: int, cin: int, cout: int, dtype: torch.dtype):
 def _operands(x, w, b, scale, bias2):
     """Check every operand against what the kernels take; returns (N, HW,
     Cin, Cout, route). Rows and weights are read in 16-byte pieces."""
-    if x.dim() != 3 or x.dtype not in _DTYPES:
-        raise ValueError(f"conv_ln_gelu kernel takes x (N, HW, Cin) in float32 or "
-                         f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    _build.dtype_code(_DTYPES, x.dtype, "conv_ln_gelu (#11/#12)")
+    if x.dim() != 3:
+        raise ValueError(f"conv_ln_gelu kernel takes x (N, HW, Cin), got {tuple(x.shape)}")
     n, hw, cin = x.shape
     cout = w.shape[-1]
     route = kernel_route(hw, cin, cout, x.dtype)
@@ -315,9 +315,10 @@ def _forward_kernel(x, w, b, scale, bias2):
 def _check_split(what, x, w, model=None):
     """A split or rows call's shape against the tiled steps' limits; a
     shape they do not take raises, naming them."""
-    if x.dim() != 3 or w.dim() != 2 or x.dtype not in _DTYPES:
-        raise ValueError(f"{what} takes x (N, HW, Cin) and w (Cin, Cout) in float32 or "
-                         f"bfloat16, got {tuple(x.shape)} {x.dtype}, {tuple(w.shape)}")
+    _build.dtype_code(_DTYPES, x.dtype, "conv_ln_gelu (#11/#12)")
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"{what} takes x (N, HW, Cin) and w (Cin, Cout), got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
     n, hw, cin = x.shape
     cout = w.shape[1]
     if not tiled_ok(hw, cin, cout) or n > TILED_MAX_N:

@@ -108,8 +108,9 @@ def dropout_keep_mask(seed: Seed, b: int, h: int, t: int, rate: float,
 
 def padded_tokens(tokens: int, dtype: torch.dtype) -> int:
     """Token count the window kernel's dropout index runs over: L rounded up
-    to 16 for bf16 and to 8 for f32 (the TPU kernel pads the token axis to a
-    sublane multiple before it builds the mask, ``_ln_pad``)."""
+    to 16 for bf16 and to 8 for f32 and f16 (the TPU kernel pads the token
+    axis to a sublane multiple before it builds the mask, ``_ln_pad``: 16
+    for bfloat16, 8 for every other dtype)."""
     sub = 16 if dtype == torch.bfloat16 else 8
     return -(-tokens // sub) * sub
 

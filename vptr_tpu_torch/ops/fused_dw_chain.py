@@ -364,9 +364,9 @@ def resident_clusters(hw: int, c: int) -> tuple:
 def _operands(x, taps, dwb, s1, b1, s2, b2, w, share=False):
     """Check every operand against what the kernels take (a tensor-parallel
     ``share`` any C); returns (N, HW, C)."""
-    if x.dim() != 3 or x.dtype not in _DTYPES:
-        raise ValueError(f"fused_dw_chain kernel takes x (N, HW, C) in float32 "
-                         f"or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    _build.dtype_code(_DTYPES, x.dtype, "fused_dw_chain (#9/#10)")
+    if x.dim() != 3:
+        raise ValueError(f"fused_dw_chain kernel takes x (N, HW, C), got {tuple(x.shape)}")
     n, hw, c = x.shape
     if w < 1 or hw % w:
         raise ValueError(f"fused_dw_chain: HW={hw} is not a multiple of w={w}")
@@ -412,6 +412,7 @@ def split_ok(hw: int, c: int, w: int, n: int = 1) -> bool:
 
 
 def _check_split(what, x, w, model):
+    _build.dtype_code(_DTYPES, x.dtype, "fused_dw_chain (#9/#10)")
     if x.dim() != 3:
         raise ValueError(f"{what} takes x (N, HW, C), got {tuple(x.shape)}")
     n, hw, c = x.shape

@@ -166,16 +166,16 @@ def fused_ffn_backward(x, w1, b1, w2, b2, ls, lb, seed, g, rate: float = 0.0,
 def kernel_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
     """Which route kernel #7 takes: ``"wgmma"`` (bf16 on the warpgroup
     MMA, fed by TMA) or ``"fma"`` (f32 FMAs on the CUDA cores)."""
-    return ("wgmma" if _lib().vptr_fused_ffn_route(
-        channels, hidden, _DTYPES[dtype]) else "fma")
+    code = _build.dtype_code(_DTYPES, dtype, "fused_ffn (#7/#8)")
+    return "wgmma" if _lib().vptr_fused_ffn_route(channels, hidden, code) else "fma"
 
 
 def backward_route(channels: int, hidden: int, dtype: torch.dtype) -> str:
     """Which route kernel #8 takes: ``"wgmma"`` (bf16, C and H multiples
     of 8: every product on the warpgroup MMA, fed by TMA) or ``"fma"`` (f32
     FMAs on the CUDA cores)."""
-    return ("wgmma" if _lib_bwd().vptr_fused_ffn_bwd_route(
-        channels, hidden, _DTYPES[dtype]) else "fma")
+    code = _build.dtype_code(_DTYPES, dtype, "fused_ffn (#7/#8)")
+    return "wgmma" if _lib_bwd().vptr_fused_ffn_bwd_route(channels, hidden, code) else "fma"
 
 
 def fc1_product(a, b) -> torch.Tensor:
@@ -231,9 +231,9 @@ def weight_product(a, b_hi, b_lo, transposed: bool = False) -> torch.Tensor:
 def _operands(x, w1, b1, w2, b2, ls, lb):
     """Check every operand against what the kernels take; returns (S, C,
     H). Rows and weights are read in 16-byte pieces."""
-    if x.dim() != 2 or x.dtype not in _DTYPES:
-        raise ValueError(f"fused_ffn kernel takes x (S, C) in float32 or "
-                         f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    _build.dtype_code(_DTYPES, x.dtype, "fused_ffn (#7/#8)")
+    if x.dim() != 2:
+        raise ValueError(f"fused_ffn kernel takes x (S, C), got {tuple(x.shape)}")
     s, c = x.shape
     h = w1.shape[-1]
     f32 = torch.float32

@@ -22,11 +22,12 @@ The kernels are CUDA C++ for sm_90a; #1/#5 share
 whose notes say what bounds each on the card and what the design does
 about that. Both directions' bf16 routes run their products on ``wgmma``
 (``csrc/wg_rows.cuh``, ``csrc/wg_dw.cuh``) when C is a multiple of 8, and
-other shapes on FMAs; :func:`kernel_route` and :func:`backward_route` name
-the route. The forward's bf16 route is four passes (LayerNorm rows; q, k,
-v; the attention per (window, head) on ``mma.sync``; the out projection
-with + bo, * scale, + x in its epilogue) over scratch the wrapper
-allocates and frees when the call returns.
+other shapes, f32 and f16 on FMAs; :func:`kernel_route` and
+:func:`backward_route` name the route. The forward's bf16 route is four
+passes (LayerNorm rows; q, k, v; the attention per (window, head) on
+``mma.sync``; the out projection with + bo, * scale, + x in its
+epilogue) over scratch the wrapper allocates and frees when the call
+returns.
 
 * The wrappers are ``torch.autograd.Function``s: for CUDA tensors they
   launch the kernels (or raise), for CPU tensors they take the plain
@@ -34,7 +35,8 @@ allocates and frees when the call returns.
 * ``fused_attention_ln.launches`` / ``.bwd_launches`` count calls of #1
   and #3 by either LN wrapper (one a call, however many passes it runs),
   ``fused_attention.launches`` / ``.bwd_launches`` of #5 and #6, and
-  nothing else.
+  nothing else; ``.launches_by_route`` / ``.bwd_launches_by_route`` split
+  them by route ("wgmma", "fma").
 * Weights are (C_in, C_out) like the JAX Dense kernels, in the compute
   dtype; biases, the LN affine, ``pos`` and ``scale`` are f32. Gradients
   come back in each operand's dtype; ``pos`` (a sine table) and ``scale``
@@ -77,7 +79,8 @@ from vptr_tpu_torch.ops.dropout import (
 MAX_TOKENS = 32
 MAX_HEAD_DIM = 128
 LN_EPS = 1e-5
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("wgmma", "fma")
 
 
 def _heads_attention(q, k, v, bias, seed, num_heads, dropout_rate, mask_heads=None,
@@ -351,8 +354,8 @@ def _forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
         return fused_attention_ln_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, ls,
                                         lb, pos, bias, seed, num_heads, rate,
                                         scale, res, mask_heads, head0)
-    return _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
-                           bias, scale, seed, num_heads, rate, res, mask_heads, head0)
+    return _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
+                        seed, num_heads, rate, res, mask_heads=mask_heads, head0=head0)
 
 
 def _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
@@ -371,6 +374,8 @@ def _apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale, seed,
 
 fused_attention_ln.launches = 0
 fused_attention_ln.bwd_launches = 0
+fused_attention_ln.launches_by_route = dict.fromkeys(ROUTES, 0)
+fused_attention_ln.bwd_launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def fused_attention_ln_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos,
@@ -445,6 +450,8 @@ def fused_attention(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias=None,
 
 fused_attention.launches = 0
 fused_attention.bwd_launches = 0
+fused_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+fused_attention.bwd_launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
@@ -453,8 +460,9 @@ def _forward_two(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
     if x_qk.device.type == "cpu":
         return fused_attention_plain(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo,
                                      bias, seed, num_heads, rate, mask_heads, head0)
-    return _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
-                               seed, num_heads, rate, mask_heads, head0)
+    return _run_forward(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None, None, bias, None,
+                        seed, num_heads, rate, False, x_v=x_v, mask_heads=mask_heads,
+                        head0=head0)
 
 
 def fused_attention_backward(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias,
@@ -494,8 +502,8 @@ def kernel_route(tokens: int, channels: int, dtype: torch.dtype,
     and the inner width Cl (``inner``, default C: every head) multiples of
     8, any number of windows: LayerNorm rows, q/k/v and the out projection
     on the warpgroup MMA fed by TMA, the attention per (window, head) on
-    ``mma.sync``) or ``"fma"`` (FMAs on the CUDA cores; f32, and bf16 at
-    other widths, e.g. Cl = 132). Chosen from the shape before any launch;
+    ``mma.sync``) or ``"fma"`` (FMAs on the CUDA cores; f32, f16, and
+    bf16 at other widths, e.g. Cl = 132). Chosen from the shape before any launch;
     the libraries' ``*_route`` entry points say the same."""
     inner = channels if inner is None else inner
     return ("wgmma" if dtype == torch.bfloat16 and channels % 8 == 0 and inner % 8 == 0
@@ -507,7 +515,8 @@ def backward_route(tokens: int, channels: int, dtype: torch.dtype,
     """Which route the backward kernel (#3 with ``ln``, else #6) takes:
     ``"wgmma"`` (bf16, C and the inner width ``inner`` (default C)
     multiples of 8, any number of rows: every product on the warpgroup
-    MMA, fed by TMA) or ``"fma"`` (FMAs on the CUDA cores). Chosen from the
+    MMA, fed by TMA) or ``"fma"`` (FMAs on the CUDA cores: f32, f16, and
+    bf16 at other widths). Chosen from the
     shape before the launch; ``tokens`` and ``ln`` do not enter; the
     libraries' ``*_route`` entry points say the same."""
     del tokens, ln
@@ -643,8 +652,8 @@ def _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
                          f"and a head width <= {MAX_HEAD_DIM} dividing Cl; got "
                          f"L={l} C={c} Cl={cl} heads={num_heads}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"fused_attention_ln kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"fused_attention_ln kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
 
     def operand(t, shape, dtype, name, align=1):
         if t is None:
@@ -696,8 +705,9 @@ def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
     """Kernel #1 (LayerNorm folded in) or, with ``x_v``, kernel #5 (x is
     then x_qk): the route the shape takes, with the wgmma route's scratch
     (one allocation, returned to torch's stream-ordered allocator when the
-    call returns: later work on the stream runs after the passes). Returns
-    the output."""
+    call returns: later work on the stream runs after the passes), counted
+    in the wrapper's ``launches`` and ``launches_by_route``. Returns the
+    output."""
     ln = x_v is None
     name = "fused_attention_ln" if ln else "fused_attention"
     bias, bias_heads, cl = _operands(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb,
@@ -712,7 +722,8 @@ def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
                          f"shared memory (> {SMEM_LIMIT})")
     rows = bw * l
     scratch, ptrs = None, {}
-    if getattr(lib, f"{entry}_route")(l, c, cl, _DTYPES[dt]):
+    wg = bool(getattr(lib, f"{entry}_route")(l, c, cl, _DTYPES[dt]))
+    if wg:
         # one allocation, carved into 256-byte aligned pieces
         plane = -(-rows * c * x.element_size() // 256) * 256
         inner = -(-rows * cl * x.element_size() // 256) * 256
@@ -739,24 +750,9 @@ def _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias, scale,
         qscale=q_scale(cl // num_heads, dt), eps=LN_EPS, rate=rate, keep_div=keep_div)
     err = getattr(lib, entry)(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, name)
-    return out
-
-
-def _forward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                    scale, seed, num_heads, rate, res, mask_heads=None, head0=0):
-    out = _run_forward(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
-                       scale, seed, num_heads, rate, res, mask_heads=mask_heads,
-                       head0=head0)
-    fused_attention_ln.launches += 1
-    return out
-
-
-def _forward_two_kernel(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, bias, seed,
-                        num_heads, rate, mask_heads=None, head0=0):
-    out = _run_forward(x_qk, wq, bq, wk, bk, wv, bv, wo, bo, None, None, None,
-                       bias, None, seed, num_heads, rate, False, x_v=x_v,
-                       mask_heads=mask_heads, head0=head0)
-    fused_attention.launches += 1
+    counter = fused_attention_ln if ln else fused_attention
+    counter.launches += 1
+    counter.launches_by_route["wgmma" if wg else "fma"] += 1
     return out
 
 
@@ -846,12 +842,13 @@ def _backward_kernel(x, wq, bq, wk, bk, wv, bv, wo, bo, ls, lb, pos, bias,
     err = getattr(lib, entry)(ctypes.byref(a),
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, f"{name} backward")
+    counter = fused_attention_ln if ln else fused_attention
+    counter.bwd_launches += 1
+    counter.bwd_launches_by_route["wgmma" if wg else "fma"] += 1
     if ln:
-        fused_attention_ln.bwd_launches += 1
         order = ("dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo",
                  "dls", "dlb", "dbias")
     else:
-        fused_attention.bwd_launches += 1
         order = ("dx", "dxv", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
                  "dbo", "dbias")
     return tuple(grads[k] for k in order)

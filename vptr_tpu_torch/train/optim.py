@@ -9,7 +9,7 @@ weight_decay=wd, mu_dtype=mu_dtype))`` in optax 0.2.6:
   (g / n) * max_norm (``torch.nn.utils.clip_grad_norm_`` scales by
   max_norm / (n + 1e-6) instead);
 * ``scale_by_adam``: mu = (1 - b1) g + b1 mu_old, where ``b1 * mu_old`` is
-  a product in mu's dtype (JAX rounds the Python constant to a bf16 mu's
+  a product in mu's dtype (JAX rounds the Python constant to a bf16 or f16 mu's
   dtype); nu = (1 - b2) g^2 + b2 nu_old in f32; the update
   mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) uses the f32 mu, which is
   then stored in ``mu_dtype`` (``OptimConfig.mu_dtype``, bf16 by default);
@@ -41,7 +41,8 @@ import torch
 from vptr_tpu_torch.losses import noam_schedule
 from vptr_tpu_torch.parallel.mesh import model_sum
 
-_MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
 
 
 @dataclass

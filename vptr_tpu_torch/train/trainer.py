@@ -10,7 +10,7 @@ and ``Trainer(cfg).train()`` runs it:
   factories of :mod:`vptr_tpu_torch.train.steps` make the train and eval
   steps; a stage-2 run loads the frozen autoencoder from ``cfg.ae_ckpt``;
 * each batch is cast to the compute dtype on the host (half the bytes in
-  bf16), pinned, and copied to the card without blocking;
+  bf16 and f16), pinned, and copied to the card without blocking;
 * the step metrics stay on the card and are read in chunks of 128 steps
   (one host synchronisation a chunk, not one a step);
 * with ``cfg.resume`` a run continues from the latest checkpoint under
@@ -101,7 +101,8 @@ from vptr_tpu_torch.utils.misc import (
     transformer_step_flops,
 )
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 FETCH_EVERY = 128     # steps whose metrics are read from the card at once
 
 
@@ -149,6 +150,9 @@ class Trainer:
                 f"ckpt_per_epochs must be >= 1, got {cfg.ckpt_per_epochs}")
         if cfg.stage not in ("ae", "far", "nar"):
             raise ValueError(f"unknown stage {cfg.stage!r}")
+        if self.dtype == torch.float16 and cfg.mesh.model > 1:
+            raise ValueError(f"dtype float16 under mesh.model {cfg.mesh.model} is queued "
+                             f"(ROADMAP.md §1); float16 trains with mesh.model 1")
         self.mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
         if cfg.data.batch_size % self.mesh.data:
             raise ValueError(f"data.batch_size {cfg.data.batch_size} does not split "
@@ -237,7 +241,7 @@ class Trainer:
 
     def _stage(self, arr) -> torch.Tensor:
         # cast on the host (round to nearest even, as a cast on the card
-        # would): half the bytes to copy in bf16
+        # would): half the bytes to copy in bf16 and f16
         t = torch.as_tensor(arr).to(self.dtype)
         if self.device.type != "cuda":
             return t
